@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into its
-own shared library with a plain C interface (no PyTorch headers, so a
+Each source ``paddle_tpu_torch/csrc/<source>.cu`` compiles with ``nvcc``
+into its own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds), loaded with ``ctypes``. Libraries land in
 ``build/kernels/`` at the repository root (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited kernel rebuilds
 and an unchanged one is reused. Nothing is built at import: the first
 launch builds what it needs, and :func:`build_all` builds every kernel
-at once, one ``nvcc`` process per source, all started together.
+at once, one ``nvcc`` process per source, all started together. A source
+may hold several kernels (``flash_bwd.cu`` holds both backward kernels),
+each with its own C entry point.
 
 Override the output directory with ``PADDLE_TPU_TORCH_BUILD_DIR`` and the
 compiler with ``NVCC`` (else ``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on
@@ -27,14 +29,22 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 _REPO = _PKG.parent
 
-#: kernel name -> its C entry point's argument types (pointers and the
-#: stream as void*, everything else as int)
+#: kernel name -> (its source under csrc/, its C entry point, the entry's
+#: argument types: pointers and the stream as void*, everything else int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "paged_decode": ("pt_paged_decode", [_P] * 6 + [_I] * 8 + [_P]),
-    "ragged_attention": ("pt_ragged_attention", [_P] * 8 + [_I] * 9 + [_P]),
-    "flash": ("pt_flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),
+    "paged_decode": ("paged_decode", "pt_paged_decode",
+                     [_P] * 6 + [_I] * 8 + [_P]),
+    "ragged_attention": ("ragged_attention", "pt_ragged_attention",
+                         [_P] * 8 + [_I] * 9 + [_P]),
+    "flash": ("flash", "pt_flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),
+    "flash_bwd_dkv": ("flash_bwd", "pt_flash_bwd_dkv",
+                      [_P] * 8 + [_I] * 7 + [_P]),
+    "flash_bwd_dq": ("flash_bwd", "pt_flash_bwd_dq",
+                     [_P] * 7 + [_I] * 7 + [_P]),
 }
+#: the sources, one library each
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,28 +67,36 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def _sources(name):
-    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+def _source(name):
+    """The source of kernel ``name`` (a source name maps to itself)."""
+    return SIGNATURES[name][0] if name in SIGNATURES else name
+
+
+def _sources(source):
+    return [CSRC / f"{source}.cu"] + sorted(CSRC.glob("*.cuh"))
 
 
 def library_path(name) -> Path:
+    """The library built from ``name``'s source (a kernel or a source)."""
+    source = _source(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
+    for src in _sources(source):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{source}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name):
-    """Start one nvcc for ``name`` unless its library exists; returns
+def _start(source):
+    """Start one nvcc for ``source`` unless its library exists; returns
     ``(process, tmp_path, out_path, log_path)`` or None."""
-    out = library_path(name)
+    out = library_path(source)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / f"{source}.cu")]
     with open(log, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
                                 cwd=str(CSRC))
@@ -94,11 +112,11 @@ def _finish(name, job):
 
 
 def build_all(names=None):
-    """Build every kernel (or ``names``), one nvcc per source in parallel.
-    Returns ``{name: library path}``."""
-    names = list(names or SIGNATURES)
+    """Build every kernel (or those of ``names``, kernels or sources), one
+    nvcc per source in parallel. Returns ``{name: library path}``."""
+    names = list(names or SOURCES)
     with _lock:
-        jobs = {n: _start(n) for n in names}
+        jobs = {s: _start(s) for s in dict.fromkeys(map(_source, names))}
         try:
             for n, job in jobs.items():
                 if job is not None:
@@ -112,8 +130,9 @@ def build_all(names=None):
 
 
 def build_log(name) -> str:
-    """The compiler's output of the last build of ``name`` (``-Xptxas -v``
-    lists each kernel's registers, shared memory and spills)."""
+    """The compiler's output of the last build of ``name``'s source
+    (``-Xptxas -v`` lists each kernel's registers, shared memory and
+    spills)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
@@ -126,7 +145,7 @@ def load(name):
     path = build_all([name])[name]
     with _lock:
         if name not in _loaded:
-            symbol, argtypes = SIGNATURES[name]
+            _, symbol, argtypes = SIGNATURES[name]
             f = getattr(ctypes.CDLL(str(path)), symbol)
             f.argtypes = argtypes
             f.restype = ctypes.c_int

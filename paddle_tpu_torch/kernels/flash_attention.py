@@ -1,10 +1,14 @@
 """Attention dispatcher for model internals, ``[batch, seq, heads, dim]``.
 
 The counterpart of ``paddle_tpu/kernels/flash_attention.py``'s
-``attention``/``_ref_attention``. There the Pallas kernel takes over at
-S >= 512 on a TPU, a tuning choice of that chip; here a CUDA tensor goes
-through the flash kernel at every S, and only a CPU tensor takes the
-plain version.
+``attention``/``_ref_attention``/``_use_pallas``. There the Pallas kernel
+takes over at S >= 512 on a TPU, a tuning choice of that chip; here a
+CUDA tensor goes through the flash kernels at every S while
+``FLAGS_use_cuda_kernels`` is on (the counterpart of
+``FLAGS_use_pallas_kernels``), and a CPU tensor, or any tensor with the
+flag off, takes the plain versions. Gradients flow through the flash
+backward (``flash.FlashAttention``): its two kernels on CUDA, its plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -16,10 +20,8 @@ NEG_INF = -1e30
 
 
 def attention(q, k, v, causal=True):
-    """q [B, S, H, D]; k/v [B, S, Hk, D]: the flash kernel on CUDA, the
-    plain version on CPU."""
-    if q.device.type == "cpu":
-        return _ref_attention(q, k, v, causal)
+    """q [B, S, H, D]; k/v [B, S, Hk, D]: the flash kernels (forward and
+    backward) on CUDA, their plain versions on CPU."""
     from .flash import flash_attention
     return flash_attention(q, k, v, causal=causal)
 

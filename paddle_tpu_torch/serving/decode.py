@@ -28,11 +28,13 @@ What changes from JAX to PyTorch:
 - PRNG keys stay on the host as int64 tensors holding uint32 values
   (``core/random.py``); only a sampling draw moves its keys to the
   logits' device.
+- The model's parameters are trainable, so both programs run under
+  ``torch.inference_mode()``: serving records no autograd graph.
 
-``decode_attn`` selects the attention: ``"cuda"`` calls the kernel
-wrappers (the hand-written CUDA kernels for CUDA tensors, their plain
-versions for CPU tensors), ``"torch"`` calls the plain versions on any
-device — the A/B switch mirroring the JAX package's ``"pallas"|"jnp"``.
+``FLAGS_use_cuda_kernels`` (``paddle_tpu_torch.flags``) selects the
+attention at every call: on, the kernel wrappers (the hand-written CUDA
+kernels for CUDA tensors, their plain versions for CPU tensors); off,
+the plain versions on any device — the A/B switch.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core import random as prng
+from ..flags import get_flag
 from ..kernels.flash_attention import _ref_attention
 from ..kernels.flash_attention import attention as _attention
 from ..kernels.paged_decode import (paged_decode_attention,
@@ -51,18 +54,13 @@ from ..models.llama import (STACK_KEYS, _apply_rope, _qkv_bshd, _rms,
 
 NEG_INF = -1e30
 
-_ATTN = {
-    "cuda": (_attention, paged_decode_attention, ragged_paged_attention),
-    "torch": (_ref_attention, paged_decode_attention_reference,
-              ragged_attention_reference),
-}
-
-
-def _attn_fns(decode_attn):
-    if decode_attn not in _ATTN:
-        raise ValueError(f"decode_attention must be 'cuda' or 'torch', got "
-                         f"{decode_attn!r}")
-    return _ATTN[decode_attn]
+def _attn_fns():
+    """(prefill, paged decode, ragged) attention: the kernel wrappers
+    while ``FLAGS_use_cuda_kernels`` is on, else the plain versions."""
+    if get_flag("FLAGS_use_cuda_kernels"):
+        return _attention, paged_decode_attention, ragged_paged_attention
+    return (_ref_attention, paged_decode_attention_reference,
+            ragged_attention_reference)
 
 
 # The projections are plain matmuls on dense weights — the dense branches
@@ -147,15 +145,16 @@ def _split_rows(keys):
 
 
 # ------------------------------------------------------------------ prefill
+@torch.inference_mode()
 def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
-                  eps, theta, tied, decode_attn="cuda"):
+                  eps, theta, tied):
     """Batched cold prefill: ids [G, S_pad] right-padded prompts, lengths
     [G] real token counts, per-row keys/temps/top_ks (host arrays).
 
     Returns ``(pk, pv, tok0, keys')``: pk/pv ``[L, G, S_pad, Hkv, D]``
     (padding positions hold garbage the cache write never installs),
     tok0 ``[G]`` on the device, keys' ``[G, 2]`` on the host."""
-    attn_fn = _attn_fns(decode_attn)[0]
+    attn_fn = _attn_fns()[0]
     embed = params["embed"]
     dev = embed.device
     ids = torch.as_tensor(_host(ids)).to(dev)
@@ -187,7 +186,7 @@ def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
 # ------------------------------------------------------ unified ragged step
 def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
                        pool_k, pool_v, lens, kys, app_mask, temps, top_ks,
-                       *, nh, nkv, hd, eps, decode_attn):
+                       *, nh, nkv, hd, eps):
     """ONE decode tick over all rows: embed the last tokens, per layer
     RMSNorm → QKV → RoPE at each row's length → append K/V through the
     tables (rows with ``app_mask == 0`` or past capacity do not append) →
@@ -198,7 +197,7 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     same as an int32 device tensor); lens/app_mask [R] numpy; kys [R, 2]
     host keys. Returns ``(next_tok, pool_k, pool_v, keys')``; the caller
     advances ``lens`` by ``app_mask``."""
-    paged_fn = _attn_fns(decode_attn)[1]
+    paged_fn = _attn_fns()[1]
     dev = tok.device
     R = tok.shape[0]
     nb, bs = pool_k.shape[1], pool_k.shape[2]
@@ -252,7 +251,7 @@ def _span_last_sample(params, head, x, qstart, qlen, keys, temps, top_ks,
 
 def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
                          seg, pos, qstart, qlen, kvlen, sin, cos, *, nh,
-                         nkv, hd, eps, decode_attn):
+                         nkv, hd, eps):
     """ONE forward pass over a packed buffer of variable-length query
     spans through the block tables (tick 0 of the unified step). K/V of
     every live packed token is written through its slot's table at its
@@ -260,7 +259,7 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
     logical capacity and unmapped table entries do not write — then
     attention runs through the ragged kernel (or its plain version).
     Returns ``(x [1, T, H], pool_k, pool_v)``."""
-    ragged_fn = _attn_fns(decode_attn)[2]
+    ragged_fn = _attn_fns()[2]
     dev = params["embed"].device
     R, mb = tables.shape
     nb, bs = pool_k.shape[1], pool_k.shape[2]
@@ -278,11 +277,8 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
     prow_w = torch.from_numpy((pos % bs)[live]).to(dev)
     pidx = torch.from_numpy(np.clip(pos, 0, s_tot - 1)).to(dev)
     sin_p, cos_p = sin[pidx][None], cos[pidx][None]         # [1, T, D]
-    if decode_attn == "cuda":
-        span = [torch.from_numpy(_host(a, np.int32)).to(dev)
-                for a in (qstart, qlen, kvlen)]
-    else:
-        span = [_host(a) for a in (qstart, qlen, kvlen)]
+    span = [torch.from_numpy(_host(a, np.int32)).to(dev)
+            for a in (qstart, qlen, kvlen)]
     x = params["embed"][torch.as_tensor(_host(ids)).to(dev)[None]]
     for l in range(pool_k.shape[0]):
         lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _layer(params, l)
@@ -298,10 +294,10 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
     return x, pool_k, pool_v
 
 
+@torch.inference_mode()
 def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                       qstart, qlen, kvlen, dec_mask, keys, temps, top_ks,
-                      *, n_steps, nh, nkv, hd, eps, theta, tied,
-                      decode_attn="cuda"):
+                      *, n_steps, nh, nkv, hd, eps, theta, tied):
     """THE unified serving step: one call that advances every slot's span
     — decode rows (span 1) and prefill chunks (span n) — through the same
     block tables.
@@ -330,8 +326,7 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
     # ----------------------------------- tick 0 (shared packed forward)
     x, pool_k, pool_v = _packed_span_forward(
         params, pool_k, pool_v, tables, tables_dev, ids, seg, pos, qstart,
-        qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
-        decode_attn=decode_attn)
+        qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps)
     tok0, keys_t0 = _span_last_sample(params, head, x, qstart, qlen, keys,
                                       temps, top_ks, eps)
     # ------------------------------------------- fused tail (pure decode)
@@ -342,7 +337,7 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
         tok, pool_k, pool_v, kys = _fused_decode_tick(
             params, head, tables, tables_dev, sin, cos, tok, pool_k,
             pool_v, lens, kys, dec_mask, temps, top_ks, nh=nh, nkv=nkv,
-            hd=hd, eps=eps, decode_attn=decode_attn)
+            hd=hd, eps=eps)
         lens = lens + dec_mask
         toks.append(tok)
     return pool_k, pool_v, torch.stack(toks), keys_t0, kys

@@ -25,6 +25,7 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from ..core import random as prng
 from ..models.llama import llama_decode_params
@@ -45,9 +46,8 @@ class ContinuousBatchingEngine:
 
     ``model`` is a :class:`~paddle_tpu_torch.models.llama.LlamaForCausalLM`;
     the engine runs on the model's device, and its attention follows
-    ``model.config.decode_attention`` (``"cuda"``: the CUDA kernels on a
-    CUDA model, their plain versions on a CPU one; ``"torch"``: the plain
-    versions).
+    ``FLAGS_use_cuda_kernels`` (on: the CUDA kernels on a CUDA model,
+    their plain versions on a CPU one; off: the plain versions).
 
     ``prefix_block_size`` is the KV block size (the JAX engine's name for
     it, kept so both engines take the same arguments).
@@ -97,10 +97,6 @@ class ContinuousBatchingEngine:
         if not ragged_step:
             _not_ported("ragged_step=False",
                         "Queue A step 9 (two-program step)")
-        if c.decode_attention not in ("cuda", "torch"):
-            raise ValueError(
-                f"decode_attention must be 'cuda' or 'torch', got "
-                f"{c.decode_attention!r}")
         self.model = model
         self.config = c
         self.num_slots = int(num_slots)
@@ -166,8 +162,7 @@ class ContinuousBatchingEngine:
         c = self.config
         return dict(nh=c.num_attention_heads, nkv=c.num_key_value_heads,
                     hd=c.head_dim, eps=float(c.rms_norm_eps),
-                    theta=float(c.rope_theta), tied=self._tied,
-                    decode_attn=c.decode_attention)
+                    theta=float(c.rope_theta), tied=self._tied)
 
     # ------------------------------------------------------------- intake
     def _key_for(self, request):
@@ -379,9 +374,11 @@ class ContinuousBatchingEngine:
             seq.t_first_token = self._stamp_now()
         seq.t_last_token = self._stamp_now()
 
+    @torch.inference_mode()
     def step(self):
         """Admit + this step's chunk grant + decode, as ONE unified step,
-        + retire. Returns every sequence this step finished, deadline
+        + retire. Runs under ``torch.inference_mode()``: the model's
+        parameters are trainable, and serving records no graph. Returns every sequence this step finished, deadline
         expiries included.
 
         A :class:`~.kv_cache.PoolExhausted` raised in the step body is

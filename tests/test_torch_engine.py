@@ -23,6 +23,7 @@ from paddle_tpu.models.llama import llama_tiny as j_tiny
 from paddle_tpu.serving import ContinuousBatchingEngine as JEngine
 from paddle_tpu.serving import GenerationRequest as JRequest
 from paddle_tpu.serving.decode import llama_decode_params
+from paddle_tpu_torch.flags import set_flags
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_tiny,
                                            load_decode_params)
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
@@ -228,10 +229,13 @@ def test_kernels_match_plain_versions_in_the_engine():
                      num_key_value_heads=2)
     model = LlamaForCausalLM(cfg, device="cuda", seed=5)
     outs = {}
-    for attn in ("cuda", "torch"):
-        cfg.decode_attention = attn
-        eng = ContinuousBatchingEngine(model, **GEOMETRY)
-        outs[attn] = [o.tolist() for o in eng.generate(
-            [GenerationRequest(prompt=_prompt(s, n), max_new_tokens=8)
-             for s, n in ((1, 45), (2, 12), (3, 30))])]
-    assert outs["cuda"] == outs["torch"]
+    try:
+        for use in (True, False):
+            set_flags({"FLAGS_use_cuda_kernels": use})
+            eng = ContinuousBatchingEngine(model, **GEOMETRY)
+            outs[use] = [o.tolist() for o in eng.generate(
+                [GenerationRequest(prompt=_prompt(s, n), max_new_tokens=8)
+                 for s, n in ((1, 45), (2, 12), (3, 30))])]
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    assert outs[True] == outs[False]

@@ -47,7 +47,10 @@ def _clean_env():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.kernels.flash, chip_smoke; "
+            "paddle_tpu_torch.kernels.flash, paddle_tpu_torch.jit, "
+            "paddle_tpu_torch.nn, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.models.llama, paddle_tpu_torch.flags, "
+            "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -7,11 +7,9 @@ setting) and its jnp reference. Inputs come from a numpy seed and go to
 both sides as the same arrays. Tolerance: max-abs <= 1e-5 in float32 —
 the two sides sum in different orders, nothing else differs.
 
-The CUDA kernels themselves run only on a GPU: the ``cuda``-marked tests
-hold each against its plain version there and skip here.
+The CUDA kernels themselves run only on a GPU: ``test_torch_on_card.py``
+holds each against its plain version there.
 """
-import subprocess
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -211,7 +209,8 @@ class TestWrappers:
         q, pk, pv, tbl, lens = _paged(2, 4, 2, 16, 2, 8, seed=2)
         tpd.paged_decode_attention(_t(q), _t(pk), _t(pv), _t(tbl), _t(lens))
         assert LAUNCHES == {"flash": 0, "paged_decode": 0,
-                            "ragged_attention": 0}
+                            "ragged_attention": 0, "flash_bwd_dkv": 0,
+                            "flash_bwd_dq": 0}
 
     @pytest.mark.parametrize("which", ["paged", "ragged", "flash"])
     def test_other_devices_raise(self, which):
@@ -236,57 +235,16 @@ class TestWrappers:
 
     def test_library_named_by_source_hash(self, tmp_path, monkeypatch):
         monkeypatch.setenv("PADDLE_TPU_TORCH_BUILD_DIR", str(tmp_path))
-        paths = {n: _build.library_path(n) for n in _build.SIGNATURES}
-        assert len(set(paths.values())) == 3
+        paths = {n: _build.library_path(n) for n in _build.SOURCES}
+        assert len(set(paths.values())) == 4
         for n, p in paths.items():
             assert p.parent == tmp_path and p.name.startswith(n + "-")
             assert p == _build.library_path(n)          # deterministic
+        # both backward kernels live in one source, so one library
+        assert _build.library_path("flash_bwd_dkv") == \
+            _build.library_path("flash_bwd_dq") == paths["flash_bwd"]
 
     def test_nonzero_cuda_status_raises(self):
         _build.check("flash", 0)
         with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
             _build.check("flash", 1)
-
-
-# ------------------------------------------------------------ on the card
-@pytest.fixture
-def cuda_dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    try:
-        subprocess.run([_build.nvcc(), "--version"], capture_output=True,
-                       check=True)
-    except (OSError, subprocess.CalledProcessError):
-        pytest.skip("needs nvcc to build the kernels")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
-                                        (torch.bfloat16, 3e-2)])
-class TestOnCard:
-    def test_paged_decode_kernel_vs_plain(self, cuda_dev, dtype, atol):
-        q, pk, pv, tbl, lens = _paged(4, 8, 2, 64, 4, 16, seed=1,
-                                      nan_stale=True)
-        a = [_t(x).to(cuda_dev) for x in (q, pk, pv)]
-        a = [x.to(dtype) for x in a] + [_t(tbl).to(cuda_dev),
-                                        _t(lens).to(cuda_dev)]
-        got = tpd.paged_decode_attention(*a)
-        want = tpd.paged_decode_attention_reference(*a)
-        assert (got.float() - want.float()).abs().max().item() <= atol
-
-    def test_ragged_kernel_vs_plain(self, cuda_dev, dtype, atol):
-        args = _ragged(MIXED, 8, 2, 64, 5, 8, seed=2, T=48)
-        a = [_t(x).to(cuda_dev) for x in args]
-        a = [x.to(dtype) for x in a[:3]] + a[3:]
-        got = tra.ragged_paged_attention(*a)
-        want = tra.ragged_attention_reference(*a)
-        assert (got.float() - want.float()).abs().max().item() <= atol
-
-    def test_flash_kernel_vs_plain(self, cuda_dev, dtype, atol):
-        r = np.random.RandomState(0)
-        q, k, v = (torch.from_numpy(r.randn(2, 77, h, 64).astype(
-            np.float32)).to(cuda_dev, dtype) for h in (8, 2, 2))
-        got = tflash.flash_attention(q, k, v, causal=True)
-        want = tfa._ref_attention(q, k, v, True)
-        assert (got.float() - want.float()).abs().max().item() <= atol

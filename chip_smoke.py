@@ -4,27 +4,41 @@
 Phases, each printing one JSON line; any failure exits nonzero:
 
 1. device  — the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build   — compile the CUDA sources of ``paddle_tpu_torch/csrc`` (five
-             kernels in four sources, one ``nvcc`` each, in parallel).
+2. build   — compile the CUDA sources of ``paddle_tpu_torch/csrc`` (seven
+             kernels in six sources, one ``nvcc`` each, in parallel).
 3. kernels — each kernel against its plain PyTorch version, bf16 and fp32:
-             the three serving kernels at the LLaMA-7B serving shapes, the
-             two flash-backward kernels at the training shapes (B=4,
-             S=2048, 32 heads of 128) plus a tail (S=300) and a GQA
-             (8 KV heads) check, dK/dV bitwise equal across two launches,
-             and the flash forward's O and LSE at each of those shapes;
-             max-abs error against the stated tolerance, kernel / plain /
-             library milliseconds (a PyTorch call on the same work, a
-             yardstick the port never calls) and the least time the card
-             could take (``bound_ms``).
-4. engine  — llama_7b widths at 2 layers in fp32, the default engine
-             through the kernels against the plain versions
-             (``FLAGS_use_cuda_kernels`` on, then off): the greedy token
-             streams must be equal.
+             the three serving kernels of the default engine and the
+             dense-cache decode kernel (B=8, S_max=4096, lengths 1 to
+             4096, plus a GQA check with 8 KV heads) at the LLaMA-7B
+             serving shapes; the fused decode tick at llama_7b widths, 2
+             layers, 8 rows (mixed lengths, one masked row, one sampled
+             row: keys bit for bit, logits and appended K/V rows within
+             TOL, next tokens equal in fp32); the two flash-backward
+             kernels at the training shapes (B=4, S=2048, 32 heads of 128)
+             plus a tail (S=300) and a GQA (8 KV heads) check, dK/dV
+             bitwise equal across two launches, and the flash forward's O
+             and LSE at each of those shapes; max-abs error against the
+             stated tolerance, kernel / plain / library milliseconds (a
+             PyTorch call on the same work, a yardstick the port never
+             calls) and the least time the card could take
+             (``bound_ms``).
+4. engine  — llama_7b widths at 2 layers in fp32, for each of the
+             engine's three decode programs (default, ``fused_tick=True``,
+             ``paged_attn=False``), through the kernels against the plain
+             versions (``FLAGS_use_cuda_kernels`` on, then off): the greedy
+             token streams must be equal, the program's own kernel must
+             launch only with the kernels on, and the fused engine's
+             streams must equal the default engine's.
 5. serve   — llama_7b at full width and depth (32 layers) in bf16 with
-             seeded random weights: the default engine serves 8 requests
-             (7 short prompts, one long prompt that rides the ragged
-             kernel in chunks, one seeded top-k request), 64 new tokens
-             each; every serving kernel must have launched on this path.
+             seeded random weights: 8 requests (7 short prompts, one long
+             prompt that rides the ragged kernel in chunks, one seeded
+             top-k request), 64 new tokens each, through the default
+             engine, then the fused-tick engine (one fused kernel launch
+             per tail tick, no paged decode; plus one tick timed at this
+             depth against the scanned tick), then the dense engine (32
+             decode launches per tick, no paged kernel), each freed
+             before the next; each launch count must equal what the code
+             implies.
 6. train_parity — llama_7b widths at 2 layers in fp32, B=1, S=500: one
              forward+backward through the kernels and one through the
              plain versions (``FLAGS_use_cuda_kernels`` off); the losses
@@ -38,9 +52,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
              finite and falling; flash forward, dK/dV and dQ launch counts
              equal to what the code implies.
 
-``--profile`` repeats the serve run and one train step under
-``torch.profiler`` and reports device time by kernel and the device's busy
-share. Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+``--profile`` repeats the default and the fused serve runs and one train
+step under ``torch.profiler`` and reports device time by kernel and the
+device's busy share (for the fused run: one device kernel per tail tick,
+its device time per launch beside its bound and beside the scanned tail
+tick's device time). Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Without a CUDA
@@ -93,6 +109,9 @@ REPLACES = {
     "flash": "paddle_tpu/kernels/pallas_flash.py:159",
     "flash_bwd_dkv": "paddle_tpu/kernels/pallas_flash.py:335",
     "flash_bwd_dq": "paddle_tpu/kernels/pallas_flash.py:365",
+    "decode": "paddle_tpu/kernels/pallas_decode.py:116",
+    "fused_decode_tick":
+        "paddle_tpu/kernels/pallas_fused_decode_tick.py:335",
 }
 SOURCES = {name: f"paddle_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["flash_bwd_dkv"] = SOURCES["flash_bwd_dq"] = \
@@ -162,6 +181,20 @@ def ragged_inputs(dtype, dev, gen):
     qp = torch.randn(T_PACKED, H, D, generator=gen, device=dev).to(dtype)
     return (qp, pool_k, pool_v, tables, qstart.to(dev), qlen.to(dev),
             kvlen.to(dev))
+
+
+def dense_inputs(dtype, dev, gen, hkv=HKV):
+    """8 decode rows over the dense-slot engine's [8, 4096] cache: lengths
+    from 1 to the full 4096, NaN in every cache row past its length."""
+    import torch
+    lengths = [1, 31, 33, 700, 1601, 2500, 4096, 4093]
+    k = torch.randn(SLOTS, MAX_SEQ, hkv, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(SLOTS, MAX_SEQ, hkv, D, generator=gen, device=dev).to(dtype)
+    for b, n in enumerate(lengths):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    q = torch.randn(SLOTS, H, D, generator=gen, device=dev).to(dtype)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
 def flash_inputs(dtype, dev, gen, B=4, S=512):
@@ -340,7 +373,7 @@ def kernel_case(name, dtype_name, dev, gen):
     """One kernel against its plain version: error, times, bound."""
     import torch
     import torch.nn.functional as F
-    from paddle_tpu_torch.kernels import flash, paged_decode, \
+    from paddle_tpu_torch.kernels import decode, flash, paged_decode, \
         ragged_attention
     from paddle_tpu_torch.kernels.flash_attention import _ref_attention
     dtype = getattr(torch, dtype_name)
@@ -411,6 +444,31 @@ def kernel_case(name, dtype_name, dev, gen):
         kpad = torch.nan_to_num(kpad)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qpad, kpad, vpad, attn_mask=mask, enable_gqa=H != HKV)
+    elif name == "decode":
+        q, kc, vc, lens = dense_inputs(dtype, dev, gen)
+        run = lambda: decode.decode_attention(q, kc, vc, lens)  # noqa
+        plain = lambda: decode.decode_attention_reference(  # noqa: E731
+            q, kc, vc, lens)
+        L = lens.long().cpu()
+        kv_rows = int(L.sum())
+        nbytes = (2 * kv_rows * HKV * D * isz + 2 * q.numel() * isz
+                  + 4 * lens.numel())
+        flops = 4 * kv_rows * H * D
+        # library: SDPA on the cache itself (stale NaN zeroed outside the
+        # timing), masked by length
+        kd = torch.nan_to_num(kc).transpose(1, 2).contiguous()
+        vd = torch.nan_to_num(vc).transpose(1, 2).contiguous()
+        mask = (torch.arange(MAX_SEQ, device=dev)[None, :]
+                < L.to(dev)[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, kd, vd, attn_mask=mask)
+        # GQA: 8 KV heads for the 32 query heads
+        qg, kg, vg, lg = dense_inputs(dtype, dev, gen, hkv=8)
+        _compare("decode GQA", dtype_name,
+                 decode.decode_attention(qg, kg, vg, lg),
+                 decode.decode_attention_reference(qg, kg, vg, lg))
+        del qg, kg, vg
     else:
         q, k, v = flash_inputs(dtype, dev, gen)
         run = lambda: flash.flash_attention(q, k, v, causal=True)  # noqa
@@ -441,6 +499,178 @@ def kernel_case(name, dtype_name, dev, gen):
            "bound_ms": bound_ms(nbytes, flops, dtype_name),
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         >= flops / PEAK_FLOPS[dtype_name] else "operations")}
+    if name == "flash":
+        # the forward and its SDPA yardstick at the training shape too
+        del q, k, v, qt, kt, vt, got, want
+        q, k, v = flash_inputs(dtype, dev, gen, B=TRAIN_B, S=TRAIN_S)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        row["train_shape"] = {"B": TRAIN_B, "S": TRAIN_S}
+        row["ms_train_shape"] = time_ms(
+            lambda: flash.flash_attention(q, k, v, causal=True), iters=5)
+        row["library_ms_train_shape"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True))
+    return row
+
+
+def tick_inputs(dtype, dev, gen, layers, pools=None):
+    """One tail tick of the default geometry (8 rows, block 32, 4096-row
+    tables): lengths from 0 to a near-full cache, row 7 masked (idle),
+    row 3 sampled (T 0.8, top-k 40), scrambled block placement with
+    sentinel tails; pools ``[layers, 1024, 32, 32, 128]`` from the seed
+    unless given."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import _rope_tables
+    lens = np.array([1, 31, 33, 700, 1601, 2500, 4093, 0], np.int32)
+    app = np.array([1, 1, 1, 1, 1, 1, 1, 0], np.int32)
+    perm = np.random.RandomState(2).permutation(NB)
+    tables = np.full((SLOTS, MB), NB, np.int32)
+    for b in range(SLOTS):
+        n = -(-int(lens[b] + app[b]) // BS)
+        tables[b, :n] = perm[b * MB:b * MB + n]
+    if pools is None:
+        pools = tuple(torch.randn(layers, NB, BS, HKV, D, generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+    r = np.random.RandomState(3)
+    keys = r.randint(0, 2 ** 32, (SLOTS, 2), dtype=np.uint64).astype(
+        np.int64)
+    temps = np.array([0, 0, 0, 0.8, 0, 0, 0, 0], np.float32)
+    topks = np.array([0, 0, 0, 40, 0, 0, 0, 0], np.int32)
+    tok = torch.from_numpy(r.randint(0, 32000, SLOTS)).to(dev)
+    sin, cos = _rope_tables(MB * BS, D, 10000.0, device=dev)
+    return dict(tables=tables, tables_dev=torch.from_numpy(tables).to(dev),
+                sin=sin, cos=cos, tok=tok, pool_k=pools[0],
+                pool_v=pools[1], lens=lens, kys=keys, app_mask=app,
+                temps=temps, top_ks=topks)
+
+
+def tick_cost(params, t, layers, isz):
+    """(bytes, flops) one tick must move and do: every weight once, each
+    valid cached K/V row once, the appended rows and the float32 logits
+    written once; two flops per weight and row, 4*D per head and key."""
+    import numpy as np
+    att = t["lens"] + t["app_mask"]
+    w = sum(params[k].numel() for k in ("wq", "wk", "wv", "wo", "w_gate",
+                                        "w_up", "w_down", "input_ln",
+                                        "post_ln", "final_norm", "lm_head"))
+    R = len(att)
+    V = params["embed"].shape[0]
+    kv = int(att.sum()) * HKV * D * 2 * layers
+    nbytes = (w + R * params["embed"].shape[1]) * isz + kv * isz \
+        + int(np.sum(t["app_mask"])) * HKV * D * 2 * layers * isz \
+        + R * V * 4
+    proj = sum(params[k].numel() for k in ("wq", "wk", "wv", "wo", "w_gate",
+                                           "w_up", "w_down", "lm_head"))
+    flops = 2 * R * proj + 4 * int(att.sum()) * H * D * layers
+    return nbytes, flops
+
+
+def _tick(fn, params, tied, t, **kw):
+    import torch
+    from paddle_tpu_torch.serving.decode import _head
+    with torch.inference_mode():
+        return fn(params, _head(params, tied), **t, nh=H, nkv=HKV, hd=D,
+                  eps=1e-5, **kw)
+
+
+# LLaMA-7B widths at 2 layers for the fused tick's kernel check
+FUSED_LAYERS = 2
+
+
+# The fused tick against its plain version: float32 holds TOL (summation
+# order only). A bf16 tick rounds every projection to bf16, and layer 1's
+# attention output already differs by an ulp where the kernel rounds P per
+# 32-key tile and the plain version rounds the normalised P; the later
+# layers and the logits carry that several ulps further. The unfused tick
+# through the paged decode kernel misses TOL against the same plain version
+# too (0.0625 on these inputs, H100), so bf16 is held to TOL's numbers
+# scaled by each tensor's largest entry, the form of BWD_TOL.
+def _compare_tick(name, dtype_name, got, want):
+    if dtype_name == "float32":
+        return _compare(name, dtype_name, got, want)
+    return _compare_scaled(name, dtype_name, got, want)[0]
+
+
+def fused_case(name, dtype_name, dev, gen):
+    """The fused tick kernel against its plain version (the scanned tick
+    with the plain paged attention) at llama_7b widths, 2 layers: keys bit
+    for bit, the logits scratch and the appended K/V rows within TOL,
+    next tokens equal in float32 (bf16: ``_compare_tick``); kernel, plain
+    and scanned-tick (the kernels' tick without fusion) milliseconds and
+    the byte bound."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_decode_tick as fdt
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_7b,
+                                               llama_decode_params)
+    from paddle_tpu_torch.serving.decode import _fused_decode_tick, _keys_host
+    dtype = getattr(torch, dtype_name)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
+                                      dtype=dtype_name), device=dev, seed=6)
+    p, tied = llama_decode_params(model)
+    t = tick_inputs(dtype, dev, gen, FUSED_LAYERS)
+    base_k, base_v = t["pool_k"], t["pool_v"]
+    got_t = dict(t, pool_k=base_k.clone(), pool_v=base_v.clone())
+    want_t = dict(t, pool_k=base_k.clone(), pool_v=base_v.clone())
+    got = _tick(fdt.fused_decode_tick, p, tied, got_t, return_logits=True)
+    want = _tick(fdt.fused_decode_tick_reference, p, tied, want_t,
+                 return_logits=True)
+    torch.cuda.synchronize()
+    keys_equal = bool((_keys_host(got[3]) == _keys_host(want[3])).all())
+    tokens_equal = got[0].tolist() == want[0].tolist()
+    if not keys_equal:
+        raise RuntimeError(f"fused tick {dtype_name}: keys differ")
+    if dtype_name == "float32" and not tokens_equal:
+        raise RuntimeError(f"fused tick float32: tokens {got[0].tolist()} "
+                           f"vs plain {want[0].tolist()}")
+    logits_err = _compare_tick("fused tick logits", dtype_name, got[4],
+                               want[4])
+    # the yardstick of that spread: the unfused tick through the kernels
+    scan = _tick(_fused_decode_tick, p, tied,
+                 dict(t, pool_k=base_k.clone(), pool_v=base_v.clone()),
+                 return_logits=True)
+    scan_err = (scan[4] - want[4]).abs().max().item()
+    del scan
+    # the appended rows: live rows at (table[len // bs], len % bs)
+    live = [b for b in range(SLOTS) if t["app_mask"][b]]
+    phys = torch.tensor([int(t["tables"][b, t["lens"][b] // BS])
+                         for b in live], device=dev)
+    prow = torch.tensor([int(t["lens"][b] % BS) for b in live], device=dev)
+    rows_err = max(_compare_tick(f"fused tick appended {n}", dtype_name,
+                                 g[:, phys, prow], w[:, phys, prow])
+                   for n, g, w in (("K", got[1], want[1]),
+                                   ("V", got[2], want[2])))
+    untouched = all(torch.equal(g.index_fill(1, phys, 0),
+                                b.index_fill(1, phys, 0))
+                    for g, b in ((got[1], base_k), (got[2], base_v)))
+    if not untouched:
+        raise RuntimeError("fused tick wrote outside the appended blocks")
+    del got, want, got_t, want_t
+    torch.cuda.empty_cache()
+    run_t = dict(t, pool_k=base_k.clone(), pool_v=base_v.clone())
+    nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz)
+    row = {"name": name, "dtype": dtype_name,
+           "layers": FUSED_LAYERS, "rows": SLOTS,
+           "max_abs_err": max(logits_err, rows_err),
+           "logits_err": logits_err, "appended_rows_err": rows_err,
+           "unfused_kernels_vs_plain_logits_err": scan_err,
+           "tokens_equal": tokens_equal, "keys_equal": keys_equal,
+           "tol": dict(zip(("atol", "rtol"), TOL[dtype_name])),
+           "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied,
+                                       run_t)),
+           "grid_blocks": fdt.LAST_GRID["blocks"],
+           "plain_ms": time_ms(lambda: _tick(
+               fdt.fused_decode_tick_reference, p, tied, run_t), iters=3),
+           "scanned_tick_ms": time_ms(lambda: _tick(
+               _fused_decode_tick, p, tied, run_t)),
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes a tick",
+           "bytes": nbytes, "flops": flops,
+           "bound_ms": bound_ms(nbytes, flops, dtype_name),
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / PEAK_FLOPS[dtype_name] else "operations")}
+    del model, p, t, run_t, base_k, base_v
     return row
 
 
@@ -452,7 +682,9 @@ def phase_kernels():
     rows = {}
     for dtype_name in ("bfloat16", "float32"):
         for name in REPLACES:
-            case = bwd_case if name in BWD else kernel_case
+            case = (bwd_case if name in BWD else
+                    fused_case if name == "fused_decode_tick" else
+                    kernel_case)
             row = case(name, dtype_name, dev, gen)
             emit({"phase": "kernels", **row})
             rows[(name, dtype_name)] = row
@@ -486,8 +718,18 @@ def _requests(GenerationRequest, short, long_len, new, vocab, seed):
     return reqs
 
 
+#: the engine's three decode programs: (label, knobs, the kernel only it
+#: launches)
+ENGINES = (("default", {}, None),
+           ("fused_tick", {"fused_tick": True}, "fused_decode_tick"),
+           ("dense", {"paged_attn": False}, "decode"))
+
+
 def phase_engine():
-    """fp32, 2 layers: kernels vs plain versions, greedy streams equal."""
+    """fp32, 2 layers, for the default, the fused-tick and the dense
+    engine: kernels vs plain versions, greedy streams equal; the engine's
+    own kernel launches with the kernels on and never with them off; the
+    fused engine's streams equal the default engine's."""
     import torch
     from paddle_tpu_torch.flags import set_flags
     from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -496,31 +738,49 @@ def phase_engine():
                                           GenerationRequest)
     cfg = llama_7b(num_hidden_layers=2, dtype="float32")
     model = LlamaForCausalLM(cfg, device="cuda", seed=1)
-    streams, launches = {}, {}
-    try:
-        for use in (True, False):
-            set_flags({"FLAGS_use_cuda_kernels": use})
-            reset_launches()
-            eng = ContinuousBatchingEngine(model, headroom_mult=None)
-            outs = eng.generate(_requests(GenerationRequest, (37, 130, 300),
-                                          700, 16, cfg.vocab_size, seed=3))
-            streams[use] = [o.tolist() for o in outs]
-            launches[use] = sum(LAUNCHES.values())
-            del eng
-            torch.cuda.empty_cache()
-    finally:
-        set_flags({"FLAGS_use_cuda_kernels": True})
-    same = streams[True] == streams[False]
-    emit({"phase": "engine", "layers": 2, "dtype": "float32",
-          "greedy_streams_equal": same,
-          "tokens": sum(len(s) for s in streams[True]),
-          "launches_kernels": launches[True],
-          "launches_plain": launches[False]})
-    if not launches[True] or launches[False]:
-        raise RuntimeError(f"engine launches: kernels {launches[True]}, "
-                           f"plain {launches[False]}")
-    if not same:
-        raise RuntimeError(f"greedy streams differ: {streams}")
+    on_streams = {}
+    for label, knob, own in ENGINES:
+        streams, launches, own_launches = {}, {}, {}
+        try:
+            for use in (True, False):
+                set_flags({"FLAGS_use_cuda_kernels": use})
+                reset_launches()
+                eng = ContinuousBatchingEngine(model, headroom_mult=None,
+                                               **knob)
+                outs = eng.generate(_requests(
+                    GenerationRequest, (37, 130, 300), 700, 16,
+                    cfg.vocab_size, seed=3))
+                streams[use] = [o.tolist() for o in outs]
+                launches[use] = sum(LAUNCHES.values())
+                own_launches[use] = LAUNCHES[own] if own else None
+                del eng
+                torch.cuda.empty_cache()
+        finally:
+            set_flags({"FLAGS_use_cuda_kernels": True})
+        same = streams[True] == streams[False]
+        on_streams[label] = streams[True]
+        emit({"phase": "engine", "engine": label, "layers": 2,
+              "dtype": "float32", "greedy_streams_equal": same,
+              "tokens": sum(len(s) for s in streams[True]),
+              "launches_kernels": launches[True],
+              "launches_plain": launches[False],
+              "own_kernel": own, "own_launches_kernels": own_launches[True],
+              "own_launches_plain": own_launches[False]})
+        if not launches[True] or launches[False] or (
+                own and not own_launches[True]):
+            raise RuntimeError(f"engine {label} launches: kernels "
+                               f"{launches[True]} ({own}: "
+                               f"{own_launches[True]}), plain "
+                               f"{launches[False]}")
+        if not same:
+            raise RuntimeError(f"engine {label}: greedy streams differ: "
+                               f"{streams}")
+    fused_same = on_streams["fused_tick"] == on_streams["default"]
+    emit({"phase": "engine", "check": "fused_tick_vs_default",
+          "greedy_streams_equal": fused_same})
+    if not fused_same:
+        raise RuntimeError(f"fused-tick streams differ from the default "
+                           f"engine's: {on_streams}")
     del model
     torch.cuda.empty_cache()
 
@@ -538,11 +798,12 @@ def _serve_requests(GenerationRequest, vocab):
     return reqs
 
 
-def _serve(model, reqs):
-    """One default-engine run to completion; returns (seqs, steps, wall)."""
+def _serve(model, reqs, **knob):
+    """One engine run to completion on the default geometry (plus
+    ``knob``); returns (seqs, engine, steps, wall)."""
     import torch
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(model)   # the default geometry
+    eng = ContinuousBatchingEngine(model, **knob)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps = 0
@@ -554,51 +815,129 @@ def _serve(model, reqs):
     return seqs, eng, steps, time.perf_counter() - t0
 
 
-def phase_serve(profile=False):
-    """The main run: 7B widths, bf16, the default engine over 8 requests.
-    With ``profile``, a second identical run under ``torch.profiler``
-    reports device time by kernel and the device's busy share."""
+def _expected_serve_launches(label, eng, layers):
+    """Launch counts the code implies for one serve run: an int is exact,
+    ``"+"`` means at least one."""
+    st = eng.stats
+    if label == "default":
+        return {"flash": "+", "ragged_attention": "+", "paged_decode": "+",
+                "fused_decode_tick": 0, "decode": 0}
+    if label == "fused_tick":
+        # one launch per tail tick (decode ticks past tick 0 of a step),
+        # and no paged decode: the fused kernel replaces it there
+        return {"flash": "+", "ragged_attention": "+", "paged_decode": 0,
+                "fused_decode_tick": st["decode_steps"] - st["decode_calls"],
+                "decode": 0}
+    return {"flash": "+", "ragged_attention": 0, "paged_decode": 0,
+            "fused_decode_tick": 0, "decode": layers * st["decode_steps"]}
+
+
+def fused_tick_timing(eng, layers):
+    """One tail tick at the serve geometry and depth on the engine's pool:
+    the fused kernel and the scanned tick through the kernels (CUDA
+    events), beside the tick's byte bound."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_decode_tick as fdt
+    from paddle_tpu_torch.serving.decode import _fused_decode_tick
+    pool = eng.cache.pool
+    t = tick_inputs(pool.k.dtype, pool.k.device, None, layers,
+                    pools=(pool.k, pool.v))
+    p, tied = eng._params, eng._tied
+    nbytes, flops = tick_cost(p, t, layers, pool.k.element_size())
+    return {"tick_ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied,
+                                             t)),
+            "grid_blocks": fdt.LAST_GRID["blocks"],
+            "scanned_tick_ms": time_ms(lambda: _tick(_fused_decode_tick, p,
+                                                     tied, t)),
+            "tick_bytes": nbytes,
+            "tick_bound_ms": bound_ms(nbytes, flops, "bfloat16")}, t
+
+
+def _serve_run(model, cfg, reqs, label, knob, profile):
+    """One measured serve run of one engine: a warm-up run first, counts
+    set to 0 just before the measured run and read just after it."""
     import torch
     from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import GenerationRequest
+    # warm-up: first use of cuBLAS, the kernels and the allocator is not
+    # serving time (a short and a long prompt touch every program)
+    warm = _serve(model, _requests(GenerationRequest, (100,), 600, 9,
+                                   cfg.vocab_size, seed=5), **knob)
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seqs, eng, steps, wall = _serve(model, reqs, **knob)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(launches[n] for n in BWD):
+        raise RuntimeError(f"serving launched a backward kernel: {launches}")
+    toks = [s.tokens for s in seqs]
+    for s in seqs:
+        if s.finish_reason != "length" or len(s.tokens) != 64:
+            raise RuntimeError(f"{label} request {s.request_id}: "
+                               f"{s.finish_reason}, {len(s.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in s.tokens):
+            raise RuntimeError("token id out of the vocabulary")
+    decoded = sum(len(t) for t in toks)
+    want = _expected_serve_launches(label, eng, cfg.num_hidden_layers)
+    line = {"phase": "serve", "engine": label, "knobs": knob,
+            "layers": cfg.num_hidden_layers, "dtype": "bfloat16",
+            "requests": len(reqs), "decoded_tokens": decoded,
+            "wall_s": wall, "decoded_tok_per_s": decoded / wall,
+            "steps": steps, "mean_step_ms": 1e3 * wall / steps,
+            "decode_ticks": eng.stats["decode_steps"],
+            "tail_ticks": (eng.stats["decode_steps"]
+                           - eng.stats["decode_calls"]),
+            "prefill_chunks": eng.stats["prefill_chunks"],
+            "peak_mem_gb": peak,
+            "launches": {n: launches[n] for n in want},
+            "launches_expected": want,
+            "first_tokens": [t[:4] for t in toks]}
+    tick = None
+    if label == "fused_tick":
+        timing, tick = fused_tick_timing(eng, cfg.num_hidden_layers)
+        line.update(timing)
+    emit(line)
+    bad = {n: (launches[n], w) for n, w in want.items()
+           if (launches[n] <= 0 if w == "+" else launches[n] != w)}
+    if bad:
+        raise RuntimeError(f"{label} serve launches (got, expected): {bad}")
+    del eng, tick
+    gc.collect()
+    torch.cuda.empty_cache()
+    if profile and label == "default":
+        phase_profile(model, reqs, toks)
+    if profile and label == "fused_tick":
+        phase_profile_fused(model, cfg, reqs, toks)
+    return launches, toks
+
+
+def phase_serve(profile=False):
+    """The main runs: 7B widths, bf16, 8 requests through each of the
+    engine's three decode programs (the default engine, ``fused_tick``,
+    ``paged_attn=False``), one engine freed before the next. With
+    ``profile``, repeats of the default and the fused run under
+    ``torch.profiler`` report device time by kernel and the device's busy
+    share. Returns each kernel's launches on the run of its path."""
+    import torch
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.serving import GenerationRequest
     cfg = llama_7b(dtype="bfloat16")
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
-    # warm-up: first use of cuBLAS, the kernels and the allocator is not
-    # serving time (a short and a chunked prompt touch every program)
-    _serve(model, _requests(GenerationRequest, (100,), 600, 9,
-                            cfg.vocab_size, seed=5))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    seqs, eng, steps, wall = _serve(model, reqs)
-    launches = {n: LAUNCHES[n] for n in REPLACES if n not in BWD}
-    if any(LAUNCHES[n] for n in BWD):
-        raise RuntimeError(f"serving launched a backward kernel: {LAUNCHES}")
-    toks = [s.tokens for s in seqs]
-    for s in seqs:
-        if s.finish_reason != "length" or len(s.tokens) != 64:
-            raise RuntimeError(f"request {s.request_id}: "
-                               f"{s.finish_reason}, {len(s.tokens)} tokens")
-        if not all(0 <= t < cfg.vocab_size for t in s.tokens):
-            raise RuntimeError("token id out of the vocabulary")
-    decoded = sum(len(t) for t in toks)
-    emit({"phase": "serve", "layers": cfg.num_hidden_layers,
-          "dtype": "bfloat16",
-          "requests": len(reqs), "decoded_tokens": decoded,
-          "wall_s": wall, "decoded_tok_per_s": decoded / wall,
-          "steps": steps, "mean_step_ms": 1e3 * wall / steps,
-          "prefill_chunks": eng.stats["prefill_chunks"],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "launches": launches,
-          "first_tokens": [t[:4] for t in toks]})
-    missing = [n for n, c in launches.items() if c <= 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: "
-                           f"{missing}")
-    if profile:
-        phase_profile(model, reqs, [s.tokens for s in seqs])
+    runs = {label: _serve_run(model, cfg, reqs, label, knob, profile)
+            for label, knob, _ in ENGINES}
+    streams = {label: toks for label, (_, toks) in runs.items()}
+    emit({"phase": "serve", "check": "streams_vs_default",
+          "equal": {label: streams[label] == streams["default"]
+                    for label in streams}})
+    launches = {n: runs["default"][0][n]
+                for n in ("flash", "ragged_attention", "paged_decode")}
+    for label, _, own in ENGINES[1:]:
+        launches[own] = runs[label][0][own]
+    del model
     return launches
 
 
@@ -636,6 +975,56 @@ def phase_profile(model, reqs, want):
     if [s.tokens for s in seqs] != want:
         raise RuntimeError("the profiled repeat sampled other tokens")
     _profile_line("profile", _device_rows(prof), wall, steps=steps)
+
+
+def phase_profile_fused(model, cfg, reqs, want, scanned_ticks=5):
+    """The fused serve run under ``torch.profiler``: one device kernel per
+    tail tick (the fused kernel's device launches equal the tail ticks,
+    and no paged decode kernel runs), its device time per launch beside
+    its bound, and the device time of the scanned tail tick (the kernels'
+    tick without fusion: paged decode and cuBLAS launches) at the same
+    geometry."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from paddle_tpu_torch.serving.decode import _fused_decode_tick
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=acts) as prof:
+        seqs, eng, steps, wall = _serve(model, reqs, fused_tick=True)
+    rows = _device_rows(prof)
+    tail = eng.stats["decode_steps"] - eng.stats["decode_calls"]
+    fused = [(us, c) for us, c, k in rows if "fused_tick_kernel" in k]
+    paged = sum(c for _, c, k in rows if "paged_decode_kernel" in k)
+    n_fused = sum(c for _, c in fused)
+    fused_us = sum(us for us, _ in fused)
+    t = tick_inputs(eng.cache.pool.k.dtype, eng.cache.pool.k.device, None,
+                    cfg.num_hidden_layers,
+                    pools=(eng.cache.pool.k, eng.cache.pool.v))
+    p, tied = eng._params, eng._tied
+    nbytes, flops = tick_cost(p, t, cfg.num_hidden_layers, 2)
+    _tick(_fused_decode_tick, p, tied, t)          # warm
+    torch.cuda.synchronize()
+    with torch_profile(activities=acts) as prof2:
+        for _ in range(scanned_ticks):
+            _tick(_fused_decode_tick, p, tied, t)
+        torch.cuda.synchronize()
+    srows = _device_rows(prof2)
+    _profile_line("profile_fused", rows, wall, steps=steps,
+                  tail_ticks=tail, fused_device_launches=n_fused,
+                  paged_decode_device_launches=paged,
+                  fused_device_ms_per_launch=(fused_us / n_fused / 1e3
+                                              if n_fused else None),
+                  tick_bound_ms=bound_ms(nbytes, flops, "bfloat16"),
+                  scanned_tick_device_ms=(sum(r[0] for r in srows)
+                                          / scanned_ticks / 1e3),
+                  scanned_tick_device_kernels=(sum(r[1] for r in srows)
+                                               / scanned_ticks))
+    del eng, t
+    if n_fused != tail or paged:
+        raise RuntimeError(f"profiled fused run: {n_fused} fused kernels "
+                           f"for {tail} tail ticks, {paged} paged decode")
+    if [s.tokens for s in seqs] != want:
+        raise RuntimeError("the profiled fused repeat sampled other tokens")
 
 
 # ---------------------------------------------------------------- training
@@ -783,9 +1172,9 @@ def main(argv=None):
                     default="kernels,engine,serve,train_parity,train",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
-                    help="repeat the serve run and one train step under "
-                         "torch.profiler and report device time by "
-                         "kernel")
+                    help="repeat the default and the fused serve runs and "
+                         "one train step under torch.profiler and report "
+                         "device time by kernel")
     ap.add_argument("--train-layers", type=int, default=TRAIN_LAYERS,
                     help="decoder layers of the train phase (default "
                          f"{TRAIN_LAYERS}, the deepest that fits)")

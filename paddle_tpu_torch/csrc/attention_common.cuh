@@ -1,5 +1,6 @@
-// Shared device code of the three attention kernels (paged decode, ragged
-// paged attention, flash forward): one routine that attends a tile of up to
+// Shared device code of the attention kernels (paged decode, ragged paged
+// attention, flash forward, dense-cache decode, and the attention phase of
+// the fused decode tick): one routine that attends a tile of up to
 // TQ query rows of ONE head over a walk of key positions, 32 keys at a time,
 // with an online softmax.
 //
@@ -57,6 +58,24 @@ __device__ __forceinline__ void load16(const float* p, float* o) {
 }
 __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
   uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+// the same through L2 only (__ldcg): for data another block of the same
+// launch wrote (the fused decode tick's query buffer), which the SM's L1
+// may hold from an earlier read
+__device__ __forceinline__ void load16_cg(const float* p, float* o) {
+  float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void load16_cg(const __nv_bfloat16* p, float* o) {
+  uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -127,7 +146,7 @@ __device__ __forceinline__ void attend_tile(
     float buf[S::VEC];
     const long long off = s_qoff[i];
     if (off >= 0) {
-      load16(q + off + d, buf);
+      load16_cg(q + off + d, buf);
     } else {
 #pragma unroll
       for (int x = 0; x < S::VEC; ++x) buf[x] = 0.f;

@@ -6,7 +6,8 @@ the flags the port reads:
 - ``FLAGS_use_cuda_kernels`` (default on): the one switch between the
   hand-written CUDA kernels and their plain PyTorch versions, read at
   every call that reaches a kernel (the model's flash attention and its
-  backward, the serving prefill, paged decode and ragged attention). On,
+  backward, the serving prefill, paged decode, ragged attention, dense
+  decode and the fused decode tick). On,
   the kernel wrappers run (the kernels on CUDA tensors); off, the plain
   versions run on any device. The counterpart of
   ``FLAGS_use_pallas_kernels``, and the A/B lever of the on-card parity

@@ -30,7 +30,8 @@ CSRC = _PKG / "csrc"
 _REPO = _PKG.parent
 
 #: kernel name -> (its source under csrc/, its C entry point, the entry's
-#: argument types: pointers and the stream as void*, everything else int)
+#: argument types: pointers and the stream as void*, a float as float,
+#: everything else int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "paged_decode": ("paged_decode", "pt_paged_decode",
@@ -42,6 +43,10 @@ SIGNATURES = {
                       [_P] * 8 + [_I] * 7 + [_P]),
     "flash_bwd_dq": ("flash_bwd", "pt_flash_bwd_dq",
                      [_P] * 7 + [_I] * 7 + [_P]),
+    "decode": ("decode", "pt_decode", [_P] * 5 + [_I] * 6 + [_P]),
+    "fused_decode_tick": ("fused_decode_tick", "pt_fused_decode_tick",
+                          [_P] * 30 + [_I] * 14 + [ctypes.c_float, _I, _P]
+                          + [_P]),
 }
 #: the sources, one library each
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
@@ -156,7 +161,9 @@ def load(name):
 #: the CUDA error codes a bad launch most often returns
 _CUDA_ERRORS = {1: "cudaErrorInvalidValue", 2: "cudaErrorMemoryAllocation",
                 9: "cudaErrorInvalidConfiguration",
+                82: "cudaErrorCooperativeLaunchTooLarge",
                 98: "cudaErrorInvalidDeviceFunction",
+                801: "cudaErrorNotSupported",
                 209: "cudaErrorNoKernelImageForDevice",
                 700: "cudaErrorIllegalAddress"}
 

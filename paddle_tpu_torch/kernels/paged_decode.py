@@ -14,41 +14,10 @@ tensors, the kernel for CUDA tensors.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ._launch import as_index, check_cuda, launch
-
-NEG_INF = -1e30
-
-
-def decode_attention_reference(q, k_cache, v_cache, lengths):
-    """Dense-cache single-query attention with per-row lengths — the
-    plain helper of ``paddle_tpu/kernels/pallas_decode.py``'s
-    ``decode_attention_reference``, same ops and cast points.
-
-    q [B, H, D]; k_cache/v_cache [B, S, Hkv, D]; lengths [B]."""
-    B, H, D = q.shape
-    Hkv = k_cache.shape[2]
-    G = H // Hkv
-    s_max = k_cache.shape[1]
-    k = k_cache.repeat_interleave(G, dim=2) if G > 1 else k_cache
-    v = v_cache.repeat_interleave(G, dim=2) if G > 1 else v_cache
-    logits = torch.einsum("bhd,bkhd->bhk", q.float(), k.float())
-    logits = logits / math.sqrt(D)
-    lengths = torch.as_tensor(lengths).to(q.device)
-    cols = torch.arange(s_max, device=q.device)
-    valid = cols[None, None, :] < lengths[:, None, None]
-    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    probs = torch.softmax(logits, dim=-1)
-    # zero masked probs/values explicitly: stale rows can be NaN and
-    # 0 * NaN = NaN
-    probs = torch.where(valid, probs, torch.zeros_like(probs))
-    row_valid = (cols[None, :, None, None]
-                 < lengths[:, None, None, None])
-    v = torch.where(row_valid, v, torch.zeros_like(v))
-    return torch.einsum("bhk,bkhd->bhd", probs.to(q.dtype), v)
+from .decode import decode_attention_reference
 
 
 def paged_decode_attention_reference(q, pool_k, pool_v, tables, lengths):

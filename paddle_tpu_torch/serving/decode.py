@@ -1,7 +1,7 @@
-"""Prefill and unified ragged step for the LLaMA serving path, in PyTorch.
+"""Prefill, unified ragged step and dense-slot decode for the LLaMA
+serving path, in PyTorch.
 
-The port of the default-geometry programs of ``paddle_tpu/serving/
-decode.py``:
+The port of these programs of ``paddle_tpu/serving/decode.py``:
 
 - :func:`_prefill_impl` — one admission group's full-prompt forward,
   returning per-layer K/V ``[L, G, S_pad, Hkv, D]``, the first sampled
@@ -10,7 +10,11 @@ decode.py``:
   packed buffer of variable-length spans (decode rows of 1, prefill
   chunks of n) through :func:`_packed_span_forward`, samples one token
   per slot from its span's last position (:func:`_span_last_sample`),
-  then up to ``n_steps - 1`` decode ticks of :func:`_fused_decode_tick`.
+  then up to ``n_steps - 1`` decode ticks of :func:`_fused_decode_tick`
+  (scanned layer by layer, or with ``fused`` one fused-tick kernel
+  launch each);
+- :func:`_decode_steps_impl` — the dense-slot engine's ``n_steps``
+  decode ticks over a :class:`~.kv_cache.SlotKVCache`.
 
 What changes from JAX to PyTorch:
 
@@ -32,9 +36,10 @@ What changes from JAX to PyTorch:
   ``torch.inference_mode()``: serving records no autograd graph.
 
 ``FLAGS_use_cuda_kernels`` (``paddle_tpu_torch.flags``) selects the
-attention at every call: on, the kernel wrappers (the hand-written CUDA
-kernels for CUDA tensors, their plain versions for CPU tensors); off,
-the plain versions on any device — the A/B switch.
+attention (and the fused tick) at every call: on, the kernel wrappers
+(the hand-written CUDA kernels for CUDA tensors, their plain versions
+for CPU tensors); off, the plain versions on any device — the A/B
+switch.
 """
 from __future__ import annotations
 
@@ -43,8 +48,11 @@ import torch
 
 from ..core import random as prng
 from ..flags import get_flag
+from ..kernels.decode import decode_attention, decode_attention_reference
 from ..kernels.flash_attention import _ref_attention
 from ..kernels.flash_attention import attention as _attention
+from ..kernels.fused_decode_tick import (fused_decode_tick,
+                                         fused_decode_tick_reference)
 from ..kernels.paged_decode import (paged_decode_attention,
                                     paged_decode_attention_reference)
 from ..kernels.ragged_attention import (ragged_attention_reference,
@@ -54,13 +62,17 @@ from ..models.llama import (STACK_KEYS, _apply_rope, _qkv_bshd, _rms,
 
 NEG_INF = -1e30
 
+
 def _attn_fns():
-    """(prefill, paged decode, ragged) attention: the kernel wrappers
-    while ``FLAGS_use_cuda_kernels`` is on, else the plain versions."""
+    """(prefill, paged decode, ragged, dense decode) attention and the
+    fused tick: the kernel wrappers while ``FLAGS_use_cuda_kernels`` is
+    on, else the plain versions."""
     if get_flag("FLAGS_use_cuda_kernels"):
-        return _attention, paged_decode_attention, ragged_paged_attention
+        return (_attention, paged_decode_attention, ragged_paged_attention,
+                decode_attention, fused_decode_tick)
     return (_ref_attention, paged_decode_attention_reference,
-            ragged_attention_reference)
+            ragged_attention_reference, decode_attention_reference,
+            fused_decode_tick_reference)
 
 
 # The projections are plain matmuls on dense weights — the dense branches
@@ -104,8 +116,11 @@ def _host(x, dtype=np.int64):
 
 
 def _keys_host(keys):
-    """Keys as a CPU int64 tensor ``[R, 2]`` of uint32 values."""
+    """Keys as a CPU int64 tensor ``[R, 2]`` of uint32 values (the fused
+    tick kernel returns them as the int32 bits of the uint32 values)."""
     if isinstance(keys, torch.Tensor):
+        if keys.dtype == torch.int32:
+            return keys.cpu().to(torch.int64) & 0xFFFFFFFF
         return keys.cpu().to(torch.int64)
     return torch.from_numpy(np.asarray(keys, np.int64).copy())
 
@@ -186,7 +201,8 @@ def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
 # ------------------------------------------------------ unified ragged step
 def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
                        pool_k, pool_v, lens, kys, app_mask, temps, top_ks,
-                       *, nh, nkv, hd, eps):
+                       *, nh, nkv, hd, eps, fused=False, attn=None,
+                       return_logits=False):
     """ONE decode tick over all rows: embed the last tokens, per layer
     RMSNorm → QKV → RoPE at each row's length → append K/V through the
     tables (rows with ``app_mask == 0`` or past capacity do not append) →
@@ -195,9 +211,22 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
 
     tok [R] on the device; tables [R, mb] numpy (and ``tables_dev``, the
     same as an int32 device tensor); lens/app_mask [R] numpy; kys [R, 2]
-    host keys. Returns ``(next_tok, pool_k, pool_v, keys')``; the caller
-    advances ``lens`` by ``app_mask``."""
-    paged_fn = _attn_fns()[1]
+    host keys. Returns ``(next_tok, pool_k, pool_v, keys')`` (and the
+    logits with ``return_logits``); the caller advances ``lens`` by
+    ``app_mask``.
+
+    ``fused=True`` (the engine's ``fused_tick`` knob) hands the whole
+    tick to ``kernels/fused_decode_tick.py``: ONE kernel launch on CUDA
+    tensors (its plain version, this scanned tick, on CPU tensors or with
+    ``FLAGS_use_cuda_kernels`` off). ``attn`` overrides the paged
+    attention of the scanned tick (the fused tick's plain version passes
+    the plain one)."""
+    if fused:
+        return _attn_fns()[4](
+            params, head, tables, tables_dev, sin, cos, tok, pool_k, pool_v,
+            lens, kys, app_mask, temps, top_ks, nh=nh, nkv=nkv, hd=hd,
+            eps=eps, return_logits=return_logits)
+    paged_fn = attn or _attn_fns()[1]
     dev = tok.device
     R = tok.shape[0]
     nb, bs = pool_k.shape[1], pool_k.shape[2]
@@ -232,6 +261,8 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     logits = last_h @ head
     carry, draw = _split_rows(kys)
     nxt = sample_rows(logits, draw, temps, top_ks)
+    if return_logits:
+        return nxt, pool_k, pool_v, carry, logits.float()
     return nxt, pool_k, pool_v, carry
 
 
@@ -297,7 +328,8 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
 @torch.inference_mode()
 def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                       qstart, qlen, kvlen, dec_mask, keys, temps, top_ks,
-                      *, n_steps, nh, nkv, hd, eps, theta, tied):
+                      *, n_steps, nh, nkv, hd, eps, theta, tied,
+                      fused=False):
     """THE unified serving step: one call that advances every slot's span
     — decode rows (span 1) and prefill chunks (span n) — through the same
     block tables.
@@ -310,7 +342,8 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
 
     Tick 0 runs the packed buffer through :func:`_packed_span_forward`
     and samples one token per slot from its span's last position; ticks
-    ``1..n_steps-1`` are :func:`_fused_decode_tick` over the decode rows.
+    ``1..n_steps-1`` are :func:`_fused_decode_tick` over the decode rows
+    (with ``fused``, one fused-tick kernel launch each).
 
     Returns ``(pool_k, pool_v, toks [n_steps, R] (device), keys_t0,
     keys_fin)``: the pools are the given tensors, updated in place;
@@ -337,7 +370,66 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
         tok, pool_k, pool_v, kys = _fused_decode_tick(
             params, head, tables, tables_dev, sin, cos, tok, pool_k,
             pool_v, lens, kys, dec_mask, temps, top_ks, nh=nh, nkv=nkv,
-            hd=hd, eps=eps)
+            hd=hd, eps=eps, fused=fused)
         lens = lens + dec_mask
         toks.append(tok)
-    return pool_k, pool_v, torch.stack(toks), keys_t0, kys
+    return pool_k, pool_v, torch.stack(toks), keys_t0, _keys_host(kys)
+
+
+# ------------------------------------------------------ dense-slot decode
+@torch.inference_mode()
+def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
+                       temps, top_ks, *, n_steps, nh, nkv, hd, eps, theta,
+                       tied):
+    """``n_steps`` single-token decode ticks over every slot of the dense
+    cache (the ``paged_attn=False`` engine's program).
+
+    cache_k/cache_v [L, B, S_max, Hkv, D] (written in place); tokens [B]
+    each slot's last token; lengths [B] valid rows per slot; keys [B, 2],
+    temps [B], top_ks [B] (host). Each tick appends each row's K/V at its
+    own length — a row at ``S_max`` drops its write, as JAX's scatter
+    does — then attends over ``lengths + 1`` through
+    :func:`~paddle_tpu_torch.kernels.decode.decode_attention` (its plain
+    version while ``FLAGS_use_cuda_kernels`` is off), then the final norm,
+    the lm head, one key split and one sample per row.
+
+    Returns ``(toks [n_steps, B] (device), cache_k, cache_v, keys' [B, 2]
+    (host))``."""
+    dense_fn = _attn_fns()[3]
+    embed = params["embed"]
+    dev = embed.device
+    B = cache_k.shape[1]
+    s_max = cache_k.shape[2]
+    sin, cos = _rope_tables(s_max, hd, theta, device=dev)
+    head = _head(params, tied)
+    tok = torch.as_tensor(_host(tokens)).to(dev)
+    lens = _host(lengths)
+    kys = keys
+    toks = []
+    for _ in range(n_steps):
+        rows = np.flatnonzero(lens < s_max)
+        rows_w = torch.from_numpy(rows).to(dev)
+        pos_w = torch.from_numpy(lens[rows]).to(dev)
+        pidx = torch.from_numpy(np.clip(lens, 0, s_max - 1)).to(dev)
+        sin_r, cos_r = sin[pidx], cos[pidx]
+        att_len = torch.from_numpy((lens + 1).astype(np.int32)).to(dev)
+        h = embed[tok[:, None]]                               # [B, 1, H]
+        for l in range(cache_k.shape[0]):
+            lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _layer(params, l)
+            hn = _rms(h, lin, eps)
+            q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
+            q = _apply_rope_rows(q, sin_r, cos_r)
+            k = _apply_rope_rows(k, sin_r, cos_r)
+            if rows.size:
+                cache_k[l, rows_w, pos_w] = k[rows_w, 0]
+                cache_v[l, rows_w, pos_w] = v[rows_w, 0]
+            attn = dense_fn(q[:, 0], cache_k[l], cache_v[l], att_len)
+            h = h + attn.reshape(B, 1, nh * hd) @ lwo
+            h = h + _swiglu_raw(_rms(h, lpost, eps), lg, lu, ld)
+        last_h = _rms(h[:, 0], params["final_norm"], eps)
+        logits = last_h @ head
+        kys, draw = _split_rows(kys)
+        tok = sample_rows(logits, draw, temps, top_ks)
+        toks.append(tok)
+        lens = lens + 1
+    return torch.stack(toks), cache_k, cache_v, kys

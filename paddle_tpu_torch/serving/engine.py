@@ -11,13 +11,23 @@ prefill chunk a span-n row of one packed buffer — with up to
 ``decode_chunk`` fused decode ticks when nothing else is pending, and
 retires sequences at EOS or their token budget.
 
+Two more decode programs ride the same engine:
+
+- ``fused_tick=True``: every tail tick of the unified step is ONE launch
+  of the fused-tick kernel (``kernels/fused_decode_tick.py``) instead of
+  the scanned per-layer stack;
+- ``paged_attn=False``: the dense-slot engine — a :class:`~.kv_cache.
+  SlotKVCache`, one-shot cold prefill (``prefill_chunk`` is validated,
+  then ignored; ``ragged_step`` is ignored), and each step one call of
+  ``decode._decode_steps_impl`` over the dense-cache decode kernel.
+
 Offline use::
 
     engine = ContinuousBatchingEngine(model, num_slots=8)
     outs = engine.generate([GenerationRequest(prompt=ids, ...), ...])
 
-Every knob off the default geometry raises ``NotImplementedError`` naming
-the ROADMAP item that ports it. The JAX engine's tracer and cost
+Every other knob off the default geometry raises ``NotImplementedError``
+naming the ROADMAP item that ports it. The JAX engine's tracer and cost
 observatory hooks are not ported yet (ROADMAP Queue A step 8).
 """
 from __future__ import annotations
@@ -29,8 +39,8 @@ import torch
 
 from ..core import random as prng
 from ..models.llama import llama_decode_params
-from .decode import _prefill_impl, _ragged_step_impl
-from .kv_cache import PagedKVCache, PoolExhausted
+from .decode import _decode_steps_impl, _prefill_impl, _ragged_step_impl
+from .kv_cache import PagedKVCache, PoolExhausted, SlotKVCache
 from .request import GenerationRequest, GenerationResult, Sequence
 from .scheduler import FIFOScheduler
 
@@ -89,12 +99,18 @@ class ContinuousBatchingEngine:
         if priority_classes is not None:
             _not_ported("priority_classes",
                         "Queue A step 9 (serving/policy)")
-        if fused_tick:
-            _not_ported("fused_tick", "Queue B item 4 (fused decode tick)")
-        if not paged_attn:
-            _not_ported("paged_attn=False",
-                        "Queue A step 11 (dense-slot path)")
-        if not ragged_step:
+        self._paged = bool(paged_attn)
+        # the unified ragged step is the paged engine's; the dense engine
+        # ignores ragged_step, as the reference does
+        self._ragged = self._paged and bool(ragged_step)
+        self._fused_tick = bool(fused_tick)
+        if self._fused_tick and not self._ragged:
+            raise ValueError(
+                "fused_tick=True requires the unified ragged paged "
+                "engine (paged_attn=True, ragged_step=True): the fused "
+                "program is the packed-span tick body, and the dense / "
+                "two-program paths never grew its dispatch site")
+        if self._paged and not ragged_step:
             _not_ported("ragged_step=False",
                         "Queue A step 9 (two-program step)")
         self.model = model
@@ -105,19 +121,29 @@ class ContinuousBatchingEngine:
         bs = int(prefix_block_size)
         if bs < 1:
             raise ValueError(f"prefix_block_size must be >= 1, got {bs}")
-        self.cache = PagedKVCache(
-            c.num_hidden_layers, self.num_slots, self.max_seq_len,
-            c.num_key_value_heads, c.head_dim,
-            dtype=self._params["embed"].dtype, block_size=bs,
-            device=model.device)
-        # chunked prefill: the chunk rounds UP to a block multiple so
-        # every non-final chunk boundary is block-aligned
+        if self._paged:
+            self.cache = PagedKVCache(
+                c.num_hidden_layers, self.num_slots, self.max_seq_len,
+                c.num_key_value_heads, c.head_dim,
+                dtype=self._params["embed"].dtype, block_size=bs,
+                device=model.device)
+        else:
+            self.cache = SlotKVCache(
+                c.num_hidden_layers, self.num_slots, self.max_seq_len,
+                c.num_key_value_heads, c.head_dim,
+                dtype=self._params["embed"].dtype, device=model.device)
+        # chunked prefill (paged only: the dense cache has no block tables
+        # to resume through, so its prefill stays one-shot). The chunk
+        # rounds UP to a block multiple so every non-final chunk boundary
+        # is block-aligned
         self._chunk = None
         if prefill_chunk and int(prefill_chunk) < 1:
+            # validated on both engines: an A/B toggle of paged_attn must
+            # not turn a hard error into a silent no-op
             raise ValueError(
                 f"prefill_chunk must be >= 1 (or None/0 to disable), "
                 f"got {int(prefill_chunk)}")
-        if prefill_chunk:
+        if self._paged and prefill_chunk:
             self._chunk = -(-int(prefill_chunk) // bs) * bs
         # the packed token buffer: num_slots decode rows plus the chunk
         # cap, when a prompt long enough to chunk can exist at all
@@ -156,6 +182,12 @@ class ContinuousBatchingEngine:
         # step attempt; a PoolExhausted it raises is repaired by
         # preemption, anything else propagates
         self.fault_hook = None
+
+    @property
+    def fused_tick(self) -> bool:
+        """Whether every tail tick of the unified step is ONE fused-tick
+        kernel launch instead of the scanned per-layer stack."""
+        return self._fused_tick
 
     # ------------------------------------------------------------ programs
     def _fn_consts(self):
@@ -401,7 +433,10 @@ class ContinuousBatchingEngine:
                     admitted = self.scheduler.admissions(self.cache.num_free)
                     if admitted:
                         self._admit_group(admitted, finished)
-                step_tokens, had_chunks = self._unified_step(finished)
+                if self._ragged:
+                    step_tokens, had_chunks = self._unified_step(finished)
+                else:
+                    step_tokens, had_chunks = self._dense_step(finished)
                 break
             except PoolExhausted:
                 self._abort_admission(admitted)
@@ -549,7 +584,7 @@ class ContinuousBatchingEngine:
         _, _, toks, keys_t0, keys_fin = _ragged_step_impl(
             self._params, pool.k, pool.v, self.cache.tables, ids, seg, pos,
             qstart, qlen, kvlen, dec_mask, keys, temps, topks, n_steps=n,
-            **self._fn_consts())
+            fused=self._fused_tick, **self._fn_consts())
         toks_np = toks.cpu().numpy()        # [n, R]
         keys_t0_np = keys_t0.numpy()
         self.stats["unified_steps"] += 1
@@ -568,6 +603,32 @@ class ContinuousBatchingEngine:
             self.stats["slot_steps"] += n * self.num_slots
             self._accept_decode_rows(toks_np, n, dec_mask, finished)
         return cursor + (n - 1) * len(active), bool(chunk_rows)
+
+    def _dense_step(self, finished):
+        """The dense engine's step: the decode half of the reference's
+        two-program step (a dense engine never has a chunk plan): ONE
+        call of ``decode._decode_steps_impl`` over every slot, fusing
+        ``choose_num_steps`` ticks. Returns ``(tokens_processed,
+        had_chunks)``."""
+        active = [s for s in self._slots
+                  if s is not None and s.status == "running"]
+        if not active:
+            return 0, False
+        n = self.scheduler.choose_num_steps(active)
+        toks, nk, nv, keys = _decode_steps_impl(
+            self._params, self.cache.k, self.cache.v, self._last_tok,
+            self.cache.lengths, self._keys, self._temps, self._topks,
+            n_steps=n, **self._fn_consts())
+        self.cache.update(nk, nv)
+        self._keys = keys.numpy()
+        self.stats["decode_calls"] += 1
+        self.stats["decode_steps"] += n
+        self.stats["slot_steps"] += n * self.num_slots
+        # every running slot rode the call; the accept skips slots whose
+        # sequence finished at an earlier tick
+        self._accept_decode_rows(toks.cpu().numpy(), n,
+                                 np.ones(self.num_slots, np.int32), finished)
+        return n * len(active), False
 
     def _pack_decode_rows(self, n, ids, seg, pos, qstart, qlen, kvlen,
                           dec_mask, temps, topks):

@@ -1,4 +1,6 @@
-"""Block-table KV cache of the paged engine.
+"""KV caches of the serving engine: the block-table cache of the paged
+engine and the dense per-slot cache of the ``paged_attn=False`` engine
+(:class:`SlotKVCache`).
 
 The port of ``paddle_tpu/serving/kv_cache.py``'s :class:`PagedKVCache` on
 the default geometry: the :class:`~.block_manager.BlockManager` pool IS
@@ -63,6 +65,89 @@ def _paged_write_prefill(pool_k, pool_v, pk, pv, table_row, prompt_len):
     n = phys.shape[0]
     pool_k[:, phys, row] = pk[:, :n].to(pool_k.dtype)
     pool_v[:, phys, row] = pv[:, :n].to(pool_v.dtype)
+
+
+class SlotKVCache:
+    """Dense per-slot KV cache of the ``paged_attn=False`` engine — the
+    port of ``paddle_tpu/serving/kv_cache.py``'s :class:`SlotKVCache`: one
+    dense ``[L, num_slots, max_seq_len, Hkv, D]`` pair, one-shot prefill
+    only. Writes are in place (JAX donated the old arrays instead), so
+    :meth:`update` only checks that the decode program handed back the
+    same tensors.
+
+    The free-slot pool is a min-heap plus a membership set: ``alloc``
+    takes the lowest free index, ``free`` raises on a double free."""
+
+    def __init__(self, num_layers, num_slots, max_seq_len, num_kv_heads,
+                 head_dim, dtype=torch.float32, device="cuda"):
+        self.num_slots = int(num_slots)
+        self.max_seq_len = int(max_seq_len)
+        shape = (num_layers, self.num_slots, self.max_seq_len, num_kv_heads,
+                 head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=device)
+        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.lengths = np.zeros(self.num_slots, np.int32)
+        self._free_heap = list(range(self.num_slots))
+        self._free_set = set(self._free_heap)
+
+    # ------------------------------------------------------------- slots
+    @property
+    def num_free(self) -> int:
+        return len(self._free_set)
+
+    def alloc(self):
+        """Claim a free slot (lowest index first, deterministic)."""
+        if not self._free_set:
+            return None
+        slot = heapq.heappop(self._free_heap)
+        self._free_set.discard(slot)
+        return slot
+
+    def free(self, slot: int):
+        if slot in self._free_set:
+            raise ValueError(f"slot {slot} double-freed")
+        self.lengths[slot] = 0
+        heapq.heappush(self._free_heap, slot)
+        self._free_set.add(slot)
+
+    # ------------------------------------------------------------ writes
+    def write_prefill(self, slot, pk, pv, prompt_len):
+        """Install a prefilled prompt's K/V ``[L, S_pad, Hkv, D]`` into the
+        leading rows of ``slot`` (in place). Rows past ``prompt_len`` hold
+        bucket padding, masked by the length until decode overwrites
+        them, as in the reference."""
+        if pk.shape[1] > self.max_seq_len:
+            raise ValueError(
+                f"prefill length {pk.shape[1]} exceeds max_seq_len "
+                f"{self.max_seq_len}")
+        n = pk.shape[1]
+        self.k[:, slot, :n] = pk.to(self.k.dtype)
+        self.v[:, slot, :n] = pv.to(self.v.dtype)
+        self.lengths[slot] = int(prompt_len)
+
+    def update(self, new_k, new_v):
+        """Adopt the decode program's cache: the same tensors, written in
+        place (the reference adopts fresh arrays here)."""
+        if new_k is not self.k or new_v is not self.v:
+            raise ValueError("the decode program must return the cache "
+                             "tensors it was given (in-place writes)")
+
+    def slot_kv_bytes(self, slot) -> int:
+        """Device bytes of the slot's valid rows (rows × per-row bytes)."""
+        per_row = (2 * self.k.numel() * self.k.element_size()
+                   // (self.num_slots * self.max_seq_len))
+        return int(self.lengths[slot]) * per_row
+
+    # ------------------------------------------------------ block copies
+    def copy_block_in(self, slot, row0, pool, block_id):
+        raise NotImplementedError(
+            "SlotKVCache.copy_block_in belongs to the prefix cache, not "
+            "ported to paddle_tpu_torch yet (ROADMAP Queue A step 9)")
+
+    def copy_block_out(self, slot, row0, pool, block_id):
+        raise NotImplementedError(
+            "SlotKVCache.copy_block_out belongs to the prefix cache, not "
+            "ported to paddle_tpu_torch yet (ROADMAP Queue A step 9)")
 
 
 class PagedKVCache:

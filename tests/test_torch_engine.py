@@ -196,12 +196,17 @@ class TestEngineBehaviour:
             eng.submit("not a request")
 
 
+# fused_tick and paged_attn are ported; what stays off the ported path for
+# them is the fused tick's int8-pool mode and the dense engine's prefix
+# cache (the case id is the first key)
 KNOBS = [dict(prefix_cache=True), dict(spec_decode=True),
          dict(decode_ticks=4), dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
          dict(quantize_weights=True), dict(quantize_activations=True),
          dict(tp=2), dict(host_tier_bytes=1 << 20),
-         dict(priority_classes={"gold": 1}), dict(fused_tick=True),
-         dict(collective_overlap=True), dict(paged_attn=False),
+         dict(priority_classes={"gold": 1}),
+         dict(fused_tick=True, kv_dtype="int8"),
+         dict(collective_overlap=True),
+         dict(paged_attn=False, prefix_cache=True),
          dict(ragged_step=False)]
 
 

@@ -48,6 +48,8 @@ def _clean_env():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import paddle_tpu_torch.serving, "
             "paddle_tpu_torch.kernels.flash, paddle_tpu_torch.jit, "
+            "paddle_tpu_torch.kernels.decode, "
+            "paddle_tpu_torch.kernels.fused_decode_tick, "
             "paddle_tpu_torch.nn, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.models.llama, paddle_tpu_torch.flags, "
             "chip_smoke; "

@@ -210,7 +210,8 @@ class TestWrappers:
         tpd.paged_decode_attention(_t(q), _t(pk), _t(pv), _t(tbl), _t(lens))
         assert LAUNCHES == {"flash": 0, "paged_decode": 0,
                             "ragged_attention": 0, "flash_bwd_dkv": 0,
-                            "flash_bwd_dq": 0}
+                            "flash_bwd_dq": 0, "decode": 0,
+                            "fused_decode_tick": 0}
 
     @pytest.mark.parametrize("which", ["paged", "ragged", "flash"])
     def test_other_devices_raise(self, which):
@@ -236,7 +237,7 @@ class TestWrappers:
     def test_library_named_by_source_hash(self, tmp_path, monkeypatch):
         monkeypatch.setenv("PADDLE_TPU_TORCH_BUILD_DIR", str(tmp_path))
         paths = {n: _build.library_path(n) for n in _build.SOURCES}
-        assert len(set(paths.values())) == 4
+        assert len(set(paths.values())) == 6
         for n, p in paths.items():
             assert p.parent == tmp_path and p.name.startswith(n + "-")
             assert p == _build.library_path(n)          # deterministic

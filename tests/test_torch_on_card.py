@@ -22,11 +22,17 @@ import torch
 
 from paddle_tpu_torch.flags import set_flags
 from paddle_tpu_torch.kernels import LAUNCHES, _build, reset_launches
+from paddle_tpu_torch.kernels import decode as tdk
 from paddle_tpu_torch.kernels import flash as tflash
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import fused_decode_tick as tft
 from paddle_tpu_torch.kernels import paged_decode as tpd
 from paddle_tpu_torch.kernels import ragged_attention as tra
-from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+from paddle_tpu_torch.models.llama import (LlamaForCausalLM, _rope_tables,
+                                           llama_decode_params, llama_tiny)
+from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                      GenerationRequest)
+from paddle_tpu_torch.serving.decode import _head, _keys_host
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +117,70 @@ class TestServingKernels:
         want = tra.ragged_attention_reference(*a)
         assert (got.float() - want.float()).abs().max().item() <= atol
 
+    def test_decode_kernel_vs_plain(self, cuda_dev, dtype, atol):
+        """Dense cache, GQA, lengths 1 and S_max, NaN past each length."""
+        r = np.random.RandomState(3)
+        q = r.randn(4, 8, 64).astype(np.float32)
+        k = r.randn(4, 77, 2, 64).astype(np.float32)
+        v = r.randn(4, 77, 2, 64).astype(np.float32)
+        lens = np.array([1, 77, 40, 9], np.int32)
+        for b, n in enumerate(lens):
+            k[b, n:] = v[b, n:] = np.nan
+        a = [torch.from_numpy(x).to(cuda_dev, dtype) for x in (q, k, v)]
+        a.append(torch.from_numpy(lens).to(cuda_dev))
+        reset_launches()
+        got = tdk.decode_attention(*a)
+        assert LAUNCHES["decode"] == 1
+        want = tdk.decode_attention_reference(*a)
+        assert (got.float() - want.float()).abs().max().item() <= atol
+
+    @pytest.mark.parametrize("tie", [False, True], ids=["untied", "tied"])
+    def test_fused_tick_kernel_vs_plain(self, cuda_dev, dtype, atol, tie):
+        """One launch per tick; keys bit for bit; logits and the appended
+        pool rows within the tolerance; tokens equal in float32; GQA, and
+        an untied or a tied (embedding read transposed) head."""
+        cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
+                         num_key_value_heads=2, tie_word_embeddings=tie,
+                         dtype=str(dtype).split(".")[-1])
+        m = LlamaForCausalLM(cfg, device="cuda", seed=4)
+        p, tied = llama_decode_params(m)
+        r = np.random.RandomState(4)
+        L, nb, bs, D = cfg.num_hidden_layers, 12, 16, 64
+        pk = torch.from_numpy(r.randn(L, nb, bs, 2, D).astype(
+            np.float32)).to(cuda_dev, dtype)
+        pv = torch.from_numpy(r.randn(L, nb, bs, 2, D).astype(
+            np.float32)).to(cuda_dev, dtype)
+        tables = np.full((4, 4), nb, np.int32)
+        tables[0, :2], tables[1, :3], tables[2, :1] = [3, 7], [0, 1, 2], [9]
+        lens = np.array([20, 40, 0, 0], np.int32)
+        app = np.array([1, 1, 1, 0], np.int32)
+        keys = r.randint(0, 2 ** 32, (4, 2), dtype=np.uint64).astype(
+            np.int64)
+        temps = np.array([0.0, 0.8, 0.0, 0.0], np.float32)
+        topks = np.array([0, 7, 0, 0], np.int32)
+        sin, cos = _rope_tables(64, D, 10000.0, device=cuda_dev)
+        tok = torch.tensor([5, 77, 200, 0], device=cuda_dev)
+        outs = []
+        for fn in (tft.fused_decode_tick, tft.fused_decode_tick_reference):
+            k2, v2 = pk.clone(), pv.clone()
+            reset_launches()
+            with torch.inference_mode():
+                out = fn(p, _head(p, tied), tables,
+                         torch.from_numpy(tables).to(cuda_dev), sin, cos, tok,
+                         k2, v2, lens, keys, app, temps, topks, nh=4, nkv=2,
+                         hd=D, eps=1e-5, return_logits=True)
+            torch.cuda.synchronize()
+            assert LAUNCHES["fused_decode_tick"] == (
+                1 if fn is tft.fused_decode_tick else 0)
+            assert LAUNCHES["paged_decode"] == 0
+            outs.append(out)
+        (nxt, gk, gv, gkeys, glog), (wnxt, wk, wv, wkeys, wlog) = outs
+        assert (_keys_host(gkeys) == _keys_host(wkeys)).all()
+        for g, w in ((glog, wlog), (gk, wk), (gv, wv)):
+            assert (g.float() - w.float()).abs().max().item() <= atol
+        if dtype == torch.float32:
+            assert nxt.tolist() == wnxt.tolist()
+
     def test_flash_kernel_vs_plain(self, cuda_dev, dtype, atol):
         r = np.random.RandomState(0)
         q, k, v = (torch.from_numpy(r.randn(2, 77, h, 64).astype(
@@ -118,6 +188,37 @@ class TestServingKernels:
         got = tflash.flash_attention(q, k, v, causal=True)
         want = tfa._ref_attention(q, k, v, True)
         assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("knob,kernel", [
+    (dict(fused_tick=True), "fused_decode_tick"),
+    (dict(paged_attn=False), "decode")], ids=["fused_tick", "dense"])
+def test_new_engines_kernels_vs_plain(cuda_dev, knob, kernel):
+    """float32 greedy streams of the fused-tick and the dense engine with
+    the kernels equal those with the plain versions (the flag off), and
+    the fused engine's equal the default engine's."""
+    cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
+                     num_key_value_heads=2)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=5)
+    r = np.random.RandomState(9)
+    reqs = [GenerationRequest(prompt=r.randint(0, 256, n).astype(np.int32),
+                              max_new_tokens=12) for n in (45, 12, 30)]
+    geo = dict(num_slots=4, max_seq_len=128, prefix_block_size=8,
+               prefill_chunk=16, headroom_mult=None)
+    outs, launches = {}, {}
+    try:
+        for use in (True, False):
+            set_flags({"FLAGS_use_cuda_kernels": use})
+            reset_launches()
+            eng = ContinuousBatchingEngine(model, **geo, **knob)
+            outs[use] = [o.tolist() for o in eng.generate(reqs)]
+            launches[use] = LAUNCHES[kernel]
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    assert outs[True] == outs[False]
+    assert launches[True] > 0 and launches[False] == 0
+    base = ContinuousBatchingEngine(model, **geo).generate(reqs)
+    assert [o.tolist() for o in base] == outs[True]
 
 
 class TestFlashBackwardKernels:

@@ -12,7 +12,9 @@ Tolerances: float32 kernels differ from their plain versions only in
 summation order; bf16 ones also round P (and dS) to 8 mantissa bits where
 the two sides' float32 values differ in the last bits. The backward
 tolerances are relative to each gradient's largest entry, as in
-``chip_smoke.py``'s ``BWD_TOL``.
+``chip_smoke.py``'s ``BWD_TOL``. The sweep of the two tensor-core kernels
+(``TestTensorCoreFlash``) holds them to ``chip_smoke.py``'s own ``TOL`` and
+``BWD_TOL``; ``-k TensorCore`` runs it alone.
 """
 import subprocess
 
@@ -33,6 +35,7 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM, _rope_tables,
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest)
 from paddle_tpu_torch.serving.decode import _head, _keys_host
+from chip_smoke import BWD_TOL, TOL
 
 pytestmark = pytest.mark.cuda
 
@@ -271,3 +274,85 @@ class TestFlashBackwardKernels:
             set_flags({"FLAGS_use_cuda_kernels": True})
         for n in grads[True]:
             assert _rel_err(grads[True][n], grads[False][n]) <= 1e-4, n
+
+
+# The bf16 flash forward and dK/dV run on the tensor cores, fp32 on the
+# CUDA cores. S covers one tile, its edges, the tail and several tiles; D
+# both head sizes the kernels take; G = H / Hk is 1 (MHA) or 4 (GQA).
+SWEEP = [(S, D, G) for S in (1, 63, 64, 65, 300, 1024) for D in (64, 128)
+         for G in (1, 4)]
+
+
+def _qkvdo(S, D, G, dtype, dev, B=2, H=8):
+    r = np.random.RandomState(S * 7 + D + G)
+    return [torch.from_numpy(r.randn(B, S, h, D).astype(np.float32)).to(
+        dev, dtype) for h in (H, H // G, H // G, H)]
+
+
+def _within(got, want, atol, rtol):
+    """``TOL``'s form: |got - want| <= atol + rtol * |want|, all finite."""
+    g, w = got.float(), want.float()
+    return bool(torch.isfinite(g).all()) and bool(
+        ((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def _within_scaled(got, want, atol, rtol):
+    """``BWD_TOL``'s form: |got - want| <= atol * max|want| + rtol * |want|."""
+    g, w = got.float(), want.float()
+    return bool(torch.isfinite(g).all()) and bool(
+        ((g - w).abs() <= atol * w.abs().max() + rtol * w.abs()).all())
+
+
+class TestTensorCoreFlash:
+    @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+    @pytest.mark.parametrize("S,D,G", SWEEP)
+    def test_forward_bf16_vs_plain(self, cuda_dev, S, D, G, causal):
+        """O within TOL["bfloat16"], LSE within TOL["float32"]."""
+        q, k, v, _ = _qkvdo(S, D, G, torch.bfloat16, cuda_dev)
+        reset_launches()
+        o, lse = tflash.flash_attention_fwd(q, k, v, causal)
+        assert LAUNCHES["flash"] == 1
+        assert _within(o, tfa._ref_attention(q, k, v, causal),
+                       *TOL["bfloat16"])
+        assert _within(lse, tfa._ref_lse(q, k, causal), *TOL["float32"])
+
+    @pytest.mark.parametrize("S,D,G", SWEEP)
+    def test_dkv_bf16_vs_plain(self, cuda_dev, S, D, G):
+        """dK and dV within BWD_TOL["bfloat16"]; the same bits on a second
+        launch (GQA sums its group in registers, no atomics)."""
+        q, k, v, do = _qkvdo(S, D, G, torch.bfloat16, cuda_dev)
+        o, lse = tflash.flash_attention_fwd(q, k, v, True)
+        delta = tflash.attention_delta(o, do)
+        reset_launches()
+        got = tflash.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+        again = tflash.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+        assert LAUNCHES["flash_bwd_dkv"] == 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = tflash.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True)
+        if S == 1:
+            # one key: the softmax has no gradient with respect to its only
+            # score, so dK is 0 in exact arithmetic and both sides return
+            # the rounding noise of dP - delta; it stays near 0 beside dV
+            size = want[1].float().abs().max()
+            assert got[0].float().abs().max() <= 1e-4 * size
+            assert want[0].float().abs().max() <= 1e-4 * size
+            got, want = got[1:], want[1:]
+        for g, w in zip(got, want):
+            assert _within_scaled(g, w, *BWD_TOL["bfloat16"])
+
+    @pytest.mark.parametrize("which", ["forward", "dkv"])
+    def test_float32_on_the_cuda_cores(self, cuda_dev, which):
+        """float32 still runs the CUDA-core kernels: summation order only,
+        so TOL["float32"] (BWD_TOL's form for the gradients)."""
+        q, k, v, do = _qkvdo(300, 128, 4, torch.float32, cuda_dev)
+        o, lse = tflash.flash_attention_fwd(q, k, v, True)
+        if which == "forward":
+            assert _within(o, tfa._ref_attention(q, k, v, True),
+                           *TOL["float32"])
+            assert _within(lse, tfa._ref_lse(q, k, True), *TOL["float32"])
+            return
+        delta = tflash.attention_delta(o, do)
+        got = tflash.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+        want = tflash.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True)
+        for g, w in zip(got, want):
+            assert _within_scaled(g, w, *BWD_TOL["float32"])

@@ -10,19 +10,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
              the three serving kernels of the default engine and the
              dense-cache decode kernel (B=8, S_max=4096, lengths 1 to
              4096, plus a GQA check with 8 KV heads) at the LLaMA-7B
-             serving shapes; the fused decode tick at llama_7b widths, 2
-             layers, 8 rows (mixed lengths, one masked row, one sampled
-             row: keys bit for bit, logits and appended K/V rows within
-             TOL, next tokens equal in fp32); the two flash-backward
-             kernels at the training shapes (B=4, S=2048, 32 heads of 128)
-             plus a tail (S=300) and a GQA (8 KV heads) check, dK/dV
-             bitwise equal across two launches, and the flash forward's O
-             and LSE at each of those shapes; max-abs error against the
-             stated tolerance, kernel / plain / library milliseconds (a
-             PyTorch call on the same work, a yardstick the port never
-             calls), the least time the card could take (``bound_ms``),
-             achieved TFLOP/s and the route (the bf16 flash forward and
-             dK/dV on the tensor cores, the rest on the CUDA cores).
+             serving shapes, paged decode the same bits on two launches
+             (with its split length and grid); the fused decode tick at
+             llama_7b widths, 2 layers, 8 rows (mixed lengths, one masked
+             row, one sampled row: keys bit for bit, logits and appended
+             K/V rows within TOL, next tokens equal in fp32); the two
+             flash-backward kernels at the training shapes (B=4, S=2048,
+             32 heads of 128) plus a tail (S=300) and a GQA (8 KV heads)
+             check, each bitwise equal across two launches, and the
+             flash forward's O and LSE at each of those shapes; max-abs
+             error against the stated tolerance, kernel / plain / library
+             milliseconds (a PyTorch call on the same work, a yardstick
+             the port never calls), the least time the card could take
+             (``bound_ms``),
+             achieved TFLOP/s and the route (the bf16 flash forward, dK/dV
+             and dQ on the tensor cores, the rest on the CUDA cores).
 4. engine  — llama_7b widths at 2 layers in fp32, for each of the
              engine's three decode programs (default, ``fused_tick=True``,
              ``paged_attn=False``), through the kernels against the plain
@@ -41,8 +43,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
              before the next; each launch count must equal what the code
              implies.
 6. train_parity — llama_7b widths at 2 layers, B=1, S=500, in fp32 (the
-             CUDA-core kernels) and in bf16 (the tensor-core forward and
-             dK/dV): one forward+backward through the kernels and one
+             CUDA-core kernels) and in bf16 (the tensor-core forward,
+             dK/dV and dQ): one forward+backward through the kernels and one
              through the plain versions (``FLAGS_use_cuda_kernels`` off);
              the losses and every parameter's gradient must agree.
 7. train   — llama_7b widths at 15 layers in bf16 (the deepest whose
@@ -116,9 +118,10 @@ REPLACES = {
         "paddle_tpu/kernels/pallas_fused_decode_tick.py:335",
 }
 #: how a kernel does its arithmetic, by input type: the bf16 flash forward
-#: on the tensor cores by warpgroup wgmma, bf16 dK/dV by mma.sync.m16n8k16,
-#: everything else in fp32 FMAs on the CUDA cores
-TENSOR_CORE = {"flash": "wgmma", "flash_bwd_dkv": "mma.sync"}
+#: on the tensor cores by warpgroup wgmma, bf16 dK/dV and dQ by
+#: mma.sync.m16n8k16, everything else in fp32 FMAs on the CUDA cores
+TENSOR_CORE = {"flash": "wgmma", "flash_bwd_dkv": "mma.sync",
+               "flash_bwd_dq": "mma.sync"}
 
 
 def route(name, dtype_name):
@@ -318,7 +321,7 @@ def bwd_check(dtype_name, dev, gen, B, S, Hk):
 
 def bwd_case(name, dtype_name, dev, gen):
     """One backward kernel at the training shapes against its plain
-    version: error, bitwise repeatability of dK/dV, times, bound. The
+    version: error, bitwise repeatability, times, bound. The
     library time is SDPA forward+backward less SDPA forward at the same
     shapes — the pair's yardstick, the same on both rows."""
     import torch
@@ -366,7 +369,7 @@ def bwd_case(name, dtype_name, dev, gen):
            "fwd_o_lse_err": fwd_err,
            "tol": {"atol_x_max_ref": BWD_TOL[dtype_name][0],
                    "rtol": BWD_TOL[dtype_name][1]},
-           "dkdv_bitwise_repeatable": bitwise if name == BWD[0] else None,
+           "bitwise_repeatable": bitwise,
            "ms": time_ms(run, iters=5), "plain_ms": time_ms(plain, iters=3),
            "library_ms": time_ms(lib_fb, iters=5) - lib_f,
            "library": "SDPA fwd+bwd minus SDPA fwd (the pair)",
@@ -508,7 +511,19 @@ def kernel_case(name, dtype_name, dev, gen):
     want = plain()
     torch.cuda.synchronize()
     err = _compare(name, dtype_name, got, want)
-    row = {"name": name, "dtype": dtype_name, "max_abs_err": err,
+    extra = {}
+    if name == "paged_decode":
+        # split-KV: the same bits on a second launch (the splits are
+        # combined in split order, whichever block finishes last)
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"paged_decode {dtype_name}: two launches "
+                               f"differ")
+        g = paged_decode.LAST_GRID
+        extra = {"bitwise_repeatable": True, "split_len": g["split_len"],
+                 "n_split": g["n_split"], "grid_blocks": g["blocks"],
+                 "active_blocks": HKV * sum(max(1, -(-n // g["split_len"]))
+                                            for n in L.tolist())}
+    row = {"name": name, "dtype": dtype_name, "max_abs_err": err, **extra,
            "tol": dict(zip(("atol", "rtol"), TOL[dtype_name])),
            "ms": time_ms(run), "plain_ms": time_ms(plain, iters=3),
            "library_ms": time_ms(lib), "bytes": nbytes, "flops": flops,
@@ -714,9 +729,11 @@ def phase_kernels():
             rows[(name, dtype_name)] = row
             torch.cuda.empty_cache()
     reset_launches()
-    # span-1 ragged rows against the paged decode kernel (shared tile
-    # arithmetic): decode row b with length L equals a span-1 row with
-    # kvlen L
+    # span-1 ragged rows against the paged decode kernel: decode row b with
+    # length L and a span-1 row with kvlen L attend the same keys. The
+    # split-KV kernel rounds P per page against each split's running max,
+    # the ragged one per tile against the row's, so they agree within TOL
+    # and ``bitwise`` reports whether they also share the bits
     from paddle_tpu_torch.kernels import paged_decode, ragged_attention
     q, pk, pv, tbl, lens = paged_inputs(torch.bfloat16, dev, gen)
     one = torch.ones(SLOTS, dtype=torch.int32, device=dev)
@@ -1095,8 +1112,8 @@ def _grad_ok(dtype_name, got, want):
 def phase_train_parity():
     """2 layers at llama_7b widths, B=1, S=500 (a tail past the 64-row
     tiles): kernels against plain versions through the model, in fp32
-    (the CUDA-core kernels) and in bf16 (the tensor-core forward and
-    dK/dV)."""
+    (the CUDA-core kernels) and in bf16 (the tensor-core forward, dK/dV
+    and dQ)."""
     for dtype_name in ("float32", "bfloat16"):
         _train_parity(dtype_name)
 

@@ -13,7 +13,7 @@
 // cache is the paged walk with key offsets (b*S_max + p) rows, so this
 // kernel shares attention_common.cuh's tile routine (and its numerics: masked
 // scores at -1e30, P and V zeroed past the length, out = acc / max(l, 1e-30)
-// rounded to the input type) with the paged decode kernel.
+// rounded to the input type) with the ragged kernel.
 #include <math.h>
 
 #include "attention_common.cuh"

@@ -25,34 +25,45 @@
 //
 // Common to all: blocks run in no order, so each block owns its outputs
 // and walks the other dimension in a loop, where the Pallas grid walked a
-// sequential axis. dkv: one block per (batch, KV head, 64-key tile); K and
-// V stay in shared memory while 64-row Q/dO tiles stream past, from the
-// diagonal tile to S (causal pruning, as :201). GQA: the block loops over
-// the KV head's group of query heads itself, so dK/dV are summed over the
-// group in registers, without atomics, and every run gives the same bits.
-// dq: one block per (batch*head, 64-row query tile); Q and dO stay
-// resident while K/V tiles stream past up to the diagonal. Rows past S
-// (the tail) load as zeros and carry P = dS = 0, so they add nothing (as
-// _row_valid, :38, and :214-235); output rows past S are not written.
+// sequential axis. No atomics anywhere, so every run gives the same bits.
+// Rows past S (the tail) load as zeros and carry P = dS = 0, so they add
+// nothing (as _row_valid, :38, and :214-235); output rows past S are not
+// written.
 //
-// dkv, bfloat16 — on the tensor cores (flash_bwd_dkv_bf16_kernel). Four
-// warps, each owning 16 of the tile's 64 keys. Per streamed 64-row query
-// tile each warp computes the transposed scores S^T = K Q^T and dP^T =
-// V dO^T with mma.sync.m16n8k16 (bf16 in, fp32 accumulate); P^T and dS^T
-// then already sit in the accumulator layout and, rounded to bf16, are the
-// A operands of dV += P^T dO and dK += dS^T Q straight from registers (dO
-// and Q as B operands through ldmatrix.trans). The dK and dV accumulators
-// stay in registers (128 floats a thread at D=128), so a tile is taken in
-// two passes of 32 query columns to keep P^T and dP^T to 32 more. Q, dO, lse and delta
-// tiles stream through a two-stage cp.async ring of swizzled bf16 shared
-// tiles; ~97 KB of shared memory at D=128, two blocks an SM. Key tiles
-// are scheduled first to last, so the causally longest walks start first.
+// bfloat16 — on the tensor cores, mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate), from swizzled bf16 shared tiles filled by a two-stage
+// cp.async ring (csrc/tensor_core.cuh). Four warps a block.
+//   dkv (flash_bwd_dkv_bf16_kernel): one block per (batch, KV head, 64-key
+//   tile); each warp owns 16 of the keys. K and V stay in shared memory
+//   while 64-row Q/dO tiles (and their lse, delta) stream past, from the
+//   diagonal tile to S (causal pruning, as :201). Per tile each warp
+//   computes the transposed scores S^T = K Q^T and dP^T = V dO^T; P^T and
+//   dS^T then sit in the accumulator layout and, rounded to bf16, are the
+//   A operands of dV += P^T dO and dK += dS^T Q straight from registers
+//   (dO and Q as B operands through ldmatrix.trans). The dK and dV
+//   accumulators stay in registers (128 floats a thread at D=128), so a
+//   tile is taken in two passes of 32 query columns to keep P^T and dP^T
+//   to 32 more. GQA: the block loops over the KV head's group of query
+//   heads, so dK/dV are summed over the group in registers. ~97 KB of
+//   shared memory at D=128, two blocks an SM; key tiles first to last, so
+//   the causally longest walks start first.
+//   dq (flash_bwd_dq_bf16_kernel): the same design transposed. One block
+//   per (batch*head, 64-row query tile); each warp owns 16 query rows. Q
+//   and dO stay resident, each row's lse and delta in registers, and
+//   64-key K/V tiles stream past from key tile 0 up to the diagonal. Per
+//   tile S = Q K^T and dP = dO V^T (Q, dO as A operands, K, V as B), then
+//   P and dS in registers; dS, rounded to bf16, is the A operand of
+//   dQ += dS K with K through ldmatrix.trans, so dS never goes to shared
+//   memory. The dQ accumulator is 64 floats a thread at D=128, S and dP
+//   64 more. GQA indexes the KV head as h / (H / Hk). ~97 KB of shared
+//   memory at D=128, two blocks an SM; the last query tiles (the longest
+//   causal walks) are scheduled first.
 //
-// dkv in float32, and dq in both types — on the CUDA cores in fp32
-// (flash_bwd_dkv_kernel, flash_bwd_dq_kernel): 256 threads, each a 4x4
-// patch of the 64x64 S and dP tiles (16 shared loads feed 32 FMAs) and a
-// 4 x D/16 patch of its [64, D] accumulators; shared rows padded by one
-// float so the strided reads of a warp fall in distinct banks.
+// float32 — on the CUDA cores in fp32 (flash_bwd_dkv_kernel,
+// flash_bwd_dq_kernel): 256 threads, each a 4x4 patch of the 64x64 S and
+// dP tiles (16 shared loads feed 32 FMAs) and a 4 x D/16 patch of its
+// [64, D] accumulators; shared rows padded by one float so the strided
+// reads of a warp fall in distinct banks. Same block layout as above.
 #include <math.h>
 
 #include "attention_common.cuh"
@@ -371,31 +382,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dq_d(int D, const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 void* dq, int B, int S, int H, int Hk, int causal,
-                 cudaStream_t s) {
-  switch (D) {
-    case 64:
-      return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, B, S, H, Hk,
-                              causal, s);
-    case 128:
-      return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, B, S, H, Hk,
-                               causal, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace bwd
 
-// ------------------------------------------- dK/dV in bf16, tensor cores
+// ------------------------------------- dK/dV and dQ in bf16, tensor cores
 namespace tcb {
 
 using bf16 = __nv_bfloat16;
-constexpr int kBK = 64;    // keys a block: 4 warps x 16
-constexpr int kBQ = 64;    // query rows a streamed tile
+constexpr int kBK = 64;    // keys a tile (dkv: resident, 4 warps x 16)
+constexpr int kBQ = 64;    // query rows a tile (dq: resident, 4 warps x 16)
 constexpr int kNT = 128;   // threads a block
 
 // shared bytes: K and V, two stages of Q and of dO, two of lse and delta
@@ -599,6 +593,183 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// shared bytes: Q and dO (resident), two stages of K and of V
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return static_cast<size_t>(2 * kBQ + 4 * kBK) * D * sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kNT, 2)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int S, int H, int Hk,
+                         int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + kBQ * D;
+  bf16* sK = sdO + kBQ * D;          // two stages
+  bf16* sV = sK + 2 * kBK * D;       // two stages
+  constexpr int KS = D / 16;    // k-steps of Q K^T and dO V^T
+  constexpr int ND = D / 8;     // 8-column tiles of dQ
+  constexpr int NS = kBK / 8;   // 8-column tiles of S, dP
+
+  // last query tiles first: their causal walks are the longest
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - blockIdx.y) * kBQ;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / Hk);
+  const long long q_row = static_cast<long long>(H) * D;    // row strides
+  const long long kv_row = static_cast<long long>(Hk) * D;
+  const long long q_off = (static_cast<long long>(b) * S + q0) * q_row +
+                          h * D;
+  // causal: key tiles past the query tile's last row are never visited
+  const int kv_stop = causal ? min(q0 + kBQ, S) : S;
+  const int n_it = (kv_stop + kBK - 1) / kBK;
+
+  auto issue = [&](int it, int st) {
+    const int k0 = it * kBK;
+    const long long off = (static_cast<long long>(b) * S + k0) * kv_row +
+                          kvh * D;
+    tc::load_tile<kBK, D, kNT>(sK + st * kBK * D, k + off, kv_row, S - k0);
+    tc::load_tile<kBK, D, kNT>(sV + st * kBK * D, v + off, kv_row, S - k0);
+  };
+
+  tc::load_tile<kBQ, D, kNT>(sQ, q + q_off, q_row, S - q0);
+  tc::load_tile<kBQ, D, kNT>(sdO, dout + q_off, q_row, S - q0);
+  issue(0, 0);
+  tc::cp_async_commit();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int qr0 = warp * 16;               // this warp's rows in the tile
+  const int row[2] = {q0 + qr0 + (lane >> 2), q0 + qr0 + (lane >> 2) + 8};
+  float r_lse[2], r_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row[r] < S;
+    const long long i = static_cast<long long>(bh) * S + row[r];
+    r_lse[r] = ok ? lse[i] : 0.f;
+    r_delta[r] = ok ? delta[i] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {   // the next tile's copy overlaps this tile's math
+      issue(it + 1, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = it * kBK;
+    const bf16* cK = sK + st * kBK * D;
+    const bf16* cV = sV + st * kBK * D;
+
+    // ---- S = Q K^T and dP = dO V^T: rows = this warp's 16 queries,
+    // columns = the tile's 64 keys
+    float p[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[n][i] = 0.f;
+        dp[n][i] = 0.f;
+      }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      tc::load_a<kBQ>(a, sQ, qr0, ks);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bb[4];
+        tc::load_b<kBK>(bb, cK, np * 16, ks);
+        tc::mma(p[2 * np], a, bb[0], bb[1]);
+        tc::mma(p[2 * np + 1], a, bb[2], bb[3]);
+      }
+      tc::load_a<kBQ>(a, sdO, qr0, ks);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bb[4];
+        tc::load_b<kBK>(bb, cV, np * 16, ks);
+        tc::mma(dp[2 * np], a, bb[0], bb[1]);
+        tc::mma(dp[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+    // ---- P = exp(S * scale - lse), masked and tail entries exactly 0;
+    // dS = P (dP - delta) * scale
+    const bool edge = (causal && k0 + kBK - 1 > q0 + qr0) || k0 + kBK > S;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        float x = tc::exp2_fast((p[n][i] * scale - r_lse[r]) * tc::kLog2e);
+        if (edge) {
+          const int key = k0 + n * 8 + 2 * t + (i & 1);
+          const bool ok = key < S && (!causal || key <= row[r]);
+          x = ok ? x : 0.f;
+        }
+        dp[n][i] = x * (dp[n][i] - r_delta[r]) * scale;
+      }
+    // ---- dQ += dS K over the tile's keys; dS rounded to bf16 in
+    // registers as the A operand, K through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t da[4];
+      tc::to_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dc = 0; dc < D / 16; ++dc) {
+        uint32_t bb[4];
+        tc::load_b_t<kBK>(bb, cK, kk, 2 * dc);
+        tc::mma(acc[2 * dc], da, bb[0], bb[1]);
+        tc::mma(acc[2 * dc + 1], da, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();   // this stage is read; the next copy may overwrite it
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= S) continue;
+    const long long off = (static_cast<long long>(b) * S + row[r]) * q_row +
+                          h * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dq + off + n * 8) =
+          tc::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int B, int S, int H, int Hk, int causal,
+                      cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_bf16_kernel<D>;
+  cudaError_t err = tc::use_smem(kernel, dq_smem_bytes<D>());
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kNT, dq_smem_bytes<D>(), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dq), S, H, Hk, causal, bwd::scale_of(D));
+  return cudaGetLastError();
+}
+
 }  // namespace tcb
 }  // namespace pt
 
@@ -637,6 +808,7 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // q/dout/dq [B,S,H,D]; k/v [B,S,Hk,D]; lse/delta [B,H,S] float32.
+// is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int B, int S,
@@ -647,10 +819,23 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  cudaError_t err =
-      is_bf16 ? pt::bwd::dq_d<__nv_bfloat16>(D, q, k, v, dout, l, dl, dq, B,
-                                             S, H, Hk, causal, s)
-              : pt::bwd::dq_d<float>(D, q, k, v, dout, l, dl, dq, B, S, H,
-                                     Hk, causal, s);
+  cudaError_t err;
+  switch (D) {
+    case 64:
+      err = is_bf16 ? pt::tcb::launch_dq<64>(q, k, v, dout, l, dl, dq, B, S,
+                                             H, Hk, causal, s)
+                    : pt::bwd::launch_dq<float, 64>(q, k, v, dout, l, dl, dq,
+                                                    B, S, H, Hk, causal, s);
+      break;
+    case 128:
+      err = is_bf16 ? pt::tcb::launch_dq<128>(q, k, v, dout, l, dl, dq, B, S,
+                                              H, Hk, causal, s)
+                    : pt::bwd::launch_dq<float, 128>(q, k, v, dout, l, dl,
+                                                     dq, B, S, H, Hk, causal,
+                                                     s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -16,8 +16,10 @@
 // walks keys only up to its tile's last causal position (blocks past kvlen
 // are never read, sentinel table entries clamp into the pool). GQA indexes
 // the KV head as h / (H / Hkv). The 16-row tile amortises every K/V load
-// over 16 queries; the per-row arithmetic is the paged-decode kernel's, so
-// a span-1 row reproduces it bit for bit.
+// over 16 queries; the per-row arithmetic is attention_common.cuh's tile
+// routine, the dense decode kernel's. The split-KV paged decode kernel
+// rounds P per page against a split's running max instead, so a span-1
+// row agrees with it within chip_smoke.py's TOL, not bit for bit.
 #include <math.h>
 
 #include "attention_common.cuh"

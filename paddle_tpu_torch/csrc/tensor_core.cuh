@@ -1,5 +1,5 @@
 // Tensor-core building blocks of the bf16 flash kernels: the forward
-// (csrc/flash.cu) on warpgroup wgmma, dK/dV (csrc/flash_bwd.cu) on
+// (csrc/flash.cu) on warpgroup wgmma, dK/dV and dQ (csrc/flash_bwd.cu) on
 // mma.sync.m16n8k16 — asynchronous 16-byte copies into swizzled shared
 // tiles, ldmatrix fragment loads, the two products with fp32
 // accumulators, wgmma descriptors, and the quad reductions of an online

@@ -35,7 +35,7 @@ _REPO = _PKG.parent
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "paged_decode": ("paged_decode", "pt_paged_decode",
-                     [_P] * 6 + [_I] * 8 + [_P]),
+                     [_P] * 10 + [_I] * 10 + [_P]),
     "ragged_attention": ("ragged_attention", "pt_ragged_attention",
                          [_P] * 8 + [_I] * 9 + [_P]),
     "flash": ("flash", "pt_flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),

@@ -24,8 +24,11 @@ Replaces ``paddle_tpu/kernels/pallas_flash.py``:
   every run; in bf16 its four products are ``mma.sync.m16n8k16`` on the
   tensor cores over the transposed scores, P^T and dS^T feeding dV and dK
   from registers, in float32 fp32 FMAs on the CUDA cores.
-  ``flash_bwd_dq`` runs one block per (batch*head, 64-row query tile) and
-  walks the key tiles up to the diagonal, on the CUDA cores in both types;
+  ``flash_bwd_dq`` runs one block per (batch*head, 64-row query tile),
+  with Q and dO resident, and walks the key tiles up to the diagonal; in
+  bf16 its three products are ``mma.sync.m16n8k16`` (S = Q K^T and
+  dP = dO V^T, then dS from registers as the A operand of dQ += dS K), in
+  float32 fp32 FMAs on the CUDA cores;
 - the ``jax.custom_vjp`` that ties them together — :class:`FlashAttention`,
   a ``torch.autograd.Function``.
 

@@ -9,8 +9,10 @@ Replaces ``paddle_tpu/kernels/pallas_ragged_attention.py``
 bytes for decode rows, operations for a long prefill chunk. Its design:
 one block per (sequence, 16-token tile of its span, head); tiles past a
 span exit at once; each tile walks keys only up to its last causal
-position; the per-row arithmetic is the paged decode kernel's, so a span-1
-row reproduces :func:`~.paged_decode.paged_decode_attention` bit for bit.
+position; a span-1 row agrees with
+:func:`~.paged_decode.paged_decode_attention` (a split-KV kernel that rounds
+P per page against each split's running max) within ``chip_smoke.py``'s
+``TOL``.
 Full-precision pools only (float32, bfloat16).
 
 Semantics per sequence ``r`` (``qlen[r] == 0`` is a dead row): span token

@@ -12,9 +12,11 @@ Tolerances: float32 kernels differ from their plain versions only in
 summation order; bf16 ones also round P (and dS) to 8 mantissa bits where
 the two sides' float32 values differ in the last bits. The backward
 tolerances are relative to each gradient's largest entry, as in
-``chip_smoke.py``'s ``BWD_TOL``. The sweep of the two tensor-core kernels
-(``TestTensorCoreFlash``) holds them to ``chip_smoke.py``'s own ``TOL`` and
-``BWD_TOL``; ``-k TensorCore`` runs it alone.
+``chip_smoke.py``'s ``BWD_TOL``. The sweep of the three tensor-core kernels
+(``TestTensorCoreFlash``: the flash forward, dK/dV and dQ) holds them to
+``chip_smoke.py``'s own ``TOL`` and ``BWD_TOL``, and the split-KV paged
+decode sweep (``test_paged_decode_split_sweep``) to ``TOL``;
+``-k "TensorCore or paged"`` runs those two alone.
 """
 import subprocess
 
@@ -111,6 +113,47 @@ class TestServingKernels:
         got = tpd.paged_decode_attention(*a)
         want = tpd.paged_decode_attention_reference(*a)
         assert (got.float() - want.float()).abs().max().item() <= atol
+
+    @pytest.mark.parametrize("D", [64, 128, 256])
+    @pytest.mark.parametrize("G", [1, 4, 8])
+    def test_paged_decode_split_sweep(self, cuda_dev, dtype, atol, G, D):
+        """The split-KV kernel over lengths 0, 1, 31, 32, 33, a split +- 1,
+        several splits and 4093 (block 16, so a 32-key page spans two
+        blocks): within TOL, the same bits on a second launch, one launch
+        counted per call."""
+        B, Hkv, bs, mb = 8, 2, 16, 256
+        sms = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+        sl = tpd.split_len(B, Hkv, mb * bs, sms)
+        lengths = np.array([0, 1, 31, 32, 33, sl - 1, 3 * sl + 5, 4093],
+                           np.int32)
+        r = np.random.RandomState(G * 10 + D)
+        need = [-(-int(n) // bs) for n in lengths]
+        nb = sum(need) + 2
+        perm = r.permutation(nb)
+        tables = np.full((B, mb), nb, np.int32)          # sentinel tails
+        at = 0
+        for b, n in enumerate(need):
+            tables[b, :n] = perm[at:at + n]
+            at += n
+        pk = r.randn(nb, bs, Hkv, D).astype(np.float32)
+        pv = r.randn(nb, bs, Hkv, D).astype(np.float32)
+        for b, n in enumerate(lengths):
+            if n % bs:
+                pk[tables[b, n // bs], n % bs:] = np.nan
+                pv[tables[b, n // bs], n % bs:] = np.nan
+        q = r.randn(B, G * Hkv, D).astype(np.float32)
+        a = [torch.from_numpy(x).to(cuda_dev, dtype) for x in (q, pk, pv)]
+        a += [torch.from_numpy(x).to(cuda_dev) for x in (tables, lengths)]
+        reset_launches()
+        got = tpd.paged_decode_attention(*a)
+        again = tpd.paged_decode_attention(*a)
+        assert LAUNCHES["paged_decode"] == 2
+        assert tpd.LAST_GRID["split_len"] == sl
+        assert tpd.LAST_GRID["n_split"] > 1
+        assert torch.equal(got, again)
+        want = tpd.paged_decode_attention_reference(*a)
+        assert _within(got, want, *TOL[str(dtype).split(".")[-1]])
+        assert (got[0] == 0).all()
 
     def test_ragged_kernel_vs_plain(self, cuda_dev, dtype, atol):
         args = _ragged(MIXED, 8, 2, 64, 5, 8, seed=2, T=48)
@@ -340,7 +383,32 @@ class TestTensorCoreFlash:
         for g, w in zip(got, want):
             assert _within_scaled(g, w, *BWD_TOL["bfloat16"])
 
-    @pytest.mark.parametrize("which", ["forward", "dkv"])
+    @pytest.mark.parametrize("S,D,G", SWEEP)
+    def test_dq_bf16_vs_plain(self, cuda_dev, S, D, G):
+        """dQ within BWD_TOL["bfloat16"]; the same bits on a second launch
+        (no atomics)."""
+        q, k, v, do = _qkvdo(S, D, G, torch.bfloat16, cuda_dev)
+        o, lse = tflash.flash_attention_fwd(q, k, v, True)
+        delta = tflash.attention_delta(o, do)
+        reset_launches()
+        got = tflash.flash_bwd_dq(q, k, v, do, lse, delta, True)
+        again = tflash.flash_bwd_dq(q, k, v, do, lse, delta, True)
+        assert LAUNCHES["flash_bwd_dq"] == 2
+        assert torch.equal(got, again)
+        want = tflash.flash_bwd_dq_reference(q, k, v, do, lse, delta, True)
+        if S == 1:
+            # one key: dS = P (dP - delta) is 0 in exact arithmetic (P = 1,
+            # dP = delta), so both sides return rounding noise; it stays
+            # near 0 beside dV
+            _, dv = tflash.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   True)
+            size = dv.float().abs().max()
+            assert got.float().abs().max() <= 1e-4 * size
+            assert want.float().abs().max() <= 1e-4 * size
+            return
+        assert _within_scaled(got, want, *BWD_TOL["bfloat16"])
+
+    @pytest.mark.parametrize("which", ["forward", "dkv", "dq"])
     def test_float32_on_the_cuda_cores(self, cuda_dev, which):
         """float32 still runs the CUDA-core kernels: summation order only,
         so TOL["float32"] (BWD_TOL's form for the gradients)."""
@@ -352,7 +420,12 @@ class TestTensorCoreFlash:
             assert _within(lse, tfa._ref_lse(q, k, True), *TOL["float32"])
             return
         delta = tflash.attention_delta(o, do)
-        got = tflash.flash_bwd_dkv(q, k, v, do, lse, delta, True)
-        want = tflash.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True)
+        args = (q, k, v, do, lse, delta, True)
+        if which == "dkv":
+            got = tflash.flash_bwd_dkv(*args)
+            want = tflash.flash_bwd_dkv_reference(*args)
+        else:
+            got = (tflash.flash_bwd_dq(*args),)
+            want = (tflash.flash_bwd_dq_reference(*args),)
         for g, w in zip(got, want):
             assert _within_scaled(g, w, *BWD_TOL["float32"])

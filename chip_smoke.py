@@ -9,9 +9,14 @@ Phases, each printing one JSON line; any failure exits nonzero:
 3. kernels — each kernel against its plain PyTorch version, bf16 and fp32:
              the three serving kernels of the default engine and the
              dense-cache decode kernel (B=8, S_max=4096, lengths 1 to
-             4096, plus a GQA check with 8 KV heads) at the LLaMA-7B
-             serving shapes, paged decode the same bits on two launches
-             (with its split length and grid); the fused decode tick at
+             4096, plus a GQA check with 8 KV heads and a row of length
+             0) at the LLaMA-7B serving shapes; paged and dense decode
+             the same bits on two launches (with their split length and
+             grid); ragged attention with both of its grids (split-KV
+             blocks for span-1 rows, tile blocks for chunks: launched and
+             working) plus spans of 2, 63, 64 and 65, a chunk starting
+             mid-block, a chunk whose last key tile is partial and GQA
+             with 8 KV heads; the fused decode tick at
              llama_7b widths, 2 layers, 8 rows (mixed lengths, one masked
              row, one sampled row: keys bit for bit, logits and appended
              K/V rows within TOL, next tokens equal in fp32); the two
@@ -56,9 +61,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
              finite and falling; flash forward, dK/dV and dQ launch counts
              equal to what the code implies.
 
-``--profile`` repeats the default and the fused serve runs and one train
-step under ``torch.profiler`` and reports device time by kernel and the
-device's busy share (for the fused run: one device kernel per tail tick,
+``--profile`` repeats the three serve runs and one train step under
+``torch.profiler`` and reports device time by kernel and the device's
+busy share (for the fused run: one device kernel per tail tick,
 its device time per launch beside its bound and beside the scanned tail
 tick's device time). Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -118,10 +123,13 @@ REPLACES = {
         "paddle_tpu/kernels/pallas_fused_decode_tick.py:335",
 }
 #: how a kernel does its arithmetic, by input type: the bf16 flash forward
-#: on the tensor cores by warpgroup wgmma, bf16 dK/dV and dQ by
-#: mma.sync.m16n8k16, everything else in fp32 FMAs on the CUDA cores
+#: and the bf16 chunk spans of ragged attention on the tensor cores by
+#: warpgroup wgmma (ragged's span-1 rows on the split-KV walk), bf16 dK/dV
+#: and dQ by mma.sync.m16n8k16, everything else in fp32 FMAs on the CUDA
+#: cores
 TENSOR_CORE = {"flash": "wgmma", "flash_bwd_dkv": "mma.sync",
-               "flash_bwd_dq": "mma.sync"}
+               "flash_bwd_dq": "mma.sync",
+               "ragged_attention": "wgmma chunks, split-KV span-1 rows"}
 
 
 def route(name, dtype_name):
@@ -211,6 +219,78 @@ def dense_inputs(dtype, dev, gen, hkv=HKV):
         v[b, n:] = float("nan")
     q = torch.randn(SLOTS, H, D, generator=gen, device=dev).to(dtype)
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+# (qlen, kvlen) per sequence: the spans the ragged redesign makes risky.
+# Chunks take 64-row tiles (bf16) whose causal offset kvlen - qlen is
+# arbitrary; span-1 rows take the split-KV walk; (0, 0) is a dead row.
+RAGGED_EDGE = {
+    "spans_2_63_64_65": [(2, 130), (63, 63), (64, 1000), (65, 1601),
+                         (1, 33), (0, 0)],
+    "chunk_mid_block": [(200, 1217), (1, 700)],      # starts at 1017
+    "partial_last_key_tile": [(100, 1000), (3, 70), (1, 4093)],
+}
+
+
+def ragged_span_inputs(spans, dtype, dev, gen, hkv=HKV):
+    """A packed buffer of ``spans`` (7 more rows outside every span) over
+    a pool that holds just their blocks: scrambled placement, sentinel
+    table tails, NaN in the stale rows of each row's last block."""
+    import torch
+    qlen = torch.tensor([q for q, _ in spans], dtype=torch.int32)
+    kvlen = torch.tensor([k for _, k in spans], dtype=torch.int32)
+    qstart = torch.zeros(len(spans), dtype=torch.int32)
+    qstart[1:] = torch.cumsum(qlen, 0)[:-1]
+    need = [-(-k // BS) for _, k in spans]
+    nb = sum(need) + 1
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(3))
+    tables = torch.full((len(spans), max(need) + 2), nb, dtype=torch.int32)
+    at = 0
+    for r, n in enumerate(need):
+        tables[r, :n] = perm[at:at + n].to(torch.int32)
+        at += n
+    pool_k = torch.randn(nb, BS, hkv, D, generator=gen, device=dev).to(dtype)
+    pool_v = torch.randn(nb, BS, hkv, D, generator=gen, device=dev).to(dtype)
+    for r, (_, k) in enumerate(spans):
+        if k % BS:
+            pool_k[int(tables[r, k // BS]), k % BS:] = float("nan")
+            pool_v[int(tables[r, k // BS]), k % BS:] = float("nan")
+    q = torch.randn(int(qlen.sum()) + 7, H, D, generator=gen,
+                    device=dev).to(dtype)
+    return (q, pool_k, pool_v, tables.to(dev), qstart.to(dev),
+            qlen.to(dev), kvlen.to(dev))
+
+
+def ragged_working_blocks(qlen, kvlen, g, hkv=HKV):
+    """Blocks of each grid that do work: every split of a span-1 row that
+    starts inside it (one for a row of length 0), and every tile of a
+    chunk span."""
+    split = sum(max(1, -(-k // g["split_len"]))
+                for q, k in zip(qlen, kvlen) if q == 1)
+    tile = sum(-(-q // g["tile_rows"]) for q in qlen if q >= 2)
+    return {"split_blocks": hkv * split, "tile_blocks": H * tile}
+
+
+def ragged_edge_cases(dtype_name, dev, gen):
+    """Each of RAGGED_EDGE, and its first case with 8 KV heads, against
+    the plain version within TOL; rows outside every span exact zeros."""
+    import torch
+    from paddle_tpu_torch.kernels import ragged_attention
+    dtype = getattr(torch, dtype_name)
+    errs = {}
+    cases = [(name, spans, HKV) for name, spans in RAGGED_EDGE.items()]
+    cases.append(("gqa_8_kv_heads", RAGGED_EDGE["spans_2_63_64_65"], 8))
+    for name, spans, hkv in cases:
+        a = ragged_span_inputs(spans, dtype, dev, gen, hkv)
+        got = ragged_attention.ragged_paged_attention(*a)
+        want = ragged_attention.ragged_attention_reference(*a)
+        torch.cuda.synchronize()
+        errs[name] = _compare(f"ragged {name}", dtype_name, got, want)
+        used = sum(q for q, _ in spans)
+        if not bool((got[used:] == 0).all()):
+            raise RuntimeError(f"ragged {name} {dtype_name}: rows outside "
+                               f"every span not zero")
+    return errs
 
 
 def flash_inputs(dtype, dev, gen, B=4, S=512):
@@ -484,9 +564,10 @@ def kernel_case(name, dtype_name, dev, gen):
             q4, kd, vd, attn_mask=mask)
         # GQA: 8 KV heads for the 32 query heads
         qg, kg, vg, lg = dense_inputs(dtype, dev, gen, hkv=8)
-        _compare("decode GQA", dtype_name,
-                 decode.decode_attention(qg, kg, vg, lg),
-                 decode.decode_attention_reference(qg, kg, vg, lg))
+        gqa_err = _compare("decode GQA", dtype_name,
+                           decode.decode_attention(qg, kg, vg, lg),
+                           decode.decode_attention_reference(qg, kg, vg,
+                                                             lg))
         del qg, kg, vg
     else:
         q, k, v = flash_inputs(dtype, dev, gen)
@@ -523,6 +604,32 @@ def kernel_case(name, dtype_name, dev, gen):
                  "n_split": g["n_split"], "grid_blocks": g["blocks"],
                  "active_blocks": HKV * sum(max(1, -(-n // g["split_len"]))
                                             for n in L.tolist())}
+    if name == "decode":
+        # split-KV over the dense cache: the same bits on a second launch,
+        # and a row of length 0 writes zeros (the row of length S_max is
+        # in the main inputs)
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"decode {dtype_name}: two launches differ")
+        g = dict(decode.LAST_GRID)
+        l0 = lens.clone()
+        l0[0] = 0
+        got0 = decode.decode_attention(q, kc, vc, l0)
+        _compare("decode length 0", dtype_name, got0,
+                 decode.decode_attention_reference(q, kc, vc, l0))
+        if not bool((got0[0] == 0).all()):
+            raise RuntimeError(f"decode {dtype_name}: a row of length 0 "
+                               f"is not zero")
+        extra = {"bitwise_repeatable": True, "split_len": g["split_len"],
+                 "n_split": g["n_split"], "grid_blocks": g["blocks"],
+                 "active_blocks": HKV * sum(max(1, -(-n // g["split_len"]))
+                                            for n in L.tolist()),
+                 "gqa_err": gqa_err}
+    if name == "ragged_attention":
+        g = dict(ragged_attention.LAST_GRID)
+        extra = {"grid": g,
+                 "working": ragged_working_blocks(qlc.tolist(), klc.tolist(),
+                                                  g),
+                 "edge_err": ragged_edge_cases(dtype_name, dev, gen)}
     row = {"name": name, "dtype": dtype_name, "max_abs_err": err, **extra,
            "tol": dict(zip(("atol", "rtol"), TOL[dtype_name])),
            "ms": time_ms(run), "plain_ms": time_ms(plain, iters=3),
@@ -730,10 +837,11 @@ def phase_kernels():
             torch.cuda.empty_cache()
     reset_launches()
     # span-1 ragged rows against the paged decode kernel: decode row b with
-    # length L and a span-1 row with kvlen L attend the same keys. The
-    # split-KV kernel rounds P per page against each split's running max,
-    # the ragged one per tile against the row's, so they agree within TOL
-    # and ``bitwise`` reports whether they also share the bits
+    # length L and a span-1 row with kvlen L attend the same keys through
+    # the same split-KV walk. The split rule counts rows, so their splits
+    # (and bits) agree only where the two calls have as many rows, as
+    # here; they are held to TOL and ``bitwise`` reports whether they also
+    # share the bits
     from paddle_tpu_torch.kernels import paged_decode, ragged_attention
     q, pk, pv, tbl, lens = paged_inputs(torch.bfloat16, dev, gen)
     one = torch.ones(SLOTS, dtype=torch.int32, device=dev)
@@ -948,8 +1056,8 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
     del eng, tick
     gc.collect()
     torch.cuda.empty_cache()
-    if profile and label == "default":
-        phase_profile(model, reqs, toks)
+    if profile and label in ("default", "dense"):
+        phase_profile(model, reqs, toks, label, knob)
     if profile and label == "fused_tick":
         phase_profile_fused(model, cfg, reqs, toks)
     return launches, toks
@@ -959,9 +1067,9 @@ def phase_serve(profile=False):
     """The main runs: 7B widths, bf16, 8 requests through each of the
     engine's three decode programs (the default engine, ``fused_tick``,
     ``paged_attn=False``), one engine freed before the next. With
-    ``profile``, repeats of the default and the fused run under
-    ``torch.profiler`` report device time by kernel and the device's busy
-    share. Returns each kernel's launches on the run of its path."""
+    ``profile``, a repeat of each run under ``torch.profiler`` reports
+    device time by kernel and the device's busy share. Returns each
+    kernel's launches on the run of its path."""
     import torch
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.serving import GenerationRequest
@@ -1012,16 +1120,19 @@ def _profile_line(phase, rows, wall, **extra):
                            for us, c, k in rows if "pt::" in k]})
 
 
-def phase_profile(model, reqs, want):
-    """Device time by kernel over a repeat of the main run."""
+def phase_profile(model, reqs, want, label, knob):
+    """Device time by kernel over a repeat of one engine's serve run (the
+    default engine's line is ``profile``, another's ``profile_<label>``)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        seqs, _, steps, wall = _serve(model, reqs)
+        seqs, _, steps, wall = _serve(model, reqs, **knob)
     if [s.tokens for s in seqs] != want:
-        raise RuntimeError("the profiled repeat sampled other tokens")
-    _profile_line("profile", _device_rows(prof), wall, steps=steps)
+        raise RuntimeError(f"the profiled {label} repeat sampled other "
+                           f"tokens")
+    _profile_line("profile" if label == "default" else f"profile_{label}",
+                  _device_rows(prof), wall, steps=steps)
 
 
 def phase_profile_fused(model, cfg, reqs, want, scanned_ticks=5):
@@ -1247,9 +1358,9 @@ def main(argv=None):
                     default="kernels,engine,serve,train_parity,train",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
-                    help="repeat the default and the fused serve runs and "
-                         "one train step under torch.profiler and report "
-                         "device time by kernel")
+                    help="repeat the three serve runs and one train "
+                         "step under torch.profiler and report device time "
+                         "by kernel")
     ap.add_argument("--train-layers", type=int, default=TRAIN_LAYERS,
                     help="decoder layers of the train phase (default "
                          f"{TRAIN_LAYERS}, the deepest that fits)")

@@ -1,16 +1,15 @@
-// Shared device code of the attention kernels (ragged paged attention, the
-// flash forward's float32 path, dense-cache decode, and the attention phase
-// of the fused decode tick; paged decode has its own split-KV walk in
-// csrc/paged_decode.cu): one routine that attends a tile of up to
+// Shared device code of the attention kernels (the float32 chunk spans of
+// ragged paged attention, the flash forward's float32 path, and the
+// attention phase of the fused decode tick; paged decode, dense decode and
+// ragged's span-1 rows take the split-KV walk of csrc/split_kv.cuh, and the
+// bf16 tiles the tensor cores): one routine that attends a tile of up to
 // TQ query rows of ONE head over a walk of key positions, 32 keys at a time,
 // with an online softmax.
 //
 // Thread layout (128 threads = 4 warps):
 //   scores  — warp w owns query rows w, w+4, w+8, ...; lane j owns key j of
 //             the 32-key tile. Each score is one thread's sequential dot
-//             product over D, so a row's arithmetic does not depend on TQ:
-//             a span-1 ragged row and a dense-decode row (TQ=1) over the
-//             same keys compute the same bits.
+//             product over D, so a row's arithmetic does not depend on TQ.
 //   softmax — the owning warp reduces max and sum over its 32 lanes with
 //             shuffles; row state (m, l) lives in that warp's registers.
 //   P @ V   — thread t owns output elements e = t + 128*k of the [TQ, D]

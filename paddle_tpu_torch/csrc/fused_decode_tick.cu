@@ -18,8 +18,7 @@
 //   qkv      32 output columns per item, RoPE'd in the item (a lane and the
 //            lane 16 away hold a rotation pair), K/V appended to the pool
 //   attn     one item per (row, head): attention_common.cuh's tile routine
-//            over the UPDATED pool (after the barrier), as the dense
-//            decode kernel walks its cache
+//            over the UPDATED pool (after the barrier)
 //   o, down  32 columns x one of kSplit K ranges per item (fp32 partials)
 //   gateup   32 gate and 32 up columns per item, SiLU(gate) * up
 //   head     32 vocabulary columns per item into float32 logits

@@ -93,6 +93,35 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+// The same for a tile of keys read through a block table: rows [0, R)
+// hold keys p0 .. p0+R-1 of one sequence, key p at row p % bs of pool
+// block tbl[p / bs] (entries clamped into the nb blocks: sentinels), this
+// KV head's D elements of a [nb, bs, Hkv, D] pool (kv_row = Hkv * D). Each
+// 16-byte copy computes its own row's address, since a tile spans several
+// pool blocks. Keys at or past `valid` become zeros and are not read.
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_tile_paged(
+    __nv_bfloat16* dst, const __nv_bfloat16* pool, const int* tbl, int p0,
+    int valid, int nb, int bs, long long kv_row, int kvh) {
+  constexpr int CH = D / 8;
+  static_assert(R * CH % NT == 0, "every thread copies the same count");
+#pragma unroll
+  for (int i = 0; i < R * CH / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / CH;
+    const int c = e % CH;
+    const int p = p0 + r;
+    const bool ok = p < valid;
+    long long off = 0;
+    if (ok) {
+      const int phys = min(max(tbl[p / bs], 0), nb - 1);
+      off = (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D +
+            c * 8;
+    }
+    cp_async16(dst + swz<R>(r, c), pool + off, ok);
+  }
+}
+
 // ------------------------------------------------------ fragment loads
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"

@@ -37,13 +37,13 @@ SIGNATURES = {
     "paged_decode": ("paged_decode", "pt_paged_decode",
                      [_P] * 10 + [_I] * 10 + [_P]),
     "ragged_attention": ("ragged_attention", "pt_ragged_attention",
-                         [_P] * 8 + [_I] * 9 + [_P]),
+                         [_P] * 12 + [_I] * 11 + [_P]),
     "flash": ("flash", "pt_flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),
     "flash_bwd_dkv": ("flash_bwd", "pt_flash_bwd_dkv",
                       [_P] * 8 + [_I] * 7 + [_P]),
     "flash_bwd_dq": ("flash_bwd", "pt_flash_bwd_dq",
                      [_P] * 7 + [_I] * 7 + [_P]),
-    "decode": ("decode", "pt_decode", [_P] * 5 + [_I] * 6 + [_P]),
+    "decode": ("decode", "pt_decode", [_P] * 9 + [_I] * 8 + [_P]),
     "fused_decode_tick": ("fused_decode_tick", "pt_fused_decode_tick",
                           [_P] * 30 + [_I] * 14 + [ctypes.c_float, _I, _P]
                           + [_P]),

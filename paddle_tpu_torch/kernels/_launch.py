@@ -39,6 +39,13 @@ def check_cuda(name, data, index=()):
     return dtype_code(data[0])
 
 
+def check_head_dim(name, D, dims):
+    """Raise unless head dim ``D`` is one of the kernel's ``dims``."""
+    if D not in dims:
+        raise NotImplementedError(f"{name} kernel: head_dim {D} not in "
+                                  f"{tuple(dims)}")
+
+
 def launch(name, *args):
     """Call kernel ``name``'s C entry with ``args`` (tensors become device
     pointers, None a null pointer) on the current stream, raise on a CUDA

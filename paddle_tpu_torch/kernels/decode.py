@@ -5,15 +5,20 @@ Replaces ``paddle_tpu/kernels/pallas_decode.py`` (``_decode_kernel`` via
 ``_decode_call``, entry ``decode_attention_pallas``); the CUDA kernel is
 ``paddle_tpu_torch/csrc/decode.cu``. What bounds it on the H100: bytes —
 each valid cached K/V row is read once for ``4*D`` flops per head. Its
-design reads only the valid length of each row, one block per (row,
-head), 16-byte loads, GQA by indexing the KV head (no repeated K/V, no
-block-diagonal wide query). It shares the paged decode kernel's tile
-routine: the dense cache is a paged walk with row offsets ``b*S_max + p``.
-Full-precision caches only (float32, bfloat16).
+design is paged decode's split-KV walk (``csrc/split_kv.cuh``): one block
+per (row, KV head, split of the row's keys), the KV head's G query heads
+served from one read of K/V (no repeated K/V, no block-diagonal wide
+query), fp32 partials combined in split order in the same launch, so two
+launches give the same bits. The dense cache is the paged walk over B
+blocks of ``S_max`` rows with the table ``arange(B)``: key ``p`` of row
+``b`` sits at row ``b*S_max + p``, and no table is read. The split rule
+is paged decode's with the capacity ``S_max``. Nothing past a row's length
+is fetched. Full-precision caches only (float32, bfloat16).
 
 :func:`decode_attention` is the wrapper: plain version for CPU tensors,
 the kernel for CUDA tensors. :func:`decode_attention_reference` is the
 plain version, and the paged decode's plain version builds on it.
+:data:`LAST_GRID` records the last launch's split and grid.
 """
 from __future__ import annotations
 
@@ -22,8 +27,19 @@ import math
 import torch
 
 from ._launch import as_index, check_cuda, launch
+from .split_kv import check_heads, plan, scratch, sm_count
 
 NEG_INF = -1e30
+#: head dims the kernel takes
+HEAD_DIMS = (64, 128, 256)
+#: the last launch: keys a split, splits a row, blocks in the grid
+LAST_GRID = {"split_len": 0, "n_split": 0, "blocks": 0}
+
+
+def check_limits(H, Hkv, D):
+    """Raise on a head geometry the kernel does not take: ``H`` query
+    heads over ``Hkv`` KV heads of ``D``."""
+    check_heads("decode", H, Hkv, D, HEAD_DIMS)
 
 
 def decode_attention_reference(q, k_cache, v_cache, lengths):
@@ -65,18 +81,18 @@ def decode_attention(q, k_cache, v_cache, lengths):
                          f"{q.device}")
     B, H, D = q.shape
     _, s_max, Hkv, _ = k_cache.shape
-    if H % Hkv:
-        raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
-    if D not in (64, 128, 256):
-        raise NotImplementedError(f"decode kernel: head_dim {D} not in "
-                                  f"(64, 128, 256)")
+    check_limits(H, Hkv, D)
     if k_cache.shape[0] != B or v_cache.shape != k_cache.shape:
         raise ValueError(f"caches {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)} do not fit q "
                          f"{tuple(q.shape)}")
     lengths = as_index(lengths, q.device)
     code = check_cuda("decode", (q, k_cache, v_cache), (lengths,))
+    sl, n_split = plan(B, Hkv, s_max, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
-    launch("decode", q, k_cache, v_cache, lengths, out, B, H, Hkv, D, s_max,
-           code)
+    launch("decode", q, k_cache, v_cache, lengths, out,
+           *scratch(B, Hkv, H // Hkv, D, n_split, q.device), B, H, Hkv, D,
+           s_max, sl, n_split, code)
+    LAST_GRID.update(split_len=sl, n_split=n_split,
+                     blocks=n_split * Hkv * B)
     return out

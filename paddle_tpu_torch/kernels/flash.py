@@ -47,8 +47,12 @@ import math
 import torch
 
 from ..flags import get_flag
-from ._launch import check_cuda, launch
+from ._launch import check_cuda, check_head_dim, launch
 from .flash_attention import _ref_attention, _ref_logits, _ref_lse
+
+
+#: head dims the flash kernels take
+HEAD_DIMS = (64, 128)
 
 
 def _check_shapes(name, q, k, v):
@@ -57,9 +61,7 @@ def _check_shapes(name, q, k, v):
     if k.shape != (B, S, Hk, D) or v.shape != k.shape or H % Hk:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if D not in (64, 128):
-        raise NotImplementedError(f"{name} kernel: head_dim {D} not in "
-                                  f"(64, 128)")
+    check_head_dim(name, D, HEAD_DIMS)
     return B, S, H, Hk, D
 
 

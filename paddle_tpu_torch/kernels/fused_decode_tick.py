@@ -32,7 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._launch import check_cuda, launch
+from ._launch import check_cuda, check_head_dim, launch
 
 #: rows (batch slots) one launch takes
 MAX_ROWS = 16
@@ -43,6 +43,20 @@ LAST_GRID = {"blocks": 0}
 # one zeroed barrier buffer per device: the kernel leaves it ready for the
 # next launch
 _BARRIERS = {}
+
+
+def check_limits(R, D, hidden, inter, vocab):
+    """Raise on a geometry the kernel does not take: ``R`` rows, head dim
+    ``D``, hidden, intermediate and vocabulary widths."""
+    if not 1 <= R <= MAX_ROWS:
+        raise NotImplementedError(
+            f"fused tick kernel: {R} rows, takes 1 to {MAX_ROWS} (ROADMAP "
+            f"Queue B item 6.4 lifts the cap)")
+    check_head_dim("fused tick", D, (64, 128))
+    if hidden % 32 or inter % 32 or vocab % 32:
+        raise NotImplementedError(f"fused tick kernel: hidden {hidden}, "
+                                  f"intermediate {inter} and vocab {vocab} "
+                                  f"must be multiples of 32")
 
 
 def fused_decode_tick_reference(params, head, tables, tables_dev, sin, cos,
@@ -91,18 +105,10 @@ def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     R = tok.shape[0]
     inter = params["w_gate"].shape[2]
     mb = tables_dev.shape[1]
-    if not 1 <= R <= MAX_ROWS:
-        raise NotImplementedError(f"fused tick kernel: {R} rows, takes 1 "
-                                  f"to {MAX_ROWS}")
-    if D not in (64, 128) or D != hd:
-        raise NotImplementedError(f"fused tick kernel: head_dim {D} not in "
-                                  f"(64, 128)")
-    if Hkv != nkv or nh % nkv:
-        raise ValueError(f"pool heads {Hkv} / nkv {nkv} / nh {nh} disagree")
-    if H % 32 or inter % 32 or V % 32:
-        raise NotImplementedError(f"fused tick kernel: hidden {H}, "
-                                  f"intermediate {inter} and vocab {V} must "
-                                  f"be multiples of 32")
+    check_limits(R, D, H, inter, V)
+    if D != hd or Hkv != nkv or nh % nkv:
+        raise ValueError(f"pool heads {Hkv} x {D} / nkv {nkv} x {hd} / nh "
+                         f"{nh} disagree")
     if head.shape != (H, V):
         raise ValueError(f"head {tuple(head.shape)} is not [{H}, {V}]")
     if head.is_contiguous():

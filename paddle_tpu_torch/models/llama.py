@@ -58,6 +58,10 @@ class LlamaConfig:
     context_parallel: str = ""
     attention_layout: str = "bshd"
     loss_chunk: int = 0
+    # the serving engine's attention: "pallas" (the reference's name) runs
+    # the hand-written kernels, "jnp" their plain versions, as
+    # FLAGS_use_cuda_kernels=False does; ContinuousBatchingEngine reads it
+    decode_attention: str = "pallas"
     fuse_rope: bool = False
     flash_block_q: int = 0
     flash_block_k: int = 0

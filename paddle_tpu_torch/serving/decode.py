@@ -39,7 +39,10 @@ What changes from JAX to PyTorch:
 attention (and the fused tick) at every call: on, the kernel wrappers
 (the hand-written CUDA kernels for CUDA tensors, their plain versions
 for CPU tensors); off, the plain versions on any device — the A/B
-switch.
+switch. Each program's ``decode_attn`` (the model config's
+``decode_attention``, which the engine passes) does the same per
+program: ``"pallas"`` follows the flag, ``"jnp"`` takes the plain
+versions.
 """
 from __future__ import annotations
 
@@ -63,11 +66,11 @@ from ..models.llama import (STACK_KEYS, _apply_rope, _qkv_bshd, _rms,
 NEG_INF = -1e30
 
 
-def _attn_fns():
+def _attn_fns(decode_attn="pallas"):
     """(prefill, paged decode, ragged, dense decode) attention and the
     fused tick: the kernel wrappers while ``FLAGS_use_cuda_kernels`` is
-    on, else the plain versions."""
-    if get_flag("FLAGS_use_cuda_kernels"):
+    on and ``decode_attn`` is ``"pallas"``, else the plain versions."""
+    if get_flag("FLAGS_use_cuda_kernels") and decode_attn == "pallas":
         return (_attention, paged_decode_attention, ragged_paged_attention,
                 decode_attention, fused_decode_tick)
     return (_ref_attention, paged_decode_attention_reference,
@@ -162,14 +165,14 @@ def _split_rows(keys):
 # ------------------------------------------------------------------ prefill
 @torch.inference_mode()
 def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
-                  eps, theta, tied):
+                  eps, theta, tied, decode_attn="pallas"):
     """Batched cold prefill: ids [G, S_pad] right-padded prompts, lengths
     [G] real token counts, per-row keys/temps/top_ks (host arrays).
 
     Returns ``(pk, pv, tok0, keys')``: pk/pv ``[L, G, S_pad, Hkv, D]``
     (padding positions hold garbage the cache write never installs),
     tok0 ``[G]`` on the device, keys' ``[G, 2]`` on the host."""
-    attn_fn = _attn_fns()[0]
+    attn_fn = _attn_fns(decode_attn)[0]
     embed = params["embed"]
     dev = embed.device
     ids = torch.as_tensor(_host(ids)).to(dev)
@@ -202,7 +205,7 @@ def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
 def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
                        pool_k, pool_v, lens, kys, app_mask, temps, top_ks,
                        *, nh, nkv, hd, eps, fused=False, attn=None,
-                       return_logits=False):
+                       return_logits=False, decode_attn="pallas"):
     """ONE decode tick over all rows: embed the last tokens, per layer
     RMSNorm → QKV → RoPE at each row's length → append K/V through the
     tables (rows with ``app_mask == 0`` or past capacity do not append) →
@@ -222,11 +225,11 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     attention of the scanned tick (the fused tick's plain version passes
     the plain one)."""
     if fused:
-        return _attn_fns()[4](
+        return _attn_fns(decode_attn)[4](
             params, head, tables, tables_dev, sin, cos, tok, pool_k, pool_v,
             lens, kys, app_mask, temps, top_ks, nh=nh, nkv=nkv, hd=hd,
             eps=eps, return_logits=return_logits)
-    paged_fn = attn or _attn_fns()[1]
+    paged_fn = attn or _attn_fns(decode_attn)[1]
     dev = tok.device
     R = tok.shape[0]
     nb, bs = pool_k.shape[1], pool_k.shape[2]
@@ -282,7 +285,7 @@ def _span_last_sample(params, head, x, qstart, qlen, keys, temps, top_ks,
 
 def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
                          seg, pos, qstart, qlen, kvlen, sin, cos, *, nh,
-                         nkv, hd, eps):
+                         nkv, hd, eps, decode_attn="pallas"):
     """ONE forward pass over a packed buffer of variable-length query
     spans through the block tables (tick 0 of the unified step). K/V of
     every live packed token is written through its slot's table at its
@@ -290,7 +293,7 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
     logical capacity and unmapped table entries do not write — then
     attention runs through the ragged kernel (or its plain version).
     Returns ``(x [1, T, H], pool_k, pool_v)``."""
-    ragged_fn = _attn_fns()[2]
+    ragged_fn = _attn_fns(decode_attn)[2]
     dev = params["embed"].device
     R, mb = tables.shape
     nb, bs = pool_k.shape[1], pool_k.shape[2]
@@ -329,7 +332,7 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
 def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                       qstart, qlen, kvlen, dec_mask, keys, temps, top_ks,
                       *, n_steps, nh, nkv, hd, eps, theta, tied,
-                      fused=False):
+                      fused=False, decode_attn="pallas"):
     """THE unified serving step: one call that advances every slot's span
     — decode rows (span 1) and prefill chunks (span n) — through the same
     block tables.
@@ -359,7 +362,8 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
     # ----------------------------------- tick 0 (shared packed forward)
     x, pool_k, pool_v = _packed_span_forward(
         params, pool_k, pool_v, tables, tables_dev, ids, seg, pos, qstart,
-        qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps)
+        qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
+        decode_attn=decode_attn)
     tok0, keys_t0 = _span_last_sample(params, head, x, qstart, qlen, keys,
                                       temps, top_ks, eps)
     # ------------------------------------------- fused tail (pure decode)
@@ -370,7 +374,7 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
         tok, pool_k, pool_v, kys = _fused_decode_tick(
             params, head, tables, tables_dev, sin, cos, tok, pool_k,
             pool_v, lens, kys, dec_mask, temps, top_ks, nh=nh, nkv=nkv,
-            hd=hd, eps=eps, fused=fused)
+            hd=hd, eps=eps, fused=fused, decode_attn=decode_attn)
         lens = lens + dec_mask
         toks.append(tok)
     return pool_k, pool_v, torch.stack(toks), keys_t0, _keys_host(kys)
@@ -380,7 +384,7 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
 @torch.inference_mode()
 def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
                        temps, top_ks, *, n_steps, nh, nkv, hd, eps, theta,
-                       tied):
+                       tied, decode_attn="pallas"):
     """``n_steps`` single-token decode ticks over every slot of the dense
     cache (the ``paged_attn=False`` engine's program).
 
@@ -395,7 +399,7 @@ def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
 
     Returns ``(toks [n_steps, B] (device), cache_k, cache_v, keys' [B, 2]
     (host))``."""
-    dense_fn = _attn_fns()[3]
+    dense_fn = _attn_fns(decode_attn)[3]
     embed = params["embed"]
     dev = embed.device
     B = cache_k.shape[1]

@@ -26,9 +26,16 @@ Offline use::
     engine = ContinuousBatchingEngine(model, num_slots=8)
     outs = engine.generate([GenerationRequest(prompt=ids, ...), ...])
 
-Every other knob off the default geometry raises ``NotImplementedError``
-naming the ROADMAP item that ports it. The JAX engine's tracer and cost
-observatory hooks are not ported yet (ROADMAP Queue A step 8).
+The constructor takes the JAX engine's arguments in its order. Every
+value off the ported path raises ``NotImplementedError`` naming the
+ROADMAP item that ports it. The JAX engine's tracer and cost observatory
+hooks are not ported yet (ROADMAP Queue A step 8).
+
+While the kernels are on (``FLAGS_use_cuda_kernels`` on, the config's
+``decode_attention`` ``"pallas"`` and the model on CUDA) the constructor
+holds the model's head geometry, and for the fused tick the slot count,
+against every kernel the chosen engine launches, so an engine the
+kernels cannot serve raises before it admits a request.
 """
 from __future__ import annotations
 
@@ -38,6 +45,11 @@ import numpy as np
 import torch
 
 from ..core import random as prng
+from ..flags import get_flag
+from ..kernels import decode as dense_decode
+from ..kernels import flash, fused_decode_tick, paged_decode, \
+    ragged_attention
+from ..kernels._launch import check_head_dim
 from ..models.llama import llama_decode_params
 from .decode import _decode_steps_impl, _prefill_impl, _ragged_step_impl
 from .kv_cache import PagedKVCache, PoolExhausted, SlotKVCache
@@ -49,6 +61,14 @@ def _not_ported(knob, item):
     raise NotImplementedError(
         f"{knob} is not ported to paddle_tpu_torch yet (ROADMAP {item}); "
         f"this engine serves the default geometry only")
+
+
+def _kernels_on(params, config):
+    """Whether the engine's programs launch the CUDA kernels: the flag on,
+    the config's ``decode_attention`` ``"pallas"``, the weights on CUDA."""
+    return (get_flag("FLAGS_use_cuda_kernels")
+            and config.decode_attention == "pallas"
+            and params["embed"].device.type == "cuda")
 
 
 class ContinuousBatchingEngine:
@@ -71,13 +91,44 @@ class ContinuousBatchingEngine:
     """
 
     def __init__(self, model, num_slots=8, max_seq_len=None, decode_chunk=8,
-                 prefix_cache=False, prefix_block_size=32, paged_attn=True,
+                 prefill_bucketing="pow2", jit_cache=None,
+                 prefix_cache=False, prefix_blocks=None,
+                 prefix_block_size=32, paged_attn=True,
                  prefill_chunk=512, ragged_step=True, headroom_mult=2.0,
-                 spec_decode=False, decode_ticks=1, kv_dtype=None,
-                 quantize_weights=False, quantize_activations=False, tp=1,
-                 host_tier_bytes=0, priority_classes=None, fused_tick=False,
-                 collective_overlap=False):
+                 step_clock=None, spec_decode=False, spec_k=4,
+                 drafter=None, decode_ticks=1, kv_dtype=None,
+                 quantize_weights=False, quantize_activations=False,
+                 tp=1, collective_dtype="fp",
+                 host_tier_bytes=0, priority_classes=None,
+                 fused_tick=False, collective_overlap=False):
         c = model.config
+        if c.decode_attention not in ("pallas", "jnp"):
+            raise ValueError(
+                f"decode_attention must be 'pallas' or 'jnp', got "
+                f"{c.decode_attention!r}")
+        if prefill_bucketing not in ("pow2", "exact"):
+            raise ValueError(
+                f"prefill_bucketing must be 'pow2' or 'exact', got "
+                f"{prefill_bucketing!r}")
+        if prefill_bucketing == "exact":
+            _not_ported("prefill_bucketing='exact'",
+                        "Queue A step 11a (jit cache and bucketing)")
+        if jit_cache is not None:
+            _not_ported("jit_cache",
+                        "Queue A step 11a (jit cache and bucketing)")
+        if step_clock is not None:
+            _not_ported("step_clock", "Queue A step 8 (observability)")
+        if prefix_blocks is not None:
+            _not_ported("prefix_blocks", "Queue A step 9 (prefix cache)")
+        if drafter is not None:
+            _not_ported("drafter", "Queue A step 9 (spec decode)")
+        if collective_dtype not in ("fp", "int8"):
+            raise ValueError(
+                f"collective_dtype must be 'fp' or 'int8', got "
+                f"{collective_dtype!r}")
+        if collective_dtype != "fp":
+            _not_ported(f"collective_dtype={collective_dtype!r}",
+                        "Queue A step 10 (tensor parallel)")
         if prefix_cache:
             _not_ported("prefix_cache", "Queue A step 9 (prefix cache)")
         if spec_decode:
@@ -118,6 +169,8 @@ class ContinuousBatchingEngine:
         self.num_slots = int(num_slots)
         self.max_seq_len = int(max_seq_len or c.max_position_embeddings)
         self._params, self._tied = llama_decode_params(model)
+        if _kernels_on(self._params, c):
+            self._check_kernel_limits()
         bs = int(prefix_block_size)
         if bs < 1:
             raise ValueError(f"prefix_block_size must be >= 1, got {bs}")
@@ -189,12 +242,34 @@ class ContinuousBatchingEngine:
         kernel launch instead of the scanned per-layer stack."""
         return self._fused_tick
 
+    def _check_kernel_limits(self):
+        """Raise unless every kernel this engine launches takes the model:
+        the flash forward (cold prefill); then ragged attention and paged
+        decode, or ragged attention and the fused tick (whose row cap is
+        ``num_slots``), or dense decode."""
+        c = self.config
+        nh, nkv, hd = (c.num_attention_heads, c.num_key_value_heads,
+                       c.head_dim)
+        check_head_dim("flash", hd, flash.HEAD_DIMS)
+        if not self._paged:
+            dense_decode.check_limits(nh, nkv, hd)
+            return
+        ragged_attention.check_limits(nh, nkv, hd)
+        if self._fused_tick:
+            fused_decode_tick.check_limits(self.num_slots, hd,
+                                           c.hidden_size,
+                                           c.intermediate_size,
+                                           c.vocab_size)
+        else:
+            paged_decode.check_limits(nh, nkv, hd)
+
     # ------------------------------------------------------------ programs
     def _fn_consts(self):
         c = self.config
         return dict(nh=c.num_attention_heads, nkv=c.num_key_value_heads,
                     hd=c.head_dim, eps=float(c.rms_norm_eps),
-                    theta=float(c.rope_theta), tied=self._tied)
+                    theta=float(c.rope_theta), tied=self._tied,
+                    decode_attn=c.decode_attention)
 
     # ------------------------------------------------------------- intake
     def _key_for(self, request):

@@ -16,7 +16,11 @@ tolerances are relative to each gradient's largest entry, as in
 (``TestTensorCoreFlash``: the flash forward, dK/dV and dQ) holds them to
 ``chip_smoke.py``'s own ``TOL`` and ``BWD_TOL``, and the split-KV paged
 decode sweep (``test_paged_decode_split_sweep``) to ``TOL``;
-``-k "TensorCore or paged"`` runs those two alone.
+``-k "TensorCore or paged"`` runs those two alone. The sweeps of the two
+kernels redesigned last — dense decode on the split-KV walk
+(``test_decode_split_sweep``) and ragged attention on the split-KV walk
+and the ``wgmma`` tile (``test_ragged_sweep``) — hold them to ``TOL``;
+``-k sweep`` runs the three decode-side sweeps alone.
 """
 import subprocess
 
@@ -32,6 +36,7 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_decode_tick as tft
 from paddle_tpu_torch.kernels import paged_decode as tpd
 from paddle_tpu_torch.kernels import ragged_attention as tra
+from paddle_tpu_torch.kernels import split_kv
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM, _rope_tables,
                                            llama_decode_params, llama_tiny)
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
@@ -101,6 +106,37 @@ def _ragged(spans, H, Hkv, D, mb, bs, seed, T):
 # (qlen, kvlen): span-1 decode rows, chunks starting mid-block, a chunk
 # ending exactly on a block edge, a dead row
 MIXED = [(1, 29), (5, 21), (0, 0), (8, 16), (3, 35), (1, 1), (7, 13)]
+# (qlen, kvlen): a dead row, decode rows of 1 and 517 keys, chunks of 2,
+# 63, 64 and 65 (from position 0 and mid-block) and a 500-token chunk
+# from position 37 whose last key tile is partial
+SWEEP_SPANS = [(0, 0), (1, 1), (2, 35), (63, 63), (64, 200), (1, 517),
+               (65, 100), (500, 537)]
+
+
+def _ragged_spans(spans, G, Hkv, D, bs, mb, seed):
+    """Packed spans (5 more rows outside every span) over a pool of just
+    their blocks: scrambled placement, sentinel table tails, NaN in the
+    stale rows of each sequence's last block."""
+    r = np.random.RandomState(seed)
+    qlen = np.array([s[0] for s in spans], np.int32)
+    kvlen = np.array([s[1] for s in spans], np.int32)
+    qstart = np.concatenate([[0], np.cumsum(qlen)[:-1]]).astype(np.int32)
+    need = [-(-int(k) // bs) for k in kvlen]
+    nb = sum(need) + 2
+    perm = r.permutation(nb)
+    tables = np.full((len(spans), mb), nb, np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    q = r.randn(int(qlen.sum()) + 5, G * Hkv, D).astype(np.float32)
+    pk = r.randn(nb, bs, Hkv, D).astype(np.float32)
+    pv = r.randn(nb, bs, Hkv, D).astype(np.float32)
+    for i, k in enumerate(kvlen):
+        if k % bs:
+            pk[tables[i, k // bs], k % bs:] = np.nan
+            pv[tables[i, k // bs], k % bs:] = np.nan
+    return q, pk, pv, tables, qstart, qlen, kvlen
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
@@ -162,6 +198,55 @@ class TestServingKernels:
         got = tra.ragged_paged_attention(*a)
         want = tra.ragged_attention_reference(*a)
         assert (got.float() - want.float()).abs().max().item() <= atol
+
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("G", [1, 4])
+    def test_ragged_sweep(self, cuda_dev, dtype, atol, G, D):
+        """Both grids: span-1 rows on the split-KV walk, chunks of 2, 63,
+        64, 65 and 500 on the tile grid (bf16: the wgmma tile), block 16
+        so a 64-key tile spans four pool blocks: within TOL, rows outside
+        every span zero, one launch counted per call."""
+        args = _ragged_spans(SWEEP_SPANS, G, 2, D, 16, 36, seed=G * 7 + D)
+        a = [torch.from_numpy(x).to(cuda_dev) for x in args]
+        a = [x.to(dtype) for x in a[:3]] + a[3:]
+        reset_launches()
+        got = tra.ragged_paged_attention(*a)
+        assert LAUNCHES["ragged_attention"] == 1
+        assert tra.LAST_GRID["tile_rows"] == tra.TILE_ROWS[dtype]
+        want = tra.ragged_attention_reference(*a)
+        assert _within(got, want, *TOL[str(dtype).split(".")[-1]])
+        assert (got[int(args[5].sum()):] == 0).all()
+
+    @pytest.mark.parametrize("D", [64, 128, 256])
+    @pytest.mark.parametrize("G", [1, 4, 8])
+    def test_decode_split_sweep(self, cuda_dev, dtype, atol, G, D):
+        """The dense-cache split-KV kernel over lengths 0, 1, 31, 33, a
+        split +- 1, 4093 and S_max (4096), NaN past each length: within
+        TOL, the same bits on a second launch, one launch counted per
+        call."""
+        B, Hkv, s_max = 8, 2, 4096
+        sms = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+        sl = split_kv.split_len(B, Hkv, s_max, sms)
+        lengths = np.array([0, 1, 31, 33, sl - 1, sl + 1, 4093, s_max],
+                           np.int32)
+        r = np.random.RandomState(G * 10 + D + 1)
+        q = r.randn(B, G * Hkv, D).astype(np.float32)
+        k = r.randn(B, s_max, Hkv, D).astype(np.float32)
+        v = r.randn(B, s_max, Hkv, D).astype(np.float32)
+        for b, n in enumerate(lengths):
+            k[b, n:] = v[b, n:] = np.nan
+        a = [torch.from_numpy(x).to(cuda_dev, dtype) for x in (q, k, v)]
+        a.append(torch.from_numpy(lengths).to(cuda_dev))
+        reset_launches()
+        got = tdk.decode_attention(*a)
+        again = tdk.decode_attention(*a)
+        assert LAUNCHES["decode"] == 2
+        assert tdk.LAST_GRID["split_len"] == sl
+        assert tdk.LAST_GRID["n_split"] > 1
+        assert torch.equal(got, again)
+        want = tdk.decode_attention_reference(*a)
+        assert _within(got, want, *TOL[str(dtype).split(".")[-1]])
+        assert (got[0] == 0).all()
 
     def test_decode_kernel_vs_plain(self, cuda_dev, dtype, atol):
         """Dense cache, GQA, lengths 1 and S_max, NaN past each length."""

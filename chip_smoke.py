@@ -18,8 +18,12 @@ Phases, each printing one JSON line; any failure exits nonzero:
              mid-block, a chunk whose last key tile is partial and GQA
              with 8 KV heads; the fused decode tick at
              llama_7b widths, 2 layers, 8 rows (mixed lengths, one masked
-             row, one sampled row: keys bit for bit, logits and appended
-             K/V rows within TOL, next tokens equal in fp32); the two
+             row, one sampled row) and 37 rows (past the 16 it once took,
+             not a multiple of its 8-row tiles): keys bit for bit, logits
+             and appended K/V rows within TOL (bf16: scaled), nothing
+             written outside the appended rows, next tokens equal in fp32,
+             and its layer-0 attention output bit for bit equal to the
+             paged decode kernel's at the tick's own q and pool; the two
              flash-backward kernels at the training shapes (B=4, S=2048,
              32 heads of 128) plus a tail (S=300) and a GQA (8 KV heads)
              check, each bitwise equal across two launches, and the
@@ -36,14 +40,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
              versions (``FLAGS_use_cuda_kernels`` on, then off): the greedy
              token streams must be equal, the program's own kernel must
              launch only with the kernels on, and the fused engine's
-             streams must equal the default engine's.
+             streams must equal the default engine's; then 20 requests
+             at 32 slots (more than 16 in flight) through the default and
+             the fused engine, streams equal.
 5. serve   — llama_7b at full width and depth (32 layers) in bf16 with
              seeded random weights: 8 requests (7 short prompts, one long
              prompt that rides the ragged kernel in chunks, one seeded
              top-k request), 64 new tokens each, through the default
              engine, then the fused-tick engine (one fused kernel launch
              per tail tick, no paged decode; plus one tick timed at this
-             depth against the scanned tick), then the dense engine (32
+             depth against the scanned tick, and again with every row at
+             length 1: the difference is the attention's share), then the
+             dense engine (32
              decode launches per tick, no paged kernel), each freed
              before the next; each launch count must equal what the code
              implies.
@@ -124,12 +132,13 @@ REPLACES = {
 }
 #: how a kernel does its arithmetic, by input type: the bf16 flash forward
 #: and the bf16 chunk spans of ragged attention on the tensor cores by
-#: warpgroup wgmma (ragged's span-1 rows on the split-KV walk), bf16 dK/dV
-#: and dQ by mma.sync.m16n8k16, everything else in fp32 FMAs on the CUDA
-#: cores
+#: warpgroup wgmma (ragged's span-1 rows on the split-KV walk), bf16 dK/dV,
+#: dQ and the fused tick's projections by mma.sync.m16n8k16, everything
+#: else in fp32 FMAs on the CUDA cores
 TENSOR_CORE = {"flash": "wgmma", "flash_bwd_dkv": "mma.sync",
                "flash_bwd_dq": "mma.sync",
-               "ragged_attention": "wgmma chunks, split-KV span-1 rows"}
+               "ragged_attention": "wgmma chunks, split-KV span-1 rows",
+               "fused_decode_tick": "mma.sync GEMVs, split-KV attention"}
 
 
 def route(name, dtype_name):
@@ -659,31 +668,45 @@ def kernel_case(name, dtype_name, dev, gen):
     return row
 
 
-def tick_inputs(dtype, dev, gen, layers, pools=None):
-    """One tail tick of the default geometry (8 rows, block 32, 4096-row
-    tables): lengths from 0 to a near-full cache, row 7 masked (idle),
-    row 3 sampled (T 0.8, top-k 40), scrambled block placement with
-    sentinel tails; pools ``[layers, 1024, 32, 32, 128]`` from the seed
-    unless given."""
+def tick_inputs(dtype, dev, gen, layers, pools=None, rows=SLOTS,
+                lens=None):
+    """One tail tick on the default pool (block 32, 4096-row tables):
+    at 8 rows, lengths from 0 to a near-full cache, row 7 masked (idle),
+    row 3 sampled (T 0.8, top-k 40); at more rows, seeded lengths 0..800
+    with every 9th row masked and every 5th sampled; scrambled block
+    placement with sentinel tails; pools ``[layers, 1024, 32, 32, 128]``
+    from the seed unless given. ``lens`` overrides the lengths."""
     import numpy as np
     import torch
     from paddle_tpu_torch.models.llama import _rope_tables
-    lens = np.array([1, 31, 33, 700, 1601, 2500, 4093, 0], np.int32)
-    app = np.array([1, 1, 1, 1, 1, 1, 1, 0], np.int32)
+    r = np.random.RandomState(3 if rows == SLOTS else rows)
+    if rows == SLOTS:
+        base = np.array([1, 31, 33, 700, 1601, 2500, 4093, 0], np.int32)
+        app = np.array([1, 1, 1, 1, 1, 1, 1, 0], np.int32)
+        temps = np.array([0, 0, 0, 0.8, 0, 0, 0, 0], np.float32)
+        topks = np.array([0, 0, 0, 40, 0, 0, 0, 0], np.int32)
+    else:
+        base = r.randint(0, 801, rows).astype(np.int32)
+        app = (np.arange(rows) % 9 != 8).astype(np.int32)
+        temps = np.where(np.arange(rows) % 5 == 3, 0.8, 0).astype(np.float32)
+        topks = np.where(temps > 0, 40, 0).astype(np.int32)
+    lens = base if lens is None else np.asarray(lens, np.int32)
     perm = np.random.RandomState(2).permutation(NB)
-    tables = np.full((SLOTS, MB), NB, np.int32)
-    for b in range(SLOTS):
+    tables = np.full((rows, MB), NB, np.int32)
+    at = 0
+    for b in range(rows):
         n = -(-int(lens[b] + app[b]) // BS)
-        tables[b, :n] = perm[b * MB:b * MB + n]
+        at = b * MB if rows == SLOTS else at
+        tables[b, :n] = perm[at:at + n]
+        at += n
+    if at > NB:
+        raise ValueError(f"{rows} rows need {at} blocks of the pool's {NB}")
     if pools is None:
         pools = tuple(torch.randn(layers, NB, BS, HKV, D, generator=gen,
                                   device=dev).to(dtype) for _ in range(2))
-    r = np.random.RandomState(3)
-    keys = r.randint(0, 2 ** 32, (SLOTS, 2), dtype=np.uint64).astype(
+    keys = r.randint(0, 2 ** 32, (rows, 2), dtype=np.uint64).astype(
         np.int64)
-    temps = np.array([0, 0, 0, 0.8, 0, 0, 0, 0], np.float32)
-    topks = np.array([0, 0, 0, 40, 0, 0, 0, 0], np.int32)
-    tok = torch.from_numpy(r.randint(0, 32000, SLOTS)).to(dev)
+    tok = torch.from_numpy(r.randint(0, 32000, rows)).to(dev)
     sin, cos = _rope_tables(MB * BS, D, 10000.0, device=dev)
     return dict(tables=tables, tables_dev=torch.from_numpy(tables).to(dev),
                 sin=sin, cos=cos, tok=tok, pool_k=pools[0],
@@ -720,8 +743,11 @@ def _tick(fn, params, tied, t, **kw):
                   eps=1e-5, **kw)
 
 
-# LLaMA-7B widths at 2 layers for the fused tick's kernel check
+# LLaMA-7B widths at 2 layers for the fused tick's kernel check, at the
+# default 8 rows and at 37 (past the 16 rows the kernel once took, and not
+# a multiple of its 8-row tiles)
 FUSED_LAYERS = 2
+FUSED_WIDE_ROWS = 37
 
 
 # The fused tick against its plain version: float32 holds TOL (summation
@@ -738,73 +764,117 @@ def _compare_tick(name, dtype_name, got, want):
     return _compare_scaled(name, dtype_name, got, want)[0]
 
 
+def _fused_vs_plain(p, tied, t, dtype_name, label):
+    """One fused tick against its plain version on copies of ``t``'s
+    pools: keys bit for bit, tokens equal in float32, logits and the
+    appended K/V rows within the tolerance, nothing written outside the
+    appended rows. Returns (logits err, appended rows err, tokens equal,
+    logits of the plain version)."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_decode_tick as fdt
+    from paddle_tpu_torch.serving.decode import _keys_host
+    base_k, base_v = t["pool_k"], t["pool_v"]
+    got = _tick(fdt.fused_decode_tick, p, tied,
+                dict(t, pool_k=base_k.clone(), pool_v=base_v.clone()),
+                return_logits=True)
+    want = _tick(fdt.fused_decode_tick_reference, p, tied,
+                 dict(t, pool_k=base_k.clone(), pool_v=base_v.clone()),
+                 return_logits=True)
+    torch.cuda.synchronize()
+    tokens_equal = got[0].tolist() == want[0].tolist()
+    if not bool((_keys_host(got[3]) == _keys_host(want[3])).all()):
+        raise RuntimeError(f"fused tick {label} {dtype_name}: keys differ")
+    if dtype_name == "float32" and not tokens_equal:
+        raise RuntimeError(f"fused tick {label} float32: tokens "
+                           f"{got[0].tolist()} vs plain {want[0].tolist()}")
+    logits_err = _compare_tick(f"fused tick {label} logits", dtype_name,
+                               got[4], want[4])
+    # the appended rows: live rows at (table[len // bs], len % bs)
+    live = [b for b in range(len(t["lens"])) if t["app_mask"][b]]
+    dev = base_k.device
+    phys = torch.tensor([int(t["tables"][b, t["lens"][b] // BS])
+                         for b in live], device=dev)
+    prow = torch.tensor([int(t["lens"][b] % BS) for b in live], device=dev)
+    rows_err = max(_compare_tick(f"fused tick {label} appended {n}",
+                                 dtype_name, g[:, phys, prow],
+                                 w[:, phys, prow])
+                   for n, g, w in (("K", got[1], want[1]),
+                                   ("V", got[2], want[2])))
+    for g, b in ((got[1], base_k), (got[2], base_v)):
+        untouched = g.clone()
+        untouched[:, phys, prow] = b[:, phys, prow]
+        if not torch.equal(untouched, b):
+            raise RuntimeError(f"fused tick {label} {dtype_name} wrote "
+                               f"outside the appended rows")
+    return logits_err, rows_err, tokens_equal, want[4]
+
+
+def _layer0_attention_bits(p, tied, t):
+    """The fused tick's attention output at layer 0 (a one-layer tick:
+    the stacked weights and pools cut to their first layer) against the
+    paged decode kernel at the tick's own q and updated pool: True when
+    bit for bit equal."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_decode_tick as fdt
+    from paddle_tpu_torch.kernels import paged_decode
+    from paddle_tpu_torch.models.llama import STACK_KEYS
+    p1 = {k: v[:1] if k in STACK_KEYS else v for k, v in p.items()}
+    t1 = dict(t, pool_k=t["pool_k"][:1].clone(),
+              pool_v=t["pool_v"][:1].clone())
+    _tick(fdt.fused_decode_tick, p1, tied, t1)
+    q, attn = fdt.LAST_SCRATCH["q"], fdt.LAST_SCRATCH["attn"]
+    with torch.inference_mode():
+        want = paged_decode.paged_decode_attention(
+            q, t1["pool_k"][0], t1["pool_v"][0], t["tables_dev"],
+            t["lens"] + t["app_mask"])
+    torch.cuda.synchronize()
+    same = bool(torch.equal(attn, want))
+    del t1, p1
+    return same
+
+
 def fused_case(name, dtype_name, dev, gen):
     """The fused tick kernel against its plain version (the scanned tick
-    with the plain paged attention) at llama_7b widths, 2 layers: keys bit
-    for bit, the logits scratch and the appended K/V rows within TOL,
-    next tokens equal in float32 (bf16: ``_compare_tick``); kernel, plain
-    and scanned-tick (the kernels' tick without fusion) milliseconds and
-    the byte bound."""
+    with the plain paged attention) at llama_7b widths, 2 layers, at 8 and
+    at 37 rows (``_fused_vs_plain``); the layer-0 attention bit for bit
+    against paged decode at both; kernel, plain and scanned-tick (the
+    kernels' tick without fusion) milliseconds, the grid and the byte
+    bound."""
     import torch
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_7b,
                                                llama_decode_params)
-    from paddle_tpu_torch.serving.decode import _fused_decode_tick, _keys_host
+    from paddle_tpu_torch.serving.decode import _fused_decode_tick
     dtype = getattr(torch, dtype_name)
     isz = torch.tensor([], dtype=dtype).element_size()
     model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
                                       dtype=dtype_name), device=dev, seed=6)
     p, tied = llama_decode_params(model)
     t = tick_inputs(dtype, dev, gen, FUSED_LAYERS)
-    base_k, base_v = t["pool_k"], t["pool_v"]
-    got_t = dict(t, pool_k=base_k.clone(), pool_v=base_v.clone())
-    want_t = dict(t, pool_k=base_k.clone(), pool_v=base_v.clone())
-    got = _tick(fdt.fused_decode_tick, p, tied, got_t, return_logits=True)
-    want = _tick(fdt.fused_decode_tick_reference, p, tied, want_t,
-                 return_logits=True)
-    torch.cuda.synchronize()
-    keys_equal = bool((_keys_host(got[3]) == _keys_host(want[3])).all())
-    tokens_equal = got[0].tolist() == want[0].tolist()
-    if not keys_equal:
-        raise RuntimeError(f"fused tick {dtype_name}: keys differ")
-    if dtype_name == "float32" and not tokens_equal:
-        raise RuntimeError(f"fused tick float32: tokens {got[0].tolist()} "
-                           f"vs plain {want[0].tolist()}")
-    logits_err = _compare_tick("fused tick logits", dtype_name, got[4],
-                               want[4])
+    logits_err, rows_err, tokens_equal, want_logits = _fused_vs_plain(
+        p, tied, t, dtype_name, "8 rows")
     # the yardstick of that spread: the unfused tick through the kernels
     scan = _tick(_fused_decode_tick, p, tied,
-                 dict(t, pool_k=base_k.clone(), pool_v=base_v.clone()),
-                 return_logits=True)
-    scan_err = (scan[4] - want[4]).abs().max().item()
-    del scan
-    # the appended rows: live rows at (table[len // bs], len % bs)
-    live = [b for b in range(SLOTS) if t["app_mask"][b]]
-    phys = torch.tensor([int(t["tables"][b, t["lens"][b] // BS])
-                         for b in live], device=dev)
-    prow = torch.tensor([int(t["lens"][b] % BS) for b in live], device=dev)
-    rows_err = max(_compare_tick(f"fused tick appended {n}", dtype_name,
-                                 g[:, phys, prow], w[:, phys, prow])
-                   for n, g, w in (("K", got[1], want[1]),
-                                   ("V", got[2], want[2])))
-    untouched = all(torch.equal(g.index_fill(1, phys, 0),
-                                b.index_fill(1, phys, 0))
-                    for g, b in ((got[1], base_k), (got[2], base_v)))
-    if not untouched:
-        raise RuntimeError("fused tick wrote outside the appended blocks")
-    del got, want, got_t, want_t
+                 dict(t, pool_k=t["pool_k"].clone(),
+                      pool_v=t["pool_v"].clone()), return_logits=True)
+    scan_err = (scan[4] - want_logits).abs().max().item()
+    del scan, want_logits
+    bits = _layer0_attention_bits(p, tied, t)
     torch.cuda.empty_cache()
-    run_t = dict(t, pool_k=base_k.clone(), pool_v=base_v.clone())
+    run_t = dict(t, pool_k=t["pool_k"].clone(), pool_v=t["pool_v"].clone())
     nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz)
     row = {"name": name, "dtype": dtype_name,
            "layers": FUSED_LAYERS, "rows": SLOTS,
            "max_abs_err": max(logits_err, rows_err),
            "logits_err": logits_err, "appended_rows_err": rows_err,
            "unfused_kernels_vs_plain_logits_err": scan_err,
-           "tokens_equal": tokens_equal, "keys_equal": keys_equal,
+           "tokens_equal": tokens_equal, "keys_equal": True,
+           "layer0_attention_equals_paged_decode": bits,
            "tol": dict(zip(("atol", "rtol"), TOL[dtype_name])),
            "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied,
                                        run_t)),
+           **{k: fdt.LAST_GRID[k] for k in ("blocks_per_sm", "split_len",
+                                             "n_split")},
            "grid_blocks": fdt.LAST_GRID["blocks"],
            "plain_ms": time_ms(lambda: _tick(
                fdt.fused_decode_tick_reference, p, tied, run_t), iters=3),
@@ -816,7 +886,31 @@ def fused_case(name, dtype_name, dev, gen):
            "bound_ms": bound_ms(nbytes, flops, dtype_name),
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         >= flops / PEAK_FLOPS[dtype_name] else "operations")}
-    del model, p, t, run_t, base_k, base_v
+    del run_t, t
+    torch.cuda.empty_cache()
+    # past the old row cap: 37 rows, lengths 0..800
+    t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, rows=FUSED_WIDE_ROWS)
+    w_logits, w_rows, w_tokens, _ = _fused_vs_plain(
+        p, tied, t, dtype_name, f"{FUSED_WIDE_ROWS} rows")
+    w_bits = _layer0_attention_bits(p, tied, t)
+    run_t = dict(t, pool_k=t["pool_k"].clone(), pool_v=t["pool_v"].clone())
+    nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz)
+    row["wide"] = {
+        "rows": FUSED_WIDE_ROWS, "logits_err": w_logits,
+        "appended_rows_err": w_rows, "tokens_equal": w_tokens,
+        "keys_equal": True, "layer0_attention_equals_paged_decode": w_bits,
+        "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, run_t)),
+        "grid_blocks": fdt.LAST_GRID["blocks"],
+        "blocks_per_sm": fdt.LAST_GRID["blocks_per_sm"],
+        "scanned_tick_ms": time_ms(lambda: _tick(
+            _fused_decode_tick, p, tied, run_t)),
+        "bytes": nbytes, "bound_ms": bound_ms(nbytes, flops, dtype_name)}
+    row["max_abs_err"] = max(row["max_abs_err"], w_logits, w_rows)
+    if not (bits and w_bits):
+        raise RuntimeError(f"fused tick {dtype_name}: layer-0 attention "
+                           f"differs from paged decode (8 rows: {bits}, "
+                           f"{FUSED_WIDE_ROWS} rows: {w_bits})")
+    del model, p, t, run_t
     return row
 
 
@@ -930,8 +1024,54 @@ def phase_engine():
     if not fused_same:
         raise RuntimeError(f"fused-tick streams differ from the default "
                            f"engine's: {on_streams}")
+    _engine_wide(model, cfg)
     del model
     torch.cuda.empty_cache()
+
+
+#: the fused engine past the 16 rows its kernel once took: slots, requests
+WIDE_SLOTS, WIDE_REQUESTS = 32, 20
+
+
+def _engine_wide(model, cfg):
+    """fp32, kernels on: WIDE_REQUESTS requests through the default and
+    the fused-tick engine at WIDE_SLOTS slots, more than 16 in flight at
+    once; the fused engine's greedy streams must equal the default's, one
+    fused launch per tail tick of WIDE_SLOTS rows."""
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    reqs = _requests(GenerationRequest, tuple(range(25, 500, 25)), 700, 12,
+                     cfg.vocab_size, seed=11)
+    runs = {}
+    for label, knob in (("default", {}), ("fused_tick", {"fused_tick": True})):
+        reset_launches()
+        eng = ContinuousBatchingEngine(model, num_slots=WIDE_SLOTS,
+                                       max_seq_len=1024, headroom_mult=None,
+                                       **knob)
+        seqs = [eng.submit(q) for q in reqs]
+        most = 0
+        while eng.has_work():
+            eng.step()
+            most = max(most, sum(x is not None for x in eng._slots))
+        torch.cuda.synchronize()
+        runs[label] = ([list(x.tokens) for x in seqs], most,
+                       LAUNCHES["fused_decode_tick"],
+                       eng.stats["decode_steps"] - eng.stats["decode_calls"])
+        del eng
+        torch.cuda.empty_cache()
+    same = runs["fused_tick"][0] == runs["default"][0]
+    _, most, fused, tail = runs["fused_tick"]
+    emit({"phase": "engine", "check": "fused_tick_wide_vs_default",
+          "num_slots": WIDE_SLOTS, "requests": len(reqs),
+          "most_in_flight": most, "greedy_streams_equal": same,
+          "tokens": sum(len(x) for x in runs["fused_tick"][0]),
+          "fused_launches": fused, "tail_ticks": tail})
+    if not same or most <= 16 or fused != tail or not fused:
+        raise RuntimeError(f"wide fused engine: streams equal {same}, "
+                           f"{most} in flight, {fused} fused launches for "
+                           f"{tail} tail ticks")
 
 
 def _serve_requests(GenerationRequest, vocab):
@@ -984,18 +1124,25 @@ def _expected_serve_launches(label, eng, layers):
 def fused_tick_timing(eng, layers):
     """One tail tick at the serve geometry and depth on the engine's pool:
     the fused kernel and the scanned tick through the kernels (CUDA
-    events), beside the tick's byte bound."""
+    events), beside the tick's byte bound; and the fused tick again with
+    every row at length 1, whose attention reads almost nothing: the
+    difference between the two is the attention's share of the tick."""
     import torch
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
     from paddle_tpu_torch.serving.decode import _fused_decode_tick
     pool = eng.cache.pool
     t = tick_inputs(pool.k.dtype, pool.k.device, None, layers,
                     pools=(pool.k, pool.v))
+    t1 = tick_inputs(pool.k.dtype, pool.k.device, None, layers,
+                     pools=(pool.k, pool.v), lens=[1] * SLOTS)
     p, tied = eng._params, eng._tied
     nbytes, flops = tick_cost(p, t, layers, pool.k.element_size())
-    return {"tick_ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied,
-                                             t)),
-            "grid_blocks": fdt.LAST_GRID["blocks"],
+    tick = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t))
+    grid = dict(fdt.LAST_GRID)
+    tick1 = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t1))
+    return {"tick_ms": tick, "grid_blocks": grid["blocks"],
+            "blocks_per_sm": grid["blocks_per_sm"],
+            "tick_len1_ms": tick1, "attention_ms": tick - tick1,
             "scanned_tick_ms": time_ms(lambda: _tick(_fused_decode_tick, p,
                                                      tied, t)),
             "tick_bytes": nbytes,

@@ -1,8 +1,8 @@
 // Shared device code of the attention kernels (the float32 chunk spans of
-// ragged paged attention, the flash forward's float32 path, and the
-// attention phase of the fused decode tick; paged decode, dense decode and
-// ragged's span-1 rows take the split-KV walk of csrc/split_kv.cuh, and the
-// bf16 tiles the tensor cores): one routine that attends a tile of up to
+// ragged paged attention and the flash forward's float32 path; paged
+// decode, dense decode, ragged's span-1 rows and the fused decode tick take
+// the split-KV walk of csrc/split_kv.cuh, and the bf16 tiles the tensor
+// cores): one routine that attends a tile of up to
 // TQ query rows of ONE head over a walk of key positions, 32 keys at a time,
 // with an online softmax.
 //
@@ -68,8 +68,8 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
 }
 
 // the same through L2 only (__ldcg): for data another block of the same
-// launch wrote (the fused decode tick's query buffer), which the SM's L1
-// may hold from an earlier read
+// launch may have written (the fused decode tick's query buffer), which the
+// SM's L1 may hold from an earlier read
 __device__ __forceinline__ void load16_cg(const float* p, float* o) {
   float4 v = __ldcg(reinterpret_cast<const float4*>(p));
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;

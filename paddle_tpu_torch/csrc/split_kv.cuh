@@ -3,14 +3,17 @@
 // at a time, with the keys cut into splits that separate blocks walk.
 //
 // Callers: paged decode (csrc/paged_decode.cu, keys through a block table),
-// dense decode (csrc/decode.cu, keys at fixed strides of a per-slot cache)
-// and the span-1 rows of ragged paged attention (csrc/ragged_attention.cu,
-// the query slab at the row's packed position, keys through its table).
-// Each launches one block of kNT threads per (split, KV head, row) and
-// calls split_kv_walk with three things that say where its row lives: the
-// element offset of the row's [G, D] query slab (its output slab has the
-// same offset), the row's key count, and key_off(p), the element offset of
-// key p's D-vector for this KV head in K (and V).
+// dense decode (csrc/decode.cu, keys at fixed strides of a per-slot cache),
+// the span-1 rows of ragged paged attention (csrc/ragged_attention.cu,
+// the query slab at the row's packed position, keys through its table) and
+// the attention phase of the fused decode tick (csrc/fused_decode_tick.cu,
+// paged decode's key_off, the persistent launch's blocks taking (split,
+// KV head, row) items from a counter). Each runs one block of kNT threads
+// per (split, KV head, row) and calls split_kv_walk with three things that
+// say where its row lives: the element offset of the row's [G, D] query
+// slab (its output slab has the same offset), the row's key count, and
+// key_off(p), the element offset of key p's D-vector for this KV head in K
+// (and V).
 //
 // Bound on this card: bytes. Every valid cached K/V row is read once for
 // 4*D flops a query head, far below the ~295 flops/byte at which the H100
@@ -73,8 +76,10 @@ struct Shape {
 
 // The work of block (split, kvh, row): q/out slab at element offset qo,
 // `len` keys (already clamped to the cache's capacity), key p at
-// key_off(p). Partials and the ticket are indexed by (row, kvh).
-template <typename T, int D, typename KeyOff>
+// key_off(p). Partials and the ticket are indexed by (row, kvh). NACC
+// accumulator registers a thread (G * D <= NACC * kNT; the bits do not
+// depend on it).
+template <typename T, int D, int NACC = kMaxAcc, typename KeyOff>
 __device__ __forceinline__ void split_kv_walk(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, float* __restrict__ part_m,
@@ -132,7 +137,9 @@ __device__ __forceinline__ void split_kv_walk(
   }
   for (int e = tid; e < GD / Sh::VEC; e += kNT) {
     float buf[Sh::VEC];
-    load16(q + qo + e * Sh::VEC, buf);
+    // through L2: the fused decode tick writes q earlier in the same
+    // launch, and this SM's L1 may hold the previous layer's q
+    load16_cg(q + qo + e * Sh::VEC, buf);
 #pragma unroll
     for (int x = 0; x < Sh::VEC; ++x) sQ[e * Sh::VEC + x] = buf[x];
   }
@@ -140,9 +147,9 @@ __device__ __forceinline__ void split_kv_walk(
     s_m[g] = kNegInf;
     s_l[g] = 0.f;
   }
-  float acc[kMaxAcc];
+  float acc[NACC];
 #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
+  for (int a = 0; a < NACC; ++a) acc[a] = 0.f;
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -197,7 +204,7 @@ __device__ __forceinline__ void split_kv_walk(
     // ---- acc = acc * alpha + P V: thread owns elements tid + 128a of
     // the [G, D] accumulator
 #pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
+    for (int a = 0; a < NACC; ++a) {
       const int e = tid + a * kNT;
       if (e < GD) {
         const int g = e / D;
@@ -214,7 +221,7 @@ __device__ __forceinline__ void split_kv_walk(
 
   if (n_act == 1) {   // the row's only split: normalise and write
 #pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
+    for (int a = 0; a < NACC; ++a) {
       const int e = tid + a * kNT;
       if (e < GD) out[qo + e] = from_f<T>(acc[a] / fmaxf(s_l[e / D], 1e-30f));
     }
@@ -223,7 +230,7 @@ __device__ __forceinline__ void split_kv_walk(
   // ---- partials of this split, then the ticket
   const long long ps = (static_cast<long long>(row) * Hkv + kvh) * n_split;
 #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) {
+  for (int a = 0; a < NACC; ++a) {
     const int e = tid + a * kNT;
     if (e < GD) part_acc[(ps + split) * GD + e] = acc[a];
   }
@@ -241,7 +248,7 @@ __device__ __forceinline__ void split_kv_walk(
   // ---- the last block combines the splits in split order (through L2:
   // the other blocks' partials may be stale in this SM's L1)
 #pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) {
+  for (int a = 0; a < NACC; ++a) {
     const int e = tid + a * kNT;
     if (e < GD) {
       const int g = e / D;

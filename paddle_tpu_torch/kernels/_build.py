@@ -45,7 +45,7 @@ SIGNATURES = {
                      [_P] * 7 + [_I] * 7 + [_P]),
     "decode": ("decode", "pt_decode", [_P] * 9 + [_I] * 8 + [_P]),
     "fused_decode_tick": ("fused_decode_tick", "pt_fused_decode_tick",
-                          [_P] * 30 + [_I] * 14 + [ctypes.c_float, _I, _P]
+                          [_P] * 34 + [_I] * 16 + [ctypes.c_float, _I, _P]
                           + [_P]),
 }
 #: the sources, one library each

@@ -33,7 +33,7 @@ hooks are not ported yet (ROADMAP Queue A step 8).
 
 While the kernels are on (``FLAGS_use_cuda_kernels`` on, the config's
 ``decode_attention`` ``"pallas"`` and the model on CUDA) the constructor
-holds the model's head geometry, and for the fused tick the slot count,
+holds the model's head geometry, and for the fused tick its widths,
 against every kernel the chosen engine launches, so an engine the
 kernels cannot serve raises before it admits a request.
 """
@@ -245,8 +245,8 @@ class ContinuousBatchingEngine:
     def _check_kernel_limits(self):
         """Raise unless every kernel this engine launches takes the model:
         the flash forward (cold prefill); then ragged attention and paged
-        decode, or ragged attention and the fused tick (whose row cap is
-        ``num_slots``), or dense decode."""
+        decode, or ragged attention and the fused tick (any ``num_slots``),
+        or dense decode."""
         c = self.config
         nh, nkv, hd = (c.num_attention_heads, c.num_key_value_heads,
                        c.head_dim)
@@ -256,8 +256,7 @@ class ContinuousBatchingEngine:
             return
         ragged_attention.check_limits(nh, nkv, hd)
         if self._fused_tick:
-            fused_decode_tick.check_limits(self.num_slots, hd,
-                                           c.hidden_size,
+            fused_decode_tick.check_limits(nh, nkv, hd, c.hidden_size,
                                            c.intermediate_size,
                                            c.vocab_size)
         else:

@@ -162,22 +162,36 @@ def test_kernels_on_reads_the_flag_the_config_and_the_device():
     # 64 and 128 only
     (dict(), {}, "flash kernel: head_dim 16"),
     (dict(), dict(paged_attn=False), "flash kernel: head_dim 16"),
-    # the fused tick takes 16 rows a launch
+    # the fused tick takes any row count: 17 and 64 slots construct
     (dict(hidden_size=256, num_attention_heads=4, num_key_value_heads=2),
-     dict(fused_tick=True, num_slots=17), "Queue B item 6.4"),
+     dict(fused_tick=True, num_slots=17), None),
+    # ... and widths that are multiples of 64 (its GEMV tiles)
+    (dict(hidden_size=192, num_attention_heads=3, num_key_value_heads=3,
+          intermediate_size=96),
+     dict(fused_tick=True), "fused tick kernel: hidden 192, intermediate 96"),
     # 32 query heads of 128 over one KV head overflow the split-KV walk's
     # accumulator (dense decode; paged decode and ragged alike)
     (dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=1),
      dict(paged_attn=False), "decode kernel: 32 query heads"),
     (dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=1),
      {}, "ragged attention kernel: 32 query heads"),
-], ids=["flash_default", "flash_dense", "fused_rows", "dense_group",
-        "ragged_group"])
+], ids=["flash_default", "flash_dense", "fused_rows", "fused_width",
+        "dense_group", "ragged_group"])
 def test_kernel_limits_raise_at_construction(monkeypatch, cfg, knob, match):
+    """Each case raises naming the kernel limit it meets, with the kernels
+    on; a case without a match names a limit that was lifted, and the
+    engine constructs (``fused_rows``: the fused tick at 17 and 64
+    slots, beyond the 16 rows it once took)."""
     monkeypatch.setattr(sengine, "_kernels_on", lambda params, config: True)
     m = LlamaForCausalLM(llama_tiny(num_hidden_layers=1,
-                                    intermediate_size=64, **cfg),
+                                    **dict(dict(intermediate_size=64), **cfg)),
                          device="cpu", seed=0)
+    if match is None:
+        for slots in (knob["num_slots"], 64):
+            eng = ContinuousBatchingEngine(
+                m, **dict(GEOMETRY, **dict(knob, num_slots=slots)))
+            assert eng.fused_tick and eng.num_slots == slots
+        return
     with pytest.raises(NotImplementedError, match=match):
         ContinuousBatchingEngine(m, **dict(GEOMETRY, **knob))
 

@@ -4,10 +4,11 @@ the JAX package, on the CPU.
 - The tick itself: the port's ``fused_decode_tick`` on CPU tensors (its
   plain version: the scanned tick with the plain paged attention) against
   the JAX ``_fused_tick_pallas`` in interpret mode, on ``llama_tiny`` (2
-  layers) with the JAX weights carried across, untied and tied heads: a
-  sampled row, a greedy row whose append hits a sentinel table entry, and
-  a masked idle row. Tokens and keys exact; pools within 1e-6 (float32
-  summation order).
+  layers) with the JAX weights carried across, untied and tied heads, at
+  3 rows and at 20 (above the 16 the kernel once took): sampled rows, a
+  greedy row whose append hits a sentinel table entry, and masked idle
+  rows. Tokens and keys exact; pools within 1e-6 (float32 summation
+  order); only the live rows' appends change the pool.
 - The engine: the default engine's request matrix
   (``tests/test_torch_engine.py``) through the port's and the JAX
   engine's ``fused_tick=True`` (JAX on its Pallas mega-kernel in interpret
@@ -52,30 +53,58 @@ def tick_models(request):
     return p, tm, tied
 
 
-def _tick_inputs(seed=3):
+def _tick_inputs(seed=3, rows=3):
     """R=3 over a 6-block pool (bs 8, mb 4, sentinel 6): row 0 samples at
     length 10; row 1 is greedy at length 16, whose block 2 is unmapped, so
-    its append drops; row 2 is idle (app_mask 0)."""
+    its append drops; row 2 is idle (app_mask 0). With more rows the pool
+    grows by 2 blocks a row and rows 3.. get seeded lengths 0..23 on their
+    own blocks: every third one samples (top-k 3), every fifth is idle."""
     r = np.random.RandomState(seed)
-    L, nb, bs, D = 2, 6, 8, HD
-    pk = r.randn(L, nb, bs, NKV, D).astype(np.float32)
-    pv = r.randn(L, nb, bs, NKV, D).astype(np.float32)
-    tables = np.full((3, 4), nb, np.int32)
+    L, bs, D = 2, 8, HD
+    nb = 6 + 2 * (rows - 3)
+    tables = np.full((rows, 4), nb, np.int32)
     tables[0, :2] = [4, 1]
     tables[1, :2] = [0, 3]
-    tok = np.array([17, 200, 0], np.int64)
-    lens = np.array([10, 16, 0], np.int32)
-    app = np.array([1, 1, 0], np.int32)
-    keys = r.randint(0, 2 ** 32, (3, 2), dtype=np.uint64).astype(np.int64)
-    temps = np.array([0.9, 0.0, 0.0], np.float32)
-    topks = np.array([5, 0, 0], np.int32)
+    tok = np.zeros(rows, np.int64)
+    tok[:3] = [17, 200, 0]
+    lens = np.zeros(rows, np.int32)
+    lens[:2] = [10, 16]
+    app = np.ones(rows, np.int32)
+    app[2] = 0
+    temps = np.zeros(rows, np.float32)
+    temps[0] = 0.9
+    topks = np.zeros(rows, np.int32)
+    topks[0] = 5
+    for b in range(3, rows):
+        tables[b, :2] = [6 + 2 * (b - 3), 7 + 2 * (b - 3)]
+        tok[b] = r.randint(0, 256)
+        lens[b] = r.randint(0, 24)
+        app[b] = 0 if b % 5 == 0 else 1
+        if b % 3 == 0:
+            temps[b], topks[b] = 0.7, 3
+    pk = r.randn(L, nb, bs, NKV, D).astype(np.float32)
+    pv = r.randn(L, nb, bs, NKV, D).astype(np.float32)
+    keys = r.randint(0, 2 ** 32, (rows, 2), dtype=np.uint64).astype(np.int64)
     return pk, pv, tables, tok, lens, app, keys, temps, topks
 
 
+def _appended(tables, lens, app, nb, bs):
+    """(block, row) pairs the live rows append to: masked rows, rows past
+    capacity and sentinel table entries do not write."""
+    out = set()
+    for b in range(len(lens)):
+        phys = tables[b, min(lens[b] // bs, tables.shape[1] - 1)]
+        if app[b] and lens[b] < tables.shape[1] * bs and phys < nb:
+            out.add((int(phys), int(lens[b] % bs)))
+    return out
+
+
 class TestFusedTick:
-    def test_cpu_path_matches_jax_fused_kernel(self, tick_models):
+    @pytest.mark.parametrize("rows", [3, 20], ids=["rows3", "rows20"])
+    def test_cpu_path_matches_jax_fused_kernel(self, tick_models, rows):
         p, tm, tied = tick_models
-        pk, pv, tables, tok, lens, app, keys, temps, topks = _tick_inputs()
+        pk, pv, tables, tok, lens, app, keys, temps, topks = _tick_inputs(
+            rows=rows)
         s_tot = tables.shape[1] * pk.shape[2]
         js, jc = jllama._rope_tables(s_tot, HD, THETA)
         stack = tuple(p[k] for k in jdec._STACK_KEYS)
@@ -104,10 +133,17 @@ class TestFusedTick:
         for got, want in ((tpk, jpk), (tpv, jpv)):
             assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) \
                 <= POOL_ATOL
-        # the masked row and the sentinel entry leave the pool untouched;
+        # the masked rows and the sentinel entry leave the pool untouched;
         # row 0 appends at block 1, row 2
-        changed = (tpk.numpy() != pk).any(axis=(0, 3, 4))
-        assert changed[1, 2] and changed.sum() == 1
+        nb, bs = pk.shape[1], pk.shape[2]
+        want = _appended(tables, lens, app, nb, bs)
+        assert (1, 2) in want and len(want) >= 1 + (rows - 3) // 2
+        for got in (tpk, tpv):
+            changed = (got.numpy() != (pk if got is tpk else pv)).any(
+                axis=(0, 3, 4))
+            assert set(zip(*map(list, np.nonzero(changed)))) == want
+        if rows > 3:
+            assert (temps > 0).sum() > 2 and (app == 0).sum() > 1
 
     def test_reference_is_the_scanned_tick_with_plain_attention(
             self, tick_models):

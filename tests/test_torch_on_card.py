@@ -266,31 +266,50 @@ class TestServingKernels:
         assert (got.float() - want.float()).abs().max().item() <= atol
 
     @pytest.mark.parametrize("tie", [False, True], ids=["untied", "tied"])
-    def test_fused_tick_kernel_vs_plain(self, cuda_dev, dtype, atol, tie):
+    @pytest.mark.parametrize("rows", [4, 21, 70],
+                             ids=["rows4", "rows21", "rows70"])
+    def test_fused_tick_kernel_vs_plain(self, cuda_dev, dtype, atol, tie,
+                                        rows):
         """One launch per tick; keys bit for bit; logits and the appended
-        pool rows within the tolerance; tokens equal in float32; GQA, and
-        an untied or a tied (embedding read transposed) head."""
+        pool rows within the tolerance; tokens equal in float32; GQA, an
+        untied or a tied (embedding read transposed) head, and 4 rows, 21
+        (past the 16 the kernel once took, not a multiple of its 8-row
+        tiles) or 70 (two passes over the weights, of 64 rows and 6); the
+        last layer's attention equals the paged decode kernel's at the
+        tick's own q and updated pool, bit for bit."""
         cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
                          num_key_value_heads=2, tie_word_embeddings=tie,
                          dtype=str(dtype).split(".")[-1])
         m = LlamaForCausalLM(cfg, device="cuda", seed=4)
         p, tied = llama_decode_params(m)
         r = np.random.RandomState(4)
-        L, nb, bs, D = cfg.num_hidden_layers, 12, 16, 64
+        L, nb, bs, D = cfg.num_hidden_layers, 12 + 2 * (rows - 4), 16, 64
         pk = torch.from_numpy(r.randn(L, nb, bs, 2, D).astype(
             np.float32)).to(cuda_dev, dtype)
         pv = torch.from_numpy(r.randn(L, nb, bs, 2, D).astype(
             np.float32)).to(cuda_dev, dtype)
-        tables = np.full((4, 4), nb, np.int32)
+        tables = np.full((rows, 4), nb, np.int32)
         tables[0, :2], tables[1, :3], tables[2, :1] = [3, 7], [0, 1, 2], [9]
-        lens = np.array([20, 40, 0, 0], np.int32)
-        app = np.array([1, 1, 1, 0], np.int32)
-        keys = r.randint(0, 2 ** 32, (4, 2), dtype=np.uint64).astype(
+        lens = np.zeros(rows, np.int32)
+        lens[:2] = [20, 40]
+        app = np.ones(rows, np.int32)
+        app[3] = 0
+        temps = np.zeros(rows, np.float32)
+        temps[1] = 0.8
+        topks = np.zeros(rows, np.int32)
+        topks[1] = 7
+        tok = [5, 77, 200, 0]
+        for b in range(4, rows):      # two blocks each, seeded lengths
+            tables[b, :2] = [12 + 2 * (b - 4), 13 + 2 * (b - 4)]
+            lens[b] = r.randint(0, 32)
+            app[b] = 0 if b % 6 == 0 else 1
+            if b % 4 == 0:
+                temps[b], topks[b] = 0.7, 5
+            tok.append(int(r.randint(0, 256)))
+        keys = r.randint(0, 2 ** 32, (rows, 2), dtype=np.uint64).astype(
             np.int64)
-        temps = np.array([0.0, 0.8, 0.0, 0.0], np.float32)
-        topks = np.array([0, 7, 0, 0], np.int32)
         sin, cos = _rope_tables(64, D, 10000.0, device=cuda_dev)
-        tok = torch.tensor([5, 77, 200, 0], device=cuda_dev)
+        tok = torch.tensor(tok, device=cuda_dev)
         outs = []
         for fn in (tft.fused_decode_tick, tft.fused_decode_tick_reference):
             k2, v2 = pk.clone(), pv.clone()
@@ -305,12 +324,17 @@ class TestServingKernels:
                 1 if fn is tft.fused_decode_tick else 0)
             assert LAUNCHES["paged_decode"] == 0
             outs.append(out)
+            if fn is tft.fused_decode_tick:
+                q, attn = (tft.LAST_SCRATCH[k].clone() for k in ("q", "attn"))
         (nxt, gk, gv, gkeys, glog), (wnxt, wk, wv, wkeys, wlog) = outs
         assert (_keys_host(gkeys) == _keys_host(wkeys)).all()
         for g, w in ((glog, wlog), (gk, wk), (gv, wv)):
             assert (g.float() - w.float()).abs().max().item() <= atol
         if dtype == torch.float32:
             assert nxt.tolist() == wnxt.tolist()
+        want = tpd.paged_decode_attention(q, gk[L - 1], gv[L - 1], tables,
+                                          lens + app)
+        assert torch.equal(attn, want)
 
     def test_flash_kernel_vs_plain(self, cuda_dev, dtype, atol):
         r = np.random.RandomState(0)

@@ -55,12 +55,43 @@ Phases, each printing one JSON line; any failure exits nonzero:
              decode launches per tick, no paged kernel), each freed
              before the next; each launch count must equal what the code
              implies.
-6. train_parity — llama_7b widths at 2 layers, B=1, S=500, in fp32 (the
+6. generate — ``model.generate`` on the same model (llama_7b, 32
+             layers, bf16, seed 0): B=4 prompts of 128 tokens, 64 new
+             tokens, greedy and then seeded top-k twice (equal ids); both
+             equal a direct ``ContinuousBatchingEngine(num_slots=4,
+             prefill_bucketing="exact", decode_chunk=16)`` run with the
+             same ``fold_in`` keys; flash, ragged and paged decode
+             launches equal the code's count (one prefill, the unified
+             steps and the tail ticks, each times 32 layers); wall time
+             and tok/s. Then fp32 at 7B widths, 2 layers: the same ids
+             with the kernels and with ``FLAGS_use_cuda_kernels`` off.
+7. server  — ``serve(model, port=0)`` at its defaults (decode_chunk 1, 8
+             slots, cost on, trace off): 8 concurrent HTTP clients (4
+             blocking, 4 SSE) on the serve phase's requests, each started
+             once the one before holds its slot; every stream equals a
+             direct engine run admitting the requests the same way;
+             ``/metrics`` parses strictly with
+             ``serving_decode_compilations`` 1; ``/healthz`` ok; a
+             ``/debug/trace?steps=8`` window taken during traffic holds
+             ``plan``, ``launch`` and ``host-accept``; ``/debug/profile``'s
+             ragged calls equal the engine's unified steps; ragged
+             launches = 32 x steps with work, flash = 32 x cold-prefill
+             calls, paged decode 0; TTFT and TPOT p50/p90 and the
+             gateway's wall against the direct run's. The fault leg (fp32,
+             7B widths, 2 layers): ``scripts/bench_chaos.py``'s plan
+             ``transient@3, pool@6, fatal@10, nan@15`` through
+             ``serve(..., fault_hook=plan)``: no request lost, streams
+             equal the fault-free run, 2 engine restarts, peak memory
+             across the rebuilds. The CLI leg: ``python -m
+             paddle_tpu_torch.serving.server --preset 350m
+             --decode-attention pallas --port 0 --quiet`` as a subprocess
+             serves one completion and drains on SIGTERM with exit 0.
+8. train_parity — llama_7b widths at 2 layers, B=1, S=500, in fp32 (the
              CUDA-core kernels) and in bf16 (the tensor-core forward,
              dK/dV and dQ): one forward+backward through the kernels and one
              through the plain versions (``FLAGS_use_cuda_kernels`` off);
              the losses and every parameter's gradient must agree.
-7. train   — llama_7b widths at 15 layers in bf16 (the deepest whose
+9. train   — llama_7b widths at 15 layers in bf16 (the deepest whose
              steps fit one 80 GB card: 16 run out of memory in the
              accumulated step's update), B=4, S=2048, full
              recompute, AdamW(1e-4) with ClipGradByGlobalNorm(1.0) through
@@ -1210,18 +1241,15 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
     return launches, toks
 
 
-def phase_serve(profile=False):
+def phase_serve(model, profile=False):
     """The main runs: 7B widths, bf16, 8 requests through each of the
     engine's three decode programs (the default engine, ``fused_tick``,
     ``paged_attn=False``), one engine freed before the next. With
     ``profile``, a repeat of each run under ``torch.profiler`` reports
     device time by kernel and the device's busy share. Returns each
     kernel's launches on the run of its path."""
-    import torch
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.serving import GenerationRequest
-    cfg = llama_7b(dtype="bfloat16")
-    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    cfg = model.config
     reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
     runs = {label: _serve_run(model, cfg, reqs, label, knob, profile)
             for label, knob, _ in ENGINES}
@@ -1233,8 +1261,506 @@ def phase_serve(profile=False):
                 for n in ("flash", "ragged_attention", "paged_decode")}
     for label, _, own in ENGINES[1:]:
         launches[own] = runs[label][0][own]
-    del model
     return launches
+
+
+# ------------------------------------------------------------- front door
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_CHUNK = 4, 128, 64, 16
+
+
+def _generate_ticks(new, chunk):
+    """The unified steps and tail ticks ``generate`` runs for ``new``
+    tokens when no row stops early: token 0 comes from the prefill, then
+    each step fuses the largest power of two fitting the chunk and the
+    rows' remaining budget (``FIFOScheduler.choose_num_steps``)."""
+    steps, tail, left = 0, 0, new - 1
+    while left:
+        n = 1
+        while n * 2 <= min(left, chunk):
+            n *= 2
+        steps, tail, left = steps + 1, tail + n - 1, left - n
+    return steps, tail
+
+
+def _launch_check(label, got, want):
+    bad = {n: (got[n], w) for n, w in want.items() if got[n] != w}
+    if bad:
+        raise RuntimeError(f"{label} launches (got, expected): {bad}")
+
+
+def phase_generate(model):
+    """``model.generate`` at llama_7b width (32 layers, bf16): B=4 prompts
+    of 128 tokens, 64 new tokens, greedy and then seeded top-k twice (the
+    two equal); both equal a direct engine run with the same keys; flash,
+    ragged and paged decode launches equal what the code implies. Then
+    the fp32 check at 7B widths, 2 layers: kernels vs plain versions."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core import random as prng
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    ids = np.random.RandomState(17).randint(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    model.generate(ids[:, :32], max_new_tokens=4)          # warm-up
+    sampled = dict(temperature=0.8, top_k=40, seed=5)
+    runs = {}
+    for label, kw in (("greedy", {}), ("top_k", sampled),
+                      ("top_k_again", sampled)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=GEN_NEW, **kw)
+        torch.cuda.synchronize()
+        runs[label] = (out.cpu().numpy(), time.perf_counter() - t0,
+                       dict(LAUNCHES))
+    steps, tail = _generate_ticks(GEN_NEW, GEN_CHUNK)
+    want = {"flash": L, "ragged_attention": L * steps,
+            "paged_decode": L * tail, "fused_decode_tick": 0, "decode": 0}
+    # the direct engine with generate's own geometry and fold_in keys
+    direct = {}
+    for label, kw in (("greedy", dict(seed=0)), ("top_k", sampled)):
+        base = prng.PRNGKey(kw["seed"])
+        eng = ContinuousBatchingEngine(
+            model, num_slots=GEN_BATCH, max_seq_len=GEN_PROMPT + GEN_NEW,
+            prefill_bucketing="exact", decode_chunk=GEN_CHUNK)
+        outs = eng.generate([GenerationRequest(
+            prompt=ids[i], max_new_tokens=GEN_NEW,
+            temperature=kw.get("temperature", 0.0),
+            top_k=kw.get("top_k", 0),
+            prng_key=prng.fold_in(base, i).numpy())
+            for i in range(GEN_BATCH)])
+        direct[label] = np.stack([np.asarray(o) for o in outs])
+        del eng
+    tokens = GEN_BATCH * GEN_NEW
+    emit({"phase": "generate", "layers": L, "dtype": cfg.dtype,
+          "batch": GEN_BATCH, "prompt": GEN_PROMPT,
+          "new_tokens": GEN_NEW, "decode_chunk": GEN_CHUNK,
+          "wall_s": {k: v[1] for k, v in runs.items()},
+          "tok_per_s": {k: tokens / v[1] for k, v in runs.items()},
+          "launches": {n: runs["greedy"][2][n] for n in want},
+          "launches_expected": want,
+          "unified_steps": steps, "tail_ticks": tail,
+          "seeded_repeat_equal": bool(np.array_equal(
+              runs["top_k"][0], runs["top_k_again"][0])),
+          "greedy_equals_direct": bool(np.array_equal(
+              runs["greedy"][0], direct["greedy"])),
+          "top_k_equals_direct": bool(np.array_equal(
+              runs["top_k"][0], direct["top_k"])),
+          "first_tokens": runs["greedy"][0][:, :4].tolist()})
+    for label, (out, _, launches) in runs.items():
+        _launch_check(f"generate {label}", launches, want)
+        if out.shape != (GEN_BATCH, GEN_NEW) or out.min() < 0 \
+                or out.max() >= cfg.vocab_size:
+            raise RuntimeError(f"generate {label}: ids {out.shape} out of "
+                               f"range")
+    if not np.array_equal(runs["top_k"][0], runs["top_k_again"][0]):
+        raise RuntimeError("two seeded generate calls gave other ids")
+    for label in ("greedy", "top_k"):
+        if not np.array_equal(runs[label][0], direct[label]):
+            raise RuntimeError(f"generate {label} differs from the direct "
+                               f"engine run")
+    # fp32, 7B widths, 2 layers: kernels vs plain versions
+    small = LlamaForCausalLM(llama_7b(num_hidden_layers=2,
+                                      dtype="float32"), device="cuda",
+                             seed=2)
+    fp32 = {}
+    try:
+        for use in (True, False):
+            set_flags({"FLAGS_use_cuda_kernels": use})
+            reset_launches()
+            fp32[use] = (small.generate(ids, max_new_tokens=32).cpu().numpy(),
+                         dict(LAUNCHES))
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    same = bool(np.array_equal(fp32[True][0], fp32[False][0]))
+    emit({"phase": "generate", "check": "fp32_kernels_vs_plain",
+          "layers": 2, "ids_equal": same,
+          "launches_kernels": {n: fp32[True][1][n] for n in want},
+          "launches_plain": sum(fp32[False][1].values())})
+    del small
+    torch.cuda.empty_cache()
+    if not same or sum(fp32[False][1].values()) \
+            or not fp32[True][1]["paged_decode"]:
+        raise RuntimeError("fp32 generate: kernels and plain versions "
+                           "differ, or the launches are wrong")
+    return runs["greedy"][2]
+
+
+def parse_prometheus(text):
+    """Strict Prometheus v0.0.4 text parse: ``{family: {"type",
+    "samples": {(name, labels): value}}}``; raises on a malformed line, a
+    sample outside its family's block or a missing final newline."""
+    import re
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{([^}]*)\})? '
+                        r'([^ ]+)$')
+    if not text.endswith("\n"):
+        raise ValueError("exposition must end with a newline")
+    fams, cur = {}, None
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            name, _, kind = line[7:].partition(" ")
+            if kind not in ("counter", "gauge", "histogram"):
+                raise ValueError(f"bad TYPE line {line!r}")
+            fams[name] = {"type": kind, "samples": {}}
+            cur = name
+            continue
+        m = sample.match(line)
+        if not m or cur is None or not m.group(1).startswith(cur):
+            raise ValueError(f"malformed sample line {line!r}")
+        labels = tuple(re.findall(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"',
+                                  m.group(2) or ""))
+        fams[cur]["samples"][(m.group(1), labels)] = float(m.group(3))
+    return fams
+
+
+def _http(url, payload=None, timeout=600):
+    """GET (or POST ``payload`` as JSON); returns the decoded body."""
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                timeout=timeout) as r:
+        return r.read().decode()
+
+
+def _sse(url, payload, timeout=600):
+    """POST with stream=true; returns (token ids, finish_reason)."""
+    import urllib.request
+    body = json.dumps(dict(payload, stream=True)).encode()
+    toks, reason = [], None
+    with urllib.request.urlopen(urllib.request.Request(url, data=body),
+                                timeout=timeout) as r:
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            ch = json.loads(line[6:])["choices"][0]
+            if ch["finish_reason"] is not None:
+                reason = ch["finish_reason"]
+            else:
+                toks.append(ch["token_id"])
+    return toks, reason
+
+
+def _payload(q):
+    p = {"prompt": [int(t) for t in q.prompt],
+         "max_tokens": int(q.max_new_tokens)}
+    if q.temperature:
+        p.update(temperature=q.temperature, top_k=q.top_k, seed=q.seed)
+    return p
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_server(model):
+    """``serve(model, port=0)`` at its defaults on the card (decode_chunk
+    1, 8 slots, cost on, trace off) under 8 concurrent HTTP clients (4
+    blocking, 4 SSE) on the serve phase's requests, against a direct
+    engine run; then the fault leg and the CLI leg."""
+    import threading
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    from paddle_tpu_torch.serving.server import serve
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
+    # the direct run: the same requests, the server's engine geometry,
+    # each admitted alone in its own step as the clients below are (a
+    # cold prefill's GEMMs take the group's rows; bf16 results of another
+    # grouping may differ in the last bits and flip a greedy token)
+    eng = ContinuousBatchingEngine(model, num_slots=8, decode_chunk=1)
+    eng.generate(_requests(GenerationRequest, (100,), 600, 4,
+                           cfg.vocab_size, seed=5))            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs = []
+    for q in reqs:
+        seqs.append(eng.submit(q))
+        eng.step()
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    direct_wall = time.perf_counter() - t0
+    want = [list(x.tokens) for x in seqs]
+    del eng, seqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = serve(model, port=0)
+    try:
+        gw = srv.gateway
+        url = srv.url + "/v1/completions"
+        _http(url, {"prompt": [1, 2, 3, 4, 5], "max_tokens": 4})  # warm-up
+        eng = gw.engine
+        steps0, prefill0 = eng.stats["unified_steps"], \
+            gw.cost.kind_calls("prefill")
+        reset_launches()
+        got, errors, trace = [None] * len(reqs), [], {}
+
+        def client(i):
+            try:
+                if i % 2:
+                    got[i] = _sse(url, _payload(reqs[i]))
+                else:
+                    doc = json.loads(_http(url, _payload(reqs[i])))
+                    ch = doc["choices"][0]
+                    got[i] = (ch["token_ids"], ch["finish_reason"])
+            except Exception as e:                  # noqa: BLE001
+                errors.append(f"client {i}: {e!r}")
+
+        def tracer():
+            try:
+                trace["doc"] = json.loads(_http(
+                    srv.url + "/debug/trace?steps=8&timeout_s=300"))
+            except Exception as e:                  # noqa: BLE001
+                errors.append(f"trace: {e!r}")
+
+        # the clients run concurrently; each starts once the one before
+        # holds its slot, so each prompt is admitted alone, as above
+        threads = []
+        t0 = time.perf_counter()
+        for i in range(len(reqs)):
+            threads.append(threading.Thread(target=client, args=(i,)))
+            threads[-1].start()
+            if i == 0:
+                threads.append(threading.Thread(target=tracer))
+                threads[-1].start()
+            deadline = time.monotonic() + 300
+            while eng.num_active < i + 1 and time.monotonic() < deadline \
+                    and not errors:
+                time.sleep(0.002)
+        for t in threads:
+            t.join(timeout=900)
+        gw_wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        steps = eng.stats["unified_steps"] - steps0
+        prefills = gw.cost.kind_calls("prefill") - prefill0
+        fams = parse_prometheus(_http(srv.url + "/metrics"))
+        health = json.loads(_http(srv.url + "/healthz"))
+        profile = json.loads(_http(srv.url + "/debug/profile"))
+        ttft = [gw._m_ttft.quantile(q) for q in (0.5, 0.9)]
+        tpot = [gw._m_tpot.quantile(q) for q in (0.5, 0.9)]
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"server clients failed: {errors}")
+    streams = [list(g[0]) for g in got]
+    names = {e["name"] for e in trace["doc"]["traceEvents"]}
+    calls = {}
+    for p in profile["programs"]:
+        calls[p["kind"]] = calls.get(p["kind"], 0) + p["calls"]
+    comp = fams["serving_decode_compilations"]["samples"][
+        ("serving_decode_compilations", ())]
+    expect = {"flash": L * prefills, "ragged_attention": L * steps,
+              "paged_decode": 0, "fused_decode_tick": 0, "decode": 0}
+    line = {"phase": "server", "layers": L, "dtype": cfg.dtype,
+            "clients": len(reqs), "blocking": len(reqs) // 2,
+            "sse": len(reqs) - len(reqs) // 2,
+            "decoded_tokens": sum(len(s) for s in streams),
+            "gateway_wall_s": gw_wall, "direct_wall_s": direct_wall,
+            "gateway_over_direct": gw_wall / direct_wall,
+            "ttft_p50_s": ttft[0], "ttft_p90_s": ttft[1],
+            "tpot_p50_s": tpot[0], "tpot_p90_s": tpot[1],
+            "steps_with_work": steps, "prefill_calls": prefills,
+            "launches": {n: launches[n] for n in expect},
+            "launches_expected": expect,
+            "decode_compilations": comp, "healthz": health["status"],
+            "trace_spans": sorted(names & {"plan", "launch",
+                                           "host-accept", "step"}),
+            "profile_ragged_calls": calls.get("ragged"),
+            "engine_unified_steps": eng.stats["unified_steps"],
+            "streams_equal_direct": streams == want,
+            "first_diff": [_first_diff(s, w) for s, w in zip(streams, want)]}
+    emit(line)
+    if streams != want or any(g[1] != "length" for g in got):
+        raise RuntimeError("server streams differ from the direct run")
+    _launch_check("server", launches, expect)
+    if comp != 1 or health["status"] != "ok" \
+            or not {"plan", "launch", "host-accept"} <= names \
+            or calls.get("ragged") != eng.stats["unified_steps"]:
+        raise RuntimeError(f"server checks failed: {line}")
+    del srv, gw, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _rebuild_memory(model)
+    _server_faults()
+    _server_cli()
+    return launches
+
+
+def _rebuild_memory(model):
+    """The rebuild at the serving geometry: ``serve(model, port=0)`` (8
+    slots x 4096 tokens: a 16 GiB pool at 7B bf16) with a fatal fault at
+    plan step 2 under two requests; the peak memory above what was held
+    before the server shows whether the rebuild held one pool or two
+    (the dead engine's pool is released before the factory runs)."""
+    import torch
+    from paddle_tpu_torch.serving import GenerationRequest
+    from paddle_tpu_torch.serving.faults import FaultPlan
+    from paddle_tpu_torch.serving.server import serve
+    reqs = _requests(GenerationRequest, (100,), 300, 16,
+                     model.config.vocab_size, seed=29)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    srv = serve(model, port=0, fault_hook=FaultPlan().at_step(2, "fatal"))
+    try:
+        gw = srv.gateway
+        pool_gb = (gw.engine.cache.pool.block_nbytes
+                   * gw.engine.cache.pool.num_blocks / 2 ** 30)
+        outs = [st.result() for st in [gw.submit(q) for q in reqs]]
+        restarts = gw.restarts
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    over = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    line = {"phase": "server", "check": "rebuild_memory", "layers":
+            model.config.num_hidden_layers, "dtype": model.config.dtype,
+            "engine_restarts": restarts,
+            "finish_reasons": [r for _, r in outs],
+            "pool_gb": pool_gb, "peak_over_base_gb": over,
+            "pools_at_peak": over / pool_gb}
+    emit(line)
+    del srv, gw
+    gc.collect()
+    torch.cuda.empty_cache()
+    if restarts != 1 or any(r != "length" for _, r in outs) \
+            or over >= 2 * pool_gb:
+        raise RuntimeError(f"rebuild at the serving geometry: {line}")
+
+
+#: scripts/bench_chaos.py's plan, geometry and workload shape
+CHAOS_SLOTS, CHAOS_BLOCK, CHAOS_CHUNK = 4, 16, 32
+
+
+def _chaos_requests(GenerationRequest, vocab):
+    import numpy as np
+    rng = np.random.RandomState(23)
+    reqs = []
+    for i in range(10):
+        kw = dict(temperature=0.8, top_k=5, seed=200 + i) if i % 4 == 3 \
+            else {}
+        reqs.append(GenerationRequest(
+            prompt=rng.randint(0, vocab, (12,)).astype(np.int32),
+            max_new_tokens=12, **kw))
+    for _ in range(2):
+        reqs.append(GenerationRequest(
+            prompt=rng.randint(0, vocab, (160,)).astype(np.int32),
+            max_new_tokens=6))
+    return reqs
+
+
+def _server_faults():
+    """fp32, 7B widths, 2 layers: the chaos plan ``transient@3, pool@6,
+    fatal@10, nan@15`` through ``serve(..., fault_hook=plan)``; no request
+    lost, streams equal the fault-free run, two rebuilds (fatal, nan),
+    and the peak memory across them."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    from paddle_tpu_torch.serving.faults import FaultPlan
+    from paddle_tpu_torch.serving.server import serve
+    model = LlamaForCausalLM(llama_7b(num_hidden_layers=2, dtype="float32"),
+                             device="cuda", seed=3)
+    # max_seq_len at the model's default (4096): a pool the size serving
+    # holds, so the peak shows whether a rebuild held two of them
+    geo = dict(num_slots=CHAOS_SLOTS, prefix_block_size=CHAOS_BLOCK,
+               prefill_chunk=CHAOS_CHUNK)
+    model_gb = sum(p.numel() * p.element_size()
+                   for p in model.parameters()) / 2 ** 30
+    reqs = _chaos_requests(GenerationRequest, model.config.vocab_size)
+    want = [o.tolist() for o in ContinuousBatchingEngine(
+        model, decode_chunk=1, **geo).generate(reqs)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plan = (FaultPlan().at_step(3, "transient").at_step(6, "pool")
+            .at_step(10, "fatal").at_step(15, "nan"))
+    srv = serve(model, port=0, fault_hook=plan, max_restarts=32,
+                max_queue=len(reqs) + 4, **geo)
+    try:
+        gw = srv.gateway
+        pool_gb = (gw.engine.cache.pool.block_nbytes
+                   * gw.engine.cache.pool.num_blocks / 2 ** 30)
+        streams = [gw.submit(q) for q in reqs]
+        outs = []
+        for st in streams:
+            try:
+                ids, reason = st.result()
+                outs.append((ids.tolist(), reason))
+            except RuntimeError:
+                outs.append((st.tokens(), st.finish_reason))
+        restarts = gw.restarts
+        health = json.loads(_http(srv.url + "/healthz"))
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    over = peak - base / 2 ** 30
+    lost = sum(r not in ("stop", "length") for _, r in outs)
+    line = {"phase": "server", "check": "faults", "layers": 2,
+            "dtype": "float32", "plan": plan.log, "requests": len(reqs),
+            "requests_lost": lost, "engine_restarts": restarts,
+            "healthz_engine_restarts": health["engine_restarts"],
+            "streams_equal_fault_free": [o[0] for o in outs] == want,
+            "first_diff": [_first_diff(o[0], w)
+                           for o, w in zip(outs, want)],
+            "peak_mem_gb": peak, "peak_over_base_gb": over,
+            "model_gb": model_gb, "pool_gb": pool_gb}
+    emit(line)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if lost or restarts != 2 or [o[0] for o in outs] != want:
+        raise RuntimeError(f"fault leg failed: {line}")
+
+
+def _server_cli():
+    """``python -m paddle_tpu_torch.serving.server --preset 350m
+    --decode-attention pallas --port 0 --quiet`` as a subprocess: read the
+    banner, POST one completion, SIGTERM, expect a drain and exit 0."""
+    import os
+    import select
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.server",
+         "--preset", "350m", "--decode-attention", "pallas", "--port", "0",
+         "--quiet"], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(os.environ))
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 600)
+        if not ready:
+            raise RuntimeError("server CLI printed no banner")
+        banner = json.loads(proc.stdout.readline())
+        t0 = time.perf_counter()
+        doc = json.loads(_http(banner["listening"] + "/v1/completions",
+                               {"prompt": list(range(1, 40)),
+                                "max_tokens": 16}))
+        first_request_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        err = proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    toks = doc["choices"][0]["token_ids"]
+    line = {"phase": "server", "check": "cli", "preset": banner["preset"],
+            "kv_dtype": banner["kv_dtype"], "tokens": len(toks),
+            "first_request_s": first_request_s, "exit_code": rc,
+            "drained": "# draining" in err and "# stopped" in err}
+    emit(line)
+    if rc != 0 or len(toks) != 16 or not line["drained"]:
+        raise RuntimeError(f"server CLI leg failed: {line} {err[-2000:]}")
 
 
 def _device_rows(prof):
@@ -1502,7 +2028,8 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,engine,serve,train_parity,train",
+                    default="kernels,engine,serve,generate,server,"
+                            "train_parity,train",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
                     help="repeat the three serve runs and one train "
@@ -1528,7 +2055,19 @@ def main(argv=None):
     rows = phase_kernels() if "kernels" in phases else {}
     if "engine" in phases:
         phase_engine()
-    launches = phase_serve(args.profile) if "serve" in phases else {}
+    launches = {}
+    if phases & {"serve", "generate", "server"}:
+        # one llama_7b (32 layers, bf16, seed 0) for the three phases
+        from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+        model = LlamaForCausalLM(llama_7b(dtype="bfloat16"), device="cuda",
+                                 seed=0)
+        if "serve" in phases:
+            launches = phase_serve(model, args.profile)
+        if "generate" in phases:
+            phase_generate(model)
+        if "server" in phases:
+            phase_server(model)
+        del model
     gc.collect()
     torch.cuda.empty_cache()      # the serve model is gone before training
     if "train_parity" in phases:

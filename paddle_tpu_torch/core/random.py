@@ -12,6 +12,7 @@ tokens here as there:
   builds with 64-bit types off (the JAX package's setting);
 - :func:`split` — threefry2x32 of the key over a 2x32-bit iota (the
   ``_threefry_split_foldlike`` rule);
+- :func:`fold_in` — threefry2x32 of the key over ``(0, data)``;
 - :func:`random_bits` — ``bits1 ^ bits2`` of the same hash;
 - :func:`uniform` / :func:`gumbel` / :func:`categorical` — the float32
   mantissa trick and the Gumbel-max argmax of ``jax.random``.
@@ -19,8 +20,17 @@ tokens here as there:
 torch has no uint32 arithmetic, so a uint32 value lives in an int64
 tensor and every add and shift is masked back to 32 bits. All functions
 take and return such int64 tensors on whatever device the key lies on.
+
+The process-global generator of ``paddle_tpu/core/random.py`` is here too:
+:func:`seed` resets it (``paddle.seed``), :func:`next_key` draws a fresh
+key by splitting it, and :func:`get_rng_state` / :func:`set_rng_state`
+read and replace its key. The engine draws from it for a request that
+carries neither a seed nor a key, and ``LlamaForCausalLM.generate`` for
+a call without a seed.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -35,6 +45,16 @@ def PRNGKey(seed, device="cpu"):
     64-bit types off: the seed is taken modulo 2**32, the high word is 0."""
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
                         device=device)
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in``: a new key from ``key [2]`` and the integer
+    ``data`` (taken as uint32), threefry2x32 of the key over the count
+    pair ``(0, data)``."""
+    key = torch.as_tensor(key, dtype=torch.int64)
+    a, b = threefry2x32(key[0], key[1], torch.zeros_like(key[0]),
+                        torch.full_like(key[0], int(data) & _M32))
+    return torch.stack([a, b])
 
 
 def _rotl(x, r):
@@ -104,3 +124,62 @@ def categorical(keys, logits):
     perturbed logits tie to within that rounding."""
     g = gumbel(keys, logits.shape[-1])
     return torch.argmax(g + logits, dim=-1)
+
+
+class _GlobalGenerator:
+    """The process-global key: created from seed 0 on first use, split by
+    every :func:`next_key`."""
+
+    def __init__(self, seed=0):
+        self._key = None
+        self._seed = int(seed)
+        self._lock = threading.Lock()
+
+    def _ensure(self):
+        if self._key is None:
+            self._key = PRNGKey(self._seed)
+
+    def manual_seed(self, seed):
+        with self._lock:
+            self._key = PRNGKey(seed)
+            self._seed = int(seed)
+
+    def next_key(self):
+        with self._lock:
+            self._ensure()
+            self._key, sub = split(self._key)
+            return sub
+
+    def get_state(self):
+        with self._lock:
+            self._ensure()
+            return self._key.clone()
+
+    def set_state(self, key):
+        with self._lock:
+            self._key = torch.as_tensor(key, dtype=torch.int64).clone()
+
+
+_GENERATOR = _GlobalGenerator(0)
+
+
+def seed(s):
+    """Reset the global generator to ``PRNGKey(s)`` and seed numpy's
+    global generator with ``s`` modulo 2**32, as ``paddle.seed`` does."""
+    _GENERATOR.manual_seed(s)
+    np.random.seed(int(s) % (2 ** 32))
+    return _GENERATOR
+
+
+def next_key():
+    """A fresh key: the second half of a split of the global key, which
+    keeps the first half."""
+    return _GENERATOR.next_key()
+
+
+def get_rng_state():
+    return _GENERATOR.get_state()
+
+
+def set_rng_state(state):
+    _GENERATOR.set_state(state)

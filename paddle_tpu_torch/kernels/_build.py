@@ -142,6 +142,13 @@ def build_log(name) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def libraries_loaded() -> int:
+    """Kernel libraries loaded so far; a load may have built its library
+    first (the serving gateway's watchdog exempts a step in which this
+    grew: a build is not a hang)."""
+    return len(_loaded)
+
+
 def load(name):
     """The C entry point of kernel ``name``, building it first if needed."""
     fn = _loaded.get(name)

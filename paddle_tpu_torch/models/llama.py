@@ -300,6 +300,51 @@ class LlamaForCausalLM(nn.Module):
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
 
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_k=0, max_cache_len=None, seed=None, eos_token_id=None):
+        """Autoregressive generation over the continuous-batching engine,
+        as the JAX model's ``generate``: one slot per row, exact-length
+        prefill, up to 16 fused decode ticks per step (no queue to
+        starve), greedy by default (``temperature > 0``: top-k sampling).
+        Row ``i`` samples with ``fold_in(base, i)``, ``base`` being
+        ``PRNGKey(seed)`` or else the global generator's next key. A row
+        that stops at ``eos_token_id`` is padded with it (with 0 when
+        there is none). Returns ``[B, max_new_tokens]`` ids on the
+        model's device, in ``input_ids``' integer dtype.
+
+        The engine's programs live on the model (``_serving_jit``), so
+        a later call with the same shapes counts no new program."""
+        from ..core import random as prng
+        from ..serving import ContinuousBatchingEngine, GenerationRequest
+        c = self.config
+        ids_np = (input_ids.cpu().numpy() if torch.is_tensor(input_ids)
+                  else np.asarray(input_ids))
+        B, S = ids_np.shape
+        s_max = int(max_cache_len or min(c.max_position_embeddings,
+                                         S + max_new_tokens))
+        if S + int(max_new_tokens) > s_max:
+            raise ValueError(
+                f"prompt ({S}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"the KV cache length ({s_max}); raise max_cache_len / "
+                f"max_position_embeddings or generate fewer tokens")
+        base_key = (prng.PRNGKey(seed) if seed is not None
+                    else prng.next_key())
+        engine = ContinuousBatchingEngine(
+            self, num_slots=B, max_seq_len=s_max,
+            prefill_bucketing="exact", decode_chunk=16,
+            jit_cache=self.__dict__.setdefault("_serving_jit", {}))
+        reqs = [GenerationRequest(
+            prompt=ids_np[i], max_new_tokens=int(max_new_tokens),
+            temperature=float(temperature), top_k=int(top_k),
+            eos_token_id=eos_token_id,
+            prng_key=prng.fold_in(base_key, i).numpy()) for i in range(B)]
+        outs = engine.generate(reqs)
+        pad = int(eos_token_id) if eos_token_id is not None else 0
+        out = np.stack([
+            np.pad(o, (0, int(max_new_tokens) - len(o)), constant_values=pad)
+            for o in outs])
+        return torch.as_tensor(out.astype(ids_np.dtype), device=self.device)
+
 
 def llama_decode_params(model):
     """The stacked parameter dict (+ tied flag) the serving programs take,

@@ -1,0 +1,121 @@
+"""Chrome trace-event JSON analysis — the offline half of the serving
+tracer (README "Tracing & debugging" / "Cost attribution &
+/debug/profile"); the port's own copy of
+``paddle_tpu/profiler/chrometrace.py``.
+
+``GET /debug/trace`` serves ``{"traceEvents": [...]}`` documents;
+Perfetto graphs them, but a terminal wants numbers. This module gives
+the profiler CLI (``python -m paddle_tpu_torch.profiler trace.json``) a
+per-lane **span self-time** summary: for every ``(lane, span name)``
+pair, how many spans ran, their total duration, and their SELF time —
+duration minus the duration of directly nested spans on the same lane
+— so "where did the step go" reads straight off a saved capture
+(``plan`` vs ``launch`` vs ``host-accept``, or which request lane's
+``decode`` dominated) without loading a UI.
+
+Same-lane nesting is the tracer's own invariant (spans on one tid
+either nest or are disjoint — pinned by tests/test_torch_tracing.py), so
+self-time is well-defined: a sweep with an open-span stack subtracts
+each span's duration from its direct parent. Counter events
+(``ph:"C"``) and instants carry no duration and are counted but not
+timed.
+
+Dependency-free (json + the stdlib), like the tracer that writes these
+files.
+"""
+from __future__ import annotations
+
+import json
+
+from .tracing import TID_ENGINE, TID_GATEWAY, TID_REQ0
+
+
+def lane_name(tid: int) -> str:
+    """Human label for a trace lane (the tracer's fixed tid layout)."""
+    if tid == TID_ENGINE:
+        return "engine"
+    if tid == TID_GATEWAY:
+        return "gateway"
+    if tid >= TID_REQ0:
+        return f"req{tid - TID_REQ0}"
+    return f"tid{tid}"
+
+
+def load_chrome_trace(path: str) -> list:
+    """Parse a Chrome trace-event JSON file (the ``/debug/trace``
+    document, or a bare event array). Raises ValueError on anything
+    unparseable — the CLI's exit-1 contract."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        raise ValueError(f"not a readable JSON trace: {e}") from e
+    events = doc.get("traceEvents") if isinstance(doc, dict) else doc
+    if not isinstance(events, list):
+        raise ValueError(
+            "no traceEvents array (is this a Chrome trace-event JSON "
+            "document, e.g. from GET /debug/trace?)")
+    for e in events:
+        if not isinstance(e, dict) or "ph" not in e or "ts" not in e:
+            raise ValueError(f"malformed trace event: {e!r}")
+    return events
+
+
+def span_self_times(events) -> list:
+    """Aggregate X spans per (lane, name): count, total duration and
+    self time (total minus direct same-lane children). Returns rows
+    sorted by self time descending — the CLI table."""
+    by_tid = {}
+    for e in events:
+        if e.get("ph") == "X":
+            by_tid.setdefault(int(e["tid"]), []).append(e)
+    agg = {}                       # (tid, name) -> [count, total, self]
+    for tid, spans in by_tid.items():
+        spans.sort(key=lambda e: (e["ts"], -e.get("dur", 0.0)))
+        self_dur = [float(e.get("dur", 0.0)) for e in spans]
+        stack = []                 # (end_ts, index) of open spans
+        for i, e in enumerate(spans):
+            ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
+            while stack and ts >= stack[-1][0] - 1e-9:
+                stack.pop()
+            if stack:              # direct parent loses this child's dur
+                self_dur[stack[-1][1]] -= dur
+            stack.append((ts + dur, i))
+        for e, sd in zip(spans, self_dur):
+            key = (tid, e["name"])
+            row = agg.setdefault(key, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += float(e.get("dur", 0.0))
+            row[2] += max(sd, 0.0)
+    rows = [{"lane": lane_name(tid), "tid": tid, "name": name,
+             "count": c, "total_ms": round(total / 1e3, 3),
+             "self_ms": round(self_us / 1e3, 3),
+             "avg_us": round(total / c, 3)}
+            for (tid, name), (c, total, self_us) in agg.items()]
+    rows.sort(key=lambda r: (-r["self_ms"], -r["total_ms"], r["lane"],
+                             r["name"]))
+    return rows
+
+
+def summarize_chrome(path: str, top: int = 10) -> str:
+    """Text table over :func:`span_self_times` (the CLI's default
+    rendering; ``top=0`` = all rows)."""
+    events = load_chrome_trace(path)
+    rows = span_self_times(events)
+    n_counters = sum(1 for e in events if e.get("ph") == "C")
+    n_instants = sum(1 for e in events if e.get("ph") == "i")
+    if not rows:
+        return "no spans parsed"
+    n_spans = sum(r["count"] for r in rows)
+    if top:
+        rows = rows[:top]
+    w = max((len(f"{r['lane']}:{r['name']}") for r in rows), default=4)
+    lines = [f"{'span':<{w + 2}}{'count':>7}{'total_ms':>13}"
+             f"{'self_ms':>13}{'avg_us':>14}"]
+    for r in rows:
+        lines.append(f"{r['lane'] + ':' + r['name']:<{w + 2}}"
+                     f"{r['count']:>7}{r['total_ms']:>13.3f}"
+                     f"{r['self_ms']:>13.3f}{r['avg_us']:>14.3f}")
+    lines.append(f"({len(events)} events: {n_spans} spans, "
+                 f"{n_instants} instants, {n_counters} counter samples)")
+    return "\n".join(lines)

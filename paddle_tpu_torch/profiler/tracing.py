@@ -1,0 +1,262 @@
+"""Dependency-free span tracer for the serving stack (README "Tracing &
+debugging") — the port's own copy of ``paddle_tpu/profiler/tracing.py``.
+
+The serving column's aggregate counters (``/metrics``) say *that* a
+request was slow; this module says *where* its time went. A
+:class:`SpanTracer` records spans and instant events into a bounded
+host-side ring buffer and renders them as Chrome trace-event JSON —
+the ``{"traceEvents": [...]}`` format Perfetto / ``chrome://tracing``
+load directly — so one capture shows the whole request lifecycle
+(``queued → prefill_chunk[i] → decode → finished``), the engine's
+per-step phases (``plan / launch / host-accept / donate``) and the
+gateway supervisor's fault/rebuild/recovery instants on one timeline.
+
+Design constraints, in order:
+
+- **Zero-cost when off.** Production engines run with tracing disabled;
+  every instrumentation site guards on one attribute check
+  (``tracer.enabled``) before building any args, and the recording
+  methods themselves return immediately when disabled. Nothing is
+  allocated, no clock is read.
+- **Deterministic.** The clock is injectable (the fault harness's
+  :class:`~paddle_tpu_torch.serving.faults.VirtualClock` slots straight in),
+  timestamps are relative to a capture epoch, the pid is a constant,
+  and request identities are normalized to dense first-seen indices —
+  so a chaos replay under a virtual clock produces a byte-identical
+  trace (pinned by tests/test_torch_tracing.py).
+- **Bounded.** The buffer is a ring of ``capacity`` events; overflow
+  drops the OLDEST events and counts them (``dropped``), so a
+  long-running server with persistent tracing holds a sliding window,
+  never an unbounded log.
+- **Dependency-free and host-only.** Plain dicts and a lock; no device
+  work, no new packages. The tracer touches no device — it is safe to
+  import anywhere, including the HTTP layer.
+
+Event vocabulary (Chrome trace phases): spans are COMPLETE events
+(``ph="X"`` with ``ts``/``dur`` in microseconds) — simpler to validate
+than begin/end pairs and immune to unbalanced nesting when the ring
+drops events; instants are ``ph="i"`` with thread scope; counter
+tracks are ``ph="C"`` events whose ``args`` carry one sample per
+series — Perfetto renders them as stacked graphs alongside the spans,
+which is how the cost observatory's dispatches/step, transfer
+bytes/step and KV-pool occupancy ride the same timeline as PR 9's
+phases. Every event carries ``name/ph/ts/pid/tid`` (the schema tests
+pin exactly this); ``args`` holds the payload (prefix-hit tokens,
+accepted-draft lengths, fault kinds, finish reasons, counter
+samples).
+
+Thread model: the engine-driver thread is the only writer during
+serving; HTTP handler threads only snapshot (``export``). Both paths
+take the buffer lock, so concurrent capture control
+(``clear``/``enable``/``disable`` from a handler) is safe too.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+
+
+class _NullSpan:
+    """Shared no-op context manager — the disabled ``span()`` path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+#: fixed trace tids: one engine lane, one gateway/supervisor lane, then
+#: one lane per request (dense first-seen order, starting at TID_REQ0).
+#: pid is constant — a real os.getpid() would break byte-stable replays.
+PID = 1
+TID_ENGINE = 1
+TID_GATEWAY = 2
+TID_REQ0 = 8
+
+
+class SpanTracer:
+    """Bounded ring-buffer span recorder emitting Chrome trace JSON.
+
+    ``clock`` is any zero-arg monotonic-seconds callable (default
+    ``time.perf_counter``; tests pass a
+    :class:`~paddle_tpu_torch.serving.faults.VirtualClock`). ``capacity``
+    bounds the ring. The tracer starts DISABLED: recording methods
+    no-op until :meth:`enable`, and instrumentation sites are expected
+    to guard on :attr:`enabled` before building event args — that one
+    attribute read is the entire disabled-path cost.
+    """
+
+    def __init__(self, capacity=65536, clock=None):
+        if int(capacity) < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self.clock = clock if clock is not None else time.perf_counter
+        self._lock = threading.Lock()
+        self._events = deque(maxlen=self.capacity)
+        self._enabled = False
+        self._epoch = 0.0
+        self._req_tids = {}          # request_id -> dense tid
+        self._req_seq = 0            # tids ever assigned this window
+        self.dropped = 0
+
+    # ------------------------------------------------------------- control
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    def enable(self):
+        """Start recording. The first enable (or any :meth:`clear`)
+        sets the timestamp epoch, so ts starts near 0."""
+        if not self._enabled and not self._events and self.dropped == 0:
+            self._epoch = self.clock()
+        self._enabled = True
+        return self
+
+    def disable(self):
+        self._enabled = False
+        return self
+
+    def clear(self):
+        """Drop the buffer and restart the capture window: epoch resets
+        to now, request tids re-normalize from the next event."""
+        with self._lock:
+            self._events.clear()
+            self._req_tids.clear()
+            self._req_seq = 0
+            self.dropped = 0
+            self._epoch = self.clock()
+        return self
+
+    # -------------------------------------------------------------- clocks
+    def now(self) -> float:
+        """The tracer's clock — instrumentation sites snapshot span
+        starts with this so t0 and ts share one timebase."""
+        return self.clock()
+
+    def since_epoch(self, mark):
+        """A span-start for state that predates the capture window:
+        ``mark`` if it was recorded, else the capture epoch (the span
+        truthfully says "in this phase since at least capture start")."""
+        return self._epoch if mark is None else mark
+
+    def _ts(self, t) -> float:
+        # microseconds relative to the capture epoch; clamp below at 0
+        # so a stale pre-capture mark cannot produce a negative ts.
+        # round() keeps the float stable through JSON round-trips.
+        return round(max(t - self._epoch, 0.0) * 1e6, 3)
+
+    def req_tid(self, request_id) -> int:
+        """Dense, first-seen-order tid for a request — the
+        normalization that keeps replayed traces byte-identical even
+        though ``Sequence.request_id`` is a process-global counter."""
+        with self._lock:
+            tid = self._req_tids.get(request_id)
+            if tid is None:
+                tid = TID_REQ0 + self._req_seq
+                self._req_seq += 1
+                self._req_tids[request_id] = tid
+                if len(self._req_tids) > self.capacity:
+                    # a capacity-event ring can reference at most
+                    # `capacity` distinct requests: dropping the
+                    # oldest-seen mapping keeps the map bounded under
+                    # persistent tracing (its events left the ring
+                    # long ago; dicts preserve insertion order)
+                    self._req_tids.pop(next(iter(self._req_tids)))
+            return tid
+
+    # ------------------------------------------------------------ recording
+    def _append(self, ev):
+        with self._lock:
+            if len(self._events) == self._events.maxlen:
+                self.dropped += 1
+            self._events.append(ev)
+
+    def instant(self, name, tid=TID_ENGINE, args=None, t=None):
+        """One instant event (``ph="i"``, thread scope)."""
+        if not self._enabled:
+            return
+        ev = {"name": name, "ph": "i",
+              "ts": self._ts(self.clock() if t is None else t),
+              "pid": PID, "tid": int(tid), "s": "t"}
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    def counter(self, name, values, tid=TID_ENGINE, t=None):
+        """One counter-track sample (``ph="C"``): ``values`` is a dict
+        of series-name → number, graphed by Perfetto as a stacked
+        counter under ``name`` on the lane's timeline (the cost
+        observatory's dispatches/step, transfer-bytes/step and KV-pool
+        occupancy tracks)."""
+        if not self._enabled:
+            return
+        self._append({"name": name, "ph": "C",
+                      "ts": self._ts(self.clock() if t is None else t),
+                      "pid": PID, "tid": int(tid), "args": dict(values)})
+
+    def complete(self, name, t0, tid=TID_ENGINE, args=None, t1=None):
+        """One complete span (``ph="X"``) from ``t0`` (a prior
+        :meth:`now` — or None, meaning the capture epoch) to ``t1``
+        (default: now)."""
+        if not self._enabled:
+            return
+        if t1 is None:
+            t1 = self.clock()
+        # floor at the capture epoch: a stale mark from BEFORE this
+        # window (a prior capture, or tracing enabled mid-flight) must
+        # not stretch dur across inter-capture time — ts clamps to 0
+        # in _ts, and the duration must clamp with it or the span ends
+        # past every concurrent event (an impossible timeline)
+        t0 = max(self.since_epoch(t0), self._epoch)
+        ev = {"name": name, "ph": "X", "ts": self._ts(t0),
+              "dur": round(max(t1 - t0, 0.0) * 1e6, 3),
+              "pid": PID, "tid": int(tid)}
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    def span(self, name, tid=TID_ENGINE, args=None):
+        """Context manager emitting one complete span around the body.
+        Returns a shared no-op when disabled (nothing allocated)."""
+        if not self._enabled:
+            return NULL_SPAN
+        return _Span(self, name, tid, args)
+
+    # ------------------------------------------------------------- reading
+    def events(self):
+        """Snapshot of the buffered events (oldest first)."""
+        with self._lock:
+            return list(self._events)
+
+    def export(self) -> dict:
+        """The whole capture as a Chrome trace document — serialize
+        with ``json.dumps`` and load in Perfetto."""
+        return {"traceEvents": self.events(),
+                "displayTimeUnit": "ms",
+                "otherData": {"clock": "injectable-monotonic",
+                              "dropped_events": self.dropped}}
+
+
+class _Span:
+    __slots__ = ("_tracer", "_name", "_tid", "_args", "_t0")
+
+    def __init__(self, tracer, name, tid, args):
+        self._tracer = tracer
+        self._name = name
+        self._tid = tid
+        self._args = args
+        self._t0 = tracer.clock()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._tracer.complete(self._name, self._t0, tid=self._tid,
+                              args=self._args)
+        return False

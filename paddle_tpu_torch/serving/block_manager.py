@@ -35,6 +35,13 @@ class BlockManager:
                  num_kv_heads, head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
+        #: bytes one block's K/V holds across all layers (the
+        #: /debug/requests KV-bytes unit), fixed at construction so it
+        #: stays readable after :meth:`release`
+        self.block_nbytes = 2 * self.k.numel() * self.k.element_size() \
+            // self.num_blocks
+        #: scale-plane bytes per block: 0, the port's pools are unquantized
+        self.scale_block_nbytes = 0
         self._free_heap = list(range(self.num_blocks))
         self._free_set = set(self._free_heap)
         self._ref = np.zeros(self.num_blocks, np.int32)
@@ -47,6 +54,16 @@ class BlockManager:
     @property
     def num_used(self) -> int:
         return self.num_blocks - self.num_free
+
+    @property
+    def num_shared(self) -> int:
+        """Blocks with refcount >= 2 (the ``kv_blocks_shared`` gauge)."""
+        return int((self._ref >= 2).sum())
+
+    def release(self):
+        """Drop the device storage (a dead engine's, before a rebuild
+        allocates the next pool); the host bookkeeping stays readable."""
+        self.k = self.v = None
 
     def alloc(self):
         """Claim a free block (lowest id first, deterministic); None when

@@ -28,8 +28,20 @@ Offline use::
 
 The constructor takes the JAX engine's arguments in its order. Every
 value off the ported path raises ``NotImplementedError`` naming the
-ROADMAP item that ports it. The JAX engine's tracer and cost observatory
-hooks are not ported yet (ROADMAP Queue A step 8).
+ROADMAP item that ports it.
+
+The surface the serving gateway (``serving/server``) and
+``LlamaForCausalLM.generate`` read is the reference's: the streaming
+hooks ``on_token`` / ``on_finish`` / ``on_policy_preempt``, the span
+``tracer`` and the ``cost`` observatory (each site guarded by
+``_tr()`` / ``_co()``, one attribute check when off), the injectable
+``step_clock`` the SLO stamps read, ``restore`` / ``evict`` for recovery
+by recompute, and the program cache: every serving program is handed out
+of ``jit_cache`` under the reference's key, and
+:meth:`decode_compilations` / :meth:`prefill_compilations` count the
+argument signatures each key ran with — eager PyTorch compiles nothing,
+so these are the trace counts the JAX engine reports for the same
+traffic.
 
 While the kernels are on (``FLAGS_use_cuda_kernels`` on, the config's
 ``decode_attention`` ``"pallas"`` and the model on CUDA) the constructor
@@ -39,6 +51,7 @@ kernels cannot serve raises before it admits a request.
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -51,8 +64,10 @@ from ..kernels import flash, fused_decode_tick, paged_decode, \
     ragged_attention
 from ..kernels._launch import check_head_dim
 from ..models.llama import llama_decode_params
+from ..profiler.tracing import NULL_SPAN
 from .decode import _decode_steps_impl, _prefill_impl, _ragged_step_impl
 from .kv_cache import PagedKVCache, PoolExhausted, SlotKVCache
+from .policy import ClassTable
 from .request import GenerationRequest, GenerationResult, Sequence
 from .scheduler import FIFOScheduler
 
@@ -69,6 +84,36 @@ def _kernels_on(params, config):
     return (get_flag("FLAGS_use_cuda_kernels")
             and config.decode_attention == "pallas"
             and params["embed"].device.type == "cuda")
+
+
+def _signature(arg):
+    """The part of one program argument a JAX trace is keyed on: shape
+    and dtype of an array or tensor (the parameter dict is the model's,
+    fixed for a cache)."""
+    if isinstance(arg, (np.ndarray, torch.Tensor)):
+        return tuple(arg.shape), str(arg.dtype)
+    return None
+
+
+class _Program:
+    """One serving program of the jit cache: the eager function plus the
+    argument signatures it has run with. Where the JAX engine caches a
+    jitted function whose ``_cache_size()`` counts its traces (one per
+    signature), the port records the signatures, so the counts — and the
+    compile-once contract that reads them — are the reference's."""
+
+    __slots__ = ("fn", "signatures")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.signatures = set()
+
+    def _cache_size(self):
+        return len(self.signatures)
+
+    def __call__(self, *args):
+        self.signatures.add(tuple(_signature(a) for a in args))
+        return self.fn(*args)
 
 
 class ContinuousBatchingEngine:
@@ -110,14 +155,6 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prefill_bucketing must be 'pow2' or 'exact', got "
                 f"{prefill_bucketing!r}")
-        if prefill_bucketing == "exact":
-            _not_ported("prefill_bucketing='exact'",
-                        "Queue A step 11a (jit cache and bucketing)")
-        if jit_cache is not None:
-            _not_ported("jit_cache",
-                        "Queue A step 11a (jit cache and bucketing)")
-        if step_clock is not None:
-            _not_ported("step_clock", "Queue A step 8 (observability)")
         if prefix_blocks is not None:
             _not_ported("prefix_blocks", "Queue A step 9 (prefix cache)")
         if drafter is not None:
@@ -147,8 +184,9 @@ class ContinuousBatchingEngine:
                         "Queue A step 10 (tensor parallel)")
         if int(host_tier_bytes):
             _not_ported("host_tier_bytes", "Queue A step 9 (host tier)")
-        if priority_classes is not None:
-            _not_ported("priority_classes",
+        self.classes = ClassTable.coerce(priority_classes)
+        if self.classes.doc() != ClassTable.single().doc():
+            _not_ported("priority_classes other than the neutral table",
                         "Queue A step 9 (serving/policy)")
         self._paged = bool(paged_attn)
         # the unified ragged step is the paged engine's; the dense engine
@@ -166,6 +204,7 @@ class ContinuousBatchingEngine:
                         "Queue A step 9 (two-program step)")
         self.model = model
         self.config = c
+        self._bucketing = prefill_bucketing
         self.num_slots = int(num_slots)
         self.max_seq_len = int(max_seq_len or c.max_position_embeddings)
         self._params, self._tied = llama_decode_params(model)
@@ -185,6 +224,8 @@ class ContinuousBatchingEngine:
                 c.num_hidden_layers, self.num_slots, self.max_seq_len,
                 c.num_key_value_heads, c.head_dim,
                 dtype=self._params["embed"].dtype, device=model.device)
+        self._kv_dtype = str(self._params["embed"].dtype).replace(
+            "torch.", "")
         # chunked prefill (paged only: the dense cache has no block tables
         # to resume through, so its prefill stays one-shot). The chunk
         # rounds UP to a block multiple so every non-final chunk boundary
@@ -209,7 +250,10 @@ class ContinuousBatchingEngine:
                 f"pacing), got {headroom_mult}")
         self._headroom_mult = (None if headroom_mult is None
                                else float(headroom_mult))
-        # the current step's start reading: latency stamps quantize to it
+        self._clock = step_clock if step_clock is not None \
+            else time.perf_counter
+        # the current step's start reading of step_clock: the SLO stamps
+        # quantize to it, so a step reads its clock exactly twice
         self._stamp_t = None
         self._tps_ewma = None
         self._dt_decode_ewma = None
@@ -220,27 +264,82 @@ class ContinuousBatchingEngine:
         self._topks = np.zeros(self.num_slots, np.int32)
         # per-slot PRNG keys: uint32 values held in int64 (core/random.py)
         self._keys = np.zeros((self.num_slots, 2), np.int64)
-        # seeds for requests that carry neither seed nor key
-        self._seed_rng = np.random.default_rng()
+        # serving programs, shareable across engines of one model so a
+        # rebuilt engine counts as one program (model.generate and the
+        # gateway's factory pass the model-level dict)
+        self._jit = jit_cache if jit_cache is not None else {}
+        self._fktag = ("fk",) if self._fused_tick else ()
+        # the prefix-copy and multi-tick counters stay 0 on the ported
+        # path; the gateway's series read them as the reference's do
         self.stats = {"steps": 0, "decode_calls": 0, "decode_steps": 0,
                       "slot_steps": 0, "active_slot_steps": 0,
                       "prefills": 0, "prefill_tokens": 0,
+                      "prefill_copy_dispatches": 0,
                       "prefill_chunks": 0, "chunk_tokens": 0,
-                      "unified_steps": 0,
+                      "unified_steps": 0, "mtick_syncs": 0, "mtick_ticks": 0,
                       "headroom": self._chunk or 0, "headroom_tps": 0.0,
                       "last_step_duration_s": 0.0, "last_step_tokens": 0,
                       "tokens_generated": 0, "cancelled": 0, "timeouts": 0,
                       "preemptions": 0, "restores": 0}
+        # the prefix cache is not ported (Queue A step 9): the gateway
+        # reads None, as from a reference engine built without one
+        self.prefix_cache = None
         # fault-injection hook: called with the engine at the top of every
         # step attempt; a PoolExhausted it raises is repaired by
         # preemption, anything else propagates
         self.fault_hook = None
+        # request-lifecycle tracer (profiler/tracing.py) and cost
+        # observatory (profiler/cost.py): None in a bare engine; the
+        # gateway installs one of each on every engine it builds
+        self.tracer = None
+        self.cost = None
+        # streaming hooks, run on the thread driving step():
+        # on_token(seq, token) for every generated token, on_finish(seq)
+        # once per sequence whatever its finish reason (cancel()
+        # included); on_policy_preempt never fires on the neutral table
+        self.on_token = None
+        self.on_finish = None
+        self.on_policy_preempt = None
 
     @property
     def fused_tick(self) -> bool:
         """Whether every tail tick of the unified step is ONE fused-tick
         kernel launch instead of the scanned per-layer stack."""
         return self._fused_tick
+
+    @property
+    def ragged_step(self) -> bool:
+        return self._ragged
+
+    @property
+    def prefill_chunk(self) -> int:
+        """The chunk the engine runs (block-rounded), 0 when off."""
+        return self._chunk or 0
+
+    @property
+    def kv_dtype(self) -> str:
+        """The pool's storage dtype name (``"float32"``/``"bfloat16"``)."""
+        return self._kv_dtype
+
+    # the ported path's fixed values of the reference's serving knobs
+    spec_decode = False
+    spec_k = 0
+    decode_ticks = 1
+    tp = 1
+    collective_dtype = "fp"
+    collective_overlap = False
+    quantize_weights = False
+    quantize_activations = False
+
+    @property
+    def num_active(self) -> int:
+        """Slots in use (the /metrics active-slots gauge)."""
+        return self.num_slots - self.cache.num_free
+
+    def release(self):
+        """Drop the KV storage of a dead engine, so a rebuild does not
+        hold two pools; host bookkeeping stays readable."""
+        self.cache.release()
 
     def _check_kernel_limits(self):
         """Raise unless every kernel this engine launches takes the model:
@@ -262,6 +361,40 @@ class ContinuousBatchingEngine:
         else:
             paged_decode.check_limits(nh, nkv, hd)
 
+    # ------------------------------------------------------------- tracing
+    def _tr(self):
+        """The recording tracer, or None — the guard of every trace site."""
+        t = self.tracer
+        return t if (t is not None and t.enabled) else None
+
+    def _co(self):
+        """The active cost observatory, or None — the guard of every
+        cost site."""
+        c = self.cost
+        return c if (c is not None and c.enabled) else None
+
+    def _wrap_prog(self, key, fn, host_out):
+        """Every program accessor hands out through here, so with the
+        observatory on every program call is counted once. ``host_out``
+        names the results the engine fetches to host."""
+        co = self._co()
+        if co is None:
+            return fn
+        return co.wrap(key, fn, host_out=host_out)
+
+    def _trace_phase_end(self, tr, seq, args=None):
+        """Close the sequence's current lifecycle span on its request
+        lane and restart the mark."""
+        tr.complete(seq.trace_phase, seq.trace_mark,
+                    tid=tr.req_tid(seq.request_id), args=args)
+        seq.trace_mark = tr.now()
+
+    def _tspan(self, name, args=None):
+        tr = self._tr()
+        if tr is None:
+            return NULL_SPAN
+        return tr.span(name, args=args)
+
     # ------------------------------------------------------------ programs
     def _fn_consts(self):
         c = self.config
@@ -270,14 +403,56 @@ class ContinuousBatchingEngine:
                     theta=float(c.rope_theta), tied=self._tied,
                     decode_attn=c.decode_attention)
 
+    def _program(self, key, fn, host_out, **kw):
+        if key not in self._jit:
+            self._jit[key] = _Program(functools.partial(
+                fn, **kw, **self._fn_consts()))
+        return self._wrap_prog(key, self._jit[key], host_out)
+
+    def _prefill_fn(self):
+        # host reads tok0 (result 2)
+        return self._program(("prefill",), _prefill_impl, (2,))
+
+    def _ragged_fn(self, n_steps):
+        # the full packed geometry (num_slots AND token budget) keys the
+        # program, as in the reference; host reads tokens and tick-0 keys
+        key = ("ragged", self.num_slots, self._token_budget, int(n_steps),
+               self.config.decode_attention) + self._fktag
+        return self._program(key, _ragged_step_impl, (2, 3),
+                             n_steps=int(n_steps), fused=self._fused_tick)
+
+    def _decode_fn(self, n_steps):
+        key = ("decode", int(n_steps), self.config.decode_attention)
+        return self._program(key, _decode_steps_impl, (0,),
+                             n_steps=int(n_steps))
+
+    def decode_compilations(self) -> int:
+        """Decode-program signatures of THIS engine's kind (the
+        compile-once hook): one per ``(num_slots, token_budget,
+        n_steps)`` on the unified engine, one per ``n_steps`` on the
+        dense one, however sampling knobs, budgets, tables and span
+        mixes vary — the JAX engine's trace count."""
+        if self._ragged:
+            return sum(fn._cache_size() for key, fn in self._jit.items()
+                       if key[0] == "ragged"
+                       and key[1] == self.num_slots
+                       and key[2] == self._token_budget
+                       and key[5:] == self._fktag)
+        return sum(fn._cache_size() for key, fn in self._jit.items()
+                   if key[0] == "decode" and key[3:] == ())
+
+    def prefill_compilations(self) -> int:
+        """Cold-prefill signatures: one per (padded group, bucket)."""
+        return sum(fn._cache_size() for key, fn in self._jit.items()
+                   if key == ("prefill",))
+
     # ------------------------------------------------------------- intake
     def _key_for(self, request):
         if request.prng_key is not None:
             return np.asarray(request.prng_key, np.int64).reshape(2)
-        seed = request.seed
-        if seed is None:
-            seed = int(self._seed_rng.integers(0, 2 ** 32))
-        return prng.PRNGKey(int(seed)).numpy()
+        if request.seed is not None:
+            return prng.PRNGKey(int(request.seed)).numpy()
+        return prng.next_key().numpy()
 
     def validate(self, request):
         """Raise the submit-time errors without mutating engine state."""
@@ -300,8 +475,10 @@ class ContinuousBatchingEngine:
         if request.timeout_s is not None and float(request.timeout_s) <= 0:
             raise ValueError(
                 f"timeout_s must be > 0, got {request.timeout_s}")
-        if request.priority_class is not None:
-            _not_ported("priority_class", "Queue A step 9 (serving/policy)")
+        if request.priority_class is not None and \
+                request.priority_class != self.classes.default:
+            _not_ported(f"priority_class={request.priority_class!r}",
+                        "Queue A step 9 (serving/policy)")
 
     def submit(self, request) -> Sequence:
         """Queue a request; returns its live Sequence handle."""
@@ -309,7 +486,11 @@ class ContinuousBatchingEngine:
         deadline = (time.monotonic() + float(request.timeout_s)
                     if request.timeout_s is not None else None)
         seq = Sequence(request, key=self._key_for(request), deadline=deadline)
-        seq.t_submit = time.perf_counter()
+        seq.pclass = self.classes.resolve(request.priority_class)
+        seq.t_submit = self._clock()
+        tr = self._tr()
+        if tr is not None:
+            seq.trace_mark = tr.now()
         self.scheduler.submit(seq)
         return seq
 
@@ -328,12 +509,21 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------ stepping
     def _bucket(self, plen):
+        if self._bucketing == "exact":
+            return plen
         return min(max(8, 1 << (plen - 1).bit_length()), self.max_seq_len)
 
     def _admit_group(self, seqs, finished):
         """Admit a batch: a prompt longer than ``prefill_chunk`` claims its
         slot and enters chunked prefill; the rest take the cold path (ONE
         prefill call per prompt-length bucket)."""
+        tr = self._tr()
+        for seq in seqs:
+            if tr is not None:
+                # close the waiting span (queued, or preempted/recovered)
+                self._trace_phase_end(tr, seq,
+                                      args={"prefix_hit_tokens": 0})
+            seq.trace_phase = "prefill"
         cold = []
         for seq in seqs:
             if self._chunk and seq.work_len > self._chunk:
@@ -374,12 +564,14 @@ class ContinuousBatchingEngine:
                 temps[i] = float(seq.request.temperature)
                 topks[i] = int(seq.request.top_k)
                 keys[i] = np.asarray(seq.key)
-            pk, pv, tok0s, keys2 = _prefill_impl(
-                self._params, ids, lens, keys, temps, topks,
-                **self._fn_consts())
-            tok0s = tok0s.cpu().numpy()
+            with self._tspan("prefill_launch",
+                             args={"bucket": s_pad, "group": G}):
+                pk, pv, tok0s, keys2 = self._prefill_fn()(
+                    self._params, ids, lens, keys, temps, topks)
+                tok0s = tok0s.cpu().numpy()
             keys2 = keys2.numpy()
             for i, seq in enumerate(group):
+                seq.launches += 1       # rode this bucket's prefill
                 slot = self.cache.alloc()
                 seq.slot = slot   # before the write: a PoolExhausted
                 # raised by the block growth must leave the claimed slot
@@ -394,8 +586,16 @@ class ContinuousBatchingEngine:
         chunk row's sample and advanced key, consumed only when this
         chunk completes the prompt."""
         slot, end = seq.slot, seq.prefilled + n
+        seq.launches += 1               # rode this chunk's call
         self.stats["prefill_chunks"] += 1
         self.stats["chunk_tokens"] += n
+        tr = self._tr()
+        if tr is not None:
+            tr.complete(f"prefill_chunk[{seq.trace_chunk_i}]",
+                        seq.trace_mark, tid=tr.req_tid(seq.request_id),
+                        args={"tokens": n, "offset": seq.prefilled})
+            seq.trace_mark = tr.now()
+            seq.trace_chunk_i += 1
         self.cache.lengths[slot] = end
         seq.prefilled = end
         if end == seq.work_len:
@@ -414,6 +614,12 @@ class ContinuousBatchingEngine:
         seq.status = "running"
         if seq.t_admitted is None:
             seq.t_admitted = self._stamp_now()
+        tr = self._tr()
+        if tr is not None:
+            self._trace_phase_end(
+                tr, seq, args={"prefix_hit_tokens": 0,
+                               "restored": bool(seq.restore_point)})
+        seq.trace_phase = "decode"
         self._slots[slot] = seq
         self._temps[slot] = float(req.temperature)
         self._topks[slot] = int(req.top_k)
@@ -427,7 +633,7 @@ class ContinuousBatchingEngine:
         self._last_tok[slot] = seq.tokens[0]
         self._keys[slot] = np.asarray(key2, np.int64)
         self.stats["tokens_generated"] += 1
-        self._emit(seq)
+        self._emit(seq, seq.tokens[0])
         self._maybe_finish(seq, finished)
 
     def _maybe_finish(self, seq, finished):
@@ -444,10 +650,19 @@ class ContinuousBatchingEngine:
         seq.status = "finished"
         seq.finish_reason = reason
         seq.t_finish = self._stamp_now()
+        tr = self._tr()
+        if tr is not None:
+            self._trace_phase_end(
+                tr, seq, args={"finish_reason": reason,
+                               "tokens": len(seq.tokens)})
+            tr.instant("finished", tid=tr.req_tid(seq.request_id),
+                       args={"finish_reason": reason})
         slot = seq.slot
         if slot is not None and self._slots[slot] is seq:
             self._release_slot(slot)
         finished.append(seq)
+        if self.on_finish is not None:
+            self.on_finish(seq)
 
     def _release_slot(self, slot):
         """Slot teardown shared by retirement and preemption: reset the
@@ -472,27 +687,37 @@ class ContinuousBatchingEngine:
             self._finish(seq, "timeout", finished)
 
     def _stamp_now(self):
+        """The current step's start reading inside a step, a fresh clock
+        reading outside one (submit, cancel)."""
         return self._stamp_t if self._stamp_t is not None \
-            else time.perf_counter()
+            else self._clock()
 
-    def _emit(self, seq):
+    def _emit(self, seq, token):
         if seq.t_first_token is None:
             seq.t_first_token = self._stamp_now()
         seq.t_last_token = self._stamp_now()
+        if self.on_token is not None:
+            self.on_token(seq, token)
 
     @torch.inference_mode()
     def step(self):
         """Admit + this step's chunk grant + decode, as ONE unified step,
         + retire. Runs under ``torch.inference_mode()``: the model's
-        parameters are trainable, and serving records no graph. Returns every sequence this step finished, deadline
-        expiries included.
+        parameters are trainable, and serving records no graph. Returns
+        every sequence this step finished, deadline expiries included.
 
         A :class:`~.kv_cache.PoolExhausted` raised in the step body is
         repaired here: the half-done admission goes back to the queue,
         the youngest slot-holding sequence is preempted by recompute, and
-        the step retries without re-admitting."""
-        t0 = time.perf_counter()
+        the step retries without re-admitting. Anything else the
+        ``fault_hook`` or the step raises propagates to the driver (the
+        gateway's supervisor)."""
+        t0 = self._clock()
         self._stamp_t = t0
+        tr = self._tr()
+        ts0 = tr.now() if tr is not None else None
+        co = self._co()
+        cost0 = co.snapshot() if co is not None else None
         finished = []
         self._expire_deadlines(
             list(self.scheduler.queue)
@@ -506,7 +731,11 @@ class ContinuousBatchingEngine:
                 if attempt == 0:
                     admitted = self.scheduler.admissions(self.cache.num_free)
                     if admitted:
-                        self._admit_group(admitted, finished)
+                        if co is not None:
+                            co.set_phase("admit")
+                        with self._tspan("admit",
+                                         args={"n": len(admitted)}):
+                            self._admit_group(admitted, finished)
                 if self._ragged:
                     step_tokens, had_chunks = self._unified_step(finished)
                 else:
@@ -524,8 +753,29 @@ class ContinuousBatchingEngine:
                 self._stamp_t = None
                 raise
         self.stats["steps"] += 1
-        self._record_step(time.perf_counter() - t0, step_tokens, had_chunks)
+        self._record_step(self._clock() - t0, step_tokens, had_chunks)
         self._stamp_t = None
+        if co is not None:
+            co.set_phase(None)
+        if tr is not None:
+            tr.complete("step", ts0,
+                        args={"step": self.stats["steps"] - 1,
+                              "tokens": step_tokens,
+                              "chunks": bool(had_chunks)})
+            # counter tracks on the step timeline: pool occupancy and
+            # table pressure, and this step's dispatch/transfer deltas
+            if self._paged:
+                tr.counter("kv_blocks", self.cache.occupancy())
+                tr.counter("block_table_fill",
+                           {"fill": round(self.cache.table_fill(), 6)})
+            if co is not None:
+                d = co.delta(cost0)
+                tr.counter("dispatches",
+                           {"per_step": d["dispatches"],
+                            "compiles": d["compiles"]})
+                tr.counter("transfer_bytes",
+                           {"h2d": d["h2d_bytes"],
+                            "d2h": d["d2h_bytes"]})
         return finished
 
     # ----------------------------------------------------- fault recovery
@@ -533,6 +783,7 @@ class ContinuousBatchingEngine:
         """Unwind a half-done admission: every popped sequence not yet
         installed goes back to the queue HEAD in its FIFO order, its
         claimed slot freed."""
+        tr = self._tr()
         for seq in sorted(seqs, key=lambda s: -s.queue_tick):
             if seq.status != "queued":
                 continue
@@ -540,6 +791,14 @@ class ContinuousBatchingEngine:
                 if self._slots[seq.slot] is None:
                     self.cache.free(seq.slot)
                 seq.slot = None
+            if seq.trace_phase == "prefill":
+                # back to a fresh queued span; the aborted attempt stays
+                # visible as the closed span before it
+                if tr is not None:
+                    tr.instant("admission_aborted",
+                               tid=tr.req_tid(seq.request_id))
+                seq.trace_phase = "queued"
+                seq.trace_mark = tr.now() if tr is not None else None
             self.scheduler.requeue_front(seq)
 
     def _preempt_youngest(self) -> bool:
@@ -551,31 +810,69 @@ class ContinuousBatchingEngine:
         self._preempt(max(victims, key=lambda s: s.request_id))
         return True
 
-    def _preempt(self, seq):
-        """Preemption by recompute: free the slot, snapshot the slot's
-        key (what its next tick would have sampled with) and re-queue the
-        sequence through :meth:`restore`."""
-        self.stats["preemptions"] += 1
+    def _displace(self, seq, reason):
+        """Slot teardown shared by preemption and :meth:`evict`: free the
+        slot now and snapshot its current key (what the next decode tick
+        would have sampled with), so a recompute resumes the same walk.
+        A mid-recompute sequence keeps the snapshot it carries. Leaves the
+        sequence slotless and unqueued."""
         slot = seq.slot
+        tr = self._tr()
+        if tr is not None:
+            self._trace_phase_end(
+                tr, seq, args={reason: True, "tokens": len(seq.tokens)})
+            tr.instant(reason, tid=tr.req_tid(seq.request_id),
+                       args={"slot": slot})
         if seq.status == "prefilling":
             self.scheduler.leave_prefill(seq)
         if seq.tokens and seq.status == "running":
             seq.key = self._keys[slot].copy()
         self._release_slot(slot)
         seq.slot = None
+
+    def _preempt(self, seq):
+        """Preemption by recompute: displace the sequence and re-queue it
+        here through :meth:`restore`. Nothing is emitted; consumers see a
+        pause."""
+        self.stats["preemptions"] += 1
+        self._displace(seq, "preempted")
         self.restore(seq)
+        seq.trace_phase = "preempted"   # restore() named it "recovered"
+
+    def evict(self, seq: Sequence) -> bool:
+        """Remove a live sequence from this engine for re-admission by
+        another engine's :meth:`restore` (same displacement as
+        preemption, but ownership leaves the engine). A queued sequence
+        is simply dequeued. Must be called from the thread driving
+        :meth:`step`. Returns False for a finished sequence or one this
+        engine does not hold."""
+        if seq.done:
+            return False
+        if seq.status == "queued":
+            return self.scheduler.remove(seq)
+        if seq.slot is None or self._slots[seq.slot] is not seq:
+            return False
+        self._displace(seq, "evicted")
+        seq.status = "queued"   # slotless, awaiting the target's restore
+        return True
 
     def restore(self, seq: Sequence) -> bool:
-        """Re-enqueue a live sequence for recovery by recompute: its KV is
-        rebuilt by prefilling ``prompt + tokens[:-1]``, after which decode
-        resumes from the last generated token with the saved key walk.
-        Returns False for an already-finished sequence."""
+        """Re-enqueue a live sequence for recovery by recompute (crash
+        recovery and preemption both land here): its KV is rebuilt by
+        prefilling ``prompt + tokens[:-1]``, after which decode resumes
+        from the last generated token with the saved key walk, so the
+        continuation is the one the sequence would have produced and no
+        consumer sees a replayed token. Must be called from the thread
+        driving :meth:`step`. Returns False for a finished sequence."""
         if seq.done:
             return False
         seq.status = "queued"
         seq.slot = None
         seq.prefilled = 0
         seq.restore_point = len(seq.tokens)
+        tr = self._tr()
+        seq.trace_phase = "recovered"
+        seq.trace_mark = tr.now() if tr is not None else None
         if seq.tokens:
             seq.work = np.concatenate(
                 [seq.prompt, np.asarray(seq.tokens[:-1], np.int32)])
@@ -628,6 +925,11 @@ class ContinuousBatchingEngine:
         the packed buffer (``decode._ragged_step_impl``). Pure-decode
         steps fuse ``choose_num_steps`` ticks. Returns
         ``(tokens_processed, had_chunks)`` for the headroom EWMAs."""
+        tr = self._tr()
+        tp0 = tr.now() if tr is not None else None
+        co = self._co()
+        if co is not None:
+            co.set_phase("plan")
         plan = []
         if self._chunk and self.scheduler.num_prefilling:
             plan = self.scheduler.prefill_plan(self._prefill_budget(),
@@ -654,14 +956,29 @@ class ContinuousBatchingEngine:
         chunk_rows, cursor = self._pack_chunk_rows(
             plan, cursor, ids, seg, pos, qstart, qlen, kvlen, keys,
             temps, topks)
+        if tr is not None:
+            # plan: the chunk grant + span packing; launch: the one
+            # program + the host transfer that fences it; host-accept:
+            # token and chunk bookkeeping
+            tr.complete("plan", tp0,
+                        args={"rows": len(active), "chunks": len(plan),
+                              "fused_steps": n})
+            tl0 = tr.now()
+        if co is not None:
+            co.set_phase("launch")
         pool = self.cache.pool
-        _, _, toks, keys_t0, keys_fin = _ragged_step_impl(
+        _, _, toks, keys_t0, keys_fin = self._ragged_fn(n)(
             self._params, pool.k, pool.v, self.cache.tables, ids, seg, pos,
-            qstart, qlen, kvlen, dec_mask, keys, temps, topks, n_steps=n,
-            fused=self._fused_tick, **self._fn_consts())
+            qstart, qlen, kvlen, dec_mask, keys, temps, topks)
         toks_np = toks.cpu().numpy()        # [n, R]
         keys_t0_np = keys_t0.numpy()
         self.stats["unified_steps"] += 1
+        if co is not None:
+            co.set_phase("host-accept")
+        if tr is not None:
+            tr.complete("launch", tl0,
+                        args={"packed_tokens": cursor, "fused_steps": n})
+            th0 = tr.now()
         if active:
             # decode rows adopt the post-tail key walk; chunk/idle rows
             # keep their host key (a final chunk adopts its tick-0 key
@@ -675,7 +992,15 @@ class ContinuousBatchingEngine:
             self.stats["decode_calls"] += 1
             self.stats["decode_steps"] += n
             self.stats["slot_steps"] += n * self.num_slots
+            for slot in range(self.num_slots):
+                s = self._slots[slot]
+                if s is not None and dec_mask[slot]:
+                    s.launches += 1     # rode this step's one program
             self._accept_decode_rows(toks_np, n, dec_mask, finished)
+        if tr is not None:
+            tr.complete("host-accept", th0,
+                        args={"emitted": (n * len(active) if active
+                                          else 0)})
         return cursor + (n - 1) * len(active), bool(chunk_rows)
 
     def _dense_step(self, finished):
@@ -684,24 +1009,46 @@ class ContinuousBatchingEngine:
         call of ``decode._decode_steps_impl`` over every slot, fusing
         ``choose_num_steps`` ticks. Returns ``(tokens_processed,
         had_chunks)``."""
+        tr = self._tr()
+        tp0 = tr.now() if tr is not None else None
+        co = self._co()
+        if co is not None:
+            co.set_phase("plan")
         active = [s for s in self._slots
                   if s is not None and s.status == "running"]
+        n = self.scheduler.choose_num_steps(active) if active else 0
+        if tr is not None:
+            tr.complete("plan", tp0,
+                        args={"rows": len(active), "chunks": 0,
+                              "fused_steps": n})
+            tl0 = tr.now()
         if not active:
             return 0, False
-        n = self.scheduler.choose_num_steps(active)
-        toks, nk, nv, keys = _decode_steps_impl(
+        if co is not None:
+            co.set_phase("launch")
+        toks, nk, nv, keys = self._decode_fn(n)(
             self._params, self.cache.k, self.cache.v, self._last_tok,
-            self.cache.lengths, self._keys, self._temps, self._topks,
-            n_steps=n, **self._fn_consts())
+            self.cache.lengths, self._keys, self._temps, self._topks)
         self.cache.update(nk, nv)
         self._keys = keys.numpy()
+        toks_np = toks.cpu().numpy()
+        if co is not None:
+            co.set_phase("host-accept")
+        if tr is not None:
+            tr.complete("launch", tl0, args={"fused_steps": n})
+            th0 = tr.now()
         self.stats["decode_calls"] += 1
         self.stats["decode_steps"] += n
         self.stats["slot_steps"] += n * self.num_slots
+        for s in active:
+            s.launches += 1             # rode this one decode call
         # every running slot rode the call; the accept skips slots whose
         # sequence finished at an earlier tick
-        self._accept_decode_rows(toks.cpu().numpy(), n,
+        self._accept_decode_rows(toks_np, n,
                                  np.ones(self.num_slots, np.int32), finished)
+        if tr is not None:
+            tr.complete("host-accept", th0,
+                        args={"emitted": n * len(active)})
         return n * len(active), False
 
     def _pack_decode_rows(self, n, ids, seg, pos, qstart, qlen, kvlen,
@@ -745,7 +1092,7 @@ class ContinuousBatchingEngine:
                 self.stats["active_slot_steps"] += 1
                 self.stats["tokens_generated"] += 1
                 emitted += 1
-                self._emit(seq)
+                self._emit(seq, t)
                 self._maybe_finish(seq, finished)
         return emitted
 

@@ -86,9 +86,17 @@ class SlotKVCache:
                  head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
+        # K/V bytes of one cached row across all layers
+        self._row_nbytes = 2 * self.k.numel() * self.k.element_size() \
+            // (self.num_slots * self.max_seq_len)
         self.lengths = np.zeros(self.num_slots, np.int32)
         self._free_heap = list(range(self.num_slots))
         self._free_set = set(self._free_heap)
+
+    def release(self):
+        """Drop the device storage (a dead engine's, before a rebuild
+        allocates the next cache); the host bookkeeping stays readable."""
+        self.k = self.v = None
 
     # ------------------------------------------------------------- slots
     @property
@@ -134,9 +142,7 @@ class SlotKVCache:
 
     def slot_kv_bytes(self, slot) -> int:
         """Device bytes of the slot's valid rows (rows × per-row bytes)."""
-        per_row = (2 * self.k.numel() * self.k.element_size()
-                   // (self.num_slots * self.max_seq_len))
-        return int(self.lengths[slot]) * per_row
+        return int(self.lengths[slot]) * self._row_nbytes
 
     # ------------------------------------------------------ block copies
     def copy_block_in(self, slot, row0, pool, block_id):
@@ -196,6 +202,10 @@ class PagedKVCache:
         self._free_heap = list(range(self.num_slots))
         self._free_set = set(self._free_heap)
 
+    def release(self):
+        """Drop the pool's device storage (see ``BlockManager.release``)."""
+        self.pool.release()
+
     # ------------------------------------------------------------- slots
     @property
     def num_free(self) -> int:
@@ -243,6 +253,44 @@ class PagedKVCache:
             self.tables[slot, n] = self._alloc_block()
             n += 1
             self._n_blocks[slot] = n
+
+    def slot_block_ids(self, slot):
+        """Physical block ids populating the slot's table, in order."""
+        return [int(b) for b in self.tables[slot, :int(self._n_blocks[slot])]]
+
+    # ------------------------------------------------------- occupancy
+    def table_fill(self) -> float:
+        """Fraction of the [num_slots, max_blocks] table grid populated —
+        the ``kv_block_table_fill`` gauge."""
+        return float(self._n_blocks.sum()) / float(
+            self.num_slots * self.max_blocks)
+
+    def occupancy(self) -> dict:
+        """Pool occupancy: ``live`` = distinct blocks some slot table
+        references, ``trie`` = allocated blocks no table references (0
+        without a prefix cache), ``free`` = the pool's free heap."""
+        refd = set()
+        for slot in range(self.num_slots):
+            refd.update(self.slot_block_ids(slot))
+        live = len(refd)
+        return {"live": live,
+                "trie": max(self.pool.num_used - live, 0),
+                "free": self.pool.num_free}
+
+    def used_blocks(self) -> int:
+        """Allocated (live + trie) blocks."""
+        return self.pool.num_used
+
+    def slot_kv_bytes(self, slot) -> int:
+        """Bytes the slot's table holds (blocks x block bytes) — the
+        ``/debug/requests`` cost column."""
+        return int(self._n_blocks[slot]) * (
+            self.pool.block_nbytes + self.pool.scale_block_nbytes)
+
+    def bytes_per_token(self) -> float:
+        """Bytes one cached token costs (block bytes / block size)."""
+        return (self.pool.block_nbytes
+                + self.pool.scale_block_nbytes) / self.block_size
 
     # ------------------------------------------------------------ writes
     def write_prefill(self, slot, pk, pv, prompt_len):

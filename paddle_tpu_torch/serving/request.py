@@ -28,16 +28,17 @@ class GenerationRequest:
     (``top_k <= 0`` = no top-k filter). ``eos_token_id`` enables early
     exit; ``None`` always decodes ``max_new_tokens`` tokens. Randomness
     comes from ``seed`` (or ``prng_key``, a ``[2]`` uint32 key, for
-    callers that manage keys); with both unset the engine draws a seed
-    from its own generator at submit time.
+    callers that manage keys); with both unset the engine draws a key
+    from the global generator (``core/random.next_key``) at submit time.
 
     ``timeout_s`` is a wall-clock deadline measured from submit time:
     the engine retires the sequence with ``finish_reason="timeout"`` at
     the first step boundary past it — queued (never admitted) or
     mid-decode (slot freed) alike. ``None`` = no deadline.
 
-    ``priority_class`` names a tenant tier; the port's engine does not
-    serve tiers yet and refuses a request that names one.
+    ``priority_class`` names a tenant tier; the port's engine serves the
+    neutral single-class table only (``policy/classes.py``) and refuses
+    a request that names another class.
     """
     prompt: object
     max_new_tokens: int = 32
@@ -77,9 +78,10 @@ class Sequence:
 
     __slots__ = ("request", "request_id", "prompt", "tokens", "status",
                  "finish_reason", "slot", "key", "deadline", "prefilled",
-                 "work", "restore_point", "queue_tick",
+                 "work", "restore_point", "queue_tick", "launches", "pclass",
                  "t_submit", "t_admitted", "t_first_token",
-                 "t_last_token", "t_finish")
+                 "t_last_token", "t_finish",
+                 "trace_mark", "trace_phase", "trace_chunk_i")
 
     def __init__(self, request: GenerationRequest, key, deadline=None):
         self.request = request
@@ -107,6 +109,14 @@ class Sequence:
         # FIFO seniority stamp, set by FIFOScheduler.submit: the queue
         # position authority when an aborted admission is unwound
         self.queue_tick = None
+        # serving programs this request has ridden (the cost columns of
+        # the gateway's /debug/requests): +1 per prefill, chunk or decode
+        # call whose packed rows or slot included it; recompute after a
+        # preemption or a rebuild is charged too
+        self.launches = 0
+        # the resolved priority class (policy/classes.py), set by
+        # engine.submit; None only for a sequence built outside an engine
+        self.pclass = None
         # latency stamps (the engine's clock): submit, first slot claim
         # (kept across preemption), first token, last accepted token,
         # retirement — what ttft_s / queue_wait_s / tpot_s derive from
@@ -115,6 +125,14 @@ class Sequence:
         self.t_first_token = None
         self.t_last_token = None
         self.t_finish = None
+        # request-lifecycle tracing (profiler/tracing.py): the clock mark
+        # the current phase started at, the phase's span name
+        # (queued|prefill|decode|preempted|recovered, kept with tracing
+        # off so a capture opened mid-flight names the next span right)
+        # and the index of the next prefill_chunk[i] span
+        self.trace_mark = None
+        self.trace_phase = "queued"
+        self.trace_chunk_i = 0
 
     # ------------------------------------------------------- SLO latencies
     @property

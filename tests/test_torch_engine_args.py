@@ -68,10 +68,58 @@ def test_served_values_by_keyword_and_by_position(tiny):
         [o.tolist() for o in b.generate(req)]
 
 
+def _served_exact_bucket(tiny):
+    eng = ContinuousBatchingEngine(tiny, **GEOMETRY,
+                                   prefill_bucketing="exact")
+    assert [eng._bucket(n) for n in (1, 5, 9, 100)] == [1, 5, 9, 100]
+    eng.generate([GenerationRequest(prompt=np.arange(13, dtype=np.int32),
+                                    max_new_tokens=2)])
+    sig, = eng._jit[("prefill",)].signatures
+    assert sig[1] == ((1, 13), "int32")      # ids at the prompt's length
+
+
+def _served_shared_jit_cache(tiny):
+    jit = {}
+    reqs = [GenerationRequest(prompt=np.arange(n, dtype=np.int32),
+                              max_new_tokens=3) for n in (5, 20)]
+    a = ContinuousBatchingEngine(tiny, **GEOMETRY, decode_chunk=1,
+                                 jit_cache=jit)
+    a.generate(reqs)
+    counts = (a.decode_compilations(), a.prefill_compilations())
+    assert counts[0] == 1
+    b = ContinuousBatchingEngine(tiny, **GEOMETRY, decode_chunk=1,
+                                 jit_cache=jit)
+    b.generate(reqs)
+    assert (b.decode_compilations(), b.prefill_compilations()) == counts
+
+
+def _served_step_clock(tiny):
+    ticks = iter(range(100, 10000))
+    eng = ContinuousBatchingEngine(tiny, **GEOMETRY,
+                                   step_clock=lambda: float(next(ticks)))
+    seq = eng.submit(GenerationRequest(prompt=np.arange(6, dtype=np.int32),
+                                       max_new_tokens=3))
+    assert seq.t_submit == 100.0
+    while eng.has_work():
+        eng.step()
+    # every stamp is a reading of the injected clock, one per step start
+    stamps = (seq.t_admitted, seq.t_first_token, seq.t_finish)
+    assert all(t == int(t) and 100 < t < 10000 for t in stamps)
+    assert seq.ttft_s == seq.t_first_token - 100.0
+
+
+@pytest.mark.parametrize("check", [_served_exact_bucket,
+                                   _served_shared_jit_cache,
+                                   _served_step_clock],
+                         ids=["prefill_bucketing", "jit_cache",
+                              "step_clock"])
+def test_once_unported_values_are_served(tiny, check):
+    """prefill_bucketing="exact", a shared jit_cache and step_clock were
+    refused until the front door was ported; each is served now."""
+    check(tiny)
+
+
 @pytest.mark.parametrize("knob,step", [
-    (dict(prefill_bucketing="exact"), "Queue A step 11a"),
-    (dict(jit_cache={}), "Queue A step 11a"),
-    (dict(step_clock=lambda: 0.0), "Queue A step 8"),
     (dict(prefix_blocks=4), "Queue A step 9 \\(prefix cache\\)"),
     (dict(drafter=object()), "Queue A step 9 \\(spec decode\\)"),
     (dict(collective_dtype="int8"), "Queue A step 10"),

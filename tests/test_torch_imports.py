@@ -52,6 +52,13 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.kernels.fused_decode_tick, "
             "paddle_tpu_torch.nn, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.models.llama, paddle_tpu_torch.flags, "
+            "paddle_tpu_torch.core.random, paddle_tpu_torch.profiler, "
+            "paddle_tpu_torch.profiler.chrometrace, "
+            "paddle_tpu_torch.profiler.__main__, "
+            "paddle_tpu_torch.serving.faults, "
+            "paddle_tpu_torch.serving.policy, "
+            "paddle_tpu_torch.serving.server, "
+            "paddle_tpu_torch.serving.server.__main__, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
@@ -67,6 +74,18 @@ def _run_smoke(cwd):
                           capture_output=True, text=True,
                           env=dict(_clean_env(), CUDA_VISIBLE_DEVICES=""),
                           timeout=120)
+
+
+def test_server_cli_refuses_cuda_without_a_card():
+    """``--device cuda`` (the default) without a GPU exits nonzero before
+    building anything; it does not fall back to the CPU."""
+    r = subprocess.run([sys.executable, "-m",
+                        "paddle_tpu_torch.serving.server", "--port", "0"],
+                       cwd=ROOT, capture_output=True, text=True,
+                       env=dict(_clean_env(), CUDA_VISIBLE_DEVICES=""),
+                       timeout=120)
+    assert r.returncode != 0 and r.stdout == ""
+    assert "no CUDA device" in r.stderr
 
 
 def test_smoke_fails_without_a_card():

@@ -538,3 +538,58 @@ class TestTensorCoreFlash:
             want = (tflash.flash_bwd_dq_reference(*args),)
         for g, w in zip(got, want):
             assert _within_scaled(g, w, *BWD_TOL["float32"])
+
+
+def _front_door_model():
+    cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
+                     num_key_value_heads=2)
+    return LlamaForCausalLM(cfg, device="cuda", seed=7)
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "top_k"])
+def test_generate_kernels_vs_plain(cuda_dev, sampled):
+    """``model.generate`` (decode_chunk=16: flash, ragged and paged
+    decode) gives the same float32 ids with the kernels as with the
+    plain versions, and launches all three."""
+    model = _front_door_model()
+    ids = np.random.RandomState(3).randint(0, 256, (3, 40)).astype(np.int32)
+    kw = dict(temperature=0.8, top_k=20, seed=5) if sampled else {}
+    outs, launches = {}, {}
+    try:
+        for use in (True, False):
+            set_flags({"FLAGS_use_cuda_kernels": use})
+            reset_launches()
+            outs[use] = model.generate(ids, max_new_tokens=24, **kw).cpu()
+            launches[use] = dict(LAUNCHES)
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    assert torch.equal(outs[True], outs[False])
+    assert outs[True].device.type == "cpu" and outs[True].shape == (3, 24)
+    for name in ("flash", "ragged_attention", "paged_decode"):
+        assert launches[True][name] > 0 and launches[False][name] == 0
+
+
+def test_serve_one_request_on_the_card(cuda_dev):
+    """``serve()`` on a CUDA model answers one completion over HTTP with
+    the ids a direct engine run gives, through the kernels."""
+    import json
+    import urllib.request
+    from paddle_tpu_torch.serving.server import serve
+    model = _front_door_model()
+    prompt = np.random.RandomState(4).randint(0, 256, 33).tolist()
+    want = ContinuousBatchingEngine(
+        model, num_slots=2, max_seq_len=128, decode_chunk=1).generate(
+        [GenerationRequest(prompt=prompt, max_new_tokens=10)])[0].tolist()
+    reset_launches()
+    srv = serve(model, port=0, num_slots=2, max_seq_len=128)
+    try:
+        req = urllib.request.Request(
+            srv.url + "/v1/completions",
+            data=json.dumps({"prompt": prompt, "max_tokens": 10}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            doc = json.load(r)
+    finally:
+        srv.shutdown(drain=False, timeout=60)
+    assert doc["choices"][0]["token_ids"] == want
+    assert LAUNCHES["flash"] > 0 and LAUNCHES["ragged_attention"] > 0
+    assert LAUNCHES["paged_decode"] == 0        # decode_chunk=1

@@ -42,7 +42,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
              launch only with the kernels on, and the fused engine's
              streams must equal the default engine's; then 20 requests
              at 32 slots (more than 16 in flight) through the default and
-             the fused engine, streams equal.
+             the fused engine, streams equal. The prefix cache on the
+             default and the dense engine (a wave of 4 on a shared
+             96-token prefix, then a wave of 4 that hits it; kernels and
+             plain, with and without the cache: streams equal, tokens
+             saved); ``ragged_step=False`` (streams equal the unified
+             engine's, paged decode launched, ragged not);
+             ``decode_ticks=8``, scanned and fused, with an EOS the first
+             run emits mid-stream: the graph tail, the eager tail
+             (``FLAGS_cuda_graph_tail`` off) and the plain versions give
+             the streams, finish reasons and ticks run of
+             ``decode_ticks=1``, the device retires a row mid-block,
+             launches equal the code's count with the graph's replays
+             counted, and the pools after the first tail equal the eager
+             tail's. Last, in a child process, whether the fused tick's
+             cooperative launch captures into a CUDA graph.
 5. serve   — llama_7b at full width and depth (32 layers) in bf16 with
              seeded random weights: 8 requests (7 short prompts, one long
              prompt that rides the ragged kernel in chunks, one seeded
@@ -52,9 +66,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
              depth against the scanned tick, and again with every row at
              length 1: the difference is the attention's share), then the
              dense engine (32
-             decode launches per tick, no paged kernel), each freed
-             before the next; each launch count must equal what the code
-             implies.
+             decode launches per tick, no paged kernel), then the default
+             engine with ``decode_ticks=8`` (ragged 32 a step, paged
+             decode 32 a tail tick the device ran, graph replays counted),
+             each freed before the next; each launch count must equal
+             what the code implies. Then the prefix run: 8 requests on a
+             shared 1024-token prefix (tails 64-256, 64 new tokens) after
+             a priming request, ``prefix_cache=True, prefix_blocks=512``
+             and then without the cache: wall, TTFT, tokens saved (8192
+             required), hit rate, peak memory.
 6. generate — ``model.generate`` on the same model (llama_7b, 32
              layers, bf16, seed 0): B=4 prompts of 128 tokens, 64 new
              tokens, greedy and then seeded top-k twice (equal ids); both
@@ -100,7 +120,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
              finite and falling; flash forward, dK/dV and dQ launch counts
              equal to what the code implies.
 
-``--profile`` repeats the three serve runs and one train step under
+``--profile`` repeats the four serve runs and one train step under
 ``torch.profiler`` and reports device time by kernel and the device's
 busy share (for the fused run: one device kernel per tail tick,
 its device time per launch beside its bound and beside the scanned tail
@@ -1056,8 +1076,19 @@ def phase_engine():
         raise RuntimeError(f"fused-tick streams differ from the default "
                            f"engine's: {on_streams}")
     _engine_wide(model, cfg)
+    _engine_prefix(model, cfg)
+    _engine_two_program(model, cfg, on_streams["default"])
+    _engine_multitick(model, cfg)
     del model
     torch.cuda.empty_cache()
+    probe = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--capture-probe"], capture_output=True,
+                           text=True, timeout=600, cwd=str(ROOT))
+    lines = [ln for ln in probe.stdout.splitlines() if ln.startswith("{")]
+    if probe.returncode or not lines:
+        raise RuntimeError(f"capture probe exited {probe.returncode}: "
+                           f"{probe.stderr[-2000:]}")
+    print(lines[-1], flush=True)
 
 
 #: the fused engine past the 16 rows its kernel once took: slots, requests
@@ -1105,6 +1136,287 @@ def _engine_wide(model, cfg):
                            f"{tail} tail ticks")
 
 
+def _eng_run(model, reqs, knob, kernels=True, graph=True):
+    """One fp32 engine run to completion with the kernels (or their plain
+    versions) and the graph tail (or the eager one); counts set to 0 just
+    before it and read just after. Returns (streams, finish reasons,
+    engine, launches, the multi-tick program's calls)."""
+    import torch
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    calls = []
+    try:
+        set_flags({"FLAGS_use_cuda_kernels": kernels,
+                   "FLAGS_cuda_graph_tail": graph})
+        eng = ContinuousBatchingEngine(model, headroom_mult=None, **knob)
+        if eng.decode_ticks > 1:
+            program = eng._mtick_fn
+
+            def recorded():
+                fn = program()
+
+                def call(*args, **kw):
+                    out = fn(*args, **kw)
+                    calls.append((int(args[16]), out[4], args[10].copy(),
+                                  args[14].copy(), out[2].numpy().copy()))
+                    return out
+                return call
+            eng._mtick_fn = recorded
+        reset_launches()
+        waves = reqs if isinstance(reqs[0], list) else [reqs]
+        outs = []
+        for wave in waves:
+            outs += eng.generate(wave)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True,
+                   "FLAGS_cuda_graph_tail": True})
+    return ([o.tolist() for o in outs], [o.finish_reason for o in outs],
+            eng, launches, calls)
+
+
+def _device_retirements(calls):
+    """Rows the alive mask retired on the device while the tail went on:
+    a decode row whose EOS came at a tick before the step's last."""
+    n_ret = 0
+    for n, ticks_run, dec, eos, toks in calls:
+        for r in range(len(dec)):
+            if not dec[r] or eos[r] < 0:
+                continue
+            hit = [t for t in range(ticks_run) if toks[t, r] == eos[r]]
+            n_ret += bool(hit) and hit[0] < n - 1
+    return n_ret
+
+
+def _engine_prefix(model, cfg):
+    """fp32, 2 layers: the prefix cache on the default (paged) and the
+    dense engine. A first wave of 4 requests on a shared 96-token prefix
+    publishes it, a second wave of 4 hits it; kernels and plain versions,
+    with and without the cache: greedy streams all equal, tokens saved."""
+    import numpy as np
+    from paddle_tpu_torch.serving import GenerationRequest
+    r = np.random.RandomState(21)
+    prefix = r.randint(0, cfg.vocab_size, 96).astype(np.int32)
+    waves = [[GenerationRequest(prompt=np.concatenate(
+        [prefix, r.randint(0, cfg.vocab_size, n).astype(np.int32)]),
+        max_new_tokens=16) for n in tails]
+        for tails in ((20, 33, 47, 60), (25, 38, 52, 7))]
+    for label, knob in (("default", {}), ("dense", {"paged_attn": False})):
+        runs = {}
+        for cache in (True, False):
+            for use in (True, False):
+                geo = dict(knob, max_seq_len=1024, prefix_cache=cache)
+                streams, _, eng, launches, _ = _eng_run(model, waves, geo,
+                                                        kernels=use)
+                runs[(cache, use)] = (streams, launches,
+                                      eng.stats["prefill_tokens_saved"],
+                                      eng.stats["prefill_copy_dispatches"])
+                eng.release()
+                del eng
+        same = len({str(v[0]) for v in runs.values()}) == 1
+        saved = runs[(True, True)][2]
+        on = runs[(True, True)][1]
+        emit({"phase": "engine", "check": "prefix_cache", "engine": label,
+              "dtype": "float32", "layers": 2, "prefix_tokens": 96,
+              "greedy_streams_equal": same, "prefill_tokens_saved": saved,
+              "prefill_tokens_saved_plain": runs[(True, False)][2],
+              "prefill_copy_dispatches": runs[(True, True)][3],
+              "launches_kernels": on,
+              "launches_plain": sum(runs[(True, False)][1].values())})
+        if not same or saved <= 0 or runs[(True, False)][2] != saved \
+                or not sum(on.values()) or sum(runs[(True, False)][1]
+                                               .values()):
+            raise RuntimeError(f"prefix cache on the {label} engine: "
+                               f"streams equal {same}, saved {saved}, "
+                               f"launches {on}")
+
+
+def _engine_two_program(model, cfg, unified):
+    """fp32, 2 layers: ``ragged_step=False`` on the engine phase's
+    requests, kernels and plain versions: greedy streams equal the unified
+    engine's, paged decode launched, ragged attention not."""
+    from paddle_tpu_torch.serving import GenerationRequest
+    reqs = _requests(GenerationRequest, (37, 130, 300), 700, 16,
+                     cfg.vocab_size, seed=3)
+    got = {}
+    for use in (True, False):
+        got[use] = _eng_run(model, reqs, {"ragged_step": False},
+                            kernels=use)
+        got[use][2].release()
+    on = got[True][3]
+    same = got[True][0] == got[False][0] == unified
+    emit({"phase": "engine", "check": "two_program_vs_unified",
+          "dtype": "float32", "layers": 2, "greedy_streams_equal": same,
+          "decode_calls": got[True][2].stats["decode_calls"],
+          "prefill_chunks": got[True][2].stats["prefill_chunks"],
+          "launches_kernels": on,
+          "launches_plain": sum(got[False][3].values())})
+    if not same or not on["paged_decode"] or on["ragged_attention"] \
+            or sum(got[False][3].values()):
+        raise RuntimeError(f"two-program step: streams equal {same}, "
+                           f"launches {on}")
+
+
+def _engine_multitick(model, cfg):
+    """fp32, 2 layers: ``decode_ticks=8``, scanned and fused, with an EOS
+    the first run emits mid-stream, so the device retires rows. Per
+    program: the graph tail, the eager tail and the plain versions give
+    the same streams, finish reasons and ticks run as each other and as
+    ``decode_ticks=1``; launches equal the code's count with replays
+    counted; the pools after the first tail equal the eager tail's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    base = _requests(GenerationRequest, (37, 130, 300), 700, 24,
+                     cfg.vocab_size, seed=3)
+    first = _eng_run(model, base, {"max_seq_len": 1024})
+    first[2].release()
+    stream0 = first[0][0]
+    eos = next(t for i, t in enumerate(stream0)
+               if i >= 6 and t not in stream0[:i])
+    reqs = [GenerationRequest(prompt=q.prompt, max_new_tokens=24,
+                              eos_token_id=eos) for q in base]
+    single = _eng_run(model, reqs, {"max_seq_len": 1024})
+    single[2].release()
+    L = cfg.num_hidden_layers
+    for label, knob in (("scanned", {}), ("fused", {"fused_tick": True})):
+        geo = dict(knob, max_seq_len=1024, decode_ticks=8)
+        runs = {name: _eng_run(model, reqs, geo, kernels=k, graph=g)
+                for name, k, g in (("graph", True, True),
+                                   ("eager", True, False),
+                                   ("plain", False, True))}
+        eng = runs["graph"][2]
+        st, tail = eng.stats, eng._tail
+        on = runs["graph"][3]
+        if label == "scanned":
+            want = {"paged_decode": L * tail.ticks,
+                    "ragged_attention": L * st["unified_steps"],
+                    "fused_decode_tick": 0}
+        else:
+            want = {"paged_decode": 0,
+                    "ragged_attention": L * (st["unified_steps"]
+                                             - st["mtick_pure_syncs"]),
+                    "fused_decode_tick": st["mtick_pure_syncs"]
+                    + tail.ticks}
+        ticks = {n: [c[1] for c in v[4]] for n, v in runs.items()}
+        streams = {n: (v[0], v[1]) for n, v in runs.items()}
+        same = len({str(v) for v in streams.values()}) == 1 \
+            and streams["graph"] == (single[0], single[1])
+        retired = _device_retirements(runs["graph"][4])
+        line = {"phase": "engine", "check": "multitick", "tail": label,
+                "dtype": "float32", "layers": L, "decode_ticks": 8,
+                "eos": int(eos), "streams_equal": same,
+                "stops": runs["graph"][1].count("stop"),
+                "ticks_run_equal": len({str(v) for v in ticks.values()})
+                == 1, "ticks_run": ticks["graph"],
+                "mtick_ticks": st["mtick_ticks"],
+                "mtick_syncs": st["mtick_syncs"],
+                "tail_ticks_run": tail.ticks,
+                "graph_captures": tail.captures,
+                "device_retirements": retired,
+                "launches": {n: on[n] for n in want},
+                "launches_expected": want,
+                "launches_plain": sum(runs["plain"][3].values())}
+        for v in runs.values():
+            v[2].release()
+        del eng, runs
+        torch.cuda.empty_cache()
+        bad = {n: (on[n], w) for n, w in want.items() if on[n] != w}
+        if label == "scanned":
+            line.update(_multitick_pools(model, reqs, geo))
+        emit(line)
+        if not same or not line["ticks_run_equal"] or bad or not retired \
+                or line["launches_plain"] or (
+                    label == "scanned" and (not tail.captures
+                                            or not line["pools_match"])):
+            raise RuntimeError(f"multi-tick {label}: {line}")
+
+
+def _multitick_pools(model, reqs, geo):
+    """Two engines, the graph tail and the eager tail, stepped in lockstep
+    until the first step that ran a tail: their pools must agree (fp32
+    TOL; ``bitwise`` says whether every bit does)."""
+    import torch
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    engines = {}
+    for graph in (True, False):
+        engines[graph] = ContinuousBatchingEngine(model, headroom_mult=None,
+                                                  **geo)
+        for q in reqs:
+            engines[graph].submit(q)
+    try:
+        for _ in range(64):
+            for graph, eng in engines.items():
+                set_flags({"FLAGS_cuda_graph_tail": graph})
+                eng.step()
+            if engines[True]._tail.ticks:
+                break
+    finally:
+        set_flags({"FLAGS_cuda_graph_tail": True})
+    torch.cuda.synchronize()
+    a, b = engines[True].cache.pool, engines[False].cache.pool
+    diff = max((a.k - b.k).abs().max().item(),
+               (a.v - b.v).abs().max().item())
+    out = {"pools_max_abs_diff": diff,
+           "pools_bitwise": bool(torch.equal(a.k, b.k)
+                                 and torch.equal(a.v, b.v)),
+           "pools_match": diff <= TOL["float32"][0],
+           "pools_after_tail_ticks": engines[True]._tail.ticks}
+    for eng in engines.values():
+        eng.release()
+    return out
+
+
+def _capture_probe():
+    """Whether the fused tick's cooperative launch captures into a CUDA
+    graph on this card: one fused tick (7B widths, 2 layers, fp32, 8 rows)
+    with its lengths, mask and knobs on the device, warmed eagerly, then
+    captured; the replay held bit for bit against an eager launch on the
+    same pool. Run in a child process (``--capture-probe``): a failed
+    capture cannot reach this process's CUDA state. Prints one line."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_decode_tick as fdt
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_7b,
+                                               llama_decode_params)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
+                                      dtype="float32"), device=dev, seed=6)
+    p, tied = llama_decode_params(model)
+    t = tick_inputs(torch.float32, dev, gen, FUSED_LAYERS)
+    t.update(lens=torch.from_numpy(t["lens"]).to(dev),
+             app_mask=torch.from_numpy(t["app_mask"]).to(dev),
+             temps=torch.from_numpy(t["temps"]).to(dev),
+             top_ks=torch.from_numpy(t["top_ks"]).to(dev))
+    base = (t["pool_k"].clone(), t["pool_v"].clone())
+    warm = _tick(fdt.fused_decode_tick, p, tied, dict(t))
+    t["kys"] = warm[3].clone()                  # device keys from now on
+    eager = _tick(fdt.fused_decode_tick, p, tied,
+                  dict(t, pool_k=base[0].clone(), pool_v=base[1].clone()))
+    line = {"phase": "engine", "check": "cooperative_capture"}
+    try:
+        cap = dict(t, pool_k=base[0].clone(), pool_v=base[1].clone())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = _tick(fdt.fused_decode_tick, p, tied, cap)
+        graph.replay()
+        torch.cuda.synchronize()
+        line.update(captured=True, replay_equals_eager=bool(
+            torch.equal(out[0], eager[0]) and torch.equal(out[3], eager[3])
+            and torch.equal(cap["pool_k"], eager[1])))
+    except RuntimeError as err:
+        # the capture's end reports the invalidated capture; the launch
+        # that broke it is the exception before it
+        line.update(captured=False, error=str(err).splitlines()[0][:300],
+                    cause=str(err.__context__ or "").splitlines()[0][:300]
+                    if err.__context__ else None)
+    emit(line)
+
+
 def _serve_requests(GenerationRequest, vocab):
     """7 short prompts (100-500 tokens, one seeded top-k) and one
     1600-token prompt that chunks, 64 new tokens each."""
@@ -1120,19 +1432,20 @@ def _serve_requests(GenerationRequest, vocab):
 
 def _serve(model, reqs, **knob):
     """One engine run to completion on the default geometry (plus
-    ``knob``); returns (seqs, engine, steps, wall)."""
+    ``knob``); returns (seqs, engine, each step's host ms, wall)."""
     import torch
     from paddle_tpu_torch.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, **knob)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    steps = 0
+    step_ms = []
     seqs = [eng.submit(q) for q in reqs]
     while eng.has_work():
+        ts = time.perf_counter()
         eng.step()
-        steps += 1
+        step_ms.append(1e3 * (time.perf_counter() - ts))
     torch.cuda.synchronize()
-    return seqs, eng, steps, time.perf_counter() - t0
+    return seqs, eng, step_ms, time.perf_counter() - t0
 
 
 def _expected_serve_launches(label, eng, layers):
@@ -1148,6 +1461,12 @@ def _expected_serve_launches(label, eng, layers):
         return {"flash": "+", "ragged_attention": "+", "paged_decode": 0,
                 "fused_decode_tick": st["decode_steps"] - st["decode_calls"],
                 "decode": 0}
+    if label == "mtick":
+        # tick 0 of every step through ragged, and every tail tick the
+        # device ran (graph replays counted) through paged decode
+        return {"flash": "+", "ragged_attention": layers
+                * st["unified_steps"], "paged_decode": layers
+                * eng._tail.ticks, "fused_decode_tick": 0, "decode": 0}
     return {"flash": "+", "ragged_attention": 0, "paged_decode": 0,
             "fused_decode_tick": 0, "decode": layers * st["decode_steps"]}
 
@@ -1195,7 +1514,8 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    seqs, eng, steps, wall = _serve(model, reqs, **knob)
+    seqs, eng, step_ms, wall = _serve(model, reqs, **knob)
+    steps = len(step_ms)
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if any(launches[n] for n in BWD):
@@ -1214,6 +1534,7 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
             "requests": len(reqs), "decoded_tokens": decoded,
             "wall_s": wall, "decoded_tok_per_s": decoded / wall,
             "steps": steps, "mean_step_ms": 1e3 * wall / steps,
+            "step_ms": [round(t, 3) for t in step_ms],
             "decode_ticks": eng.stats["decode_steps"],
             "tail_ticks": (eng.stats["decode_steps"]
                            - eng.stats["decode_calls"]),
@@ -1226,15 +1547,21 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
     if label == "fused_tick":
         timing, tick = fused_tick_timing(eng, cfg.num_hidden_layers)
         line.update(timing)
+    if label == "mtick":
+        line.update(mtick_syncs=eng.stats["mtick_syncs"],
+                    mtick_ticks=eng.stats["mtick_ticks"],
+                    tail_ticks_run=eng._tail.ticks,
+                    graph_captures=eng._tail.captures)
     emit(line)
     bad = {n: (launches[n], w) for n, w in want.items()
            if (launches[n] <= 0 if w == "+" else launches[n] != w)}
     if bad:
         raise RuntimeError(f"{label} serve launches (got, expected): {bad}")
+    eng.release()
     del eng, tick
     gc.collect()
     torch.cuda.empty_cache()
-    if profile and label in ("default", "dense"):
+    if profile and label in ("default", "dense", "mtick"):
         phase_profile(model, reqs, toks, label, knob)
     if profile and label == "fused_tick":
         phase_profile_fused(model, cfg, reqs, toks)
@@ -1252,7 +1579,7 @@ def phase_serve(model, profile=False):
     cfg = model.config
     reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
     runs = {label: _serve_run(model, cfg, reqs, label, knob, profile)
-            for label, knob, _ in ENGINES}
+            for label, knob, _ in ENGINES + MTICK}
     streams = {label: toks for label, (_, toks) in runs.items()}
     emit({"phase": "serve", "check": "streams_vs_default",
           "equal": {label: streams[label] == streams["default"]
@@ -1261,7 +1588,94 @@ def phase_serve(model, profile=False):
                 for n in ("flash", "ragged_attention", "paged_decode")}
     for label, _, own in ENGINES[1:]:
         launches[own] = runs[label][0][own]
+    serve_prefix(model, cfg)
     return launches
+
+
+#: the multi-tick serve run: the default engine with decode_ticks=8
+MTICK = (("mtick", {"decode_ticks": 8}, None),)
+#: the prefix serve run: a shared prefix, distinct tails, the trie's budget
+PREFIX_LEN, PREFIX_TAILS, PREFIX_BLOCKS = 1024, (64, 96, 128, 160, 192,
+                                                 224, 256, 80), 512
+
+
+def serve_prefix(model, cfg):
+    """8 requests on a shared 1024-token prefix with distinct tails of
+    64-256 tokens, 64 new tokens each, after one priming request that
+    publishes the prefix: ``prefix_cache=True, prefix_blocks=512`` (+8 GiB
+    of pool at 7B bf16) and then ``prefix_cache=False``. Wall, TTFT (from
+    the submit to the host's receipt of the first token, read in the
+    engine's ``on_token`` hook after the step's device sync; the engine's
+    own ``t_first_token`` is its step-start stamp), tokens saved, hit
+    rate, peak memory (the suffix programs' float32 logits are their
+    peak)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    r = np.random.RandomState(9)
+    V = cfg.vocab_size
+    prefix = r.randint(0, V, PREFIX_LEN).astype(np.int32)
+    prime = GenerationRequest(prompt=np.concatenate(
+        [prefix, r.randint(0, V, 16).astype(np.int32)]), max_new_tokens=1)
+    reqs = [GenerationRequest(prompt=np.concatenate(
+        [prefix, r.randint(0, V, n).astype(np.int32)]), max_new_tokens=64)
+        for n in PREFIX_TAILS]
+    lines = {}
+    for cache in (True, False):
+        knob = (dict(prefix_cache=True, prefix_blocks=PREFIX_BLOCKS)
+                if cache else {})
+        eng = ContinuousBatchingEngine(model, **knob)
+        eng.generate([prime])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        first = {}
+        eng.on_token = lambda seq, tok: first.setdefault(
+            seq.request_id, time.perf_counter())
+        t0 = time.perf_counter()
+        seqs = [eng.submit(q) for q in reqs]
+        steps = 0
+        while eng.has_work():
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        decoded = sum(len(x.tokens) for x in seqs)
+        pc = eng.prefix_cache
+        lines[cache] = {
+            "phase": "serve", "check": "prefix", "prefix_cache": cache,
+            "prefix_blocks": PREFIX_BLOCKS if cache else None,
+            "layers": cfg.num_hidden_layers, "dtype": "bfloat16",
+            "requests": len(reqs), "prefix_tokens": PREFIX_LEN,
+            "tails": list(PREFIX_TAILS), "wall_s": wall, "steps": steps,
+            "decoded_tok_per_s": decoded / wall,
+            "mean_ttft_s": float(np.mean([first[x.request_id] - t0
+                                          for x in seqs])),
+            "max_ttft_s": max(first[x.request_id] - t0 for x in seqs),
+            "prefill_tokens_saved": eng.stats["prefill_tokens_saved"],
+            "hit_rate": pc.hit_rate() if pc is not None else None,
+            "pool_blocks": eng.cache.pool.num_blocks,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": dict(LAUNCHES),
+            "first_tokens": [x.tokens[:4] for x in seqs]}
+        for x in seqs:
+            if x.finish_reason != "length" or len(x.tokens) != 64:
+                raise RuntimeError(f"prefix run request {x.request_id}: "
+                                   f"{x.finish_reason}")
+        eng.release()
+        del eng, seqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    hit, cold = lines[True], lines[False]
+    hit["ttft_vs_cold"] = cold["mean_ttft_s"] / hit["mean_ttft_s"]
+    hit["streams_equal_cold"] = hit["first_tokens"] == cold["first_tokens"]
+    for line in (hit, cold):
+        emit(line)
+    if hit["prefill_tokens_saved"] != PREFIX_LEN * len(reqs) \
+            or not hit["launches"]["paged_decode"]:
+        raise RuntimeError(f"prefix serve run: {hit}")
 
 
 # ------------------------------------------------------------- front door
@@ -1800,12 +2214,12 @@ def phase_profile(model, reqs, want, label, knob):
     from torch.profiler import profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        seqs, _, steps, wall = _serve(model, reqs, **knob)
+        seqs, _, step_ms, wall = _serve(model, reqs, **knob)
     if [s.tokens for s in seqs] != want:
         raise RuntimeError(f"the profiled {label} repeat sampled other "
                            f"tokens")
     _profile_line("profile" if label == "default" else f"profile_{label}",
-                  _device_rows(prof), wall, steps=steps)
+                  _device_rows(prof), wall, steps=len(step_ms))
 
 
 def phase_profile_fused(model, cfg, reqs, want, scanned_ticks=5):
@@ -1821,7 +2235,8 @@ def phase_profile_fused(model, cfg, reqs, want, scanned_ticks=5):
     from paddle_tpu_torch.serving.decode import _fused_decode_tick
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
-        seqs, eng, steps, wall = _serve(model, reqs, fused_tick=True)
+        seqs, eng, step_ms, wall = _serve(model, reqs, fused_tick=True)
+    steps = len(step_ms)
     rows = _device_rows(prof)
     tail = eng.stats["decode_steps"] - eng.stats["decode_calls"]
     fused = [(us, c) for us, c, k in rows if "fused_tick_kernel" in k]
@@ -2032,12 +2447,16 @@ def main(argv=None):
                             "train_parity,train",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
-                    help="repeat the three serve runs and one train "
+                    help="repeat the four serve runs and one train "
                          "step under torch.profiler and report device time "
                          "by kernel")
     ap.add_argument("--train-layers", type=int, default=TRAIN_LAYERS,
                     help="decoder layers of the train phase (default "
                          f"{TRAIN_LAYERS}, the deepest that fits)")
+    ap.add_argument("--capture-probe", action="store_true",
+                    help="only try capturing one fused tick into a CUDA "
+                         "graph and print the outcome (the engine phase "
+                         "runs this in a child process)")
     args = ap.parse_args(argv)
     if not (ROOT / "paddle_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2049,6 +2468,9 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.capture_probe:
+        _capture_probe()
+        return 0
     phases = set(args.phases.split(","))
     smi = phase_device()
     phase_build()

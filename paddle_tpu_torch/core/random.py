@@ -105,9 +105,12 @@ def uniform(keys, n, minval=0.0, maxval=1.0):
     bits = random_bits(keys, n)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # float32 bounds as scalars and a filled tensor, not tensors built
+    # from host values: no host-to-device copy, so a CUDA graph can
+    # capture the draw
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.maximum(torch.full_like(floats, float(lo)),
+                         floats * float(hi - lo) + float(lo))
 
 
 def gumbel(keys, n):

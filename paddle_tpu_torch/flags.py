@@ -13,6 +13,10 @@ the flags the port reads:
   ``FLAGS_use_pallas_kernels``, and the A/B lever of the on-card parity
   checks; ``chip_smoke.py`` fails when its main paths launch no kernel,
   so an environment that turns it off cannot pass there unseen.
+- ``FLAGS_cuda_graph_tail`` (default on): the multi-tick step's scanned
+  tail (``serving/graphs.py``) replays one captured CUDA graph a tick on
+  a CUDA device; off, the same tick runs eagerly — the A/B lever of the
+  graph against the eager tail.
 - ``FLAGS_check_nan_inf`` (default off): ``jit.TrainStep`` counts the
   non-finite values of the loss and the gradients of every step and
   raises when there are any.
@@ -28,7 +32,8 @@ def _env_bool(name, default):
 
 
 _REGISTRY = {name: _env_bool(name, default) for name, default in (
-    ("FLAGS_use_cuda_kernels", True), ("FLAGS_check_nan_inf", False))}
+    ("FLAGS_use_cuda_kernels", True), ("FLAGS_cuda_graph_tail", True),
+    ("FLAGS_check_nan_inf", False))}
 
 
 def _full(name):

@@ -43,7 +43,8 @@ the plain version for CPU tensors. :func:`fused_decode_tick_reference` is
 the plain version: the port's scanned tick (``serving/decode.py``
 ``_fused_decode_tick``) with the plain paged attention. The tick's host
 metadata (lengths, append mask, top-k, temperatures, and the keys on the
-first tail tick) goes over as small host-to-device copies; the embed
+first tail tick) goes over as small host-to-device copies, or stays on the
+device where the caller keeps it there (the multi-tick tail); the embed
 gather, the sin/cos lookup and the append coordinates are computed inside
 the kernel, so a tick is exactly one kernel launch.
 """
@@ -124,6 +125,24 @@ def part_size(R, nh, nkv, D, hidden, inter, vocab, cols, grid):
     return max(part_slots(N, K, cols, grid) * R * N for N, K in shapes)
 
 
+def _meta(lens, app_mask, top_ks, temps, dev):
+    """The kernel's ``[4R]`` int32 metadata: lengths, append mask, top-k
+    and the temperatures' bits. Host arrays go over in one copy; device
+    tensors (the multi-tick tail keeps its lengths and alive mask on the
+    device, and its top-k and temperatures there for the step) are joined
+    on the device, with no host copy."""
+    if isinstance(lens, torch.Tensor) and lens.device.type == "cuda":
+        return torch.cat([lens.to(torch.int32), app_mask.to(torch.int32),
+                          top_ks.to(torch.int32),
+                          temps.to(torch.float32).view(torch.int32)])
+    meta = np.concatenate([
+        np.asarray(lens, np.int64).astype(np.int32),
+        np.asarray(app_mask, np.int64).astype(np.int32),
+        np.asarray(top_ks, np.int64).astype(np.int32),
+        np.asarray(temps, np.float32).view(np.int32)])
+    return torch.from_numpy(meta).to(dev)
+
+
 def fused_decode_tick_reference(params, head, tables, tables_dev, sin, cos,
                                 tok, pool_k, pool_v, lens, kys, app_mask,
                                 temps, top_ks, *, nh, nkv, hd, eps,
@@ -148,9 +167,11 @@ def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     scanned tick: stacked ``params``, ``head`` (the lm head, or the
     embedding transposed when tied), tables ``[R, mb]`` as numpy and as an
     int32 device tensor, RoPE tables ``[S, D]``, last tokens ``tok [R]``,
-    pools ``[L, nb, bs, Hkv, D]`` (written in place), host ``lens`` and
-    ``app_mask [R]``, keys ``[R, 2]`` (host uint32 values, or the device
-    keys a previous launch returned), ``temps``/``top_ks [R]``.
+    pools ``[L, nb, bs, Hkv, D]`` (written in place), ``lens`` and
+    ``app_mask [R]`` (host arrays, or on the kernel's path device tensors,
+    with ``temps``/``top_ks`` then device tensors too), keys ``[R, 2]``
+    (host uint32 values, or the device keys a previous launch returned),
+    ``temps``/``top_ks [R]``.
 
     Returns ``(next_tok [R], pool_k, pool_v, keys' [R, 2])``, plus the
     float32 logits ``[R, V]`` with ``return_logits``; the caller advances
@@ -185,12 +206,7 @@ def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
                          "[H, V] weight or the embedding transposed")
     weights = [params[k] for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
                                    "w_down", "input_ln", "post_ln")]
-    meta = np.concatenate([
-        np.asarray(lens, np.int64).astype(np.int32),
-        np.asarray(app_mask, np.int64).astype(np.int32),
-        np.asarray(top_ks, np.int64).astype(np.int32),
-        np.asarray(temps, np.float32).view(np.int32)])
-    meta_dev = torch.from_numpy(meta).to(dev)
+    meta_dev = _meta(lens, app_mask, top_ks, temps, dev)
     if isinstance(kys, torch.Tensor) and kys.device.type == "cuda":
         keys_dev = kys
     else:

@@ -28,6 +28,9 @@ MIN_SPLIT_PAGES = 8
 MAX_GD = 16 * 128
 
 _TICKETS = {}
+# ticket buffers outgrown by a larger launch: kept alive, since a CUDA
+# graph captured over one goes on reading it at every replay
+_OUTGROWN = []
 
 
 def split_len(B, Hkv, capacity, n_sm):
@@ -65,6 +68,8 @@ def _tickets(dev, n):
     one stream at a time (the port's current stream)."""
     t = _TICKETS.get(dev)
     if t is None or t.numel() < n:
+        if t is not None:
+            _OUTGROWN.append(t)
         t = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
         _TICKETS[dev] = t
     return t

@@ -295,14 +295,16 @@ class _CountedProgram:
     def _cache_size(self):
         return self._fn._cache_size()
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
+        # keyword arguments are host-side state (the multi-tick program's
+        # graph holder), not program arguments: no bytes are counted
         co = self._co
         fn = self._fn
         census = self._label not in co.censuses
         launches0 = dict(LAUNCHES) if census else None
         t0 = co.clock()
         c0 = fn._cache_size()
-        out = fn(*args)
+        out = fn(*args, **kw)
         co._record(self._label, self._kind, args, out, self._host_out,
                    fn._cache_size() - c0, co.clock() - t0)
         if census:

@@ -9,6 +9,8 @@ count. Live sequences reference blocks through per-slot block tables
 tensors IN PLACE (``index_put_``), where the JAX package returned a new
 array per program and donated the old one.
 
+The same pool backs the prefix cache (:mod:`.prefix_cache`): trie blocks
+are allocated blocks no slot owns, pinned while a sequence reads them.
 Quantized pools, the host spill tier and its staging buffers, and
 tensor-parallel placement are not ported yet (ROADMAP Queue A step 9/10).
 """
@@ -45,6 +47,7 @@ class BlockManager:
         self._free_heap = list(range(self.num_blocks))
         self._free_set = set(self._free_heap)
         self._ref = np.zeros(self.num_blocks, np.int32)
+        self._peak_used = 0
 
     # ---------------------------------------------------------- allocator
     @property
@@ -54,6 +57,11 @@ class BlockManager:
     @property
     def num_used(self) -> int:
         return self.num_blocks - self.num_free
+
+    @property
+    def peak_used(self) -> int:
+        """High-water mark of :attr:`num_used`."""
+        return self._peak_used
 
     @property
     def num_shared(self) -> int:
@@ -72,6 +80,7 @@ class BlockManager:
             return None
         block = heapq.heappop(self._free_heap)
         self._free_set.discard(block)
+        self._peak_used = max(self._peak_used, self.num_used)
         return block
 
     def free(self, block: int):
@@ -85,7 +94,8 @@ class BlockManager:
 
     # ---------------------------------------------------------- refcounts
     def ref(self, block: int):
-        """Pin a block (the owning slot's reference)."""
+        """Pin a block (an owning slot's reference, or a sequence's read
+        pin on a prefix-cache block)."""
         self._ref[block] += 1
 
     def unref(self, block: int) -> int:
@@ -93,6 +103,9 @@ class BlockManager:
         if self._ref[block] <= 0:
             raise ValueError(f"block {block} unref'd below zero")
         self._ref[block] -= 1
+        return int(self._ref[block])
+
+    def refcount(self, block: int) -> int:
         return int(self._ref[block])
 
     def drop(self, block: int) -> bool:

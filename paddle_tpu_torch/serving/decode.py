@@ -14,7 +14,18 @@ The port of these programs of ``paddle_tpu/serving/decode.py``:
   (scanned layer by layer, or with ``fused`` one fused-tick kernel
   launch each);
 - :func:`_decode_steps_impl` — the dense-slot engine's ``n_steps``
-  decode ticks over a :class:`~.kv_cache.SlotKVCache`.
+  decode ticks over a :class:`~.kv_cache.SlotKVCache`;
+- :func:`_suffix_prefill_impl` / :func:`_paged_suffix_prefill_impl` —
+  prefill of only the UNCOVERED suffix of prompts whose leading blocks a
+  prefix-cache hit installed (dense: into the slot; paged: through the
+  block table, the shared prefix read and never written); the paged one
+  is also the two-program engine's chunked-prefill program;
+- :func:`_paged_decode_steps_impl` — the two-program engine's
+  (``ragged_step=False``) ``n_steps`` decode ticks through the tables;
+- :func:`_multitick_step_impl` — the multi-tick step (``decode_ticks >
+  1``): tick 0 as in the unified step, then a tail of ``n_ticks - 1``
+  ticks under an on-device alive mask (``serving/graphs.py``: one
+  captured CUDA graph a tick on a card).
 
 What changes from JAX to PyTorch:
 
@@ -31,7 +42,10 @@ What changes from JAX to PyTorch:
   ``index_put_``, which would fault on a sentinel index.
 - PRNG keys stay on the host as int64 tensors holding uint32 values
   (``core/random.py``); only a sampling draw moves its keys to the
-  logits' device.
+  logits' device (the multi-tick tail uploads its whole key walk once).
+- The suffix programs' attention is plain PyTorch (a gather through the
+  table, then matmuls), as the JAX programs compute it with
+  ``jnp.einsum`` outside any Pallas kernel.
 - The model's parameters are trainable, so both programs run under
   ``torch.inference_mode()``: serving records no autograd graph.
 
@@ -62,6 +76,8 @@ from ..kernels.ragged_attention import (ragged_attention_reference,
                                         ragged_paged_attention)
 from ..models.llama import (STACK_KEYS, _apply_rope, _qkv_bshd, _rms,
                             _rope_tables, _rotate_half, _swiglu_raw)
+from . import graphs
+from .graphs import decode_layers, sample_rows_dev, sampling_args
 
 NEG_INF = -1e30
 
@@ -98,13 +114,6 @@ def _kv_write(pool_l, phys, row, x):
         pool_l[phys, row] = x
 
 
-def _apply_rope_rows(x, sin_p, cos_p):
-    """Rope with a different position per batch row (ragged decode).
-    x: [B, 1, H, D]; sin_p/cos_p: [B, D] taken at each row's position."""
-    return (x * cos_p[:, None, None, :]
-            + _rotate_half(x) * sin_p[:, None, None, :]).to(x.dtype)
-
-
 def _apply_rope_grid(x, sin_p, cos_p):
     """Rope with a different position per (row, column).
     x: [G, S, H, D]; sin_p/cos_p: [G, S, D]."""
@@ -137,23 +146,11 @@ def sample_rows(logits, keys, temps, top_ks):
     version's ``lax.cond`` is a host branch here: an all-greedy batch
     never pays the sort and the draw. Greedy takes the FIRST maximal
     index, as ``jnp.argmax`` does. Returns [B] int64 on the logits'
-    device."""
-    greedy = torch.argmax(logits, dim=-1)
-    temps = np.asarray(temps, np.float32)
-    if not (temps > 0.0).any():
-        return greedy
-    dev = logits.device
-    V = logits.shape[-1]
-    t = torch.from_numpy(np.maximum(temps, np.float32(1e-6))).to(dev)
-    lg = logits.float() / t[:, None]
-    tk = np.asarray(top_ks, np.int64)
-    k_eff = np.clip(np.where(tk <= 0, V, tk), 1, V)
-    srt = torch.sort(lg, dim=-1).values      # ascending: kth = srt[V - k]
-    kth = torch.gather(srt, 1, torch.from_numpy(V - k_eff).to(dev)[:, None])
-    lg = torch.where(lg < kth, torch.full_like(lg, NEG_INF), lg)
-    sampled = prng.categorical(_keys_host(keys).to(dev), lg)
-    return torch.where(torch.from_numpy(temps > 0.0).to(dev), sampled,
-                       greedy)
+    device (the arithmetic is ``graphs.sample_rows_dev``'s)."""
+    args = sampling_args(temps, top_ks, logits.shape[-1], logits.device)
+    if args is None:
+        return torch.argmax(logits, dim=-1)
+    return sample_rows_dev(logits, _keys_host(keys).to(logits.device), args)
 
 
 def _split_rows(keys):
@@ -248,18 +245,16 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     pidx = torch.from_numpy(np.clip(lens, 0, s_tot - 1)).to(dev)
     sin_r, cos_r = sin[pidx], cos[pidx]
     att_len = torch.from_numpy((lens + app_mask).astype(np.int32)).to(dev)
-    h = params["embed"][tok[:, None]]                       # [R, 1, H]
-    for l in range(pool_k.shape[0]):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _layer(params, l)
-        hn = _rms(h, lin, eps)
-        q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
-        q = _apply_rope_rows(q, sin_r, cos_r)
-        k = _apply_rope_rows(k, sin_r, cos_r)
-        _kv_write(pool_k[l], phys_w, prow_w, k[rows_w, 0])
-        _kv_write(pool_v[l], phys_w, prow_w, v[rows_w, 0])
-        attn = paged_fn(q[:, 0], pool_k[l], pool_v[l], tables_dev, att_len)
-        h = h + attn.reshape(R, 1, nh * hd) @ lwo
-        h = h + _swiglu_raw(_rms(h, lpost, eps), lg, lu, ld)
+
+    def write(l, k, v):
+        _kv_write(pool_k[l], phys_w, prow_w, k[rows_w])
+        _kv_write(pool_v[l], phys_w, prow_w, v[rows_w])
+
+    h = decode_layers(
+        params, params["embed"][tok[:, None]], sin_r, cos_r,
+        pool_k.shape[0], write,
+        lambda l, q: paged_fn(q, pool_k[l], pool_v[l], tables_dev, att_len),
+        nh=nh, nkv=nkv, hd=hd, eps=eps)
     last_h = _rms(h[:, 0], params["final_norm"], eps)
     logits = last_h @ head
     carry, draw = _split_rows(kys)
@@ -402,7 +397,6 @@ def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
     dense_fn = _attn_fns(decode_attn)[3]
     embed = params["embed"]
     dev = embed.device
-    B = cache_k.shape[1]
     s_max = cache_k.shape[2]
     sin, cos = _rope_tables(s_max, hd, theta, device=dev)
     head = _head(params, tied)
@@ -417,19 +411,18 @@ def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
         pidx = torch.from_numpy(np.clip(lens, 0, s_max - 1)).to(dev)
         sin_r, cos_r = sin[pidx], cos[pidx]
         att_len = torch.from_numpy((lens + 1).astype(np.int32)).to(dev)
-        h = embed[tok[:, None]]                               # [B, 1, H]
-        for l in range(cache_k.shape[0]):
-            lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _layer(params, l)
-            hn = _rms(h, lin, eps)
-            q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
-            q = _apply_rope_rows(q, sin_r, cos_r)
-            k = _apply_rope_rows(k, sin_r, cos_r)
+
+        def write(l, k, v, rows=rows, rows_w=rows_w, pos_w=pos_w):
             if rows.size:
-                cache_k[l, rows_w, pos_w] = k[rows_w, 0]
-                cache_v[l, rows_w, pos_w] = v[rows_w, 0]
-            attn = dense_fn(q[:, 0], cache_k[l], cache_v[l], att_len)
-            h = h + attn.reshape(B, 1, nh * hd) @ lwo
-            h = h + _swiglu_raw(_rms(h, lpost, eps), lg, lu, ld)
+                cache_k[l, rows_w, pos_w] = k[rows_w]
+                cache_v[l, rows_w, pos_w] = v[rows_w]
+
+        h = decode_layers(
+            params, embed[tok[:, None]], sin_r, cos_r, cache_k.shape[0],
+            write,
+            lambda l, q, att_len=att_len: dense_fn(q, cache_k[l],
+                                                   cache_v[l], att_len),
+            nh=nh, nkv=nkv, hd=hd, eps=eps)
         last_h = _rms(h[:, 0], params["final_norm"], eps)
         logits = last_h @ head
         kys, draw = _split_rows(kys)
@@ -437,3 +430,396 @@ def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
         toks.append(tok)
         lens = lens + 1
     return torch.stack(toks), cache_k, cache_v, kys
+
+
+# ------------------------------------------------------------ suffix prefill
+def _suffix_attention(q, kc, vc, pos, valid_to, nkv):
+    """The suffix programs' attention (plain PyTorch, as the JAX programs
+    compute it with ``jnp.einsum`` outside any kernel): query column i of
+    row g sits at global position ``pos[g, i]`` and sees cache rows
+    ``r <= pos``; rows at or past ``valid_to[g]`` may hold another
+    sequence's garbage and are zeroed out of PV (0 * NaN = NaN).
+
+    q [G, S, nh, D]; kc/vc [G, s_rows, Hkv, D] each row's logical cache
+    after this call's writes; pos [G, S] and valid_to [G] on q's device.
+    Returns [G, S, nh, D]. The logits are float32 ``[G, nh, S, s_rows]``:
+    the peak of the program.
+
+    The callers gather ``s_rows`` = the rows up to the last one any live
+    row's query can see (:func:`_visible_rows`), not the whole cache: every
+    row past it is masked for every live row, so its exp is an exact 0 in
+    the softmax and it adds exact zeros to PV — the same values as JAX's
+    attention over the full table, without paying for it on a long
+    cache."""
+    nh, D = q.shape[2], q.shape[3]
+    grp = nh // nkv
+    kf = kc.repeat_interleave(grp, dim=2) if grp > 1 else kc
+    vf = vc.repeat_interleave(grp, dim=2) if grp > 1 else vc
+    rows = torch.arange(kc.shape[1], device=q.device)
+    mask = (rows[None, None, :] <= pos[:, :, None])[:, None]  # [G,1,S,s]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          kf.to(q.dtype).float()) * (1.0 / (D ** 0.5))
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(mask, probs, torch.zeros_like(probs))
+    row_valid = rows[None, :] < valid_to[:, None]
+    vf = torch.where(row_valid[:, :, None, None], vf, torch.zeros_like(vf))
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype),
+                        vf.to(q.dtype))
+
+
+def _visible_rows(prefix, S, live, cap, unit):
+    """Cache rows the suffix attention gathers: up to the last position a
+    live row's query sits at (``prefix + S`` at most), rounded up to
+    ``unit`` and capped at ``cap``. Padding rows (``live`` False) carry a
+    fully covered prefix and see whatever is gathered."""
+    vis = int((prefix + S)[live].max()) if live.any() else cap
+    return min(-(-vis // unit) * unit, cap)
+
+
+def _suffix_forward(params, ids, sin_p, cos_p, n_layers, write, gather,
+                    pos, valid_to, suffix_lens, keys, temps, top_ks, *, nh,
+                    nkv, hd, eps, tied):
+    """The suffix programs' shared forward: per layer RMSNorm → QKV →
+    RoPE at each column's position → ``write(l, k, v)`` (``[G, S, Hkv,
+    D]`` into the caller's cache) → ``gather(l)`` (each row's visible
+    cache after the writes) → :func:`_suffix_attention` → O-proj →
+    SwiGLU; then each row's sample from its last real suffix column,
+    after one key split. Returns ``(tok0 [G] device, keys' [G, 2]
+    host)``."""
+    G, S = ids.shape
+    x = params["embed"][ids]
+    for l in range(n_layers):
+        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _layer(params, l)
+        hn = _rms(x, lin, eps)
+        q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
+        q = _apply_rope_grid(q, sin_p, cos_p)
+        k = _apply_rope_grid(k, sin_p, cos_p)
+        write(l, k, v)
+        attn = _suffix_attention(q, *gather(l), pos, valid_to, nkv)
+        x = x + attn.reshape(G, S, nh * hd) @ lwo
+        x = x + _swiglu_raw(_rms(x, lpost, eps), lg, lu, ld)
+    last = x[torch.arange(G, device=x.device),
+             torch.from_numpy(_host(suffix_lens) - 1).to(x.device)]
+    logits = _rms(last, params["final_norm"], eps) @ _head(params, tied)
+    carry, draw = _split_rows(keys)
+    return sample_rows(logits, draw, temps, top_ks), carry
+
+
+@torch.inference_mode()
+def _suffix_prefill_impl(params, cache_k, cache_v, slots, prefix_lens, ids,
+                         suffix_lens, keys, temps, top_ks, *, nh, nkv, hd,
+                         eps, theta, tied, decode_attn="pallas"):
+    """Prefill only the UNCOVERED suffix of prompts whose leading rows a
+    prefix-cache hit copied into their slots (the dense engine).
+
+    ids [G, S_pad] right-padded suffix ids; prefix_lens [G] rows already
+    valid in each row's slot; suffix_lens [G] real suffix lengths; slots
+    [G] slot indices (padding rows carry ``num_slots``: nothing of theirs
+    is written). Column i of row g lives at position ``prefix_lens[g] +
+    i``: its K/V is written into the slot there (every column of a live
+    row whose position fits the cache, padding included, as JAX's scatter
+    does; rows past the length are masked until decode overwrites them)
+    and its query attends rows ``0..pos``. Returns ``(cache_k, cache_v,
+    tok0, keys')``, the caches written in place."""
+    dev = params["embed"].device
+    ids = torch.as_tensor(_host(ids)).to(dev)
+    G, S = ids.shape
+    num_slots, s_max = cache_k.shape[1], cache_k.shape[2]
+    sin, cos = _rope_tables(s_max, hd, theta, device=dev)
+    slots = _host(slots)
+    prefix = _host(prefix_lens)
+    pos = prefix[:, None] + np.arange(S)[None, :]
+    pidx = torch.from_numpy(np.clip(pos, 0, s_max - 1)).to(dev)
+    sin_p, cos_p = sin[pidx], cos[pidx]                     # [G, S, D]
+    gi, ci = np.nonzero((slots < num_slots)[:, None] & (pos < s_max))
+    w_slot = torch.from_numpy(slots[gi]).to(dev)
+    w_pos = torch.from_numpy(pos[gi, ci]).to(dev)
+    w_g, w_c = torch.from_numpy(gi).to(dev), torch.from_numpy(ci).to(dev)
+    # padding rows read the last slot (harmless) and write nothing
+    rd = torch.from_numpy(np.minimum(slots, num_slots - 1)).to(dev)
+    vis = _visible_rows(prefix, S, slots < num_slots, s_max, 1)
+
+    def write(l, k, v):
+        if gi.size:
+            cache_k[l, w_slot, w_pos] = k[w_g, w_c]
+            cache_v[l, w_slot, w_pos] = v[w_g, w_c]
+
+    tok0, carry = _suffix_forward(
+        params, ids, sin_p, cos_p, cache_k.shape[0], write,
+        lambda l: (cache_k[l, rd, :vis], cache_v[l, rd, :vis]),
+        torch.from_numpy(pos).to(dev), torch.from_numpy(prefix + S).to(dev),
+        suffix_lens, keys, temps, top_ks, nh=nh, nkv=nkv, hd=hd, eps=eps,
+        tied=tied)
+    return cache_k, cache_v, tok0, carry
+
+
+@torch.inference_mode()
+def _paged_suffix_prefill_impl(params, pool_k, pool_v, tables, prefix_lens,
+                               ids, suffix_lens, keys, temps, top_ks, *,
+                               nh, nkv, hd, eps, theta, tied,
+                               decode_attn="pallas"):
+    """The suffix prefill through per-row block tables (the paged engine's
+    prefix hits, and the two-program engine's chunked-prefill program: a
+    chunk is a "suffix" whose ``prefix_lens`` is the host resume offset).
+
+    tables [G, max_blocks] (sentinel ``num_blocks`` marks unmapped
+    entries and padding rows). Column i of row g lands at logical
+    position ``prefix_lens[g] + i``, physical ``(tables[g, pos // bs], pos
+    % bs)`` — a block the row owns privately, since the covered prefix is
+    block-aligned. Only real columns (``i < suffix_lens[g]``) of mapped
+    entries are written; the shared prefix blocks are read through the
+    same table and never written. Returns ``(pool_k, pool_v, tok0,
+    keys')``, the pools written in place."""
+    dev = params["embed"].device
+    ids = torch.as_tensor(_host(ids)).to(dev)
+    G, S = ids.shape
+    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    tables = _host(tables)
+    mb = tables.shape[1]
+    s_tot = mb * bs
+    sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
+    prefix = _host(prefix_lens)
+    pos = prefix[:, None] + np.arange(S)[None, :]
+    pidx = torch.from_numpy(np.clip(pos, 0, s_tot - 1)).to(dev)
+    sin_p, cos_p = sin[pidx], cos[pidx]
+    bi = np.minimum(pos // bs, mb - 1)
+    phys = np.take_along_axis(tables, bi, axis=1)
+    phys = np.where(np.arange(S)[None, :] < _host(suffix_lens)[:, None],
+                    phys, nb)
+    gi, ci = np.nonzero(phys < nb)
+    w_phys = torch.from_numpy(phys[gi, ci]).to(dev)
+    w_row = torch.from_numpy((pos % bs)[gi, ci]).to(dev)
+    w_g, w_c = torch.from_numpy(gi).to(dev), torch.from_numpy(ci).to(dev)
+    vis = _visible_rows(prefix, S, prefix < s_tot, s_tot, bs)
+    rd = torch.from_numpy(np.clip(tables[:, :vis // bs], 0, nb - 1)).to(dev)
+    shape = (G, vis) + tuple(pool_k.shape[3:])
+
+    def write(l, k, v):
+        _kv_write(pool_k[l], w_phys, w_row, k[w_g, w_c])
+        _kv_write(pool_v[l], w_phys, w_row, v[w_g, w_c])
+
+    tok0, carry = _suffix_forward(
+        params, ids, sin_p, cos_p, pool_k.shape[0], write,
+        lambda l: (pool_k[l][rd].reshape(shape), pool_v[l][rd].reshape(shape)),
+        torch.from_numpy(pos).to(dev), torch.from_numpy(prefix + S).to(dev),
+        suffix_lens, keys, temps, top_ks, nh=nh, nkv=nkv, hd=hd, eps=eps,
+        tied=tied)
+    return pool_k, pool_v, tok0, carry
+
+
+# ------------------------------------------------------- paged decode step
+@torch.inference_mode()
+def _paged_decode_steps_impl(params, pool_k, pool_v, tables, tokens,
+                             lengths, keys, temps, top_ks, *, n_steps, nh,
+                             nkv, hd, eps, theta, tied, decode_attn="pallas"):
+    """``n_steps`` single-token ticks over every slot of the paged pool
+    (the two-program engine's decode program), on the paged decode
+    kernel (its plain version while ``FLAGS_use_cuda_kernels`` is off).
+
+    tables [B, max_blocks] (sentinel tables on free slots drop their
+    appends); tokens/lengths/keys/temps/top_ks as in
+    :func:`_decode_steps_impl`. The engine pre-grows every running slot's
+    table to cover ``lengths + n_steps`` rows, and hands a mid-prefill
+    slot a length past the capacity, so its append drops. Each tick is
+    :func:`_fused_decode_tick` with every row appending. Returns ``(toks
+    [n_steps, B] (device), pool_k, pool_v, keys' [B, 2] (host))``."""
+    dev = params["embed"].device
+    tables = _host(tables)
+    s_tot = tables.shape[1] * pool_k.shape[2]
+    sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
+    head = _head(params, tied)
+    tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
+    tok = torch.as_tensor(_host(tokens)).to(dev)
+    lens = _host(lengths)
+    every = np.ones_like(lens)
+    kys = keys
+    toks = []
+    for _ in range(n_steps):
+        tok, pool_k, pool_v, kys = _fused_decode_tick(
+            params, head, tables, tables_dev, sin, cos, tok, pool_k, pool_v,
+            lens, kys, every, temps, top_ks, nh=nh, nkv=nkv, hd=hd, eps=eps,
+            decode_attn=decode_attn)
+        toks.append(tok)
+        lens = lens + 1
+    return torch.stack(toks), pool_k, pool_v, _keys_host(kys)
+
+
+# ------------------------------------------------------- multi-tick decode
+def _key_walk(keys_t0, max_ticks, n):
+    """The tail's key walk on the host (``core/random.py``, bit for bit
+    jax's): ``walk[t]`` the key after tick t, ``draws[t]`` tick t's
+    sampling key, for t < n. Every row splits every tick, dead or alive,
+    so the walk does not depend on the tokens."""
+    R = keys_t0.shape[0]
+    walk = np.zeros((max_ticks, R, 2), np.int64)
+    draws = np.zeros((max_ticks, R, 2), np.int64)
+    walk[0] = keys_t0.numpy()
+    k = keys_t0
+    for t in range(1, n):
+        k, draw = _split_rows(k)
+        walk[t], draws[t] = k.numpy(), draw.numpy()
+    return walk, draws
+
+
+@torch.inference_mode()
+def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
+                         qstart, qlen, kvlen, dec_mask, keys, temps, top_ks,
+                         eos_ids, budgets, n_ticks, *, max_ticks, nh, nkv,
+                         hd, eps, theta, tied, fused=False,
+                         decode_attn="pallas", tail=None):
+    """THE multi-tick serving step: the unified step with the host out of
+    the per-token loop.
+
+    Tick 0 is :func:`_ragged_step_impl`'s packed forward verbatim (with
+    ``fused``, when every span is a decode row, the fused tick instead: a
+    host branch where JAX has ``lax.cond``). The tail then runs ``n_ticks
+    - 1`` decode ticks under an on-device alive mask: a row retires on
+    its EOS (``eos_ids``, -1 for none) or when its budget (``budgets`` =
+    tokens it may still emit) is spent, as the host's ``_maybe_finish``
+    would — a retired row's appends drop and its length freezes — so the
+    host's trim after the step cuts exactly where the device stopped.
+
+    The tail is :func:`.graphs.tail_tick` replayed from a captured CUDA
+    graph on a card (``tail``, the engine's :class:`.graphs.TailGraphs`,
+    with ``FLAGS_cuda_graph_tail`` on), eagerly elsewhere; with ``fused``
+    and the kernels on a card, one fused-tick launch a tick with the
+    alive state on the device. The tail always runs all ``n_ticks - 1``
+    ticks: an early exit would need a sync a tick. After the step's ONE
+    device-to-host copy, ``ticks_run`` is what JAX's ``while_loop``
+    counts: 1 plus the tail ticks at whose start some row was alive.
+
+    Returns ``(pool_k, pool_v, toks [max_ticks, R], keys_walk [max_ticks,
+    R, 2], ticks_run)``: host tensors, row t the tokens and keys after
+    tick t, rows from ``ticks_run`` on zero (the reference's contract)."""
+    dev = params["embed"].device
+    tables = _host(tables)
+    R, mb = tables.shape
+    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    s_tot = mb * bs
+    sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
+    head = _head(params, tied)
+    tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
+    dec, kv = _host(dec_mask), _host(kvlen)
+    qs, ql = _host(qstart), _host(qlen)
+    n = int(n_ticks)
+    # ----------------------------------- tick 0 (shared packed forward)
+    if fused and not ((ql > 0) & (dec == 0)).any():
+        # no chunk row: tick 0 is the fused tick over the decode rows
+        tok_in = torch.from_numpy(
+            _host(ids)[np.maximum(qs + ql - 1, 0)]).to(dev)
+        tok0, pool_k, pool_v, keys_t0 = _fused_decode_tick(
+            params, head, tables, tables_dev, sin, cos, tok_in, pool_k,
+            pool_v, np.where(dec > 0, kv - 1, 0), keys, dec, temps, top_ks,
+            nh=nh, nkv=nkv, hd=hd, eps=eps, fused=True,
+            decode_attn=decode_attn)
+        keys_t0 = _keys_host(keys_t0)
+    else:
+        x, pool_k, pool_v = _packed_span_forward(
+            params, pool_k, pool_v, tables, tables_dev, ids, seg, pos,
+            qstart, qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
+            decode_attn=decode_attn)
+        tok0, keys_t0 = _span_last_sample(params, head, x, qstart, qlen,
+                                          keys, temps, top_ks, eps)
+    # --------------------------------- tail (alive-masked, n_ticks - 1)
+    lens0 = np.where(dec > 0, kv, 0)
+    eos, bud = _host(eos_ids), _host(budgets)
+    walk, draws = _key_walk(keys_t0, max_ticks, n)
+    parts = [tok0]
+    if n > 1:
+        alive0 = (torch.from_numpy(dec > 0).to(dev)
+                  & (tok0 != torch.from_numpy(eos).to(dev))
+                  & torch.from_numpy(bud > 1).to(dev))
+        kernels = get_flag("FLAGS_use_cuda_kernels") \
+            and decode_attn == "pallas"
+        if fused and kernels and dev.type == "cuda":
+            toks, hist, kw = _fused_tail(
+                params, head, tables, tables_dev, sin, cos, tok0, pool_k,
+                pool_v, lens0, keys_t0, alive0, eos, bud, temps, top_ks, n,
+                nh=nh, nkv=nkv, hd=hd, eps=eps)
+            if tail is not None:
+                tail.ticks += n - 1
+            parts += [toks, hist, kw]
+        else:
+            parts += _scanned_tail(
+                params, head, pool_k, pool_v, tables, tables_dev, sin, cos,
+                tok0, lens0, dec, eos, bud, draws, alive0, temps, top_ks, n,
+                max_ticks, tail, nh=nh, nkv=nkv, hd=hd, eps=eps,
+                paged_fn=_attn_fns(decode_attn)[1], kernels=kernels)
+    # ------------------------------------ the step's one device→host copy
+    host = torch.cat([p.reshape(-1).long() for p in parts]).cpu().numpy()
+    toks_h = np.zeros((max_ticks, R), np.int64)
+    toks_h[:n] = host[:n * R].reshape(n, R)
+    alive_any = host[n * R:(2 * n - 1) * R].reshape(n - 1, R).any(axis=1)
+    if len(parts) == 4:                 # the fused tail: the kernel's keys
+        walk[1:n] = host[(2 * n - 1) * R:].reshape(n - 1, R, 2) & 0xFFFFFFFF
+    ticks_run = 1 + int(alive_any.sum())
+    toks_h[ticks_run:] = 0
+    walk[ticks_run:] = 0
+    return (pool_k, pool_v, torch.from_numpy(toks_h),
+            torch.from_numpy(walk), ticks_run)
+
+
+def _scanned_tail(params, head, pool_k, pool_v, tables, tables_dev, sin, cos,
+                  tok0, lens0, dec, eos, bud, draws, alive0, temps, top_ks,
+                  n, max_ticks, tail, *, nh, nkv, hd, eps, paged_fn,
+                  kernels):
+    """``n - 1`` ticks of :func:`.graphs.tail_tick`: on the engine's
+    captured graph (``tail`` on a card with ``FLAGS_cuda_graph_tail``),
+    else eagerly. Returns device ``[toks [n-1, R], alive at each tick's
+    start [n-1, R]]``."""
+    dev = tok0.device
+    R, mb = tables.shape
+    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    greedy = not (np.asarray(temps, np.float32) > 0).any()
+    key = (R, mb, str(pool_k.dtype), greedy, kernels, max_ticks,
+           pool_k.data_ptr())
+
+    def make():
+        return graphs.TailState(R, mb, max_ticks, sin, cos, greedy, dev)
+
+    st = tail.state(key, make) if tail is not None else make()
+    block, row = graphs.trash_coord(tables, nb, bs, lens0, dec, n)
+    meta = np.concatenate([lens0, eos, bud, [block * bs + row],
+                           draws.reshape(-1)]).astype(np.int64)
+    st.load(tok0, tables_dev, torch.from_numpy(meta).to(dev),
+            sampling_args(temps, top_ks, head.shape[1], dev), alive0)
+
+    def tick():
+        graphs.tail_tick(params, head, pool_k, pool_v, st, nh=nh, nkv=nkv,
+                         hd=hd, eps=eps, paged_fn=paged_fn)
+
+    if tail is not None:
+        tail.run(key, n - 1, tick, graph=graphs.use_graph(dev))
+    else:
+        for _ in range(n - 1):
+            tick()
+    return [st.toks[1:n], st.alive_hist[1:n]]
+
+
+def _fused_tail(params, head, tables, tables_dev, sin, cos, tok0, pool_k,
+                pool_v, lens0, keys_t0, alive0, eos, bud, temps, top_ks, n,
+                *, nh, nkv, hd, eps):
+    """The fused engine's tail on a card: ``n - 1`` fused-tick launches,
+    the lengths, alive mask, last tokens and keys kept on the device (the
+    kernel splits each row's key itself). Returns device ``(toks [n-1, R],
+    alive at each tick's start [n-1, R], keys after each tick [n-1, R,
+    2])``."""
+    dev = tok0.device
+    lens = torch.from_numpy(lens0).to(dev)
+    eos_d = torch.from_numpy(eos).to(dev)
+    bud_d = torch.from_numpy(bud).to(dev)
+    tk_d = torch.from_numpy(np.asarray(top_ks, np.int32)).to(dev)
+    tp_d = torch.from_numpy(np.asarray(temps, np.float32)).to(dev)
+    tok, alive, kys = tok0, alive0, keys_t0
+    toks, hist, kw = [], [], []
+    for t in range(1, n):
+        tok, pool_k, pool_v, kys = fused_decode_tick(
+            params, head, tables, tables_dev, sin, cos, tok, pool_k, pool_v,
+            lens, kys, alive, tp_d, tk_d, nh=nh, nkv=nkv, hd=hd, eps=eps)
+        hist.append(alive)
+        toks.append(tok)
+        kw.append(kys)
+        lens = lens + alive
+        alive = alive & (tok != eos_d) & (t + 1 < bud_d)
+    return torch.stack(toks), torch.stack(hist), torch.stack(kw)

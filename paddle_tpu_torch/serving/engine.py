@@ -1,8 +1,8 @@
-"""Continuous-batching engine on the default serving geometry, in PyTorch.
+"""Continuous-batching engine, in PyTorch.
 
-The port of ``paddle_tpu/serving/engine.py``'s ``ContinuousBatchingEngine``
-with its default settings: a paged KV pool (:class:`~.kv_cache.
-PagedKVCache`), no prefix cache, chunked prefill (``prefill_chunk=512``)
+The port of ``paddle_tpu/serving/engine.py``'s ``ContinuousBatchingEngine``.
+Its default settings: a paged KV pool (:class:`~.kv_cache.
+PagedKVCache`), chunked prefill (``prefill_chunk=512``)
 and the unified ragged step (``ragged_step=True``): every :meth:`step`
 admits queued requests into free slots (short prompts take one bucketed
 cold prefill per group, long prompts enter chunked prefill), then runs ONE
@@ -11,7 +11,7 @@ prefill chunk a span-n row of one packed buffer — with up to
 ``decode_chunk`` fused decode ticks when nothing else is pending, and
 retires sequences at EOS or their token budget.
 
-Two more decode programs ride the same engine:
+More decode programs ride the same engine:
 
 - ``fused_tick=True``: every tail tick of the unified step is ONE launch
   of the fused-tick kernel (``kernels/fused_decode_tick.py``) instead of
@@ -19,7 +19,25 @@ Two more decode programs ride the same engine:
 - ``paged_attn=False``: the dense-slot engine — a :class:`~.kv_cache.
   SlotKVCache`, one-shot cold prefill (``prefill_chunk`` is validated,
   then ignored; ``ragged_step`` is ignored), and each step one call of
-  ``decode._decode_steps_impl`` over the dense-cache decode kernel.
+  ``decode._decode_steps_impl`` over the dense-cache decode kernel;
+- ``ragged_step=False``: the two-program step, the A/B baseline the
+  unified step is pinned against — at most one chunk call
+  (``decode._paged_suffix_prefill_impl``), then one call of
+  ``decode._paged_decode_steps_impl`` over the paged decode kernel;
+- ``decode_ticks > 1`` (unified engine): every step is ONE multi-tick
+  program (``decode._multitick_step_impl``): tick 0 as in the unified
+  step, then up to ``decode_ticks - 1`` tail ticks under an on-device
+  EOS/budget alive mask, replayed from a captured CUDA graph
+  (``serving/graphs.py``; with ``fused_tick``, one fused-tick launch a
+  tick), and one host sync a step; the host trims each slot at its first
+  EOS or budget cut, so streams equal ``decode_ticks=1``.
+
+``prefix_cache=True`` (or a :class:`~.prefix_cache.PrefixCache`) turns on
+automatic prefix caching on either cache: retiring sequences publish their
+full KV blocks into a ref-counted LRU trie, and an admission whose prompt
+shares a cached chain installs it (paged: zero-copy table references;
+dense: one block copy a block) and prefills only the uncovered suffix
+(``decode._paged_suffix_prefill_impl`` / ``_suffix_prefill_impl``).
 
 Offline use::
 
@@ -65,9 +83,14 @@ from ..kernels import flash, fused_decode_tick, paged_decode, \
 from ..kernels._launch import check_head_dim
 from ..models.llama import llama_decode_params
 from ..profiler.tracing import NULL_SPAN
-from .decode import _decode_steps_impl, _prefill_impl, _ragged_step_impl
+from .block_manager import BlockManager
+from .decode import (_decode_steps_impl, _multitick_step_impl,
+                     _paged_decode_steps_impl, _paged_suffix_prefill_impl,
+                     _prefill_impl, _ragged_step_impl, _suffix_prefill_impl)
+from .graphs import TailGraphs
 from .kv_cache import PagedKVCache, PoolExhausted, SlotKVCache
 from .policy import ClassTable
+from .prefix_cache import PrefixCache
 from .request import GenerationRequest, GenerationResult, Sequence
 from .scheduler import FIFOScheduler
 
@@ -111,9 +134,11 @@ class _Program:
     def _cache_size(self):
         return len(self.signatures)
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
+        # keyword arguments are host-side state, not traced arguments
+        # (the multi-tick program's graph holder)
         self.signatures.add(tuple(_signature(a) for a in args))
-        return self.fn(*args)
+        return self.fn(*args, **kw)
 
 
 class ContinuousBatchingEngine:
@@ -124,8 +149,12 @@ class ContinuousBatchingEngine:
     ``FLAGS_use_cuda_kernels`` (on: the CUDA kernels on a CUDA model,
     their plain versions on a CPU one; off: the plain versions).
 
-    ``prefix_block_size`` is the KV block size (the JAX engine's name for
-    it, kept so both engines take the same arguments).
+    ``prefix_block_size`` is the KV block size of the paged pool and the
+    prefix trie's block size. ``prefix_blocks`` sizes the trie's budget
+    (default: ``num_slots`` full-length prompts); a shared
+    :class:`~.prefix_cache.PrefixCache` instance carries one trie and pool
+    across engines driven from one thread, its geometry checked against
+    this engine's.
 
     ``prefill_chunk`` bounds TTFT under mixed traffic: a prompt longer
     than it is prefilled ``prefill_chunk`` tokens per step (rounded up to
@@ -155,8 +184,6 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prefill_bucketing must be 'pow2' or 'exact', got "
                 f"{prefill_bucketing!r}")
-        if prefix_blocks is not None:
-            _not_ported("prefix_blocks", "Queue A step 9 (prefix cache)")
         if drafter is not None:
             _not_ported("drafter", "Queue A step 9 (spec decode)")
         if collective_dtype not in ("fp", "int8"):
@@ -166,12 +193,8 @@ class ContinuousBatchingEngine:
         if collective_dtype != "fp":
             _not_ported(f"collective_dtype={collective_dtype!r}",
                         "Queue A step 10 (tensor parallel)")
-        if prefix_cache:
-            _not_ported("prefix_cache", "Queue A step 9 (prefix cache)")
         if spec_decode:
             _not_ported("spec_decode", "Queue A step 9 (spec decode)")
-        if int(decode_ticks) != 1:
-            _not_ported("decode_ticks > 1", "Queue A step 9 (multi-tick)")
         if kv_dtype is not None:
             _not_ported("kv_dtype", "Queue A step 9 (quantized serving)")
         if quantize_weights or quantize_activations:
@@ -199,9 +222,17 @@ class ContinuousBatchingEngine:
                 "engine (paged_attn=True, ragged_step=True): the fused "
                 "program is the packed-span tick body, and the dense / "
                 "two-program paths never grew its dispatch site")
-        if self._paged and not ragged_step:
-            _not_ported("ragged_step=False",
-                        "Queue A step 9 (two-program step)")
+        if int(decode_ticks) < 1:
+            raise ValueError(
+                f"decode_ticks must be >= 1, got {int(decode_ticks)}")
+        self._decode_ticks = int(decode_ticks)
+        self._mtick = self._decode_ticks > 1
+        if self._mtick and not self._ragged:
+            raise ValueError(
+                "decode_ticks > 1 requires the unified ragged engine "
+                "(paged_attn=True, ragged_step=True): multi-tick decode "
+                "is the unified step's fused tail driven past the host "
+                "sync")
         self.model = model
         self.config = c
         self._bucketing = prefill_bucketing
@@ -213,17 +244,24 @@ class ContinuousBatchingEngine:
         bs = int(prefix_block_size)
         if bs < 1:
             raise ValueError(f"prefix_block_size must be >= 1, got {bs}")
+        self.prefix_cache = None
+        self._owns_pool = not isinstance(prefix_cache, PrefixCache)
         if self._paged:
+            pool = self._paged_pool(prefix_cache, prefix_blocks, bs)
             self.cache = PagedKVCache(
                 c.num_hidden_layers, self.num_slots, self.max_seq_len,
                 c.num_key_value_heads, c.head_dim,
                 dtype=self._params["embed"].dtype, block_size=bs,
+                pool=pool, prefix_cache=self.prefix_cache,
                 device=model.device)
         else:
             self.cache = SlotKVCache(
                 c.num_hidden_layers, self.num_slots, self.max_seq_len,
                 c.num_key_value_heads, c.head_dim,
                 dtype=self._params["embed"].dtype, device=model.device)
+            if prefix_cache:
+                self.prefix_cache = self._dense_trie(prefix_cache,
+                                                     prefix_blocks, bs)
         self._kv_dtype = str(self._params["embed"].dtype).replace(
             "torch.", "")
         # chunked prefill (paged only: the dense cache has no block tables
@@ -269,21 +307,20 @@ class ContinuousBatchingEngine:
         # gateway's factory pass the model-level dict)
         self._jit = jit_cache if jit_cache is not None else {}
         self._fktag = ("fk",) if self._fused_tick else ()
-        # the prefix-copy and multi-tick counters stay 0 on the ported
-        # path; the gateway's series read them as the reference's do
+        # the multi-tick tail's captured CUDA graphs and their buffers
+        self._tail = TailGraphs() if self._mtick else None
         self.stats = {"steps": 0, "decode_calls": 0, "decode_steps": 0,
                       "slot_steps": 0, "active_slot_steps": 0,
                       "prefills": 0, "prefill_tokens": 0,
+                      "prefill_tokens_saved": 0,
                       "prefill_copy_dispatches": 0,
                       "prefill_chunks": 0, "chunk_tokens": 0,
                       "unified_steps": 0, "mtick_syncs": 0, "mtick_ticks": 0,
+                      "mtick_pure_syncs": 0, "last_decode_ticks": 0,
                       "headroom": self._chunk or 0, "headroom_tps": 0.0,
                       "last_step_duration_s": 0.0, "last_step_tokens": 0,
                       "tokens_generated": 0, "cancelled": 0, "timeouts": 0,
                       "preemptions": 0, "restores": 0}
-        # the prefix cache is not ported (Queue A step 9): the gateway
-        # reads None, as from a reference engine built without one
-        self.prefix_cache = None
         # fault-injection hook: called with the engine at the top of every
         # step attempt; a PoolExhausted it raises is repaired by
         # preemption, anything else propagates
@@ -300,6 +337,74 @@ class ContinuousBatchingEngine:
         self.on_token = None
         self.on_finish = None
         self.on_policy_preempt = None
+
+    def _paged_pool(self, prefix_cache, prefix_blocks, bs):
+        """The paged engine's block pool: ``num_slots x max_blocks`` live
+        blocks, plus the trie's budget with a prefix cache (which it sets
+        up as ``self.prefix_cache``); a shared cache's pool after its
+        geometry checks."""
+        c = self.config
+        live = self.num_slots * -(-self.max_seq_len // bs)
+        dtype = self._params["embed"].dtype
+        if isinstance(prefix_cache, PrefixCache):
+            pool = prefix_cache.pool
+            want = (c.num_hidden_layers, c.num_key_value_heads, c.head_dim)
+            have = (pool.k.shape[0],) + tuple(pool.k.shape[3:])
+            if have != want or pool.k.dtype != dtype \
+                    or pool.block_size != bs:
+                raise ValueError(
+                    f"shared PrefixCache pool geometry "
+                    f"{have}/bs={pool.block_size}/{pool.k.dtype} does not "
+                    f"match this paged engine {want}/bs={bs}/{dtype}")
+            if pool.num_blocks <= live:
+                raise ValueError(
+                    f"shared pool of {pool.num_blocks} blocks cannot back "
+                    f"{live} live blocks plus a prefix trie on the paged "
+                    f"engine")
+            if prefix_cache.max_blocks is None:
+                # a dense-idiom cache adopted by a paged engine: bound the
+                # trie to the pool's headroom over the live grid
+                prefix_cache.max_blocks = pool.num_blocks - live
+            self.prefix_cache = prefix_cache
+            return pool
+        budget = 0
+        if prefix_cache:
+            if prefix_blocks is None:
+                budget = self.num_slots * max(self.max_seq_len // bs, 1)
+            else:
+                budget = int(prefix_blocks)
+                if budget < 1:
+                    raise ValueError(
+                        f"prefix_blocks must be >= 1, got {budget}")
+        pool = BlockManager(c.num_hidden_layers, live + budget, bs,
+                            c.num_key_value_heads, c.head_dim, dtype=dtype,
+                            device=self.model.device)
+        if prefix_cache:
+            self.prefix_cache = PrefixCache(pool, max_blocks=budget)
+        return pool
+
+    def _dense_trie(self, prefix_cache, prefix_blocks, bs):
+        """The dense engine's trie: a shared cache after its geometry
+        checks, or a fresh one on a pool of ``prefix_blocks`` blocks
+        (default ``num_slots`` full-length prompts; the pool IS the
+        budget)."""
+        c = self.config
+        if isinstance(prefix_cache, PrefixCache):
+            pool = prefix_cache.pool
+            want = (self.cache.k.shape[0],) + tuple(self.cache.k.shape[3:])
+            have = (pool.k.shape[0],) + tuple(pool.k.shape[3:])
+            if have != want or pool.k.dtype != self.cache.k.dtype:
+                raise ValueError(
+                    f"shared PrefixCache pool geometry {have}/"
+                    f"{pool.k.dtype} does not match this engine's cache "
+                    f"{want}/{self.cache.k.dtype}")
+            return prefix_cache
+        nb = (self.num_slots * max(self.max_seq_len // bs, 1)
+              if prefix_blocks is None else int(prefix_blocks))
+        # 0 or negative: BlockManager raises rather than defaulting
+        return PrefixCache(BlockManager(
+            c.num_hidden_layers, nb, bs, c.num_key_value_heads, c.head_dim,
+            dtype=self._params["embed"].dtype, device=self.model.device))
 
     @property
     def fused_tick(self) -> bool:
@@ -321,10 +426,15 @@ class ContinuousBatchingEngine:
         """The pool's storage dtype name (``"float32"``/``"bfloat16"``)."""
         return self._kv_dtype
 
+    @property
+    def decode_ticks(self) -> int:
+        """Most decode ticks a step runs behind one host sync (1: the
+        unified step, one sync a token)."""
+        return self._decode_ticks
+
     # the ported path's fixed values of the reference's serving knobs
     spec_decode = False
     spec_k = 0
-    decode_ticks = 1
     tp = 1
     collective_dtype = "fp"
     collective_overlap = False
@@ -338,14 +448,23 @@ class ContinuousBatchingEngine:
 
     def release(self):
         """Drop the KV storage of a dead engine, so a rebuild does not
-        hold two pools; host bookkeeping stays readable."""
-        self.cache.release()
+        hold two pools (a shared :class:`~.prefix_cache.PrefixCache`'s
+        pool stays: the next engine adopts it), and the multi-tick tail's
+        graphs; host bookkeeping stays readable."""
+        if self._owns_pool:
+            self.cache.release()
+            if self.prefix_cache is not None and not self._paged:
+                self.prefix_cache.pool.release()
+        elif not self._paged:
+            self.cache.release()
+        if self._tail is not None:
+            self._tail.release()
 
     def _check_kernel_limits(self):
         """Raise unless every kernel this engine launches takes the model:
         the flash forward (cold prefill); then ragged attention and paged
         decode, or ragged attention and the fused tick (any ``num_slots``),
-        or dense decode."""
+        or paged decode alone (the two-program step), or dense decode."""
         c = self.config
         nh, nkv, hd = (c.num_attention_heads, c.num_key_value_heads,
                        c.head_dim)
@@ -353,7 +472,8 @@ class ContinuousBatchingEngine:
         if not self._paged:
             dense_decode.check_limits(nh, nkv, hd)
             return
-        ragged_attention.check_limits(nh, nkv, hd)
+        if self._ragged:
+            ragged_attention.check_limits(nh, nkv, hd)
         if self._fused_tick:
             fused_decode_tick.check_limits(nh, nkv, hd, c.hidden_size,
                                            c.intermediate_size,
@@ -369,9 +489,14 @@ class ContinuousBatchingEngine:
 
     def _co(self):
         """The active cost observatory, or None — the guard of every
-        cost site."""
+        cost site. Also keeps the prefix cache's ``cost`` on the live
+        observatory, as the reference does."""
         c = self.cost
-        return c if (c is not None and c.enabled) else None
+        co = c if (c is not None and c.enabled) else None
+        pc = self.prefix_cache
+        if pc is not None and pc.cost is not co:
+            pc.cost = co
+        return co
 
     def _wrap_prog(self, key, fn, host_out):
         """Every program accessor hands out through here, so with the
@@ -421,30 +546,63 @@ class ContinuousBatchingEngine:
         return self._program(key, _ragged_step_impl, (2, 3),
                              n_steps=int(n_steps), fused=self._fused_tick)
 
+    def _suffix_fn(self):
+        # the paged and dense suffix programs key apart (table-indirect vs
+        # slot-indexed); host reads tok0 (result 2)
+        if self._paged:
+            return self._program(("psuffix",), _paged_suffix_prefill_impl,
+                                 (2,))
+        return self._program(("suffix",), _suffix_prefill_impl, (2,))
+
     def _decode_fn(self, n_steps):
-        key = ("decode", int(n_steps), self.config.decode_attention)
-        return self._program(key, _decode_steps_impl, (0,),
-                             n_steps=int(n_steps))
+        kind, fn = (("pdecode", _paged_decode_steps_impl) if self._paged
+                    else ("decode", _decode_steps_impl))
+        key = (kind, int(n_steps), self.config.decode_attention)
+        return self._program(key, fn, (0,), n_steps=int(n_steps))
+
+    def _mtick_fn(self):
+        # the full packed geometry plus decode_ticks (config) key the
+        # program; the tick count run is a runtime argument, so this is
+        # the engine's ONE decode program. Host reads the token block,
+        # the key walk and ticks_run
+        key = ("mtick", self.num_slots, self._token_budget,
+               self._decode_ticks, self.config.decode_attention) \
+            + self._fktag
+        return self._program(key, _multitick_step_impl, (2, 3, 4),
+                             max_ticks=self._decode_ticks,
+                             fused=self._fused_tick)
 
     def decode_compilations(self) -> int:
         """Decode-program signatures of THIS engine's kind (the
         compile-once hook): one per ``(num_slots, token_budget,
-        n_steps)`` on the unified engine, one per ``n_steps`` on the
-        dense one, however sampling knobs, budgets, tables and span
-        mixes vary — the JAX engine's trace count."""
+        decode_ticks)`` on the multi-tick engine, one per ``(num_slots,
+        token_budget, n_steps)`` on the unified engine, one per
+        ``n_steps`` on the two-program and dense ones, however sampling
+        knobs, budgets, tables and span mixes vary — the JAX engine's
+        trace count."""
+        if self._mtick:
+            return sum(fn._cache_size() for key, fn in self._jit.items()
+                       if key[0] == "mtick"
+                       and key[1] == self.num_slots
+                       and key[2] == self._token_budget
+                       and key[3] == self._decode_ticks
+                       and key[5:] == self._fktag)
         if self._ragged:
             return sum(fn._cache_size() for key, fn in self._jit.items()
                        if key[0] == "ragged"
                        and key[1] == self.num_slots
                        and key[2] == self._token_budget
                        and key[5:] == self._fktag)
+        kind = "pdecode" if self._paged else "decode"
         return sum(fn._cache_size() for key, fn in self._jit.items()
-                   if key[0] == "decode" and key[3:] == ())
+                   if key[0] == kind and key[3:] == ())
 
     def prefill_compilations(self) -> int:
-        """Cold-prefill signatures: one per (padded group, bucket)."""
+        """Prefill-side signatures, cold and suffix: one per (padded
+        group, bucket), whatever the hit/miss/eviction mix."""
+        sfx = ("psuffix",) if self._paged else ("suffix",)
         return sum(fn._cache_size() for key, fn in self._jit.items()
-                   if key == ("prefill",))
+                   if key in (("prefill",), sfx))
 
     # ------------------------------------------------------------- intake
     def _key_for(self, request):
@@ -508,38 +666,66 @@ class ContinuousBatchingEngine:
         return True
 
     # ------------------------------------------------------------ stepping
+    def _admission_hit_len(self, seq):
+        """THE prefix lookup for one admitted sequence (the scheduler
+        calls it once per pop): records the hit, pins the matched chain
+        at once — before any admission this step can publish and evict —
+        and keeps it on the sequence for :meth:`_admit_group`. Returns the
+        covered token count."""
+        matched = self.prefix_cache.lookup(seq.work)
+        if matched:
+            self.prefix_cache.acquire(matched)
+            seq.prefix_nodes = matched
+        return self.prefix_cache.block_size * len(matched)
+
     def _bucket(self, plen):
         if self._bucketing == "exact":
             return plen
         return min(max(8, 1 << (plen - 1).bit_length()), self.max_seq_len)
 
     def _admit_group(self, seqs, finished):
-        """Admit a batch: a prompt longer than ``prefill_chunk`` claims its
-        slot and enters chunked prefill; the rest take the cold path (ONE
-        prefill call per prompt-length bucket)."""
+        """Admit a batch. A sequence whose UNCOVERED prompt is longer than
+        ``prefill_chunk`` claims its slot (installing any matched chain)
+        and enters chunked prefill; prefix-cache hits take the suffix path
+        (ONE suffix prefill per suffix-length bucket); misses take the
+        cold path (ONE prefill call per prompt-length bucket). The lookup
+        and its pins already ran at scheduler pop time
+        (:meth:`_admission_hit_len`): a cold sequence that retires at once
+        publishes inside ``_admit_cold``, and an unpinned matched chain
+        could be evicted before ``_admit_hits`` installs it."""
         tr = self._tr()
         for seq in seqs:
             if tr is not None:
                 # close the waiting span (queued, or preempted/recovered)
-                self._trace_phase_end(tr, seq,
-                                      args={"prefix_hit_tokens": 0})
+                self._trace_phase_end(
+                    tr, seq,
+                    args={"prefix_hit_tokens": seq.prefix_hit_tokens})
             seq.trace_phase = "prefill"
-        cold = []
+        cold, hits = [], []
         for seq in seqs:
-            if self._chunk and seq.work_len > self._chunk:
-                self._enter_chunked_prefill(seq)
+            covered = seq.prefix_hit_tokens
+            if self._chunk and seq.work_len - covered > self._chunk:
+                self._enter_chunked_prefill(seq, covered)
+            elif seq.prefix_nodes:
+                hits.append((seq, seq.prefix_nodes))
             else:
                 cold.append(seq)
         if cold:
             self._admit_cold(cold, finished)
+        if hits:
+            self._admit_hits(hits, finished)
 
-    def _enter_chunked_prefill(self, seq):
-        """Claim a slot for a long prompt without prefilling it yet: the
-        prompt arrives chunk by chunk through the unified step."""
+    def _enter_chunked_prefill(self, seq, covered=0):
+        """Claim a slot for a long prompt without prefilling it yet: a
+        matched prefix chain installs by table reference and counts toward
+        the resume offset; the rest arrives chunk by chunk."""
         slot = self.cache.alloc()
         seq.slot = slot
-        seq.prefilled = 0
-        self.cache.lengths[slot] = 0
+        if seq.prefix_nodes:
+            self.cache.install_prefix(
+                slot, [node.block_id for node in seq.prefix_nodes])
+        seq.prefilled = covered
+        self.cache.lengths[slot] = covered
         seq.status = "prefilling"
         if seq.t_admitted is None:
             seq.t_admitted = self._stamp_now()
@@ -581,6 +767,110 @@ class ContinuousBatchingEngine:
                 self._install_seq(seq, slot, tok0s[i], keys2[i],
                                   seq.work_len, finished)
 
+    def _admit_hits(self, hits, finished):
+        """Admit prefix-cache hits, then ONE suffix-prefill call per
+        suffix-length bucket over the uncovered prompt tails.
+
+        Paged: zero-copy install — the slot's table references the
+        matched chain's blocks, private tail blocks are appended for the
+        prompt, and the suffix prefill writes through the table. Dense:
+        the matched blocks are copied into the slot, one copy a block
+        (``prefill_copy_dispatches``)."""
+        pc = self.prefix_cache
+        bs = pc.block_size
+        by_bucket = {}
+        for seq, matched in hits:
+            suffix_len = seq.work_len - len(matched) * bs
+            by_bucket.setdefault(self._bucket(suffix_len),
+                                 []).append((seq, matched))
+        for s_pad, group in sorted(by_bucket.items()):
+            rows = []
+            for seq, matched in group:
+                covered = len(matched) * bs
+                slot = self.cache.alloc()
+                seq.slot = slot
+                if self._paged:
+                    self.cache.install_prefix(
+                        slot, [node.block_id for node in matched])
+                    self.cache.ensure_capacity(slot, seq.work_len)
+                else:
+                    for j, node in enumerate(matched):
+                        self.cache.copy_block_in(slot, j * bs, pc.pool,
+                                                 node.block_id)
+                        self.stats["prefill_copy_dispatches"] += 1
+                rows.append((seq, covered, seq.work_len - covered, True))
+            tok0s, keys2 = self._suffix_call(s_pad, rows)
+            for i, (seq, matched) in enumerate(group):
+                seq.launches += 1       # rode this bucket's suffix call
+                slot = seq.slot
+                self.cache.lengths[slot] = seq.work_len
+                self.stats["prefill_tokens_saved"] += seq.prefix_hit_tokens
+                self._install_seq(seq, slot, tok0s[i], keys2[i],
+                                  seq.work_len - seq.prefix_hit_tokens,
+                                  finished)
+
+    def _suffix_call(self, s_pad, rows):
+        """ONE suffix-prefill call for an ``s_pad``-bucket group, shared by
+        the hit path (dense and paged) and the two-program chunk path.
+        ``rows`` is ``[(seq, offset, n, live)]``: prefill
+        ``work[offset:offset+n]`` into the sequence's claimed slot, whose
+        storage already covers the span. Only ``live`` rows sample
+        (non-final chunks run greedy and their output is discarded).
+        Padding rows carry sentinel tables (paged) or slot ``num_slots``
+        (dense) and a fully covered prefix, so nothing of theirs is
+        written. Returns host ``tok0s`` and host ``keys2``."""
+        Gp = 1 << (len(rows) - 1).bit_length()
+        if self._paged:
+            mb = self.cache.max_blocks
+            addr = np.full((Gp, mb), self.cache.sentinel, np.int32)
+            prefix_lens = np.full(Gp, mb * self.cache.block_size, np.int32)
+        else:
+            addr = np.full(Gp, self.num_slots, np.int32)
+            prefix_lens = np.full(Gp, self.max_seq_len, np.int32)
+        ids = np.zeros((Gp, s_pad), np.int32)
+        suf_lens = np.ones(Gp, np.int32)
+        temps = np.zeros(Gp, np.float32)
+        topks = np.zeros(Gp, np.int32)
+        keys = np.zeros((Gp, 2), np.int64)
+        for i, (seq, off, n, live) in enumerate(rows):
+            addr[i] = self.cache.tables[seq.slot] if self._paged \
+                else seq.slot
+            ids[i, :n] = seq.work[off:off + n]
+            suf_lens[i] = n
+            prefix_lens[i] = off
+            keys[i] = np.asarray(seq.key, np.int64)
+            if live:
+                temps[i] = float(seq.request.temperature)
+                topks[i] = int(seq.request.top_k)
+        kv = ((self.cache.pool.k, self.cache.pool.v) if self._paged
+              else (self.cache.k, self.cache.v))
+        with self._tspan("prefill_launch",
+                         args={"bucket": s_pad, "group": len(rows)}):
+            _, _, tok0s, keys2 = self._suffix_fn()(
+                self._params, *kv, addr, prefix_lens, ids, suf_lens, keys,
+                temps, topks)
+            tok0s = tok0s.cpu().numpy()
+        return tok0s, keys2.numpy()
+
+    def _run_prefill_chunks(self, plan, finished):
+        """The two-program engine's chunk call: ONE paged suffix-prefill
+        call per chunk-length bucket (full chunks share the
+        ``prefill_chunk`` bucket), each chunk written through its table at
+        the host resume offset. Only a FINAL chunk samples, so the PRNG
+        walk equals a one-shot prefill's."""
+        by_bucket = {}
+        for seq, n in plan:
+            by_bucket.setdefault(self._bucket(n), []).append((seq, n))
+        for s_pad, group in sorted(by_bucket.items()):
+            rows = []
+            for seq, n in group:
+                off = seq.prefilled
+                self.cache.ensure_capacity(seq.slot, off + n)
+                rows.append((seq, off, n, off + n == seq.work_len))
+            tok0s, keys2 = self._suffix_call(s_pad, rows)
+            for i, (seq, n) in enumerate(group):
+                self._advance_chunk(seq, n, tok0s[i], keys2[i], finished)
+
     def _advance_chunk(self, seq, n, tok0, key0, finished):
         """Per-chunk completion bookkeeping; ``tok0``/``key0`` are the
         chunk row's sample and advanced key, consumed only when this
@@ -600,7 +890,9 @@ class ContinuousBatchingEngine:
         seq.prefilled = end
         if end == seq.work_len:
             self.scheduler.leave_prefill(seq)
-            self._install_seq(seq, slot, tok0, key0, seq.work_len, finished)
+            self.stats["prefill_tokens_saved"] += seq.prefix_hit_tokens
+            self._install_seq(seq, slot, tok0, key0,
+                              seq.work_len - seq.prefix_hit_tokens, finished)
 
     def _install_seq(self, seq, slot, tok0, key2, prefilled_tokens,
                      finished):
@@ -617,7 +909,7 @@ class ContinuousBatchingEngine:
         tr = self._tr()
         if tr is not None:
             self._trace_phase_end(
-                tr, seq, args={"prefix_hit_tokens": 0,
+                tr, seq, args={"prefix_hit_tokens": seq.prefix_hit_tokens,
                                "restored": bool(seq.restore_point)})
         seq.trace_phase = "decode"
         self._slots[slot] = seq
@@ -659,20 +951,52 @@ class ContinuousBatchingEngine:
                        args={"finish_reason": reason})
         slot = seq.slot
         if slot is not None and self._slots[slot] is seq:
-            self._release_slot(slot)
+            self._release_slot(seq, slot)
+        self._release_prefix(seq)
         finished.append(seq)
         if self.on_finish is not None:
             self.on_finish(seq)
 
-    def _release_slot(self, slot):
+    def _release_slot(self, seq, slot):
         """Slot teardown shared by retirement and preemption: reset the
         slot's knobs (a stale temperature would keep the sampler off its
-        all-greedy fast path) and free its blocks."""
+        all-greedy fast path) and hand its blocks back
+        (:meth:`_donate_and_free`)."""
         self._slots[slot] = None
         self._temps[slot] = 0.0
         self._topks[slot] = 0
         self._last_tok[slot] = 0
-        self.cache.free(slot)
+        self._donate_and_free(seq, slot)
+
+    def _donate_and_free(self, seq, slot):
+        """Publish before freeing: the slot's written rows are intact and
+        the sequence's own pins still shield its matched chain during the
+        publish walk. Paged + trie: DONATE the slot's full written blocks
+        (prompt AND generated tokens, capped at the written length: the
+        last sampled token's KV is never in the cache) and free only the
+        rest. Dense + trie: copy the prompt's full blocks out, then free.
+        Without a trie: free."""
+        pc = self.prefix_cache
+        if pc is not None and self._paged:
+            with self._tspan("donate", args={"slot": slot}):
+                written = int(self.cache.lengths[slot])
+                content = seq.prompt if not seq.tokens else np.concatenate(
+                    [seq.prompt, np.asarray(seq.tokens, np.int32)])
+                donated = pc.publish_donate(content[:written],
+                                            self.cache.slot_block_ids(slot))
+                self.cache.free(slot, keep=donated)
+        elif pc is not None:
+            with self._tspan("donate", args={"slot": slot}):
+                pc.publish(seq.prompt, slot, self.cache)
+                self.cache.free(slot)
+        else:
+            self.cache.free(slot)
+
+    def _release_prefix(self, seq):
+        """Drop the sequence's pins on its matched chain (once)."""
+        if self.prefix_cache is not None and seq.prefix_nodes:
+            self.prefix_cache.release(seq.prefix_nodes)
+            seq.prefix_nodes = []
 
     def _expire_deadlines(self, seqs, finished):
         """Retire every sequence whose deadline has passed, queued or
@@ -729,17 +1053,24 @@ class ContinuousBatchingEngine:
                 if self.fault_hook is not None:
                     self.fault_hook(self)
                 if attempt == 0:
-                    admitted = self.scheduler.admissions(self.cache.num_free)
+                    admitted = self.scheduler.admissions(
+                        self.cache.num_free,
+                        hit_len_fn=self._admission_hit_len
+                        if self.prefix_cache is not None else None)
                     if admitted:
                         if co is not None:
                             co.set_phase("admit")
                         with self._tspan("admit",
                                          args={"n": len(admitted)}):
                             self._admit_group(admitted, finished)
-                if self._ragged:
+                if self._mtick:
+                    step_tokens, had_chunks = self._multitick_step(
+                        finished)
+                elif self._ragged:
                     step_tokens, had_chunks = self._unified_step(finished)
                 else:
-                    step_tokens, had_chunks = self._dense_step(finished)
+                    step_tokens, had_chunks = self._two_program_step(
+                        finished)
                 break
             except PoolExhausted:
                 self._abort_admission(admitted)
@@ -787,6 +1118,8 @@ class ContinuousBatchingEngine:
         for seq in sorted(seqs, key=lambda s: -s.queue_tick):
             if seq.status != "queued":
                 continue
+            self._release_prefix(seq)
+            seq.prefix_hit_tokens = 0
             if seq.slot is not None:
                 if self._slots[seq.slot] is None:
                     self.cache.free(seq.slot)
@@ -827,7 +1160,8 @@ class ContinuousBatchingEngine:
             self.scheduler.leave_prefill(seq)
         if seq.tokens and seq.status == "running":
             seq.key = self._keys[slot].copy()
-        self._release_slot(slot)
+        self._release_slot(seq, slot)
+        self._release_prefix(seq)
         seq.slot = None
 
     def _preempt(self, seq):
@@ -868,6 +1202,8 @@ class ContinuousBatchingEngine:
             return False
         seq.status = "queued"
         seq.slot = None
+        seq.prefix_nodes = []
+        seq.prefix_hit_tokens = 0
         seq.prefilled = 0
         seq.restore_point = len(seq.tokens)
         tr = self._tr()
@@ -888,7 +1224,7 @@ class ContinuousBatchingEngine:
         and the headroom EWMAs the adaptive chunk grant derives from."""
         self.stats["last_step_duration_s"] = float(dt)
         self.stats["last_step_tokens"] = int(tokens)
-        if tokens <= 0 or dt <= 0:
+        if not self._ragged or tokens <= 0 or dt <= 0:
             return
         a = 0.2
         if had_chunks:
@@ -1003,33 +1339,61 @@ class ContinuousBatchingEngine:
                                           else 0)})
         return cursor + (n - 1) * len(active), bool(chunk_rows)
 
-    def _dense_step(self, finished):
-        """The dense engine's step: the decode half of the reference's
-        two-program step (a dense engine never has a chunk plan): ONE
-        call of ``decode._decode_steps_impl`` over every slot, fusing
-        ``choose_num_steps`` ticks. Returns ``(tokens_processed,
+    def _two_program_step(self, finished):
+        """The two-program step (``ragged_step=False``, and the dense
+        engine, which never has a chunk plan): at most one budgeted chunk
+        call (``_run_prefill_chunks``), then ONE decode call over every
+        slot fusing ``choose_num_steps`` ticks — the A/B baseline the
+        unified step is pinned against. Returns ``(tokens_processed,
         had_chunks)``."""
         tr = self._tr()
         tp0 = tr.now() if tr is not None else None
         co = self._co()
         if co is not None:
+            # the chunk calls below are this engine's prefill plan
             co.set_phase("plan")
+        plan = []
+        if self._chunk and self.scheduler.num_prefilling:
+            plan = self.scheduler.prefill_plan(self._chunk,
+                                               self.cache.block_size,
+                                               cap=self._chunk)
+            if plan:
+                self._run_prefill_chunks(plan, finished)
+        chunk_tokens = sum(c for _, c in plan)
         active = [s for s in self._slots
                   if s is not None and s.status == "running"]
         n = self.scheduler.choose_num_steps(active) if active else 0
         if tr is not None:
             tr.complete("plan", tp0,
-                        args={"rows": len(active), "chunks": 0,
+                        args={"rows": len(active), "chunks": len(plan),
                               "fused_steps": n})
             tl0 = tr.now()
         if not active:
-            return 0, False
+            return chunk_tokens, bool(plan)
         if co is not None:
             co.set_phase("launch")
-        toks, nk, nv, keys = self._decode_fn(n)(
-            self._params, self.cache.k, self.cache.v, self._last_tok,
-            self.cache.lengths, self._keys, self._temps, self._topks)
-        self.cache.update(nk, nv)
+        if self._paged:
+            lens = self.cache.lengths.copy()
+            for slot, s in enumerate(self._slots):
+                if s is not None and s.status == "running":
+                    # the table covers the n appended rows before the call
+                    self.cache.ensure_capacity(slot, int(lens[slot]) + n)
+                elif s is not None:
+                    # mid-prefill slot: its table is real, so the decode
+                    # append must drop, not land where the next chunk
+                    # writes — a length past the capacity (the program's
+                    # dead-slot clamp) does that
+                    lens[slot] = self.cache.max_blocks * \
+                        self.cache.block_size
+            pool = self.cache.pool
+            toks, _, _, keys = self._decode_fn(n)(
+                self._params, pool.k, pool.v, self.cache.tables,
+                self._last_tok, lens, self._keys, self._temps, self._topks)
+        else:
+            toks, nk, nv, keys = self._decode_fn(n)(
+                self._params, self.cache.k, self.cache.v, self._last_tok,
+                self.cache.lengths, self._keys, self._temps, self._topks)
+            self.cache.update(nk, nv)
         self._keys = keys.numpy()
         toks_np = toks.cpu().numpy()
         if co is not None:
@@ -1043,25 +1407,139 @@ class ContinuousBatchingEngine:
         for s in active:
             s.launches += 1             # rode this one decode call
         # every running slot rode the call; the accept skips slots whose
-        # sequence finished at an earlier tick
+        # sequence finished at an earlier tick, and mid-prefill ones
         self._accept_decode_rows(toks_np, n,
                                  np.ones(self.num_slots, np.int32), finished)
         if tr is not None:
             tr.complete("host-accept", th0,
                         args={"emitted": n * len(active)})
-        return n * len(active), False
+        return chunk_tokens + n * len(active), bool(plan)
+
+    def _multitick_step(self, finished):
+        """ONE call that advances every slot by up to ``decode_ticks``
+        tokens: the unified step with one host sync a step. Every running
+        slot packs a span-1 decode row and every planned chunk its span
+        into tick 0, as in :meth:`_unified_step`; the tail runs ``n - 1``
+        ticks (``FIFOScheduler.choose_decode_ticks``) with EOS/budget
+        retirement on the device. The host accepts the ``[n, R]`` token
+        block at once, trimming each slot at its first EOS or budget cut,
+        and adopts each surviving row's key at its cut from the key walk.
+        Returns ``(tokens_processed, had_chunks)``."""
+        tr = self._tr()
+        tp0 = tr.now() if tr is not None else None
+        co = self._co()
+        if co is not None:
+            co.set_phase("plan")
+        plan = []
+        if self._chunk and self.scheduler.num_prefilling:
+            plan = self.scheduler.prefill_plan(self._prefill_budget(),
+                                               self.cache.block_size,
+                                               cap=self._chunk)
+        active = [s for s in self._slots
+                  if s is not None and s.status == "running"]
+        if not active and not plan:
+            return 0, False
+        n = self.scheduler.choose_decode_ticks(active, self._decode_ticks)
+        R, T = self.num_slots, self._token_budget
+        ids = np.zeros(T, np.int32)
+        seg = np.full(T, R, np.int32)       # sentinel: dead packed rows
+        pos = np.zeros(T, np.int32)
+        qstart = np.zeros(R, np.int32)
+        qlen = np.zeros(R, np.int32)
+        kvlen = np.zeros(R, np.int32)
+        dec_mask = np.zeros(R, np.int32)
+        temps = np.zeros(R, np.float32)
+        topks = np.zeros(R, np.int32)
+        eos_ids = np.full(R, -1, np.int32)  # -1: no EOS configured
+        budgets = np.zeros(R, np.int32)
+        keys = self._keys.copy()
+        # with the alive-mask metadata the rows pre-grow min(n, remaining)
+        # rows: the device stops each row's appends at its cut
+        cursor = self._pack_decode_rows(n, ids, seg, pos, qstart, qlen,
+                                        kvlen, dec_mask, temps, topks,
+                                        eos_ids=eos_ids, budgets=budgets)
+        chunk_rows, cursor = self._pack_chunk_rows(
+            plan, cursor, ids, seg, pos, qstart, qlen, kvlen, keys,
+            temps, topks)
+        if tr is not None:
+            tr.complete("plan", tp0,
+                        args={"rows": len(active), "chunks": len(plan),
+                              "ticks": n})
+            tl0 = tr.now()
+        if co is not None:
+            co.set_phase("launch")
+        pool = self.cache.pool
+        _, _, toks, kwalk, ticks = self._mtick_fn()(
+            self._params, pool.k, pool.v, self.cache.tables, ids, seg, pos,
+            qstart, qlen, kvlen, dec_mask, keys, temps, topks, eos_ids,
+            budgets, np.int32(n), tail=self._tail)
+        toks_np = toks.numpy()              # [max_ticks, R], host already
+        kwalk_np = kwalk.numpy()            # [max_ticks, R, 2]
+        self.stats["unified_steps"] += 1
+        if co is not None:
+            co.set_phase("host-accept")
+        if tr is not None:
+            tr.complete("launch", tl0,
+                        args={"packed_tokens": cursor, "ticks": n,
+                              "ticks_run": ticks})
+            th0 = tr.now()
+        # chunk bookkeeping first, as in the unified step (a final chunk
+        # adopts tick 0's token and key)
+        for slot, seq, ntok, final in chunk_rows:
+            self._advance_chunk(seq, ntok, toks_np[0, slot],
+                                kwalk_np[0, slot], finished)
+        emitted_total = 0
+        if active:
+            self.stats["decode_calls"] += 1
+            self.stats["decode_steps"] += ticks
+            self.stats["slot_steps"] += ticks * self.num_slots
+            self.stats["mtick_syncs"] += 1
+            self.stats["mtick_ticks"] += ticks
+            if not chunk_rows:
+                # every span a decode row: a fused engine ran tick 0
+                # through the fused tick
+                self.stats["mtick_pure_syncs"] += 1
+            self.stats["last_decode_ticks"] = ticks
+            counts = np.zeros(R, np.int32)  # accepted tokens per slot
+            for slot in range(self.num_slots):
+                s = self._slots[slot]
+                if s is not None and dec_mask[slot]:
+                    s.launches += 1     # rode this step's one program
+            emitted_total = self._accept_decode_rows(
+                toks_np, ticks, dec_mask, finished, counts=counts)
+            # each surviving decode row adopts its key at its cut,
+            # keys_walk[m - 1] after m accepted tokens; snapshot after the
+            # chunk bookkeeping (a final chunk's key write must survive)
+            knp = self._keys.copy()
+            for slot in range(self.num_slots):
+                seq = self._slots[slot]
+                if seq is None or not dec_mask[slot] \
+                        or seq.status != "running" or counts[slot] == 0:
+                    continue
+                knp[slot] = kwalk_np[counts[slot] - 1, slot]
+            self._keys = knp
+        if tr is not None:
+            tr.complete("host-accept", th0,
+                        args={"emitted": emitted_total,
+                              "ticks_run": ticks})
+        return sum(c for _, c in plan) + emitted_total, bool(chunk_rows)
 
     def _pack_decode_rows(self, n, ids, seg, pos, qstart, qlen, kvlen,
-                          dec_mask, temps, topks):
+                          dec_mask, temps, topks, eos_ids=None,
+                          budgets=None):
         """Pack every RUNNING slot's span-1 decode row into the packed
-        buffer, pre-growing its table for the ``n`` fused ticks. Returns
-        the cursor past the packed decode rows."""
+        buffer, pre-growing its table for the fused ticks: ``n`` rows on
+        the unified step (its tail appends unconditionally), ``min(n,
+        remaining)`` when the alive-mask metadata (``eos_ids``/``budgets``,
+        the multi-tick step) is packed too, since the device stops a row's
+        appends at its cut. Returns the cursor past the decode rows."""
         lens = self.cache.lengths
         cursor = 0
         for slot, s in enumerate(self._slots):
             if s is None or s.status != "running":
                 continue
-            self.cache.ensure_capacity(slot, int(lens[slot]) + n)
+            grow = n if budgets is None else min(n, s.remaining)
+            self.cache.ensure_capacity(slot, int(lens[slot]) + grow)
             qstart[slot] = cursor
             qlen[slot] = 1
             kvlen[slot] = int(lens[slot]) + 1
@@ -1071,13 +1549,21 @@ class ContinuousBatchingEngine:
             pos[cursor] = int(lens[slot])
             temps[slot] = self._temps[slot]
             topks[slot] = self._topks[slot]
+            if eos_ids is not None:
+                eos = s.request.eos_token_id
+                eos_ids[slot] = -1 if eos is None else int(eos)
+                budgets[slot] = s.remaining
             cursor += 1
         return cursor
 
-    def _accept_decode_rows(self, toks_np, n, dec_mask, finished):
+    def _accept_decode_rows(self, toks_np, n, dec_mask, finished,
+                            counts=None):
         """Host-accept of the fused ticks' ``[n, R]`` token block, tick
         major; a slot whose sequence finished at an earlier tick is
-        skipped from then on. Returns tokens emitted."""
+        skipped from then on (on the multi-tick step the device's alive
+        cut equals this trim). ``counts`` ([R], optional) receives each
+        slot's accepted tokens, the multi-tick key-walk index. Returns
+        tokens emitted."""
         emitted = 0
         for i in range(n):
             for slot in range(self.num_slots):
@@ -1087,6 +1573,8 @@ class ContinuousBatchingEngine:
                     continue
                 t = int(toks_np[i, slot])
                 seq.tokens.append(t)
+                if counts is not None:
+                    counts[slot] += 1
                 self.cache.lengths[slot] += 1
                 self._last_tok[slot] = t
                 self.stats["active_slot_steps"] += 1

@@ -15,8 +15,14 @@ Table entries of an unmapped position hold the sentinel ``num_blocks``.
 JAX drops a scatter to such an index (``mode="drop"``); ``index_put_``
 would fault on it, so every writer here selects the live rows first.
 
-The prefix-cache install/donate surface and the speculative ``truncate``
-belong to engine features not ported yet (ROADMAP Queue A step 9).
+With a prefix cache (:mod:`.prefix_cache`) the paged cache installs a
+hit by referencing the trie's block ids in the slot's table
+(:meth:`PagedKVCache.install_prefix`, no copy) and frees a retiring slot
+around the blocks the trie adopted (``free(slot, keep=...)``); the dense
+cache copies blocks between its slots and the trie's pool
+(:meth:`SlotKVCache.copy_block_in` / ``copy_block_out``). The speculative
+``truncate`` belongs to spec decode, not ported yet (ROADMAP Queue A
+step 9).
 """
 from __future__ import annotations
 
@@ -146,32 +152,42 @@ class SlotKVCache:
 
     # ------------------------------------------------------ block copies
     def copy_block_in(self, slot, row0, pool, block_id):
-        raise NotImplementedError(
-            "SlotKVCache.copy_block_in belongs to the prefix cache, not "
-            "ported to paddle_tpu_torch yet (ROADMAP Queue A step 9)")
+        """Install pool block ``block_id`` into rows ``[row0, row0+bs)`` of
+        ``slot`` (a prefix-cache hit), in place: one copy per K and V."""
+        bs = pool.block_size
+        self.k[:, slot, row0:row0 + bs] = pool.k[:, block_id]
+        self.v[:, slot, row0:row0 + bs] = pool.v[:, block_id]
 
     def copy_block_out(self, slot, row0, pool, block_id):
-        raise NotImplementedError(
-            "SlotKVCache.copy_block_out belongs to the prefix cache, not "
-            "ported to paddle_tpu_torch yet (ROADMAP Queue A step 9)")
+        """Publish rows ``[row0, row0+bs)`` of ``slot`` into pool block
+        ``block_id`` (sequence retirement), in place."""
+        bs = pool.block_size
+        pool.k[:, block_id] = self.k[:, slot, row0:row0 + bs]
+        pool.v[:, block_id] = self.v[:, slot, row0:row0 + bs]
 
 
 class PagedKVCache:
     """Block-table KV cache: slot allocator + host tables over a shared
     :class:`~.block_manager.BlockManager` pool.
 
-    - ``alloc()`` / ``free(slot)`` — claim and release a slot; ``free``
-      drops the slot's private blocks back to the pool.
+    - ``alloc()`` / ``free(slot, keep=())`` — claim and release a slot;
+      ``free`` drops the slot's private blocks back to the pool, except
+      those in ``keep`` (donated to the prefix trie: they lose the slot's
+      pin and stay allocated); shared prefix entries are forgotten (the
+      engine releases their pins through ``PrefixCache.release``).
+    - ``install_prefix(slot, block_ids)`` — a prefix-cache hit: the
+      slot's leading entries reference the trie's blocks, no copy.
     - ``ensure_capacity(slot, rows)`` — append private blocks until the
-      table covers ``rows`` logical rows (raises :class:`PoolExhausted`
-      when the pool runs dry).
+      table covers ``rows`` logical rows, evicting unpinned trie blocks
+      when the pool runs dry (raises :class:`PoolExhausted` when nothing
+      is left).
     - ``write_prefill(slot, pk, pv, prompt_len)`` — install a cold
       prefill's K/V through the slot's table.
     """
 
     def __init__(self, num_layers, num_slots, max_seq_len, num_kv_heads,
                  head_dim, dtype=torch.float32, block_size=32, pool=None,
-                 device="cuda"):
+                 prefix_cache=None, device="cuda"):
         bs = int(block_size)
         if bs < 1:
             raise ValueError(f"block_size must be >= 1, got {bs}")
@@ -194,11 +210,13 @@ class PagedKVCache:
                 f"live KV (worst case needs "
                 f"{self.num_slots * self.max_blocks})")
         self.pool = pool
+        self.prefix_cache = prefix_cache  # evict-on-demand hook, or None
         self.sentinel = pool.num_blocks   # out-of-pool id: never written
         self.lengths = np.zeros(self.num_slots, np.int32)
         self.tables = np.full((self.num_slots, self.max_blocks),
                               self.sentinel, np.int32)
-        self._n_blocks = np.zeros(self.num_slots, np.int32)
+        self._n_blocks = np.zeros(self.num_slots, np.int32)  # populated
+        self._n_shared = np.zeros(self.num_slots, np.int32)  # leading shared
         self._free_heap = list(range(self.num_slots))
         self._free_set = set(self._free_heap)
 
@@ -219,22 +237,47 @@ class PagedKVCache:
         self._free_set.discard(slot)
         return slot
 
-    def free(self, slot: int):
-        """Release a slot's table; its private blocks drop back to the
-        pool."""
+    def free(self, slot: int, keep=()):
+        """Release a slot's table. Blocks in ``keep`` (adopted by the
+        prefix trie at publish) lose the slot's pin but stay allocated;
+        every other private block drops back to the pool; shared prefix
+        entries are forgotten (their pins are the engine's to
+        release)."""
         if slot in self._free_set:
             raise ValueError(f"slot {slot} double-freed")
-        for j in range(int(self._n_blocks[slot])):
-            self.pool.drop(int(self.tables[slot, j]))
+        for j in range(int(self._n_shared[slot]), int(self._n_blocks[slot])):
+            b = int(self.tables[slot, j])
+            if b in keep:
+                self.pool.unref(b)
+            else:
+                self.pool.drop(b)
         self.tables[slot, :] = self.sentinel
         self._n_blocks[slot] = 0
+        self._n_shared[slot] = 0
         self.lengths[slot] = 0
         heapq.heappush(self._free_heap, slot)
         self._free_set.add(slot)
 
     # ------------------------------------------------------------ tables
+    def install_prefix(self, slot, block_ids):
+        """Zero-copy prefix-hit install: the slot's leading table entries
+        reference the published blocks. The caller holds their read pins
+        (``PrefixCache.acquire`` at lookup)."""
+        n = len(block_ids)
+        if n > self.max_blocks:
+            raise ValueError(
+                f"prefix of {n} blocks exceeds the {self.max_blocks}-entry "
+                f"table")
+        for j, b in enumerate(block_ids):
+            self.tables[slot, j] = int(b)
+        self._n_blocks[slot] = n
+        self._n_shared[slot] = n
+
     def _alloc_block(self):
         b = self.pool.alloc()
+        while b is None and self.prefix_cache is not None \
+                and self.prefix_cache._evict_one():
+            b = self.pool.alloc()
         if b is None:
             pool = self.pool
             raise PoolExhausted(

@@ -77,7 +77,8 @@ class Sequence:
     """
 
     __slots__ = ("request", "request_id", "prompt", "tokens", "status",
-                 "finish_reason", "slot", "key", "deadline", "prefilled",
+                 "finish_reason", "slot", "key", "deadline",
+                 "prefix_nodes", "prefix_hit_tokens", "prefilled",
                  "work", "restore_point", "queue_tick", "launches", "pclass",
                  "t_submit", "t_admitted", "t_first_token",
                  "t_last_token", "t_finish",
@@ -93,8 +94,14 @@ class Sequence:
         self.slot = None
         self.key = key
         self.deadline = deadline
+        # prefix-cache state: the trie nodes this sequence's admission
+        # matched and pinned (released at retirement), and the prompt
+        # tokens they cover (0 = cold prefill)
+        self.prefix_nodes = []
+        self.prefix_hit_tokens = 0
         # chunked-prefill resume offset: prompt rows whose KV is already
-        # installed. Block-aligned by construction while prefilling.
+        # installed (cache-hit prefix + completed chunks). Block-aligned
+        # by construction while prefilling.
         self.prefilled = 0
         # recovery-by-recompute state (engine.restore): ``work`` is the
         # token content the prefill paths install — the prompt for a

@@ -1,7 +1,7 @@
 """Admission + step-size policy for the continuous-batching engine (the
 port's own copy of ``paddle_tpu/serving/scheduler.py``'s
-``FIFOScheduler``, without the speculative and multi-tick grants, which
-belong to engine features not ported yet).
+``FIFOScheduler``, without the speculative grants, which belong to spec
+decode, not ported yet).
 
 Orca-style iteration-level scheduling (PAPERS.md): the schedulable unit
 is ONE decode step, so a request can join or leave the batch between any
@@ -131,12 +131,27 @@ class FIFOScheduler:
             self._plan_carry = min(budget, int(align))
         return plan
 
-    def admissions(self, num_free: int):
+    def admissions(self, num_free: int, hit_len_fn=None):
         """Sequences to admit this step: up to ``num_free`` from the FIFO
-        head, in arrival order."""
+        head.
+
+        ``hit_len_fn(seq) -> int`` is the prefix-cache lookup: the
+        engine's hook records the hit, pins the matched chain (nothing
+        this step does can evict it before install) and returns the
+        covered token count, stored on ``seq.prefix_hit_tokens``. The
+        admitted SET stays the FIFO head; with the hook the batch is then
+        ordered by ascending uncovered length (a stable sort, so equal
+        suffixes keep FIFO order). Without it, arrival order."""
         out = []
         while self.queue and len(out) < num_free:
             out.append(self.queue.popleft())
+        if hit_len_fn is not None:
+            for seq in out:
+                seq.prefix_hit_tokens = int(hit_len_fn(seq))
+            if len(out) > 1:
+                # work_len: a restored sequence re-prefills its prompt
+                # plus its generated tokens
+                out.sort(key=lambda s: s.work_len - s.prefix_hit_tokens)
         return out
 
     def remove(self, seq) -> bool:
@@ -175,3 +190,24 @@ class FIFOScheduler:
         while n * 2 <= min(m, self.decode_chunk):
             n *= 2
         return n
+
+    def choose_decode_ticks(self, active_seqs, max_ticks: int) -> int:
+        """How many decode ticks the next multi-tick step runs behind one
+        host sync (engine ``decode_ticks > 1``). The tick count is a
+        runtime argument with EOS/budget retirement masked on the device,
+        so the choice is latency policy only:
+
+        - a prefill backlog clamps it to 1 (n ticks would delay the next
+          prompt chunk by n - 1 ticks);
+        - a waiting queue shrinks it to the smallest active remaining
+          budget, so the earliest guaranteed retirement lands on a sync
+          boundary;
+        - otherwise it runs to the largest active remaining budget,
+          capped at ``max_ticks``: near-finished rows retire on the
+          device mid-block.
+        """
+        if max_ticks <= 1 or self.prefilling or not active_seqs:
+            return 1
+        horizon = (min if self.queue else max)(
+            s.remaining for s in active_seqs)
+        return max(1, min(int(max_ticks), horizon))

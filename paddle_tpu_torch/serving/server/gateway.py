@@ -100,7 +100,15 @@ from ..faults import TransientFault
 #: engines.
 CARRIED_ENGINE_STATS = (
     "preemptions", "prefill_copy_dispatches", "prefill_chunks",
-    "decode_calls", "tokens_generated", "mtick_syncs", "mtick_ticks")
+    "prefill_tokens_saved", "decode_calls", "tokens_generated",
+    "mtick_syncs", "mtick_ticks")
+
+#: the same carry for the prefix cache's own stats (a rebuild builds a
+#: fresh trie, zeroing them)
+CARRIED_PREFIX_STATS = ("hits", "misses", "evictions",
+                        "spilled_blocks", "tier_hits",
+                        "readmitted_blocks", "tier_evictions",
+                        "tier_transfers")
 
 
 class QueueFullError(RuntimeError):
@@ -276,12 +284,14 @@ class ServingGateway:
         self.last_restart_at = None          # clock() of the last rebuild
         # dead engine incarnations' summed counter stats (see
         # CARRIED_ENGINE_STATS): every /metrics series derived from
-        # engine stats reads through _stat(), so a crash-recovery
-        # rebuild can never scrape as a counter going backwards. The
-        # (base, engine) pair swaps in ONE attribute store: a scrape
-        # mid-rebuild must never pair the new base with the old
-        # engine's stats (double count, then a backwards step).
+        # engine (or prefix-cache) stats reads through _stat() /
+        # _pc_stat(), so a crash-recovery rebuild can never scrape as a
+        # counter going backwards. The (base, pc_base, engine) triple
+        # swaps in ONE attribute store: a scrape mid-rebuild must never
+        # pair the new base with the old engine's stats (double count,
+        # then a backwards step).
         self._counter_state = (dict.fromkeys(CARRIED_ENGINE_STATS, 0),
+                               dict.fromkeys(CARRIED_PREFIX_STATS, 0),
                                engine)
         self._last_step_done = self._clock()
         self._recovering = False
@@ -358,8 +368,14 @@ class ServingGateway:
         base + the live engine's count (CARRIED_ENGINE_STATS). Reads
         base and engine from ONE snapshot so a mid-rebuild scrape
         cannot mix epochs."""
-        base, eng = self._counter_state
+        base, _, eng = self._counter_state
         return base[key] + eng.stats[key]
+
+    def _pc_stat(self, key) -> int:
+        """The same carry for prefix-cache stats (zero with no trie)."""
+        _, pc_base, eng = self._counter_state
+        pc = eng.prefix_cache
+        return pc_base[key] + (pc.stats[key] if pc is not None else 0)
 
     # ------------------------------------------------------------- metrics
     def _init_metrics(self, registry):
@@ -455,9 +471,9 @@ class ServingGateway:
                 "engines that never decoded scrape 0).").set_fn(
             lambda: (self._stat("mtick_ticks")
                      / max(self._stat("mtick_syncs"), 1)))
-        # the speculative, multi-tenant and prefix-cache series of the
-        # reference register only on engines with those knobs on, which
-        # the port's engine refuses (ROADMAP Queue A step 9)
+        # the speculative and multi-tenant series of the reference
+        # register only on engines with those knobs on, which the port's
+        # engine refuses (ROADMAP Queue A step 9)
         # fault-tolerance surface (README "Fault tolerance & chaos
         # testing"). Gateway-owned counters, NOT engine-stat-backed:
         # engine stats die with a rebuilt engine, and a restart must
@@ -540,6 +556,68 @@ class ServingGateway:
                     "denominator of the quantized-density win."
                     ).set_fn(
                 lambda: self.engine.cache.bytes_per_token())
+        if getattr(self.engine, "prefix_cache", None) is not None:
+            # scrape-time counters backed by the trie's own stats plus
+            # the carried base: a rebuild starts a fresh trie, the base
+            # keeps the series monotonic across it
+            r.counter("serving_prefix_cache_hits_total",
+                      "Admissions that matched a cached prefix chain. "
+                      "Monotonic across engine rebuilds.").set_fn(
+                lambda: self._pc_stat("hits"))
+            r.counter("serving_prefix_cache_misses_total",
+                      "Admissions with no cached prefix. Monotonic "
+                      "across engine rebuilds.").set_fn(
+                lambda: self._pc_stat("misses"))
+            r.counter("serving_prefix_cache_evictions_total",
+                      "Cached blocks evicted under pool pressure. "
+                      "Monotonic across engine rebuilds.").set_fn(
+                lambda: self._pc_stat("evictions"))
+            r.counter("serving_prefill_tokens_saved_total",
+                      "Prompt tokens served from cached KV blocks "
+                      "instead of device prefill. Monotonic across "
+                      "engine rebuilds.").set_fn(
+                lambda: self._stat("prefill_tokens_saved"))
+            r.gauge("kv_prefix_blocks",
+                    "Prefix-cache pool blocks in use (published + "
+                    "pinned).").set_fn(
+                lambda: self.engine.prefix_cache.pool.num_used)
+            r.gauge("kv_prefix_blocks_capacity",
+                    "Prefix-cache pool size in blocks.").set_fn(
+                lambda: self.engine.prefix_cache.pool.num_blocks)
+            r.gauge("serving_prefix_cached_blocks",
+                    "Trie-resident cached blocks (live nodes).").set_fn(
+                lambda: self.engine.prefix_cache.num_cached_blocks)
+            # the host-RAM spill tier's series, as on a reference trie
+            # built without a tier: counters at 0, gauges at 0
+            for name, stat, doc in (
+                    ("serving_prefix_spilled_blocks_total",
+                     "spilled_blocks",
+                     "Evicted trie blocks spilled device->host into the "
+                     "tier instead of deleted."),
+                    ("serving_prefix_tier_hits_total", "tier_hits",
+                     "Recording lookups that readmitted at least one "
+                     "spilled block from the host tier."),
+                    ("serving_prefix_readmitted_blocks_total",
+                     "readmitted_blocks",
+                     "Spilled blocks streamed back host->device."),
+                    ("serving_prefix_tier_evictions_total",
+                     "tier_evictions",
+                     "Tier entries dropped by the host-side LRU."),
+                    ("serving_prefix_tier_transfers_total",
+                     "tier_transfers",
+                     "Spilled chains admitted host-to-host from a "
+                     "sibling replica's tier.")):
+                r.counter(name, doc + " Monotonic across engine "
+                          "rebuilds.").set_fn(
+                    (lambda k: lambda: self._pc_stat(k))(stat))
+            for name, doc in (
+                    ("serving_prefix_tier_blocks",
+                     "Blocks resident in the host-RAM spill tier."),
+                    ("serving_prefix_tier_bytes",
+                     "Host bytes the spill tier currently holds."),
+                    ("serving_prefix_tier_bytes_capacity",
+                     "The host_tier_bytes budget (0 = tier off).")):
+                r.gauge(name, doc).set(0)
         # device-boundary cost surface (README "Cost attribution &
         # /debug/profile"): observatory-owned, so every series is
         # monotonic across engine rebuilds by construction. One series
@@ -863,7 +941,7 @@ class ServingGateway:
         # aside and swapped in below WITH the new engine — one store —
         # so concurrent scrapes never see base and engine from
         # different epochs.
-        base, _ = self._counter_state
+        base, pc_base, _ = self._counter_state
         new_base = {k: base[k] + old.stats[k]
                     for k in CARRIED_ENGINE_STATS}
         live, queued = self._snapshot_live(old)
@@ -878,8 +956,16 @@ class ServingGateway:
         new.cost = self.cost         # one cost account, monotonic too
         if self._fault_hook is not None:
             new.fault_hook = self._fault_hook
+        new_pc = dict(pc_base)
+        if old.prefix_cache is not None \
+                and new.prefix_cache is not old.prefix_cache:
+            # bank the dead trie's stats only when the factory built a
+            # fresh one: a shared PrefixCache rides into the new engine
+            # with its counts intact
+            for k in CARRIED_PREFIX_STATS:
+                new_pc[k] += old.prefix_cache.stats[k]
         self.engine = new
-        self._counter_state = (new_base, new)   # atomic swap
+        self._counter_state = (new_base, new_pc, new)   # atomic swap
         self._restarts += 1
         self.last_restart_at = self._clock()
         self._m_restarts.inc()

@@ -22,6 +22,7 @@ from paddle_tpu.models import llama as jllama
 from paddle_tpu.serving import ContinuousBatchingEngine as JEngine
 from paddle_tpu.serving import GenerationRequest as JRequest
 from paddle_tpu.serving import decode as jdec
+from paddle_tpu.serving.block_manager import BlockManager as JBlockManager
 from paddle_tpu.serving.kv_cache import SlotKVCache as JSlot
 from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
 from paddle_tpu_torch.kernels import decode as tdk
@@ -30,6 +31,7 @@ from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest, SlotKVCache)
 from paddle_tpu_torch.serving import decode as tdec
+from paddle_tpu_torch.serving.block_manager import BlockManager
 from test_torch_engine import _eos_inside_a_tick
 from test_torch_engine import _matrix as engine_matrix
 
@@ -133,11 +135,27 @@ class TestSlotCache:
             t.write_prefill(0, _t(np.zeros((2, 17, 2, 4), np.float32)),
                             _t(np.zeros((2, 17, 2, 4), np.float32)), 3)
 
-    def test_prefix_copies_raise_naming_roadmap(self):
-        c = SlotKVCache(**self.KW, device="cpu")
-        for fn in (c.copy_block_in, c.copy_block_out):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fn(0, 0, None, 0)
+    def test_prefix_copies_match_jax(self):
+        """The prefix cache's block copies: pool block -> slot rows
+        (``copy_block_in``) and slot rows -> pool block
+        (``copy_block_out``), the same bits as the JAX cache's."""
+        r = np.random.RandomState(3)
+        jpool = JBlockManager(2, 3, 4, 2, 4)
+        tpool = BlockManager(2, 3, 4, 2, 4, device="cpu")
+        blocks = r.randn(2, 3, 4, 2, 4).astype(np.float32)
+        jpool.k, jpool.v = jnp.asarray(blocks), jnp.asarray(blocks + 1)
+        tpool.k, tpool.v = _t(blocks.copy()), _t(blocks + 1)
+        j, t = JSlot(**self.KW), SlotKVCache(**self.KW, device="cpu")
+        pk = r.randn(2, 8, 2, 4).astype(np.float32)
+        for c, pool, conv in ((j, jpool, jnp.asarray), (t, tpool, _t)):
+            s = c.alloc()
+            c.write_prefill(s, conv(pk), conv(pk - 1), 8)
+            c.copy_block_in(s, 4, pool, 2)
+            c.copy_block_out(s, 0, pool, 1)
+        _close(t.k, j.k, 0.0)
+        _close(t.v, j.v, 0.0)
+        _close(tpool.k, jpool.k, 0.0)
+        _close(tpool.v, jpool.v, 0.0)
 
 
 # --------------------------------------------------- the decode program

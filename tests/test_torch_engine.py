@@ -196,18 +196,15 @@ class TestEngineBehaviour:
             eng.submit("not a request")
 
 
-# fused_tick and paged_attn are ported; what stays off the ported path for
-# them is the fused tick's int8-pool mode and the dense engine's prefix
-# cache (the case id is the first key)
-KNOBS = [dict(prefix_cache=True), dict(spec_decode=True),
-         dict(decode_ticks=4), dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
+# what stays off the ported path: spec decode, quantized serving, tensor
+# parallel, the host tier, priority classes (the case id is the first key)
+KNOBS = [dict(spec_decode=True),
+         dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
          dict(quantize_weights=True), dict(quantize_activations=True),
          dict(tp=2), dict(host_tier_bytes=1 << 20),
          dict(priority_classes={"gold": 1}),
          dict(fused_tick=True, kv_dtype="int8"),
-         dict(collective_overlap=True),
-         dict(paged_attn=False, prefix_cache=True),
-         dict(ragged_step=False)]
+         dict(collective_overlap=True)]
 
 
 @pytest.mark.parametrize("knob", KNOBS, ids=lambda k: next(iter(k)))
@@ -215,6 +212,39 @@ def test_off_default_knobs_raise(models, knob):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatchingEngine(tm, **knob)
+
+
+# refused until the prefix cache, the two-program step and multi-tick
+# decode were ported; each now serves (the case id is the first key)
+SERVED_KNOBS = [dict(prefix_cache=True), dict(decode_ticks=4),
+                dict(paged_attn=False, prefix_cache=True),
+                dict(ragged_step=False)]
+
+
+@pytest.mark.parametrize("knob", SERVED_KNOBS, ids=lambda k: next(iter(k)))
+def test_once_off_default_knobs_are_served(models, runs, knob):
+    """The matrix without its two cancelled victims (the dense engine has
+    no mid-prefill state to cancel in): greedy and sampled streams and
+    finish reasons equal the default engine's on the same requests."""
+    _, tm = models
+    matrix = [m for m in runs[4] if not m[0].startswith("victim")]
+    want, _ = _drive_plain(ContinuousBatchingEngine(tm, **GEOMETRY), matrix)
+    got, eng = _drive_plain(ContinuousBatchingEngine(
+        tm, **dict(GEOMETRY, **knob)), matrix)
+    assert got == want
+    assert eng.decode_compilations() >= 1
+    if knob.get("prefix_cache"):
+        assert eng.prefix_cache is not None
+        assert eng.prefix_cache.stats["lookups"] == len(matrix)
+
+
+def _drive_plain(engine, matrix):
+    seqs = {name: engine.submit(GenerationRequest(prompt=p, **kw))
+            for name, p, kw in matrix}
+    while engine.has_work():
+        engine.step()
+    return {n: (list(map(int, s.tokens)), s.finish_reason)
+            for n, s in seqs.items()}, engine
 
 
 def test_priority_class_request_raises(models):

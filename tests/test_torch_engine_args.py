@@ -108,19 +108,41 @@ def _served_step_clock(tiny):
     assert seq.ttft_s == seq.t_first_token - 100.0
 
 
+def _served_prefix_blocks(tiny):
+    """prefix_blocks sizes the trie's budget on top of the live grid of
+    the paged pool, and the whole pool of the dense engine's trie."""
+    eng = ContinuousBatchingEngine(tiny, **GEOMETRY, prefix_cache=True,
+                                   prefix_blocks=4)
+    live = 3 * (128 // 8)
+    assert eng.cache.pool.num_blocks == live + 4
+    assert eng.prefix_cache.max_blocks == 4
+    dense = ContinuousBatchingEngine(tiny, **GEOMETRY, paged_attn=False,
+                                     prefix_cache=True, prefix_blocks=4)
+    assert dense.prefix_cache.pool.num_blocks == 4
+    p = np.arange(20, dtype=np.int32)
+    for e in (eng, dense):
+        e.generate([GenerationRequest(prompt=p, max_new_tokens=2)])
+        e.generate([GenerationRequest(prompt=p, max_new_tokens=2)])
+        assert e.stats["prefill_tokens_saved"] == 16
+    with pytest.raises(ValueError, match="prefix_blocks"):
+        ContinuousBatchingEngine(tiny, **GEOMETRY, prefix_cache=True,
+                                 prefix_blocks=0)
+
+
 @pytest.mark.parametrize("check", [_served_exact_bucket,
                                    _served_shared_jit_cache,
-                                   _served_step_clock],
+                                   _served_step_clock,
+                                   _served_prefix_blocks],
                          ids=["prefill_bucketing", "jit_cache",
-                              "step_clock"])
+                              "step_clock", "prefix_blocks"])
 def test_once_unported_values_are_served(tiny, check):
     """prefill_bucketing="exact", a shared jit_cache and step_clock were
-    refused until the front door was ported; each is served now."""
+    refused until the front door was ported, prefix_blocks until the
+    prefix cache was; each is served now."""
     check(tiny)
 
 
 @pytest.mark.parametrize("knob,step", [
-    (dict(prefix_blocks=4), "Queue A step 9 \\(prefix cache\\)"),
     (dict(drafter=object()), "Queue A step 9 \\(spec decode\\)"),
     (dict(collective_dtype="int8"), "Queue A step 10"),
 ], ids=lambda k: next(iter(k)) if isinstance(k, dict) else None)

@@ -376,6 +376,78 @@ def test_new_engines_kernels_vs_plain(cuda_dev, knob, kernel):
     assert [o.tolist() for o in base] == outs[True]
 
 
+@pytest.mark.parametrize("knob", [
+    dict(decode_ticks=6), dict(decode_ticks=6, fused_tick=True),
+    dict(prefix_cache=True), dict(ragged_step=False)],
+    ids=["multitick", "multitick_fused", "prefix_cache", "two_program"])
+def test_step9_paths_kernels_graph_and_plain(cuda_dev, knob):
+    """float32: the multi-tick engine (the scanned tail on its captured
+    graph, then eagerly; the fused tail), the prefix cache (a second wave
+    hitting the first's prefix) and the two-program step give the default
+    engine's greedy streams with the kernels and with their plain
+    versions, with an EOS the rows meet mid-stream; the multi-tick
+    launches equal the code's count with the replays counted."""
+    cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
+                     num_key_value_heads=2)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=5)
+    r = np.random.RandomState(9)
+    pre = r.randint(0, 256, 24).astype(np.int32)
+    prompts = [np.concatenate([pre, r.randint(0, 256, n).astype(np.int32)])
+               for n in (21, 5, 40)]
+    geo = dict(num_slots=4, max_seq_len=128, prefix_block_size=8,
+               prefill_chunk=16, headroom_mult=None)
+    probe = ContinuousBatchingEngine(model, **geo).generate(
+        [GenerationRequest(prompt=prompts[0], max_new_tokens=14)])[0]
+    # a token the stream meets after its first (a random tiny model may
+    # repeat one token, and then no EOS is planted)
+    eos = next((t for i, t in enumerate(probe.tolist())
+                if i >= 1 and t not in probe.tolist()[:i]), None)
+
+    def run(**kw):
+        eng = ContinuousBatchingEngine(model, **geo, **kw)
+        out = []
+        for wave in (prompts, prompts[::-1]):
+            out += [o.tolist() for o in eng.generate([GenerationRequest(
+                prompt=p, max_new_tokens=14, eos_token_id=eos)
+                for p in wave])]
+        return out, eng
+
+    want, _ = run()
+    L = cfg.num_hidden_layers
+    try:
+        for use, graph in ((True, True), (True, False), (False, True)):
+            set_flags({"FLAGS_use_cuda_kernels": use,
+                       "FLAGS_cuda_graph_tail": graph})
+            reset_launches()
+            got, eng = run(**knob)
+            torch.cuda.synchronize()
+            assert got == want, (use, graph)
+            if not use:
+                assert not any(LAUNCHES.values())
+                continue
+            if eng.decode_ticks > 1:
+                st, tail = eng.stats, eng._tail
+                if eng.fused_tick:
+                    assert LAUNCHES["fused_decode_tick"] == \
+                        st["mtick_pure_syncs"] + tail.ticks
+                    assert LAUNCHES["paged_decode"] == 0
+                else:
+                    assert LAUNCHES["paged_decode"] == L * tail.ticks
+                    assert tail.captures == (1 if graph else 0)
+                assert tail.ticks >= st["mtick_ticks"] - st["mtick_syncs"]
+            elif knob.get("prefix_cache"):
+                # the second wave repeats the first's prompts: each hits
+                # its donated full blocks short of its final token
+                assert eng.stats["prefill_tokens_saved"] == sum(
+                    (len(p) - 1) // 8 * 8 for p in prompts)
+            else:
+                assert LAUNCHES["paged_decode"] > 0
+                assert LAUNCHES["ragged_attention"] == 0
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True,
+                   "FLAGS_cuda_graph_tail": True})
+
+
 class TestFlashBackwardKernels:
     @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                            (torch.bfloat16, 2e-2)])

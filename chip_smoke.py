@@ -34,6 +34,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
              (``bound_ms``),
              achieved TFLOP/s and the route (the bf16 flash forward, dK/dV
              and dQ on the tensor cores, the rest on the CUDA cores).
+             Then the quantized modes, bf16 and fp32: paged decode and
+             ragged attention (its edge spans too) on int8 and fp8 pools
+             at the same shapes, the library yardstick dequantizing the
+             gathered cache before SDPA; the fused tick (2 layers, 8 and
+             37 rows) on an int8 pool with int8 weights and on an fp8
+             pool: keys bit for bit, tokens equal in fp32, logits within
+             the bf16 scaled bound, appended values within a grid step
+             (bf16: the scaled bound plus a step), nothing else written,
+             the layer-0 attention bit for bit quantized paged decode's.
 4. engine  — llama_7b widths at 2 layers in fp32, for each of the
              engine's three decode programs (default, ``fused_tick=True``,
              ``paged_attn=False``), through the kernels against the plain
@@ -55,8 +64,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
              ``decode_ticks=1``, the device retires a row mid-block,
              launches equal the code's count with the graph's replays
              counted, and the pools after the first tail equal the eager
-             tail's. Last, in a child process, whether the fused tick's
-             cooperative launch captures into a CUDA graph.
+             tail's. Then every quantized knob set (int8 and fp8 pools,
+             int8 weights on the three engines, int8 x int8 projections,
+             the fused tick on an int8 pool with int8 weights and on an
+             fp8 pool, ``decode_ticks=4`` and a prefix hit on an int8
+             pool), kernels against plain versions: streams equal (int8 x
+             int8: the reference's measured bound, a matched prefix of at
+             least half, and the kernels' repeat bit for bit). Last, in a
+             child process, whether the fused tick's cooperative launch
+             captures into a CUDA graph.
 5. serve   — llama_7b at full width and depth (32 layers) in bf16 with
              seeded random weights: 8 requests (7 short prompts, one long
              prompt that rides the ragged kernel in chunks, one seeded
@@ -69,7 +85,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
              decode launches per tick, no paged kernel), then the default
              engine with ``decode_ticks=8`` (ragged 32 a step, paged
              decode 32 a tail tick the device ran, graph replays counted),
-             each freed before the next; each launch count must equal
+             then ``kv_dtype="int8", quantize_weights=True`` on the
+             default engine and with ``fused_tick`` (each profiled once:
+             device time; ``bytes_per_token``), each freed before the
+             next; each launch count must equal
              what the code implies. Then the prefix run: 8 requests on a
              shared 1024-token prefix (tails 64-256, 64 new tokens) after
              a priming request, ``prefix_cache=True, prefix_blocks=512``
@@ -384,7 +403,7 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
-             for n in _build.SOURCES}
+             for n in _build.LIBRARIES}
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
 
@@ -765,33 +784,64 @@ def tick_inputs(dtype, dev, gen, layers, pools=None, rows=SLOTS,
                 temps=temps, top_ks=topks)
 
 
+def _weight_bytes(w, isz):
+    """Bytes of a weight: dense at the model type, or an int8 pair (int8
+    data and float32 scales)."""
+    if isinstance(w, tuple):
+        return w[0].numel() + 4 * w[1].numel()
+    return w.numel() * isz
+
+
+def kv_row_bytes(pool, isz):
+    """Bytes one cached (row, KV head) of K or of V costs in ``pool``: D
+    at the model type, D + a float32 scale (int8), or D (e4m3; its
+    per-block scales are counted by block)."""
+    if not isinstance(pool, tuple):
+        return D * isz
+    return D + (4 if pool[0].dtype.itemsize == 1 and pool[1].dim() == 4
+                else 0)
+
+
 def tick_cost(params, t, layers, isz):
-    """(bytes, flops) one tick must move and do: every weight once, each
-    valid cached K/V row once, the appended rows and the float32 logits
-    written once; two flops per weight and row, 4*D per head and key."""
+    """(bytes, flops) one tick must move and do: every weight once (int8
+    pairs at 1 byte and their scales), each valid cached K/V row once (at
+    the pool's storage type, with its scales), the appended rows and the
+    float32 logits written once; two flops per weight and row, 4*D per
+    head and key."""
     import numpy as np
     att = t["lens"] + t["app_mask"]
-    w = sum(params[k].numel() for k in ("wq", "wk", "wv", "wo", "w_gate",
-                                        "w_up", "w_down", "input_ln",
-                                        "post_ln", "final_norm", "lm_head"))
+    keys = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "input_ln",
+            "post_ln", "final_norm", "lm_head")
     R = len(att)
     V = params["embed"].shape[0]
-    kv = int(att.sum()) * HKV * D * 2 * layers
-    nbytes = (w + R * params["embed"].shape[1]) * isz + kv * isz \
-        + int(np.sum(t["app_mask"])) * HKV * D * 2 * layers * isz \
-        + R * V * 4
-    proj = sum(params[k].numel() for k in ("wq", "wk", "wv", "wo", "w_gate",
-                                           "w_up", "w_down", "lm_head"))
+    rb = kv_row_bytes(t["pool_k"], isz)
+    fp8 = isinstance(t["pool_k"], tuple) and t["pool_k"][1].dim() == 3
+    blocks = sum(-(-int(n) // BS) for n in att)
+    nbytes = (sum(_weight_bytes(params[k], isz) for k in keys)
+              + R * params["embed"].shape[1] * isz
+              + int(att.sum()) * HKV * rb * 2 * layers
+              + (blocks * HKV * 4 * 2 * layers if fp8 else 0)
+              + int(np.sum(t["app_mask"])) * HKV * rb * 2 * layers
+              + R * V * 4)
+    proj = sum((params[k][0] if isinstance(params[k], tuple)
+                else params[k]).numel()
+               for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                         "lm_head"))
     flops = 2 * R * proj + 4 * int(att.sum()) * H * D * layers
     return nbytes, flops
 
 
 def _tick(fn, params, tied, t, **kw):
     import torch
-    from paddle_tpu_torch.serving.decode import _head
+    from paddle_tpu_torch.serving.decode import _dq_head
     with torch.inference_mode():
-        return fn(params, _head(params, tied), **t, nh=H, nkv=HKV, hd=D,
-                  eps=1e-5, **kw)
+        return fn(params, _dq_head(params, tied, params["embed"].dtype), **t,
+                  nh=H, nkv=HKV, hd=D, eps=1e-5, **kw)
+
+
+def _clone_pool(pool):
+    return tuple(x.clone() for x in pool) if isinstance(pool, tuple) \
+        else pool.clone()
 
 
 # LLaMA-7B widths at 2 layers for the fused tick's kernel check, at the
@@ -815,48 +865,169 @@ def _compare_tick(name, dtype_name, got, want):
     return _compare_scaled(name, dtype_name, got, want)[0]
 
 
-def _fused_vs_plain(p, tied, t, dtype_name, label):
+# The fused tick's float32 logits on a quantized pool, kernel against
+# plain: |err| <= QUANT_F32_LOGITS * max|ref|. The write rule re-rounds a
+# last-place difference of a float32 projection to a full step of the
+# appended row (1/127 of its absmax, or an e4m3 step), which the next
+# layers carry to the logits, so TOL's float32 numbers do not hold. The
+# limit is about twice the largest of 56 readings (4.5e-3, an fp8 pool at 37
+# rows; the rest at most 1.5e-3), the four quantized pool variants over
+# QUANT_SWEEP_SEEDS + 1 pools each at 8 and 37 rows (PERF.md section 2,
+# H100); the planted faults of ``_planted_faults`` (a dropped V scale, a
+# neighbouring head's K scale) read 0.49 to 1.53, so each misses it. bf16
+# takes the scaled bound of the unquantized tick.
+QUANT_F32_LOGITS = 1e-2
+QUANT_SWEEP_SEEDS = 6
+
+
+def _quant_logits(label, dtype_name, got, want):
+    """A quantized pool's logits, kernel against plain: float32 within
+    ``QUANT_F32_LOGITS`` of the reference's max, bf16 within the scaled
+    bf16 bound. Returns (max abs err, over max|ref|)."""
+    import torch
+    if dtype_name != "float32":
+        return _compare_scaled(label, dtype_name, got, want)
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise RuntimeError(f"{label} float32: kernel output not finite")
+    err = (g - w).abs().max().item()
+    rel = err / max(w.abs().max().item(), 1e-30)
+    if rel > QUANT_F32_LOGITS:
+        raise RuntimeError(f"{label} float32: max abs err {err} is {rel} "
+                           f"of max|ref|, past {QUANT_F32_LOGITS}")
+    return err, rel
+
+
+def _quant_step(data, scale):
+    """Each value of a quantized pool and the size of one step of its grid
+    there: int8 ``(q * scale, scale)`` per row and KV head, e4m3 the value
+    and 2^-3 of its binade (its planes are left out: both sides share
+    them)."""
+    import torch
+    v = data.float()
+    if data.dtype == torch.int8:
+        return v * scale[..., None], scale[..., None].expand_as(v)
+    return v, torch.exp2(torch.floor(torch.log2(v.abs().clamp(
+        min=2.0 ** -6))) - 3)
+
+
+def _appended_quant(label, dtype_name, got, want, near_tie=False):
+    """A quantized pool's appended rows ``[L, rows, ...]``, kernel against
+    plain. The write rule re-rounds the projections' differences to the
+    grid: float32 values (last-place apart) at most one step apart and
+    int8 scales within TOL; bf16 values (bf16 GEMVs, several ulps apart
+    as the unquantized appended rows are) within the scaled bound of the
+    unquantized tick plus one step. With ``near_tie`` float32 holds layer
+    0 (whose inputs differ in the last place only) to one step, and the
+    later layers (whose inputs carry a re-rounded step: a short row
+    attends mostly to its own appended row) to ``QUANT_F32_LOGITS`` of
+    their largest value plus a step. Returns the largest difference in
+    steps."""
+    import torch
+    (g, _), (w, step) = _quant_step(*got), _quant_step(*want)
+    # on the grid: int8 units of the stored values, e4m3 steps of the value
+    steps = ((got[0].float() - want[0].float()).abs()
+             if got[0].dtype == torch.int8 else (g - w).abs() / step)
+    if not bool(torch.isfinite(g).all()):
+        raise RuntimeError(f"{label} {dtype_name}: appended values not "
+                           f"finite")
+    if dtype_name == "float32" and near_tie:
+        if got[0].dtype == torch.int8:
+            _compare(f"{label} layer-0 scales", dtype_name, got[1][0],
+                     want[1][0])
+        bound = QUANT_F32_LOGITS * w[1:].abs().max() + step[1:]
+        if steps[0].max().item() > 1 or not bool(
+                ((g[1:] - w[1:]).abs() <= bound).all()):
+            raise RuntimeError(f"{label} float32: appended values "
+                               f"{steps.max().item()} steps apart, past "
+                               f"one step at layer 0 or the limit later")
+    elif dtype_name == "float32":
+        if got[0].dtype == torch.int8:
+            _compare(f"{label} scales", dtype_name, got[1], want[1])
+        if steps.max().item() > 1:
+            raise RuntimeError(f"{label} float32: appended values "
+                               f"{steps.max().item()} steps apart")
+    else:
+        atol, rtol = TOL[dtype_name]
+        bound = atol * w.abs().max() + rtol * w.abs() + step
+        if not bool(((g - w).abs() <= bound).all()):
+            raise RuntimeError(f"{label} {dtype_name}: appended values "
+                               f"{steps.max().item()} steps apart, past "
+                               f"the scaled bound plus a step")
+    return steps.max().item()
+
+
+def _fused_vs_plain(p, tied, t, dtype_name, label, near_tie=False):
     """One fused tick against its plain version on copies of ``t``'s
     pools: keys bit for bit, tokens equal in float32, logits and the
     appended K/V rows within the tolerance, nothing written outside the
-    appended rows. Returns (logits err, appended rows err, tokens equal,
-    logits of the plain version)."""
+    appended rows (data or scales). A quantized pool's logits are held by
+    ``_quant_logits`` (its write rule re-rounds the projections'
+    last-place differences to a full step of a row's K/V) and its
+    appended rows by ``_appended_quant``. With ``near_tie`` (greedy rows
+    only) a float32 token may differ where its logits are within the
+    limit: each row's token must then be the argmax of the kernel's own
+    logits, so the plain run's two picks lie within twice the logits
+    error. Returns (logits err, appended rows err, tokens equal, logits
+    of the plain version)."""
     import torch
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
     from paddle_tpu_torch.serving.decode import _keys_host
     base_k, base_v = t["pool_k"], t["pool_v"]
+    quant = isinstance(base_k, tuple)
     got = _tick(fdt.fused_decode_tick, p, tied,
-                dict(t, pool_k=base_k.clone(), pool_v=base_v.clone()),
-                return_logits=True)
+                dict(t, pool_k=_clone_pool(base_k),
+                     pool_v=_clone_pool(base_v)), return_logits=True)
     want = _tick(fdt.fused_decode_tick_reference, p, tied,
-                 dict(t, pool_k=base_k.clone(), pool_v=base_v.clone()),
-                 return_logits=True)
+                 dict(t, pool_k=_clone_pool(base_k),
+                      pool_v=_clone_pool(base_v)), return_logits=True)
     torch.cuda.synchronize()
     tokens_equal = got[0].tolist() == want[0].tolist()
     if not bool((_keys_host(got[3]) == _keys_host(want[3])).all()):
         raise RuntimeError(f"fused tick {label} {dtype_name}: keys differ")
-    if dtype_name == "float32" and not tokens_equal:
+    if dtype_name == "float32" and not tokens_equal and not (
+            near_tie and not bool(t["temps"].any()) and torch.equal(
+                got[0], got[4].argmax(-1))):
         raise RuntimeError(f"fused tick {label} float32: tokens "
                            f"{got[0].tolist()} vs plain {want[0].tolist()}")
-    logits_err = _compare_tick(f"fused tick {label} logits", dtype_name,
-                               got[4], want[4])
+    if quant:
+        logits_err = _quant_logits(f"fused tick {label} logits",
+                                   dtype_name, got[4], want[4])[0]
+    else:
+        logits_err = _compare_tick(f"fused tick {label} logits", dtype_name,
+                                   got[4], want[4])
     # the appended rows: live rows at (table[len // bs], len % bs)
     live = [b for b in range(len(t["lens"])) if t["app_mask"][b]]
-    dev = base_k.device
+    dev = (base_k[0] if quant else base_k).device
     phys = torch.tensor([int(t["tables"][b, t["lens"][b] // BS])
                          for b in live], device=dev)
     prow = torch.tensor([int(t["lens"][b] % BS) for b in live], device=dev)
-    rows_err = max(_compare_tick(f"fused tick {label} appended {n}",
-                                 dtype_name, g[:, phys, prow],
-                                 w[:, phys, prow])
-                   for n, g, w in (("K", got[1], want[1]),
-                                   ("V", got[2], want[2])))
-    for g, b in ((got[1], base_k), (got[2], base_v)):
-        untouched = g.clone()
-        untouched[:, phys, prow] = b[:, phys, prow]
-        if not torch.equal(untouched, b):
-            raise RuntimeError(f"fused tick {label} {dtype_name} wrote "
-                               f"outside the appended rows")
+    sides = (("K", got[1], want[1], base_k), ("V", got[2], want[2], base_v))
+    def sel(x):     # data and int8 per-row planes: the appended rows
+        return x[:, phys, prow] if x.dim() >= 4 else x
+
+    if quant:
+        rows_err = max(_appended_quant(
+            f"fused tick {label} appended {n}", dtype_name,
+            [sel(x) for x in g], [sel(x) for x in w], near_tie)
+            for n, g, w, _ in sides)
+    else:
+        rows_err = max(_compare_tick(f"fused tick {label} appended {n}",
+                                     dtype_name, g[:, phys, prow],
+                                     w[:, phys, prow])
+                       for n, g, w, _ in sides)
+    for _, g, _, b in sides:
+        for gx, bx in (zip(g, b) if quant else ((g, b),)):
+            untouched = gx.clone()
+            if gx.dim() >= 4:     # data, or an int8 pool's per-row planes
+                untouched[:, phys, prow] = bx[:, phys, prow]
+            if not torch.equal(untouched.view(torch.uint8)
+                               if untouched.dtype == torch.float8_e4m3fn
+                               else untouched,
+                               bx.view(torch.uint8)
+                               if bx.dtype == torch.float8_e4m3fn else bx):
+                raise RuntimeError(f"fused tick {label} {dtype_name} wrote "
+                                   f"outside the appended rows")
     return logits_err, rows_err, tokens_equal, want[4]
 
 
@@ -869,15 +1040,20 @@ def _layer0_attention_bits(p, tied, t):
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
     from paddle_tpu_torch.kernels import paged_decode
     from paddle_tpu_torch.models.llama import STACK_KEYS
-    p1 = {k: v[:1] if k in STACK_KEYS else v for k, v in p.items()}
-    t1 = dict(t, pool_k=t["pool_k"][:1].clone(),
-              pool_v=t["pool_v"][:1].clone())
+    def first(x):
+        return tuple(y[:1] for y in x) if isinstance(x, tuple) else x[:1]
+    p1 = {k: first(v) if k in STACK_KEYS else v for k, v in p.items()}
+    t1 = dict(t, pool_k=_clone_pool(first(t["pool_k"])),
+              pool_v=_clone_pool(first(t["pool_v"])))
     _tick(fdt.fused_decode_tick, p1, tied, t1)
     q, attn = fdt.LAST_SCRATCH["q"], fdt.LAST_SCRATCH["attn"]
+    quant = isinstance(t1["pool_k"], tuple)
+    k0, v0 = (t1["pool_k"][0][0], t1["pool_v"][0][0]) if quant else \
+        (t1["pool_k"][0], t1["pool_v"][0])
+    scales = (t1["pool_k"][1][0], t1["pool_v"][1][0]) if quant else ()
     with torch.inference_mode():
         want = paged_decode.paged_decode_attention(
-            q, t1["pool_k"][0], t1["pool_v"][0], t["tables_dev"],
-            t["lens"] + t["app_mask"])
+            q, k0, v0, t["tables_dev"], t["lens"] + t["app_mask"], *scales)
     torch.cuda.synchronize()
     same = bool(torch.equal(attn, want))
     del t1, p1
@@ -965,6 +1141,333 @@ def fused_case(name, dtype_name, dev, gen):
     return row
 
 
+# ------------------------------------------------------- quantized modes
+#: the quantized pools' modes, and the kernels that have them
+QUANT_MODES = ("int8", "fp8")
+QUANT_KERNELS = ("paged_decode", "ragged_attention", "fused_decode_tick")
+
+
+def quantize_pool(pk, pv, mode, gen):
+    """Float pools (stale NaN allowed) → ``(kd, vd, k_scale, v_scale)`` by
+    the pool's write rule: int8 per row and KV head, or the saturating
+    e4m3 cast with per-block planes drawn from [0.5, 2) (the engine keeps
+    them 1.0; other values make the kernels' plane reads count)."""
+    import torch
+    from paddle_tpu_torch.serving.kv_cache import (quantize_kv_rows,
+                                                   quantize_kv_rows_fp8)
+    k, v = torch.nan_to_num(pk.float()), torch.nan_to_num(pv.float())
+    if mode == "int8":
+        (kd, ks), (vd, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+        return kd, vd, ks, vs
+    shape = k.shape[:-3] + k.shape[-2:-1]
+    ks, vs = (0.5 + 1.5 * torch.rand(shape, generator=gen, device=k.device)
+              for _ in range(2))
+    return quantize_kv_rows_fp8(k), quantize_kv_rows_fp8(v), ks, vs
+
+
+def _gather_dequant(kd, ks, tbl_row, n):
+    """The first ``n`` cached rows of a sequence, gathered narrow through
+    its table with their scales ``([n, Hkv, D], [n, Hkv])``."""
+    import torch
+    nblk = -(-n // BS)
+    idx = tbl_row[:nblk].long().clamp(0, kd.shape[0] - 1)
+    rows = kd.view(torch.uint8)[idx].view(kd.dtype).reshape(
+        nblk * BS, HKV, D)[:n]
+    sc = ks[idx]
+    sc = (sc.repeat_interleave(BS, dim=0) if ks.dim() == 2
+          else sc.reshape(nblk * BS, HKV))[:n]
+    return rows, sc
+
+
+def quant_kernel_case(name, mode, dtype_name, dev, gen):
+    """Paged decode or ragged attention on a quantized pool (the serving
+    shapes of ``kernel_case``) against its plain version within TOL:
+    error, kernel / plain / library milliseconds (the library yardstick
+    dequantizes the gathered cache, then SDPA), the byte bound at the
+    pool's storage type with its scales."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import paged_decode, ragged_attention
+    dtype = getattr(torch, dtype_name)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    rb = D + (4 if mode == "int8" else 0)    # a (row, KV head) of K or V
+    if name == "paged_decode":
+        q, pk, pv, tbl, lens = paged_inputs(dtype, dev, gen)
+        kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
+        del pk, pv
+        run = lambda: paged_decode.paged_decode_attention(  # noqa: E731
+            q, kd, vd, tbl, lens, ks, vs)
+        plain = lambda: paged_decode.paged_decode_attention_reference(  # noqa
+            q, kd, vd, tbl, lens, ks, vs)
+        L = lens.long().cpu()
+        spans = [(1, int(n)) for n in L.tolist()]
+        qrows = [(b, b) for b in range(SLOTS)]
+        flops = 4 * int(L.sum()) * H * D
+    else:
+        q, pk, pv, tbl, qs, ql, kl = ragged_inputs(dtype, dev, gen)
+        kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
+        del pk, pv
+        run = lambda: ragged_attention.ragged_paged_attention(  # noqa
+            q, kd, vd, tbl, qs, ql, kl, ks, vs)
+        plain = lambda: ragged_attention.ragged_attention_reference(  # noqa
+            q, kd, vd, tbl, qs, ql, kl, ks, vs)
+        spans = list(zip(ql.tolist(), kl.tolist()))
+        qrows = [(int(a), int(a) + n - 1) for a, (n, _) in
+                 zip(qs.tolist(), spans)]
+        flops = 4 * sum(sum(k - n + i + 1 for i in range(n))
+                        for n, k in spans) * H * D
+    kv_rows = sum(k for n, k in spans if n > 0)
+    blocks = sum(-(-k // BS) for n, k in spans if n > 0)
+    nbytes = (2 * kv_rows * HKV * rb
+              + (2 * blocks * HKV * 4 if mode == "fp8" else 0)
+              + 2 * sum(b - a + 1 for (a, b), (n, _) in zip(qrows, spans)
+                        if n > 0) * H * D * isz
+              + 4 * (tbl.numel() + 3 * SLOTS))
+    # library: the spans padded to the longest, the narrow rows and their
+    # scales gathered outside the timing; the call dequantizes them, then
+    # SDPA (causal within each span)
+    live = [r for r, (n, _) in enumerate(spans) if n > 0]
+    qmax = max(n for n, _ in spans)
+    kmax = max(k for _, k in spans)
+    qpad = torch.zeros(SLOTS, H, qmax, D, dtype=dtype, device=dev)
+    kpad = torch.zeros(SLOTS, kmax, HKV, D, dtype=torch.uint8, device=dev)
+    vpad = torch.zeros_like(kpad)
+    kspad = torch.zeros(SLOTS, kmax, HKV, device=dev)
+    vspad = torch.zeros_like(kspad)
+    mask = torch.zeros(SLOTS, 1, qmax, kmax, dtype=torch.bool, device=dev)
+    for r in range(SLOTS):
+        n, k = spans[r]
+        if n == 0:
+            mask[r, :, :, 0] = True
+            continue
+        a = qrows[r][0]
+        qpad[r, :, :n] = q[a:a + n].transpose(0, 1)
+        for pad, spad, pool, pl_ in ((kpad, kspad, kd, ks),
+                                     (vpad, vspad, vd, vs)):
+            rows, sc = _gather_dequant(pool, pl_, tbl[r], k)
+            pad[r, :k] = rows.view(torch.uint8)
+            spad[r, :k] = sc
+        pos = k - n + torch.arange(qmax, device=dev)
+        mask[r, 0] = torch.arange(kmax, device=dev)[None, :] <= pos[:, None]
+
+    def lib():
+        kf = (kpad.view(kd.dtype).float() * kspad[..., None]).to(dtype)
+        vf = (vpad.view(kd.dtype).float() * vspad[..., None]).to(dtype)
+        return F.scaled_dot_product_attention(
+            qpad, kf.transpose(1, 2), vf.transpose(1, 2), attn_mask=mask,
+            enable_gqa=H != HKV)
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = _compare(f"{name} {mode}", dtype_name, got, want)
+    row = {"name": name, "mode": mode, "dtype": dtype_name,
+           "max_abs_err": err,
+           "tol": dict(zip(("atol", "rtol"), TOL[dtype_name]))}
+    if name == "paged_decode":
+        if not torch.equal(got, run()):
+            raise RuntimeError(f"paged_decode {mode} {dtype_name}: two "
+                               f"launches differ")
+        if not bool((got[SLOTS - 1] == 0).all()):
+            raise RuntimeError(f"paged_decode {mode}: a row of length 0 "
+                               f"is not zero")
+        row["bitwise_repeatable"] = True
+        row["split_len"] = paged_decode.LAST_GRID["split_len"]
+    else:
+        row["grid"] = dict(ragged_attention.LAST_GRID)
+        row["edge_err"] = quant_edge_cases(mode, dtype_name, dev, gen)
+    row.update({"ms": time_ms(run), "plain_ms": time_ms(plain, iters=3),
+                "library_ms": time_ms(lib), "bytes": nbytes, "flops": flops,
+                "bound_ms": bound_ms(nbytes, flops, dtype_name),
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                             >= flops / PEAK_FLOPS[dtype_name]
+                             else "operations"),
+                "route": "cuda-core: quantized split-KV walk"
+                         + (", CUDA-core chunk tile" if name ==
+                            "ragged_attention" else "")})
+    row["x_library"] = row["ms"] / row["library_ms"]
+    return row
+
+
+def quant_edge_cases(mode, dtype_name, dev, gen):
+    """``RAGGED_EDGE``'s spans (and the first with 8 KV heads) on a
+    quantized pool against the plain version within TOL; rows outside
+    every span exact zeros."""
+    import torch
+    from paddle_tpu_torch.kernels import ragged_attention
+    dtype = getattr(torch, dtype_name)
+    errs = {}
+    cases = [(name, spans, HKV) for name, spans in RAGGED_EDGE.items()]
+    cases.append(("gqa_8_kv_heads", RAGGED_EDGE["spans_2_63_64_65"], 8))
+    for name, spans, hkv in cases:
+        q, pk, pv, tbl, qs, ql, kl = ragged_span_inputs(spans, dtype, dev,
+                                                        gen, hkv)
+        kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
+        a = (q, kd, vd, tbl, qs, ql, kl, ks, vs)
+        got = ragged_attention.ragged_paged_attention(*a)
+        want = ragged_attention.ragged_attention_reference(*a)
+        torch.cuda.synchronize()
+        errs[name] = _compare(f"ragged {mode} {name}", dtype_name, got, want)
+        if not bool((got[sum(n for n, _ in spans):] == 0).all()):
+            raise RuntimeError(f"ragged {mode} {name} {dtype_name}: rows "
+                               f"outside every span not zero")
+    return errs
+
+
+#: the fused tick's quantized variants: (pool, int8 weights) by name
+FUSED_QUANT_MODES = {"w8": (None, True), "int8": ("int8", False),
+                     "int8_w8": ("int8", True), "fp8": ("fp8", False),
+                     "fp8_w8": ("fp8", True)}
+
+
+def _planted_faults(p, tied, t, got_logits):
+    """The plain tick on a faulty copy of ``t``'s quantized pools against
+    the kernel's logits ``got_logits``, over max|ref|: layer 0's V scales
+    of each live row's first block dropped (1.0), and layer 0's K scales
+    taken from the neighbouring KV head. Each must miss
+    ``QUANT_F32_LOGITS``."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_decode_tick as fdt
+    first = sorted({int(t["tables"][b, 0]) for b in range(len(t["lens"]))
+                    if t["lens"][b] + t["app_mask"][b] > 0})
+    idx = torch.tensor(first, device=got_logits.device)
+    out = {}
+    for fault in ("v_scale_dropped", "k_scale_neighbour_head"):
+        pk, pv = _clone_pool(t["pool_k"]), _clone_pool(t["pool_v"])
+        if fault == "v_scale_dropped":
+            pv[1][0, idx] = 1.0
+        else:
+            pk[1][0] = pk[1][0].roll(1, dims=-1)
+        want = _tick(fdt.fused_decode_tick_reference, p, tied,
+                     dict(t, pool_k=pk, pool_v=pv), return_logits=True)[4]
+        rel = ((got_logits - want).abs().max()
+               / want.abs().max().clamp(min=1e-30)).item()
+        if not rel > QUANT_F32_LOGITS:
+            raise RuntimeError(f"planted fault {fault}: {rel} of max|ref| "
+                               f"is within QUANT_F32_LOGITS "
+                               f"{QUANT_F32_LOGITS}")
+        out[fault] = rel
+        del pk, pv, want
+    return out
+
+
+def fused_quant_cases(dtype_name, dev, gen):
+    """The fused tick's five quantized variants (``FUSED_QUANT_MODES``:
+    int8 weights on a pool at the model's type; int8 and fp8 pools with
+    dense or int8 weights) against the plain version at llama_7b widths,
+    2 layers, 8 and 37 rows; the layer-0 attention bit for bit the
+    (quantized) paged decode kernel's; kernel, plain and scanned-tick
+    milliseconds, the grid and the byte bound at the storage types. In
+    float32 each quantized pool's logits are read over
+    ``QUANT_SWEEP_SEEDS`` more pools and tokens at both row counts, and
+    the int8 and fp8 pools' planted faults must miss the limit. Returns
+    ``{mode: row}``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import fused_decode_tick as fdt
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_7b,
+                                               llama_decode_params)
+    from paddle_tpu_torch.serving.decode import (_fused_decode_tick,
+                                                 quantize_decode_params)
+    dtype = getattr(torch, dtype_name)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
+                                      dtype=dtype_name), device=dev, seed=6)
+    dense, tied = llama_decode_params(model)
+    qparams = quantize_decode_params(dense, tied)
+    out = {}
+    for mode, (kv, w8) in FUSED_QUANT_MODES.items():
+        p = qparams if w8 else dense
+        row = {"name": "fused_decode_tick", "mode": mode,
+               "dtype": dtype_name, "layers": FUSED_LAYERS,
+               "tol": (dict(zip(("atol", "rtol"), TOL[dtype_name]))
+                       if kv is None or dtype_name != "float32" else
+                       {"of_max_ref": QUANT_F32_LOGITS})}
+        for rows in (SLOTS, FUSED_WIDE_ROWS):
+            t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, rows=rows)
+            if kv is not None:
+                kd, vd, ks, vs = quantize_pool(t["pool_k"], t["pool_v"], kv,
+                                               gen)
+                t.update(pool_k=(kd, ks), pool_v=(vd, vs))
+                del kd, vd, ks, vs
+            logits_err, rows_err, tokens_equal, want = _fused_vs_plain(
+                p, tied, t, dtype_name, f"{mode} {rows} rows")
+            rel = logits_err / max(want.abs().max().item(), 1e-30)
+            bits = _layer0_attention_bits(p, tied, t)
+            if not bits:
+                raise RuntimeError(f"fused tick {mode} {dtype_name} {rows} "
+                                   f"rows: layer-0 attention differs from "
+                                   f"the paged decode kernel")
+            run_t = dict(t, pool_k=_clone_pool(t["pool_k"]),
+                         pool_v=_clone_pool(t["pool_v"]))
+            nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz)
+            part = {"rows": rows, "logits_err": logits_err,
+                    "logits_err_of_max_ref": rel,
+                    ("appended_steps_err" if kv else "appended_rows_err"):
+                        rows_err,
+                    "tokens_equal": tokens_equal, "keys_equal": True,
+                    "layer0_attention_equals_paged_decode": bits,
+                    "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p,
+                                                tied, run_t)),
+                    "grid_blocks": fdt.LAST_GRID["blocks"],
+                    "blocks_per_sm": fdt.LAST_GRID["blocks_per_sm"],
+                    "scanned_tick_ms": time_ms(lambda: _tick(
+                        _fused_decode_tick, p, tied, run_t)),
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": bound_ms(nbytes, flops, dtype_name)}
+            if kv is not None and dtype_name == "float32":
+                # more pools and tokens, greedy rows: the readings behind
+                # the limit, and the near ties they flip
+                sweep, flips = [], 0
+                for s in range(QUANT_SWEEP_SEEDS):
+                    ts = tick_inputs(dtype, dev, gen, FUSED_LAYERS,
+                                     rows=rows)
+                    kd, vd, ks, vs = quantize_pool(ts["pool_k"],
+                                                   ts["pool_v"], kv, gen)
+                    ts.update(pool_k=(kd, ks), pool_v=(vd, vs), tok=(
+                        torch.from_numpy(np.random.RandomState(100 + s)
+                                         .randint(0, 32000, rows))
+                        .to(dev)), temps=ts["temps"] * 0,
+                        top_ks=ts["top_ks"] * 0)
+                    del kd, vd, ks, vs
+                    e, _, same, w = _fused_vs_plain(
+                        p, tied, ts, dtype_name, f"{mode} {rows} rows "
+                        f"sweep {s}", near_tie=True)
+                    sweep.append(e / max(w.abs().max().item(), 1e-30))
+                    flips += not same
+                    del ts, w
+                    torch.cuda.empty_cache()
+                part["sweep_logits_err_of_max_ref"] = sweep
+                part["sweep_near_tie_flips"] = flips
+                if rows == SLOTS:
+                    got = _tick(fdt.fused_decode_tick, p, tied,
+                                dict(t, pool_k=_clone_pool(t["pool_k"]),
+                                     pool_v=_clone_pool(t["pool_v"])),
+                                return_logits=True)[4]
+                    part["planted_faults_of_max_ref"] = _planted_faults(
+                        p, tied, t, got)
+                    del got
+            if rows == SLOTS:
+                part["plain_ms"] = time_ms(lambda: _tick(
+                    fdt.fused_decode_tick_reference, p, tied, run_t),
+                    iters=3)
+                row.update(part, max_abs_err=logits_err,
+                           bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                                     >= flops / PEAK_FLOPS[dtype_name]
+                                     else "operations"),
+                           library_ms=None,
+                           library="none: no single PyTorch call computes "
+                                   "a tick")
+            else:
+                row["wide"] = part
+                row["max_abs_err"] = max(row["max_abs_err"], logits_err)
+            del t, run_t, want
+            torch.cuda.empty_cache()
+        emit({"phase": "kernels", **row})
+        out[mode] = row
+    del model, dense, qparams
+    return out
+
+
 def phase_kernels():
     import torch
     from paddle_tpu_torch.kernels import reset_launches
@@ -979,6 +1482,17 @@ def phase_kernels():
             row = case(name, dtype_name, dev, gen)
             emit({"phase": "kernels", **row})
             rows[(name, dtype_name)] = row
+            torch.cuda.empty_cache()
+        # the quantized modes of the three kernels that have them
+        for name in QUANT_KERNELS:
+            got = (fused_quant_cases(dtype_name, dev, gen)
+                   if name == "fused_decode_tick" else
+                   {mode: quant_kernel_case(name, mode, dtype_name, dev, gen)
+                    for mode in QUANT_MODES})
+            for mode, row in got.items():
+                if name != "fused_decode_tick":
+                    emit({"phase": "kernels", **row})
+                rows[(name, dtype_name, mode)] = row
             torch.cuda.empty_cache()
     reset_launches()
     # span-1 ragged rows against the paged decode kernel: decode row b with
@@ -1079,6 +1593,7 @@ def phase_engine():
     _engine_prefix(model, cfg)
     _engine_two_program(model, cfg, on_streams["default"])
     _engine_multitick(model, cfg)
+    quant = _engine_quant(model, cfg)
     del model
     torch.cuda.empty_cache()
     probe = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -1089,6 +1604,325 @@ def phase_engine():
         raise RuntimeError(f"capture probe exited {probe.returncode}: "
                            f"{probe.stderr[-2000:]}")
     print(lines[-1], flush=True)
+    return quant
+
+
+#: the quantized knob sets the engine phase holds, kernels against plain
+QUANT_ENGINES = (
+    ("kv_int8", {"kv_dtype": "int8"}),
+    ("kv_fp8", {"kv_dtype": "fp8"}),
+    ("w8", {"quantize_weights": True}),
+    ("w8_dense", {"quantize_weights": True, "paged_attn": False}),
+    ("w8_two_program", {"quantize_weights": True, "ragged_step": False}),
+    ("fused_w8", {"fused_tick": True, "quantize_weights": True}),
+    ("fused_int8", {"fused_tick": True, "kv_dtype": "int8"}),
+    ("fused_int8_w8", {"fused_tick": True, "kv_dtype": "int8",
+                       "quantize_weights": True}),
+    ("fused_fp8", {"fused_tick": True, "kv_dtype": "fp8"}),
+    ("fused_fp8_w8", {"fused_tick": True, "kv_dtype": "fp8",
+                      "quantize_weights": True}),
+    ("ticks4_int8", {"decode_ticks": 4, "kv_dtype": "int8"}),
+    ("prefix_int8", {"prefix_cache": True, "kv_dtype": "int8"}),
+    ("w8_a8", {"quantize_weights": True, "quantize_activations": True}),
+)
+
+
+def _matched_prefix(a, b):
+    """Mean over streams of the share of tokens before the first
+    difference (``tests/test_lowprec_decode.py``'s measure)."""
+    fracs = []
+    for x, y in zip(a, b):
+        m = 0
+        for t, u in zip(x, y):
+            if t != u:
+                break
+            m += 1
+        fracs.append(m / max(len(x), 1))
+    return sum(fracs) / max(len(fracs), 1)
+
+
+#: the request sets (seeds of ``_requests``) a8 streams are compared on
+A8_SEEDS = (3, 13, 23)
+
+
+def _a8_run(model, reqs, knob, kernels):
+    """``_eng_run`` with every lm-head product recorded: for each call,
+    whether its rows are the slots (the unified step's span samples and
+    tail ticks) or a cold prefill's requests, each row's live flag (a
+    span this step, or a decode row of a tail tick), its top two tokens, their logit margin, the logits, and the
+    largest change one re-rounded activation step makes to that margin
+    (the row's activation scale times max over the hidden axis of
+    |head[:, t1] - head[:, t2]| in its int8 form). Returns (``_eng_run``'s
+    tuple, the calls)."""
+    from paddle_tpu_torch.serving import decode as sd
+    calls, live = [], {}
+    sample, tick, head_logits = (sd._span_last_sample, sd._fused_decode_tick,
+                                 sd._head_logits)
+
+    def rec_sample(params, head, x, qstart, qlen, *a, **kw):
+        live["rows"] = sd._host(qlen) > 0
+        return sample(params, head, x, qstart, qlen, *a, **kw)
+
+    def rec_tick(*a, **kw):
+        live["rows"] = sd._host(a[11]) > 0
+        return tick(*a, **kw)
+
+    def rec_head(last_h, head):
+        logits = head_logits(last_h, head)
+        top = logits.float().topk(2, dim=-1)
+        t1, t2 = top.indices[:, 0], top.indices[:, 1]
+        qw, sw = head
+        sw = sw.reshape(-1)
+        step = sd.quantize_act_rows(last_h)[1].reshape(-1) * (
+            qw[:, t1].float() * sw[t1] - qw[:, t2].float() * sw[t2]
+        ).abs().amax(0)
+        rows = live.pop("rows", None)
+        calls.append({"slots": rows is not None,
+                      "live": [True] * len(t1) if rows is None else rows,
+                      "logits": logits.float(),
+                      "t1": t1.tolist(), "t2": t2.tolist(),
+                      "margin": (top.values[:, 0] - top.values[:, 1])
+                      .tolist(), "step": step.tolist()})
+        return logits
+
+    sd._span_last_sample, sd._fused_decode_tick, sd._head_logits = (
+        rec_sample, rec_tick, rec_head)
+    try:
+        return _eng_run(model, reqs, knob, kernels=kernels), calls
+    finally:
+        sd._span_last_sample, sd._fused_decode_tick, sd._head_logits = (
+            sample, tick, head_logits)
+
+
+def _a8_partings(on, off):
+    """Each slot's first lm-head call, live in both runs, whose greedy pick
+    differs (kernels ``on`` against plain ``off``), and each cold-prefill
+    row whose pick differs: the plain run's top-2 margin there and one
+    activation step's change to it, whether the kernels took the plain
+    run's runner-up, the largest logit difference there and over the
+    slot's earlier live calls."""
+    out, before, parted = [], {}, set()
+    for k, (a, b) in enumerate(zip(on, off)):
+        for r in range(len(b["t1"])):
+            if not (a["live"][r] and b["live"][r]) or r in parted:
+                continue
+            d = (a["logits"][r] - b["logits"][r]).abs().max().item()
+            if a["t1"][r] != b["t1"][r]:
+                out.append({"call": k, "row": r, "slots": b["slots"],
+                            "margin": b["margin"][r],
+                            "one_step": b["step"][r],
+                            "runner_up": a["t1"][r] == b["t2"][r],
+                            "logits_diff": d,
+                            "logits_diff_before": before.get(r, 0.0)
+                            if b["slots"] else 0.0})
+                if b["slots"]:
+                    parted.add(r)
+            elif b["slots"]:
+                before[r] = max(before.get(r, 0.0), d)
+    return out
+
+
+def _first_parting(a, b):
+    """Each stream's first token index where the two runs differ (None
+    where they agree)."""
+    out = []
+    for x, y in zip(a, b):
+        i = next((i for i, (t, u) in enumerate(zip(x, y)) if t != u), None)
+        out.append(i if i is not None or len(x) == len(y)
+                   else min(len(x), len(y)))
+    return out
+
+
+def _own_kernel(knob):
+    """The decode-side kernel a knob set's tail ticks launch."""
+    if not knob.get("paged_attn", True):
+        return "decode"
+    if knob.get("fused_tick") and not knob.get("quantize_activations"):
+        return "fused_decode_tick"
+    return "paged_decode"
+
+
+def _engine_quant(model, cfg):
+    """fp32, 2 layers: every quantized knob set of ``QUANT_ENGINES``
+    through the kernels and through the plain versions: greedy streams
+    and finish reasons equal, the path's kernels launched with the
+    kernels on and none with them off. a8 streams may part (``_a8``); the
+    rest must be equal. The prefix run is two waves of the same shared-prefix
+    prompts, the second hitting the first's blocks (their int8 data and
+    scale planes)."""
+    import numpy as np
+    from paddle_tpu_torch.serving import GenerationRequest
+    reqs = _requests(GenerationRequest, (37, 130, 300), 700, 16,
+                     cfg.vocab_size, seed=3)
+    r = np.random.RandomState(4)
+    pre = r.randint(0, cfg.vocab_size, 96).astype(np.int32)
+    prompts = [np.concatenate([pre, r.randint(0, cfg.vocab_size, n).astype(
+        np.int32)]) for n in (20, 45, 70)]
+    waves = [[GenerationRequest(prompt=p, max_new_tokens=16)
+              for p in prompts] for _ in range(2)]
+    launches = {}
+    for label, knob in QUANT_ENGINES:
+        a8 = bool(knob.get("quantize_activations"))
+        if a8:
+            witness = _a8(model, cfg, knob)
+            runs = witness.pop("runs")
+        else:
+            runs = {use: _eng_run(model, waves if knob.get("prefix_cache")
+                                  else reqs, knob, kernels=use)
+                    for use in (True, False)}
+        (s_on, f_on, eng, l_on, _), (s_off, f_off, _, l_off, _) = \
+            runs[True], runs[False]
+        own = _own_kernel(knob)
+        same = (s_on == s_off and f_on == f_off) or (
+            a8 and witness["ok"])
+        line = {"phase": "engine", "engine": label, "knobs": knob,
+                "layers": 2, "dtype": "float32",
+                "greedy_streams_equal": s_on == s_off and f_on == f_off,
+                "tokens": sum(len(x) for x in s_on),
+                "kv_dtype": eng.kv_dtype,
+                "bytes_per_token": (eng.cache.bytes_per_token()
+                                    if knob.get("paged_attn", True)
+                                    else None),
+                "own_kernel": own, "launches_kernels": l_on,
+                "launches_plain": sum(l_off.values())}
+        if knob.get("prefix_cache"):
+            line["prefill_tokens_saved"] = eng.stats["prefill_tokens_saved"]
+        if a8:
+            line.update(witness)
+        emit(line)
+        eng.release()
+        if not same:
+            raise RuntimeError(f"engine {label}: kernels vs plain streams "
+                               f"differ: {s_on} vs {s_off}")
+        if not l_on[own] or sum(l_off.values()) or (
+                knob.get("paged_attn", True) and not l_on["ragged_attention"]
+                and knob.get("ragged_step", True)):
+            raise RuntimeError(f"engine {label} launches: kernels {l_on}, "
+                               f"plain {l_off}")
+        if knob.get("prefix_cache") and not line["prefill_tokens_saved"]:
+            raise RuntimeError(f"engine {label}: the second wave hit "
+                               f"nothing")
+        launches[label] = l_on
+    # the main path of the modes the quantized serve runs do not launch:
+    # the fp8 engines and the fused tick's other variants of this phase
+    return {("ragged_attention", "fp8"): launches["kv_fp8"][
+                "ragged_attention"],
+            ("paged_decode", "fp8"): launches["kv_fp8"]["paged_decode"],
+            **{("fused_decode_tick", mode): launches["fused_" + mode][
+                "fused_decode_tick"]
+               for mode in FUSED_QUANT_MODES if mode != "int8_w8"}}
+
+
+#: a8, kernels against plain: the largest logit difference before a
+#: parting may be at most this many times that of two plain runs whose
+#: attention differs by one ulp (the noise a8 makes of last-place
+#: differences; PERF.md section 2)
+A8_NOISE_FACTOR = 4.0
+
+
+def _ulp_attention(seed):
+    """``serving.decode._attn_fns`` with each attention output moved one
+    ulp up or down at random (seeded): the plain versions, unless the
+    kernels are on, differing from themselves in the last place as the
+    kernels differ from them."""
+    import torch
+    from paddle_tpu_torch.serving import decode as sd
+    fns, gens = sd._attn_fns, {}
+
+    def nudge(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            x = out[0] if isinstance(out, tuple) else out
+            gen = gens.setdefault(x.device, torch.Generator(
+                device=x.device).manual_seed(seed))
+            up = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+            inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+            y = torch.nextafter(x, torch.where(up, inf, -inf))
+            return (y,) + tuple(out[1:]) if isinstance(out, tuple) else y
+        return call
+
+    def attn_fns(decode_attn="pallas"):
+        got = fns(decode_attn)
+        return tuple(nudge(f) for f in got[:4]) + tuple(got[4:])
+    return attn_fns
+
+
+def _pre_parting_diff(on, off, partings):
+    """The largest logit difference of two recorded runs over each slot's
+    live calls before its parting (and cold-prefill rows that agree)."""
+    first = {p["row"]: p["call"] for p in partings if p["slots"]}
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(on, off)):
+        for r in range(len(b["t1"])):
+            if not (a["live"][r] and b["live"][r]) or a["t1"][r] != b["t1"][r]:
+                continue
+            if b["slots"] and k >= first.get(r, len(on)):
+                continue
+            worst = max(worst, (a["logits"][r] - b["logits"][r]).abs().max()
+                        .item())
+    return worst
+
+
+def _a8(model, cfg, knob):
+    """int8 x int8 projections quantize each activation row at run time,
+    which re-rounds the attention kernels' last-place differences from
+    the plain versions to a full step: a8's kernels-vs-plain streams may
+    part where two tokens nearly tie (the reference measures a8's
+    divergence rather than assume it zero: tests/test_lowprec_decode.py,
+    matched prefix >= 0.5). Over ``A8_SEEDS`` request sets, with the
+    lm-head products recorded (``_a8_run``), the kernels and a plain run
+    whose attention is one ulp off (``_ulp_attention``) are each held to
+    the plain run: the kernels' largest logit difference before a parting
+    within ``A8_NOISE_FACTOR`` of the one-ulp run's, every parting at a
+    margin below the logit difference there, the first set's matched
+    prefix at least half, and the kernels' repeat of it the same bits.
+    Returns the readings, ``ok``, and the first set's runs."""
+    from paddle_tpu_torch.serving import GenerationRequest
+    from paddle_tpu_torch.serving import decode as sd
+    out = {"seeds": [], "ok": True}
+    worst = {"kernels": 0.0, "ulp": 0.0}
+    for seed in A8_SEEDS:
+        reqs = _requests(GenerationRequest, (37, 130, 300), 700, 16,
+                         cfg.vocab_size, seed=seed)
+        off, c_off = _a8_run(model, reqs, knob, False)
+        fns = sd._attn_fns
+        sd._attn_fns = _ulp_attention(seed)
+        try:
+            ulp, c_ulp = _a8_run(model, reqs, knob, False)
+        finally:
+            sd._attn_fns = fns
+        on, c_on = _a8_run(model, reqs, knob, True)
+        reading = {"seed": seed}
+        for name, run, calls in (("kernels", on, c_on), ("ulp", ulp, c_ulp)):
+            partings = _a8_partings(calls, c_off)
+            diff = _pre_parting_diff(calls, c_off, partings)
+            worst[name] = max(worst[name], diff)
+            reading[name] = {
+                "first_parting_token": _first_parting(run[0], off[0]),
+                "matched_prefix_fraction": _matched_prefix(run[0], off[0]),
+                "logits_diff_before_parting": diff, "partings": partings}
+            out["ok"] = out["ok"] and all(
+                p["margin"] < p["logits_diff"] for p in partings) and (
+                len(partings) >= sum(
+                    i is not None
+                    for i in reading[name]["first_parting_token"]))
+            if run is not on:
+                run[2].release()
+        del c_on, c_off, c_ulp
+        if seed == A8_SEEDS[0]:
+            out["runs"] = {True: on, False: off}
+            reading["kernels_repeat_equal"] = \
+                _eng_run(model, reqs, knob)[0] == on[0]
+            out["ok"] = out["ok"] and reading["kernels_repeat_equal"] and \
+                reading["kernels"]["matched_prefix_fraction"] >= 0.5
+        else:
+            on[2].release()
+        out["seeds"].append(reading)
+    out["kernels_over_ulp_logits_diff"] = (
+        worst["kernels"] / max(worst["ulp"], 1e-30))
+    out["ok"] = out["ok"] and worst["ulp"] > 0 and \
+        out["kernels_over_ulp_logits_diff"] <= A8_NOISE_FACTOR
+    return out
 
 
 #: the fused engine past the 16 rows its kernel once took: slots, requests
@@ -1452,6 +2286,7 @@ def _expected_serve_launches(label, eng, layers):
     """Launch counts the code implies for one serve run: an int is exact,
     ``"+"`` means at least one."""
     st = eng.stats
+    label = QUANT_SERVE_BASE.get(label, label)
     if label == "default":
         return {"flash": "+", "ragged_attention": "+", "paged_decode": "+",
                 "fused_decode_tick": 0, "decode": 0}
@@ -1480,13 +2315,14 @@ def fused_tick_timing(eng, layers):
     import torch
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
     from paddle_tpu_torch.serving.decode import _fused_decode_tick
-    pool = eng.cache.pool
-    t = tick_inputs(pool.k.dtype, pool.k.device, None, layers,
-                    pools=(pool.k, pool.v))
-    t1 = tick_inputs(pool.k.dtype, pool.k.device, None, layers,
-                     pools=(pool.k, pool.v), lens=[1] * SLOTS)
+    pools = eng.cache.kv_args()
+    dt = eng._params["embed"].dtype
+    dev = eng.cache.pool.k.device
+    t = tick_inputs(dt, dev, None, layers, pools=pools)
+    t1 = tick_inputs(dt, dev, None, layers, pools=pools, lens=[1] * SLOTS)
     p, tied = eng._params, eng._tied
-    nbytes, flops = tick_cost(p, t, layers, pool.k.element_size())
+    nbytes, flops = tick_cost(p, t, layers,
+                              torch.tensor([], dtype=dt).element_size())
     tick = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t))
     grid = dict(fdt.LAST_GRID)
     tick1 = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t1))
@@ -1544,9 +2380,14 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
             "launches_expected": want,
             "first_tokens": [t[:4] for t in toks]}
     tick = None
-    if label == "fused_tick":
+    if knob.get("fused_tick"):
         timing, tick = fused_tick_timing(eng, cfg.num_hidden_layers)
         line.update(timing)
+    if label in QUANT_SERVE_BASE:
+        line.update(kv_dtype=eng.kv_dtype,
+                    quantize_weights=eng.quantize_weights,
+                    bytes_per_token=eng.cache.bytes_per_token(),
+                    pool_bytes=eng.cache.occupancy_bytes())
     if label == "mtick":
         line.update(mtick_syncs=eng.stats["mtick_syncs"],
                     mtick_ticks=eng.stats["mtick_ticks"],
@@ -1561,7 +2402,8 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
     del eng, tick
     gc.collect()
     torch.cuda.empty_cache()
-    if profile and label in ("default", "dense", "mtick"):
+    if (profile and label in ("default", "dense", "mtick")) \
+            or label in QUANT_SERVE_BASE:
         phase_profile(model, reqs, toks, label, knob)
     if profile and label == "fused_tick":
         phase_profile_fused(model, cfg, reqs, toks)
@@ -1575,11 +2417,12 @@ def phase_serve(model, profile=False):
     ``profile``, a repeat of each run under ``torch.profiler`` reports
     device time by kernel and the device's busy share. Returns each
     kernel's launches on the run of its path."""
+    import torch
     from paddle_tpu_torch.serving import GenerationRequest
     cfg = model.config
     reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
     runs = {label: _serve_run(model, cfg, reqs, label, knob, profile)
-            for label, knob, _ in ENGINES + MTICK}
+            for label, knob, _ in ENGINES + MTICK + QUANT_SERVE}
     streams = {label: toks for label, (_, toks) in runs.items()}
     emit({"phase": "serve", "check": "streams_vs_default",
           "equal": {label: streams[label] == streams["default"]
@@ -1588,12 +2431,30 @@ def phase_serve(model, profile=False):
                 for n in ("flash", "ragged_attention", "paged_decode")}
     for label, _, own in ENGINES[1:]:
         launches[own] = runs[label][0][own]
+    # the int8 modes' launches on their main path: the quantized runs
+    for n in ("ragged_attention", "paged_decode"):
+        launches[(n, "int8")] = runs["int8_w8"][0][n]
+    launches[("fused_decode_tick", "int8_w8")] = \
+        runs["int8_w8_fused"][0]["fused_decode_tick"]
+    # the int8 parameters are cached on the model for its engines; the
+    # later runs and phases serve bf16 weights, so they go
+    model.__dict__.pop("_decode_qparams", None)
+    gc.collect()
+    torch.cuda.empty_cache()
     serve_prefix(model, cfg)
     return launches
 
 
 #: the multi-tick serve run: the default engine with decode_ticks=8
 MTICK = (("mtick", {"decode_ticks": 8}, None),)
+#: the quantized serve runs: an int8 pool and int8 weights on the default
+#: engine, then with the fused tick; the engine whose launch counts each
+#: follows
+QUANT_SERVE = (("int8_w8", {"kv_dtype": "int8", "quantize_weights": True},
+                None),
+               ("int8_w8_fused", {"kv_dtype": "int8", "quantize_weights": True,
+                                  "fused_tick": True}, "fused_decode_tick"))
+QUANT_SERVE_BASE = {"int8_w8": "default", "int8_w8_fused": "fused_tick"}
 #: the prefix serve run: a shared prefix, distinct tails, the trie's budget
 PREFIX_LEN, PREFIX_TAILS, PREFIX_BLOCKS = 1024, (64, 96, 128, 160, 192,
                                                  224, 256, 80), 512
@@ -2475,16 +3336,16 @@ def main(argv=None):
     smi = phase_device()
     phase_build()
     rows = phase_kernels() if "kernels" in phases else {}
-    if "engine" in phases:
-        phase_engine()
     launches = {}
+    if "engine" in phases:
+        launches.update(phase_engine())
     if phases & {"serve", "generate", "server"}:
         # one llama_7b (32 layers, bf16, seed 0) for the three phases
         from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
         model = LlamaForCausalLM(llama_7b(dtype="bfloat16"), device="cuda",
                                  seed=0)
         if "serve" in phases:
-            launches = phase_serve(model, args.profile)
+            launches.update(phase_serve(model, args.profile))
         if "generate" in phases:
             phase_generate(model)
         if "server" in phases:
@@ -2507,6 +3368,25 @@ def main(argv=None):
                                        "bound_ms", "bound_by",
                                        "library_ms", "tflops")},
             "math": route(name, "bfloat16")})
+        # the quantized modes: launches on their main path (int8 pools and
+        # weights: the quantized serve runs; the others: the engine
+        # phase's engines)
+        for mode in ((tuple(FUSED_QUANT_MODES) if name == "fused_decode_tick"
+                      else QUANT_MODES) if name in QUANT_KERNELS else ()):
+            row = rows.get((name, "bfloat16", mode), {})
+            kernels.append({
+                "name": f"{name}:{mode}", "route": "cuda",
+                "source": SOURCES[name], "replaces": REPLACES[name],
+                "mode": mode, "launches": launches.get((name, mode), 0),
+                **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")},
+                "math": "cuda-core split-KV walk" + (
+                    ", mma.sync GEMVs" + (" from int8 chunks"
+                                          if mode.endswith("w8") else "")
+                    if name == "fused_decode_tick"
+                    else ", CUDA-core chunk tile"
+                    if name == "ragged_attention" else "")})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -24,13 +24,35 @@
 // length zeroed (stale pool rows may hold NaN), P rounded to the input type
 // before the PV product, and out = acc / max(l, 1e-30) rounded to the input
 // type.
+//
+// A quantized pool (K/V of type KT = int8_t or __nv_fp8_e4m3, scale planes
+// per row and KV head or per block and KV head: Scales below) converts each
+// K/V tile to float32 as it lands in shared memory, with the tile's keys'
+// scales beside it: the K scale multiplies the score after the dot, l sums
+// the unscaled P, and the V scale is folded into P (kept float32) before
+// the PV product, as the split-KV walk (split_kv.cuh) and the reference
+// kernel order it.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace pt {
+
+// The scale planes of a pool: QM 0 none, 1 per row and KV head (int8),
+// 2 per block and KV head (fp8); off(p) is key p's index in ks and vs.
+struct NoOff {
+  __device__ long long operator()(int) const { return 0; }
+};
+template <int QM, typename ScaleOff>
+struct Scales {
+  const float* ks;
+  const float* vs;
+  ScaleOff off;
+};
+using NoScales = Scales<0, NoOff>;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -40,6 +62,12 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// the narrow types of a quantized KV pool: exact in float32
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -65,6 +93,45 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
     o[2 * i] = f.x;
     o[2 * i + 1] = f.y;
   }
+}
+
+// A score chunk of the split-KV walk -> floats: 16 bytes of float32 or
+// bfloat16, 8 bytes (8 values) of a quantized pool's int8 or e4m3
+__device__ __forceinline__ void load_chunk(const float* p, float* o) { load16(p, o); }
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* o) {
+  load16(p, o);
+}
+template <typename Q>
+__device__ __forceinline__ void load8_narrow(const Q* p, float* o) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const Q* b = reinterpret_cast<const Q*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = to_f(b[i]);
+}
+__device__ __forceinline__ void load_chunk(const int8_t* p, float* o) {
+  load8_narrow(p, o);
+}
+__device__ __forceinline__ void load_chunk(const __nv_fp8_e4m3* p, float* o) {
+  load8_narrow(p, o);
+}
+
+// 16 bytes of a quantized pool's int8 or e4m3 -> 16 floats
+template <typename Q>
+__device__ __forceinline__ void load16_narrow(const Q* p, float* o) {
+  load8_narrow(p, o);
+  load8_narrow(p + 8, o + 8);
+}
+
+// 16 bytes of any pool type -> 16 / sizeof(KT) floats
+__device__ __forceinline__ void load16_any(const float* p, float* o) { load16(p, o); }
+__device__ __forceinline__ void load16_any(const __nv_bfloat16* p, float* o) {
+  load16(p, o);
+}
+__device__ __forceinline__ void load16_any(const int8_t* p, float* o) {
+  load16_narrow(p, o);
+}
+__device__ __forceinline__ void load16_any(const __nv_fp8_e4m3* p, float* o) {
+  load16_narrow(p, o);
 }
 
 // the same through L2 only (__ldcg): for data another block of the same
@@ -102,10 +169,12 @@ struct TileShape {
   static constexpr int KP = D + 1;                      // padded K row
   static constexpr int RPW = (TQ + kWarps - 1) / kWarps;  // rows per warp
   static constexpr int NACC = (TQ * D + kThreads - 1) / kThreads;
-  // shared floats: Q, K, V, P, then per-row alpha / l / m; rounded up to
-  // 16 bytes so the int64 offsets after them are aligned
+  // shared floats: Q, K, V, P, per-row alpha / l / m, then a tile's K and
+  // V scales; rounded up to 16 bytes so the int64 offsets after them are
+  // aligned
   static constexpr int SMEM_FLOATS =
-      (TQ * D + kKeys * KP + kKeys * D + TQ * kKeys + 3 * TQ + 3) & ~3;
+      (TQ * D + kKeys * KP + kKeys * D + TQ * kKeys + 3 * TQ + 2 * kKeys +
+       3) & ~3;
   // plus the per-key and per-row offsets (int64 each)
   static constexpr size_t SMEM_BYTES =
       SMEM_FLOATS * sizeof(float) + (kKeys + TQ) * sizeof(long long);
@@ -117,15 +186,20 @@ struct TileShape {
 // -1 for a row outside the tile — and synchronises before the call.
 // row_pos(i) is the last key position row i may attend. key_off(p) returns the element offset of key position p's D-vector in
 // k (and v). Keys p >= kv_valid are never read: their K/V tile rows are
-// zero and their scores masked. The walk visits keys [0, kv_stop).
+// zero and their scores masked. The walk visits keys [0, kv_stop). A
+// quantized pool (KT narrow) passes its planes in sc, key p's scales at
+// sc.off(p).
 // On return s_m[i] / s_l[i] hold each row's running max and sum (for LSE).
-template <typename T, int D, int TQ, typename KeyOff, typename RowPos>
+template <typename T, int D, int TQ, typename KeyOff, typename RowPos,
+          typename KT = T, int QM = 0, typename ScaleOff = NoOff>
 __device__ __forceinline__ void attend_tile(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, float* smem,
+    const T* __restrict__ q, const KT* __restrict__ k,
+    const KT* __restrict__ v, T* __restrict__ out, float* smem,
     long long* s_qoff, RowPos row_pos, int kv_stop, int kv_valid,
-    KeyOff key_off, float scale) {
+    KeyOff key_off, float scale,
+    Scales<QM, ScaleOff> sc = Scales<QM, ScaleOff>{}) {
   using S = TileShape<T, D, TQ>;
+  constexpr int KVV = 16 / sizeof(KT);   // pool elements a 16-byte load
   float* sQ = smem;
   float* sK = sQ + TQ * D;
   float* sV = sK + kKeys * S::KP;
@@ -133,6 +207,8 @@ __device__ __forceinline__ void attend_tile(
   float* s_alpha = sP + TQ * kKeys;
   float* s_l = s_alpha + TQ;
   float* s_m = s_l + TQ;
+  float* s_ks = s_m + TQ;                 // the tile's K scales
+  float* s_vs = s_ks + kKeys;             // ... and V scales
   long long* s_koff = reinterpret_cast<long long*>(smem + S::SMEM_FLOATS);
 
   const int tid = threadIdx.x;
@@ -173,23 +249,28 @@ __device__ __forceinline__ void attend_tile(
     if (tid < kKeys) {
       const int p = k0 + tid;
       s_koff[tid] = (p < kv_valid) ? key_off(p) : -1;
+      if constexpr (QM != 0) {
+        s_ks[tid] = p < kv_valid ? sc.ks[sc.off(p)] : 0.f;
+        s_vs[tid] = p < kv_valid ? sc.vs[sc.off(p)] : 0.f;
+      }
     }
     __syncthreads();
-    // ---- stage K (padded rows) and V; invalid keys become zero rows
-    for (int e = tid; e < kKeys * D / S::VEC; e += kThreads) {
-      const int j = e / (D / S::VEC);
-      const int d = (e % (D / S::VEC)) * S::VEC;
-      float bk[S::VEC], bv[S::VEC];
+    // ---- stage K (padded rows) and V in float32; invalid keys become
+    // zero rows
+    for (int e = tid; e < kKeys * D / KVV; e += kThreads) {
+      const int j = e / (D / KVV);
+      const int d = (e % (D / KVV)) * KVV;
+      float bk[KVV], bv[KVV];
       const long long off = s_koff[j];
       if (off >= 0) {
-        load16(k + off + d, bk);
-        load16(v + off + d, bv);
+        load16_any(k + off + d, bk);
+        load16_any(v + off + d, bv);
       } else {
 #pragma unroll
-        for (int x = 0; x < S::VEC; ++x) { bk[x] = 0.f; bv[x] = 0.f; }
+        for (int x = 0; x < KVV; ++x) { bk[x] = 0.f; bv[x] = 0.f; }
       }
 #pragma unroll
-      for (int x = 0; x < S::VEC; ++x) {
+      for (int x = 0; x < KVV; ++x) {
         sK[j * S::KP + d + x] = bk[x];
         sV[j * D + d + x] = bv[x];
       }
@@ -205,6 +286,7 @@ __device__ __forceinline__ void attend_tile(
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s = fmaf(sQ[i * D + d], sK[lane * S::KP + d], s);
       s *= scale;
+      if constexpr (QM != 0) s *= s_ks[lane];   // post-dot, after scale
       const bool valid = (p < kv_valid) && (p <= pos_row[r]);
       s = valid ? s : kNegInf;
       const float m_new = fmaxf(m_row[r], warp_max(s));
@@ -213,7 +295,12 @@ __device__ __forceinline__ void attend_tile(
       const float alpha = expf(m_row[r] - m_new);
       l_row[r] = alpha * l_row[r] + warp_sum(pr);
       m_row[r] = m_new;
-      sP[i * kKeys + lane] = to_f(from_f<T>(pr));
+      // l took the unscaled P; a quantized pool's V scale is folded in
+      // after, in float32
+      if constexpr (QM != 0)
+        sP[i * kKeys + lane] = pr * s_vs[lane];
+      else
+        sP[i * kKeys + lane] = to_f(from_f<T>(pr));
       if (lane == 0) s_alpha[i] = alpha;
     }
     __syncthreads();

@@ -45,9 +45,9 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
     return ((row0 + p) * Hkv + kvh) * D;
   };
   skv::split_kv_walk<T, D>(q, k_cache, v_cache, out, part_m, part_l,
-                           part_acc, tickets, smem_raw, qo, len, key_off, G,
-                           b, kvh, Hkv, blockIdx.x, split_len, n_split,
-                           scale);
+                           part_acc, tickets, smem_raw, qo, len, key_off,
+                           NoScales{}, G, b, kvh, Hkv, blockIdx.x, split_len,
+                           n_split, scale);
 }
 
 template <typename T>

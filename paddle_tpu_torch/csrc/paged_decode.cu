@@ -16,15 +16,24 @@
 // KV head) to finish, in the same launch. This file says where a row's keys
 // live: key p of row b is row p % bs of pool block tables[b][p / bs], and
 // sentinel table entries are clamped into the pool. One launch per call.
+//
+// Quantized pools (the reference's int8 and fp8 modes, _paged_kernel's
+// quantized branches): int8 K/V with per-row-per-head float32 scale planes
+// [nb, bs, Hkv] (key p's scale at the same (block, row, head) as its data),
+// or e4m3 with per-block planes [nb, Hkv]; the walk's quantized mode
+// (split_kv.cuh) reads half (int8 at D = 128: D + 4 bytes a row and head
+// instead of 2D) or a quarter of the bytes.
 #include "split_kv.cuh"
 
 namespace pt {
 namespace pd {
 
-template <typename T, int D>
+template <typename T, int D, typename KT, int QM>
 __global__ void __launch_bounds__(skv::kNT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                    const T* __restrict__ pool_v,
+paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
+                    const KT* __restrict__ pool_v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part_m, float* __restrict__ part_l,
@@ -44,28 +53,37 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     const int phys = min(max(row_tbl[p / bs], 0), nb - 1);
     return (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D;
   };
+  // a key's scale: per row and head (int8), per block and head (fp8)
+  auto scale_off = [&](int p) -> long long {
+    const long long phys = min(max(row_tbl[p / bs], 0), nb - 1);
+    return QM == 2 ? phys * Hkv + kvh : (phys * bs + p % bs) * Hkv + kvh;
+  };
   skv::split_kv_walk<T, D>(q, pool_k, pool_v, out, part_m, part_l, part_acc,
-                           tickets, smem_raw, qo, len, key_off, G, b, kvh,
-                           Hkv, blockIdx.x, split_len, n_split, scale);
+                           tickets, smem_raw, qo, len, key_off,
+                           Scales<QM, decltype(scale_off)>{k_scale, v_scale,
+                                                           scale_off},
+                           G, b, kvh, Hkv, blockIdx.x, split_len, n_split,
+                           scale);
 }
 
-template <typename T>
+template <typename T, typename KT, int QM>
 cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
-                       const int* tables, const int* lengths, void* out,
-                       float* pm, float* pl, float* pa, int* tickets, int B,
-                       int H, int Hkv, int nb, int bs, int mb, int split_len,
-                       int n_split, cudaStream_t s) {
+                       const float* ks, const float* vs, const int* tables,
+                       const int* lengths, void* out, float* pm, float* pl,
+                       float* pa, int* tickets, int B, int H, int Hkv, int nb,
+                       int bs, int mb, int split_len, int n_split,
+                       cudaStream_t s) {
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(pk);
-  const T* vt = static_cast<const T*>(pv);
+  const KT* kt = static_cast<const KT*>(pk);
+  const KT* vt = static_cast<const KT*>(pv);
   T* ot = static_cast<T*>(out);
 #define PT_PAGED(DD)                                                        \
   case DD:                                                                  \
-    return skv::launch_walk<T, DD>(paged_decode_kernel<T, DD>, H / Hkv,     \
-                                   n_split, Hkv, B, s, qt, kt, vt, tables,  \
-                                   lengths, ot, pm, pl, pa, tickets, H, Hkv, \
-                                   nb, bs, mb, split_len, n_split, scale);
+    return skv::launch_walk<T, DD, KT>(                                     \
+        paged_decode_kernel<T, DD, KT, QM>, H / Hkv, n_split, Hkv, B, s, qt, \
+        kt, vt, ks, vs, tables, lengths, ot, pm, pl, pa, tickets, H, Hkv, nb, \
+        bs, mb, split_len, n_split, scale);
   switch (D) {
     PT_PAGED(64)
     PT_PAGED(128)
@@ -76,22 +94,53 @@ cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
 #undef PT_PAGED
 }
 
+// Every (query type, pool mode) of one head dim: mode 0 the pool in the
+// query's type, 1 int8 with per-row planes, 2 e4m3 with per-block planes.
+template <typename T>
+cudaError_t dispatch_mode(int mode, int D, const void* q, const void* pk,
+                          const void* pv, const float* ks, const float* vs,
+                          const int* tables, const int* lengths, void* out,
+                          float* pm, float* pl, float* pa, int* tickets, int B,
+                          int H, int Hkv, int nb, int bs, int mb,
+                          int split_len, int n_split, cudaStream_t s) {
+  switch (mode) {
+    case 0:
+      return dispatch_d<T, T, 0>(D, q, pk, pv, ks, vs, tables, lengths, out,
+                                 pm, pl, pa, tickets, B, H, Hkv, nb, bs, mb,
+                                 split_len, n_split, s);
+    case 1:
+      return dispatch_d<T, int8_t, 1>(D, q, pk, pv, ks, vs, tables, lengths,
+                                      out, pm, pl, pa, tickets, B, H, Hkv,
+                                      nb, bs, mb, split_len, n_split, s);
+    case 2:
+      return dispatch_d<T, __nv_fp8_e4m3, 2>(D, q, pk, pv, ks, vs, tables,
+                                             lengths, out, pm, pl, pa,
+                                             tickets, B, H, Hkv, nb, bs, mb,
+                                             split_len, n_split, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace pd
 }  // namespace pt
 
-// q [B,H,D]; pool_k/pool_v [nb,bs,Hkv,D]; tables [B,mb] int32;
-// lengths [B] int32; out [B,H,D]. Scratch: part_m/part_l
-// [B,Hkv,n_split,G] and part_acc [B,Hkv,n_split,G,D] float32; tickets
-// [>= B*Hkv] int32, zero before the launch and left zero by it.
-// split_len: keys a split (a multiple of 32); n_split * split_len >=
-// mb * bs. is_bf16: 0 = float32, 1 = bfloat16.
+// q [B,H,D]; pool_k/pool_v [nb,bs,Hkv,D]: the query's type (mode 0), int8
+// (mode 1, k_scale/v_scale float32 [nb,bs,Hkv]) or e4m3 (mode 2,
+// k_scale/v_scale float32 [nb,Hkv]); the planes are null in mode 0.
+// tables [B,mb] int32; lengths [B] int32; out [B,H,D]. Scratch:
+// part_m/part_l [B,Hkv,n_split,G] and part_acc [B,Hkv,n_split,G,D]
+// float32; tickets [>= B*Hkv] int32, zero before the launch and left zero
+// by it. split_len: keys a split (a multiple of 32); n_split * split_len
+// >= mb * bs. is_bf16: 0 = float32, 1 = bfloat16.
 extern "C" int pt_paged_decode(const void* q, const void* pool_k,
-                               const void* pool_v, const void* tables,
+                               const void* pool_v, const void* k_scale,
+                               const void* v_scale, const void* tables,
                                const void* lengths, void* out, void* part_m,
                                void* part_l, void* part_acc, void* tickets,
                                int B, int H, int Hkv, int D, int nb, int bs,
                                int mb, int split_len, int n_split,
-                               int is_bf16, void* stream) {
+                               int is_bf16, int mode, void* stream) {
   if (B == 0) return 0;
   if (pt::skv::bad_split_args(H, Hkv, D, mb * bs, split_len, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -102,12 +151,16 @@ extern "C" int pt_paged_decode(const void* q, const void* pool_k,
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
   int* tk = static_cast<int*>(tickets);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if ((mode != 0) != (ks != nullptr && vs != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
-      is_bf16 ? pt::pd::dispatch_d<__nv_bfloat16>(
-                    D, q, pool_k, pool_v, tbl, len, out, pm, pl, pa, tk, B, H,
-                    Hkv, nb, bs, mb, split_len, n_split, s)
-              : pt::pd::dispatch_d<float>(D, q, pool_k, pool_v, tbl, len, out,
-                                          pm, pl, pa, tk, B, H, Hkv, nb, bs,
-                                          mb, split_len, n_split, s);
+      is_bf16 ? pt::pd::dispatch_mode<__nv_bfloat16>(
+                    mode, D, q, pool_k, pool_v, ks, vs, tbl, len, out, pm, pl,
+                    pa, tk, B, H, Hkv, nb, bs, mb, split_len, n_split, s)
+              : pt::pd::dispatch_mode<float>(
+                    mode, D, q, pool_k, pool_v, ks, vs, tbl, len, out, pm, pl,
+                    pa, tk, B, H, Hkv, nb, bs, mb, split_len, n_split, s);
   return static_cast<int>(err);
 }

@@ -39,6 +39,14 @@
 //     per (16-row tile, sequence, head) running attention_common.cuh's tile
 //     routine, 32-key tiles. The fp32 parity runs depend on it.
 //
+// Quantized pools (the reference's int8 and fp8 modes, _ragged_kernel's
+// quantized branches): int8 K/V with per-row-per-head float32 planes, or
+// e4m3 with per-block planes. Span-1 rows take the walk's quantized mode;
+// chunk spans, in either query type, take ragged_kernel, the CUDA-core
+// tile, each K/V tile converted to float32 as it lands in shared memory
+// with its keys' scales (attention_common.cuh). Chunks on the wgmma tile
+// from a quantized pool are later work (ROADMAP Queue B item 6).
+//
 // GQA indexes the KV head as h / (H / Hkv) (K/V never repeated). Numbers:
 // P is rounded to the input type per key tile (or page) against a running
 // max where the plain version rounds the normalised P, so the kernels
@@ -50,10 +58,21 @@
 namespace pt {
 
 // ------------------------------------------------ span-1 rows, split-KV
-template <typename T, int D>
+// a key's scale index in a quantized pool's planes: per row and head
+// (QM 1), per block and head (QM 2)
+template <int QM>
+__device__ __forceinline__ long long scale_index(int phys, int p, int bs,
+                                                 int Hkv, int kvh) {
+  return QM == 2 ? static_cast<long long>(phys) * Hkv + kvh
+                 : (static_cast<long long>(phys) * bs + p % bs) * Hkv + kvh;
+}
+
+template <typename T, int D, typename KT, int QM>
 __global__ void __launch_bounds__(skv::kNT)
-ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                    const T* __restrict__ pool_v,
+ragged_split_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
+                    const KT* __restrict__ pool_v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
                     const int* __restrict__ qstart,
                     const int* __restrict__ qlen,
@@ -75,18 +94,27 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     const int phys = min(max(row_tbl[p / bs], 0), nb - 1);
     return (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D;
   };
+  auto scale_off = [&](int p) -> long long {
+    return scale_index<QM>(min(max(row_tbl[p / bs], 0), nb - 1), p, bs, Hkv,
+                           kvh);
+  };
   skv::split_kv_walk<T, D>(q, pool_k, pool_v, out, part_m, part_l, part_acc,
-                           tickets, smem_raw, qo, len, key_off, G, r, kvh,
-                           Hkv, blockIdx.x, split_len, n_split, scale);
+                           tickets, smem_raw, qo, len, key_off,
+                           Scales<QM, decltype(scale_off)>{k_scale, v_scale,
+                                                           scale_off},
+                           G, r, kvh, Hkv, blockIdx.x, split_len, n_split,
+                           scale);
 }
 
 // ---------------------------------- chunk spans, float32, CUDA cores
 constexpr int kRaggedTQ = 16;
 
-template <typename T, int D>
+template <typename T, int D, typename KT, int QM>
 __global__ void __launch_bounds__(kThreads)
-ragged_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-              const T* __restrict__ pool_v, const int* __restrict__ tables,
+ragged_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
+              const KT* __restrict__ pool_v, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ tables,
               const int* __restrict__ qstart, const int* __restrict__ qlen,
               const int* __restrict__ kvlen, T* __restrict__ out, int H,
               int Hkv, int nb, int bs, int mb, float scale) {
@@ -117,9 +145,15 @@ ragged_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     return ((static_cast<long long>(phys) * bs + p % bs) * Hkv + kvh) * D;
   };
   auto row_pos = [&](int i) { return first_pos + i; };
+  auto scale_off = [&](int p) -> long long {
+    return scale_index<QM>(min(max(row_tbl[p / bs], 0), nb - 1), p, bs, Hkv,
+                           kvh);
+  };
   __syncthreads();
-  attend_tile<T, D, kRaggedTQ>(q, pool_k, pool_v, out, smem, s_qoff, row_pos,
-                               kv_stop, kv_valid, key_off, scale);
+  attend_tile<T, D, kRaggedTQ>(
+      q, pool_k, pool_v, out, smem, s_qoff, row_pos, kv_stop, kv_valid,
+      key_off, scale,
+      Scales<QM, decltype(scale_off)>{k_scale, v_scale, scale_off});
 }
 
 // ---------------------------------- chunk spans, bf16, tensor cores
@@ -321,22 +355,24 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
 
 }  // namespace rtc
 
-// Both grids of one call, split-KV first, on one stream.
-template <typename T, int D>
-cudaError_t launch(const T* q, const T* pk, const T* pv, const int* tables,
-                   const int* qs, const int* ql, const int* kl, T* out,
-                   float* pm, float* pl, float* pa, int* tickets, int T_,
-                   int R, int H, int Hkv, int nb, int bs, int mb,
-                   int split_len, int n_split, cudaStream_t stream) {
+// Both grids of one call, split-KV first, on one stream. A quantized pool
+// (KT narrow) takes the CUDA-core chunk tile in either query type.
+template <typename T, int D, typename KT, int QM>
+cudaError_t launch(const T* q, const KT* pk, const KT* pv, const float* ks,
+                   const float* vs, const int* tables, const int* qs,
+                   const int* ql, const int* kl, T* out, float* pm, float* pl,
+                   float* pa, int* tickets, int T_, int R, int H, int Hkv,
+                   int nb, int bs, int mb, int split_len, int n_split,
+                   cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  cudaError_t err = skv::launch_walk<T, D>(
-      ragged_split_kernel<T, D>, H / Hkv, n_split, Hkv, R, stream, q, pk, pv,
-      tables, qs, ql, kl, out, pm, pl, pa, tickets, H, Hkv, nb, bs, mb,
-      split_len, n_split, scale);
+  cudaError_t err = skv::launch_walk<T, D, KT>(
+      ragged_split_kernel<T, D, KT, QM>, H / Hkv, n_split, Hkv, R, stream, q,
+      pk, pv, ks, vs, tables, qs, ql, kl, out, pm, pl, pa, tickets, H, Hkv,
+      nb, bs, mb, split_len, n_split, scale);
   if (err != cudaSuccess) return err;
   // no span is longer than the packed buffer, so ceil(T / rows a tile)
   // tiles cover every span
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 && QM == 0) {
     auto kernel = rtc::ragged_wgmma_kernel<D>;
     err = tc::use_smem(kernel, rtc::smem_bytes<D>());
     if (err != cudaSuccess) return err;
@@ -345,44 +381,75 @@ cudaError_t launch(const T* q, const T* pk, const T* pv, const int* tables,
         q, pk, pv, tables, qs, ql, kl, out, H, Hkv, nb, bs, mb, scale);
   } else {
     using S = TileShape<T, D, kRaggedTQ>;
-    auto kernel = ragged_kernel<T, D>;
+    auto kernel = ragged_kernel<T, D, KT, QM>;
     err = allow_smem(kernel, S::SMEM_BYTES);
     if (err != cudaSuccess) return err;
     dim3 grid((T_ + kRaggedTQ - 1) / kRaggedTQ, R, H);
     kernel<<<grid, kThreads, S::SMEM_BYTES, stream>>>(
-        q, pk, pv, tables, qs, ql, kl, out, H, Hkv, nb, bs, mb, scale);
+        q, pk, pv, ks, vs, tables, qs, ql, kl, out, H, Hkv, nb, bs, mb,
+        scale);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KT, int QM>
 cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
-                       const int* tables, const int* qs, const int* ql,
-                       const int* kl, void* out, float* pm, float* pl,
-                       float* pa, int* tickets, int T_, int R, int H, int Hkv,
-                       int nb, int bs, int mb, int split_len, int n_split,
-                       cudaStream_t s) {
+                       const float* ks, const float* vs, const int* tables,
+                       const int* qs, const int* ql, const int* kl, void* out,
+                       float* pm, float* pl, float* pa, int* tickets, int T_,
+                       int R, int H, int Hkv, int nb, int bs, int mb,
+                       int split_len, int n_split, cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(pk);
-  const T* vt = static_cast<const T*>(pv);
+  const KT* kt = static_cast<const KT*>(pk);
+  const KT* vt = static_cast<const KT*>(pv);
   T* ot = static_cast<T*>(out);
   switch (D) {
     case 64:
-      return launch<T, 64>(qt, kt, vt, tables, qs, ql, kl, ot, pm, pl, pa,
-                           tickets, T_, R, H, Hkv, nb, bs, mb, split_len,
-                           n_split, s);
+      return launch<T, 64, KT, QM>(qt, kt, vt, ks, vs, tables, qs, ql, kl,
+                                   ot, pm, pl, pa, tickets, T_, R, H, Hkv,
+                                   nb, bs, mb, split_len, n_split, s);
     case 128:
-      return launch<T, 128>(qt, kt, vt, tables, qs, ql, kl, ot, pm, pl, pa,
-                            tickets, T_, R, H, Hkv, nb, bs, mb, split_len,
-                            n_split, s);
+      return launch<T, 128, KT, QM>(qt, kt, vt, ks, vs, tables, qs, ql, kl,
+                                    ot, pm, pl, pa, tickets, T_, R, H, Hkv,
+                                    nb, bs, mb, split_len, n_split, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// every pool mode of one query type (mode 0: the query's type, 1: int8
+// with per-row planes, 2: e4m3 with per-block planes)
+template <typename T>
+cudaError_t dispatch_mode(int mode, int D, const void* q, const void* pk,
+                          const void* pv, const float* ks, const float* vs,
+                          const int* tables, const int* qs, const int* ql,
+                          const int* kl, void* out, float* pm, float* pl,
+                          float* pa, int* tickets, int T_, int R, int H,
+                          int Hkv, int nb, int bs, int mb, int split_len,
+                          int n_split, cudaStream_t s) {
+#define PT_RAGGED_MODE(KT, QM)                                              \
+  dispatch_d<T, KT, QM>(D, q, pk, pv, ks, vs, tables, qs, ql, kl, out, pm, \
+                        pl, pa, tickets, T_, R, H, Hkv, nb, bs, mb,         \
+                        split_len, n_split, s)
+  switch (mode) {
+    case 0:
+      return PT_RAGGED_MODE(T, 0);
+    case 1:
+      return PT_RAGGED_MODE(int8_t, 1);
+    case 2:
+      return PT_RAGGED_MODE(__nv_fp8_e4m3, 2);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PT_RAGGED_MODE
+}
+
 }  // namespace pt
 
-// q [T,H,D]; pool_k/pool_v [nb,bs,Hkv,D]; tables [R,mb] int32; qstart,
+// q [T,H,D]; pool_k/pool_v [nb,bs,Hkv,D] of the query's type (mode 0),
+// int8 (mode 1; k_scale/v_scale float32 [nb,bs,Hkv]) or e4m3 (mode 2;
+// k_scale/v_scale float32 [nb,Hkv]), the planes null in mode 0; tables
+// [R,mb] int32; qstart,
 // qlen, kvlen [R] int32; out [T,H,D], zeroed by the caller (rows outside
 // every span are not written). Scratch of the span-1 rows' split-KV walk:
 // part_m/part_l [R,Hkv,n_split,G] and part_acc [R,Hkv,n_split,G,D]
@@ -390,14 +457,15 @@ cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
 // by it. split_len: keys a split (a multiple of 32); n_split * split_len
 // >= mb * bs. D: 64 or 128. is_bf16: 0 = float32, 1 = bfloat16.
 extern "C" int pt_ragged_attention(const void* q, const void* pool_k,
-                                   const void* pool_v, const void* tables,
+                                   const void* pool_v, const void* k_scale,
+                                   const void* v_scale, const void* tables,
                                    const void* qstart, const void* qlen,
                                    const void* kvlen, void* out, void* part_m,
                                    void* part_l, void* part_acc,
                                    void* tickets, int T_, int R, int H,
                                    int Hkv, int D, int nb, int bs, int mb,
                                    int split_len, int n_split, int is_bf16,
-                                   void* stream) {
+                                   int mode, void* stream) {
   if (T_ == 0 || R == 0) return 0;
   if (pt::skv::bad_split_args(H, Hkv, D, mb * bs, split_len, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -410,13 +478,18 @@ extern "C" int pt_ragged_attention(const void* q, const void* pool_k,
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
   int* tk = static_cast<int*>(tickets);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if ((mode != 0) != (ks != nullptr && vs != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
-      is_bf16 ? pt::dispatch_d<__nv_bfloat16>(D, q, pool_k, pool_v, tbl, qs,
-                                              ql, kl, out, pm, pl, pa, tk, T_,
-                                              R, H, Hkv, nb, bs, mb,
-                                              split_len, n_split, s)
-              : pt::dispatch_d<float>(D, q, pool_k, pool_v, tbl, qs, ql, kl,
-                                      out, pm, pl, pa, tk, T_, R, H, Hkv, nb,
-                                      bs, mb, split_len, n_split, s);
+      is_bf16 ? pt::dispatch_mode<__nv_bfloat16>(
+                    mode, D, q, pool_k, pool_v, ks, vs, tbl, qs, ql, kl, out,
+                    pm, pl, pa, tk, T_, R, H, Hkv, nb, bs, mb, split_len,
+                    n_split, s)
+              : pt::dispatch_mode<float>(
+                    mode, D, q, pool_k, pool_v, ks, vs, tbl, qs, ql, kl, out,
+                    pm, pl, pa, tk, T_, R, H, Hkv, nb, bs, mb, split_len,
+                    n_split, s);
   return static_cast<int>(err);
 }

@@ -7,9 +7,12 @@ build takes seconds), loaded with ``ctypes``. Libraries land in
 named by a hash of the sources and flags, so an edited kernel rebuilds
 and an unchanged one is reused. Nothing is built at import: the first
 launch builds what it needs, and :func:`build_all` builds every kernel
-at once, one ``nvcc`` process per source, all started together. A source
-may hold several kernels (``flash_bwd.cu`` holds both backward kernels),
-each with its own C entry point.
+at once, one ``nvcc`` process per library, all started together. A
+library is one source compiled with its own ``-D`` macros: a source may
+hold several kernels (``flash_bwd.cu`` holds both backward kernels), each
+with its own C entry point, and a kernel may span several libraries (the
+fused tick's six variants — three pool modes, dense or int8 weights — are
+``fused_decode_tick.cu`` compiled six times, so they build in parallel).
 
 Override the output directory with ``PADDLE_TPU_TORCH_BUILD_DIR`` and the
 compiler with ``NVCC`` (else ``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on
@@ -29,27 +32,38 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 _REPO = _PKG.parent
 
-#: kernel name -> (its source under csrc/, its C entry point, the entry's
-#: argument types: pointers and the stream as void*, a float as float,
-#: everything else int)
+#: kernel name -> (its library, its C entry point, the entry's argument
+#: types: pointers and the stream as void*, a float as float, everything
+#: else int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FUSED_ARGS = [_P] * 44 + [_I] * 16 + [ctypes.c_float, _I, _P] + [_P]
+#: the fused tick's libraries by (pool mode: 0 the model's type, 1 int8,
+#: 2 fp8; int8 weights)
+FUSED_VARIANTS = {(m, w8): "fused_decode_tick" + sfx + ("_w8" if w8 else "")
+                  for m, sfx in enumerate(("", "_int8", "_fp8"))
+                  for w8 in (False, True)}
 SIGNATURES = {
     "paged_decode": ("paged_decode", "pt_paged_decode",
-                     [_P] * 10 + [_I] * 10 + [_P]),
+                     [_P] * 12 + [_I] * 11 + [_P]),
     "ragged_attention": ("ragged_attention", "pt_ragged_attention",
-                         [_P] * 12 + [_I] * 11 + [_P]),
+                         [_P] * 14 + [_I] * 12 + [_P]),
     "flash": ("flash", "pt_flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),
     "flash_bwd_dkv": ("flash_bwd", "pt_flash_bwd_dkv",
                       [_P] * 8 + [_I] * 7 + [_P]),
     "flash_bwd_dq": ("flash_bwd", "pt_flash_bwd_dq",
                      [_P] * 7 + [_I] * 7 + [_P]),
     "decode": ("decode", "pt_decode", [_P] * 9 + [_I] * 8 + [_P]),
-    "fused_decode_tick": ("fused_decode_tick", "pt_fused_decode_tick",
-                          [_P] * 34 + [_I] * 16 + [ctypes.c_float, _I, _P]
-                          + [_P]),
+    **{lib: (lib, "pt_" + lib, _FUSED_ARGS)
+       for lib in FUSED_VARIANTS.values()},
 }
-#: the sources, one library each
-SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
+#: library -> (its source under csrc/, its -D macros)
+LIBRARIES = {
+    **{src: (src, ()) for src in ("paged_decode", "ragged_attention",
+                                  "flash", "flash_bwd", "decode")},
+    **{lib: ("fused_decode_tick", (f"-DFT_MODE={m}", f"-DFT_W8={int(w8)}",
+                                   f"-DFT_ENTRY=pt_{lib}"))
+       for (m, w8), lib in FUSED_VARIANTS.items()},
+}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,8 +86,8 @@ def nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def _source(name):
-    """The source of kernel ``name`` (a source name maps to itself)."""
+def _library(name):
+    """The library of kernel ``name`` (a library name maps to itself)."""
     return SIGNATURES[name][0] if name in SIGNATURES else name
 
 
@@ -82,25 +96,28 @@ def _sources(source):
 
 
 def library_path(name) -> Path:
-    """The library built from ``name``'s source (a kernel or a source)."""
-    source = _source(name)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """The library ``name`` (a kernel or a library) is built into, named
+    by a hash of its sources, macros and flags."""
+    lib = _library(name)
+    source, defines = LIBRARIES[lib]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for src in _sources(source):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return build_dir() / f"{source}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{lib}-{h.hexdigest()[:16]}.so"
 
 
-def _start(source):
-    """Start one nvcc for ``source`` unless its library exists; returns
+def _start(lib):
+    """Start one nvcc for library ``lib`` unless it exists; returns
     ``(process, tmp_path, out_path, log_path)`` or None."""
-    out = library_path(source)
+    out = library_path(lib)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+    source, defines = LIBRARIES[lib]
+    cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
            str(CSRC / f"{source}.cu")]
     with open(log, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
@@ -117,11 +134,11 @@ def _finish(name, job):
 
 
 def build_all(names=None):
-    """Build every kernel (or those of ``names``, kernels or sources), one
-    nvcc per source in parallel. Returns ``{name: library path}``."""
-    names = list(names or SOURCES)
+    """Build every kernel (or those of ``names``, kernels or libraries),
+    one nvcc per library in parallel. Returns ``{name: library path}``."""
+    names = list(names or LIBRARIES)
     with _lock:
-        jobs = {s: _start(s) for s in dict.fromkeys(map(_source, names))}
+        jobs = {s: _start(s) for s in dict.fromkeys(map(_library, names))}
         try:
             for n, job in jobs.items():
                 if job is not None:
@@ -135,7 +152,7 @@ def build_all(names=None):
 
 
 def build_log(name) -> str:
-    """The compiler's output of the last build of ``name``'s source
+    """The compiler's output of the last build of ``name``'s library
     (``-Xptxas -v`` lists each kernel's registers, shared memory and
     spills)."""
     log = library_path(name).with_suffix(".log")

@@ -15,13 +15,34 @@ def dtype_code(t):
     return _DTYPE_CODE[t.dtype]
 
 
-def check_cuda(name, data, index=()):
+#: the narrow storage types of a quantized KV pool
+POOL_QUANT = (torch.int8, torch.float8_e4m3fn)
+
+
+def check_cuda(name, data, index=(), pools=()):
     """Validate what a kernel reads: ``data`` tensors on one CUDA device,
     one float dtype, contiguous and 16-byte aligned (the kernels load 16
-    bytes at a time); ``index`` tensors int32 and contiguous. Raises on
-    anything the kernel does not take."""
+    bytes at a time); ``index`` tensors int32 and contiguous; ``pools``
+    (K/V pools) like ``data``, or all int8 / all float8_e4m3fn (a
+    quantized pool, its planes checked by the caller). Raises on anything
+    the kernel does not take; returns the dtype code of ``data``."""
+    pools = tuple(pools)
+    if pools and pools[0].dtype in POOL_QUANT:
+        for t in pools:
+            if t.dtype != pools[0].dtype:
+                raise TypeError(f"{name}: mixed pool dtypes "
+                                f"{pools[0].dtype} and {t.dtype}")
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: pool not 16-byte aligned")
+        data, index = tuple(data), tuple(index) + pools
+        # the narrow pools skip the float checks, not the device and
+        # layout ones (index holds them past the int32 check below)
+        n_index = len(index) - len(pools)
+    else:
+        data, index = tuple(data) + pools, tuple(index)
+        n_index = len(index)
     dev = data[0].device
-    for t in tuple(data) + tuple(index):
+    for t in data + index:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
@@ -32,7 +53,7 @@ def check_cuda(name, data, index=()):
                             f"{t.dtype}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor not 16-byte aligned")
-    for t in index:
+    for t in index[:n_index]:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index tensors must be int32, got "
                             f"{t.dtype}")
@@ -46,17 +67,18 @@ def check_head_dim(name, D, dims):
                                   f"{tuple(dims)}")
 
 
-def launch(name, *args):
+def launch(name, *args, count_as=None):
     """Call kernel ``name``'s C entry with ``args`` (tensors become device
     pointers, None a null pointer) on the current stream, raise on a CUDA
-    error, and count the launch."""
+    error, and count the launch (under ``count_as`` where one kernel has
+    several entries)."""
     fn = _build.load(name)
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
     rc = fn(*conv, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(name, rc)
-    count_launch(name)
+    count_launch(count_as or name)
 
 
 def as_index(x, device):

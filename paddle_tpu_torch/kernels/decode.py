@@ -67,7 +67,11 @@ def decode_attention_reference(q, k_cache, v_cache, lengths):
     row_valid = (cols[None, :, None, None]
                  < lengths[:, None, None, None])
     v = torch.where(row_valid, v, torch.zeros_like(v))
-    return torch.einsum("bhk,bkhd->bhd", probs.to(q.dtype), v)
+    # a dequantized cache is float32 beside a bfloat16 q: P rounds to q's
+    # type first, the product runs in float32 (JAX's type promotion), and
+    # the result comes back in q's type
+    return torch.einsum("bhk,bkhd->bhd", probs.to(q.dtype).to(v.dtype),
+                        v).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, lengths):

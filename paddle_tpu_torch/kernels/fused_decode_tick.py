@@ -35,8 +35,23 @@ phases, 7 a layer:
 
 The rows take any count: accumulators live in shared memory in tiles of
 8 rows, so every weight is read from device memory once a tick for up to
-64 rows (and once more for each further 64). Full-precision pools and
-dense weights only; int8/fp8 pools and int8 weights raise at the engine.
+64 rows (and once more for each further 64).
+
+Quantized serving (the reference kernel's modes): the pools may be int8
+with per-row-per-head scale planes or ``float8_e4m3fn`` with per-block
+planes (each side a ``(data, scale)`` pair, as ``PagedKVCache.kv_args``
+gives them): the QKV epilogue quantizes the appended rows on write (the
+pool's write rule, bit for bit) and the attention is the walk's quantized
+mode, paged decode's bits. The weights may be int8 ``(q, scale)`` pairs
+(``serving/decode.quantize_decode_params``): each 64-row chunk streams as
+int8 (half the bytes of a bf16 chunk) and is dequantized in shared memory
+as ``round(float(q) * scale[col])`` — ``_dq``'s bits — before the MMAs;
+the chunk keeps its 64 x NT shape, so :func:`part_slots` and
+:func:`part_size` are unchanged. With int8 weights the head is the
+parameters' int8 ``lm_head`` pair (a tied one ``[V, H]`` with its scales
+along V, dequantized then read transposed, as ``_dq_head`` does); the
+``head`` argument is then only the plain version's. An a8 engine never
+reaches the kernel: the reference routes an a8 tick to the scanned one.
 
 :func:`fused_decode_tick` is the wrapper: the kernel for CUDA tensors,
 the plain version for CPU tensors. :func:`fused_decode_tick_reference` is
@@ -55,7 +70,9 @@ import ctypes
 import numpy as np
 import torch
 
+from . import _build
 from ._launch import check_cuda, launch
+from .paged_decode import scale_mode
 from .split_kv import check_heads, plan, scratch, sm_count
 
 #: head dims the kernel takes
@@ -159,6 +176,19 @@ def fused_decode_tick_reference(params, head, tables, tables_dev, sin, cos,
         attn=paged_decode_attention_reference, return_logits=return_logits)
 
 
+def _w8_head(params, H, V):
+    """The int8 lm head of quantized parameters: ``(q, scale, tied)``,
+    ``q [H, V]`` with scales ``[1, V]``, or tied ``q [V, H]`` with scales
+    ``[V, 1]`` (the scales lie along V either way)."""
+    q, sc = params["lm_head"]
+    if tuple(sc.shape) == (1, V) and tuple(q.shape) == (H, V):
+        return q, sc, 0
+    if tuple(sc.shape) == (V, 1) and tuple(q.shape) == (V, H):
+        return q, sc, 1
+    raise ValueError(f"int8 lm head {tuple(q.shape)} / {tuple(sc.shape)} "
+                     f"is neither [H, V] nor the tied [V, H]")
+
+
 def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
                       pool_k, pool_v, lens, kys, app_mask, temps, top_ks, *,
                       nh, nkv, hd, eps, return_logits=False):
@@ -167,7 +197,8 @@ def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     scanned tick: stacked ``params``, ``head`` (the lm head, or the
     embedding transposed when tied), tables ``[R, mb]`` as numpy and as an
     int32 device tensor, RoPE tables ``[S, D]``, last tokens ``tok [R]``,
-    pools ``[L, nb, bs, Hkv, D]`` (written in place), ``lens`` and
+    pools ``[L, nb, bs, Hkv, D]`` (written in place; a quantized side is a
+    ``(data, scale)`` pair), ``lens`` and
     ``app_mask [R]`` (host arrays, or on the kernel's path device tensors,
     with ``temps``/``top_ks`` then device tensors too), keys ``[R, 2]``
     (host uint32 values, or the device keys a previous launch returned),
@@ -187,25 +218,48 @@ def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     dev = tok.device
     embed = params["embed"]
     V, H = embed.shape
-    L, nb, bs, Hkv, D = pool_k.shape
+    quant = isinstance(pool_k, tuple)
+    (pk, ks), (pv, vs) = (pool_k, pool_v) if quant else \
+        ((pool_k, None), (pool_v, None))
+    L, nb, bs, Hkv, D = pk.shape
     R = tok.shape[0]
-    inter = params["w_gate"].shape[2]
+    w8 = isinstance(params["wq"], tuple)
+    inter = (params["w_gate"][0] if w8 else params["w_gate"]).shape[2]
     mb = tables_dev.shape[1]
     if D != hd or Hkv != nkv or nh % nkv:
         raise ValueError(f"pool heads {Hkv} x {D} / nkv {nkv} x {hd} / nh "
                          f"{nh} disagree")
     check_limits(nh, nkv, D, H, inter, V)
-    if head.shape != (H, V):
-        raise ValueError(f"head {tuple(head.shape)} is not [{H}, {V}]")
-    if head.is_contiguous():
-        tied, head_arg = 0, head
-    elif head.stride() == (1, H) and head.data_ptr() == embed.data_ptr():
-        tied, head_arg = 1, embed          # read [V, H] transposed
+    mode = scale_mode(pk[0], None if ks is None else ks[0],
+                      None if vs is None else vs[0])
+    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    if w8:
+        hq, hs, tied = _w8_head(params, H, V)
+        weights = [params[k][0] for k in names] + [hq]
+        wscales = [params[k][1] for k in names] + [hs]
+        for q, sc in zip(weights, wscales):
+            if q.dtype != torch.int8 or sc.dtype != torch.float32 \
+                    or not q.is_contiguous() or not sc.is_contiguous() \
+                    or sc.numel() != (q.shape[0] if q is hq and tied
+                                      else q.numel() // q.shape[-2]):
+                raise ValueError("fused tick kernel: int8 weights must be "
+                                 "contiguous int8 with float32 scales, one "
+                                 "an output column")
+        head_arg = hq
     else:
-        raise ValueError("fused tick kernel: the head must be a contiguous "
-                         "[H, V] weight or the embedding transposed")
-    weights = [params[k] for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
-                                   "w_down", "input_ln", "post_ln")]
+        wscales = [None] * 8
+        if head.shape != (H, V):
+            raise ValueError(f"head {tuple(head.shape)} is not [{H}, {V}]")
+        if head.is_contiguous():
+            tied, head_arg = 0, head
+        elif head.stride() == (1, H) and head.data_ptr() == embed.data_ptr():
+            tied, head_arg = 1, embed          # read [V, H] transposed
+        else:
+            raise ValueError("fused tick kernel: the head must be a "
+                             "contiguous [H, V] weight or the embedding "
+                             "transposed")
+        weights = [params[k] for k in names] + [head_arg]
+    norms = [params["input_ln"], params["post_ln"]]
     meta_dev = _meta(lens, app_mask, top_ks, temps, dev)
     if isinstance(kys, torch.Tensor) and kys.device.type == "cuda":
         keys_dev = kys
@@ -219,8 +273,17 @@ def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
         raise TypeError(f"fused tick kernel: tokens must be int64, got "
                         f"{tok.dtype}")
     code = check_cuda("fused_decode_tick",
-                      [embed, head_arg, pool_k, pool_v, params["final_norm"]]
-                      + weights, (tables_dev, meta_dev, keys_dev))
+                      [embed, params["final_norm"]] + norms
+                      + ([] if w8 else weights),
+                      (tables_dev, meta_dev, keys_dev), pools=(pk, pv))
+    for t in (ks, vs) if quant else ():
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError("fused tick kernel: scale planes must be "
+                             "contiguous on the tokens' device")
+    for t in weights if w8 else ():
+        if t.device != dev or t.data_ptr() % 16:
+            raise ValueError("fused tick kernel: int8 weights must be "
+                             "16-byte aligned on the tokens' device")
     for t in (sin, cos):
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != dev or t.shape[1] != D:
@@ -243,12 +306,14 @@ def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     bar = _barrier(dev, max(nh + 2 * nkv, inter // cols, H // cols,
                             V // cols))
     grid = ctypes.c_int(0)
-    launch("fused_decode_tick", tok, embed, *weights[:7], weights[7],
-           weights[8], params["final_norm"], head_arg, pool_k, pool_v, sin,
-           cos, tables_dev, meta_dev, keys_dev, h, hn, q, attn, act, part,
-           logits, nxt, keys_out, bar, *walk, R, L, H, nh, nkv, inter, V,
-           nb, bs, mb, sin.shape[0], tied, sl, n_split, D, code, float(eps),
-           BLOCKS_PER_SM, ctypes.addressof(grid))
+    # the library of this (pool mode, int8 weights) pair
+    launch(_build.FUSED_VARIANTS[mode, w8], tok, embed, *weights[:7], *norms,
+           params["final_norm"], head_arg, pk, pv, sin, cos, tables_dev,
+           meta_dev, keys_dev, h, hn, q, attn, act, part, logits, nxt,
+           keys_out, bar, *walk, ks, vs, *wscales, R, L, H, nh, nkv, inter,
+           V, nb, bs, mb, sin.shape[0], tied, sl, n_split, D, code,
+           float(eps), BLOCKS_PER_SM, ctypes.addressof(grid),
+           count_as="fused_decode_tick")
     LAST_GRID.update(blocks=grid.value, blocks_per_sm=grid.value // n_sm,
                      split_len=sl, n_split=n_split)
     LAST_SCRATCH.update(q=q, attn=attn)

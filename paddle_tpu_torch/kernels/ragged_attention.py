@@ -24,8 +24,16 @@ both, and each block reads its own row's span):
 Blocks of the other kind of span, and tiles past a span, exit at once.
 A span-1 row agrees with :func:`~.paged_decode.paged_decode_attention`
 within ``chip_smoke.py``'s ``TOL`` (the same walk, split at other
-lengths). Full-precision pools only (float32, bfloat16); head dims 64
-and 128. One launch counted a call.
+lengths). Head dims 64 and 128. One launch counted a call.
+
+The pool is float32 or bfloat16 (the query's type), or quantized: int8
+with per-row-per-head float32 scale planes, or ``float8_e4m3fn`` with
+per-block planes. A quantized pool's span-1 rows take the walk's
+quantized mode (paged decode's); its chunk spans, in either query type,
+take the CUDA-core tile routine, each K/V tile converted to float32 as
+it lands in shared memory with its keys' scales beside it. Everywhere
+the K scale multiplies the scores after the dot, ``l`` sums the unscaled
+P, and the V scale is folded into P (float32) before ``P V``.
 
 Semantics per sequence ``r`` (``qlen[r] == 0`` is a dead row): span token
 ``i`` is packed row ``qstart[r] + i``, sits at logical position
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from ._launch import as_index, check_cuda, launch
+from .paged_decode import dequant_rows, scale_mode
 from .split_kv import check_heads, plan, scratch, sm_count
 
 NEG_INF = -1e30
@@ -67,11 +76,12 @@ def paths(qlen):
             for n in _host_ints(qlen)]
 
 
-def grid(T, R, H, Hkv, capacity, dtype, n_sm):
+def grid(T, R, H, Hkv, capacity, dtype, n_sm, quantized=False):
     """Both grids of a call from shapes alone: ``T`` packed rows, ``R``
-    sequences, tables of ``capacity`` keys, on a card of ``n_sm`` SMs."""
+    sequences, tables of ``capacity`` keys, on a card of ``n_sm`` SMs
+    (a quantized pool's chunks take the CUDA-core tile in either type)."""
     sl, n_split = plan(R, Hkv, capacity, n_sm)
-    rows = TILE_ROWS[dtype]
+    rows = TILE_ROWS[torch.float32 if quantized else dtype]
     return {"split_len": sl, "n_split": n_split,
             "split_blocks": n_split * Hkv * R, "tile_rows": rows,
             "tile_blocks": -(-T // rows) * R * H}
@@ -83,11 +93,14 @@ def _host_ints(x):
 
 
 def ragged_attention_reference(q, pool_k, pool_v, tables, qstart, qlen,
-                               kvlen):
+                               kvlen, k_scale=None, v_scale=None):
     """Plain version of ``paddle_tpu``'s ``ragged_attention_reference``:
     the same gather (sentinel entries clamp into the pool), masks, plain
     softmax and cast points, computed one sequence at a time so the
-    per-token gather never materialises ``[T, s_tot, H, D]``.
+    per-token gather never materialises ``[T, s_tot, H, D]``. A quantized
+    pool (``k_scale``/``v_scale``, as in
+    :func:`~.paged_decode.paged_decode_attention_reference`) dequantizes
+    to float32 right after the gather.
 
     q [T, H, D]; pool_k/pool_v [nb, bs, Hkv, D]; tables [R, mb];
     qstart/qlen/kvlen [R]. Returns [T, H, D]."""
@@ -108,6 +121,9 @@ def ragged_attention_reference(q, pool_k, pool_v, tables, qstart, qlen,
         a = int(qs[r])
         k = pool_k[tables[r]].reshape(s_tot, Hkv, D)
         v = pool_v[tables[r]].reshape(s_tot, Hkv, D)
+        if k_scale is not None:
+            k = dequant_rows(k[None], k_scale, tables[r:r + 1], bs)[0]
+            v = dequant_rows(v[None], v_scale, tables[r:r + 1], bs)[0]
         if G > 1:
             k = k.repeat_interleave(G, dim=1)
             v = v.repeat_interleave(G, dim=1)
@@ -122,17 +138,22 @@ def ragged_attention_reference(q, pool_k, pool_v, tables, qstart, qlen,
         probs = torch.where(mask[:, None, :], probs, torch.zeros_like(probs))
         row_valid = cols < int(kl[r])
         v = torch.where(row_valid[:, None, None], v, torch.zeros_like(v))
-        out[a:a + n] = torch.einsum("qhk,khd->qhd", probs.to(q.dtype), v)
+        # a dequantized pool is float32: P rounds to q's type, the
+        # product runs in float32, the rows come back in q's type
+        out[a:a + n] = torch.einsum("qhk,khd->qhd",
+                                    probs.to(q.dtype).to(v.dtype), v).to(
+                                        q.dtype)
     return out
 
 
-def ragged_paged_attention(q, pool_k, pool_v, tables, qstart, qlen, kvlen):
+def ragged_paged_attention(q, pool_k, pool_v, tables, qstart, qlen, kvlen,
+                           k_scale=None, v_scale=None):
     """Mixed prefill+decode attention over packed spans: the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors. Same arguments
     as :func:`ragged_attention_reference`."""
     if q.device.type == "cpu":
         return ragged_attention_reference(q, pool_k, pool_v, tables, qstart,
-                                          qlen, kvlen)
+                                          qlen, kvlen, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu, "
                          f"got {q.device}")
@@ -143,14 +164,16 @@ def ragged_paged_attention(q, pool_k, pool_v, tables, qstart, qlen, kvlen):
     qstart = as_index(qstart, q.device)
     qlen = as_index(qlen, q.device)
     kvlen = as_index(kvlen, q.device)
-    code = check_cuda("ragged_attention", (q, pool_k, pool_v),
-                      (tables, qstart, qlen, kvlen))
+    mode = scale_mode(pool_k, k_scale, v_scale)
+    code = check_cuda("ragged_attention", (q,),
+                      (tables, qstart, qlen, kvlen), pools=(pool_k, pool_v))
     R, mb = tables.shape
-    g = grid(T, R, H, Hkv, mb * bs, q.dtype, sm_count(q.device.index or 0))
+    g = grid(T, R, H, Hkv, mb * bs, q.dtype, sm_count(q.device.index or 0),
+             quantized=mode > 0)
     out = torch.zeros_like(q)     # rows outside every span stay zero
-    launch("ragged_attention", q, pool_k, pool_v, tables, qstart, qlen,
-           kvlen, out,
+    launch("ragged_attention", q, pool_k, pool_v, k_scale, v_scale, tables,
+           qstart, qlen, kvlen, out,
            *scratch(R, Hkv, H // Hkv, D, g["n_split"], q.device), T, R, H,
-           Hkv, D, nb, bs, mb, g["split_len"], g["n_split"], code)
+           Hkv, D, nb, bs, mb, g["split_len"], g["n_split"], code, mode)
     LAST_GRID.update(g)
     return out

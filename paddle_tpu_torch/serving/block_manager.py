@@ -11,8 +11,16 @@ array per program and donated the old one.
 
 The same pool backs the prefix cache (:mod:`.prefix_cache`): trie blocks
 are allocated blocks no slot owns, pinned while a sequence reads them.
-Quantized pools, the host spill tier and its staging buffers, and
-tensor-parallel placement are not ported yet (ROADMAP Queue A step 9/10).
+
+``kv_dtype`` picks the storage: None stores at the model dtype; ``"int8"``
+stores int8 with per-row-per-head float32 scale planes ``k_scale`` /
+``v_scale [L, num_blocks, block_size, Hkv]`` (zeros); ``"fp8"`` stores
+``float8_e4m3fn`` with per-block planes ``[L, num_blocks, Hkv]`` (ones,
+never written: e4m3's exponent is the per-value scale). The planes are
+indexed by the same physical block id as the data, so every lifecycle
+move (alloc, free, trie donation) carries a block's scales with it. The
+host spill tier and its staging buffers, and tensor-parallel placement,
+are not ported yet (ROADMAP Queue A step 9/10).
 """
 from __future__ import annotations
 
@@ -26,24 +34,49 @@ class BlockManager:
     """Physical block pool: device tensors + free heap + refcounts."""
 
     def __init__(self, num_layers, num_blocks, block_size, num_kv_heads,
-                 head_dim, dtype=torch.float32, device="cuda"):
+                 head_dim, dtype=torch.float32, kv_dtype=None,
+                 device="cuda"):
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if kv_dtype not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"kv_dtype must be None (store at pool dtype), 'int8' or "
+                f"'fp8', got {kv_dtype!r}")
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype is not None
+        self.fp8 = kv_dtype == "fp8"
         shape = (num_layers, self.num_blocks, self.block_size,
                  num_kv_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=device)
-        self.v = torch.zeros(shape, dtype=dtype, device=device)
-        #: bytes one block's K/V holds across all layers (the
-        #: /debug/requests KV-bytes unit), fixed at construction so it
-        #: stays readable after :meth:`release`
+        store = (torch.float8_e4m3fn if self.fp8
+                 else torch.int8 if self.quantized else dtype)
+        self.k = torch.zeros(shape, dtype=store, device=device)
+        self.v = torch.zeros(shape, dtype=store, device=device)
+        if self.fp8:
+            sshape = (num_layers, self.num_blocks, num_kv_heads)
+            self.k_scale = torch.ones(sshape, dtype=torch.float32,
+                                      device=device)
+            self.v_scale = torch.ones(sshape, dtype=torch.float32,
+                                      device=device)
+        elif self.quantized:
+            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+            self.v_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+        else:
+            self.k_scale = self.v_scale = None
+        #: bytes one block's K/V data holds across all layers (the
+        #: /debug/requests KV-bytes unit), at the storage dtype; fixed at
+        #: construction so it stays readable after :meth:`release`
         self.block_nbytes = 2 * self.k.numel() * self.k.element_size() \
             // self.num_blocks
-        #: scale-plane bytes per block: 0, the port's pools are unquantized
-        self.scale_block_nbytes = 0
+        #: bytes one block's scale planes hold across all layers, K and V
+        #: (0 on an unquantized pool): the ``kind="scales"`` gauge's unit
+        self.scale_block_nbytes = 0 if self.k_scale is None else \
+            2 * self.k_scale.numel() * 4 // self.num_blocks
         self._free_heap = list(range(self.num_blocks))
         self._free_set = set(self._free_heap)
         self._ref = np.zeros(self.num_blocks, np.int32)
@@ -71,7 +104,7 @@ class BlockManager:
     def release(self):
         """Drop the device storage (a dead engine's, before a rebuild
         allocates the next pool); the host bookkeeping stays readable."""
-        self.k = self.v = None
+        self.k = self.v = self.k_scale = self.v_scale = None
 
     def alloc(self):
         """Claim a free block (lowest id first, deterministic); None when

@@ -49,6 +49,21 @@ What changes from JAX to PyTorch:
 - The model's parameters are trainable, so both programs run under
   ``torch.inference_mode()``: serving records no autograd graph.
 
+Quantized serving rides every program, as in the reference:
+
+- ``quantize_weights`` (:func:`quantize_decode_params`): each projection
+  weight is an int8 ``(q, scale)`` pair, dequantized one layer at a time
+  in the program (:func:`_dq_layer`); the lm head by :func:`_dq_head`;
+- ``quantize_activations`` (``a8``): nothing dequantizes; every
+  projection input is quantized per row at run time and multiplied with
+  the int8 weight in int8 x int8 with int32 accumulation
+  (:func:`_a8_apply`, ``torch._int_mm``: exact, as JAX's int32 dot is);
+- a quantized pool (``kv_dtype``) arrives as one ``(data, scale)`` pair a
+  side (``PagedKVCache.kv_args``): appends quantize on write
+  (:func:`_kv_write`), the attention kernels (or their plain versions)
+  take the scale planes, and the suffix programs gather narrow rows and
+  apply the scales after the dots.
+
 ``FLAGS_use_cuda_kernels`` (``paddle_tpu_torch.flags``) selects the
 attention (and the fused tick) at every call: on, the kernel wrappers
 (the hand-written CUDA kernels for CUDA tensors, their plain versions
@@ -76,8 +91,10 @@ from ..kernels.ragged_attention import (ragged_attention_reference,
                                         ragged_paged_attention)
 from ..models.llama import (STACK_KEYS, _apply_rope, _qkv_bshd, _rms,
                             _rope_tables, _rotate_half, _swiglu_raw)
+from ..quantization import quantize_collective_int8, quantize_weight_int8
 from . import graphs
 from .graphs import decode_layers, sample_rows_dev, sampling_args
+from .kv_cache import quantize_kv_rows, quantize_kv_rows_fp8, store_view
 
 NEG_INF = -1e30
 
@@ -94,24 +111,246 @@ def _attn_fns(decode_attn="pallas"):
             fused_decode_tick_reference)
 
 
-# The projections are plain matmuls on dense weights — the dense branches
-# of the JAX package's ``_qkv_proj``/``_swiglu_proj``/``_o_proj``/
-# ``_head_logits`` (``models.llama._qkv_bshd`` / ``_swiglu_raw`` and
-# ``x @ w``); the quantized branches are not ported yet.
+#: the projection weights ``quantize_weights=True`` converts; norms and
+#: the embedding gather stay full precision
+_WEIGHT_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
 def _head(params, tied):
+    """The dense lm head ``[H, V]`` (the embedding transposed when
+    tied)."""
     return params["lm_head"].T if tied else params["lm_head"]
 
 
 def _layer(params, l):
-    return tuple(params[k][l] for k in STACK_KEYS)
+    return tuple(params[k][l] if not isinstance(params[k], tuple)
+                 else (params[k][0][l], params[k][1][l])
+                 for k in STACK_KEYS)
+
+
+# ----------------------------------------------- int8 weight-only decode
+def quantize_decode_params(params, tied):
+    """The decode parameters in int8 weight-only form (the engine's
+    ``quantize_weights=True``): each projection weight becomes a ``(q
+    int8, scale float32)`` pair by :func:`quantize_weight_int8` over its
+    contraction axis (one scale an output column); the lm head over its
+    contraction axis in the orientation it is used in (a tied head runs
+    ``embed.T``, so its scales lie along the embedding's rows). A stacked
+    weight converts a layer at a time (the same bits: each layer's
+    columns have their own scales), so the float32 temporaries stay one
+    layer's size."""
+    out = dict(params)
+    with torch.no_grad():
+        for k in _WEIGHT_QUANT_KEYS:
+            w = params[k]
+            q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+            sc = torch.empty((w.shape[0], 1, w.shape[2]),
+                             dtype=torch.float32, device=w.device)
+            for l in range(w.shape[0]):
+                q[l], sc[l] = quantize_weight_int8(w[l], reduce_axis=0)
+            out[k] = (q, sc)
+        out["lm_head"] = quantize_weight_int8(params["lm_head"].detach(),
+                                              reduce_axis=1 if tied else 0)
+    return out
+
+
+def _dq(w, dt):
+    """Dequantize one int8 ``(q, scale)`` pair to ``dt`` (``float(q) *
+    scale`` in float32, rounded once to ``dt``: one elementwise kernel
+    writing ``dt``, no float32 copy); a dense weight passes through."""
+    if isinstance(w, tuple):
+        q, sc = w
+        return torch.mul(q, sc, out=torch.empty(q.shape, dtype=dt,
+                                                device=q.device))
+    return w
+
+
+def _dq_layer(lp, dt, a8=False):
+    """One layer's weights for its body: the 7 projection entries
+    dequantized (one layer materialises at a time), the rest untouched.
+    Under ``a8`` nothing dequantizes: the pairs go to the int8 x int8
+    projections."""
+    if a8:
+        return lp
+    return tuple(_dq(w, dt) for w in lp[:7]) + tuple(lp[7:])
+
+
+def _dq_head(params, tied, dt, a8=False):
+    """The lm head ``[H, V]`` for the logits product: dequantized, then
+    transposed when tied (its scales lie along the stored orientation).
+    Under ``a8`` the int8 pair, oriented: a tied pair transposes data and
+    scales."""
+    head = params["lm_head"]
+    if a8 and isinstance(head, tuple):
+        q, sc = head
+        return (q.T.contiguous(), sc.T.contiguous()) if tied else (q, sc)
+    head = _dq(head, dt)
+    return head.T if tied else head
+
+
+# --------------------------------------------- int8 x int8 activation path
+def quantize_act_rows(x):
+    """Per-row int8 quantization of an activation (absmax over the last
+    axis): ``(q int8, scale float32 [..., 1])``."""
+    return quantize_collective_int8(x)
+
+
+def _int8_mm(a, b):
+    """``a [M, K] @ b [K, N]`` in int8 with int32 accumulation, exact.
+    ``torch._int_mm`` on a card wants more than 16 rows and K, N
+    multiples of 8: short ``a`` is padded with zero rows (exact), and the
+    padding's rows are dropped."""
+    M = a.shape[0]
+    if a.device.type == "cuda":
+        if a.shape[1] % 8 or b.shape[1] % 8:
+            raise NotImplementedError(
+                f"int8 x int8 projection: K {a.shape[1]} and N "
+                f"{b.shape[1]} must be multiples of 8 on a card")
+        if M <= 16:
+            a = torch.cat([a, a.new_zeros(17 - M, a.shape[1])])
+        return torch._int_mm(a.contiguous(), b.contiguous())[:M]
+    return torch._int_mm(a.contiguous(), b.contiguous())
+
+
+def _a8_apply(qx, sx, w):
+    """One int8 x int8 projection: quantized activations ``(qx, sx)``
+    against an int8 ``(q, scale)`` weight, int32 accumulation, then the
+    rescale ``acc * sx * scale``. Returns float32."""
+    qw, sw = w
+    lead = qx.shape[:-1]
+    acc = _int8_mm(qx.reshape(-1, qx.shape[-1]), qw)
+    acc = acc.reshape(*lead, qw.shape[-1])
+    return acc.float() * sx * sw.reshape(-1)
+
+
+def _a8_dot(x, w):
+    """Quantize ``x`` per row and run one int8 x int8 projection."""
+    qx, sx = quantize_act_rows(x)
+    return _a8_apply(qx, sx, w).to(x.dtype)
+
+
+def _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd):
+    """The QKV projections: ``_qkv_bshd`` on dense weights; under a8 the
+    input quantizes once per row and feeds three int8 x int8 products."""
+    if isinstance(lwq, tuple):
+        B, S = hn.shape[0], hn.shape[1]
+        dt = hn.dtype
+        qx, sx = quantize_act_rows(hn)
+        q = _a8_apply(qx, sx, lwq).to(dt).reshape(B, S, nh, hd)
+        k = _a8_apply(qx, sx, lwk).to(dt).reshape(B, S, nkv, hd)
+        v = _a8_apply(qx, sx, lwv).to(dt).reshape(B, S, nkv, hd)
+        return q, k, v
+    return _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
+
+
+def _swiglu_proj(hn, lg, lu, ld):
+    """The SwiGLU MLP: ``_swiglu_raw`` on dense weights; under a8 gate and
+    up share one activation quantization and down re-quantizes the gated
+    product (float32 between them, as in the reference)."""
+    if isinstance(lg, tuple):
+        qx, sx = quantize_act_rows(hn)
+        g = torch.nn.functional.silu(_a8_apply(qx, sx, lg))
+        u = _a8_apply(qx, sx, lu)
+        return _a8_dot(g * u, ld).to(hn.dtype)
+    return _swiglu_raw(hn, lg, lu, ld)
+
+
+def _o_proj(attn2, lwo):
+    """The attention output projection ``[..., nh*hd] @ wo``."""
+    if isinstance(lwo, tuple):
+        return _a8_dot(attn2, lwo)
+    return attn2 @ lwo
+
+
+def _head_logits(last_h, head):
+    """The lm-head product ``[B, H] @ head`` (under a8 the pair arrives
+    oriented from :func:`_dq_head`)."""
+    if isinstance(head, tuple):
+        return _a8_dot(last_h, head)
+    return last_h @ head
+
+
+# --------------------------------------------------- the pool's two forms
+# A quantized pool side is one ``(data, scale)`` pair; these helpers are
+# the only places the programs see the difference.
+def _kv_data(pool):
+    """The storage tensor of a pool side (shapes and dtype)."""
+    return pool[0] if isinstance(pool, tuple) else pool
+
+
+def _kv_layer(pool, l):
+    """Layer ``l``'s slice of a pool side (data and scales alike)."""
+    if isinstance(pool, tuple):
+        return pool[0][l], pool[1][l]
+    return pool[l]
+
+
+def _kv_attn_args(pool_k, pool_v):
+    """``(k, v, k_scale, v_scale)`` of one layer's pool sides, the scales
+    None on a full-precision pool."""
+    if isinstance(pool_k, tuple):
+        return pool_k[0], pool_v[0], pool_k[1], pool_v[1]
+    return pool_k, pool_v, None, None
 
 
 def _kv_write(pool_l, phys, row, x):
     """Write K/V rows ``x [n, Hkv, D]`` into one layer's pool slice at
-    ``(phys, row)``, in place. The caller passes live rows only (the
-    port's form of JAX's drop-mode scatter, module docstring)."""
-    if phys.numel():
-        pool_l[phys, row] = x
+    ``(phys, row)``, in place, quantizing on write on a quantized pool:
+    int8 writes the data and the per-row scales at the same coordinates,
+    fp8 the saturating cast alone (its per-block planes are never
+    written). The caller passes live rows only (the port's form of JAX's
+    drop-mode scatter, module docstring)."""
+    if not phys.numel():
+        return
+    if isinstance(pool_l, tuple):
+        data, sc = pool_l
+        if data.dtype == torch.float8_e4m3fn:
+            store_view(data)[phys, row] = store_view(quantize_kv_rows_fp8(x))
+            return
+        q, s = quantize_kv_rows(x)
+        data[phys, row] = q
+        sc[phys, row] = s
+        return
+    pool_l[phys, row] = x
+
+
+def _paged_attend(fn, q, pk_l, pv_l, tables, lengths):
+    """Paged decode attention ``fn`` over one layer's pool sides."""
+    kd, vd, ks, vs = _kv_attn_args(pk_l, pv_l)
+    return fn(q, kd, vd, tables, lengths, k_scale=ks, v_scale=vs)
+
+
+def _gather_blocks(t, idx):
+    """``t[idx]`` (a float8 tensor through its uint8 view)."""
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8)[idx].view(torch.float8_e4m3fn)
+    return t[idx]
+
+
+def _kv_gather_rows(pool_l, rd, shape4):
+    """Each row's logical cache through its table ``rd [G, nblk]`` (the
+    suffix programs), reshaped to ``shape4 = (G, s_rows, Hkv, D)``. A
+    quantized pool's rows stay in their narrow type and its scales come
+    back apart, as ``[G, s_rows, Hkv]`` (fp8's per-block planes broadcast
+    over each block's rows), for the rescale after the dots. Returns
+    ``(rows, scale_rows or None)``."""
+    if isinstance(pool_l, tuple):
+        data, sc = pool_l
+        rows = _gather_blocks(data, rd).reshape(shape4)
+        if sc.dim() == 2:                 # fp8 per-block [nb, Hkv]
+            srows = sc[rd].repeat_interleave(shape4[1] // rd.shape[1], dim=1)
+        else:                             # int8 per-row [nb, bs, Hkv]
+            srows = sc[rd].reshape(shape4[:-1])
+        return rows, srows
+    return pool_l[rd].reshape(shape4), None
+
+
+def _row_scale_bhqk(srows, grp):
+    """Gathered per-row scales ``[G, s, Hkv]`` as the ``[G, H, 1, s]``
+    factor of the suffix attention's ``bhqk`` logits or probabilities
+    (query head h reads its KV group's scale)."""
+    sf = srows.repeat_interleave(grp, dim=2) if grp > 1 else srows
+    return sf.permute(0, 2, 1)[:, :, None, :]
 
 
 def _apply_rope_grid(x, sin_p, cos_p):
@@ -162,7 +401,7 @@ def _split_rows(keys):
 # ------------------------------------------------------------------ prefill
 @torch.inference_mode()
 def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
-                  eps, theta, tied, decode_attn="pallas"):
+                  eps, theta, tied, decode_attn="pallas", a8=False):
     """Batched cold prefill: ids [G, S_pad] right-padded prompts, lengths
     [G] real token counts, per-row keys/temps/top_ks (host arrays).
 
@@ -174,25 +413,26 @@ def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
     dev = embed.device
     ids = torch.as_tensor(_host(ids)).to(dev)
     G, S = ids.shape
-    L = params["wq"].shape[0]
+    L = params["input_ln"].shape[0]
     sin, cos = _rope_tables(S, hd, theta, device=dev)
     h = embed[ids]
     pk, pv = [], []
     for l in range(L):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _layer(params, l)
+        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _dq_layer(
+            _layer(params, l), embed.dtype, a8)
         hn = _rms(h, lin, eps)
-        q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
+        q, k, v = _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd)
         q = _apply_rope(q, sin, cos)
         k = _apply_rope(k, sin, cos)
         attn = attn_fn(q, k, v, causal=True)
-        h = h + attn.reshape(G, S, nh * hd) @ lwo
-        h = h + _swiglu_raw(_rms(h, lpost, eps), lg, lu, ld)
+        h = h + _o_proj(attn.reshape(G, S, nh * hd), lwo)
+        h = h + _swiglu_proj(_rms(h, lpost, eps), lg, lu, ld)
         pk.append(k)
         pv.append(v)
     last_idx = torch.as_tensor(_host(lengths) - 1).to(dev)
     last = h[torch.arange(G, device=dev), last_idx]           # [G, H]
     last_h = _rms(last, params["final_norm"], eps)
-    logits = last_h @ _head(params, tied)
+    logits = _head_logits(last_h, _dq_head(params, tied, embed.dtype, a8))
     carry, draw = _split_rows(keys)
     tok0 = sample_rows(logits, draw, temps, top_ks)
     return torch.stack(pk), torch.stack(pv), tok0, carry
@@ -202,7 +442,7 @@ def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
 def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
                        pool_k, pool_v, lens, kys, app_mask, temps, top_ks,
                        *, nh, nkv, hd, eps, fused=False, attn=None,
-                       return_logits=False, decode_attn="pallas"):
+                       return_logits=False, decode_attn="pallas", a8=False):
     """ONE decode tick over all rows: embed the last tokens, per layer
     RMSNorm → QKV → RoPE at each row's length → append K/V through the
     tables (rows with ``app_mask == 0`` or past capacity do not append) →
@@ -220,8 +460,13 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     tensors (its plain version, this scanned tick, on CPU tensors or with
     ``FLAGS_use_cuda_kernels`` off). ``attn`` overrides the paged
     attention of the scanned tick (the fused tick's plain version passes
-    the plain one)."""
-    if fused:
+    the plain one).
+
+    Under ``a8`` the tick is always the scanned one: the fused kernel has
+    no int8 x int8 projection, and the reference routes an a8 tick to its
+    scanned oracle the same way (``pallas_fused_decode_tick.py``'s
+    dispatch), so this is the reference's routing, not a fallback."""
+    if fused and not a8:
         return _attn_fns(decode_attn)[4](
             params, head, tables, tables_dev, sin, cos, tok, pool_k, pool_v,
             lens, kys, app_mask, temps, top_ks, nh=nh, nkv=nkv, hd=hd,
@@ -229,7 +474,7 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     paged_fn = attn or _attn_fns(decode_attn)[1]
     dev = tok.device
     R = tok.shape[0]
-    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
     mb = tables.shape[1]
     s_tot = mb * bs
     lens = np.asarray(lens, np.int64)
@@ -247,16 +492,18 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     att_len = torch.from_numpy((lens + app_mask).astype(np.int32)).to(dev)
 
     def write(l, k, v):
-        _kv_write(pool_k[l], phys_w, prow_w, k[rows_w])
-        _kv_write(pool_v[l], phys_w, prow_w, v[rows_w])
+        _kv_write(_kv_layer(pool_k, l), phys_w, prow_w, k[rows_w])
+        _kv_write(_kv_layer(pool_v, l), phys_w, prow_w, v[rows_w])
 
     h = decode_layers(
         params, params["embed"][tok[:, None]], sin_r, cos_r,
-        pool_k.shape[0], write,
-        lambda l, q: paged_fn(q, pool_k[l], pool_v[l], tables_dev, att_len),
-        nh=nh, nkv=nkv, hd=hd, eps=eps)
+        _kv_data(pool_k).shape[0], write,
+        lambda l, q: _paged_attend(paged_fn, q, _kv_layer(pool_k, l),
+                                   _kv_layer(pool_v, l), tables_dev,
+                                   att_len),
+        nh=nh, nkv=nkv, hd=hd, eps=eps, a8=a8)
     last_h = _rms(h[:, 0], params["final_norm"], eps)
-    logits = last_h @ head
+    logits = _head_logits(last_h, head)
     carry, draw = _split_rows(kys)
     nxt = sample_rows(logits, draw, temps, top_ks)
     if return_logits:
@@ -273,14 +520,14 @@ def _span_last_sample(params, head, x, qstart, qlen, keys, temps, top_ks,
     last_idx = np.clip(_host(qstart) + _host(qlen) - 1, 0, T - 1)
     last = x[0, torch.from_numpy(last_idx).to(x.device)]    # [R, H]
     last_h = _rms(last, params["final_norm"], eps)
-    logits = last_h @ head
+    logits = _head_logits(last_h, head)
     carry, draw = _split_rows(keys)
     return sample_rows(logits, draw, temps, top_ks), carry
 
 
 def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
                          seg, pos, qstart, qlen, kvlen, sin, cos, *, nh,
-                         nkv, hd, eps, decode_attn="pallas"):
+                         nkv, hd, eps, decode_attn="pallas", a8=False):
     """ONE forward pass over a packed buffer of variable-length query
     spans through the block tables (tick 0 of the unified step). K/V of
     every live packed token is written through its slot's table at its
@@ -291,7 +538,7 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
     ragged_fn = _attn_fns(decode_attn)[2]
     dev = params["embed"].device
     R, mb = tables.shape
-    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
     s_tot = mb * bs
     seg = _host(seg)
     pos = _host(pos)
@@ -309,17 +556,22 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
     span = [torch.from_numpy(_host(a, np.int32)).to(dev)
             for a in (qstart, qlen, kvlen)]
     x = params["embed"][torch.as_tensor(_host(ids)).to(dev)[None]]
-    for l in range(pool_k.shape[0]):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _layer(params, l)
+    dt = x.dtype
+    for l in range(_kv_data(pool_k).shape[0]):
+        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _dq_layer(
+            _layer(params, l), dt, a8)
         hn = _rms(x, lin, eps)
-        q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
+        q, k, v = _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd)
         q = _apply_rope_grid(q, sin_p, cos_p)
         k = _apply_rope_grid(k, sin_p, cos_p)
-        _kv_write(pool_k[l], phys_w, prow_w, k[0, rows_w])
-        _kv_write(pool_v[l], phys_w, prow_w, v[0, rows_w])
-        attn = ragged_fn(q[0], pool_k[l], pool_v[l], tables_dev, *span)
-        x = x + attn.reshape(1, T, nh * hd) @ lwo
-        x = x + _swiglu_raw(_rms(x, lpost, eps), lg, lu, ld)
+        pk_l, pv_l = _kv_layer(pool_k, l), _kv_layer(pool_v, l)
+        _kv_write(pk_l, phys_w, prow_w, k[0, rows_w])
+        _kv_write(pv_l, phys_w, prow_w, v[0, rows_w])
+        kd, vd, ks, vs = _kv_attn_args(pk_l, pv_l)
+        attn = ragged_fn(q[0], kd, vd, tables_dev, *span, k_scale=ks,
+                         v_scale=vs)
+        x = x + _o_proj(attn.reshape(1, T, nh * hd), lwo)
+        x = x + _swiglu_proj(_rms(x, lpost, eps), lg, lu, ld)
     return x, pool_k, pool_v
 
 
@@ -327,7 +579,7 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
 def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                       qstart, qlen, kvlen, dec_mask, keys, temps, top_ks,
                       *, n_steps, nh, nkv, hd, eps, theta, tied,
-                      fused=False, decode_attn="pallas"):
+                      fused=False, decode_attn="pallas", a8=False):
     """THE unified serving step: one call that advances every slot's span
     — decode rows (span 1) and prefill chunks (span n) — through the same
     block tables.
@@ -350,15 +602,15 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
     adopt (host int64 ``[R, 2]`` each)."""
     dev = params["embed"].device
     tables = _host(tables)
-    s_tot = tables.shape[1] * pool_k.shape[2]
+    s_tot = tables.shape[1] * _kv_data(pool_k).shape[2]
     sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
-    head = _head(params, tied)
+    head = _dq_head(params, tied, params["embed"].dtype, a8)
     tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
     # ----------------------------------- tick 0 (shared packed forward)
     x, pool_k, pool_v = _packed_span_forward(
         params, pool_k, pool_v, tables, tables_dev, ids, seg, pos, qstart,
         qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
-        decode_attn=decode_attn)
+        decode_attn=decode_attn, a8=a8)
     tok0, keys_t0 = _span_last_sample(params, head, x, qstart, qlen, keys,
                                       temps, top_ks, eps)
     # ------------------------------------------- fused tail (pure decode)
@@ -369,7 +621,7 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
         tok, pool_k, pool_v, kys = _fused_decode_tick(
             params, head, tables, tables_dev, sin, cos, tok, pool_k,
             pool_v, lens, kys, dec_mask, temps, top_ks, nh=nh, nkv=nkv,
-            hd=hd, eps=eps, fused=fused, decode_attn=decode_attn)
+            hd=hd, eps=eps, fused=fused, decode_attn=decode_attn, a8=a8)
         lens = lens + dec_mask
         toks.append(tok)
     return pool_k, pool_v, torch.stack(toks), keys_t0, _keys_host(kys)
@@ -399,7 +651,7 @@ def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
     dev = embed.device
     s_max = cache_k.shape[2]
     sin, cos = _rope_tables(s_max, hd, theta, device=dev)
-    head = _head(params, tied)
+    head = _dq_head(params, tied, embed.dtype)
     tok = torch.as_tensor(_host(tokens)).to(dev)
     lens = _host(lengths)
     kys = keys
@@ -433,7 +685,7 @@ def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
 
 
 # ------------------------------------------------------------ suffix prefill
-def _suffix_attention(q, kc, vc, pos, valid_to, nkv):
+def _suffix_attention(q, kc, vc, pos, valid_to, nkv, ksr=None, vsr=None):
     """The suffix programs' attention (plain PyTorch, as the JAX programs
     compute it with ``jnp.einsum`` outside any kernel): query column i of
     row g sits at global position ``pos[g, i]`` and sees cache rows
@@ -450,22 +702,31 @@ def _suffix_attention(q, kc, vc, pos, valid_to, nkv):
     row past it is masked for every live row, so its exp is an exact 0 in
     the softmax and it adds exact zeros to PV — the same values as JAX's
     attention over the full table, without paying for it on a long
-    cache."""
+    cache.
+
+    A quantized pool's rows arrive narrow, with their scales ``ksr`` /
+    ``vsr [G, s_rows, Hkv]``: the K scales multiply the logits after the
+    dot, the V scales the probabilities after the softmax, as the
+    reference's suffix program does."""
     nh, D = q.shape[2], q.shape[3]
     grp = nh // nkv
+    kc, vc = kc.to(q.dtype), vc.to(q.dtype)      # int8 / e4m3: exact
     kf = kc.repeat_interleave(grp, dim=2) if grp > 1 else kc
     vf = vc.repeat_interleave(grp, dim=2) if grp > 1 else vc
     rows = torch.arange(kc.shape[1], device=q.device)
     mask = (rows[None, None, :] <= pos[:, :, None])[:, None]  # [G,1,S,s]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          kf.to(q.dtype).float()) * (1.0 / (D ** 0.5))
+                          kf.float()) * (1.0 / (D ** 0.5))
+    if ksr is not None:
+        logits = logits * _row_scale_bhqk(ksr, grp)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask, probs, torch.zeros_like(probs))
+    if vsr is not None:
+        probs = probs * _row_scale_bhqk(vsr, grp)
     row_valid = rows[None, :] < valid_to[:, None]
     vf = torch.where(row_valid[:, :, None, None], vf, torch.zeros_like(vf))
-    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype),
-                        vf.to(q.dtype))
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), vf)
 
 
 def _visible_rows(prefix, S, live, cap, unit):
@@ -479,29 +740,33 @@ def _visible_rows(prefix, S, live, cap, unit):
 
 def _suffix_forward(params, ids, sin_p, cos_p, n_layers, write, gather,
                     pos, valid_to, suffix_lens, keys, temps, top_ks, *, nh,
-                    nkv, hd, eps, tied):
+                    nkv, hd, eps, tied, a8=False):
     """The suffix programs' shared forward: per layer RMSNorm → QKV →
     RoPE at each column's position → ``write(l, k, v)`` (``[G, S, Hkv,
     D]`` into the caller's cache) → ``gather(l)`` (each row's visible
-    cache after the writes) → :func:`_suffix_attention` → O-proj →
-    SwiGLU; then each row's sample from its last real suffix column,
-    after one key split. Returns ``(tok0 [G] device, keys' [G, 2]
-    host)``."""
+    cache after the writes, and its scales or None) →
+    :func:`_suffix_attention` → O-proj → SwiGLU; then each row's sample
+    from its last real suffix column, after one key split. Returns
+    ``(tok0 [G] device, keys' [G, 2] host)``."""
     G, S = ids.shape
     x = params["embed"][ids]
+    dt = x.dtype
     for l in range(n_layers):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _layer(params, l)
+        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _dq_layer(
+            _layer(params, l), dt, a8)
         hn = _rms(x, lin, eps)
-        q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
+        q, k, v = _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd)
         q = _apply_rope_grid(q, sin_p, cos_p)
         k = _apply_rope_grid(k, sin_p, cos_p)
         write(l, k, v)
-        attn = _suffix_attention(q, *gather(l), pos, valid_to, nkv)
-        x = x + attn.reshape(G, S, nh * hd) @ lwo
-        x = x + _swiglu_raw(_rms(x, lpost, eps), lg, lu, ld)
+        (kc, ksr), (vc, vsr) = gather(l)
+        attn = _suffix_attention(q, kc, vc, pos, valid_to, nkv, ksr, vsr)
+        x = x + _o_proj(attn.reshape(G, S, nh * hd), lwo)
+        x = x + _swiglu_proj(_rms(x, lpost, eps), lg, lu, ld)
     last = x[torch.arange(G, device=x.device),
              torch.from_numpy(_host(suffix_lens) - 1).to(x.device)]
-    logits = _rms(last, params["final_norm"], eps) @ _head(params, tied)
+    logits = _head_logits(_rms(last, params["final_norm"], eps),
+                          _dq_head(params, tied, dt, a8))
     carry, draw = _split_rows(keys)
     return sample_rows(logits, draw, temps, top_ks), carry
 
@@ -547,7 +812,8 @@ def _suffix_prefill_impl(params, cache_k, cache_v, slots, prefix_lens, ids,
 
     tok0, carry = _suffix_forward(
         params, ids, sin_p, cos_p, cache_k.shape[0], write,
-        lambda l: (cache_k[l, rd, :vis], cache_v[l, rd, :vis]),
+        lambda l: ((cache_k[l, rd, :vis], None),
+                   (cache_v[l, rd, :vis], None)),
         torch.from_numpy(pos).to(dev), torch.from_numpy(prefix + S).to(dev),
         suffix_lens, keys, temps, top_ks, nh=nh, nkv=nkv, hd=hd, eps=eps,
         tied=tied)
@@ -558,7 +824,7 @@ def _suffix_prefill_impl(params, cache_k, cache_v, slots, prefix_lens, ids,
 def _paged_suffix_prefill_impl(params, pool_k, pool_v, tables, prefix_lens,
                                ids, suffix_lens, keys, temps, top_ks, *,
                                nh, nkv, hd, eps, theta, tied,
-                               decode_attn="pallas"):
+                               decode_attn="pallas", a8=False):
     """The suffix prefill through per-row block tables (the paged engine's
     prefix hits, and the two-program engine's chunked-prefill program: a
     chunk is a "suffix" whose ``prefix_lens`` is the host resume offset).
@@ -570,11 +836,13 @@ def _paged_suffix_prefill_impl(params, pool_k, pool_v, tables, prefix_lens,
     block-aligned. Only real columns (``i < suffix_lens[g]``) of mapped
     entries are written; the shared prefix blocks are read through the
     same table and never written. Returns ``(pool_k, pool_v, tok0,
-    keys')``, the pools written in place."""
+    keys')``, the pools written in place. On a quantized pool the suffix
+    rows quantize on write and the attention reads the narrow rows, the
+    scales applied after the dots (:func:`_kv_gather_rows`)."""
     dev = params["embed"].device
     ids = torch.as_tensor(_host(ids)).to(dev)
     G, S = ids.shape
-    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
     tables = _host(tables)
     mb = tables.shape[1]
     s_tot = mb * bs
@@ -593,18 +861,19 @@ def _paged_suffix_prefill_impl(params, pool_k, pool_v, tables, prefix_lens,
     w_g, w_c = torch.from_numpy(gi).to(dev), torch.from_numpy(ci).to(dev)
     vis = _visible_rows(prefix, S, prefix < s_tot, s_tot, bs)
     rd = torch.from_numpy(np.clip(tables[:, :vis // bs], 0, nb - 1)).to(dev)
-    shape = (G, vis) + tuple(pool_k.shape[3:])
+    shape = (G, vis) + tuple(_kv_data(pool_k).shape[3:])
 
     def write(l, k, v):
-        _kv_write(pool_k[l], w_phys, w_row, k[w_g, w_c])
-        _kv_write(pool_v[l], w_phys, w_row, v[w_g, w_c])
+        _kv_write(_kv_layer(pool_k, l), w_phys, w_row, k[w_g, w_c])
+        _kv_write(_kv_layer(pool_v, l), w_phys, w_row, v[w_g, w_c])
 
     tok0, carry = _suffix_forward(
-        params, ids, sin_p, cos_p, pool_k.shape[0], write,
-        lambda l: (pool_k[l][rd].reshape(shape), pool_v[l][rd].reshape(shape)),
+        params, ids, sin_p, cos_p, _kv_data(pool_k).shape[0], write,
+        lambda l: (_kv_gather_rows(_kv_layer(pool_k, l), rd, shape),
+                   _kv_gather_rows(_kv_layer(pool_v, l), rd, shape)),
         torch.from_numpy(pos).to(dev), torch.from_numpy(prefix + S).to(dev),
         suffix_lens, keys, temps, top_ks, nh=nh, nkv=nkv, hd=hd, eps=eps,
-        tied=tied)
+        tied=tied, a8=a8)
     return pool_k, pool_v, tok0, carry
 
 
@@ -628,7 +897,7 @@ def _paged_decode_steps_impl(params, pool_k, pool_v, tables, tokens,
     tables = _host(tables)
     s_tot = tables.shape[1] * pool_k.shape[2]
     sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
-    head = _head(params, tied)
+    head = _dq_head(params, tied, params["embed"].dtype)
     tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
     tok = torch.as_tensor(_host(tokens)).to(dev)
     lens = _host(lengths)
@@ -667,7 +936,7 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                          qstart, qlen, kvlen, dec_mask, keys, temps, top_ks,
                          eos_ids, budgets, n_ticks, *, max_ticks, nh, nkv,
                          hd, eps, theta, tied, fused=False,
-                         decode_attn="pallas", tail=None):
+                         decode_attn="pallas", a8=False, tail=None):
     """THE multi-tick serving step: the unified step with the host out of
     the per-token loop.
 
@@ -695,10 +964,10 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
     dev = params["embed"].device
     tables = _host(tables)
     R, mb = tables.shape
-    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
     s_tot = mb * bs
     sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
-    head = _head(params, tied)
+    head = _dq_head(params, tied, params["embed"].dtype, a8)
     tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
     dec, kv = _host(dec_mask), _host(kvlen)
     qs, ql = _host(qstart), _host(qlen)
@@ -712,13 +981,13 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
             params, head, tables, tables_dev, sin, cos, tok_in, pool_k,
             pool_v, np.where(dec > 0, kv - 1, 0), keys, dec, temps, top_ks,
             nh=nh, nkv=nkv, hd=hd, eps=eps, fused=True,
-            decode_attn=decode_attn)
+            decode_attn=decode_attn, a8=a8)
         keys_t0 = _keys_host(keys_t0)
     else:
         x, pool_k, pool_v = _packed_span_forward(
             params, pool_k, pool_v, tables, tables_dev, ids, seg, pos,
             qstart, qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
-            decode_attn=decode_attn)
+            decode_attn=decode_attn, a8=a8)
         tok0, keys_t0 = _span_last_sample(params, head, x, qstart, qlen,
                                           keys, temps, top_ks, eps)
     # --------------------------------- tail (alive-masked, n_ticks - 1)
@@ -732,7 +1001,7 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                   & torch.from_numpy(bud > 1).to(dev))
         kernels = get_flag("FLAGS_use_cuda_kernels") \
             and decode_attn == "pallas"
-        if fused and kernels and dev.type == "cuda":
+        if fused and not a8 and kernels and dev.type == "cuda":
             toks, hist, kw = _fused_tail(
                 params, head, tables, tables_dev, sin, cos, tok0, pool_k,
                 pool_v, lens0, keys_t0, alive0, eos, bud, temps, top_ks, n,
@@ -745,7 +1014,7 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                 params, head, pool_k, pool_v, tables, tables_dev, sin, cos,
                 tok0, lens0, dec, eos, bud, draws, alive0, temps, top_ks, n,
                 max_ticks, tail, nh=nh, nkv=nkv, hd=hd, eps=eps,
-                paged_fn=_attn_fns(decode_attn)[1], kernels=kernels)
+                paged_fn=_attn_fns(decode_attn)[1], kernels=kernels, a8=a8)
     # ------------------------------------ the step's one device→host copy
     host = torch.cat([p.reshape(-1).long() for p in parts]).cpu().numpy()
     toks_h = np.zeros((max_ticks, R), np.int64)
@@ -763,17 +1032,18 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
 def _scanned_tail(params, head, pool_k, pool_v, tables, tables_dev, sin, cos,
                   tok0, lens0, dec, eos, bud, draws, alive0, temps, top_ks,
                   n, max_ticks, tail, *, nh, nkv, hd, eps, paged_fn,
-                  kernels):
+                  kernels, a8=False):
     """``n - 1`` ticks of :func:`.graphs.tail_tick`: on the engine's
     captured graph (``tail`` on a card with ``FLAGS_cuda_graph_tail``),
     else eagerly. Returns device ``[toks [n-1, R], alive at each tick's
     start [n-1, R]]``."""
     dev = tok0.device
     R, mb = tables.shape
-    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    data = _kv_data(pool_k)
+    nb, bs = data.shape[1], data.shape[2]
     greedy = not (np.asarray(temps, np.float32) > 0).any()
-    key = (R, mb, str(pool_k.dtype), greedy, kernels, max_ticks,
-           pool_k.data_ptr())
+    key = (R, mb, str(data.dtype), greedy, kernels, max_ticks,
+           data.data_ptr(), a8)
 
     def make():
         return graphs.TailState(R, mb, max_ticks, sin, cos, greedy, dev)
@@ -782,12 +1052,13 @@ def _scanned_tail(params, head, pool_k, pool_v, tables, tables_dev, sin, cos,
     block, row = graphs.trash_coord(tables, nb, bs, lens0, dec, n)
     meta = np.concatenate([lens0, eos, bud, [block * bs + row],
                            draws.reshape(-1)]).astype(np.int64)
+    V = params["embed"].shape[0]
     st.load(tok0, tables_dev, torch.from_numpy(meta).to(dev),
-            sampling_args(temps, top_ks, head.shape[1], dev), alive0)
+            sampling_args(temps, top_ks, V, dev), alive0)
 
     def tick():
         graphs.tail_tick(params, head, pool_k, pool_v, st, nh=nh, nkv=nkv,
-                         hd=hd, eps=eps, paged_fn=paged_fn)
+                         hd=hd, eps=eps, paged_fn=paged_fn, a8=a8)
 
     if tail is not None:
         tail.run(key, n - 1, tick, graph=graphs.use_graph(dev))

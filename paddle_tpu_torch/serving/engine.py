@@ -32,6 +32,21 @@ More decode programs ride the same engine:
   tick), and one host sync a step; the host trims each slot at its first
   EOS or budget cut, so streams equal ``decode_ticks=1``.
 
+Quantized serving composes with those, under the reference's rules:
+
+- ``kv_dtype="int8" | "fp8"`` (the unified engine only): the pool stores
+  int8 with per-row-per-head scale planes, or e4m3 with per-block
+  planes; every append quantizes on write and the attention kernels
+  read the narrow pool with its scales (``kernels/*``, quantized modes);
+- ``quantize_weights=True`` (every engine): the decode parameters are
+  converted once per model into int8 ``(q, scale)`` pairs
+  (``decode.quantize_decode_params``, cached on the model), dequantized a
+  layer at a time in each program, and in-kernel by the fused tick;
+- ``quantize_activations=True`` (with ``quantize_weights``, the unified
+  engine only): every projection runs int8 x int8 with int32
+  accumulation; the fused tick then takes the scanned tick, as the
+  reference routes it.
+
 ``prefix_cache=True`` (or a :class:`~.prefix_cache.PrefixCache`) turns on
 automatic prefix caching on either cache: retiring sequences publish their
 full KV blocks into a ref-counted LRU trie, and an admission whose prompt
@@ -86,7 +101,8 @@ from ..profiler.tracing import NULL_SPAN
 from .block_manager import BlockManager
 from .decode import (_decode_steps_impl, _multitick_step_impl,
                      _paged_decode_steps_impl, _paged_suffix_prefill_impl,
-                     _prefill_impl, _ragged_step_impl, _suffix_prefill_impl)
+                     _prefill_impl, _ragged_step_impl, _suffix_prefill_impl,
+                     quantize_decode_params)
 from .graphs import TailGraphs
 from .kv_cache import PagedKVCache, PoolExhausted, SlotKVCache
 from .policy import ClassTable
@@ -195,11 +211,31 @@ class ContinuousBatchingEngine:
                         "Queue A step 10 (tensor parallel)")
         if spec_decode:
             _not_ported("spec_decode", "Queue A step 9 (spec decode)")
-        if kv_dtype is not None:
-            _not_ported("kv_dtype", "Queue A step 9 (quantized serving)")
-        if quantize_weights or quantize_activations:
-            _not_ported("quantize_weights/quantize_activations",
-                        "Queue A step 9 (quantized serving)")
+        if kv_dtype not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"kv_dtype must be None (store KV at the pool dtype), "
+                f"'int8' or 'fp8', got {kv_dtype!r}")
+        if kv_dtype is not None and not (paged_attn and ragged_step):
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} requires the unified ragged "
+                f"paged engine (paged_attn=True, ragged_step=True): the "
+                f"quantized pool's one upcast site is the ragged "
+                f"attention kernel, and the dense / two-program paths "
+                f"never grew scale-plane plumbing")
+        if quantize_activations and not quantize_weights:
+            raise ValueError(
+                "quantize_activations=True requires "
+                "quantize_weights=True: the int8xint8 projection path "
+                "contracts runtime-quantized activations against the "
+                "int8 weight pytree, so there is no activation-only "
+                "variant")
+        if quantize_activations and not (paged_attn and ragged_step):
+            raise ValueError(
+                "quantize_activations=True requires the unified ragged "
+                "paged engine (paged_attn=True, ragged_step=True): only "
+                "the packed-span programs grew the int8xint8 projection "
+                "path, and a dense-path decode would silently fall back "
+                "to weight-dequant matmuls")
         if int(tp) != 1:
             _not_ported("tp > 1", "Queue A step 10 (tensor parallel)")
         if collective_overlap:
@@ -239,8 +275,21 @@ class ContinuousBatchingEngine:
         self.num_slots = int(num_slots)
         self.max_seq_len = int(max_seq_len or c.max_position_embeddings)
         self._params, self._tied = llama_decode_params(model)
+        # quantized serving: the pool's storage mode (None / "int8" /
+        # "fp8"), int8 weight-only projections, int8 x int8 projections
+        self._kv_quant = kv_dtype
+        self._wq8 = bool(quantize_weights)
+        self._a8 = bool(quantize_activations)
         if _kernels_on(self._params, c):
             self._check_kernel_limits()
+        if self._wq8:
+            # converted once per model: a rebuilt engine shares the
+            # pairs (and the program cache)
+            qp = model.__dict__.get("_decode_qparams")
+            if qp is None:
+                qp = quantize_decode_params(self._params, self._tied)
+                model.__dict__["_decode_qparams"] = qp
+            self._params = qp
         bs = int(prefix_block_size)
         if bs < 1:
             raise ValueError(f"prefix_block_size must be >= 1, got {bs}")
@@ -253,7 +302,7 @@ class ContinuousBatchingEngine:
                 c.num_key_value_heads, c.head_dim,
                 dtype=self._params["embed"].dtype, block_size=bs,
                 pool=pool, prefix_cache=self.prefix_cache,
-                device=model.device)
+                device=model.device, kv_dtype=self._kv_quant)
         else:
             self.cache = SlotKVCache(
                 c.num_hidden_layers, self.num_slots, self.max_seq_len,
@@ -262,7 +311,7 @@ class ContinuousBatchingEngine:
             if prefix_cache:
                 self.prefix_cache = self._dense_trie(prefix_cache,
                                                      prefix_blocks, bs)
-        self._kv_dtype = str(self._params["embed"].dtype).replace(
+        self._kv_dtype = kv_dtype or str(self._params["embed"].dtype).replace(
             "torch.", "")
         # chunked prefill (paged only: the dense cache has no block tables
         # to resume through, so its prefill stays one-shot). The chunk
@@ -306,6 +355,12 @@ class ContinuousBatchingEngine:
         # rebuilt engine counts as one program (model.generate and the
         # gateway's factory pass the model-level dict)
         self._jit = jit_cache if jit_cache is not None else {}
+        # program-key variant tags: a quantized pool or parameter set is
+        # another program of the same function (the reference's tags)
+        self._kvtag = (("kv8f",) if kv_dtype == "fp8"
+                       else ("kv8",) if kv_dtype else ())
+        self._wtag = ("w8",) if self._wq8 else ()
+        self._atag = ("a8",) if self._a8 else ()
         self._fktag = ("fk",) if self._fused_tick else ()
         # the multi-tick tail's captured CUDA graphs and their buffers
         self._tail = TailGraphs() if self._mtick else None
@@ -346,16 +401,22 @@ class ContinuousBatchingEngine:
         c = self.config
         live = self.num_slots * -(-self.max_seq_len // bs)
         dtype = self._params["embed"].dtype
+        # the storage dtype follows kv_dtype: a shared pool must match the
+        # engine's quantization mode exactly
+        store = (torch.float8_e4m3fn if self._kv_quant == "fp8"
+                 else torch.int8 if self._kv_quant else dtype)
         if isinstance(prefix_cache, PrefixCache):
             pool = prefix_cache.pool
             want = (c.num_hidden_layers, c.num_key_value_heads, c.head_dim)
             have = (pool.k.shape[0],) + tuple(pool.k.shape[3:])
-            if have != want or pool.k.dtype != dtype \
-                    or pool.block_size != bs:
+            if have != want or pool.k.dtype != store \
+                    or pool.block_size != bs \
+                    or pool.kv_dtype != self._kv_quant:
                 raise ValueError(
                     f"shared PrefixCache pool geometry "
                     f"{have}/bs={pool.block_size}/{pool.k.dtype} does not "
-                    f"match this paged engine {want}/bs={bs}/{dtype}")
+                    f"match this paged engine {want}/bs={bs}/{store} "
+                    f"(kv_dtype={self._kv_quant!r})")
             if pool.num_blocks <= live:
                 raise ValueError(
                     f"shared pool of {pool.num_blocks} blocks cannot back "
@@ -378,6 +439,7 @@ class ContinuousBatchingEngine:
                         f"prefix_blocks must be >= 1, got {budget}")
         pool = BlockManager(c.num_hidden_layers, live + budget, bs,
                             c.num_key_value_heads, c.head_dim, dtype=dtype,
+                            kv_dtype=self._kv_quant,
                             device=self.model.device)
         if prefix_cache:
             self.prefix_cache = PrefixCache(pool, max_blocks=budget)
@@ -423,8 +485,21 @@ class ContinuousBatchingEngine:
 
     @property
     def kv_dtype(self) -> str:
-        """The pool's storage dtype name (``"float32"``/``"bfloat16"``)."""
+        """The KV storage this engine serves from: ``"int8"`` / ``"fp8"``
+        on a quantized pool, else the pool's dtype name (``"float32"`` /
+        ``"bfloat16"``)."""
         return self._kv_dtype
+
+    @property
+    def quantize_weights(self) -> bool:
+        """Whether the projections run on int8 weight-only pairs."""
+        return self._wq8
+
+    @property
+    def quantize_activations(self) -> bool:
+        """Whether the projections run int8 x int8 (per-row activation
+        quantization at run time, int32 accumulation)."""
+        return self._a8
 
     @property
     def decode_ticks(self) -> int:
@@ -438,8 +513,6 @@ class ContinuousBatchingEngine:
     tp = 1
     collective_dtype = "fp"
     collective_overlap = False
-    quantize_weights = False
-    quantize_activations = False
 
     @property
     def num_active(self) -> int:
@@ -461,20 +534,30 @@ class ContinuousBatchingEngine:
             self._tail.release()
 
     def _check_kernel_limits(self):
-        """Raise unless every kernel this engine launches takes the model:
-        the flash forward (cold prefill); then ragged attention and paged
-        decode, or ragged attention and the fused tick (any ``num_slots``),
-        or paged decode alone (the two-program step), or dense decode."""
+        """Raise unless every kernel this engine launches takes the model,
+        in the pool's storage mode: the flash forward (cold prefill); then
+        ragged attention and paged decode, or ragged attention and the
+        fused tick (any ``num_slots``; under ``quantize_activations`` the
+        scanned tick's paged decode instead), or paged decode alone (the
+        two-program step), or dense decode. The int8 x int8 projections
+        want widths that are multiples of 8 on a card."""
         c = self.config
         nh, nkv, hd = (c.num_attention_heads, c.num_key_value_heads,
                        c.head_dim)
         check_head_dim("flash", hd, flash.HEAD_DIMS)
+        if self._a8 and any(w % 8 for w in (
+                c.hidden_size, c.intermediate_size, c.vocab_size,
+                nh * hd, nkv * hd)):
+            raise NotImplementedError(
+                "quantize_activations on a card: the int8 x int8 "
+                "projections (torch._int_mm) want hidden, intermediate, "
+                "vocab and head widths that are multiples of 8")
         if not self._paged:
             dense_decode.check_limits(nh, nkv, hd)
             return
         if self._ragged:
             ragged_attention.check_limits(nh, nkv, hd)
-        if self._fused_tick:
+        if self._fused_tick and not self._a8:
             fused_decode_tick.check_limits(nh, nkv, hd, c.hidden_size,
                                            c.intermediate_size,
                                            c.vocab_size)
@@ -528,6 +611,12 @@ class ContinuousBatchingEngine:
                     theta=float(c.rope_theta), tied=self._tied,
                     decode_attn=c.decode_attention)
 
+    def _q_consts(self):
+        """The a8 keyword of the programs that grew the int8 x int8 path
+        (none when off; the validation keeps a8 off the dense and
+        two-program engines)."""
+        return dict(a8=True) if self._a8 else {}
+
     def _program(self, key, fn, host_out, **kw):
         if key not in self._jit:
             self._jit[key] = _Program(functools.partial(
@@ -536,28 +625,36 @@ class ContinuousBatchingEngine:
 
     def _prefill_fn(self):
         # host reads tok0 (result 2)
-        return self._program(("prefill",), _prefill_impl, (2,))
+        # the cold prefill never touches the pool: engines differing only
+        # in kv_dtype share it
+        return self._program(("prefill",) + self._wtag + self._atag,
+                             _prefill_impl, (2,), **self._q_consts())
 
     def _ragged_fn(self, n_steps):
         # the full packed geometry (num_slots AND token budget) keys the
         # program, as in the reference; host reads tokens and tick-0 keys
         key = ("ragged", self.num_slots, self._token_budget, int(n_steps),
-               self.config.decode_attention) + self._fktag
+               self.config.decode_attention) + self._kvtag + self._wtag \
+            + self._atag + self._fktag
         return self._program(key, _ragged_step_impl, (2, 3),
-                             n_steps=int(n_steps), fused=self._fused_tick)
+                             n_steps=int(n_steps), fused=self._fused_tick,
+                             **self._q_consts())
 
     def _suffix_fn(self):
         # the paged and dense suffix programs key apart (table-indirect vs
         # slot-indexed); host reads tok0 (result 2)
+        tags = self._kvtag + self._wtag + self._atag
         if self._paged:
-            return self._program(("psuffix",), _paged_suffix_prefill_impl,
-                                 (2,))
-        return self._program(("suffix",), _suffix_prefill_impl, (2,))
+            return self._program(("psuffix",) + tags,
+                                 _paged_suffix_prefill_impl, (2,),
+                                 **self._q_consts())
+        return self._program(("suffix",) + tags, _suffix_prefill_impl, (2,))
 
     def _decode_fn(self, n_steps):
         kind, fn = (("pdecode", _paged_decode_steps_impl) if self._paged
                     else ("decode", _decode_steps_impl))
-        key = (kind, int(n_steps), self.config.decode_attention)
+        key = (kind, int(n_steps), self.config.decode_attention) \
+            + self._kvtag + self._wtag
         return self._program(key, fn, (0,), n_steps=int(n_steps))
 
     def _mtick_fn(self):
@@ -567,10 +664,10 @@ class ContinuousBatchingEngine:
         # the key walk and ticks_run
         key = ("mtick", self.num_slots, self._token_budget,
                self._decode_ticks, self.config.decode_attention) \
-            + self._fktag
+            + self._kvtag + self._wtag + self._atag + self._fktag
         return self._program(key, _multitick_step_impl, (2, 3, 4),
                              max_ticks=self._decode_ticks,
-                             fused=self._fused_tick)
+                             fused=self._fused_tick, **self._q_consts())
 
     def decode_compilations(self) -> int:
         """Decode-program signatures of THIS engine's kind (the
@@ -580,29 +677,34 @@ class ContinuousBatchingEngine:
         ``n_steps`` on the two-program and dense ones, however sampling
         knobs, budgets, tables and span mixes vary — the JAX engine's
         trace count."""
+        tags = self._kvtag + self._wtag + self._atag + self._fktag
         if self._mtick:
             return sum(fn._cache_size() for key, fn in self._jit.items()
                        if key[0] == "mtick"
                        and key[1] == self.num_slots
                        and key[2] == self._token_budget
                        and key[3] == self._decode_ticks
-                       and key[5:] == self._fktag)
+                       and key[5:] == tags)
         if self._ragged:
             return sum(fn._cache_size() for key, fn in self._jit.items()
                        if key[0] == "ragged"
                        and key[1] == self.num_slots
                        and key[2] == self._token_budget
-                       and key[5:] == self._fktag)
+                       and key[5:] == tags)
         kind = "pdecode" if self._paged else "decode"
         return sum(fn._cache_size() for key, fn in self._jit.items()
-                   if key[0] == kind and key[3:] == ())
+                   if key[0] == kind and key[3:] == tags)
 
     def prefill_compilations(self) -> int:
         """Prefill-side signatures, cold and suffix: one per (padded
         group, bucket), whatever the hit/miss/eviction mix."""
-        sfx = ("psuffix",) if self._paged else ("suffix",)
+        sfx = "psuffix" if self._paged else "suffix"
         return sum(fn._cache_size() for key, fn in self._jit.items()
-                   if key in (("prefill",), sfx))
+                   if (key[0] == "prefill"
+                       and key[1:] == self._wtag + self._atag)
+                   or (key[0] == sfx
+                       and key[1:] == self._kvtag + self._wtag
+                       + self._atag))
 
     # ------------------------------------------------------------- intake
     def _key_for(self, request):
@@ -842,7 +944,7 @@ class ContinuousBatchingEngine:
             if live:
                 temps[i] = float(seq.request.temperature)
                 topks[i] = int(seq.request.top_k)
-        kv = ((self.cache.pool.k, self.cache.pool.v) if self._paged
+        kv = (self.cache.kv_args() if self._paged
               else (self.cache.k, self.cache.v))
         with self._tspan("prefill_launch",
                          args={"bucket": s_pad, "group": len(rows)}):
@@ -1302,9 +1404,9 @@ class ContinuousBatchingEngine:
             tl0 = tr.now()
         if co is not None:
             co.set_phase("launch")
-        pool = self.cache.pool
         _, _, toks, keys_t0, keys_fin = self._ragged_fn(n)(
-            self._params, pool.k, pool.v, self.cache.tables, ids, seg, pos,
+            self._params, *self.cache.kv_args(), self.cache.tables, ids,
+            seg, pos,
             qstart, qlen, kvlen, dec_mask, keys, temps, topks)
         toks_np = toks.cpu().numpy()        # [n, R]
         keys_t0_np = keys_t0.numpy()
@@ -1385,9 +1487,8 @@ class ContinuousBatchingEngine:
                     # dead-slot clamp) does that
                     lens[slot] = self.cache.max_blocks * \
                         self.cache.block_size
-            pool = self.cache.pool
             toks, _, _, keys = self._decode_fn(n)(
-                self._params, pool.k, pool.v, self.cache.tables,
+                self._params, *self.cache.kv_args(), self.cache.tables,
                 self._last_tok, lens, self._keys, self._temps, self._topks)
         else:
             toks, nk, nv, keys = self._decode_fn(n)(
@@ -1468,9 +1569,9 @@ class ContinuousBatchingEngine:
             tl0 = tr.now()
         if co is not None:
             co.set_phase("launch")
-        pool = self.cache.pool
         _, _, toks, kwalk, ticks = self._mtick_fn()(
-            self._params, pool.k, pool.v, self.cache.tables, ids, seg, pos,
+            self._params, *self.cache.kv_args(), self.cache.tables, ids,
+            seg, pos,
             qstart, qlen, kvlen, dec_mask, keys, temps, topks, eos_ids,
             budgets, np.int32(n), tail=self._tail)
         toks_np = toks.numpy()              # [max_ticks, R], host already

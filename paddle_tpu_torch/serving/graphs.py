@@ -27,7 +27,13 @@ What the tick keeps on the device, where the unified step's tick
 - the PRNG draws: every row splits its key every tick, dead or alive, so
   the walk does not depend on the tokens; the host computes the ``n``
   draws before the launch (``core/random.py``, bit for bit jax's) and
-  uploads them once.
+  uploads them once;
+- on a quantized pool the append quantizes on the device inside the tick
+  (``kv_cache.quantize_kv_rows`` / ``quantize_kv_rows_fp8``): an int8
+  pool writes data and scale plane at the same flat coordinate, the trash
+  row carrying back its own data and its own scale; an fp8 pool writes
+  the data alone, through a ``uint8`` view (CUDA's ``where`` and
+  ``index_put_`` take no float8).
 
 On the CPU, or with ``FLAGS_cuda_graph_tail`` off, the same tick runs
 eagerly: that is what the CPU tests hold against the JAX program.
@@ -50,8 +56,8 @@ import torch
 from ..core import random as prng
 from ..flags import get_flag
 from ..kernels import capture_counts, count_replay
-from ..models.llama import STACK_KEYS, _qkv_bshd, _rms, _rotate_half, \
-    _swiglu_raw
+from ..models.llama import _rms, _rotate_half
+from .kv_cache import quantize_kv_rows, quantize_kv_rows_fp8, store_view
 
 NEG_INF = -1e30
 
@@ -64,26 +70,29 @@ def apply_rope_rows(x, sin_p, cos_p):
 
 
 def decode_layers(params, h, sin_r, cos_r, n_layers, write, attend, *, nh,
-                  nkv, hd, eps):
+                  nkv, hd, eps, a8=False):
     """The layer stack of one decode tick, shared by every single-token
     program (the unified and two-program ticks, dense decode, the
     multi-tick tail): per layer RMSNorm → QKV → RoPE at each row's
     position → ``write(l, k, v)`` (the rows' K/V ``[R, Hkv, D]`` into the
     layer's cache) → ``attend(l, q)`` (``[R, H, D]`` → ``[R, H, D]``) →
     O-proj → SwiGLU. ``h`` is the embedded tokens ``[R, 1, hidden]``;
-    returns the residual stream after the last layer."""
+    returns the residual stream after the last layer. int8 weight pairs
+    dequantize a layer at a time, or with ``a8`` run int8 x int8
+    (``serving/decode.py``'s projection helpers)."""
+    from .decode import _dq_layer, _layer, _o_proj, _qkv_proj, _swiglu_proj
     R = h.shape[0]
     for l in range(n_layers):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = (params[k][l]
-                                                      for k in STACK_KEYS)
+        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _dq_layer(
+            _layer(params, l), h.dtype, a8)
         hn = _rms(h, lin, eps)
-        q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
+        q, k, v = _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd)
         q = apply_rope_rows(q, sin_r, cos_r)
         k = apply_rope_rows(k, sin_r, cos_r)
         write(l, k[:, 0], v[:, 0])
         attn = attend(l, q[:, 0])
-        h = h + attn.reshape(R, 1, nh * hd) @ lwo
-        h = h + _swiglu_raw(_rms(h, lpost, eps), lg, lu, ld)
+        h = h + _o_proj(attn.reshape(R, 1, nh * hd), lwo)
+        h = h + _swiglu_proj(_rms(h, lpost, eps), lg, lu, ld)
     return h
 
 
@@ -183,18 +192,37 @@ class TailState:
                 dst.copy_(src)
 
 
+def _masked_rows(t, flat, live, x, trash):
+    """``t`` viewed as rows of ``x``'s trailing shape: write ``x`` at
+    ``flat`` where ``live``, the trash row's own value elsewhere."""
+    rows = t.view((-1,) + tuple(x.shape[1:]))
+    old = rows.index_select(0, trash)
+    rows[flat] = torch.where(live.view((-1,) + (1,) * (x.dim() - 1)), x, old)
+
+
 def _masked_write(pool_l, flat, live, x, trash):
     """Write rows ``x [R, Hkv, D]`` at flat pool rows ``flat`` (block *
     bs + row) where ``live``; every other row carries the trash row's own
-    value back to it. Only 1-D index tensors: a 0-d one would be read on
-    the host, a sync the capture refuses."""
-    rows = pool_l.view(-1, x.shape[1], x.shape[2])
-    old = rows.index_select(0, trash)                       # [1, Hkv, D]
-    rows[flat] = torch.where(live[:, None, None], x, old)
+    value back to it. A quantized pool side ``(data, scale)`` quantizes
+    on write: int8 data and scale at the same flat row (the trash row's
+    data and scale both carried back), fp8 data alone. Only 1-D index
+    tensors: a 0-d one would be read on the host, a sync the capture
+    refuses."""
+    if isinstance(pool_l, tuple):
+        data, sc = pool_l
+        if data.dtype == torch.float8_e4m3fn:
+            _masked_rows(store_view(data), flat, live,
+                         store_view(quantize_kv_rows_fp8(x)), trash)
+            return
+        q, s = quantize_kv_rows(x)
+        _masked_rows(data, flat, live, q, trash)
+        _masked_rows(sc, flat, live, s, trash)
+        return
+    _masked_rows(pool_l, flat, live, x, trash)
 
 
 def tail_tick(params, head, pool_k, pool_v, st, *, nh, nkv, hd, eps,
-              paged_fn):
+              paged_fn, a8=False):
     """ONE scanned decode tick on device state ``st``: embed the last
     tokens; per layer RMSNorm → QKV → RoPE at each row's length → append
     K/V through the tables (alive rows) → paged attention over ``lens +
@@ -202,8 +230,11 @@ def tail_tick(params, head, pool_k, pool_v, st, *, nh, nkv, hd, eps,
     SwiGLU; then the final norm, the lm head and one sample per row under
     tick t's draw. Records tick t's tokens and alive mask, advances the
     lengths of the alive rows, retires rows on EOS or budget and moves to
-    tick t + 1, all in place: no host value is read."""
-    nb, bs = pool_k.shape[1], pool_k.shape[2]
+    tick t + 1, all in place: no host value is read. A quantized pool
+    side is a ``(data, scale)`` pair (:func:`_masked_write`); ``a8`` runs
+    the projections int8 x int8."""
+    from .decode import _head_logits, _kv_data, _kv_layer, _paged_attend
+    nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
     mb = st.tables.shape[1]
     s_tot = mb * bs
     lens, am = st.lens, st.alive
@@ -216,15 +247,16 @@ def tail_tick(params, head, pool_k, pool_v, st, *, nh, nkv, hd, eps,
     att_len = (lens + am).to(torch.int32)
 
     def write(l, k, v):
-        _masked_write(pool_k[l], flat, live, k, st.trash)
-        _masked_write(pool_v[l], flat, live, v, st.trash)
+        _masked_write(_kv_layer(pool_k, l), flat, live, k, st.trash)
+        _masked_write(_kv_layer(pool_v, l), flat, live, v, st.trash)
 
     h = decode_layers(
         params, params["embed"][st.tok[:, None]], sin_r, cos_r,
-        pool_k.shape[0], write,
-        lambda l, q: paged_fn(q, pool_k[l], pool_v[l], st.tables, att_len),
-        nh=nh, nkv=nkv, hd=hd, eps=eps)
-    logits = _rms(h[:, 0], params["final_norm"], eps) @ head
+        _kv_data(pool_k).shape[0], write,
+        lambda l, q: _paged_attend(paged_fn, q, _kv_layer(pool_k, l),
+                                   _kv_layer(pool_v, l), st.tables, att_len),
+        nh=nh, nkv=nkv, hd=hd, eps=eps, a8=a8)
+    logits = _head_logits(_rms(h[:, 0], params["final_norm"], eps), head)
     nxt = sample_rows_dev(logits, st.draws.index_select(0, st.t)[0],
                           st.sampling)
     st.toks.index_copy_(0, st.t, nxt[None])

@@ -52,6 +52,40 @@ class PoolExhausted(RuntimeError):
             f"num_slots * max_blocks"))
 
 
+def quantize_kv_rows(x):
+    """THE int8 write rule of the quantized pool: per-row-per-head
+    symmetric quantization of K/V rows ``x [..., Hkv, D]`` → ``(q int8
+    same shape, scale float32 [..., Hkv])``, ``scale = amax|x| / 127``
+    over D. Each row quantizes on its own (nothing else in the pool
+    changes its bits); an all-zero row has scale 0 and dequantizes to
+    exact zeros. IEEE division by ``max(scale, 1e-30)`` and round half to
+    even: the JAX function's bits."""
+    xf = x.float()
+    scale = torch.amax(xf.abs(), dim=-1) / 127.0
+    q = torch.clamp(torch.round(xf / torch.clamp(scale, min=1e-30)[..., None]),
+                    -127, 127).to(torch.int8)
+    return q, scale
+
+
+#: float8_e4m3fn's largest finite value: the fp8 write rule saturates there
+FP8_MAX = 448.0
+
+
+def quantize_kv_rows_fp8(x):
+    """THE fp8 write rule: ``x [..., Hkv, D]`` → ``float8_e4m3fn`` by a
+    saturating cast (clipped to ±448 first: e4m3fn has no infinity, and
+    its overflow is NaN), round to nearest even. No scale is computed:
+    the pool's per-block planes stay the constant 1.0."""
+    return torch.clamp(x.float(), -FP8_MAX, FP8_MAX).to(torch.float8_e4m3fn)
+
+
+def store_view(t):
+    """``t`` as the pool writes it: a float8 tensor as ``uint8`` over the
+    same storage (CUDA's ``index_put_`` and ``where`` take no float8; the
+    bits are the same), any other tensor as itself."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
 def _prefill_scatter_coords(table_row, prompt_len, block_size):
     """THE prefill scatter-coordinate rule: rows ``[0, prompt_len)`` map
     through the slot's block table to ``(physical block, row in block)``.
@@ -71,6 +105,35 @@ def _paged_write_prefill(pool_k, pool_v, pk, pv, table_row, prompt_len):
     n = phys.shape[0]
     pool_k[:, phys, row] = pk[:, :n].to(pool_k.dtype)
     pool_v[:, phys, row] = pv[:, :n].to(pool_v.dtype)
+
+
+def _paged_write_prefill_q(pool_k, pool_v, pool_ks, pool_vs, pk, pv,
+                           table_row, prompt_len):
+    """The int8 twin of :func:`_paged_write_prefill`: the prompt's rows
+    quantize on write (:func:`quantize_kv_rows`), data and per-row scales
+    landing at the same ``(block, row)`` coordinates."""
+    phys, row = _prefill_scatter_coords(table_row, prompt_len,
+                                        pool_k.shape[2])
+    n = phys.shape[0]
+    qk, sk = quantize_kv_rows(pk[:, :n])
+    qv, sv = quantize_kv_rows(pv[:, :n])
+    pool_k[:, phys, row] = qk
+    pool_v[:, phys, row] = qv
+    pool_ks[:, phys, row] = sk
+    pool_vs[:, phys, row] = sv
+
+
+def _paged_write_prefill_f8(pool_k, pool_v, pk, pv, table_row, prompt_len):
+    """The fp8 twin: the same coordinates, the data alone written by the
+    saturating cast (:func:`quantize_kv_rows_fp8`); the per-block scale
+    planes are never touched."""
+    phys, row = _prefill_scatter_coords(table_row, prompt_len,
+                                        pool_k.shape[2])
+    n = phys.shape[0]
+    store_view(pool_k)[:, phys, row] = store_view(
+        quantize_kv_rows_fp8(pk[:, :n]))
+    store_view(pool_v)[:, phys, row] = store_view(
+        quantize_kv_rows_fp8(pv[:, :n]))
 
 
 class SlotKVCache:
@@ -182,12 +245,14 @@ class PagedKVCache:
       when the pool runs dry (raises :class:`PoolExhausted` when nothing
       is left).
     - ``write_prefill(slot, pk, pv, prompt_len)`` — install a cold
-      prefill's K/V through the slot's table.
+      prefill's K/V through the slot's table (quantized on write on an
+      int8 or fp8 pool).
+    - ``kv_args()`` — the pool as the serving programs take it.
     """
 
     def __init__(self, num_layers, num_slots, max_seq_len, num_kv_heads,
                  head_dim, dtype=torch.float32, block_size=32, pool=None,
-                 prefix_cache=None, device="cuda"):
+                 prefix_cache=None, device="cuda", kv_dtype=None):
         bs = int(block_size)
         if bs < 1:
             raise ValueError(f"block_size must be >= 1, got {bs}")
@@ -198,7 +263,7 @@ class PagedKVCache:
         if pool is None:
             pool = BlockManager(num_layers, self.num_slots * self.max_blocks,
                                 bs, num_kv_heads, head_dim, dtype=dtype,
-                                device=device)
+                                kv_dtype=kv_dtype, device=device)
         if pool.block_size != bs:
             raise ValueError(
                 f"pool block_size {pool.block_size} != cache block_size "
@@ -209,7 +274,14 @@ class PagedKVCache:
                 f"{self.num_slots} slots x {self.max_blocks} blocks of "
                 f"live KV (worst case needs "
                 f"{self.num_slots * self.max_blocks})")
+        if pool.kv_dtype != kv_dtype:
+            raise ValueError(
+                f"pool kv_dtype {pool.kv_dtype!r} != cache kv_dtype "
+                f"{kv_dtype!r}")
         self.pool = pool
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype is not None
+        self.fp8 = kv_dtype == "fp8"
         self.prefix_cache = prefix_cache  # evict-on-demand hook, or None
         self.sentinel = pool.num_blocks   # out-of-pool id: never written
         self.lengths = np.zeros(self.num_slots, np.int32)
@@ -324,6 +396,23 @@ class PagedKVCache:
         """Allocated (live + trie) blocks."""
         return self.pool.num_used
 
+    def occupancy_bytes(self) -> dict:
+        """Pool occupancy in bytes, split by storage kind — the
+        ``kv_pool_bytes{kind="kv|scales"}`` gauges and the
+        ``serving_kv_bytes_per_token`` rate: ``used_*`` over allocated
+        (live + trie) blocks, ``capacity_*`` over the whole pool,
+        ``per_token`` the bytes one cached token costs. An unquantized
+        pool reports ``scales`` 0."""
+        used = self.used_blocks()
+        kv_b, sc_b = self.pool.block_nbytes, self.pool.scale_block_nbytes
+        return {
+            "used_kv": used * kv_b,
+            "used_scales": used * sc_b,
+            "capacity_kv": self.pool.num_blocks * kv_b,
+            "capacity_scales": self.pool.num_blocks * sc_b,
+            "per_token": self.bytes_per_token(),
+        }
+
     def slot_kv_bytes(self, slot) -> int:
         """Bytes the slot's table holds (blocks x block bytes) — the
         ``/debug/requests`` cost column."""
@@ -346,5 +435,21 @@ class PagedKVCache:
         self.ensure_capacity(slot, int(prompt_len))
         p = self.pool
         row = torch.as_tensor(self.tables[slot]).to(p.k.device)
-        _paged_write_prefill(p.k, p.v, pk, pv, row, int(prompt_len))
+        if self.fp8:
+            _paged_write_prefill_f8(p.k, p.v, pk, pv, row, int(prompt_len))
+        elif self.quantized:
+            _paged_write_prefill_q(p.k, p.v, p.k_scale, p.v_scale, pk, pv,
+                                   row, int(prompt_len))
+        else:
+            _paged_write_prefill(p.k, p.v, pk, pv, row, int(prompt_len))
         self.lengths[slot] = int(prompt_len)
+
+    def kv_args(self):
+        """The pool as the serving programs take it: ``(k, v)`` on a
+        full-precision pool, ``((k, k_scale), (v, v_scale))`` on a
+        quantized one — each side one argument, so the programs'
+        signatures do not change."""
+        p = self.pool
+        if self.quantized:
+            return (p.k, p.k_scale), (p.v, p.v_scale)
+        return p.k, p.v

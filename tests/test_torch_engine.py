@@ -196,14 +196,11 @@ class TestEngineBehaviour:
             eng.submit("not a request")
 
 
-# what stays off the ported path: spec decode, quantized serving, tensor
-# parallel, the host tier, priority classes (the case id is the first key)
+# what stays off the ported path: spec decode, tensor parallel, the host
+# tier, priority classes (the case id is the first key)
 KNOBS = [dict(spec_decode=True),
-         dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
-         dict(quantize_weights=True), dict(quantize_activations=True),
          dict(tp=2), dict(host_tier_bytes=1 << 20),
          dict(priority_classes={"gold": 1}),
-         dict(fused_tick=True, kv_dtype="int8"),
          dict(collective_overlap=True)]
 
 
@@ -236,6 +233,28 @@ def test_once_off_default_knobs_are_served(models, runs, knob):
     if knob.get("prefix_cache"):
         assert eng.prefix_cache is not None
         assert eng.prefix_cache.stats["lookups"] == len(matrix)
+
+
+# refused until quantized serving was ported; each now serves, and its
+# streams equal the JAX engine's with the same knobs
+QUANT_KNOBS = {"kv_int8": dict(kv_dtype="int8"),
+               "kv_fp8": dict(kv_dtype="fp8"),
+               "quantize_weights": dict(quantize_weights=True),
+               "quantize_activations": dict(quantize_weights=True,
+                                            quantize_activations=True),
+               "fused_tick_kv_int8": dict(fused_tick=True, kv_dtype="int8")}
+
+
+@pytest.mark.parametrize("name", list(QUANT_KNOBS))
+def test_quantized_knobs_are_served(models, runs, name):
+    jm, tm = models
+    matrix = runs[4]
+    knobs = QUANT_KNOBS[name]
+    want, jeng = _drive(JEngine(jm, **GEOMETRY, **knobs), JRequest, matrix)
+    got, eng = _drive(ContinuousBatchingEngine(tm, **GEOMETRY, **knobs),
+                      GenerationRequest, matrix)
+    assert got == want
+    assert eng.decode_compilations() == jeng.decode_compilations()
 
 
 def _drive_plain(engine, matrix):

@@ -236,14 +236,23 @@ class TestWrappers:
 
     def test_library_named_by_source_hash(self, tmp_path, monkeypatch):
         monkeypatch.setenv("PADDLE_TPU_TORCH_BUILD_DIR", str(tmp_path))
-        paths = {n: _build.library_path(n) for n in _build.SOURCES}
-        assert len(set(paths.values())) == 6
+        paths = {n: _build.library_path(n) for n in _build.LIBRARIES}
+        # seven kernels in eleven libraries: the fused tick's source builds
+        # once a (pool mode, weights) variant
+        assert len(set(paths.values())) == 11
         for n, p in paths.items():
             assert p.parent == tmp_path and p.name.startswith(n + "-")
             assert p == _build.library_path(n)          # deterministic
         # both backward kernels live in one source, so one library
         assert _build.library_path("flash_bwd_dkv") == \
             _build.library_path("flash_bwd_dq") == paths["flash_bwd"]
+        fused = [n for n in _build.LIBRARIES if n.startswith("fused")]
+        assert len(fused) == 6 and {
+            _build.LIBRARIES[n][0] for n in fused} == {"fused_decode_tick"}
+        # one source, six macro sets: each variant its own entry point
+        assert len({_build.LIBRARIES[n][1] for n in fused}) == 6
+        assert all(f"-DFT_ENTRY={_build.SIGNATURES[n][1]}"
+                   in _build.LIBRARIES[n][1] for n in fused)
 
     def test_nonzero_cuda_status_raises(self):
         _build.check("flash", 0)

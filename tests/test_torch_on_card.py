@@ -42,7 +42,7 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM, _rope_tables,
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest)
 from paddle_tpu_torch.serving.decode import _head, _keys_host
-from chip_smoke import BWD_TOL, TOL
+from chip_smoke import BWD_TOL, QUANT_F32_LOGITS, TOL
 
 pytestmark = pytest.mark.cuda
 
@@ -665,3 +665,246 @@ def test_serve_one_request_on_the_card(cuda_dev):
     assert doc["choices"][0]["token_ids"] == want
     assert LAUNCHES["flash"] > 0 and LAUNCHES["ragged_attention"] > 0
     assert LAUNCHES["paged_decode"] == 0        # decode_chunk=1
+
+
+# ------------------------------------------------------- quantized serving
+def _qpool(pk, pv, mode, dev, seed):
+    """float pools (numpy, NaN allowed past the lengths) → ``(kd, vd,
+    k_scale, v_scale)`` on ``dev``: int8 by the pool's write rule, or e4m3
+    by its cast with per-block planes drawn from [0.5, 2)."""
+    from paddle_tpu_torch.serving import kv_cache as tkv
+    k = torch.from_numpy(np.nan_to_num(pk)).to(dev)
+    v = torch.from_numpy(np.nan_to_num(pv)).to(dev)
+    if mode == "int8":
+        (kd, ks), (vd, vs) = tkv.quantize_kv_rows(k), tkv.quantize_kv_rows(v)
+        return kd, vd, ks, vs
+    r = np.random.RandomState(seed)
+    shape = k.shape[:-3] + k.shape[-2:-1]
+    ks, vs = (torch.from_numpy(r.uniform(0.5, 2.0, shape).astype(
+        np.float32)).to(dev) for _ in range(2))
+    return (tkv.quantize_kv_rows_fp8(k), tkv.quantize_kv_rows_fp8(v), ks,
+            vs)
+
+
+def _steps(got, want, unit=False):
+    """Largest distance of two quantized pools, in steps of the grid:
+    int8 units, or e4m3 steps (2^-3 of the value's binade); with ``unit``
+    the step at each of ``want``'s values instead."""
+    g, w = got.float(), want.float()
+    ulp = torch.ones_like(w) if got.dtype == torch.int8 else torch.exp2(
+        torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -6))) - 3)
+    return ulp if unit else ((g - w).abs() / ulp).max().item()
+
+
+def _tol_ok(got, want, dtype):
+    atol, rtol = TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
+    got, want = got.float(), want.float()
+    return bool(torch.isfinite(got).all()
+                and ((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+class TestQuantizedKernels:
+    @pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (8, 128), (2, 256)])
+    def test_paged_decode_quantized_vs_plain(self, cuda_dev, mode, dtype, G,
+                                             D):
+        """Lengths 1 .. the table, scrambled blocks, sentinel tails; the
+        same bits on two launches."""
+        q, pk, pv, tables, lengths = _paged(8, 2 * G, 2, D, 24, 32, seed=D)
+        lengths[0] = 0
+        kd, vd, ks, vs = _qpool(pk, pv, mode, cuda_dev, seed=G)
+        qt = torch.from_numpy(q).to(cuda_dev, dtype)
+        reset_launches()
+        got = tpd.paged_decode_attention(qt, kd, vd, tables, lengths, ks, vs)
+        again = tpd.paged_decode_attention(qt, kd, vd, tables, lengths, ks,
+                                           vs)
+        torch.cuda.synchronize()
+        assert LAUNCHES["paged_decode"] == 2
+        want = tpd.paged_decode_attention_reference(qt, kd, vd, tables,
+                                                    lengths, ks, vs)
+        assert torch.equal(got, again)
+        assert (got[0] == 0).all()
+        assert _tol_ok(got, want, dtype)
+
+    @pytest.mark.parametrize("G,D", [(1, 64), (4, 128)])
+    def test_ragged_quantized_vs_plain(self, cuda_dev, mode, dtype, G, D):
+        """Span-1 rows on the quantized walk, chunks (from mid-block, a
+        partial last tile, 500 rows) on the CUDA-core tile; rows outside
+        every span zero."""
+        q, pk, pv, tables, qs, ql, kl = _ragged_spans(SWEEP_SPANS, G, 2, D,
+                                                      16, 36, seed=G + D)
+        kd, vd, ks, vs = _qpool(pk, pv, mode, cuda_dev, seed=D)
+        qt = torch.from_numpy(q).to(cuda_dev, dtype)
+        args = (qt, kd, vd, tables, qs, ql, kl)
+        got = tra.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert tra.LAST_GRID["tile_rows"] == 16
+        want = tra.ragged_attention_reference(*args, k_scale=ks, v_scale=vs)
+        assert (got[int(ql.sum()):] == 0).all()
+        assert _tol_ok(got, want, dtype)
+
+    @pytest.mark.parametrize("w8", [True, False], ids=["w8", "dense"])
+    @pytest.mark.parametrize("rows", [4, 21])
+    def test_fused_tick_quantized_vs_plain(self, cuda_dev, mode, dtype, w8,
+                                           rows, record_property):
+        """An int8 or fp8 pool, with int8 or dense weights (``_fused_check``)."""
+        _fused_check(cuda_dev, mode, dtype, w8, rows, record_property)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [4, 21])
+def test_fused_tick_w8_vs_plain(cuda_dev, dtype, rows, record_property):
+    """int8 weights on a pool at the model's type: the tick the engine's
+    ``fused_tick=True, quantize_weights=True`` launches."""
+    _fused_check(cuda_dev, None, dtype, True, rows, record_property)
+
+
+def _fused_check(cuda_dev, mode, dtype, w8, rows, record_property):
+    """One fused tick on an int8, fp8 or (``mode`` None) full-precision
+    pool, with int8 or dense weights, against its plain version: one
+    launch, keys bit for bit, tokens equal in float32, logits within the
+    tolerance (``TOL``'s, or on a quantized pool ``QUANT_F32_LOGITS`` of
+    the reference's max in float32 and the scaled bf16 bound in bf16),
+    the appended values at most one step of the grid apart and an int8
+    row's scale within the tolerance; the last layer's attention bit for
+    bit the (quantized) paged decode kernel's."""
+    from paddle_tpu_torch.serving import decode as tdec
+    cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
+                     num_key_value_heads=2, tie_word_embeddings=w8,
+                     dtype=str(dtype).split(".")[-1])
+    m = LlamaForCausalLM(cfg, device="cuda", seed=4)
+    p, tied = llama_decode_params(m)
+    if w8:
+        p = tdec.quantize_decode_params(p, tied)
+    r = np.random.RandomState(rows)
+    L, bs, D = cfg.num_hidden_layers, 16, 64
+    nb = 2 * rows + 2
+    pk = r.randn(L, nb, bs, 2, D).astype(np.float32) * 3
+    pv = r.randn(L, nb, bs, 2, D).astype(np.float32) * 3
+    if mode is None:
+        kp, vp = (torch.from_numpy(x).to(cuda_dev, dtype) for x in (pk, pv))
+    else:
+        kd, vd, ks, vs = _qpool(pk, pv, mode, cuda_dev, seed=rows)
+        kp, vp = (kd, ks), (vd, vs)
+    tables = np.full((rows, 4), nb, np.int32)
+    lens = r.randint(0, 32, rows).astype(np.int32)
+    app = (np.arange(rows) % 5 != 3).astype(np.int32)
+    temps = np.where(np.arange(rows) % 4 == 1, 0.8, 0).astype(np.float32)
+    topks = np.where(temps > 0, 5, 0).astype(np.int32)
+    for b in range(rows):
+        tables[b, :2] = [2 * b, 2 * b + 1]
+    keys = r.randint(0, 2 ** 32, (rows, 2), dtype=np.uint64).astype(
+        np.int64)
+    sin, cos = _rope_tables(64, D, 10000.0, device=cuda_dev)
+    tok = torch.from_numpy(r.randint(0, 256, rows)).to(cuda_dev)
+    head = tdec._dq_head(p, tied, dtype)
+    clone = (lambda x: tuple(y.clone() for y in x)) if mode else (
+        lambda x: x.clone())
+    outs = []
+    for fn in (tft.fused_decode_tick, tft.fused_decode_tick_reference):
+        reset_launches()
+        with torch.inference_mode():
+            out = fn(p, head, tables, torch.from_numpy(tables).to(cuda_dev),
+                     sin, cos, tok, clone(kp), clone(vp), lens, keys, app,
+                     temps, topks, nh=4, nkv=2, hd=D, eps=1e-5,
+                     return_logits=True)
+        torch.cuda.synchronize()
+        assert LAUNCHES["fused_decode_tick"] == (
+            1 if fn is tft.fused_decode_tick else 0)
+        outs.append(out)
+        if fn is tft.fused_decode_tick:
+            q, attn = (tft.LAST_SCRATCH[k].clone() for k in ("q", "attn"))
+    (nxt, gk, gv, gkeys, glog), (wnxt, wk, wv, wkeys, wlog) = outs
+    assert (_keys_host(gkeys) == _keys_host(wkeys)).all()
+    gl, wl = glog.float(), wlog.float()
+    rel = ((gl - wl).abs().max() / wl.abs().max()).item()
+    record_property("logits_err_of_max_ref", rel)
+    if dtype == torch.float32:
+        assert nxt.tolist() == wnxt.tolist()
+    if mode is None:
+        # the weights dequantize to the same values on both sides: the
+        # unquantized tick's tolerance (TestServingKernels')
+        atol = 1e-4 if dtype == torch.float32 else 3e-2
+        for g, w in ((glog, wlog), (gk, wk), (gv, wv)):
+            assert (g.float() - w.float()).abs().max().item() <= atol
+        want = tpd.paged_decode_attention(q, gk[L - 1], gv[L - 1], tables,
+                                          lens + app)
+        assert torch.equal(attn, want)
+        return
+    # the write rule's step is coarser than bf16's rounding: float32
+    # logits take QUANT_F32_LOGITS of the reference's max, bf16 the
+    # scaled bf16 bound
+    if dtype == torch.float32:
+        assert rel <= QUANT_F32_LOGITS
+    else:
+        assert ((gl - wl).abs() <= 0.02 * wl.abs().max()
+                + 0.02 * wl.abs()).all()
+    for g, w in ((gk, wk), (gv, wv)):
+        # the write rule re-rounds the projections' differences to the
+        # grid: float32 (last place) one step; bf16 (several bf16 ulps)
+        # the scaled bound of the unquantized tick plus a step
+        if dtype == torch.float32:
+            assert _steps(g[0], w[0]) <= 1
+            assert _tol_ok(g[1], w[1], dtype)
+        else:
+            gv_, wv_ = (x[0].float() * (x[1][..., None] if mode == "int8"
+                                        else 1.0) for x in (g, w))
+            step = _steps(g[0], w[0], unit=True) * (
+                w[1][..., None] if mode == "int8" else 1.0)
+            assert ((gv_ - wv_).abs() <= 0.02 * wv_.abs().max()
+                    + 0.02 * wv_.abs() + step).all()
+    want = tpd.paged_decode_attention(q, gk[0][L - 1], gv[0][L - 1], tables,
+                                      lens + app, gk[1][L - 1], gv[1][L - 1])
+    assert torch.equal(attn, want)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
+    dict(quantize_weights=True),
+    dict(quantize_weights=True, quantize_activations=True),
+    dict(fused_tick=True, quantize_weights=True),
+    dict(fused_tick=True, kv_dtype="int8"),
+    dict(fused_tick=True, kv_dtype="int8", quantize_weights=True),
+    dict(fused_tick=True, kv_dtype="fp8"),
+    dict(fused_tick=True, kv_dtype="fp8", quantize_weights=True),
+    dict(decode_ticks=4, kv_dtype="int8"),
+    dict(prefix_cache=True, kv_dtype="int8")],
+    ids=["kv_int8", "kv_fp8", "w8", "w8_a8", "fused_w8", "fused_int8",
+         "fused_int8_w8", "fused_fp8", "fused_fp8_w8", "ticks4_int8",
+         "prefix_int8"])
+def test_quantized_engines_kernels_vs_plain(cuda_dev, knob):
+    """float32 greedy streams of each quantized knob set with the kernels
+    equal those with the plain versions (the flag off); the kernels of
+    the path ran."""
+    cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
+                     num_key_value_heads=2)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=5)
+    r = np.random.RandomState(9)
+    pre = r.randint(0, 256, 24).astype(np.int32)
+    prompts = [np.concatenate([pre, r.randint(0, 256, n).astype(np.int32)])
+               for n in (21, 5, 40)]
+    geo = dict(num_slots=4, max_seq_len=128, prefix_block_size=8,
+               prefill_chunk=16, headroom_mult=None)
+    outs, launches = {}, {}
+    try:
+        for use in (True, False):
+            set_flags({"FLAGS_use_cuda_kernels": use})
+            reset_launches()
+            eng = ContinuousBatchingEngine(model, **geo, **knob)
+            out = []
+            for wave in (prompts, prompts[::-1]):
+                out += [o.tolist() for o in eng.generate([GenerationRequest(
+                    prompt=p, max_new_tokens=12) for p in wave])]
+            torch.cuda.synchronize()
+            outs[use], launches[use] = out, dict(LAUNCHES)
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    assert outs[True] == outs[False]
+    assert not any(launches[False].values())
+    assert launches[True]["ragged_attention"] > 0
+    fused = knob.get("fused_tick") and not knob.get("quantize_activations")
+    assert launches[True]["fused_decode_tick" if fused
+                          else "paged_decode"] > 0

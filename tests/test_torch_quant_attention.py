@@ -1,0 +1,290 @@
+"""The quantized modes of the port's paged decode and ragged attention, on
+the CPU, against the JAX references given ``k_scale``/``v_scale``.
+
+- The plain versions on int8 pools (per-row-per-head scale planes) and
+  fp8 pools (per-block planes, here not all 1.0, so the planes' path is
+  exercised) agree with ``paged_decode_attention_reference`` and
+  ``ragged_attention_reference`` to 1e-5 (float32). The ragged check
+  holds decode rows, a chunk that starts mid-block and a dead row.
+- The kernels' quantized arithmetic has no CPU mode, so
+  ``_qsplit_emulation`` and ``_qchunk_emulation`` repeat it in PyTorch:
+  the split-KV walk (paged decode, ragged's span-1 rows, the fused tick's
+  attention) and the CUDA-core chunk tile, each in the kernels' order —
+  scores from the narrow values, the K scale after the dot, the softmax
+  sum ``l`` over the unscaled P, then the V scale folded into P (float32)
+  before ``P V``. Both sit within ``chip_smoke.py``'s ``TOL`` of the JAX
+  reference, bf16 and float32.
+- An all-zero int8 row (scale 0) reads back as exact zeros.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import TOL
+from paddle_tpu.kernels.pallas_paged_decode import \
+    paged_decode_attention_reference as jax_paged
+from paddle_tpu.kernels.pallas_ragged_attention import \
+    ragged_attention_reference as jax_ragged
+from paddle_tpu_torch.kernels import paged_decode as tpd
+from paddle_tpu_torch.kernels import ragged_attention as tra
+from paddle_tpu_torch.serving import kv_cache as tkv
+from test_torch_paged_split import H100_SMS
+from test_torch_paged_split import _inputs as _paged_inputs
+from test_torch_ragged_tc import _inputs as _ragged_inputs
+
+NEG_INF = -1e30
+
+
+def _quantize(pk, pv, mode, seed):
+    """Float pools → ``(kd, vd, k_scale, v_scale)`` torch tensors: int8 by
+    the pool's write rule (per row and head), or e4m3 by its cast with
+    per-block planes drawn from [0.5, 2)."""
+    pk = np.nan_to_num(pk)
+    pv = np.nan_to_num(pv)
+    if mode == "int8":
+        kd, ks = tkv.quantize_kv_rows(torch.from_numpy(pk))
+        vd, vs = tkv.quantize_kv_rows(torch.from_numpy(pv))
+        kd[0, 1] = 0            # an all-zero row: scale 0, exact zeros
+        ks[0, 1] = 0
+        return kd, vd, ks, vs
+    r = np.random.RandomState(seed)
+    nb, _, hkv, _ = pk.shape
+    kd = tkv.quantize_kv_rows_fp8(torch.from_numpy(pk))
+    vd = tkv.quantize_kv_rows_fp8(torch.from_numpy(pv))
+    ks = torch.from_numpy(r.uniform(0.5, 2.0, (nb, hkv)).astype(np.float32))
+    vs = torch.from_numpy(r.uniform(0.5, 2.0, (nb, hkv)).astype(np.float32))
+    return kd, vd, ks, vs
+
+
+def _scale_rows(sc, phys, rows):
+    """Each key's scale ``[n, Hkv]``: per-row planes at (block, row),
+    per-block planes at the block."""
+    return sc[phys, rows] if sc.dim() == 3 else sc[phys]
+
+
+def _jnp(t):
+    if t.dtype == torch.float8_e4m3fn:
+        return jnp.asarray(t.view(torch.uint8).numpy()).view(
+            jnp.float8_e4m3fn)
+    return jnp.asarray(t.numpy())
+
+
+def _qsplit_emulation(q, kd, vd, ks, vs, tables, lengths):
+    """The quantized split-KV walk: splits of ``split_len`` keys, 32-key
+    pages, the running max per split, fp32 partials combined in split
+    order. Returns ``[B, H, D]`` in q's type."""
+    B, H, D = q.shape
+    nb, bs, Hkv, _ = kd.shape
+    G = H // Hkv
+    mb = tables.shape[1]
+    sl = tpd.split_len(B, Hkv, mb * bs, H100_SMS)
+    scale = 1.0 / math.sqrt(D)
+    out = torch.zeros(B, H, D, dtype=q.dtype)
+    for b in range(B):
+        L = min(max(int(lengths[b]), 0), mb * bs)
+        if L == 0:
+            continue
+        pos = torch.arange(L)
+        phys = tables[b, pos // bs].long().clamp(0, nb - 1)
+        k_raw = kd[phys, pos % bs].float()
+        v_raw = vd[phys, pos % bs].float()
+        k_sc = _scale_rows(ks, phys, pos % bs)          # [L, Hkv]
+        v_sc = _scale_rows(vs, phys, pos % bs)
+        for kvh in range(Hkv):
+            qg = q[b, kvh * G:(kvh + 1) * G].float()
+            parts = []
+            for s0 in range(0, L, sl):
+                s1 = min(L, s0 + sl)
+                m = torch.full((G,), NEG_INF)
+                l = torch.zeros(G)
+                acc = torch.zeros(G, D)
+                for p0 in range(s0, s1, tpd.PAGE):
+                    p1 = min(s1, p0 + tpd.PAGE)
+                    s = (qg @ k_raw[p0:p1, kvh].T) * scale \
+                        * k_sc[p0:p1, kvh]
+                    m_new = torch.maximum(m, s.max(1).values)
+                    p = torch.exp(s - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    l = alpha * l + p.sum(1)
+                    m = m_new
+                    acc = acc * alpha[:, None] \
+                        + (p * v_sc[p0:p1, kvh]) @ v_raw[p0:p1, kvh]
+                parts.append((m, l, acc))
+            if len(parts) > 1:
+                m_max = torch.stack([m for m, _, _ in parts]).max(0).values
+                acc, l = torch.zeros(G, D), torch.zeros(G)
+                for m, ls, a in parts:
+                    w = torch.exp(m - m_max)
+                    acc, l = acc + w[:, None] * a, l + w * ls
+            else:
+                _, l, acc = parts[0]
+            out[b, kvh * G:(kvh + 1) * G] = (
+                acc / l.clamp(min=1e-30)[:, None]).to(q.dtype)
+    return out
+
+
+def _qchunk_emulation(q, kd, vd, ks, vs, tbl, qlen, kvlen):
+    """One chunk span on the quantized CUDA-core tile: 32-key tiles from
+    key 0, the same order as the walk per tile, rows masked past their
+    position."""
+    nb, bs, Hkv, D = kd.shape
+    H = q.shape[1]
+    G = H // Hkv
+    kv_valid = min(max(kvlen, 0), tbl.shape[0] * bs)
+    pos = kvlen - qlen + torch.arange(qlen)
+    kv_stop = min(kv_valid, max(int(pos[-1]) + 1, 0))
+    keys = torch.arange(kv_stop)
+    phys = tbl[keys // bs].long().clamp(0, nb - 1)
+    k_raw, v_raw = kd[phys, keys % bs].float(), vd[phys, keys % bs].float()
+    k_sc = _scale_rows(ks, phys, keys % bs)
+    v_sc = _scale_rows(vs, phys, keys % bs)
+    out = torch.zeros(qlen, H, D, dtype=q.dtype)
+    for h in range(H):
+        c = h // G
+        qh = q[:, h].float()
+        m, l = torch.full((qlen,), NEG_INF), torch.zeros(qlen)
+        acc = torch.zeros(qlen, D)
+        for k0 in range(0, kv_stop, 32):
+            k1 = min(kv_stop, k0 + 32)
+            s = (qh @ k_raw[k0:k1, c].T) / math.sqrt(D) * k_sc[k0:k1, c]
+            mask = keys[None, k0:k1] <= pos[:, None]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.max(1).values)
+            p = torch.where(mask, torch.exp(s - m_new[:, None]),
+                            torch.zeros_like(s))
+            alpha = torch.exp(m - m_new)
+            l, m = alpha * l + p.sum(1), m_new
+            acc = acc * alpha[:, None] \
+                + (p * v_sc[k0:k1, c]) @ v_raw[k0:k1, c]
+        out[:, h] = (acc / l.clamp(min=1e-30)[:, None]).to(q.dtype)
+    return out
+
+
+def _within(got, want, dtype):
+    atol, rtol = TOL[dtype]
+    assert torch.isfinite(got).all()
+    assert ((got.float() - want).abs() <= atol + rtol * want.abs()).all()
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_paged_plain_version_matches_jax(mode, G):
+    q, pk, pv, tables, lengths = _paged_inputs(G, 64, seed=G + 3)
+    kd, vd, ks, vs = _quantize(pk, pv, mode, seed=G)
+    want = jax_paged(jnp.asarray(q), _jnp(kd), _jnp(vd), jnp.asarray(tables),
+                     jnp.asarray(lengths), k_scale=_jnp(ks), v_scale=_jnp(vs))
+    got = tpd.paged_decode_attention(
+        torch.from_numpy(q), kd, vd, torch.from_numpy(tables),
+        torch.from_numpy(lengths), k_scale=ks, v_scale=vs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_quantized_walk_emulation_within_tol(mode, dtype, D):
+    q, pk, pv, tables, lengths = _paged_inputs(4, D, seed=D)
+    kd, vd, ks, vs = _quantize(pk, pv, mode, seed=D)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    want = jax_paged(jnp.asarray(q, jdt), _jnp(kd), _jnp(vd),
+                     jnp.asarray(tables), jnp.asarray(lengths),
+                     k_scale=_jnp(ks), v_scale=_jnp(vs))
+    want = torch.from_numpy(np.array(jnp.asarray(want, jnp.float32)))
+    got = _qsplit_emulation(torch.from_numpy(q).to(tdt), kd, vd, ks, vs,
+                            torch.from_numpy(tables),
+                            torch.from_numpy(lengths))
+    assert (got[0] == 0).all()                      # length 0
+    _within(got, want, dtype)
+
+
+def _ragged_q(G, D, mode, seed):
+    q, pk, pv, tables, qstart, qlen, kvlen = _ragged_inputs(G, D, seed)
+    kd, vd, ks, vs = _quantize(pk, pv, mode, seed)
+    return q, kd, vd, ks, vs, tables, qstart, qlen, kvlen
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_ragged_plain_version_matches_jax(mode):
+    """Decode rows, chunks from position 0 and from mid-block (a 500-token
+    chunk at 37), a dead row."""
+    q, kd, vd, ks, vs, tables, qstart, qlen, kvlen = _ragged_q(2, 64, mode,
+                                                               seed=9)
+    assert 0 in qlen and (kvlen - qlen)[-1] % 16
+    got = tra.ragged_paged_attention(
+        torch.from_numpy(q), kd, vd, *(torch.from_numpy(x) for x in
+                                       (tables, qstart, qlen, kvlen)),
+        k_scale=ks, v_scale=vs)
+    for r in range(len(qlen)):
+        n, a = int(qlen[r]), int(qstart[r])
+        if n == 0:
+            continue
+        want = jax_ragged(jnp.asarray(q[a:a + n]), _jnp(kd), _jnp(vd),
+                          jnp.asarray(tables[r:r + 1]),
+                          jnp.zeros(1, jnp.int32), jnp.asarray([n]),
+                          jnp.asarray(kvlen[r:r + 1]), k_scale=_jnp(ks),
+                          v_scale=_jnp(vs))
+        np.testing.assert_allclose(got[a:a + n].numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+    assert (got[int(qlen.sum()):] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ragged_quantized_emulation_within_tol(mode, dtype):
+    """Both grids on a quantized pool: span-1 rows on the quantized walk
+    (ragged's split rule over all R rows), chunks on the CUDA-core tile in
+    either type."""
+    q, kd, vd, ks, vs, tables, qstart, qlen, kvlen = _ragged_q(4, 128, mode,
+                                                               seed=3)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    qt = torch.from_numpy(q).to(tdt)
+    tb = torch.from_numpy(tables)
+    paths = tra.paths(qlen)
+    one = torch.tensor([p == "split" for p in paths])
+    walked = _qsplit_emulation(qt[torch.from_numpy(qstart).long()], kd, vd,
+                               ks, vs, tb,
+                               torch.where(one, torch.from_numpy(kvlen), 0))
+    for r, path in enumerate(paths):
+        n, a, k = int(qlen[r]), int(qstart[r]), int(kvlen[r])
+        if path == "dead":
+            continue
+        got = walked[r:r + 1] if path == "split" else _qchunk_emulation(
+            qt[a:a + n], kd, vd, ks, vs, tb[r], n, k)
+        for c0 in range(0, n, 64):
+            c1 = min(n, c0 + 64)
+            want = jax_ragged(jnp.asarray(q[a + c0:a + c1], jdt), _jnp(kd),
+                              _jnp(vd), jnp.asarray(tables[r:r + 1]),
+                              jnp.zeros(1, jnp.int32),
+                              jnp.asarray([c1 - c0]),
+                              jnp.asarray([k - n + c1]), k_scale=_jnp(ks),
+                              v_scale=_jnp(vs))
+            want = torch.from_numpy(np.array(jnp.asarray(want,
+                                                           jnp.float32)))
+            _within(got[c0:c1], want, dtype)
+
+
+def test_grid_of_a_quantized_pool_takes_the_cuda_core_tile():
+    g = tra.grid(520, 8, 32, 32, 4096, torch.bfloat16, H100_SMS,
+                 quantized=True)
+    assert g["tile_rows"] == 16 and g["tile_blocks"] == 33 * 8 * 32
+    assert tra.grid(520, 8, 32, 32, 4096, torch.bfloat16,
+                    H100_SMS)["tile_rows"] == 64
+
+
+def test_scale_mode_checks_the_planes():
+    kd = torch.zeros(4, 8, 2, 16, dtype=torch.int8)
+    ks = torch.zeros(4, 8, 2)
+    assert tpd.scale_mode(kd, ks, ks) == 1
+    f8 = torch.zeros(4, 8, 2, 16, dtype=torch.float8_e4m3fn)
+    assert tpd.scale_mode(f8, torch.ones(4, 2), torch.ones(4, 2)) == 2
+    assert tpd.scale_mode(torch.zeros(4, 8, 2, 16), None, None) == 0
+    with pytest.raises(ValueError, match="needs its scale planes"):
+        tpd.scale_mode(kd, None, None)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        tpd.scale_mode(f8, ks, ks)
+    with pytest.raises(TypeError, match="int8 or float8"):
+        tpd.scale_mode(torch.zeros(4, 8, 2, 16), ks, ks)

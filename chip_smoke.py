@@ -5,7 +5,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. device  — the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build   — compile the CUDA sources of ``paddle_tpu_torch/csrc`` (seven
-             kernels in six sources, one ``nvcc`` each, in parallel).
+             kernels in twelve libraries, one ``nvcc`` each, in parallel).
 3. kernels — each kernel against its plain PyTorch version, bf16 and fp32:
              the three serving kernels of the default engine and the
              dense-cache decode kernel (B=8, S_max=4096, lengths 1 to
@@ -43,6 +43,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
              the bf16 scaled bound, appended values within a grid step
              (bf16: the scaled bound plus a step), nothing else written,
              the layer-0 attention bit for bit quantized paged decode's.
+             First, the flash kernels' fused-RoPE mode (``flash[rope]``,
+             ``flash_bwd_dkv[rope]``, ``flash_bwd_dq[rope]``: un-rotated
+             Q and K, the rotation as tiles land, the adjoint on dQ/dK)
+             in bf16 and fp32 at B=4, S=2048, 32 heads of 128 in the
+             head-major layout, plus S=300 with 8 KV heads, and the
+             head-major layout without RoPE, each against its plain
+             version (bf16 the same bits twice); times of the kernel,
+             the same kernel on inputs rotated beforehand, the unfused
+             pair (torch rotation, then the kernel; a backward kernel
+             then the torch adjoint) and the library pair (torch
+             rotation, then SDPA).
 4. engine  — llama_7b widths at 2 layers in fp32, for each of the
              engine's three decode programs (default, ``fused_tick=True``,
              ``paged_attn=False``), through the kernels against the plain
@@ -127,17 +138,26 @@ Phases, each printing one JSON line; any failure exits nonzero:
              serves one completion and drains on SIGTERM with exit 0.
 8. train_parity — llama_7b widths at 2 layers, B=1, S=500, in fp32 (the
              CUDA-core kernels) and in bf16 (the tensor-core forward,
-             dK/dV and dQ): one forward+backward through the kernels and one
-             through the plain versions (``FLAGS_use_cuda_kernels`` off);
-             the losses and every parameter's gradient must agree.
+             dK/dV and dQ), in the bshd layout, the head-major ``bhsd``
+             layout and ``bhsd`` with ``fuse_rope`` (the RoPE kernels),
+             and in fp32 under ``recompute_policy="dots"``: one
+             forward+backward through the kernels and one through the
+             plain versions (``FLAGS_use_cuda_kernels`` off); the losses
+             and every parameter's gradient must agree, and each leg
+             launches the kernels of its own mode.
 9. train   — llama_7b widths at 15 layers in bf16 (the deepest whose
              steps fit one 80 GB card: 16 run out of memory in the
              accumulated step's update), B=4, S=2048, full
              recompute, AdamW(1e-4) with ClipGradByGlobalNorm(1.0) through
              ``TrainStep``: a warm-up step, three timed steps and one
-             ``accum_step(accum=2)`` on a repeated seeded batch. Losses
-             finite and falling; flash forward, dK/dV and dQ launch counts
-             equal to what the code implies.
+             ``accum_step(accum=2)`` on a repeated seeded batch, in
+             ``bshd``, ``bhsd`` and ``bhsd`` with ``fuse_rope``, one model
+             freed before the next. Losses finite and falling; flash
+             forward, dK/dV and dQ launch counts (in each run's own mode)
+             equal to what the code implies. Then ``dots`` at the deepest
+             depth that fits, and ``bench.py``'s first and third configs
+             at its 350M shape (B=8, S=2048, ``accum_step(..., 4)``):
+             step ms, tokens/s, 6 * params * tokens/s over 989 TFLOP/s.
 
 ``--profile`` repeats the four serve runs and one train step under
 ``torch.profiler`` and reports device time by kernel and the device's
@@ -220,6 +240,14 @@ SOURCES = {name: f"paddle_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["flash_bwd_dkv"] = SOURCES["flash_bwd_dq"] = \
     "paddle_tpu_torch/csrc/flash_bwd.cu"
 BWD = ("flash_bwd_dkv", "flash_bwd_dq")
+#: the flash kernels' fused-RoPE mode (rope=(sin, cos) in the reference:
+#: _rope_block in the three prologues, _rope_t_block on dK and dQ), each
+#: counted apart as ``name[rope]``
+ROPE = {f"{n}[rope]": n for n in ("flash",) + BWD}
+for _rope, _base in ROPE.items():
+    REPLACES[_rope] = REPLACES[_base]
+    SOURCES[_rope] = SOURCES[_base]
+    TENSOR_CORE[_rope] = TENSOR_CORE[_base] + ", RoPE on the landed tiles"
 
 
 def emit(obj):
@@ -547,6 +575,192 @@ def bwd_case(name, dtype_name, dev, gen):
     return row
 
 
+def _bhsd(B, S, h, dtype, dev, gen):
+    """A head-major ``[B, h, S, D]`` tensor seen as ``[B, S, h, D]`` (the
+    layout the model's bhsd branch hands the kernels)."""
+    import torch
+    return torch.randn(B, h, S, D, generator=gen, device=dev) \
+        .to(dtype).transpose(1, 2)
+
+
+def _rope_inputs(dtype_name, dev, gen, B, S, Hk):
+    """Un-rotated head-major q, k, v, dO, the model's [S, D] tables, and
+    O and LSE from the rope forward kernel, held against the plain
+    forward first (a wrong O or LSE would pass unseen into both
+    backwards). Returns the inputs, the rope, and the forward's (O, LSE)
+    errors."""
+    import torch
+    from paddle_tpu_torch.kernels import flash
+    from paddle_tpu_torch.models.llama import _rope_tables
+    dtype = getattr(torch, dtype_name)
+    q, k, v, do = (_bhsd(B, S, h, dtype, dev, gen) for h in (H, Hk, Hk, H))
+    rope = _rope_tables(S, D, 10000.0, device=dev)
+    o, lse = flash.flash_attention_fwd(q, k, v, True, rope)
+    ro, rl = flash.flash_attention_reference(q, k, v, True, rope)
+    tag = f"flash[rope] B={B} S={S} Hk={Hk}"
+    err = (_compare(tag + " O", dtype_name, o, ro),
+           _compare(tag + " LSE", "float32", lse, rl))
+    if dtype_name == "bfloat16" and not torch.equal(
+            o, flash.flash_attention_fwd(q, k, v, True, rope)[0]):
+        raise RuntimeError(f"{tag} {dtype_name}: two launches differ")
+    del ro, rl
+    torch.cuda.empty_cache()
+    return (q, k, v, do, o, lse), rope, err
+
+
+def _rope_bwd_errs(dtype_name, q, k, v, do, o, lse, rope, tag):
+    """Both backward kernels (rope or not) against their plain versions;
+    bf16 the same bits twice. Returns the largest (abs, over max|ref|)."""
+    import torch
+    from paddle_tpu_torch.kernels import flash
+    delta = flash.attention_delta(o, do)
+    got = flash.flash_bwd_dkv(q, k, v, do, lse, delta, True, rope) + (
+        flash.flash_bwd_dq(q, k, v, do, lse, delta, True, rope),)
+    want = flash.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True,
+                                         rope) + (
+        flash.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, rope),)
+    torch.cuda.synchronize()
+    errs = [_compare_scaled(f"{tag} {n}", dtype_name, g, w)
+            for n, g, w in zip(("dk", "dv", "dq"), got, want)]
+    if dtype_name == "bfloat16":
+        again = flash.flash_bwd_dkv(q, k, v, do, lse, delta, True, rope) + (
+            flash.flash_bwd_dq(q, k, v, do, lse, delta, True, rope),)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{tag} {dtype_name}: two launches differ")
+    del got, want
+    torch.cuda.empty_cache()
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def rope_cases(dtype_name, dev, gen):
+    """The fused-RoPE mode of the three flash kernels at the training
+    shape (B=4, S=2048, 32 heads of 128) in the head-major layout, each
+    against its plain version (``TOL`` for the forward, ``BWD_TOL`` for
+    dK/dV and dQ; bf16 the same bits twice); then a tail with GQA (S=300,
+    8 KV heads) in the same mode, and the head-major layout without RoPE
+    at the training shape. Times: the rope kernel; the same kernel
+    without RoPE on inputs rotated beforehand; the unfused pair (a torch
+    rotation, then that kernel); and the library pair (a torch rotation,
+    then SDPA causal: forward for the forward's row, forward+backward
+    less forward for the backward rows, the rotation's own backward
+    included). Returns ``{name: row}``."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash
+    from paddle_tpu_torch.models.llama import _apply_rope_bhsd
+    dtype = getattr(torch, dtype_name)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    B, S = TRAIN_B, TRAIN_S
+    (q, k, v, do, o, lse), rope, fwd_err = _rope_inputs(dtype_name, dev,
+                                                         gen, B, S, HKV)
+    bwd_err = _rope_bwd_errs(dtype_name, q, k, v, do, o, lse, rope,
+                             f"flash bwd[rope] B={B} S={S}")
+    sin, cos = rope
+    delta = flash.attention_delta(o, do)
+    qr, kr = flash._rotated(q, k, rope)          # rotated beforehand
+    # the library pair on [B, H, S, D] contiguous copies (SDPA's layout)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        _apply_rope_bhsd(qt, sin, cos), _apply_rope_bhsd(kt, sin, cos), vt,
+        is_causal=True)
+    lib_fb = lambda: torch.autograd.grad(  # noqa: E731
+        lib_fwd(), (qt, kt, vt), dot)
+    with torch.no_grad():
+        lib_f = time_ms(lib_fwd, iters=5)
+    lib_b = time_ms(lib_fb, iters=5) - lib_f
+    pairs = B * H * S * (S + 1) // 2
+    tables = 2 * S * D * 4
+    adj = lambda g: flash.rope_adjoint(g.float(), sin, cos).to(g.dtype)  # noqa
+
+    def fwd(r, a, b):
+        return flash.flash_attention_fwd(a, b, v, True, r)
+
+    def dkv(r, a, b):
+        return flash.flash_bwd_dkv(a, b, v, do, lse, delta, True, r)
+
+    def dq(r, a, b):
+        return flash.flash_bwd_dq(a, b, v, do, lse, delta, True, r)
+
+    # name: (kernel, its unfused counterpart — the forward rotates first,
+    # a backward reads the rotated inputs the forward saved and applies
+    # the adjoint to its dK or dQ after —, plain version, products a
+    # causal pair, bytes without the tables, library pair)
+    plan = {
+        "flash[rope]": (
+            fwd, lambda: fwd(None, *flash._rotated(q, k, rope)),
+            lambda: flash.flash_attention_reference(q, k, v, True, rope),
+            2, (2 * q.numel() + 2 * k.numel()) * isz + 4 * B * H * S,
+            lib_f, "torch rotation + SDPA causal forward"),
+        "flash_bwd_dkv[rope]": (
+            dkv, lambda: adj(dkv(None, qr, kr)[0]),
+            lambda: flash.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                  True, rope),
+            4, (2 * q.numel() + 4 * k.numel()) * isz + 8 * B * H * S,
+            lib_b, "torch rotation + SDPA fwd+bwd minus the same forward"),
+        "flash_bwd_dq[rope]": (
+            dq, lambda: adj(dq(None, qr, kr)),
+            lambda: flash.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                 True, rope),
+            3, (3 * q.numel() + 2 * k.numel()) * isz + 8 * B * H * S,
+            lib_b, "torch rotation + SDPA fwd+bwd minus the same forward"),
+    }
+    rows = {}
+    for name, (run, unfused, plain, products, nbytes, lib,
+               lib_what) in plan.items():
+        nbytes += tables
+        flops = products * 2 * pairs * D
+        row = {"name": name, "dtype": dtype_name, "layout": "bhsd",
+               "shape": {"B": B, "S": S, "H": H, "Hk": HKV, "D": D},
+               "max_abs_err": fwd_err[0] if name == "flash[rope]"
+               else bwd_err[0],
+               "max_err_over_max_ref": None if name == "flash[rope]"
+               else bwd_err[1],
+               "fwd_o_lse_err": fwd_err,
+               "tol": ({"atol": TOL[dtype_name][0],
+                        "rtol": TOL[dtype_name][1]}
+                       if name == "flash[rope]" else
+                       {"atol_x_max_ref": BWD_TOL[dtype_name][0],
+                        "rtol": BWD_TOL[dtype_name][1]}),
+               "bitwise_repeatable": dtype_name == "bfloat16",
+               "ms": time_ms(lambda: run(rope, q, k), iters=5),
+               "ms_prerotated": time_ms(lambda: run(None, qr, kr), iters=5),
+               "unfused_ms": time_ms(unfused, iters=5),
+               "plain_ms": time_ms(plain, iters=2),
+               "library_ms": lib, "library": lib_what,
+               "bytes": nbytes, "flops": flops,
+               "bound_ms": bound_ms(nbytes, flops, dtype_name),
+               "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                            >= flops / PEAK_FLOPS[dtype_name]
+                            else "operations"),
+               "route": route(name, dtype_name)}
+        row["x_library"] = row["ms"] / row["library_ms"]
+        row["x_prerotated"] = row["ms"] / row["ms_prerotated"]
+        rows[name] = row
+        torch.cuda.empty_cache()
+    del qt, kt, vt, dot, qr, kr
+    # the head-major layout without RoPE, at the training shape
+    row = rows["flash[rope]"]
+    from paddle_tpu_torch.kernels.flash_attention import _ref_lse
+    o0, lse0 = flash.flash_attention_fwd(q, k, v, True)
+    row["bhsd_no_rope_err"] = {
+        "fwd": (_compare("flash bhsd O", dtype_name, o0,
+                         flash._ref_attention(q, k, v, True)),
+                _compare("flash bhsd LSE", "float32", lse0,
+                         _ref_lse(q, k, True))),
+        "bwd": _rope_bwd_errs(dtype_name, q, k, v, do, o0, lse0, None,
+                              "flash bwd bhsd")}
+    del q, k, v, do, o, lse, o0, lse0, delta
+    torch.cuda.empty_cache()
+    # a tail past the 64-row tiles with GQA (8 KV heads), rope on
+    (q, k, v, do, o, lse), rope, ferr = _rope_inputs(dtype_name, dev, gen,
+                                                      2, 300, 8)
+    row["tail_gqa_err"] = {"fwd": ferr, "bwd": _rope_bwd_errs(
+        dtype_name, q, k, v, do, o, lse, rope, "flash bwd[rope] S=300")}
+    return rows
+
+
 def kernel_case(name, dtype_name, dev, gen):
     """One kernel against its plain version: error, times, bound."""
     import torch
@@ -729,6 +943,8 @@ def kernel_case(name, dtype_name, dev, gen):
                               "bound_ms": bound_ms(0, flops, dtype_name)}
         row["ms_train_shape"] = time_ms(
             lambda: flash.flash_attention(q, k, v, causal=True), iters=5)
+        row["plain_ms_train_shape"] = time_ms(
+            lambda: _ref_attention(q, k, v, True), iters=2)
         row["library_ms_train_shape"] = time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True))
@@ -1475,7 +1691,13 @@ def phase_kernels():
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
     for dtype_name in ("bfloat16", "float32"):
+        for name, row in rope_cases(dtype_name, dev, gen).items():
+            emit({"phase": "kernels", **row})
+            rows[(name, dtype_name)] = row
+        torch.cuda.empty_cache()
         for name in REPLACES:
+            if name in ROPE:
+                continue
             case = (bwd_case if name in BWD else
                     fused_case if name == "fused_decode_tick" else
                     kernel_case)
@@ -3169,21 +3391,47 @@ def _grad_ok(dtype_name, got, want):
     return bool((err <= atol * size + rtol * want.abs()).all())
 
 
+#: train_parity's legs: (dtype, LlamaConfig knobs)
+PARITY_LEGS = (
+    ("float32", {}), ("bfloat16", {}),
+    ("float32", {"attention_layout": "bhsd"}),
+    ("bfloat16", {"attention_layout": "bhsd"}),
+    ("float32", {"attention_layout": "bhsd", "fuse_rope": True}),
+    ("bfloat16", {"attention_layout": "bhsd", "fuse_rope": True}),
+    ("float32", {"recompute_policy": "dots"}),
+)
+
+
+def _flash_launches(layers, micro, knobs):
+    """The flash launches a window of ``micro`` forward+backward passes
+    implies: a forward and its recompute (``full`` and ``dots`` alike:
+    the kernels launch outside the dispatcher, so ``dots`` recomputes
+    attention too), one dK/dV and one dQ a layer, counted as ``name[rope]``
+    under ``bhsd`` with ``fuse_rope``."""
+    sfx = ("[rope]" if knobs.get("attention_layout") == "bhsd"
+           and knobs.get("fuse_rope") else "")
+    fwd = 2 if knobs.get("use_recompute", True) else 1
+    return {"flash" + sfx: fwd * layers * micro,
+            "flash_bwd_dkv" + sfx: layers * micro,
+            "flash_bwd_dq" + sfx: layers * micro}
+
+
 def phase_train_parity():
     """2 layers at llama_7b widths, B=1, S=500 (a tail past the 64-row
     tiles): kernels against plain versions through the model, in fp32
     (the CUDA-core kernels) and in bf16 (the tensor-core forward, dK/dV
-    and dQ)."""
-    for dtype_name in ("float32", "bfloat16"):
-        _train_parity(dtype_name)
+    and dQ), in the bshd and head-major layouts, with RoPE fused into the
+    kernels, and under ``recompute_policy="dots"``."""
+    for dtype_name, knobs in PARITY_LEGS:
+        _train_parity(dtype_name, knobs)
 
 
-def _train_parity(dtype_name):
+def _train_parity(dtype_name, knobs):
     import torch
     from paddle_tpu_torch.flags import set_flags
     from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
-    cfg = llama_7b(num_hidden_layers=2, dtype=dtype_name)
+    cfg = llama_7b(num_hidden_layers=2, dtype=dtype_name, **knobs)
     model = LlamaForCausalLM(cfg, device="cuda", seed=2)
     ids = _train_ids(cfg.vocab_size, 1, 500, seed=4)
     runs = {}
@@ -3204,44 +3452,84 @@ def _train_parity(dtype_name):
                 / gp[n].abs().max().clamp(min=1e-30)).item() for n in gp}
     bad = [n for n in gp if not _grad_ok(dtype_name, gk[n], gp[n])]
     loss_rtol = PARITY_LOSS_RTOL[dtype_name]
-    want = {"flash": 4, "flash_bwd_dkv": 2, "flash_bwd_dq": 2}
+    want = _flash_launches(2, 1, knobs)
+    launched = {n: c for n, c in nk.items() if c}
     emit({"phase": "train_parity", "layers": 2, "dtype": dtype_name,
-          "B": 1, "S": 500, "loss_kernels": lk, "loss_plain": lp,
-          "loss_rel_err": abs(lk - lp) / abs(lp),
+          "knobs": knobs, "B": 1, "S": 500, "loss_kernels": lk,
+          "loss_plain": lp, "loss_rel_err": abs(lk - lp) / abs(lp),
           "grad_err_over_max": errs,
           "tol": {"loss_rtol": loss_rtol,
                   "grad": (f"{PARITY_GRAD_TOL} x max|ref|"
                            if dtype_name == "float32" else
                            "BWD_TOL: {} x max|ref| + {} x |ref|".format(
                                *BWD_TOL[dtype_name]))},
-          "launches_kernels": {n: nk[n] for n in want},
+          "launches_kernels": launched,
           "launches_plain": sum(npl.values())})
     if not abs(lk - lp) <= loss_rtol * abs(lp):
-        raise RuntimeError(f"train parity {dtype_name}: loss {lk} vs plain "
-                           f"{lp}")
+        raise RuntimeError(f"train parity {dtype_name} {knobs}: loss {lk} "
+                           f"vs plain {lp}")
     if bad:
-        raise RuntimeError(f"train parity {dtype_name}: gradients off: "
-                           f"{ {n: errs[n] for n in bad} }")
-    if {n: nk[n] for n in want} != want or sum(npl.values()):
-        raise RuntimeError(f"train parity launches: kernels {nk}, plain "
-                           f"{npl}")
+        raise RuntimeError(f"train parity {dtype_name} {knobs}: gradients "
+                           f"off: { {n: errs[n] for n in bad} }")
+    if launched != want or sum(npl.values()):
+        raise RuntimeError(f"train parity {knobs} launches: kernels {nk}, "
+                           f"expected {want}, plain {npl}")
     del model, runs, gk, gp
 
 
-def phase_train(profile=False, layers=TRAIN_LAYERS):
-    """The training run: ``layers`` (15) layers of llama_7b in bf16,
-    B=4, S=2048."""
-    import torch
+#: the 15-layer train runs (label, LlamaConfig knobs); each checks the
+#: launches of its own mode
+TRAIN_RUNS = (("bshd", {}), ("bhsd", {"attention_layout": "bhsd"}),
+              ("bhsd_fuse_rope", {"attention_layout": "bhsd",
+                                  "fuse_rope": True}))
+#: recompute_policy="dots" keeps the seven projections a layer (q, k, v,
+#: o at 64 MiB each, gate and up at 172 MiB, down at 64 MiB at B=4,
+#: S=2048: ~0.66 GiB) where full recompute keeps the layer's input; but
+#: its backward recomputes less at a time, and 13 layers peaked at 63.71
+#: GiB where full peaks at 72.67 at 15 (PERF.md §5). Tried from 15 layers
+#: down until a step fits.
+DOTS_LAYERS = (15, 14, 13, 12, 11, 10)
+#: bench.py's first and third configs (CONFIGS[0] and CONFIGS[2]) at its
+#: own ~350M shape (bench.py:114-118): B=8, S=2048, accum_step(..., 4)
+BENCH_SHAPE = dict(vocab_size=32000, hidden_size=1024,
+                   intermediate_size=2816, num_hidden_layers=24,
+                   num_attention_heads=8, num_key_value_heads=8,
+                   max_position_embeddings=2048, use_recompute=False,
+                   loss_chunk=512, dtype="bfloat16")
+BENCH_RUNS = (("bhsd+hd128+noremat+accum4+chunk",
+               {"attention_layout": "bhsd"}),
+              ("bhsd+hd128+noremat+accum4+chunk+fuserope",
+               {"attention_layout": "bhsd", "fuse_rope": True}))
+
+
+def _trainer(cfg, seed=0):
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
-    cfg = llama_7b(num_hidden_layers=layers, dtype="bfloat16")
-    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
     opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
-    trainer = TrainStep(model, lambda loss, _lab: loss, opt)
+    return model, TrainStep(model, lambda loss, _lab: loss, opt)
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _train_run(label, layers, knobs, profile=False):
+    """One training run: ``layers`` layers of llama_7b in bf16, B=4,
+    S=2048, with ``knobs``: a warm-up step, three timed steps and one
+    ``accum_step(accum=2)``, the launches of the counted window checked
+    against what the code implies. Returns the window's launches."""
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.models.llama import llama_7b
+    cfg = llama_7b(num_hidden_layers=layers, dtype="bfloat16", **knobs)
+    model, trainer = _trainer(cfg)
     B, S = TRAIN_B, TRAIN_S
     ids = _train_ids(cfg.vocab_size, B, S, seed=0)
     batch = ((ids, ids), (ids,))
@@ -3265,26 +3553,24 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
     accum_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     mean_s = sum(step_s) / len(step_s)
-    micro = 3 + 2            # microbatches in the counted window
-    want = {"flash": 2 * layers * micro,
-            "flash_bwd_dkv": layers * micro,
-            "flash_bwd_dq": layers * micro}
-    emit({"phase": "train", "layers": layers, "dtype": "bfloat16",
-          "B": B, "S": S, "params": model.num_params(),
+    want = _flash_launches(layers, 3 + 2, knobs)   # microbatches counted
+    got = {n: c for n, c in launches.items() if c}
+    emit({"phase": "train", "run": label, "knobs": knobs, "layers": layers,
+          "dtype": "bfloat16", "B": B, "S": S, "params": model.num_params(),
           "warmup_loss": warm, "warmup_s": warm_s, "losses": losses,
           "accum2_loss": accum_loss, "step_ms": [1e3 * t for t in step_s],
           "mean_step_ms": 1e3 * mean_s, "tokens_per_s": B * S / mean_s,
           "accum2_step_ms": 1e3 * accum_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
           "warmup_peak_mem_gb": warm_peak,
-          "launches": {n: launches[n] for n in want},
-          "launches_expected": want})
+          "launches": got, "launches_expected": want})
     finite = all(map(math.isfinite, losses + [warm, accum_loss]))
     if not finite or not losses[2] < losses[0]:
-        raise RuntimeError(f"train: losses {warm}, {losses}, {accum_loss} "
-                           f"not finite and falling")
-    if {n: launches[n] for n in want} != want:
-        raise RuntimeError(f"train launches {launches}, expected {want}")
+        raise RuntimeError(f"train {label}: losses {warm}, {losses}, "
+                           f"{accum_loss} not finite and falling")
+    if got != want:
+        raise RuntimeError(f"train {label} launches {launches}, expected "
+                           f"{want}")
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
@@ -3296,8 +3582,92 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
             wall = time.perf_counter() - t0
         rows = _device_rows(prof)
         busy = sum(r[0] for r in rows) / 1e6
-        _profile_line("train_profile", rows, wall,
+        _profile_line("train_profile", rows, wall, run=label,
                       busy_share_of_unprofiled_step=busy / mean_s)
+    del model, trainer
+    _free()
+    return launches
+
+
+def _train_dots():
+    """``recompute_policy="dots"`` at the deepest of ``DOTS_LAYERS`` whose
+    steps fit the card (each depth tried that runs out of memory is
+    listed)."""
+    import torch
+    out_of_memory = []
+    for layers in DOTS_LAYERS:
+        try:
+            _train_run(f"dots_{layers}", layers,
+                       {"recompute_policy": "dots"})
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if not fits:     # the failed run's frames are gone: free its memory
+            out_of_memory.append(layers)
+            _free()
+            continue
+        emit({"phase": "train", "run": "dots_depth", "layers": layers,
+              "out_of_memory_at": out_of_memory})
+        return
+    raise RuntimeError(f"train dots: no depth of {DOTS_LAYERS} fits")
+
+
+def _train_bench(iters=5):
+    """bench.py's first and third configs at its own 350M shape: B=8,
+    S=2048, ``accum_step(..., 4)``, 2 warm-up steps then ``iters`` timed;
+    step ms, tokens/s and 6 * params * tokens/s over the bf16 peak
+    (989 TFLOP/s), as bench.py reckons MFU."""
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    B, S = 8, 2048
+    for label, knobs in BENCH_RUNS:
+        cfg = LlamaConfig(**BENCH_SHAPE, **knobs)
+        model, trainer = _trainer(cfg)
+        ids = _train_ids(cfg.vocab_size, B, S, seed=0)
+        batch = ((ids, ids), (ids,))
+        for _ in range(2):
+            float(trainer.accum_step(*batch, 4))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(trainer.accum_step(*batch, 4)) for _ in range(iters)]
+        dt = (time.perf_counter() - t0) / iters
+        n = model.num_params()
+        tok_s = B * S / dt
+        got = {k: c for k, c in LAUNCHES.items() if c}
+        want = _flash_launches(cfg.num_hidden_layers, 4 * iters,
+                               {**BENCH_SHAPE, **knobs})
+        emit({"phase": "train", "run": "bench", "config": label,
+              "params": n, "B": B, "S": S, "accum": 4, "step_ms": 1e3 * dt,
+              "tokens_per_s": tok_s,
+              "six_n_tokens_per_s_over_989_tflops": 6 * n * tok_s / 989e12,
+              "losses": losses,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "launches": got, "launches_expected": want})
+        if not all(map(math.isfinite, losses)) or got != want:
+            raise RuntimeError(f"bench {label}: losses {losses}, launches "
+                               f"{got}, expected {want}")
+        del model, trainer
+        _free()
+
+
+def phase_train(profile=False, layers=TRAIN_LAYERS):
+    """The training runs: ``layers`` (15) layers of llama_7b in bf16,
+    B=4, S=2048, in bshd, bhsd and bhsd with fused RoPE (each its main
+    path, counted from 0); ``dots`` at the deepest depth that fits; then
+    bench.py's two head-major configs at its 350M shape. Returns the
+    launches of each kernel's own run (the rope kernels' from the fused
+    RoPE run)."""
+    launches = {}
+    for label, knobs in TRAIN_RUNS:
+        got = _train_run(label, layers, knobs, profile and label == "bshd")
+        if label == "bshd":
+            launches.update({n: got[n] for n in ("flash",) + BWD})
+        if knobs.get("fuse_rope"):
+            launches.update({n: got[n] for n in ROPE})
+    _train_dots()
+    _train_bench()
     return launches
 
 
@@ -3360,7 +3730,7 @@ def main(argv=None):
     kernels = []
     for name in REPLACES:
         row = rows.get((name, "bfloat16"), {})
-        path = train if name in BWD else launches
+        path = train if name in BWD or name in ROPE else launches
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": path.get(name, 0),

@@ -32,6 +32,11 @@
 // the unscaled P, and the V scale is folded into P (kept float32) before
 // the PV product, as the split-KV walk (split_kv.cuh) and the reference
 // kernel order it.
+//
+// The flash forward may also ask for fused RoPE (RopeTables below, the
+// reference's _rope_block): Q and K tiles are rotated as they land, each
+// element pair (d, d + D/2) read together. Every other caller passes no
+// tables (NoRope, the default) and compiles as before.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,6 +58,48 @@ struct Scales {
   ScaleOff off;
 };
 using NoScales = Scales<0, NoOff>;
+
+// Element strides of a [B, S, H, D] tensor (D contiguous): [B, S, H, D]
+// memory and head-major [B, H, S, D] memory read through the same code.
+struct RowStrides {
+  long long b, s, h;
+  __device__ __forceinline__ long long at(int bi, int si, int hi) const {
+    return bi * b + si * s + hi * h;
+  }
+};
+
+// Fused neox RoPE from [S, D] float32 tables (pallas_flash.py _rope_block,
+// _rope_t_block). NoRope: none.
+struct NoRope {
+  static constexpr bool kOn = false;
+};
+// Query row i of a tile sits at position q0 + i, key p at position p.
+struct RopeTables {
+  static constexpr bool kOn = true;
+  const float* sin;
+  const float* cos;
+  int q0;
+};
+
+// rope(x) = x * cos + R(x) * sin with R([x1, x2]) = [-x2, x1], on one pair
+// (x1 at column d < D/2, x2 at d + D/2; c1, s1 the tables at d, c2, s2 at
+// d + D/2). Each product and sum rounds on its own (no FMA contraction),
+// as the plain version computes them.
+__device__ __forceinline__ void rope_pair(float x1, float x2, float c1,
+                                          float s1, float c2, float s2,
+                                          float& o1, float& o2) {
+  o1 = __fadd_rn(__fmul_rn(x1, c1), __fmul_rn(-x2, s1));
+  o2 = __fadd_rn(__fmul_rn(x2, c2), __fmul_rn(x1, s2));
+}
+// Its transpose on a float32 gradient pair: y * cos + R^T(y * sin) with
+// R^T([z1, z2]) = [z2, -z1].
+__device__ __forceinline__ void rope_adjoint_pair(float y1, float y2,
+                                                  float c1, float s1,
+                                                  float c2, float s2,
+                                                  float& o1, float& o2) {
+  o1 = __fadd_rn(__fmul_rn(y1, c1), __fmul_rn(y2, s2));
+  o2 = __fadd_rn(__fmul_rn(y2, c2), -__fmul_rn(y1, s1));
+}
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -77,6 +124,25 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as astype does
+}
+
+// Rotate the chunk pair a (columns d .. d+N-1) and b (d + D/2 ..) of the
+// row at position pos in place, each result rounded to T as _rope_block
+// rounds (.astype(x.dtype)) and kept as float.
+template <typename T, int N, int D>
+__device__ __forceinline__ void rope_chunk(float* a, float* b,
+                                           const float* __restrict__ sin,
+                                           const float* __restrict__ cos,
+                                           int pos, int d) {
+  const float* c = cos + static_cast<long long>(pos) * D + d;
+  const float* s = sin + static_cast<long long>(pos) * D + d;
+#pragma unroll
+  for (int x = 0; x < N; ++x) {
+    float o1, o2;
+    rope_pair(a[x], b[x], c[x], s[x], c[x + D / 2], s[x + D / 2], o1, o2);
+    a[x] = to_f(from_f<T>(o1));
+    b[x] = to_f(from_f<T>(o2));
+  }
 }
 
 // 16 bytes of T -> floats
@@ -190,16 +256,21 @@ struct TileShape {
 // quantized pool (KT narrow) passes its planes in sc, key p's scales at
 // sc.off(p).
 // On return s_m[i] / s_l[i] hold each row's running max and sum (for LSE).
+// With rope (RopeTables), Q row i and key p are rotated as they are staged
+// (positions rope.q0 + i and p); K must then be of the input type.
 template <typename T, int D, int TQ, typename KeyOff, typename RowPos,
-          typename KT = T, int QM = 0, typename ScaleOff = NoOff>
+          typename KT = T, int QM = 0, typename ScaleOff = NoOff,
+          typename Rope = NoRope>
 __device__ __forceinline__ void attend_tile(
     const T* __restrict__ q, const KT* __restrict__ k,
     const KT* __restrict__ v, T* __restrict__ out, float* smem,
     long long* s_qoff, RowPos row_pos, int kv_stop, int kv_valid,
     KeyOff key_off, float scale,
-    Scales<QM, ScaleOff> sc = Scales<QM, ScaleOff>{}) {
+    Scales<QM, ScaleOff> sc = Scales<QM, ScaleOff>{}, Rope rope = Rope{}) {
   using S = TileShape<T, D, TQ>;
   constexpr int KVV = 16 / sizeof(KT);   // pool elements a 16-byte load
+  static_assert(!Rope::kOn || (QM == 0 && sizeof(KT) == sizeof(T)),
+                "fused RoPE takes K of the input type");
   float* sQ = smem;
   float* sK = sQ + TQ * D;
   float* sV = sK + kKeys * S::KP;
@@ -216,19 +287,43 @@ __device__ __forceinline__ void attend_tile(
   const int lane = tid & 31;
 
   // ---- stage the query tile (rows outside the tile read as zeros)
-  for (int e = tid; e < TQ * D / S::VEC; e += kThreads) {
-    const int i = e / (D / S::VEC);
-    const int d = (e % (D / S::VEC)) * S::VEC;
-    float buf[S::VEC];
-    const long long off = s_qoff[i];
-    if (off >= 0) {
-      load16_cg(q + off + d, buf);
-    } else {
+  if constexpr (Rope::kOn) {
+    // each thread a chunk pair (d, d + D/2), rotated before it is stored
+    constexpr int HV = D / 2 / S::VEC;
+    for (int e = tid; e < TQ * HV; e += kThreads) {
+      const int i = e / HV;
+      const int d = (e % HV) * S::VEC;
+      float a[S::VEC], b[S::VEC];
+      const long long off = s_qoff[i];
+      if (off >= 0) {
+        load16_cg(q + off + d, a);
+        load16_cg(q + off + d + D / 2, b);
+        rope_chunk<T, S::VEC, D>(a, b, rope.sin, rope.cos, rope.q0 + i, d);
+      } else {
 #pragma unroll
-      for (int x = 0; x < S::VEC; ++x) buf[x] = 0.f;
+        for (int x = 0; x < S::VEC; ++x) { a[x] = 0.f; b[x] = 0.f; }
+      }
+#pragma unroll
+      for (int x = 0; x < S::VEC; ++x) {
+        sQ[i * D + d + x] = a[x];
+        sQ[i * D + d + D / 2 + x] = b[x];
+      }
     }
+  } else {
+    for (int e = tid; e < TQ * D / S::VEC; e += kThreads) {
+      const int i = e / (D / S::VEC);
+      const int d = (e % (D / S::VEC)) * S::VEC;
+      float buf[S::VEC];
+      const long long off = s_qoff[i];
+      if (off >= 0) {
+        load16_cg(q + off + d, buf);
+      } else {
 #pragma unroll
-    for (int x = 0; x < S::VEC; ++x) sQ[i * D + d + x] = buf[x];
+        for (int x = 0; x < S::VEC; ++x) buf[x] = 0.f;
+      }
+#pragma unroll
+      for (int x = 0; x < S::VEC; ++x) sQ[i * D + d + x] = buf[x];
+    }
   }
 
   float m_row[S::RPW], l_row[S::RPW];
@@ -257,22 +352,52 @@ __device__ __forceinline__ void attend_tile(
     __syncthreads();
     // ---- stage K (padded rows) and V in float32; invalid keys become
     // zero rows
-    for (int e = tid; e < kKeys * D / KVV; e += kThreads) {
-      const int j = e / (D / KVV);
-      const int d = (e % (D / KVV)) * KVV;
-      float bk[KVV], bv[KVV];
-      const long long off = s_koff[j];
-      if (off >= 0) {
-        load16_any(k + off + d, bk);
-        load16_any(v + off + d, bv);
-      } else {
+    if constexpr (Rope::kOn) {
+      // chunk pairs (d, d + D/2): K rotated at its position, V as it is
+      constexpr int HV = D / 2 / KVV;
+      for (int e = tid; e < kKeys * HV; e += kThreads) {
+        const int j = e / HV;
+        const int d = (e % HV) * KVV;
+        float k1[KVV], k2[KVV], v1[KVV], v2[KVV];
+        const long long off = s_koff[j];
+        if (off >= 0) {
+          load16_any(k + off + d, k1);
+          load16_any(k + off + d + D / 2, k2);
+          load16_any(v + off + d, v1);
+          load16_any(v + off + d + D / 2, v2);
+          rope_chunk<T, KVV, D>(k1, k2, rope.sin, rope.cos, k0 + j, d);
+        } else {
 #pragma unroll
-        for (int x = 0; x < KVV; ++x) { bk[x] = 0.f; bv[x] = 0.f; }
+          for (int x = 0; x < KVV; ++x) {
+            k1[x] = 0.f; k2[x] = 0.f; v1[x] = 0.f; v2[x] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < KVV; ++x) {
+          sK[j * S::KP + d + x] = k1[x];
+          sK[j * S::KP + d + D / 2 + x] = k2[x];
+          sV[j * D + d + x] = v1[x];
+          sV[j * D + d + D / 2 + x] = v2[x];
+        }
       }
+    } else {
+      for (int e = tid; e < kKeys * D / KVV; e += kThreads) {
+        const int j = e / (D / KVV);
+        const int d = (e % (D / KVV)) * KVV;
+        float bk[KVV], bv[KVV];
+        const long long off = s_koff[j];
+        if (off >= 0) {
+          load16_any(k + off + d, bk);
+          load16_any(v + off + d, bv);
+        } else {
 #pragma unroll
-      for (int x = 0; x < KVV; ++x) {
-        sK[j * S::KP + d + x] = bk[x];
-        sV[j * D + d + x] = bv[x];
+          for (int x = 0; x < KVV; ++x) { bk[x] = 0.f; bv[x] = 0.f; }
+        }
+#pragma unroll
+        for (int x = 0; x < KVV; ++x) {
+          sK[j * S::KP + d + x] = bk[x];
+          sV[j * D + d + x] = bv[x];
+        }
       }
     }
     __syncthreads();

@@ -64,6 +64,25 @@
 // dP tiles (16 shared loads feed 32 FMAs) and a 4 x D/16 patch of its
 // [64, D] accumulators; shared rows padded by one float so the strided
 // reads of a warp fall in distinct banks. Same block layout as above.
+//
+// Layouts: Q, dO and dQ are addressed through one set of element strides
+// (batch, sequence, head; D contiguous), K, V, dK and dV through another,
+// so [B, S, H, D] and head-major [B, H, S, D] memory share the bodies.
+//
+// Fused RoPE (the rope= mode, pallas_flash.py:211-213, :276-278, and the
+// adjoints at :243-244, :305-306): with [S, D] float32 tables, Q and K
+// arrive un-rotated. Each tile is rotated where it lands (rounded to the
+// input type, as _rope_block rounds): the resident tile once a block (K in
+// dK/dV, Q in dQ), each walked tile every time (Q in dK/dV, K in dQ) — in
+// fp32 while it is staged, in bf16 as a pass over the swizzled shared
+// tile after its cp.async stage lands. The products then use the rotated
+// tiles, and the adjoint rotation is applied to the float32 dK and dQ
+// accumulators before their one rounding: columns d and d + D/2 of a row
+// sit in the same thread (fp32: columns tx + 16c and tx + 16(c + D/32);
+// bf16: 8-column tiles n and n + D/16 of the m16n8 accumulator), so the
+// adjoint needs no shared memory. Under GQA it is applied once, to the
+// group's float32 sum (the rotation is linear: the reference's
+// repeat-then-sum up to rounding). The tables get no gradient.
 #include <math.h>
 
 #include "attention_common.cuh"
@@ -88,28 +107,67 @@ struct Shape {
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
 
-// Rows r0 .. r0+kTile of head h of a [B, S, Hx, D] tensor into dst
-// [kTile][DP] as floats; rows at or past S become zeros.
-template <typename T, int D>
+// Rows r0 .. r0+kTile of head h of batch b (element strides st) into dst
+// [kTile][DP] as floats; rows at or past S become zeros. kRot: rotate each
+// row (position r0 + i) by the tables as it is staged, each thread a pair
+// of chunks (d, d + D/2), rounded to T.
+template <typename T, int D, bool kRot = false>
 __device__ __forceinline__ void load_rows(const T* __restrict__ src,
-                                          float* dst, int b, int r0, int S,
-                                          int Hx, int h) {
+                                          float* dst, RowStrides st, int b,
+                                          int r0, int S, int h,
+                                          const float* sin = nullptr,
+                                          const float* cos = nullptr) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int DP = D + 1;
-  for (int e = threadIdx.x; e < kTile * D / VEC; e += kT) {
-    const int i = e / (D / VEC);
-    const int d = (e % (D / VEC)) * VEC;
+  constexpr int W = kRot ? D / 2 : D;    // columns a thread's chunks start in
+  for (int e = threadIdx.x; e < kTile * W / VEC; e += kT) {
+    const int i = e / (W / VEC);
+    const int d = (e % (W / VEC)) * VEC;
     const int r = r0 + i;
-    float buf[VEC];
+    float buf[VEC], hi[VEC];
     if (r < S) {
-      load16(src + ((static_cast<long long>(b) * S + r) * Hx + h) * D + d,
-             buf);
+      const T* row = src + st.at(b, r, h);
+      load16(row + d, buf);
+      if constexpr (kRot) {
+        load16(row + d + D / 2, hi);
+        rope_chunk<T, VEC, D>(buf, hi, sin, cos, r, d);
+      }
     } else {
 #pragma unroll
-      for (int x = 0; x < VEC; ++x) buf[x] = 0.f;
+      for (int x = 0; x < VEC; ++x) { buf[x] = 0.f; hi[x] = 0.f; }
     }
 #pragma unroll
-    for (int x = 0; x < VEC; ++x) dst[i * DP + d + x] = buf[x];
+    for (int x = 0; x < VEC; ++x) {
+      dst[i * DP + d + x] = buf[x];
+      if constexpr (kRot) dst[i * DP + d + D / 2 + x] = hi[x];
+    }
+  }
+}
+
+// The adjoint rotation of a thread's [kR][D/16] patch of a float32
+// accumulator (rows pos0 + ty + 16a, columns tx + 16c): columns d and
+// d + D/2 are patch columns c and c + D/32. Rows at or past S are left
+// alone.
+template <int D>
+__device__ __forceinline__ void rope_adjoint_patch(float (&acc)[kR][D / kSub],
+                                                   const float* sin,
+                                                   const float* cos,
+                                                   int pos0, int S) {
+  constexpr int NC = D / kSub;
+  const int ty = threadIdx.x / kSub;
+  const int tx = threadIdx.x % kSub;
+#pragma unroll
+  for (int a = 0; a < kR; ++a) {
+    const int pos = pos0 + ty + kSub * a;
+    if (pos >= S) continue;
+    const long long row = static_cast<long long>(pos) * D;
+#pragma unroll
+    for (int c = 0; c < NC / 2; ++c) {
+      const int d = tx + kSub * c;
+      rope_adjoint_pair(acc[a][c], acc[a][c + NC / 2], cos[row + d],
+                        sin[row + d], cos[row + d + D / 2],
+                        sin[row + d + D / 2], acc[a][c], acc[a][c + NC / 2]);
+    }
   }
 }
 
@@ -187,13 +245,15 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sdO,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRope>
 __global__ void __launch_bounds__(kT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int Hk, int causal,
+                     T* __restrict__ dv, const float* __restrict__ sin,
+                     const float* __restrict__ cos, RowStrides qs,
+                     RowStrides ks, int S, int H, int Hk, int causal,
                      float scale) {
   extern __shared__ __align__(16) float smem[];
   using Sh = Shape<D>;
@@ -211,8 +271,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / Hk;
   const int kvh = blockIdx.y % Hk;
   const int G = H / Hk;
-  load_rows<T, D>(k, sK, b, k0, S, Hk, kvh);
-  load_rows<T, D>(v, sV, b, k0, S, Hk, kvh);
+  load_rows<T, D, kRope>(k, sK, ks, b, k0, S, kvh, sin, cos);
+  load_rows<T, D>(v, sV, ks, b, k0, S, kvh);
 
   // this thread's patch of dK/dV: keys ty + 16a, columns tx + 16c
   const int ty = threadIdx.x / kSub;
@@ -233,8 +293,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long bh = static_cast<long long>(b) * H + h;
     for (int q0 = q_first; q0 < S; q0 += kTile) {
       __syncthreads();  // the previous tile's reads are done
-      load_rows<T, D>(q, sQ, b, q0, S, H, h);
-      load_rows<T, D>(dout, sdO, b, q0, S, H, h);
+      load_rows<T, D, kRope>(q, sQ, qs, b, q0, S, h, sin, cos);
+      load_rows<T, D>(dout, sdO, qs, b, q0, S, h);
       load_row_stats(lse, delta, s_lse, s_delta, bh, q0, S);
       __syncthreads();
       scores<T, D, true>(sQ, sdO, sK, sV, s_lse, s_delta, sP, sdS, q0, k0,
@@ -262,11 +322,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  // gradient w.r.t. the un-rotated K: the adjoint of the group's sum
+  if constexpr (kRope) rope_adjoint_patch<D>(acc_k, sin, cos, k0, S);
 #pragma unroll
   for (int a = 0; a < kR; ++a) {
     const int r = k0 + ty + kSub * a;
     if (r >= S) continue;
-    const long long off = ((static_cast<long long>(b) * S + r) * Hk + kvh) * D;
+    const long long off = ks.at(b, r, kvh);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       dk[off + tx + kSub * c] = from_f<T>(acc_k[a][c]);
@@ -275,13 +337,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRope>
 __global__ void __launch_bounds__(kT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int H, int Hk, int causal, float scale) {
+                    const float* __restrict__ sin,
+                    const float* __restrict__ cos, RowStrides qs,
+                    RowStrides ks, int S, int H, int Hk, int causal,
+                    float scale) {
   extern __shared__ __align__(16) float smem[];
   using Sh = Shape<D>;
   constexpr int DP = Sh::DP, TP = Sh::TP, NC = Sh::NC;
@@ -298,8 +363,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int kvh = h / (H / Hk);
-  load_rows<T, D>(q, sQ, b, q0, S, H, h);
-  load_rows<T, D>(dout, sdO, b, q0, S, H, h);
+  load_rows<T, D, kRope>(q, sQ, qs, b, q0, S, h, sin, cos);
+  load_rows<T, D>(dout, sdO, qs, b, q0, S, h);
   load_row_stats(lse, delta, s_lse, s_delta, blockIdx.y, q0, S);
 
   // this thread's patch of dQ: rows ty + 16a, columns tx + 16c
@@ -315,8 +380,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_stop = causal ? min(q0 + kTile, S) : S;
   for (int k0 = 0; k0 < kv_stop; k0 += kTile) {
     __syncthreads();  // the previous tile's reads are done
-    load_rows<T, D>(k, sK, b, k0, S, Hk, kvh);
-    load_rows<T, D>(v, sV, b, k0, S, Hk, kvh);
+    load_rows<T, D, kRope>(k, sK, ks, b, k0, S, kvh, sin, cos);
+    load_rows<T, D>(v, sV, ks, b, k0, S, kvh);
     __syncthreads();
     scores<T, D, false>(sQ, sdO, sK, sV, s_lse, s_delta, sP, sdS, q0, k0, S,
                         causal, scale);
@@ -335,11 +400,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  // gradient w.r.t. the un-rotated Q
+  if constexpr (kRope) rope_adjoint_patch<D>(acc, sin, cos, q0, S);
 #pragma unroll
   for (int a = 0; a < kR; ++a) {
     const int r = q0 + ty + kSub * a;
     if (r >= S) continue;
-    const long long off = ((static_cast<long long>(b) * S + r) * H + h) * D;
+    const long long off = qs.at(b, r, h);
 #pragma unroll
     for (int c = 0; c < NC; ++c) dq[off + tx + kSub * c] = from_f<T>(acc[a][c]);
   }
@@ -349,36 +416,39 @@ inline float scale_of(int D) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRope>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int B, int S,
-                       int H, int Hk, int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+                       const float* delta, void* dk, void* dv,
+                       const float* sin, const float* cos, RowStrides qs,
+                       RowStrides ks, int B, int S, int H, int Hk,
+                       int causal, cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_kernel<T, D, kRope>;
   cudaError_t err = allow_smem(kernel, Shape<D>::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((S + kTile - 1) / kTile, B * Hk);
   kernel<<<grid, kT, Shape<D>::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hk, causal,
-      scale_of(D));
+      static_cast<T*>(dk), static_cast<T*>(dv), sin, cos, qs, ks, S, H, Hk,
+      causal, scale_of(D));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRope>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int S, int H, int Hk, int causal,
-                      cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+                      void* dq, const float* sin, const float* cos,
+                      RowStrides qs, RowStrides ks, int B, int S, int H,
+                      int Hk, int causal, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_kernel<T, D, kRope>;
   cudaError_t err = allow_smem(kernel, Shape<D>::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kT, Shape<D>::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), S, H, Hk, causal, scale_of(D));
+      static_cast<T*>(dq), sin, cos, qs, ks, S, H, Hk, causal, scale_of(D));
   return cudaGetLastError();
 }
 
@@ -399,7 +469,7 @@ constexpr size_t dkv_smem_bytes() {
          4 * kBQ * sizeof(float);
 }
 
-template <int D>
+template <int D, bool kRope>
 __global__ void __launch_bounds__(kNT, 2)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -407,8 +477,11 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                          int H, int Hk, int causal, float scale) {
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          const float* __restrict__ sin,
+                          const float* __restrict__ cos, RowStrides qs,
+                          RowStrides ks, int S, int H, int Hk, int causal,
+                          float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + kBK * D;
@@ -425,10 +498,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   const int b = blockIdx.x / Hk;
   const int kvh = blockIdx.x % Hk;
   const int G = H / Hk;
-  const long long q_row = static_cast<long long>(H) * D;    // row strides
-  const long long kv_row = static_cast<long long>(Hk) * D;
-  const long long kv_off = (static_cast<long long>(b) * S + k0) * kv_row +
-                           kvh * D;
+  const long long q_row = qs.s;     // element strides of a sequence step
+  const long long kv_row = ks.s;
+  const long long kv_off = ks.at(b, k0, kvh);
   // causal: query tiles before the key tile see none of its keys
   const int qt0 = causal ? k0 / kBQ : 0;
   const int per = (S + kBQ - 1) / kBQ - qt0;   // query tiles a head
@@ -438,8 +510,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   auto issue = [&](int it, int st) {
     const int h = kvh * G + it / per;
     const int q0 = (qt0 + it % per) * kBQ;
-    const long long off = (static_cast<long long>(b) * S + q0) * q_row +
-                          h * D;
+    const long long off = qs.at(b, q0, h);
     tc::load_tile<kBQ, D, kNT>(sQ + st * kBQ * D, q + off, q_row, S - q0);
     tc::load_tile<kBQ, D, kNT>(sdO + st * kBQ * D, dout + off, q_row,
                                S - q0);
@@ -482,10 +553,15 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     const int q0 = (qt0 + it % per) * kBQ;
-    const bf16* cQ = sQ + st * kBQ * D;
+    bf16* cQ = sQ + st * kBQ * D;
     const bf16* cdO = sdO + st * kBQ * D;
     const float* c_lse = s_lse + st * kBQ;
     const float* c_delta = s_delta + st * kBQ;
+    if constexpr (kRope) {   // K (resident) once, each Q tile as it lands
+      if (it == 0) tc::rope_tile<kBK, D, kNT>(sK, sin, cos, k0, S - k0);
+      tc::rope_tile<kBQ, D, kNT>(cQ, sin, cos, q0, S - q0);
+      __syncthreads();
+    }
 
     // Two passes over 32 query columns each, so that P^T and dP^T (fp32)
     // take 32 registers a thread, not 64, beside the two accumulators.
@@ -561,11 +637,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     __syncthreads();   // this stage is read; the next copy may overwrite it
   }
 
+  // gradient w.r.t. the un-rotated K: the adjoint of the group's sum
+  if constexpr (kRope) tc::rope_adjoint_acc<D>(acc_k, sin, cos, key, S);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= S) continue;
-    const long long off = (static_cast<long long>(b) * S + key[r]) * kv_row +
-                          kvh * D + 2 * t;
+    const long long off = ks.at(b, key[r], kvh) + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
@@ -576,20 +653,22 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool kRope>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int B, int S,
-                       int H, int Hk, int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_bf16_kernel<D>;
+                       const float* delta, void* dk, void* dv,
+                       const float* sin, const float* cos, RowStrides qs,
+                       RowStrides ks, int B, int S, int H, int Hk,
+                       int causal, cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_bf16_kernel<D, kRope>;
   cudaError_t err = tc::use_smem(kernel, dkv_smem_bytes<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(B * Hk, (S + kBK - 1) / kBK);
   kernel<<<grid, kNT, dkv_smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hk,
-      causal, bwd::scale_of(D));
+      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sin, cos, qs,
+      ks, S, H, Hk, causal, bwd::scale_of(D));
   return cudaGetLastError();
 }
 
@@ -599,7 +678,7 @@ constexpr size_t dq_smem_bytes() {
   return static_cast<size_t>(2 * kBQ + 4 * kBK) * D * sizeof(bf16);
 }
 
-template <int D>
+template <int D, bool kRope>
 __global__ void __launch_bounds__(kNT, 2)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -607,8 +686,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int S, int H, int Hk,
-                         int causal, float scale) {
+                         bf16* __restrict__ dq, const float* __restrict__ sin,
+                         const float* __restrict__ cos, RowStrides qs,
+                         RowStrides ks, int S, int H, int Hk, int causal,
+                         float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sdO = sQ + kBQ * D;
@@ -625,18 +706,16 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / Hk);
-  const long long q_row = static_cast<long long>(H) * D;    // row strides
-  const long long kv_row = static_cast<long long>(Hk) * D;
-  const long long q_off = (static_cast<long long>(b) * S + q0) * q_row +
-                          h * D;
+  const long long q_row = qs.s;     // element strides of a sequence step
+  const long long kv_row = ks.s;
+  const long long q_off = qs.at(b, q0, h);
   // causal: key tiles past the query tile's last row are never visited
   const int kv_stop = causal ? min(q0 + kBQ, S) : S;
   const int n_it = (kv_stop + kBK - 1) / kBK;
 
   auto issue = [&](int it, int st) {
     const int k0 = it * kBK;
-    const long long off = (static_cast<long long>(b) * S + k0) * kv_row +
-                          kvh * D;
+    const long long off = ks.at(b, k0, kvh);
     tc::load_tile<kBK, D, kNT>(sK + st * kBK * D, k + off, kv_row, S - k0);
     tc::load_tile<kBK, D, kNT>(sV + st * kBK * D, v + off, kv_row, S - k0);
   };
@@ -676,8 +755,13 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     const int k0 = it * kBK;
-    const bf16* cK = sK + st * kBK * D;
+    bf16* cK = sK + st * kBK * D;
     const bf16* cV = sV + st * kBK * D;
+    if constexpr (kRope) {   // Q (resident) once, each K tile as it lands
+      if (it == 0) tc::rope_tile<kBQ, D, kNT>(sQ, sin, cos, q0, S - q0);
+      tc::rope_tile<kBK, D, kNT>(cK, sin, cos, k0, S - k0);
+      __syncthreads();
+    }
 
     // ---- S = Q K^T and dP = dO V^T: rows = this warp's 16 queries,
     // columns = the tile's 64 keys
@@ -742,11 +826,12 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     __syncthreads();   // this stage is read; the next copy may overwrite it
   }
 
+  // gradient w.r.t. the un-rotated Q
+  if constexpr (kRope) tc::rope_adjoint_acc<D>(acc, sin, cos, row, S);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= S) continue;
-    const long long off = (static_cast<long long>(b) * S + row[r]) * q_row +
-                          h * D + 2 * t;
+    const long long off = qs.at(b, row[r], h) + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(dq + off + n * 8) =
@@ -754,88 +839,148 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool kRope>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int S, int H, int Hk, int causal,
-                      cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_bf16_kernel<D>;
+                      void* dq, const float* sin, const float* cos,
+                      RowStrides qs, RowStrides ks, int B, int S, int H,
+                      int Hk, int causal, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_bf16_kernel<D, kRope>;
   cudaError_t err = tc::use_smem(kernel, dq_smem_bytes<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   kernel<<<grid, kNT, dq_smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dq), S, H, Hk, causal, bwd::scale_of(D));
+      delta, static_cast<bf16*>(dq), sin, cos, qs, ks, S, H, Hk, causal,
+      bwd::scale_of(D));
   return cudaGetLastError();
 }
 
 }  // namespace tcb
+
+// The two kernels for head dim D and the rope mode: bf16 on mma.sync,
+// float32 on the CUDA cores.
+template <int D, bool kRope>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv,
+                       const float* sin, const float* cos, RowStrides qs,
+                       RowStrides ks, int B, int S, int H, int Hk,
+                       int causal, int is_bf16, cudaStream_t stream) {
+  return is_bf16
+      ? tcb::launch_dkv<D, kRope>(q, k, v, dout, lse, delta, dk, dv, sin,
+                                  cos, qs, ks, B, S, H, Hk, causal, stream)
+      : bwd::launch_dkv<float, D, kRope>(q, k, v, dout, lse, delta, dk, dv,
+                                         sin, cos, qs, ks, B, S, H, Hk,
+                                         causal, stream);
+}
+
+template <int D, bool kRope>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, const float* sin, const float* cos,
+                      RowStrides qs, RowStrides ks, int B, int S, int H,
+                      int Hk, int causal, int is_bf16, cudaStream_t stream) {
+  return is_bf16
+      ? tcb::launch_dq<D, kRope>(q, k, v, dout, lse, delta, dq, sin, cos, qs,
+                                 ks, B, S, H, Hk, causal, stream)
+      : bwd::launch_dq<float, D, kRope>(q, k, v, dout, lse, delta, dq, sin,
+                                        cos, qs, ks, B, S, H, Hk, causal,
+                                        stream);
+}
+
 }  // namespace pt
 
-// q/dout [B,S,H,D]; k/v/dk/dv [B,S,Hk,D]; lse/delta [B,H,S] float32.
+// The source builds as two libraries (kernels/_build.py): with
+// -DFLASH_BWD_ENTRY=1 the dK/dV entry, with 2 the dQ entry, so each
+// compiles only its own kernels' instantiations and the two build in
+// parallel. Without the macro both entries are compiled.
+#ifndef FLASH_BWD_ENTRY
+#define FLASH_BWD_ENTRY 0
+#endif
+
+#if FLASH_BWD_ENTRY != 2
+// q/dout [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v/dk/dv
+// [B,S,Hk,D] through (k_sb, k_ss, k_sh), D contiguous; lse/delta [B,H,S]
+// float32; sin/cos [S,D] float32 (fused RoPE) or both null.
 // is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv, int B,
-                                int S, int H, int Hk, int D, int causal,
-                                int is_bf16, void* stream) {
+                                const void* delta, void* dk, void* dv,
+                                const void* sin, const void* cos, int B,
+                                int S, int H, int Hk, int D, long long q_sb,
+                                long long q_ss, long long q_sh,
+                                long long k_sb, long long k_ss,
+                                long long k_sh, int causal, int is_bf16,
+                                void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hk <= 0 || H % Hk || (sin == nullptr) != (cos == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  cudaError_t err;
-  switch (D) {
-    case 64:
-      err = is_bf16 ? pt::tcb::launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, B,
-                                              S, H, Hk, causal, s)
-                    : pt::bwd::launch_dkv<float, 64>(q, k, v, dout, l, dl, dk,
-                                                     dv, B, S, H, Hk, causal,
-                                                     s);
-      break;
-    case 128:
-      err = is_bf16 ? pt::tcb::launch_dkv<128>(q, k, v, dout, l, dl, dk, dv,
-                                               B, S, H, Hk, causal, s)
-                    : pt::bwd::launch_dkv<float, 128>(q, k, v, dout, l, dl,
-                                                      dk, dv, B, S, H, Hk,
-                                                      causal, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  const float* sn = static_cast<const float*>(sin);
+  const float* cs = static_cast<const float*>(cos);
+  const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
+  const bool rope = sn != nullptr;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64)
+    err = rope ? pt::launch_dkv<64, true>(q, k, v, dout, l, dl, dk, dv, sn,
+                                          cs, qs, ks, B, S, H, Hk, causal,
+                                          is_bf16, s)
+               : pt::launch_dkv<64, false>(q, k, v, dout, l, dl, dk, dv, sn,
+                                           cs, qs, ks, B, S, H, Hk, causal,
+                                           is_bf16, s);
+  else if (D == 128)
+    err = rope ? pt::launch_dkv<128, true>(q, k, v, dout, l, dl, dk, dv, sn,
+                                           cs, qs, ks, B, S, H, Hk, causal,
+                                           is_bf16, s)
+               : pt::launch_dkv<128, false>(q, k, v, dout, l, dl, dk, dv, sn,
+                                            cs, qs, ks, B, S, H, Hk, causal,
+                                            is_bf16, s);
   return static_cast<int>(err);
 }
 
-// q/dout/dq [B,S,H,D]; k/v [B,S,Hk,D]; lse/delta [B,H,S] float32.
+#endif
+
+#if FLASH_BWD_ENTRY != 1
+// q/dout/dq [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v [B,S,Hk,D]
+// through (k_sb, k_ss, k_sh), D contiguous; lse/delta [B,H,S] float32;
+// sin/cos [S,D] float32 (fused RoPE) or both null.
 // is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
-                               const void* delta, void* dq, int B, int S,
-                               int H, int Hk, int D, int causal, int is_bf16,
+                               const void* delta, void* dq, const void* sin,
+                               const void* cos, int B, int S, int H, int Hk,
+                               int D, long long q_sb, long long q_ss,
+                               long long q_sh, long long k_sb, long long k_ss,
+                               long long k_sh, int causal, int is_bf16,
                                void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hk <= 0 || H % Hk || (sin == nullptr) != (cos == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  cudaError_t err;
-  switch (D) {
-    case 64:
-      err = is_bf16 ? pt::tcb::launch_dq<64>(q, k, v, dout, l, dl, dq, B, S,
-                                             H, Hk, causal, s)
-                    : pt::bwd::launch_dq<float, 64>(q, k, v, dout, l, dl, dq,
-                                                    B, S, H, Hk, causal, s);
-      break;
-    case 128:
-      err = is_bf16 ? pt::tcb::launch_dq<128>(q, k, v, dout, l, dl, dq, B, S,
-                                              H, Hk, causal, s)
-                    : pt::bwd::launch_dq<float, 128>(q, k, v, dout, l, dl,
-                                                     dq, B, S, H, Hk, causal,
-                                                     s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  const float* sn = static_cast<const float*>(sin);
+  const float* cs = static_cast<const float*>(cos);
+  const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
+  const bool rope = sn != nullptr;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64)
+    err = rope ? pt::launch_dq<64, true>(q, k, v, dout, l, dl, dq, sn, cs, qs,
+                                         ks, B, S, H, Hk, causal, is_bf16, s)
+               : pt::launch_dq<64, false>(q, k, v, dout, l, dl, dq, sn, cs,
+                                          qs, ks, B, S, H, Hk, causal,
+                                          is_bf16, s);
+  else if (D == 128)
+    err = rope ? pt::launch_dq<128, true>(q, k, v, dout, l, dl, dq, sn, cs,
+                                          qs, ks, B, S, H, Hk, causal,
+                                          is_bf16, s)
+               : pt::launch_dq<128, false>(q, k, v, dout, l, dl, dq, sn, cs,
+                                           qs, ks, B, S, H, Hk, causal,
+                                           is_bf16, s);
   return static_cast<int>(err);
 }
+#endif

@@ -9,10 +9,11 @@ and an unchanged one is reused. Nothing is built at import: the first
 launch builds what it needs, and :func:`build_all` builds every kernel
 at once, one ``nvcc`` process per library, all started together. A
 library is one source compiled with its own ``-D`` macros: a source may
-hold several kernels (``flash_bwd.cu`` holds both backward kernels), each
-with its own C entry point, and a kernel may span several libraries (the
-fused tick's six variants — three pool modes, dense or int8 weights — are
-``fused_decode_tick.cu`` compiled six times, so they build in parallel).
+hold several kernels, each with its own C entry point (``flash_bwd.cu``
+holds both backward kernels, built as two libraries, one entry each, so
+their modes compile in parallel), and a kernel may span several libraries
+(the fused tick's six variants — three pool modes, dense or int8 weights
+— are ``fused_decode_tick.cu`` compiled six times).
 
 Override the output directory with ``PADDLE_TPU_TORCH_BUILD_DIR`` and the
 compiler with ``NVCC`` (else ``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on
@@ -33,9 +34,11 @@ CSRC = _PKG / "csrc"
 _REPO = _PKG.parent
 
 #: kernel name -> (its library, its C entry point, the entry's argument
-#: types: pointers and the stream as void*, a float as float, everything
-#: else int)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+#: types: pointers and the stream as void*, a float as float, element
+#: strides as int64, everything else int)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the flash kernels' shape, Q-side and K-side strides, causal, dtype
+_FLASH_DIMS = [_I] * 5 + [_L] * 6 + [_I] * 2
 _FUSED_ARGS = [_P] * 44 + [_I] * 16 + [ctypes.c_float, _I, _P] + [_P]
 #: the fused tick's libraries by (pool mode: 0 the model's type, 1 int8,
 #: 2 fp8; int8 weights)
@@ -47,11 +50,11 @@ SIGNATURES = {
                      [_P] * 12 + [_I] * 11 + [_P]),
     "ragged_attention": ("ragged_attention", "pt_ragged_attention",
                          [_P] * 14 + [_I] * 12 + [_P]),
-    "flash": ("flash", "pt_flash_fwd", [_P] * 5 + [_I] * 7 + [_P]),
-    "flash_bwd_dkv": ("flash_bwd", "pt_flash_bwd_dkv",
-                      [_P] * 8 + [_I] * 7 + [_P]),
-    "flash_bwd_dq": ("flash_bwd", "pt_flash_bwd_dq",
-                     [_P] * 7 + [_I] * 7 + [_P]),
+    "flash": ("flash", "pt_flash_fwd", [_P] * 7 + _FLASH_DIMS + [_P]),
+    "flash_bwd_dkv": ("flash_bwd_dkv", "pt_flash_bwd_dkv",
+                      [_P] * 10 + _FLASH_DIMS + [_P]),
+    "flash_bwd_dq": ("flash_bwd_dq", "pt_flash_bwd_dq",
+                     [_P] * 9 + _FLASH_DIMS + [_P]),
     "decode": ("decode", "pt_decode", [_P] * 9 + [_I] * 8 + [_P]),
     **{lib: (lib, "pt_" + lib, _FUSED_ARGS)
        for lib in FUSED_VARIANTS.values()},
@@ -59,7 +62,10 @@ SIGNATURES = {
 #: library -> (its source under csrc/, its -D macros)
 LIBRARIES = {
     **{src: (src, ()) for src in ("paged_decode", "ragged_attention",
-                                  "flash", "flash_bwd", "decode")},
+                                  "flash", "decode")},
+    # the two backward kernels: one source, one entry a library
+    **{f"flash_bwd_{k}": ("flash_bwd", (f"-DFLASH_BWD_ENTRY={i}",))
+       for i, k in enumerate(("dkv", "dq"), 1)},
     **{lib: ("fused_decode_tick", (f"-DFT_MODE={m}", f"-DFT_W8={int(w8)}",
                                    f"-DFT_ENTRY=pt_{lib}"))
        for (m, w8), lib in FUSED_VARIANTS.items()},

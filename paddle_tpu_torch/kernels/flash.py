@@ -29,13 +29,28 @@ Replaces ``paddle_tpu/kernels/pallas_flash.py``:
   bf16 its three products are ``mma.sync.m16n8k16`` (S = Q K^T and
   dP = dO V^T, then dS from registers as the A operand of dQ += dS K), in
   float32 fp32 FMAs on the CUDA cores;
-- the ``jax.custom_vjp`` that ties them together — :class:`FlashAttention`,
-  a ``torch.autograd.Function``.
+- the ``jax.custom_vjp`` ops that tie them together, ``_flash`` and the
+  fused-RoPE ``_flash_rope`` (``:388-432``) — :class:`FlashAttention`, a
+  ``torch.autograd.Function``, and the reference's head-major entry
+  ``flash_attention_bhsd`` (``:463``).
 
 The input type alone picks a kernel: there is no fallback between them.
 
-The fused-RoPE mode (``rope=`` in the JAX kernels) is not ported
-(ROADMAP Queue B item 7).
+**Layouts.** The kernels take element strides for the batch, sequence
+and head dimensions (D contiguous): one set for Q, O, dO and dQ, one for
+K, V, dK and dV. So ``[B, S, H, D]`` memory and head-major ``[B, H, S,
+D]`` memory run the same kernel bodies; LSE and delta stay ``[B, H, S]``
+float32.
+
+**Fused RoPE** (``rope=(sin, cos)``, the reference's ``_rope_block`` and
+``_rope_t_block``, ``:46`` and ``:55``): the kernels take UN-rotated Q and
+K and the ``[S, D]`` float32 tables, rotate each tile as it reaches
+shared memory (neox rotation, rounded to the input type before any
+product, as ``_rope_block`` rounds), and apply the adjoint rotation to
+the float32 dQ and dK accumulators before their one rounding, so the
+gradients are those of the un-rotated inputs. Under GQA the adjoint
+applies once, to each KV head's float32 sum over its group. The tables
+get no gradient.
 
 Every wrapper takes the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors.
@@ -47,7 +62,7 @@ import math
 import torch
 
 from ..flags import get_flag
-from ._launch import check_cuda, check_head_dim, launch
+from ._launch import check_head_dim, dtype_code, launch
 from .flash_attention import _ref_attention, _ref_logits, _ref_lse
 
 
@@ -73,19 +88,134 @@ def _on_cuda(name, q):
     return True
 
 
+def _kernel_name(name, rope):
+    """The launch counter of kernel ``name`` in this mode."""
+    return f"{name}[rope]" if rope is not None else name
+
+
+# --------------------------------------------------------------- the rope
+def _rotate_half(x):
+    d = x.shape[-1]
+    return torch.cat([-x[..., d // 2:], x[..., :d // 2]], dim=-1)
+
+
+def rope_rotate(x, sin, cos):
+    """Neox rotation of ``x`` (``[B, S, H, D]``, any strides) by the
+    ``[S, D]`` float32 tables, computed in float32 and rounded to
+    ``x.dtype`` — the plain version of the kernels' prologue, the
+    counterpart of ``_rope_block`` (``pallas_flash.py:46``)."""
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    return (x * c + _rotate_half(x) * s).to(x.dtype)
+
+
+def rope_adjoint(y, sin, cos):
+    """The transpose of :func:`rope_rotate` on a float32 gradient ``y``
+    (``[B, S, H, D]``): ``y * cos + R^T(y * sin)`` with ``R^T([z1, z2]) =
+    [z2, -z1]`` — the counterpart of ``_rope_t_block``
+    (``pallas_flash.py:55``). Stays float32: the caller rounds once."""
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    z = y * s
+    d = y.shape[-1]
+    return y * c + torch.cat([z[..., d // 2:], -z[..., :d // 2]], dim=-1)
+
+
+def _rotated(q, k, rope):
+    if rope is None:
+        return q, k
+    return rope_rotate(q, *rope), rope_rotate(k, *rope)
+
+
+def _tables(rope, S, D, device):
+    """The ``(sin, cos)`` tables as contiguous float32 ``[S, D]`` on
+    ``device`` (None stays None)."""
+    if rope is None:
+        return None
+    sin, cos = (torch.as_tensor(t).to(device=device, dtype=torch.float32)
+                .contiguous() for t in rope)
+    if sin.shape != (S, D) or cos.shape != (S, D):
+        raise ValueError(f"rope tables must be [{S}, {D}], got "
+                         f"{tuple(sin.shape)} and {tuple(cos.shape)}")
+    return sin, cos
+
+
+# ------------------------------------------------------------- the layout
+def _layout(x):
+    """``x`` ([B, S, H, D]) as the kernels read it: unchanged where its
+    memory is ``[B, S, H, D]`` or ``[B, H, S, D]`` (a head-major tensor
+    seen through ``transpose(1, 2)``), else a contiguous copy."""
+    if x.is_contiguous() or x.transpose(1, 2).is_contiguous():
+        return x
+    return x.contiguous()
+
+
+def _like(x, ref):
+    """``x`` in the memory layout of ``ref`` (the kernels read one set of
+    strides for Q, O and dO, one for K and V)."""
+    if x.stride() == ref.stride():
+        return x
+    return torch.empty_like(ref).copy_(x)
+
+
+def _strides(x):
+    return x.stride(0), x.stride(1), x.stride(2)
+
+
+def _check_kernel_inputs(name, data, floats=()):
+    """What the flash kernels read: ``data`` on one CUDA device, one float
+    dtype, D contiguous, 16-byte aligned rows (16-byte loads);
+    ``floats`` (LSE, delta, rope tables) float32 and contiguous. Returns
+    the dtype code."""
+    dev = data[0].device
+    vec = 16 // data[0].element_size()
+    for t in data:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if t.dtype != data[0].dtype:
+            raise TypeError(f"{name}: mixed dtypes {data[0].dtype} and "
+                            f"{t.dtype}")
+        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: rows must be contiguous in D and "
+                             f"16-byte aligned, got strides {t.stride()}")
+    for t in floats:
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: LSE, delta and rope tables must be "
+                             f"contiguous float32 on {dev}")
+    return dtype_code(data[0])
+
+
+def _rope_args(tables):
+    return (None, None) if tables is None else tables
+
+
 # ------------------------------------------------------------------ forward
-def flash_attention_fwd(q, k, v, causal=True):
+def flash_attention_reference(q, k, v, causal=True, rope=None):
+    """The plain forward: ``(out, lse)``, Q and K rotated first when
+    ``rope=(sin, cos)`` is given."""
+    q, k = _rotated(q, k, rope)
+    return _ref_attention(q, k, v, causal), _ref_lse(q, k, causal)
+
+
+def flash_attention_fwd(q, k, v, causal=True, rope=None):
     """``(out [B, S, H, D], lse [B, H, S] float32)``: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors. k/v are
-    ``[B, S, Hk, D]`` with ``H % Hk == 0``."""
+    ``[B, S, Hk, D]`` with ``H % Hk == 0``; any of the two layouts
+    (``_layout``); ``out`` takes q's layout. ``rope=(sin, cos)`` takes
+    un-rotated q and k and rotates them in the kernel."""
     if not _on_cuda("flash_attention_fwd", q):
-        return _ref_attention(q, k, v, causal), _ref_lse(q, k, causal)
+        return flash_attention_reference(q, k, v, causal, rope)
     B, S, H, Hk, D = _check_shapes("flash", q, k, v)
-    code = check_cuda("flash", (q, k, v))
+    q, k = _layout(q), _layout(k)
+    v = _like(v, k)
+    tables = _tables(rope, S, D, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    launch("flash", q, k, v, out, lse, B, S, H, Hk, D, int(bool(causal)),
-           code)
+    code = _check_kernel_inputs("flash", (q, k, v, out),
+                                (lse,) + (tables or ()))
+    launch("flash", q, k, v, out, lse, *_rope_args(tables), B, S, H, Hk, D,
+           *_strides(q), *_strides(k), int(bool(causal)), code,
+           count_as=_kernel_name("flash", rope))
     return out, lse
 
 
@@ -121,34 +251,48 @@ def _group_sum(x, Hk):
     return x.reshape(B, S, Hk, H // Hk, D).sum(3) if H != Hk else x
 
 
-def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True):
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True, rope=None):
     """Plain version of ``_dkv_kernel``: ``(dk, dv)`` ``[B, S, Hk, D]``.
     Same cast points: P is rounded to ``do.dtype`` before ``P^T dO``
     (``pallas_flash.py:228``), dS to ``q.dtype`` before ``dS^T Q``
     (:237); products accumulate in float32. Under GQA each KV head's
-    dK/dV is the float32 sum over its query heads, rounded once."""
-    p, ds, _ = _scores_grad(q, k, v, lse, delta, do, causal)
+    dK/dV is the float32 sum over its query heads, rounded once. With
+    ``rope``: Q and K rotated first, and the adjoint rotation applied to
+    the float32 dK sum before that one rounding (:243-244)."""
+    qr, kr = _rotated(q, k, rope)
+    p, ds, _ = _scores_grad(qr, kr, v, lse, delta, do, causal)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(qr.dtype).float(), qr.float())
     Hk = k.shape[2]
-    return _group_sum(dk, Hk).to(k.dtype), _group_sum(dv, Hk).to(v.dtype)
+    dk = _group_sum(dk, Hk)
+    if rope is not None:
+        dk = rope_adjoint(dk, *rope)
+    return dk.to(k.dtype), _group_sum(dv, Hk).to(v.dtype)
 
 
-def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True):
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True, rope=None):
     """Plain version of ``_dq_kernel``: ``dq [B, S, H, D]``, with dS
-    rounded to ``k.dtype`` before ``dS K`` (``pallas_flash.py:299``)."""
-    _, ds, kr = _scores_grad(q, k, v, lse, delta, do, causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kr.float())
+    rounded to ``k.dtype`` before ``dS K`` (``pallas_flash.py:299``); with
+    ``rope`` the adjoint rotation of the float32 dQ before its one
+    rounding (:305-306)."""
+    qr, kr = _rotated(q, k, rope)
+    _, ds, krep = _scores_grad(qr, kr, v, lse, delta, do, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                      krep.float())
+    if rope is not None:
+        dq = rope_adjoint(dq, *rope)
     return dq.to(q.dtype)
 
 
-def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True):
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                  rope=None):
     """The plain flash backward, straight from the formula (not autograd):
     ``(dq [B, S, H, D], dk, dv [B, S, Hk, D])`` from the forward's inputs,
     its output ``o`` and ``lse [B, H, S]``, and the output gradient."""
     delta = attention_delta(o, do)
-    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
-    return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal), dk, dv
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, rope)
+    return (flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, rope),
+            dk, dv)
 
 
 def _check_bwd(name, q, k, v, do, lse, delta):
@@ -161,79 +305,131 @@ def _check_bwd(name, q, k, v, do, lse, delta):
             raise ValueError(f"{name}: lse/delta must be float32 "
                              f"[{B}, {H}, {S}], got {t.dtype} "
                              f"{tuple(t.shape)}")
-    code = check_cuda(name, (q, k, v, do))
-    check_cuda(name, (lse, delta))
-    return B, S, H, Hk, D, code
+    return B, S, H, Hk, D
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True):
-    """``(dk, dv)`` of one flash backward: the ``flash_bwd_dkv`` kernel
-    for CUDA tensors, :func:`flash_bwd_dkv_reference` for CPU tensors."""
+def _bwd_operands(name, q, k, v, do, lse, delta, rope):
+    """Shapes checked, the operands in the kernels' layouts (dO in Q's,
+    V in K's), the tables, and the dtype code."""
+    B, S, H, Hk, D = _check_bwd(name, q, k, v, do, lse, delta)
+    q, k = _layout(q), _layout(k)
+    v, do = _like(v, k), _like(do, q)
+    tables = _tables(rope, S, D, q.device)
+    code = _check_kernel_inputs(name, (q, k, v, do),
+                                (lse, delta) + (tables or ()))
+    return (B, S, H, Hk, D), (q, k, v, do), tables, code
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, rope=None):
+    """``(dk, dv)`` of one flash backward, in k's layout: the
+    ``flash_bwd_dkv`` kernel for CUDA tensors,
+    :func:`flash_bwd_dkv_reference` for CPU tensors."""
     if not _on_cuda("flash_bwd_dkv", q):
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
-    B, S, H, Hk, D, code = _check_bwd("flash_bwd_dkv", q, k, v, do, lse,
-                                      delta)
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                       rope)
+    dims, (q, k, v, do), tables, code = _bwd_operands(
+        "flash_bwd_dkv", q, k, v, do, lse, delta, rope)
     dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv, B, S, H, Hk, D,
-           int(bool(causal)), code)
+    dv = torch.empty_like(k)
+    launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv,
+           *_rope_args(tables), *dims, *_strides(q), *_strides(k),
+           int(bool(causal)), code,
+           count_as=_kernel_name("flash_bwd_dkv", rope))
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal=True):
-    """``dq`` of one flash backward: the ``flash_bwd_dq`` kernel for CUDA
-    tensors, :func:`flash_bwd_dq_reference` for CPU tensors."""
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, rope=None):
+    """``dq`` of one flash backward, in q's layout: the ``flash_bwd_dq``
+    kernel for CUDA tensors, :func:`flash_bwd_dq_reference` for CPU
+    tensors."""
     if not _on_cuda("flash_bwd_dq", q):
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
-    B, S, H, Hk, D, code = _check_bwd("flash_bwd_dq", q, k, v, do, lse,
-                                      delta)
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, rope)
+    dims, (q, k, v, do), tables, code = _bwd_operands(
+        "flash_bwd_dq", q, k, v, do, lse, delta, rope)
     dq = torch.empty_like(q)
-    launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, B, S, H, Hk, D,
-           int(bool(causal)), code)
+    launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, *_rope_args(tables),
+           *dims, *_strides(q), *_strides(k), int(bool(causal)), code,
+           count_as=_kernel_name("flash_bwd_dq", rope))
     return dq
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=True):
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, rope=None):
     """``(dq, dk, dv)``: delta as one torch op, then the two backward
     kernels (CUDA tensors) or their plain versions (CPU tensors)."""
     delta = attention_delta(o, do)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-    return flash_bwd_dq(q, k, v, do, lse, delta, causal), dk, dv
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, rope)
+    return flash_bwd_dq(q, k, v, do, lse, delta, causal, rope), dk, dv
 
 
 # ------------------------------------------------------------ autograd op
 class FlashAttention(torch.autograd.Function):
     """Causal flash attention with its hand-written backward — the
-    counterpart of the ``jax.custom_vjp`` ``_flash``
-    (``pallas_flash.py:388-406``). ``use_kernels=False`` runs the plain
-    forward and the plain backward on any device (the A/B switch)."""
+    counterpart of the ``jax.custom_vjp`` ops ``_flash`` and
+    ``_flash_rope`` (``pallas_flash.py:388-432``). With tables
+    (``sin``, ``cos`` not None) Q and K arrive un-rotated and are saved so
+    (the reference's residuals, :422); the tables get no gradient.
+    ``use_kernels=False`` runs the plain forward and the plain backward on
+    any device (the A/B switch)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, use_kernels):
-        if use_kernels:
-            o, lse = flash_attention_fwd(q, k, v, causal)
-        else:
-            o, lse = _ref_attention(q, k, v, causal), _ref_lse(q, k, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, sin, cos, causal, use_kernels):
+        rope = None if sin is None else (sin, cos)
+        fwd = flash_attention_fwd if use_kernels \
+            else flash_attention_reference
+        o, lse = fwd(q, k, v, causal, rope)
+        ctx.save_for_backward(q, k, v, o, lse,
+                              *(() if rope is None else rope))
         ctx.causal, ctx.use_kernels = causal, use_kernels
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, *rope = ctx.saved_tensors
         # autograd may hand an expanded or strided gradient; the kernels
-        # take contiguous tensors only
-        do = do.contiguous()
+        # read dO in q's layout
+        do = _like(do, o)
         bwd = flash_attention_bwd if ctx.use_kernels \
             else flash_attention_bwd_reference
-        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.causal)
-        return dq, dk, dv, None, None
+        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.causal,
+                         tuple(rope) if rope else None)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=True):
-    """Flash attention output, differentiable through the backward
-    kernels. The kernels run on CUDA tensors while
-    ``FLAGS_use_cuda_kernels`` is on; the plain versions run on CPU
+def flash_attention(q, k, v, causal=True, rope=None):
+    """Flash attention output over ``[B, S, H, D]`` (k/v ``[B, S, Hk,
+    D]``), differentiable through the backward kernels; ``rope=(sin,
+    cos)`` rotates Q and K inside them. The kernels run on CUDA tensors
+    while ``FLAGS_use_cuda_kernels`` is on; the plain versions run on CPU
     tensors, or on any device with the flag off."""
-    return FlashAttention.apply(q, k, v, bool(causal),
+    sin, cos = (None, None) if rope is None else rope
+    return FlashAttention.apply(q, k, v, sin, cos, bool(causal),
                                 bool(get_flag("FLAGS_use_cuda_kernels")))
+
+
+def _check_block(name, value):
+    if isinstance(value, bool) or int(value) != value or value < 1:
+        raise ValueError(f"{name} must be a positive int, got {value!r}")
+
+
+def flash_attention_bhsd(q, k, v, causal=True, block_q=1024, block_k=1024,
+                         rope=None):
+    """The reference's head-major entry (``pallas_flash.py:463``): q/k/v
+    ``[BH, S, D]`` (heads folded into the batch, k/v as many heads as q),
+    or ``[B, H, S, D]`` with k/v ``[B, Hk, S, D]`` (GQA indexes the KV
+    head; K/V are never repeated). The kernels read the head-major
+    tensors through their strides. ``rope=(sin, cos)`` (``[S, D]``
+    float32) rotates un-rotated Q and K inside the kernels and returns
+    the gradients of the un-rotated inputs. ``block_q``/``block_k`` are
+    the Pallas tile sizes, validated and otherwise unused: the port's
+    tiles are fixed at 64 rows by 64 keys (ROADMAP Queue B item 6)."""
+    _check_block("block_q", block_q)
+    _check_block("block_k", block_k)
+    if q.dim() == 3:
+        if k.shape != q.shape or v.shape != q.shape:
+            raise ValueError(f"folded [BH, S, D]: q {tuple(q.shape)} k "
+                             f"{tuple(k.shape)} v {tuple(v.shape)}")
+        return flash_attention_bhsd(q[:, None], k[:, None], v[:, None],
+                                    causal, block_q, block_k, rope)[:, 0]
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, rope=rope)
+    return o.transpose(1, 2)

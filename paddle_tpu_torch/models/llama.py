@@ -9,11 +9,14 @@ programs and the training forward walk the layers by indexing one tensor
 per weight, as the JAX package's ``lax.scan`` does.
 
 :meth:`LlamaForCausalLM.forward` is the single-device branch of the JAX
-``_llama_forward``: embedding gather, the layer loop in the ``bshd``
-layout (attention through the flash kernels and their backward), full
-per-layer recompute (``torch.utils.checkpoint`` in place of
-``jax.checkpoint``), the final norm, then logits or the shifted
-cross-entropy (unfused, or in ``loss_chunk`` chunks under checkpoint).
+``_llama_forward``: embedding gather, the layer loop in the ``bshd`` or
+the head-major ``bhsd`` layout (attention through the flash kernels and
+their backward; under ``bhsd`` with ``fuse_rope`` the kernels rotate Q and
+K themselves), per-layer recompute (``torch.utils.checkpoint`` in place
+of ``jax.checkpoint``: the whole layer, or under
+``recompute_policy="dots"`` everything but the seven projections), the
+final norm, then logits or the shifted cross-entropy (unfused, or in
+``loss_chunk`` chunks under checkpoint).
 Gradients come from PyTorch's autograd; the parameters are trainable,
 and the serving programs run under ``torch.inference_mode`` so they
 record no graph.
@@ -24,14 +27,19 @@ exists) or from the JAX model through :func:`load_decode_params`.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+# _rotate_half: the serving programs rotate at offset positions with it
+from ..kernels.flash import _rotate_half  # noqa: F401
+from ..kernels.flash import flash_attention_bhsd, rope_rotate
 from ..kernels.flash_attention import attention
 
 
@@ -48,8 +56,9 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     # training fields of the JAX config, same names and defaults; the
-    # forward raises NotImplementedError on every value off the ported
-    # single-device path (see _check_training_config)
+    # forward raises NotImplementedError on the mesh knobs (pipeline,
+    # context parallelism: the port has no mesh) and serves the rest as
+    # the reference does on one device (see _check_training_config)
     use_recompute: bool = True
     recompute_policy: str = "full"
     sequence_parallel: bool = False
@@ -63,6 +72,10 @@ class LlamaConfig:
     # FLAGS_use_cuda_kernels=False does; ContinuousBatchingEngine reads it
     decode_attention: str = "pallas"
     fuse_rope: bool = False
+    # the reference's Pallas tile sizes (0: its default); validated as
+    # non-negative ints and otherwise unused: the port's flash tiles are
+    # fixed at 64 rows by 64 keys by its wgmma/mma.sync design, and their
+    # tuning is ROADMAP Queue B item 6
     flash_block_q: int = 0
     flash_block_k: int = 0
     dtype: str = "float32"
@@ -104,16 +117,14 @@ def _rope_tables(seq_len, head_dim, theta, device="cpu"):
     return torch.sin(emb), torch.cos(emb)
 
 
-def _rotate_half(x):
-    d = x.shape[-1]
-    return torch.cat([-x[..., d // 2:], x[..., : d // 2]], dim=-1)
+#: the neox rotation of [B, S, H, D] (the JAX ``_apply_rope``): the
+#: flash kernels' plain version rotates the same way
+_apply_rope = rope_rotate
 
 
-def _apply_rope(x, sin, cos):
-    # x: [B, S, H, D] neox-style; the product runs in the promoted type
-    # and casts back to x.dtype, as the JAX helper does
-    return (x * cos[None, :, None, :]
-            + _rotate_half(x) * sin[None, :, None, :]).to(x.dtype)
+def _apply_rope_bhsd(x, sin, cos):
+    # x: [B, H, S, D]
+    return rope_rotate(x.transpose(1, 2), sin, cos).transpose(1, 2)
 
 
 def _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd):
@@ -122,6 +133,27 @@ def _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd):
     k = (hn @ lwk).reshape(B, S, nkv, hd)
     v = (hn @ lwv).reshape(B, S, nkv, hd)
     return q, k, v
+
+
+def _qkv_bhsd(hn, lwq, lwk, lwv, nh, nkv, hd):
+    """The head-major projections ``[B, nh, S, hd]`` (JAX ``"bsh,hnd->
+    bnsd"``): each a view of its product, so no transpose pass touches
+    memory; the flash kernels read them through their strides."""
+    B, S = hn.shape[0], hn.shape[1]
+    return tuple((hn @ w).view(B, S, n, hd).transpose(1, 2)
+                 for w, n in ((lwq, nh), (lwk, nkv), (lwv, nkv)))
+
+
+def _attention_bhsd(q, k, v, rope=None):
+    """``[B, H, S, D]`` causal attention (JAX ``_attention_bhsd``,
+    ``paddle_tpu/models/llama.py:167``): the flash kernels on CUDA
+    tensors at every S (the reference's ``S % 128`` gate is a TPU tiling
+    rule; the kernels mask any tail), their plain versions on the CPU.
+    ``rope=(sin, cos)``: q/k arrive un-rotated and rotate inside the
+    kernels (the plain versions rotate first, as the reference's
+    fallback does). K/V keep their KV heads (no repeat). The config's
+    block sizes select no tile here."""
+    return flash_attention_bhsd(q, k, v, causal=True, rope=rope)
 
 
 def _swiglu_raw(hn, lg, lu, ld):
@@ -139,42 +171,69 @@ def _rms(x, w, eps):
 STACK_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "input_ln", "post_ln")
 
-#: config value -> (its ported value, the ROADMAP item that ports the rest)
-_TRAINING_KNOBS = {
-    "recompute_policy": ("full", "Queue B item 7"),
-    "attention_layout": ("bshd", "Queue B item 7"),
-    "fuse_rope": (False, "Queue B item 7"),
-    "flash_block_q": (0, "Queue B item 6"),
-    "flash_block_k": (0, "Queue B item 6"),
-    "pipeline_microbatches": (0, "Queue A step 13"),
-    "pipeline_virtual_stages": (1, "Queue A step 13"),
-    "context_parallel": ("", "Queue A step 13"),
-    "sequence_parallel": (False, "Queue A step 13"),
-}
+#: config value -> its only value in the port, which has no mesh (the
+#: reference ignores the others without a ``pp``/``sep`` axis, but a
+#: config that sets them asks for one)
+_MESH_KNOBS = {"pipeline_microbatches": 0, "pipeline_virtual_stages": 1,
+               "context_parallel": ""}
 
 
 def _check_training_config(c):
-    for name, (ported, item) in _TRAINING_KNOBS.items():
+    """Raise on what the port cannot serve: the mesh knobs (ROADMAP Queue
+    A step 13) and block sizes the reference would not take. Every other
+    training value is served as the reference serves it on one device:
+    ``sequence_parallel`` is read nowhere, ``fuse_rope`` only under
+    ``attention_layout="bhsd"``, ``recompute_policy`` only under
+    ``use_recompute``, ``flash_block_q/k`` select no tile."""
+    for name, ported in _MESH_KNOBS.items():
         value = getattr(c, name)
         if value != ported:
             raise NotImplementedError(
                 f"LlamaConfig.{name}={value!r} is not ported (only "
-                f"{ported!r}); see ROADMAP.md {item}")
+                f"{ported!r}); see ROADMAP.md Queue A step 13")
+    for name in ("flash_block_q", "flash_block_k"):
+        value = getattr(c, name)
+        if isinstance(value, bool) or int(value) != value or value < 0:
+            raise ValueError(f"LlamaConfig.{name} must be a non-negative "
+                             f"int, got {value!r}")
 
 
 def _layer_body(h, lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost, sin, cos,
-                nh, nkv, hd, eps):
-    """One decoder layer of the JAX ``layer_body`` (bshd branch): RMSNorm,
-    QKV, RoPE, causal attention through the flash kernels, o-projection,
-    residual, RMSNorm, SwiGLU, residual."""
+                nh, nkv, hd, eps, head_major=False, fuse_rope=False):
+    """One decoder layer of the JAX ``layer_body``: RMSNorm, QKV, RoPE,
+    causal attention through the flash kernels, o-projection, residual,
+    RMSNorm, SwiGLU, residual. ``head_major`` is the ``bhsd`` branch
+    (projections to ``[B, nh, S, hd]``, the o-projection from it); with
+    ``fuse_rope`` there the kernels rotate Q and K (``defer_rope``)."""
     B, S = h.shape[0], h.shape[1]
     hn = _rms(h, lin, eps)
-    q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
-    q = _apply_rope(q, sin, cos)
-    k = _apply_rope(k, sin, cos)
-    attn = attention(q, k, v, causal=True)
+    if head_major:
+        q, k, v = _qkv_bhsd(hn, lwq, lwk, lwv, nh, nkv, hd)
+        if not fuse_rope:
+            q = _apply_rope_bhsd(q, sin, cos)
+            k = _apply_rope_bhsd(k, sin, cos)
+        attn = _attention_bhsd(q, k, v,
+                               rope=(sin, cos) if fuse_rope else None)
+        attn = attn.transpose(1, 2)
+    else:
+        q, k, v = _qkv_bshd(hn, lwq, lwk, lwv, nh, nkv, hd)
+        q = _apply_rope(q, sin, cos)
+        k = _apply_rope(k, sin, cos)
+        attn = attention(q, k, v, causal=True)
     h = h + attn.reshape(B, S, nh * hd) @ lwo
     return h + _swiglu_raw(_rms(h, lpost, eps), lg, lu, ld)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``recompute_policy="dots"`` (JAX ``dots_with_no_batch_dims_
+    saveable``): save the products without batch dimensions — in a layer
+    the seven projections q, k, v, o, gate, up and down, each one
+    ``aten.mm`` — and recompute the rest (norms, rotation, SiLU,
+    attention: the plain attention's products are batched, and the
+    kernels launch outside the dispatcher, as the reference's
+    ``pallas_call`` is no dot)."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _ce_chunk(xc, t, head):
@@ -286,10 +345,19 @@ class LlamaForCausalLM(nn.Module):
         # one unbind per weight: each layer's slice is a view whose
         # gradient lands in the stacked parameter's .grad in one stack
         layers = zip(*(torch.unbind(getattr(self, k)) for k in STACK_KEYS))
+        body = functools.partial(
+            _layer_body, head_major=c.attention_layout == "bhsd",
+            fuse_rope=bool(c.fuse_rope))
+        # the reference reads recompute_policy only under use_recompute;
+        # any policy but "dots" recomputes the whole layer
+        ckpt = {}
+        if c.recompute_policy == "dots":
+            ckpt["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)
         for lp in layers:
             args = (x, *lp, sin, cos, nh, nkv, hd, eps)
-            x = (checkpoint(_layer_body, *args, use_reentrant=False)
-                 if c.use_recompute else _layer_body(*args))
+            x = (checkpoint(body, *args, use_reentrant=False, **ckpt)
+                 if c.use_recompute else body(*args))
         x = _rms(x, self.final_norm, eps)
         head = self.embed_tokens.T if self.lm_head is None else self.lm_head
         if labels is None:

@@ -211,7 +211,9 @@ class TestWrappers:
         assert LAUNCHES == {"flash": 0, "paged_decode": 0,
                             "ragged_attention": 0, "flash_bwd_dkv": 0,
                             "flash_bwd_dq": 0, "decode": 0,
-                            "fused_decode_tick": 0}
+                            "fused_decode_tick": 0, "flash[rope]": 0,
+                            "flash_bwd_dkv[rope]": 0,
+                            "flash_bwd_dq[rope]": 0}
 
     @pytest.mark.parametrize("which", ["paged", "ragged", "flash"])
     def test_other_devices_raise(self, which):
@@ -237,15 +239,20 @@ class TestWrappers:
     def test_library_named_by_source_hash(self, tmp_path, monkeypatch):
         monkeypatch.setenv("PADDLE_TPU_TORCH_BUILD_DIR", str(tmp_path))
         paths = {n: _build.library_path(n) for n in _build.LIBRARIES}
-        # seven kernels in eleven libraries: the fused tick's source builds
-        # once a (pool mode, weights) variant
-        assert len(set(paths.values())) == 11
+        # seven kernels in twelve libraries: the fused tick's source builds
+        # once a (pool mode, weights) variant, the backward source once an
+        # entry
+        assert len(set(paths.values())) == 12
         for n, p in paths.items():
             assert p.parent == tmp_path and p.name.startswith(n + "-")
             assert p == _build.library_path(n)          # deterministic
-        # both backward kernels live in one source, so one library
+        # both backward kernels live in one source, one library each
         assert _build.library_path("flash_bwd_dkv") == \
-            _build.library_path("flash_bwd_dq") == paths["flash_bwd"]
+            paths["flash_bwd_dkv"] != paths["flash_bwd_dq"]
+        assert {_build.LIBRARIES[n] for n in ("flash_bwd_dkv",
+                                              "flash_bwd_dq")} == {
+            ("flash_bwd", ("-DFLASH_BWD_ENTRY=1",)),
+            ("flash_bwd", ("-DFLASH_BWD_ENTRY=2",))}
         fused = [n for n in _build.LIBRARIES if n.startswith("fused")]
         assert len(fused) == 6 and {
             _build.LIBRARIES[n][0] for n in fused} == {"fused_decode_tick"}

@@ -612,6 +612,83 @@ class TestTensorCoreFlash:
             assert _within_scaled(g, w, *BWD_TOL["float32"])
 
 
+# The fused-RoPE mode of the three flash kernels (rope=(sin, cos): Q and K
+# un-rotated in, rotated as each tile lands, the adjoint on dQ and dK), in
+# the head-major layout the model's bhsd branch hands them.
+ROPE_SWEEP = [(S, D, G) for S in (63, 65, 300) for D in (64, 128)
+              for G in (1, 4)]
+
+
+class TestRopeFlash:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("S,D,G", ROPE_SWEEP)
+    def test_rope_kernels_vs_plain(self, cuda_dev, S, D, G, dtype):
+        """The forward (O within TOL, LSE within TOL["float32"]), dK/dV
+        and dQ (BWD_TOL) against the plain versions, which rotate first and
+        apply the adjoint to the float32 dK and dQ; counted as
+        ``name[rope]``; bf16 the same bits on a second launch."""
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        r = np.random.RandomState(S + D + G)
+        q, k, v, do = (torch.from_numpy(r.randn(2, h, S, D).astype(
+            np.float32)).to(cuda_dev, dtype).transpose(1, 2)
+            for h in (8, 8 // G, 8 // G, 8))
+        rope = _rope_tables(S, D, 10000.0, device=cuda_dev)
+        reset_launches()
+        o, lse = tflash.flash_attention_fwd(q, k, v, True, rope)
+        ro, rl = tflash.flash_attention_reference(q, k, v, True, rope)
+        assert _within(o, ro, *TOL[name])
+        assert _within(lse, rl, *TOL["float32"])
+        delta = tflash.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, True, rope)
+        got = tflash.flash_bwd_dkv(*args) + (tflash.flash_bwd_dq(*args),)
+        want = tflash.flash_bwd_dkv_reference(*args) + (
+            tflash.flash_bwd_dq_reference(*args),)
+        assert (LAUNCHES["flash[rope]"], LAUNCHES["flash_bwd_dkv[rope]"],
+                LAUNCHES["flash_bwd_dq[rope]"], LAUNCHES["flash"]) == \
+            (1, 1, 1, 0)
+        for g, w in zip(got, want):
+            assert _within_scaled(g, w, *BWD_TOL[name])
+        if dtype == torch.bfloat16:
+            again = tflash.flash_bwd_dkv(*args) + (
+                tflash.flash_bwd_dq(*args),)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            assert torch.equal(o, tflash.flash_attention_fwd(q, k, v, True,
+                                                             rope)[0])
+
+    @pytest.mark.parametrize("fuse", [False, True], ids=["bhsd", "rope"])
+    def test_bhsd_model_gradients_kernels_vs_plain(self, cuda_dev, fuse):
+        """A 2-layer model (4 heads of 64, 2 KV heads) in the head-major
+        layout, fp32: loss to 1e-5, every gradient to 1e-4 of its largest
+        entry, kernels against ``FLAGS_use_cuda_kernels`` off."""
+        cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
+                         num_hidden_layers=2, attention_layout="bhsd",
+                         fuse_rope=fuse)
+        model = LlamaForCausalLM(cfg, device=cuda_dev, seed=3)
+        ids = torch.from_numpy(np.random.RandomState(1).randint(
+            0, 256, (2, 77))).to(cuda_dev)
+        out = {}
+        try:
+            for use in (True, False):
+                set_flags({"FLAGS_use_cuda_kernels": use})
+                model.zero_grad(set_to_none=True)
+                reset_launches()
+                loss = model(ids, ids)
+                loss.backward()
+                out[use] = (float(loss), {n: p.grad.clone() for n, p in
+                                          model.named_parameters()},
+                            dict(LAUNCHES))
+        finally:
+            set_flags({"FLAGS_use_cuda_kernels": True})
+        assert abs(out[True][0] - out[False][0]) <= 1e-5 * abs(out[False][0])
+        for n, g in out[False][1].items():
+            assert _rel_err(out[True][1][n], g) <= 1e-4, n
+        sfx = "[rope]" if fuse else ""
+        assert out[True][2]["flash" + sfx] == 4
+        assert out[True][2]["flash_bwd_dq" + sfx] == 2
+        assert sum(out[False][2].values()) == 0
+
+
 def _front_door_model():
     cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
                      num_key_value_heads=2)

@@ -265,20 +265,61 @@ class TestModel:
         assert abs(got - want) <= LOSS_RTOL * abs(want)
 
     @pytest.mark.parametrize("knob,value,item", [
-        ("recompute_policy", "dots", "Queue B item 7"),
-        ("attention_layout", "bhsd", "Queue B item 7"),
-        ("fuse_rope", True, "Queue B item 7"),
-        ("flash_block_q", 128, "Queue B item 6"),
-        ("flash_block_k", 128, "Queue B item 6"),
         ("pipeline_microbatches", 2, "Queue A step 13"),
         ("context_parallel", "ring", "Queue A step 13"),
-        ("sequence_parallel", True, "Queue A step 13"),
     ])
     def test_unported_knobs_raise(self, knob, value, item):
+        """The mesh knobs: the port has no mesh until ROADMAP Queue A
+        step 13."""
         tm = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, **{knob: value}),
                               device="cpu")
         with pytest.raises(NotImplementedError, match=item):
             tm(_t(_ids(1, 8, seed=0)))
+
+    @pytest.mark.parametrize("knob,value,ignored", [
+        ("recompute_policy", "dots", False),
+        ("attention_layout", "bhsd", False),
+        ("fuse_rope", True, True),
+        ("flash_block_q", 128, True),
+        ("flash_block_k", 128, True),
+        ("sequence_parallel", True, True),
+    ])
+    def test_served_knobs(self, knob, value, ignored):
+        """Every single-device training value is served. Where the
+        reference ignores it (``fuse_rope`` under ``bshd``, the Pallas
+        block sizes off the TPU, ``sequence_parallel``) the loss and every
+        gradient equal the default config's bit for bit; ``dots`` saves
+        what ``full`` recomputes, so it gives the same bits too; ``bhsd``
+        within ``LOSS_RTOL``/``GRAD_TOL`` of the default. Each equals the
+        JAX model's for the same config within those bounds."""
+        jm, tm = _pair(**{knob: value})
+        _, base = _pair()
+        ids = _ids(2, 24, seed=4)
+        jloss = jm(paddle.to_tensor(ids), paddle.to_tensor(ids))
+        jloss.backward()
+        got, want = (m(_t(ids), _t(ids)) for m in (tm, base))
+        got.backward()
+        want.backward()
+        if ignored or knob == "recompute_policy":
+            assert torch.equal(got, want)
+        assert abs(float(got.detach()) - float(want.detach())) <= \
+            LOSS_RTOL * abs(float(want.detach()))
+        assert abs(float(got.detach()) - float(jloss)) <= \
+            LOSS_RTOL * abs(float(jloss))
+        for name in PARAMS:
+            g, g0 = getattr(tm, name).grad, getattr(base, name).grad
+            if ignored or knob == "recompute_policy":
+                assert torch.equal(g, g0), name
+            assert _rel_err(g, g0) <= GRAD_TOL, name
+            assert _rel_err(g, getattr(jm, name).grad) <= GRAD_TOL, name
+
+    def test_block_sizes_must_be_non_negative_ints(self):
+        for value in (-1, 1.5):
+            tm = LlamaForCausalLM(llama_tiny(num_hidden_layers=1,
+                                             flash_block_q=value),
+                                  device="cpu")
+            with pytest.raises(ValueError, match="non-negative int"):
+                tm(_t(_ids(1, 8, seed=0)))
 
     def test_pretrain_criterion(self):
         """Against ``paddle_tpu.nn.functional.cross_entropy`` through the

@@ -4,8 +4,9 @@
 Phases, each printing one JSON line; any failure exits nonzero:
 
 1. device  — the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build   — compile the CUDA sources of ``paddle_tpu_torch/csrc`` (seven
-             kernels in twelve libraries, one ``nvcc`` each, in parallel).
+2. build   — compile the CUDA sources of ``paddle_tpu_torch/csrc`` (eight
+             kernels in thirteen libraries, one ``nvcc`` each, in
+             parallel).
 3. kernels — each kernel against its plain PyTorch version, bf16 and fp32:
              the three serving kernels of the default engine and the
              dense-cache decode kernel (B=8, S_max=4096, lengths 1 to
@@ -45,15 +46,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
              the layer-0 attention bit for bit quantized paged decode's.
              First, the flash kernels' fused-RoPE mode (``flash[rope]``,
              ``flash_bwd_dkv[rope]``, ``flash_bwd_dq[rope]``: un-rotated
-             Q and K, the rotation as tiles land, the adjoint on dQ/dK)
-             in bf16 and fp32 at B=4, S=2048, 32 heads of 128 in the
-             head-major layout, plus S=300 with 8 KV heads, and the
+             Q and K; the forward rotates its tiles as they land, the
+             backward rotates Q and K once by the ``rope_qk`` pre-pass,
+             equal to the plain rotation bit for bit; the adjoint on
+             dQ/dK) in bf16 and fp32 at B=4, S=2048, 32 heads of 128 in
+             the head-major layout, plus S=300 with 8 KV heads, and the
              head-major layout without RoPE, each against its plain
-             version (bf16 the same bits twice); times of the kernel,
-             the same kernel on inputs rotated beforehand, the unfused
-             pair (torch rotation, then the kernel; a backward kernel
-             then the torch adjoint) and the library pair (torch
-             rotation, then SDPA).
+             version (bf16 the same bits twice; the one-pre-pass
+             backward the same bits as the two standalone entries);
+             times of the kernel (a backward row: its body on the
+             rotated pair), the same kernel on inputs rotated
+             beforehand, the unfused pair (torch rotation, then the
+             kernel; a backward kernel then the torch adjoint), the
+             library pair (torch rotation, then SDPA), the pre-pass
+             apart and the backward pair's total (pre-pass + dK/dV +
+             dQ) beside the library pair.
 4. engine  — llama_7b widths at 2 layers in fp32, for each of the
              engine's three decode programs (default, ``fused_tick=True``,
              ``paged_attn=False``), through the kernels against the plain
@@ -236,6 +243,10 @@ def route(name, dtype_name):
             else "cuda-core")
 
 
+#: the backward's RoPE pre-pass: it takes the place of the _rope_block
+#: prologues of the two backward kernels (rows flash_bwd_*[rope])
+PRE_PASS = "rope_qk"
+REPLACES[PRE_PASS] = "paddle_tpu/kernels/pallas_flash.py:211"
 SOURCES = {name: f"paddle_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["flash_bwd_dkv"] = SOURCES["flash_bwd_dq"] = \
     "paddle_tpu_torch/csrc/flash_bwd.cu"
@@ -247,7 +258,9 @@ ROPE = {f"{n}[rope]": n for n in ("flash",) + BWD}
 for _rope, _base in ROPE.items():
     REPLACES[_rope] = REPLACES[_base]
     SOURCES[_rope] = SOURCES[_base]
-    TENSOR_CORE[_rope] = TENSOR_CORE[_base] + ", RoPE on the landed tiles"
+    TENSOR_CORE[_rope] = TENSOR_CORE[_base] + (
+        ", RoPE on the landed tiles" if _base == "flash"
+        else ", Q and K rotated by the pre-pass")
 
 
 def emit(obj):
@@ -622,6 +635,12 @@ def _rope_bwd_errs(dtype_name, q, k, v, do, o, lse, rope, tag):
     torch.cuda.synchronize()
     errs = [_compare_scaled(f"{tag} {n}", dtype_name, g, w)
             for n, g, w in zip(("dk", "dv", "dq"), got, want)]
+    # flash_attention_bwd runs one pre-pass for both kernels: the same
+    # kernels on the same rotated bits as the two standalone entries
+    dq, dk, dv = flash.flash_attention_bwd(q, k, v, o, lse, do, True, rope)
+    if not all(torch.equal(a, b) for a, b in zip(got, (dk, dv, dq))):
+        raise RuntimeError(f"{tag} {dtype_name}: flash_attention_bwd differs "
+                           f"from the standalone entries")
     if dtype_name == "bfloat16":
         again = flash.flash_bwd_dkv(q, k, v, do, lse, delta, True, rope) + (
             flash.flash_bwd_dq(q, k, v, do, lse, delta, True, rope),)
@@ -638,12 +657,17 @@ def rope_cases(dtype_name, dev, gen):
     against its plain version (``TOL`` for the forward, ``BWD_TOL`` for
     dK/dV and dQ; bf16 the same bits twice); then a tail with GQA (S=300,
     8 KV heads) in the same mode, and the head-major layout without RoPE
-    at the training shape. Times: the rope kernel; the same kernel
-    without RoPE on inputs rotated beforehand; the unfused pair (a torch
-    rotation, then that kernel); and the library pair (a torch rotation,
-    then SDPA causal: forward for the forward's row, forward+backward
-    less forward for the backward rows, the rotation's own backward
-    included). Returns ``{name: row}``."""
+    at the training shape. Times: the rope kernel (a backward row: its
+    body on the pair the pre-pass rotated, ``entry_ms`` the standalone
+    entry with its own pre-pass); the same kernel without RoPE on inputs
+    rotated beforehand; the unfused pair (a torch rotation, then that
+    kernel); and the library pair (a torch rotation, then SDPA causal:
+    forward for the forward's row, forward+backward less forward for the
+    backward rows, the rotation's own backward included). The pre-pass
+    ``rope_qk`` gets a row of its own: bit for bit the plain rotation,
+    in the inputs' strides, its time and byte bound, and the backward
+    pair's total (pre-pass + dK/dV + dQ) beside the library pair.
+    Returns ``{name: row}``."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash
@@ -683,31 +707,49 @@ def rope_cases(dtype_name, dev, gen):
     def dq(r, a, b):
         return flash.flash_bwd_dq(a, b, v, do, lse, delta, True, r)
 
-    # name: (kernel, its unfused counterpart — the forward rotates first,
-    # a backward reads the rotated inputs the forward saved and applies
-    # the adjoint to its dK or dQ after —, plain version, products a
-    # causal pair, bytes without the tables, library pair)
+    # the backward bodies on the pair one pre-pass rotated (the tables
+    # select the adjoint on dK and dQ)
+    ops = flash._bwd_operands("rope bwd", q, k, v, do, lse, delta, rope)
+    dkv_body = lambda: flash._launch_dkv(*ops, lse, delta, True)  # noqa
+    dq_body = lambda: flash._launch_dq(*ops, lse, delta, True)  # noqa
+
+    def pair():       # pre-pass + dK/dV + dQ, delta given
+        both = flash._bwd_operands("rope bwd", q, k, v, do, lse, delta,
+                                   rope)
+        return (flash._launch_dkv(*both, lse, delta, True),
+                flash._launch_dq(*both, lse, delta, True))
+
+    # name: (kernel, the standalone entry or None, its unfused
+    # counterpart — the forward rotates first, a backward reads the
+    # rotated inputs the forward saved and applies the adjoint to its dK
+    # or dQ after —, plain version, products a causal pair, bytes without
+    # the tables, library pair)
     plan = {
         "flash[rope]": (
-            fwd, lambda: fwd(None, *flash._rotated(q, k, rope)),
+            lambda: fwd(rope, q, k), None,
+            lambda: fwd(None, *flash._rotated(q, k, rope)),
             lambda: flash.flash_attention_reference(q, k, v, True, rope),
             2, (2 * q.numel() + 2 * k.numel()) * isz + 4 * B * H * S,
             lib_f, "torch rotation + SDPA causal forward"),
         "flash_bwd_dkv[rope]": (
-            dkv, lambda: adj(dkv(None, qr, kr)[0]),
+            dkv_body, lambda: dkv(rope, q, k),
+            lambda: adj(dkv(None, qr, kr)[0]),
             lambda: flash.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                   True, rope),
             4, (2 * q.numel() + 4 * k.numel()) * isz + 8 * B * H * S,
             lib_b, "torch rotation + SDPA fwd+bwd minus the same forward"),
         "flash_bwd_dq[rope]": (
-            dq, lambda: adj(dq(None, qr, kr)),
+            dq_body, lambda: dq(rope, q, k),
+            lambda: adj(dq(None, qr, kr)),
             lambda: flash.flash_bwd_dq_reference(q, k, v, do, lse, delta,
                                                  True, rope),
             3, (3 * q.numel() + 2 * k.numel()) * isz + 8 * B * H * S,
             lib_b, "torch rotation + SDPA fwd+bwd minus the same forward"),
     }
+    prerotated = {"flash[rope]": fwd, "flash_bwd_dkv[rope]": dkv,
+                  "flash_bwd_dq[rope]": dq}
     rows = {}
-    for name, (run, unfused, plain, products, nbytes, lib,
+    for name, (run, entry, unfused, plain, products, nbytes, lib,
                lib_what) in plan.items():
         nbytes += tables
         flops = products * 2 * pairs * D
@@ -724,8 +766,10 @@ def rope_cases(dtype_name, dev, gen):
                        {"atol_x_max_ref": BWD_TOL[dtype_name][0],
                         "rtol": BWD_TOL[dtype_name][1]}),
                "bitwise_repeatable": dtype_name == "bfloat16",
-               "ms": time_ms(lambda: run(rope, q, k), iters=5),
-               "ms_prerotated": time_ms(lambda: run(None, qr, kr), iters=5),
+               "ms": time_ms(run, iters=5),
+               "entry_ms": entry and time_ms(entry, iters=5),
+               "ms_prerotated": time_ms(
+                   lambda: prerotated[name](None, qr, kr), iters=5),
                "unfused_ms": time_ms(unfused, iters=5),
                "plain_ms": time_ms(plain, iters=2),
                "library_ms": lib, "library": lib_what,
@@ -739,6 +783,9 @@ def rope_cases(dtype_name, dev, gen):
         row["x_prerotated"] = row["ms"] / row["ms_prerotated"]
         rows[name] = row
         torch.cuda.empty_cache()
+    del ops
+    rows[PRE_PASS] = _pre_pass_row(dtype_name, q, k, rope, qr, kr, pair,
+                                   rows, lib_b)
     del qt, kt, vt, dot, qr, kr
     # the head-major layout without RoPE, at the training shape
     row = rows["flash[rope]"]
@@ -759,6 +806,52 @@ def rope_cases(dtype_name, dev, gen):
     row["tail_gqa_err"] = {"fwd": ferr, "bwd": _rope_bwd_errs(
         dtype_name, q, k, v, do, o, lse, rope, "flash bwd[rope] S=300")}
     return rows
+
+
+def _pre_pass_row(dtype_name, q, k, rope, qr, kr, pair, rows, lib_pair):
+    """The ``rope_qk`` row: one launch against the plain rotation
+    (``qr``, ``kr``), bit for bit and in the inputs' strides; its time,
+    the plain version's, its bound (Q and K read and written once, the
+    tables read once; three float32 operations an element); then the
+    backward pair's total, pre-pass + dK/dV + dQ, timed as one sequence
+    and as the sum of its rows, beside the library pair."""
+    import torch
+    from paddle_tpu_torch.kernels import flash
+    sin, cos = rope
+    gq, gk = flash.rope_qk(q, k, sin, cos)
+    torch.cuda.synchronize()
+    err = max((gq.float() - qr.float()).abs().max().item(),
+              (gk.float() - kr.float()).abs().max().item())
+    if not (torch.equal(gq, qr) and torch.equal(gk, kr)
+            and gq.stride() == q.stride() and gk.stride() == k.stride()):
+        raise RuntimeError(f"rope_qk {dtype_name}: not rope_rotate's bits "
+                           f"in the inputs' strides (max abs err {err})")
+    del gq, gk
+    isz = q.element_size()
+    elems = q.numel() + k.numel()
+    nbytes = 2 * elems * isz + 2 * sin.numel() * 4
+    flops = 3 * elems
+    row = {"name": PRE_PASS, "dtype": dtype_name, "layout": "bhsd",
+           "shape": {"B": q.shape[0], "S": q.shape[1], "H": q.shape[2],
+                     "Hk": k.shape[2], "D": q.shape[3]},
+           "max_abs_err": err, "tol": "bit for bit rope_rotate",
+           "bitwise_equal_plain": True,
+           "ms": time_ms(lambda: flash.rope_qk(q, k, sin, cos), iters=10),
+           "plain_ms": time_ms(lambda: flash._rotated(q, k, rope), iters=5),
+           "library_ms": None,
+           "library": "none: no one PyTorch call rotates Q and K",
+           "bytes": nbytes, "flops": flops,
+           "bound_ms": bound_ms(nbytes, flops, "float32"),
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / PEAK_FLOPS["float32"] else "operations"),
+           "route": "cuda-core"}
+    row["pair_ms"] = time_ms(pair, iters=5)
+    row["pair_sum_ms"] = (row["ms"] + rows["flash_bwd_dkv[rope]"]["ms"]
+                          + rows["flash_bwd_dq[rope]"]["ms"])
+    row["library_pair_ms"] = lib_pair
+    row["pair_x_library"] = row["pair_ms"] / lib_pair
+    torch.cuda.empty_cache()
+    return row
 
 
 def kernel_case(name, dtype_name, dev, gen):
@@ -1696,7 +1789,7 @@ def phase_kernels():
             rows[(name, dtype_name)] = row
         torch.cuda.empty_cache()
         for name in REPLACES:
-            if name in ROPE:
+            if name in ROPE or name == PRE_PASS:
                 continue
             case = (bwd_case if name in BWD else
                     fused_case if name == "fused_decode_tick" else
@@ -3407,13 +3500,16 @@ def _flash_launches(layers, micro, knobs):
     implies: a forward and its recompute (``full`` and ``dots`` alike:
     the kernels launch outside the dispatcher, so ``dots`` recomputes
     attention too), one dK/dV and one dQ a layer, counted as ``name[rope]``
-    under ``bhsd`` with ``fuse_rope``."""
-    sfx = ("[rope]" if knobs.get("attention_layout") == "bhsd"
-           and knobs.get("fuse_rope") else "")
+    under ``bhsd`` with ``fuse_rope``, which adds one ``rope_qk`` pre-pass
+    a layer's backward."""
+    rope = (knobs.get("attention_layout") == "bhsd"
+            and bool(knobs.get("fuse_rope")))
+    sfx = "[rope]" if rope else ""
     fwd = 2 if knobs.get("use_recompute", True) else 1
     return {"flash" + sfx: fwd * layers * micro,
             "flash_bwd_dkv" + sfx: layers * micro,
-            "flash_bwd_dq" + sfx: layers * micro}
+            "flash_bwd_dq" + sfx: layers * micro,
+            **({PRE_PASS: layers * micro} if rope else {})}
 
 
 def phase_train_parity():
@@ -3657,15 +3753,15 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
     B=4, S=2048, in bshd, bhsd and bhsd with fused RoPE (each its main
     path, counted from 0); ``dots`` at the deepest depth that fits; then
     bench.py's two head-major configs at its 350M shape. Returns the
-    launches of each kernel's own run (the rope kernels' from the fused
-    RoPE run)."""
+    launches of each kernel's own run (the rope kernels' and the
+    pre-pass's from the fused RoPE run)."""
     launches = {}
     for label, knobs in TRAIN_RUNS:
         got = _train_run(label, layers, knobs, profile and label == "bshd")
         if label == "bshd":
             launches.update({n: got[n] for n in ("flash",) + BWD})
         if knobs.get("fuse_rope"):
-            launches.update({n: got[n] for n in ROPE})
+            launches.update({n: got[n] for n in (*ROPE, PRE_PASS)})
     _train_dots()
     _train_bench()
     return launches
@@ -3730,7 +3826,8 @@ def main(argv=None):
     kernels = []
     for name in REPLACES:
         row = rows.get((name, "bfloat16"), {})
-        path = train if name in BWD or name in ROPE else launches
+        path = (train if name in BWD or name in ROPE or name == PRE_PASS
+                else launches)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": path.get(name, 0),

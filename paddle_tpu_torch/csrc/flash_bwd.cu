@@ -70,17 +70,15 @@
 // so [B, S, H, D] and head-major [B, H, S, D] memory share the bodies.
 //
 // Fused RoPE (the rope= mode, pallas_flash.py:211-213, :276-278, and the
-// adjoints at :243-244, :305-306): with [S, D] float32 tables, Q and K
-// arrive un-rotated. Each tile is rotated where it lands (rounded to the
-// input type, as _rope_block rounds): the resident tile once a block (K in
-// dK/dV, Q in dQ), each walked tile every time (Q in dK/dV, K in dQ) — in
-// fp32 while it is staged, in bf16 as a pass over the swizzled shared
-// tile after its cp.async stage lands. The products then use the rotated
-// tiles, and the adjoint rotation is applied to the float32 dK and dQ
-// accumulators before their one rounding: columns d and d + D/2 of a row
-// sit in the same thread (fp32: columns tx + 16c and tx + 16(c + D/32);
-// bf16: 8-column tiles n and n + D/16 of the m16n8 accumulator), so the
-// adjoint needs no shared memory. Under GQA it is applied once, to the
+// adjoints at :243-244, :305-306): the rotation of Q and K (_rope_block's
+// prologues) is the pre-pass csrc/rope_qk.cu, run once a backward for both
+// kernels, so the bodies read Q and K already rotated (rounded to the
+// input type, as _rope_block rounds) and the same bodies serve both modes.
+// With [S, D] float32 tables (kRope) the adjoint rotation is applied to
+// the float32 dK and dQ accumulators before their one rounding: columns d
+// and d + D/2 of a row sit in the same thread (fp32: columns tx + 16c and
+// tx + 16(c + D/32); bf16: 8-column tiles n and n + D/16 of the m16n8
+// accumulator), so the adjoint needs no shared memory. Under GQA it is applied once, to the
 // group's float32 sum (the rotation is linear: the reference's
 // repeat-then-sum up to rounding). The tables get no gradient.
 #include <math.h>
@@ -108,39 +106,26 @@ struct Shape {
 };
 
 // Rows r0 .. r0+kTile of head h of batch b (element strides st) into dst
-// [kTile][DP] as floats; rows at or past S become zeros. kRot: rotate each
-// row (position r0 + i) by the tables as it is staged, each thread a pair
-// of chunks (d, d + D/2), rounded to T.
-template <typename T, int D, bool kRot = false>
+// [kTile][DP] as floats; rows at or past S become zeros.
+template <typename T, int D>
 __device__ __forceinline__ void load_rows(const T* __restrict__ src,
                                           float* dst, RowStrides st, int b,
-                                          int r0, int S, int h,
-                                          const float* sin = nullptr,
-                                          const float* cos = nullptr) {
+                                          int r0, int S, int h) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int DP = D + 1;
-  constexpr int W = kRot ? D / 2 : D;    // columns a thread's chunks start in
-  for (int e = threadIdx.x; e < kTile * W / VEC; e += kT) {
-    const int i = e / (W / VEC);
-    const int d = (e % (W / VEC)) * VEC;
+  for (int e = threadIdx.x; e < kTile * D / VEC; e += kT) {
+    const int i = e / (D / VEC);
+    const int d = (e % (D / VEC)) * VEC;
     const int r = r0 + i;
-    float buf[VEC], hi[VEC];
+    float buf[VEC];
     if (r < S) {
-      const T* row = src + st.at(b, r, h);
-      load16(row + d, buf);
-      if constexpr (kRot) {
-        load16(row + d + D / 2, hi);
-        rope_chunk<T, VEC, D>(buf, hi, sin, cos, r, d);
-      }
+      load16(src + st.at(b, r, h) + d, buf);
     } else {
 #pragma unroll
-      for (int x = 0; x < VEC; ++x) { buf[x] = 0.f; hi[x] = 0.f; }
+      for (int x = 0; x < VEC; ++x) buf[x] = 0.f;
     }
 #pragma unroll
-    for (int x = 0; x < VEC; ++x) {
-      dst[i * DP + d + x] = buf[x];
-      if constexpr (kRot) dst[i * DP + d + D / 2 + x] = hi[x];
-    }
+    for (int x = 0; x < VEC; ++x) dst[i * DP + d + x] = buf[x];
   }
 }
 
@@ -271,7 +256,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / Hk;
   const int kvh = blockIdx.y % Hk;
   const int G = H / Hk;
-  load_rows<T, D, kRope>(k, sK, ks, b, k0, S, kvh, sin, cos);
+  load_rows<T, D>(k, sK, ks, b, k0, S, kvh);
   load_rows<T, D>(v, sV, ks, b, k0, S, kvh);
 
   // this thread's patch of dK/dV: keys ty + 16a, columns tx + 16c
@@ -293,7 +278,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long bh = static_cast<long long>(b) * H + h;
     for (int q0 = q_first; q0 < S; q0 += kTile) {
       __syncthreads();  // the previous tile's reads are done
-      load_rows<T, D, kRope>(q, sQ, qs, b, q0, S, h, sin, cos);
+      load_rows<T, D>(q, sQ, qs, b, q0, S, h);
       load_rows<T, D>(dout, sdO, qs, b, q0, S, h);
       load_row_stats(lse, delta, s_lse, s_delta, bh, q0, S);
       __syncthreads();
@@ -363,7 +348,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int kvh = h / (H / Hk);
-  load_rows<T, D, kRope>(q, sQ, qs, b, q0, S, h, sin, cos);
+  load_rows<T, D>(q, sQ, qs, b, q0, S, h);
   load_rows<T, D>(dout, sdO, qs, b, q0, S, h);
   load_row_stats(lse, delta, s_lse, s_delta, blockIdx.y, q0, S);
 
@@ -380,7 +365,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_stop = causal ? min(q0 + kTile, S) : S;
   for (int k0 = 0; k0 < kv_stop; k0 += kTile) {
     __syncthreads();  // the previous tile's reads are done
-    load_rows<T, D, kRope>(k, sK, ks, b, k0, S, kvh, sin, cos);
+    load_rows<T, D>(k, sK, ks, b, k0, S, kvh);
     load_rows<T, D>(v, sV, ks, b, k0, S, kvh);
     __syncthreads();
     scores<T, D, false>(sQ, sdO, sK, sV, s_lse, s_delta, sP, sdS, q0, k0, S,
@@ -553,15 +538,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     const int q0 = (qt0 + it % per) * kBQ;
-    bf16* cQ = sQ + st * kBQ * D;
+    const bf16* cQ = sQ + st * kBQ * D;
     const bf16* cdO = sdO + st * kBQ * D;
     const float* c_lse = s_lse + st * kBQ;
     const float* c_delta = s_delta + st * kBQ;
-    if constexpr (kRope) {   // K (resident) once, each Q tile as it lands
-      if (it == 0) tc::rope_tile<kBK, D, kNT>(sK, sin, cos, k0, S - k0);
-      tc::rope_tile<kBQ, D, kNT>(cQ, sin, cos, q0, S - q0);
-      __syncthreads();
-    }
 
     // Two passes over 32 query columns each, so that P^T and dP^T (fp32)
     // take 32 registers a thread, not 64, beside the two accumulators.
@@ -755,13 +735,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     const int k0 = it * kBK;
-    bf16* cK = sK + st * kBK * D;
+    const bf16* cK = sK + st * kBK * D;
     const bf16* cV = sV + st * kBK * D;
-    if constexpr (kRope) {   // Q (resident) once, each K tile as it lands
-      if (it == 0) tc::rope_tile<kBQ, D, kNT>(sQ, sin, cos, q0, S - q0);
-      tc::rope_tile<kBK, D, kNT>(cK, sin, cos, k0, S - k0);
-      __syncthreads();
-    }
 
     // ---- S = Q K^T and dP = dO V^T: rows = this warp's 16 queries,
     // columns = the tile's 64 keys
@@ -903,7 +878,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 #if FLASH_BWD_ENTRY != 2
 // q/dout [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v/dk/dv
 // [B,S,Hk,D] through (k_sb, k_ss, k_sh), D contiguous; lse/delta [B,H,S]
-// float32; sin/cos [S,D] float32 (fused RoPE) or both null.
+// float32; sin/cos [S,D] float32 (fused RoPE: q and k already rotated by
+// pt_rope_qk, dK gets the adjoint) or both null.
 // is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
@@ -947,7 +923,8 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 #if FLASH_BWD_ENTRY != 1
 // q/dout/dq [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v [B,S,Hk,D]
 // through (k_sb, k_ss, k_sh), D contiguous; lse/delta [B,H,S] float32;
-// sin/cos [S,D] float32 (fused RoPE) or both null.
+// sin/cos [S,D] float32 (fused RoPE: q and k already rotated by
+// pt_rope_qk, dQ gets the adjoint) or both null.
 // is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,

@@ -1,0 +1,145 @@
+// RoPE pre-pass of the flash backward's rope= mode: one launch rotates
+// un-rotated Q [B, S, H, D] and K [B, S, Hk, D] into new tensors of the
+// same strides, neox rotation from the [S, D] float32 tables, each result
+// rounded to the input type.
+//
+//   rope_qk  replaces the _rope_block prologues of _dkv_kernel and
+//            _dq_kernel (paddle_tpu/kernels/pallas_flash.py:211-213 and
+//            :276-278; pallas_call at :335 and :365): the backward kernels
+//            (csrc/flash_bwd.cu) then read the rotated pair, so each Q and
+//            K row is rotated once a backward, not once per block that
+//            walks its tile.
+//
+// Bits: rope_pair (attention_common.cuh) rounds each product and the sum
+// on its own (__fmul_rn / __fadd_rn, never contracted into an FMA), then
+// the result rounds to the input type: the bits of the plain rope_rotate
+// (kernels/flash.py) and of the forward's tile pass (tc::rope_tile).
+//
+// Bound on this card: bytes. Q and K are read once and written once (at
+// B=4, S=2048, 32 heads of 128 in bf16: 4 x 64 MiB, ~0.08 ms at 3.35
+// TB/s); the tables add 2 MiB.
+//
+// Design: one block per run of kRun positions. Each thread owns one
+// position of the run and one pair of 16-byte chunks (columns d and
+// d + D/2) for the whole block, so it reads its table entries once, into
+// registers, and then walks every (batch, head) row of Q and then of K at
+// that position. The tables are read from memory about once a launch, not
+// once a head. A warp covers kRun consecutive positions of a head: one
+// contiguous run of rows in head-major [B, H, S, D] memory. No shared
+// memory, no barrier.
+//
+// Layouts: Q and its output through one set of element strides (batch,
+// sequence, head; D contiguous), K and its output through another, as the
+// flash kernels read them.
+#include "attention_common.cuh"
+
+namespace pt {
+namespace rope {
+
+constexpr int kNT = 256;   // threads a block
+constexpr int kRun = 4;    // positions a block
+
+// floats -> 16 bytes of T, rounded to nearest even (as from_f rounds)
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kNT)
+rope_qk_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               T* __restrict__ qr, T* __restrict__ kr,
+               const float* __restrict__ sin, const float* __restrict__ cos,
+               RowStrides qs, RowStrides ks, int B, int S, int H, int Hk) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int HC = D / 2 / VEC;          // chunk pairs a row
+  constexpr int RS = kNT / (HC * kRun);    // rows a sweep of the block
+  static_assert(kNT % (HC * kRun) == 0, "a sweep covers whole rows");
+  const int c = threadIdx.x % HC;
+  const int pos = blockIdx.x * kRun + (threadIdx.x / HC) % kRun;
+  if (pos >= S) return;
+  const int d = c * VEC;
+
+  // this thread's table entries (columns d.. and d + D/2.. at pos)
+  float c1[VEC], s1[VEC], c2[VEC], s2[VEC];
+  const long long t = static_cast<long long>(pos) * D + d;
+#pragma unroll
+  for (int x = 0; x < VEC; x += 4) {
+    load16(cos + t + x, c1 + x);
+    load16(sin + t + x, s1 + x);
+    load16(cos + t + D / 2 + x, c2 + x);
+    load16(sin + t + D / 2 + x, s2 + x);
+  }
+
+  const int nq = B * H;
+  const int rows = nq + B * Hk;
+#pragma unroll 4
+  for (int r = threadIdx.x / (HC * kRun); r < rows; r += RS) {
+    const bool is_q = r < nq;
+    const int i = is_q ? r : r - nq;
+    const long long off =
+        (is_q ? qs.at(i / H, pos, i % H) : ks.at(i / Hk, pos, i % Hk)) + d;
+    const T* src = (is_q ? q : k) + off;
+    T* dst = (is_q ? qr : kr) + off;
+    float a[VEC], b[VEC];
+    load16(src, a);
+    load16(src + D / 2, b);
+#pragma unroll
+    for (int x = 0; x < VEC; ++x)
+      rope_pair(a[x], b[x], c1[x], s1[x], c2[x], s2[x], a[x], b[x]);
+    store16(dst, a);
+    store16(dst + D / 2, b);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, void* qr, void* kr,
+                   const float* sin, const float* cos, RowStrides qs,
+                   RowStrides ks, int B, int S, int H, int Hk,
+                   cudaStream_t stream) {
+  rope_qk_kernel<T, D><<<(S + kRun - 1) / kRun, kNT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<T*>(qr), static_cast<T*>(kr), sin, cos, qs, ks, B, S, H,
+      Hk);
+  return cudaGetLastError();
+}
+
+}  // namespace rope
+}  // namespace pt
+
+// q/qr [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/kr [B,S,Hk,D]
+// through (k_sb, k_ss, k_sh), D contiguous; sin/cos [S,D] float32.
+// is_bf16: 0 = float32, 1 = bfloat16.
+extern "C" int pt_rope_qk(const void* q, const void* k, void* qr, void* kr,
+                          const void* sin, const void* cos, int B, int S,
+                          int H, int Hk, int D, long long q_sb,
+                          long long q_ss, long long q_sh, long long k_sb,
+                          long long k_ss, long long k_sh, int is_bf16,
+                          void* stream) {
+  if (B == 0 || S == 0) return 0;
+  if (H <= 0 || Hk <= 0 || sin == nullptr || cos == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sn = static_cast<const float*>(sin);
+  const float* cs = static_cast<const float*>(cos);
+  const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
+  using bf16 = __nv_bfloat16;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64)
+    err = is_bf16 ? pt::rope::launch<bf16, 64>(q, k, qr, kr, sn, cs, qs, ks,
+                                               B, S, H, Hk, s)
+                  : pt::rope::launch<float, 64>(q, k, qr, kr, sn, cs, qs, ks,
+                                                B, S, H, Hk, s);
+  else if (D == 128)
+    err = is_bf16 ? pt::rope::launch<bf16, 128>(q, k, qr, kr, sn, cs, qs,
+                                                ks, B, S, H, Hk, s)
+                  : pt::rope::launch<float, 128>(q, k, qr, kr, sn, cs, qs,
+                                                 ks, B, S, H, Hk, s);
+  return static_cast<int>(err);
+}

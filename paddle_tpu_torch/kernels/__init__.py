@@ -15,11 +15,13 @@ from __future__ import annotations
 import contextlib
 
 #: launches per kernel since the last :func:`reset_launches`
-#: (the flash kernels' fused-RoPE mode counts apart, as ``name[rope]``)
+#: (the flash kernels' fused-RoPE mode counts apart, as ``name[rope]``;
+#: ``rope_qk`` is that mode's rotation pre-pass of the backward)
 LAUNCHES = {"flash": 0, "paged_decode": 0, "ragged_attention": 0,
             "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "decode": 0,
             "fused_decode_tick": 0, "flash[rope]": 0,
-            "flash_bwd_dkv[rope]": 0, "flash_bwd_dq[rope]": 0}
+            "flash_bwd_dkv[rope]": 0, "flash_bwd_dq[rope]": 0,
+            "rope_qk": 0}
 
 
 def reset_launches():

@@ -56,13 +56,15 @@ SIGNATURES = {
     "flash_bwd_dq": ("flash_bwd_dq", "pt_flash_bwd_dq",
                      [_P] * 9 + _FLASH_DIMS + [_P]),
     "decode": ("decode", "pt_decode", [_P] * 9 + [_I] * 8 + [_P]),
+    "rope_qk": ("rope_qk", "pt_rope_qk",
+                [_P] * 6 + [_I] * 5 + [_L] * 6 + [_I] + [_P]),
     **{lib: (lib, "pt_" + lib, _FUSED_ARGS)
        for lib in FUSED_VARIANTS.values()},
 }
 #: library -> (its source under csrc/, its -D macros)
 LIBRARIES = {
     **{src: (src, ()) for src in ("paged_decode", "ragged_attention",
-                                  "flash", "decode")},
+                                  "flash", "decode", "rope_qk")},
     # the two backward kernels: one source, one entry a library
     **{f"flash_bwd_{k}": ("flash_bwd", (f"-DFLASH_BWD_ENTRY={i}",))
        for i, k in enumerate(("dkv", "dq"), 1)},

@@ -43,14 +43,19 @@ D]`` memory run the same kernel bodies; LSE and delta stay ``[B, H, S]``
 float32.
 
 **Fused RoPE** (``rope=(sin, cos)``, the reference's ``_rope_block`` and
-``_rope_t_block``, ``:46`` and ``:55``): the kernels take UN-rotated Q and
-K and the ``[S, D]`` float32 tables, rotate each tile as it reaches
-shared memory (neox rotation, rounded to the input type before any
-product, as ``_rope_block`` rounds), and apply the adjoint rotation to
-the float32 dQ and dK accumulators before their one rounding, so the
-gradients are those of the un-rotated inputs. Under GQA the adjoint
-applies once, to each KV head's float32 sum over its group. The tables
-get no gradient.
+``_rope_t_block``, ``:46`` and ``:55``): the entries take UN-rotated Q
+and K and the ``[S, D]`` float32 tables. The forward kernel rotates each
+tile as it reaches shared memory (neox rotation, rounded to the input
+type before any product, as ``_rope_block`` rounds). The backward rotates
+Q and K once: :func:`rope_qk`, one launch of the ``rope_qk`` kernel
+(``paddle_tpu_torch/csrc/rope_qk.cu``, the same bits), writes rotated
+copies that both backward kernels read (:func:`flash_attention_bwd` runs
+it once for the pair, a standalone :func:`flash_bwd_dkv` or
+:func:`flash_bwd_dq` once for itself). The backward kernels apply the
+adjoint rotation to the float32 dQ and dK accumulators before their one
+rounding, so the gradients are those of the un-rotated inputs. Under GQA
+the adjoint applies once, to each KV head's float32 sum over its group.
+The tables get no gradient.
 
 Every wrapper takes the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors.
@@ -189,6 +194,34 @@ def _rope_args(tables):
     return (None, None) if tables is None else tables
 
 
+# ---------------------------------------------------- the rope pre-pass
+def rope_qk(q, k, sin, cos):
+    """``(rope_rotate(q), rope_rotate(k))``: one launch of the ``rope_qk``
+    kernel for CUDA tensors (new tensors with q's and k's strides), the
+    plain :func:`rope_rotate` for CPU tensors — the backward's rotation
+    pre-pass. q ``[B, S, H, D]``, k ``[B, S, Hk, D]`` in either layout
+    (``_layout``), tables ``[S, D]``."""
+    if not _on_cuda("rope_qk", q):
+        return _rotated(q, k, (sin, cos))
+    B, S, H, D = q.shape
+    if k.shape[:2] != (B, S) or k.shape[3] != D:
+        raise ValueError(f"rope_qk: q {tuple(q.shape)} k {tuple(k.shape)}")
+    check_head_dim("rope_qk", D, HEAD_DIMS)
+    q, k = _layout(q), _layout(k)
+    tables = _tables((sin, cos), S, D, q.device)
+    return _launch_rope_qk(q, k, tables,
+                           _check_kernel_inputs("rope_qk", (q, k), tables))
+
+
+def _launch_rope_qk(q, k, tables, code):
+    """One ``rope_qk`` launch on checked operands."""
+    B, S, H, D = q.shape
+    qr, kr = torch.empty_like(q), torch.empty_like(k)
+    launch("rope_qk", q, k, qr, kr, *tables, B, S, H, k.shape[2], D,
+           *_strides(q), *_strides(k), code)
+    return qr, kr
+
+
 # ------------------------------------------------------------------ forward
 def flash_attention_reference(q, k, v, causal=True, rope=None):
     """The plain forward: ``(out, lse)``, Q and K rotated first when
@@ -251,6 +284,30 @@ def _group_sum(x, Hk):
     return x.reshape(B, S, Hk, H // Hk, D).sum(3) if H != Hk else x
 
 
+def _dkv_rotated(qr, kr, v, do, lse, delta, causal, rope):
+    """dK/dV from Q and K rotated beforehand (or un-rotated, rope None);
+    with ``rope`` the adjoint on the float32 dK sum."""
+    p, ds, _ = _scores_grad(qr, kr, v, lse, delta, do, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(qr.dtype).float(), qr.float())
+    Hk = kr.shape[2]
+    dk = _group_sum(dk, Hk)
+    if rope is not None:
+        dk = rope_adjoint(dk, *rope)
+    return dk.to(kr.dtype), _group_sum(dv, Hk).to(v.dtype)
+
+
+def _dq_rotated(qr, kr, v, do, lse, delta, causal, rope):
+    """dQ from Q and K rotated beforehand; with ``rope`` the adjoint on
+    the float32 dQ."""
+    _, ds, krep = _scores_grad(qr, kr, v, lse, delta, do, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(kr.dtype).float(),
+                      krep.float())
+    if rope is not None:
+        dq = rope_adjoint(dq, *rope)
+    return dq.to(qr.dtype)
+
+
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True, rope=None):
     """Plain version of ``_dkv_kernel``: ``(dk, dv)`` ``[B, S, Hk, D]``.
     Same cast points: P is rounded to ``do.dtype`` before ``P^T dO``
@@ -259,15 +316,8 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True, rope=None):
     dK/dV is the float32 sum over its query heads, rounded once. With
     ``rope``: Q and K rotated first, and the adjoint rotation applied to
     the float32 dK sum before that one rounding (:243-244)."""
-    qr, kr = _rotated(q, k, rope)
-    p, ds, _ = _scores_grad(qr, kr, v, lse, delta, do, causal)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(qr.dtype).float(), qr.float())
-    Hk = k.shape[2]
-    dk = _group_sum(dk, Hk)
-    if rope is not None:
-        dk = rope_adjoint(dk, *rope)
-    return dk.to(k.dtype), _group_sum(dv, Hk).to(v.dtype)
+    return _dkv_rotated(*_rotated(q, k, rope), v, do, lse, delta, causal,
+                        rope)
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True, rope=None):
@@ -275,13 +325,8 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True, rope=None):
     rounded to ``k.dtype`` before ``dS K`` (``pallas_flash.py:299``); with
     ``rope`` the adjoint rotation of the float32 dQ before its one
     rounding (:305-306)."""
-    qr, kr = _rotated(q, k, rope)
-    _, ds, krep = _scores_grad(qr, kr, v, lse, delta, do, causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
-                      krep.float())
-    if rope is not None:
-        dq = rope_adjoint(dq, *rope)
-    return dq.to(q.dtype)
+    return _dq_rotated(*_rotated(q, k, rope), v, do, lse, delta, causal,
+                       rope)
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
@@ -310,55 +355,76 @@ def _check_bwd(name, q, k, v, do, lse, delta):
 
 def _bwd_operands(name, q, k, v, do, lse, delta, rope):
     """Shapes checked, the operands in the kernels' layouts (dO in Q's,
-    V in K's), the tables, and the dtype code."""
+    V in K's) — with ``rope``, Q and K rotated by one ``rope_qk`` launch
+    —, the tables, and the dtype code."""
     B, S, H, Hk, D = _check_bwd(name, q, k, v, do, lse, delta)
     q, k = _layout(q), _layout(k)
     v, do = _like(v, k), _like(do, q)
     tables = _tables(rope, S, D, q.device)
     code = _check_kernel_inputs(name, (q, k, v, do),
                                 (lse, delta) + (tables or ()))
+    if tables is not None:
+        q, k = _launch_rope_qk(q, k, tables, code)
     return (B, S, H, Hk, D), (q, k, v, do), tables, code
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, rope=None):
-    """``(dk, dv)`` of one flash backward, in k's layout: the
-    ``flash_bwd_dkv`` kernel for CUDA tensors,
-    :func:`flash_bwd_dkv_reference` for CPU tensors."""
-    if not _on_cuda("flash_bwd_dkv", q):
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
-                                       rope)
-    dims, (q, k, v, do), tables, code = _bwd_operands(
-        "flash_bwd_dkv", q, k, v, do, lse, delta, rope)
+def _launch_dkv(dims, ops, tables, code, lse, delta, causal):
+    q, k, v, do = ops
     dk = torch.empty_like(k)
     dv = torch.empty_like(k)
     launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv,
            *_rope_args(tables), *dims, *_strides(q), *_strides(k),
            int(bool(causal)), code,
-           count_as=_kernel_name("flash_bwd_dkv", rope))
+           count_as=_kernel_name("flash_bwd_dkv", tables))
     return dk, dv
+
+
+def _launch_dq(dims, ops, tables, code, lse, delta, causal):
+    q, k, v, do = ops
+    dq = torch.empty_like(q)
+    launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, *_rope_args(tables),
+           *dims, *_strides(q), *_strides(k), int(bool(causal)), code,
+           count_as=_kernel_name("flash_bwd_dq", tables))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, rope=None):
+    """``(dk, dv)`` of one flash backward, in k's layout: the
+    ``flash_bwd_dkv`` kernel for CUDA tensors (after its own ``rope_qk``
+    pre-pass with ``rope``), :func:`flash_bwd_dkv_reference` for CPU
+    tensors."""
+    if not _on_cuda("flash_bwd_dkv", q):
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                       rope)
+    return _launch_dkv(*_bwd_operands("flash_bwd_dkv", q, k, v, do, lse,
+                                      delta, rope), lse, delta, causal)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, rope=None):
     """``dq`` of one flash backward, in q's layout: the ``flash_bwd_dq``
-    kernel for CUDA tensors, :func:`flash_bwd_dq_reference` for CPU
-    tensors."""
+    kernel for CUDA tensors (after its own ``rope_qk`` pre-pass with
+    ``rope``), :func:`flash_bwd_dq_reference` for CPU tensors."""
     if not _on_cuda("flash_bwd_dq", q):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, rope)
-    dims, (q, k, v, do), tables, code = _bwd_operands(
-        "flash_bwd_dq", q, k, v, do, lse, delta, rope)
-    dq = torch.empty_like(q)
-    launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, *_rope_args(tables),
-           *dims, *_strides(q), *_strides(k), int(bool(causal)), code,
-           count_as=_kernel_name("flash_bwd_dq", rope))
-    return dq
+    return _launch_dq(*_bwd_operands("flash_bwd_dq", q, k, v, do, lse,
+                                     delta, rope), lse, delta, causal)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=True, rope=None):
-    """``(dq, dk, dv)``: delta as one torch op, then the two backward
-    kernels (CUDA tensors) or their plain versions (CPU tensors)."""
+    """``(dq, dk, dv)``: delta as one torch op; with ``rope``, Q and K
+    rotated once for both kernels (:func:`rope_qk`: its kernel for CUDA
+    tensors, :func:`rope_rotate` for CPU tensors); then the two backward
+    kernels (CUDA tensors) or their plain versions (CPU tensors) on the
+    rotated pair, each applying the adjoint to its float32 dK or dQ."""
     delta = attention_delta(o, do)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, rope)
-    return flash_bwd_dq(q, k, v, do, lse, delta, causal, rope), dk, dv
+    if not _on_cuda("flash_attention_bwd", q):
+        rot = _rotated(q, k, rope) + (v, do, lse, delta, causal, rope)
+        dk, dv = _dkv_rotated(*rot)
+        return _dq_rotated(*rot), dk, dv
+    args = _bwd_operands("flash_attention_bwd", q, k, v, do, lse, delta,
+                         rope)
+    dk, dv = _launch_dkv(*args, lse, delta, causal)
+    return _launch_dq(*args, lse, delta, causal), dk, dv
 
 
 # ------------------------------------------------------------ autograd op
@@ -398,7 +464,8 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal=True, rope=None):
     """Flash attention output over ``[B, S, H, D]`` (k/v ``[B, S, Hk,
     D]``), differentiable through the backward kernels; ``rope=(sin,
-    cos)`` rotates Q and K inside them. The kernels run on CUDA tensors
+    cos)`` rotates Q and K inside the forward kernel and in the
+    backward's one pre-pass (:func:`rope_qk`). The kernels run on CUDA tensors
     while ``FLAGS_use_cuda_kernels`` is on; the plain versions run on CPU
     tensors, or on any device with the flag off."""
     sin, cos = (None, None) if rope is None else rope
@@ -418,7 +485,7 @@ def flash_attention_bhsd(q, k, v, causal=True, block_q=1024, block_k=1024,
     or ``[B, H, S, D]`` with k/v ``[B, Hk, S, D]`` (GQA indexes the KV
     head; K/V are never repeated). The kernels read the head-major
     tensors through their strides. ``rope=(sin, cos)`` (``[S, D]``
-    float32) rotates un-rotated Q and K inside the kernels and returns
+    float32) rotates un-rotated Q and K in the kernels and returns
     the gradients of the un-rotated inputs. ``block_q``/``block_k`` are
     the Pallas tile sizes, validated and otherwise unused: the port's
     tiles are fixed at 64 rows by 64 keys (ROADMAP Queue B item 6)."""

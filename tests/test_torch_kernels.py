@@ -213,7 +213,7 @@ class TestWrappers:
                             "flash_bwd_dq": 0, "decode": 0,
                             "fused_decode_tick": 0, "flash[rope]": 0,
                             "flash_bwd_dkv[rope]": 0,
-                            "flash_bwd_dq[rope]": 0}
+                            "flash_bwd_dq[rope]": 0, "rope_qk": 0}
 
     @pytest.mark.parametrize("which", ["paged", "ragged", "flash"])
     def test_other_devices_raise(self, which):
@@ -239,10 +239,11 @@ class TestWrappers:
     def test_library_named_by_source_hash(self, tmp_path, monkeypatch):
         monkeypatch.setenv("PADDLE_TPU_TORCH_BUILD_DIR", str(tmp_path))
         paths = {n: _build.library_path(n) for n in _build.LIBRARIES}
-        # seven kernels in twelve libraries: the fused tick's source builds
-        # once a (pool mode, weights) variant, the backward source once an
-        # entry
-        assert len(set(paths.values())) == 12
+        # eight kernels in thirteen libraries: the fused tick's source
+        # builds once a (pool mode, weights) variant, the backward source
+        # once an entry, the backward's RoPE pre-pass from its own source
+        assert len(set(paths.values())) == 13
+        assert _build.LIBRARIES["rope_qk"] == ("rope_qk", ())
         for n, p in paths.items():
             assert p.parent == tmp_path and p.name.startswith(n + "-")
             assert p == _build.library_path(n)          # deterministic

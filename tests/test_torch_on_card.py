@@ -613,8 +613,9 @@ class TestTensorCoreFlash:
 
 
 # The fused-RoPE mode of the three flash kernels (rope=(sin, cos): Q and K
-# un-rotated in, rotated as each tile lands, the adjoint on dQ and dK), in
-# the head-major layout the model's bhsd branch hands them.
+# un-rotated in; the forward rotates each tile as it lands, the backward
+# rotates Q and K once by the rope_qk pre-pass; the adjoint on dQ and dK),
+# in the head-major layout the model's bhsd branch hands them.
 ROPE_SWEEP = [(S, D, G) for S in (63, 65, 300) for D in (64, 128)
               for G in (1, 4)]
 
@@ -627,7 +628,8 @@ class TestRopeFlash:
         """The forward (O within TOL, LSE within TOL["float32"]), dK/dV
         and dQ (BWD_TOL) against the plain versions, which rotate first and
         apply the adjoint to the float32 dK and dQ; counted as
-        ``name[rope]``; bf16 the same bits on a second launch."""
+        ``name[rope]``, each standalone backward entry with its own
+        ``rope_qk`` pre-pass; bf16 the same bits on a second launch."""
         name = "bfloat16" if dtype == torch.bfloat16 else "float32"
         r = np.random.RandomState(S + D + G)
         q, k, v, do = (torch.from_numpy(r.randn(2, h, S, D).astype(
@@ -645,8 +647,8 @@ class TestRopeFlash:
         want = tflash.flash_bwd_dkv_reference(*args) + (
             tflash.flash_bwd_dq_reference(*args),)
         assert (LAUNCHES["flash[rope]"], LAUNCHES["flash_bwd_dkv[rope]"],
-                LAUNCHES["flash_bwd_dq[rope]"], LAUNCHES["flash"]) == \
-            (1, 1, 1, 0)
+                LAUNCHES["flash_bwd_dq[rope]"], LAUNCHES["flash"],
+                LAUNCHES["rope_qk"]) == (1, 1, 1, 0, 2)
         for g, w in zip(got, want):
             assert _within_scaled(g, w, *BWD_TOL[name])
         if dtype == torch.bfloat16:
@@ -655,6 +657,53 @@ class TestRopeFlash:
             assert all(torch.equal(a, b) for a, b in zip(got, again))
             assert torch.equal(o, tflash.flash_attention_fwd(q, k, v, True,
                                                              rope)[0])
+
+    @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("S,D,G", ROPE_SWEEP)
+    def test_pre_pass_is_rope_rotate(self, cuda_dev, S, D, G, dtype,
+                                     layout):
+        """One ``rope_qk`` launch gives ``rope_rotate``'s bits for Q and
+        K, in the inputs' strides."""
+        r = np.random.RandomState(S + D + G + 1)
+        q, k = (torch.from_numpy(r.randn(2, h, S, D).astype(
+            np.float32)).to(cuda_dev, dtype).transpose(1, 2)
+            for h in (8, 8 // G))
+        if layout == "bshd":
+            q, k = q.contiguous(), k.contiguous()
+        sin, cos = _rope_tables(S, D, 10000.0, device=cuda_dev)
+        reset_launches()
+        qr, kr = tflash.rope_qk(q, k, sin, cos)
+        assert LAUNCHES["rope_qk"] == 1
+        for got, x in ((qr, q), (kr, k)):
+            assert got.stride() == x.stride()
+            assert torch.equal(got, tflash.rope_rotate(x, sin, cos))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("S,D,G", [(300, 128, 4), (65, 64, 1)])
+    def test_backward_rotates_once(self, cuda_dev, S, D, G, dtype):
+        """``flash_attention_bwd(..., rope)`` launches the pre-pass once
+        and each backward body once, and gives the bits of the two
+        standalone entries (each of which runs its own pre-pass)."""
+        r = np.random.RandomState(S + D + G + 2)
+        q, k, v, do = (torch.from_numpy(r.randn(2, h, S, D).astype(
+            np.float32)).to(cuda_dev, dtype).transpose(1, 2)
+            for h in (8, 8 // G, 8 // G, 8))
+        rope = _rope_tables(S, D, 10000.0, device=cuda_dev)
+        o, lse = tflash.flash_attention_fwd(q, k, v, True, rope)
+        reset_launches()
+        dq, dk, dv = tflash.flash_attention_bwd(q, k, v, o, lse, do, True,
+                                                rope)
+        assert (LAUNCHES["rope_qk"], LAUNCHES["flash_bwd_dkv[rope]"],
+                LAUNCHES["flash_bwd_dq[rope]"]) == (1, 1, 1)
+        delta = tflash.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, True, rope)
+        reset_launches()
+        want = tflash.flash_bwd_dkv(*args) + (tflash.flash_bwd_dq(*args),)
+        assert LAUNCHES["rope_qk"] == 2
+        assert all(torch.equal(a, b) for a, b in zip((dk, dv, dq), want))
 
     @pytest.mark.parametrize("fuse", [False, True], ids=["bhsd", "rope"])
     def test_bhsd_model_gradients_kernels_vs_plain(self, cuda_dev, fuse):
@@ -686,6 +735,7 @@ class TestRopeFlash:
         sfx = "[rope]" if fuse else ""
         assert out[True][2]["flash" + sfx] == 4
         assert out[True][2]["flash_bwd_dq" + sfx] == 2
+        assert out[True][2]["rope_qk"] == (2 if fuse else 0)
         assert sum(out[False][2].values()) == 0
 
 

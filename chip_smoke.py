@@ -36,14 +36,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
              achieved TFLOP/s and the route (the bf16 flash forward, dK/dV
              and dQ on the tensor cores, the rest on the CUDA cores).
              Then the quantized modes, bf16 and fp32: paged decode and
-             ragged attention (its edge spans too) on int8 and fp8 pools
-             at the same shapes, the library yardstick dequantizing the
+             ragged attention (its edge spans too; bf16 chunks on the
+             wgmma tile, narrow tiles converted in shared memory) on int8
+             and fp8 pools at the same shapes, the same bits on two
+             launches, each timed beside the same kernel on a pool of the
+             query type in this run (``base_ms``), the library yardstick
+             dequantizing the
              gathered cache before SDPA; the fused tick (2 layers, 8 and
              37 rows) on an int8 pool with int8 weights and on an fp8
              pool: keys bit for bit, tokens equal in fp32, logits within
              the bf16 scaled bound, appended values within a grid step
              (bf16: the scaled bound plus a step), nothing else written,
-             the layer-0 attention bit for bit quantized paged decode's.
+             the layer-0 attention bit for bit quantized paged decode's;
+             each timed beside the dense tick in this run (bf16 int8
+             weights: 8 KB chunks of 64 k rows x 128 columns, A
+             fragments built in registers).
              First, the flash kernels' fused-RoPE mode (``flash[rope]``,
              ``flash_bwd_dkv[rope]``, ``flash_bwd_dq[rope]``: un-rotated
              Q and K; the forward rotates its tiles as they land, the
@@ -1572,17 +1579,19 @@ def quant_kernel_case(name, mode, dtype_name, dev, gen):
     row = {"name": name, "mode": mode, "dtype": dtype_name,
            "max_abs_err": err,
            "tol": dict(zip(("atol", "rtol"), TOL[dtype_name]))}
+    # both kernels' quantized modes give the same bits on a second launch
+    if not torch.equal(got, run()):
+        raise RuntimeError(f"{name} {mode} {dtype_name}: two launches "
+                           f"differ")
+    row["bitwise_repeatable"] = True
     if name == "paged_decode":
-        if not torch.equal(got, run()):
-            raise RuntimeError(f"paged_decode {mode} {dtype_name}: two "
-                               f"launches differ")
         if not bool((got[SLOTS - 1] == 0).all()):
             raise RuntimeError(f"paged_decode {mode}: a row of length 0 "
                                f"is not zero")
-        row["bitwise_repeatable"] = True
         row["split_len"] = paged_decode.LAST_GRID["split_len"]
     else:
         row["grid"] = dict(ragged_attention.LAST_GRID)
+        _chunk_tile(row["grid"], dtype, f"ragged {mode} {dtype_name}")
         row["edge_err"] = quant_edge_cases(mode, dtype_name, dev, gen)
     row.update({"ms": time_ms(run), "plain_ms": time_ms(plain, iters=3),
                 "library_ms": time_ms(lib), "bytes": nbytes, "flops": flops,
@@ -1591,16 +1600,34 @@ def quant_kernel_case(name, mode, dtype_name, dev, gen):
                              >= flops / PEAK_FLOPS[dtype_name]
                              else "operations"),
                 "route": "cuda-core: quantized split-KV walk"
-                         + (", CUDA-core chunk tile" if name ==
+                         + (", " + QUANT_CHUNK_ROUTE[dtype_name] if name ==
                             "ragged_attention" else "")})
     row["x_library"] = row["ms"] / row["library_ms"]
     return row
 
 
+#: how ragged attention's chunk spans run on a quantized pool, by query type
+QUANT_CHUNK_ROUTE = {
+    "bfloat16": "wgmma chunk tile, narrow tiles converted in shared memory",
+    "float32": "CUDA-core chunk tile"}
+
+
+def _chunk_tile(grid, dtype, label):
+    """A ragged call's chunks ran on the tile of the query type (the wgmma
+    tile's 64 rows in bf16, the CUDA-core tile's 16 in float32), whatever
+    the pool."""
+    from paddle_tpu_torch.kernels import ragged_attention
+    if grid["tile_rows"] != ragged_attention.TILE_ROWS[dtype]:
+        raise RuntimeError(f"{label}: chunks ran {grid['tile_rows']}-row "
+                           f"tiles, not the {dtype} tile's "
+                           f"{ragged_attention.TILE_ROWS[dtype]}")
+
+
 def quant_edge_cases(mode, dtype_name, dev, gen):
     """``RAGGED_EDGE``'s spans (and the first with 8 KV heads) on a
-    quantized pool against the plain version within TOL; rows outside
-    every span exact zeros."""
+    quantized pool against the plain version within TOL, chunks on the
+    query type's tile (bf16: the wgmma tile) and the same bits on a
+    second launch; rows outside every span exact zeros."""
     import torch
     from paddle_tpu_torch.kernels import ragged_attention
     dtype = getattr(torch, dtype_name)
@@ -1613,9 +1640,14 @@ def quant_edge_cases(mode, dtype_name, dev, gen):
         kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
         a = (q, kd, vd, tbl, qs, ql, kl, ks, vs)
         got = ragged_attention.ragged_paged_attention(*a)
+        _chunk_tile(ragged_attention.LAST_GRID, dtype,
+                    f"ragged {mode} {name} {dtype_name}")
         want = ragged_attention.ragged_attention_reference(*a)
         torch.cuda.synchronize()
         errs[name] = _compare(f"ragged {mode} {name}", dtype_name, got, want)
+        if not torch.equal(got, ragged_attention.ragged_paged_attention(*a)):
+            raise RuntimeError(f"ragged {mode} {name} {dtype_name}: two "
+                               f"launches differ")
         if not bool((got[sum(n for n, _ in spans):] == 0).all()):
             raise RuntimeError(f"ragged {mode} {name} {dtype_name}: rows "
                                f"outside every span not zero")
@@ -1659,7 +1691,7 @@ def _planted_faults(p, tied, t, got_logits):
     return out
 
 
-def fused_quant_cases(dtype_name, dev, gen):
+def fused_quant_cases(dtype_name, dev, gen, base_ms):
     """The fused tick's five quantized variants (``FUSED_QUANT_MODES``:
     int8 weights on a pool at the model's type; int8 and fp8 pools with
     dense or int8 weights) against the plain version at llama_7b widths,
@@ -1668,7 +1700,9 @@ def fused_quant_cases(dtype_name, dev, gen):
     milliseconds, the grid and the byte bound at the storage types. In
     float32 each quantized pool's logits are read over
     ``QUANT_SWEEP_SEEDS`` more pools and tokens at both row counts, and
-    the int8 and fp8 pools' planted faults must miss the limit. Returns
+    the int8 and fp8 pools' planted faults must miss the limit. Each row
+    carries ``base_ms``, the tick on dense weights and a pool of the model
+    type at 8 rows in this run, and its own time over it. Returns
     ``{mode: row}``."""
     import numpy as np
     import torch
@@ -1760,6 +1794,7 @@ def fused_quant_cases(dtype_name, dev, gen):
                     fdt.fused_decode_tick_reference, p, tied, run_t),
                     iters=3)
                 row.update(part, max_abs_err=logits_err,
+                           base_ms=base_ms, x_base=part["ms"] / base_ms,
                            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                                      >= flops / PEAK_FLOPS[dtype_name]
                                      else "operations"),
@@ -1798,14 +1833,19 @@ def phase_kernels():
             emit({"phase": "kernels", **row})
             rows[(name, dtype_name)] = row
             torch.cuda.empty_cache()
-        # the quantized modes of the three kernels that have them
+        # the quantized modes of the three kernels that have them, each
+        # timed beside the same kernel on a pool and weights of the model
+        # type in this run (its row above)
         for name in QUANT_KERNELS:
-            got = (fused_quant_cases(dtype_name, dev, gen)
+            base_ms = rows[(name, dtype_name)]["ms"]
+            got = (fused_quant_cases(dtype_name, dev, gen, base_ms)
                    if name == "fused_decode_tick" else
                    {mode: quant_kernel_case(name, mode, dtype_name, dev, gen)
                     for mode in QUANT_MODES})
             for mode, row in got.items():
                 if name != "fused_decode_tick":
+                    row.update(base_ms=base_ms,
+                               x_base=row["ms"] / base_ms)
                     emit({"phase": "kernels", **row})
                 rows[(name, dtype_name, mode)] = row
             torch.cuda.empty_cache()
@@ -3847,12 +3887,14 @@ def main(argv=None):
                 "mode": mode, "launches": launches.get((name, mode), 0),
                 **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
-                                           "library_ms")},
+                                           "library_ms", "base_ms")},
                 "math": "cuda-core split-KV walk" + (
-                    ", mma.sync GEMVs" + (" from int8 chunks"
-                                          if mode.endswith("w8") else "")
+                    ", mma.sync GEMVs" + (
+                        " from 8 KB int8 chunks (64 k rows x 128 columns), "
+                        "A fragments built in registers"
+                        if mode.endswith("w8") else "")
                     if name == "fused_decode_tick"
-                    else ", CUDA-core chunk tile"
+                    else ", " + QUANT_CHUNK_ROUTE["bfloat16"]
                     if name == "ragged_attention" else "")})
     emit({"kernels": kernels})
     print(smi, flush=True)

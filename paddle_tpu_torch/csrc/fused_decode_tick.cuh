@@ -25,13 +25,14 @@
 //
 //   GEMV (QKV, O, gate/up, down, lm head). A projection is tiles of NT
 //     output columns (64 bf16, 32 fp32) x chunks of kKC = 64 k rows (8 KB
-//     of weight), numbered tile-major. Block b streams the chunks
+//     of weight; int8 weights in bf16: 64 rows x 2 tiles, 8 KB too: Chunk),
+//     numbered tile-major. Block b streams the chunks
 //     [b*C/G, (b+1)*C/G): every block gets the same share of bytes whatever
 //     the projection's shape (split-K where a phase has fewer tiles than
 //     blocks, several tiles a block where it has more). Chunks arrive by
 //     16-byte cp.async into a kStages-deep ring, the chunk's X rows beside
 //     its weights: 3 chunks (24 KB of weight) in flight a block, ~72 KB an
-//     SM.
+//     SM (int8 weights in bf16: 2, Chunk::STAGES).
 //       bf16: mma.sync.m16n8k16 with swapped operands. A is the weight:
 //       16 output columns x 16 k by ldmatrix.trans from the [k][n] chunk
 //       (ldmatrix from the [n][k] embedding when the head is tied); B is 8
@@ -86,13 +87,24 @@
 //   - int8 weights (w8, a template flag: the dense kernel keeps its own
 //     code and registers): each weight is a [K, N] int8
 //     array and a float32 scale an output column (the lm head: [V, H] when
-//     tied, its scales along V). A chunk keeps its kKC x NT shape, so the
-//     split-K plan and the pieces' buffer are unchanged; it streams 4 KB
-//     (bf16 tile) or 2 KB (fp32) of int8 through the ring into a raw area
-//     of its stage, and after it lands the block dequantizes it into the
-//     stage's weight tile as round(float(q) * scale[col]) — serving/
-//     decode.py _dq's bits, rounded once — in the layout the dense copy
-//     would have left (swizzled for ldmatrix), before the MMAs read it.
+//     tied, its scales along V). Every weight that reaches an MMA is
+//     round(float(q) * scale[col]) — serving/decode.py _dq's bits, rounded
+//     once. bf16 (Chunk::R8): a chunk is two tiles wide, 64 k rows x 128
+//     columns of int8, 8 KB in 128-byte rows: the bytes and the row width
+//     a dense chunk streams, so a tick runs half the dense tick's chunk
+//     iterations and reads half its rows (a one-tile-wide int8 chunk of
+//     64 or 128 rows reads 64-byte rows, and measured no faster than the
+//     dense tick: the tick's time follows the rows it reads). A width of
+//     an odd number of tiles ends in a one-tile chunk; kernels/
+//     fused_decode_tick.py sizes the pieces' buffer for this plan, and a
+//     piece takes the ticket of each of its tiles' groups. The chunk
+//     lands as it is, XOR-swizzled by the row, with its 128 column
+//     scales, and each warp builds its two MMA tiles' A fragments from it
+//     in registers (one 32-bit read a k row: a thread's four columns are
+//     neighbouring bytes), with no bf16 copy and no pass through shared
+//     memory. fp32 keeps the dense chunk's kKC x NT shape: 2 KB of int8
+//     into a raw area of its stage, dequantized after it lands into the
+//     stage's weight tile in the dense copy's layout.
 //   - an int8 pool (KT int8_t, QM 1): the QKV epilogue of a K or V head
 //     takes one warp a row: the RoPE'd, rounded row's absmax over D by a
 //     warp reduction, scale = amax / 127, q = clip(rint(x / max(scale,
@@ -124,18 +136,46 @@ constexpr int kStages = 4;      // chunks in the cp.async ring (3 in flight)
 constexpr int kRowPass = 64;    // rows a pass over the weights
 constexpr float kTiny = 1.17549435e-38f;   // float32 tiny (smallest normal)
 
-// GEMV geometry by type: a chunk is 8 KB of weight either way
+// GEMV geometry by type: a dense chunk is 8 KB of weight either way
 template <typename T>
 struct Geo {
   static constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int VEC = 16 / sizeof(T);            // elements a 16-byte copy
   static constexpr int NT = BF ? 64 : 32;               // output columns a tile
   static constexpr int W_BYTES = kKC * NT * sizeof(T);  // a chunk's weights
-  static constexpr int X_ROW = kKC * sizeof(T);         // a chunk's X, a row
-  // accumulator bytes a row: NT fp32 (bf16), or 32 columns x 4 warps (fp32)
-  static constexpr int ACC_ROW = BF ? 256 : 512;
   static_assert(W_BYTES == 8192 && W_BYTES / 16 % kThreads == 0,
                 "every thread copies the same count");
+};
+
+// A GEMV chunk by type and weights: kKC k rows by CW columns (a plan
+// tile), the bytes its weights take in the ring, its X bytes a row. A
+// dense chunk is one NT-column tile (8 KB of weight). bf16 with int8
+// weights (R8) is two tiles wide: 64 k rows x 128 columns of int8, 8 KB
+// in 128-byte rows, the bytes and the row width of a dense chunk (a
+// one-tile-wide int8 chunk reads 64-byte rows, and the tick's time follows
+// the rows it reads, not their bytes), with no bf16 copy: the MMAs' A
+// fragments are built in registers from it. fp32 with int8 weights keeps
+// the dense chunk's shape (2 KB of int8, dequantized into the stage's
+// weight tile).
+template <typename T, bool W8>
+struct Chunk {
+  static constexpr bool R8 = W8 && Geo<T>::BF;
+  static constexpr int CW = R8 ? 2 * Geo<T>::NT : Geo<T>::NT;
+  static constexpr int W_BYTES = R8 ? kKC * CW : Geo<T>::W_BYTES;
+  static constexpr int X_ROW = kKC * sizeof(T);
+  // the third part of a stage: fp32's raw int8, or R8's column scales (CW
+  // floats, copied with the chunk so that no global read waits in the
+  // MMA loop)
+  static constexpr int Q8_BYTES = W8 ? (R8 ? CW * 4 : kKC * Geo<T>::NT) : 0;
+  // accumulator bytes a row: CW fp32 (bf16), or 32 columns x 4 warps (fp32)
+  static constexpr int ACC_ROW = Geo<T>::BF ? CW * 4 : 512;
+  // chunks in the cp.async ring: R8 keeps 2 in flight ahead of the one in
+  // use, the others kStages - 1. At 7B widths, 32 layers, 8 rows on an
+  // H100 the int8 tick ran fastest with 3 stages of 2 to 6, slower with
+  // each stage added (more int8 bytes in flight only queue longer;
+  // scripts/quant_timing.py --patch stages-N measures it).
+  static constexpr int STAGES = R8 ? 3 : kStages;
+  static_assert(W_BYTES == 8192, "8 KB of weight a chunk");
 };
 
 template <typename T, typename KT>
@@ -245,15 +285,17 @@ __device__ __forceinline__ int block_argmax(float v, int i, float* redv, int* re
 
 
 // ------------------------------------------------------- split-K plan
-// A projection of N columns over K is (N / nt) tiles x (K / kKC) chunks,
-// numbered tile-major. The first geff = min(grid, C) blocks stream the
-// chunks [begin(b), begin(b + 1)) each; the rest sit the phase out. Block
-// b's share of a tile is a piece, written to partial slot b - first(the
-// tile); a tile's pieces are added in slot order.
+// A projection of N columns over K is ceil(N / nt) plan tiles (nt = a
+// chunk's columns, Chunk::CW; an int8 bf16 plan tile of 128 columns may
+// end in one of 64) x (K / kKC) chunks, numbered tile-major. The first
+// geff = min(grid, C) blocks stream the chunks [begin(b), begin(b + 1))
+// each; the rest sit the phase out. Block b's share of a plan tile is a
+// piece, written to partial slot b - first(the tile); a tile's pieces are
+// added in slot order.
 struct Plan {
   int C, nc, geff, nt;   // C * geff < 2^31 at every geometry the wrapper takes
   __device__ Plan(int N, int K, int nt_)
-      : C(N / nt_ * (K / kKC)), nc(K / kKC), nt(nt_) {
+      : C((N + nt_ - 1) / nt_ * (K / kKC)), nc(K / kKC), nt(nt_) {
     geff = min(C, static_cast<int>(gridDim.x));
   }
   __device__ int begin(int b) const { return b * C / geff; }
@@ -501,19 +543,25 @@ __device__ void finish_group(const Args<T, KT>& a, const Gemv<T>& g,
 
 // ---------------------------------------------------------------- GEMV
 // This block's chunks of projection g into the partial slots, for every
-// row in passes of up to kRowPass rows. Shared memory: kStages stages of
-// [weights | X rows], then the accumulators. After writing a piece, the
-// block takes a ticket of the piece's group (a counter in a zeroed buffer
-// the wrapper owns); the block whose ticket completes the group runs its
-// epilogue (finish_group), reading every block's pieces through L2, and
-// leaves the counter 0 for the next phase. With int8 weights a stage has a
-// third part, the chunk's raw int8 (kKC x NT bytes), dequantized into the
-// weight tile once it lands (dequant_w).
+// row in passes of up to kRowPass rows. Shared memory: S (Chunk) stages of
+// [weights | X rows | a third part], then the accumulators. After writing
+// a piece, the block takes a ticket of the group of each tile the piece
+// covers (a counter in a zeroed buffer the wrapper owns); the block whose
+// ticket completes a group runs its epilogue (finish_group), reading every
+// block's pieces through L2, and leaves the counter 0 for the next phase.
+// With int8 weights in bf16 (R8) a chunk is two tiles wide (Chunk: 64 k
+// rows x 128 columns, 8 KB of int8 in 128-byte rows), its third part the
+// 128 columns' scales; the int8 tile is read straight into the MMAs' A
+// fragments. In fp32 the third part is the chunk's raw int8 (kKC x NT
+// bytes), dequantized into the weight tile once it lands (dequant_w).
 template <typename T, int D, typename KT, bool W8>
 struct GemvRun {
   using Q = Geo<T>;
+  using C = Chunk<T, W8>;
   static constexpr int NT = Q::NT, VEC = Q::VEC;
-  static constexpr int Q8_BYTES = kKC * NT;   // a chunk's int8 weights
+  static constexpr bool R8 = C::R8;
+  static constexpr int CW = C::CW;    // columns a chunk: a plan tile
+  static constexpr int S = C::STAGES;  // the ring's stages
   const Args<T, KT>& a;
   const Gemv<T>& g;
   unsigned char* smem;
@@ -523,7 +571,7 @@ struct GemvRun {
 
   __device__ GemvRun(const Args<T, KT>& a_, const Gemv<T>& g_,
                      unsigned char* s)
-      : a(a_), g(g_), smem(s), p(g_.N, g_.K, NT) {
+      : a(a_), g(g_), smem(s), p(g_.N, g_.K, CW) {
     b = blockIdx.x;
     cb = p.begin(b);
     ce = b < p.geff ? p.begin(b + 1) : cb;
@@ -531,50 +579,79 @@ struct GemvRun {
     R = a.R;
     sp8 = (min(R, kRowPass) + 7) & ~7;
     passes = (R + kRowPass - 1) / kRowPass;
-    stage = Q::W_BYTES + sp8 * Q::X_ROW + (W8 ? Q8_BYTES : 0);
-    acc = reinterpret_cast<float*>(smem + kStages * stage);
+    stage = C::W_BYTES + sp8 * C::X_ROW + C::Q8_BYTES;
+    acc = reinterpret_cast<float*>(smem + S * stage);
   }
 
-  // the segment of the projection's columns tile t starts in
+  // the segment of the projection's columns column n0 lies in, and the
+  // column's offset in it
   __device__ int segment(int n0) const {
     return n0 < g.end[0] ? 0 : n0 < g.end[1] ? 1 : 2;
   }
+  __device__ int seg_col(int n0, int sg) const {
+    return n0 - (sg ? g.end[sg - 1] : 0);
+  }
+  // NT-column tiles plan tile t holds (R8: 2, or 1 at an odd end)
+  __device__ int tiles_in(int t) const {
+    return min(CW, g.N - t * CW) / NT;
+  }
 
-  // int8 weights: chunk c's raw bytes into stage st's int8 area, as
-  // [kKC][NT] (or the tied head's [NT][kKC]), 16-byte copies
+  // int8 weights. bf16 (R8): plan tile t's 64 k rows x 128 columns of int8
+  // into stage st's weight area, 16-byte copies, each 16-column chunk cc of
+  // k row k at chunk cc ^ (2 (k / 2 % 4)) so that the fragment reads of
+  // process() hit distinct banks; the tied head's 128 rows n x 64 k, chunk
+  // cc of row n at cc ^ (n / 4 % 4); then the columns' scales. fp32: the
+  // chunk's raw bytes into the stage's int8 area as [kKC][NT] (or
+  // [NT][kKC]) for dequant_w.
   __device__ void issue_w8(int c, int st) const {
-    const int t = c / p.nc, k0 = c % p.nc * kKC, n0 = t * NT;
-    int8_t* raw = reinterpret_cast<int8_t*>(smem + st * stage + Q::W_BYTES +
-                                            sp8 * Q::X_ROW);
-    if (g.tied) {                      // NT rows n of kKC bytes
+    const int t = c / p.nc, k0 = c % p.nc * kKC, n0 = t * CW;
+    const int cols = tiles_in(t) * NT;
+    int8_t* raw = reinterpret_cast<int8_t*>(
+        smem + st * stage + (R8 ? 0 : Q::W_BYTES + sp8 * C::X_ROW));
+    if (g.tied) {                      // `cols` rows n of kKC bytes
       constexpr int CPR = kKC / 16;
-      for (int e = threadIdx.x; e < NT * CPR; e += kThreads) {
+      for (int e = threadIdx.x; e < cols * CPR; e += kThreads) {
         const int row = e / CPR, cc = e % CPR;
-        tc::cp_async16(raw + row * kKC + cc * 16,
+        const int dc = R8 ? cc ^ (row >> 2 & 3) : cc;
+        tc::cp_async16(raw + row * kKC + dc * 16,
                        g.q[0] + static_cast<long long>(n0 + row) * g.K + k0 + cc * 16,
                        true);
       }
-    } else {                           // kKC rows k of NT bytes
-      const int sg = segment(n0);
-      const int8_t* W = g.q[sg] + (n0 - (sg ? g.end[sg - 1] : 0));
-      const long long ld = g.ld[sg];
-      constexpr int CPR = NT / 16;
-      for (int e = threadIdx.x; e < kKC * CPR; e += kThreads) {
-        const int row = e / CPR, cc = e % CPR;
-        tc::cp_async16(raw + row * NT + cc * 16, W + (k0 + row) * ld + cc * 16, true);
+    } else {                           // kKC rows k of `cols` bytes
+      const int cpr = cols / 16;
+      for (int e = threadIdx.x; e < kKC * cpr; e += kThreads) {
+        const int row = e / cpr, cc = e % cpr;
+        const int nc = n0 + cc * 16, sg = segment(nc);
+        const int dc = R8 ? cc ^ ((row >> 1 & 3) << 1) : cc;
+        tc::cp_async16(raw + row * CW + dc * 16,
+                       g.q[sg] + (k0 + row) * static_cast<long long>(g.ld[sg]) +
+                           seg_col(nc, sg),
+                       true);
+      }
+    }
+    if constexpr (R8) {                // the columns' scales, 4 a copy
+      if (threadIdx.x < cols / 4) {
+        const int nc = n0 + 4 * threadIdx.x, sg = g.tied ? 0 : segment(nc);
+        tc::cp_async16(r8_scales(st) + 4 * threadIdx.x,
+                       g.s[sg] + (g.tied ? nc : seg_col(nc, sg)), true);
       }
     }
   }
+  __device__ float* r8_scales(int st) const {
+    return reinterpret_cast<float*>(smem + st * stage + C::W_BYTES +
+                                    sp8 * C::X_ROW);
+  }
 
-  // int8 weights: stage st's landed chunk c into its weight tile, each
-  // value round(float(q) * scale[col]) (decode.py _dq: one rounding), at
-  // the place issue_w's dense copy would have put it. Group e of a thread
-  // is the 16 bytes its copy e of issue_w8 brought (the same loop and the
-  // same row / column split), which run() relies on.
+  // int8 weights in fp32: stage st's landed chunk c into its weight tile,
+  // each value round(float(q) * scale[col]) (decode.py _dq: one rounding),
+  // at the place issue_w's dense copy would have put it. Group e of a
+  // thread is the 16 bytes its copy e of issue_w8 brought (the same loop
+  // and the same row / column split), which run() relies on.
   __device__ void dequant_w(int c, int st) const {
+    static_assert(!Q::BF, "bf16 builds its fragments in registers");
     const int t = c / p.nc, n0 = t * NT;
     const int8_t* raw = reinterpret_cast<const int8_t*>(
-        smem + st * stage + Q::W_BYTES + sp8 * Q::X_ROW);
+        smem + st * stage + Q::W_BYTES + sp8 * C::X_ROW);
     T* sw = reinterpret_cast<T*>(smem + st * stage);
     // 16 values a thread at a time, written as whole 16-byte chunks of T
     if (g.tied) {                      // [NT rows n][kKC k]
@@ -596,7 +673,7 @@ struct GemvRun {
       }
     } else {                           // [kKC rows k][NT n]
       const int sg = segment(n0);
-      const float* sc = g.s[sg] + (n0 - (sg ? g.end[sg - 1] : 0));
+      const float* sc = g.s[sg] + seg_col(n0, sg);
       for (int e = threadIdx.x; e < kKC * NT / 16; e += kThreads) {
         const int row = e / (NT / 16), n16 = e % (NT / 16) * 16;
         float v[16], f[16];
@@ -612,9 +689,7 @@ struct GemvRun {
 #pragma unroll
           for (int x = 0; x < VEC; ++x)
             o[x] = from_f<T>(__fmul_rn(v[c * VEC + x], f[c * VEC + x]));
-          const int cc = n16 / VEC + c;
-          const int dc = Q::BF ? (cc ^ (row & 7)) : cc;
-          *reinterpret_cast<uint4*>(sw + row * NT + dc * VEC) =
+          *reinterpret_cast<uint4*>(sw + row * NT + (n16 / VEC + c) * VEC) =
               *reinterpret_cast<const uint4*>(o);
         }
       }
@@ -646,7 +721,7 @@ struct GemvRun {
       }
     } else {                           // kKC rows k of NT elements
       const int s = segment(n0);
-      const T* W = g.w[s] + (n0 - (s ? g.end[s - 1] : 0));
+      const T* W = g.w[s] + seg_col(n0, s);
       const long long ld = g.ld[s];
       constexpr int CPR = NT / VEC;
 #pragma unroll
@@ -661,7 +736,7 @@ struct GemvRun {
   // chunk c's X rows r0 .. r0 + rp8 into stage st (rows past R zero-filled)
   __device__ void issue_x(int c, int st, int r0, int rows, int rp8) const {
     const int k0 = c % p.nc * kKC;
-    T* sx = reinterpret_cast<T*>(smem + st * stage + Q::W_BYTES);
+    T* sx = reinterpret_cast<T*>(smem + st * stage + C::W_BYTES);
     constexpr int XC = kKC / VEC;
     for (int e = threadIdx.x; e < rp8 * XC; e += kThreads) {
       const int row = e / XC, cc = e % XC;
@@ -674,32 +749,146 @@ struct GemvRun {
     }
   }
 
-  // a tile's group and the pieces the group holds (see Kind)
+  // an NT-column tile's group and the pieces the group holds (see Kind);
+  // a tile's pieces are those of the plan tile holding it
   __device__ int tiles_a_head() const { return g.kind == kQKV ? D / NT : 1; }
   __device__ int group_of(int t) const {
     return g.kind == kQKV ? t / tiles_a_head()
          : g.kind == kGateUp ? t % (g.N / NT / 2) : t;
   }
+  __device__ int tile_pieces(int t) const { return p.pieces(t * NT / CW); }
   __device__ int group_pieces(int grp) const {
-    if (g.kind == kGateUp) return p.pieces(grp) + p.pieces(grp + g.N / NT / 2);
+    if (g.kind == kGateUp)
+      return tile_pieces(grp) + tile_pieces(grp + g.N / NT / 2);
     int s = 0;
     for (int t = grp * tiles_a_head(); t < (grp + 1) * tiles_a_head(); ++t)
-      s += p.pieces(t);
+      s += tile_pieces(t);
     return s;
   }
 
+  // R8: the int8 value in byte `sel & 3` of w (a read XORed with
+  // 0x80808080, so each byte holds q + 128) as a float, exactly: the byte
+  // under the exponent of 2^23, less 2^23 + 128 (no int-to-float convert)
+  __device__ static float i8f(unsigned w, unsigned sel) {
+    return __fadd_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, sel)),
+                     -8388736.0f);
+  }
+  __device__ static uint32_t dq2(unsigned wlo, unsigned slo, unsigned whi,
+                                 unsigned shi, float s) {
+    return tc::pack_bf16(__fmul_rn(i8f(wlo, slo), s), __fmul_rn(i8f(whi, shi), s));
+  }
+
+  // R8: this warp's A fragments of k-step ks for its two 16-column MMA
+  // tiles m (af[m]). Warp w owns columns 32w .. 32w+31 of the plan tile; a
+  // thread's four are cb4 .. cb4+3 (cb4 = 32w + 4 (lane / 4)): fragment
+  // row i (< 8) of tile m is column cb4 + 2m, row i + 8 is cb4 + 2m + 1.
+  // So one 32-bit read of a k row gives a thread all its columns, the four
+  // reads of a k-step at fixed offsets from its base (a row's swizzle
+  // 2 (k / 2 % 4) is 2 (lane % 4) for each). The tied head's rows cb4 ..
+  // cb4+3 give a k pair a 16-bit read. Each value is round(float(q) *
+  // scale[col]), _dq's bits.
+  __device__ void r8_frag(uint32_t (&af)[2][4], const unsigned char* base,
+                          int ks, const float4& s) const {
+    const float sc[4] = {s.x, s.y, s.z, s.w};
+    if (g.tied) {                      // [n][kKC k]: rows cb4 .. cb4+3
+      auto rd = [](const unsigned char* q) -> unsigned {
+        return *reinterpret_cast<const uint16_t*>(q) ^ 0x8080u;
+      };
+      const unsigned char* q = base + (((ks ^ (threadIdx.x >> 2)) & 3) << 4);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const unsigned x0 = rd(q + 2 * m * kKC), x1 = rd(q + (2 * m + 1) * kKC);
+        const unsigned x2 = rd(q + 2 * m * kKC + 8);
+        const unsigned x3 = rd(q + (2 * m + 1) * kKC + 8);
+        af[m][0] = dq2(x0, 0x7440u, x0, 0x7441u, sc[2 * m]);
+        af[m][1] = dq2(x1, 0x7440u, x1, 0x7441u, sc[2 * m + 1]);
+        af[m][2] = dq2(x2, 0x7440u, x2, 0x7441u, sc[2 * m]);
+        af[m][3] = dq2(x3, 0x7440u, x3, 0x7441u, sc[2 * m + 1]);
+      }
+    } else {                           // [kKC k][CW n]: k rows 2 (lane % 4) ..
+      auto rd = [](const unsigned char* q) -> unsigned {
+        return *reinterpret_cast<const uint32_t*>(q) ^ 0x80808080u;
+      };
+      const unsigned char* q = base + 16 * CW * ks;
+      const unsigned x0 = rd(q), x1 = rd(q + CW);
+      const unsigned x2 = rd(q + 8 * CW), x3 = rd(q + 9 * CW);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const unsigned b0 = 0x7440u + 2 * m, b1 = b0 + 1;   // bytes 2m, 2m + 1
+        af[m][0] = dq2(x0, b0, x1, b0, sc[2 * m]);
+        af[m][1] = dq2(x0, b1, x1, b1, sc[2 * m + 1]);
+        af[m][2] = dq2(x2, b0, x3, b0, sc[2 * m]);
+        af[m][3] = dq2(x2, b1, x3, b1, sc[2 * m + 1]);
+      }
+    }
+  }
+
   // chunk c from stage st into the accumulators; a piece's last chunk
-  // writes the piece to its slot and takes the group's ticket
+  // writes the piece to its slot and takes its tiles' group tickets
   __device__ void process(int c, int st, int r0, int rows, int rp8) const {
-    __shared__ int s_done;
+    __shared__ int s_done[CW / NT];
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int t = c / p.nc, kc = c % p.nc;
     const bool first = c == cb || kc == 0;
     const bool last = c == ce - 1 || kc == p.nc - 1;
     const T* sw = reinterpret_cast<const T*>(smem + st * stage);
-    const T* sx = reinterpret_cast<const T*>(smem + st * stage + Q::W_BYTES);
+    const T* sx = reinterpret_cast<const T*>(smem + st * stage + C::W_BYTES);
     float* dst = a.part + static_cast<long long>(b - p.first(t)) * R * g.N;
-    if constexpr (Q::BF) {
+    if constexpr (R8) {
+      // two k-steps at a time: their A fragments for this warp's two MMA
+      // tiles, converted once, then every 8-row tile of X (its running
+      // sums in the accumulator slots); a warp past an odd end's one tile
+      // has no columns
+      const int tq = lane & 3, cb4 = 32 * warp + 4 * (lane >> 2);
+      if (cb4 < tiles_in(t) * NT) {
+        const float4 s4 = *reinterpret_cast<const float4*>(r8_scales(st) + cb4);
+        const unsigned char* raw = smem + st * stage;
+        // the thread's first byte: k row 2 tq at column cb4 (16-byte chunk
+        // cb4 / 16 at cb4 / 16 ^ 2 tq), or the tied head's row cb4 at k 2 tq
+        const unsigned char* base =
+            g.tied ? raw + cb4 * kKC + 2 * tq
+                   : raw + 2 * tq * CW + (((cb4 >> 4) ^ (2 * tq)) << 4) + (cb4 & 15);
+        float4* acc4 = reinterpret_cast<float4*>(acc);
+        const int col = t * CW + cb4;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t af0[2][4], af1[2][4];
+          r8_frag(af0, base, 2 * j, s4);
+          r8_frag(af1, base, 2 * j + 1, s4);
+          for (int rt = 0; rt < rp8 / 8; ++rt) {
+            float cf[2][4];
+            float4* slot = acc4 + ((rt * kWarps + warp) * 2) * 32 + lane;
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const float4 v = first && j == 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                               : slot[32 * m];
+              cf[m][0] = v.x; cf[m][1] = v.y; cf[m][2] = v.z; cf[m][3] = v.w;
+            }
+            // B fragments: rows 8rt .. 8rt+7, k-steps 2j and 2j + 1
+            uint32_t bf[4];
+            tc::ldsm_x4(bf, sx + sw128(8 * rt + (lane & 7), 4 * j + (lane >> 3)));
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              tc::mma(cf[m], af0[m], bf[0], bf[1]);
+              tc::mma(cf[m], af1[m], bf[2], bf[3]);
+            }
+            if (last && j == 1) {   // C: columns col .. col + 3; rows r, r + 1
+              const int r = r0 + 8 * rt + 2 * tq;
+              if (r < R)
+                *reinterpret_cast<float4*>(dst + static_cast<long long>(r) * g.N + col) =
+                    make_float4(cf[0][0], cf[0][2], cf[1][0], cf[1][2]);
+              if (r + 1 < R)
+                *reinterpret_cast<float4*>(dst + static_cast<long long>(r + 1) * g.N + col) =
+                    make_float4(cf[0][1], cf[0][3], cf[1][1], cf[1][3]);
+            } else {
+#pragma unroll
+              for (int m = 0; m < 2; ++m)
+                slot[32 * m] = make_float4(cf[m][0], cf[m][1], cf[m][2], cf[m][3]);
+            }
+          }
+        }
+      }
+    } else if constexpr (Q::BF) {
       // A fragments of this warp's 16 columns, the chunk's 4 k-steps
       uint32_t af[4][4];
       const int m = lane >> 3;
@@ -784,45 +973,52 @@ struct GemvRun {
       }
     }
     if (!last) return;
-    // the piece is out: take the group's ticket (the block's writes are
-    // ordered before thread 0's fence by the barrier)
+    // the piece is out: take the ticket of each of its tiles' groups in one
+    // round (the block's writes are ordered before thread 0's fence by the
+    // barrier; a group both tiles belong to takes two, the second of which
+    // may complete it)
+    const int nt = tiles_in(t);
     __syncthreads();
-    const int grp = group_of(t);
     if (tid == 0) {
       __threadfence();
-      s_done = atomicAdd(a.gtickets + grp, 1) == passes * group_pieces(grp) - 1;
+      for (int u = 0; u < nt; ++u) {
+        const int grp = group_of(t * (CW / NT) + u);
+        s_done[u] = atomicAdd(a.gtickets + grp, 1) == passes * group_pieces(grp) - 1;
+      }
     }
     __syncthreads();
-    if (s_done) {
+    for (int u = 0; u < nt; ++u) {
+      if (!s_done[u]) continue;
+      const int grp = group_of(t * (CW / NT) + u);
       __threadfence();
       finish_group<T, D>(a, g, p, grp);
       if (tid == 0) a.gtickets[grp] = 0;   // ready for the next phase
     }
   }
 
-  // the ring: kStages - 1 chunks in flight ahead of the one in use (empty
-  // groups past the end keep the wait count uniform)
+  // the ring: S - 1 chunks in flight ahead of the one in use (empty groups
+  // past the end keep the wait count uniform)
   __device__ void run() const {
     for (int r0 = 0; r0 < R && n > 0; r0 += kRowPass) {
       const int rows = min(kRowPass, R - r0), rp8 = (rows + 7) & ~7;
 #pragma unroll
-      for (int s = 0; s < kStages - 1; ++s) {
+      for (int s = 0; s < S - 1; ++s) {
         if (s < n) issue(cb + s, s, r0, rows, rp8);
         tc::cp_async_commit();
       }
       for (int i = 0; i < n; ++i) {
-        tc::cp_async_wait<kStages - 2>();   // chunk i has landed
-        // int8 weights: each thread dequantizes the very bytes it copied
-        // (dequant_w walks issue_w8's copies in the same order), so its own
-        // wait suffices and the one barrier below publishes the tile
-        if constexpr (W8) dequant_w(cb + i, i % kStages);
+        tc::cp_async_wait<S - 2>();   // chunk i has landed
+        // int8 weights in fp32: each thread dequantizes the very bytes it
+        // copied (dequant_w walks issue_w8's copies in the same order), so
+        // its own wait suffices and the one barrier below publishes the tile
+        if constexpr (W8 && !R8) dequant_w(cb + i, i % S);
         __syncthreads();                     // ... for every thread; i-1 read
-        if (i + kStages - 1 < n) {
-          const int c = cb + i + kStages - 1, st = (i + kStages - 1) % kStages;
+        if (i + S - 1 < n) {
+          const int c = cb + i + S - 1, st = (i + S - 1) % S;
           issue(c, st, r0, rows, rp8);
         }
         tc::cp_async_commit();
-        process(cb + i, i % kStages, r0, rows, rp8);
+        process(cb + i, i % S, r0, rows, rp8);
       }
       tc::cp_async_wait<0>();
       __syncthreads();
@@ -1131,17 +1327,16 @@ fused_tick_kernel(Args<T, KT> a) {
   for (int r = b0; r < R; r += nblk) sample_row(a, r, smem);
 }
 
-// Dynamic shared memory of a launch: the GEMV ring (with int8 weights, a
-// raw int8 area a stage) and accumulators for min(R, kRowPass) rows, the
-// split-KV walk's ring for G heads a KV head, or the sampler's histogram,
-// whichever is largest.
-template <typename T, int D, typename KT>
-size_t smem_bytes(int R, int G, bool w8) {
-  using Q = Geo<T>;
+// Dynamic shared memory of a launch: the GEMV ring (GemvRun's stages:
+// Chunk's weights, X rows and fp32's raw int8 area) and accumulators for
+// min(R, kRowPass) rows, the split-KV walk's ring for G heads a KV head,
+// or the sampler's histogram, whichever is largest.
+template <typename T, int D, typename KT, bool W8>
+size_t smem_bytes(int R, int G) {
+  using C = Chunk<T, W8>;
   const size_t sp8 = (std::min(R, kRowPass) + 7) & ~7;
-  const size_t q8 = w8 ? static_cast<size_t>(kKC) * Q::NT : 0;
-  const size_t gemv =
-      kStages * (Q::W_BYTES + sp8 * Q::X_ROW + q8) + sp8 * Q::ACC_ROW;
+  const size_t gemv = C::STAGES * (C::W_BYTES + sp8 * C::X_ROW + C::Q8_BYTES) +
+                      sp8 * C::ACC_ROW;
   const size_t walk = skv::Shape<T, D, KT>::smem_bytes(G);
   const size_t sample = (2 * kWarps + 256 + 3) * sizeof(float);
   return std::max(std::max(gemv, walk), sample);
@@ -1151,7 +1346,7 @@ template <typename T, int D, typename KT, int QM, bool W8>
 cudaError_t launch(Args<T, KT> a, int max_blocks_per_sm, cudaStream_t stream,
                    int* grid_out) {
   auto kernel = fused_tick_kernel<T, D, KT, QM, W8>;
-  const size_t smem = smem_bytes<T, D, KT>(a.R, a.nh / a.nkv, W8);
+  const size_t smem = smem_bytes<T, D, KT, W8>(a.R, a.nh / a.nkv);
   cudaError_t err = tc::use_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;

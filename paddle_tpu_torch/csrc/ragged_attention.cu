@@ -21,7 +21,8 @@
 //     kvlen[r], keys through the row's table. Blocks of rows whose
 //     qlen != 1 exit at once.
 //   ragged_wgmma_kernel — chunk spans (qlen >= 2) in bfloat16, on the
-//     tensor cores: the flash forward's wgmma tile (csrc/flash.cu). One
+//     tensor cores, over any pool (quantized ones below): the flash
+//     forward's wgmma tile (csrc/flash.cu). One
 //     warpgroup per (64-row tile of the span, sequence, head), tiles past
 //     the span exiting at once (the last tiles, the longest causal walks,
 //     are scheduled first); Q [64, D] copied once; 64-key K/V tiles stream
@@ -41,11 +42,18 @@
 //
 // Quantized pools (the reference's int8 and fp8 modes, _ragged_kernel's
 // quantized branches): int8 K/V with per-row-per-head float32 planes, or
-// e4m3 with per-block planes. Span-1 rows take the walk's quantized mode;
-// chunk spans, in either query type, take ragged_kernel, the CUDA-core
-// tile, each K/V tile converted to float32 as it lands in shared memory
-// with its keys' scales (attention_common.cuh). Chunks on the wgmma tile
-// from a quantized pool are later work (ROADMAP Queue B item 6).
+// e4m3 with per-block planes. Span-1 rows take the walk's quantized mode.
+// bf16 chunk spans take the wgmma tile: each 64-key K/V tile streams as
+// narrow bytes (8 KB at D = 128) by cp.async through the table, with its
+// keys' 64 K and 64 V scales, into a two-stage ring; once it lands, each
+// thread converts the bytes its own copies brought into ONE swizzled bf16
+// K and V tile (exact: every int8 and e4m3 value is a bf16 value), then
+// fence.proxy.async and a barrier before the first wgmma reads it. The
+// scales come after the dot, the reference's separability: S times
+// 1/sqrt(D), then the key's K scale; l sums the unscaled P; the V scale
+// is folded into P before P is rounded to bf16 for the PV product.
+// float32 chunk spans take ragged_kernel, each K/V tile converted to
+// float32 as it lands, with the same order (attention_common.cuh).
 //
 // GQA indexes the KV head as h / (H / Hkv) (K/V never repeated). Numbers:
 // P is rounded to the input type per key tile (or page) against a running
@@ -164,10 +172,18 @@ constexpr int kBM = 64;    // span rows a block: one warpgroup
 constexpr int kBN = 64;    // keys a tile
 constexpr int kNT = 128;
 
-// the Q tile, two stages of K and of V, and 1 KB to align the atoms
-template <int D>
+// A bf16 pool: the Q tile, two stages of K and of V, and 1 KB to align
+// the atoms. A quantized pool (QM 1, 2): the Q tile and ONE bf16 K and V
+// tile that the conversion fills, then the ring that hides the latency:
+// two stages of the narrow K and V tiles (a byte a value) and their 64 K
+// and 64 V scales. 82,944 and 83,968 bytes at D = 128: two blocks an SM
+// either way.
+template <int D, int QM>
 constexpr size_t smem_bytes() {
-  return static_cast<size_t>(kBM + 4 * kBN) * D * sizeof(bf16) + 1024;
+  return QM == 0 ? static_cast<size_t>(kBM + 4 * kBN) * D * sizeof(bf16) +
+                       1024
+                 : static_cast<size_t>(kBM + 2 * kBN) * D * sizeof(bf16) +
+                       2 * (2 * kBN * D + 2 * kBN * sizeof(float)) + 1024;
 }
 
 template <int D>
@@ -185,11 +201,15 @@ __device__ __forceinline__ void pv<128>(float (&o)[16][4],
   tc::wgmma_m64n128_rs(o, a, db);
 }
 
-template <int D>
+// KT, QM: the pool (bf16, 0; int8, 1; e4m3, 2) and its scale planes
+// (null for a bf16 pool)
+template <int D, typename KT, int QM>
 __global__ void __launch_bounds__(kNT, 2)
 ragged_wgmma_kernel(const bf16* __restrict__ q,
-                    const bf16* __restrict__ pool_k,
-                    const bf16* __restrict__ pool_v,
+                    const KT* __restrict__ pool_k,
+                    const KT* __restrict__ pool_v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
                     const int* __restrict__ qstart,
                     const int* __restrict__ qlen,
@@ -201,10 +221,15 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
   const int i0 = (gridDim.x - 1 - static_cast<int>(blockIdx.x)) * kBM;
   if (ql < 2 || i0 >= ql) return;             // a decode row, or past the span
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  constexpr int KV_STAGES = QM == 0 ? 2 : 1;  // bf16 K/V tiles
   bf16* sQ = reinterpret_cast<bf16*>(
       smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023));
   bf16* sK = sQ + kBM * D;
-  bf16* sV = sK + 2 * kBN * D;
+  bf16* sV = sK + KV_STAGES * kBN * D;
+  // a quantized pool's ring: stage st holds the narrow K tile, the narrow
+  // V tile ([kBN][D] bytes each), then 64 K scales and 64 V scales
+  uint8_t* sN = reinterpret_cast<uint8_t*>(sV + KV_STAGES * kBN * D);
+  float* sS = reinterpret_cast<float*>(sN + 2 * 2 * kBN * D);
   constexpr int KS = D / 16;
   constexpr int NO = D / 8;
   constexpr int NS = kBN / 8;
@@ -229,11 +254,39 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
   const int w0 = first_pos + warp * 16;       // this warp's first position
   const int pos[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
 
+  // key tile j into ring stage j & 1: bf16 straight into the swizzled
+  // tiles; narrow bytes and each key's K and V scale (thread i < 64: key i's
+  // K scale, else key i - 64's V scale), zeros past kv_stop (stale pool
+  // rows and planes may hold anything, and 0 * NaN is NaN)
+  auto stage = [&](int j) {
+    const int st = j & 1, k0 = j * kBN;
+    if constexpr (QM == 0) {
+      tc::load_tile_paged<kBN, D, kNT>(sK + st * kBN * D, pool_k, row_tbl, k0,
+                                       kv_stop, nb, bs, kv_row, kvh);
+      tc::load_tile_paged<kBN, D, kNT>(sV + st * kBN * D, pool_v, row_tbl, k0,
+                                       kv_stop, nb, bs, kv_row, kvh);
+    } else {
+      uint8_t* nk = sN + st * 2 * kBN * D;
+      tc::load_tile_paged_narrow<kBN, D, kNT>(
+          nk, reinterpret_cast<const uint8_t*>(pool_k), row_tbl, k0, kv_stop,
+          nb, bs, kv_row, kvh);
+      tc::load_tile_paged_narrow<kBN, D, kNT>(
+          nk + kBN * D, reinterpret_cast<const uint8_t*>(pool_v), row_tbl, k0,
+          kv_stop, nb, bs, kv_row, kvh);
+      static_assert(kNT == 2 * kBN, "a scale a thread");
+      const int p = k0 + (threadIdx.x & (kBN - 1));
+      const bool ok = p < kv_stop;
+      const float* plane = threadIdx.x < kBN ? k_scale : v_scale;
+      long long at = 0;
+      if (ok)
+        at = scale_index<QM>(min(max(row_tbl[p / bs], 0), nb - 1), p, bs, Hkv,
+                             kvh);
+      tc::cp_async4(sS + st * 2 * kBN + threadIdx.x, plane + at, ok);
+    }
+  };
+
   tc::load_tile<kBM, D, kNT>(sQ, qb, q_row, rows);
-  tc::load_tile_paged<kBN, D, kNT>(sK, pool_k, row_tbl, 0, kv_stop, nb, bs,
-                                   kv_row, kvh);
-  tc::load_tile_paged<kBN, D, kNT>(sV, pool_v, row_tbl, 0, kv_stop, nb, bs,
-                                   kv_row, kvh);
+  stage(0);
   tc::cp_async_commit();
 
   float o[NO][4];
@@ -248,22 +301,28 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
     const int st = j & 1;
     const int k0 = j * kBN;
     if (j + 1 < n_kt) {
-      const int k1 = k0 + kBN;
-      tc::load_tile_paged<kBN, D, kNT>(sK + (st ^ 1) * kBN * D, pool_k,
-                                       row_tbl, k1, kv_stop, nb, bs, kv_row,
-                                       kvh);
-      tc::load_tile_paged<kBN, D, kNT>(sV + (st ^ 1) * kBN * D, pool_v,
-                                       row_tbl, k1, kv_stop, nb, bs, kv_row,
-                                       kvh);
+      stage(j + 1);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
       tc::cp_async_wait<0>();
     }
+    // a quantized tile: each thread converts the bytes its own copies
+    // brought into the one bf16 K and V tile (the last tile's products are
+    // done: the barrier that ended its iteration)
+    if constexpr (QM != 0) {
+      const uint8_t* nk = sN + st * 2 * kBN * D;
+      tc::narrow_to_bf16<KT, kBN, D, kNT>(sK, nk);
+      tc::narrow_to_bf16<KT, kBN, D, kNT>(sV, nk + kBN * D);
+    }
+    // the copies (and the conversion's generic-proxy writes) made visible
+    // to wgmma's async-proxy reads
     tc::fence_proxy_async();
     __syncthreads();
-    const bf16* cK = sK + st * kBN * D;
-    const bf16* cV = sV + st * kBN * D;
+    const bf16* cK = sK + (QM == 0 ? st : 0) * kBN * D;
+    const bf16* cV = sV + (QM == 0 ? st : 0) * kBN * D;
+    const float* ksc = sS + st * 2 * kBN;   // the tile's K scales (quantized)
+    const float* vsc = ksc + kBN;           // ... and V scales
 
     float s[NS][4];
 #pragma unroll
@@ -281,14 +340,19 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
     tc::pin(s);
 
     // a tile reaching past this warp's first row's limit, or past the
-    // valid keys, is masked key by key
+    // valid keys, is masked key by key. A quantized pool's K scale
+    // multiplies the score after 1/sqrt(D), the reference's order.
     const bool edge = k0 + kBN - 1 > w0 || k0 + kBN > kv_valid;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int n = 0; n < NS; ++n) {
+      float2 kf = make_float2(1.f, 1.f);
+      if constexpr (QM != 0)
+        kf = *reinterpret_cast<const float2*>(ksc + n * 8 + 2 * t);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = s[n][i] * scale;
+        if constexpr (QM != 0) x *= i & 1 ? kf.y : kf.x;
         if (edge) {
           const int key = k0 + n * 8 + 2 * t + (i & 1);
           x = key < kv_valid && key <= pos[i >> 1] ? x : kNegInf;
@@ -296,6 +360,7 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
         s[n][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
       }
+    }
     float alpha[2], ml[2];
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -304,17 +369,24 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
       m[rr] = mn;
       ml[rr] = mn * tc::kLog2e;
     }
+    // l sums the unscaled P; a quantized pool's V scale is folded into P
+    // after, before P is rounded to bf16 for the PV product
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int n = 0; n < NS; ++n) {
+      float2 vf = make_float2(1.f, 1.f);
+      if constexpr (QM != 0)
+        vf = *reinterpret_cast<const float2*>(vsc + n * 8 + 2 * t);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float x = s[n][i];
         float p = tc::exp2_fast(fmaf(x, tc::kLog2e, -ml[i >> 1]));
         p = x == kNegInf ? 0.f : p;
-        s[n][i] = p;
         rs[i >> 1] += p;
+        if constexpr (QM != 0) p *= i & 1 ? vf.y : vf.x;
+        s[n][i] = p;
       }
+    }
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) l[rr] = alpha[rr] * l[rr] + rs[rr];
 #pragma unroll
@@ -355,8 +427,8 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
 
 }  // namespace rtc
 
-// Both grids of one call, split-KV first, on one stream. A quantized pool
-// (KT narrow) takes the CUDA-core chunk tile in either query type.
+// Both grids of one call, split-KV first, on one stream. bf16 chunks take
+// the wgmma tile on any pool; float32 chunks the CUDA-core tile.
 template <typename T, int D, typename KT, int QM>
 cudaError_t launch(const T* q, const KT* pk, const KT* pv, const float* ks,
                    const float* vs, const int* tables, const int* qs,
@@ -372,13 +444,15 @@ cudaError_t launch(const T* q, const KT* pk, const KT* pv, const float* ks,
   if (err != cudaSuccess) return err;
   // no span is longer than the packed buffer, so ceil(T / rows a tile)
   // tiles cover every span
-  if constexpr (sizeof(T) == 2 && QM == 0) {
-    auto kernel = rtc::ragged_wgmma_kernel<D>;
-    err = tc::use_smem(kernel, rtc::smem_bytes<D>());
+  if constexpr (sizeof(T) == 2) {
+    auto kernel = rtc::ragged_wgmma_kernel<D, KT, QM>;
+    constexpr size_t smem = rtc::smem_bytes<D, QM>();
+    err = tc::use_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((T_ + rtc::kBM - 1) / rtc::kBM, R, H);
-    kernel<<<grid, rtc::kNT, rtc::smem_bytes<D>(), stream>>>(
-        q, pk, pv, tables, qs, ql, kl, out, H, Hkv, nb, bs, mb, scale);
+    kernel<<<grid, rtc::kNT, smem, stream>>>(q, pk, pv, ks, vs, tables, qs,
+                                             ql, kl, out, H, Hkv, nb, bs, mb,
+                                             scale);
   } else {
     using S = TileShape<T, D, kRaggedTQ>;
     auto kernel = ragged_kernel<T, D, KT, QM>;

@@ -36,6 +36,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// two floats -> bf16x2 (round to nearest even, lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ---------------------------------------------------------------- copies
 // 16 bytes global -> shared; with pred false the source is not read and
 // the 16 bytes are zero-filled (rows past S).
@@ -121,6 +127,64 @@ __device__ __forceinline__ void load_tile_paged(
             c * 8;
     }
     cp_async16(dst + swz<R>(r, c), pool + off, ok);
+  }
+}
+
+// A quantized pool's tile (int8 or e4m3, a byte a value) read through the
+// table as load_tile_paged reads it, into a plain [R][D] byte tile (key r
+// at byte r * D), 16 values a copy (kv_row = Hkv * D bytes). Keys at or
+// past `valid` become zeros and are not read.
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_tile_paged_narrow(
+    uint8_t* dst, const uint8_t* pool, const int* tbl, int p0, int valid,
+    int nb, int bs, long long kv_row, int kvh) {
+  constexpr int CH = D / 16;
+  static_assert(R * CH % NT == 0, "every thread copies the same count");
+#pragma unroll
+  for (int i = 0; i < R * CH / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / CH;
+    const int c = e % CH;
+    const int p = p0 + r;
+    const bool ok = p < valid;
+    long long off = 0;
+    if (ok) {
+      const int phys = min(max(tbl[p / bs], 0), nb - 1);
+      off = (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D +
+            c * 16;
+    }
+    cp_async16(dst + r * D + c * 16, pool + off, ok);
+  }
+}
+
+// The landed narrow tile into the swizzled bf16 tile dst of the same keys:
+// exact, since every int8 and every e4m3 value is a bf16 value (no scale
+// goes in). Each thread converts the 16 values of each of its own copies
+// of load_tile_paged_narrow (the same loop and split), so its own cp.async
+// wait suffices before it; fence_proxy_async and a barrier after it
+// publish the tile to wgmma.
+template <typename KT, int R, int D, int NT>
+__device__ __forceinline__ void narrow_to_bf16(__nv_bfloat16* dst,
+                                               const uint8_t* src) {
+  constexpr int CH = D / 16;
+#pragma unroll
+  for (int i = 0; i < R * CH / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / CH;
+    const int c = e % CH;
+    float v[16];
+    load16_narrow(reinterpret_cast<const KT*>(src + r * D + c * 16), v);
+    uint4 lo, hi;
+    lo.x = pack_bf16(v[0], v[1]);
+    lo.y = pack_bf16(v[2], v[3]);
+    lo.z = pack_bf16(v[4], v[5]);
+    lo.w = pack_bf16(v[6], v[7]);
+    hi.x = pack_bf16(v[8], v[9]);
+    hi.y = pack_bf16(v[10], v[11]);
+    hi.z = pack_bf16(v[12], v[13]);
+    hi.w = pack_bf16(v[14], v[15]);
+    *reinterpret_cast<uint4*>(dst + swz<R>(r, 2 * c)) = lo;
+    *reinterpret_cast<uint4*>(dst + swz<R>(r, 2 * c + 1)) = hi;
   }
 }
 
@@ -258,12 +322,6 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2 (round to nearest even, lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The accumulators of 8-column tiles 2kk and 2kk+1 (rows of this warp's

@@ -43,11 +43,17 @@ planes (each side a ``(data, scale)`` pair, as ``PagedKVCache.kv_args``
 gives them): the QKV epilogue quantizes the appended rows on write (the
 pool's write rule, bit for bit) and the attention is the walk's quantized
 mode, paged decode's bits. The weights may be int8 ``(q, scale)`` pairs
-(``serving/decode.quantize_decode_params``): each 64-row chunk streams as
-int8 (half the bytes of a bf16 chunk) and is dequantized in shared memory
-as ``round(float(q) * scale[col])`` — ``_dq``'s bits — before the MMAs;
-the chunk keeps its 64 x NT shape, so :func:`part_slots` and
-:func:`part_size` are unchanged. With int8 weights the head is the
+(``serving/decode.quantize_decode_params``); every weight value that
+reaches an MMA is ``round(float(q) * scale[col])``, ``_dq``'s bits. In
+bf16 a chunk of int8 weights is two tiles wide (:data:`PLAN_COLS`: 64 k
+rows x 128 columns, a projection whose tiles are odd in number ends in
+one tile), 8 KB of int8 in 128-byte rows like a dense chunk's 8 KB, so a
+tick runs half the chunk iterations and reads half the rows; each warp
+builds its MMAs' operands from the int8 tile in registers, with no bf16
+copy in shared memory. :func:`part_slots` and :func:`part_size` take the
+plan's columns. In float32 a chunk of int8 weights keeps the dense
+tile's 32 columns and is dequantized in shared memory. With int8 weights
+the head is the
 parameters' int8 ``lm_head`` pair (a tied one ``[V, H]`` with its scales
 along V, dequantized then read transposed, as ``_dq_head`` does); the
 ``head`` argument is then only the plain version's. An a8 engine never
@@ -86,6 +92,11 @@ CHUNK = 64
 BLOCKS_PER_SM = 4
 #: output columns a GEMV tile, by dtype (``Geo<T>::NT`` in the source)
 TILE_COLS = {torch.bfloat16: 64, torch.float32: 32}
+#: output columns a chunk (a tile of the split-K plan) by (dtype, int8
+#: weights) (``Chunk<T, W8>::CW`` in the source): two tiles for int8
+#: weights in bf16 (8 KB of int8 in 128-byte rows), one otherwise
+PLAN_COLS = {(torch.bfloat16, False): 64, (torch.bfloat16, True): 128,
+             (torch.float32, False): 32, (torch.float32, True): 32}
 #: the last launch, for reports: its grid (blocks co-resident on the
 #: card), blocks an SM, and the attention's split length and splits a row
 LAST_GRID = {"blocks": 0, "blocks_per_sm": 0, "split_len": 0, "n_split": 0}
@@ -120,23 +131,26 @@ def check_limits(nh, nkv, D, hidden, inter, vocab):
 
 
 def part_slots(N, K, cols, grid):
-    """Partial-sum slots one tile of an ``N``-column projection over ``K``
-    needs at most, on a grid of up to ``grid`` blocks: its chunks are
-    streamed by consecutive blocks of at least ``C // min(grid, C)`` chunks
-    each (``Plan`` in the source)."""
+    """Partial-sum slots one plan tile of ``cols`` columns (the last one
+    narrower where ``cols`` does not divide ``N``) of an ``N``-column
+    projection over ``K`` needs at most, on a grid of up to ``grid``
+    blocks: its chunks are streamed by consecutive blocks of at least
+    ``C // min(grid, C)`` chunks each (``Plan`` in the source)."""
     nc = K // CHUNK
-    C = N // cols * nc
+    C = -(-N // cols) * nc
     least = C // min(grid, C)
     return 2 + (nc - 1) // least
 
 
 def part_size(R, nh, nkv, D, hidden, inter, vocab, cols, grid):
     """Floats of the pieces' buffer: the largest projection's slots x R x
-    N (QKV, O, gate/up, down, the head). Raises where the source's 32-bit
-    chunk arithmetic (chunks x blocks) would overflow."""
+    N (QKV, O, gate/up, down, the head) for plan tiles of ``cols``
+    columns. Raises where the source's 32-bit chunk arithmetic (chunks x
+    blocks) would overflow."""
     shapes = (((nh + 2 * nkv) * D, hidden), (hidden, nh * D),
               (2 * inter, hidden), (hidden, inter), (vocab, hidden))
-    if max(N // cols * (K // CHUNK) for N, K in shapes) * grid >= 2 ** 31:
+    if max(-(-N // cols) * (K // CHUNK) for N, K in shapes) * grid \
+            >= 2 ** 31:
         raise NotImplementedError("fused tick kernel: projections too wide "
                                   "for its 32-bit chunk numbering")
     return max(part_slots(N, K, cols, grid) * R * N for N, K in shapes)
@@ -295,7 +309,8 @@ def fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     act = emp(R, inter)
     n_sm = sm_count(dev.index or 0)
     cols = TILE_COLS[embed.dtype]
-    part = torch.empty(part_size(R, nh, nkv, D, H, inter, V, cols,
+    part = torch.empty(part_size(R, nh, nkv, D, H, inter, V,
+                                 PLAN_COLS[embed.dtype, w8],
                                  BLOCKS_PER_SM * n_sm),
                        dtype=torch.float32, device=dev)
     sl, n_split = plan(R, nkv, mb * bs, n_sm)

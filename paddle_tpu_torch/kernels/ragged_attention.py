@@ -29,11 +29,14 @@ lengths). Head dims 64 and 128. One launch counted a call.
 The pool is float32 or bfloat16 (the query's type), or quantized: int8
 with per-row-per-head float32 scale planes, or ``float8_e4m3fn`` with
 per-block planes. A quantized pool's span-1 rows take the walk's
-quantized mode (paged decode's); its chunk spans, in either query type,
-take the CUDA-core tile routine, each K/V tile converted to float32 as
-it lands in shared memory with its keys' scales beside it. Everywhere
-the K scale multiplies the scores after the dot, ``l`` sums the unscaled
-P, and the V scale is folded into P (float32) before ``P V``.
+quantized mode (paged decode's); its chunk spans take the tile of the
+query's type, as a bf16 or float32 pool's do. The bf16 ``wgmma`` tile
+streams each 64-key K/V tile as narrow bytes with its keys' scales and
+converts it in shared memory to the bf16 tile the products read (exact:
+every int8 and e4m3 value is a bf16 value); the float32 tile converts
+each K/V tile to float32 as it lands. Everywhere the K scale multiplies
+the scores after the dot, ``l`` sums the unscaled P, and the V scale is
+folded into P before ``P V`` (in bf16, P rounds after the fold).
 
 Semantics per sequence ``r`` (``qlen[r] == 0`` is a dead row): span token
 ``i`` is packed row ``qstart[r] + i``, sits at logical position
@@ -54,8 +57,8 @@ from .split_kv import check_heads, plan, scratch, sm_count
 NEG_INF = -1e30
 #: head dims the kernels take
 HEAD_DIMS = (64, 128)
-#: span rows a chunk tile holds, by input type: the wgmma tile (bf16) and
-#: the CUDA-core tile (float32)
+#: span rows a chunk tile holds, by input type, on any pool: the wgmma
+#: tile (bf16) and the CUDA-core tile (float32)
 TILE_ROWS = {torch.bfloat16: 64, torch.float32: 16}
 #: the last launch: the split-KV grid (split length, splits a row, blocks)
 #: and the chunk tile grid (rows a tile, blocks)
@@ -76,12 +79,12 @@ def paths(qlen):
             for n in _host_ints(qlen)]
 
 
-def grid(T, R, H, Hkv, capacity, dtype, n_sm, quantized=False):
+def grid(T, R, H, Hkv, capacity, dtype, n_sm):
     """Both grids of a call from shapes alone: ``T`` packed rows, ``R``
     sequences, tables of ``capacity`` keys, on a card of ``n_sm`` SMs
-    (a quantized pool's chunks take the CUDA-core tile in either type)."""
+    (the chunk tile is the query type's, whatever the pool)."""
     sl, n_split = plan(R, Hkv, capacity, n_sm)
-    rows = TILE_ROWS[torch.float32 if quantized else dtype]
+    rows = TILE_ROWS[dtype]
     return {"split_len": sl, "n_split": n_split,
             "split_blocks": n_split * Hkv * R, "tile_rows": rows,
             "tile_blocks": -(-T // rows) * R * H}
@@ -168,8 +171,7 @@ def ragged_paged_attention(q, pool_k, pool_v, tables, qstart, qlen, kvlen,
     code = check_cuda("ragged_attention", (q,),
                       (tables, qstart, qlen, kvlen), pools=(pool_k, pool_v))
     R, mb = tables.shape
-    g = grid(T, R, H, Hkv, mb * bs, q.dtype, sm_count(q.device.index or 0),
-             quantized=mode > 0)
+    g = grid(T, R, H, Hkv, mb * bs, q.dtype, sm_count(q.device.index or 0))
     out = torch.zeros_like(q)     # rows outside every span stay zero
     launch("ragged_attention", q, pool_k, pool_v, k_scale, v_scale, tables,
            qstart, qlen, kvlen, out,

@@ -7,7 +7,11 @@ of the grid's blocks an equal run of chunks: a block's share of one tile
 (a piece) is summed in float32 on the tensor cores, the pieces are added
 in block order, and the sum is rounded to bf16 where the scanned tick
 rounds. The attention is the split-KV walk at the paged decode kernel's
-split plan. ``_tick_emulation`` below repeats that arithmetic in float32
+split plan. With int8 weights a bf16 chunk is two tiles wide (64 k rows
+x 128 columns, 8 KB of int8; a projection of an odd number of tiles ends
+in a one-tile chunk) and every weight value reaching an MMA is ``_dq``'s
+``round(float(q) * scale)``.
+``_tick_emulation`` below repeats that arithmetic in float32
 PyTorch, with each bf16 rounding written out (the kernel has no CPU
 mode); its logits and appended K/V rows must sit within the scaled bf16
 bound ``chip_smoke.py`` holds the kernel to (``BWD_TOL``'s form:
@@ -17,9 +21,10 @@ bound ``chip_smoke.py`` holds the kernel to (``BWD_TOL``'s form:
 with the plain attention) on ``llama_tiny`` widened to head dim 64
 (hidden 256, intermediate 512, 4 heads over 2 KV heads, 2 layers, bf16),
 11 rows (sampled, idle and sentinel rows among them), lengths up to 379
-over 384-key tables (two splits a long row). Grids of 5 blocks (many
-pieces a tile) and 396 (an H100 at 3 blocks an SM). Inputs from a numpy
-seed.
+over 384-key tables (two splits a long row), with dense weights and with
+``jdec.quantize_decode_params``' int8 pairs (the two-tile plan). Grids of
+5 blocks (many pieces a tile) and 396 (an H100 at 3 blocks an SM). Inputs
+from a numpy seed.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +42,7 @@ from paddle_tpu_torch.kernels import split_kv
 from test_torch_paged_split import H100_SMS, _split_emulation
 
 NT, KC = tft.TILE_COLS[torch.bfloat16], tft.CHUNK
+PC8 = tft.PLAN_COLS[torch.bfloat16, True]        # int8 weights' plan tile
 NH, NKV, HD, EPS, THETA = 4, 2, 64, 1e-5, 10000.0
 HIDDEN, INTER = 256, 512
 BS, MB = 16, 24                      # 384-key tables
@@ -48,12 +54,13 @@ def _bf(x):
     return x.to(torch.bfloat16).float()
 
 
-def _pieces(t, N, K, grid):
-    """The k ranges ``[k0, k1)`` of tile ``t``'s pieces, in slot order:
-    the kernel's ``Plan`` (block b streams chunks [b*C/geff,
-    (b+1)*C/geff))."""
+def _pieces(t, N, K, grid, cols=NT):
+    """The k ranges ``[k0, k1)`` of plan tile ``t``'s pieces, in slot
+    order: the kernel's ``Plan`` over plan tiles of ``cols`` columns (the
+    last one narrower where ``cols`` does not divide N) and chunks of
+    ``KC`` k rows (block b streams chunks [b*C/geff, (b+1)*C/geff))."""
     nc = K // KC
-    C = N // NT * nc
+    C = -(-N // cols) * nc
     geff = min(grid, C)
     c0, c1 = t * nc, (t + 1) * nc
     b, out = ((c0 + 1) * geff - 1) // C, []
@@ -64,16 +71,17 @@ def _pieces(t, N, K, grid):
     return out
 
 
-def _gemv(x, w, grid):
-    """``x [R, K] @ w [K, N]`` as the kernel sums it: each tile's pieces in
-    float32, added in slot order, the sum rounded to bf16."""
+def _gemv(x, w, grid, pc=NT):
+    """``x [R, K] @ w [K, N]`` as the kernel sums it: each plan tile's
+    (``pc`` columns) pieces in float32, added in slot order, the sum
+    rounded to bf16."""
     R, K = x.shape
     N = w.shape[1]
     out = torch.empty(R, N)
-    for t in range(N // NT):
-        cols = slice(t * NT, (t + 1) * NT)
-        s = torch.zeros(R, NT)
-        for k0, k1 in _pieces(t, N, K, grid):
+    for t in range(-(-N // pc)):
+        cols = slice(t * pc, min(N, (t + 1) * pc))
+        s = torch.zeros(R, cols.stop - cols.start)
+        for k0, k1 in _pieces(t, N, K, grid, pc):
             s = s + x[:, k0:k1] @ w[k0:k1, cols]
         out[:, cols] = s
     return _bf(out)
@@ -100,9 +108,11 @@ def _live(tables, nb):
     return out
 
 
-def _tick_emulation(p, tied, tables, sin, cos, tok, pk, pv, grid):
-    """The kernel's tick on float32 tensors holding bf16 values (``pk``,
-    ``pv`` bf16, appended in place); returns the float32 logits."""
+def _tick_emulation(p, head, tables, sin, cos, tok, pk, pv, grid, pc=NT):
+    """The kernel's tick on float32 tensors holding bf16 values (the
+    weights as the MMAs see them, ``head [H, V]``; ``pk``, ``pv`` bf16,
+    appended in place) over plan tiles of ``pc`` columns; returns the
+    float32 logits."""
     R = len(tok)
     L, nb = pk.shape[0], pk.shape[1]
     pos = torch.from_numpy(np.clip(LENS, 0, sin.shape[0] - 1)).long()
@@ -114,7 +124,7 @@ def _tick_emulation(p, tied, tables, sin, cos, tok, pk, pv, grid):
     for l in range(L):
         hn = _rms(h, p["input_ln"][l])
         qkv = _gemv(hn, torch.cat([p["wq"][l], p["wk"][l], p["wv"][l]], 1),
-                    grid)
+                    grid, pc)
         q = _rope(qkv[:, :NH * HD].reshape(R, NH, HD), sin_r, cos_r)
         k = _rope(qkv[:, NH * HD:(NH + NKV) * HD].reshape(R, NKV, HD),
                   sin_r, cos_r)
@@ -124,15 +134,14 @@ def _tick_emulation(p, tied, tables, sin, cos, tok, pk, pv, grid):
             pv[l, phys, row] = v[b].to(torch.bfloat16)
         attn = _split_emulation(q.to(torch.bfloat16), pk[l], pv[l], tbl,
                                 alen).float()
-        h = _bf(h + _gemv(attn.reshape(R, NH * HD), p["wo"][l], grid))
+        h = _bf(h + _gemv(attn.reshape(R, NH * HD), p["wo"][l], grid, pc))
         hn = _rms(h, p["post_ln"][l])
-        gu = _gemv(hn, torch.cat([p["w_gate"][l], p["w_up"][l]], 1), grid)
+        gu = _gemv(hn, torch.cat([p["w_gate"][l], p["w_up"][l]], 1), grid, pc)
         g, u = gu[:, :INTER], gu[:, INTER:]
         act = _bf(_bf(g / (1 + torch.exp(-g))) * u)
-        h = _bf(h + _gemv(act, p["w_down"][l], grid))
+        h = _bf(h + _gemv(act, p["w_down"][l], grid, pc))
     hn = _rms(h, p["final_norm"])
-    head = p["embed"].T if tied else p["lm_head"]
-    return _gemv(hn, head, grid)
+    return _gemv(hn, head, grid, pc)
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["untied", "tied"])
@@ -177,10 +186,27 @@ def _within(got, want):
     return bool((err <= atol * want.abs().max() + rtol * want.abs()).all())
 
 
-@pytest.mark.parametrize("grid", [5, 396])
+def _dq_torch(w):
+    """A weight as the kernel's MMAs see it: a dense bf16 array, or an
+    int8 ``(q, scale)`` pair as ``_dq`` dequantizes it (one rounding)."""
+    if isinstance(w, tuple):
+        q, sc = (torch.from_numpy(np.array(x, np.float32)) for x in w)
+        return _bf(q * sc)
+    return torch.from_numpy(np.array(w, np.float32))
+
+
+@pytest.mark.parametrize("grid, w8", [(5, False), (396, False), (5, True),
+                                     (396, True)],
+                         ids=["5", "396", "5-w8", "396-w8"])
 def test_emulation_within_scaled_bf16_bound_of_jax_reference(
-        bf16_model, grid, monkeypatch):
+        bf16_model, grid, w8, monkeypatch):
+    """Dense weights in one-tile chunks, and int8 weights
+    (``jdec.quantize_decode_params``, the tied head quantized along V) in
+    the kernel's two-tile chunks, against the reference tick over the same
+    parameters."""
     p, tied = bf16_model
+    if w8:
+        p = jdec.quantize_decode_params(p, tied)
     tables, pk, pv, tok, keys, temps, topks = _inputs()
     js, jc = jllama._rope_tables(MB * BS, HD, THETA)
     stack = tuple(p[k] for k in jdec._STACK_KEYS)
@@ -202,12 +228,15 @@ def test_emulation_within_scaled_bf16_bound_of_jax_reference(
         decode_attn="jnp")
     want = torch.from_numpy(np.asarray(seen["logits"], np.float32))
 
-    tp = {k: torch.from_numpy(np.asarray(v, np.float32))
-          for k, v in p.items()}
+    tp = {k: _dq_torch(v) for k, v in p.items()}
+    # the head [H, V]: the embedding transposed when tied, or (int8) the
+    # lm head pair dequantized, then transposed when tied (_dq_head)
+    head = tp["lm_head"] if not tied else (tp["lm_head"] if w8
+                                           else tp["embed"]).T
     tpk, tpv = (torch.from_numpy(x).to(torch.bfloat16) for x in (pk, pv))
-    got = _tick_emulation(tp, tied, tables, torch.from_numpy(np.array(js)),
+    got = _tick_emulation(tp, head, tables, torch.from_numpy(np.array(js)),
                           torch.from_numpy(np.array(jc)), tok, tpk, tpv,
-                          grid)
+                          grid, PC8 if w8 else NT)
     assert torch.isfinite(got).all() and got.shape == want.shape
     assert _within(got, want)
     live = _live(tables, pk.shape[1])
@@ -238,21 +267,44 @@ def test_emulation_splits_k_and_the_attention(grid):
     assert n_split == 2 and LENS.max() > sl
 
 
+SHAPES = [(12288, 4096), (4096, 4096), (22016, 4096), (4096, 11008),
+          (32000, 4096), (512, 256), (256, 512), (320, 512)]
+
+
 @pytest.mark.parametrize("grid", [1, 5, 132, 396, 528])
-@pytest.mark.parametrize("shape", [(12288, 4096), (4096, 4096),
-                                   (22016, 4096), (4096, 11008),
-                                   (32000, 4096), (512, 256), (256, 512)],
-                         ids=lambda s: f"{s[0]}x{s[1]}")
-def test_part_slots_bound_the_pieces(shape, grid):
+@pytest.mark.parametrize(
+    "shape, pc", [(s, NT) for s in SHAPES] + [(s, PC8) for s in SHAPES],
+    ids=[f"{n}x{k}" for n, k in SHAPES] + [f"{n}x{k}-w8" for n, k in SHAPES])
+def test_part_slots_bound_the_pieces(shape, pc, grid):
     """The wrapper sizes the pieces' buffer by ``part_slots`` at the
-    largest grid it allows; every tile's pieces fit at that grid and any
-    smaller one (7B's QKV, O, gate/up, down and head, and tiny shapes with
-    fewer chunks than blocks)."""
+    largest grid it allows, for the plan of the launch (one-tile chunks,
+    or two-tile chunks of int8 weights in bf16); every plan tile's pieces
+    fit at that grid and any smaller one (7B's QKV, O, gate/up, down and
+    head, tiny shapes with fewer chunks than blocks, and N = 320, five
+    tiles, whose two-tile plan ends in a one-tile chunk)."""
     N, K = shape
-    bound = tft.part_slots(N, K, NT, max(grid, 528))
-    assert max(len(_pieces(t, N, K, grid)) for t in range(N // NT)) <= bound
-    # every chunk is in exactly one piece
-    for t in range(N // NT):
-        ranges = _pieces(t, N, K, grid)
+    bound = tft.part_slots(N, K, pc, max(grid, 528))
+    assert max(len(_pieces(t, N, K, grid, pc))
+               for t in range(-(-N // pc))) <= bound
+    # every chunk is in exactly one piece, and the pieces cover K
+    for t in range(-(-N // pc)):
+        ranges = _pieces(t, N, K, grid, pc)
         assert ranges[0][0] == 0 and ranges[-1][1] == K
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_plan_columns_of_each_plan():
+    """Two-tile (128-column) chunks for int8 weights in bf16 (8 KB of int8
+    in 128-byte rows, a dense bf16 chunk's bytes and row width), one tile
+    otherwise; 64 k rows each. The pieces' buffer follows the plan: at 7B
+    widths and 528 blocks a 128-column plan tile of the head takes up to
+    4 pieces where a 64-column one takes 3."""
+    assert tft.CHUNK == 64
+    assert tft.PLAN_COLS == {(torch.bfloat16, False): 64,
+                             (torch.bfloat16, True): 128,
+                             (torch.float32, False): 32,
+                             (torch.float32, True): 32}
+    assert tft.part_slots(32000, 4096, PC8, 528) == 4
+    assert tft.part_slots(32000, 4096, NT, 528) == 3
+    geo = (8, 32, 32, 128, 4096, 11008, 32000)
+    assert tft.part_size(*geo, PC8, 528) == 4 * 8 * 32000

@@ -858,16 +858,20 @@ class TestQuantizedKernels:
     @pytest.mark.parametrize("G,D", [(1, 64), (4, 128)])
     def test_ragged_quantized_vs_plain(self, cuda_dev, mode, dtype, G, D):
         """Span-1 rows on the quantized walk, chunks (from mid-block, a
-        partial last tile, 500 rows) on the CUDA-core tile; rows outside
-        every span zero."""
+        partial last tile, 500 rows) on the query type's tile: the wgmma
+        tile in bf16 (narrow tiles converted in shared memory), the
+        CUDA-core tile in float32; the same bits on two launches; rows
+        outside every span zero."""
         q, pk, pv, tables, qs, ql, kl = _ragged_spans(SWEEP_SPANS, G, 2, D,
                                                       16, 36, seed=G + D)
         kd, vd, ks, vs = _qpool(pk, pv, mode, cuda_dev, seed=D)
         qt = torch.from_numpy(q).to(cuda_dev, dtype)
         args = (qt, kd, vd, tables, qs, ql, kl)
         got = tra.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
+        again = tra.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
-        assert tra.LAST_GRID["tile_rows"] == 16
+        assert tra.LAST_GRID["tile_rows"] == tra.TILE_ROWS[dtype]
+        assert torch.equal(got, again)
         want = tra.ragged_attention_reference(*args, k_scale=ks, v_scale=vs)
         assert (got[int(ql.sum()):] == 0).all()
         assert _tol_ok(got, want, dtype)
@@ -889,7 +893,26 @@ def test_fused_tick_w8_vs_plain(cuda_dev, dtype, rows, record_property):
     _fused_check(cuda_dev, None, dtype, True, rows, record_property)
 
 
-def _fused_check(cuda_dev, mode, dtype, w8, rows, record_property):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode", [None, "int8"], ids=["pool", "int8"])
+@pytest.mark.parametrize("geo", [dict(intermediate_size=320),
+                                 dict(hidden_size=320,
+                                      num_attention_heads=5,
+                                      num_key_value_heads=1)],
+                         ids=["inter320", "hidden320"])
+def test_fused_tick_w8_odd_tiles_vs_plain(cuda_dev, dtype, mode, geo,
+                                          record_property):
+    """int8 weights where the bf16 tick's two-tile chunks meet odd
+    widths: an intermediate width of 320 (gate/up's plan tile 2 holds a
+    gate tile and an up tile of other groups) and a hidden width of 320
+    with 5 heads over 1 KV head (QKV and O end in a one-tile chunk);
+    float32 keeps one-tile chunks."""
+    _fused_check(cuda_dev, mode, dtype, True, 4, record_property, geo=geo)
+
+
+def _fused_check(cuda_dev, mode, dtype, w8, rows, record_property,
+                 geo=None):
     """One fused tick on an int8, fp8 or (``mode`` None) full-precision
     pool, with int8 or dense weights, against its plain version: one
     launch, keys bit for bit, tokens equal in float32, logits within the
@@ -899,9 +922,11 @@ def _fused_check(cuda_dev, mode, dtype, w8, rows, record_property):
     row's scale within the tolerance; the last layer's attention bit for
     bit the (quantized) paged decode kernel's."""
     from paddle_tpu_torch.serving import decode as tdec
-    cfg = llama_tiny(hidden_size=256, num_attention_heads=4,
-                     num_key_value_heads=2, tie_word_embeddings=w8,
+    cfg = llama_tiny(**{**dict(hidden_size=256, num_attention_heads=4,
+                               num_key_value_heads=2), **(geo or {})},
+                     tie_word_embeddings=w8,
                      dtype=str(dtype).split(".")[-1])
+    nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     m = LlamaForCausalLM(cfg, device="cuda", seed=4)
     p, tied = llama_decode_params(m)
     if w8:
@@ -909,8 +934,8 @@ def _fused_check(cuda_dev, mode, dtype, w8, rows, record_property):
     r = np.random.RandomState(rows)
     L, bs, D = cfg.num_hidden_layers, 16, 64
     nb = 2 * rows + 2
-    pk = r.randn(L, nb, bs, 2, D).astype(np.float32) * 3
-    pv = r.randn(L, nb, bs, 2, D).astype(np.float32) * 3
+    pk = r.randn(L, nb, bs, nkv, D).astype(np.float32) * 3
+    pv = r.randn(L, nb, bs, nkv, D).astype(np.float32) * 3
     if mode is None:
         kp, vp = (torch.from_numpy(x).to(cuda_dev, dtype) for x in (pk, pv))
     else:
@@ -936,7 +961,7 @@ def _fused_check(cuda_dev, mode, dtype, w8, rows, record_property):
         with torch.inference_mode():
             out = fn(p, head, tables, torch.from_numpy(tables).to(cuda_dev),
                      sin, cos, tok, clone(kp), clone(vp), lens, keys, app,
-                     temps, topks, nh=4, nkv=2, hd=D, eps=1e-5,
+                     temps, topks, nh=nh, nkv=nkv, hd=D, eps=1e-5,
                      return_logits=True)
         torch.cuda.synchronize()
         assert LAUNCHES["fused_decode_tick"] == (

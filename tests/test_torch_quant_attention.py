@@ -7,13 +7,17 @@ the CPU, against the JAX references given ``k_scale``/``v_scale``.
   ``ragged_attention_reference`` to 1e-5 (float32). The ragged check
   holds decode rows, a chunk that starts mid-block and a dead row.
 - The kernels' quantized arithmetic has no CPU mode, so
-  ``_qsplit_emulation`` and ``_qchunk_emulation`` repeat it in PyTorch:
-  the split-KV walk (paged decode, ragged's span-1 rows, the fused tick's
-  attention) and the CUDA-core chunk tile, each in the kernels' order —
-  scores from the narrow values, the K scale after the dot, the softmax
-  sum ``l`` over the unscaled P, then the V scale folded into P (float32)
-  before ``P V``. Both sit within ``chip_smoke.py``'s ``TOL`` of the JAX
-  reference, bf16 and float32.
+  ``_qsplit_emulation``, ``_qchunk_emulation`` and
+  ``_qchunk_wgmma_emulation`` repeat it in PyTorch: the split-KV walk
+  (paged decode, ragged's span-1 rows, the fused tick's attention), the
+  float32 CUDA-core chunk tile (32-key tiles, P kept float32) and the
+  bf16 ``wgmma`` chunk tile (64-key tiles; the narrow tile converted
+  exactly to bf16, P rounded to bf16 per tile after the V scale is
+  folded in), each in the kernels' order — scores from the narrow values,
+  the K scale after the dot, the softmax sum ``l`` over the unscaled P,
+  then the V scale folded into P before ``P V``. Each sits within
+  ``chip_smoke.py``'s ``TOL`` of the JAX reference in the types that take
+  it.
 - An all-zero int8 row (scale 0) reads back as exact zeros.
 """
 import math
@@ -163,6 +167,59 @@ def _qchunk_emulation(q, kd, vd, ks, vs, tbl, qlen, kvlen):
     return out
 
 
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _qchunk_wgmma_emulation(q, kd, vd, ks, vs, tbl, qlen, kvlen):
+    """One bf16 chunk span on the quantized ``wgmma`` tile: 64-key tiles
+    from key 0; each narrow K/V tile converted to bf16 exactly (no scale
+    in it); S in float32 times 1/sqrt(D), then times the key's K scale;
+    keys masked past each row's position and past kvlen; an online
+    softmax whose ``l`` sums the unscaled P; then P times the key's V
+    scale, rounded to bf16 per tile, into ``P V``; out = acc / max(l,
+    1e-30) rounded once."""
+    nb, bs, Hkv, D = kd.shape
+    H = q.shape[1]
+    G = H // Hkv
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    kv_valid = min(max(kvlen, 0), tbl.shape[0] * bs)
+    pos = kvlen - qlen + torch.arange(qlen)
+    kv_stop = min(kv_valid, max(int(pos[-1]) + 1, 0))
+    keys = torch.arange(kv_stop)
+    phys = tbl[keys // bs].long().clamp(0, nb - 1)
+    k_raw = _bf(kd[phys, keys % bs].float())
+    v_raw = _bf(vd[phys, keys % bs].float())
+    assert torch.equal(k_raw, kd[phys, keys % bs].float())   # exact
+    k_sc = _scale_rows(ks, phys, keys % bs)
+    v_sc = _scale_rows(vs, phys, keys % bs)
+    out = torch.zeros(qlen, H, D, dtype=q.dtype)
+    for h in range(H):
+        c = h // G
+        qh = q[:, h].float()
+        m, l = torch.full((qlen,), NEG_INF), torch.zeros(qlen)
+        acc = torch.zeros(qlen, D)
+        for k0 in range(0, kv_stop, 64):
+            k1 = min(kv_stop, k0 + 64)
+            s = (qh @ k_raw[k0:k1, c].T) * scale * k_sc[k0:k1, c]
+            mask = keys[None, k0:k1] <= pos[:, None]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.max(1).values)
+            p = torch.where(mask, torch.exp(s - m_new[:, None]),
+                            torch.zeros_like(s))
+            alpha = torch.exp(m - m_new)
+            l, m = alpha * l + p.sum(1), m_new
+            acc = acc * alpha[:, None] \
+                + _bf(p * v_sc[k0:k1, c]) @ v_raw[k0:k1, c]
+        out[:, h] = (acc / l.clamp(min=1e-30)[:, None]).to(q.dtype)
+    return out
+
+
+#: the chunk tile each query type takes, on any pool
+CHUNK_EMULATION = {"bfloat16": _qchunk_wgmma_emulation,
+                   "float32": _qchunk_emulation}
+
+
 def _within(got, want, dtype):
     atol, rtol = TOL[dtype]
     assert torch.isfinite(got).all()
@@ -232,14 +289,14 @@ def test_ragged_plain_version_matches_jax(mode):
     assert (got[int(qlen.sum()):] == 0).all()
 
 
-@pytest.mark.parametrize("mode", ["int8", "fp8"])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_ragged_quantized_emulation_within_tol(mode, dtype):
+def _ragged_quantized_within_tol(mode, dtype, G, D, seed):
     """Both grids on a quantized pool: span-1 rows on the quantized walk
-    (ragged's split rule over all R rows), chunks on the CUDA-core tile in
-    either type."""
-    q, kd, vd, ks, vs, tables, qstart, qlen, kvlen = _ragged_q(4, 128, mode,
-                                                               seed=3)
+    (ragged's split rule over all R rows), chunks on the tile of the query
+    type (``CHUNK_EMULATION``), each piece of at most 64 span rows within
+    TOL of the JAX reference; the dead row is skipped."""
+    q, kd, vd, ks, vs, tables, qstart, qlen, kvlen = _ragged_q(G, D, mode,
+                                                               seed=seed)
+    assert 0 in qlen and (kvlen - qlen)[-1] % 16     # a dead row, mid-block
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
     qt = torch.from_numpy(q).to(tdt)
     tb = torch.from_numpy(tables)
@@ -252,8 +309,8 @@ def test_ragged_quantized_emulation_within_tol(mode, dtype):
         n, a, k = int(qlen[r]), int(qstart[r]), int(kvlen[r])
         if path == "dead":
             continue
-        got = walked[r:r + 1] if path == "split" else _qchunk_emulation(
-            qt[a:a + n], kd, vd, ks, vs, tb[r], n, k)
+        got = walked[r:r + 1] if path == "split" else CHUNK_EMULATION[
+            dtype](qt[a:a + n], kd, vd, ks, vs, tb[r], n, k)
         for c0 in range(0, n, 64):
             c1 = min(n, c0 + 64)
             want = jax_ragged(jnp.asarray(q[a + c0:a + c1], jdt), _jnp(kd),
@@ -267,12 +324,32 @@ def test_ragged_quantized_emulation_within_tol(mode, dtype):
             _within(got[c0:c1], want, dtype)
 
 
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ragged_quantized_emulation_within_tol(mode, dtype):
+    """bf16 chunks on the wgmma tile, float32 chunks on the CUDA-core
+    tile (D 128, 4 query heads a KV head)."""
+    _ragged_quantized_within_tol(mode, dtype, 4, 128, seed=3)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("D, G", [(64, 1), (64, 4)])
+def test_ragged_quantized_wgmma_emulation_within_tol(mode, D, G):
+    """The bf16 wgmma tile on int8 and fp8 pools (fp8 planes not all 1.0)
+    at D 64, MHA and GQA (D 128 with 4 query heads a KV head is the
+    bfloat16 case above): decode rows, chunks of 2 to 500 rows (one
+    starting mid-block), a dead row."""
+    _ragged_quantized_within_tol(mode, "bfloat16", G, D, seed=D + G)
+
+
 def test_grid_of_a_quantized_pool_takes_the_cuda_core_tile():
-    g = tra.grid(520, 8, 32, 32, 4096, torch.bfloat16, H100_SMS,
-                 quantized=True)
+    """A quantized pool's chunks take the tile of the query type, as a
+    bf16 or float32 pool's do: the CUDA-core tile (16 rows) in float32 and
+    the wgmma tile (64 rows) in bf16."""
+    g = tra.grid(520, 8, 32, 32, 4096, torch.float32, H100_SMS)
     assert g["tile_rows"] == 16 and g["tile_blocks"] == 33 * 8 * 32
-    assert tra.grid(520, 8, 32, 32, 4096, torch.bfloat16,
-                    H100_SMS)["tile_rows"] == 64
+    g = tra.grid(520, 8, 32, 32, 4096, torch.bfloat16, H100_SMS)
+    assert g["tile_rows"] == 64 and g["tile_blocks"] == 9 * 8 * 32
 
 
 def test_scale_mode_checks_the_planes():

@@ -35,12 +35,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
              (``bound_ms``),
              achieved TFLOP/s and the route (the bf16 flash forward, dK/dV
              and dQ on the tensor cores, the rest on the CUDA cores).
-             Then the quantized modes, bf16 and fp32: paged decode and
-             ragged attention (its edge spans too; bf16 chunks on the
-             wgmma tile, narrow tiles converted in shared memory) on int8
-             and fp8 pools at the same shapes, the same bits on two
-             launches, each timed beside the same kernel on a pool of the
-             query type in this run (``base_ms``), the library yardstick
+             Then the quantized modes, bf16 and fp32: paged decode (the
+             quantized walk: 8 KB pages, keys owned by warps; also over
+             the edge lengths 0, 1, 31, 32, 33, a page +- 1, a split +- 1
+             and 4093, and with 8 KV heads) and ragged attention (its
+             edge spans too; bf16 chunks on the wgmma tile, narrow tiles
+             converted in shared memory) on int8 and fp8 pools at the
+             same shapes, the same bits on two launches, each timed
+             beside the same kernel on a pool of the query type in this
+             run (``base_ms``), the library yardstick
              dequantizing the
              gathered cache before SDPA; the fused tick (2 layers, 8 and
              37 rows) on an int8 pool with int8 weights and on an fp8
@@ -53,15 +56,16 @@ Phases, each printing one JSON line; any failure exits nonzero:
              fragments built in registers).
              First, the flash kernels' fused-RoPE mode (``flash[rope]``,
              ``flash_bwd_dkv[rope]``, ``flash_bwd_dq[rope]``: un-rotated
-             Q and K; the forward rotates its tiles as they land, the
-             backward rotates Q and K once by the ``rope_qk`` pre-pass,
-             equal to the plain rotation bit for bit; the adjoint on
+             Q and K; the forward and the backward each rotate Q and K
+             once by the ``rope_qk`` pre-pass, equal to the plain
+             rotation bit for bit; the adjoint on
              dQ/dK) in bf16 and fp32 at B=4, S=2048, 32 heads of 128 in
              the head-major layout, plus S=300 with 8 KV heads, and the
              head-major layout without RoPE, each against its plain
              version (bf16 the same bits twice; the one-pre-pass
              backward the same bits as the two standalone entries);
-             times of the kernel (a backward row: its body on the
+             times of the kernel (the forward's row: its pre-pass and
+             kernel together; a backward row: its body on the
              rotated pair), the same kernel on inputs rotated
              beforehand, the unfused pair (torch rotation, then the
              kernel; a backward kernel then the torch adjoint), the
@@ -265,9 +269,8 @@ ROPE = {f"{n}[rope]": n for n in ("flash",) + BWD}
 for _rope, _base in ROPE.items():
     REPLACES[_rope] = REPLACES[_base]
     SOURCES[_rope] = SOURCES[_base]
-    TENSOR_CORE[_rope] = TENSOR_CORE[_base] + (
-        ", RoPE on the landed tiles" if _base == "flash"
-        else ", Q and K rotated by the pre-pass")
+    TENSOR_CORE[_rope] = TENSOR_CORE[_base] + \
+        ", Q and K rotated by the rope_qk pre-pass"
 
 
 def emit(obj):
@@ -287,6 +290,23 @@ def time_ms(fn, iters=10, warmup=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters=20):
+    """The device time of one call of ``fn``: its kernels' time by the
+    profiler over ``iters`` calls. ``time_ms``'s events time calls back
+    to back, which a wrapper's host work can hold up when the kernel is
+    shorter than it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0) / 1e3 / iters
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -1033,6 +1053,8 @@ def kernel_case(name, dtype_name, dev, gen):
            "route": route(name, dtype_name)}
     row["tflops"] = flops / row["ms"] / 1e9
     row["x_library"] = row["ms"] / row["library_ms"]
+    if name == "paged_decode":
+        row["device_ms"] = device_ms(run)
     if name == "flash":
         # the forward and its SDPA yardstick at the training shape too
         del q, k, v, qt, kt, vt, got, want
@@ -1589,6 +1611,8 @@ def quant_kernel_case(name, mode, dtype_name, dev, gen):
             raise RuntimeError(f"paged_decode {mode}: a row of length 0 "
                                f"is not zero")
         row["split_len"] = paged_decode.LAST_GRID["split_len"]
+        row["edge_err"] = quant_paged_edge_cases(mode, dtype_name, dev, gen)
+        row["device_ms"] = device_ms(run)
     else:
         row["grid"] = dict(ragged_attention.LAST_GRID)
         _chunk_tile(row["grid"], dtype, f"ragged {mode} {dtype_name}")
@@ -1651,6 +1675,66 @@ def quant_edge_cases(mode, dtype_name, dev, gen):
         if not bool((got[sum(n for n, _ in spans):] == 0).all()):
             raise RuntimeError(f"ragged {mode} {name} {dtype_name}: rows "
                                f"outside every span not zero")
+    return errs
+
+
+def paged_edge_inputs(lengths, dtype, dev, gen, hkv=HKV):
+    """Decode rows of ``lengths`` over a pool that holds just their
+    blocks (7B heads): scrambled placement, sentinel table tails, NaN in
+    the stale rows of each row's last block."""
+    import torch
+    need = [-(-n // BS) for n in lengths]
+    nb = sum(need) + 1
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(4))
+    tables = torch.full((len(lengths), MB), nb, dtype=torch.int32)
+    at = 0
+    for r, n in enumerate(need):
+        tables[r, :n] = perm[at:at + n].to(torch.int32)
+        at += n
+    pool_k = torch.randn(nb, BS, hkv, D, generator=gen, device=dev).to(dtype)
+    pool_v = torch.randn(nb, BS, hkv, D, generator=gen, device=dev).to(dtype)
+    for r, n in enumerate(lengths):
+        if n % BS:
+            pool_k[int(tables[r, n // BS]), n % BS:] = float("nan")
+            pool_v[int(tables[r, n // BS]), n % BS:] = float("nan")
+    q = torch.randn(len(lengths), H, D, generator=gen, device=dev).to(dtype)
+    return (q, pool_k, pool_v, tables.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def quant_paged_edge_cases(mode, dtype_name, dev, gen):
+    """Paged decode on a quantized pool over the edge lengths of its walk
+    — 0, 1, 31, 32, 33, a page +- 1, a split +- 1 and 4093 (the split at
+    this row count) — with 32 KV heads and with 8 (4 query heads a KV
+    head): within TOL of the plain version, the same bits on a second
+    launch, the row of length 0 zeros."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_decode, split_kv
+    dtype = getattr(torch, dtype_name)
+    errs = {}
+    page = split_kv.narrow_page(D)
+    for hkv in (HKV, 8):
+        sl = paged_decode.split_len(10, hkv, MB * BS,
+                                    split_kv.sm_count(dev.index or 0))
+        lengths = [0, 1, 31, 32, 33, page - 1, page + 1, sl - 1, sl + 1,
+                   4093]
+        q, pk, pv, tbl, lens = paged_edge_inputs(lengths, dtype, dev, gen,
+                                                 hkv)
+        kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
+        del pk, pv
+        a = (q, kd, vd, tbl, lens, ks, vs)
+        got = paged_decode.paged_decode_attention(*a)
+        want = paged_decode.paged_decode_attention_reference(*a)
+        torch.cuda.synchronize()
+        name = f"kv_heads_{hkv}"
+        errs[name] = _compare(f"paged_decode {mode} {name}", dtype_name, got,
+                              want)
+        if not torch.equal(got, paged_decode.paged_decode_attention(*a)):
+            raise RuntimeError(f"paged_decode {mode} {name} {dtype_name}: "
+                               f"two launches differ")
+        if not bool((got[0] == 0).all()):
+            raise RuntimeError(f"paged_decode {mode} {name}: a row of "
+                               f"length 0 is not zero")
     return errs
 
 
@@ -3541,7 +3625,7 @@ def _flash_launches(layers, micro, knobs):
     the kernels launch outside the dispatcher, so ``dots`` recomputes
     attention too), one dK/dV and one dQ a layer, counted as ``name[rope]``
     under ``bhsd`` with ``fuse_rope``, which adds one ``rope_qk`` pre-pass
-    a layer's backward."""
+    a forward (recomputed ones included) and one a layer's backward."""
     rope = (knobs.get("attention_layout") == "bhsd"
             and bool(knobs.get("fuse_rope")))
     sfx = "[rope]" if rope else ""
@@ -3549,7 +3633,7 @@ def _flash_launches(layers, micro, knobs):
     return {"flash" + sfx: fwd * layers * micro,
             "flash_bwd_dkv" + sfx: layers * micro,
             "flash_bwd_dq" + sfx: layers * micro,
-            **({PRE_PASS: layers * micro} if rope else {})}
+            **({PRE_PASS: (fwd + 1) * layers * micro} if rope else {})}
 
 
 def phase_train_parity():
@@ -3873,7 +3957,8 @@ def main(argv=None):
             "replaces": REPLACES[name], "launches": path.get(name, 0),
             **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
-                                       "library_ms", "tflops")},
+                                       "library_ms", "tflops",
+                                       "device_ms")},
             "math": route(name, "bfloat16")})
         # the quantized modes: launches on their main path (int8 pools and
         # weights: the quantized serve runs; the others: the engine
@@ -3887,7 +3972,8 @@ def main(argv=None):
                 "mode": mode, "launches": launches.get((name, mode), 0),
                 **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
-                                           "library_ms", "base_ms")},
+                                           "library_ms", "base_ms",
+                                           "device_ms")},
                 "math": "cuda-core split-KV walk" + (
                     ", mma.sync GEMVs" + (
                         " from 8 KB int8 chunks (64 k rows x 128 columns), "

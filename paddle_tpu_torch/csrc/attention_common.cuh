@@ -33,10 +33,9 @@
 // the PV product, as the split-KV walk (split_kv.cuh) and the reference
 // kernel order it.
 //
-// The flash forward may also ask for fused RoPE (RopeTables below, the
-// reference's _rope_block): Q and K tiles are rotated as they land, each
-// element pair (d, d + D/2) read together. Every other caller passes no
-// tables (NoRope, the default) and compiles as before.
+// The neox RoPE pair (rope_pair, and its transpose) is shared by the
+// rotation pre-pass (csrc/rope_qk.cu) and the flash backward kernels'
+// adjoint epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,19 +65,6 @@ struct RowStrides {
   __device__ __forceinline__ long long at(int bi, int si, int hi) const {
     return bi * b + si * s + hi * h;
   }
-};
-
-// Fused neox RoPE from [S, D] float32 tables (pallas_flash.py _rope_block,
-// _rope_t_block). NoRope: none.
-struct NoRope {
-  static constexpr bool kOn = false;
-};
-// Query row i of a tile sits at position q0 + i, key p at position p.
-struct RopeTables {
-  static constexpr bool kOn = true;
-  const float* sin;
-  const float* cos;
-  int q0;
 };
 
 // rope(x) = x * cos + R(x) * sin with R([x1, x2]) = [-x2, x1], on one pair
@@ -124,25 +110,6 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as astype does
-}
-
-// Rotate the chunk pair a (columns d .. d+N-1) and b (d + D/2 ..) of the
-// row at position pos in place, each result rounded to T as _rope_block
-// rounds (.astype(x.dtype)) and kept as float.
-template <typename T, int N, int D>
-__device__ __forceinline__ void rope_chunk(float* a, float* b,
-                                           const float* __restrict__ sin,
-                                           const float* __restrict__ cos,
-                                           int pos, int d) {
-  const float* c = cos + static_cast<long long>(pos) * D + d;
-  const float* s = sin + static_cast<long long>(pos) * D + d;
-#pragma unroll
-  for (int x = 0; x < N; ++x) {
-    float o1, o2;
-    rope_pair(a[x], b[x], c[x], s[x], c[x + D / 2], s[x + D / 2], o1, o2);
-    a[x] = to_f(from_f<T>(o1));
-    b[x] = to_f(from_f<T>(o2));
-  }
 }
 
 // 16 bytes of T -> floats
@@ -256,21 +223,16 @@ struct TileShape {
 // quantized pool (KT narrow) passes its planes in sc, key p's scales at
 // sc.off(p).
 // On return s_m[i] / s_l[i] hold each row's running max and sum (for LSE).
-// With rope (RopeTables), Q row i and key p are rotated as they are staged
-// (positions rope.q0 + i and p); K must then be of the input type.
 template <typename T, int D, int TQ, typename KeyOff, typename RowPos,
-          typename KT = T, int QM = 0, typename ScaleOff = NoOff,
-          typename Rope = NoRope>
+          typename KT = T, int QM = 0, typename ScaleOff = NoOff>
 __device__ __forceinline__ void attend_tile(
     const T* __restrict__ q, const KT* __restrict__ k,
     const KT* __restrict__ v, T* __restrict__ out, float* smem,
     long long* s_qoff, RowPos row_pos, int kv_stop, int kv_valid,
     KeyOff key_off, float scale,
-    Scales<QM, ScaleOff> sc = Scales<QM, ScaleOff>{}, Rope rope = Rope{}) {
+    Scales<QM, ScaleOff> sc = Scales<QM, ScaleOff>{}) {
   using S = TileShape<T, D, TQ>;
   constexpr int KVV = 16 / sizeof(KT);   // pool elements a 16-byte load
-  static_assert(!Rope::kOn || (QM == 0 && sizeof(KT) == sizeof(T)),
-                "fused RoPE takes K of the input type");
   float* sQ = smem;
   float* sK = sQ + TQ * D;
   float* sV = sK + kKeys * S::KP;
@@ -287,43 +249,19 @@ __device__ __forceinline__ void attend_tile(
   const int lane = tid & 31;
 
   // ---- stage the query tile (rows outside the tile read as zeros)
-  if constexpr (Rope::kOn) {
-    // each thread a chunk pair (d, d + D/2), rotated before it is stored
-    constexpr int HV = D / 2 / S::VEC;
-    for (int e = tid; e < TQ * HV; e += kThreads) {
-      const int i = e / HV;
-      const int d = (e % HV) * S::VEC;
-      float a[S::VEC], b[S::VEC];
-      const long long off = s_qoff[i];
-      if (off >= 0) {
-        load16_cg(q + off + d, a);
-        load16_cg(q + off + d + D / 2, b);
-        rope_chunk<T, S::VEC, D>(a, b, rope.sin, rope.cos, rope.q0 + i, d);
-      } else {
+  for (int e = tid; e < TQ * D / S::VEC; e += kThreads) {
+    const int i = e / (D / S::VEC);
+    const int d = (e % (D / S::VEC)) * S::VEC;
+    float buf[S::VEC];
+    const long long off = s_qoff[i];
+    if (off >= 0) {
+      load16_cg(q + off + d, buf);
+    } else {
 #pragma unroll
-        for (int x = 0; x < S::VEC; ++x) { a[x] = 0.f; b[x] = 0.f; }
-      }
-#pragma unroll
-      for (int x = 0; x < S::VEC; ++x) {
-        sQ[i * D + d + x] = a[x];
-        sQ[i * D + d + D / 2 + x] = b[x];
-      }
+      for (int x = 0; x < S::VEC; ++x) buf[x] = 0.f;
     }
-  } else {
-    for (int e = tid; e < TQ * D / S::VEC; e += kThreads) {
-      const int i = e / (D / S::VEC);
-      const int d = (e % (D / S::VEC)) * S::VEC;
-      float buf[S::VEC];
-      const long long off = s_qoff[i];
-      if (off >= 0) {
-        load16_cg(q + off + d, buf);
-      } else {
 #pragma unroll
-        for (int x = 0; x < S::VEC; ++x) buf[x] = 0.f;
-      }
-#pragma unroll
-      for (int x = 0; x < S::VEC; ++x) sQ[i * D + d + x] = buf[x];
-    }
+    for (int x = 0; x < S::VEC; ++x) sQ[i * D + d + x] = buf[x];
   }
 
   float m_row[S::RPW], l_row[S::RPW];
@@ -352,52 +290,22 @@ __device__ __forceinline__ void attend_tile(
     __syncthreads();
     // ---- stage K (padded rows) and V in float32; invalid keys become
     // zero rows
-    if constexpr (Rope::kOn) {
-      // chunk pairs (d, d + D/2): K rotated at its position, V as it is
-      constexpr int HV = D / 2 / KVV;
-      for (int e = tid; e < kKeys * HV; e += kThreads) {
-        const int j = e / HV;
-        const int d = (e % HV) * KVV;
-        float k1[KVV], k2[KVV], v1[KVV], v2[KVV];
-        const long long off = s_koff[j];
-        if (off >= 0) {
-          load16_any(k + off + d, k1);
-          load16_any(k + off + d + D / 2, k2);
-          load16_any(v + off + d, v1);
-          load16_any(v + off + d + D / 2, v2);
-          rope_chunk<T, KVV, D>(k1, k2, rope.sin, rope.cos, k0 + j, d);
-        } else {
+    for (int e = tid; e < kKeys * D / KVV; e += kThreads) {
+      const int j = e / (D / KVV);
+      const int d = (e % (D / KVV)) * KVV;
+      float bk[KVV], bv[KVV];
+      const long long off = s_koff[j];
+      if (off >= 0) {
+        load16_any(k + off + d, bk);
+        load16_any(v + off + d, bv);
+      } else {
 #pragma unroll
-          for (int x = 0; x < KVV; ++x) {
-            k1[x] = 0.f; k2[x] = 0.f; v1[x] = 0.f; v2[x] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int x = 0; x < KVV; ++x) {
-          sK[j * S::KP + d + x] = k1[x];
-          sK[j * S::KP + d + D / 2 + x] = k2[x];
-          sV[j * D + d + x] = v1[x];
-          sV[j * D + d + D / 2 + x] = v2[x];
-        }
+        for (int x = 0; x < KVV; ++x) { bk[x] = 0.f; bv[x] = 0.f; }
       }
-    } else {
-      for (int e = tid; e < kKeys * D / KVV; e += kThreads) {
-        const int j = e / (D / KVV);
-        const int d = (e % (D / KVV)) * KVV;
-        float bk[KVV], bv[KVV];
-        const long long off = s_koff[j];
-        if (off >= 0) {
-          load16_any(k + off + d, bk);
-          load16_any(v + off + d, bv);
-        } else {
 #pragma unroll
-          for (int x = 0; x < KVV; ++x) { bk[x] = 0.f; bv[x] = 0.f; }
-        }
-#pragma unroll
-        for (int x = 0; x < KVV; ++x) {
-          sK[j * S::KP + d + x] = bk[x];
-          sV[j * D + d + x] = bv[x];
-        }
+      for (int x = 0; x < KVV; ++x) {
+        sK[j * S::KP + d + x] = bk[x];
+        sV[j * D + d + x] = bv[x];
       }
     }
     __syncthreads();

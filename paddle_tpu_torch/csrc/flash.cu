@@ -39,15 +39,13 @@
 // the same bodies (the reference folds both layouts into one entry,
 // pallas_flash.py:446-463).
 //
-// Fused RoPE (the rope= mode, pallas_flash.py:92-94): with [S, D] float32
-// tables the kernels take un-rotated Q and K and rotate them as they land,
-// rounded to the input type before any product, as _rope_block rounds. The
-// resident Q tile rotates once a block; each K tile rotates each time it
-// lands: in fp32 while it is staged (each thread loads the pair of
-// chunks d, d + D/2), in bf16 as a pass over the swizzled shared tile
-// after its cp.async stage lands, one more barrier a 64-key tile. The
-// tables are read as given, never recomputed, so the rotation's bits are
-// the plain version's.
+// Fused RoPE (the rope= mode, pallas_flash.py:92-94) is not in these
+// kernels: the wrapper (kernels/flash.py flash_attention_fwd) rotates Q
+// and K once by the rope_qk pre-pass (csrc/rope_qk.cu, bit for bit
+// rope_rotate, rounded to the input type as _rope_block rounds) and the
+// kernels read the rotated pair, so no block rotates a walked K tile
+// (rotating each K tile as it landed, in every block that walked it,
+// cost 2.5x the kernel).
 #include <math.h>
 
 #include "attention_common.cuh"
@@ -57,12 +55,12 @@ namespace pt {
 
 constexpr int kFlashTQ = 64;
 
-template <typename T, int D, typename Rope>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, RowStrides qs, RowStrides ks,
-                 int S, int H, int Hk, int causal, float scale, Rope rope) {
+                 int S, int H, int Hk, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
   using Sh = TileShape<T, D, kFlashTQ>;
   const int s0 = blockIdx.x * kFlashTQ;
@@ -79,10 +77,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_stop = causal ? s0 + rows : S;
   auto key_off = [&](int p) -> long long { return ks.at(b, p, kvh); };
   auto row_pos = [&](int i) { return causal ? s0 + i : S - 1; };
-  if constexpr (Rope::kOn) rope.q0 = s0;
   __syncthreads();
   attend_tile<T, D, kFlashTQ>(q, k, v, out, smem, s_qoff, row_pos, kv_stop, S,
-                              key_off, scale, NoScales{}, rope);
+                              key_off, scale);
   if (lse != nullptr && threadIdx.x < rows) {
     // attend_tile leaves each row's running max and sum in shared memory
     const float* s_l = smem + kFlashTQ * D + kKeys * Sh::KP + kKeys * D +
@@ -94,20 +91,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, typename Rope>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, RowStrides qs, RowStrides ks, Rope rope,
-                   int B, int S, int H, int Hk, int causal,
-                   cudaStream_t stream) {
+                   float* lse, RowStrides qs, RowStrides ks, int B, int S,
+                   int H, int Hk, int causal, cudaStream_t stream) {
   using Sh = TileShape<T, D, kFlashTQ>;
-  auto kernel = flash_fwd_kernel<T, D, Rope>;
+  auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t err = allow_smem(kernel, Sh::SMEM_BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((S + kFlashTQ - 1) / kFlashTQ, B * H);
   kernel<<<grid, kThreads, Sh::SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, qs, ks, S, H, Hk,
-      causal, static_cast<float>(1.0 / sqrt(static_cast<double>(D))), rope);
+      causal, static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
 
@@ -140,14 +136,12 @@ __device__ __forceinline__ void pv<128>(float (&o)[16][4],
   tc::wgmma_m64n128_rs(o, a, db);
 }
 
-template <int D, bool kRope>
+template <int D>
 __global__ void __launch_bounds__(kNT, 2)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, RowStrides qs, RowStrides ks,
-                       const float* __restrict__ sin,
-                       const float* __restrict__ cos, int S, int H, int Hk,
-                       int causal, float scale) {
+                       int S, int H, int Hk, int causal, float scale) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(
       smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023));
@@ -203,11 +197,6 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       tc::cp_async_wait<1>();
     } else {
       tc::cp_async_wait<0>();
-    }
-    if constexpr (kRope) {
-      __syncthreads();   // every thread's copies of this stage have landed
-      if (j == 0) tc::rope_tile<kBM, D, kNT>(sQ, sin, cos, s0, S - s0);
-      tc::rope_tile<kBN, D, kNT>(sK + st * kBN * D, sin, cos, k0, S - k0);
     }
     tc::fence_proxy_async();
     __syncthreads();
@@ -301,77 +290,61 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool kRope>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, RowStrides qs, RowStrides ks, const float* sin,
-                   const float* cos, int B, int S, int H, int Hk, int causal,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd_wgmma_kernel<D, kRope>;
+                   float* lse, RowStrides qs, RowStrides ks, int B, int S,
+                   int H, int Hk, int causal, cudaStream_t stream) {
+  auto kernel = flash_fwd_wgmma_kernel<D>;
   cudaError_t err = tc::use_smem(kernel, smem_bytes<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (S + kBM - 1) / kBM);
   kernel<<<grid, kNT, smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, qs, ks, sin,
-      cos, S, H, Hk, causal,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, qs, ks, S,
+      H, Hk, causal,
       static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
 
 }  // namespace tcf
 
-// The kernel for head dim D and the rope mode: bf16 on wgmma, float32 on
-// the CUDA cores.
+// The kernel for head dim D: bf16 on wgmma, float32 on the CUDA cores.
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       void* out, float* lse, const float* sin,
-                       const float* cos, RowStrides qs, RowStrides ks, int B,
-                       int S, int H, int Hk, int causal, int is_bf16,
+                       void* out, float* lse, RowStrides qs, RowStrides ks,
+                       int B, int S, int H, int Hk, int causal, int is_bf16,
                        cudaStream_t stream) {
-  if (is_bf16) {
-    return sin != nullptr
-        ? tcf::launch<D, true>(q, k, v, out, lse, qs, ks, sin, cos, B, S, H,
-                               Hk, causal, stream)
-        : tcf::launch<D, false>(q, k, v, out, lse, qs, ks, sin, cos, B, S,
-                                H, Hk, causal, stream);
-  }
-  return sin != nullptr
-      ? launch<float, D>(q, k, v, out, lse, qs, ks, RopeTables{sin, cos, 0},
-                         B, S, H, Hk, causal, stream)
-      : launch<float, D>(q, k, v, out, lse, qs, ks, NoRope{}, B, S, H, Hk,
-                         causal, stream);
+  return is_bf16 ? tcf::launch<D>(q, k, v, out, lse, qs, ks, B, S, H, Hk,
+                                  causal, stream)
+                 : launch<float, D>(q, k, v, out, lse, qs, ks, B, S, H, Hk,
+                                    causal, stream);
 }
 
 }  // namespace pt
 
 // q/out [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v [B,S,Hk,D]
-// through (k_sb, k_ss, k_sh), D contiguous; lse [B,H,S] float32 or null;
-// sin/cos [S,D] float32 (fused RoPE) or both null.
+// through (k_sb, k_ss, k_sh), D contiguous; lse [B,H,S] float32 or null.
 // is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
-                            void* out, void* lse, const void* sin,
-                            const void* cos, int B, int S, int H, int Hk,
-                            int D, long long q_sb, long long q_ss,
+                            void* out, void* lse, int B, int S, int H,
+                            int Hk, int D, long long q_sb, long long q_ss,
                             long long q_sh, long long k_sb, long long k_ss,
                             long long k_sh, int causal, int is_bf16,
                             void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (Hk <= 0 || H % Hk || (sin == nullptr) != (cos == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  const float* sn = static_cast<const float*>(sin);
-  const float* cs = static_cast<const float*>(cos);
   const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
   switch (D) {
     case 64:
-      return static_cast<int>(pt::launch_fwd<64>(q, k, v, out, l, sn, cs, qs,
-                                                 ks, B, S, H, Hk, causal,
-                                                 is_bf16, s));
+      return static_cast<int>(pt::launch_fwd<64>(q, k, v, out, l, qs, ks, B,
+                                                 S, H, Hk, causal, is_bf16,
+                                                 s));
     case 128:
-      return static_cast<int>(pt::launch_fwd<128>(q, k, v, out, l, sn, cs,
-                                                  qs, ks, B, S, H, Hk, causal,
-                                                  is_bf16, s));
+      return static_cast<int>(pt::launch_fwd<128>(q, k, v, out, l, qs, ks, B,
+                                                  S, H, Hk, causal, is_bf16,
+                                                  s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1337,7 +1337,7 @@ size_t smem_bytes(int R, int G) {
   const size_t sp8 = (std::min(R, kRowPass) + 7) & ~7;
   const size_t gemv = C::STAGES * (C::W_BYTES + sp8 * C::X_ROW + C::Q8_BYTES) +
                       sp8 * C::ACC_ROW;
-  const size_t walk = skv::Shape<T, D, KT>::smem_bytes(G);
+  const size_t walk = skv::walk_smem_bytes<T, D, KT>(G);
   const size_t sample = (2 * kWarps + 256 + 3) * sizeof(float);
   return std::max(std::max(gemv, walk), sample);
 }

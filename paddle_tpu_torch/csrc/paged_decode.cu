@@ -20,15 +20,16 @@
 // Quantized pools (the reference's int8 and fp8 modes, _paged_kernel's
 // quantized branches): int8 K/V with per-row-per-head float32 scale planes
 // [nb, bs, Hkv] (key p's scale at the same (block, row, head) as its data),
-// or e4m3 with per-block planes [nb, Hkv]; the walk's quantized mode
-// (split_kv.cuh) reads half (int8 at D = 128: D + 4 bytes a row and head
+// or e4m3 with per-block planes [nb, Hkv]; the walk's quantized design
+// (split_kv.cuh narrow_walk: 8 KB pages, keys owned by warps, scores by
+// whole warps) reads half (int8 at D = 128: D + 4 bytes a row and head
 // instead of 2D) or a quarter of the bytes.
 #include "split_kv.cuh"
 
 namespace pt {
 namespace pd {
 
-template <typename T, int D, typename KT, int QM>
+template <typename T, int D, typename KT, int QM, int NACC>
 __global__ void __launch_bounds__(skv::kNT)
 paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
                     const KT* __restrict__ pool_v,
@@ -58,12 +59,36 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
     const long long phys = min(max(row_tbl[p / bs], 0), nb - 1);
     return QM == 2 ? phys * Hkv + kvh : (phys * bs + p % bs) * Hkv + kvh;
   };
-  skv::split_kv_walk<T, D>(q, pool_k, pool_v, out, part_m, part_l, part_acc,
-                           tickets, smem_raw, qo, len, key_off,
-                           Scales<QM, decltype(scale_off)>{k_scale, v_scale,
-                                                           scale_off},
-                           G, b, kvh, Hkv, blockIdx.x, split_len, n_split,
-                           scale);
+  skv::split_kv_walk<T, D, NACC>(q, pool_k, pool_v, out, part_m, part_l,
+                                 part_acc, tickets, smem_raw, qo, len,
+                                 key_off,
+                                 Scales<QM, decltype(scale_off)>{
+                                     k_scale, v_scale, scale_off},
+                                 G, b, kvh, Hkv, blockIdx.x, split_len,
+                                 n_split, scale);
+}
+
+// One launch at head dim D: a pool of the query's type keeps the widest
+// accumulator (the page walk as it was); a quantized pool's walk takes as
+// few accumulator registers as G * D needs (skv::with_nacc; the same
+// bits).
+template <typename T, int D, typename KT, int QM>
+cudaError_t launch_d(const T* q, const KT* pk, const KT* pv, const float* ks,
+                     const float* vs, const int* tables, const int* lengths,
+                     T* out, float* pm, float* pl, float* pa, int* tickets,
+                     int B, int H, int Hkv, int nb, int bs, int mb,
+                     int split_len, int n_split, float scale,
+                     cudaStream_t s) {
+  auto go = [&](auto nacc) {
+    return skv::launch_walk<T, D, KT>(
+        paged_decode_kernel<T, D, KT, QM, decltype(nacc)::value>, H / Hkv,
+        n_split, Hkv, B, s, q, pk, pv, ks, vs, tables, lengths, out, pm, pl,
+        pa, tickets, H, Hkv, nb, bs, mb, split_len, n_split, scale);
+  };
+  if constexpr (QM == 0)
+    return go(std::integral_constant<int, skv::kMaxAcc>{});
+  else
+    return skv::with_nacc<D>(H / Hkv, go);
 }
 
 template <typename T, typename KT, int QM>
@@ -80,10 +105,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
   T* ot = static_cast<T*>(out);
 #define PT_PAGED(DD)                                                        \
   case DD:                                                                  \
-    return skv::launch_walk<T, DD, KT>(                                     \
-        paged_decode_kernel<T, DD, KT, QM>, H / Hkv, n_split, Hkv, B, s, qt, \
-        kt, vt, ks, vs, tables, lengths, ot, pm, pl, pa, tickets, H, Hkv, nb, \
-        bs, mb, split_len, n_split, scale);
+    return launch_d<T, DD, KT, QM>(qt, kt, vt, ks, vs, tables, lengths, ot, \
+                                   pm, pl, pa, tickets, B, H, Hkv, nb, bs,  \
+                                   mb, split_len, n_split, scale, s);
   switch (D) {
     PT_PAGED(64)
     PT_PAGED(128)

@@ -16,7 +16,8 @@
 // of span, from shapes alone (the spans live on the device):
 //
 //   ragged_split_kernel — span-1 rows (qlen == 1), both types: the split-KV
-//     walk of csrc/split_kv.cuh, paged decode's. One block per (split, KV
+//     walk of csrc/split_kv.cuh, paged decode's (a quantized pool's too,
+//     launched as paged_decode.cu launches it). One block per (split, KV
 //     head, sequence); the query slab is packed row qstart[r], the length
 //     kvlen[r], keys through the row's table. Blocks of rows whose
 //     qlen != 1 exit at once.
@@ -75,7 +76,7 @@ __device__ __forceinline__ long long scale_index(int phys, int p, int bs,
                  : (static_cast<long long>(phys) * bs + p % bs) * Hkv + kvh;
 }
 
-template <typename T, int D, typename KT, int QM>
+template <typename T, int D, typename KT, int QM, int NACC>
 __global__ void __launch_bounds__(skv::kNT)
 ragged_split_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
                     const KT* __restrict__ pool_v,
@@ -106,12 +107,13 @@ ragged_split_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
     return scale_index<QM>(min(max(row_tbl[p / bs], 0), nb - 1), p, bs, Hkv,
                            kvh);
   };
-  skv::split_kv_walk<T, D>(q, pool_k, pool_v, out, part_m, part_l, part_acc,
-                           tickets, smem_raw, qo, len, key_off,
-                           Scales<QM, decltype(scale_off)>{k_scale, v_scale,
-                                                           scale_off},
-                           G, r, kvh, Hkv, blockIdx.x, split_len, n_split,
-                           scale);
+  skv::split_kv_walk<T, D, NACC>(q, pool_k, pool_v, out, part_m, part_l,
+                                 part_acc, tickets, smem_raw, qo, len,
+                                 key_off,
+                                 Scales<QM, decltype(scale_off)>{
+                                     k_scale, v_scale, scale_off},
+                                 G, r, kvh, Hkv, blockIdx.x, split_len,
+                                 n_split, scale);
 }
 
 // ---------------------------------- chunk spans, float32, CUDA cores
@@ -437,10 +439,19 @@ cudaError_t launch(const T* q, const KT* pk, const KT* pv, const float* ks,
                    int nb, int bs, int mb, int split_len, int n_split,
                    cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  cudaError_t err = skv::launch_walk<T, D, KT>(
-      ragged_split_kernel<T, D, KT, QM>, H / Hkv, n_split, Hkv, R, stream, q,
-      pk, pv, ks, vs, tables, qs, ql, kl, out, pm, pl, pa, tickets, H, Hkv,
-      nb, bs, mb, split_len, n_split, scale);
+  // the split-KV grid: a quantized pool's walk with as few accumulator
+  // registers as G * D needs, as paged_decode.cu launches it
+  auto split_grid = [&](auto nacc) {
+    return skv::launch_walk<T, D, KT>(
+        ragged_split_kernel<T, D, KT, QM, decltype(nacc)::value>, H / Hkv,
+        n_split, Hkv, R, stream, q, pk, pv, ks, vs, tables, qs, ql, kl, out,
+        pm, pl, pa, tickets, H, Hkv, nb, bs, mb, split_len, n_split, scale);
+  };
+  cudaError_t err;
+  if constexpr (QM == 0)
+    err = split_grid(std::integral_constant<int, skv::kMaxAcc>{});
+  else
+    err = skv::with_nacc<D>(H / Hkv, split_grid);
   if (err != cudaSuccess) return err;
   // no span is longer than the packed buffer, so ceil(T / rows a tile)
   // tiles cover every span

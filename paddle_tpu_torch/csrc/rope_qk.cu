@@ -1,19 +1,20 @@
-// RoPE pre-pass of the flash backward's rope= mode: one launch rotates
+// RoPE pre-pass of the flash kernels' rope= mode: one launch rotates
 // un-rotated Q [B, S, H, D] and K [B, S, Hk, D] into new tensors of the
 // same strides, neox rotation from the [S, D] float32 tables, each result
 // rounded to the input type.
 //
-//   rope_qk  replaces the _rope_block prologues of _dkv_kernel and
-//            _dq_kernel (paddle_tpu/kernels/pallas_flash.py:211-213 and
-//            :276-278; pallas_call at :335 and :365): the backward kernels
-//            (csrc/flash_bwd.cu) then read the rotated pair, so each Q and
-//            K row is rotated once a backward, not once per block that
-//            walks its tile.
+//   rope_qk  replaces the _rope_block prologues of _fwd_kernel,
+//            _dkv_kernel and _dq_kernel (paddle_tpu/kernels/pallas_flash.py
+//            :92-94, :211-213 and :276-278; pallas_call at :159, :335 and
+//            :365): the forward kernel and the two backward kernels
+//            (csrc/flash.cu, csrc/flash_bwd.cu) read the rotated pair, so
+//            each Q and K row is rotated once a forward and once a
+//            backward, not once per block that walks its tile.
 //
 // Bits: rope_pair (attention_common.cuh) rounds each product and the sum
 // on its own (__fmul_rn / __fadd_rn, never contracted into an FMA), then
 // the result rounds to the input type: the bits of the plain rope_rotate
-// (kernels/flash.py) and of the forward's tile pass (tc::rope_tile).
+// (kernels/flash.py).
 //
 // Bound on this card: bytes. Q and K are read once and written once (at
 // B=4, S=2048, 32 heads of 128 in bf16: 4 x 64 MiB, ~0.08 ms at 3.35

@@ -46,19 +46,47 @@
 //
 // Quantized pools (serving/block_manager.py): K/V of type KT = int8_t with
 // per-row-per-head float32 scale planes (QM 1), or __nv_fp8_e4m3 with
-// per-block planes (QM 2). A page of the narrow type goes through the same
-// ring (4 KB of int8 a 32-key page of D = 128 instead of 8 KB of bf16),
-// with the page's 32 scales of K and of V loaded a page ahead into
-// registers (one float a block for fp8, read once a key). K and V convert to float32 in registers
-// (exact for both types); the K scale multiplies the score after the dot
-// (s = (q . k) * scale * k_scale), the softmax sum l is taken over the
-// unscaled P, and only then is the V scale folded into P, which stays
-// float32 (not rounded to the input type): the reference kernel's order
-// (pallas_paged_decode.py:_paged_kernel). The callers, the tolerances and
-// the split rule are the same.
+// per-block planes (QM 2), walk on their own design (narrow_walk below)
+// where a KV head has G * D <= 512 (LLaMA-7B's G = 1 at D = 128, a GQA
+// model's G = 4 at D = 128), since the page walk above spends
+// its time on per-key instructions and barriers, not on bytes (a 4 KB int8
+// page ran at the 8 KB bf16 page's device time). More query heads a KV
+// head keep the page walk, with the narrow page in its ring and the
+// scales a page ahead (page_walk):
+//   - pages of 8 KB of K and 8 KB of V whatever D (64 keys at D = 128),
+//     a bf16 page's bytes; each warp owns a quarter of every page's keys
+//     and streams them through a ring of its own (4 stages of 4 KB: three
+//     pages in flight, 64 KB a block), so a page costs a warp barrier,
+//     never a block barrier;
+//   - scores: the whole warp on a key, a lane's D / 32 columns read as
+//     one 16-, 32- or 64-bit word and widened exactly (int8 by a byte
+//     permute under 2^23, e4m3 two at a time by the f16x2 convert), the
+//     query staged once in shared memory as float32; the warp's partial
+//     sums of its keys reduced by a transposing butterfly (one shuffle a
+//     key and head at D = 128), after which lane l holds key
+//     l / (32 / keys a warp);
+//   - an online softmax a warp: each warp keeps its own running m and l
+//     (slots of its own in shared memory) and its slice of the [G, D]
+//     accumulator (D / 32 columns a head) in registers; P V reads each
+//     key's P from the warp's slots and a 32-bit word of its V row;
+//   - the four warps combine once, at the end of the split, through
+//     shared memory (weights exp(m_w - m), in warp order), and the
+//     split's partials, tickets and split-order combine are the ones
+//     above.
+// The scales keep the reference kernel's order
+// (pallas_paged_decode.py:_paged_kernel): the K scale multiplies the score
+// after the dot and 1/sqrt(D) (s = (q . k) * scale * k_scale), the softmax
+// sum l is taken over the unscaled P, and only then is the V scale folded
+// into P, which stays float32; each key's scales are read a page ahead
+// into registers. The result's bits depend on (G, D) and the split plan
+// alone, so paged decode, ragged's span-1 rows and the fused tick, which
+// pick the walk and its accumulator width by one rule (with_nacc), give
+// the same bits. The split rule and the tolerances are the same.
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "tensor_core.cuh"
@@ -92,24 +120,423 @@ struct Shape {
   }
 };
 
-// The work of block (split, kvh, row): q/out slab at element offset qo,
-// `len` keys (already clamped to the cache's capacity), key p at
-// key_off(p), its scales (a quantized pool) at sc.off(p). Partials and the
-// ticket are indexed by (row, kvh). NACC accumulator registers a thread
-// (G * D <= NACC * kNT; the bits do not depend on it).
-template <typename T, int D, int NACC = kMaxAcc, typename KT, typename KeyOff,
-          int QM, typename ScaleOff>
-__device__ __forceinline__ void split_kv_walk(
+// The narrow walk's geometry at head dim D (one byte an element)
+template <int D>
+struct Narrow {
+  static constexpr int kWarpsNT = kNT / 32;
+  static constexpr int PAGE = 8192 / D;          // keys a page: 8 KB of K
+  static constexpr int KW = PAGE / kWarpsNT;     // keys a warp a page
+  static constexpr int DL = D / 32;              // a lane's columns of a key
+  static constexpr int R = 32 / KW;              // lanes sharing a reduced key
+  static constexpr int WSTAGE = 2 * KW * D;      // bytes of a warp's stage
+  static constexpr int NST = 4;                  // a warp's ring stages
+  static constexpr int RING_BYTES = kWarpsNT * NST * WSTAGE;
+  static constexpr int CPL = KW * D / 16 / 32;   // 16-byte copies a lane
+  static_assert(KW <= 32 && 32 % KW == 0 && CPL >= 1, "a warp's page slice");
+  // the rings (after the walk: each warp's [G][D] accumulator slice, 8
+  // KB at most for G * D <= 4 * kNT), then floats: q [G][D], each warp's
+  // m, l, alpha [G] and P [G][KW], the split's m and l [G]
+  static_assert(kWarpsNT * 4 * kNT * 4 <= RING_BYTES,
+                "the warps' accumulators fit the rings");
+  static size_t smem_bytes(int G) {
+    return RING_BYTES +
+           (static_cast<size_t>(G) * D + kWarpsNT * G * (3 + KW) + 2 * G) *
+               sizeof(float);
+  }
+};
+
+// Dynamic shared memory of the walk for G heads a KV head (narrow_walk:
+// a quantized pool with G * D <= 4 * kNT)
+template <typename T, int D, typename KT = T>
+size_t walk_smem_bytes(int G) {
+  if constexpr (sizeof(KT) == 1)
+    if (G * D <= 4 * kNT) return Narrow<D>::smem_bytes(G);
+  return Shape<T, D, KT>::smem_bytes(G);
+}
+
+// The end of a split: a row's only split writes out = acc / max(l, 1e-30)
+// rounded once; otherwise the split's fp32 partials (m, l, unnormalised
+// acc) go to scratch and the last block of the (row, KV head) to finish —
+// counted by a ticket in a persistent zeroed buffer, which it resets to 0
+// — rescales them by exp(m_s - m_max) and sums them in split order, so the
+// bits do not depend on which block finished last. acc[a] is element
+// tid + kNT * a of the [G, D] accumulator; s_m / s_l the split's m and l,
+// in shared memory that every thread sees.
+template <typename T, int NACC>
+__device__ __forceinline__ void finish_split(
+    const float (&acc)[NACC], const float* s_m, const float* s_l,
+    T* __restrict__ out, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc,
+    int* __restrict__ tickets, long long qo, int G, int D, int row, int kvh,
+    int Hkv, int split, int n_split, int n_act) {
+  __shared__ int s_ticket;
+  const int tid = threadIdx.x;
+  const int GD = G * D;
+  if (n_act == 1) {   // the row's only split: normalise and write
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) {
+      const int e = tid + a * kNT;
+      if (e < GD) out[qo + e] = from_f<T>(acc[a] / fmaxf(s_l[e / D], 1e-30f));
+    }
+    return;
+  }
+  // ---- partials of this split, then the ticket
+  const long long ps = (static_cast<long long>(row) * Hkv + kvh) * n_split;
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) {
+    const int e = tid + a * kNT;
+    if (e < GD) part_acc[(ps + split) * GD + e] = acc[a];
+  }
+  for (int g = tid; g < G; g += kNT) {
+    part_m[(ps + split) * G + g] = s_m[g];
+    part_l[(ps + split) * G + g] = s_l[g];
+  }
+  __threadfence();    // partials visible device-wide before the ticket
+  __syncthreads();
+  int* ticket = tickets + static_cast<long long>(row) * Hkv + kvh;
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1);
+  __syncthreads();
+  if (s_ticket != n_act - 1) return;
+  __threadfence();
+  // ---- the last block combines the splits in split order (through L2:
+  // the other blocks' partials may be stale in this SM's L1)
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) {
+    const int e = tid + a * kNT;
+    if (e < GD) {
+      const int g = e / D;
+      float m_max = kNegInf;
+      for (int s = 0; s < n_act; ++s)
+        m_max = fmaxf(m_max, __ldcg(part_m + (ps + s) * G + g));
+      float sum = 0.f, l = 0.f;
+      for (int s = 0; s < n_act; ++s) {
+        const float w = expf(__ldcg(part_m + (ps + s) * G + g) - m_max);
+        sum = fmaf(w, __ldcg(part_acc + (ps + s) * GD + e), sum);
+        l = fmaf(w, __ldcg(part_l + (ps + s) * G + g), l);
+      }
+      out[qo + e] = from_f<T>(sum / fmaxf(l, 1e-30f));
+    }
+  }
+  if (tid == 0) *ticket = 0;   // ready for the next launch
+}
+
+// ---------------------------------------------- the narrow walk's pieces
+// N narrow bytes of a key row (a lane's columns) -> N floats, exactly.
+// int8: each byte XORed with 0x80 holds q + 128; put under the exponent of
+// 2^23 it is the float 2^23 + q + 128, less 2^23 + 128 (no int-to-float
+// convert). e4m3: two at a time by the f16x2 convert, then to float.
+template <int N>
+__device__ __forceinline__ void narrow_words(const uint8_t* p,
+                                             uint32_t (&w)[(N + 3) / 4]) {
+  if constexpr (N == 2)
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  else if constexpr (N == 4)
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void widen(const int8_t* p, float (&o)[N]) {
+  uint32_t w[(N + 3) / 4];
+  narrow_words<N>(reinterpret_cast<const uint8_t*>(p), w);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    o[i] = __fadd_rn(__uint_as_float(__byte_perm(w[i / 4] ^ 0x80808080u,
+                                                 0x4B000000u,
+                                                 0x7440u + i % 4)),
+                     -8388736.0f);
+}
+template <int N>
+__device__ __forceinline__ void widen(const __nv_fp8_e4m3* p,
+                                      float (&o)[N]) {
+  uint32_t w[(N + 3) / 4];
+  narrow_words<N>(reinterpret_cast<const uint8_t*>(p), w);
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w[i / 4] >> (8 * (i % 4))),
+        __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    o[i] = f.x;
+    o[i + 1] = f.y;
+  }
+}
+
+// Each lane holds N partial sums (keys 0 .. N-1 of a warp's slice, over
+// its own columns); afterwards v[0] of lane l holds key l / (32 / N)
+// summed over all 32 lanes. Each butterfly step halves the keys a lane
+// keeps (lanes with the offset's bit set keep the upper half) and adds
+// its partner's half, so N keys cost N - 1 shuffles, not 5N; once one key
+// is left the remaining offsets add plainly. Lanes that share a key end
+// with the same bits (a + b == b + a).
+template <int N, int O, int M>
+__device__ __forceinline__ void transpose_sum(float (&v)[M], int lane) {
+  if constexpr (N > 1) {
+    const bool up = lane & O;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = up ? v[i] : v[i + N / 2];
+      const float keep = up ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    transpose_sum<N / 2, O / 2>(v, lane);
+  } else if constexpr (O > 0) {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+    transpose_sum<1, O / 2>(v, lane);
+  }
+}
+
+// The quantized walk of a split [s0, s1) (see the header): per-warp rings,
+// whole-warp scores, an online softmax a warp, the warps combined at the
+// end, then finish_split. A warp's running m, l, alpha and P of each head
+// live in its own shared slots (the head loop of the scores is not
+// unrolled), its [G, D] accumulator slice in registers: NACC sizes them
+// (GM = NACC * kNT / D heads at most); the bits do not depend on it.
+template <typename T, int D, int NACC, typename KT, typename KeyOff, int QM,
+          typename ScaleOff>
+__device__ __forceinline__ void narrow_walk(
     const T* __restrict__ q, const KT* __restrict__ k,
     const KT* __restrict__ v, T* __restrict__ out, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc,
     int* __restrict__ tickets, unsigned char* smem_raw, long long qo,
-    int len, KeyOff key_off, Scales<QM, ScaleOff> sc, int G, int row,
-    int kvh, int Hkv, int split, int split_len, int n_split, float scale) {
+    int s0, int s1, int n_act, KeyOff key_off, Scales<QM, ScaleOff> sc,
+    int G, int row, int kvh, int Hkv, int split, int n_split, float scale) {
+  using N = Narrow<D>;
+  constexpr int KW = N::KW, DL = N::DL, R = N::R, NST = N::NST;
+  constexpr int GM = NACC * kNT / D > 0 ? NACC * kNT / D : 1;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int kk = lane / R;              // this lane's key after the sums
+  const int GD = G * D;
+  const int n_pages = (s1 - s0 + N::PAGE - 1) / N::PAGE;
+  unsigned char* ring = smem_raw + warp * NST * N::WSTAGE;
+  float* sQ = reinterpret_cast<float*>(smem_raw + N::RING_BYTES);  // [G][D]
+  float* wM = sQ + GD + warp * G * (3 + KW);    // this warp's m [G],
+  float* wL = wM + G;                           // l [G],
+  float* wA = wL + G;                           // alpha [G],
+  float* wP = wA + G;                           // P [G][KW]
+
+  // this warp's keys of page pg into stage st; keys at or past s1
+  // zero-filled
+  auto issue = [&](int pg, int st) {
+    unsigned char* dK = ring + st * N::WSTAGE;
+    unsigned char* dV = dK + KW * D;
+    const int pw = s0 + pg * N::PAGE + warp * KW;
+#pragma unroll
+    for (int i = 0; i < N::CPL; ++i) {
+      const int e = lane + i * 32;
+      const int j = e / (D / 16);
+      const int c = e % (D / 16);
+      const int p = pw + j;
+      const bool ok = p < s1;
+      const long long off = ok ? key_off(p) + c * 16 : 0;
+      tc::cp_async16(dK + j * D + c * 16, k + off, ok);
+      tc::cp_async16(dV + j * D + c * 16, v + off, ok);
+    }
+  };
+#pragma unroll
+  for (int pg = 0; pg < NST - 1; ++pg) {
+    if (pg < n_pages) issue(pg, pg);
+    tc::cp_async_commit();
+  }
+  constexpr int QV = 16 / sizeof(T);    // q elements a 16-byte load
+  for (int e = tid; e < GD / QV; e += kNT) {
+    float buf[QV];
+    // through L2: the fused decode tick writes q earlier in the same
+    // launch, and this SM's L1 may hold the previous layer's q
+    load16_cg(q + qo + e * QV, buf);
+#pragma unroll
+    for (int x = 0; x < QV; ++x) sQ[e * QV + x] = buf[x];
+  }
+  for (int g = lane; g < G; g += 32) {
+    wM[g] = kNegInf;
+    wL[g] = 0.f;
+  }
+  float acc[GM][DL];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int x = 0; x < DL; ++x) acc[g][x] = 0.f;
+  // key kk's K and V scales of page pg, a page ahead (through L2: the
+  // fused tick writes them in the same launch)
+  float nks = 0.f, nvs = 0.f;
+  auto load_scales = [&](int pg) {
+    const int p = s0 + pg * N::PAGE + warp * KW + kk;
+    const bool ok = pg < n_pages && p < s1;
+    nks = ok ? __ldcg(sc.ks + sc.off(p)) : 0.f;
+    nvs = ok ? __ldcg(sc.vs + sc.off(p)) : 0.f;
+  };
+  load_scales(0);
+  __syncthreads();                  // sQ and the slots are written
+  for (int pg = 0; pg < n_pages; ++pg) {
+    const int st = pg % NST;
+    const int pw = s0 + pg * N::PAGE + warp * KW;
+    tc::cp_async_wait<NST - 2>();   // this lane's copies of page pg
+    __syncwarp();                   // ... every lane's; stage pg-1 read
+    const float ks = nks, vs = nvs;
+    load_scales(pg + 1);
+    if (pg + NST - 1 < n_pages) issue(pg + NST - 1, (pg + NST - 1) % NST);
+    tc::cp_async_commit();
+    if (pw >= s1) continue;         // no key of this warp's slice is live
+    const KT* cK = reinterpret_cast<const KT*>(ring + st * N::WSTAGE);
+    const KT* cV = cK + KW * D;
+    const bool valid = pw + kk < s1;
+#pragma unroll 1
+    for (int g = 0; g < G; ++g) {
+      // ---- scores: the warp on each key, then the transposing sums
+      float qf[DL];
+#pragma unroll
+      for (int x = 0; x < DL; ++x) qf[x] = sQ[g * D + lane * DL + x];
+      float s_[KW];
+#pragma unroll
+      for (int j = 0; j < KW; ++j) {
+        float kf[DL];
+        widen<DL>(cK + j * D + lane * DL, kf);
+        float s = qf[0] * kf[0];
+#pragma unroll
+        for (int x = 1; x < DL; ++x) s = fmaf(qf[x], kf[x], s);
+        s_[j] = s;
+      }
+      transpose_sum<KW, 16>(s_, lane);
+      // ---- online softmax over the slice: K scale after the dot and
+      // 1/sqrt(D); l over the unscaled P; the V scale folded in after
+      float x = s_[0] * scale;
+      x = x * ks;
+      x = valid ? x : kNegInf;
+      float mx = x;
+#pragma unroll
+      for (int o = 16; o >= R; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = wM[g];
+      const float m_new = fmaxf(m_old, mx);
+      const float pr = valid ? expf(x - m_new) : 0.f;
+      const float alpha = expf(m_old - m_new);
+      float sum = pr;
+#pragma unroll
+      for (int o = 16; o >= R; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float l_new = alpha * wL[g] + sum;
+      __syncwarp();                 // every lane has read m and l
+      if (lane == 0) {
+        wM[g] = m_new;
+        wL[g] = l_new;
+        wA[g] = alpha;
+      }
+      if (lane % R == 0) wP[g * KW + kk] = pr * vs;
+    }
+    __syncwarp();
+    // ---- acc = acc * alpha + P V: a word of key j's V row a lane, its
+    // P of each head from the warp's slots
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) break;
+      const float a = wA[g];
+#pragma unroll
+      for (int x = 0; x < DL; ++x) acc[g][x] *= a;
+    }
+    auto pv_key = [&](int j) {
+      float vf[DL];
+      widen<DL>(cV + j * D + lane * DL, vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        const float p = wP[g * KW + j];
+#pragma unroll
+        for (int x = 0; x < DL; ++x) acc[g][x] = fmaf(p, vf[x], acc[g][x]);
+      }
+    };
+    // keys unrolled while the heads a lane may hold are few; with many,
+    // a key loop keeps the code (and its build) small
+    if constexpr (GM * KW <= 64) {
+#pragma unroll
+      for (int j = 0; j < KW; ++j) pv_key(j);
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < KW; ++j) pv_key(j);
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();                  // every warp is done with its ring
+
+  // ---- the warps combine: each publishes its accumulator slice (into
+  // the rings), then thread tid takes elements tid + kNT * a of [G, D]
+  // and the heads tid, tid + kNT, ...
+  float* sA = reinterpret_cast<float*>(smem_raw);   // [warp][G * D]
+  float* s_m = reinterpret_cast<float*>(smem_raw + N::RING_BYTES) + GD +
+               N::kWarpsNT * G * (3 + KW);          // the split's m, l
+  float* s_l = s_m + G;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g >= G) break;
+#pragma unroll
+    for (int x = 0; x < DL; ++x)
+      sA[warp * GD + g * D + lane * DL + x] = acc[g][x];
+  }
+  __syncthreads();
+  // warp w's m and l of head g
+  auto slot = [&](int w, int g) {
+    return reinterpret_cast<float*>(smem_raw + N::RING_BYTES) + GD +
+           w * G * (3 + KW) + g;
+  };
+  auto head_max = [&](int g) {
+    float mm = *slot(0, g);
+#pragma unroll
+    for (int w = 1; w < N::kWarpsNT; ++w) mm = fmaxf(mm, *slot(w, g));
+    return mm;
+  };
+  for (int g = tid; g < G; g += kNT) {
+    const float mm = head_max(g);
+    float ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < N::kWarpsNT; ++w)
+      ll = fmaf(expf(*slot(w, g) - mm), slot(w, g)[G], ll);
+    s_m[g] = mm;
+    s_l[g] = ll;
+  }
+  float out_acc[NACC];
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) {
+    const int e = tid + a * kNT;
+    out_acc[a] = 0.f;
+    if (e < GD) {
+      const int g = e / D;
+      const float mm = head_max(g);
+#pragma unroll
+      for (int w = 0; w < N::kWarpsNT; ++w)
+        out_acc[a] = fmaf(expf(*slot(w, g) - mm), sA[w * GD + e],
+                          out_acc[a]);
+    }
+  }
+  __syncthreads();                  // s_m, s_l seen by every thread
+  finish_split<T, NACC>(out_acc, s_m, s_l, out, part_m, part_l, part_acc,
+                        tickets, qo, G, D, row, kvh, Hkv, split, n_split,
+                        n_act);
+}
+
+// The walk of a split [s0, s1) in 32-key pages (see the header): a
+// block-wide cp.async ring, scores by 8-lane groups, the online softmax a
+// warp a head, P V with the [G, D] accumulator spread over the block,
+// then finish_split. It serves pools of the query's type, and quantized
+// pools whose KV head has more than 512 / D query heads (G * D > 4 * kNT,
+// kMaxAcc accumulator registers: narrow_walk's registers for them raised
+// the fused tick's register pressure and slowed all of it), with the
+// scales in the reference's order as narrow_walk applies them.
+template <typename T, int D, int NACC, typename KT, typename KeyOff, int QM,
+          typename ScaleOff>
+__device__ __forceinline__ void page_walk(
+    const T* __restrict__ q, const KT* __restrict__ k,
+    const KT* __restrict__ v, T* __restrict__ out, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc,
+    int* __restrict__ tickets, unsigned char* smem_raw, long long qo,
+    int s0, int s1, int n_act, KeyOff key_off, Scales<QM, ScaleOff> sc,
+    int G, int row, int kvh, int Hkv, int split, int n_split, float scale) {
   using Sh = Shape<T, D, KT>;
   constexpr int NST = Sh::NST;
   static_assert(QM == 0 || sizeof(KT) == 1, "scales go with a narrow pool");
-  __shared__ int s_ticket;
   KT* sKV = reinterpret_cast<KT*>(smem_raw);      // NST x [K page | V page]
   float* sQ = reinterpret_cast<float*>(smem_raw + NST * Sh::STAGE_BYTES);
   float* sS = sQ + G * D;
@@ -122,15 +549,6 @@ __device__ __forceinline__ void split_kv_walk(
 
   const int tid = threadIdx.x;
   const int GD = G * D;
-  if (len == 0) {
-    if (split == 0)
-      for (int e = tid; e < GD; e += kNT) out[qo + e] = from_f<T>(0.f);
-    return;
-  }
-  const int s0 = split * split_len;
-  if (s0 >= len) return;
-  const int s1 = min(len, s0 + split_len);
-  const int n_act = (len + split_len - 1) / split_len;
   const int n_pages = (s1 - s0 + kPage - 1) / kPage;
 
   // page pg of the split into stage st; keys at or past s1 zero-filled
@@ -270,53 +688,49 @@ __device__ __forceinline__ void split_kv_walk(
     }
   }
   tc::cp_async_wait<0>();
+  finish_split<T, NACC>(acc, s_m, s_l, out, part_m, part_l, part_acc,
+                        tickets, qo, G, D, row, kvh, Hkv, split, n_split,
+                        n_act);
+}
 
-  if (n_act == 1) {   // the row's only split: normalise and write
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) {
-      const int e = tid + a * kNT;
-      if (e < GD) out[qo + e] = from_f<T>(acc[a] / fmaxf(s_l[e / D], 1e-30f));
-    }
+// The work of block (split, kvh, row): q/out slab at element offset qo,
+// `len` keys (already clamped to the cache's capacity), key p at
+// key_off(p), its scales (a quantized pool) at sc.off(p). Partials and the
+// ticket are indexed by (row, kvh). NACC accumulator registers a thread
+// (G * D <= NACC * kNT): a quantized pool's caller picks it from G * D by
+// with_nacc's rule (1, 4 or kMaxAcc), which also picks the walk — narrow_walk
+// for 1 and 4, page_walk for kMaxAcc — so a row's bits depend on (G, D)
+// and the split plan alone. A pool of the query's type takes page_walk.
+template <typename T, int D, int NACC = kMaxAcc, typename KT, typename KeyOff,
+          int QM, typename ScaleOff>
+__device__ __forceinline__ void split_kv_walk(
+    const T* __restrict__ q, const KT* __restrict__ k,
+    const KT* __restrict__ v, T* __restrict__ out, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc,
+    int* __restrict__ tickets, unsigned char* smem_raw, long long qo,
+    int len, KeyOff key_off, Scales<QM, ScaleOff> sc, int G, int row,
+    int kvh, int Hkv, int split, int split_len, int n_split, float scale) {
+  static_assert((QM == 0) == (sizeof(KT) == sizeof(T)) &&
+                (QM == 0 || sizeof(KT) == 1),
+                "scales go with a narrow pool, a wide pool is the query's type");
+  const int tid = threadIdx.x;
+  if (len == 0) {
+    if (split == 0)
+      for (int e = tid; e < G * D; e += kNT) out[qo + e] = from_f<T>(0.f);
     return;
   }
-  // ---- partials of this split, then the ticket
-  const long long ps = (static_cast<long long>(row) * Hkv + kvh) * n_split;
-#pragma unroll
-  for (int a = 0; a < NACC; ++a) {
-    const int e = tid + a * kNT;
-    if (e < GD) part_acc[(ps + split) * GD + e] = acc[a];
-  }
-  for (int g = tid; g < G; g += kNT) {
-    part_m[(ps + split) * G + g] = s_m[g];
-    part_l[(ps + split) * G + g] = s_l[g];
-  }
-  __threadfence();    // partials visible device-wide before the ticket
-  __syncthreads();
-  int* ticket = tickets + static_cast<long long>(row) * Hkv + kvh;
-  if (tid == 0) s_ticket = atomicAdd(ticket, 1);
-  __syncthreads();
-  if (s_ticket != n_act - 1) return;
-  __threadfence();
-  // ---- the last block combines the splits in split order (through L2:
-  // the other blocks' partials may be stale in this SM's L1)
-#pragma unroll
-  for (int a = 0; a < NACC; ++a) {
-    const int e = tid + a * kNT;
-    if (e < GD) {
-      const int g = e / D;
-      float m_max = kNegInf;
-      for (int s = 0; s < n_act; ++s)
-        m_max = fmaxf(m_max, __ldcg(part_m + (ps + s) * G + g));
-      float sum = 0.f, l = 0.f;
-      for (int s = 0; s < n_act; ++s) {
-        const float w = expf(__ldcg(part_m + (ps + s) * G + g) - m_max);
-        sum = fmaf(w, __ldcg(part_acc + (ps + s) * GD + e), sum);
-        l = fmaf(w, __ldcg(part_l + (ps + s) * G + g), l);
-      }
-      out[qo + e] = from_f<T>(sum / fmaxf(l, 1e-30f));
-    }
-  }
-  if (tid == 0) *ticket = 0;   // ready for the next launch
+  const int s0 = split * split_len;
+  if (s0 >= len) return;
+  const int s1 = min(len, s0 + split_len);
+  const int n_act = (len + split_len - 1) / split_len;
+  if constexpr (QM != 0 && NACC <= 4)
+    narrow_walk<T, D, NACC>(q, k, v, out, part_m, part_l, part_acc, tickets,
+                            smem_raw, qo, s0, s1, n_act, key_off, sc, G, row,
+                            kvh, Hkv, split, n_split, scale);
+  else
+    page_walk<T, D, NACC>(q, k, v, out, part_m, part_l, part_acc, tickets,
+                          smem_raw, qo, s0, s1, n_act, key_off, sc, G, row,
+                          kvh, Hkv, split, n_split, scale);
 }
 
 // Opt `kernel` into the walk's shared memory for G heads a block and
@@ -324,11 +738,23 @@ __device__ __forceinline__ void split_kv_walk(
 template <typename T, int D, typename KT = T, typename K, typename... Args>
 cudaError_t launch_walk(K kernel, int G, int n_split, int Hkv, int rows,
                         cudaStream_t stream, Args... args) {
-  const size_t smem = Shape<T, D, KT>::smem_bytes(G);
+  const size_t smem = walk_smem_bytes<T, D, KT>(G);
   cudaError_t err = tc::use_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n_split, Hkv, rows), kNT, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// The accumulator registers a thread for G heads of D (1, 4 or kMaxAcc:
+// G * D <= NACC * kNT), as std::integral_constant to f — the instantiation
+// a quantized walk's caller launches; the fused tick's attention item
+// picks by the same rule.
+template <int D, typename F>
+cudaError_t with_nacc(int G, F f) {
+  if constexpr (D <= kNT)
+    if (G * D <= kNT) return f(std::integral_constant<int, 1>{});
+  if (G * D <= 4 * kNT) return f(std::integral_constant<int, 4>{});
+  return f(std::integral_constant<int, kMaxAcc>{});
 }
 
 // Arguments every split-KV entry checks: G query heads a KV head of D fit

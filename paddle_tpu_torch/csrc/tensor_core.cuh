@@ -188,54 +188,6 @@ __device__ __forceinline__ void narrow_to_bf16(__nv_bfloat16* dst,
   }
 }
 
-// Fused RoPE on a tile that has landed: rows [0, valid) of a swizzled
-// [R][D] bf16 tile, row r at position pos0 of the [S, D] float32 tables
-// plus r, rotated in place (rope_pair, rounded to bf16 as _rope_block
-// rounds). Each thread takes 8-column chunk pairs (c, c + D/16): columns d
-// and d + D/2. The caller synchronises before (the copies of every thread
-// have landed) and after (before a product reads the tile).
-template <int R, int D, int NT>
-__device__ __forceinline__ void rope_tile(__nv_bfloat16* tile,
-                                          const float* __restrict__ sin,
-                                          const float* __restrict__ cos,
-                                          int pos0, int valid) {
-  constexpr int HC = D / 16;
-  for (int e = threadIdx.x; e < R * HC; e += NT) {
-    const int r = e / HC;
-    const int c = e % HC;
-    if (r >= valid) continue;
-    uint4* p1 = reinterpret_cast<uint4*>(tile + swz<R>(r, c));
-    uint4* p2 = reinterpret_cast<uint4*>(tile + swz<R>(r, c + HC));
-    uint4 u1 = *p1, u2 = *p2;
-    __nv_bfloat162* h1 = reinterpret_cast<__nv_bfloat162*>(&u1);
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u2);
-    const long long row = static_cast<long long>(pos0 + r) * D + c * 8;
-    float c1[8], s1[8], c2[8], s2[8];
-    load16(cos + row, c1);
-    load16(cos + row + 4, c1 + 4);
-    load16(sin + row, s1);
-    load16(sin + row + 4, s1 + 4);
-    load16(cos + row + D / 2, c2);
-    load16(cos + row + D / 2 + 4, c2 + 4);
-    load16(sin + row + D / 2, s2);
-    load16(sin + row + D / 2 + 4, s2 + 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(h1[i]);
-      const float2 b = __bfloat1622float2(h2[i]);
-      float o1x, o2x, o1y, o2y;
-      rope_pair(a.x, b.x, c1[2 * i], s1[2 * i], c2[2 * i], s2[2 * i], o1x,
-                o2x);
-      rope_pair(a.y, b.y, c1[2 * i + 1], s1[2 * i + 1], c2[2 * i + 1],
-                s2[2 * i + 1], o1y, o2y);
-      h1[i] = __floats2bfloat162_rn(o1x, o1y);
-      h2[i] = __floats2bfloat162_rn(o2x, o2y);
-    }
-    *p1 = u1;
-    *p2 = u2;
-  }
-}
-
 // The adjoint rotation of a float32 accumulator in the C layout of
 // mma.sync / wgmma: acc[n] are 8-column tiles over D (n < D / 8), so
 // columns d and d + D/2 of a row sit in the same thread at tiles n and

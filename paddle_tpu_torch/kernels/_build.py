@@ -50,7 +50,7 @@ SIGNATURES = {
                      [_P] * 12 + [_I] * 11 + [_P]),
     "ragged_attention": ("ragged_attention", "pt_ragged_attention",
                          [_P] * 14 + [_I] * 12 + [_P]),
-    "flash": ("flash", "pt_flash_fwd", [_P] * 7 + _FLASH_DIMS + [_P]),
+    "flash": ("flash", "pt_flash_fwd", [_P] * 5 + _FLASH_DIMS + [_P]),
     "flash_bwd_dkv": ("flash_bwd_dkv", "pt_flash_bwd_dkv",
                       [_P] * 10 + _FLASH_DIMS + [_P]),
     "flash_bwd_dq": ("flash_bwd_dq", "pt_flash_bwd_dq",

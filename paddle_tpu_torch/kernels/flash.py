@@ -42,17 +42,19 @@ K, V, dK and dV. So ``[B, S, H, D]`` memory and head-major ``[B, H, S,
 D]`` memory run the same kernel bodies; LSE and delta stay ``[B, H, S]``
 float32.
 
-**Fused RoPE** (``rope=(sin, cos)``, the reference's ``_rope_block`` and
-``_rope_t_block``, ``:46`` and ``:55``): the entries take UN-rotated Q
-and K and the ``[S, D]`` float32 tables. The forward kernel rotates each
-tile as it reaches shared memory (neox rotation, rounded to the input
-type before any product, as ``_rope_block`` rounds). The backward rotates
-Q and K once: :func:`rope_qk`, one launch of the ``rope_qk`` kernel
-(``paddle_tpu_torch/csrc/rope_qk.cu``, the same bits), writes rotated
-copies that both backward kernels read (:func:`flash_attention_bwd` runs
-it once for the pair, a standalone :func:`flash_bwd_dkv` or
-:func:`flash_bwd_dq` once for itself). The backward kernels apply the
-adjoint rotation to the float32 dQ and dK accumulators before their one
+**Fused RoPE** (``rope=(sin, cos)``, the reference's ``_rope_block``
+and ``_rope_t_block``, ``:46`` and ``:55``): the entries take UN-rotated
+Q and K and the ``[S, D]`` float32 tables. Forward and backward each
+rotate Q and K once: :func:`rope_qk`, one launch of the ``rope_qk``
+kernel (``paddle_tpu_torch/csrc/rope_qk.cu``, bit for bit
+:func:`rope_rotate`, rounded to the input type as ``_rope_block``
+rounds), writes rotated copies that the kernels read —
+:func:`flash_attention_fwd` before its kernel, :func:`flash_attention_bwd`
+once for the pair, a standalone :func:`flash_bwd_dkv` or
+:func:`flash_bwd_dq` once for itself. The copies live for one call:
+:class:`FlashAttention` saves the un-rotated pair, as the reference's
+``_flash_rope_fwd_rule`` does. The backward kernels apply the adjoint
+rotation to the float32 dQ and dK accumulators before their one
 rounding, so the gradients are those of the un-rotated inputs. Under GQA
 the adjoint applies once, to each KV head's float32 sum over its group.
 The tables get no gradient.
@@ -198,8 +200,8 @@ def _rope_args(tables):
 def rope_qk(q, k, sin, cos):
     """``(rope_rotate(q), rope_rotate(k))``: one launch of the ``rope_qk``
     kernel for CUDA tensors (new tensors with q's and k's strides), the
-    plain :func:`rope_rotate` for CPU tensors — the backward's rotation
-    pre-pass. q ``[B, S, H, D]``, k ``[B, S, Hk, D]`` in either layout
+    plain :func:`rope_rotate` for CPU tensors — the rotation pre-pass of
+    the forward and of the backward. q ``[B, S, H, D]``, k ``[B, S, Hk, D]`` in either layout
     (``_layout``), tables ``[S, D]``."""
     if not _on_cuda("rope_qk", q):
         return _rotated(q, k, (sin, cos))
@@ -235,9 +237,12 @@ def flash_attention_fwd(q, k, v, causal=True, rope=None):
     CUDA tensors, the plain version for CPU tensors. k/v are
     ``[B, S, Hk, D]`` with ``H % Hk == 0``; any of the two layouts
     (``_layout``); ``out`` takes q's layout. ``rope=(sin, cos)`` takes
-    un-rotated q and k and rotates them in the kernel."""
+    un-rotated q and k: one :func:`rope_qk` pre-pass rotates them, then
+    the forward reads the rotated pair."""
     if not _on_cuda("flash_attention_fwd", q):
-        return flash_attention_reference(q, k, v, causal, rope)
+        if rope is not None:
+            q, k = rope_qk(q, k, *rope)
+        return flash_attention_reference(q, k, v, causal)
     B, S, H, Hk, D = _check_shapes("flash", q, k, v)
     q, k = _layout(q), _layout(k)
     v = _like(v, k)
@@ -246,8 +251,10 @@ def flash_attention_fwd(q, k, v, causal=True, rope=None):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     code = _check_kernel_inputs("flash", (q, k, v, out),
                                 (lse,) + (tables or ()))
-    launch("flash", q, k, v, out, lse, *_rope_args(tables), B, S, H, Hk, D,
-           *_strides(q), *_strides(k), int(bool(causal)), code,
+    if tables is not None:
+        q, k = _launch_rope_qk(q, k, tables, code)
+    launch("flash", q, k, v, out, lse, B, S, H, Hk, D, *_strides(q),
+           *_strides(k), int(bool(causal)), code,
            count_as=_kernel_name("flash", rope))
     return out, lse
 
@@ -464,8 +471,8 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal=True, rope=None):
     """Flash attention output over ``[B, S, H, D]`` (k/v ``[B, S, Hk,
     D]``), differentiable through the backward kernels; ``rope=(sin,
-    cos)`` rotates Q and K inside the forward kernel and in the
-    backward's one pre-pass (:func:`rope_qk`). The kernels run on CUDA tensors
+    cos)`` rotates Q and K in the forward's and the backward's one
+    pre-pass each (:func:`rope_qk`). The kernels run on CUDA tensors
     while ``FLAGS_use_cuda_kernels`` is on; the plain versions run on CPU
     tensors, or on any device with the flag off."""
     sin, cos = (None, None) if rope is None else rope
@@ -485,8 +492,9 @@ def flash_attention_bhsd(q, k, v, causal=True, block_q=1024, block_k=1024,
     or ``[B, H, S, D]`` with k/v ``[B, Hk, S, D]`` (GQA indexes the KV
     head; K/V are never repeated). The kernels read the head-major
     tensors through their strides. ``rope=(sin, cos)`` (``[S, D]``
-    float32) rotates un-rotated Q and K in the kernels and returns
-    the gradients of the un-rotated inputs. ``block_q``/``block_k`` are
+    float32) rotates un-rotated Q and K once a forward and once a
+    backward (:func:`rope_qk`) and returns the gradients of the
+    un-rotated inputs. ``block_q``/``block_k`` are
     the Pallas tile sizes, validated and otherwise unused: the port's
     tiles are fixed at 64 rows by 64 keys (ROADMAP Queue B item 6)."""
     _check_block("block_q", block_q)

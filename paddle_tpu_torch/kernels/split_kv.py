@@ -4,9 +4,12 @@ ragged attention share: the split rule, the fp32 partials each launch
 allocates, and the per-(row, KV head) tickets every launch leaves zero.
 
 The walk cuts each row's keys into splits of :func:`split_len` keys; one
-block per (split, KV head, row) walks a split in :data:`PAGE`-key pages,
-and the last block of a (row, KV head) to finish combines the splits'
-partials in split order.
+block per (split, KV head, row) walks a split in :data:`PAGE`-key pages
+(a quantized pool with G * D <= :data:`NARROW_MAX_GD`:
+:func:`narrow_page`-key pages, each of the block's :data:`WARPS` warps
+owning a quarter of every page with its own online softmax, the warps
+combined at the end of the split), and the last block of a (row, KV
+head) to finish combines the splits' partials in split order.
 """
 from __future__ import annotations
 
@@ -18,6 +21,13 @@ from ._launch import check_head_dim
 
 #: keys a page: the walk's step, and the unit of a split
 PAGE = 32
+#: warps a block (128 threads)
+WARPS = 4
+#: bytes of K (and of V) a page of a quantized pool's walk
+NARROW_PAGE_BYTES = 8192
+#: the largest G * D that walk takes; a quantized pool's KV head with more
+#: (more accumulator registers a thread) takes the page walk
+NARROW_MAX_GD = 4 * 128
 #: a full-capacity batch gets at least this many blocks an SM
 BLOCKS_PER_SM = 8
 #: the shortest split, in pages: its fp32 partials stay small beside the
@@ -42,6 +52,13 @@ def split_len(B, Hkv, capacity, n_sm):
     pages = -(-max(capacity, 1) // PAGE)
     splits = -(-BLOCKS_PER_SM * n_sm // max(B * Hkv, 1))
     return max(MIN_SPLIT_PAGES, -(-pages // splits)) * PAGE
+
+
+def narrow_page(D):
+    """Keys a page of the quantized walk at head dim ``D`` (one byte an
+    element): 128, 64 and 32 at D = 64, 128 and 256 — a bf16 page's
+    bytes; each warp owns ``narrow_page(D) // WARPS`` of them."""
+    return NARROW_PAGE_BYTES // D
 
 
 def check_heads(name, H, Hkv, D, dims):

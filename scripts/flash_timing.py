@@ -9,14 +9,22 @@ pre-pass, the pre-pass and the two bodies apart; the same kernels on
 inputs rotated beforehand; the library pair (torch rotation, SDPA
 forward+backward less forward); and a SHA-256 of the bytes of dQ, dK and
 dV from seeded inputs (bf16 at that shape, float32 at B=1, S=512, 8
-heads of 128), so two checkouts can be held to the same bits. Prints one
-JSON line. To compare two trees on one card, run it in turns from one
-command, for example parent, change, change, parent:
+heads of 128), so two checkouts can be held to the same bits. The
+fused-RoPE forward at the same shape: ``flash_attention_fwd(..., rope)``
+(whatever rotation the checkout does, counted in), the same entry on
+inputs rotated beforehand, and a SHA-256 of its O and LSE (bf16 at that
+shape, float32 at the small one). ``--train`` adds one 15-layer
+``bhsd + fuse_rope`` run of ``chip_smoke.py``'s train phase (LLaMA-7B
+widths, B=4, S=2048, bf16: its JSON line holds the step times and the
+peak memory). Prints one JSON line. To compare two trees on one card,
+run it in turns from one command, for example parent, change, change,
+parent:
 
     for r in parent . . parent; do python3 scripts/flash_timing.py $r; done
 """
 import hashlib, json, sys
 root = sys.argv[1]
+train = "--train" in sys.argv[2:]
 sys.path.insert(0, root)
 import torch
 import torch.nn.functional as F
@@ -78,6 +86,13 @@ def rope_inputs(B, S, H, dtype, seed):
 q, k, v, do, o, lse, rope = rope_inputs(4, 2048, 32, torch.bfloat16, 1)
 delta = flash.attention_delta(o, do)
 qr, kr = flash._rotated(q, k, rope)
+# the forward with its rotation, and on inputs rotated beforehand
+fwd_runs = {"rope_fwd": lambda: flash.flash_attention_fwd(q, k, v, True, rope),
+            "rope_fwd_prerotated": lambda: flash.flash_attention_fwd(qr, kr, v, True)}
+for name, fn in fwd_runs.items():
+    out[f"{name}_2048"] = ev(fn, 20)
+    out[f"{name}_device_2048"] = dev_ms(fn)
+out["rope_fwd_sha256_bf16"] = digest(flash.flash_attention_fwd(q, k, v, True, rope))
 runs = {
     "rope_dkv": lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, True, rope),
     "rope_dq": lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, True, rope),
@@ -105,4 +120,10 @@ out["rope_entries_sha256_bf16"] = digest((flash.flash_bwd_dq(q, k, v, do, lse, d
 del q, k, v, do, o, lse, delta, qr, kr, qt, kt, vt, dot, runs
 q, k, v, do, o, lse, rope = rope_inputs(1, 512, 8, torch.float32, 2)
 out["rope_bwd_sha256_fp32"] = digest(flash.flash_attention_bwd(q, k, v, o, lse, do, True, rope))
+out["rope_fwd_sha256_fp32"] = digest(flash.flash_attention_fwd(q, k, v, True, rope))
+del q, k, v, do, o, lse
+torch.cuda.empty_cache()
+if train:
+    import chip_smoke
+    chip_smoke._train_run("bhsd_fuse_rope", 15, {"attention_layout": "bhsd", "fuse_rope": True})
 print(json.dumps(out), flush=True)

@@ -16,7 +16,9 @@ tolerances are relative to each gradient's largest entry, as in
 (``TestTensorCoreFlash``: the flash forward, dK/dV and dQ) holds them to
 ``chip_smoke.py``'s own ``TOL`` and ``BWD_TOL``, and the split-KV paged
 decode sweep (``test_paged_decode_split_sweep``) to ``TOL``;
-``-k "TensorCore or paged"`` runs those two alone. The sweeps of the two
+``-k "TensorCore or paged"`` runs those two alone (with the quantized
+walk's sweep, ``test_paged_decode_quantized_split_sweep``, int8 and fp8
+pools). The sweeps of the two
 kernels redesigned last — dense decode on the split-KV walk
 (``test_decode_split_sweep``) and ragged attention on the split-KV walk
 and the ``wgmma`` tile (``test_ragged_sweep``) — hold them to ``TOL``;
@@ -613,9 +615,9 @@ class TestTensorCoreFlash:
 
 
 # The fused-RoPE mode of the three flash kernels (rope=(sin, cos): Q and K
-# un-rotated in; the forward rotates each tile as it lands, the backward
-# rotates Q and K once by the rope_qk pre-pass; the adjoint on dQ and dK),
-# in the head-major layout the model's bhsd branch hands them.
+# un-rotated in; the forward and the backward each rotate Q and K once by
+# the rope_qk pre-pass; the adjoint on dQ and dK), in the head-major layout
+# the model's bhsd branch hands them.
 ROPE_SWEEP = [(S, D, G) for S in (63, 65, 300) for D in (64, 128)
               for G in (1, 4)]
 
@@ -628,8 +630,9 @@ class TestRopeFlash:
         """The forward (O within TOL, LSE within TOL["float32"]), dK/dV
         and dQ (BWD_TOL) against the plain versions, which rotate first and
         apply the adjoint to the float32 dK and dQ; counted as
-        ``name[rope]``, each standalone backward entry with its own
-        ``rope_qk`` pre-pass; bf16 the same bits on a second launch."""
+        ``name[rope]``, the forward and each standalone backward entry
+        with its own ``rope_qk`` pre-pass; bf16 the same bits on a second
+        launch."""
         name = "bfloat16" if dtype == torch.bfloat16 else "float32"
         r = np.random.RandomState(S + D + G)
         q, k, v, do = (torch.from_numpy(r.randn(2, h, S, D).astype(
@@ -648,7 +651,7 @@ class TestRopeFlash:
             tflash.flash_bwd_dq_reference(*args),)
         assert (LAUNCHES["flash[rope]"], LAUNCHES["flash_bwd_dkv[rope]"],
                 LAUNCHES["flash_bwd_dq[rope]"], LAUNCHES["flash"],
-                LAUNCHES["rope_qk"]) == (1, 1, 1, 0, 2)
+                LAUNCHES["rope_qk"]) == (1, 1, 1, 0, 3)
         for g, w in zip(got, want):
             assert _within_scaled(g, w, *BWD_TOL[name])
         if dtype == torch.bfloat16:
@@ -657,6 +660,30 @@ class TestRopeFlash:
             assert all(torch.equal(a, b) for a, b in zip(got, again))
             assert torch.equal(o, tflash.flash_attention_fwd(q, k, v, True,
                                                              rope)[0])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["fp32", "bf16"])
+    @pytest.mark.parametrize("S,D,G", [(300, 128, 4), (65, 64, 1),
+                                       (2048, 128, 1)])
+    def test_forward_rotates_once(self, cuda_dev, S, D, G, dtype):
+        """``flash_attention_fwd(..., rope)`` is one ``rope_qk`` launch and
+        one ``flash[rope]`` launch, with the bits of the plain-mode kernel
+        on the pair ``rope_qk`` rotated; the un-rotated inputs are left as
+        they were."""
+        r = np.random.RandomState(S + D + G + 3)
+        q, k, v = (torch.from_numpy(r.randn(2, h, S, D).astype(
+            np.float32)).to(cuda_dev, dtype).transpose(1, 2)
+            for h in (8, 8 // G, 8 // G))
+        q0, k0 = q.clone(), k.clone()
+        rope = _rope_tables(S, D, 10000.0, device=cuda_dev)
+        reset_launches()
+        o, lse = tflash.flash_attention_fwd(q, k, v, True, rope)
+        assert (LAUNCHES["rope_qk"], LAUNCHES["flash[rope]"],
+                LAUNCHES["flash"]) == (1, 1, 0)
+        qr, kr = tflash.rope_qk(q, k, *rope)
+        wo, wl = tflash.flash_attention_fwd(qr, kr, v, True)
+        assert torch.equal(o, wo) and torch.equal(lse, wl)
+        assert torch.equal(q, q0) and torch.equal(k, k0)
 
     @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -735,7 +762,9 @@ class TestRopeFlash:
         sfx = "[rope]" if fuse else ""
         assert out[True][2]["flash" + sfx] == 4
         assert out[True][2]["flash_bwd_dq" + sfx] == 2
-        assert out[True][2]["rope_qk"] == (2 if fuse else 0)
+        # one pre-pass a forward (4: two layers, each recomputed) and one
+        # a layer's backward
+        assert out[True][2]["rope_qk"] == (6 if fuse else 0)
         assert sum(out[False][2].values()) == 0
 
 
@@ -852,6 +881,58 @@ class TestQuantizedKernels:
         want = tpd.paged_decode_attention_reference(qt, kd, vd, tables,
                                                     lengths, ks, vs)
         assert torch.equal(got, again)
+        assert (got[0] == 0).all()
+        assert _tol_ok(got, want, dtype)
+
+    @pytest.mark.parametrize("D", [64, 128, 256])
+    @pytest.mark.parametrize("G", [1, 4, 8])
+    def test_paged_decode_quantized_split_sweep(self, cuda_dev, mode, dtype,
+                                                G, D):
+        """The quantized walk over lengths 0, 1, 31, 32, 33, a page +- 1, a
+        split +- 1, several splits and 4093 (block 16), scrambled blocks,
+        sentinel tails, NaN in the stale rows (e4m3 NaN bytes; int8: NaN
+        scales): within TOL, the same bits on a second launch, one launch
+        counted per call."""
+        B, Hkv, bs, mb = 10, 2, 16, 256
+        sms = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+        sl = tpd.split_len(B, Hkv, mb * bs, sms)
+        page = split_kv.narrow_page(D)
+        lengths = np.array([0, 1, 31, 32, 33, page - 1, page + 1, sl - 1,
+                            3 * sl + 5, 4093], np.int32)
+        r = np.random.RandomState(G * 10 + D + 1)
+        need = [-(-int(n) // bs) for n in lengths]
+        nb = sum(need) + 2
+        perm = r.permutation(nb)
+        tables = np.full((B, mb), nb, np.int32)          # sentinel tails
+        at = 0
+        for b, n in enumerate(need):
+            tables[b, :n] = perm[at:at + n]
+            at += n
+        pk = r.randn(nb, bs, Hkv, D).astype(np.float32)
+        pv = r.randn(nb, bs, Hkv, D).astype(np.float32)
+        kd, vd, ks, vs = _qpool(pk, pv, mode, cuda_dev, seed=G + D)
+        for b, n in enumerate(lengths):
+            if n % bs:
+                blk, row = int(tables[b, n // bs]), int(n % bs)
+                if mode == "int8":
+                    ks[blk, row:] = float("nan")
+                    vs[blk, row:] = float("nan")
+                else:
+                    kd.view(torch.uint8)[blk, row:] = 0x7F
+                    vd.view(torch.uint8)[blk, row:] = 0x7F
+        qt = torch.from_numpy(r.randn(B, G * Hkv, D).astype(
+            np.float32)).to(cuda_dev, dtype)
+        tb, ln = (torch.from_numpy(x).to(cuda_dev) for x in (tables,
+                                                             lengths))
+        reset_launches()
+        got = tpd.paged_decode_attention(qt, kd, vd, tb, ln, ks, vs)
+        again = tpd.paged_decode_attention(qt, kd, vd, tb, ln, ks, vs)
+        torch.cuda.synchronize()
+        assert LAUNCHES["paged_decode"] == 2
+        assert tpd.LAST_GRID["split_len"] == sl
+        assert torch.equal(got, again)
+        want = tpd.paged_decode_attention_reference(qt, kd, vd, tb, ln, ks,
+                                                    vs)
         assert (got[0] == 0).all()
         assert _tol_ok(got, want, dtype)
 

@@ -7,9 +7,10 @@ the CPU, against the JAX references given ``k_scale``/``v_scale``.
   ``ragged_attention_reference`` to 1e-5 (float32). The ragged check
   holds decode rows, a chunk that starts mid-block and a dead row.
 - The kernels' quantized arithmetic has no CPU mode, so
-  ``_qsplit_emulation``, ``_qchunk_emulation`` and
-  ``_qchunk_wgmma_emulation`` repeat it in PyTorch: the split-KV walk
-  (paged decode, ragged's span-1 rows, the fused tick's attention), the
+  ``walk_emulation`` (``tests/test_torch_quant_walk.py``),
+  ``_qchunk_emulation`` and ``_qchunk_wgmma_emulation`` repeat it in
+  PyTorch: the quantized split-KV walk (paged decode, ragged's span-1
+  rows, the fused tick's attention), the
   float32 CUDA-core chunk tile (32-key tiles, P kept float32) and the
   bf16 ``wgmma`` chunk tile (64-key tiles; the narrow tile converted
   exactly to bf16, P rounded to bf16 per tile after the V scale is
@@ -37,6 +38,7 @@ from paddle_tpu_torch.kernels import ragged_attention as tra
 from paddle_tpu_torch.serving import kv_cache as tkv
 from test_torch_paged_split import H100_SMS
 from test_torch_paged_split import _inputs as _paged_inputs
+from test_torch_quant_walk import walk_emulation
 from test_torch_ragged_tc import _inputs as _ragged_inputs
 
 NEG_INF = -1e30
@@ -74,60 +76,6 @@ def _jnp(t):
         return jnp.asarray(t.view(torch.uint8).numpy()).view(
             jnp.float8_e4m3fn)
     return jnp.asarray(t.numpy())
-
-
-def _qsplit_emulation(q, kd, vd, ks, vs, tables, lengths):
-    """The quantized split-KV walk: splits of ``split_len`` keys, 32-key
-    pages, the running max per split, fp32 partials combined in split
-    order. Returns ``[B, H, D]`` in q's type."""
-    B, H, D = q.shape
-    nb, bs, Hkv, _ = kd.shape
-    G = H // Hkv
-    mb = tables.shape[1]
-    sl = tpd.split_len(B, Hkv, mb * bs, H100_SMS)
-    scale = 1.0 / math.sqrt(D)
-    out = torch.zeros(B, H, D, dtype=q.dtype)
-    for b in range(B):
-        L = min(max(int(lengths[b]), 0), mb * bs)
-        if L == 0:
-            continue
-        pos = torch.arange(L)
-        phys = tables[b, pos // bs].long().clamp(0, nb - 1)
-        k_raw = kd[phys, pos % bs].float()
-        v_raw = vd[phys, pos % bs].float()
-        k_sc = _scale_rows(ks, phys, pos % bs)          # [L, Hkv]
-        v_sc = _scale_rows(vs, phys, pos % bs)
-        for kvh in range(Hkv):
-            qg = q[b, kvh * G:(kvh + 1) * G].float()
-            parts = []
-            for s0 in range(0, L, sl):
-                s1 = min(L, s0 + sl)
-                m = torch.full((G,), NEG_INF)
-                l = torch.zeros(G)
-                acc = torch.zeros(G, D)
-                for p0 in range(s0, s1, tpd.PAGE):
-                    p1 = min(s1, p0 + tpd.PAGE)
-                    s = (qg @ k_raw[p0:p1, kvh].T) * scale \
-                        * k_sc[p0:p1, kvh]
-                    m_new = torch.maximum(m, s.max(1).values)
-                    p = torch.exp(s - m_new[:, None])
-                    alpha = torch.exp(m - m_new)
-                    l = alpha * l + p.sum(1)
-                    m = m_new
-                    acc = acc * alpha[:, None] \
-                        + (p * v_sc[p0:p1, kvh]) @ v_raw[p0:p1, kvh]
-                parts.append((m, l, acc))
-            if len(parts) > 1:
-                m_max = torch.stack([m for m, _, _ in parts]).max(0).values
-                acc, l = torch.zeros(G, D), torch.zeros(G)
-                for m, ls, a in parts:
-                    w = torch.exp(m - m_max)
-                    acc, l = acc + w[:, None] * a, l + w * ls
-            else:
-                _, l, acc = parts[0]
-            out[b, kvh * G:(kvh + 1) * G] = (
-                acc / l.clamp(min=1e-30)[:, None]).to(q.dtype)
-    return out
 
 
 def _qchunk_emulation(q, kd, vd, ks, vs, tbl, qlen, kvlen):
@@ -251,7 +199,7 @@ def test_quantized_walk_emulation_within_tol(mode, dtype, D):
                      jnp.asarray(tables), jnp.asarray(lengths),
                      k_scale=_jnp(ks), v_scale=_jnp(vs))
     want = torch.from_numpy(np.array(jnp.asarray(want, jnp.float32)))
-    got = _qsplit_emulation(torch.from_numpy(q).to(tdt), kd, vd, ks, vs,
+    got = walk_emulation(torch.from_numpy(q).to(tdt), kd, vd, ks, vs,
                             torch.from_numpy(tables),
                             torch.from_numpy(lengths))
     assert (got[0] == 0).all()                      # length 0
@@ -302,7 +250,7 @@ def _ragged_quantized_within_tol(mode, dtype, G, D, seed):
     tb = torch.from_numpy(tables)
     paths = tra.paths(qlen)
     one = torch.tensor([p == "split" for p in paths])
-    walked = _qsplit_emulation(qt[torch.from_numpy(qstart).long()], kd, vd,
+    walked = walk_emulation(qt[torch.from_numpy(qstart).long()], kd, vd,
                                ks, vs, tb,
                                torch.where(one, torch.from_numpy(kvlen), 0))
     for r, path in enumerate(paths):

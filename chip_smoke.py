@@ -16,8 +16,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
              grid); ragged attention with both of its grids (split-KV
              blocks for span-1 rows, tile blocks for chunks: launched and
              working) plus spans of 2, 63, 64 and 65, a chunk starting
-             mid-block, a chunk whose last key tile is partial and GQA
-             with 8 KV heads; the fused decode tick at
+             mid-block, a chunk whose last key tile is partial, GQA
+             with 8 KV heads and speculative verify spans of 3 and 5
+             rows that cross a block edge (the same bits on a second
+             launch); the fused decode tick at
              llama_7b widths, 2 layers, 8 rows (mixed lengths, one masked
              row, one sampled row) and 37 rows (past the 16 it once took,
              not a multiple of its 8-row tiles): keys bit for bit, logits
@@ -99,9 +101,22 @@ Phases, each printing one JSON line; any failure exits nonzero:
              fp8 pool, ``decode_ticks=4`` and a prefix hit on an int8
              pool), kernels against plain versions: streams equal (int8 x
              int8: the reference's measured bound, a matched prefix of at
-             least half, and the kernels' repeat bit for bit). Last, in a
-             child process, whether the fused tick's cooperative launch
-             captures into a CUDA graph.
+             least half, and the kernels' repeat bit for bit). Before
+             those, Queue A step 9's rest: speculative decode at
+             ``spec_k=4`` with the n-gram drafter (two requests repeat a
+             stretch of their prompt), with the target drafting for
+             itself (acceptance at least 0.9), on an int8 pool and with
+             the prefix cache — each kernels and plain, with and without
+             speculation, all streams equal, the verify launching only
+             ragged attention (2 a step), the pool whole after; the host
+             tier on fp32, int8 and bf16 pools (two 96-token system
+             prompts in turn under a 3-block trie budget: streams equal
+             the run without a tier, blocks spilled and readmitted); two
+             priority classes on a virtual clock, an urgent latency
+             request preempting a batch one (``policy_preemptions`` >= 1),
+             kernels and plain, streams equal the policy-off run's. Last,
+             in a child process, whether the fused tick's cooperative
+             launch captures into a CUDA graph.
 5. serve   — llama_7b at full width and depth (32 layers) in bf16 with
              seeded random weights: 8 requests (7 short prompts, one long
              prompt that rides the ragged kernel in chunks, one seeded
@@ -122,7 +137,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
              shared 1024-token prefix (tails 64-256, 64 new tokens) after
              a priming request, ``prefix_cache=True, prefix_blocks=512``
              and then without the cache: wall, TTFT, tokens saved (8192
-             required), hit rate, peak memory.
+             required), hit rate, peak memory. Speculative decode on the
+             8 requests (``spec_decode=True, spec_k=4``, the n-gram
+             drafter: tok/s, acceptance, tokens per verify launch, ragged
+             32 a verify step, streams against the default engine's); the
+             target drafting for itself, 2 requests x 32 tokens
+             (acceptance and tokens per verify span at full width); the
+             host tier: two 1024-token prefixes in turn, one request at a
+             time, TTFT cold, resident (``prefix_blocks=512``) and
+             readmitted (a 24-block trie budget under the prefix's 32,
+             ``host_tier_bytes``: each admission readmits its prefix), the
+             tier's d2h/h2d bytes from the cost observatory and the
+             transfers' GB/s over 16 blocks of 16 MiB (pinned staging).
 6. generate — ``model.generate`` on the same model (llama_7b, 32
              layers, bf16, seed 0): B=4 prompts of 128 tokens, 64 new
              tokens, greedy and then seeded top-k twice (equal ids); both
@@ -376,7 +402,14 @@ RAGGED_EDGE = {
                          (1, 33), (0, 0)],
     "chunk_mid_block": [(200, 1217), (1, 700)],      # starts at 1017
     "partial_last_key_tile": [(100, 1000), (3, 70), (1, 4093)],
+    # speculative verify spans [last token, drafts]: 3 and 5 rows whose
+    # positions cross a block edge, beside a decode row
+    "verify_3_5_block_edge": [(3, 33), (5, 66), (5, 1027), (3, 97),
+                              (1, 500)],
 }
+#: the edge cases also held to the same bits on a second launch on the
+#: pool of the query type (every case is, on int8 and fp8 pools)
+RAGGED_BITS_TWICE = ("verify_3_5_block_edge",)
 
 
 def ragged_span_inputs(spans, dtype, dev, gen, hkv=HKV):
@@ -433,6 +466,10 @@ def ragged_edge_cases(dtype_name, dev, gen):
         want = ragged_attention.ragged_attention_reference(*a)
         torch.cuda.synchronize()
         errs[name] = _compare(f"ragged {name}", dtype_name, got, want)
+        if name in RAGGED_BITS_TWICE and not torch.equal(
+                got, ragged_attention.ragged_paged_attention(*a)):
+            raise RuntimeError(f"ragged {name} {dtype_name}: two launches "
+                               f"differ")
         used = sum(q for q, _ in spans)
         if not bool((got[used:] == 0).all()):
             raise RuntimeError(f"ragged {name} {dtype_name}: rows outside "
@@ -2032,6 +2069,7 @@ def phase_engine():
     _engine_prefix(model, cfg)
     _engine_two_program(model, cfg, on_streams["default"])
     _engine_multitick(model, cfg)
+    _engine_step9(model, cfg)
     quant = _engine_quant(model, cfg)
     del model
     torch.cuda.empty_cache()
@@ -2644,6 +2682,252 @@ def _multitick_pools(model, reqs, geo):
     return out
 
 
+#: the speculative engine's draft depth in the engine and serve phases
+SPEC_K = 4
+
+
+def _repeating_requests(GenerationRequest, vocab, new, seed):
+    """The engine phase's requests, and two whose prompts repeat a
+    64-token stretch: the n-gram drafter finds drafts in both."""
+    import numpy as np
+    reqs = _requests(GenerationRequest, (37, 130, 300), 700, new, vocab,
+                     seed=seed)
+    r = np.random.RandomState(seed + 1)
+    for n in (64, 150):
+        part = r.randint(0, vocab, n).astype(np.int32)
+        reqs.append(GenerationRequest(
+            prompt=np.concatenate([part, part[:64], part[:64]]),
+            max_new_tokens=new))
+    return reqs
+
+
+def _spec_pair(model, reqs, knob, label):
+    """One speculative knob set against the same engine with speculation
+    off: kernels and plain versions, streams and finish reasons equal
+    across all four, the verify launches only ragged attention (and the
+    cold prefill's flash forward), the pool whole once every request
+    retired. Returns the emitted line."""
+    spec = dict(knob, spec_decode=True, spec_k=SPEC_K)
+    runs = {(s, use): _eng_run(model, reqs, spec if s else knob, kernels=use)
+            for s in (True, False) for use in (True, False)}
+    streams = {k: (v[0], v[1]) for k, v in runs.items()}
+    eng, on = runs[(True, True)][2], runs[(True, True)][3]
+    pool = eng.cache.pool
+    whole = (eng.cache.num_free == eng.num_slots and (
+        pool.num_free == pool.num_blocks if eng.prefix_cache is None
+        else pool.num_used == eng.prefix_cache.num_cached_blocks)
+        and not pool._ref.any())
+    st = eng.stats
+    line = {"phase": "engine", "check": "spec_decode", "case": label,
+            "knobs": {k: (type(v).__name__ if k == "drafter" else v)
+                      for k, v in knob.items()},
+            "spec_k": SPEC_K, "dtype": "float32", "layers": 2,
+            "streams_equal": len({str(v) for v in streams.values()}) == 1,
+            "tokens": sum(len(x) for x in runs[(True, True)][0]),
+            "spec_steps": st["spec_steps"],
+            "spec_proposed": st["spec_proposed"],
+            "spec_accepted": st["spec_accepted"],
+            "acceptance": st["spec_accepted"] / max(st["spec_proposed"], 1),
+            "tokens_per_verify": st["spec_tokens"] / max(st["decode_calls"],
+                                                         1),
+            "decode_compilations": eng.decode_compilations(),
+            "pool_whole_after": whole, "launches_kernels": on,
+            "launches_plain": sum(runs[(True, False)][3].values())}
+    if eng.prefix_cache is not None:
+        line["prefill_tokens_saved"] = st["prefill_tokens_saved"]
+    for v in runs.values():
+        v[2].release()
+    emit(line)
+    if not line["streams_equal"] or not whole or not st["spec_proposed"] \
+            or on["paged_decode"] or on["fused_decode_tick"] \
+            or on["ragged_attention"] != model.config.num_hidden_layers \
+            * st["spec_steps"] \
+            or line["launches_plain"] or line["decode_compilations"] != 1:
+        raise RuntimeError(f"spec decode {label}: {line}")
+    return line
+
+
+def _tier_families(GenerationRequest, vocab, new):
+    """Two 96-token system prompts (3 blocks each) taken in turn, one
+    request at a time: under a 3-block trie budget each switch spills the
+    other family's chain and each return readmits it."""
+    import numpy as np
+    r = np.random.RandomState(31)
+    fams = [r.randint(0, vocab, 96).astype(np.int32) for _ in range(2)]
+    return [[GenerationRequest(prompt=np.concatenate(
+        [fams[i % 2], r.randint(0, vocab, 20 + 7 * i).astype(np.int32)]),
+        max_new_tokens=new)] for i in range(6)]
+
+
+def _engine_tier(model, bf16_model, cfg):
+    """The host tier on fp32 (kernels and plain), int8 (kernels and plain)
+    and bf16 (kernels) pools: under a 3-block trie budget one family's
+    chain spills at every switch and readmits at every return. Its streams
+    and finish reasons must equal the same engine without a tier whose
+    budget keeps both families resident: readmitted blocks carry the bits
+    they left with. (Without a tier an evicted prefix is recomputed, and a
+    recompute at another prompt length may round a cached K/V value
+    differently: a full step on an int8 pool.)"""
+    from paddle_tpu_torch.serving import GenerationRequest
+    waves = _tier_families(GenerationRequest, cfg.vocab_size, 12)
+    legs = {"tier": dict(prefix_blocks=3, host_tier_bytes=1 << 30),
+            "resident": dict(prefix_blocks=64)}
+    for label, m, knob, uses in (("float32", model, {}, (True, False)),
+                                 ("int8", model, {"kv_dtype": "int8"},
+                                  (True, False)),
+                                 ("bfloat16", bf16_model, {}, (True,))):
+        runs = {(leg, use): _eng_run(m, waves, dict(
+            knob, max_seq_len=1024, prefix_cache=True, **legs[leg]),
+            kernels=use) for leg in legs for use in uses}
+        eng = runs[("tier", True)][2]
+        pc = eng.prefix_cache
+        streams = {k: (v[0], v[1]) for k, v in runs.items()}
+        line = {"phase": "engine", "check": "host_tier", "pool": label,
+                "model_dtype": str(m.config.dtype), "layers": 2,
+                "streams_equal": len({str(v) for v in streams.values()})
+                == 1,
+                "tier_vs_resident": {
+                    ("kernels" if use else "plain"):
+                    streams[("tier", use)] == streams[("resident", use)]
+                    for use in uses},
+                "kernels_vs_plain": {
+                    leg: streams[(leg, True)] == streams[(leg, False)]
+                    for leg in legs} if len(uses) == 2 else None,
+                "tier_stats": {k: pc.stats[k] for k in (
+                    "hits", "evictions", "spilled_blocks", "tier_hits",
+                    "readmitted_blocks", "tier_evictions")},
+                "resident_hits": runs[("resident", True)][2]
+                .prefix_cache.stats["hits"],
+                "tier_bytes": pc.tier.bytes_used,
+                "staging_allocations": sum(
+                    pc.pool.staging.allocations.values()),
+                "launches_kernels": runs[("tier", True)][3]}
+        for v in runs.values():
+            v[2].release()
+        emit(line)
+        if not line["streams_equal"] \
+                or not pc.stats["readmitted_blocks"] \
+                or not pc.stats["spilled_blocks"]:
+            raise RuntimeError(f"host tier {label}: {line}")
+
+
+#: the engine phase's two-class table: latency outranks batch, its TTFT
+#: target 80 ms, urgent at half of it
+POLICY_CLASSES = dict(classes="latency,batch*", slo_ttft_ms="80,0")
+
+
+def _policy_run(model, reqs, classes, kernels):
+    """Two batch requests fill both slots; three steps later a latency
+    request arrives and waits past half its TTFT target on the engine's
+    virtual clock, so it preempts one. Returns (streams, finish reasons,
+    stats, launches)."""
+    import torch
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          VirtualClock)
+    from paddle_tpu_torch.serving.policy import ClassTable
+    clk = VirtualClock()
+    try:
+        set_flags({"FLAGS_use_cuda_kernels": kernels})
+        eng = ContinuousBatchingEngine(
+            model, num_slots=2, max_seq_len=1024, headroom_mult=None,
+            step_clock=clk, priority_classes=(
+                ClassTable.parse(**classes) if classes else None))
+        reset_launches()
+        seqs = [eng.submit(q) for q in reqs[:2]]
+        for _ in range(3):
+            eng.step()
+            clk.advance(0.001)
+        seqs.append(eng.submit(reqs[2]))
+        clk.advance(0.05)
+        while eng.has_work():
+            eng.step()
+            clk.advance(0.001)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    out = ([list(s.tokens) for s in seqs], [s.finish_reason for s in seqs],
+           {k: eng.stats[k] for k in ("policy_preemptions", "preemptions",
+                                      "restores")}, launches)
+    eng.release()
+    return out
+
+
+def _engine_policy(model, cfg):
+    """Two classes: the urgent latency request displaces a running batch
+    one (``policy_preemptions >= 1``); kernels and plain versions, every
+    stream and finish reason equal the policy-off run's."""
+    import numpy as np
+    from paddle_tpu_torch.serving import GenerationRequest
+    r = np.random.RandomState(41)
+    V = cfg.vocab_size
+    reqs = [GenerationRequest(prompt=r.randint(0, V, 120).astype(np.int32),
+                              max_new_tokens=24, priority_class="batch"),
+            GenerationRequest(prompt=r.randint(0, V, 90).astype(np.int32),
+                              max_new_tokens=24, temperature=0.9, top_k=5,
+                              seed=3, priority_class="batch"),
+            GenerationRequest(prompt=r.randint(0, V, 40).astype(np.int32),
+                              max_new_tokens=8, priority_class="latency")]
+    plain_reqs = [GenerationRequest(prompt=q.prompt,
+                                    max_new_tokens=q.max_new_tokens,
+                                    temperature=q.temperature,
+                                    top_k=q.top_k, seed=q.seed)
+                  for q in reqs]
+    runs = {(on, use): _policy_run(model, reqs if on else plain_reqs,
+                                   POLICY_CLASSES if on else None, use)
+            for on in (True, False) for use in (True, False)}
+    streams = {k: (v[0], v[1]) for k, v in runs.items()}
+    st = runs[(True, True)][2]
+    line = {"phase": "engine", "check": "priority_classes",
+            "classes": POLICY_CLASSES, "dtype": "float32", "layers": 2,
+            "streams_equal": len({str(v) for v in streams.values()}) == 1,
+            "policy_preemptions": st["policy_preemptions"],
+            "policy_preemptions_plain": runs[(True, False)][2][
+                "policy_preemptions"],
+            "restores": st["restores"],
+            "policy_off_preemptions": runs[(False, True)][2][
+                "policy_preemptions"],
+            "launches_kernels": runs[(True, True)][3]}
+    emit(line)
+    if not line["streams_equal"] or st["policy_preemptions"] < 1 \
+            or line["policy_preemptions_plain"] != st["policy_preemptions"]:
+        raise RuntimeError(f"priority classes: {line}")
+
+
+def _engine_step9(model, cfg):
+    """Speculative decode (n-gram drafter; the target drafting for itself;
+    an int8 pool; with the prefix cache), the host tier (fp32, int8 and
+    bf16 pools) and the priority-class policy at 7B widths, 2 layers."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.serving import GenerationRequest
+    from paddle_tpu_torch.serving.drafter import ModelDrafter
+    reqs = _repeating_requests(GenerationRequest, cfg.vocab_size, 16,
+                               seed=3)
+    _spec_pair(model, reqs, {"max_seq_len": 1024}, "ngram")
+    oracle = _spec_pair(model, reqs[:3], {"max_seq_len": 1024,
+                                          "drafter": ModelDrafter(model)},
+                        "oracle_target_drafts")
+    if oracle["acceptance"] < 0.9:
+        raise RuntimeError(f"the target drafting for itself accepted "
+                           f"{oracle['acceptance']}")
+    _spec_pair(model, reqs, {"max_seq_len": 1024, "kv_dtype": "int8"},
+               "kv_int8")
+    # two waves of the same requests: the second hits the blocks the
+    # first donated, and its repeating prompts still draw drafts
+    _spec_pair(model, [reqs, reqs], {"max_seq_len": 1024,
+                                     "prefix_cache": True}, "prefix_cache")
+    bf16 = LlamaForCausalLM(llama_7b(num_hidden_layers=2, dtype="bfloat16"),
+                            device="cuda", seed=1)
+    _engine_tier(model, bf16, cfg)
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    _engine_policy(model, cfg)
+
+
 def _capture_probe():
     """Whether the fused tick's cooperative launch captures into a CUDA
     graph on this card: one fused tick (7B widths, 2 layers, fp32, 8 rows)
@@ -2741,6 +3025,12 @@ def _expected_serve_launches(label, eng, layers):
         return {"flash": "+", "ragged_attention": layers
                 * st["unified_steps"], "paged_decode": layers
                 * eng._tail.ticks, "fused_decode_tick": 0, "decode": 0}
+    if label == "spec":
+        # one verify launch a step: ragged attention for every layer, no
+        # decode kernel
+        return {"flash": "+", "ragged_attention": layers
+                * st["spec_steps"], "paged_decode": 0,
+                "fused_decode_tick": 0, "decode": 0}
     return {"flash": "+", "ragged_attention": 0, "paged_decode": 0,
             "fused_decode_tick": 0, "decode": layers * st["decode_steps"]}
 
@@ -2827,6 +3117,8 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
                     quantize_weights=eng.quantize_weights,
                     bytes_per_token=eng.cache.bytes_per_token(),
                     pool_bytes=eng.cache.occupancy_bytes())
+    if label == "spec":
+        line.update(_spec_stats(eng))
     if label == "mtick":
         line.update(mtick_syncs=eng.stats["mtick_syncs"],
                     mtick_ticks=eng.stats["mtick_ticks"],
@@ -2861,7 +3153,8 @@ def phase_serve(model, profile=False):
     cfg = model.config
     reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
     runs = {label: _serve_run(model, cfg, reqs, label, knob, profile)
-            for label, knob, _ in ENGINES + MTICK + QUANT_SERVE}
+            for label, knob, _ in ENGINES + MTICK + SPEC_SERVE
+            + QUANT_SERVE}
     streams = {label: toks for label, (_, toks) in runs.items()}
     emit({"phase": "serve", "check": "streams_vs_default",
           "equal": {label: streams[label] == streams["default"]
@@ -2881,11 +3174,15 @@ def phase_serve(model, profile=False):
     gc.collect()
     torch.cuda.empty_cache()
     serve_prefix(model, cfg)
+    serve_oracle(model, cfg)
+    serve_tier(model, cfg)
     return launches
 
 
 #: the multi-tick serve run: the default engine with decode_ticks=8
 MTICK = (("mtick", {"decode_ticks": 8}, None),)
+#: the speculative serve run: the n-gram drafter, SPEC_K drafts a row
+SPEC_SERVE = (("spec", {"spec_decode": True, "spec_k": SPEC_K}, None),)
 #: the quantized serve runs: an int8 pool and int8 weights on the default
 #: engine, then with the fused tick; the engine whose launch counts each
 #: follows
@@ -2976,6 +3273,191 @@ def serve_prefix(model, cfg):
     if hit["prefill_tokens_saved"] != PREFIX_LEN * len(reqs) \
             or not hit["launches"]["paged_decode"]:
         raise RuntimeError(f"prefix serve run: {hit}")
+
+
+def _spec_stats(eng):
+    """A speculative engine's acceptance: drafts proposed and accepted,
+    their ratio, and tokens emitted per verify launch (all rows) and per
+    verify span (one row)."""
+    st = eng.stats
+    return {"spec_steps": st["spec_steps"],
+            "spec_proposed": st["spec_proposed"],
+            "spec_accepted": st["spec_accepted"],
+            "spec_tokens": st["spec_tokens"],
+            "acceptance": st["spec_accepted"] / max(st["spec_proposed"], 1),
+            "tokens_per_verify_launch": st["spec_tokens"]
+            / max(st["decode_calls"], 1),
+            # each span emits its accepted drafts plus one token
+            "tokens_per_verify_span": st["spec_tokens"]
+            / max(st["spec_tokens"] - st["spec_accepted"], 1)}
+
+
+def serve_oracle(model, cfg):
+    """The target drafting for itself (``ModelDrafter(model)``, the
+    always-accept oracle) at full width: 2 requests x 32 tokens, spec_k
+    SPEC_K; acceptance and tokens per verify launch measured, streams
+    against the same requests with speculation off."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import GenerationRequest
+    from paddle_tpu_torch.serving.drafter import ModelDrafter
+    r = np.random.RandomState(13)
+    reqs = [GenerationRequest(prompt=r.randint(0, cfg.vocab_size, n).astype(
+        np.int32), max_new_tokens=32) for n in (100, 200)]
+    base, eng, _, _ = _serve(model, reqs)
+    want = [s.tokens for s in base]
+    eng.release()
+    del eng
+    reset_launches()
+    seqs, eng, step_ms, wall = _serve(model, reqs, spec_decode=True,
+                                      spec_k=SPEC_K,
+                                      drafter=ModelDrafter(model))
+    launches = dict(LAUNCHES)
+    L = cfg.num_hidden_layers
+    line = {"phase": "serve", "check": "spec_oracle", "layers": L,
+            "dtype": "bfloat16", "requests": len(reqs), "new_tokens": 32,
+            "spec_k": SPEC_K, **_spec_stats(eng), "wall_s": wall,
+            "decoded_tok_per_s": sum(len(s.tokens) for s in seqs) / wall,
+            "equal_spec_off": [s.tokens for s in seqs] == want,
+            "launches": {n: launches[n] for n in ("flash",
+                                                  "ragged_attention",
+                                                  "paged_decode")}}
+    eng.release()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(line)
+    if launches["ragged_attention"] != L * line["spec_steps"] \
+            or launches["paged_decode"] or not line["spec_proposed"] \
+            or any(s.finish_reason != "length" for s in seqs):
+        raise RuntimeError(f"spec oracle serve run: {line}")
+
+
+#: the tier run's trie budget: below the 32 blocks of one 1024-token
+#: prefix, so two prefixes taken in turn evict (spill) each other whole
+#: and each admission readmits its own
+TIER_PREFIX_BLOCKS = 24
+TIER_TAILS = (64, 96, 128, 160)
+#: blocks read and written back by the d2h/h2d rate probe
+TIER_PROBE_BLOCKS = 16
+
+
+def _tier_rate(pool, n):
+    """d2h and h2d GB/s of the tier's transfers on ``pool``: ``n`` blocks
+    read into staging buffers (each read waits for its copy) and written
+    back to the same blocks (unchanged bytes), after one warm-up round
+    that allocates the pinned buffers."""
+    import torch
+    blocks = list(range(n))
+    for timed in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bufs = [pool.read_block(b) for b in blocks]
+        t_d2h = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for b, x in zip(blocks, bufs):
+            pool.write_block(b, x)
+        torch.cuda.synchronize()
+        t_h2d = time.perf_counter() - t0
+        nbytes = sum(int(t.nbytes) for x in bufs for t in x.values())
+        for x in bufs:
+            pool.recycle_staging(x)
+    return {"probe_blocks": n, "probe_bytes": nbytes,
+            "d2h_GBps": nbytes / t_d2h / 1e9, "h2d_GBps": nbytes / t_h2d / 1e9,
+            "pinned": bool(bufs[0]["k"].is_pinned())}
+
+
+def serve_tier(model, cfg):
+    """TTFT of one request at a time on two 1024-token prefixes (32
+    blocks of 16 MiB each at 7B bf16) taken in turn, after a priming
+    request on each, in three states: cold (no cache), resident
+    (``prefix_blocks=512``: both prefixes stay) and readmitted (a trie
+    budget of TIER_PREFIX_BLOCKS with ``host_tier_bytes``: each admission
+    readmits its prefix from the host tier, the other prefix spilling to
+    make room). Tier bytes from the cost observatory's ledger, transfer
+    rates from ``_tier_rate``; the readmitted leg's streams must equal the
+    resident leg's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.profiler.cost import CostObservatory
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    r = np.random.RandomState(19)
+    V = cfg.vocab_size
+    prefixes = [r.randint(0, V, PREFIX_LEN).astype(np.int32)
+                for _ in range(2)]
+    primes = [GenerationRequest(prompt=np.concatenate(
+        [p, r.randint(0, V, 16).astype(np.int32)]), max_new_tokens=1)
+        for p in prefixes]
+    reqs = [GenerationRequest(prompt=np.concatenate(
+        [prefixes[i % 2], r.randint(0, V, n).astype(np.int32)]),
+        max_new_tokens=8) for i, n in enumerate(TIER_TAILS)]
+    legs = (("cold", {}),
+            ("resident", {"prefix_cache": True,
+                          "prefix_blocks": PREFIX_BLOCKS}),
+            ("readmitted", {"prefix_cache": True,
+                            "prefix_blocks": TIER_PREFIX_BLOCKS,
+                            "host_tier_bytes": 8 << 30}))
+    lines = {}
+    for label, knob in legs:
+        eng = ContinuousBatchingEngine(model, **knob)
+        co = eng.cost = CostObservatory()
+        for q in primes:
+            eng.generate([q])
+        torch.cuda.synchronize()
+        pc = eng.prefix_cache
+        ttft, readmitted, spilled, toks = [], [], [], []
+        for q in reqs:
+            first = {}
+            eng.on_token = lambda seq, tok: first.setdefault(
+                seq.request_id, time.perf_counter())
+            n0 = dict(pc.stats) if pc is not None else None
+            t0 = time.perf_counter()
+            seq = eng.submit(q)
+            while eng.has_work():
+                eng.step()
+            torch.cuda.synchronize()
+            ttft.append(first[seq.request_id] - t0)
+            if pc is not None:
+                readmitted.append(pc.stats["readmitted_blocks"]
+                                  - n0["readmitted_blocks"])
+                spilled.append(pc.stats["spilled_blocks"]
+                               - n0["spilled_blocks"])
+            toks.append(seq.tokens)
+        line = {"phase": "serve", "check": "tier", "leg": label,
+                "knobs": knob, "layers": cfg.num_hidden_layers,
+                "dtype": "bfloat16", "prefix_tokens": PREFIX_LEN,
+                "tails": list(TIER_TAILS), "ttft_s": ttft,
+                "mean_ttft_s": float(np.mean(ttft)),
+                "readmitted_blocks": readmitted, "spilled_blocks": spilled,
+                "tokens": toks, "block_bytes": eng.cache.pool.block_nbytes}
+        if pc is not None:
+            line["trie"] = {k: pc.stats[k] for k in (
+                "hits", "hit_blocks", "evictions", "spilled_blocks",
+                "tier_hits", "readmitted_blocks", "tier_evictions")}
+        if pc is not None and pc.tier is not None:
+            line.update(tier_d2h_bytes=co.tier_bytes("d2h"),
+                        tier_h2d_bytes=co.tier_bytes("h2d"),
+                        tier_bytes_held=pc.tier.bytes_used,
+                        **_tier_rate(eng.cache.pool, TIER_PROBE_BLOCKS))
+        lines[label] = line
+        eng.release()
+        del eng, pc
+        gc.collect()
+        torch.cuda.empty_cache()
+    tier, res = lines["readmitted"], lines["resident"]
+    tier["streams_equal_resident"] = tier["tokens"] == res["tokens"]
+    tier["streams_equal_cold"] = tier["tokens"] == lines["cold"]["tokens"]
+    tier["ttft_vs_resident"] = tier["mean_ttft_s"] / res["mean_ttft_s"]
+    tier["ttft_vs_cold"] = tier["mean_ttft_s"] / lines["cold"]["mean_ttft_s"]
+    for line in lines.values():
+        emit(line)
+    if not tier["streams_equal_resident"] \
+            or not all(tier["readmitted_blocks"]) \
+            or any(res["readmitted_blocks"]) \
+            or not tier["tier_h2d_bytes"] or not tier["tier_d2h_bytes"]:
+        raise RuntimeError(f"tier serve run: {tier}")
 
 
 # ------------------------------------------------------------- front door

@@ -112,6 +112,12 @@ class CostObservatory:
         self._phase = None
         self.totals = {"dispatches": 0, "h2d_bytes": 0, "d2h_bytes": 0,
                        "compiles": 0, "wall_s": 0.0}
+        # KV-tier traffic by direction (the host-RAM spill tier): a
+        # ledger apart from the per-program h2d/d2h records, whose
+        # arguments and results it never touches. Directions: "d2h"
+        # (spill), "h2d" (readmit), "peer" (a fleet's host-to-host
+        # transfer in; not ported yet)
+        self.tiers = {}
         # label -> launch census: the kernel launches the program's FIRST
         # dispatch made, read off the launch counters across the call
         # (the same chokepoint as every other column, so exactly the
@@ -182,6 +188,26 @@ class CostObservatory:
         if label not in self.censuses:
             self.censuses[label] = {"launches": dict(launches)}
 
+    def record_tier(self, direction, blocks, nbytes):
+        """Account KV-tier traffic: ``blocks`` pool blocks moving
+        ``nbytes`` bytes under ``direction`` (``d2h`` spill | ``h2d``
+        readmit | ``peer``). The caller (the prefix cache's spill and
+        readmit paths) sizes it from the staging buffers. The
+        ``serving_tier_bytes_total{direction}`` counter and the
+        ``/debug/profile`` tiers section read this."""
+        rec = self.tiers.get(direction)
+        if rec is None:
+            rec = {"blocks": 0, "bytes": 0}
+            self.tiers[direction] = rec
+        rec["blocks"] += int(blocks)
+        rec["bytes"] += int(nbytes)
+
+    def tier_bytes(self, direction) -> int:
+        """Total bytes recorded under one tier direction (0 for one that
+        never moved)."""
+        rec = self.tiers.get(direction)
+        return int(rec["bytes"]) if rec else 0
+
     # -------------------------------------------------------------- reading
     def kind_calls(self, kind) -> int:
         """Total dispatches of one program kind (the
@@ -214,6 +240,8 @@ class CostObservatory:
                 "phases": {k: dict(v)
                            for k, v in list(self.phases.items())},
                 "totals": dict(self.totals),
+                "tiers": {k: dict(v)
+                          for k, v in list(self.tiers.items())},
                 "censuses": {k: (dict(v) if v is not None else None)
                              for k, v in list(self.censuses.items())}}
 
@@ -269,10 +297,19 @@ class CostObservatory:
                   for k in ("dispatches", "h2d_bytes", "d2h_bytes",
                             "compiles")}
         totals["wall_s"] = round(wall_total, 9)
-        # the reference's tensor-parallel and KV-tier ledgers: empty, as
-        # on its tp=1, tierless engines (Queue A steps 9-10)
+        base_tr = (base or {}).get("tiers", {})
+        tiers = {}
+        for direction, rec in state.get("tiers", {}).items():
+            b = base_tr.get(direction, {})
+            d_blocks = rec["blocks"] - b.get("blocks", 0)
+            d_bytes = rec["bytes"] - b.get("bytes", 0)
+            if d_blocks <= 0 and d_bytes <= 0:
+                continue
+            tiers[direction] = {"blocks": d_blocks, "bytes": d_bytes}
+        # the reference's tensor-parallel ledger: empty, as on its tp=1
+        # engines (Queue A step 10)
         return {"programs": programs, "phases": phases, "totals": totals,
-                "collectives": {}, "tiers": {}}
+                "collectives": {}, "tiers": tiers}
 
 
 class _CountedProgram:

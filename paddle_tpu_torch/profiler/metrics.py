@@ -219,7 +219,11 @@ TPOT_BUCKETS = (0.0002, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
 QUEUE_WAIT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                       0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
 
-
+# speculative-decode acceptance-length ladder
+# (``serving_spec_accept_length``): tokens emitted per verify span, 1 =
+# nothing accepted (the guaranteed correction token), spec_k + 1 = a
+# fully accepted draft; whole-number bounds, one count a bucket
+SPEC_ACCEPT_BUCKETS = (1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 12.0, 16.0)
 
 
 class Histogram(_Metric):

@@ -18,9 +18,17 @@ stores int8 with per-row-per-head float32 scale planes ``k_scale`` /
 ``float8_e4m3fn`` with per-block planes ``[L, num_blocks, Hkv]`` (ones,
 never written: e4m3's exponent is the per-value scale). The planes are
 indexed by the same physical block id as the data, so every lifecycle
-move (alloc, free, trie donation) carries a block's scales with it. The
-host spill tier and its staging buffers, and tensor-parallel placement,
-are not ported yet (ROADMAP Queue A step 9/10).
+move (alloc, free, trie donation) carries a block's scales with it.
+Tensor-parallel placement is not ported yet (ROADMAP Queue A step 10).
+
+The host spill tier (:class:`~.prefix_cache.HostTier`) moves whole blocks
+through :meth:`BlockManager.read_block` (device→host, into reusable
+staging buffers — pinned host tensors on a card — scale planes included)
+and :meth:`BlockManager.write_block` (host→device, IN PLACE into the pool
+tensors, which the captured multi-tick tail and the fused tick hold and
+which are therefore never rebound). A device→host copy is complete before
+``read_block`` returns; a host→device copy is complete before its staging
+buffers go back to the pool (:meth:`BlockManager.recycle_staging`).
 """
 from __future__ import annotations
 
@@ -28,6 +36,62 @@ import heapq
 
 import numpy as np
 import torch
+
+#: every distinct tier transfer the pools ran: (direction, storage mode,
+#: the pool planes' shapes and dtypes) — the signature set behind
+#: :func:`tier_compilations`
+_TIER_SIGNATURES = set()
+
+
+def tier_compilations() -> int:
+    """Distinct tier transfer signatures run so far: one per (direction,
+    pool geometry, storage mode) however many blocks spill or readmit —
+    the count the JAX package's ``kv_cache.tier_compilations`` reports
+    (its fetch/inject programs trace once per geometry, the block id a
+    runtime scalar)."""
+    return len(_TIER_SIGNATURES)
+
+
+def _bytes(t):
+    """``t`` as the transfers move it: a float8 tensor as ``uint8`` over
+    the same storage (same bits), any other tensor as itself."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+class StagingPool:
+    """Reusable host buffers for tier spills, one free list per (plane,
+    shape, dtype): :meth:`take` pops a free buffer or allocates the key's
+    first (pinned when ``pin``, so the device→host copy is a direct DMA),
+    :meth:`give` returns a spill's buffers once nothing can read them, and
+    ``allocations`` counts real allocations per key — one per key in the
+    steady state, not one per spill."""
+
+    def __init__(self, pin=False):
+        self.pin = bool(pin)
+        self._free = {}          # (plane, shape, dtype str) -> [buffers]
+        #: (plane, shape, dtype str) -> allocation count
+        self.allocations = {}
+
+    @staticmethod
+    def _key(plane, shape, dtype):
+        return (plane, tuple(int(s) for s in shape), str(dtype))
+
+    def take(self, plane, shape, dtype):
+        """A writable host buffer for the named plane (``k`` / ``v`` /
+        scale) of the shape, reused when one is free."""
+        key = self._key(plane, shape, dtype)
+        free = self._free.get(key)
+        if free:
+            return free.pop()
+        self.allocations[key] = self.allocations.get(key, 0) + 1
+        return torch.empty(key[1], dtype=dtype, pin_memory=self.pin)
+
+    def give(self, bufs):
+        """Return a spill's buffers (a ``read_block``-shaped dict) to the
+        free lists. Only once NOTHING can read them again."""
+        for plane, b in bufs.items():
+            self._free.setdefault(self._key(plane, b.shape, b.dtype),
+                                  []).append(b)
 
 
 class BlockManager:
@@ -81,6 +145,12 @@ class BlockManager:
         self._free_set = set(self._free_heap)
         self._ref = np.zeros(self.num_blocks, np.int32)
         self._peak_used = 0
+        # spill staging: per-shape reusable host buffers for read_block,
+        # recycled by the tier's drop/readmit paths (recycle_staging);
+        # the event marks the last host->device copy out of them
+        self._cuda = self.k.is_cuda
+        self.staging = StagingPool(pin=self._cuda)
+        self._h2d_done = None
 
     # ---------------------------------------------------------- allocator
     @property
@@ -140,6 +210,63 @@ class BlockManager:
 
     def refcount(self, block: int) -> int:
         return int(self._ref[block])
+
+    # --------------------------------------------------- tier transfers
+    def _planes(self):
+        planes = {"k": self.k, "v": self.v}
+        if self.quantized:
+            planes.update(k_scale=self.k_scale, v_scale=self.v_scale)
+        return planes
+
+    def _note_transfer(self, direction, planes):
+        _TIER_SIGNATURES.add((direction, self.kv_dtype) + tuple(
+            (name, tuple(t.shape), str(t.dtype))
+            for name, t in planes.items()))
+
+    def read_block(self, block: int) -> dict:
+        """Copy one block device→host for the spill tier: staging buffers
+        keyed like the pool's planes (``k``/``v`` ``[L, 1, bs, Hkv, D]``
+        and, on a quantized pool, ``k_scale``/``v_scale`` — the scale
+        planes ride the same block id). The copy is complete when this
+        returns: an event after the copies is waited on."""
+        planes = self._planes()
+        out = {}
+        for name, t in planes.items():
+            src = t[:, block:block + 1]
+            buf = self.staging.take(name, src.shape, t.dtype)
+            _bytes(buf).copy_(_bytes(src), non_blocking=self._cuda)
+            out[name] = buf
+        if self._cuda:
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        self._note_transfer("d2h", planes)
+        return out
+
+    def write_block(self, block: int, bufs: dict):
+        """Stream one spilled block's host buffers back into pool block
+        ``block`` (readmission), in place: the pool tensors keep their
+        storage, so the captured tail's and the fused tick's pointers stay
+        valid. The copies are asynchronous; :meth:`recycle_staging` waits
+        for them before the buffers are reused."""
+        planes = self._planes()
+        for name, t in planes.items():
+            _bytes(t[:, block:block + 1]).copy_(_bytes(bufs[name]),
+                                                non_blocking=self._cuda)
+        if self._cuda:
+            self._h2d_done = torch.cuda.Event()
+            self._h2d_done.record()
+        self._note_transfer("h2d", planes)
+
+    def recycle_staging(self, bufs):
+        """Hand a spill's staging buffers back for reuse once their tier
+        entry is dead (dropped, replaced, or readmitted): the last
+        host→device copy is waited on first, since a readmission may
+        still be reading the buffers."""
+        if self._h2d_done is not None:
+            self._h2d_done.synchronize()
+            self._h2d_done = None
+        self.staging.give(bufs)
 
     def drop(self, block: int) -> bool:
         """Release one pin and return the block to the free heap iff the

@@ -25,7 +25,10 @@ The port of these programs of ``paddle_tpu/serving/decode.py``:
 - :func:`_multitick_step_impl` — the multi-tick step (``decode_ticks >
   1``): tick 0 as in the unified step, then a tail of ``n_ticks - 1``
   ticks under an on-device alive mask (``serving/graphs.py``: one
-  captured CUDA graph a tick on a card).
+  captured CUDA graph a tick on a card);
+- :func:`_spec_verify_impl` — the speculative step (``spec_decode``):
+  the packed forward of tick 0 over draft-extended verify spans and
+  prefill chunks, then ``spec_len`` samples a row along the key walk.
 
 What changes from JAX to PyTorch:
 
@@ -625,6 +628,66 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
         lens = lens + dec_mask
         toks.append(tok)
     return pool_k, pool_v, torch.stack(toks), keys_t0, _keys_host(kys)
+
+
+# ------------------------------------------------- speculative verify step
+@torch.inference_mode()
+def _spec_verify_impl(params, pool_k, pool_v, tables, ids, seg, pos,
+                      qstart, qlen, kvlen, sample_start, keys, temps,
+                      top_ks, *, spec_len, nh, nkv, hd, eps, theta, tied,
+                      decode_attn="pallas", a8=False):
+    """THE speculative serving step: one call that scores every slot's
+    draft-extended span — a verify row packs ``[last_token, d_1 .. d_k]``
+    at positions ``len .. len+k``, a prefill chunk its prompt slice, both
+    writing K/V through the block tables as tick 0 of
+    :func:`_ragged_step_impl` does (the same :func:`_packed_span_forward`;
+    a verify span of 2..k+1 rows is a chunk span to the ragged kernel) —
+    then samples ``spec_len`` consecutive positions per row under the
+    split-per-token key walk.
+
+    Packed layout as in :func:`_ragged_step_impl`, plus ``sample_start``
+    [R]: the packed row a row's walk starts at — a verify row its span
+    START (position j scores the token after input j), a chunk row its
+    span END (only its sample 0 is ever adopted). Reads clamp inside the
+    span, so short spans repeat their last position and the host ignores
+    the surplus.
+
+    Walk step j: split every row's key, sample position j's logits with
+    ``both[:, 1]``, carry ``both[:, 0]`` — ``spec_len`` sequential decode
+    ticks' keys, so an accepted token was sampled with the key and logits
+    sequential decode would have used.
+
+    Returns ``(pool_k, pool_v, toks [spec_len, R] (device), keys_walk
+    [spec_len, R, 2] (host))``: the pools updated in place; ``keys_walk[j]``
+    each row's key after ``j + 1`` splits (a row that emits m tokens adopts
+    ``keys_walk[m - 1]``)."""
+    dev = params["embed"].device
+    tables = _host(tables)
+    R = tables.shape[0]
+    s_tot = tables.shape[1] * _kv_data(pool_k).shape[2]
+    sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
+    head = _dq_head(params, tied, params["embed"].dtype, a8)
+    tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
+    x, pool_k, pool_v = _packed_span_forward(
+        params, pool_k, pool_v, tables, tables_dev, ids, seg, pos, qstart,
+        qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
+        decode_attn=decode_attn, a8=a8)
+    # spec_len consecutive packed rows from sample_start, clamped inside
+    # the row's span (idle rows clamp to row 0: never read)
+    T = x.shape[1]
+    qs, ql = _host(qstart), _host(qlen)
+    span_end = np.clip(qs + np.maximum(ql, 1) - 1, 0, T - 1)
+    idx = np.clip(_host(sample_start)[:, None] + np.arange(spec_len)[None],
+                  qs[:, None], span_end[:, None])            # [R, S]
+    hsel = x[0, torch.from_numpy(idx.reshape(-1)).to(dev)]   # [R*S, H]
+    logits = _head_logits(_rms(hsel, params["final_norm"], eps), head)
+    logits = logits.reshape(R, spec_len, -1)
+    toks, walk, kys = [], [], keys
+    for j in range(spec_len):
+        kys, draw = _split_rows(kys)
+        toks.append(sample_rows(logits[:, j], draw, temps, top_ks))
+        walk.append(kys)
+    return pool_k, pool_v, torch.stack(toks), torch.stack(walk)
 
 
 # ------------------------------------------------------ dense-slot decode

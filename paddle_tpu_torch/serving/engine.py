@@ -53,6 +53,29 @@ full KV blocks into a ref-counted LRU trie, and an admission whose prompt
 shares a cached chain installs it (paged: zero-copy table references;
 dense: one block copy a block) and prefills only the uncovered suffix
 (``decode._paged_suffix_prefill_impl`` / ``_suffix_prefill_impl``).
+``host_tier_bytes > 0`` puts a host-RAM spill tier behind the trie: an
+evicted block spills device→host, and a lookup that runs off the resident
+chain readmits the spilled continuation host→device
+(:class:`~.prefix_cache.HostTier`).
+
+``spec_decode=True`` (paged only) turns every step into ONE speculative
+verify call (``decode._spec_verify_impl``): a :class:`~.drafter.Drafter`
+(default :class:`~.drafter.NgramDrafter`; or :class:`~.drafter.
+ModelDrafter`) proposes up to ``spec_k`` tokens a running slot, the
+program scores each ``[last_token, d_1 .. d_k]`` span through the ragged
+kernel and samples ``spec_k + 1`` positions a row along the key walk, the
+host accepts the longest matching draft prefix plus the model's own token
+at the first mismatch, and rejected draft rows go back through
+``PagedKVCache.truncate``. Streams equal speculation off, greedy and
+sampled. Drafts share the packed buffer's headroom with the chunk grant
+(``FIFOScheduler.spec_grants``).
+
+``priority_classes`` (a :class:`~.policy.ClassTable`, a spec string or a
+mapping) with more than the neutral class turns on the multi-tenant
+policy: admission by (effective class rank, TTFT slack, FIFO tick) with
+per-class slot headroom (:class:`~.policy.PolicyScheduler`), and an
+SLO-urgent request displaces running lower-class work by the preemption
+path (``on_policy_preempt``, the ``policy_preemptions`` stat).
 
 Offline use::
 
@@ -101,11 +124,12 @@ from ..profiler.tracing import NULL_SPAN
 from .block_manager import BlockManager
 from .decode import (_decode_steps_impl, _multitick_step_impl,
                      _paged_decode_steps_impl, _paged_suffix_prefill_impl,
-                     _prefill_impl, _ragged_step_impl, _suffix_prefill_impl,
-                     quantize_decode_params)
+                     _prefill_impl, _ragged_step_impl, _spec_verify_impl,
+                     _suffix_prefill_impl, quantize_decode_params)
+from .drafter import NgramDrafter
 from .graphs import TailGraphs
 from .kv_cache import PagedKVCache, PoolExhausted, SlotKVCache
-from .policy import ClassTable
+from .policy import ClassTable, PolicyScheduler, select_victims
 from .prefix_cache import PrefixCache
 from .request import GenerationRequest, GenerationResult, Sequence
 from .scheduler import FIFOScheduler
@@ -178,6 +202,11 @@ class ContinuousBatchingEngine:
     The per-step chunk grant adapts to a measured tokens-per-second EWMA
     (``headroom_mult`` decode-steps' worth of time, capped at
     ``prefill_chunk``); ``headroom_mult=None`` pins it at the cap.
+
+    ``spec_decode`` / ``spec_k`` / ``drafter``, ``host_tier_bytes`` and
+    ``priority_classes`` are the reference's speculative, tiered and
+    multi-tenant knobs (module docstring); like it, speculation is
+    refused with ``decode_ticks > 1`` and with ``fused_tick``.
     """
 
     def __init__(self, model, num_slots=8, max_seq_len=None, decode_chunk=8,
@@ -192,6 +221,14 @@ class ContinuousBatchingEngine:
                  host_tier_bytes=0, priority_classes=None,
                  fused_tick=False, collective_overlap=False):
         c = model.config
+        # multi-tenant policy and the host tier: policy, not geometry —
+        # neither changes a program's shapes or its cache key
+        self.classes = ClassTable.coerce(priority_classes)
+        self._policy = self.classes.active
+        self._host_tier_bytes = int(host_tier_bytes)
+        if self._host_tier_bytes < 0:
+            raise ValueError(
+                f"host_tier_bytes must be >= 0, got {host_tier_bytes}")
         if c.decode_attention not in ("pallas", "jnp"):
             raise ValueError(
                 f"decode_attention must be 'pallas' or 'jnp', got "
@@ -200,8 +237,6 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prefill_bucketing must be 'pow2' or 'exact', got "
                 f"{prefill_bucketing!r}")
-        if drafter is not None:
-            _not_ported("drafter", "Queue A step 9 (spec decode)")
         if collective_dtype not in ("fp", "int8"):
             raise ValueError(
                 f"collective_dtype must be 'fp' or 'int8', got "
@@ -209,8 +244,6 @@ class ContinuousBatchingEngine:
         if collective_dtype != "fp":
             _not_ported(f"collective_dtype={collective_dtype!r}",
                         "Queue A step 10 (tensor parallel)")
-        if spec_decode:
-            _not_ported("spec_decode", "Queue A step 9 (spec decode)")
         if kv_dtype not in (None, "int8", "fp8"):
             raise ValueError(
                 f"kv_dtype must be None (store KV at the pool dtype), "
@@ -241,12 +274,6 @@ class ContinuousBatchingEngine:
         if collective_overlap:
             _not_ported("collective_overlap",
                         "Queue A step 10 (tensor parallel)")
-        if int(host_tier_bytes):
-            _not_ported("host_tier_bytes", "Queue A step 9 (host tier)")
-        self.classes = ClassTable.coerce(priority_classes)
-        if self.classes.doc() != ClassTable.single().doc():
-            _not_ported("priority_classes other than the neutral table",
-                        "Queue A step 9 (serving/policy)")
         self._paged = bool(paged_attn)
         # the unified ragged step is the paged engine's; the dense engine
         # ignores ragged_step, as the reference does
@@ -269,6 +296,33 @@ class ContinuousBatchingEngine:
                 "(paged_attn=True, ragged_step=True): multi-tick decode "
                 "is the unified step's fused tail driven past the host "
                 "sync")
+        # speculative decode (paged only: rollback truncates the slot's
+        # private block tail): every step is ONE verify call
+        self._spec = bool(spec_decode)
+        if self._spec and not self._paged:
+            raise ValueError(
+                "spec_decode requires the paged engine (paged_attn="
+                "True): draft rollback truncates the slot's private "
+                "block tail, which the dense per-slot cache does not "
+                "have")
+        if self._spec and int(spec_k) < 1:
+            raise ValueError(f"spec_k must be >= 1, got {int(spec_k)}")
+        if self._mtick and self._spec:
+            raise ValueError(
+                "decode_ticks > 1 is incompatible with spec_decode: a "
+                "speculative step is a verify launch every step, so "
+                "there is no pure-decode tail to multi-tick")
+        if self._fused_tick and self._spec:
+            raise ValueError(
+                "fused_tick=True is incompatible with spec_decode: the "
+                "fused program is the one-token tick body, and a verify "
+                "launch is a spec_len-token span")
+        self._spec_k = int(spec_k)
+        self._spec_len = self._spec_k + 1       # the sampling-walk depth
+        self.drafter = None
+        if self._spec:
+            self.drafter = drafter if drafter is not None \
+                else NgramDrafter()
         self.model = model
         self.config = c
         self._bucketing = prefill_bucketing
@@ -331,6 +385,11 @@ class ContinuousBatchingEngine:
         chunkable = self._chunk is not None and self._chunk < self.max_seq_len
         self._token_budget = self.num_slots + (self._chunk if chunkable
                                                else 0)
+        # the verify program's packed buffer: the larger of the chunk
+        # demand and every slot's full draft, not their sum (drafts share
+        # the chunk headroom)
+        self._spec_budget = self.num_slots + max(
+            self._chunk if chunkable else 0, self.num_slots * self._spec_k)
         if headroom_mult is not None and float(headroom_mult) <= 0:
             raise ValueError(
                 f"headroom_mult must be > 0 (or None for fixed-cap chunk "
@@ -344,7 +403,15 @@ class ContinuousBatchingEngine:
         self._stamp_t = None
         self._tps_ewma = None
         self._dt_decode_ewma = None
-        self.scheduler = FIFOScheduler(decode_chunk)
+        if self._policy:
+            # the closures read the live attributes at decision time, so
+            # the injected step_clock and the slot array are current
+            self.scheduler = PolicyScheduler(
+                decode_chunk, table=self.classes,
+                clock=lambda: self._clock(),
+                slot_usage=self._class_slot_usage)
+        else:
+            self.scheduler = FIFOScheduler(decode_chunk)
         self._slots = [None] * self.num_slots
         self._last_tok = np.zeros(self.num_slots, np.int32)
         self._temps = np.zeros(self.num_slots, np.float32)
@@ -372,10 +439,14 @@ class ContinuousBatchingEngine:
                       "prefill_chunks": 0, "chunk_tokens": 0,
                       "unified_steps": 0, "mtick_syncs": 0, "mtick_ticks": 0,
                       "mtick_pure_syncs": 0, "last_decode_ticks": 0,
+                      "spec_steps": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "spec_tokens": 0,
+                      "spec_last_accept": [],
                       "headroom": self._chunk or 0, "headroom_tps": 0.0,
                       "last_step_duration_s": 0.0, "last_step_tokens": 0,
                       "tokens_generated": 0, "cancelled": 0, "timeouts": 0,
-                      "preemptions": 0, "restores": 0}
+                      "preemptions": 0, "restores": 0,
+                      "policy_preemptions": 0}
         # fault-injection hook: called with the engine at the top of every
         # step attempt; a PoolExhausted it raises is repaired by
         # preemption, anything else propagates
@@ -388,7 +459,8 @@ class ContinuousBatchingEngine:
         # streaming hooks, run on the thread driving step():
         # on_token(seq, token) for every generated token, on_finish(seq)
         # once per sequence whatever its finish reason (cancel()
-        # included); on_policy_preempt never fires on the neutral table
+        # included), on_policy_preempt(victim) just before an SLO-driven
+        # displacement (never on the neutral table)
         self.on_token = None
         self.on_finish = None
         self.on_policy_preempt = None
@@ -442,7 +514,9 @@ class ContinuousBatchingEngine:
                             kv_dtype=self._kv_quant,
                             device=self.model.device)
         if prefix_cache:
-            self.prefix_cache = PrefixCache(pool, max_blocks=budget)
+            self.prefix_cache = PrefixCache(
+                pool, max_blocks=budget,
+                host_tier_bytes=self._host_tier_bytes)
         return pool
 
     def _dense_trie(self, prefix_cache, prefix_blocks, bs):
@@ -466,7 +540,8 @@ class ContinuousBatchingEngine:
         # 0 or negative: BlockManager raises rather than defaulting
         return PrefixCache(BlockManager(
             c.num_hidden_layers, nb, bs, c.num_key_value_heads, c.head_dim,
-            dtype=self._params["embed"].dtype, device=self.model.device))
+            dtype=self._params["embed"].dtype, device=self.model.device),
+            host_tier_bytes=self._host_tier_bytes)
 
     @property
     def fused_tick(self) -> bool:
@@ -507,9 +582,19 @@ class ContinuousBatchingEngine:
         unified step, one sync a token)."""
         return self._decode_ticks
 
+    @property
+    def spec_decode(self) -> bool:
+        """Whether every step is one speculative verify call (draft →
+        ragged-span verify → block-tail rollback)."""
+        return self._spec
+
+    @property
+    def spec_k(self) -> int:
+        """Most draft tokens a verify span takes (0 with speculation
+        off)."""
+        return self._spec_k if self._spec else 0
+
     # the ported path's fixed values of the reference's serving knobs
-    spec_decode = False
-    spec_k = 0
     tp = 1
     collective_dtype = "fp"
     collective_overlap = False
@@ -555,7 +640,7 @@ class ContinuousBatchingEngine:
         if not self._paged:
             dense_decode.check_limits(nh, nkv, hd)
             return
-        if self._ragged:
+        if self._ragged or self._spec:
             ragged_attention.check_limits(nh, nkv, hd)
         if self._fused_tick and not self._a8:
             fused_decode_tick.check_limits(nh, nkv, hd, c.hidden_size,
@@ -669,15 +754,35 @@ class ContinuousBatchingEngine:
                              max_ticks=self._decode_ticks,
                              fused=self._fused_tick, **self._q_consts())
 
+    def _spec_fn(self):
+        # the full packed geometry (num_slots AND the spec budget) plus
+        # the sampling-walk depth key the program; host reads the tokens
+        # and the key walk
+        key = ("spec", self.num_slots, self._spec_budget, self._spec_len,
+               self.config.decode_attention) + self._kvtag + self._wtag \
+            + self._atag
+        return self._program(key, _spec_verify_impl, (2, 3),
+                             spec_len=self._spec_len, **self._q_consts())
+
     def decode_compilations(self) -> int:
         """Decode-program signatures of THIS engine's kind (the
-        compile-once hook): one per ``(num_slots, token_budget,
-        decode_ticks)`` on the multi-tick engine, one per ``(num_slots,
-        token_budget, n_steps)`` on the unified engine, one per
-        ``n_steps`` on the two-program and dense ones, however sampling
-        knobs, budgets, tables and span mixes vary — the JAX engine's
-        trace count."""
+        compile-once hook): one per ``(num_slots, spec_budget, spec_len)``
+        on the speculative engine (its verify program is its decode
+        program), one per ``(num_slots, token_budget, decode_ticks)`` on
+        the multi-tick engine, one per ``(num_slots, token_budget,
+        n_steps)`` on the unified engine, one per ``n_steps`` on the
+        two-program and dense ones, however sampling knobs, budgets,
+        tables and span mixes vary — the JAX engine's trace count."""
         tags = self._kvtag + self._wtag + self._atag + self._fktag
+        if self._spec:
+            # spec_len is configuration: two engines differing only in
+            # spec_k may share a budget, so it is part of the identity
+            return sum(fn._cache_size() for key, fn in self._jit.items()
+                       if key[0] == "spec"
+                       and key[1] == self.num_slots
+                       and key[2] == self._spec_budget
+                       and key[3] == self._spec_len
+                       and key[5:] == tags)
         if self._mtick:
             return sum(fn._cache_size() for key, fn in self._jit.items()
                        if key[0] == "mtick"
@@ -735,10 +840,9 @@ class ContinuousBatchingEngine:
         if request.timeout_s is not None and float(request.timeout_s) <= 0:
             raise ValueError(
                 f"timeout_s must be > 0, got {request.timeout_s}")
-        if request.priority_class is not None and \
-                request.priority_class != self.classes.default:
-            _not_ported(f"priority_class={request.priority_class!r}",
-                        "Queue A step 9 (serving/policy)")
+        # an unknown priority_class raises here, on the caller's thread:
+        # the HTTP front door answers 400
+        self.classes.resolve(request.priority_class)
 
     def submit(self, request) -> Sequence:
         """Queue a request; returns its live Sequence handle."""
@@ -1046,9 +1150,10 @@ class ContinuousBatchingEngine:
         seq.t_finish = self._stamp_now()
         tr = self._tr()
         if tr is not None:
-            self._trace_phase_end(
-                tr, seq, args={"finish_reason": reason,
-                               "tokens": len(seq.tokens)})
+            args = {"finish_reason": reason, "tokens": len(seq.tokens)}
+            if seq.trace_accepts:
+                args["accept_lens"] = list(seq.trace_accepts)
+            self._trace_phase_end(tr, seq, args=args)
             tr.instant("finished", tid=tr.req_tid(seq.request_id),
                        args={"finish_reason": reason})
         slot = seq.slot
@@ -1155,6 +1260,13 @@ class ContinuousBatchingEngine:
                 if self.fault_hook is not None:
                     self.fault_hook(self)
                 if attempt == 0:
+                    if self._policy:
+                        # policy decisions record through the step's
+                        # tracer; displace best-effort work BEFORE
+                        # admission, so the freed slots are in num_free
+                        # for this step's admission
+                        self.scheduler.tracer = tr
+                        self._policy_preempt()
                     admitted = self.scheduler.admissions(
                         self.cache.num_free,
                         hit_len_fn=self._admission_hit_len
@@ -1165,7 +1277,9 @@ class ContinuousBatchingEngine:
                         with self._tspan("admit",
                                          args={"n": len(admitted)}):
                             self._admit_group(admitted, finished)
-                if self._mtick:
+                if self._spec:
+                    step_tokens, had_chunks = self._spec_step(finished)
+                elif self._mtick:
                     step_tokens, had_chunks = self._multitick_step(
                         finished)
                 elif self._ragged:
@@ -1235,6 +1349,51 @@ class ContinuousBatchingEngine:
                 seq.trace_phase = "queued"
                 seq.trace_mark = tr.now() if tr is not None else None
             self.scheduler.requeue_front(seq)
+
+    def _class_slot_usage(self):
+        """Running count per class name for the policy scheduler's
+        headroom: a walk of the slot array (a prefilling sequence holds a
+        slot and counts)."""
+        used = {}
+        for seq in self._slots:
+            if seq is None or seq.done:
+                continue
+            pclass = getattr(seq, "pclass", None)
+            if pclass is not None:
+                used[pclass.name] = used.get(pclass.name, 0) + 1
+        return used
+
+    def _policy_preempt(self):
+        """SLO-driven preemption: when queued requests have waited past
+        the urgency fraction of their TTFT budget and free slots cannot
+        cover them, displace one strictly lower-rank running sequence per
+        uncovered urgent request through :meth:`_preempt` (chain donated,
+        key snapshotted, stream unchanged after restore). Runs before
+        admission inside the step's stamp window, so urgency and victims
+        replay under an injected clock. Equals never displace equals."""
+        urgent = self.scheduler.urgent(self._stamp_t)
+        if not urgent:
+            return
+        free = self.cache.num_free
+        tr = self._tr()
+        for seq in urgent[free:]:
+            pclass = getattr(seq, "pclass", None)
+            rank = pclass.rank if pclass is not None else 0
+            victims = select_victims(self._slots, 1, rank)
+            if not victims:
+                continue
+            victim = victims[0]
+            self.stats["policy_preemptions"] += 1
+            if tr is not None:
+                tr.instant(
+                    "policy_preempt",
+                    args={"urgent": seq.request_id,
+                          "victim": victim.request_id,
+                          "victim_class": getattr(
+                              victim.pclass, "name", None)})
+            if self.on_policy_preempt is not None:
+                self.on_policy_preempt(victim)
+            self._preempt(victim)
 
     def _preempt_youngest(self) -> bool:
         """PoolExhausted repair: displace the youngest slot-holding
@@ -1326,7 +1485,7 @@ class ContinuousBatchingEngine:
         and the headroom EWMAs the adaptive chunk grant derives from."""
         self.stats["last_step_duration_s"] = float(dt)
         self.stats["last_step_tokens"] = int(tokens)
-        if not self._ragged or tokens <= 0 or dt <= 0:
+        if not (self._ragged or self._spec) or tokens <= 0 or dt <= 0:
             return
         a = 0.2
         if had_chunks:
@@ -1625,6 +1784,161 @@ class ContinuousBatchingEngine:
                               "ticks_run": ticks})
         return sum(c for _, c in plan) + emitted_total, bool(chunk_rows)
 
+    def _spec_step(self, finished):
+        """ONE call for everything a speculative step advances: every
+        running slot packs a draft-extended verify span ``[last_token, d_1
+        .. d_k]`` (the drafts' K/V appended through the block table like a
+        chunk's) and every planned chunk its span
+        (``decode._spec_verify_impl``). The host accepts the longest draft
+        prefix the model's own samples reproduce, emits it plus the
+        model's token at the first mismatch (so a launch advances every
+        slot), stops at EOS or ``max_new_tokens`` where sequential decode
+        would, truncates the rejected draft rows' blocks back to the pool,
+        and adopts the key walk at the cut, ``keys_walk[m - 1]`` after m
+        emitted tokens. Drafts are clipped per row to ``spec_k``, the
+        row's remaining budget less one and the KV capacity, and granted
+        from what the chunk plan left of the packed buffer. Returns
+        ``(tokens_processed, had_chunks)``."""
+        tr = self._tr()
+        tp0 = tr.now() if tr is not None else None
+        co = self._co()
+        if co is not None:
+            co.set_phase("plan")
+        plan = []
+        if self._chunk and self.scheduler.num_prefilling:
+            plan = self.scheduler.prefill_plan(self._prefill_budget(),
+                                               self.cache.block_size,
+                                               cap=self._chunk)
+        active = [(slot, s) for slot, s in enumerate(self._slots)
+                  if s is not None and s.status == "running"]
+        if not active and not plan:
+            return 0, False
+        R, T = self.num_slots, self._spec_budget
+        lens = self.cache.lengths
+        chunk_spend = sum(n for _, n in plan)
+        drafts = []
+        for slot, s in active:
+            cap = min(self._spec_k, s.remaining - 1,
+                      self.max_seq_len - int(lens[slot]) - 1)
+            d = self.drafter.propose(s, cap) if cap > 0 else ()
+            drafts.append(np.asarray(d, np.int32).reshape(-1)[:max(cap, 0)])
+        grants = self.scheduler.spec_grants(
+            [len(d) for d in drafts], T - R - chunk_spend)
+        ids = np.zeros(T, np.int32)
+        seg = np.full(T, R, np.int32)       # sentinel: dead packed rows
+        pos = np.zeros(T, np.int32)
+        qstart = np.zeros(R, np.int32)
+        qlen = np.zeros(R, np.int32)
+        kvlen = np.zeros(R, np.int32)
+        sample_start = np.zeros(R, np.int32)
+        temps = np.zeros(R, np.float32)
+        topks = np.zeros(R, np.int32)
+        keys = self._keys.copy()
+        cursor = 0
+        verify_rows = []                    # (slot, seq, draft, len0)
+        for (slot, s), d, g in zip(active, drafts, grants):
+            d = d[:g]
+            L0 = int(lens[slot])
+            q = 1 + len(d)
+            # the span appends rows [L0, L0 + q): the table covers them
+            # before the call, and truncate hands rejected ones back
+            self.cache.ensure_capacity(slot, L0 + q)
+            qstart[slot] = cursor
+            qlen[slot] = q
+            kvlen[slot] = L0 + q
+            sample_start[slot] = cursor     # sample every span position
+            ids[cursor] = self._last_tok[slot]
+            ids[cursor + 1:cursor + q] = d
+            seg[cursor:cursor + q] = slot
+            pos[cursor:cursor + q] = np.arange(L0, L0 + q, dtype=np.int32)
+            temps[slot] = self._temps[slot]
+            topks[slot] = self._topks[slot]
+            verify_rows.append((slot, s, d, L0))
+            cursor += q
+        chunk_rows, cursor = self._pack_chunk_rows(
+            plan, cursor, ids, seg, pos, qstart, qlen, kvlen, keys,
+            temps, topks, sample_start=sample_start)
+        if tr is not None:
+            tr.complete("plan", tp0,
+                        args={"rows": len(active), "chunks": len(plan),
+                              "draft_tokens": int(sum(grants))})
+            tl0 = tr.now()
+        if co is not None:
+            co.set_phase("launch")
+        _, _, toks, kwalk = self._spec_fn()(
+            self._params, *self.cache.kv_args(), self.cache.tables, ids,
+            seg, pos, qstart, qlen, kvlen, sample_start, keys, temps, topks)
+        toks_np = toks.cpu().numpy()        # [spec_len, R]
+        kwalk_np = kwalk.numpy()            # [spec_len, R, 2]
+        self.stats["spec_steps"] += 1
+        if co is not None:
+            co.set_phase("host-accept")
+        if tr is not None:
+            tr.complete("launch", tl0, args={"packed_tokens": cursor})
+            th0 = tr.now()
+        # chunk bookkeeping first, as in the unified step (a final chunk
+        # adopts walk step 0's token and key)
+        for slot, seq, ntok, final in chunk_rows:
+            self._advance_chunk(seq, ntok, toks_np[0, slot],
+                                kwalk_np[0, slot], finished)
+        emitted_total = 0
+        accept_lens = []
+        if verify_rows:
+            self.stats["decode_calls"] += 1
+            self.stats["decode_steps"] += 1
+            self.stats["slot_steps"] += self.num_slots
+            # snapshot after the chunk bookkeeping: a final chunk's key
+            # write must survive
+            knp = self._keys.copy()
+            for slot, seq, d, L0 in verify_rows:
+                seq.launches += 1       # rode this step's one verify
+                a = 0
+                while a < len(d) and int(toks_np[a, slot]) == int(d[a]):
+                    a += 1
+                req = seq.request
+                emit = []
+                for j in range(a + 1):
+                    t = int(toks_np[j, slot])
+                    emit.append(t)
+                    if req.eos_token_id is not None \
+                            and t == int(req.eos_token_id):
+                        break       # sequential decode stops here
+                    if len(seq.tokens) + len(emit) \
+                            >= int(req.max_new_tokens):
+                        break
+                m = len(emit)
+                # rows [L0, L0 + 1 + len(d)) were written; [L0, L0 + m)
+                # are confirmed (the last emitted token's own KV is not in
+                # the cache, as after any decode tick)
+                self.cache.truncate(slot, L0 + m)
+                self.cache.lengths[slot] = L0 + m
+                self._last_tok[slot] = emit[-1]
+                knp[slot] = kwalk_np[m - 1, slot]
+                self.stats["spec_proposed"] += len(d)
+                self.stats["spec_accepted"] += m - 1
+                self.stats["spec_tokens"] += m
+                accept_lens.append(m)
+                if tr is not None and len(seq.trace_accepts) < 512:
+                    seq.trace_accepts.append(m)
+                emitted_total += m
+                for t in emit:
+                    seq.tokens.append(t)
+                    self.stats["active_slot_steps"] += 1
+                    self.stats["tokens_generated"] += 1
+                    self._emit(seq, t)
+                self._maybe_finish(seq, finished)
+            self._keys = knp
+        self.stats["spec_last_accept"] = accept_lens
+        if tr is not None:
+            if verify_rows:
+                tr.instant("spec_accept",
+                           args={"accept_lens": list(accept_lens),
+                                 "proposed": [len(d) for _, _, d, _
+                                              in verify_rows]})
+            tr.complete("host-accept", th0,
+                        args={"emitted": emitted_total})
+        return chunk_spend + emitted_total, bool(chunk_rows)
+
     def _pack_decode_rows(self, n, ids, seg, pos, qstart, qlen, kvlen,
                           dec_mask, temps, topks, eos_ids=None,
                           budgets=None):
@@ -1686,11 +2000,13 @@ class ContinuousBatchingEngine:
         return emitted
 
     def _pack_chunk_rows(self, plan, cursor, ids, seg, pos, qstart, qlen,
-                         kvlen, keys, temps, topks):
-        """Pack this step's planned prefill chunks into the packed buffer.
-        A chunk row samples (and advances its key) only on its FINAL
-        chunk, so the stream equals a one-shot prefill's. Returns
-        ``(chunk_rows, cursor)``."""
+                         kvlen, keys, temps, topks, sample_start=None):
+        """Pack this step's planned prefill chunks into the packed buffer,
+        for the unified, multi-tick and speculative steps alike. A chunk
+        row samples (and advances its key) only on its FINAL chunk, so the
+        stream equals a one-shot prefill's. ``sample_start`` is the verify
+        program's extra metadata: a chunk row samples at its span END.
+        Returns ``(chunk_rows, cursor)``."""
         chunk_rows = []                     # (slot, seq, n_tokens, final)
         for seq, ntok in plan:
             slot, off = seq.slot, seq.prefilled
@@ -1699,6 +2015,8 @@ class ContinuousBatchingEngine:
             qstart[slot] = cursor
             qlen[slot] = ntok
             kvlen[slot] = off + ntok
+            if sample_start is not None:
+                sample_start[slot] = cursor + ntok - 1
             ids[cursor:cursor + ntok] = seq.work[off:off + ntok]
             seg[cursor:cursor + ntok] = slot
             pos[cursor:cursor + ntok] = np.arange(off, off + ntok,

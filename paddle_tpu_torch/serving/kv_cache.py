@@ -20,9 +20,8 @@ hit by referencing the trie's block ids in the slot's table
 (:meth:`PagedKVCache.install_prefix`, no copy) and frees a retiring slot
 around the blocks the trie adopted (``free(slot, keep=...)``); the dense
 cache copies blocks between its slots and the trie's pool
-(:meth:`SlotKVCache.copy_block_in` / ``copy_block_out``). The speculative
-``truncate`` belongs to spec decode, not ported yet (ROADMAP Queue A
-step 9).
+(:meth:`SlotKVCache.copy_block_in` / ``copy_block_out``). Speculative
+decode rolls rejected draft rows back with :meth:`PagedKVCache.truncate`.
 """
 from __future__ import annotations
 
@@ -243,7 +242,8 @@ class PagedKVCache:
     - ``ensure_capacity(slot, rows)`` — append private blocks until the
       table covers ``rows`` logical rows, evicting unpinned trie blocks
       when the pool runs dry (raises :class:`PoolExhausted` when nothing
-      is left).
+      is left); ``truncate(slot, rows)`` drops the private tail past
+      ``rows`` again (the speculative rollback).
     - ``write_prefill(slot, pk, pv, prompt_len)`` — install a cold
       prefill's K/V through the slot's table (quantized on write on an
       int8 or fp8 pool).
@@ -368,6 +368,31 @@ class PagedKVCache:
             self.tables[slot, n] = self._alloc_block()
             n += 1
             self._n_blocks[slot] = n
+
+    def truncate(self, slot, rows: int):
+        """Roll the slot's table back to cover exactly ``rows`` logical
+        rows: every private tail block past ``ceil(rows / block_size)``
+        drops back to the pool (the inverse of :meth:`ensure_capacity`, so
+        ``num_free`` and the refcounts are what a never-grown slot shows).
+        The speculative-decode rollback: a verify span appends draft K/V
+        through the table, and rejected drafts hand their blocks back
+        here.
+
+        The keep count is clamped at the slot's installed shared prefix:
+        trie blocks are never truncated (their pins are the engine's to
+        release). Rows of a kept block past ``rows`` hold stale K/V that
+        attention masks by length and the next append overwrites.
+        ``lengths[slot]`` is clamped down to ``rows``. No device work."""
+        keep = max(-(-int(rows) // self.block_size),
+                   int(self._n_shared[slot]))
+        n = int(self._n_blocks[slot])
+        for j in range(keep, n):
+            self.pool.drop(int(self.tables[slot, j]))
+            self.tables[slot, j] = self.sentinel
+        if keep < n:
+            self._n_blocks[slot] = keep
+        if int(self.lengths[slot]) > int(rows):
+            self.lengths[slot] = int(rows)
 
     def slot_block_ids(self, slot):
         """Physical block ids populating the slot's table, in order."""

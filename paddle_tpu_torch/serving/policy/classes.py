@@ -1,8 +1,6 @@
 """Priority classes for multi-tenant SLO serving (README "Multi-tenant
 SLO serving"); the port's own copy of
-``paddle_tpu/serving/policy/classes.py``. The port's engine serves the
-neutral single-class table (:meth:`ClassTable.single`) only: the policy
-scheduler that acts on an active table is ROADMAP Queue A step 9.
+``paddle_tpu/serving/policy/classes.py``.
 
 A :class:`PriorityClass` names one tenant tier — ``latency`` /
 ``standard`` / ``batch`` in the canonical three-way split — with its

@@ -36,9 +36,10 @@ class GenerationRequest:
     the first step boundary past it — queued (never admitted) or
     mid-decode (slot freed) alike. ``None`` = no deadline.
 
-    ``priority_class`` names a tenant tier; the port's engine serves the
-    neutral single-class table only (``policy/classes.py``) and refuses
-    a request that names another class.
+    ``priority_class`` names the request's tenant tier: it must resolve
+    against the engine's class table at validate time (an unknown name is
+    a ValueError, the HTTP 400). ``None`` rides the table's default
+    class.
     """
     prompt: object
     max_new_tokens: int = 32
@@ -82,7 +83,8 @@ class Sequence:
                  "work", "restore_point", "queue_tick", "launches", "pclass",
                  "t_submit", "t_admitted", "t_first_token",
                  "t_last_token", "t_finish",
-                 "trace_mark", "trace_phase", "trace_chunk_i")
+                 "trace_mark", "trace_phase", "trace_chunk_i",
+                 "trace_accepts")
 
     def __init__(self, request: GenerationRequest, key, deadline=None):
         self.request = request
@@ -135,11 +137,14 @@ class Sequence:
         # request-lifecycle tracing (profiler/tracing.py): the clock mark
         # the current phase started at, the phase's span name
         # (queued|prefill|decode|preempted|recovered, kept with tracing
-        # off so a capture opened mid-flight names the next span right)
-        # and the index of the next prefill_chunk[i] span
+        # off so a capture opened mid-flight names the next span right),
+        # the index of the next prefill_chunk[i] span, and the
+        # acceptance length of each verify span a speculative engine
+        # recorded while tracing (the decode span's args, at most 512)
         self.trace_mark = None
         self.trace_phase = "queued"
         self.trace_chunk_i = 0
+        self.trace_accepts = []
 
     # ------------------------------------------------------- SLO latencies
     @property

@@ -1,7 +1,6 @@
 """Admission + step-size policy for the continuous-batching engine (the
 port's own copy of ``paddle_tpu/serving/scheduler.py``'s
-``FIFOScheduler``, without the speculative grants, which belong to spec
-decode, not ported yet).
+``FIFOScheduler``).
 
 Orca-style iteration-level scheduling (PAPERS.md): the schedulable unit
 is ONE decode step, so a request can join or leave the batch between any
@@ -130,6 +129,21 @@ class FIFOScheduler:
             # blocked head: bank the sub-block grant for the next step
             self._plan_carry = min(budget, int(align))
         return plan
+
+    def spec_grants(self, wants, budget):
+        """Per-slot DRAFT-token grants for a speculative verify step: each
+        running slot's verify span spends ``1 + grant`` positions of the
+        step's packed buffer, and the drafts share its headroom with the
+        chunk grant — ``budget`` is what the chunk plan left. Greedy in
+        the given (slot) order, each grant capped at its row's request.
+        Returns a list aligned with ``wants``."""
+        b = max(int(budget), 0)
+        grants = []
+        for want in wants:
+            g = min(max(int(want), 0), b)
+            grants.append(g)
+            b -= g
+        return grants
 
     def admissions(self, num_free: int, hit_len_fn=None):
         """Sequences to admit this step: up to ``num_free`` from the FIFO

@@ -86,8 +86,8 @@ import numpy as np
 
 from ...kernels import _build
 from ...profiler.cost import PROGRAM_KINDS, CostObservatory
-from ...profiler.metrics import (QUEUE_WAIT_BUCKETS, STEP_BUCKETS,
-                                 TPOT_BUCKETS, TTFT_BUCKETS,
+from ...profiler.metrics import (QUEUE_WAIT_BUCKETS, SPEC_ACCEPT_BUCKETS,
+                                 STEP_BUCKETS, TPOT_BUCKETS, TTFT_BUCKETS,
                                  MetricsRegistry)
 from ...profiler.tracing import TID_GATEWAY, SpanTracer
 from ..faults import TransientFault
@@ -99,12 +99,13 @@ from ..faults import TransientFault
 #: here — gauges (headroom, last_step_*) must NOT be summed across
 #: engines.
 CARRIED_ENGINE_STATS = (
-    "preemptions", "prefill_copy_dispatches", "prefill_chunks",
-    "prefill_tokens_saved", "decode_calls", "tokens_generated",
+    "preemptions", "policy_preemptions", "prefill_copy_dispatches",
+    "prefill_chunks", "prefill_tokens_saved", "spec_proposed",
+    "spec_accepted", "spec_tokens", "decode_calls", "tokens_generated",
     "mtick_syncs", "mtick_ticks")
 
 #: the same carry for the prefix cache's own stats (a rebuild builds a
-#: fresh trie, zeroing them)
+#: fresh trie — and a fresh host tier — zeroing them)
 CARRIED_PREFIX_STATS = ("hits", "misses", "evictions",
                         "spilled_blocks", "tier_hits",
                         "readmitted_blocks", "tier_evictions",
@@ -330,6 +331,7 @@ class ServingGateway:
         engine.cost = self.cost
         engine.on_token = self._on_token
         engine.on_finish = self._on_finish
+        engine.on_policy_preempt = self._on_policy_preempt
         if fault_hook is not None:
             engine.fault_hook = fault_hook
         self._init_metrics(registry)
@@ -376,6 +378,15 @@ class ServingGateway:
         _, pc_base, eng = self._counter_state
         pc = eng.prefix_cache
         return pc_base[key] + (pc.stats[key] if pc is not None else 0)
+
+    def _class_labels(self, seq) -> dict:
+        """Label kwargs for one sequence's latency observations: the
+        ``class`` label with a multi-class table active, {} otherwise (a
+        policy-off gateway's histograms keep their empty label sets)."""
+        if self._m_slo_miss is None:
+            return {}
+        pclass = getattr(seq, "pclass", None)
+        return {"class": pclass.name} if pclass is not None else {}
 
     # ------------------------------------------------------------- metrics
     def _init_metrics(self, registry):
@@ -471,9 +482,33 @@ class ServingGateway:
                 "engines that never decoded scrape 0).").set_fn(
             lambda: (self._stat("mtick_ticks")
                      / max(self._stat("mtick_syncs"), 1)))
-        # the speculative and multi-tenant series of the reference
-        # register only on engines with those knobs on, which the port's
-        # engine refuses (ROADMAP Queue A step 9)
+        # speculative-decode surface: registered only on a speculative
+        # engine, read THROUGH self.engine so a rebuild re-binds them;
+        # the counters ride the _stat() carry
+        self._m_spec_len = None
+        if getattr(self.engine, "spec_decode", False):
+            r.counter("serving_spec_proposed_total",
+                      "Draft tokens submitted to verification. "
+                      "Monotonic across engine rebuilds."
+                      ).set_fn(lambda: self._stat("spec_proposed"))
+            r.counter("serving_spec_accepted_total",
+                      "Draft tokens accepted (emitted without their own "
+                      "decode launch) — the speculation win. Monotonic "
+                      "across engine rebuilds.").set_fn(
+                lambda: self._stat("spec_accepted"))
+            self._m_spec_len = r.histogram(
+                "serving_spec_accept_length",
+                "Tokens emitted per verify span (1 = nothing accepted, "
+                "spec_k + 1 = full draft accepted).",
+                buckets=SPEC_ACCEPT_BUCKETS)
+            # decode_calls, not spec_steps: chunk-only launches carry no
+            # verify rows and would inflate a ratio over decode work
+            r.gauge("serving_spec_launches_per_accepted_token",
+                    "Decode launches per emitted token under "
+                    "speculation (1.0 = no speedup; ~1 / mean "
+                    "acceptance length).").set_fn(
+                lambda: (self._stat("decode_calls")
+                         / max(self._stat("spec_tokens"), 1)))
         # fault-tolerance surface (README "Fault tolerance & chaos
         # testing"). Gateway-owned counters, NOT engine-stat-backed:
         # engine stats die with a rebuilt engine, and a restart must
@@ -504,6 +539,30 @@ class ServingGateway:
                   "pressure (PoolExhausted: chain donated to the trie, "
                   "request re-queued). Monotonic across engine rebuilds."
                   ).set_fn(lambda: self._stat("preemptions"))
+        # multi-tenant SLO surface: registered only when the engine's
+        # class table is ACTIVE, so a policy-off gateway's document (and
+        # the empty label sets of the latency histograms) stays as it
+        # was. Both counters are gateway-owned, monotonic across
+        # rebuilds, and zero-seeded per known class
+        self._m_slo_miss = None
+        self._m_policy_preempt = None
+        if self.engine.classes.active:
+            self._m_slo_miss = r.counter(
+                "serving_slo_misses_total",
+                "Finished first-tokens/requests that exceeded their "
+                "priority class's SLO target, by class and slo "
+                "(ttft|tpot). Classes without a target never miss.")
+            self._m_policy_preempt = r.counter(
+                "serving_policy_preemptions_total",
+                "Sequences displaced by SLO-driven policy preemption "
+                "(an urgent higher-class request claimed the slot), "
+                "by the victim's class. Streams continue unchanged "
+                "after restore.")
+            for c in self.engine.classes:
+                self._m_policy_preempt.inc(0, victim_class=c.name)
+                for slo in ("ttft", "tpot"):
+                    self._m_slo_miss.inc(0, **{"class": c.name,
+                                               "slo": slo})
         r.gauge("serving_watchdog_last_step_age_seconds",
                 "Seconds since the last completed engine step (the "
                 "supervisor's hung-step signal; an orchestrator's "
@@ -587,8 +646,8 @@ class ServingGateway:
             r.gauge("serving_prefix_cached_blocks",
                     "Trie-resident cached blocks (live nodes).").set_fn(
                 lambda: self.engine.prefix_cache.num_cached_blocks)
-            # the host-RAM spill tier's series, as on a reference trie
-            # built without a tier: counters at 0, gauges at 0
+            # the host-RAM spill tier: counters registered whether or not
+            # a tier exists (a tierless engine scrapes zeros)
             for name, stat, doc in (
                     ("serving_prefix_spilled_blocks_total",
                      "spilled_blocks",
@@ -610,14 +669,22 @@ class ServingGateway:
                 r.counter(name, doc + " Monotonic across engine "
                           "rebuilds.").set_fn(
                     (lambda k: lambda: self._pc_stat(k))(stat))
-            for name, doc in (
-                    ("serving_prefix_tier_blocks",
-                     "Blocks resident in the host-RAM spill tier."),
-                    ("serving_prefix_tier_bytes",
-                     "Host bytes the spill tier currently holds."),
-                    ("serving_prefix_tier_bytes_capacity",
-                     "The host_tier_bytes budget (0 = tier off).")):
-                r.gauge(name, doc).set(0)
+            r.gauge("serving_prefix_tier_blocks",
+                    "Blocks resident in the host-RAM spill tier."
+                    ).set_fn(
+                lambda: (self.engine.prefix_cache.tier.num_blocks
+                         if self.engine.prefix_cache.tier is not None
+                         else 0))
+            r.gauge("serving_prefix_tier_bytes",
+                    "Host bytes the spill tier currently holds."
+                    ).set_fn(
+                lambda: (self.engine.prefix_cache.tier.bytes_used
+                         if self.engine.prefix_cache.tier is not None
+                         else 0))
+            r.gauge("serving_prefix_tier_bytes_capacity",
+                    "The host_tier_bytes budget (0 = tier off)."
+                    ).set_fn(
+                lambda: self.engine.prefix_cache.host_tier_bytes)
         # device-boundary cost surface (README "Cost attribution &
         # /debug/profile"): observatory-owned, so every series is
         # monotonic across engine rebuilds by construction. One series
@@ -641,9 +708,9 @@ class ServingGateway:
                 "host). No device sync; monotonic across rebuilds.")
             xfer.set_fn(lambda: co.totals["h2d_bytes"], direction="h2d")
             xfer.set_fn(lambda: co.totals["d2h_bytes"], direction="d2h")
-            # the reference's tensor-parallel and KV-tier byte series,
-            # registered up front there so tp=1, tierless engines scrape
-            # explicit zeros; the port has neither (Queue A steps 9-10)
+            # the tensor-parallel and KV-tier byte series, registered up
+            # front so tp=1 and tierless engines scrape explicit zeros;
+            # the port has no tensor parallelism yet (Queue A step 10)
             coll = r.counter(
                 "serving_collective_bytes_total",
                 "Cross-chip tensor-parallel all-reduce wire bytes per "
@@ -653,10 +720,12 @@ class ServingGateway:
             tier = r.counter(
                 "serving_tier_bytes_total",
                 "KV prefix-tier bytes moved by direction (d2h: spill, "
-                "h2d: readmission, peer: fleet transfer in). 0 without a "
-                "host tier.")
+                "h2d: readmission, peer: fleet transfer in), a ledger "
+                "apart from serving_transfer_bytes_total. 0 without a "
+                "host tier. Monotonic across engine rebuilds.")
             for tdir in ("d2h", "h2d", "peer"):
-                tier.set_fn(lambda: 0, direction=tdir)
+                tier.set_fn((lambda d: lambda: co.tier_bytes(d))(tdir),
+                            direction=tdir)
             r.counter("serving_program_compiles_total",
                       "Program compile (trace) events observed at the "
                       "jit-cache chokepoint — stays flat once warm "
@@ -716,8 +785,19 @@ class ServingGateway:
         if stream.first_token_time is None:
             stream.first_token_time = time.monotonic()
             self._m_ttft.observe(stream.first_token_time
-                                 - stream.submit_time)
+                                 - stream.submit_time,
+                                 **self._class_labels(seq))
             self._leave_waiting_room(stream)
+            # TTFT SLO verdict from the engine-clock stamp (not the wall
+            # latency above): deterministic under an injected clock
+            if self._m_slo_miss is not None:
+                pclass = getattr(seq, "pclass", None)
+                ttft = seq.ttft_s
+                if (pclass is not None and pclass.ttft_slo_s is not None
+                        and ttft is not None
+                        and ttft > pclass.ttft_slo_s):
+                    self._m_slo_miss.inc(**{"class": pclass.name,
+                                            "slo": "ttft"})
         stream._push_token(token)
 
     def _finish_teardown(self, seq):
@@ -733,10 +813,16 @@ class ServingGateway:
         # one-token request has no TPOT)
         qw = seq.queue_wait_s
         if qw is not None:
-            self._m_queue_wait.observe(qw)
+            self._m_queue_wait.observe(qw, **self._class_labels(seq))
         tp = seq.tpot_s
         if tp is not None:
-            self._m_tpot.observe(tp)
+            self._m_tpot.observe(tp, **self._class_labels(seq))
+            if self._m_slo_miss is not None:
+                pclass = getattr(seq, "pclass", None)
+                if (pclass is not None and pclass.tpot_slo_s is not None
+                        and tp > pclass.tpot_slo_s):
+                    self._m_slo_miss.inc(**{"class": pclass.name,
+                                            "slo": "tpot"})
         # quarantine bookkeeping: any terminal outcome clears suspicion
         self._probation.discard(seq.request_id)
         if self._suspect_ids is not None:
@@ -751,6 +837,16 @@ class ServingGateway:
         stream = self._finish_teardown(seq)
         if stream is not None:
             stream._push_finish(seq.finish_reason)
+
+    def _on_policy_preempt(self, seq):
+        """Engine hook: an SLO-urgent request displaced ``seq``. Counts
+        by victim class on the gateway-owned counter (the engine's own
+        ``policy_preemptions`` stat rides the carry beside it)."""
+        if self._m_policy_preempt is not None:
+            pclass = getattr(seq, "pclass", None)
+            self._m_policy_preempt.inc(
+                victim_class=pclass.name if pclass is not None
+                else "unknown")
 
     # ------------------------------------------------------- driver thread
     def _admit_intake(self):
@@ -877,6 +973,14 @@ class ServingGateway:
             self.restart_latencies.append(self._clock() - self._fault_at)
             self._fault_at = None
         self._m_step_dur.observe(self.engine.stats["last_step_duration_s"])
+        if self._m_spec_len is not None:
+            # drain the step's acceptance lengths into the histogram (the
+            # driver thread is their only reader and writer)
+            lens = self.engine.stats["spec_last_accept"]
+            if lens:
+                for m in lens:
+                    self._m_spec_len.observe(m)
+                self.engine.stats["spec_last_accept"] = []
 
     def _classify(self, exc) -> str:
         if isinstance(exc, WatchdogTimeout):
@@ -952,6 +1056,7 @@ class ServingGateway:
         new = self.engine_factory()
         new.on_token = self._on_token
         new.on_finish = self._on_finish
+        new.on_policy_preempt = self._on_policy_preempt
         new.tracer = self.tracer     # one timeline across incarnations
         new.cost = self.cost         # one cost account, monotonic too
         if self._fault_hook is not None:
@@ -1232,6 +1337,19 @@ class ServingGateway:
                 "used_scale_bytes": used * sc_b,
                 "capacity_bytes": eng.cache.pool.num_blocks * per_block,
                 "bytes_per_token": eng.cache.bytes_per_token(),
+            }
+        pc = getattr(eng, "prefix_cache", None)
+        if pc is not None and pc.tier is not None:
+            # the window's spill/readmit traffic per decoded token, and
+            # the tier's occupancy now
+            doc["tiers"] = {
+                "host_tier_bytes": pc.host_tier_bytes,
+                "tier_blocks": pc.tier.num_blocks,
+                "tier_bytes": pc.tier.bytes_used,
+                "per_direction": {
+                    d: dict(rec, bytes_per_decoded_token=round(
+                        rec["bytes"] / max(tokens, 1), 3))
+                    for d, rec in doc.get("tiers", {}).items()},
             }
         return doc
 

@@ -196,12 +196,9 @@ class TestEngineBehaviour:
             eng.submit("not a request")
 
 
-# what stays off the ported path: spec decode, tensor parallel, the host
-# tier, priority classes (the case id is the first key)
-KNOBS = [dict(spec_decode=True),
-         dict(tp=2), dict(host_tier_bytes=1 << 20),
-         dict(priority_classes={"gold": 1}),
-         dict(collective_overlap=True)]
+# what stays off the ported path: tensor parallel (the case id is the
+# first key)
+KNOBS = [dict(tp=2), dict(collective_overlap=True)]
 
 
 @pytest.mark.parametrize("knob", KNOBS, ids=lambda k: next(iter(k)))
@@ -209,6 +206,29 @@ def test_off_default_knobs_raise(models, knob):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatchingEngine(tm, **knob)
+
+
+# refused until speculative decode, the host tier and the priority-class
+# policy were ported; each now serves the matrix without its cancelled
+# victims, streams equal the default engine's (the case id is the first
+# key)
+STEP9_KNOBS = [dict(spec_decode=True),
+               dict(host_tier_bytes=1 << 20, prefix_cache=True),
+               dict(priority_classes="latency,standard*")]
+
+
+@pytest.mark.parametrize("knob", STEP9_KNOBS, ids=lambda k: next(iter(k)))
+def test_step9_knobs_are_served(models, runs, knob):
+    _, tm = models
+    matrix = [m for m in runs[4] if not m[0].startswith("victim")]
+    want, _ = _drive_plain(ContinuousBatchingEngine(tm, **GEOMETRY), matrix)
+    got, eng = _drive_plain(ContinuousBatchingEngine(
+        tm, **dict(GEOMETRY, **knob)), matrix)
+    assert got == want
+    assert eng.spec_decode == bool(knob.get("spec_decode"))
+    assert eng.classes.active == ("priority_classes" in knob)
+    if "host_tier_bytes" in knob:
+        assert eng.prefix_cache.tier is not None
 
 
 # refused until the prefix cache, the two-program step and multi-tick
@@ -267,10 +287,15 @@ def _drive_plain(engine, matrix):
 
 
 def test_priority_class_request_raises(models):
+    """A class the engine's table does not hold is refused at submit (the
+    HTTP 400); the neutral table's own class is served."""
     _, tm = models
     eng = ContinuousBatchingEngine(tm, **GEOMETRY)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown priority_class"):
         eng.submit(GenerationRequest(prompt=[1, 2], priority_class="gold"))
+    seq = eng.submit(GenerationRequest(prompt=[1, 2], max_new_tokens=1,
+                                       priority_class="standard"))
+    assert seq.pclass.name == "standard"
 
 
 @pytest.mark.cuda

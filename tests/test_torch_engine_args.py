@@ -129,21 +129,37 @@ def _served_prefix_blocks(tiny):
                                  prefix_blocks=0)
 
 
+def _served_drafter(tiny):
+    """A drafter is the speculative engine's; with speculation off it is
+    ignored, as the reference ignores it."""
+    from paddle_tpu_torch.serving.drafter import NgramDrafter
+    d = NgramDrafter(max_ngram=2)
+    eng = ContinuousBatchingEngine(tiny, **GEOMETRY, spec_decode=True,
+                                   spec_k=7, drafter=d)
+    assert eng.drafter is d and eng.spec_k == 7
+    assert ContinuousBatchingEngine(tiny, **GEOMETRY,
+                                    drafter=d).drafter is None
+    eng.generate([GenerationRequest(prompt=np.arange(9, dtype=np.int32),
+                                    max_new_tokens=3)])
+    assert eng.stats["spec_steps"] > 0
+
+
 @pytest.mark.parametrize("check", [_served_exact_bucket,
                                    _served_shared_jit_cache,
                                    _served_step_clock,
-                                   _served_prefix_blocks],
+                                   _served_prefix_blocks,
+                                   _served_drafter],
                          ids=["prefill_bucketing", "jit_cache",
-                              "step_clock", "prefix_blocks"])
+                              "step_clock", "prefix_blocks", "drafter"])
 def test_once_unported_values_are_served(tiny, check):
     """prefill_bucketing="exact", a shared jit_cache and step_clock were
     refused until the front door was ported, prefix_blocks until the
-    prefix cache was; each is served now."""
+    prefix cache was, a drafter until spec decode was; each is served
+    now."""
     check(tiny)
 
 
 @pytest.mark.parametrize("knob,step", [
-    (dict(drafter=object()), "Queue A step 9 \\(spec decode\\)"),
     (dict(collective_dtype="int8"), "Queue A step 10"),
 ], ids=lambda k: next(iter(k)) if isinstance(k, dict) else None)
 def test_unported_values_name_their_step(tiny, knob, step):

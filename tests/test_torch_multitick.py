@@ -247,7 +247,7 @@ class TestEngineAgainstJax:
                         (dict(decode_ticks=4, paged_attn=False),
                          ValueError),
                         (dict(decode_ticks=4, spec_decode=True),
-                         NotImplementedError)):
+                         ValueError)):
             with pytest.raises(err):
                 ContinuousBatchingEngine(tm, **dict(GEOMETRY, **kw))
         assert ContinuousBatchingEngine(

@@ -208,9 +208,15 @@ class TestTrieAgainstJax:
             assert pc.num_cached_blocks == 2 and len(kv.copies) == 2
 
     def test_host_tier_names_its_step(self):
-        with pytest.raises(NotImplementedError, match="host tier"):
-            PrefixCache(BlockManager(1, 2, 4, 1, 2, device="cpu"),
-                        host_tier_bytes=1 << 20)
+        """Refused until the host tier was ported (it named its ROADMAP
+        step); a budget now builds the tier, wired to the pool's staging
+        recycler, and a negative one is refused as the reference does."""
+        pool = BlockManager(1, 2, 4, 1, 2, device="cpu")
+        pc = PrefixCache(pool, host_tier_bytes=1 << 20)
+        assert pc.tier is not None and pc.host_tier_bytes == 1 << 20
+        assert pc.tier.on_recycle == pool.recycle_staging
+        with pytest.raises(ValueError, match="host_tier_bytes"):
+            PrefixCache(pool, host_tier_bytes=-1)
 
 
 # -------------------------------------------------------- suffix programs

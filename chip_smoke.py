@@ -216,6 +216,7 @@ device, or outside a checkout, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import math
@@ -243,8 +244,10 @@ TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}   # (atol, rtol)
 # fp32: summation order only.
 BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 
+#: a head geometry: ``h`` query heads over ``hkv`` KV heads of ``d``
+Heads = collections.namedtuple("Heads", "h hkv d")
 # LLaMA-7B serving geometry of the default engine
-H, HKV, D = 32, 32, 128
+HEADS = Heads(32, 32, 128)
 SLOTS, BS, MAX_SEQ = 8, 32, 4096
 MB = MAX_SEQ // BS
 NB = SLOTS * MB
@@ -253,6 +256,19 @@ T_PACKED = SLOTS + CHUNK
 
 # LLaMA-7B training attention (the train phase's shapes)
 TRAIN_B, TRAIN_S = 4, 2048
+
+#: Queue C 6's head dim: the 7B hidden width as 16 heads of 256 over 8 KV
+#: heads (the Gemma family's head width), for the three serving kernels
+#: that took D in {64, 128} before it and their engines
+D256 = Heads(16, 8, 256)
+D256_KERNELS = ("flash", "ragged_attention", "fused_decode_tick")
+
+
+def _heads_kw(heads):
+    """The llama_7b overrides of head geometry ``heads``."""
+    return {"num_attention_heads": heads.h,
+            "num_key_value_heads": heads.hkv}
+
 
 REPLACES = {
     "ragged_attention": "paddle_tpu/kernels/pallas_ragged_attention.py:238",
@@ -340,10 +356,11 @@ def bound_ms(nbytes, flops, dtype):
 
 
 # ---------------------------------------------------------------- inputs
-def paged_inputs(dtype, dev, gen):
+def paged_inputs(dtype, dev, gen, *, heads):
     """8 decode rows over the 7B pool: lengths from 0 (a dead row) to a
     near-full cache, scrambled block placement, sentinel table tails, and
     NaN in the unwritten rows of one partial block."""
+    H, HKV, D = heads
     import torch
     lengths = torch.tensor([1, 31, 33, 700, 1601, 2500, 4093, 0],
                            dtype=torch.int32)
@@ -362,12 +379,13 @@ def paged_inputs(dtype, dev, gen):
     return q, pool_k, pool_v, tables.to(dev), lengths.to(dev)
 
 
-def ragged_inputs(dtype, dev, gen):
+def ragged_inputs(dtype, dev, gen, *, heads):
     """The packed tick-0 buffer of the default engine (T = 8 + 512): six
     span-1 decode rows, one 500-token chunk starting mid-block, one dead
     row, and 14 packed rows outside every span."""
+    H, HKV, D = heads
     import torch
-    _, pool_k, pool_v, tables, _ = paged_inputs(dtype, dev, gen)
+    _, pool_k, pool_v, tables, _ = paged_inputs(dtype, dev, gen, heads=heads)
     # the decode rows keep their tables; row 5's 500-token chunk ends at
     # 1517 (mid-block) inside the 2500-row table it already has
     qlen = torch.tensor([1, 1, 1, 1, 1, 500, 1, 0], dtype=torch.int32)
@@ -380,9 +398,11 @@ def ragged_inputs(dtype, dev, gen):
             kvlen.to(dev))
 
 
-def dense_inputs(dtype, dev, gen, hkv=HKV):
+def dense_inputs(dtype, dev, gen, hkv=None, *, heads):
     """8 decode rows over the dense-slot engine's [8, 4096] cache: lengths
     from 1 to the full 4096, NaN in every cache row past its length."""
+    H, HKV, D = heads
+    hkv = HKV if hkv is None else hkv
     import torch
     lengths = [1, 31, 33, 700, 1601, 2500, 4096, 4093]
     k = torch.randn(SLOTS, MAX_SEQ, hkv, D, generator=gen, device=dev).to(dtype)
@@ -412,10 +432,12 @@ RAGGED_EDGE = {
 RAGGED_BITS_TWICE = ("verify_3_5_block_edge",)
 
 
-def ragged_span_inputs(spans, dtype, dev, gen, hkv=HKV):
+def ragged_span_inputs(spans, dtype, dev, gen, hkv=None, *, heads):
     """A packed buffer of ``spans`` (7 more rows outside every span) over
     a pool that holds just their blocks: scrambled placement, sentinel
     table tails, NaN in the stale rows of each row's last block."""
+    H, HKV, D = heads
+    hkv = HKV if hkv is None else hkv
     import torch
     qlen = torch.tensor([q for q, _ in spans], dtype=torch.int32)
     kvlen = torch.tensor([k for _, k in spans], dtype=torch.int32)
@@ -441,19 +463,22 @@ def ragged_span_inputs(spans, dtype, dev, gen, hkv=HKV):
             qlen.to(dev), kvlen.to(dev))
 
 
-def ragged_working_blocks(qlen, kvlen, g, hkv=HKV):
-    """Blocks of each grid that do work: every split of a span-1 row that
-    starts inside it (one for a row of length 0), and every tile of a
-    chunk span."""
+def ragged_working_blocks(qlen, kvlen, g, hkv=None, *, heads=HEADS):
+    """Blocks of each grid that do work at head geometry ``heads`` (7B by
+    default): every split of a span-1 row that starts inside it (one for
+    a row of length 0), and every tile of a chunk span."""
+    H, HKV, D = heads
+    hkv = HKV if hkv is None else hkv
     split = sum(max(1, -(-k // g["split_len"]))
                 for q, k in zip(qlen, kvlen) if q == 1)
     tile = sum(-(-q // g["tile_rows"]) for q in qlen if q >= 2)
     return {"split_blocks": hkv * split, "tile_blocks": H * tile}
 
 
-def ragged_edge_cases(dtype_name, dev, gen):
+def ragged_edge_cases(dtype_name, dev, gen, *, heads):
     """Each of RAGGED_EDGE, and its first case with 8 KV heads, against
     the plain version within TOL; rows outside every span exact zeros."""
+    H, HKV, D = heads
     import torch
     from paddle_tpu_torch.kernels import ragged_attention
     dtype = getattr(torch, dtype_name)
@@ -461,7 +486,7 @@ def ragged_edge_cases(dtype_name, dev, gen):
     cases = [(name, spans, HKV) for name, spans in RAGGED_EDGE.items()]
     cases.append(("gqa_8_kv_heads", RAGGED_EDGE["spans_2_63_64_65"], 8))
     for name, spans, hkv in cases:
-        a = ragged_span_inputs(spans, dtype, dev, gen, hkv)
+        a = ragged_span_inputs(spans, dtype, dev, gen, hkv, heads=heads)
         got = ragged_attention.ragged_paged_attention(*a)
         want = ragged_attention.ragged_attention_reference(*a)
         torch.cuda.synchronize()
@@ -477,7 +502,8 @@ def ragged_edge_cases(dtype_name, dev, gen):
     return errs
 
 
-def flash_inputs(dtype, dev, gen, B=4, S=512):
+def flash_inputs(dtype, dev, gen, B=4, S=512, *, heads):
+    H, HKV, D = heads
     import torch
     mk = lambda h: torch.randn(B, S, h, D, generator=gen,  # noqa: E731
                                device=dev).to(dtype)
@@ -543,12 +569,13 @@ def _compare_scaled(name, dtype_name, got, want):
     return err.max().item(), err.max().item() / max(scale, 1e-30)
 
 
-def bwd_inputs(dtype, dev, gen, B, S, Hk):
+def bwd_inputs(dtype, dev, gen, B, S, Hk, *, heads):
     """q, k, v, dO from the seed; O and LSE from the flash forward kernel,
     each held against the plain forward at these shapes first (a wrong O
     or LSE would pass unseen into both the kernels and the plain
     backward); delta as the wrapper computes it. Returns the inputs and
     the forward's (O, LSE) max-abs errors."""
+    H, HKV, D = heads
     import torch
     from paddle_tpu_torch.kernels import flash
     from paddle_tpu_torch.kernels.flash_attention import (_ref_attention,
@@ -566,13 +593,13 @@ def bwd_inputs(dtype, dev, gen, B, S, Hk):
     return (q, k, v, do, o, lse, flash.attention_delta(o, do)), fwd_err
 
 
-def bwd_check(dtype_name, dev, gen, B, S, Hk):
+def bwd_check(dtype_name, dev, gen, B, S, Hk, *, heads):
     """All three gradients of both backward kernels against the plain
     backward; returns the largest (abs, relative-to-max) error."""
     import torch
     from paddle_tpu_torch.kernels import flash
     (q, k, v, do, o, lse, delta), fwd_err = bwd_inputs(
-        getattr(torch, dtype_name), dev, gen, B, S, Hk)
+        getattr(torch, dtype_name), dev, gen, B, S, Hk, heads=heads)
     got = flash.flash_attention_bwd(q, k, v, o, lse, do, True)
     want = flash.flash_attention_bwd_reference(q, k, v, o, lse, do, True)
     torch.cuda.synchronize()
@@ -583,11 +610,12 @@ def bwd_check(dtype_name, dev, gen, B, S, Hk):
                                           max(e[1] for e in errs))}
 
 
-def bwd_case(name, dtype_name, dev, gen):
+def bwd_case(name, dtype_name, dev, gen, *, heads):
     """One backward kernel at the training shapes against its plain
     version: error, bitwise repeatability, times, bound. The
     library time is SDPA forward+backward less SDPA forward at the same
     shapes — the pair's yardstick, the same on both rows."""
+    H, HKV, D = heads
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash
@@ -595,7 +623,7 @@ def bwd_case(name, dtype_name, dev, gen):
     isz = torch.tensor([], dtype=dtype).element_size()
     B, S = TRAIN_B, TRAIN_S
     (q, k, v, do, o, lse, delta), fwd_err = bwd_inputs(dtype, dev, gen, B,
-                                                       S, HKV)
+                                                       S, HKV, heads=heads)
     args = (q, k, v, do, lse, delta)
     if name == "flash_bwd_dkv":
         run = lambda: flash.flash_bwd_dkv(*args)  # noqa: E731
@@ -647,30 +675,34 @@ def bwd_case(name, dtype_name, dev, gen):
     # the tail past a non-multiple-of-64 S, and GQA (8 KV heads)
     for tag, (b, s_, hk) in (("tail", (2, 300, HKV)), ("gqa", (2, 512, 8))):
         if name == BWD[0]:
-            row[f"{tag}_err"] = bwd_check(dtype_name, dev, gen, b, s_, hk)
+            row[f"{tag}_err"] = bwd_check(dtype_name, dev, gen, b, s_, hk,
+                                          heads=heads)
     del qt, kt, vt, q, k, v, do, o, lse, delta
     return row
 
 
-def _bhsd(B, S, h, dtype, dev, gen):
+def _bhsd(B, S, h, dtype, dev, gen, *, heads):
     """A head-major ``[B, h, S, D]`` tensor seen as ``[B, S, h, D]`` (the
     layout the model's bhsd branch hands the kernels)."""
+    H, HKV, D = heads
     import torch
     return torch.randn(B, h, S, D, generator=gen, device=dev) \
         .to(dtype).transpose(1, 2)
 
 
-def _rope_inputs(dtype_name, dev, gen, B, S, Hk):
+def _rope_inputs(dtype_name, dev, gen, B, S, Hk, *, heads):
     """Un-rotated head-major q, k, v, dO, the model's [S, D] tables, and
     O and LSE from the rope forward kernel, held against the plain
     forward first (a wrong O or LSE would pass unseen into both
     backwards). Returns the inputs, the rope, and the forward's (O, LSE)
     errors."""
+    H, HKV, D = heads
     import torch
     from paddle_tpu_torch.kernels import flash
     from paddle_tpu_torch.models.llama import _rope_tables
     dtype = getattr(torch, dtype_name)
-    q, k, v, do = (_bhsd(B, S, h, dtype, dev, gen) for h in (H, Hk, Hk, H))
+    q, k, v, do = (_bhsd(B, S, h, dtype, dev, gen, heads=heads)
+                   for h in (H, Hk, Hk, H))
     rope = _rope_tables(S, D, 10000.0, device=dev)
     o, lse = flash.flash_attention_fwd(q, k, v, True, rope)
     ro, rl = flash.flash_attention_reference(q, k, v, True, rope)
@@ -715,7 +747,7 @@ def _rope_bwd_errs(dtype_name, q, k, v, do, o, lse, rope, tag):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def rope_cases(dtype_name, dev, gen):
+def rope_cases(dtype_name, dev, gen, *, heads):
     """The fused-RoPE mode of the three flash kernels at the training
     shape (B=4, S=2048, 32 heads of 128) in the head-major layout, each
     against its plain version (``TOL`` for the forward, ``BWD_TOL`` for
@@ -732,6 +764,7 @@ def rope_cases(dtype_name, dev, gen):
     in the inputs' strides, its time and byte bound, and the backward
     pair's total (pre-pass + dK/dV + dQ) beside the library pair.
     Returns ``{name: row}``."""
+    H, HKV, D = heads
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash
@@ -739,8 +772,8 @@ def rope_cases(dtype_name, dev, gen):
     dtype = getattr(torch, dtype_name)
     isz = torch.tensor([], dtype=dtype).element_size()
     B, S = TRAIN_B, TRAIN_S
-    (q, k, v, do, o, lse), rope, fwd_err = _rope_inputs(dtype_name, dev,
-                                                         gen, B, S, HKV)
+    (q, k, v, do, o, lse), rope, fwd_err = _rope_inputs(
+        dtype_name, dev, gen, B, S, HKV, heads=heads)
     bwd_err = _rope_bwd_errs(dtype_name, q, k, v, do, o, lse, rope,
                              f"flash bwd[rope] B={B} S={S}")
     sin, cos = rope
@@ -866,7 +899,7 @@ def rope_cases(dtype_name, dev, gen):
     torch.cuda.empty_cache()
     # a tail past the 64-row tiles with GQA (8 KV heads), rope on
     (q, k, v, do, o, lse), rope, ferr = _rope_inputs(dtype_name, dev, gen,
-                                                      2, 300, 8)
+                                                      2, 300, 8, heads=heads)
     row["tail_gqa_err"] = {"fwd": ferr, "bwd": _rope_bwd_errs(
         dtype_name, q, k, v, do, o, lse, rope, "flash bwd[rope] S=300")}
     return rows
@@ -918,8 +951,9 @@ def _pre_pass_row(dtype_name, q, k, rope, qr, kr, pair, rows, lib_pair):
     return row
 
 
-def kernel_case(name, dtype_name, dev, gen):
+def kernel_case(name, dtype_name, dev, gen, *, heads):
     """One kernel against its plain version: error, times, bound."""
+    H, HKV, D = heads
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import decode, flash, paged_decode, \
@@ -928,7 +962,7 @@ def kernel_case(name, dtype_name, dev, gen):
     dtype = getattr(torch, dtype_name)
     isz = torch.tensor([], dtype=dtype).element_size()
     if name == "paged_decode":
-        q, pk, pv, tbl, lens = paged_inputs(dtype, dev, gen)
+        q, pk, pv, tbl, lens = paged_inputs(dtype, dev, gen, heads=heads)
         run = lambda: paged_decode.paged_decode_attention(  # noqa: E731
             q, pk, pv, tbl, lens)
         plain = lambda: paged_decode.paged_decode_attention_reference(  # noqa
@@ -953,7 +987,8 @@ def kernel_case(name, dtype_name, dev, gen):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, kd, vd, attn_mask=mask, enable_gqa=H != HKV)
     elif name == "ragged_attention":
-        q, pk, pv, tbl, qs, ql, kl = ragged_inputs(dtype, dev, gen)
+        q, pk, pv, tbl, qs, ql, kl = ragged_inputs(dtype, dev, gen,
+                                                   heads=heads)
         run = lambda: ragged_attention.ragged_paged_attention(  # noqa: E731
             q, pk, pv, tbl, qs, ql, kl)
         plain = lambda: ragged_attention.ragged_attention_reference(  # noqa
@@ -994,7 +1029,7 @@ def kernel_case(name, dtype_name, dev, gen):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qpad, kpad, vpad, attn_mask=mask, enable_gqa=H != HKV)
     elif name == "decode":
-        q, kc, vc, lens = dense_inputs(dtype, dev, gen)
+        q, kc, vc, lens = dense_inputs(dtype, dev, gen, heads=heads)
         run = lambda: decode.decode_attention(q, kc, vc, lens)  # noqa
         plain = lambda: decode.decode_attention_reference(  # noqa: E731
             q, kc, vc, lens)
@@ -1013,14 +1048,14 @@ def kernel_case(name, dtype_name, dev, gen):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, kd, vd, attn_mask=mask)
         # GQA: 8 KV heads for the 32 query heads
-        qg, kg, vg, lg = dense_inputs(dtype, dev, gen, hkv=8)
+        qg, kg, vg, lg = dense_inputs(dtype, dev, gen, hkv=8, heads=heads)
         gqa_err = _compare("decode GQA", dtype_name,
                            decode.decode_attention(qg, kg, vg, lg),
                            decode.decode_attention_reference(qg, kg, vg,
                                                              lg))
         del qg, kg, vg
     else:
-        q, k, v = flash_inputs(dtype, dev, gen)
+        q, k, v = flash_inputs(dtype, dev, gen, heads=heads)
         run = lambda: flash.flash_attention(q, k, v, causal=True)  # noqa
         plain = lambda: _ref_attention(q, k, v, True)  # noqa: E731
         B, S = q.shape[0], q.shape[1]
@@ -1031,7 +1066,7 @@ def kernel_case(name, dtype_name, dev, gen):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=H != HKV)
         # the tail past a non-multiple-of-64 S must be masked too
-        q3, k3, v3 = flash_inputs(dtype, dev, gen, B=2, S=300)
+        q3, k3, v3 = flash_inputs(dtype, dev, gen, B=2, S=300, heads=heads)
         _compare("flash S=300", dtype_name,
                  flash.flash_attention(q3, k3, v3, causal=True),
                  _ref_attention(q3, k3, v3, True))
@@ -1042,6 +1077,8 @@ def kernel_case(name, dtype_name, dev, gen):
     want = plain()
     torch.cuda.synchronize()
     err = _compare(name, dtype_name, got, want)
+    if name in ("flash", "ragged_attention") and not torch.equal(got, run()):
+        raise RuntimeError(f"{name} {dtype_name}: two launches differ")
     extra = {}
     if name == "paged_decode":
         # split-KV: the same bits on a second launch (the splits are
@@ -1078,8 +1115,9 @@ def kernel_case(name, dtype_name, dev, gen):
         g = dict(ragged_attention.LAST_GRID)
         extra = {"grid": g,
                  "working": ragged_working_blocks(qlc.tolist(), klc.tolist(),
-                                                  g),
-                 "edge_err": ragged_edge_cases(dtype_name, dev, gen)}
+                                                  g, heads=heads),
+                 "edge_err": ragged_edge_cases(dtype_name, dev, gen,
+                                               heads=heads)}
     row = {"name": name, "dtype": dtype_name, "max_abs_err": err, **extra,
            "tol": dict(zip(("atol", "rtol"), TOL[dtype_name])),
            "ms": time_ms(run), "plain_ms": time_ms(plain, iters=3),
@@ -1090,12 +1128,12 @@ def kernel_case(name, dtype_name, dev, gen):
            "route": route(name, dtype_name)}
     row["tflops"] = flops / row["ms"] / 1e9
     row["x_library"] = row["ms"] / row["library_ms"]
-    if name == "paged_decode":
-        row["device_ms"] = device_ms(run)
+    row["device_ms"] = device_ms(run)
     if name == "flash":
         # the forward and its SDPA yardstick at the training shape too
         del q, k, v, qt, kt, vt, got, want
-        q, k, v = flash_inputs(dtype, dev, gen, B=TRAIN_B, S=TRAIN_S)
+        q, k, v = flash_inputs(dtype, dev, gen, B=TRAIN_B, S=TRAIN_S,
+                               heads=heads)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         flops = 4 * TRAIN_B * H * D * TRAIN_S * (TRAIN_S + 1) // 2
         row["train_shape"] = {"B": TRAIN_B, "S": TRAIN_S, "flops": flops,
@@ -1105,8 +1143,8 @@ def kernel_case(name, dtype_name, dev, gen):
         row["plain_ms_train_shape"] = time_ms(
             lambda: _ref_attention(q, k, v, True), iters=2)
         row["library_ms_train_shape"] = time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True))
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=H != HKV))
         row["tflops_train_shape"] = flops / row["ms_train_shape"] / 1e9
         row["x_library_train_shape"] = (row["ms_train_shape"]
                                         / row["library_ms_train_shape"])
@@ -1114,13 +1152,14 @@ def kernel_case(name, dtype_name, dev, gen):
 
 
 def tick_inputs(dtype, dev, gen, layers, pools=None, rows=SLOTS,
-                lens=None):
+                lens=None, *, heads):
     """One tail tick on the default pool (block 32, 4096-row tables):
     at 8 rows, lengths from 0 to a near-full cache, row 7 masked (idle),
     row 3 sampled (T 0.8, top-k 40); at more rows, seeded lengths 0..800
     with every 9th row masked and every 5th sampled; scrambled block
     placement with sentinel tails; pools ``[layers, 1024, 32, 32, 128]``
     from the seed unless given. ``lens`` overrides the lengths."""
+    H, HKV, D = heads
     import numpy as np
     import torch
     from paddle_tpu_torch.models.llama import _rope_tables
@@ -1167,29 +1206,31 @@ def _weight_bytes(w, isz):
     return w.numel() * isz
 
 
-def kv_row_bytes(pool, isz):
+def kv_row_bytes(pool, isz, *, heads):
     """Bytes one cached (row, KV head) of K or of V costs in ``pool``: D
     at the model type, D + a float32 scale (int8), or D (e4m3; its
     per-block scales are counted by block)."""
+    H, HKV, D = heads
     if not isinstance(pool, tuple):
         return D * isz
     return D + (4 if pool[0].dtype.itemsize == 1 and pool[1].dim() == 4
                 else 0)
 
 
-def tick_cost(params, t, layers, isz):
+def tick_cost(params, t, layers, isz, *, heads):
     """(bytes, flops) one tick must move and do: every weight once (int8
     pairs at 1 byte and their scales), each valid cached K/V row once (at
     the pool's storage type, with its scales), the appended rows and the
     float32 logits written once; two flops per weight and row, 4*D per
     head and key."""
+    H, HKV, D = heads
     import numpy as np
     att = t["lens"] + t["app_mask"]
     keys = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "input_ln",
             "post_ln", "final_norm", "lm_head")
     R = len(att)
     V = params["embed"].shape[0]
-    rb = kv_row_bytes(t["pool_k"], isz)
+    rb = kv_row_bytes(t["pool_k"], isz, heads=heads)
     fp8 = isinstance(t["pool_k"], tuple) and t["pool_k"][1].dim() == 3
     blocks = sum(-(-int(n) // BS) for n in att)
     nbytes = (sum(_weight_bytes(params[k], isz) for k in keys)
@@ -1206,7 +1247,8 @@ def tick_cost(params, t, layers, isz):
     return nbytes, flops
 
 
-def _tick(fn, params, tied, t, **kw):
+def _tick(fn, params, tied, t, *, heads, **kw):
+    H, HKV, D = heads
     import torch
     from paddle_tpu_torch.serving.decode import _dq_head
     with torch.inference_mode():
@@ -1332,7 +1374,7 @@ def _appended_quant(label, dtype_name, got, want, near_tie=False):
     return steps.max().item()
 
 
-def _fused_vs_plain(p, tied, t, dtype_name, label, near_tie=False):
+def _fused_vs_plain(p, tied, t, dtype_name, label, near_tie=False, *, heads):
     """One fused tick against its plain version on copies of ``t``'s
     pools: keys bit for bit, tokens equal in float32, logits and the
     appended K/V rows within the tolerance, nothing written outside the
@@ -1352,10 +1394,12 @@ def _fused_vs_plain(p, tied, t, dtype_name, label, near_tie=False):
     quant = isinstance(base_k, tuple)
     got = _tick(fdt.fused_decode_tick, p, tied,
                 dict(t, pool_k=_clone_pool(base_k),
-                     pool_v=_clone_pool(base_v)), return_logits=True)
+                     pool_v=_clone_pool(base_v)), return_logits=True,
+                heads=heads)
     want = _tick(fdt.fused_decode_tick_reference, p, tied,
                  dict(t, pool_k=_clone_pool(base_k),
-                      pool_v=_clone_pool(base_v)), return_logits=True)
+                      pool_v=_clone_pool(base_v)), return_logits=True,
+                 heads=heads)
     torch.cuda.synchronize()
     tokens_equal = got[0].tolist() == want[0].tolist()
     if not bool((_keys_host(got[3]) == _keys_host(want[3])).all()):
@@ -1406,7 +1450,7 @@ def _fused_vs_plain(p, tied, t, dtype_name, label, near_tie=False):
     return logits_err, rows_err, tokens_equal, want[4]
 
 
-def _layer0_attention_bits(p, tied, t):
+def _layer0_attention_bits(p, tied, t, *, heads):
     """The fused tick's attention output at layer 0 (a one-layer tick:
     the stacked weights and pools cut to their first layer) against the
     paged decode kernel at the tick's own q and updated pool: True when
@@ -1420,7 +1464,7 @@ def _layer0_attention_bits(p, tied, t):
     p1 = {k: first(v) if k in STACK_KEYS else v for k, v in p.items()}
     t1 = dict(t, pool_k=_clone_pool(first(t["pool_k"])),
               pool_v=_clone_pool(first(t["pool_v"])))
-    _tick(fdt.fused_decode_tick, p1, tied, t1)
+    _tick(fdt.fused_decode_tick, p1, tied, t1, heads=heads)
     q, attn = fdt.LAST_SCRATCH["q"], fdt.LAST_SCRATCH["attn"]
     quant = isinstance(t1["pool_k"], tuple)
     k0, v0 = (t1["pool_k"][0][0], t1["pool_v"][0][0]) if quant else \
@@ -1435,7 +1479,7 @@ def _layer0_attention_bits(p, tied, t):
     return same
 
 
-def fused_case(name, dtype_name, dev, gen):
+def fused_case(name, dtype_name, dev, gen, *, heads):
     """The fused tick kernel against its plain version (the scanned tick
     with the plain paged attention) at llama_7b widths, 2 layers, at 8 and
     at 37 rows (``_fused_vs_plain``); the layer-0 attention bit for bit
@@ -1450,21 +1494,32 @@ def fused_case(name, dtype_name, dev, gen):
     dtype = getattr(torch, dtype_name)
     isz = torch.tensor([], dtype=dtype).element_size()
     model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
-                                      dtype=dtype_name), device=dev, seed=6)
+                                      dtype=dtype_name, **_heads_kw(heads)),
+                             device=dev, seed=6)
     p, tied = llama_decode_params(model)
-    t = tick_inputs(dtype, dev, gen, FUSED_LAYERS)
+    t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, heads=heads)
     logits_err, rows_err, tokens_equal, want_logits = _fused_vs_plain(
-        p, tied, t, dtype_name, "8 rows")
+        p, tied, t, dtype_name, "8 rows", heads=heads)
     # the yardstick of that spread: the unfused tick through the kernels
     scan = _tick(_fused_decode_tick, p, tied,
                  dict(t, pool_k=t["pool_k"].clone(),
-                      pool_v=t["pool_v"].clone()), return_logits=True)
+                      pool_v=t["pool_v"].clone()), return_logits=True,
+                 heads=heads)
     scan_err = (scan[4] - want_logits).abs().max().item()
     del scan, want_logits
-    bits = _layer0_attention_bits(p, tied, t)
+    bits = _layer0_attention_bits(p, tied, t, heads=heads)
+    twice = [_tick(fdt.fused_decode_tick, p, tied,
+                   dict(t, pool_k=t["pool_k"].clone(),
+                        pool_v=t["pool_v"].clone()), return_logits=True,
+                   heads=heads)
+             for _ in range(2)]
+    # tokens, pools and logits (the keys are checked against plain above)
+    if not all(torch.equal(twice[0][i], twice[1][i]) for i in (0, 1, 2, 4)):
+        raise RuntimeError(f"fused tick {dtype_name}: two launches differ")
+    del twice
     torch.cuda.empty_cache()
     run_t = dict(t, pool_k=t["pool_k"].clone(), pool_v=t["pool_v"].clone())
-    nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz)
+    nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz, heads=heads)
     row = {"name": name, "dtype": dtype_name,
            "layers": FUSED_LAYERS, "rows": SLOTS,
            "max_abs_err": max(logits_err, rows_err),
@@ -1474,14 +1529,17 @@ def fused_case(name, dtype_name, dev, gen):
            "layer0_attention_equals_paged_decode": bits,
            "tol": dict(zip(("atol", "rtol"), TOL[dtype_name])),
            "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied,
-                                       run_t)),
+                                       run_t, heads=heads)),
+           "device_ms": device_ms(lambda: _tick(fdt.fused_decode_tick, p,
+                                                tied, run_t, heads=heads)),
            **{k: fdt.LAST_GRID[k] for k in ("blocks_per_sm", "split_len",
                                              "n_split")},
            "grid_blocks": fdt.LAST_GRID["blocks"],
            "plain_ms": time_ms(lambda: _tick(
-               fdt.fused_decode_tick_reference, p, tied, run_t), iters=3),
+               fdt.fused_decode_tick_reference, p, tied, run_t,
+               heads=heads), iters=3),
            "scanned_tick_ms": time_ms(lambda: _tick(
-               _fused_decode_tick, p, tied, run_t)),
+               _fused_decode_tick, p, tied, run_t, heads=heads)),
            "library_ms": None,
            "library": "none: no single PyTorch call computes a tick",
            "bytes": nbytes, "flops": flops,
@@ -1491,21 +1549,23 @@ def fused_case(name, dtype_name, dev, gen):
     del run_t, t
     torch.cuda.empty_cache()
     # past the old row cap: 37 rows, lengths 0..800
-    t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, rows=FUSED_WIDE_ROWS)
+    t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, rows=FUSED_WIDE_ROWS,
+                    heads=heads)
     w_logits, w_rows, w_tokens, _ = _fused_vs_plain(
-        p, tied, t, dtype_name, f"{FUSED_WIDE_ROWS} rows")
-    w_bits = _layer0_attention_bits(p, tied, t)
+        p, tied, t, dtype_name, f"{FUSED_WIDE_ROWS} rows", heads=heads)
+    w_bits = _layer0_attention_bits(p, tied, t, heads=heads)
     run_t = dict(t, pool_k=t["pool_k"].clone(), pool_v=t["pool_v"].clone())
-    nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz)
+    nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz, heads=heads)
     row["wide"] = {
         "rows": FUSED_WIDE_ROWS, "logits_err": w_logits,
         "appended_rows_err": w_rows, "tokens_equal": w_tokens,
         "keys_equal": True, "layer0_attention_equals_paged_decode": w_bits,
-        "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, run_t)),
+        "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, run_t,
+                                    heads=heads)),
         "grid_blocks": fdt.LAST_GRID["blocks"],
         "blocks_per_sm": fdt.LAST_GRID["blocks_per_sm"],
         "scanned_tick_ms": time_ms(lambda: _tick(
-            _fused_decode_tick, p, tied, run_t)),
+            _fused_decode_tick, p, tied, run_t, heads=heads)),
         "bytes": nbytes, "bound_ms": bound_ms(nbytes, flops, dtype_name)}
     row["max_abs_err"] = max(row["max_abs_err"], w_logits, w_rows)
     if not (bits and w_bits):
@@ -1540,9 +1600,10 @@ def quantize_pool(pk, pv, mode, gen):
     return quantize_kv_rows_fp8(k), quantize_kv_rows_fp8(v), ks, vs
 
 
-def _gather_dequant(kd, ks, tbl_row, n):
+def _gather_dequant(kd, ks, tbl_row, n, *, heads):
     """The first ``n`` cached rows of a sequence, gathered narrow through
     its table with their scales ``([n, Hkv, D], [n, Hkv])``."""
+    H, HKV, D = heads
     import torch
     nblk = -(-n // BS)
     idx = tbl_row[:nblk].long().clamp(0, kd.shape[0] - 1)
@@ -1554,12 +1615,13 @@ def _gather_dequant(kd, ks, tbl_row, n):
     return rows, sc
 
 
-def quant_kernel_case(name, mode, dtype_name, dev, gen):
+def quant_kernel_case(name, mode, dtype_name, dev, gen, *, heads):
     """Paged decode or ragged attention on a quantized pool (the serving
     shapes of ``kernel_case``) against its plain version within TOL:
     error, kernel / plain / library milliseconds (the library yardstick
     dequantizes the gathered cache, then SDPA), the byte bound at the
     pool's storage type with its scales."""
+    H, HKV, D = heads
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import paged_decode, ragged_attention
@@ -1567,7 +1629,7 @@ def quant_kernel_case(name, mode, dtype_name, dev, gen):
     isz = torch.tensor([], dtype=dtype).element_size()
     rb = D + (4 if mode == "int8" else 0)    # a (row, KV head) of K or V
     if name == "paged_decode":
-        q, pk, pv, tbl, lens = paged_inputs(dtype, dev, gen)
+        q, pk, pv, tbl, lens = paged_inputs(dtype, dev, gen, heads=heads)
         kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
         del pk, pv
         run = lambda: paged_decode.paged_decode_attention(  # noqa: E731
@@ -1579,7 +1641,8 @@ def quant_kernel_case(name, mode, dtype_name, dev, gen):
         qrows = [(b, b) for b in range(SLOTS)]
         flops = 4 * int(L.sum()) * H * D
     else:
-        q, pk, pv, tbl, qs, ql, kl = ragged_inputs(dtype, dev, gen)
+        q, pk, pv, tbl, qs, ql, kl = ragged_inputs(dtype, dev, gen,
+                                                   heads=heads)
         kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
         del pk, pv
         run = lambda: ragged_attention.ragged_paged_attention(  # noqa
@@ -1619,7 +1682,7 @@ def quant_kernel_case(name, mode, dtype_name, dev, gen):
         qpad[r, :, :n] = q[a:a + n].transpose(0, 1)
         for pad, spad, pool, pl_ in ((kpad, kspad, kd, ks),
                                      (vpad, vspad, vd, vs)):
-            rows, sc = _gather_dequant(pool, pl_, tbl[r], k)
+            rows, sc = _gather_dequant(pool, pl_, tbl[r], k, heads=heads)
             pad[r, :k] = rows.view(torch.uint8)
             spad[r, :k] = sc
         pos = k - n + torch.arange(qmax, device=dev)
@@ -1648,12 +1711,14 @@ def quant_kernel_case(name, mode, dtype_name, dev, gen):
             raise RuntimeError(f"paged_decode {mode}: a row of length 0 "
                                f"is not zero")
         row["split_len"] = paged_decode.LAST_GRID["split_len"]
-        row["edge_err"] = quant_paged_edge_cases(mode, dtype_name, dev, gen)
-        row["device_ms"] = device_ms(run)
+        row["edge_err"] = quant_paged_edge_cases(mode, dtype_name, dev, gen,
+                                                 heads=heads)
     else:
         row["grid"] = dict(ragged_attention.LAST_GRID)
         _chunk_tile(row["grid"], dtype, f"ragged {mode} {dtype_name}")
-        row["edge_err"] = quant_edge_cases(mode, dtype_name, dev, gen)
+        row["edge_err"] = quant_edge_cases(mode, dtype_name, dev, gen,
+                                           heads=heads)
+    row["device_ms"] = device_ms(run)
     row.update({"ms": time_ms(run), "plain_ms": time_ms(plain, iters=3),
                 "library_ms": time_ms(lib), "bytes": nbytes, "flops": flops,
                 "bound_ms": bound_ms(nbytes, flops, dtype_name),
@@ -1684,11 +1749,12 @@ def _chunk_tile(grid, dtype, label):
                            f"{ragged_attention.TILE_ROWS[dtype]}")
 
 
-def quant_edge_cases(mode, dtype_name, dev, gen):
+def quant_edge_cases(mode, dtype_name, dev, gen, *, heads):
     """``RAGGED_EDGE``'s spans (and the first with 8 KV heads) on a
     quantized pool against the plain version within TOL, chunks on the
     query type's tile (bf16: the wgmma tile) and the same bits on a
     second launch; rows outside every span exact zeros."""
+    H, HKV, D = heads
     import torch
     from paddle_tpu_torch.kernels import ragged_attention
     dtype = getattr(torch, dtype_name)
@@ -1697,7 +1763,7 @@ def quant_edge_cases(mode, dtype_name, dev, gen):
     cases.append(("gqa_8_kv_heads", RAGGED_EDGE["spans_2_63_64_65"], 8))
     for name, spans, hkv in cases:
         q, pk, pv, tbl, qs, ql, kl = ragged_span_inputs(spans, dtype, dev,
-                                                        gen, hkv)
+                                                        gen, hkv, heads=heads)
         kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
         a = (q, kd, vd, tbl, qs, ql, kl, ks, vs)
         got = ragged_attention.ragged_paged_attention(*a)
@@ -1715,10 +1781,12 @@ def quant_edge_cases(mode, dtype_name, dev, gen):
     return errs
 
 
-def paged_edge_inputs(lengths, dtype, dev, gen, hkv=HKV):
+def paged_edge_inputs(lengths, dtype, dev, gen, hkv=None, *, heads):
     """Decode rows of ``lengths`` over a pool that holds just their
     blocks (7B heads): scrambled placement, sentinel table tails, NaN in
     the stale rows of each row's last block."""
+    H, HKV, D = heads
+    hkv = HKV if hkv is None else hkv
     import torch
     need = [-(-n // BS) for n in lengths]
     nb = sum(need) + 1
@@ -1739,12 +1807,13 @@ def paged_edge_inputs(lengths, dtype, dev, gen, hkv=HKV):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
-def quant_paged_edge_cases(mode, dtype_name, dev, gen):
+def quant_paged_edge_cases(mode, dtype_name, dev, gen, *, heads):
     """Paged decode on a quantized pool over the edge lengths of its walk
     — 0, 1, 31, 32, 33, a page +- 1, a split +- 1 and 4093 (the split at
     this row count) — with 32 KV heads and with 8 (4 query heads a KV
     head): within TOL of the plain version, the same bits on a second
     launch, the row of length 0 zeros."""
+    H, HKV, D = heads
     import torch
     from paddle_tpu_torch.kernels import paged_decode, split_kv
     dtype = getattr(torch, dtype_name)
@@ -1756,7 +1825,7 @@ def quant_paged_edge_cases(mode, dtype_name, dev, gen):
         lengths = [0, 1, 31, 32, 33, page - 1, page + 1, sl - 1, sl + 1,
                    4093]
         q, pk, pv, tbl, lens = paged_edge_inputs(lengths, dtype, dev, gen,
-                                                 hkv)
+                                                 hkv, heads=heads)
         kd, vd, ks, vs = quantize_pool(pk, pv, mode, gen)
         del pk, pv
         a = (q, kd, vd, tbl, lens, ks, vs)
@@ -1781,7 +1850,7 @@ FUSED_QUANT_MODES = {"w8": (None, True), "int8": ("int8", False),
                      "fp8_w8": ("fp8", True)}
 
 
-def _planted_faults(p, tied, t, got_logits):
+def _planted_faults(p, tied, t, got_logits, *, heads):
     """The plain tick on a faulty copy of ``t``'s quantized pools against
     the kernel's logits ``got_logits``, over max|ref|: layer 0's V scales
     of each live row's first block dropped (1.0), and layer 0's K scales
@@ -1800,7 +1869,8 @@ def _planted_faults(p, tied, t, got_logits):
         else:
             pk[1][0] = pk[1][0].roll(1, dims=-1)
         want = _tick(fdt.fused_decode_tick_reference, p, tied,
-                     dict(t, pool_k=pk, pool_v=pv), return_logits=True)[4]
+                     dict(t, pool_k=pk, pool_v=pv), return_logits=True,
+                     heads=heads)[4]
         rel = ((got_logits - want).abs().max()
                / want.abs().max().clamp(min=1e-30)).item()
         if not rel > QUANT_F32_LOGITS:
@@ -1812,7 +1882,7 @@ def _planted_faults(p, tied, t, got_logits):
     return out
 
 
-def fused_quant_cases(dtype_name, dev, gen, base_ms):
+def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads):
     """The fused tick's five quantized variants (``FUSED_QUANT_MODES``:
     int8 weights on a pool at the model's type; int8 and fp8 pools with
     dense or int8 weights) against the plain version at llama_7b widths,
@@ -1825,6 +1895,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms):
     carries ``base_ms``, the tick on dense weights and a pool of the model
     type at 8 rows in this run, and its own time over it. Returns
     ``{mode: row}``."""
+    H, HKV, D = heads
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
@@ -1835,35 +1906,37 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms):
     dtype = getattr(torch, dtype_name)
     isz = torch.tensor([], dtype=dtype).element_size()
     model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
-                                      dtype=dtype_name), device=dev, seed=6)
+                                      dtype=dtype_name, **_heads_kw(heads)),
+                             device=dev, seed=6)
     dense, tied = llama_decode_params(model)
     qparams = quantize_decode_params(dense, tied)
     out = {}
     for mode, (kv, w8) in FUSED_QUANT_MODES.items():
         p = qparams if w8 else dense
         row = {"name": "fused_decode_tick", "mode": mode,
-               "dtype": dtype_name, "layers": FUSED_LAYERS,
+               "dtype": dtype_name, "layers": FUSED_LAYERS, "head_dim": D,
                "tol": (dict(zip(("atol", "rtol"), TOL[dtype_name]))
                        if kv is None or dtype_name != "float32" else
                        {"of_max_ref": QUANT_F32_LOGITS})}
         for rows in (SLOTS, FUSED_WIDE_ROWS):
-            t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, rows=rows)
+            t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, rows=rows,
+                            heads=heads)
             if kv is not None:
                 kd, vd, ks, vs = quantize_pool(t["pool_k"], t["pool_v"], kv,
                                                gen)
                 t.update(pool_k=(kd, ks), pool_v=(vd, vs))
                 del kd, vd, ks, vs
             logits_err, rows_err, tokens_equal, want = _fused_vs_plain(
-                p, tied, t, dtype_name, f"{mode} {rows} rows")
+                p, tied, t, dtype_name, f"{mode} {rows} rows", heads=heads)
             rel = logits_err / max(want.abs().max().item(), 1e-30)
-            bits = _layer0_attention_bits(p, tied, t)
+            bits = _layer0_attention_bits(p, tied, t, heads=heads)
             if not bits:
                 raise RuntimeError(f"fused tick {mode} {dtype_name} {rows} "
                                    f"rows: layer-0 attention differs from "
                                    f"the paged decode kernel")
             run_t = dict(t, pool_k=_clone_pool(t["pool_k"]),
                          pool_v=_clone_pool(t["pool_v"]))
-            nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz)
+            nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz, heads=heads)
             part = {"rows": rows, "logits_err": logits_err,
                     "logits_err_of_max_ref": rel,
                     ("appended_steps_err" if kv else "appended_rows_err"):
@@ -1871,11 +1944,13 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms):
                     "tokens_equal": tokens_equal, "keys_equal": True,
                     "layer0_attention_equals_paged_decode": bits,
                     "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p,
-                                                tied, run_t)),
+                                                tied, run_t, heads=heads)),
+                    "device_ms": device_ms(lambda: _tick(
+                        fdt.fused_decode_tick, p, tied, run_t, heads=heads)),
                     "grid_blocks": fdt.LAST_GRID["blocks"],
                     "blocks_per_sm": fdt.LAST_GRID["blocks_per_sm"],
                     "scanned_tick_ms": time_ms(lambda: _tick(
-                        _fused_decode_tick, p, tied, run_t)),
+                        _fused_decode_tick, p, tied, run_t, heads=heads)),
                     "bytes": nbytes, "flops": flops,
                     "bound_ms": bound_ms(nbytes, flops, dtype_name)}
             if kv is not None and dtype_name == "float32":
@@ -1884,7 +1959,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms):
                 sweep, flips = [], 0
                 for s in range(QUANT_SWEEP_SEEDS):
                     ts = tick_inputs(dtype, dev, gen, FUSED_LAYERS,
-                                     rows=rows)
+                                     rows=rows, heads=heads)
                     kd, vd, ks, vs = quantize_pool(ts["pool_k"],
                                                    ts["pool_v"], kv, gen)
                     ts.update(pool_k=(kd, ks), pool_v=(vd, vs), tok=(
@@ -1895,7 +1970,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms):
                     del kd, vd, ks, vs
                     e, _, same, w = _fused_vs_plain(
                         p, tied, ts, dtype_name, f"{mode} {rows} rows "
-                        f"sweep {s}", near_tie=True)
+                        f"sweep {s}", near_tie=True, heads=heads)
                     sweep.append(e / max(w.abs().max().item(), 1e-30))
                     flips += not same
                     del ts, w
@@ -1906,13 +1981,14 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms):
                     got = _tick(fdt.fused_decode_tick, p, tied,
                                 dict(t, pool_k=_clone_pool(t["pool_k"]),
                                      pool_v=_clone_pool(t["pool_v"])),
-                                return_logits=True)[4]
+                                return_logits=True, heads=heads)[4]
                     part["planted_faults_of_max_ref"] = _planted_faults(
-                        p, tied, t, got)
+                        p, tied, t, got, heads=heads)
                     del got
             if rows == SLOTS:
                 part["plain_ms"] = time_ms(lambda: _tick(
-                    fdt.fused_decode_tick_reference, p, tied, run_t),
+                    fdt.fused_decode_tick_reference, p, tied, run_t,
+                    heads=heads),
                     iters=3)
                 row.update(part, max_abs_err=logits_err,
                            base_ms=base_ms, x_base=part["ms"] / base_ms,
@@ -1940,7 +2016,7 @@ def phase_kernels():
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
     for dtype_name in ("bfloat16", "float32"):
-        for name, row in rope_cases(dtype_name, dev, gen).items():
+        for name, row in rope_cases(dtype_name, dev, gen, heads=HEADS).items():
             emit({"phase": "kernels", **row})
             rows[(name, dtype_name)] = row
         torch.cuda.empty_cache()
@@ -1950,7 +2026,7 @@ def phase_kernels():
             case = (bwd_case if name in BWD else
                     fused_case if name == "fused_decode_tick" else
                     kernel_case)
-            row = case(name, dtype_name, dev, gen)
+            row = case(name, dtype_name, dev, gen, heads=HEADS)
             emit({"phase": "kernels", **row})
             rows[(name, dtype_name)] = row
             torch.cuda.empty_cache()
@@ -1959,9 +2035,11 @@ def phase_kernels():
         # type in this run (its row above)
         for name in QUANT_KERNELS:
             base_ms = rows[(name, dtype_name)]["ms"]
-            got = (fused_quant_cases(dtype_name, dev, gen, base_ms)
+            got = (fused_quant_cases(dtype_name, dev, gen, base_ms,
+                                     heads=HEADS)
                    if name == "fused_decode_tick" else
-                   {mode: quant_kernel_case(name, mode, dtype_name, dev, gen)
+                   {mode: quant_kernel_case(name, mode, dtype_name, dev, gen,
+                                            heads=HEADS)
                     for mode in QUANT_MODES})
             for mode, row in got.items():
                 if name != "fused_decode_tick":
@@ -1970,6 +2048,7 @@ def phase_kernels():
                     emit({"phase": "kernels", **row})
                 rows[(name, dtype_name, mode)] = row
             torch.cuda.empty_cache()
+        d256_cases(dtype_name, dev, gen, rows)
     reset_launches()
     # span-1 ragged rows against the paged decode kernel: decode row b with
     # length L and a span-1 row with kvlen L attend the same keys through
@@ -1978,7 +2057,7 @@ def phase_kernels():
     # here; they are held to TOL and ``bitwise`` reports whether they also
     # share the bits
     from paddle_tpu_torch.kernels import paged_decode, ragged_attention
-    q, pk, pv, tbl, lens = paged_inputs(torch.bfloat16, dev, gen)
+    q, pk, pv, tbl, lens = paged_inputs(torch.bfloat16, dev, gen, heads=HEADS)
     one = torch.ones(SLOTS, dtype=torch.int32, device=dev)
     a = paged_decode.paged_decode_attention(q, pk, pv, tbl, lens)
     b = ragged_attention.ragged_paged_attention(
@@ -1989,6 +2068,54 @@ def phase_kernels():
           "max_abs_diff": diff, "bitwise": diff == 0.0})
     reset_launches()
     return rows
+
+
+def d256_cases(dtype_name, dev, gen, rows):
+    """The three serving kernels that take head dim 256 since Queue C 6,
+    at ``D256`` (16 heads of 256 over 8 KV heads): each case of the
+    kernel's row above at this geometry (flash at S=512, 300 and the
+    training shape B=4, S=2048; ragged's packed tick-0 buffer and its
+    edge spans; the fused tick at 2 layers, 8 and 37 rows), the same
+    bits on two launches, the flash forward also with 16 KV heads (MHA)
+    at S=300; then ragged on int8 and fp8 pools and the fused tick's five
+    quantized variants. Rows land in ``rows`` under ``(name, dtype,
+    "d256")`` and ``(name, dtype, mode, "d256")``."""
+    import torch
+    from paddle_tpu_torch.kernels import flash
+    from paddle_tpu_torch.kernels.flash_attention import _ref_attention
+    h, hkv, d = D256
+    for name in D256_KERNELS:
+        case = fused_case if name == "fused_decode_tick" else kernel_case
+        row = dict(case(name, dtype_name, dev, gen, heads=D256), head_dim=d,
+                   heads=h, kv_heads=hkv)
+        emit({"phase": "kernels", **row})
+        rows[(name, dtype_name, "d256")] = row
+        torch.cuda.empty_cache()
+    base = rows[("ragged_attention", dtype_name, "d256")]["ms"]
+    for mode in QUANT_MODES:
+        row = quant_kernel_case("ragged_attention", mode, dtype_name, dev,
+                                gen, heads=D256)
+        row.update(head_dim=d, base_ms=base, x_base=row["ms"] / base)
+        emit({"phase": "kernels", **row})
+        rows[("ragged_attention", dtype_name, mode, "d256")] = row
+    torch.cuda.empty_cache()
+    base = rows[("fused_decode_tick", dtype_name, "d256")]["ms"]
+    for mode, row in fused_quant_cases(dtype_name, dev, gen, base,
+                                       heads=D256).items():
+        row["head_dim"] = d
+        rows[("fused_decode_tick", dtype_name, mode, "d256")] = row
+    torch.cuda.empty_cache()
+    q, k, v = flash_inputs(getattr(torch, dtype_name), dev, gen, B=2, S=300,
+                           heads=Heads(h, h, d))
+    got = flash.flash_attention(q, k, v, causal=True)
+    err = _compare("flash MHA d256 S=300", dtype_name, got,
+                   _ref_attention(q, k, v, True))
+    if not torch.equal(got, flash.flash_attention(q, k, v, causal=True)):
+        raise RuntimeError(f"flash MHA d256 {dtype_name}: two launches "
+                           f"differ")
+    emit({"phase": "kernels", "check": "flash_d256_mha_s300",
+          "dtype": dtype_name, "max_abs_err": err,
+          "bitwise_repeatable": True})
 
 
 def _requests(GenerationRequest, short, long_len, new, vocab, seed):
@@ -2066,6 +2193,10 @@ def phase_engine():
         raise RuntimeError(f"fused-tick streams differ from the default "
                            f"engine's: {on_streams}")
     _engine_wide(model, cfg)
+    # the kernels line's D = 256 rows are the bf16 routes: their launches
+    # come from the bf16 leg
+    _engine_d256("float32")
+    d256 = _engine_d256("bfloat16")
     _engine_prefix(model, cfg)
     _engine_two_program(model, cfg, on_streams["default"])
     _engine_multitick(model, cfg)
@@ -2081,7 +2212,7 @@ def phase_engine():
         raise RuntimeError(f"capture probe exited {probe.returncode}: "
                            f"{probe.stderr[-2000:]}")
     print(lines[-1], flush=True)
-    return quant
+    return {**quant, **d256}
 
 
 #: the quantized knob sets the engine phase holds, kernels against plain
@@ -2102,6 +2233,77 @@ QUANT_ENGINES = (
     ("prefix_int8", {"prefix_cache": True, "kv_dtype": "int8"}),
     ("w8_a8", {"quantize_weights": True, "quantize_activations": True}),
 )
+
+
+#: the engines of the head-dim-256 leg: the three decode programs, and the
+#: quantized pools and weights whose kernels have a D = 256 row
+D256_ENGINES = (("default", {}), ("fused_tick", {"fused_tick": True}),
+                ("dense", {"paged_attn": False}),
+                ("kv_int8", {"kv_dtype": "int8"}),
+                ("kv_fp8", {"kv_dtype": "fp8"}),
+                *(("fused_" + mode, {"fused_tick": True,
+                                     **({"kv_dtype": kv} if kv else {}),
+                                     **({"quantize_weights": True}
+                                        if w8 else {})})
+                  for mode, (kv, w8) in FUSED_QUANT_MODES.items()))
+
+
+def _engine_d256(dtype_name):
+    """Queue C 6 on the engine: 2 layers, hidden 4096 as 16 heads of 256
+    over 8 KV heads, at ``dtype_name``. Each of ``D256_ENGINES`` builds
+    with the kernels on and launches its own kernel (and the flash
+    forward and ragged attention where its path has them) with the
+    kernels on and none with them off. In fp32 its greedy streams and
+    finish reasons equal its plain versions'; in bf16 (the tensor-core
+    routes of the kernel rows) each stream's first parting from the
+    plain run is reported. Returns the launches of each D = 256 kernel
+    row on this path, keyed ``(name, "d256")`` and ``(name, mode,
+    "d256")``."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.serving import GenerationRequest
+    h, hkv, d = D256
+    cfg = llama_7b(num_hidden_layers=2, num_attention_heads=h,
+                   num_key_value_heads=hkv, dtype=dtype_name)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    reqs = _requests(GenerationRequest, (37, 130, 300), 700, 16,
+                     cfg.vocab_size, seed=3)
+    launches = {}
+    for label, knob in D256_ENGINES:
+        (s_on, f_on, eng, l_on, _), (s_off, f_off, _, l_off, _) = (
+            _eng_run(model, reqs, knob, kernels=use) for use in (True, False))
+        own = _own_kernel(knob)
+        same = s_on == s_off and f_on == f_off
+        emit({"phase": "engine", "engine": f"d256_{label}", "knobs": knob,
+              "head_dim": d, "heads": h, "kv_heads": hkv, "layers": 2,
+              "dtype": dtype_name, "greedy_streams_equal": same,
+              "first_parting": _first_parting(s_on, s_off),
+              "tokens": sum(len(x) for x in s_on), "own_kernel": own,
+              "launches_kernels": {k: v for k, v in l_on.items() if v},
+              "launches_plain": sum(l_off.values())})
+        eng.release()
+        if dtype_name == "float32" and not same:
+            raise RuntimeError(f"engine d256 {label}: kernels vs plain "
+                               f"streams differ: {s_on} vs {s_off}")
+        if any(len(x) != 16 and r != "stop" for x, r in zip(s_on, f_on)):
+            raise RuntimeError(f"engine d256 {dtype_name} {label}: streams "
+                               f"{s_on}, finish reasons {f_on}")
+        if not l_on[own] or sum(l_off.values()) or (
+                label == "default" and not l_on["flash"]) or (
+                knob.get("paged_attn", True)
+                and not l_on["ragged_attention"]):
+            raise RuntimeError(f"engine d256 {dtype_name} {label} launches:"
+                               f" kernels {l_on}, plain {l_off}")
+        launches[label] = l_on
+    del model
+    torch.cuda.empty_cache()
+    return {**{(n, "d256"): launches["fused_tick" if n == "fused_decode_tick"
+                                     else "default"][n]
+               for n in D256_KERNELS},
+            **{("ragged_attention", m, "d256"): launches["kv_" + m][
+                "ragged_attention"] for m in QUANT_MODES},
+            **{("fused_decode_tick", m, "d256"): launches["fused_" + m][
+                "fused_decode_tick"] for m in FUSED_QUANT_MODES}}
 
 
 def _matched_prefix(a, b):
@@ -2448,7 +2650,7 @@ def _engine_wide(model, cfg):
 
 
 def _eng_run(model, reqs, knob, kernels=True, graph=True):
-    """One fp32 engine run to completion with the kernels (or their plain
+    """One engine run to completion with the kernels (or their plain
     versions) and the graph tail (or the eager one); counts set to 0 just
     before it and read just after. Returns (streams, finish reasons,
     engine, launches, the multi-tick program's calls)."""
@@ -2944,22 +3146,23 @@ def _capture_probe():
     model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
                                       dtype="float32"), device=dev, seed=6)
     p, tied = llama_decode_params(model)
-    t = tick_inputs(torch.float32, dev, gen, FUSED_LAYERS)
+    t = tick_inputs(torch.float32, dev, gen, FUSED_LAYERS, heads=HEADS)
     t.update(lens=torch.from_numpy(t["lens"]).to(dev),
              app_mask=torch.from_numpy(t["app_mask"]).to(dev),
              temps=torch.from_numpy(t["temps"]).to(dev),
              top_ks=torch.from_numpy(t["top_ks"]).to(dev))
     base = (t["pool_k"].clone(), t["pool_v"].clone())
-    warm = _tick(fdt.fused_decode_tick, p, tied, dict(t))
+    warm = _tick(fdt.fused_decode_tick, p, tied, dict(t), heads=HEADS)
     t["kys"] = warm[3].clone()                  # device keys from now on
     eager = _tick(fdt.fused_decode_tick, p, tied,
-                  dict(t, pool_k=base[0].clone(), pool_v=base[1].clone()))
+                  dict(t, pool_k=base[0].clone(), pool_v=base[1].clone()),
+                  heads=HEADS)
     line = {"phase": "engine", "check": "cooperative_capture"}
     try:
         cap = dict(t, pool_k=base[0].clone(), pool_v=base[1].clone())
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            out = _tick(fdt.fused_decode_tick, p, tied, cap)
+            out = _tick(fdt.fused_decode_tick, p, tied, cap, heads=HEADS)
         graph.replay()
         torch.cuda.synchronize()
         line.update(captured=True, replay_equals_eager=bool(
@@ -3047,19 +3250,23 @@ def fused_tick_timing(eng, layers):
     pools = eng.cache.kv_args()
     dt = eng._params["embed"].dtype
     dev = eng.cache.pool.k.device
-    t = tick_inputs(dt, dev, None, layers, pools=pools)
-    t1 = tick_inputs(dt, dev, None, layers, pools=pools, lens=[1] * SLOTS)
+    t = tick_inputs(dt, dev, None, layers, pools=pools, heads=HEADS)
+    t1 = tick_inputs(dt, dev, None, layers, pools=pools, lens=[1] * SLOTS,
+                     heads=HEADS)
     p, tied = eng._params, eng._tied
     nbytes, flops = tick_cost(p, t, layers,
-                              torch.tensor([], dtype=dt).element_size())
-    tick = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t))
+                              torch.tensor([], dtype=dt).element_size(),
+                              heads=HEADS)
+    tick = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t,
+                                 heads=HEADS))
     grid = dict(fdt.LAST_GRID)
-    tick1 = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t1))
+    tick1 = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t1,
+                                  heads=HEADS))
     return {"tick_ms": tick, "grid_blocks": grid["blocks"],
             "blocks_per_sm": grid["blocks_per_sm"],
             "tick_len1_ms": tick1, "attention_ms": tick - tick1,
             "scanned_tick_ms": time_ms(lambda: _tick(_fused_decode_tick, p,
-                                                     tied, t)),
+                                                     tied, t, heads=HEADS)),
             "tick_bytes": nbytes,
             "tick_bound_ms": bound_ms(nbytes, flops, "bfloat16")}, t
 
@@ -3657,6 +3864,313 @@ def _first_diff(a, b):
                 None if len(a) == len(b) else min(len(a), len(b)))
 
 
+# ------------------------------------------------------------------ fleet
+def _fleet_make(model, **kw):
+    """An engine fleet of two replicas at the engines' serving knobs
+    (``serve_fleet``'s: decode_chunk 1, the prefix cache), the chunk
+    grant pinned (``headroom_mult=None``) so its streams can be held to
+    a direct engine's, drivers stopped until ``start()``."""
+    from paddle_tpu_torch.serving.fleet import EngineFleet
+    kw.setdefault("replicas", 2)
+    kw.setdefault("router", "round-robin")
+    kw.setdefault("retry_backoff_s", 0.0)
+    return EngineFleet(model, headroom_mult=None, start=False, **kw)
+
+
+def _fleet_done(fleet):
+    """Shut a fleet down and free its replicas' pools and graphs."""
+    import torch
+    fleet.shutdown(drain=True, timeout=120)
+    for rep in fleet.replicas:
+        rep.gateway.engine.release()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _fleet_await(pred, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while not pred() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    if not pred():
+        raise RuntimeError("fleet: condition not reached in time")
+
+
+def _fleet_results(streams):
+    outs = [st.result() for st in streams]
+    return [ids.tolist() for ids, _ in outs], [r for _, r in outs]
+
+
+def _replica_launches(fleet):
+    """Each replica's launches per kernel since the last reset: the
+    counts of its driver thread (kernels.thread_launches)."""
+    from paddle_tpu_torch.kernels import thread_launches
+    return [{k: v for k, v in thread_launches(
+        rep.gateway._thread.ident).items() if v}
+        for rep in fleet.replicas]
+
+
+def _shared_at_rest(label):
+    """Raise unless the device's buffers that every launch shares are as
+    each launch leaves them: every split-KV ticket zero, and the fused
+    tick's barrier words (all but the generation word, bar[1]) zero. A
+    launch that overlapped another on them leaves a count behind."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_decode_tick as fdt, split_kv
+    torch.cuda.synchronize()
+    left = {"tickets": sum(int(t.count_nonzero())
+                           for t in split_kv._TICKETS.values()),
+            "barrier": sum(int(b[0] != 0) + int(b[2:].count_nonzero())
+                           for b in fdt._BARRIERS.values())}
+    if any(left.values()):
+        raise RuntimeError(f"{label}: shared launch buffers not at rest: "
+                           f"{left} non-zero words")
+    return left
+
+
+def _meet_at_first_tail(fleet, timeout=120.0):
+    """Hold each replica's first step with tail ticks (the multi-tick
+    program's call with ``n > 1``: on the default engine the tail's
+    eager warm-up tick and its capture, on the fused engine its first
+    fused-tick launches) until every replica has reached its own, so
+    both start at once beside each other's launches. Returns the list
+    each meeting appends to."""
+    import threading
+    meet = threading.Barrier(len(fleet.replicas), timeout=timeout)
+    met = []
+    for rep in fleet.replicas:
+        eng = rep.gateway.engine
+        first = [True]
+
+        def program(_program=eng._mtick_fn, _first=first):
+            fn = _program()
+
+            def call(*args, **kw):
+                if _first[0] and int(args[-1]) > 1:     # n, the ticks
+                    _first[0] = False
+                    met.append(meet.wait())
+                return fn(*args, **kw)
+            return call
+        eng._mtick_fn = program
+    return met
+
+
+def _fleet_fp32(model, cfg, ticks):
+    """One knob set (``decode_ticks``) of the fp32 fleet legs: routed
+    streams, a replica killed mid-decode, a migration and a drain, each
+    against a direct engine with the replicas' knobs — equal streams and
+    finish reasons, zero requests lost."""
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import FaultPlan, GenerationRequest
+    knob = {"decode_chunk": 1, "prefix_cache": True, "decode_ticks": ticks}
+    reqs = _requests(GenerationRequest, (37, 130, 300), 700, 16,
+                     cfg.vocab_size, seed=3)
+    want = _eng_run(model, reqs, knob)
+    want[2].release()
+    # 32 new tokens: a decode_ticks=8 replica still decodes at step 3
+    long_reqs = _requests(GenerationRequest, (37, 130, 300), 500, 32,
+                          cfg.vocab_size, seed=12)
+    want_d = _eng_run(model, long_reqs, knob)
+    want_d[2].release()
+    lines = {}
+    # routed: round-robin over two replicas
+    fleet = _fleet_make(model, decode_ticks=ticks)
+    reset_launches()
+    streams = [fleet.submit(q) for q in reqs]
+    fleet.start()
+    got = _fleet_results(streams)
+    launches = dict(LAUNCHES)
+    per = _replica_launches(fleet)
+    captures = [rep.gateway.engine._tail.captures
+                if rep.gateway.engine._tail is not None else 0
+                for rep in fleet.replicas]
+    _fleet_done(fleet)
+    _shared_at_rest(f"fleet fp32 ticks={ticks} routed")
+    lines["routed"] = {"streams_equal": got[0] == want[0]
+                       and got[1] == want[1],
+        "launches": {k: v for k, v in launches.items() if v},
+        "replica_launches": per, "graph_captures": captures}
+    # decode_chunk 1: decode rows ride ragged's span-1 rows; the
+    # multi-tick tail launches paged decode
+    if not all(per) or not launches["ragged_attention"] or \
+            not launches["flash"] or (ticks > 1
+                                      and not launches["paged_decode"]):
+        raise RuntimeError(f"fleet fp32 ticks={ticks}: launches {launches}"
+                           f", per replica {per}")
+    # a replica killed mid-decode, no restart budget: failover
+    fleet = _fleet_make(model, decode_ticks=ticks, max_restarts=0,
+                        fault_hooks=[FaultPlan().at_step(3, "fatal"), None])
+    streams = [fleet.submit(q) for q in long_reqs]
+    fleet.start()
+    got_k = _fleet_results(streams)
+    dead = fleet.replicas[0].state
+    failovers = fleet._m_migrated.value(cause="failover")
+    _fleet_done(fleet)
+    _shared_at_rest(f"fleet fp32 ticks={ticks} kill")
+    lines["kill"] = {"streams_equal": got_k[0] == want_d[0]
+                     and got_k[1] == want_d[1],
+                     "lost": sum(r not in ("length", "stop")
+                                 for r in got_k[1]),
+                     "replica0": dead, "failed_over": failovers}
+    # migrate one long request mid-decode to the other replica
+    long_req = _requests(GenerationRequest, (), 400, 48, cfg.vocab_size,
+                         seed=11)
+    want_m = _eng_run(model, long_req, knob)
+    want_m[2].release()
+    fleet = _fleet_make(model, decode_ticks=ticks)
+    fleet.start()
+    st = fleet.submit(long_req[0])
+    _fleet_await(lambda: st.seq is not None and len(st.seq.tokens) >= 8)
+    fleet.migrate(st, target=1)
+    got_m = _fleet_results([st])
+    moved_to = fleet.replicas.index(
+        next(r for r in fleet.replicas if r.gateway is st.gateway))
+    _fleet_done(fleet)
+    _shared_at_rest(f"fleet fp32 ticks={ticks} migrate")
+    lines["migrate"] = {"streams_equal": got_m[0] == want_m[0]
+                        and got_m[1] == want_m[1], "to_replica": moved_to}
+    # drain replica 0 while four requests decode
+    fleet = _fleet_make(model, decode_ticks=ticks)
+    fleet.start()
+    streams = [fleet.submit(q) for q in long_reqs]
+    _fleet_await(lambda: any(x.seq is not None and x.seq.tokens
+                             for x in streams))
+    moved = fleet.drain_replica(0)
+    got_d = _fleet_results(streams)
+    _fleet_done(fleet)
+    _shared_at_rest(f"fleet fp32 ticks={ticks} drain")
+    lines["drain"] = {"streams_equal": got_d[0] == want_d[0]
+                      and got_d[1] == want_d[1], "migrations": moved}
+    if ticks > 1:
+        # both replicas' first steps with tail ticks at once: on the
+        # default engine two eager warm-ups on the shared tickets, each
+        # capture beside the other replica's launches; on the fused
+        # engine two replicas' cooperative ticks on one grid barrier
+        for fused in (False, True):
+            knob_f = dict(knob, fused_tick=fused)
+            want_f = want if not fused else _eng_run(model, reqs, knob_f)
+            if fused:
+                want_f[2].release()
+            fleet = _fleet_make(model, decode_ticks=ticks, fused_tick=fused)
+            met = _meet_at_first_tail(fleet)
+            streams = [fleet.submit(q) for q in reqs]
+            reset_launches()
+            fleet.start()
+            got_f = _fleet_results(streams)
+            caps = [rep.gateway.engine._tail.captures
+                    for rep in fleet.replicas]
+            per = _replica_launches(fleet)
+            _fleet_done(fleet)
+            rest = _shared_at_rest(f"fleet fp32 ticks={ticks} race "
+                                   f"fused={fused}")
+            lines["race_fused" if fused else "race"] = {
+                "streams_equal": got_f[0] == want_f[0]
+                and got_f[1] == want_f[1], "met": len(met),
+                "graph_captures": caps, "replica_launches": per,
+                "left": rest}
+            # the fused tail launches the tick itself and captures nothing
+            if len(met) != len(fleet.replicas) or (
+                    not fused and not all(caps)) or (
+                    fused and not all(p.get("fused_decode_tick")
+                                      for p in per)):
+                raise RuntimeError(f"fleet fp32 race fused={fused}: met "
+                                   f"{len(met)}, captures {caps}, "
+                                   f"launches {per}")
+    line = {"phase": "fleet", "dtype": "float32", "layers": 2,
+            "replicas": 2, "decode_ticks": ticks, **lines}
+    emit(line)
+    bad = [k for k, v in lines.items() if not v["streams_equal"]]
+    if bad or lines["kill"]["lost"] or lines["kill"]["replica0"] != "dead" \
+            or ticks > 1 and not all(captures):
+        raise RuntimeError(f"fleet fp32 ticks={ticks}: {bad} {line}")
+    return launches
+
+
+#: the bf16 fleet's rows a sequence: two replicas' pools with the prefix
+#: cache's budget (as many blocks again) at 4096 would take 64 GiB beside
+#: the 13.5 GB of weights; the serve requests need at most 1664
+FLEET_MAX_SEQ = 2048
+
+
+def _fleet_serve(model):
+    """bf16 ``llama_7b`` (the serve model): 2 replicas x 8 slots of
+    ``FLEET_MAX_SEQ`` rows behind the affinity router, the serve phase's
+    8 requests at once: tok/s,
+    TTFT, launches a replica, and each stream held to a direct engine
+    with the replicas' knobs — equal, or where it first parts (bf16
+    rows batch otherwise in a fleet, and a GEMM of another row count
+    may round otherwise)."""
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.serving import GenerationRequest
+    from paddle_tpu_torch.serving.fleet import PrefixAffinityRouter
+    cfg = model.config
+    reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
+    knob = {"decode_chunk": 1, "prefix_cache": True, "headroom_mult": None,
+            "max_seq_len": FLEET_MAX_SEQ}
+    seqs, eng, _, direct_wall = _serve(model, reqs, **knob)
+    want = [s.tokens for s in seqs]
+    eng.release()
+    del eng, seqs
+    torch.cuda.empty_cache()
+    # warm-up: cuBLAS, the kernels and both replicas' first programs
+    fleet = _fleet_make(model, router=PrefixAffinityRouter(band=16),
+                        max_seq_len=FLEET_MAX_SEQ)
+    fleet.start()
+    _fleet_results([fleet.submit(q) for q in _requests(
+        GenerationRequest, (100, 120), 600, 9, cfg.vocab_size, seed=5)])
+    _fleet_done(fleet)
+    fleet = _fleet_make(model, router=PrefixAffinityRouter(band=16),
+                        max_seq_len=FLEET_MAX_SEQ)
+    fleet.start()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    streams = [fleet.submit(q) for q in reqs]
+    got, reasons = _fleet_results(streams)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    per = _replica_launches(fleet)
+    ttft = [st.first_token_time - st.submit_time for st in streams]
+    routed = [i for _, i in fleet.decisions]
+    _fleet_done(fleet)
+    _shared_at_rest("fleet bf16")
+    partings = _first_parting(got, want)
+    decoded = sum(len(t) for t in got)
+    line = {"phase": "fleet", "dtype": cfg.dtype,
+            "layers": cfg.num_hidden_layers, "replicas": 2,
+            "num_slots": 8, "max_seq_len": FLEET_MAX_SEQ,
+            "router": "affinity",
+            "requests": len(reqs), "decoded_tokens": decoded,
+            "wall_s": wall, "decoded_tok_per_s": decoded / wall,
+            "direct_wall_s": direct_wall,
+            "direct_decoded_tok_per_s": decoded / direct_wall,
+            "ttft_s_mean": sum(ttft) / len(ttft), "ttft_s_max": max(ttft),
+            "routed_to": routed, "launches": {
+                k: v for k, v in launches.items() if v},
+            "replica_launches": per,
+            "streams_equal_direct": got == want,
+            "first_parting": partings}
+    emit(line)
+    if any(r != "length" for r in reasons) or any(
+            len(t) != 64 for t in got) or not all(per):
+        raise RuntimeError(f"fleet bf16: {line}")
+    return launches
+
+
+def phase_fleet_fp32():
+    """The engine fleet at 7B widths, 2 layers, fp32 (the kernels' fp32
+    routes): ``_fleet_fp32`` at ``decode_ticks`` 1 and 8 (each replica
+    captures its own multi-tick graph while the other launches)."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    cfg = llama_7b(num_hidden_layers=2, dtype="float32")
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    for ticks in (1, 8):
+        _fleet_fp32(model, cfg, ticks)
+    del model
+    torch.cuda.empty_cache()
+
+
 def phase_server(model):
     """``serve(model, port=0)`` at its defaults on the card (decode_chunk
     1, 8 slots, cost on, trace off) under 8 concurrent HTTP clients (4
@@ -4027,14 +4541,14 @@ def phase_profile_fused(model, cfg, reqs, want, scanned_ticks=5):
     fused_us = sum(us for us, _ in fused)
     t = tick_inputs(eng.cache.pool.k.dtype, eng.cache.pool.k.device, None,
                     cfg.num_hidden_layers,
-                    pools=(eng.cache.pool.k, eng.cache.pool.v))
+                    pools=(eng.cache.pool.k, eng.cache.pool.v), heads=HEADS)
     p, tied = eng._params, eng._tied
-    nbytes, flops = tick_cost(p, t, cfg.num_hidden_layers, 2)
-    _tick(_fused_decode_tick, p, tied, t)          # warm
+    nbytes, flops = tick_cost(p, t, cfg.num_hidden_layers, 2, heads=HEADS)
+    _tick(_fused_decode_tick, p, tied, t, heads=HEADS)          # warm
     torch.cuda.synchronize()
     with torch_profile(activities=acts) as prof2:
         for _ in range(scanned_ticks):
-            _tick(_fused_decode_tick, p, tied, t)
+            _tick(_fused_decode_tick, p, tied, t, heads=HEADS)
         torch.cuda.synchronize()
     srows = _device_rows(prof2)
     _profile_line("profile_fused", rows, wall, steps=steps,
@@ -4377,7 +4891,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,serve,generate,server,"
-                            "train_parity,train",
+                            "fleet,train_parity,train",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
                     help="repeat the four serve runs and one train "
@@ -4411,7 +4925,9 @@ def main(argv=None):
     launches = {}
     if "engine" in phases:
         launches.update(phase_engine())
-    if phases & {"serve", "generate", "server"}:
+    if "fleet" in phases:
+        phase_fleet_fp32()
+    if phases & {"serve", "generate", "server", "fleet"}:
         # one llama_7b (32 layers, bf16, seed 0) for the three phases
         from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
         model = LlamaForCausalLM(llama_7b(dtype="bfloat16"), device="cuda",
@@ -4422,6 +4938,8 @@ def main(argv=None):
             phase_generate(model)
         if "server" in phases:
             phase_server(model)
+        if "fleet" in phases:
+            _fleet_serve(model)
         del model
     gc.collect()
     torch.cuda.empty_cache()      # the serve model is gone before training
@@ -4464,6 +4982,25 @@ def main(argv=None):
                     if name == "fused_decode_tick"
                     else ", " + QUANT_CHUNK_ROUTE["bfloat16"]
                     if name == "ragged_attention" else "")})
+    # the three serving kernels at head dim 256 (Queue C 6): launches on
+    # the engine phase's bf16 D = 256 leg, whose routes these rows time
+    for name in D256_KERNELS:
+        for mode in (None,) + ((tuple(FUSED_QUANT_MODES)
+                                if name == "fused_decode_tick" else
+                                QUANT_MODES) if name != "flash" else ()):
+            key = (name, "bfloat16") + ((mode,) if mode else ()) + ("d256",)
+            row = rows.get(key, {})
+            kernels.append({
+                "name": f"{name}{':' + mode if mode else ''}@d256",
+                "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "head_dim": D256[2],
+                **({"mode": mode} if mode else {}),
+                "launches": launches.get(key[:1] + key[2:], 0),
+                **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "base_ms",
+                                           "device_ms")},
+                "math": route(name, "bfloat16")})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

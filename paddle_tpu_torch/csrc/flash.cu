@@ -24,7 +24,8 @@
 //   visited; only the diagonal tile and the tail tile past S are masked.
 //   Query tiles are scheduled last row first, so the long causal rows
 //   start in the first wave. 81 KB of shared memory at D=128 and 167
-//   registers, two blocks an SM. The products of one tile are issued and
+//   registers, two blocks an SM; at D=256 161 KB, one block an SM, the O
+//   accumulator 128 floats a thread (P V as wgmma.m64n256k16). The products of one tile are issued and
 //   waited for before the softmax (no overlap across tiles yet, and no
 //   TMA or warp specialisation: the next steps).
 // float32 — on the CUDA cores (flash_fwd_kernel): the shared tile routine
@@ -115,29 +116,19 @@ constexpr int kBM = 64;    // query rows a block: one warpgroup
 constexpr int kBN = 64;    // keys a tile
 constexpr int kNT = 128;
 
-// the Q tile, two stages of K and of V, and 1 KB to align the atoms
+// the Q tile, two stages of K and of V, and 1 KB to align the atoms:
+// 82,944 bytes at D = 128 (two blocks an SM), 164,864 at D = 256 (one)
 template <int D>
 constexpr size_t smem_bytes() {
   return static_cast<size_t>(kBM + 4 * kBN) * D * sizeof(bf16) + 1024;
 }
-
 template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 8][4],
-                                   const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void pv<64>(float (&o)[8][4],
-                                       const uint32_t (&a)[4], uint64_t db) {
-  tc::wgmma_m64n64_rs(o, a, db);
-}
-template <>
-__device__ __forceinline__ void pv<128>(float (&o)[16][4],
-                                        const uint32_t (&a)[4],
-                                        uint64_t db) {
-  tc::wgmma_m64n128_rs(o, a, db);
+constexpr int blocks_per_sm() {
+  return D == 256 ? 1 : 2;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kNT, 2)
+__global__ void __launch_bounds__(kNT, blocks_per_sm<D>())
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, RowStrides qs, RowStrides ks,
@@ -267,7 +258,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      pv<D>(o, pa[kk], tc::desc_mn_major<kBN>(cV, kk));
+      tc::wgmma_pv<D>(o, pa[kk], tc::desc_mn_major<kBN>(cV, kk));
     tc::wg_commit();
     tc::wg_wait<0>();
     tc::pin(o);
@@ -324,7 +315,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
 
 // q/out [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v [B,S,Hk,D]
 // through (k_sb, k_ss, k_sh), D contiguous; lse [B,H,S] float32 or null.
-// is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// D: 64, 128 or 256. is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16
+// (tensor cores).
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int H,
                             int Hk, int D, long long q_sb, long long q_ss,
@@ -343,6 +335,10 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                                                  s));
     case 128:
       return static_cast<int>(pt::launch_fwd<128>(q, k, v, out, l, qs, ks, B,
+                                                  S, H, Hk, causal, is_bf16,
+                                                  s));
+    case 256:
+      return static_cast<int>(pt::launch_fwd<256>(q, k, v, out, l, qs, ks, B,
                                                   S, H, Hk, causal, is_bf16,
                                                   s));
     default:

@@ -408,7 +408,8 @@ __device__ __forceinline__ void rope_pair(const Args<T, KT>& a, int rr, int d,
 template <typename T, int D, typename KT>
 __device__ void finish_kv_int8(const Args<T, KT>& a, const Gemv<T>& g,
                                const Plan& p, int grp) {
-  constexpr int U = 2;   // pairs a lane: D/2 = 64 (D 128) or 32 (D 64)
+  constexpr int U = D / 64 > 2 ? D / 64 : 2;   // pairs a lane: D/2 = 32 (D 64),
+                                               // 64 (D 128) or 128 (D 256)
   const int R = a.R, N = g.N, nh = a.nh, nkv = a.nkv;
   const int lane = threadIdx.x & 31;
   const bool is_v = grp >= nh + nkv;
@@ -1104,9 +1105,14 @@ __device__ void attn_item(const Args<T, KT>& a, int l, int it,
                                  a.part_l, a.part_acc, a.tickets, smem, qo, \
                                  len, key_off, sc, G, r, kvh, nkv, split,   \
                                  a.split_len, ns, scale)
-  if (G * D <= kThreads)
-    PT_WALK(1);
-  else if (G * D <= 4 * kThreads)
+  // (with_nacc's rule: one register only where D itself fits kThreads)
+  if constexpr (D <= kThreads) {
+    if (G * D <= kThreads) {
+      PT_WALK(1);
+      return;
+    }
+  }
+  if (G * D <= 4 * kThreads)
     PT_WALK(4);
   else
     PT_WALK(skv::kMaxAcc);
@@ -1430,6 +1436,8 @@ cudaError_t dispatch(int D, void** p, const int* n, float eps,
       return pt::ft::launch<T, 64, KT, QM, W8>(a, max_blocks_per_sm, stream, grid_out);
     case 128:
       return pt::ft::launch<T, 128, KT, QM, W8>(a, max_blocks_per_sm, stream, grid_out);
+    case 256:
+      return pt::ft::launch<T, 256, KT, QM, W8>(a, max_blocks_per_sm, stream, grid_out);
     default:
       return cudaErrorInvalidValue;
   }

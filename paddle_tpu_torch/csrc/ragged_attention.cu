@@ -179,7 +179,7 @@ constexpr int kNT = 128;
 // tile that the conversion fills, then the ring that hides the latency:
 // two stages of the narrow K and V tiles (a byte a value) and their 64 K
 // and 64 V scales. 82,944 and 83,968 bytes at D = 128: two blocks an SM
-// either way.
+// either way; 164,864 and 165,888 at D = 256: one.
 template <int D, int QM>
 constexpr size_t smem_bytes() {
   return QM == 0 ? static_cast<size_t>(kBM + 4 * kBN) * D * sizeof(bf16) +
@@ -187,26 +187,15 @@ constexpr size_t smem_bytes() {
                  : static_cast<size_t>(kBM + 2 * kBN) * D * sizeof(bf16) +
                        2 * (2 * kBN * D + 2 * kBN * sizeof(float)) + 1024;
 }
-
 template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 8][4],
-                                   const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void pv<64>(float (&o)[8][4],
-                                       const uint32_t (&a)[4], uint64_t db) {
-  tc::wgmma_m64n64_rs(o, a, db);
-}
-template <>
-__device__ __forceinline__ void pv<128>(float (&o)[16][4],
-                                        const uint32_t (&a)[4],
-                                        uint64_t db) {
-  tc::wgmma_m64n128_rs(o, a, db);
+constexpr int blocks_per_sm() {
+  return D == 256 ? 1 : 2;
 }
 
 // KT, QM: the pool (bf16, 0; int8, 1; e4m3, 2) and its scale planes
 // (null for a bf16 pool)
 template <int D, typename KT, int QM>
-__global__ void __launch_bounds__(kNT, 2)
+__global__ void __launch_bounds__(kNT, blocks_per_sm<D>())
 ragged_wgmma_kernel(const bf16* __restrict__ q,
                     const KT* __restrict__ pool_k,
                     const KT* __restrict__ pool_v,
@@ -404,7 +393,7 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      pv<D>(o, pa[kk], tc::desc_mn_major<kBN>(cV, kk));
+      tc::wgmma_pv<D>(o, pa[kk], tc::desc_mn_major<kBN>(cV, kk));
     tc::wg_commit();
     tc::wg_wait<0>();
     tc::pin(o);
@@ -497,6 +486,10 @@ cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
       return launch<T, 128, KT, QM>(qt, kt, vt, ks, vs, tables, qs, ql, kl,
                                     ot, pm, pl, pa, tickets, T_, R, H, Hkv,
                                     nb, bs, mb, split_len, n_split, s);
+    case 256:
+      return launch<T, 256, KT, QM>(qt, kt, vt, ks, vs, tables, qs, ql, kl,
+                                    ot, pm, pl, pa, tickets, T_, R, H, Hkv,
+                                    nb, bs, mb, split_len, n_split, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -540,7 +533,7 @@ cudaError_t dispatch_mode(int mode, int D, const void* q, const void* pk,
 // part_m/part_l [R,Hkv,n_split,G] and part_acc [R,Hkv,n_split,G,D]
 // float32; tickets [>= R*Hkv] int32, zero before the launch and left zero
 // by it. split_len: keys a split (a multiple of 32); n_split * split_len
-// >= mb * bs. D: 64 or 128. is_bf16: 0 = float32, 1 = bfloat16.
+// >= mb * bs. D: 64, 128 or 256. is_bf16: 0 = float32, 1 = bfloat16.
 extern "C" int pt_ragged_attention(const void* q, const void* pool_k,
                                    const void* pool_v, const void* k_scale,
                                    const void* v_scale, const void* tables,

@@ -61,10 +61,12 @@ def check_cuda(name, data, index=(), pools=()):
 
 
 def check_head_dim(name, D, dims):
-    """Raise unless head dim ``D`` is one of the kernel's ``dims``."""
+    """Raise unless head dim ``D`` is one of the kernel's ``dims``. The
+    dims the kernels refuse (below 64, not powers of two, and the flash
+    backward's 256) are ROADMAP Queue C 7."""
     if D not in dims:
         raise NotImplementedError(f"{name} kernel: head_dim {D} not in "
-                                  f"{tuple(dims)}")
+                                  f"{tuple(dims)} (ROADMAP.md Queue C 7)")
 
 
 def launch(name, *args, count_as=None):

@@ -72,6 +72,7 @@ the kernel, so a tick is exactly one kernel launch.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -82,7 +83,7 @@ from .paged_decode import scale_mode
 from .split_kv import check_heads, plan, scratch, sm_count
 
 #: head dims the kernel takes
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: the widths (hidden, intermediate, vocabulary) are multiples of this
 WIDTH = 64
 #: k rows a weight chunk (``kKC`` in the source)
@@ -108,15 +109,24 @@ LAST_SCRATCH = {}
 # attention items' counter, then a ticket per GEMV group (a head of QKV,
 # a tile of the others); the kernel leaves it ready for the next launch
 _BARRIERS = {}
+_BARRIERS_LOCK = threading.Lock()
+# barriers outgrown by a larger launch: kept alive, since a CUDA graph
+# captured over one goes on reading it at every replay
+_OUTGROWN = []
 
 
 def _barrier(dev, groups):
-    bar = _BARRIERS.get(dev.index)
-    if bar is None or bar.numel() < 3 + groups:
-        bar = _BARRIERS[dev.index] = torch.zeros(3 + groups,
-                                                 dtype=torch.int32,
-                                                 device=dev)
-    return bar
+    # launches sharing it are ordered on the device's default stream, as
+    # the split-KV tickets are (kernels/split_kv.py)
+    with _BARRIERS_LOCK:
+        bar = _BARRIERS.get(dev.index)
+        if bar is None or bar.numel() < 3 + groups:
+            if bar is not None:
+                _OUTGROWN.append(bar)
+            bar = _BARRIERS[dev.index] = torch.zeros(3 + groups,
+                                                     dtype=torch.int32,
+                                                     device=dev)
+        return bar
 
 
 def check_limits(nh, nkv, D, hidden, inter, vocab):

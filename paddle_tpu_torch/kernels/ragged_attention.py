@@ -24,7 +24,7 @@ both, and each block reads its own row's span):
 Blocks of the other kind of span, and tiles past a span, exit at once.
 A span-1 row agrees with :func:`~.paged_decode.paged_decode_attention`
 within ``chip_smoke.py``'s ``TOL`` (the same walk, split at other
-lengths). Head dims 64 and 128. One launch counted a call.
+lengths). Head dims 64, 128 and 256. One launch counted a call.
 
 The pool is float32 or bfloat16 (the query's type), or quantized: int8
 with per-row-per-head float32 scale planes, or ``float8_e4m3fn`` with
@@ -56,7 +56,7 @@ from .split_kv import check_heads, plan, scratch, sm_count
 
 NEG_INF = -1e30
 #: head dims the kernels take
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: span rows a chunk tile holds, by input type, on any pool: the wgmma
 #: tile (bf16) and the CUDA-core tile (float32)
 TILE_ROWS = {torch.bfloat16: 64, torch.float32: 16}

@@ -10,10 +10,19 @@ block per (split, KV head, row) walks a split in :data:`PAGE`-key pages
 owning a quarter of every page with its own online softmax, the warps
 combined at the end of the split), and the last block of a (row, KV
 head) to finish combines the splits' partials in split order.
+
+Streams: the tickets are one buffer a device, which every launch leaves
+zero, so launches that share it must be ordered on one stream. Every
+caller launches on the port's current stream, which is the device's
+default stream on every thread: an engine fleet's replicas, each driven
+from a thread of its own, share it too (their graph replays included).
+Separate streams a replica would need buffers a stream (ROADMAP Queue B
+item 6).
 """
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -38,6 +47,7 @@ MIN_SPLIT_PAGES = 8
 MAX_GD = 16 * 128
 
 _TICKETS = {}
+_TICKETS_LOCK = threading.Lock()
 # ticket buffers outgrown by a larger launch: kept alive, since a CUDA
 # graph captured over one goes on reading it at every replay
 _OUTGROWN = []
@@ -83,13 +93,14 @@ def _tickets(dev, n):
     """The per-(row, KV head) ticket counters of ``dev``: zeros, and each
     launch leaves them zero. All three callers share them, so they run on
     one stream at a time (the port's current stream)."""
-    t = _TICKETS.get(dev)
-    if t is None or t.numel() < n:
-        if t is not None:
-            _OUTGROWN.append(t)
-        t = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
-        _TICKETS[dev] = t
-    return t
+    with _TICKETS_LOCK:
+        t = _TICKETS.get(dev)
+        if t is None or t.numel() < n:
+            if t is not None:
+                _OUTGROWN.append(t)
+            t = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+            _TICKETS[dev] = t
+        return t
 
 
 def plan(B, Hkv, capacity, n_sm):

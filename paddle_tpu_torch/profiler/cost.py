@@ -22,9 +22,10 @@ facade (:class:`_CountedProgram`) and records, per program key:
   (the fault harness's ``VirtualClock`` makes a chaos replay's exported
   accounting byte-identical);
 - **launch census** — where the JAX package counts the ``pallas_call``s
-  in a program's jaxpr, the port reads its own launch counters
-  (``kernels.LAUNCHES``) across the program's first dispatch: the
-  kernels one call of that program launched. On the CPU no kernel
+  in a program's jaxpr, the port reads its own launch counters (the
+  calling thread's, ``kernels.thread_launches()``: a fleet's replicas
+  launch from their own threads) across the program's first dispatch:
+  the kernels one call of that program launched. On the CPU no kernel
   launches and the census reads zeros.
 
 All sizes come from shapes — no device sync, no value reads. The engine
@@ -37,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import LAUNCHES
+from ..kernels import thread_launches
 
 #: every program kind the JAX engine's jit cache can hand out — the fixed
 #: label set of ``serving_dispatches_total{program=...}`` (kinds the port
@@ -338,15 +339,16 @@ class _CountedProgram:
         co = self._co
         fn = self._fn
         census = self._label not in co.censuses
-        launches0 = dict(LAUNCHES) if census else None
+        launches0 = thread_launches() if census else None
         t0 = co.clock()
         c0 = fn._cache_size()
         out = fn(*args, **kw)
         co._record(self._label, self._kind, args, out, self._host_out,
                    fn._cache_size() - c0, co.clock() - t0)
         if census:
+            launches = thread_launches()
             co.record_census(self._label,
-                             {k: LAUNCHES[k] - launches0[k]
-                              for k in LAUNCHES
-                              if LAUNCHES[k] != launches0[k]})
+                             {k: launches[k] - launches0[k]
+                              for k in launches
+                              if launches[k] != launches0[k]})
         return out

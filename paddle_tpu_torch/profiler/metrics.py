@@ -300,6 +300,82 @@ class Histogram(_Metric):
         return lines
 
 
+class _BoundMetric:
+    """A metric family viewed through a fixed label set: every
+    operation merges the bound labels into its call — the mechanism
+    behind the fleet's ``replica=\"i\"`` series (one shared registry,
+    N gateways, no series collisions). Explicit per-call labels win on
+    a key clash (they are more specific)."""
+
+    __slots__ = ("_metric", "_labels")
+
+    def __init__(self, metric, labels):
+        self._metric = metric
+        self._labels = dict(labels)
+
+    @property
+    def name(self):
+        return self._metric.name
+
+    @property
+    def buckets(self):
+        return self._metric.buckets
+
+    def _merge(self, labels):
+        return {**self._labels, **labels}
+
+    def inc(self, value=1, **labels):
+        return self._metric.inc(value, **self._merge(labels))
+
+    def dec(self, value=1, **labels):
+        return self._metric.dec(value, **self._merge(labels))
+
+    def set(self, value, **labels):
+        return self._metric.set(value, **self._merge(labels))
+
+    def set_fn(self, fn, **labels):
+        return self._metric.set_fn(fn, **self._merge(labels))
+
+    def observe(self, value, **labels):
+        return self._metric.observe(value, **self._merge(labels))
+
+    def value(self, **labels):
+        return self._metric.value(**self._merge(labels))
+
+    def quantile(self, q, **labels):
+        return self._metric.quantile(q, **self._merge(labels))
+
+
+class _LabeledRegistry:
+    """A :class:`MetricsRegistry` view that stamps every series
+    registered through it with fixed labels (see
+    :meth:`MetricsRegistry.labeled`). Families are still created in —
+    and rendered by — the underlying registry, so N views over one
+    registry expose one coherent ``/metrics`` document with each
+    component's series distinguished by its labels."""
+
+    def __init__(self, base, labels):
+        self._base = base
+        self._labels = dict(labels)
+
+    def counter(self, name, help=""):
+        return _BoundMetric(self._base.counter(name, help), self._labels)
+
+    def gauge(self, name, help=""):
+        return _BoundMetric(self._base.gauge(name, help), self._labels)
+
+    def histogram(self, name, help="", buckets=DEFAULT_BUCKETS):
+        return _BoundMetric(self._base.histogram(name, help,
+                                                 buckets=buckets),
+                            self._labels)
+
+    def labeled(self, **labels):
+        return _LabeledRegistry(self._base, {**self._labels, **labels})
+
+    def render(self) -> str:
+        return self._base.render()
+
+
 class MetricsRegistry:
     """Named collection of metric families; ``render()`` is the whole
     ``GET /metrics`` response body."""
@@ -337,3 +413,12 @@ class MetricsRegistry:
         for m in fams:
             lines.extend(m.expose())
         return "\n".join(lines) + "\n"
+
+    def labeled(self, **labels) -> _LabeledRegistry:
+        """A view of this registry that stamps every series registered
+        through it with ``labels`` — how the engine-fleet gives each
+        replica's gateway its own ``replica=\"i\"`` series in ONE
+        shared registry (one ``/metrics`` scrape covers the fleet, and
+        each replica's carried counter bases stay per-replica, so any
+        single replica rebuild keeps every series monotonic)."""
+        return _LabeledRegistry(self, labels)

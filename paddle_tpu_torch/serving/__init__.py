@@ -2,6 +2,7 @@
 fused-tick, two-program, multi-tick, speculative and dense-slot variants
 (see engine.py), the drafters (drafter.py), the prefix cache and its
 host-RAM spill tier (prefix_cache.py), the multi-tenant policy (policy/),
+the engine fleet (fleet/),
 the fault injection harness (faults.py) and the HTTP gateway (server/)."""
 from .block_manager import BlockManager  # noqa: F401
 from .drafter import Drafter, ModelDrafter, NgramDrafter  # noqa: F401

@@ -39,16 +39,21 @@ On the CPU, or with ``FLAGS_cuda_graph_tail`` off, the same tick runs
 eagerly: that is what the CPU tests hold against the JAX program.
 :class:`TailGraphs` (one an engine) holds the captured graphs, keyed by
 ``(num_slots, max_blocks, dtype, all-greedy, kernels)``. The first use of
-a key runs its first tick eagerly on a side stream (which builds and
-loads the kernels and allocates the split-KV tickets outside the graph's
-memory pool), then captures; a capture that fails raises, and nothing
-falls back to the eager tail.
+a key runs its first tick eagerly on the current stream (which builds
+and loads the kernels and allocates the split-KV tickets outside the
+graph's memory pool), then captures on a side stream; a capture that
+fails raises, and nothing falls back to the eager tail. Every launch,
+replays included, goes on the current stream, the device's default
+stream on every thread: the kernels' shared per-device buffers
+(``kernels/split_kv.py``) need them ordered.
 
 Launch counts: the kernel wrappers count at capture, when nothing runs on
 the device, so the capture's counts are taken back and recorded with the
 graph, and every replay adds them (``kernels.count_replay``).
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -58,6 +63,10 @@ from ..flags import get_flag
 from ..kernels import capture_counts, count_replay
 from ..models.llama import _rms, _rotate_half
 from .kv_cache import quantize_kv_rows, quantize_kv_rows_fp8, store_view
+
+# one graph capture at a time in the process (an engine fleet's replicas
+# drive their engines from threads of their own)
+_CAPTURE_LOCK = threading.Lock()
 
 NEG_INF = -1e30
 
@@ -297,8 +306,8 @@ class TailGraphs:
     def run(self, key, n, tick, graph=True):
         """Run ``n`` tail ticks of entry ``key``: ``tick()`` is one
         :func:`tail_tick` on the entry's state. With ``graph``, the first
-        tick of a key never run before goes eagerly on a side stream (the
-        warm-up), then the graph is captured; every other tick is a
+        tick of a key never run before goes eagerly (the warm-up), then
+        the graph is captured on a side stream; every other tick is a
         replay. A capture that fails raises. Without, every tick runs
         eagerly."""
         self.ticks += n
@@ -309,24 +318,29 @@ class TailGraphs:
         e = self._entries[key]
         done = 0
         if e.graph is None and n > 0:
-            cur = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                tick()
-            cur.wait_stream(side)
+            # the warm-up runs on the current (default) stream: its
+            # kernels share the device's split-KV tickets and the fused
+            # tick's grid barrier with every other launch there, a
+            # fleet's other replicas' included, and stay ordered with them
+            tick()
             done = 1
+            side = torch.cuda.Stream()
             # capture_begin/end on the side stream, not torch.cuda.graph:
             # its entry empties the allocator's cache, and every later step
-            # would pay cudaMalloc for its activations again
+            # would pay cudaMalloc for its activations again. A capture
+            # runs nothing, so the side stream only records. Thread-local
+            # capture, one capture at a time in the process: a fleet's
+            # other replicas go on launching (and allocating) on their
+            # own threads, on the default stream, which does not
+            # synchronise with the non-blocking side stream
             graph = torch.cuda.CUDAGraph()
-            with capture_counts(e.counts), torch.cuda.stream(side):
-                graph.capture_begin()
+            with _CAPTURE_LOCK, capture_counts(e.counts), \
+                    torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     tick()
                 finally:
                     graph.capture_end()
-            cur.wait_stream(side)
             e.graph = graph
             self.captures += 1
         for _ in range(done, n):

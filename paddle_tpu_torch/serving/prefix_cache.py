@@ -35,8 +35,7 @@ skips the device work for every covered block:
   trie node, then matched like any resident block. Spills and
   readmissions are recorded on the cost observatory's tier ledger
   (``record_tier``). The tier's chain digests address spilled chains for
-  the fleet's cache plane (not ported yet: ROADMAP Queue A step 9,
-  fleet).
+  the fleet's cache plane (``serving/fleet/fleet.py`` ``_tier_warm``).
 
 The trie is host work on the engine's driver thread (no locks); the tier
 takes its own lock. The device work is the block copies, the tier

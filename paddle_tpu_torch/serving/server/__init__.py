@@ -16,8 +16,10 @@ Two layers (both stdlib-only):
   ``/debug/profile``).
 
 Run one with ``python -m paddle_tpu_torch.serving.server`` (on the card
-by default; ``--device cpu`` asks for the CPU). :func:`serve_fleet`
-raises: the fleet is ROADMAP Queue A step 9.
+by default; ``--device cpu`` asks for the CPU); ``--replicas N`` (or
+:func:`serve_fleet`) serves an engine fleet (``serving/fleet``) behind
+the same surface plus ``/debug/fleet``, ``/fleet/cacheplane``,
+``POST /fleet/drain`` and ``POST /fleet/rebalance``.
 """
 from .gateway import (GatewayClosedError, QueueFullError, ServingGateway,
                       TokenStream, TraceBusyError, WatchdogTimeout)

@@ -69,8 +69,11 @@ reference's rule for a step that traced one) or in which a CUDA kernel
 library was built or loaded (``kernels/_build.py`` compiles a kernel at
 its first launch): neither is a hang.
 
-The reference's fleet plane (live migration between replicas, failover
-to a sibling) is not ported: ROADMAP Queue A step 9 (fleet).
+The fleet plane (``serving/fleet``): :meth:`ServingGateway.adopt` and
+:meth:`ServingGateway.request_migration` move a live request between
+replica gateways by ``engine.evict`` / ``engine.restore`` on the two
+driver threads, and ``on_fatal`` hands a dying driver's live requests to
+a sibling before any is stranded.
 """
 from __future__ import annotations
 
@@ -255,7 +258,8 @@ class ServingGateway:
                  retry_backoff_s=0.02, max_restarts=8,
                  transient_types=(TransientFault,), clock=None,
                  fault_hook=None, tracer=None, trace=False,
-                 trace_buffer=65536, cost=True):
+                 trace_buffer=65536, cost=True, on_fatal=None,
+                 stream_id_prefix="cmpl"):
         self.engine = engine
         self.max_queue = int(max_queue)
         self.idle_wait_s = float(idle_wait_s)
@@ -267,6 +271,9 @@ class ServingGateway:
         self._closed = False
         self._drain = True
         self._ids = itertools.count(1)
+        # stream-id namespace: the fleet gives each replica's gateway its
+        # own prefix so ids stay unique across the fleet
+        self._id_prefix = str(stream_id_prefix)
         # ----------------------------------------------- supervision state
         # engine_factory() -> a fresh engine with the SAME config and the
         # SAME shared jit_cache (so recovery never re-traces); None
@@ -283,6 +290,11 @@ class ServingGateway:
         self._transient_streak = 0
         self._restarts = 0
         self.last_restart_at = None          # clock() of the last rebuild
+        # fleet failover hook: called (gateway, [(stream, seq|None)]) on
+        # the dying driver thread when supervision is exhausted, BEFORE
+        # the streams are stranded; True (or the adopted streams) means
+        # the fleet re-admitted them on a sibling, and those get no error
+        self.on_fatal = on_fatal
         # dead engine incarnations' summed counter stats (see
         # CARRIED_ENGINE_STATS): every /metrics series derived from
         # engine (or prefix-cache) stats reads through _stat() /
@@ -294,6 +306,13 @@ class ServingGateway:
         self._counter_state = (dict.fromkeys(CARRIED_ENGINE_STATS, 0),
                                dict.fromkeys(CARRIED_PREFIX_STATS, 0),
                                engine)
+        # live migration: adopt() enqueues (stream, seq) pairs arriving
+        # from a sibling (seq None: never engine-admitted, submit fresh);
+        # request_migration() enqueues (stream, handoff) pairs leaving for
+        # one. The driver drains both between steps: restore and evict
+        # run only on its thread.
+        self._migrate_in = collections.deque()
+        self._migrate_out = collections.deque()
         self._last_step_done = self._clock()
         self._recovering = False
         self._fault_at = None                # clock() of the fault being
@@ -364,6 +383,11 @@ class ServingGateway:
         recording site in ``serving/`` routes through one of these)."""
         t = self.tracer
         return t if t.enabled else None
+
+    @property
+    def _stat_base(self) -> dict:
+        """Dead incarnations' summed engine-stat counters."""
+        return self._counter_state[0]
 
     def _stat(self, key) -> int:
         """A monotonic engine-stat counter: dead incarnations' carried
@@ -755,11 +779,43 @@ class ServingGateway:
                 raise QueueFullError(
                     f"waiting room full ({self.max_queue} requests)")
             self._backlog += 1
-            stream = TokenStream(self, request, f"cmpl-{next(self._ids)}")
+            stream = TokenStream(self, request,
+                                 f"{self._id_prefix}-{next(self._ids)}")
             self._intake.append(stream)
         self._m_requests.inc()
         self._wake.set()
         return stream
+
+    def adopt(self, stream, seq=None):
+        """Take over a live request from a sibling gateway (fleet
+        failover, live migration). Thread-safe: enqueues the pair; the
+        driver re-admits it between steps — ``seq`` (the sibling's
+        evicted or crash-snapshotted sequence, PRNG walk included) through
+        ``engine.restore``, so its stream continues byte-identically;
+        ``seq=None`` (never engine-admitted there) submits fresh. The
+        stream is re-pointed at THIS gateway, so cancellation and token
+        delivery follow it."""
+        with self._lock:
+            if self._closed:
+                raise GatewayClosedError("gateway is draining")
+            stream.gateway = self
+            if stream._waiting:
+                # the waiting-room seat moves with the stream (the source
+                # gave up its own at handoff)
+                self._backlog += 1
+            self._migrate_in.append((stream, seq))
+        self._wake.set()
+
+    def request_migration(self, stream, handoff):
+        """Ask the driver to evict ``stream``'s sequence between steps and
+        call ``handoff(stream, seq)`` on the driver thread once it is
+        displaced (chain donated, PRNG snapshotted; ``seq`` None when the
+        request never reached the engine). The fleet's handoff adopts the
+        pair on a sibling. Thread-safe; a no-op for a stream that
+        finishes first."""
+        with self._lock:
+            self._migrate_out.append((stream, handoff))
+        self._wake.set()
 
     @property
     def queue_depth(self):
@@ -869,6 +925,111 @@ class ServingGateway:
             stream.seq = seq
             self._live[seq.request_id] = stream
 
+    def _admit_migrations(self):
+        """Driver-side intake of requests adopted from a sibling: a
+        carried sequence re-enters by ``engine.restore`` (recompute from
+        host token state and the PRNG snapshot), a bare request submits
+        fresh. A cancellation that raced the migration is honoured here,
+        as on the intake path."""
+        while True:
+            with self._lock:
+                if not self._migrate_in:
+                    return
+                stream, seq = self._migrate_in.popleft()
+            if stream._cancel:
+                if seq is not None and not seq.done:
+                    seq.status = "finished"
+                    seq.finish_reason = "cancelled"
+                self._leave_waiting_room(stream)
+                self._m_finished.inc(reason="cancelled")
+                stream._push_finish("cancelled")
+                continue
+            if seq is None:
+                try:
+                    seq = self.engine.submit(stream.request)
+                except Exception as e:
+                    self._leave_waiting_room(stream)
+                    stream._push_error(e)
+                    continue
+            elif seq.done:
+                # finished between gateways (eviction hands off only live
+                # sequences): a terminal event beats a stranded consumer
+                self._leave_waiting_room(stream)
+                self._m_finished.inc(reason=seq.finish_reason)
+                stream._push_finish(seq.finish_reason)
+                continue
+            elif (seq.prompt_len + int(seq.request.max_new_tokens)
+                    > self.engine.max_seq_len):
+                # behind the fleet's can_hold selection: an adoption this
+                # engine cannot hold to completion ends cleanly, never
+                # crashes the driver mid-recompute (a fatal fault that
+                # would cascade a fresh failover of the same sequence)
+                self._leave_waiting_room(stream)
+                stream._push_error(
+                    f"migrated sequence needs "
+                    f"{seq.prompt_len + int(seq.request.max_new_tokens)}"
+                    f" KV rows; this engine holds "
+                    f"{self.engine.max_seq_len}")
+                continue
+            elif self.engine.restore(seq):
+                self._m_recovered.inc()
+            stream.seq = seq
+            self._live[seq.request_id] = stream
+
+    def _apply_migrate_out(self):
+        """Driver-side eviction for live migration: displace each
+        requested stream's sequence (``engine.evict``: chain donated,
+        PRNG snapshotted) and hand the pair to the fleet's ``handoff`` on
+        this thread. A refused handoff (no sibling can take it) restores
+        the sequence here: a migration may be refused, never lose a
+        request."""
+        while True:
+            with self._lock:
+                if not self._migrate_out:
+                    return
+                stream, handoff = self._migrate_out.popleft()
+            seq = stream.seq
+            if seq is None:
+                # still in this gateway's intake: hand the bare request
+                with self._lock:
+                    try:
+                        self._intake.remove(stream)
+                    except ValueError:
+                        continue        # finished, cancelled or raced away
+                    if stream._waiting:
+                        self._backlog -= 1
+                try:
+                    handoff(stream, None)
+                except Exception:
+                    with self._lock:
+                        if stream._waiting:
+                            self._backlog += 1
+                        self._intake.append(stream)
+                continue
+            if seq.done or self._live.get(seq.request_id) is not stream:
+                continue                # finished, or already handed off
+            if any(p is seq for p in self._parked) or (
+                    self._suspect_ids
+                    and seq.request_id in self._suspect_ids):
+                continue                # mid-bisection: not migratable
+            if not self.engine.evict(seq):
+                continue
+            del self._live[seq.request_id]
+            self._probation.discard(seq.request_id)
+            if stream._waiting:
+                with self._lock:
+                    self._backlog -= 1
+            try:
+                handoff(stream, seq)
+            except Exception:
+                # refused by the target: re-admit here by recompute
+                if stream._waiting:
+                    with self._lock:
+                        self._backlog += 1
+                if self.engine.restore(seq):
+                    self._m_recovered.inc()
+                    self._live[seq.request_id] = stream
+
     def _apply_cancels(self):
         for stream in [s for s in self._live.values() if s._cancel]:
             seq = stream.seq
@@ -904,15 +1065,18 @@ class ServingGateway:
             while True:
                 self._arm_capture()
                 self._admit_intake()
+                self._admit_migrations()
                 self._apply_cancels()
                 self._sweep_parked_deadlines()
                 self._advance_bisection()
+                self._apply_migrate_out()
                 if self.engine.has_work():
                     self._step_supervised()
                     continue
                 with self._lock:
                     drained = (not self._intake and not self._live
-                               and not self._parked)
+                               and not self._parked
+                               and not self._migrate_in)
                     if self._closed and drained:
                         return
                 # idle is provably not hung: refresh the watchdog
@@ -924,16 +1088,24 @@ class ServingGateway:
                 self._wake.clear()
         except BaseException as e:
             # supervision exhausted (max_restarts, no factory, or a
-            # non-Exception): the driver is the only thread that can
-            # unblock consumers — it must not strand them mid-result()
+            # non-Exception). Fleet failover first: every live request,
+            # snapshotted as a rebuild's recovery would, goes to the
+            # on_fatal hook, which re-admits it on a sibling; only what
+            # nobody adopted is stranded. The driver is the only thread
+            # that can unblock consumers — it must not strand them
+            # mid-result()
+            handed = self._failover_handoff()
             with self._lock:
                 self._closed = True
-                stranded = list(self._intake) + list(self._live.values())
+                stranded = (list(self._intake) + list(self._live.values())
+                            + [st for st, _ in self._migrate_in])
                 self._intake.clear()
                 self._live.clear()
                 self._parked.clear()
+                self._migrate_in.clear()
             for s in stranded:
-                s._push_error(f"engine driver died: {e!r}")
+                if id(s) not in handed:
+                    s._push_error(f"engine driver died: {e!r}")
             raise
 
     # ---------------------------------------------------------- supervisor
@@ -1030,6 +1202,43 @@ class ServingGateway:
                 s.key = keys[s.slot].copy()
         queued = [s for s in engine.scheduler.queue if not s.done]
         return live, queued
+
+    def _failover_handoff(self) -> frozenset:
+        """The dying driver's last act (failover to a sibling): snapshot
+        every live request as a rebuild's recovery would and offer the
+        (stream, sequence) pairs to ``on_fatal``. Returns the ids of the
+        streams the hook adopted (all of them on True; empty without a
+        hook, on refusal, or if the handoff fails — stranding is the
+        fallback)."""
+        if self.on_fatal is None:
+            return frozenset()
+        try:
+            live, queued = self._snapshot_live(self.engine)
+            seqs = live + queued + [p for p in self._parked if not p.done]
+            pairs, seen = [], set()
+            for seq in seqs:
+                st = self._live.get(seq.request_id)
+                if st is not None and st.finish_reason is None \
+                        and not st._cancel:
+                    pairs.append((st, seq))
+                    seen.add(id(st))
+            with self._lock:
+                pending = [(st, None) for st in self._intake] \
+                    + list(self._migrate_in)
+            for st, sq in pending:
+                if id(st) not in seen and st.finish_reason is None \
+                        and not st._cancel:
+                    pairs.append((st, sq))
+                    seen.add(id(st))
+            if pairs:
+                res = self.on_fatal(self, pairs)
+                if res is True:
+                    return frozenset(id(st) for st, _ in pairs)
+                if res:     # the streams actually adopted
+                    return frozenset(id(st) for st in res)
+        except Exception:
+            pass        # failover is best-effort; stranding still works
+        return frozenset()
 
     def _rebuild_and_recover(self):
         """Fatal-fault recovery: rebuild the engine and re-enqueue every

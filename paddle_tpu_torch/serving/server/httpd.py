@@ -89,6 +89,12 @@ class _Handler(BaseHTTPRequestHandler):
     def gateway(self) -> ServingGateway:
         return self.server.gateway
 
+    @property
+    def fleet(self):
+        """The engine fleet when this server fronts one, else None (a
+        single-engine server keeps its surface unchanged)."""
+        return getattr(self.server, "fleet", None)
+
     def log_message(self, fmt, *args):  # route through the server hook
         if self.server.log_fn is not None:
             self.server.log_fn(fmt % args)
@@ -110,6 +116,9 @@ class _Handler(BaseHTTPRequestHandler):
     # ----------------------------------------------------------------- GET
     def do_GET(self):
         path, _, query = self.path.partition("?")
+        if self.fleet is not None:
+            self._do_get_fleet(path, query)
+            return
         if path == "/healthz":
             gw = self.gateway
             st = gw.health_state    # ok|degraded|recovering|draining
@@ -191,9 +200,77 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._error(404, f"no route for GET {path}", "invalid_request")
 
+    # ----------------------------------------------------------- GET/fleet
+    def _do_get_fleet(self, path, query):
+        """The fleet server's GET surface (README "Engine fleet"):
+        ``/healthz`` aggregates replica states, ``/metrics`` renders
+        the ONE shared registry (every series ``replica``-labeled),
+        ``/debug/fleet`` is the per-replica operations table,
+        ``/debug/requests`` merges the replica tables with a
+        ``replica`` column, ``/debug/trace`` snapshots the merged
+        fleet+replica timeline (step-bounded windows are a
+        single-engine feature — the N drivers share no step counter),
+        ``/debug/profile`` returns per-replica cost attribution plus
+        fleet totals, and ``/fleet/cacheplane`` is the distributed
+        prefix-cache surface (per-replica tier occupancy/digests plus
+        host-to-host transfer totals)."""
+        fl = self.fleet
+        if path == "/healthz":
+            st = fl.health_state
+            self._send_json(503 if st == "draining" else 200, {
+                "status": st,
+                "replicas": [{
+                    "replica": r.index, "state": r.state,
+                    "active_slots": r.gateway.engine.num_active,
+                    "num_slots": r.gateway.engine.num_slots,
+                    "queue_depth": r.gateway.queue_depth,
+                    "last_step_age_s":
+                        round(r.gateway.last_step_age(), 3),
+                    "engine_restarts": r.gateway.restarts,
+                } for r in fl.replicas],
+                "routable_replicas": len(fl._routable()),
+                "num_replicas": len(fl.replicas),
+                "router": fl.router.name,
+            })
+        elif path == "/metrics":
+            body = fl.registry.render().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        elif path == "/debug/fleet":
+            self._send_json(200, {"replicas": fl.fleet_table(),
+                                  "router": fl.router.name,
+                                  "health": fl.health_state})
+        elif path == "/debug/requests":
+            rows = []
+            for rep in fl.replicas:
+                for row in rep.gateway.request_table():
+                    rows.append({**row, "replica": rep.index})
+            self._send_json(200, {
+                "requests": rows,
+                "num_replicas": len(fl.replicas),
+                "queue_depth": sum(r.gateway.queue_depth
+                                   for r in fl.replicas)})
+        elif path == "/debug/trace":
+            self._send_json(200, fl.trace_doc())
+        elif path == "/debug/profile":
+            self._send_json(200, fl.profile_doc())
+        elif path == "/fleet/cacheplane":
+            self._send_json(200, fl.cache_plane_doc())
+        else:
+            self._error(404, f"no route for GET {path}",
+                        "invalid_request")
+
     # ---------------------------------------------------------------- POST
     def do_POST(self):
         path = self.path.split("?", 1)[0]
+        if self.fleet is not None and path in ("/fleet/drain",
+                                               "/fleet/rebalance"):
+            self._do_post_fleet(path)
+            return
         if path != "/v1/completions":
             self._error(404, f"no route for POST {path}", "invalid_request")
             return
@@ -207,7 +284,10 @@ class _Handler(BaseHTTPRequestHandler):
             return
         try:
             request = self._build_request(payload)
-            stream = self.gateway.submit(request)
+            # the fleet's front door routes, and sheds sideways on a full
+            # replica
+            front = self.fleet if self.fleet is not None else self.gateway
+            stream = front.submit(request)
         except QueueFullError as e:
             self._error(429, str(e), "rate_limit",
                         extra_headers=(("Retry-After", "1"),))
@@ -254,6 +334,44 @@ class _Handler(BaseHTTPRequestHandler):
                 stream, ids, reason, self.server.model_name, prompt_tokens))
         except (BrokenPipeError, ConnectionResetError):
             self.close_connection = True  # client gone; work already done
+
+    def _do_post_fleet(self, path):
+        """Fleet operations endpoints: ``POST /fleet/drain`` body
+        ``{"replica": i}`` (add ``"undrain": true`` to return it to
+        rotation) migrates a replica's live work to siblings and takes
+        it out of routing; ``POST /fleet/rebalance`` (optional body
+        ``{"max_moves": n}``) sheds the hottest replica's youngest
+        requests to the coolest."""
+        fl = self.fleet
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object")
+        except (ValueError, json.JSONDecodeError) as e:
+            self._error(400, f"invalid JSON body: {e}", "invalid_request")
+            return
+        try:
+            if path == "/fleet/drain":
+                idx = int(payload["replica"])
+                if not 0 <= idx < len(fl.replicas):
+                    raise ValueError(f"no replica {idx}")
+                if payload.get("undrain"):
+                    fl.undrain_replica(idx)
+                    self._send_json(200, {"replica": idx,
+                                          "state": "accepting"})
+                    return
+                moved = fl.drain_replica(idx)
+                self._send_json(200, {"replica": idx,
+                                      "state": "draining",
+                                      "migrations_requested": moved})
+            else:
+                moved = fl.rebalance(
+                    max_moves=int(payload.get("max_moves", 8)))
+                self._send_json(200, {"migrations_requested": moved})
+        except (KeyError, TypeError, ValueError) as e:
+            self._error(400, str(e), "invalid_request")
+
 
     def _build_request(self, p):
         prompt = p.get("prompt")
@@ -343,11 +461,16 @@ class ServingHTTPServer:
     """
 
     def __init__(self, gateway, host="127.0.0.1", port=8000,
-                 model_name="paddle-tpu-llama", log_fn=None):
+                 model_name="paddle-tpu-llama", log_fn=None, fleet=None):
+        if (gateway is None) == (fleet is None):
+            raise ValueError(
+                "pass exactly one of gateway (single engine) or fleet")
         self.gateway = gateway
+        self.fleet = fleet
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
         self._httpd.daemon_threads = True
         self._httpd.gateway = gateway
+        self._httpd.fleet = fleet
         self._httpd.model_name = model_name
         self._httpd.log_fn = log_fn
         self._thread = threading.Thread(
@@ -373,7 +496,8 @@ class ServingHTTPServer:
     def shutdown(self, drain=True, timeout=None):
         """Graceful stop: close the front door (new completions 503),
         drain (or cancel) in-flight work, then stop the accept loop."""
-        self.gateway.shutdown(drain=drain, timeout=timeout)
+        front = self.fleet if self.fleet is not None else self.gateway
+        front.shutdown(drain=drain, timeout=timeout)
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread.is_alive():
@@ -483,8 +607,81 @@ def serve_fleet(model, replicas=2, router="affinity", host="127.0.0.1",
                 collective_dtype="fp", host_tier_bytes=0,
                 classes=None, slo_ttft_ms=None, slo_tpot_ms=None,
                 fused_tick=False, collective_overlap=False):
-    """The reference's engine fleet behind one routed front door: not
-    ported yet (ROADMAP Queue A step 9, fleet)."""
-    raise NotImplementedError(
-        "serve_fleet is not ported to paddle_tpu_torch yet (ROADMAP Queue "
-        "A step 9 (fleet)); use serve() for one engine")
+    """Build an engine fleet → HTTP server and start listening (README
+    "Engine fleet"): ``replicas`` supervised engines — each its own
+    paged pool, prefix trie and scheduler, sharing program records per
+    pool geometry — behind one routed front door. The reference's
+    argument list, in its order; on a card the replicas share it
+    (``serving/fleet/fleet.py``).
+
+    ``router`` picks the admission policy: ``round-robin`` (the
+    baseline), ``least-loaded`` (live KV blocks + queue depth), or
+    ``affinity`` (the default: longest cached-prefix match wins within
+    ``affinity_band`` load units of the least-loaded replica, so
+    prefix-cache hits survive fan-out). ``num_slots`` /
+    ``prefill_chunk`` / ``max_seq_len`` / ``max_queue`` /
+    ``prefix_blocks`` accept a scalar or one value per replica (mixed
+    pool geometries get program records of their own;
+    ``decode_compilations()`` reads the reference's count per
+    geometry across the whole fleet).
+
+    On top of the single-engine surface, the handler grows
+    ``GET /debug/fleet`` (the per-replica operations table),
+    ``POST /fleet/drain`` and ``POST /fleet/rebalance`` (live request
+    migration), ``/healthz`` aggregates replica states, and every
+    ``/metrics`` series carries a ``replica`` label (monotonic across
+    any single replica's rebuild). A replica that dies past its
+    restart budget fails over: its live requests re-admit on siblings
+    by ``restore()`` recompute and the streams continue
+    byte-identically — zero requests lost (the fleet chaos matrix,
+    tests/test_torch_fleet.py).
+
+    ``host_tier_bytes=N`` (scalar or per-replica, default 0) gives
+    each replica a host-RAM spill tier AND turns on the fleet cache
+    plane (README "Tiered KV prefix cache"): before a routed request
+    submits, any spilled prefix chain it needs moves host-to-host
+    from the sibling tier that holds it (content-digest addressed),
+    so prefix affinity becomes a distributed prefix cache.
+    ``GET /fleet/cacheplane`` is the debug surface; ``/metrics``
+    grows ``serving_fleet_tier_transfers_total`` and
+    ``serving_fleet_tier_transfer_bytes_total``.
+
+    ``classes`` / ``slo_ttft_ms`` / ``slo_tpot_ms`` configure the
+    multi-tenant class table fleet-wide (same grammar as
+    :func:`serve`; every replica shares ONE parsed table). The
+    ``class-headroom`` router routes each request by per-replica class
+    pressure — the load that COULD NOT be displaced for it — so a
+    latency request never lands on a replica saturated with equal-or-
+    higher-rank work while a sibling has displaceable batch load;
+    ``/debug/fleet`` rows grow per-class occupancy columns.
+    """
+    from ..fleet import EngineFleet, PrefixAffinityRouter
+    from ..policy import ClassTable
+    priority_classes = None if classes is None else ClassTable.parse(
+        classes, slo_ttft_ms=slo_ttft_ms, slo_tpot_ms=slo_tpot_ms)
+    if router == "affinity":
+        router = PrefixAffinityRouter(band=affinity_band)
+    fleet = EngineFleet(
+        model, replicas=replicas, router=router, num_slots=num_slots,
+        max_seq_len=max_seq_len, decode_chunk=decode_chunk,
+        max_queue=max_queue, prefix_cache=prefix_cache,
+        prefix_blocks=prefix_blocks,
+        prefix_block_size=prefix_block_size, paged_attn=paged_attn,
+        prefill_chunk=prefill_chunk, ragged_step=ragged_step,
+        headroom_mult=headroom_mult, spec_decode=spec_decode,
+        spec_k=spec_k, drafter=drafter, decode_ticks=decode_ticks,
+        kv_dtype=kv_dtype, quantize_weights=quantize_weights,
+        quantize_activations=quantize_activations,
+        tp=tp, collective_dtype=collective_dtype,
+        host_tier_bytes=host_tier_bytes,
+        priority_classes=priority_classes,
+        fused_tick=fused_tick, collective_overlap=collective_overlap,
+        registry=registry, clock=clock,
+        watchdog_deadline_s=watchdog_deadline_s,
+        max_restarts=max_restarts, fault_hooks=fault_hooks,
+        trace=trace, trace_buffer=trace_buffer, cost=cost, start=True)
+    server = ServingHTTPServer(
+        None, host=host, port=port,
+        model_name=model_name or type(model).__name__, log_fn=log_fn,
+        fleet=fleet)
+    return server.start() if start else server

@@ -386,6 +386,37 @@ def test_capture_counts_take_back_and_replays_add():
     kernels.reset_launches()
 
 
+def test_launches_sum_the_threads_tallies():
+    """Each thread counts its own launches (an engine fleet's replicas
+    drive their engines from threads of their own); LAUNCHES sums them,
+    a capture on one thread leaves the others counting, and a reset
+    clears every tally."""
+    import threading
+    kernels.reset_launches()
+    kernels.count_launch("flash")
+    rec, inside, done = {}, threading.Event(), threading.Event()
+
+    def other():
+        inside.wait()
+        for _ in range(3):
+            kernels.count_launch("flash")
+        done.set()
+    th = threading.Thread(target=other)
+    th.start()
+    with kernels.capture_counts(rec):
+        inside.set()
+        done.wait()
+        kernels.count_launch("flash")
+    th.join()
+    assert rec["flash"] == 1
+    assert kernels.thread_launches()["flash"] == 1
+    assert kernels.thread_launches(th.ident)["flash"] == 3
+    assert kernels.LAUNCHES["flash"] == dict(kernels.LAUNCHES)["flash"] == 4
+    kernels.reset_launches()
+    assert sum(kernels.LAUNCHES.values()) == 0
+    assert kernels.thread_launches(th.ident)["flash"] == 0
+
+
 def test_eager_tail_counts_ticks(models):
     """On the CPU the engine's tail runs eagerly through its TailGraphs,
     which counts the tail ticks run: the step's ticks less its tick 0."""

@@ -201,7 +201,7 @@ class TestServingKernels:
         want = tra.ragged_attention_reference(*a)
         assert (got.float() - want.float()).abs().max().item() <= atol
 
-    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("D", [64, 128, 256])
     @pytest.mark.parametrize("G", [1, 4])
     def test_ragged_sweep(self, cuda_dev, dtype, atol, G, D):
         """Both grids: span-1 rows on the split-KV walk, chunks of 2, 63,
@@ -507,6 +507,10 @@ class TestFlashBackwardKernels:
 # both head sizes the kernels take; G = H / Hk is 1 (MHA) or 4 (GQA).
 SWEEP = [(S, D, G) for S in (1, 63, 64, 65, 300, 1024) for D in (64, 128)
          for G in (1, 4)]
+#: the forward takes head dim 256 too (the backward does not: ROADMAP
+#: Queue C 7)
+FWD_SWEEP = SWEEP + [(S, 256, G) for S in (1, 63, 64, 65, 300, 1024)
+                     for G in (1, 4)]
 
 
 def _qkvdo(S, D, G, dtype, dev, B=2, H=8):
@@ -531,7 +535,7 @@ def _within_scaled(got, want, atol, rtol):
 
 class TestTensorCoreFlash:
     @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-    @pytest.mark.parametrize("S,D,G", SWEEP)
+    @pytest.mark.parametrize("S,D,G", FWD_SWEEP)
     def test_forward_bf16_vs_plain(self, cuda_dev, S, D, G, causal):
         """O within TOL["bfloat16"], LSE within TOL["float32"]."""
         q, k, v, _ = _qkvdo(S, D, G, torch.bfloat16, cuda_dev)
@@ -936,7 +940,7 @@ class TestQuantizedKernels:
         assert (got[0] == 0).all()
         assert _tol_ok(got, want, dtype)
 
-    @pytest.mark.parametrize("G,D", [(1, 64), (4, 128)])
+    @pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (2, 256)])
     def test_ragged_quantized_vs_plain(self, cuda_dev, mode, dtype, G, D):
         """Span-1 rows on the quantized walk, chunks (from mid-block, a
         partial last tile, 500 rows) on the query type's tile: the wgmma

@@ -200,8 +200,9 @@ def test_paths_of_the_edge_spans():
 def test_limits():
     tra.check_limits(32, 32, 128)
     tra.check_limits(8, 2, 64)
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        tra.check_limits(8, 2, 256)
+    tra.check_limits(8, 2, 256)
+    with pytest.raises(NotImplementedError, match="head_dim 80"):
+        tra.check_limits(8, 2, 80)
     with pytest.raises(NotImplementedError, match="accumulator"):
         tra.check_limits(64, 2, 128)
     with pytest.raises(ValueError):

@@ -413,9 +413,23 @@ class TestCompileOnce:
         assert jeng.decode_compilations() == 1
 
 
-def test_serve_fleet_names_its_step(models):
-    with pytest.raises(NotImplementedError, match="Queue A step 9"):
-        serve_fleet(models[1], port=0)
+def test_serve_fleet_answers(models):
+    """``serve_fleet`` fronts two replicas behind the same completion
+    route; the stream equals the JAX engine's (tests/test_torch_fleet.py
+    holds the rest of the fleet)."""
+    srv = serve_fleet(models[1], port=0, replicas=2, num_slots=NUM_SLOTS,
+                      max_seq_len=S_MAX, model_name="llama-tiny-test")
+    try:
+        status, doc, _ = _post(srv, {"prompt": _prompt(31),
+                                     "max_tokens": 5})
+        assert status == 200 and doc["id"].startswith("cmpl-r")
+        got = doc["choices"][0]
+        assert (got["token_ids"], got["finish_reason"]) == _jax(
+            models, prompt=np.array(_prompt(31), np.int32),
+            max_new_tokens=5)
+        assert len(srv.fleet.replicas) == 2
+    finally:
+        srv.shutdown(drain=False, timeout=30)
 
 
 def _start_cli(module, env=None):

@@ -262,12 +262,34 @@ TRAIN_B, TRAIN_S = 4, 2048
 #: that took D in {64, 128} before it and their engines
 D256 = Heads(16, 8, 256)
 D256_KERNELS = ("flash", "ragged_attention", "fused_decode_tick")
+#: Queue C 7's head dims: every D % 8 == 0 up to 256 runs at its padded
+#: width (64, 128 or 256). Each at a geometry of its own, hidden h * d:
+#: 16 at llama_tiny's 4 over 2 heads and at 64 over 16, 40 (D % 16 == 8:
+#: 8-byte narrow rows and RoPE halves) and the two that pad to 128 (80:
+#: hidden 2560; 96: 3072) at 32 over 8
+DIMS = {"d16_tiny": Heads(4, 2, 16), "d16": Heads(64, 16, 16),
+        "d40": Heads(32, 8, 40), "d80": Heads(32, 8, 80),
+        "d96": Heads(32, 8, 96)}
+#: the serving kernels held at each of DIMS
+DIMS_KERNELS = ("paged_decode", "decode", "ragged_attention", "flash",
+                "fused_decode_tick")
+#: the backward kernels and the RoPE pre-pass at each new dim and at 256
+#: (which they refused before Queue C 7)
+BWD_DIMS = {"d16": DIMS["d16"], "d40": DIMS["d40"], "d80": DIMS["d80"],
+            "d96": DIMS["d96"], "d256": D256}
 
 
 def _heads_kw(heads):
-    """The llama_7b overrides of head geometry ``heads``."""
+    """The llama_7b overrides of head geometry ``heads`` (hidden h * d)."""
     return {"num_attention_heads": heads.h,
-            "num_key_value_heads": heads.hkv}
+            "num_key_value_heads": heads.hkv,
+            "hidden_size": heads.h * heads.d}
+
+
+def _gqa_kv(heads):
+    """KV heads of the GQA edge cases at ``heads``: 8, or 1 under fewer
+    than 16 query heads (llama_tiny's 4)."""
+    return 8 if heads.h % 8 == 0 and heads.h > 8 else 1
 
 
 REPLACES = {
@@ -484,7 +506,8 @@ def ragged_edge_cases(dtype_name, dev, gen, *, heads):
     dtype = getattr(torch, dtype_name)
     errs = {}
     cases = [(name, spans, HKV) for name, spans in RAGGED_EDGE.items()]
-    cases.append(("gqa_8_kv_heads", RAGGED_EDGE["spans_2_63_64_65"], 8))
+    g = _gqa_kv(heads)
+    cases.append((f"gqa_{g}_kv_heads", RAGGED_EDGE["spans_2_63_64_65"], g))
     for name, spans, hkv in cases:
         a = ragged_span_inputs(spans, dtype, dev, gen, hkv, heads=heads)
         got = ragged_attention.ragged_paged_attention(*a)
@@ -1046,9 +1069,10 @@ def kernel_case(name, dtype_name, dev, gen, *, heads):
                 < L.to(dev)[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q4, kd, vd, attn_mask=mask)
-        # GQA: 8 KV heads for the 32 query heads
-        qg, kg, vg, lg = dense_inputs(dtype, dev, gen, hkv=8, heads=heads)
+            q4, kd, vd, attn_mask=mask, enable_gqa=H != HKV)
+        # GQA: 8 KV heads for the 32 query heads (1 under fewer than 16)
+        qg, kg, vg, lg = dense_inputs(dtype, dev, gen, hkv=_gqa_kv(heads),
+                                      heads=heads)
         gqa_err = _compare("decode GQA", dtype_name,
                            decode.decode_attention(qg, kg, vg, lg),
                            decode.decode_attention_reference(qg, kg, vg,
@@ -1760,7 +1784,8 @@ def quant_edge_cases(mode, dtype_name, dev, gen, *, heads):
     dtype = getattr(torch, dtype_name)
     errs = {}
     cases = [(name, spans, HKV) for name, spans in RAGGED_EDGE.items()]
-    cases.append(("gqa_8_kv_heads", RAGGED_EDGE["spans_2_63_64_65"], 8))
+    g = _gqa_kv(heads)
+    cases.append((f"gqa_{g}_kv_heads", RAGGED_EDGE["spans_2_63_64_65"], g))
     for name, spans, hkv in cases:
         q, pk, pv, tbl, qs, ql, kl = ragged_span_inputs(spans, dtype, dev,
                                                         gen, hkv, heads=heads)
@@ -1819,7 +1844,7 @@ def quant_paged_edge_cases(mode, dtype_name, dev, gen, *, heads):
     dtype = getattr(torch, dtype_name)
     errs = {}
     page = split_kv.narrow_page(D)
-    for hkv in (HKV, 8):
+    for hkv in (HKV, _gqa_kv(heads)):
         sl = paged_decode.split_len(10, hkv, MB * BS,
                                     split_kv.sm_count(dev.index or 0))
         lengths = [0, 1, 31, 32, 33, page - 1, page + 1, sl - 1, sl + 1,
@@ -1882,7 +1907,9 @@ def _planted_faults(p, tied, t, got_logits, *, heads):
     return out
 
 
-def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads):
+def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads,
+                      row_counts=(SLOTS, FUSED_WIDE_ROWS), sweep=True,
+                      info=None):
     """The fused tick's five quantized variants (``FUSED_QUANT_MODES``:
     int8 weights on a pool at the model's type; int8 and fp8 pools with
     dense or int8 weights) against the plain version at llama_7b widths,
@@ -1893,8 +1920,10 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads):
     ``QUANT_SWEEP_SEEDS`` more pools and tokens at both row counts, and
     the int8 and fp8 pools' planted faults must miss the limit. Each row
     carries ``base_ms``, the tick on dense weights and a pool of the model
-    type at 8 rows in this run, and its own time over it. Returns
-    ``{mode: row}``."""
+    type at 8 rows in this run, and its own time over it. ``row_counts``
+    and ``sweep`` (the float32 pools' seed sweep and planted faults) cut
+    it down where the Queue C 7 dims run it; ``info`` joins each row.
+    Returns ``{mode: row}``."""
     H, HKV, D = heads
     import numpy as np
     import torch
@@ -1917,8 +1946,8 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads):
                "dtype": dtype_name, "layers": FUSED_LAYERS, "head_dim": D,
                "tol": (dict(zip(("atol", "rtol"), TOL[dtype_name]))
                        if kv is None or dtype_name != "float32" else
-                       {"of_max_ref": QUANT_F32_LOGITS})}
-        for rows in (SLOTS, FUSED_WIDE_ROWS):
+                       {"of_max_ref": QUANT_F32_LOGITS}), **(info or {})}
+        for rows in row_counts:
             t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, rows=rows,
                             heads=heads)
             if kv is not None:
@@ -1953,7 +1982,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads):
                         _fused_decode_tick, p, tied, run_t, heads=heads)),
                     "bytes": nbytes, "flops": flops,
                     "bound_ms": bound_ms(nbytes, flops, dtype_name)}
-            if kv is not None and dtype_name == "float32":
+            if kv is not None and dtype_name == "float32" and sweep:
                 # more pools and tokens, greedy rows: the readings behind
                 # the limit, and the near ties they flip
                 sweep, flips = [], 0
@@ -2049,6 +2078,8 @@ def phase_kernels():
                 rows[(name, dtype_name, mode)] = row
             torch.cuda.empty_cache()
         d256_cases(dtype_name, dev, gen, rows)
+        dims_cases(dtype_name, dev, gen, rows)
+        bwd_dims_cases(dtype_name, dev, gen, rows)
     reset_launches()
     # span-1 ragged rows against the paged decode kernel: decode row b with
     # length L and a span-1 row with kvlen L attend the same keys through
@@ -2116,6 +2147,148 @@ def d256_cases(dtype_name, dev, gen, rows):
     emit({"phase": "kernels", "check": "flash_d256_mha_s300",
           "dtype": dtype_name, "max_abs_err": err,
           "bitwise_repeatable": True})
+
+
+def dims_cases(dtype_name, dev, gen, rows):
+    """Queue C 7 at each of ``DIMS``: each serving kernel's row of the
+    D = 128 cases (``DIMS_KERNELS``: paged and dense decode at their edge
+    lengths, GQA and a length-0 row; ragged over the packed tick-0 buffer
+    and its edge spans; flash at S=512, 300 and the training shape; the
+    fused tick at 2 layers, 8 and 37 rows; the same bits on two
+    launches), paged decode and ragged on int8 and fp8 pools (their edge
+    lengths and spans too), and the fused tick's five quantized variants
+    at 8 rows. Rows land in ``rows`` under ``(name, dtype, tag)`` and
+    ``(name, dtype, mode, tag)``."""
+    import torch
+    for tag, heads in DIMS.items():
+        info = {"dims": tag, "head_dim": heads.d, "heads": heads.h,
+                "kv_heads": heads.hkv}
+        for name in DIMS_KERNELS:
+            case = fused_case if name == "fused_decode_tick" else kernel_case
+            row = dict(case(name, dtype_name, dev, gen, heads=heads), **info)
+            emit({"phase": "kernels", **row})
+            rows[(name, dtype_name, tag)] = row
+            torch.cuda.empty_cache()
+        for name in ("paged_decode", "ragged_attention"):
+            base = rows[(name, dtype_name, tag)]["ms"]
+            for mode in QUANT_MODES:
+                row = quant_kernel_case(name, mode, dtype_name, dev, gen,
+                                        heads=heads)
+                row.update(info, base_ms=base, x_base=row["ms"] / base)
+                emit({"phase": "kernels", **row})
+                rows[(name, dtype_name, mode, tag)] = row
+            torch.cuda.empty_cache()
+        base = rows[("fused_decode_tick", dtype_name, tag)]["ms"]
+        for mode, row in fused_quant_cases(
+                dtype_name, dev, gen, base, heads=heads, row_counts=(SLOTS,),
+                sweep=False, info=info).items():
+            rows[("fused_decode_tick", dtype_name, mode, tag)] = row
+        torch.cuda.empty_cache()
+
+
+def bwd_dims_cases(dtype_name, dev, gen, rows):
+    """Queue C 7 in training: the backward kernels and the RoPE pre-pass
+    at each of ``BWD_DIMS`` (B=2, S=2048, head-major, the geometry's KV
+    heads), without and with ``rope=``: dK/dV and dQ against their plain
+    versions (``BWD_TOL``; bf16 the same bits twice;
+    ``flash_attention_bwd``'s one pre-pass the standalone entries' bits),
+    and ``rope_qk`` bit for bit the plain rotation in the inputs' strides.
+    Times: each body on the operands (the pre-pass rotated with rope), the
+    plain version, the library pair (SDPA causal fwd+bwd less its fwd, K
+    and V repeated to the query heads, a torch rotation first with rope)
+    and the bound. Rows land in ``rows`` under ``(name, dtype, tag)``
+    (``name[rope]`` with rope, and ``rope_qk``)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash
+    from paddle_tpu_torch.models.llama import _apply_rope_bhsd
+    dtype = getattr(torch, dtype_name)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    B, S = 2, TRAIN_S
+    for tag, heads in BWD_DIMS.items():
+        H, HKV, D = heads
+        info = {"dims": tag, "head_dim": D, "heads": H, "kv_heads": HKV}
+        (q, k, v, do, o, lse), rope, fwd_err = _rope_inputs(
+            dtype_name, dev, gen, B, S, HKV, heads=heads)
+        o0, lse0 = flash.flash_attention_fwd(q, k, v, True)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        pairs = B * H * S * (S + 1) // 2
+        sin, cos = rope
+        local = {}
+        for r in (None, rope):
+            sfx = "" if r is None else "[rope]"
+            oo, ll = (o0, lse0) if r is None else (o, lse)
+            errs = _rope_bwd_errs(dtype_name, q, k, v, do, oo, ll, r,
+                                  f"flash bwd{sfx} {tag}")
+            delta = flash.attention_delta(oo, do)
+            ops = flash._bwd_operands("dims bwd", q, k, v, do, ll, delta, r)
+            rot = (lambda x: x) if r is None else (
+                lambda x: _apply_rope_bhsd(x, sin, cos))
+            lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                rot(qt), rot(kt).repeat_interleave(H // HKV, dim=1),
+                vt.repeat_interleave(H // HKV, dim=1), is_causal=True)
+            with torch.no_grad():
+                lib_f = time_ms(lib_fwd, iters=5)
+            lib_b = time_ms(lambda: torch.autograd.grad(
+                lib_fwd(), (qt, kt, vt), dot), iters=5) - lib_f
+            tables = 0 if r is None else 2 * S * D * 4
+            plan = (("flash_bwd_dkv",
+                     lambda: flash._launch_dkv(*ops, ll, delta, True),
+                     lambda: flash.flash_bwd_dkv_reference(
+                         q, k, v, do, ll, delta, True, r), 4,
+                     (2 * q.numel() + 4 * k.numel()) * isz + 8 * B * H * S),
+                    ("flash_bwd_dq",
+                     lambda: flash._launch_dq(*ops, ll, delta, True),
+                     lambda: flash.flash_bwd_dq_reference(
+                         q, k, v, do, ll, delta, True, r), 3,
+                     (3 * q.numel() + 2 * k.numel()) * isz + 8 * B * H * S))
+            for name, body, plain, products, nbytes in plan:
+                nbytes += tables
+                flops = products * 2 * pairs * D
+                row = {"name": name + sfx, "dtype": dtype_name,
+                       "layout": "bhsd", **info,
+                       "shape": {"B": B, "S": S, "H": H, "Hk": HKV, "D": D},
+                       "max_abs_err": errs[0],
+                       "max_err_over_max_ref": errs[1],
+                       "fwd_o_lse_err": fwd_err if r is not None else None,
+                       "tol": {"atol_x_max_ref": BWD_TOL[dtype_name][0],
+                               "rtol": BWD_TOL[dtype_name][1]},
+                       "bitwise_repeatable": dtype_name == "bfloat16",
+                       "ms": time_ms(body, iters=5),
+                       "plain_ms": time_ms(plain, iters=2),
+                       "library_ms": lib_b,
+                       "library": "SDPA fwd+bwd minus its fwd, K and V "
+                                  "repeated" + (", a torch rotation first"
+                                                if r is not None else ""),
+                       "bytes": nbytes, "flops": flops,
+                       "bound_ms": bound_ms(nbytes, flops, dtype_name),
+                       "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                    >= flops / PEAK_FLOPS[dtype_name]
+                                    else "operations"),
+                       "route": route(name, dtype_name)}
+                row["x_library"] = row["ms"] / row["library_ms"]
+                emit({"phase": "kernels", **row})
+                rows[(name + sfx, dtype_name, tag)] = local[name + sfx] = row
+            del ops
+            torch.cuda.empty_cache()
+
+        def pair():       # pre-pass + dK/dV + dQ, delta given
+            delta = flash.attention_delta(o, do)
+            both = flash._bwd_operands("dims bwd", q, k, v, do, lse, delta,
+                                       rope)
+            return (flash._launch_dkv(*both, lse, delta, True),
+                    flash._launch_dq(*both, lse, delta, True))
+
+        qr, kr = flash._rotated(q, k, rope)
+        row = dict(_pre_pass_row(dtype_name, q, k, rope, qr, kr, pair, local,
+                                 local["flash_bwd_dkv[rope]"]["library_ms"]),
+                   **info)
+        emit({"phase": "kernels", **row})
+        rows[(PRE_PASS, dtype_name, tag)] = row
+        del q, k, v, do, o, lse, o0, lse0, qt, kt, vt, dot, qr, kr
+        torch.cuda.empty_cache()
 
 
 def _requests(GenerationRequest, short, long_len, new, vocab, seed):
@@ -2195,8 +2368,11 @@ def phase_engine():
     _engine_wide(model, cfg)
     # the kernels line's D = 256 rows are the bf16 routes: their launches
     # come from the bf16 leg
-    _engine_d256("float32")
-    d256 = _engine_d256("bfloat16")
+    _engine_legs("float32", {"d256": D256})
+    d256 = _engine_legs("bfloat16", {"d256": D256})
+    _engine_legs("float32", {t: DIMS[t] for t in DIMS_F32_LEGS},
+                 DIMS_F32_ENGINES)
+    dims = _engine_legs("bfloat16", DIMS, light=DIMS_LIGHT)
     _engine_prefix(model, cfg)
     _engine_two_program(model, cfg, on_streams["default"])
     _engine_multitick(model, cfg)
@@ -2212,7 +2388,7 @@ def phase_engine():
         raise RuntimeError(f"capture probe exited {probe.returncode}: "
                            f"{probe.stderr[-2000:]}")
     print(lines[-1], flush=True)
-    return {**quant, **d256}
+    return {**quant, **d256, **dims}
 
 
 #: the quantized knob sets the engine phase holds, kernels against plain
@@ -2248,62 +2424,103 @@ D256_ENGINES = (("default", {}), ("fused_tick", {"fused_tick": True}),
                   for mode, (kv, w8) in FUSED_QUANT_MODES.items()))
 
 
-def _engine_d256(dtype_name):
-    """Queue C 6 on the engine: 2 layers, hidden 4096 as 16 heads of 256
-    over 8 KV heads, at ``dtype_name``. Each of ``D256_ENGINES`` builds
-    with the kernels on and launches its own kernel (and the flash
-    forward and ragged attention where its path has them) with the
-    kernels on and none with them off. In fp32 its greedy streams and
-    finish reasons equal its plain versions'; in bf16 (the tensor-core
-    routes of the kernel rows) each stream's first parting from the
-    plain run is reported. Returns the launches of each D = 256 kernel
-    row on this path, keyed ``(name, "d256")`` and ``(name, mode,
-    "d256")``."""
+#: the Queue C 7 legs held equal in float32, kernels against plain
+#: (llama_tiny's full configuration, and 80 and 96 at 2 layers), and their
+#: engines; the bf16 legs run every engine of ``D256_ENGINES`` at every
+#: tag of ``DIMS``, the quantized ones of ``DIMS_LIGHT`` on two short
+#: requests of 8 tokens (their launches for the kernels line)
+DIMS_F32_LEGS = ("d16_tiny", "d80", "d96")
+DIMS_F32_ENGINES = ("default", "fused_tick", "dense", "kv_int8")
+DIMS_LIGHT = ("kv_fp8",) + tuple("fused_" + m for m in FUSED_QUANT_MODES)
+
+
+def _engine_legs(dtype_name, legs, f32_engines=None, light=()):
+    """Head geometries on the engine at ``dtype_name``, one leg a tag of
+    ``legs`` (tag -> heads): llama_tiny at its full configuration for
+    ``d16_tiny`` (4 layers, 4 query heads of 16 over 2 KV heads,
+    vocabulary 256, 128 positions: 4 slots, short prompts), else 2 layers
+    at llama_7b's other widths, hidden h * d. Each engine of
+    ``D256_ENGINES`` (in float32 those of ``f32_engines``, every one where
+    it is None) builds with the kernels on and launches its own kernel
+    (and the flash forward and ragged attention where its path has them)
+    with the kernels on and none with them off; in float32 its greedy
+    streams and finish reasons equal its plain versions'; in bf16 (the
+    tensor-core routes of the kernel rows) each stream's first parting
+    from the plain run is reported; the engines of ``light`` run two
+    short requests of 8 tokens. Returns the launches of each kernel row
+    at these geometries, keyed ``(name, tag)`` and ``(name, mode,
+    tag)``."""
     import torch
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_7b,
+                                               llama_tiny)
     from paddle_tpu_torch.serving import GenerationRequest
-    h, hkv, d = D256
-    cfg = llama_7b(num_hidden_layers=2, num_attention_heads=h,
-                   num_key_value_heads=hkv, dtype=dtype_name)
-    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
-    reqs = _requests(GenerationRequest, (37, 130, 300), 700, 16,
-                     cfg.vocab_size, seed=3)
-    launches = {}
-    for label, knob in D256_ENGINES:
-        (s_on, f_on, eng, l_on, _), (s_off, f_off, _, l_off, _) = (
-            _eng_run(model, reqs, knob, kernels=use) for use in (True, False))
-        own = _own_kernel(knob)
-        same = s_on == s_off and f_on == f_off
-        emit({"phase": "engine", "engine": f"d256_{label}", "knobs": knob,
-              "head_dim": d, "heads": h, "kv_heads": hkv, "layers": 2,
-              "dtype": dtype_name, "greedy_streams_equal": same,
-              "first_parting": _first_parting(s_on, s_off),
-              "tokens": sum(len(x) for x in s_on), "own_kernel": own,
-              "launches_kernels": {k: v for k, v in l_on.items() if v},
-              "launches_plain": sum(l_off.values())})
-        eng.release()
-        if dtype_name == "float32" and not same:
-            raise RuntimeError(f"engine d256 {label}: kernels vs plain "
-                               f"streams differ: {s_on} vs {s_off}")
-        if any(len(x) != 16 and r != "stop" for x, r in zip(s_on, f_on)):
-            raise RuntimeError(f"engine d256 {dtype_name} {label}: streams "
-                               f"{s_on}, finish reasons {f_on}")
-        if not l_on[own] or sum(l_off.values()) or (
-                label == "default" and not l_on["flash"]) or (
-                knob.get("paged_attn", True)
-                and not l_on["ragged_attention"]):
-            raise RuntimeError(f"engine d256 {dtype_name} {label} launches:"
-                               f" kernels {l_on}, plain {l_off}")
-        launches[label] = l_on
-    del model
-    torch.cuda.empty_cache()
-    return {**{(n, "d256"): launches["fused_tick" if n == "fused_decode_tick"
-                                     else "default"][n]
-               for n in D256_KERNELS},
-            **{("ragged_attention", m, "d256"): launches["kv_" + m][
-                "ragged_attention"] for m in QUANT_MODES},
-            **{("fused_decode_tick", m, "d256"): launches["fused_" + m][
-                "fused_decode_tick"] for m in FUSED_QUANT_MODES}}
+    out = {}
+    for tag, heads in legs.items():
+        if tag == "d16_tiny":
+            cfg = llama_tiny(dtype=dtype_name)
+            shape = (5, 23, 40), 90
+            geo = {"num_slots": 4, "max_seq_len": 128}
+        else:
+            cfg = llama_7b(num_hidden_layers=2, dtype=dtype_name,
+                           **_heads_kw(heads))
+            shape = (37, 130, 300), 700
+            geo = {}
+        full = _requests(GenerationRequest, *shape, 16, cfg.vocab_size,
+                         seed=3)
+        short = _requests(GenerationRequest, shape[0][:1], shape[0][1], 8,
+                          cfg.vocab_size, seed=3)
+        model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+        launches = {}
+        for label, knob in D256_ENGINES:
+            if dtype_name == "float32" and f32_engines is not None \
+                    and label not in f32_engines:
+                continue
+            reqs, new = (short, 8) if label in light else (full, 16)
+            (s_on, f_on, eng, l_on, _), (s_off, f_off, _, l_off, _) = (
+                _eng_run(model, reqs, dict(geo, **knob), kernels=use)
+                for use in (True, False))
+            own = _own_kernel(knob)
+            same = s_on == s_off and f_on == f_off
+            emit({"phase": "engine", "engine": f"{tag}_{label}",
+                  "knobs": knob, "head_dim": heads.d,
+                  "heads": cfg.num_attention_heads,
+                  "kv_heads": cfg.num_key_value_heads,
+                  "layers": cfg.num_hidden_layers, "dtype": dtype_name,
+                  "greedy_streams_equal": same,
+                  "first_parting": _first_parting(s_on, s_off),
+                  "tokens": sum(len(x) for x in s_on), "own_kernel": own,
+                  "launches_kernels": {k: v for k, v in l_on.items() if v},
+                  "launches_plain": sum(l_off.values())})
+            eng.release()
+            if dtype_name == "float32" and not same:
+                raise RuntimeError(f"engine {tag} {label}: kernels vs plain "
+                                   f"streams differ: {s_on} vs {s_off}")
+            if any(len(x) != new and r != "stop"
+                   for x, r in zip(s_on, f_on)):
+                raise RuntimeError(f"engine {tag} {dtype_name} {label}: "
+                                   f"streams {s_on}, finish reasons {f_on}")
+            if not l_on[own] or sum(l_off.values()) or (
+                    label == "default" and not l_on["flash"]) or (
+                    knob.get("paged_attn", True)
+                    and not l_on["ragged_attention"]):
+                raise RuntimeError(f"engine {tag} {dtype_name} {label} "
+                                   f"launches: kernels {l_on}, plain "
+                                   f"{l_off}")
+            launches[label] = l_on
+        del model
+        torch.cuda.empty_cache()
+        if set(launches) != {label for label, _ in D256_ENGINES}:
+            continue
+        out.update({(n, tag): launches[
+            "fused_tick" if n == "fused_decode_tick" else
+            "dense" if n == "decode" else "default"][n]
+            for n in DIMS_KERNELS})
+        out.update({(n, m, tag): launches["kv_" + m][n]
+                    for n in ("paged_decode", "ragged_attention")
+                    for m in QUANT_MODES})
+        out.update({("fused_decode_tick", m, tag): launches["fused_" + m][
+            "fused_decode_tick"] for m in FUSED_QUANT_MODES})
+    return out
 
 
 def _matched_prefix(a, b):
@@ -4305,6 +4522,8 @@ def phase_server(model):
     _rebuild_memory(model)
     _server_faults()
     _server_cli()
+    _server_tiny()
+    _server_cli("tiny")
     return launches
 
 
@@ -4434,8 +4653,49 @@ def _server_faults():
         raise RuntimeError(f"fault leg failed: {line}")
 
 
-def _server_cli():
-    """``python -m paddle_tpu_torch.serving.server --preset 350m
+def _server_tiny():
+    """Queue C 7 at the front door: ``serve(model, port=0)`` on llama_tiny
+    (head dim 16) with ``decode_attention="pallas"`` answers a completion
+    through the kernels (the flash forward and ragged attention launched),
+    its tokens a direct engine run's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    from paddle_tpu_torch.serving.server import serve
+    model = LlamaForCausalLM(llama_tiny(decode_attention="pallas"),
+                             device="cuda", seed=0)
+    prompt = list(range(1, 40))
+    want = ContinuousBatchingEngine(model, num_slots=8, decode_chunk=1) \
+        .generate([GenerationRequest(prompt=np.asarray(prompt, np.int32),
+                                     max_new_tokens=16)])[0].tolist()
+    srv = serve(model, port=0)
+    try:
+        reset_launches()
+        doc = json.loads(_http(srv.url + "/v1/completions",
+                               {"prompt": prompt, "max_tokens": 16}))
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in LAUNCHES.items() if c}
+    finally:
+        srv.shutdown(drain=False, timeout=120)
+    toks = doc["choices"][0]["token_ids"]
+    line = {"phase": "server", "check": "tiny_pallas", "head_dim": 16,
+            "tokens": len(toks), "equal_direct": toks == want,
+            "launches": launches}
+    emit(line)
+    if toks != want or not launches.get("flash") \
+            or not launches.get("ragged_attention"):
+        raise RuntimeError(f"tiny gateway leg failed: {line}, direct "
+                           f"{want}")
+    del model, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _server_cli(preset="350m"):
+    """``python -m paddle_tpu_torch.serving.server --preset <preset>
     --decode-attention pallas --port 0 --quiet`` as a subprocess: read the
     banner, POST one completion, SIGTERM, expect a drain and exit 0."""
     import os
@@ -4443,7 +4703,7 @@ def _server_cli():
     import signal
     proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch.serving.server",
-         "--preset", "350m", "--decode-attention", "pallas", "--port", "0",
+         "--preset", preset, "--decode-attention", "pallas", "--port", "0",
          "--quiet"], cwd=str(ROOT), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=dict(os.environ))
     try:
@@ -4632,22 +4892,44 @@ def _flash_launches(layers, micro, knobs):
             **({PRE_PASS: (fwd + 1) * layers * micro} if rope else {})}
 
 
+#: train_parity's Queue C 7 legs (tag of BWD_DIMS, dtype, knobs): the
+#: backward at D = 256 (16 heads over 8 KV heads at the 7B hidden width)
+#: and 80 in the three layouts and both types, and at 16, 40 and 96 in
+#: the bshd and the fused-RoPE head-major layouts in float32
+PARITY_DIMS_LEGS = tuple(
+    (tag, dtype_name, knobs) for tag in ("d256", "d80")
+    for dtype_name, knobs in PARITY_LEGS[:6]) + tuple(
+    (tag, "float32", knobs) for tag in ("d16", "d40", "d96")
+    for knobs in ({}, {"attention_layout": "bhsd", "fuse_rope": True}))
+
+
 def phase_train_parity():
     """2 layers at llama_7b widths, B=1, S=500 (a tail past the 64-row
     tiles): kernels against plain versions through the model, in fp32
     (the CUDA-core kernels) and in bf16 (the tensor-core forward, dK/dV
     and dQ), in the bshd and head-major layouts, with RoPE fused into the
-    kernels, and under ``recompute_policy="dots"``."""
+    kernels, and under ``recompute_policy="dots"``; then the Queue C 7
+    legs (``PARITY_DIMS_LEGS``). Returns each Queue C 7 dim's backward and
+    pre-pass launches over its legs, keyed ``(name, tag)``."""
     for dtype_name, knobs in PARITY_LEGS:
         _train_parity(dtype_name, knobs)
+    out = {}
+    for tag, dtype_name, knobs in PARITY_DIMS_LEGS:
+        got = _train_parity(dtype_name, knobs, heads=BWD_DIMS[tag])
+        for name, n in got.items():
+            out[(name, tag)] = out.get((name, tag), 0) + n
+    return out
 
 
-def _train_parity(dtype_name, knobs):
+def _train_parity(dtype_name, knobs, heads=None):
+    """One leg: kernels against plain versions (``heads``: the geometry of
+    a Queue C 7 leg, hidden h * d); returns the kernels' launches."""
     import torch
     from paddle_tpu_torch.flags import set_flags
     from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
-    cfg = llama_7b(num_hidden_layers=2, dtype=dtype_name, **knobs)
+    cfg = llama_7b(num_hidden_layers=2, dtype=dtype_name, **knobs,
+                   **(_heads_kw(heads) if heads else {}))
     model = LlamaForCausalLM(cfg, device="cuda", seed=2)
     ids = _train_ids(cfg.vocab_size, 1, 500, seed=4)
     runs = {}
@@ -4671,7 +4953,10 @@ def _train_parity(dtype_name, knobs):
     want = _flash_launches(2, 1, knobs)
     launched = {n: c for n, c in nk.items() if c}
     emit({"phase": "train_parity", "layers": 2, "dtype": dtype_name,
-          "knobs": knobs, "B": 1, "S": 500, "loss_kernels": lk,
+          "knobs": knobs, "head_dim": cfg.head_dim,
+          "heads": cfg.num_attention_heads,
+          "kv_heads": cfg.num_key_value_heads, "B": 1, "S": 500,
+          "loss_kernels": lk,
           "loss_plain": lp, "loss_rel_err": abs(lk - lp) / abs(lp),
           "grad_err_over_max": errs,
           "tol": {"loss_rtol": loss_rtol,
@@ -4691,6 +4976,7 @@ def _train_parity(dtype_name, knobs):
         raise RuntimeError(f"train parity {knobs} launches: kernels {nk}, "
                            f"expected {want}, plain {npl}")
     del model, runs, gk, gp
+    return launched
 
 
 #: the 15-layer train runs (label, LlamaConfig knobs); each checks the
@@ -4698,6 +4984,11 @@ def _train_parity(dtype_name, knobs):
 TRAIN_RUNS = (("bshd", {}), ("bhsd", {"attention_layout": "bhsd"}),
               ("bhsd_fuse_rope", {"attention_layout": "bhsd",
                                   "fuse_rope": True}))
+#: Queue C 7's training run: bhsd with fused RoPE at head dim 256 (16
+#: heads over 8 KV heads at the 7B hidden width), beside the D = 128 run
+#: above in the same call
+TRAIN_D256 = ("bhsd_fuse_rope_d256", {"attention_layout": "bhsd",
+                                      "fuse_rope": True})
 #: recompute_policy="dots" keeps the seven projections a layer (q, k, v,
 #: o at 64 MiB each, gate and up at 172 MiB, down at 64 MiB at B=4,
 #: S=2048: ~0.66 GiB) where full recompute keeps the layer's input; but
@@ -4736,15 +5027,17 @@ def _free():
     torch.cuda.reset_peak_memory_stats()
 
 
-def _train_run(label, layers, knobs, profile=False):
+def _train_run(label, layers, knobs, profile=False, heads=None):
     """One training run: ``layers`` layers of llama_7b in bf16, B=4,
-    S=2048, with ``knobs``: a warm-up step, three timed steps and one
-    ``accum_step(accum=2)``, the launches of the counted window checked
-    against what the code implies. Returns the window's launches."""
+    S=2048, with ``knobs`` (and head geometry ``heads``): a warm-up step,
+    three timed steps and one ``accum_step(accum=2)``, the launches of the
+    counted window checked against what the code implies. Returns the
+    window's launches."""
     import torch
     from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
     from paddle_tpu_torch.models.llama import llama_7b
-    cfg = llama_7b(num_hidden_layers=layers, dtype="bfloat16", **knobs)
+    cfg = llama_7b(num_hidden_layers=layers, dtype="bfloat16", **knobs,
+                   **(_heads_kw(heads) if heads else {}))
     model, trainer = _trainer(cfg)
     B, S = TRAIN_B, TRAIN_S
     ids = _train_ids(cfg.vocab_size, B, S, seed=0)
@@ -4772,6 +5065,8 @@ def _train_run(label, layers, knobs, profile=False):
     want = _flash_launches(layers, 3 + 2, knobs)   # microbatches counted
     got = {n: c for n, c in launches.items() if c}
     emit({"phase": "train", "run": label, "knobs": knobs, "layers": layers,
+          "head_dim": cfg.head_dim, "heads": cfg.num_attention_heads,
+          "kv_heads": cfg.num_key_value_heads,
           "dtype": "bfloat16", "B": B, "S": S, "params": model.num_params(),
           "warmup_loss": warm, "warmup_s": warm_s, "losses": losses,
           "accum2_loss": accum_loss, "step_ms": [1e3 * t for t in step_s],
@@ -4874,7 +5169,8 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
     path, counted from 0); ``dots`` at the deepest depth that fits; then
     bench.py's two head-major configs at its 350M shape. Returns the
     launches of each kernel's own run (the rope kernels' and the
-    pre-pass's from the fused RoPE run)."""
+    pre-pass's from the fused RoPE run); the D = 256 run's, keyed
+    ``(name, "d256")``."""
     launches = {}
     for label, knobs in TRAIN_RUNS:
         got = _train_run(label, layers, knobs, profile and label == "bshd")
@@ -4882,6 +5178,9 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
             launches.update({n: got[n] for n in ("flash",) + BWD})
         if knobs.get("fuse_rope"):
             launches.update({n: got[n] for n in (*ROPE, PRE_PASS)})
+    label, knobs = TRAIN_D256
+    got = _train_run(label, layers, knobs, heads=D256)
+    launches.update({(n, "d256"): c for n, c in got.items() if c})
     _train_dots()
     _train_bench()
     return launches
@@ -4919,34 +5218,43 @@ def main(argv=None):
         _capture_probe()
         return 0
     phases = set(args.phases.split(","))
+    seconds = {}                  # wall seconds of each phase, for reports
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
     smi = phase_device()
-    phase_build()
-    rows = phase_kernels() if "kernels" in phases else {}
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
     launches = {}
     if "engine" in phases:
-        launches.update(phase_engine())
+        launches.update(timed("engine", phase_engine))
     if "fleet" in phases:
-        phase_fleet_fp32()
+        timed("fleet_fp32", phase_fleet_fp32)
     if phases & {"serve", "generate", "server", "fleet"}:
         # one llama_7b (32 layers, bf16, seed 0) for the three phases
         from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
         model = LlamaForCausalLM(llama_7b(dtype="bfloat16"), device="cuda",
                                  seed=0)
         if "serve" in phases:
-            launches.update(phase_serve(model, args.profile))
+            launches.update(timed("serve", phase_serve, model, args.profile))
         if "generate" in phases:
-            phase_generate(model)
+            timed("generate", phase_generate, model)
         if "server" in phases:
-            phase_server(model)
+            timed("server", phase_server, model)
         if "fleet" in phases:
-            _fleet_serve(model)
+            timed("fleet", _fleet_serve, model)
         del model
     gc.collect()
     torch.cuda.empty_cache()      # the serve model is gone before training
-    if "train_parity" in phases:
-        phase_train_parity()
-    train = (phase_train(args.profile, args.train_layers)
+    parity = (timed("train_parity", phase_train_parity)
+              if "train_parity" in phases else {})
+    train = (timed("train", phase_train, args.profile, args.train_layers)
              if "train" in phases else {})
+    emit({"phase": "timing", "seconds": seconds})
     kernels = []
     for name in REPLACES:
         row = rows.get((name, "bfloat16"), {})
@@ -5001,6 +5309,35 @@ def main(argv=None):
                                            "library_ms", "base_ms",
                                            "device_ms")},
                 "math": route(name, "bfloat16")})
+    # Queue C 7: the serving kernels at each of DIMS (launches on the
+    # engine phase's bf16 legs at those dims), the backward kernels and
+    # the pre-pass at each of BWD_DIMS (launches on the train phase's
+    # D = 256 run where it has them, else on the parity legs)
+    bwd_path = {**parity, **{k: c for k, c in train.items()
+                             if isinstance(k, tuple)}}
+    dim_rows = [(name, mode, tag, heads, launches)
+                for tag, heads in DIMS.items() for name in DIMS_KERNELS
+                for mode in (None,) + (
+                    tuple(FUSED_QUANT_MODES) if name == "fused_decode_tick"
+                    else QUANT_MODES if name in QUANT_KERNELS else ())]
+    dim_rows += [(name, None, tag, heads, bwd_path)
+                 for tag, heads in BWD_DIMS.items()
+                 for name in BWD + ("flash_bwd_dkv[rope]",
+                                    "flash_bwd_dq[rope]", PRE_PASS)]
+    for name, mode, tag, heads, path in dim_rows:
+        m = (mode,) if mode else ()
+        row = rows.get((name, "bfloat16") + m + (tag,), {})
+        kernels.append({
+            "name": f"{name}{':' + mode if mode else ''}@{tag}",
+            "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "head_dim": heads.d,
+            **({"mode": mode} if mode else {}),
+            "launches": path.get((name,) + m + (tag,), 0),
+            **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms", "base_ms",
+                                       "device_ms")},
+            "math": route(name, "bfloat16")})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

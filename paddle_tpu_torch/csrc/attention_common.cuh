@@ -16,8 +16,9 @@
 //             accumulator, kept in registers.
 // K and V tiles are staged in shared memory as float32 (K rows padded to
 // D+1 floats so the 32 lanes of a score read hit 32 banks), loaded with
-// 16-byte vector loads from per-key row offsets the caller computes (a
-// block table for the paged pools, plain strides for flash).
+// 16-byte vector loads (8 bytes of a quantized pool) from per-key row
+// offsets the caller computes (a block table for the paged pools, plain
+// strides for flash).
 //
 // Numerics follow the Pallas kernels: fp32 scores and accumulators, masked
 // scores at -1e30, probabilities zeroed off the mask, V rows past the valid
@@ -43,7 +44,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pt {
+
+// Head dims: every kernel takes D % 8 == 0, 8 <= D <= 256, and runs at
+// the padded width Dp (64, 128 or 256, the next one up): its shared tiles,
+// accumulators and products are Dp wide, the columns past D zero (copies
+// zero-fill them, never reading past a row), 1/sqrt(D) scales the scores
+// and only D columns are written. Zero columns add exact zeros to every
+// dot product, so a padded row's sums are those of its D columns.
+inline bool head_dim_ok(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
+inline int padded_dim(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+// f(std::integral_constant<int, Dp>) for head dim d, or
+// cudaErrorInvalidValue for a dim no kernel takes
+template <typename F>
+cudaError_t with_head_dim(int d, F f) {
+  if (!head_dim_ok(d)) return cudaErrorInvalidValue;
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if (d <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 256>{});
+}
 
 // The scale planes of a pool: QM 0 none, 1 per row and KV head (int8),
 // 2 per block and KV head (fp8); off(p) is key p's index in ks and vs.
@@ -155,18 +176,6 @@ __device__ __forceinline__ void load16_narrow(const Q* p, float* o) {
   load8_narrow(p + 8, o + 8);
 }
 
-// 16 bytes of any pool type -> 16 / sizeof(KT) floats
-__device__ __forceinline__ void load16_any(const float* p, float* o) { load16(p, o); }
-__device__ __forceinline__ void load16_any(const __nv_bfloat16* p, float* o) {
-  load16(p, o);
-}
-__device__ __forceinline__ void load16_any(const int8_t* p, float* o) {
-  load16_narrow(p, o);
-}
-__device__ __forceinline__ void load16_any(const __nv_fp8_e4m3* p, float* o) {
-  load16_narrow(p, o);
-}
-
 // the same through L2 only (__ldcg): for data another block of the same
 // launch may have written (the fused decode tick's query buffer), which the
 // SM's L1 may hold from an earlier read
@@ -221,7 +230,8 @@ struct TileShape {
 // k (and v). Keys p >= kv_valid are never read: their K/V tile rows are
 // zero and their scores masked. The walk visits keys [0, kv_stop). A
 // quantized pool (KT narrow) passes its planes in sc, key p's scales at
-// sc.off(p).
+// sc.off(p). D is the padded width: the rows hold hd columns (zeros past
+// them in shared memory), and only those are written.
 // On return s_m[i] / s_l[i] hold each row's running max and sum (for LSE).
 template <typename T, int D, int TQ, typename KeyOff, typename RowPos,
           typename KT = T, int QM = 0, typename ScaleOff = NoOff>
@@ -229,10 +239,12 @@ __device__ __forceinline__ void attend_tile(
     const T* __restrict__ q, const KT* __restrict__ k,
     const KT* __restrict__ v, T* __restrict__ out, float* smem,
     long long* s_qoff, RowPos row_pos, int kv_stop, int kv_valid,
-    KeyOff key_off, float scale,
+    KeyOff key_off, int hd, float scale,
     Scales<QM, ScaleOff> sc = Scales<QM, ScaleOff>{}) {
   using S = TileShape<T, D, TQ>;
-  constexpr int KVV = 16 / sizeof(KT);   // pool elements a 16-byte load
+  // pool elements a load: 16 bytes of float32 or bf16, 8 of a narrow pool
+  // (a row of hd bytes is 8-byte aligned)
+  constexpr int KVV = sizeof(KT) == 1 ? 8 : 16 / sizeof(KT);
   float* sQ = smem;
   float* sK = sQ + TQ * D;
   float* sV = sK + kKeys * S::KP;
@@ -254,7 +266,7 @@ __device__ __forceinline__ void attend_tile(
     const int d = (e % (D / S::VEC)) * S::VEC;
     float buf[S::VEC];
     const long long off = s_qoff[i];
-    if (off >= 0) {
+    if (off >= 0 && d < hd) {
       load16_cg(q + off + d, buf);
     } else {
 #pragma unroll
@@ -295,9 +307,9 @@ __device__ __forceinline__ void attend_tile(
       const int d = (e % (D / KVV)) * KVV;
       float bk[KVV], bv[KVV];
       const long long off = s_koff[j];
-      if (off >= 0) {
-        load16_any(k + off + d, bk);
-        load16_any(v + off + d, bv);
+      if (off >= 0 && d < hd) {
+        load_chunk(k + off + d, bk);
+        load_chunk(v + off + d, bv);
       } else {
 #pragma unroll
         for (int x = 0; x < KVV; ++x) { bk[x] = 0.f; bv[x] = 0.f; }
@@ -368,7 +380,8 @@ __device__ __forceinline__ void attend_tile(
       const int i = e / D;
       const int d = e % D;
       const long long off = s_qoff[i];
-      if (off >= 0) out[off + d] = from_f<T>(acc[a] / fmaxf(s_l[i], 1e-30f));
+      if (off >= 0 && d < hd)
+        out[off + d] = from_f<T>(acc[a] / fmaxf(s_l[i], 1e-30f));
     }
   }
 }

@@ -19,35 +19,38 @@
 // paged walk over B blocks of S_max rows with the table arange(B): key p of
 // row b sits at ((b * S_max + p) * Hkv + kvh) * D, with no table to read.
 // Nothing past lengths[b] is fetched (stale rows may hold NaN). One launch
-// per call.
+// per call. Any head dim D % 8 == 0 up to 256 runs at its padded width
+// (64, 128 or 256; attention_common.cuh).
 #include "split_kv.cuh"
 
 namespace pt {
 namespace dd {
 
-template <typename T, int D>
+// kPad: hd < D; without it hd is D and the walk's column checks fold away
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(skv::kNT)
 dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                     const T* __restrict__ v_cache,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part_m, float* __restrict__ part_l,
                     float* __restrict__ part_acc, int* __restrict__ tickets,
-                    int H, int Hkv, int s_max, int split_len, int n_split,
-                    float scale) {
+                    int H, int Hkv, int hd, int s_max, int split_len,
+                    int n_split, float scale) {
+  if constexpr (!kPad) hd = D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / Hkv;
-  const long long qo = (static_cast<long long>(b) * H + kvh * G) * D;
+  const long long qo = (static_cast<long long>(b) * H + kvh * G) * hd;
   const int len = min(max(lengths[b], 0), s_max);
   const long long row0 = static_cast<long long>(b) * s_max;
   auto key_off = [&](int p) -> long long {
-    return ((row0 + p) * Hkv + kvh) * D;
+    return ((row0 + p) * Hkv + kvh) * hd;
   };
   skv::split_kv_walk<T, D>(q, k_cache, v_cache, out, part_m, part_l,
                            part_acc, tickets, smem_raw, qo, len, key_off,
-                           NoScales{}, G, b, kvh, Hkv, blockIdx.x, split_len,
-                           n_split, scale);
+                           NoScales{}, G, hd, b, kvh, Hkv, blockIdx.x,
+                           split_len, n_split, scale);
 }
 
 template <typename T>
@@ -61,28 +64,27 @@ cudaError_t dispatch_d(int D, const void* q, const void* kc, const void* vc,
   const T* kt = static_cast<const T*>(kc);
   const T* vt = static_cast<const T*>(vc);
   T* ot = static_cast<T*>(out);
-#define PT_DENSE(DD)                                                         \
-  case DD:                                                                   \
-    return skv::launch_walk<T, DD>(dense_decode_kernel<T, DD>, H / Hkv,      \
-                                   n_split, Hkv, B, s, qt, kt, vt, lengths,  \
-                                   ot, pm, pl, pa, tickets, H, Hkv, s_max,   \
+  return with_head_dim(D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    // the unpadded instantiation for a bf16 query at D == DP (float32
+    // keeps the padded one: a shorter build, off the bf16 serving path)
+    auto kernel = dense_decode_kernel<T, DP, true>;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      if (D == DP) kernel = dense_decode_kernel<T, DP, false>;
+    return skv::launch_walk<T, DP>(kernel, H / Hkv,
+                                   n_split, Hkv, B, s, qt, kt, vt, lengths,
+                                   ot, pm, pl, pa, tickets, H, Hkv, D, s_max,
                                    split_len, n_split, scale);
-  switch (D) {
-    PT_DENSE(64)
-    PT_DENSE(128)
-    PT_DENSE(256)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PT_DENSE
+  });
 }
 
 }  // namespace dd
 }  // namespace pt
 
 // q [B,H,D]; k_cache/v_cache [B,S_max,Hkv,D]; lengths [B] int32;
-// out [B,H,D]. Scratch: part_m/part_l [B,Hkv,n_split,G] and part_acc
-// [B,Hkv,n_split,G,D] float32; tickets [>= B*Hkv] int32, zero before the
+// out [B,H,D]; D % 8 == 0, 8 <= D <= 256. Scratch: part_m/part_l
+// [B,Hkv,n_split,G] and part_acc [B,Hkv,n_split,G,Dp] float32 (Dp: D's
+// padded width); tickets [>= B*Hkv] int32, zero before the
 // launch and left zero by it. split_len: keys a split (a multiple of 32);
 // n_split * split_len >= S_max. is_bf16: 0 = float32, 1 = bfloat16.
 extern "C" int pt_decode(const void* q, const void* k_cache,

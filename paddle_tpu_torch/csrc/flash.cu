@@ -32,7 +32,10 @@
 //   of the attention kernels (attention_common.cuh), one block per (batch*head, 64-row query tile),
 //   32-key K/V tiles, fp32 FMAs. The fp32 parity runs depend on it.
 //
-// Both: GQA indexes the KV head as h / (H / Hk) (K and V never repeated);
+// Both: any head dim D % 8 == 0 up to 256 runs at its padded width (64,
+// 128 or 256; attention_common.cuh: tiles zero past D, D columns written,
+// 1/sqrt(D) of the true D); GQA indexes the KV head as h / (H / Hk) (K
+// and V never repeated);
 // scores are scaled in fp32 after the product (pallas_flash.py:95-96);
 // LSE = m + log(max(l, 1e-30)). Q and O are read and written through one
 // set of element strides (batch, sequence, head; D contiguous), K and V
@@ -61,7 +64,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, RowStrides qs, RowStrides ks,
-                 int S, int H, int Hk, int causal, float scale) {
+                 int S, int H, int Hk, int hd, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
   using Sh = TileShape<T, D, kFlashTQ>;
   const int s0 = blockIdx.x * kFlashTQ;
@@ -80,7 +83,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto row_pos = [&](int i) { return causal ? s0 + i : S - 1; };
   __syncthreads();
   attend_tile<T, D, kFlashTQ>(q, k, v, out, smem, s_qoff, row_pos, kv_stop, S,
-                              key_off, scale);
+                              key_off, hd, scale);
   if (lse != nullptr && threadIdx.x < rows) {
     // attend_tile leaves each row's running max and sum in shared memory
     const float* s_l = smem + kFlashTQ * D + kKeys * Sh::KP + kKeys * D +
@@ -92,10 +95,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+inline float scale_of(int hd) {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, RowStrides qs, RowStrides ks, int B, int S,
-                   int H, int Hk, int causal, cudaStream_t stream) {
+                   int H, int Hk, int hd, int causal, cudaStream_t stream) {
   using Sh = TileShape<T, D, kFlashTQ>;
   auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t err = allow_smem(kernel, Sh::SMEM_BYTES);
@@ -104,7 +111,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, Sh::SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, qs, ks, S, H, Hk,
-      causal, static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
+      hd, causal, scale_of(hd));
   return cudaGetLastError();
 }
 
@@ -127,12 +134,15 @@ constexpr int blocks_per_sm() {
   return D == 256 ? 1 : 2;
 }
 
-template <int D>
+// kPad: hd < D; without it hd is D, and the tiles' column checks fold
+// away (the unpadded kernel's code)
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kNT, blocks_per_sm<D>())
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, RowStrides qs, RowStrides ks,
-                       int S, int H, int Hk, int causal, float scale) {
+                       int S, int H, int Hk, int hd, int causal, float scale) {
+  if constexpr (!kPad) hd = D;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(
       smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023));
@@ -162,9 +172,9 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int w0 = s0 + warp * 16;
   const int row[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
 
-  tc::load_tile<kBM, D, kNT>(sQ, qb, q_row, S - s0);
-  tc::load_tile<kBN, D, kNT>(sK, kb, kv_row, S);
-  tc::load_tile<kBN, D, kNT>(sV, vb, kv_row, S);
+  tc::load_tile<kBM, D, kNT>(sQ, qb, q_row, S - s0, hd);
+  tc::load_tile<kBN, D, kNT>(sK, kb, kv_row, S, hd);
+  tc::load_tile<kBN, D, kNT>(sV, vb, kv_row, S, hd);
   tc::cp_async_commit();
 
   float o[NO][4];
@@ -181,9 +191,9 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (j + 1 < n_kt) {
       const int k1 = k0 + kBN;
       tc::load_tile<kBN, D, kNT>(sK + (st ^ 1) * kBN * D,
-                                       kb + k1 * kv_row, kv_row, S - k1);
+                                 kb + k1 * kv_row, kv_row, S - k1, hd);
       tc::load_tile<kBN, D, kNT>(sV + (st ^ 1) * kBN * D,
-                                       vb + k1 * kv_row, kv_row, S - k1);
+                                 vb + k1 * kv_row, kv_row, S - k1, hd);
       tc::cp_async_commit();
       tc::cp_async_wait<1>();
     } else {
@@ -273,6 +283,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* orow = out + qs.at(b, row[r], h);
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
+      if (n * 8 >= hd) break;
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
           tc::pack_bf16(o[n][2 * r] / lr, o[n][2 * r + 1] / lr);
     }
@@ -284,39 +295,40 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, RowStrides qs, RowStrides ks, int B, int S,
-                   int H, int Hk, int causal, cudaStream_t stream) {
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+                   int H, int Hk, int hd, int causal, cudaStream_t stream) {
+  auto kernel = hd == D ? flash_fwd_wgmma_kernel<D, false>
+                        : flash_fwd_wgmma_kernel<D, true>;
   cudaError_t err = tc::use_smem(kernel, smem_bytes<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (S + kBM - 1) / kBM);
   kernel<<<grid, kNT, smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, qs, ks, S,
-      H, Hk, causal,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
+      H, Hk, hd, causal, scale_of(hd));
   return cudaGetLastError();
 }
 
 }  // namespace tcf
 
-// The kernel for head dim D: bf16 on wgmma, float32 on the CUDA cores.
+// The kernel at padded width D of head dim hd: bf16 on wgmma, float32 on
+// the CUDA cores.
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, RowStrides qs, RowStrides ks,
-                       int B, int S, int H, int Hk, int causal, int is_bf16,
-                       cudaStream_t stream) {
+                       int B, int S, int H, int Hk, int hd, int causal,
+                       int is_bf16, cudaStream_t stream) {
   return is_bf16 ? tcf::launch<D>(q, k, v, out, lse, qs, ks, B, S, H, Hk,
-                                  causal, stream)
+                                  hd, causal, stream)
                  : launch<float, D>(q, k, v, out, lse, qs, ks, B, S, H, Hk,
-                                    causal, stream);
+                                    hd, causal, stream);
 }
 
 }  // namespace pt
 
 // q/out [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v [B,S,Hk,D]
 // through (k_sb, k_ss, k_sh), D contiguous; lse [B,H,S] float32 or null.
-// D: 64, 128 or 256. is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16
-// (tensor cores).
+// D % 8 == 0, 8 <= D <= 256. is_bf16: 0 = float32 (CUDA cores), 1 =
+// bfloat16 (tensor cores).
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int H,
                             int Hk, int D, long long q_sb, long long q_ss,
@@ -328,20 +340,8 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
-  switch (D) {
-    case 64:
-      return static_cast<int>(pt::launch_fwd<64>(q, k, v, out, l, qs, ks, B,
-                                                 S, H, Hk, causal, is_bf16,
-                                                 s));
-    case 128:
-      return static_cast<int>(pt::launch_fwd<128>(q, k, v, out, l, qs, ks, B,
-                                                  S, H, Hk, causal, is_bf16,
-                                                  s));
-    case 256:
-      return static_cast<int>(pt::launch_fwd<256>(q, k, v, out, l, qs, ks, B,
-                                                  S, H, Hk, causal, is_bf16,
-                                                  s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(pt::with_head_dim(D, [&](auto dp) {
+    return pt::launch_fwd<decltype(dp)::value>(q, k, v, out, l, qs, ks, B, S,
+                                               H, Hk, D, causal, is_bf16, s);
+  }));
 }

@@ -63,7 +63,22 @@
 // flash_bwd_dq_kernel): 256 threads, each a 4x4 patch of the 64x64 S and
 // dP tiles (16 shared loads feed 32 FMAs) and a 4 x D/16 patch of its
 // [64, D] accumulators; shared rows padded by one float so the strided
-// reads of a warp fall in distinct banks. Same block layout as above.
+// reads of a warp fall in distinct banks. Same block layout as above. At
+// D = 256 the tiles are 32 rows (2 x 2 patches): four [64, 257] float
+// tiles would not fit a block's shared memory.
+//
+// Head dims: any D % 8 == 0 up to 256 runs at its padded width Dp (64,
+// 128 or 256), each row's two halves of D/2 columns at columns 0 and Dp/2
+// of the tiles and zeros after each (tc::half_col), so the RoPE partner of
+// a column is Dp/2 further whatever D, as the adjoints below read it;
+// zero columns add nothing to the products, 1/sqrt(D) scales the scores,
+// and only the D real columns are written. The halves of a D % 16 == 8
+// row end mid-chunk, so the bf16 tiles take them by 8-byte copies.
+// At Dp = 256 in bf16 a thread's dK and dV accumulators (128 floats each)
+// would not fit its registers beside the products', so dK and dV are
+// computed by separate blocks (grid z = 2: the dV blocks need no dP^T),
+// and dQ takes each 64-key tile in two passes of 32 keys (S and dP at 32
+// floats a thread each, beside its 128 dQ accumulators).
 //
 // Layouts: Q, dO and dQ are addressed through one set of element strides
 // (batch, sequence, head; D contiguous), K, V, dK and dV through another,
@@ -90,36 +105,42 @@ namespace pt {
 namespace bwd {
 
 constexpr int kT = 256;    // threads per block
-constexpr int kTile = 64;  // query rows and keys per tile
 constexpr int kSub = 16;   // thread grid is 16 x 16; patches are strided by 16
-constexpr int kR = kTile / kSub;  // rows (and key columns) of a 4x4 patch
 
 template <int D>
 struct Shape {
+  // query rows and keys per tile: 64 (4 x 4 patches), 32 at D = 256
+  static constexpr int TILE = D > 128 ? 32 : 64;
+  static constexpr int R = TILE / kSub;  // rows (and key columns) of a patch
   static constexpr int DP = D + 1;       // padded D row
-  static constexpr int TP = kTile + 1;   // padded P / dS row
+  static constexpr int TP = TILE + 1;    // padded P / dS row
   static constexpr int NC = D / kSub;    // accumulator columns per thread
   // floats: A, B (the resident pair) and C, E (the streamed pair), each
-  // [kTile][DP]; P and dS [kTile][TP]; lse and delta [kTile]
-  static constexpr int FLOATS = 4 * kTile * DP + 2 * kTile * TP + 2 * kTile;
+  // [TILE][DP]; P and dS [TILE][TP]; lse and delta [TILE]
+  static constexpr int FLOATS = 4 * TILE * DP + 2 * TILE * TP + 2 * TILE;
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
 
-// Rows r0 .. r0+kTile of head h of batch b (element strides st) into dst
-// [kTile][DP] as floats; rows at or past S become zeros.
+// Rows r0 .. r0+TILE of head h of batch b (element strides st), hd
+// columns each, into dst [TILE][DP] as floats in the halves layout
+// (tc::half_col); rows at or past S and the zero columns become zeros.
 template <typename T, int D>
 __device__ __forceinline__ void load_rows(const T* __restrict__ src,
                                           float* dst, RowStrides st, int b,
-                                          int r0, int S, int h) {
+                                          int r0, int S, int h, int hd) {
+  using Sh = Shape<D>;
   constexpr int VEC = 16 / sizeof(T);
+  static_assert(VEC == 4, "a half of hd / 2 (a multiple of 4) columns is "
+                          "whole 16-byte chunks of float32");
   constexpr int DP = D + 1;
-  for (int e = threadIdx.x; e < kTile * D / VEC; e += kT) {
+  for (int e = threadIdx.x; e < Sh::TILE * D / VEC; e += kT) {
     const int i = e / (D / VEC);
     const int d = (e % (D / VEC)) * VEC;
+    const int col = tc::half_col(d, D, hd);
     const int r = r0 + i;
     float buf[VEC];
-    if (r < S) {
-      load16(src + st.at(b, r, h) + d, buf);
+    if (r < S && col >= 0) {
+      load16(src + st.at(b, r, h) + col, buf);
     } else {
 #pragma unroll
       for (int x = 0; x < VEC; ++x) buf[x] = 0.f;
@@ -129,40 +150,42 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src,
   }
 }
 
-// The adjoint rotation of a thread's [kR][D/16] patch of a float32
-// accumulator (rows pos0 + ty + 16a, columns tx + 16c): columns d and
-// d + D/2 are patch columns c and c + D/32. Rows at or past S are left
-// alone.
+// The adjoint rotation of a thread's [R][D/16] patch of a float32
+// accumulator (rows pos0 + ty + 16a, padded columns tx + 16c, the halves
+// layout of head dim hd; tables [S, hd]): padded columns j and j + D/2 —
+// the row's d and d + hd/2 — are patch columns c and c + D/32. Rows at or
+// past S, and the zero columns, are left alone.
 template <int D>
-__device__ __forceinline__ void rope_adjoint_patch(float (&acc)[kR][D / kSub],
-                                                   const float* sin,
-                                                   const float* cos,
-                                                   int pos0, int S) {
+__device__ __forceinline__ void rope_adjoint_patch(
+    float (&acc)[Shape<D>::R][D / kSub], const float* sin, const float* cos,
+    int pos0, int S, int hd) {
   constexpr int NC = D / kSub;
   const int ty = threadIdx.x / kSub;
   const int tx = threadIdx.x % kSub;
 #pragma unroll
-  for (int a = 0; a < kR; ++a) {
+  for (int a = 0; a < Shape<D>::R; ++a) {
     const int pos = pos0 + ty + kSub * a;
     if (pos >= S) continue;
-    const long long row = static_cast<long long>(pos) * D;
+    const long long row = static_cast<long long>(pos) * hd;
 #pragma unroll
     for (int c = 0; c < NC / 2; ++c) {
       const int d = tx + kSub * c;
+      if (d >= hd / 2) continue;
       rope_adjoint_pair(acc[a][c], acc[a][c + NC / 2], cos[row + d],
-                        sin[row + d], cos[row + d + D / 2],
-                        sin[row + d + D / 2], acc[a][c], acc[a][c + NC / 2]);
+                        sin[row + d], cos[row + d + hd / 2],
+                        sin[row + d + hd / 2], acc[a][c], acc[a][c + NC / 2]);
     }
   }
 }
 
-// lse / delta of rows q0 .. q0+kTile of (b, h) into shared memory; zero
+// lse / delta of rows q0 .. q0+TILE of (b, h) into shared memory; zero
 // past S.
+template <int TILE>
 __device__ __forceinline__ void load_row_stats(const float* __restrict__ lse,
                                                const float* __restrict__ delta,
                                                float* s_lse, float* s_delta,
                                                long long bh, int q0, int S) {
-  if (threadIdx.x < kTile) {
+  if (threadIdx.x < TILE) {
     const int r = q0 + threadIdx.x;
     const bool in = r < S;
     s_lse[threadIdx.x] = in ? lse[bh * S + r] : 0.f;
@@ -171,7 +194,7 @@ __device__ __forceinline__ void load_row_stats(const float* __restrict__ lse,
 }
 
 // P and dS of the tile pair (query rows q0.., keys k0..), each rounded to
-// T, into sP / sdS [kTile][TP] (row = query, column = key). Thread
+// T, into sP / sdS [TILE][TP] (row = query, column = key). Thread
 // (ty, tx) computes rows ty + 16a and keys tx + 16c. sP is skipped when
 // kWantP is false.
 template <typename T, int D, bool kWantP>
@@ -181,8 +204,9 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sdO,
                                        const float* s_delta, float* sP,
                                        float* sdS, int q0, int k0, int S,
                                        int causal, float scale) {
+  constexpr int kR = Shape<D>::R;
   constexpr int DP = D + 1;
-  constexpr int TP = kTile + 1;
+  constexpr int TP = Shape<D>::TP;
   const int ty = threadIdx.x / kSub;
   const int tx = threadIdx.x % kSub;
   float s[kR][kR], dp[kR][kR];
@@ -238,11 +262,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, const float* __restrict__ sin,
                      const float* __restrict__ cos, RowStrides qs,
-                     RowStrides ks, int S, int H, int Hk, int causal,
+                     RowStrides ks, int S, int H, int Hk, int hd, int causal,
                      float scale) {
   extern __shared__ __align__(16) float smem[];
   using Sh = Shape<D>;
   constexpr int DP = Sh::DP, TP = Sh::TP, NC = Sh::NC;
+  constexpr int kTile = Sh::TILE, kR = Sh::R;
   float* sK = smem;
   float* sV = sK + kTile * DP;
   float* sQ = sV + kTile * DP;
@@ -256,8 +281,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / Hk;
   const int kvh = blockIdx.y % Hk;
   const int G = H / Hk;
-  load_rows<T, D>(k, sK, ks, b, k0, S, kvh);
-  load_rows<T, D>(v, sV, ks, b, k0, S, kvh);
+  load_rows<T, D>(k, sK, ks, b, k0, S, kvh, hd);
+  load_rows<T, D>(v, sV, ks, b, k0, S, kvh, hd);
 
   // this thread's patch of dK/dV: keys ty + 16a, columns tx + 16c
   const int ty = threadIdx.x / kSub;
@@ -278,9 +303,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long bh = static_cast<long long>(b) * H + h;
     for (int q0 = q_first; q0 < S; q0 += kTile) {
       __syncthreads();  // the previous tile's reads are done
-      load_rows<T, D>(q, sQ, qs, b, q0, S, h);
-      load_rows<T, D>(dout, sdO, qs, b, q0, S, h);
-      load_row_stats(lse, delta, s_lse, s_delta, bh, q0, S);
+      load_rows<T, D>(q, sQ, qs, b, q0, S, h, hd);
+      load_rows<T, D>(dout, sdO, qs, b, q0, S, h, hd);
+      load_row_stats<kTile>(lse, delta, s_lse, s_delta, bh, q0, S);
       __syncthreads();
       scores<T, D, true>(sQ, sdO, sK, sV, s_lse, s_delta, sP, sdS, q0, k0,
                          S, causal, scale);
@@ -308,7 +333,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   // gradient w.r.t. the un-rotated K: the adjoint of the group's sum
-  if constexpr (kRope) rope_adjoint_patch<D>(acc_k, sin, cos, k0, S);
+  if constexpr (kRope) rope_adjoint_patch<D>(acc_k, sin, cos, k0, S, hd);
 #pragma unroll
   for (int a = 0; a < kR; ++a) {
     const int r = k0 + ty + kSub * a;
@@ -316,8 +341,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long off = ks.at(b, r, kvh);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dk[off + tx + kSub * c] = from_f<T>(acc_k[a][c]);
-      dv[off + tx + kSub * c] = from_f<T>(acc_v[a][c]);
+      const int col = tc::half_col(tx + kSub * c, D, hd);
+      if (col < 0) continue;
+      dk[off + col] = from_f<T>(acc_k[a][c]);
+      dv[off + col] = from_f<T>(acc_v[a][c]);
     }
   }
 }
@@ -330,11 +357,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     const float* __restrict__ sin,
                     const float* __restrict__ cos, RowStrides qs,
-                    RowStrides ks, int S, int H, int Hk, int causal,
+                    RowStrides ks, int S, int H, int Hk, int hd, int causal,
                     float scale) {
   extern __shared__ __align__(16) float smem[];
   using Sh = Shape<D>;
   constexpr int DP = Sh::DP, TP = Sh::TP, NC = Sh::NC;
+  constexpr int kTile = Sh::TILE, kR = Sh::R;
   float* sQ = smem;
   float* sdO = sQ + kTile * DP;
   float* sK = sdO + kTile * DP;
@@ -348,9 +376,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int kvh = h / (H / Hk);
-  load_rows<T, D>(q, sQ, qs, b, q0, S, h);
-  load_rows<T, D>(dout, sdO, qs, b, q0, S, h);
-  load_row_stats(lse, delta, s_lse, s_delta, blockIdx.y, q0, S);
+  load_rows<T, D>(q, sQ, qs, b, q0, S, h, hd);
+  load_rows<T, D>(dout, sdO, qs, b, q0, S, h, hd);
+  load_row_stats<kTile>(lse, delta, s_lse, s_delta, blockIdx.y, q0, S);
 
   // this thread's patch of dQ: rows ty + 16a, columns tx + 16c
   const int ty = threadIdx.x / kSub;
@@ -365,8 +393,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_stop = causal ? min(q0 + kTile, S) : S;
   for (int k0 = 0; k0 < kv_stop; k0 += kTile) {
     __syncthreads();  // the previous tile's reads are done
-    load_rows<T, D>(k, sK, ks, b, k0, S, kvh);
-    load_rows<T, D>(v, sV, ks, b, k0, S, kvh);
+    load_rows<T, D>(k, sK, ks, b, k0, S, kvh, hd);
+    load_rows<T, D>(v, sV, ks, b, k0, S, kvh, hd);
     __syncthreads();
     scores<T, D, false>(sQ, sdO, sK, sV, s_lse, s_delta, sP, sdS, q0, k0, S,
                         causal, scale);
@@ -386,19 +414,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   // gradient w.r.t. the un-rotated Q
-  if constexpr (kRope) rope_adjoint_patch<D>(acc, sin, cos, q0, S);
+  if constexpr (kRope) rope_adjoint_patch<D>(acc, sin, cos, q0, S, hd);
 #pragma unroll
   for (int a = 0; a < kR; ++a) {
     const int r = q0 + ty + kSub * a;
     if (r >= S) continue;
     const long long off = qs.at(b, r, h);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dq[off + tx + kSub * c] = from_f<T>(acc[a][c]);
+    for (int c = 0; c < NC; ++c) {
+      const int col = tc::half_col(tx + kSub * c, D, hd);
+      if (col >= 0) dq[off + col] = from_f<T>(acc[a][c]);
+    }
   }
 }
 
-inline float scale_of(int D) {
-  return static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+inline float scale_of(int hd) {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
 }
 
 template <typename T, int D, bool kRope>
@@ -406,17 +437,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv,
                        const float* sin, const float* cos, RowStrides qs,
-                       RowStrides ks, int B, int S, int H, int Hk,
+                       RowStrides ks, int B, int S, int H, int Hk, int hd,
                        int causal, cudaStream_t stream) {
+  using Sh = Shape<D>;
   auto kernel = flash_bwd_dkv_kernel<T, D, kRope>;
-  cudaError_t err = allow_smem(kernel, Shape<D>::BYTES);
+  cudaError_t err = allow_smem(kernel, Sh::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kTile - 1) / kTile, B * Hk);
-  kernel<<<grid, kT, Shape<D>::BYTES, stream>>>(
+  dim3 grid((S + Sh::TILE - 1) / Sh::TILE, B * Hk);
+  kernel<<<grid, kT, Sh::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), sin, cos, qs, ks, S, H, Hk,
-      causal, scale_of(D));
+      hd, causal, scale_of(hd));
   return cudaGetLastError();
 }
 
@@ -425,15 +457,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, const float* sin, const float* cos,
                       RowStrides qs, RowStrides ks, int B, int S, int H,
-                      int Hk, int causal, cudaStream_t stream) {
+                      int Hk, int hd, int causal, cudaStream_t stream) {
+  using Sh = Shape<D>;
   auto kernel = flash_bwd_dq_kernel<T, D, kRope>;
-  cudaError_t err = allow_smem(kernel, Shape<D>::BYTES);
+  cudaError_t err = allow_smem(kernel, Sh::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kTile - 1) / kTile, B * H);
-  kernel<<<grid, kT, Shape<D>::BYTES, stream>>>(
+  dim3 grid((S + Sh::TILE - 1) / Sh::TILE, B * H);
+  kernel<<<grid, kT, Sh::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), sin, cos, qs, ks, S, H, Hk, causal, scale_of(D));
+      static_cast<T*>(dq), sin, cos, qs, ks, S, H, Hk, hd, causal,
+      scale_of(hd));
   return cudaGetLastError();
 }
 
@@ -453,8 +487,15 @@ constexpr size_t dkv_smem_bytes() {
   return static_cast<size_t>(2 * kBK + 4 * kBQ) * D * sizeof(bf16) +
          4 * kBQ * sizeof(float);
 }
+// dK and dV in blocks of their own (grid z: 0 dV, 1 dK) at D = 256
+template <int D>
+__host__ __device__ constexpr bool split_dkv() {
+  return D > 128;
+}
 
-template <int D, bool kRope>
+// kPad: hd < D (the halves layout); without it hd is D and the tile code
+// is the unpadded one, with no run-time column arithmetic in its loops
+template <int D, bool kRope, bool kPad>
 __global__ void __launch_bounds__(kNT, 2)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -465,8 +506,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           const float* __restrict__ sin,
                           const float* __restrict__ cos, RowStrides qs,
-                          RowStrides ks, int S, int H, int Hk, int causal,
-                          float scale) {
+                          RowStrides ks, int S, int H, int Hk, int hd,
+                          int causal, float scale) {
+  if constexpr (!kPad) hd = D;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + kBK * D;
@@ -478,6 +520,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   constexpr int ND = D / 8;     // 8-column tiles of dK, dV
   constexpr int kQC = 32;       // query columns a pass
   constexpr int NS = kQC / 8;   // 8-column tiles of S^T, dP^T in a pass
+  constexpr bool kSplit = split_dkv<D>();
+  // a split block computes dK (want_k) or dV; a joint block both
+  const bool want_k = !kSplit || blockIdx.z == 1;
+  const bool want_v = !kSplit || blockIdx.z == 0;
 
   const int k0 = blockIdx.y * kBK;
   const int b = blockIdx.x / Hk;
@@ -496,9 +542,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     const int h = kvh * G + it / per;
     const int q0 = (qt0 + it % per) * kBQ;
     const long long off = qs.at(b, q0, h);
-    tc::load_tile<kBQ, D, kNT>(sQ + st * kBQ * D, q + off, q_row, S - q0);
-    tc::load_tile<kBQ, D, kNT>(sdO + st * kBQ * D, dout + off, q_row,
-                               S - q0);
+    tc::load_tile_halves<kBQ, D, kNT>(sQ + st * kBQ * D, q + off, q_row,
+                                      S - q0, hd);
+    tc::load_tile_halves<kBQ, D, kNT>(sdO + st * kBQ * D, dout + off, q_row,
+                                      S - q0, hd);
     const int i = threadIdx.x % kBQ;
     const bool ok = q0 + i < S;
     const long long row = (static_cast<long long>(b) * H + h) * S + q0 +
@@ -508,8 +555,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                   (is_lse ? lse : delta) + row, ok);
   };
 
-  tc::load_tile<kBK, D, kNT>(sK, k + kv_off, kv_row, S - k0);
-  tc::load_tile<kBK, D, kNT>(sV, v + kv_off, kv_row, S - k0);
+  tc::load_tile_halves<kBK, D, kNT>(sK, k + kv_off, kv_row, S - k0, hd);
+  tc::load_tile_halves<kBK, D, kNT>(sV, v + kv_off, kv_row, S - k0, hd);
   issue(0, 0);
   tc::cp_async_commit();
 
@@ -518,14 +565,16 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   const int t = lane & 3;
   const int kr0 = warp * 16;               // this warp's keys in the tile
   const int key[2] = {k0 + kr0 + (lane >> 2), k0 + kr0 + (lane >> 2) + 8};
-  float acc_k[ND][4], acc_v[ND][4];
+  // acc_k: dK, or a split block's one output; acc_v: a joint block's dV
+  float acc_k[ND][4], acc_v[kSplit ? 1 : ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc_k[n][i] = 0.f;
-      acc_v[n][i] = 0.f;
-    }
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (kSplit ? 1 : ND); ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_v[n][i] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
     const int st = it & 1;
@@ -544,12 +593,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     const float* c_delta = s_delta + st * kBQ;
 
     // Two passes over 32 query columns each, so that P^T and dP^T (fp32)
-    // take 32 registers a thread, not 64, beside the two accumulators.
+    // take 32 registers a thread, not 64, beside the accumulators.
     const bool edge = (causal && q0 < k0 + kr0 + 15) || q0 + kBQ > S;
 #pragma unroll
     for (int c0 = 0; c0 < kBQ; c0 += kQC) {
-      // ---- S^T = K Q^T and dP^T = V dO^T: rows = this warp's 16 keys,
-      // columns = queries c0 .. c0+31 of the tile
+      // ---- S^T = K Q^T and dP^T = V dO^T (a dV block: S^T alone): rows
+      // = this warp's 16 keys, columns = queries c0 .. c0+31 of the tile
       float p[NS][4], dp[NS][4];
 #pragma unroll
       for (int n = 0; n < NS; ++n)
@@ -569,13 +618,15 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           tc::mma(p[2 * np], a, bb[0], bb[1]);
           tc::mma(p[2 * np + 1], a, bb[2], bb[3]);
         }
-        tc::load_a<kBK>(a, sV, kr0, ks);
+        if (want_k) {
+          tc::load_a<kBK>(a, sV, kr0, ks);
 #pragma unroll
-        for (int np = 0; np < NS / 2; ++np) {
-          uint32_t bb[4];
-          tc::load_b<kBQ>(bb, cdO, c0 + np * 16, ks);
-          tc::mma(dp[2 * np], a, bb[0], bb[1]);
-          tc::mma(dp[2 * np + 1], a, bb[2], bb[3]);
+          for (int np = 0; np < NS / 2; ++np) {
+            uint32_t bb[4];
+            tc::load_b<kBQ>(bb, cdO, c0 + np * 16, ks);
+            tc::mma(dp[2 * np], a, bb[0], bb[1]);
+            tc::mma(dp[2 * np + 1], a, bb[2], bb[3]);
+          }
         }
       }
       // ---- P^T = exp(S^T * scale - lse), masked and tail entries exactly
@@ -602,15 +653,30 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         tc::to_a_frag(pa, p[2 * kk], p[2 * kk + 1]);
         tc::to_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
         const int ks = c0 / 16 + kk;
+        if constexpr (kSplit) {
+          // one product: dK += dS^T Q, or dV += P^T dO
+          const bf16* cB = want_k ? cQ : cdO;
+          uint32_t aa[4];
 #pragma unroll
-        for (int dc = 0; dc < D / 16; ++dc) {
-          uint32_t bb[4];
-          tc::load_b_t<kBQ>(bb, cdO, ks, 2 * dc);
-          tc::mma(acc_v[2 * dc], pa, bb[0], bb[1]);
-          tc::mma(acc_v[2 * dc + 1], pa, bb[2], bb[3]);
-          tc::load_b_t<kBQ>(bb, cQ, ks, 2 * dc);
-          tc::mma(acc_k[2 * dc], da, bb[0], bb[1]);
-          tc::mma(acc_k[2 * dc + 1], da, bb[2], bb[3]);
+          for (int x = 0; x < 4; ++x) aa[x] = want_k ? da[x] : pa[x];
+#pragma unroll
+          for (int dc = 0; dc < D / 16; ++dc) {
+            uint32_t bb[4];
+            tc::load_b_t<kBQ>(bb, cB, ks, 2 * dc);
+            tc::mma(acc_k[2 * dc], aa, bb[0], bb[1]);
+            tc::mma(acc_k[2 * dc + 1], aa, bb[2], bb[3]);
+          }
+        } else {
+#pragma unroll
+          for (int dc = 0; dc < D / 16; ++dc) {
+            uint32_t bb[4];
+            tc::load_b_t<kBQ>(bb, cdO, ks, 2 * dc);
+            tc::mma(acc_v[2 * dc], pa, bb[0], bb[1]);
+            tc::mma(acc_v[2 * dc + 1], pa, bb[2], bb[3]);
+            tc::load_b_t<kBQ>(bb, cQ, ks, 2 * dc);
+            tc::mma(acc_k[2 * dc], da, bb[0], bb[1]);
+            tc::mma(acc_k[2 * dc + 1], da, bb[2], bb[3]);
+          }
         }
       }
     }
@@ -618,17 +684,22 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   }
 
   // gradient w.r.t. the un-rotated K: the adjoint of the group's sum
-  if constexpr (kRope) tc::rope_adjoint_acc<D>(acc_k, sin, cos, key, S);
+  if constexpr (kRope)
+    if (want_k) tc::rope_adjoint_acc<D>(acc_k, sin, cos, key, S, hd);
+  bf16* out_a = want_k ? dk : dv;          // acc_k's output
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= S) continue;
-    const long long off = ks.at(b, key[r], kvh) + 2 * t;
+    const long long off = ks.at(b, key[r], kvh);
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
+      const int col = tc::half_col(n * 8 + 2 * t, D, hd);
+      if (col < 0) continue;
+      *reinterpret_cast<uint32_t*>(out_a + off + col) =
           tc::pack_bf16(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
-          tc::pack_bf16(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+      if constexpr (!kSplit)
+        *reinterpret_cast<uint32_t*>(dv + off + col) =
+            tc::pack_bf16(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
     }
   }
 }
@@ -638,17 +709,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv,
                        const float* sin, const float* cos, RowStrides qs,
-                       RowStrides ks, int B, int S, int H, int Hk,
+                       RowStrides ks, int B, int S, int H, int Hk, int hd,
                        int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_bf16_kernel<D, kRope>;
+  auto kernel = hd == D ? flash_bwd_dkv_bf16_kernel<D, kRope, false>
+                        : flash_bwd_dkv_bf16_kernel<D, kRope, true>;
   cudaError_t err = tc::use_smem(kernel, dkv_smem_bytes<D>());
   if (err != cudaSuccess) return err;
-  dim3 grid(B * Hk, (S + kBK - 1) / kBK);
+  dim3 grid(B * Hk, (S + kBK - 1) / kBK, split_dkv<D>() ? 2 : 1);
   kernel<<<grid, kNT, dkv_smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
       delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sin, cos, qs,
-      ks, S, H, Hk, causal, bwd::scale_of(D));
+      ks, S, H, Hk, hd, causal, bwd::scale_of(hd));
   return cudaGetLastError();
 }
 
@@ -658,7 +730,7 @@ constexpr size_t dq_smem_bytes() {
   return static_cast<size_t>(2 * kBQ + 4 * kBK) * D * sizeof(bf16);
 }
 
-template <int D, bool kRope>
+template <int D, bool kRope, bool kPad>
 __global__ void __launch_bounds__(kNT, 2)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -668,8 +740,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dq, const float* __restrict__ sin,
                          const float* __restrict__ cos, RowStrides qs,
-                         RowStrides ks, int S, int H, int Hk, int causal,
-                         float scale) {
+                         RowStrides ks, int S, int H, int Hk, int hd,
+                         int causal, float scale) {
+  if constexpr (!kPad) hd = D;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sdO = sQ + kBQ * D;
@@ -677,7 +750,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   bf16* sV = sK + 2 * kBK * D;       // two stages
   constexpr int KS = D / 16;    // k-steps of Q K^T and dO V^T
   constexpr int ND = D / 8;     // 8-column tiles of dQ
-  constexpr int NS = kBK / 8;   // 8-column tiles of S, dP
+  // keys a pass over a tile: all 64, or 32 at D = 256 (S and dP fp32 at
+  // 32 registers a thread beside the 128 dQ accumulators)
+  constexpr int kKP = D > 128 ? 32 : kBK;
+  constexpr int NS = kKP / 8;   // 8-column tiles of S, dP in a pass
 
   // last query tiles first: their causal walks are the longest
   const int nq = (S + kBQ - 1) / kBQ;
@@ -696,12 +772,14 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   auto issue = [&](int it, int st) {
     const int k0 = it * kBK;
     const long long off = ks.at(b, k0, kvh);
-    tc::load_tile<kBK, D, kNT>(sK + st * kBK * D, k + off, kv_row, S - k0);
-    tc::load_tile<kBK, D, kNT>(sV + st * kBK * D, v + off, kv_row, S - k0);
+    tc::load_tile_halves<kBK, D, kNT>(sK + st * kBK * D, k + off, kv_row,
+                                      S - k0, hd);
+    tc::load_tile_halves<kBK, D, kNT>(sV + st * kBK * D, v + off, kv_row,
+                                      S - k0, hd);
   };
 
-  tc::load_tile<kBQ, D, kNT>(sQ, q + q_off, q_row, S - q0);
-  tc::load_tile<kBQ, D, kNT>(sdO, dout + q_off, q_row, S - q0);
+  tc::load_tile_halves<kBQ, D, kNT>(sQ, q + q_off, q_row, S - q0, hd);
+  tc::load_tile_halves<kBQ, D, kNT>(sdO, dout + q_off, q_row, S - q0, hd);
   issue(0, 0);
   tc::cp_async_commit();
 
@@ -737,80 +815,86 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     const int k0 = it * kBK;
     const bf16* cK = sK + st * kBK * D;
     const bf16* cV = sV + st * kBK * D;
-
-    // ---- S = Q K^T and dP = dO V^T: rows = this warp's 16 queries,
-    // columns = the tile's 64 keys
-    float p[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[n][i] = 0.f;
-        dp[n][i] = 0.f;
-      }
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4];
-      tc::load_a<kBQ>(a, sQ, qr0, ks);
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t bb[4];
-        tc::load_b<kBK>(bb, cK, np * 16, ks);
-        tc::mma(p[2 * np], a, bb[0], bb[1]);
-        tc::mma(p[2 * np + 1], a, bb[2], bb[3]);
-      }
-      tc::load_a<kBQ>(a, sdO, qr0, ks);
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t bb[4];
-        tc::load_b<kBK>(bb, cV, np * 16, ks);
-        tc::mma(dp[2 * np], a, bb[0], bb[1]);
-        tc::mma(dp[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-    // ---- P = exp(S * scale - lse), masked and tail entries exactly 0;
-    // dS = P (dP - delta) * scale
     const bool edge = (causal && k0 + kBK - 1 > q0 + qr0) || k0 + kBK > S;
+
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int c0 = 0; c0 < kBK; c0 += kKP) {
+      // ---- S = Q K^T and dP = dO V^T: rows = this warp's 16 queries,
+      // columns = keys c0 .. c0 + kKP - 1 of the tile
+      float p[NS][4], dp[NS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        float x = tc::exp2_fast((p[n][i] * scale - r_lse[r]) * tc::kLog2e);
-        if (edge) {
-          const int key = k0 + n * 8 + 2 * t + (i & 1);
-          const bool ok = key < S && (!causal || key <= row[r]);
-          x = ok ? x : 0.f;
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[n][i] = 0.f;
+          dp[n][i] = 0.f;
         }
-        dp[n][i] = x * (dp[n][i] - r_delta[r]) * scale;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        tc::load_a<kBQ>(a, sQ, qr0, ks);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bb[4];
+          tc::load_b<kBK>(bb, cK, c0 + np * 16, ks);
+          tc::mma(p[2 * np], a, bb[0], bb[1]);
+          tc::mma(p[2 * np + 1], a, bb[2], bb[3]);
+        }
+        tc::load_a<kBQ>(a, sdO, qr0, ks);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bb[4];
+          tc::load_b<kBK>(bb, cV, c0 + np * 16, ks);
+          tc::mma(dp[2 * np], a, bb[0], bb[1]);
+          tc::mma(dp[2 * np + 1], a, bb[2], bb[3]);
+        }
       }
-    // ---- dQ += dS K over the tile's keys; dS rounded to bf16 in
-    // registers as the A operand, K through ldmatrix.trans
+      // ---- P = exp(S * scale - lse), masked and tail entries exactly 0;
+      // dS = P (dP - delta) * scale
 #pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) {
-      uint32_t da[4];
-      tc::to_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int dc = 0; dc < D / 16; ++dc) {
-        uint32_t bb[4];
-        tc::load_b_t<kBK>(bb, cK, kk, 2 * dc);
-        tc::mma(acc[2 * dc], da, bb[0], bb[1]);
-        tc::mma(acc[2 * dc + 1], da, bb[2], bb[3]);
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          float x = tc::exp2_fast((p[n][i] * scale - r_lse[r]) * tc::kLog2e);
+          if (edge) {
+            const int key = k0 + c0 + n * 8 + 2 * t + (i & 1);
+            const bool ok = key < S && (!causal || key <= row[r]);
+            x = ok ? x : 0.f;
+          }
+          dp[n][i] = x * (dp[n][i] - r_delta[r]) * scale;
+        }
+      // ---- dQ += dS K over these keys; dS rounded to bf16 in registers
+      // as the A operand, K through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t da[4];
+        tc::to_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int dc = 0; dc < D / 16; ++dc) {
+          uint32_t bb[4];
+          tc::load_b_t<kBK>(bb, cK, c0 / 16 + kk, 2 * dc);
+          tc::mma(acc[2 * dc], da, bb[0], bb[1]);
+          tc::mma(acc[2 * dc + 1], da, bb[2], bb[3]);
+        }
       }
     }
     __syncthreads();   // this stage is read; the next copy may overwrite it
   }
 
   // gradient w.r.t. the un-rotated Q
-  if constexpr (kRope) tc::rope_adjoint_acc<D>(acc, sin, cos, row, S);
+  if constexpr (kRope) tc::rope_adjoint_acc<D>(acc, sin, cos, row, S, hd);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= S) continue;
-    const long long off = qs.at(b, row[r], h) + 2 * t;
+    const long long off = qs.at(b, row[r], h);
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dq + off + n * 8) =
-          tc::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+    for (int n = 0; n < ND; ++n) {
+      const int col = tc::half_col(n * 8 + 2 * t, D, hd);
+      if (col >= 0)
+        *reinterpret_cast<uint32_t*>(dq + off + col) =
+            tc::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
   }
 }
 
@@ -819,35 +903,37 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, const float* sin, const float* cos,
                       RowStrides qs, RowStrides ks, int B, int S, int H,
-                      int Hk, int causal, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_bf16_kernel<D, kRope>;
+                      int Hk, int hd, int causal, cudaStream_t stream) {
+  auto kernel = hd == D ? flash_bwd_dq_bf16_kernel<D, kRope, false>
+                        : flash_bwd_dq_bf16_kernel<D, kRope, true>;
   cudaError_t err = tc::use_smem(kernel, dq_smem_bytes<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   kernel<<<grid, kNT, dq_smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dq), sin, cos, qs, ks, S, H, Hk, causal,
-      bwd::scale_of(D));
+      delta, static_cast<bf16*>(dq), sin, cos, qs, ks, S, H, Hk, hd, causal,
+      bwd::scale_of(hd));
   return cudaGetLastError();
 }
 
 }  // namespace tcb
 
-// The two kernels for head dim D and the rope mode: bf16 on mma.sync,
-// float32 on the CUDA cores.
+// The two kernels at padded width D of head dim hd and the rope mode: bf16
+// on mma.sync, float32 on the CUDA cores.
 template <int D, bool kRope>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv,
                        const float* sin, const float* cos, RowStrides qs,
-                       RowStrides ks, int B, int S, int H, int Hk,
+                       RowStrides ks, int B, int S, int H, int Hk, int hd,
                        int causal, int is_bf16, cudaStream_t stream) {
   return is_bf16
       ? tcb::launch_dkv<D, kRope>(q, k, v, dout, lse, delta, dk, dv, sin,
-                                  cos, qs, ks, B, S, H, Hk, causal, stream)
+                                  cos, qs, ks, B, S, H, Hk, hd, causal,
+                                  stream)
       : bwd::launch_dkv<float, D, kRope>(q, k, v, dout, lse, delta, dk, dv,
-                                         sin, cos, qs, ks, B, S, H, Hk,
+                                         sin, cos, qs, ks, B, S, H, Hk, hd,
                                          causal, stream);
 }
 
@@ -856,12 +942,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, const float* sin, const float* cos,
                       RowStrides qs, RowStrides ks, int B, int S, int H,
-                      int Hk, int causal, int is_bf16, cudaStream_t stream) {
+                      int Hk, int hd, int causal, int is_bf16,
+                      cudaStream_t stream) {
   return is_bf16
       ? tcb::launch_dq<D, kRope>(q, k, v, dout, lse, delta, dq, sin, cos, qs,
-                                 ks, B, S, H, Hk, causal, stream)
+                                 ks, B, S, H, Hk, hd, causal, stream)
       : bwd::launch_dq<float, D, kRope>(q, k, v, dout, lse, delta, dq, sin,
-                                        cos, qs, ks, B, S, H, Hk, causal,
+                                        cos, qs, ks, B, S, H, Hk, hd, causal,
                                         stream);
 }
 
@@ -877,10 +964,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 
 #if FLASH_BWD_ENTRY != 2
 // q/dout [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v/dk/dv
-// [B,S,Hk,D] through (k_sb, k_ss, k_sh), D contiguous; lse/delta [B,H,S]
-// float32; sin/cos [S,D] float32 (fused RoPE: q and k already rotated by
-// pt_rope_qk, dK gets the adjoint) or both null.
-// is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// [B,S,Hk,D] through (k_sb, k_ss, k_sh), D contiguous, D % 8 == 0 and
+// 8 <= D <= 256; lse/delta [B,H,S] float32; sin/cos [S,D] float32 (fused
+// RoPE: q and k already rotated by pt_rope_qk, dK gets the adjoint) or
+// both null. is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores).
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv,
@@ -899,32 +987,23 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const float* sn = static_cast<const float*>(sin);
   const float* cs = static_cast<const float*>(cos);
   const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
-  const bool rope = sn != nullptr;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64)
-    err = rope ? pt::launch_dkv<64, true>(q, k, v, dout, l, dl, dk, dv, sn,
-                                          cs, qs, ks, B, S, H, Hk, causal,
-                                          is_bf16, s)
-               : pt::launch_dkv<64, false>(q, k, v, dout, l, dl, dk, dv, sn,
-                                           cs, qs, ks, B, S, H, Hk, causal,
-                                           is_bf16, s);
-  else if (D == 128)
-    err = rope ? pt::launch_dkv<128, true>(q, k, v, dout, l, dl, dk, dv, sn,
-                                           cs, qs, ks, B, S, H, Hk, causal,
-                                           is_bf16, s)
-               : pt::launch_dkv<128, false>(q, k, v, dout, l, dl, dk, dv, sn,
-                                            cs, qs, ks, B, S, H, Hk, causal,
-                                            is_bf16, s);
-  return static_cast<int>(err);
+  return static_cast<int>(pt::with_head_dim(D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return sn != nullptr
+        ? pt::launch_dkv<DP, true>(q, k, v, dout, l, dl, dk, dv, sn, cs, qs,
+                                   ks, B, S, H, Hk, D, causal, is_bf16, s)
+        : pt::launch_dkv<DP, false>(q, k, v, dout, l, dl, dk, dv, sn, cs, qs,
+                                    ks, B, S, H, Hk, D, causal, is_bf16, s);
+  }));
 }
 
 #endif
 
 #if FLASH_BWD_ENTRY != 1
 // q/dout/dq [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v [B,S,Hk,D]
-// through (k_sb, k_ss, k_sh), D contiguous; lse/delta [B,H,S] float32;
-// sin/cos [S,D] float32 (fused RoPE: q and k already rotated by
-// pt_rope_qk, dQ gets the adjoint) or both null.
+// through (k_sb, k_ss, k_sh), D contiguous, D % 8 == 0 and 8 <= D <= 256;
+// lse/delta [B,H,S] float32; sin/cos [S,D] float32 (fused RoPE: q and k
+// already rotated by pt_rope_qk, dQ gets the adjoint) or both null.
 // is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
@@ -943,21 +1022,13 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* sn = static_cast<const float*>(sin);
   const float* cs = static_cast<const float*>(cos);
   const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
-  const bool rope = sn != nullptr;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64)
-    err = rope ? pt::launch_dq<64, true>(q, k, v, dout, l, dl, dq, sn, cs, qs,
-                                         ks, B, S, H, Hk, causal, is_bf16, s)
-               : pt::launch_dq<64, false>(q, k, v, dout, l, dl, dq, sn, cs,
-                                          qs, ks, B, S, H, Hk, causal,
-                                          is_bf16, s);
-  else if (D == 128)
-    err = rope ? pt::launch_dq<128, true>(q, k, v, dout, l, dl, dq, sn, cs,
-                                          qs, ks, B, S, H, Hk, causal,
-                                          is_bf16, s)
-               : pt::launch_dq<128, false>(q, k, v, dout, l, dl, dq, sn, cs,
-                                           qs, ks, B, S, H, Hk, causal,
-                                           is_bf16, s);
-  return static_cast<int>(err);
+  return static_cast<int>(pt::with_head_dim(D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return sn != nullptr
+        ? pt::launch_dq<DP, true>(q, k, v, dout, l, dl, dq, sn, cs, qs, ks, B,
+                                  S, H, Hk, D, causal, is_bf16, s)
+        : pt::launch_dq<DP, false>(q, k, v, dout, l, dl, dq, sn, cs, qs, ks,
+                                   B, S, H, Hk, D, causal, is_bf16, s);
+  }));
 }
 #endif

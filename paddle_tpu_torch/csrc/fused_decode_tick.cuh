@@ -47,8 +47,10 @@
 //     once more for each further 64.
 //     A block's share of one tile is a piece: it writes its fp32 partial
 //     sums to slot (b - first block of the tile) of a scratch buffer and
-//     takes a ticket of the tile's group (a QKV head: its D / NT tiles; a
-//     gate tile and its up tile; else one tile). The block that completes
+//     takes a ticket of the tile's group (QKV: the fewest whole heads that
+//     fill whole tiles, NT / gcd(D, NT) heads of D columns: one head of 64,
+//     128 or 256, four of 16 or 80; a gate tile and its up tile; else one
+//     tile). The block that completes
 //     a group adds the group's pieces in slot order (no atomics on data:
 //     the same bits every run, whichever block finishes last) and runs the
 //     phase's epilogue there: RoPE in float32 for q and k, q to the query
@@ -72,6 +74,13 @@
 // splits combined in split order by the last block of a (row, KV head) —
 // whichever block that is. The query is read through L2 (written earlier
 // in this launch).
+//
+// Head dims: any D % 8 == 0 up to 256. The projections, RoPE and the
+// appends work on the model's D columns a head (a tile may hold several
+// heads, or parts of two: a group is whole heads, and a 16-byte weight
+// copy takes its own segment of wq, wk, wv); the attention walk runs at
+// D's padded width (64, 128 or 256), as paged_decode.cu runs it. The
+// QKV width (nh + 2 nkv) * D is a multiple of 64, as the other widths.
 //
 // Rounding follows the scanned tick (serving/decode.py:_fused_decode_tick):
 // RMSNorm casts to the model type before the weight multiply, every
@@ -187,19 +196,19 @@ struct Args {
   const T* in_ln; const T* post_ln; // [L, H]
   const T* final_norm;              // [H]
   const T* head;                    // [H, V], or the embedding when tied
-  KT* pool_k; KT* pool_v;           // [L, nb, bs, Hkv, D]
+  KT* pool_k; KT* pool_v;           // [L, nb, bs, Hkv, hd]
   float* k_scale; float* v_scale;   // a quantized pool's planes, or null
   // int8 weights (W8): wq .. wd and the head as int8, their scales
   // [L, N] (the head's [V]) in s8, in the order wq, wk, wv, wo, wg, wu,
   // wd, head
   const int8_t* q8[8];
   const float* s8[8];
-  const float* sin; const float* cos;   // [s_rows, D]
+  const float* sin; const float* cos;   // [s_rows, hd]
   const int* tables;                // [R, mb]
   const int* meta;                  // lens[R], app_mask[R], top_k[R], temps[R] (bits)
   const unsigned* keys_in;          // [R, 2]
   T* h; T* hn;                      // [R, H]
-  T* q; T* attn;                    // [R, nh, D]
+  T* q; T* attn;                    // [R, nh, hd]
   T* act;                           // [R, I]
   float* part;                      // GEMV pieces [slots, R, N]
   float* logits;                    // [R, V]
@@ -209,9 +218,11 @@ struct Args {
   unsigned* queue;                  // the attention items' counter (bar[2])
   int* gtickets;                    // the GEMV groups' tickets (bar[3 ..])
   float* part_m; float* part_l;     // the walk's partials [R, Hkv, n_split, G]
-  float* part_acc;                  // ... and [R, Hkv, n_split, G, D]
+  float* part_acc;                  // ... and [R, Hkv, n_split, G, Dp]
   int* tickets;                     // [>= R * Hkv], zero, left zero
   int R, L, H, nh, nkv, I, V, nb, bs, mb, s_rows, tied, split_len, n_split;
+  int hd;                           // the head dim (the template's D is
+                                    // its padded width)
   float eps;
 };
 
@@ -308,13 +319,21 @@ struct Plan {
 
 // What the block that completes a group of tiles does with their summed
 // pieces (the phase's epilogue, in the same phase):
-//   kQKV     a head's D columns (D / NT tiles): RoPE for q and k, q to the
-//            query buffer, k and v appended to the pool
+//   kQKV     a group of heads (qkv_group_heads), D columns each: RoPE for
+//            q and k, q to the query buffer, k and v appended to the pool
 //   kResid   one tile of O or down: h = round(h + round(sum))
 //   kGateUp  gate tile g and up tile g + I / NT: act = round(round(SiLU(g))
 //            * u)
 //   kHead    one tile of the lm head: the logits, rounded to the model type
 enum Kind { kQKV, kResid, kGateUp, kHead };
+
+// The heads of a QKV group at head dim hd and NT-column tiles: the fewest
+// whole heads whose columns are whole tiles, NT / gcd(hd, NT) (NT is a
+// power of two, so the gcd is hd's largest power-of-two factor, at most
+// NT). The last group of a projection may hold fewer.
+__device__ __forceinline__ int qkv_group_heads(int hd, int NT) {
+  return NT / min(hd & -hd, NT);
+}
 
 // One projection: X [R, K] (written in this launch) times N columns made
 // of up to three weight segments, columns [end[s-1], end[s]) from the
@@ -388,29 +407,29 @@ __device__ __forceinline__ long long append_row(const Args<T, KT>& a, int l,
 }
 
 // RoPE at the row's length (rotate_half) of the pair (o0, o1) at (d,
-// d + D/2), rounded to the model type
-template <typename T, int D, typename KT>
+// d + hd/2), rounded to the model type
+template <typename T, typename KT>
 __device__ __forceinline__ void rope_pair(const Args<T, KT>& a, int rr, int d,
                                           float& o0, float& o1) {
-  const int len = a.meta[rr];
-  const float* cs = a.cos + min(max(len, 0), a.s_rows - 1) * D;
-  const float* sn = a.sin + min(max(len, 0), a.s_rows - 1) * D;
+  const int len = a.meta[rr], hd = a.hd;
+  const float* cs = a.cos + min(max(len, 0), a.s_rows - 1) * hd;
+  const float* sn = a.sin + min(max(len, 0), a.s_rows - 1) * hd;
   const float x0 = o0, x1 = o1;
   o0 = rnd<T>(__fadd_rn(__fmul_rn(x0, cs[d]), __fmul_rn(-x1, sn[d])));
-  o1 = rnd<T>(__fadd_rn(__fmul_rn(x1, cs[d + D / 2]),
-                        __fmul_rn(x0, sn[d + D / 2])));
+  o1 = rnd<T>(__fadd_rn(__fmul_rn(x1, cs[d + hd / 2]),
+                        __fmul_rn(x0, sn[d + hd / 2])));
 }
 
 // An int8 pool's K or V head grp of the QKV projection, one warp a row:
-// the row's D values (RoPE'd for K, rounded to the model type), their
+// the row's hd values (RoPE'd for K, rounded to the model type), their
 // absmax by a warp reduction, then kv_cache.quantize_kv_rows's rule, data
-// and scale at the append coordinate.
+// and scale at the append coordinate. D is hd's padded width.
 template <typename T, int D, typename KT>
 __device__ void finish_kv_int8(const Args<T, KT>& a, const Gemv<T>& g,
                                const Plan& p, int grp) {
   constexpr int U = D / 64 > 2 ? D / 64 : 2;   // pairs a lane: D/2 = 32 (D 64),
                                                // 64 (D 128) or 128 (D 256)
-  const int R = a.R, N = g.N, nh = a.nh, nkv = a.nkv;
+  const int R = a.R, N = g.N, nh = a.nh, nkv = a.nkv, hd = a.hd;
   const int lane = threadIdx.x & 31;
   const bool is_v = grp >= nh + nkv;
   const int hh = grp - nh - (is_v ? nkv : 0);
@@ -420,10 +439,10 @@ __device__ void finish_kv_int8(const Args<T, KT>& a, const Gemv<T>& g,
 #pragma unroll
     for (int j = 0; j < U; ++j) {
       const int d = lane + 32 * j;
-      ok[j] = d < D / 2;
+      ok[j] = d < hd / 2;
       r[j] = rr;
-      n0[j] = grp * D + d;
-      n1[j] = n0[j] + D / 2;
+      n0[j] = grp * hd + d;
+      n1[j] = n0[j] + hd / 2;
     }
     float y0[U], y1[U];
     piece_sums(p, a.part, R, N, r, n0, ok, y0);
@@ -433,7 +452,7 @@ __device__ void finish_kv_int8(const Args<T, KT>& a, const Gemv<T>& g,
     for (int j = 0; j < U; ++j) {
       y0[j] = rnd<T>(y0[j]);
       y1[j] = rnd<T>(y1[j]);
-      if (!is_v && ok[j]) rope_pair<T, D>(a, rr, lane + 32 * j, y0[j], y1[j]);
+      if (!is_v && ok[j]) rope_pair<T>(a, rr, lane + 32 * j, y0[j], y1[j]);
       if (ok[j]) amax = fmaxf(amax, fmaxf(fabsf(y0[j]), fabsf(y1[j])));
     }
     amax = warp_max(amax);
@@ -441,14 +460,14 @@ __device__ void finish_kv_int8(const Args<T, KT>& a, const Gemv<T>& g,
     const float div = fmaxf(sc, 1e-30f);
     const long long at = append_row(a, g.l, rr);
     if (at < 0) continue;
-    int8_t* pool = (is_v ? a.pool_v : a.pool_k) + (at * nkv + hh) * D;
+    int8_t* pool = (is_v ? a.pool_v : a.pool_k) + (at * nkv + hh) * hd;
 #pragma unroll
     for (int j = 0; j < U; ++j) {
       if (!ok[j]) continue;
       const int d = lane + 32 * j;
       pool[d] = static_cast<int8_t>(__float2int_rn(
           fminf(fmaxf(rintf(__fdiv_rn(y0[j], div)), -127.f), 127.f)));
-      pool[d + D / 2] = static_cast<int8_t>(__float2int_rn(
+      pool[d + hd / 2] = static_cast<int8_t>(__float2int_rn(
           fminf(fmaxf(rintf(__fdiv_rn(y1[j], div)), -127.f), 127.f)));
     }
     if (lane == 0) (is_v ? a.v_scale : a.k_scale)[at * nkv + hh] = sc;
@@ -470,19 +489,26 @@ __device__ __forceinline__ KT to_pool(float x) {
 
 // The epilogue of group grp of projection g (see Kind), all R rows, by the
 // block that completed it; two units a thread at a time (more spill the
-// GEMV loop's registers at three blocks an SM).
+// GEMV loop's registers at three blocks an SM). A QKV group is heads
+// [h0, h1), a unit a RoPE pair (d, d + hd/2) of a head's row.
 template <typename T, int D, typename KT>
 __device__ void finish_group(const Args<T, KT>& a, const Gemv<T>& g,
                              const Plan& p, int grp) {
   constexpr int NT = Geo<T>::NT, U = 2;
+  const int hd = a.hd, half = hd / 2;
+  const int hg = qkv_group_heads(hd, NT);
+  const int h0 = grp * hg;
+  int h1 = min(h0 + hg, a.nh + 2 * a.nkv);
   if constexpr (std::is_same<KT, int8_t>::value) {
-    if (g.kind == kQKV && grp >= a.nh) {
-      finish_kv_int8<T, D>(a, g, p, grp);
-      return;
+    if (g.kind == kQKV) {   // the group's K and V heads, then its q heads
+      for (int hh = max(h0, a.nh); hh < h1; ++hh)
+        finish_kv_int8<T, D>(a, g, p, hh);
+      h1 = min(h1, a.nh);
+      if (h1 <= h0) return;
     }
   }
   const int R = a.R, N = g.N, tid = threadIdx.x;
-  const int per_row = g.kind == kQKV ? D / 2 : NT;   // units a row
+  const int per_row = g.kind == kQKV ? (h1 - h0) * half : NT;   // units a row
   const int units = R * per_row;
   const int I = N / 2;
   for (int u0 = 0; u0 < units; u0 += kThreads * U) {
@@ -494,8 +520,8 @@ __device__ void finish_group(const Args<T, KT>& a, const Gemv<T>& g,
       ok[j] = u < units;
       r[j] = u / per_row;
       const int c = u % per_row;
-      n0[j] = g.kind == kQKV ? grp * D + c : grp * NT + c;
-      n1[j] = g.kind == kQKV ? n0[j] + D / 2 : n0[j] + I;   // the pair's other
+      n0[j] = g.kind == kQKV ? (h0 + c / half) * hd + c % half : grp * NT + c;
+      n1[j] = g.kind == kQKV ? n0[j] + half : n0[j] + I;   // the pair's other
     }
     float y0[U], y1[U];
     piece_sums(p, a.part, R, N, r, n0, ok, y0);
@@ -514,27 +540,27 @@ __device__ void finish_group(const Args<T, KT>& a, const Gemv<T>& g,
         const float sv = rnd<T>(gv / (1.0f + expf(-gv)));
         a.act[static_cast<long long>(rr) * I + n0[j]] = from_f<T>(__fmul_rn(sv, uv));
       } else {
-        // head grp of q, k, v; the pair (d, d + D/2) of row rr
-        const int d = n0[j] - grp * D, nh = a.nh, nkv = a.nkv;
+        // head `head` of q, k, v; the pair (d, d + hd/2) of row rr
+        const int head = n0[j] / hd, d = n0[j] % hd, nh = a.nh, nkv = a.nkv;
         float o0 = rnd<T>(y0[j]), o1 = rnd<T>(y1[j]);
-        if (grp < nh + nkv) rope_pair<T, D>(a, rr, d, o0, o1);
-        if (grp < nh) {
-          T* qp = a.q + (static_cast<long long>(rr) * nh + grp) * D + d;
+        if (head < nh + nkv) rope_pair<T>(a, rr, d, o0, o1);
+        if (head < nh) {
+          T* qp = a.q + (static_cast<long long>(rr) * nh + head) * hd + d;
           qp[0] = from_f<T>(o0);
-          qp[D / 2] = from_f<T>(o1);
+          qp[half] = from_f<T>(o1);
           continue;
         }
         // append at (tables[rr][len / bs], len % bs); masked rows, rows
         // past capacity and sentinel table entries do not write
-        const bool is_v = grp >= nh + nkv;
-        const int hh = grp - nh - (is_v ? nkv : 0);
+        const bool is_v = head >= nh + nkv;
+        const int hh = head - nh - (is_v ? nkv : 0);
         // (an int8 pool's K and V heads took finish_kv_int8)
         if constexpr (!std::is_same<KT, int8_t>::value) {
           const long long at = append_row(a, g.l, rr);
           if (at >= 0) {
-            KT* pool = (is_v ? a.pool_v : a.pool_k) + (at * nkv + hh) * D + d;
+            KT* pool = (is_v ? a.pool_v : a.pool_k) + (at * nkv + hh) * hd + d;
             pool[0] = to_pool<KT>(o0);
-            pool[D / 2] = to_pool<KT>(o1);
+            pool[half] = to_pool<KT>(o1);
           }
         }
       }
@@ -619,15 +645,25 @@ struct GemvRun {
                        true);
       }
     } else {                           // kKC rows k of `cols` bytes
+      // a 16-column copy whose columns lie in two segments (they end at
+      // multiples of the head dim: 8) or start 8 bytes past an aligned
+      // address (a segment of a width 8 mod 16) goes as two 8-byte halves
       const int cpr = cols / 16;
       for (int e = threadIdx.x; e < kKC * cpr; e += kThreads) {
         const int row = e / cpr, cc = e % cpr;
-        const int nc = n0 + cc * 16, sg = segment(nc);
+        const int nc = n0 + cc * 16, sg = segment(nc), sg8 = segment(nc + 8);
         const int dc = R8 ? cc ^ ((row >> 1 & 3) << 1) : cc;
-        tc::cp_async16(raw + row * CW + dc * 16,
-                       g.q[sg] + (k0 + row) * static_cast<long long>(g.ld[sg]) +
-                           seg_col(nc, sg),
-                       true);
+        const long long off =
+            (k0 + row) * static_cast<long long>(g.ld[sg]) + seg_col(nc, sg);
+        if (sg == sg8 && off % 16 == 0) {
+          tc::cp_async16(raw + row * CW + dc * 16, g.q[sg] + off, true);
+        } else {
+          tc::cp_async8(raw + row * CW + dc * 16, g.q[sg] + off, true);
+          tc::cp_async8(raw + row * CW + dc * 16 + 8,
+                        g.q[sg8] + (k0 + row) * static_cast<long long>(g.ld[sg8]) +
+                            seg_col(nc + 8, sg8),
+                        true);
+        }
       }
     }
     if constexpr (R8) {                // the columns' scales, 4 a copy
@@ -673,15 +709,17 @@ struct GemvRun {
         }
       }
     } else {                           // [kKC rows k][NT n]
-      const int sg = segment(n0);
-      const float* sc = g.s[sg] + seg_col(n0, sg);
       for (int e = threadIdx.x; e < kKC * NT / 16; e += kThreads) {
         const int row = e / (NT / 16), n16 = e % (NT / 16) * 16;
         float v[16], f[16];
         load16_narrow(raw + row * NT + n16, v);
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          const float4 s4 = __ldg(reinterpret_cast<const float4*>(sc + n16) + x);
+          // four columns' scales, all of one segment (segments end at
+          // multiples of 8 columns)
+          const int col = n0 + n16 + 4 * x, sg = segment(col);
+          const float4 s4 = __ldg(reinterpret_cast<const float4*>(
+              g.s[sg] + seg_col(col, sg)));
           f[4 * x] = s4.x; f[4 * x + 1] = s4.y; f[4 * x + 2] = s4.z; f[4 * x + 3] = s4.w;
         }
 #pragma unroll
@@ -721,15 +759,18 @@ struct GemvRun {
                        true);
       }
     } else {                           // kKC rows k of NT elements
-      const int s = segment(n0);
-      const T* W = g.w[s] + seg_col(n0, s);
-      const long long ld = g.ld[s];
+      // each 16-byte copy from its own segment: a tile may hold columns of
+      // two (they end at multiples of the head dim, so a copy never does)
       constexpr int CPR = NT / VEC;
 #pragma unroll
       for (int i = 0; i < Q::W_BYTES / 16 / kThreads; ++i) {
         const int e = tid + i * kThreads, row = e / CPR, cc = e % CPR;
+        const int nc = n0 + cc * VEC, s = segment(nc);
         const int dc = Q::BF ? (cc ^ (row & 7)) : cc;
-        tc::cp_async16(sw + row * NT + dc * VEC, W + (k0 + row) * ld + cc * VEC, true);
+        tc::cp_async16(sw + row * NT + dc * VEC,
+                       g.w[s] + (k0 + row) * static_cast<long long>(g.ld[s]) +
+                           seg_col(nc, s),
+                       true);
       }
     }
   }
@@ -752,17 +793,20 @@ struct GemvRun {
 
   // an NT-column tile's group and the pieces the group holds (see Kind);
   // a tile's pieces are those of the plan tile holding it
-  __device__ int tiles_a_head() const { return g.kind == kQKV ? D / NT : 1; }
+  __device__ int group_tiles() const {
+    return g.kind == kQKV ? qkv_group_heads(a.hd, NT) * a.hd / NT : 1;
+  }
   __device__ int group_of(int t) const {
-    return g.kind == kQKV ? t / tiles_a_head()
+    return g.kind == kQKV ? t / group_tiles()
          : g.kind == kGateUp ? t % (g.N / NT / 2) : t;
   }
   __device__ int tile_pieces(int t) const { return p.pieces(t * NT / CW); }
   __device__ int group_pieces(int grp) const {
     if (g.kind == kGateUp)
       return tile_pieces(grp) + tile_pieces(grp + g.N / NT / 2);
+    const int gt = group_tiles();
     int s = 0;
-    for (int t = grp * tiles_a_head(); t < (grp + 1) * tiles_a_head(); ++t)
+    for (int t = grp * gt; t < min((grp + 1) * gt, g.N / NT); ++t)
       s += tile_pieces(t);
     return s;
   }
@@ -1076,16 +1120,16 @@ __device__ void row_phase(const Args<T, KT>& a, int r, bool embed, const T* w,
 template <typename T, int D, typename KT, int QM>
 __device__ void attn_item(const Args<T, KT>& a, int l, int it,
                           unsigned char* smem, float scale) {
-  const int ns = a.n_split, nkv = a.nkv, G = a.nh / nkv, R = a.R;
+  const int ns = a.n_split, nkv = a.nkv, G = a.nh / nkv, R = a.R, hd = a.hd;
   const int split = ns - 1 - it / (nkv * R), kvh = it / R % nkv, r = it % R;
-  const long long qo = (static_cast<long long>(r) * a.nh + kvh * G) * D;
+  const long long qo = (static_cast<long long>(r) * a.nh + kvh * G) * hd;
   const int len = min(max(a.meta[r] + a.meta[R + r], 0), a.mb * a.bs);
   const int* row_tbl = a.tables + static_cast<long long>(r) * a.mb;
-  const long long kv_row = static_cast<long long>(nkv) * D;
+  const long long kv_row = static_cast<long long>(nkv) * hd;
   const int nb = a.nb, bs = a.bs;
   auto key_off = [&](int p) -> long long {
     const int phys = min(max(row_tbl[p / bs], 0), nb - 1);
-    return (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D;
+    return (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * hd;
   };
   const long long layer_off = static_cast<long long>(l) * nb * bs * kv_row;
   // a quantized pool's planes of layer l: [nb, bs, nkv] (int8) or [nb,
@@ -1103,8 +1147,8 @@ __device__ void attn_item(const Args<T, KT>& a, int l, int it,
   skv::split_kv_walk<T, D, NACC>(a.q, a.pool_k + layer_off,                 \
                                  a.pool_v + layer_off, a.attn, a.part_m,    \
                                  a.part_l, a.part_acc, a.tickets, smem, qo, \
-                                 len, key_off, sc, G, r, kvh, nkv, split,   \
-                                 a.split_len, ns, scale)
+                                 len, key_off, sc, G, hd, r, kvh, nkv,      \
+                                 split, a.split_len, ns, scale)
   // (with_nacc's rule: one register only where D itself fits kThreads)
   if constexpr (D <= kThreads) {
     if (G * D <= kThreads) {
@@ -1268,8 +1312,9 @@ fused_tick_kernel(Args<T, KT> a) {
   if (threadIdx.x == 0) gen = *reinterpret_cast<volatile unsigned*>(&a.bar[1]);
   const int nblk = gridDim.x, b0 = blockIdx.x;
   const int H = a.H, R = a.R, I = a.I, nh = a.nh, nkv = a.nkv, V = a.V;
-  const int nq = (nh + 2 * nkv) * D;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+  const int hd = a.hd;
+  const int nq = (nh + 2 * nkv) * hd;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   constexpr bool w8 = W8;
   // weight w (0 wq .. 6 wd, 7 the head) of layer l at element offset off:
   // the dense array, or the int8 one and its scales (offset soff)
@@ -1289,16 +1334,18 @@ fused_tick_kernel(Args<T, KT> a) {
   grid_sync(a.bar, gen);
   for (int l = 0; l < a.L; ++l) {
     const long long lh = static_cast<long long>(l) * H;
-    const long long lo = static_cast<long long>(l) * nh * D * H;
+    const long long lo = static_cast<long long>(l) * nh * hd * H;
     const long long ld = static_cast<long long>(l) * I * H;
     const Gemv<T> qkv{a.hn, H, H, nq,
-                      {dense(a.wq, lh * nh * D), dense(a.wk, lh * nkv * D),
-                       dense(a.wv, lh * nkv * D)},
-                      {nh * D, nkv * D, nkv * D}, {nh * D, (nh + nkv) * D, nq},
-                      false, kQKV, l,
-                      {q8(0, lh * nh * D), q8(1, lh * nkv * D), q8(2, lh * nkv * D)},
-                      {s8(0, l * nh * D), s8(1, l * nkv * D), s8(2, l * nkv * D)}};
-    const Gemv<T> o{a.attn, nh * D, nh * D, H, {dense(a.wo, lo), nullptr, nullptr},
+                      {dense(a.wq, lh * nh * hd), dense(a.wk, lh * nkv * hd),
+                       dense(a.wv, lh * nkv * hd)},
+                      {nh * hd, nkv * hd, nkv * hd},
+                      {nh * hd, (nh + nkv) * hd, nq}, false, kQKV, l,
+                      {q8(0, lh * nh * hd), q8(1, lh * nkv * hd),
+                       q8(2, lh * nkv * hd)},
+                      {s8(0, l * nh * hd), s8(1, l * nkv * hd),
+                       s8(2, l * nkv * hd)}};
+    const Gemv<T> o{a.attn, nh * hd, nh * hd, H, {dense(a.wo, lo), nullptr, nullptr},
                     {H, H, H}, {H, H, H}, false, kResid, l,
                     {q8(3, lo), nullptr, nullptr}, {s8(3, lh), nullptr, nullptr}};
     const Gemv<T> gu{a.hn, H, H, 2 * I,
@@ -1430,17 +1477,12 @@ cudaError_t dispatch(int D, void** p, const int* n, float eps,
   a.R = n[0]; a.L = n[1]; a.H = n[2]; a.nh = n[3]; a.nkv = n[4];
   a.I = n[5]; a.V = n[6]; a.nb = n[7]; a.bs = n[8]; a.mb = n[9];
   a.s_rows = n[10]; a.tied = n[11]; a.split_len = n[12]; a.n_split = n[13];
+  a.hd = D;
   a.eps = eps;
-  switch (D) {
-    case 64:
-      return pt::ft::launch<T, 64, KT, QM, W8>(a, max_blocks_per_sm, stream, grid_out);
-    case 128:
-      return pt::ft::launch<T, 128, KT, QM, W8>(a, max_blocks_per_sm, stream, grid_out);
-    case 256:
-      return pt::ft::launch<T, 256, KT, QM, W8>(a, max_blocks_per_sm, stream, grid_out);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_head_dim(D, [&](auto dp) {
+    return pt::ft::launch<T, decltype(dp)::value, KT, QM, W8>(
+        a, max_blocks_per_sm, stream, grid_out);
+  });
 }
 
 // the pool type of MODE: the model's type T (0), int8 (1) or e4m3 (2)
@@ -1457,8 +1499,9 @@ using PoolT = typename std::conditional<
 // int8 with per-row planes, 2 e4m3 with per-block planes) and W8 says the
 // weight slots hold int8 arrays [L, K, N] and the head's, with float32
 // scales [L, N] and [V]; a cap on blocks per SM (0 = as many as fit);
-// grid_out receives the launched grid size. H, I, V and the QKV width
-// must be multiples of 64 (the wrapper checks); part holds the GEMV pieces
+// grid_out receives the launched grid size. D % 8 == 0, 8 <= D <= 256;
+// H, I, V and the QKV width (nh + 2 nkv) * D must be multiples of 64 (the
+// wrapper checks); part holds the GEMV pieces
 // (kernels/fused_decode_tick.py sizes it for the largest grid the cap
 // allows).
 template <int MODE, bool W8>
@@ -1481,7 +1524,7 @@ int fused_tick_entry(
                  sq, sk, sv, so, sg, su, sd, shead};
   const int n[14] = {R, L, H, nh, nkv, I, V, nb, bs, mb, s_rows, tied,
                      split_len, n_split};
-  if (R < 1 || H % 64 || I % 64 || V % 64 ||
+  if (R < 1 || H % 64 || I % 64 || V % 64 || (nh + 2 * nkv) * D % 64 ||
       pt::skv::bad_split_args(nh, nkv, D, mb * bs, split_len, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((MODE != 0) != (k_scale != nullptr && v_scale != nullptr))

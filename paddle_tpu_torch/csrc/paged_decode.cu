@@ -16,6 +16,8 @@
 // KV head) to finish, in the same launch. This file says where a row's keys
 // live: key p of row b is row p % bs of pool block tables[b][p / bs], and
 // sentinel table entries are clamped into the pool. One launch per call.
+// Any head dim D % 8 == 0 up to 256 runs at its padded width (64, 128 or
+// 256; attention_common.cuh), the pool's rows read D elements each.
 //
 // Quantized pools (the reference's int8 and fp8 modes, _paged_kernel's
 // quantized branches): int8 K/V with per-row-per-head float32 scale planes
@@ -29,7 +31,8 @@
 namespace pt {
 namespace pd {
 
-template <typename T, int D, typename KT, int QM, int NACC>
+// kPad: hd < D; without it hd is D and the walk's column checks fold away
+template <typename T, int D, typename KT, int QM, int NACC, bool kPad>
 __global__ void __launch_bounds__(skv::kNT)
 paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
                     const KT* __restrict__ pool_v,
@@ -39,20 +42,21 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part_m, float* __restrict__ part_l,
                     float* __restrict__ part_acc, int* __restrict__ tickets,
-                    int H, int Hkv, int nb, int bs, int mb, int split_len,
-                    int n_split, float scale) {
+                    int H, int Hkv, int hd, int nb, int bs, int mb,
+                    int split_len, int n_split, float scale) {
+  if constexpr (!kPad) hd = D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / Hkv;
-  // the G query heads of this KV head are consecutive: one [G, D] slab
-  const long long qo = (static_cast<long long>(b) * H + kvh * G) * D;
+  // the G query heads of this KV head are consecutive: one [G, hd] slab
+  const long long qo = (static_cast<long long>(b) * H + kvh * G) * hd;
   const int len = min(max(lengths[b], 0), mb * bs);
   const int* row_tbl = tables + static_cast<long long>(b) * mb;
-  const long long kv_row = static_cast<long long>(Hkv) * D;
+  const long long kv_row = static_cast<long long>(Hkv) * hd;
   auto key_off = [&](int p) -> long long {
     const int phys = min(max(row_tbl[p / bs], 0), nb - 1);
-    return (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D;
+    return (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * hd;
   };
   // a key's scale: per row and head (int8), per block and head (fp8)
   auto scale_off = [&](int p) -> long long {
@@ -64,11 +68,11 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
                                  key_off,
                                  Scales<QM, decltype(scale_off)>{
                                      k_scale, v_scale, scale_off},
-                                 G, b, kvh, Hkv, blockIdx.x, split_len,
+                                 G, hd, b, kvh, Hkv, blockIdx.x, split_len,
                                  n_split, scale);
 }
 
-// One launch at head dim D: a pool of the query's type keeps the widest
+// One launch at padded width D: a pool of the query's type keeps the widest
 // accumulator (the page walk as it was); a quantized pool's walk takes as
 // few accumulator registers as G * D needs (skv::with_nacc; the same
 // bits).
@@ -76,14 +80,20 @@ template <typename T, int D, typename KT, int QM>
 cudaError_t launch_d(const T* q, const KT* pk, const KT* pv, const float* ks,
                      const float* vs, const int* tables, const int* lengths,
                      T* out, float* pm, float* pl, float* pa, int* tickets,
-                     int B, int H, int Hkv, int nb, int bs, int mb,
+                     int B, int H, int Hkv, int hd, int nb, int bs, int mb,
                      int split_len, int n_split, float scale,
                      cudaStream_t s) {
   auto go = [&](auto nacc) {
+    constexpr int NACC = decltype(nacc)::value;
+    // the unpadded instantiation for a bf16 query at hd == D (float32
+    // keeps the padded one: a shorter build, off the bf16 serving path)
+    auto kernel = paged_decode_kernel<T, D, KT, QM, NACC, true>;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      if (hd == D) kernel = paged_decode_kernel<T, D, KT, QM, NACC, false>;
     return skv::launch_walk<T, D, KT>(
-        paged_decode_kernel<T, D, KT, QM, decltype(nacc)::value>, H / Hkv,
-        n_split, Hkv, B, s, q, pk, pv, ks, vs, tables, lengths, out, pm, pl,
-        pa, tickets, H, Hkv, nb, bs, mb, split_len, n_split, scale);
+        kernel, H / Hkv, n_split, Hkv, B, s, q, pk, pv, ks, vs, tables,
+        lengths, out, pm, pl, pa, tickets, H, Hkv, hd, nb, bs, mb,
+        split_len, n_split, scale);
   };
   if constexpr (QM == 0)
     return go(std::integral_constant<int, skv::kMaxAcc>{});
@@ -103,19 +113,11 @@ cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
   const KT* kt = static_cast<const KT*>(pk);
   const KT* vt = static_cast<const KT*>(pv);
   T* ot = static_cast<T*>(out);
-#define PT_PAGED(DD)                                                        \
-  case DD:                                                                  \
-    return launch_d<T, DD, KT, QM>(qt, kt, vt, ks, vs, tables, lengths, ot, \
-                                   pm, pl, pa, tickets, B, H, Hkv, nb, bs,  \
-                                   mb, split_len, n_split, scale, s);
-  switch (D) {
-    PT_PAGED(64)
-    PT_PAGED(128)
-    PT_PAGED(256)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PT_PAGED
+  return with_head_dim(D, [&](auto dp) {
+    return launch_d<T, decltype(dp)::value, KT, QM>(
+        qt, kt, vt, ks, vs, tables, lengths, ot, pm, pl, pa, tickets, B, H,
+        Hkv, D, nb, bs, mb, split_len, n_split, scale, s);
+  });
 }
 
 // Every (query type, pool mode) of one head dim: mode 0 the pool in the
@@ -152,10 +154,11 @@ cudaError_t dispatch_mode(int mode, int D, const void* q, const void* pk,
 // q [B,H,D]; pool_k/pool_v [nb,bs,Hkv,D]: the query's type (mode 0), int8
 // (mode 1, k_scale/v_scale float32 [nb,bs,Hkv]) or e4m3 (mode 2,
 // k_scale/v_scale float32 [nb,Hkv]); the planes are null in mode 0.
-// tables [B,mb] int32; lengths [B] int32; out [B,H,D]. Scratch:
-// part_m/part_l [B,Hkv,n_split,G] and part_acc [B,Hkv,n_split,G,D]
-// float32; tickets [>= B*Hkv] int32, zero before the launch and left zero
-// by it. split_len: keys a split (a multiple of 32); n_split * split_len
+// tables [B,mb] int32; lengths [B] int32; out [B,H,D]; D % 8 == 0, 8 <=
+// D <= 256. Scratch: part_m/part_l [B,Hkv,n_split,G] and part_acc
+// [B,Hkv,n_split,G,Dp] float32 (Dp: D's padded width, 64, 128 or 256);
+// tickets [>= B*Hkv] int32, zero before the launch and left zero by it.
+// split_len: keys a split (a multiple of 32); n_split * split_len
 // >= mb * bs. is_bf16: 0 = float32, 1 = bfloat16.
 extern "C" int pt_paged_decode(const void* q, const void* pool_k,
                                const void* pool_v, const void* k_scale,

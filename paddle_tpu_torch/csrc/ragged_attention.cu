@@ -56,7 +56,11 @@
 // float32 chunk spans take ragged_kernel, each K/V tile converted to
 // float32 as it lands, with the same order (attention_common.cuh).
 //
-// GQA indexes the KV head as h / (H / Hkv) (K/V never repeated). Numbers:
+// Any head dim D % 8 == 0 up to 256 runs at its padded width Dp (64, 128
+// or 256; attention_common.cuh): tiles of Dp columns, those past D
+// zero-filled by the copies (a narrow row of D % 16 == 8 bytes by 8-byte
+// copies), D columns written. GQA indexes the KV head as h / (H / Hkv)
+// (K/V never repeated). Numbers:
 // P is rounded to the input type per key tile (or page) against a running
 // max where the plain version rounds the normalised P, so the kernels
 // agree with it within chip_smoke.py's TOL; a span-1 row and a paged
@@ -76,7 +80,8 @@ __device__ __forceinline__ long long scale_index(int phys, int p, int bs,
                  : (static_cast<long long>(phys) * bs + p % bs) * Hkv + kvh;
 }
 
-template <typename T, int D, typename KT, int QM, int NACC>
+// kPad: hd < D; without it hd is D and the walk's column checks fold away
+template <typename T, int D, typename KT, int QM, int NACC, bool kPad>
 __global__ void __launch_bounds__(skv::kNT)
 ragged_split_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
                     const KT* __restrict__ pool_v,
@@ -88,20 +93,21 @@ ragged_split_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
                     const int* __restrict__ kvlen, T* __restrict__ out,
                     float* __restrict__ part_m, float* __restrict__ part_l,
                     float* __restrict__ part_acc, int* __restrict__ tickets,
-                    int H, int Hkv, int nb, int bs, int mb, int split_len,
-                    int n_split, float scale) {
+                    int H, int Hkv, int hd, int nb, int bs, int mb,
+                    int split_len, int n_split, float scale) {
+  if constexpr (!kPad) hd = D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kvh = blockIdx.y;
   const int r = blockIdx.z;
   if (qlen[r] != 1) return;                   // not a decode row
   const int G = H / Hkv;
-  const long long qo = (static_cast<long long>(qstart[r]) * H + kvh * G) * D;
+  const long long qo = (static_cast<long long>(qstart[r]) * H + kvh * G) * hd;
   const int len = min(max(kvlen[r], 0), mb * bs);
   const int* row_tbl = tables + static_cast<long long>(r) * mb;
-  const long long kv_row = static_cast<long long>(Hkv) * D;
+  const long long kv_row = static_cast<long long>(Hkv) * hd;
   auto key_off = [&](int p) -> long long {
     const int phys = min(max(row_tbl[p / bs], 0), nb - 1);
-    return (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D;
+    return (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * hd;
   };
   auto scale_off = [&](int p) -> long long {
     return scale_index<QM>(min(max(row_tbl[p / bs], 0), nb - 1), p, bs, Hkv,
@@ -112,7 +118,7 @@ ragged_split_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
                                  key_off,
                                  Scales<QM, decltype(scale_off)>{
                                      k_scale, v_scale, scale_off},
-                                 G, r, kvh, Hkv, blockIdx.x, split_len,
+                                 G, hd, r, kvh, Hkv, blockIdx.x, split_len,
                                  n_split, scale);
 }
 
@@ -127,7 +133,7 @@ ragged_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
               const int* __restrict__ tables,
               const int* __restrict__ qstart, const int* __restrict__ qlen,
               const int* __restrict__ kvlen, T* __restrict__ out, int H,
-              int Hkv, int nb, int bs, int mb, float scale) {
+              int Hkv, int hd, int nb, int bs, int mb, float scale) {
   extern __shared__ __align__(16) float smem[];
   using S = TileShape<T, D, kRaggedTQ>;
   const int tile = blockIdx.x;
@@ -145,14 +151,14 @@ ragged_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
   if (threadIdx.x < kRaggedTQ) {
     const int i = threadIdx.x;
     s_qoff[i] = i < rows
-        ? (static_cast<long long>(qs + i0 + i) * H + h) * D : -1LL;
+        ? (static_cast<long long>(qs + i0 + i) * H + h) * hd : -1LL;
   }
   const int kv_valid = min(max(kl, 0), mb * bs);
   const int kv_stop = min(kv_valid, max(first_pos + rows, 0));
   const int* row_tbl = tables + static_cast<long long>(r) * mb;
   auto key_off = [&](int p) -> long long {
     const int phys = min(max(row_tbl[p / bs], 0), nb - 1);
-    return ((static_cast<long long>(phys) * bs + p % bs) * Hkv + kvh) * D;
+    return ((static_cast<long long>(phys) * bs + p % bs) * Hkv + kvh) * hd;
   };
   auto row_pos = [&](int i) { return first_pos + i; };
   auto scale_off = [&](int p) -> long long {
@@ -162,7 +168,7 @@ ragged_kernel(const T* __restrict__ q, const KT* __restrict__ pool_k,
   __syncthreads();
   attend_tile<T, D, kRaggedTQ>(
       q, pool_k, pool_v, out, smem, s_qoff, row_pos, kv_stop, kv_valid,
-      key_off, scale,
+      key_off, hd, scale,
       Scales<QM, decltype(scale_off)>{k_scale, v_scale, scale_off});
 }
 
@@ -193,8 +199,9 @@ constexpr int blocks_per_sm() {
 }
 
 // KT, QM: the pool (bf16, 0; int8, 1; e4m3, 2) and its scale planes
-// (null for a bf16 pool)
-template <int D, typename KT, int QM>
+// (null for a bf16 pool); kPad: hd < D (without it hd is D and the tiles'
+// column checks fold away)
+template <int D, typename KT, int QM, bool kPad>
 __global__ void __launch_bounds__(kNT, blocks_per_sm<D>())
 ragged_wgmma_kernel(const bf16* __restrict__ q,
                     const KT* __restrict__ pool_k,
@@ -205,7 +212,9 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
                     const int* __restrict__ qstart,
                     const int* __restrict__ qlen,
                     const int* __restrict__ kvlen, bf16* __restrict__ out,
-                    int H, int Hkv, int nb, int bs, int mb, float scale) {
+                    int H, int Hkv, int hd, int nb, int bs, int mb,
+                    float scale) {
+  if constexpr (!kPad) hd = D;
   const int r = blockIdx.y;
   const int h = blockIdx.z;
   const int ql = qlen[r];
@@ -233,10 +242,10 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
   // keys past the tile's last row are seen by no row of it
   const int kv_stop = min(kv_valid, max(first_pos + rows, 0));
   const int n_kt = (kv_stop + kBN - 1) / kBN;
-  const long long q_row = static_cast<long long>(H) * D;
-  const long long kv_row = static_cast<long long>(Hkv) * D;
+  const long long q_row = static_cast<long long>(H) * hd;
+  const long long kv_row = static_cast<long long>(Hkv) * hd;
   const long long q0 = static_cast<long long>(qstart[r]) + i0;
-  const bf16* qb = q + q0 * q_row + h * D;
+  const bf16* qb = q + q0 * q_row + h * hd;
   const int* row_tbl = tables + static_cast<long long>(r) * mb;
 
   const int warp = threadIdx.x >> 5;
@@ -253,17 +262,17 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
     const int st = j & 1, k0 = j * kBN;
     if constexpr (QM == 0) {
       tc::load_tile_paged<kBN, D, kNT>(sK + st * kBN * D, pool_k, row_tbl, k0,
-                                       kv_stop, nb, bs, kv_row, kvh);
+                                       kv_stop, nb, bs, kv_row, kvh, hd);
       tc::load_tile_paged<kBN, D, kNT>(sV + st * kBN * D, pool_v, row_tbl, k0,
-                                       kv_stop, nb, bs, kv_row, kvh);
+                                       kv_stop, nb, bs, kv_row, kvh, hd);
     } else {
       uint8_t* nk = sN + st * 2 * kBN * D;
       tc::load_tile_paged_narrow<kBN, D, kNT>(
           nk, reinterpret_cast<const uint8_t*>(pool_k), row_tbl, k0, kv_stop,
-          nb, bs, kv_row, kvh);
+          nb, bs, kv_row, kvh, hd);
       tc::load_tile_paged_narrow<kBN, D, kNT>(
           nk + kBN * D, reinterpret_cast<const uint8_t*>(pool_v), row_tbl, k0,
-          kv_stop, nb, bs, kv_row, kvh);
+          kv_stop, nb, bs, kv_row, kvh, hd);
       static_assert(kNT == 2 * kBN, "a scale a thread");
       const int p = k0 + (threadIdx.x & (kBN - 1));
       const bool ok = p < kv_stop;
@@ -276,7 +285,7 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
     }
   };
 
-  tc::load_tile<kBM, D, kNT>(sQ, qb, q_row, rows);
+  tc::load_tile<kBM, D, kNT>(sQ, qb, q_row, rows, hd);
   stage(0);
   tc::cp_async_commit();
 
@@ -407,9 +416,10 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
     const float lr = fmaxf(tc::quad_sum(l[rr]), 1e-30f);
     const int i = warp * 16 + (lane >> 2) + 8 * rr;
     if (i >= rows) continue;
-    bf16* orow = out + (q0 + i) * q_row + h * D;
+    bf16* orow = out + (q0 + i) * q_row + h * hd;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
+      if (n * 8 >= hd) break;
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
           tc::pack_bf16(o[n][2 * rr] / lr, o[n][2 * rr + 1] / lr);
     }
@@ -418,23 +428,31 @@ ragged_wgmma_kernel(const bf16* __restrict__ q,
 
 }  // namespace rtc
 
-// Both grids of one call, split-KV first, on one stream. bf16 chunks take
-// the wgmma tile on any pool; float32 chunks the CUDA-core tile.
+// Both grids of one call at padded width D of head dim hd, split-KV
+// first, on one stream. bf16 chunks take the wgmma tile on any pool;
+// float32 chunks the CUDA-core tile.
 template <typename T, int D, typename KT, int QM>
 cudaError_t launch(const T* q, const KT* pk, const KT* pv, const float* ks,
                    const float* vs, const int* tables, const int* qs,
                    const int* ql, const int* kl, T* out, float* pm, float* pl,
                    float* pa, int* tickets, int T_, int R, int H, int Hkv,
-                   int nb, int bs, int mb, int split_len, int n_split,
+                   int hd, int nb, int bs, int mb, int split_len, int n_split,
                    cudaStream_t stream) {
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   // the split-KV grid: a quantized pool's walk with as few accumulator
   // registers as G * D needs, as paged_decode.cu launches it
   auto split_grid = [&](auto nacc) {
+    constexpr int NACC = decltype(nacc)::value;
+    // the unpadded instantiation for a bf16 query at hd == D (float32
+    // keeps the padded one: a shorter build, off the bf16 serving path)
+    auto kernel = ragged_split_kernel<T, D, KT, QM, NACC, true>;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      if (hd == D) kernel = ragged_split_kernel<T, D, KT, QM, NACC, false>;
     return skv::launch_walk<T, D, KT>(
-        ragged_split_kernel<T, D, KT, QM, decltype(nacc)::value>, H / Hkv,
+        kernel, H / Hkv,
         n_split, Hkv, R, stream, q, pk, pv, ks, vs, tables, qs, ql, kl, out,
-        pm, pl, pa, tickets, H, Hkv, nb, bs, mb, split_len, n_split, scale);
+        pm, pl, pa, tickets, H, Hkv, hd, nb, bs, mb, split_len, n_split,
+        scale);
   };
   cudaError_t err;
   if constexpr (QM == 0)
@@ -445,14 +463,15 @@ cudaError_t launch(const T* q, const KT* pk, const KT* pv, const float* ks,
   // no span is longer than the packed buffer, so ceil(T / rows a tile)
   // tiles cover every span
   if constexpr (sizeof(T) == 2) {
-    auto kernel = rtc::ragged_wgmma_kernel<D, KT, QM>;
+    auto kernel = hd == D ? rtc::ragged_wgmma_kernel<D, KT, QM, false>
+                          : rtc::ragged_wgmma_kernel<D, KT, QM, true>;
     constexpr size_t smem = rtc::smem_bytes<D, QM>();
     err = tc::use_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((T_ + rtc::kBM - 1) / rtc::kBM, R, H);
     kernel<<<grid, rtc::kNT, smem, stream>>>(q, pk, pv, ks, vs, tables, qs,
-                                             ql, kl, out, H, Hkv, nb, bs, mb,
-                                             scale);
+                                             ql, kl, out, H, Hkv, hd, nb, bs,
+                                             mb, scale);
   } else {
     using S = TileShape<T, D, kRaggedTQ>;
     auto kernel = ragged_kernel<T, D, KT, QM>;
@@ -460,7 +479,7 @@ cudaError_t launch(const T* q, const KT* pk, const KT* pv, const float* ks,
     if (err != cudaSuccess) return err;
     dim3 grid((T_ + kRaggedTQ - 1) / kRaggedTQ, R, H);
     kernel<<<grid, kThreads, S::SMEM_BYTES, stream>>>(
-        q, pk, pv, ks, vs, tables, qs, ql, kl, out, H, Hkv, nb, bs, mb,
+        q, pk, pv, ks, vs, tables, qs, ql, kl, out, H, Hkv, hd, nb, bs, mb,
         scale);
   }
   return cudaGetLastError();
@@ -477,22 +496,11 @@ cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
   const KT* kt = static_cast<const KT*>(pk);
   const KT* vt = static_cast<const KT*>(pv);
   T* ot = static_cast<T*>(out);
-  switch (D) {
-    case 64:
-      return launch<T, 64, KT, QM>(qt, kt, vt, ks, vs, tables, qs, ql, kl,
-                                   ot, pm, pl, pa, tickets, T_, R, H, Hkv,
-                                   nb, bs, mb, split_len, n_split, s);
-    case 128:
-      return launch<T, 128, KT, QM>(qt, kt, vt, ks, vs, tables, qs, ql, kl,
-                                    ot, pm, pl, pa, tickets, T_, R, H, Hkv,
-                                    nb, bs, mb, split_len, n_split, s);
-    case 256:
-      return launch<T, 256, KT, QM>(qt, kt, vt, ks, vs, tables, qs, ql, kl,
-                                    ot, pm, pl, pa, tickets, T_, R, H, Hkv,
-                                    nb, bs, mb, split_len, n_split, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_head_dim(D, [&](auto dp) {
+    return launch<T, decltype(dp)::value, KT, QM>(
+        qt, kt, vt, ks, vs, tables, qs, ql, kl, ot, pm, pl, pa, tickets, T_,
+        R, H, Hkv, D, nb, bs, mb, split_len, n_split, s);
+  });
 }
 
 // every pool mode of one query type (mode 0: the query's type, 1: int8
@@ -530,10 +538,11 @@ cudaError_t dispatch_mode(int mode, int D, const void* q, const void* pk,
 // [R,mb] int32; qstart,
 // qlen, kvlen [R] int32; out [T,H,D], zeroed by the caller (rows outside
 // every span are not written). Scratch of the span-1 rows' split-KV walk:
-// part_m/part_l [R,Hkv,n_split,G] and part_acc [R,Hkv,n_split,G,D]
-// float32; tickets [>= R*Hkv] int32, zero before the launch and left zero
-// by it. split_len: keys a split (a multiple of 32); n_split * split_len
-// >= mb * bs. D: 64, 128 or 256. is_bf16: 0 = float32, 1 = bfloat16.
+// part_m/part_l [R,Hkv,n_split,G] and part_acc [R,Hkv,n_split,G,Dp]
+// float32 (Dp: D's padded width, 64, 128 or 256); tickets [>= R*Hkv]
+// int32, zero before the launch and left zero by it. split_len: keys a
+// split (a multiple of 32); n_split * split_len >= mb * bs. D % 8 == 0,
+// 8 <= D <= 256. is_bf16: 0 = float32, 1 = bfloat16.
 extern "C" int pt_ragged_attention(const void* q, const void* pool_k,
                                    const void* pool_v, const void* k_scale,
                                    const void* v_scale, const void* tables,

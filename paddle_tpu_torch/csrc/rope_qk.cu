@@ -21,13 +21,15 @@
 // TB/s); the tables add 2 MiB.
 //
 // Design: one block per run of kRun positions. Each thread owns one
-// position of the run and one pair of 16-byte chunks (columns d and
-// d + D/2) for the whole block, so it reads its table entries once, into
-// registers, and then walks every (batch, head) row of Q and then of K at
-// that position. The tables are read from memory about once a launch, not
-// once a head. A warp covers kRun consecutive positions of a head: one
-// contiguous run of rows in head-major [B, H, S, D] memory. No shared
-// memory, no barrier.
+// position of the run and one pair of chunks (columns d and d + D/2) for
+// the whole block, so it reads its table entries once, into registers,
+// and then walks every (batch, head) row of Q and then of K at that
+// position. The tables are read from memory about once a launch, not
+// once a head. A chunk is 16 bytes, or 8 bytes of bf16 where D/2 is not a
+// multiple of 8 (D % 16 == 8: the upper half starts 8-byte aligned), and
+// the head dim is a run-time value (any D % 8 == 0 up to 256): the block's
+// HC * kRun chunk pairs a sweep (HC = D/2 / VEC a row) are its first
+// threads, the rest idle. No shared memory, no barrier.
 //
 // Layouts: Q and its output through one set of element strides (batch,
 // sequence, head; D contiguous), K and its output through another, as the
@@ -40,28 +42,55 @@ namespace rope {
 constexpr int kNT = 256;   // threads a block
 constexpr int kRun = 4;    // positions a block
 
-// floats -> 16 bytes of T, rounded to nearest even (as from_f rounds)
-__device__ __forceinline__ void store16(float* p, const float* v) {
+// VEC values of T <-> floats: 16 bytes of float32 or bf16, or 8 of bf16;
+// stores round to nearest even (as from_f rounds)
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float* o) {
+  static_assert(VEC == 4, "16 bytes of float32");
+  load16(p, o);
+}
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* o) {
+  if constexpr (VEC == 8) {
+    load16(p, o);
+  } else {
+    static_assert(VEC == 4, "8 or 16 bytes of bf16");
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  alignas(16) __nv_bfloat162 h[VEC / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
+  for (int i = 0; i < VEC / 2; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  if constexpr (VEC == 8)
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+  else
+    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
-template <typename T, int D>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kNT)
 rope_qk_kernel(const T* __restrict__ q, const T* __restrict__ k,
                T* __restrict__ qr, T* __restrict__ kr,
                const float* __restrict__ sin, const float* __restrict__ cos,
-               RowStrides qs, RowStrides ks, int B, int S, int H, int Hk) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int HC = D / 2 / VEC;          // chunk pairs a row
-  constexpr int RS = kNT / (HC * kRun);    // rows a sweep of the block
-  static_assert(kNT % (HC * kRun) == 0, "a sweep covers whole rows");
+               RowStrides qs, RowStrides ks, int B, int S, int H, int Hk,
+               int D) {
+  const int HC = D / 2 / VEC;              // chunk pairs a row
+  const int RS = kNT / (HC * kRun);        // rows a sweep of the block
+  if (threadIdx.x >= RS * HC * kRun) return;
   const int c = threadIdx.x % HC;
   const int pos = blockIdx.x * kRun + (threadIdx.x / HC) % kRun;
   if (pos >= S) return;
@@ -89,25 +118,26 @@ rope_qk_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* src = (is_q ? q : k) + off;
     T* dst = (is_q ? qr : kr) + off;
     float a[VEC], b[VEC];
-    load16(src, a);
-    load16(src + D / 2, b);
+    load_vec<VEC>(src, a);
+    load_vec<VEC>(src + D / 2, b);
 #pragma unroll
     for (int x = 0; x < VEC; ++x)
       rope_pair(a[x], b[x], c1[x], s1[x], c2[x], s2[x], a[x], b[x]);
-    store16(dst, a);
-    store16(dst + D / 2, b);
+    store_vec<VEC>(dst, a);
+    store_vec<VEC>(dst + D / 2, b);
   }
 }
 
-template <typename T, int D>
+// chunks of VEC values of T: 16 bytes, or 8 of bf16 where D / 2 % 8 != 0
+template <typename T, int VEC>
 cudaError_t launch(const void* q, const void* k, void* qr, void* kr,
                    const float* sin, const float* cos, RowStrides qs,
-                   RowStrides ks, int B, int S, int H, int Hk,
+                   RowStrides ks, int B, int S, int H, int Hk, int D,
                    cudaStream_t stream) {
-  rope_qk_kernel<T, D><<<(S + kRun - 1) / kRun, kNT, 0, stream>>>(
+  rope_qk_kernel<T, VEC><<<(S + kRun - 1) / kRun, kNT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<T*>(qr), static_cast<T*>(kr), sin, cos, qs, ks, B, S, H,
-      Hk);
+      Hk, D);
   return cudaGetLastError();
 }
 
@@ -115,7 +145,8 @@ cudaError_t launch(const void* q, const void* k, void* qr, void* kr,
 }  // namespace pt
 
 // q/qr [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/kr [B,S,Hk,D]
-// through (k_sb, k_ss, k_sh), D contiguous; sin/cos [S,D] float32.
+// through (k_sb, k_ss, k_sh), D contiguous, D % 8 == 0 and 8 <= D <= 256;
+// sin/cos [S,D] float32.
 // is_bf16: 0 = float32, 1 = bfloat16.
 extern "C" int pt_rope_qk(const void* q, const void* k, void* qr, void* kr,
                           const void* sin, const void* cos, int B, int S,
@@ -124,23 +155,20 @@ extern "C" int pt_rope_qk(const void* q, const void* k, void* qr, void* kr,
                           long long k_ss, long long k_sh, int is_bf16,
                           void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (H <= 0 || Hk <= 0 || sin == nullptr || cos == nullptr)
+  if (H <= 0 || Hk <= 0 || sin == nullptr || cos == nullptr ||
+      !pt::head_dim_ok(D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sn = static_cast<const float*>(sin);
   const float* cs = static_cast<const float*>(cos);
   const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
   using bf16 = __nv_bfloat16;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64)
-    err = is_bf16 ? pt::rope::launch<bf16, 64>(q, k, qr, kr, sn, cs, qs, ks,
-                                               B, S, H, Hk, s)
-                  : pt::rope::launch<float, 64>(q, k, qr, kr, sn, cs, qs, ks,
-                                                B, S, H, Hk, s);
-  else if (D == 128)
-    err = is_bf16 ? pt::rope::launch<bf16, 128>(q, k, qr, kr, sn, cs, qs,
-                                                ks, B, S, H, Hk, s)
-                  : pt::rope::launch<float, 128>(q, k, qr, kr, sn, cs, qs,
-                                                 ks, B, S, H, Hk, s);
+  cudaError_t err =
+      !is_bf16 ? pt::rope::launch<float, 4>(q, k, qr, kr, sn, cs, qs, ks, B,
+                                            S, H, Hk, D, s)
+      : D / 2 % 8 ? pt::rope::launch<bf16, 4>(q, k, qr, kr, sn, cs, qs, ks,
+                                              B, S, H, Hk, D, s)
+                  : pt::rope::launch<bf16, 8>(q, k, qr, kr, sn, cs, qs, ks,
+                                              B, S, H, Hk, D, s);
   return static_cast<int>(err);
 }

@@ -10,10 +10,13 @@
 // paged decode's key_off, the persistent launch's blocks taking (split,
 // KV head, row) items from a counter). Each runs one block of kNT threads
 // per (split, KV head, row) and calls split_kv_walk with three things that
-// say where its row lives: the element offset of the row's [G, D] query
+// say where its row lives: the element offset of the row's [G, hd] query
 // slab (its output slab has the same offset), the row's key count, and
-// key_off(p), the element offset of key p's D-vector for this KV head in K
-// (and V).
+// key_off(p), the element offset of key p's hd-vector for this KV head in K
+// (and V). The walk runs at the padded width D of head dim hd
+// (attention_common.cuh): pages, the staged query and the accumulator are
+// D wide, the columns past hd zero-filled by the copies, and the partials
+// are [G, D] (kernels/split_kv.py scratch sizes them).
 //
 // Bound on this card: bytes. Every valid cached K/V row is read once for
 // 4*D flops a query head, far below the ~295 flops/byte at which the H100
@@ -103,7 +106,7 @@ constexpr int kMaxAcc = 16;   // accumulator elements a thread: G * D <= 2048
 template <typename T, int D, typename KT = T>
 struct Shape {
   static constexpr int CVEC = 16 / sizeof(KT);    // elements a 16-byte copy
-  static constexpr int CCH = D / CVEC;            // copies a row
+  static constexpr int CCH = D / CVEC;            // copies a padded row
   // elements a score chunk: a 16-byte load of T, 8 narrow values
   static constexpr int SVEC = sizeof(KT) == 1 ? 8 : 16 / sizeof(KT);
   static constexpr int SCH = D / SVEC;            // score chunks a row
@@ -160,23 +163,32 @@ size_t walk_smem_bytes(int G) {
 // counted by a ticket in a persistent zeroed buffer, which it resets to 0
 // — rescales them by exp(m_s - m_max) and sums them in split order, so the
 // bits do not depend on which block finished last. acc[a] is element
-// tid + kNT * a of the [G, D] accumulator; s_m / s_l the split's m and l,
-// in shared memory that every thread sees.
+// tid + kNT * a of the [G, D] accumulator (D padded; its columns past hd
+// are not written out); s_m / s_l the split's m and l, in shared memory
+// that every thread sees.
 template <typename T, int NACC>
 __device__ __forceinline__ void finish_split(
     const float (&acc)[NACC], const float* s_m, const float* s_l,
     T* __restrict__ out, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc,
-    int* __restrict__ tickets, long long qo, int G, int D, int row, int kvh,
-    int Hkv, int split, int n_split, int n_act) {
+    int* __restrict__ tickets, long long qo, int G, int D, int hd, int row,
+    int kvh, int Hkv, int split, int n_split, int n_act) {
   __shared__ int s_ticket;
   const int tid = threadIdx.x;
   const int GD = G * D;
+  // element e of the [G, D] accumulator in the [G, hd] output slab, and
+  // whether it is one of the row's columns (hd >= D: all are, and the
+  // checks fold away at the unpadded width)
+  auto out_at = [&](int e) {
+    return hd >= D ? qo + e : qo + e / D * hd + e % D;
+  };
+  auto own = [&](int e) { return hd >= D || e % D < hd; };
   if (n_act == 1) {   // the row's only split: normalise and write
 #pragma unroll
     for (int a = 0; a < NACC; ++a) {
       const int e = tid + a * kNT;
-      if (e < GD) out[qo + e] = from_f<T>(acc[a] / fmaxf(s_l[e / D], 1e-30f));
+      if (e < GD && own(e))
+        out[out_at(e)] = from_f<T>(acc[a] / fmaxf(s_l[e / D], 1e-30f));
     }
     return;
   }
@@ -203,7 +215,7 @@ __device__ __forceinline__ void finish_split(
 #pragma unroll
   for (int a = 0; a < NACC; ++a) {
     const int e = tid + a * kNT;
-    if (e < GD) {
+    if (e < GD && own(e)) {
       const int g = e / D;
       float m_max = kNegInf;
       for (int s = 0; s < n_act; ++s)
@@ -214,10 +226,33 @@ __device__ __forceinline__ void finish_split(
         sum = fmaf(w, __ldcg(part_acc + (ps + s) * GD + e), sum);
         l = fmaf(w, __ldcg(part_l + (ps + s) * G + g), l);
       }
-      out[qo + e] = from_f<T>(sum / fmaxf(l, 1e-30f));
+      out[out_at(e)] = from_f<T>(sum / fmaxf(l, 1e-30f));
     }
   }
   if (tid == 0) *ticket = 0;   // ready for the next launch
+}
+
+// The row's [G, hd] query slab at q + qo into sQ [G][D] as float32, zeros
+// past hd (through L2: the fused decode tick writes q earlier in the same
+// launch, and this SM's L1 may hold the previous layer's q)
+template <typename T, int D>
+__device__ __forceinline__ void stage_query(const T* __restrict__ q,
+                                            float* sQ, long long qo, int G,
+                                            int hd) {
+  constexpr int QV = 16 / sizeof(T);    // q elements a 16-byte load
+  for (int e = threadIdx.x; e < G * D / QV; e += kNT) {
+    const int g = e / (D / QV);
+    const int c = e % (D / QV) * QV;
+    float buf[QV];
+    if (hd >= D || c < hd) {
+      load16_cg(q + qo + g * hd + c, buf);
+    } else {
+#pragma unroll
+      for (int x = 0; x < QV; ++x) buf[x] = 0.f;
+    }
+#pragma unroll
+    for (int x = 0; x < QV; ++x) sQ[g * D + c + x] = buf[x];
+  }
 }
 
 // ---------------------------------------------- the narrow walk's pieces
@@ -303,7 +338,8 @@ __device__ __forceinline__ void narrow_walk(
     float* __restrict__ part_l, float* __restrict__ part_acc,
     int* __restrict__ tickets, unsigned char* smem_raw, long long qo,
     int s0, int s1, int n_act, KeyOff key_off, Scales<QM, ScaleOff> sc,
-    int G, int row, int kvh, int Hkv, int split, int n_split, float scale) {
+    int G, int hd, int row, int kvh, int Hkv, int split, int n_split,
+    float scale) {
   using N = Narrow<D>;
   constexpr int KW = N::KW, DL = N::DL, R = N::R, NST = N::NST;
   constexpr int GM = NACC * kNT / D > 0 ? NACC * kNT / D : 1;
@@ -320,8 +356,8 @@ __device__ __forceinline__ void narrow_walk(
   float* wA = wL + G;                           // alpha [G],
   float* wP = wA + G;                           // P [G][KW]
 
-  // this warp's keys of page pg into stage st; keys at or past s1
-  // zero-filled
+  // this warp's keys of page pg into stage st; keys at or past s1 and
+  // columns past hd zero-filled
   auto issue = [&](int pg, int st) {
     unsigned char* dK = ring + st * N::WSTAGE;
     unsigned char* dV = dK + KW * D;
@@ -334,8 +370,13 @@ __device__ __forceinline__ void narrow_walk(
       const int p = pw + j;
       const bool ok = p < s1;
       const long long off = ok ? key_off(p) + c * 16 : 0;
-      tc::cp_async16(dK + j * D + c * 16, k + off, ok);
-      tc::cp_async16(dV + j * D + c * 16, v + off, ok);
+      const int left = !ok ? 0 : hd >= D ? 16 : hd - c * 16;
+      tc::cp_async_row16(dK + j * D + c * 16,
+                         reinterpret_cast<const uint8_t*>(k + off), k, left,
+                         hd % 16 == 0);
+      tc::cp_async_row16(dV + j * D + c * 16,
+                         reinterpret_cast<const uint8_t*>(v + off), v, left,
+                         hd % 16 == 0);
     }
   };
 #pragma unroll
@@ -343,15 +384,7 @@ __device__ __forceinline__ void narrow_walk(
     if (pg < n_pages) issue(pg, pg);
     tc::cp_async_commit();
   }
-  constexpr int QV = 16 / sizeof(T);    // q elements a 16-byte load
-  for (int e = tid; e < GD / QV; e += kNT) {
-    float buf[QV];
-    // through L2: the fused decode tick writes q earlier in the same
-    // launch, and this SM's L1 may hold the previous layer's q
-    load16_cg(q + qo + e * QV, buf);
-#pragma unroll
-    for (int x = 0; x < QV; ++x) sQ[e * QV + x] = buf[x];
-  }
+  stage_query<T, D>(q, sQ, qo, G, hd);
   for (int g = lane; g < G; g += 32) {
     wM[g] = kNegInf;
     wL[g] = 0.f;
@@ -513,7 +546,7 @@ __device__ __forceinline__ void narrow_walk(
   }
   __syncthreads();                  // s_m, s_l seen by every thread
   finish_split<T, NACC>(out_acc, s_m, s_l, out, part_m, part_l, part_acc,
-                        tickets, qo, G, D, row, kvh, Hkv, split, n_split,
+                        tickets, qo, G, D, hd, row, kvh, Hkv, split, n_split,
                         n_act);
 }
 
@@ -533,7 +566,8 @@ __device__ __forceinline__ void page_walk(
     float* __restrict__ part_l, float* __restrict__ part_acc,
     int* __restrict__ tickets, unsigned char* smem_raw, long long qo,
     int s0, int s1, int n_act, KeyOff key_off, Scales<QM, ScaleOff> sc,
-    int G, int row, int kvh, int Hkv, int split, int n_split, float scale) {
+    int G, int hd, int row, int kvh, int Hkv, int split, int n_split,
+    float scale) {
   using Sh = Shape<T, D, KT>;
   constexpr int NST = Sh::NST;
   static_assert(QM == 0 || sizeof(KT) == 1, "scales go with a narrow pool");
@@ -551,7 +585,9 @@ __device__ __forceinline__ void page_walk(
   const int GD = G * D;
   const int n_pages = (s1 - s0 + kPage - 1) / kPage;
 
-  // page pg of the split into stage st; keys at or past s1 zero-filled
+  // page pg of the split into stage st; keys at or past s1 and columns
+  // past hd zero-filled (a narrow row of hd % 16 == 8 bytes by 8-byte
+  // copies: such rows are 8-byte aligned)
   auto issue = [&](int pg, int st) {
     KT* dK = sKV + st * 2 * Sh::TILE;
     KT* dV = dK + Sh::TILE;
@@ -564,8 +600,15 @@ __device__ __forceinline__ void page_walk(
       const int p = p0 + j;
       const bool ok = p < s1;
       const long long off = ok ? key_off(p) + c * Sh::CVEC : 0;
-      tc::cp_async16(dK + j * D + c * Sh::CVEC, k + off, ok);
-      tc::cp_async16(dV + j * D + c * Sh::CVEC, v + off, ok);
+      const int left = !ok ? 0 : hd >= D ? 16
+                                          : (hd - c * Sh::CVEC) * int(sizeof(KT));
+      const bool whole = sizeof(KT) > 1 || hd % 16 == 0;
+      tc::cp_async_row16(dK + j * D + c * Sh::CVEC,
+                         reinterpret_cast<const uint8_t*>(k + off), k, left,
+                         whole);
+      tc::cp_async_row16(dV + j * D + c * Sh::CVEC,
+                         reinterpret_cast<const uint8_t*>(v + off), v, left,
+                         whole);
     }
   };
   // NST - 1 pages in flight before the walk (empty groups past the end
@@ -575,15 +618,7 @@ __device__ __forceinline__ void page_walk(
     if (pg < n_pages) issue(pg, pg);
     tc::cp_async_commit();
   }
-  constexpr int QV = 16 / sizeof(T);    // q elements a 16-byte load
-  for (int e = tid; e < GD / QV; e += kNT) {
-    float buf[QV];
-    // through L2: the fused decode tick writes q earlier in the same
-    // launch, and this SM's L1 may hold the previous layer's q
-    load16_cg(q + qo + e * QV, buf);
-#pragma unroll
-    for (int x = 0; x < QV; ++x) sQ[e * QV + x] = buf[x];
-  }
+  stage_query<T, D>(q, sQ, qo, G, hd);
   for (int g = tid; g < G; g += kNT) {
     s_m[g] = kNegInf;
     s_l[g] = 0.f;
@@ -689,13 +724,14 @@ __device__ __forceinline__ void page_walk(
   }
   tc::cp_async_wait<0>();
   finish_split<T, NACC>(acc, s_m, s_l, out, part_m, part_l, part_acc,
-                        tickets, qo, G, D, row, kvh, Hkv, split, n_split,
+                        tickets, qo, G, D, hd, row, kvh, Hkv, split, n_split,
                         n_act);
 }
 
-// The work of block (split, kvh, row): q/out slab at element offset qo,
-// `len` keys (already clamped to the cache's capacity), key p at
-// key_off(p), its scales (a quantized pool) at sc.off(p). Partials and the
+// The work of block (split, kvh, row): the [G, hd] q/out slab at element
+// offset qo, `len` keys (already clamped to the cache's capacity), key p
+// at key_off(p), its scales (a quantized pool) at sc.off(p); D is hd's
+// padded width. Partials and the
 // ticket are indexed by (row, kvh). NACC accumulator registers a thread
 // (G * D <= NACC * kNT): a quantized pool's caller picks it from G * D by
 // with_nacc's rule (1, 4 or kMaxAcc), which also picks the walk — narrow_walk
@@ -708,15 +744,16 @@ __device__ __forceinline__ void split_kv_walk(
     const KT* __restrict__ v, T* __restrict__ out, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc,
     int* __restrict__ tickets, unsigned char* smem_raw, long long qo,
-    int len, KeyOff key_off, Scales<QM, ScaleOff> sc, int G, int row,
-    int kvh, int Hkv, int split, int split_len, int n_split, float scale) {
+    int len, KeyOff key_off, Scales<QM, ScaleOff> sc, int G, int hd,
+    int row, int kvh, int Hkv, int split, int split_len, int n_split,
+    float scale) {
   static_assert((QM == 0) == (sizeof(KT) == sizeof(T)) &&
                 (QM == 0 || sizeof(KT) == 1),
                 "scales go with a narrow pool, a wide pool is the query's type");
   const int tid = threadIdx.x;
   if (len == 0) {
     if (split == 0)
-      for (int e = tid; e < G * D; e += kNT) out[qo + e] = from_f<T>(0.f);
+      for (int e = tid; e < G * hd; e += kNT) out[qo + e] = from_f<T>(0.f);
     return;
   }
   const int s0 = split * split_len;
@@ -725,12 +762,12 @@ __device__ __forceinline__ void split_kv_walk(
   const int n_act = (len + split_len - 1) / split_len;
   if constexpr (QM != 0 && NACC <= 4)
     narrow_walk<T, D, NACC>(q, k, v, out, part_m, part_l, part_acc, tickets,
-                            smem_raw, qo, s0, s1, n_act, key_off, sc, G, row,
-                            kvh, Hkv, split, n_split, scale);
+                            smem_raw, qo, s0, s1, n_act, key_off, sc, G, hd,
+                            row, kvh, Hkv, split, n_split, scale);
   else
     page_walk<T, D, NACC>(q, k, v, out, part_m, part_l, part_acc, tickets,
-                          smem_raw, qo, s0, s1, n_act, key_off, sc, G, row,
-                          kvh, Hkv, split, n_split, scale);
+                          smem_raw, qo, s0, s1, n_act, key_off, sc, G, hd,
+                          row, kvh, Hkv, split, n_split, scale);
 }
 
 // Opt `kernel` into the walk's shared memory for G heads a block and
@@ -745,8 +782,9 @@ cudaError_t launch_walk(K kernel, int G, int n_split, int Hkv, int rows,
   return cudaGetLastError();
 }
 
-// The accumulator registers a thread for G heads of D (1, 4 or kMaxAcc:
-// G * D <= NACC * kNT), as std::integral_constant to f — the instantiation
+// The accumulator registers a thread for G heads of padded width D (1, 4
+// or kMaxAcc: G * D <= NACC * kNT), as std::integral_constant to f — the
+// instantiation
 // a quantized walk's caller launches; the fused tick's attention item
 // picks by the same rule.
 template <int D, typename F>
@@ -757,12 +795,13 @@ cudaError_t with_nacc(int G, F f) {
   return f(std::integral_constant<int, kMaxAcc>{});
 }
 
-// Arguments every split-KV entry checks: G query heads a KV head of D fit
-// the accumulator, and the splits (whole pages) cover `capacity` keys.
-inline bool bad_split_args(int H, int Hkv, int D, int capacity,
+// Arguments every split-KV entry checks: a head dim the walk takes, G
+// query heads a KV head of its padded width fitting the accumulator, and
+// the splits (whole pages) covering `capacity` keys.
+inline bool bad_split_args(int H, int Hkv, int hd, int capacity,
                            int split_len, int n_split) {
-  return Hkv <= 0 || H % Hkv || split_len <= 0 || split_len % kPage ||
-         H / Hkv * D > kMaxAcc * kNT ||
+  return Hkv <= 0 || H % Hkv || !head_dim_ok(hd) || split_len <= 0 ||
+         split_len % kPage || H / Hkv * padded_dim(hd) > kMaxAcc * kNT ||
          static_cast<long long>(n_split) * split_len < capacity;
 }
 

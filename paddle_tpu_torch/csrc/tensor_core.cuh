@@ -52,6 +52,31 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(pred ? 16 : 0)
                : "memory");
 }
+// 8 bytes, zero-filled when pred is false (a row of a quantized pool at a
+// head dim D % 16 == 8, or a half of a backward tile, is 8-byte aligned)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 8 : 0)
+               : "memory");
+}
+// 16 bytes of a narrow row at src whose first `left` bytes are its own
+// (left <= 0: none); the rest zero-filled. `whole`: the row's width is a
+// multiple of 16 bytes, so the copy is one aligned 16-byte copy (left is
+// 0 or at least 16); else two 8-byte copies (left is a multiple of 8).
+// `safe` is a readable address for copies that read nothing.
+__device__ __forceinline__ void cp_async_row16(void* dst, const uint8_t* src,
+                                               const void* safe, int left,
+                                               bool whole) {
+  if (whole) {
+    cp_async16(dst, left > 0 ? src : safe, left > 0);
+  } else {
+    cp_async8(dst, left > 0 ? src : safe, left > 0);
+    cp_async8(static_cast<uint8_t*>(dst) + 8, left > 8 ? src + 8 : safe,
+              left > 8);
+  }
+}
 // 4 bytes (one float), zero-filled when pred is false
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool pred) {
@@ -83,12 +108,15 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // Rows [0, R) of a tile whose row 0 is at src (row stride `stride`
-// elements) into the swizzled tile dst; rows at or past `valid` become
-// zeros (src must point at a readable row: row 0 of the tile always is).
+// elements) into the swizzled tile dst, D (the padded width) columns of
+// which the first hd are the rows' own (hd % 8 == 0: whole chunks); rows at
+// or past `valid` and columns past hd become zeros (src must point at a
+// readable row: row 0 of the tile always is).
 template <int R, int D, int NT>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
-                                          long long stride, int valid) {
+                                          long long stride, int valid,
+                                          int hd) {
   constexpr int CH = D / 8;
   static_assert(R * CH % NT == 0, "every thread copies the same count");
 #pragma unroll
@@ -96,21 +124,69 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
     const int e = threadIdx.x + i * NT;
     const int r = e / CH;
     const int c = e % CH;
-    const bool ok = r < valid;
+    const bool ok = r < valid && (hd >= D || c * 8 < hd);
     cp_async16(dst + swz<R>(r, c), ok ? src + r * stride + c * 8 : src, ok);
+  }
+}
+
+// The backward's column layout of a head dim hd < D (the padded width):
+// the row's halves of hd / 2 columns at columns 0 and D / 2, zeros after
+// each, so that the RoPE partner of column j < D / 2 is column j + D / 2
+// whatever hd (rope_adjoint_acc). The row's column held at padded column
+// j, or -1 for a zero column:
+__device__ __forceinline__ int half_col(int j, int D, int hd) {
+  if (hd >= D) return j;
+  const int hi = j >= D / 2;
+  const int jj = j - hi * (D / 2);
+  return jj < hd / 2 ? jj + hi * (hd / 2) : -1;
+}
+// load_tile in that layout: whole 16-byte chunks where hd % 16 == 0 (a
+// half is whole chunks), else 8-byte pieces (a half of hd % 16 == 8
+// columns ends mid-chunk, and the upper half starts 8-byte aligned)
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_tile_halves(__nv_bfloat16* dst,
+                                                 const __nv_bfloat16* src,
+                                                 long long stride, int valid,
+                                                 int hd) {
+  if (hd >= D) {   // unpadded: the plain tile
+    load_tile<R, D, NT>(dst, src, stride, valid, D);
+    return;
+  }
+  constexpr int CH = D / 8;
+  static_assert(R * CH % NT == 0, "every thread copies the same count");
+  const bool whole = hd % 16 == 0;
+#pragma unroll
+  for (int i = 0; i < R * CH / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / CH;
+    const int c = e % CH;
+    const __nv_bfloat16* row = src + (r < valid ? r * stride : 0);
+    if (whole) {
+      const int col = half_col(8 * c, D, hd);
+      const bool ok = r < valid && col >= 0;
+      cp_async16(dst + swz<R>(r, c), ok ? row + col : src, ok);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = half_col(8 * c + 4 * h, D, hd);
+        const bool ok = r < valid && col >= 0;
+        cp_async8(dst + swz<R>(r, c) + 4 * h, ok ? row + col : src, ok);
+      }
+    }
   }
 }
 
 // The same for a tile of keys read through a block table: rows [0, R)
 // hold keys p0 .. p0+R-1 of one sequence, key p at row p % bs of pool
 // block tbl[p / bs] (entries clamped into the nb blocks: sentinels), this
-// KV head's D elements of a [nb, bs, Hkv, D] pool (kv_row = Hkv * D). Each
-// 16-byte copy computes its own row's address, since a tile spans several
-// pool blocks. Keys at or past `valid` become zeros and are not read.
+// KV head's hd elements of a [nb, bs, Hkv, hd] pool (kv_row = Hkv * hd),
+// in the first hd of the tile's D columns. Each 16-byte copy computes its
+// own row's address, since a tile spans several pool blocks. Keys at or
+// past `valid` and columns past hd become zeros and are not read.
 template <int R, int D, int NT>
 __device__ __forceinline__ void load_tile_paged(
     __nv_bfloat16* dst, const __nv_bfloat16* pool, const int* tbl, int p0,
-    int valid, int nb, int bs, long long kv_row, int kvh) {
+    int valid, int nb, int bs, long long kv_row, int kvh, int hd) {
   constexpr int CH = D / 8;
   static_assert(R * CH % NT == 0, "every thread copies the same count");
 #pragma unroll
@@ -119,12 +195,12 @@ __device__ __forceinline__ void load_tile_paged(
     const int r = e / CH;
     const int c = e % CH;
     const int p = p0 + r;
-    const bool ok = p < valid;
+    const bool ok = p < valid && (hd >= D || c * 8 < hd);
     long long off = 0;
     if (ok) {
       const int phys = min(max(tbl[p / bs], 0), nb - 1);
-      off = (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D +
-            c * 8;
+      off = (static_cast<long long>(phys) * bs + p % bs) * kv_row +
+            kvh * hd + c * 8;
     }
     cp_async16(dst + swz<R>(r, c), pool + off, ok);
   }
@@ -132,12 +208,13 @@ __device__ __forceinline__ void load_tile_paged(
 
 // A quantized pool's tile (int8 or e4m3, a byte a value) read through the
 // table as load_tile_paged reads it, into a plain [R][D] byte tile (key r
-// at byte r * D), 16 values a copy (kv_row = Hkv * D bytes). Keys at or
-// past `valid` become zeros and are not read.
+// at byte r * D), 16 values a copy (kv_row = Hkv * hd bytes; two 8-byte
+// copies where hd % 16 == 8). Keys at or past `valid` and columns past hd
+// become zeros and are not read.
 template <int R, int D, int NT>
 __device__ __forceinline__ void load_tile_paged_narrow(
     uint8_t* dst, const uint8_t* pool, const int* tbl, int p0, int valid,
-    int nb, int bs, long long kv_row, int kvh) {
+    int nb, int bs, long long kv_row, int kvh, int hd) {
   constexpr int CH = D / 16;
   static_assert(R * CH % NT == 0, "every thread copies the same count");
 #pragma unroll
@@ -150,10 +227,11 @@ __device__ __forceinline__ void load_tile_paged_narrow(
     long long off = 0;
     if (ok) {
       const int phys = min(max(tbl[p / bs], 0), nb - 1);
-      off = (static_cast<long long>(phys) * bs + p % bs) * kv_row + kvh * D +
-            c * 16;
+      off = (static_cast<long long>(phys) * bs + p % bs) * kv_row +
+            kvh * hd + c * 16;
     }
-    cp_async16(dst + r * D + c * 16, pool + off, ok);
+    cp_async_row16(dst + r * D + c * 16, pool + off, pool,
+                   !ok ? 0 : hd >= D ? 16 : hd - c * 16, hd % 16 == 0);
   }
 }
 
@@ -189,30 +267,34 @@ __device__ __forceinline__ void narrow_to_bf16(__nv_bfloat16* dst,
 }
 
 // The adjoint rotation of a float32 accumulator in the C layout of
-// mma.sync / wgmma: acc[n] are 8-column tiles over D (n < D / 8), so
-// columns d and d + D/2 of a row sit in the same thread at tiles n and
-// n + D/16, no shared memory needed. The thread's rows are pos[0] (c0,
-// c1) and pos[1] (c2, c3); rows at or past S are left alone (never
-// written).
+// mma.sync / wgmma over the halves layout (half_col) of head dim hd at
+// padded width D: acc[n] are 8-column tiles (n < D / 8), so columns j and
+// j + D/2 — the row's columns d and d + hd/2 — sit in the same thread at
+// tiles n and n + D/16, no shared memory needed. The tables are [S, hd].
+// The thread's rows are pos[0] (c0, c1) and pos[1] (c2, c3); rows at or
+// past S, and the zero columns, are left alone (never written).
 template <int D>
 __device__ __forceinline__ void rope_adjoint_acc(float (&acc)[D / 8][4],
                                                  const float* __restrict__ sin,
                                                  const float* __restrict__ cos,
-                                                 const int (&pos)[2], int S) {
+                                                 const int (&pos)[2], int S,
+                                                 int hd) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (pos[r] >= S) continue;
-    const long long row = static_cast<long long>(pos[r]) * D;
+    const long long row = static_cast<long long>(pos[r]) * hd;
 #pragma unroll
     for (int n = 0; n < D / 16; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int d = n * 8 + 2 * t + j;
+        if (hd < D && d >= hd / 2) continue;
         float& y1 = acc[n][2 * r + j];
         float& y2 = acc[n + D / 16][2 * r + j];
         rope_adjoint_pair(y1, y2, cos[row + d], sin[row + d],
-                          cos[row + d + D / 2], sin[row + d + D / 2], y1, y2);
+                          cos[row + d + hd / 2], sin[row + d + hd / 2], y1,
+                          y2);
       }
   }
 }

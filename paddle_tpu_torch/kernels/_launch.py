@@ -60,13 +60,32 @@ def check_cuda(name, data, index=(), pools=()):
     return dtype_code(data[0])
 
 
-def check_head_dim(name, D, dims):
-    """Raise unless head dim ``D`` is one of the kernel's ``dims``. The
-    dims the kernels refuse (below 64, not powers of two, and the flash
-    backward's 256) are ROADMAP Queue C 7."""
-    if D not in dims:
-        raise NotImplementedError(f"{name} kernel: head_dim {D} not in "
-                                  f"{tuple(dims)} (ROADMAP.md Queue C 7)")
+#: the head dims every kernel takes: multiples of HEAD_DIM_STEP from
+#: HEAD_DIM_STEP to HEAD_DIM_MAX (each runs at :func:`padded_dim`)
+HEAD_DIM_STEP = 8
+HEAD_DIM_MAX = 256
+
+
+def head_dim_ok(D):
+    return HEAD_DIM_STEP <= D <= HEAD_DIM_MAX and D % HEAD_DIM_STEP == 0
+
+
+def padded_dim(D):
+    """The width head dim ``D`` runs at inside the kernels: 64, 128 or
+    256, the next one up (``csrc/attention_common.cuh``: the columns past
+    ``D`` are zeros, and only ``D`` are written)."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+def check_head_dim(name, D):
+    """Raise unless the kernels take head dim ``D``: a multiple of 8 from
+    8 to 256. The dims they refuse (not a multiple of 8, or past 256) are
+    the rest of ROADMAP Queue C 7."""
+    if not head_dim_ok(D):
+        raise NotImplementedError(
+            f"{name} kernel: head_dim {D} is not a multiple of "
+            f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {HEAD_DIM_MAX} "
+            f"(ROADMAP.md Queue C 7)")
 
 
 def launch(name, *args, count_as=None):

@@ -30,8 +30,6 @@ from ._launch import as_index, check_cuda, launch
 from .split_kv import check_heads, plan, scratch, sm_count
 
 NEG_INF = -1e30
-#: head dims the kernel takes
-HEAD_DIMS = (64, 128, 256)
 #: the last launch: keys a split, splits a row, blocks in the grid
 LAST_GRID = {"split_len": 0, "n_split": 0, "blocks": 0}
 
@@ -39,7 +37,7 @@ LAST_GRID = {"split_len": 0, "n_split": 0, "blocks": 0}
 def check_limits(H, Hkv, D):
     """Raise on a head geometry the kernel does not take: ``H`` query
     heads over ``Hkv`` KV heads of ``D``."""
-    check_heads("decode", H, Hkv, D, HEAD_DIMS)
+    check_heads("decode", H, Hkv, D)
 
 
 def decode_attention_reference(q, k_cache, v_cache, lengths):

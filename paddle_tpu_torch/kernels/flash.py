@@ -73,21 +73,13 @@ from ._launch import check_head_dim, dtype_code, launch
 from .flash_attention import _ref_attention, _ref_logits, _ref_lse
 
 
-#: head dims the flash forward takes
-HEAD_DIMS = (64, 128, 256)
-#: head dims the backward kernels and the ``rope_qk`` pre-pass take: their
-#: per-warp dK/dV accumulators double at 256 and want another tiling
-#: (ROADMAP Queue C 7)
-BWD_HEAD_DIMS = (64, 128)
-
-
-def _check_shapes(name, q, k, v, dims=HEAD_DIMS):
+def _check_shapes(name, q, k, v):
     B, S, H, D = q.shape
     Hk = k.shape[2]
     if k.shape != (B, S, Hk, D) or v.shape != k.shape or H % Hk:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    check_head_dim(name, D, dims)
+    check_head_dim(name, D)
     return B, S, H, Hk, D
 
 
@@ -212,7 +204,7 @@ def rope_qk(q, k, sin, cos):
     B, S, H, D = q.shape
     if k.shape[:2] != (B, S) or k.shape[3] != D:
         raise ValueError(f"rope_qk: q {tuple(q.shape)} k {tuple(k.shape)}")
-    check_head_dim("rope_qk", D, BWD_HEAD_DIMS)
+    check_head_dim("rope_qk", D)
     q, k = _layout(q), _layout(k)
     tables = _tables((sin, cos), S, D, q.device)
     return _launch_rope_qk(q, k, tables,
@@ -247,8 +239,7 @@ def flash_attention_fwd(q, k, v, causal=True, rope=None):
         if rope is not None:
             q, k = rope_qk(q, k, *rope)
         return flash_attention_reference(q, k, v, causal)
-    B, S, H, Hk, D = _check_shapes(
-        "flash", q, k, v, HEAD_DIMS if rope is None else BWD_HEAD_DIMS)
+    B, S, H, Hk, D = _check_shapes("flash", q, k, v)
     q, k = _layout(q), _layout(k)
     v = _like(v, k)
     tables = _tables(rope, S, D, q.device)
@@ -353,7 +344,7 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
 
 
 def _check_bwd(name, q, k, v, do, lse, delta):
-    B, S, H, Hk, D = _check_shapes(name, q, k, v, BWD_HEAD_DIMS)
+    B, S, H, Hk, D = _check_shapes(name, q, k, v)
     if do.shape != q.shape:
         raise ValueError(f"{name}: do {tuple(do.shape)} != q "
                          f"{tuple(q.shape)}")
@@ -482,11 +473,6 @@ def flash_attention(q, k, v, causal=True, rope=None):
     tensors, or on any device with the flag off."""
     sin, cos = (None, None) if rope is None else rope
     use_kernels = bool(get_flag("FLAGS_use_cuda_kernels"))
-    # a forward that autograd will differentiate on a card refuses a head
-    # dim the backward kernels do not take before it runs, not after
-    if use_kernels and q.device.type != "cpu" and torch.is_grad_enabled() \
-            and any(t.requires_grad for t in (q, k, v)):
-        check_head_dim("flash backward", q.shape[-1], BWD_HEAD_DIMS)
     return FlashAttention.apply(q, k, v, sin, cos, bool(causal),
                                 use_kernels)
 

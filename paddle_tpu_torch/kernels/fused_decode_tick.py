@@ -82,9 +82,8 @@ from ._launch import check_cuda, launch
 from .paged_decode import scale_mode
 from .split_kv import check_heads, plan, scratch, sm_count
 
-#: head dims the kernel takes
-HEAD_DIMS = (64, 128, 256)
-#: the widths (hidden, intermediate, vocabulary) are multiples of this
+#: the widths (hidden, intermediate, vocabulary, and the QKV projection's
+#: (nh + 2 nkv) * D) are multiples of this
 WIDTH = 64
 #: k rows a weight chunk (``kKC`` in the source)
 CHUNK = 64
@@ -132,12 +131,14 @@ def _barrier(dev, groups):
 def check_limits(nh, nkv, D, hidden, inter, vocab):
     """Raise on a geometry the kernel does not take: ``nh`` query heads
     over ``nkv`` KV heads of head dim ``D``; hidden, intermediate and
-    vocabulary widths. Any row count is taken."""
-    check_heads("fused tick", nh, nkv, D, HEAD_DIMS)
-    if hidden % WIDTH or inter % WIDTH or vocab % WIDTH:
+    vocabulary widths, and the QKV width. Any row count is taken."""
+    check_heads("fused tick", nh, nkv, D)
+    if hidden % WIDTH or inter % WIDTH or vocab % WIDTH \
+            or (nh + 2 * nkv) * D % WIDTH:
         raise NotImplementedError(f"fused tick kernel: hidden {hidden}, "
-                                  f"intermediate {inter} and vocab {vocab} "
-                                  f"must be multiples of {WIDTH}")
+                                  f"intermediate {inter}, vocab {vocab} and "
+                                  f"QKV width {(nh + 2 * nkv) * D} must be "
+                                  f"multiples of {WIDTH}")
 
 
 def part_slots(N, K, cols, grid):

@@ -39,8 +39,6 @@ from .decode import decode_attention_reference
 from .split_kv import (BLOCKS_PER_SM, MIN_SPLIT_PAGES, PAGE,  # noqa: F401
                        check_heads, plan, scratch, sm_count, split_len)
 
-#: head dims the kernel takes
-HEAD_DIMS = (64, 128, 256)
 #: the last launch: keys a split, splits a row, blocks in the grid
 LAST_GRID = {"split_len": 0, "n_split": 0, "blocks": 0}
 
@@ -48,7 +46,7 @@ LAST_GRID = {"split_len": 0, "n_split": 0, "blocks": 0}
 def check_limits(H, Hkv, D):
     """Raise on a head geometry the kernel does not take: ``H`` query
     heads over ``Hkv`` KV heads of ``D``."""
-    check_heads("paged decode", H, Hkv, D, HEAD_DIMS)
+    check_heads("paged decode", H, Hkv, D)
 
 
 def dequant_rows(rows, scale, tables, bs):

@@ -24,7 +24,8 @@ both, and each block reads its own row's span):
 Blocks of the other kind of span, and tiles past a span, exit at once.
 A span-1 row agrees with :func:`~.paged_decode.paged_decode_attention`
 within ``chip_smoke.py``'s ``TOL`` (the same walk, split at other
-lengths). Head dims 64, 128 and 256. One launch counted a call.
+lengths). Any head dim D % 8 == 0 up to 256, at its padded width 64,
+128 or 256. One launch counted a call.
 
 The pool is float32 or bfloat16 (the query's type), or quantized: int8
 with per-row-per-head float32 scale planes, or ``float8_e4m3fn`` with
@@ -55,8 +56,6 @@ from .paged_decode import dequant_rows, scale_mode
 from .split_kv import check_heads, plan, scratch, sm_count
 
 NEG_INF = -1e30
-#: head dims the kernels take
-HEAD_DIMS = (64, 128, 256)
 #: span rows a chunk tile holds, by input type, on any pool: the wgmma
 #: tile (bf16) and the CUDA-core tile (float32)
 TILE_ROWS = {torch.bfloat16: 64, torch.float32: 16}
@@ -69,7 +68,7 @@ LAST_GRID = {"split_len": 0, "n_split": 0, "split_blocks": 0,
 def check_limits(H, Hkv, D):
     """Raise on a head geometry the kernels do not take: ``H`` query
     heads over ``Hkv`` KV heads of ``D``."""
-    check_heads("ragged attention", H, Hkv, D, HEAD_DIMS)
+    check_heads("ragged attention", H, Hkv, D)
 
 
 def paths(qlen):

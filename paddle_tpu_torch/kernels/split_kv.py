@@ -26,7 +26,7 @@ import threading
 
 import torch
 
-from ._launch import check_head_dim
+from ._launch import check_head_dim, padded_dim
 
 #: keys a page: the walk's step, and the unit of a split
 PAGE = 32
@@ -42,8 +42,8 @@ BLOCKS_PER_SM = 8
 #: the shortest split, in pages: its fp32 partials stay small beside the
 #: K/V bytes it reads
 MIN_SPLIT_PAGES = 8
-#: the walk keeps G * D accumulator elements in 16 registers of each of
-#: its 128 threads
+#: the walk keeps G * Dp accumulator elements (Dp: the head dim's padded
+#: width) in 16 registers of each of its 128 threads
 MAX_GD = 16 * 128
 
 _TICKETS = {}
@@ -66,21 +66,24 @@ def split_len(B, Hkv, capacity, n_sm):
 
 def narrow_page(D):
     """Keys a page of the quantized walk at head dim ``D`` (one byte an
-    element): 128, 64 and 32 at D = 64, 128 and 256 — a bf16 page's
-    bytes; each warp owns ``narrow_page(D) // WARPS`` of them."""
-    return NARROW_PAGE_BYTES // D
+    element of its padded width): 128, 64 and 32 at D = 64, 128 and 256
+    (and the dims that pad to them) — a bf16 page's bytes; each warp owns
+    ``narrow_page(D) // WARPS`` of them."""
+    return NARROW_PAGE_BYTES // padded_dim(D)
 
 
-def check_heads(name, H, Hkv, D, dims):
+def check_heads(name, H, Hkv, D):
     """Raise on a head geometry kernel ``name`` does not take: ``H`` query
-    heads over ``Hkv`` KV heads of ``D`` (one of ``dims``), the KV head's
-    G query heads fitting the walk's accumulator."""
+    heads over ``Hkv`` KV heads of ``D`` (a head dim the kernels take),
+    the KV head's G query heads of its padded width fitting the walk's
+    accumulator."""
     if H % Hkv:
         raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
-    check_head_dim(name, D, dims)
-    if H // Hkv * D > MAX_GD:
+    check_head_dim(name, D)
+    if H // Hkv * padded_dim(D) > MAX_GD:
         raise NotImplementedError(f"{name} kernel: {H // Hkv} query heads "
-                                  f"a KV head of {D} exceed {MAX_GD} "
+                                  f"a KV head of {D} (padded to "
+                                  f"{padded_dim(D)}) exceed {MAX_GD} "
                                   f"accumulator elements")
 
 
@@ -111,9 +114,11 @@ def plan(B, Hkv, capacity, n_sm):
 
 
 def scratch(B, Hkv, G, D, n_split, dev):
-    """``(part_m, part_l, part_acc, tickets)`` of one launch: fp32 partials
-    ``[B, Hkv, n_split, G]`` (twice) and ``[B, Hkv, n_split, G, D]`` in one
+    """``(part_m, part_l, part_acc, tickets)`` of one launch at head dim
+    ``D``: fp32 partials ``[B, Hkv, n_split, G]`` (twice) and ``[B, Hkv,
+    n_split, G, Dp]`` (Dp the padded width the walk runs at) in one
     allocation, and the shared tickets."""
+    D = padded_dim(D)
     n = B * Hkv * n_split * G
     part = torch.empty(n * (D + 2), dtype=torch.float32, device=dev)
     return (part[n * D:n * (D + 1)], part[n * (D + 1):], part[:n * D],

@@ -116,8 +116,7 @@ import torch
 from ..core import random as prng
 from ..flags import get_flag
 from ..kernels import decode as dense_decode
-from ..kernels import flash, fused_decode_tick, paged_decode, \
-    ragged_attention
+from ..kernels import fused_decode_tick, paged_decode, ragged_attention
 from ..kernels._launch import check_head_dim
 from ..models.llama import llama_decode_params
 from ..profiler.tracing import NULL_SPAN
@@ -629,7 +628,7 @@ class ContinuousBatchingEngine:
         c = self.config
         nh, nkv, hd = (c.num_attention_heads, c.num_key_value_heads,
                        c.head_dim)
-        check_head_dim("flash", hd, flash.HEAD_DIMS)
+        check_head_dim("flash", hd)
         if self._a8 and any(w % 8 for w in (
                 c.hidden_size, c.intermediate_size, c.vocab_size,
                 nh * hd, nkv * hd)):

@@ -10,9 +10,9 @@ ported path raises ``NotImplementedError`` naming its ROADMAP step.
 ``--device`` (default ``cuda``) is the port's one addition, the
 counterpart of ``JAX_PLATFORMS``: with ``cuda`` and no GPU the command
 exits nonzero, it does not fall back to the CPU. The ``tiny`` preset is
-the CPU-runnable smoke config (head dim 16, below what the kernels take:
-``--decode-attention pallas`` on the card refuses it at startup);
-``350m`` is the bench-sized model for the card. ``--decode-attention``
+the CPU-runnable smoke config (head dim 16, which the kernels take at
+their padded width: ``--decode-attention pallas`` serves it on the card
+too); ``350m`` is the bench-sized model for the card. ``--decode-attention``
 keeps the reference's default ``jnp`` (the plain versions); ``pallas``
 selects the hand-written kernels. Prompts are token-id arrays — see
 README "Serving over HTTP" for curl examples.

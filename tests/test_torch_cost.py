@@ -34,6 +34,8 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
 from paddle_tpu_torch.serving import decode as sdecode
 from paddle_tpu_torch.serving.faults import FaultPlan
 from paddle_tpu_torch.serving.server import ServingGateway
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 LAYERS = 2
 GEOM = dict(num_slots=3, max_seq_len=128, prefix_block_size=8,

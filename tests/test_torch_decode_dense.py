@@ -34,6 +34,8 @@ from paddle_tpu_torch.serving import decode as tdec
 from paddle_tpu_torch.serving.block_manager import BlockManager
 from test_torch_engine import _eos_inside_a_tick
 from test_torch_engine import _matrix as engine_matrix
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ATOL = 1e-5
 

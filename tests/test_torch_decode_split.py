@@ -26,6 +26,7 @@ from paddle_tpu_torch.kernels import decode as tdk
 from paddle_tpu_torch.kernels import paged_decode as tpd
 from paddle_tpu_torch.kernels import split_kv
 from test_torch_paged_split import H100_SMS, _split_emulation
+from torch_threads import one_torch_thread  # noqa: F401
 
 HKV, S_MAX = 2, 4096
 
@@ -99,8 +100,9 @@ def test_split_rule_at_the_smoke_geometry():
 def test_limits():
     tdk.check_limits(32, 32, 128)
     tdk.check_limits(32, 8, 256)
-    with pytest.raises(NotImplementedError, match="head_dim 16"):
-        tdk.check_limits(4, 2, 16)
+    tdk.check_limits(4, 2, 16)         # at its padded width (Queue C 7)
+    with pytest.raises(NotImplementedError, match="head_dim 20"):
+        tdk.check_limits(4, 2, 20)
     with pytest.raises(NotImplementedError, match="accumulator"):
         tdk.check_limits(32, 2, 256)
 

@@ -244,10 +244,16 @@ def test_kernels_on_reads_the_flag_the_config_and_the_device():
 
 
 @pytest.mark.parametrize("cfg,knob,match", [
-    # llama_tiny's head dim 16: the flash forward (cold prefill) takes
-    # 64 and 128 only
-    (dict(), {}, "flash kernel: head_dim 16"),
-    (dict(), dict(paged_attn=False), "flash kernel: head_dim 16"),
+    # a head dim that is not a multiple of 8 (12): the flash forward (cold
+    # prefill) refuses it first, naming Queue C 7's rest
+    (dict(hidden_size=48), {}, "flash kernel: head_dim 12"),
+    (dict(hidden_size=48), dict(paged_attn=False),
+     "flash kernel: head_dim 12"),
+    # llama_tiny's head dim 16, refused before Queue C 7: every engine
+    # constructs
+    (dict(), {}, None),
+    (dict(), dict(paged_attn=False), None),
+    (dict(), dict(fused_tick=True), None),
     # the fused tick takes any row count: 17 and 64 slots construct
     (dict(hidden_size=256, num_attention_heads=4, num_key_value_heads=2),
      dict(fused_tick=True, num_slots=17), None),
@@ -261,8 +267,9 @@ def test_kernels_on_reads_the_flag_the_config_and_the_device():
      dict(paged_attn=False), "decode kernel: 32 query heads"),
     (dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=1),
      {}, "ragged attention kernel: 32 query heads"),
-], ids=["flash_default", "flash_dense", "fused_rows", "fused_width",
-        "dense_group", "ragged_group"])
+], ids=["flash_default", "flash_dense", "tiny_default", "tiny_dense",
+        "tiny_fused", "fused_rows", "fused_width", "dense_group",
+        "ragged_group"])
 def test_kernel_limits_raise_at_construction(monkeypatch, cfg, knob, match):
     """Each case raises naming the kernel limit it meets, with the kernels
     on; a case without a match names a limit that was lifted, and the
@@ -273,10 +280,13 @@ def test_kernel_limits_raise_at_construction(monkeypatch, cfg, knob, match):
                                     **dict(dict(intermediate_size=64), **cfg)),
                          device="cpu", seed=0)
     if match is None:
-        for slots in (knob["num_slots"], 64):
+        slots_list = (knob["num_slots"], 64) if "num_slots" in knob \
+            else (GEOMETRY["num_slots"],)
+        for slots in slots_list:
             eng = ContinuousBatchingEngine(
                 m, **dict(GEOMETRY, **dict(knob, num_slots=slots)))
-            assert eng.fused_tick and eng.num_slots == slots
+            assert eng.fused_tick == bool(knob.get("fused_tick"))
+            assert eng.num_slots == slots
         return
     with pytest.raises(NotImplementedError, match=match):
         ContinuousBatchingEngine(m, **dict(GEOMETRY, **knob))

@@ -38,6 +38,7 @@ from paddle_tpu_torch.serving.faults import (FatalFault, FaultPlan,
 from paddle_tpu_torch.serving.server import ServingGateway, serve
 
 from test_metrics_prom import parse_prometheus
+from torch_threads import one_torch_thread  # noqa: F401
 
 BS, CHUNK, SLOTS, S_MAX = 8, 16, 2, 96
 GEOM = dict(num_slots=SLOTS, max_seq_len=S_MAX, decode_chunk=1,

@@ -24,6 +24,7 @@ from chip_smoke import BWD_TOL, TOL
 from paddle_tpu.kernels import pallas_flash as jflash
 from paddle_tpu_torch.kernels import flash as tflash
 from paddle_tpu_torch.kernels.flash_attention import _ref_attention, _ref_lse
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, D = 1, 2, 64
 BLOCK = 64                      # the tensor-core kernels' tiles

@@ -42,7 +42,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
@@ -62,6 +61,7 @@ from paddle_tpu_torch.serving.policy import ClassTable
 from paddle_tpu_torch.serving.server import QueueFullError, serve_fleet
 
 from test_metrics_prom import parse_prometheus
+from torch_threads import one_torch_thread  # noqa: F401
 
 BS = 8       # KV block size
 CHUNK = 16   # chunked-prefill budget (2 blocks)
@@ -71,17 +71,6 @@ TIER = 1 << 24   # a host budget the LRU never trims here
 #: tests/test_policy.py's three-way class split
 SPEC = dict(classes="latency:1,standard,batch*",
             slo_ttft_ms="80,400,0", slo_tpot_ms="50,0,0")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: its engines run many
-    small eager ops, and parallel test workers each holding a full
-    thread pool oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,8 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest)
 from paddle_tpu_torch.serving import decode as tdec
 from test_torch_engine import GEOMETRY, _drive, _eos_inside_a_tick, _matrix
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 POOL_ATOL = 1e-6
 NH, NKV, HD, EPS, THETA = 4, 2, 16, 1e-5, 10000.0

@@ -40,6 +40,7 @@ from paddle_tpu.serving import decode as jdec
 from paddle_tpu_torch.kernels import fused_decode_tick as tft
 from paddle_tpu_torch.kernels import split_kv
 from test_torch_paged_split import H100_SMS, _split_emulation
+from torch_threads import one_torch_thread  # noqa: F401
 
 NT, KC = tft.TILE_COLS[torch.bfloat16], tft.CHUNK
 PC8 = tft.PLAN_COLS[torch.bfloat16, True]        # int8 weights' plan tile

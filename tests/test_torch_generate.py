@@ -22,6 +22,7 @@ from paddle_tpu.serving.decode import llama_decode_params
 from paddle_tpu_torch.core import random as prng
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_tiny,
                                            load_decode_params)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pair(seed, **kw):

@@ -1,22 +1,30 @@
-"""Head dim 256 in the three serving kernels that took D in {64, 128}
-(the flash forward, ragged attention, the fused decode tick; ROADMAP
-Queue C 6), and the dims the kernels still refuse (Queue C 7), on the CPU.
+"""The head dims of the port's kernels, on the CPU: head dim 256 in the
+three serving kernels that took D in {64, 128} (the flash forward, ragged
+attention, the fused decode tick; ROADMAP Queue C 6), and every D % 8 ==
+0 from 8 to 256 in every kernel, the flash backward and the RoPE
+pre-pass included (Queue C 7; each runs at its padded width 64, 128 or
+256, zero columns past D).
 
 - every kernel's limits and the engine's construction-time check take
-  D = 256 and refuse 16, 32, 80 and 96 naming Queue C 7; the flash
-  backward (and so a forward autograd will differentiate) refuses 256;
+  D in {8, 16, 40, 80, 96, 128, 256} and refuse 4, 12, 20 and 264 naming
+  Queue C 7 (the rest of the item); the flash backward takes 256;
 - the CPU emulations of the kernels' rounding at D = 256 stay within the
   bounds ``chip_smoke.py`` holds the kernels to, against the JAX
   references: the flash forward's 64 x 64 bf16 tiles (the Pallas kernel
   in interpret mode at those blocks), both ragged grids
   (``tests/test_torch_ragged_tc.py``'s emulation) and the fused tick's
   split-K plan (``tests/test_torch_fused_tick_split.py``'s);
-- engines with 2 layers and 2 query heads of 256 over one KV head stream
-  as the JAX engine does, in fp32: the default, ``fused_tick=True`` and
-  ``paged_attn=False`` engines.
+- the plain flash backward at D = 256 and 80, with and without RoPE,
+  within 2e-4 of the JAX Pallas backward in interpret mode;
+- engines with 2 layers and 2 query heads over one KV head stream as the
+  JAX engine does, in fp32, at D = 256, 40, 80 and 96: the default,
+  ``fused_tick=True`` and ``paged_attn=False`` engines (streams, finish
+  reasons, and at the new dims the step counters), each JAX run held in
+  a module cache keyed by head dim and knobs.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,24 +45,31 @@ from paddle_tpu_torch.kernels import flash as tflash
 from paddle_tpu_torch.kernels import fused_decode_tick as tft
 from paddle_tpu_torch.kernels import paged_decode as tpd
 from paddle_tpu_torch.kernels import ragged_attention as tra
+from paddle_tpu_torch.kernels._launch import check_head_dim
 from paddle_tpu_torch.kernels.flash_attention import _ref_attention, _ref_lse
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_tiny,
                                            load_decode_params)
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest)
 from paddle_tpu_torch.serving import engine as sengine
+from torch_threads import one_torch_thread  # noqa: F401
 
-REFUSED = (16, 32, 80, 96)
+#: head dims the kernels take (a sample: any D % 8 == 0 from 8 to 256)
+ACCEPTED = (8, 16, 40, 80, 96, 128, 256)
+#: head dims they refuse, naming ROADMAP Queue C 7: not a multiple of 8,
+#: or past 256
+REFUSED = (4, 12, 20, 264)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs (its engines run many
-    small eager ops; parallel workers with full pools oversubscribe)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+def _meta(*shape):
+    return torch.zeros(*shape, device="meta")
+
+
+def _bwd_limits(h, hkv, d):
+    """The backward entries' own check (``_check_bwd``) on meta tensors."""
+    q, kv = _meta(1, 8, h, d), _meta(1, 8, hkv, d)
+    stats = torch.zeros(1, h, 8, device="meta")
+    return tflash._check_bwd("flash_bwd_dq", q, kv, kv, q, stats, stats)
 
 
 #: the kernels' own checks: (H, Hkv, D) -> raises or returns
@@ -64,37 +79,46 @@ KERNEL_LIMITS = {
     "paged": lambda h, hkv, d: tpd.check_limits(h, hkv, d),
     "dense": lambda h, hkv, d: tdec.check_limits(h, hkv, d),
     "flash": lambda h, hkv, d: tflash._check_shapes(
-        "flash", *(torch.zeros(1, 8, n, d, device="meta")
-                   for n in (h, hkv, hkv))),
+        "flash", *(_meta(1, 8, n, d) for n in (h, hkv, hkv))),
+    "flash_backward": _bwd_limits,
 }
 
 
 @pytest.mark.parametrize("kernel", list(KERNEL_LIMITS))
 def test_kernel_limits_take_256_and_refuse_queue_c7_dims(kernel):
+    """Each kernel's limits take every D in ACCEPTED (8 query heads over 4
+    KV heads: a QKV width of 16 D, which the fused tick takes) and refuse
+    every D in REFUSED, naming Queue C 7."""
     check = KERNEL_LIMITS[kernel]
-    check(2, 1, 256)
-    check(8, 4, 128)
+    for d in ACCEPTED:
+        check(8, 4, d)
     for d in REFUSED:
         with pytest.raises(NotImplementedError, match="Queue C 7"):
-            check(2, 1, d)
+            check(8, 4, d)
 
 
 def test_flash_backward_refuses_256():
-    """The backward entries keep {64, 128}; so does a forward whose inputs
-    autograd will differentiate (raised at the attention call, before the
-    forward runs) and the RoPE pre-pass; a forward without grad takes
-    256."""
-    m = torch.zeros(1, 8, 2, 256, device="meta")
-    with pytest.raises(NotImplementedError, match="head_dim 256.*Queue C 7"):
-        tflash._check_bwd("flash_bwd_dq", m, m, m, m, None, None)
+    """Since Queue C 7 the backward entries take 256 (the name recalls
+    what they refused before) and refuse D % 8 != 0 naming the item; a
+    forward autograd will differentiate at 256 is no longer refused at
+    the attention call (it reaches the device check: meta tensors are
+    refused as off the card), nor is the RoPE pre-pass's dim."""
+    m = _meta(1, 8, 2, 256)
+    stats = torch.zeros(1, 2, 8, device="meta")
+    assert tflash._check_bwd("flash_bwd_dq", m, m, m, m, stats,
+                             stats)[-1] == 256
+    odd = _meta(1, 8, 2, 12)
+    with pytest.raises(NotImplementedError, match="head_dim 12.*Queue C 7"):
+        tflash._check_bwd("flash_bwd_dq", odd, odd, odd, odd, stats, stats)
     g = torch.zeros(1, 8, 2, 256, device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError,
-                       match="flash backward kernel: head_dim 256"):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         tflash.flash_attention(g, g, g)
     with torch.no_grad(), pytest.raises(ValueError, match="cuda or cpu"):
-        tflash.flash_attention(g, g, g)     # past the check: meta refused
+        tflash.flash_attention(g, g, g)
     assert tflash._check_shapes("flash", m, m, m)[-1] == 256
-    assert 256 in tflash.HEAD_DIMS and 256 not in tflash.BWD_HEAD_DIMS
+    check_head_dim("rope_qk", 256)
+    with pytest.raises(NotImplementedError, match="rope_qk.*Queue C 7"):
+        check_head_dim("rope_qk", 260)
 
 
 def _cfg(hd, **kw):
@@ -114,13 +138,19 @@ GEOMETRY = dict(num_slots=2, max_seq_len=64, decode_chunk=1,
                                   dict(paged_attn=False)],
                          ids=["default", "fused", "dense"])
 def test_engine_limits_take_256_and_refuse_the_rest(monkeypatch, knob):
-    """With the kernels on, each engine constructs at head dim 256 and
-    raises at construction, naming Queue C 7, at 16, 32, 80 and 96."""
+    """With the kernels on, each engine constructs at every head dim in
+    ACCEPTED (8 query heads over 4 KV heads: widths the fused tick takes)
+    and raises at construction, naming Queue C 7, at every one in
+    REFUSED."""
     monkeypatch.setattr(sengine, "_kernels_on", lambda params, config: True)
-    m = LlamaForCausalLM(_cfg(256), device="cpu", seed=0)
-    ContinuousBatchingEngine(m, **GEOMETRY, **knob)
-    for d in REFUSED:
-        m = LlamaForCausalLM(_cfg(d), device="cpu", seed=0)
+    for d in ACCEPTED + REFUSED:
+        m = LlamaForCausalLM(_cfg(d, hidden_size=8 * d,
+                                  num_attention_heads=8,
+                                  num_key_value_heads=4),
+                             device="cpu", seed=0)
+        if d in ACCEPTED:
+            ContinuousBatchingEngine(m, **GEOMETRY, **knob)
+            continue
         with pytest.raises(NotImplementedError, match="Queue C 7"):
             ContinuousBatchingEngine(m, **GEOMETRY, **knob)
 
@@ -236,3 +266,104 @@ def test_engine_at_256_streams_as_jax(wide_models, knob):
         [GenerationRequest(**r) for r in _matrix()])
     assert ([o.tolist() for o in outs],
             [o.finish_reason for o in outs]) == _JAX[key]
+
+
+# --------------------------------------- engines at D = 40, 80, 96, fp32
+#: the step counters both engines keep, equal when their schedules are
+STATS = ("steps", "decode_calls", "decode_steps", "prefills",
+         "prefill_tokens", "prefill_chunks", "unified_steps",
+         "tokens_generated", "preemptions")
+_DIM_MODELS = {}
+
+
+def _dim_models(hd):
+    """The JAX model (jnp attention) and the port's, with its weights, at
+    2 layers of 2 query heads of ``hd`` over 1 KV head, built once a
+    module."""
+    if hd not in _DIM_MODELS:
+        paddle.seed(hd)
+        kw = dict(hidden_size=2 * hd, intermediate_size=128,
+                  num_hidden_layers=2, num_attention_heads=2,
+                  num_key_value_heads=1)
+        jm = JLlama(j_tiny(decode_attention="jnp", **kw))
+        p, tied = llama_decode_params(jm)
+        tm = LlamaForCausalLM(llama_tiny(**kw), device="cpu")
+        load_decode_params(tm, {k: np.asarray(v) for k, v in p.items()},
+                           tied)
+        _DIM_MODELS[hd] = jm, tm
+    return _DIM_MODELS[hd]
+
+
+def _run(eng, Request):
+    outs = eng.generate([Request(**r) for r in _matrix()])
+    return ([o.tolist() for o in outs], [o.finish_reason for o in outs],
+            {k: eng.stats[k] for k in STATS})
+
+
+@pytest.mark.parametrize("knob", [{}, dict(fused_tick=True),
+                                  dict(paged_attn=False)],
+                         ids=["default", "fused", "dense"])
+@pytest.mark.parametrize("hd", [40, 80, 96])
+def test_engine_at_dims_streams_as_jax(hd, knob):
+    """Greedy and seeded streams, finish reasons and step counters of the
+    port's engine at head dims 40 (D % 16 == 8), 80 and 96 equal the JAX
+    engine's with the same knobs (one JAX run a head dim and knob set)."""
+    jm, tm = _dim_models(hd)
+    geo = dict(GEOMETRY, **knob)
+    key = (hd,) + tuple(sorted(knob))
+    if key not in _JAX:
+        _JAX[key] = _run(JEngine(jm, **geo, jit_cache={}), JRequest)
+    assert _run(ContinuousBatchingEngine(tm, **geo),
+                GenerationRequest) == _JAX[key]
+
+
+# ------------------------------ the flash backward at D = 256 and 80
+def _tables(S, D, theta=10000.0):
+    inv = 1.0 / (theta ** (np.arange(0, D, 2, dtype=np.float32) / D))
+    emb = np.outer(np.arange(S, dtype=np.float32), inv)
+    emb = np.concatenate([emb, emb], axis=-1)
+    return np.sin(emb), np.cos(emb)
+
+
+@pytest.fixture
+def _interpret():
+    jflash._FORCE_INTERPRET[0] = True
+    yield
+    jflash._FORCE_INTERPRET[0] = False
+
+
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope"])
+@pytest.mark.parametrize("D", [256, 80])
+def test_flash_backward_at_dims_matches_jax_pallas(_interpret, D, rope):
+    """The port's plain flash backward (the kernels' CPU route: the
+    ``rope_qk`` pre-pass's plain version, both halves on the rotated
+    pair, the adjoint on the float32 dQ and dK) against the JAX Pallas
+    backward (``flash_attention_bhsd``, interpret mode, one block a head)
+    within 2e-4, at D = 256 and 80, 4 query heads over 2 KV heads, S =
+    40."""
+    B, H, Hk, S = 1, 4, 2, 40
+    r = np.random.RandomState(D + rope)
+    q, k, v, do = (r.randn(B, h, S, D).astype(np.float32) * 0.5
+                   for h in (H, Hk, Hk, H))
+    sin, cos = _tables(S, D)
+    G = H // Hk
+    fold = lambda x: jnp.asarray(x).reshape(-1, S, D)       # noqa: E731
+    rep = lambda x: np.repeat(x, G, axis=1)                  # noqa: E731
+    jrope = (jnp.asarray(sin), jnp.asarray(cos)) if rope else None
+
+    def f(q_, k_, v_):
+        return jflash.flash_attention_bhsd(q_, k_, v_, causal=True,
+                                           block_q=S, block_k=S, rope=jrope)
+
+    _, vjp = jax.vjp(f, fold(q), fold(rep(k)), fold(rep(v)))
+    gq, gk, gv = vjp(fold(do))
+    back = lambda g: np.asarray(g).reshape(B, Hk, G, S, D).sum(2)  # noqa
+    want = (np.asarray(gq).reshape(B, H, S, D), back(gk), back(gv))
+    tq, tk, tv, tdo = (torch.from_numpy(x).transpose(1, 2)
+                       for x in (q, k, v, do))
+    trope = (torch.from_numpy(sin), torch.from_numpy(cos)) if rope else None
+    o, lse = tflash.flash_attention_fwd(tq, tk, tv, True, trope)
+    got = tflash.flash_attention_bwd(tq, tk, tv, o, lse, tdo, True, trope)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), w, rtol=2e-4,
+                                   atol=2e-4)

@@ -28,6 +28,8 @@ from paddle_tpu_torch.kernels import flash as tflash
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import paged_decode as tpd
 from paddle_tpu_torch.kernels import ragged_attention as tra
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ATOL = 1e-5
 

@@ -39,6 +39,7 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
 from paddle_tpu_torch.serving import decode as tdec
 from paddle_tpu_torch.serving import graphs
 from paddle_tpu_torch.serving.scheduler import FIFOScheduler
+from torch_threads import one_torch_thread  # noqa: F401
 
 BS, CHUNK, TICKS = 8, 16, 8
 GEOMETRY = dict(num_slots=2, max_seq_len=96, decode_chunk=1,

@@ -22,7 +22,11 @@ pools). The sweeps of the two
 kernels redesigned last — dense decode on the split-KV walk
 (``test_decode_split_sweep``) and ragged attention on the split-KV walk
 and the ``wgmma`` tile (``test_ragged_sweep``) — hold them to ``TOL``;
-``-k sweep`` runs the three decode-side sweeps alone.
+``-k sweep`` runs the three decode-side sweeps alone. Every sweep also
+runs at the head dims the kernels take since ROADMAP Queue C 7 (``DIMS``:
+16, 40, 80 and 96, each at its padded width; the backward and the RoPE
+pre-pass at 256 too), and ``-k dims`` runs the fused tick's and the
+engines' cases at those dims.
 """
 import subprocess
 
@@ -47,6 +51,15 @@ from paddle_tpu_torch.serving.decode import _head, _keys_host
 from chip_smoke import BWD_TOL, QUANT_F32_LOGITS, TOL
 
 pytestmark = pytest.mark.cuda
+
+#: head dims past {64, 128, 256} that the kernels take since ROADMAP Queue
+#: C 7: D % 16 == 0 under 64 (llama_tiny's 16), D % 16 == 8 (40: 8-byte
+#: narrow rows and RoPE halves), and two that pad to 128 (80, 96)
+DIMS = (16, 40, 80, 96)
+#: (hidden, heads, KV heads) of a small model at each of DIMS, with a QKV
+#: width (nh + 2 nkv) * D that the fused tick takes (a multiple of 64)
+DIM_GEOS = {16: (64, 4, 2), 40: (320, 8, 4), 80: (320, 4, 2),
+            96: (384, 4, 2)}
 
 
 @pytest.fixture
@@ -152,7 +165,7 @@ class TestServingKernels:
         want = tpd.paged_decode_attention_reference(*a)
         assert (got.float() - want.float()).abs().max().item() <= atol
 
-    @pytest.mark.parametrize("D", [64, 128, 256])
+    @pytest.mark.parametrize("D", [64, 128, 256, *DIMS])
     @pytest.mark.parametrize("G", [1, 4, 8])
     def test_paged_decode_split_sweep(self, cuda_dev, dtype, atol, G, D):
         """The split-KV kernel over lengths 0, 1, 31, 32, 33, a split +- 1,
@@ -201,7 +214,7 @@ class TestServingKernels:
         want = tra.ragged_attention_reference(*a)
         assert (got.float() - want.float()).abs().max().item() <= atol
 
-    @pytest.mark.parametrize("D", [64, 128, 256])
+    @pytest.mark.parametrize("D", [64, 128, 256, *DIMS])
     @pytest.mark.parametrize("G", [1, 4])
     def test_ragged_sweep(self, cuda_dev, dtype, atol, G, D):
         """Both grids: span-1 rows on the split-KV walk, chunks of 2, 63,
@@ -219,7 +232,7 @@ class TestServingKernels:
         assert _within(got, want, *TOL[str(dtype).split(".")[-1]])
         assert (got[int(args[5].sum()):] == 0).all()
 
-    @pytest.mark.parametrize("D", [64, 128, 256])
+    @pytest.mark.parametrize("D", [64, 128, 256, *DIMS])
     @pytest.mark.parametrize("G", [1, 4, 8])
     def test_decode_split_sweep(self, cuda_dev, dtype, atol, G, D):
         """The dense-cache split-KV kernel over lengths 0, 1, 31, 33, a
@@ -504,13 +517,13 @@ class TestFlashBackwardKernels:
 
 # The bf16 flash forward and dK/dV run on the tensor cores, fp32 on the
 # CUDA cores. S covers one tile, its edges, the tail and several tiles; D
-# both head sizes the kernels take; G = H / Hk is 1 (MHA) or 4 (GQA).
-SWEEP = [(S, D, G) for S in (1, 63, 64, 65, 300, 1024) for D in (64, 128)
-         for G in (1, 4)]
-#: the forward takes head dim 256 too (the backward does not: ROADMAP
-#: Queue C 7)
-FWD_SWEEP = SWEEP + [(S, 256, G) for S in (1, 63, 64, 65, 300, 1024)
-                     for G in (1, 4)]
+# the head sizes the kernels take (the padded widths in full, the dims
+# that pad to them at fewer S); G = H / Hk is 1 (MHA) or 4 (GQA).
+SWEEP = [(S, D, G) for S in (1, 63, 64, 65, 300, 1024) for D in (64, 128,
+                                                                 256)
+         for G in (1, 4)] + [(S, D, G) for S in (1, 65, 300) for D in DIMS
+                             for G in (1, 4)]
+FWD_SWEEP = SWEEP
 
 
 def _qkvdo(S, D, G, dtype, dev, B=2, H=8):
@@ -595,11 +608,12 @@ class TestTensorCoreFlash:
             return
         assert _within_scaled(got, want, *BWD_TOL["bfloat16"])
 
+    @pytest.mark.parametrize("D", [128, 256, *DIMS])
     @pytest.mark.parametrize("which", ["forward", "dkv", "dq"])
-    def test_float32_on_the_cuda_cores(self, cuda_dev, which):
+    def test_float32_on_the_cuda_cores(self, cuda_dev, which, D):
         """float32 still runs the CUDA-core kernels: summation order only,
         so TOL["float32"] (BWD_TOL's form for the gradients)."""
-        q, k, v, do = _qkvdo(300, 128, 4, torch.float32, cuda_dev)
+        q, k, v, do = _qkvdo(300, D, 4, torch.float32, cuda_dev)
         o, lse = tflash.flash_attention_fwd(q, k, v, True)
         if which == "forward":
             assert _within(o, tfa._ref_attention(q, k, v, True),
@@ -623,7 +637,8 @@ class TestTensorCoreFlash:
 # the rope_qk pre-pass; the adjoint on dQ and dK), in the head-major layout
 # the model's bhsd branch hands them.
 ROPE_SWEEP = [(S, D, G) for S in (63, 65, 300) for D in (64, 128)
-              for G in (1, 4)]
+              for G in (1, 4)] + [(S, D, G) for S in (65, 300)
+                                  for D in (256, *DIMS) for G in (1, 4)]
 
 
 class TestRopeFlash:
@@ -888,7 +903,7 @@ class TestQuantizedKernels:
         assert (got[0] == 0).all()
         assert _tol_ok(got, want, dtype)
 
-    @pytest.mark.parametrize("D", [64, 128, 256])
+    @pytest.mark.parametrize("D", [64, 128, 256, *DIMS])
     @pytest.mark.parametrize("G", [1, 4, 8])
     def test_paged_decode_quantized_split_sweep(self, cuda_dev, mode, dtype,
                                                 G, D):
@@ -940,7 +955,8 @@ class TestQuantizedKernels:
         assert (got[0] == 0).all()
         assert _tol_ok(got, want, dtype)
 
-    @pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (2, 256)])
+    @pytest.mark.parametrize("G,D", [(1, 64), (4, 128), (2, 256), (2, 16),
+                                     (2, 40), (1, 80), (4, 96)])
     def test_ragged_quantized_vs_plain(self, cuda_dev, mode, dtype, G, D):
         """Span-1 rows on the quantized walk, chunks (from mid-block, a
         partial last tile, 500 rows) on the query type's tile: the wgmma
@@ -1017,7 +1033,7 @@ def _fused_check(cuda_dev, mode, dtype, w8, rows, record_property,
     if w8:
         p = tdec.quantize_decode_params(p, tied)
     r = np.random.RandomState(rows)
-    L, bs, D = cfg.num_hidden_layers, 16, 64
+    L, bs, D = cfg.num_hidden_layers, 16, cfg.head_dim
     nb = 2 * rows + 2
     pk = r.randn(L, nb, bs, nkv, D).astype(np.float32) * 3
     pv = r.randn(L, nb, bs, nkv, D).astype(np.float32) * 3
@@ -1096,6 +1112,65 @@ def _fused_check(cuda_dev, mode, dtype, w8, rows, record_property,
     want = tpd.paged_decode_attention(q, gk[0][L - 1], gv[0][L - 1], tables,
                                       lens + app, gk[1][L - 1], gv[1][L - 1])
     assert torch.equal(attn, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode,w8", [(None, False), (None, True),
+                                     ("int8", False), ("fp8", True)],
+                         ids=["dense", "w8", "int8", "fp8_w8"])
+@pytest.mark.parametrize("D", DIMS)
+def test_fused_tick_dims_vs_plain(cuda_dev, dtype, mode, w8, D,
+                                  record_property):
+    """The fused tick at each of DIMS (a QKV group of several heads; a
+    tile holding parts of two at 80 and 96; RoPE pairs D/2 apart; the
+    walk at the padded width) against its plain version, on a pool of the
+    model's type or quantized, with dense or int8 weights
+    (``_fused_check``)."""
+    hidden, nh, nkv = DIM_GEOS[D]
+    _fused_check(cuda_dev, mode, dtype, w8, 21, record_property,
+                 geo=dict(hidden_size=hidden, num_attention_heads=nh,
+                          num_key_value_heads=nkv))
+
+
+@pytest.mark.parametrize("knob,kernel", [
+    ({}, "paged_decode"), (dict(fused_tick=True), "fused_decode_tick"),
+    (dict(paged_attn=False), "decode"), (dict(kv_dtype="int8"),
+                                         "paged_decode")],
+    ids=["default", "fused_tick", "dense", "kv_int8"])
+@pytest.mark.parametrize("D", DIMS)
+def test_engines_dims_kernels_vs_plain(cuda_dev, knob, kernel, D):
+    """float32 greedy streams of the engines at each of DIMS (2 layers)
+    with the kernels equal those with the plain versions (the flag off);
+    the engine's own kernel and ragged attention (the default engine's
+    flash forward too) ran, and nothing with the flag off."""
+    hidden, nh, nkv = DIM_GEOS[D]
+    cfg = llama_tiny(hidden_size=hidden, num_attention_heads=nh,
+                     num_key_value_heads=nkv, num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=5)
+    r = np.random.RandomState(D)
+    reqs = [GenerationRequest(prompt=r.randint(0, 256, n).astype(np.int32),
+                              max_new_tokens=12) for n in (45, 12, 30)]
+    geo = dict(num_slots=4, max_seq_len=128, prefix_block_size=8,
+               prefill_chunk=16, headroom_mult=None)
+    outs, launches = {}, {}
+    try:
+        for use in (True, False):
+            set_flags({"FLAGS_use_cuda_kernels": use})
+            reset_launches()
+            eng = ContinuousBatchingEngine(model, **geo, **knob)
+            outs[use] = [o.tolist() for o in eng.generate(reqs)]
+            torch.cuda.synchronize()
+            launches[use] = dict(LAUNCHES)
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    assert outs[True] == outs[False]
+    assert launches[True][kernel] > 0
+    if not knob:
+        assert launches[True]["flash"] > 0
+    if knob.get("paged_attn", True):
+        assert launches[True]["ragged_attention"] > 0
+    assert not any(launches[False].values())
 
 
 @pytest.mark.parametrize("knob", [

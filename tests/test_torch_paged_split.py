@@ -28,6 +28,8 @@ from chip_smoke import TOL
 from paddle_tpu.kernels.pallas_paged_decode import \
     paged_decode_attention_reference as jax_paged_reference
 from paddle_tpu_torch.kernels import paged_decode as tpd
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 H100_SMS = 132
 HKV, BS, MB = 2, 32, 128            # 4096 keys a table

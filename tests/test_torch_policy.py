@@ -24,7 +24,6 @@ import urllib.request
 
 import numpy as np
 import pytest
-import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
@@ -46,6 +45,7 @@ from paddle_tpu_torch.serving.policy import (ClassTable, PolicyScheduler,
 from paddle_tpu_torch.serving.server import serve
 
 from test_metrics_prom import parse_prometheus
+from torch_threads import one_torch_thread  # noqa: F401
 
 BS = 8       # KV block size
 CHUNK = 16   # chunked-prefill budget
@@ -60,18 +60,6 @@ SPEC = dict(classes="latency:1,standard,batch*",
 SPEC_NO_RESERVE = dict(SPEC, classes="latency,standard,batch*")
 STATS = ("policy_preemptions", "preemptions", "restores", "prefills",
          "tokens_generated", "decode_calls")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: its engines run many
-    small eager ops, and parallel test workers each holding a full thread
-    pool oversubscribe the cores (measured ~10x slower under six
-    workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -46,6 +46,8 @@ from paddle_tpu_torch.serving.prefix_cache import PrefixCache
 from paddle_tpu_torch.serving.server import ServingGateway
 
 from test_metrics_prom import parse_prometheus
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 BS = 8
 CONSTS = dict(nh=4, nkv=2, hd=16, eps=1e-5, theta=10000.0, tied=False)

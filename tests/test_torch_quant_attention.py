@@ -23,6 +23,7 @@ the CPU, against the JAX references given ``k_scale``/``v_scale``.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,8 +41,13 @@ from test_torch_paged_split import H100_SMS
 from test_torch_paged_split import _inputs as _paged_inputs
 from test_torch_quant_walk import walk_emulation
 from test_torch_ragged_tc import _inputs as _ragged_inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEG_INF = -1e30
+#: the JAX references compiled whole, once a shape (run op by op they
+#: compile every op anew for each shape): the same functions and values
+jax_paged = jax.jit(jax_paged)
+jax_ragged = jax.jit(jax_ragged)
 
 
 def _quantize(pk, pv, mode, seed):

@@ -29,6 +29,7 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_tiny,
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest)
 from test_torch_engine import GEOMETRY, _drive, _eos_inside_a_tick, _matrix
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from paddle_tpu_torch.serving import decode as tdec
 from paddle_tpu_torch.serving import kv_cache as tkv
 from test_torch_fused_tick import EPS, HD, NH, NKV, THETA, _appended, \
     _tick_inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["untied", "tied"])

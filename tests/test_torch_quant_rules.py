@@ -31,6 +31,7 @@ from paddle_tpu_torch.quantization import (quantize_collective_int8,
 from paddle_tpu_torch.serving import decode as tdec
 from paddle_tpu_torch.serving import kv_cache as tkv
 from paddle_tpu_torch.serving.block_manager import BlockManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rows(seed, shape=(5, 7, 4, 16)):

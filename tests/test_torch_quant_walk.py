@@ -30,6 +30,7 @@ butterfly sum lane by lane.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,7 +41,11 @@ from paddle_tpu.kernels.pallas_paged_decode import \
     paged_decode_attention_reference as jax_paged
 from paddle_tpu_torch.kernels import split_kv as skv
 from paddle_tpu_torch.serving import kv_cache as tkv
+from torch_threads import one_torch_thread  # noqa: F401
 
+#: the JAX reference compiled whole (op by op it compiles each op anew):
+#: the same function and values
+jax_paged = jax.jit(jax_paged)
 H100_SMS = 132
 HKV, BS, MB = 2, 32, 128            # 4096 keys a table
 NEG_INF = -1e30

@@ -31,6 +31,7 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest)
 from test_torch_engine import GEOMETRY, _drive
 from test_torch_quant_engine import matrix, models  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 W_KNOBS = {
     "w8_unified": dict(quantize_weights=True),

@@ -22,6 +22,8 @@ import torch
 from paddle_tpu.kernels import pallas_flash as jflash
 from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
 from paddle_tpu_torch.kernels import flash as tflash
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 GRAD_TOL = 2e-4
 

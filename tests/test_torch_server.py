@@ -33,6 +33,7 @@ from paddle_tpu_torch.serving.server import (QueueFullError, ServingGateway,
                                              serve_fleet)
 
 from test_metrics_prom import parse_prometheus
+from torch_threads import one_torch_thread  # noqa: F401
 
 NUM_SLOTS, S_MAX, MAX_QUEUE = 2, 128, 4
 

@@ -50,6 +50,7 @@ from paddle_tpu_torch.serving.drafter import (Drafter, ModelDrafter,
                                               NgramDrafter)
 
 from test_metrics_prom import parse_prometheus
+from torch_threads import one_torch_thread  # noqa: F401
 
 BS = 8       # KV block size
 CHUNK = 16   # chunked-prefill budget (2 blocks)
@@ -57,18 +58,6 @@ SPEC_K = 3
 STATS = ("spec_steps", "spec_proposed", "spec_accepted", "spec_tokens",
          "decode_calls", "prefill_chunks", "tokens_generated",
          "preemptions", "restores")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: its engines run many
-    small eager ops, and parallel test workers each holding a full thread
-    pool oversubscribe the cores (measured ~10x slower under six
-    workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -42,24 +42,13 @@ from paddle_tpu_torch.serving.prefix_cache import HostTier
 from paddle_tpu_torch.serving.server import ServingGateway
 
 from test_metrics_prom import parse_prometheus
+from torch_threads import one_torch_thread  # noqa: F401
 
 BS = 8       # KV block size
 CHUNK = 16   # chunked-prefill budget (2 blocks)
 TIER = 1 << 24   # a generous host budget: the LRU never trims in the legs
 TIER_STATS = ("hits", "misses", "evictions", "spilled_blocks", "tier_hits",
               "readmitted_blocks", "tier_evictions", "tier_transfers")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: its engines run many
-    small eager ops, and parallel test workers each holding a full thread
-    pool oversubscribe the cores (measured ~10x slower under six
-    workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,8 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest)
 from paddle_tpu_torch.serving.faults import FaultPlan, VirtualClock
 from paddle_tpu_torch.serving.server import ServingGateway, serve
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 NUM_SLOTS, S_MAX = 3, 128

@@ -32,6 +32,8 @@ from paddle_tpu.parallel import mesh as jmesh
 from paddle_tpu.serving.decode import llama_decode_params as j_params
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_tiny,
                                            load_decode_params)
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 LOSS_RTOL = 1e-5          # tests/test_torch_train.py's
 GRAD_TOL = 1e-5

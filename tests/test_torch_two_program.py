@@ -31,6 +31,8 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_tiny,
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       GenerationRequest)
 from paddle_tpu_torch.serving import decode as tdec
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 GEOMETRY = dict(num_slots=3, max_seq_len=128, prefix_block_size=8,
                 prefill_chunk=16, headroom_mult=None)

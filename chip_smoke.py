@@ -189,7 +189,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
              plain versions (``FLAGS_use_cuda_kernels`` off); the losses
              and every parameter's gradient must agree, and each leg
              launches the kernels of its own mode.
-9. train   — llama_7b widths at 15 layers in bf16 (the deepest whose
+9. train   — run first, right after the build, on an empty allocator
+             (after the serving phases the accumulated step's update can
+             fail for fragmentation alone): llama_7b widths
+             at 15 layers in bf16 (the deepest whose
              steps fit one 80 GB card: 16 run out of memory in the
              accumulated step's update), B=4, S=2048, full
              recompute, AdamW(1e-4) with ClipGradByGlobalNorm(1.0) through
@@ -203,11 +206,39 @@ Phases, each printing one JSON line; any failure exits nonzero:
              at its 350M shape (B=8, S=2048, ``accum_step(..., 4)``):
              step ms, tokens/s, 6 * params * tokens/s over 989 TFLOP/s.
 
-``--profile`` repeats the four serve runs and one train step under
-``torch.profiler`` and reports device time by kernel and the device's
-busy share (for the fused run: one device kernel per tail tick,
-its device time per launch beside its bound and beside the scanned tail
-tick's device time). Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+10. tp     — tensor-parallel serving with every shard on the card.
+             fp32, 7B widths, 2 layers, the engine phase's requests:
+             ``tp=2`` and ``tp=4`` through the kernels against the plain
+             versions, streams equal; ``tp=2`` against ``tp=1``, streams
+             equal and the first logits within ``TOL``;
+             ``collective_overlap`` at ``tp=2``, streams and pools bit for
+             bit the plain schedule's; ``collective_dtype="int8"`` kernels
+             against plain, its partings from fp reported; an int8 pool,
+             an fp8 pool, int8 weights, ``spec_k=4``, a prefix hit and
+             ``fused_tick`` at ``tp=2`` against the same knobs at
+             ``tp=1``; ``decode_ticks=8`` (graph tail, eager tail, plain)
+             against ``tp=1``. Every leg's launches equal the code's count
+             (flash, ragged attention and paged decode once a shard a
+             layer a cold prefill, step and tail tick; the fused tick
+             never), its collective ledger equals the wire model summed
+             over the reductions the device ran, and the split-KV
+             tickets are zero after it. Then bf16 at the same widths:
+             ``tp=2``'s first logits against its plain versions and
+             against ``tp=1`` (``BWD_TOL`` scaled by the largest entry,
+             the script's bf16 form), partings reported. Then bf16,
+             llama_7b at 32 layers, the serve phase's 8 requests: ``tp=1``
+             and ``tp=2`` — tok/s, step ms, peak memory, launches a shard,
+             collective bytes a step, the first partings from ``tp=1``
+             and at each parting, through both degrees' cold prefill of
+             the stream so far, the top-2 gaps beside the largest
+             difference of the two degrees' logits.
+
+``--profile`` repeats the four serve runs, the ``tp=2`` serve run and
+one train step under ``torch.profiler`` and reports device time by
+kernel and the device's busy share (for the fused run: one device kernel
+per tail tick, its device time per launch beside its bound and beside
+the scanned tail tick's device time; for ``tp=2``: the reductions' share
+of the device time). Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Without a CUDA
@@ -217,6 +248,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -1280,6 +1312,15 @@ def _tick(fn, params, tied, t, *, heads, **kw):
                   nh=H, nkv=HKV, hd=D, eps=1e-5, **kw)
 
 
+def _scanned_tick(params, head, *, pool_k, pool_v, **kw):
+    """``serving/decode.py``'s scanned tick on one shard (the serving
+    programs take per-shard lists), its pools handed back as given."""
+    from paddle_tpu_torch.serving.decode import _fused_decode_tick
+    out = _fused_decode_tick([params], head, pool_k=[pool_k],
+                             pool_v=[pool_v], **kw)
+    return (out[0], out[1][0], out[2][0]) + tuple(out[3:])
+
+
 def _clone_pool(pool):
     return tuple(x.clone() for x in pool) if isinstance(pool, tuple) \
         else pool.clone()
@@ -1514,7 +1555,6 @@ def fused_case(name, dtype_name, dev, gen, *, heads):
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_7b,
                                                llama_decode_params)
-    from paddle_tpu_torch.serving.decode import _fused_decode_tick
     dtype = getattr(torch, dtype_name)
     isz = torch.tensor([], dtype=dtype).element_size()
     model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
@@ -1525,7 +1565,7 @@ def fused_case(name, dtype_name, dev, gen, *, heads):
     logits_err, rows_err, tokens_equal, want_logits = _fused_vs_plain(
         p, tied, t, dtype_name, "8 rows", heads=heads)
     # the yardstick of that spread: the unfused tick through the kernels
-    scan = _tick(_fused_decode_tick, p, tied,
+    scan = _tick(_scanned_tick, p, tied,
                  dict(t, pool_k=t["pool_k"].clone(),
                       pool_v=t["pool_v"].clone()), return_logits=True,
                  heads=heads)
@@ -1563,7 +1603,7 @@ def fused_case(name, dtype_name, dev, gen, *, heads):
                fdt.fused_decode_tick_reference, p, tied, run_t,
                heads=heads), iters=3),
            "scanned_tick_ms": time_ms(lambda: _tick(
-               _fused_decode_tick, p, tied, run_t, heads=heads)),
+               _scanned_tick, p, tied, run_t, heads=heads)),
            "library_ms": None,
            "library": "none: no single PyTorch call computes a tick",
            "bytes": nbytes, "flops": flops,
@@ -1589,7 +1629,7 @@ def fused_case(name, dtype_name, dev, gen, *, heads):
         "grid_blocks": fdt.LAST_GRID["blocks"],
         "blocks_per_sm": fdt.LAST_GRID["blocks_per_sm"],
         "scanned_tick_ms": time_ms(lambda: _tick(
-            _fused_decode_tick, p, tied, run_t, heads=heads)),
+            _scanned_tick, p, tied, run_t, heads=heads)),
         "bytes": nbytes, "bound_ms": bound_ms(nbytes, flops, dtype_name)}
     row["max_abs_err"] = max(row["max_abs_err"], w_logits, w_rows)
     if not (bits and w_bits):
@@ -1930,8 +1970,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads,
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_7b,
                                                llama_decode_params)
-    from paddle_tpu_torch.serving.decode import (_fused_decode_tick,
-                                                 quantize_decode_params)
+    from paddle_tpu_torch.serving.decode import quantize_decode_params
     dtype = getattr(torch, dtype_name)
     isz = torch.tensor([], dtype=dtype).element_size()
     model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
@@ -1979,7 +2018,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads,
                     "grid_blocks": fdt.LAST_GRID["blocks"],
                     "blocks_per_sm": fdt.LAST_GRID["blocks_per_sm"],
                     "scanned_tick_ms": time_ms(lambda: _tick(
-                        _fused_decode_tick, p, tied, run_t, heads=heads)),
+                        _scanned_tick, p, tied, run_t, heads=heads)),
                     "bytes": nbytes, "flops": flops,
                     "bound_ms": bound_ms(nbytes, flops, dtype_name)}
             if kv is not None and dtype_name == "float32" and sweep:
@@ -3089,11 +3128,11 @@ def _multitick_pools(model, reqs, geo):
         set_flags({"FLAGS_cuda_graph_tail": True})
     torch.cuda.synchronize()
     a, b = engines[True].cache.pool, engines[False].cache.pool
-    diff = max((a.k - b.k).abs().max().item(),
-               (a.v - b.v).abs().max().item())
+    (ak,), (av,), (bk,), (bv,) = a.k, a.v, b.k, b.v          # one shard
+    diff = max((ak - bk).abs().max().item(), (av - bv).abs().max().item())
     out = {"pools_max_abs_diff": diff,
-           "pools_bitwise": bool(torch.equal(a.k, b.k)
-                                 and torch.equal(a.v, b.v)),
+           "pools_bitwise": bool(torch.equal(ak, bk)
+                                 and torch.equal(av, bv)),
            "pools_match": diff <= TOL["float32"][0],
            "pools_after_tail_ticks": engines[True]._tail.ticks}
     for eng in engines.values():
@@ -3463,10 +3502,9 @@ def fused_tick_timing(eng, layers):
     difference between the two is the attention's share of the tick."""
     import torch
     from paddle_tpu_torch.kernels import fused_decode_tick as fdt
-    from paddle_tpu_torch.serving.decode import _fused_decode_tick
-    pools = eng.cache.kv_args()
+    pools = [side[0] for side in eng.cache.kv_args()]     # the one shard
     dt = eng._params["embed"].dtype
-    dev = eng.cache.pool.k.device
+    dev = eng.cache.pool.k[0].device
     t = tick_inputs(dt, dev, None, layers, pools=pools, heads=HEADS)
     t1 = tick_inputs(dt, dev, None, layers, pools=pools, lens=[1] * SLOTS,
                      heads=HEADS)
@@ -3482,7 +3520,7 @@ def fused_tick_timing(eng, layers):
     return {"tick_ms": tick, "grid_blocks": grid["blocks"],
             "blocks_per_sm": grid["blocks_per_sm"],
             "tick_len1_ms": tick1, "attention_ms": tick - tick1,
-            "scanned_tick_ms": time_ms(lambda: _tick(_fused_decode_tick, p,
+            "scanned_tick_ms": time_ms(lambda: _tick(_scanned_tick, p,
                                                      tied, t, heads=HEADS)),
             "tick_bytes": nbytes,
             "tick_bound_ms": bound_ms(nbytes, flops, "bfloat16")}, t
@@ -4388,6 +4426,438 @@ def phase_fleet_fp32():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- tensor parallel
+#: the tp phase's knob sets held at tp=2 against the same knobs at tp=1
+#: (fp32, 7B widths, 2 layers); ``waves`` runs the requests twice (the
+#: second pass hits the prefix trie)
+TP_KNOBS = (("int8_pool", {"kv_dtype": "int8"}),
+            ("fp8_pool", {"kv_dtype": "fp8"}),
+            ("w8", {"quantize_weights": True}),
+            ("spec", {"spec_decode": True, "spec_k": SPEC_K}),
+            ("prefix", {"prefix_cache": True}),
+            ("fused_tick", {"fused_tick": True}))
+
+
+@contextlib.contextmanager
+def _first_logits(out):
+    """Inside: the first lm-head product of the serving programs appended
+    to ``out`` (float32, on the host; later ones, which a CUDA graph may
+    be capturing, are left alone)."""
+    from paddle_tpu_torch.serving import decode as sdec
+    head_logits = sdec._head_logits
+
+    def record(last_h, head):
+        logits = head_logits(last_h, head)
+        if not out:
+            out.append(logits.float().cpu())
+        return logits
+
+    sdec._head_logits = record
+    try:
+        yield out
+    finally:
+        sdec._head_logits = head_logits
+
+
+def _tp_run(model, reqs, label, knob, kernels=True, graph=True):
+    """One engine run (tp=1 or sharded) to completion, the counts (the
+    device's reductions among them, ``kernels.WIRE``) and a fresh cost
+    observatory set to 0 just before it and read just after; the first
+    logits the run computes (its first cold prefill's) recorded; the
+    split-KV tickets and the fused tick's barrier checked at rest after
+    it."""
+    import torch
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.kernels import LAUNCHES, WIRE, reset_launches
+    from paddle_tpu_torch.profiler.cost import CostObservatory
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    try:
+        set_flags({"FLAGS_use_cuda_kernels": kernels,
+                   "FLAGS_cuda_graph_tail": graph})
+        with _first_logits([]) as seen:
+            eng = ContinuousBatchingEngine(model, headroom_mult=None, **knob)
+            co = eng.cost = CostObservatory()
+            reset_launches()
+            outs = []
+            for wave in (reqs if isinstance(reqs[0], list) else [reqs]):
+                outs += eng.generate(wave)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            wire = {k: LAUNCHES[k] for k in WIRE}
+        first = seen
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True,
+                   "FLAGS_cuda_graph_tail": True})
+    _shared_at_rest(f"tp {label}")
+    return {"streams": [o.tolist() for o in outs],
+            "reasons": [o.finish_reason for o in outs], "eng": eng,
+            "co": co, "launches": launches, "wire": wire,
+            "logits": first[0]}
+
+
+def _tp_expected(run, layers):
+    """The kernel launches a run's code implies: every kernel of the path
+    once a shard a layer — flash a cold prefill, ragged attention a
+    unified (or verify) step, paged decode a tail tick the device ran
+    (graph replays counted; under tensor parallelism the fused tick is
+    the scanned tick, so the fused kernel never launches)."""
+    eng, co = run["eng"], run["co"]
+    st, per = eng.stats, layers * eng.tp
+    want = {"flash": per * co.kind_calls("prefill"),
+            "fused_decode_tick": 0, "decode": 0}
+    if eng.spec_decode:
+        return dict(want, ragged_attention=per * st["spec_steps"],
+                    paged_decode=0)
+    tail = (eng._tail.ticks if eng.decode_ticks > 1
+            else st["decode_steps"] - st["decode_calls"])
+    return dict(want, ragged_attention=per * st["unified_steps"],
+                paged_decode=per * tail)
+
+
+def _tp_check(label, run, layers, kernels=True):
+    """Raise unless the run launched what its code implies (nothing with
+    the kernels off) and its collective ledger — what
+    ``serving_collective_bytes_total`` scrapes — equals the wire model
+    summed over the reductions the device ran."""
+    want = _tp_expected(run, layers)
+    if not kernels:
+        want = dict.fromkeys(want, 0)
+    got = {n: run["launches"][n] for n in want}
+    led = run["co"].collectives
+    dtype = run["eng"].collective_dtype
+    ledger = led.get(dtype, {"ops": 0, "bytes": 0})
+    wire = run["wire"]
+    line = {"phase": "tp", "leg": label, "tp": run["eng"].tp,
+            "kernels": kernels, "launches": got, "launches_expected": want,
+            "ledger": ledger, "device_wire": wire,
+            "scraped_bytes": run["co"].collective_bytes(dtype)}
+    emit(line)
+    if got != want:
+        raise RuntimeError(f"tp {label} launches (got, expected): {got}, "
+                           f"{want}")
+    if run["eng"].tp > 1 and (ledger["bytes"] != wire["tp_wire_bytes"]
+                              or ledger["ops"] != wire["tp_reduce"]
+                              or not wire["tp_wire_bytes"]):
+        raise RuntimeError(f"tp {label}: ledger {ledger} != the device's "
+                           f"reductions {wire}")
+    return line
+
+
+def _tp_same(label, a, b, what):
+    if (a["streams"], a["reasons"]) != (b["streams"], b["reasons"]):
+        raise RuntimeError(f"tp {label}: streams differ from {what}: "
+                           f"{_first_parting(a['streams'], b['streams'])}")
+
+
+def phase_tp():
+    """Tensor-parallel serving with every shard on the card, fp32, 7B
+    widths (32 heads of 128), 2 layers, the engine phase's request matrix;
+    then tp=2 in bf16 at the same widths (the kernels' tensor-core
+    routes at a shard's 16 heads)."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.serving import GenerationRequest
+    cfg = llama_7b(num_hidden_layers=2, dtype="float32")
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    reqs = _requests(GenerationRequest, (37, 130, 300), 700, 16,
+                     cfg.vocab_size, seed=3)
+    base = _tp_run(model, reqs, "tp1", {})
+    for tp in (2, 4):
+        on = _tp_run(model, reqs, f"tp{tp}", {"tp": tp})
+        off = _tp_run(model, reqs, f"tp{tp}_plain", {"tp": tp},
+                      kernels=False)
+        _tp_check(f"tp{tp}", on, L)
+        _tp_check(f"tp{tp}_plain", off, L, kernels=False)
+        _tp_same(f"tp{tp}", on, off, "the plain versions")
+        if tp == 2:
+            tp2 = on
+    _tp_same("tp2", tp2, base, "tp=1")
+    err = float((tp2["logits"] - base["logits"]).abs().max())
+    atol, rtol = TOL["float32"]
+    ok = bool(torch.allclose(tp2["logits"], base["logits"], atol=atol,
+                             rtol=rtol))
+    emit({"phase": "tp", "check": "tp2_vs_tp1", "streams_equal": True,
+          "first_logits_max_abs_err": err, "tol": TOL["float32"],
+          "within_tol": ok})
+    if not ok:
+        raise RuntimeError(f"tp2 first logits off tp1's by {err}")
+    # the overlap schedule: the fp ring at tp=2 adds each element once, as
+    # the plain sum does, and row chunks change no row
+    over = _tp_run(model, reqs, "overlap", {"tp": 2,
+                                            "collective_overlap": True})
+    _tp_check("overlap", over, L)
+    _tp_same("overlap", over, tp2, "no overlap")
+    pools = all(bool(torch.equal(a, b)) for a, b in zip(
+        over["eng"].cache.pool.k + over["eng"].cache.pool.v,
+        tp2["eng"].cache.pool.k + tp2["eng"].cache.pool.v))
+    emit({"phase": "tp", "check": "overlap_vs_plain_schedule",
+          "streams_equal": True, "pools_bit_equal": pools})
+    if not pools:
+        raise RuntimeError("tp overlap: pools differ from the plain "
+                           "schedule's")
+    for r in (over, tp2):
+        r["eng"].release()
+    # the EQuARX int8 all-reduce: kernels against plain; its partings
+    # from the fp reductions are measured, not assumed zero
+    q_on = _tp_run(model, reqs, "int8", {"tp": 2,
+                                         "collective_dtype": "int8"})
+    q_off = _tp_run(model, reqs, "int8_plain",
+                    {"tp": 2, "collective_dtype": "int8"}, kernels=False)
+    _tp_check("int8", q_on, L)
+    _tp_same("int8", q_on, q_off, "the plain versions")
+    fp_b = tp2["co"].collective_bytes("fp")
+    emit({"phase": "tp", "check": "int8_collectives",
+          "partings_from_fp": _first_parting(q_on["streams"],
+                                             tp2["streams"]),
+          "wire_bytes_fp": fp_b,
+          "wire_bytes_int8": q_on["co"].collective_bytes("int8"),
+          "fp_over_int8": fp_b / max(q_on["co"].collective_bytes("int8"),
+                                     1)})
+    # each knob set at tp=2 against the same knobs at tp=1
+    waves = [reqs, reqs]
+    for label, knob in TP_KNOBS:
+        r = waves if label == "prefix" else reqs
+        one = _tp_run(model, r, f"{label}_tp1", knob)
+        two = _tp_run(model, r, label, dict(knob, tp=2))
+        _tp_check(label, two, L)
+        _tp_same(label, two, one, "tp=1")
+        for x in (one, two):
+            x["eng"].release()
+    # decode_ticks=8: the graph tail, the eager tail and the plain
+    # versions at tp=2, against tp=1's graph tail
+    knob = {"decode_ticks": 8}
+    one = _tp_run(model, reqs, "ticks8_tp1", knob)
+    for label, kw in (("ticks8", {}), ("ticks8_eager", {"graph": False}),
+                      ("ticks8_plain", {"kernels": False})):
+        two = _tp_run(model, reqs, label, dict(knob, tp=2), **kw)
+        _tp_check(label, two, L, kernels=kw.get("kernels", True))
+        _tp_same(label, two, one, "tp=1")
+        if label == "ticks8":
+            emit({"phase": "tp", "leg": label,
+                  "graph_captures": two["eng"]._tail.captures,
+                  "tail_ticks": two["eng"]._tail.ticks})
+        two["eng"].release()
+    one["eng"].release()
+    del model, one, two
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16: tp=2's first logits held against its plain versions and
+    # against tp=1 in the form the script holds bf16 logits to (TOL
+    # scaled by the largest entry, _compare_scaled), the streams' first
+    # partings reported
+    model = LlamaForCausalLM(llama_7b(num_hidden_layers=2,
+                                      dtype="bfloat16"), device="cuda",
+                             seed=1)
+    b1 = _tp_run(model, reqs, "bf16_tp1", {})
+    b2 = _tp_run(model, reqs, "bf16", {"tp": 2})
+    b2p = _tp_run(model, reqs, "bf16_plain", {"tp": 2}, kernels=False)
+    _tp_check("bf16", b2, L)
+    _tp_check("bf16_plain", b2p, L, kernels=False)
+    line = {"phase": "tp", "check": "bf16_tp2", "tol": BWD_TOL["bfloat16"]}
+    for what, ref in (("plain", b2p), ("tp1", b1)):
+        err, rel = _compare_scaled(f"tp bf16 first logits vs {what}",
+                                   "bfloat16", b2["logits"], ref["logits"])
+        line[f"first_logits_err_vs_{what}"] = err
+        line[f"first_logits_err_of_max_vs_{what}"] = rel
+        line[f"partings_from_{what}"] = _first_parting(b2["streams"],
+                                                       ref["streams"])
+    emit(line)
+    for r in (b1, b2, b2p):
+        r["eng"].release()
+    del model, b1, b2, b2p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tp_serve_run(model, reqs, tp):
+    """One measured serve run at ``tp`` after a warm-up run: counts, the
+    device's reductions, a fresh cost observatory and the peak memory set
+    to 0 just before it and read just after."""
+    import torch
+    from paddle_tpu_torch.kernels import LAUNCHES, WIRE, reset_launches
+    from paddle_tpu_torch.profiler.cost import CostObservatory
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          GenerationRequest)
+    warm = _serve(model, _requests(GenerationRequest, (100,), 600, 9,
+                                   model.config.vocab_size, seed=5), tp=tp)
+    warm[1].release()
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(model, tp=tp)
+    co = eng.cost = CostObservatory()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_ms = []
+    seqs = [eng.submit(q) for q in reqs]
+    while eng.has_work():
+        ts = time.perf_counter()
+        eng.step()
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"eng": eng, "co": co, "launches": dict(LAUNCHES),
+            "wire": {k: LAUNCHES[k] for k in WIRE},
+            "toks": [s.tokens for s in seqs], "step_ms": step_ms,
+            "wall": wall,
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _parting_gaps(model, reqs, toks):
+    """At each stream's first parting of tp=2 from tp=1 (``toks``, each
+    degree's streams): the prompt and tp=1's tokens before it through
+    each degree's cold prefill program (the kernels; one-slot engines, so
+    the serve runs' memory readings stay their own), and the logits
+    there: each degree's top-2 gap and the largest difference between
+    the two degrees' logits. On a greedy stream a tp=1 gap no larger than
+    that difference is a near tie the partial sums' rounding can flip; a
+    sampled stream draws from the whole top-k."""
+    import numpy as np
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    engines = {tp: ContinuousBatchingEngine(model, tp=tp, num_slots=1)
+               for tp in (1, 2)}
+    out = []
+    for i, (a, b) in enumerate(zip(toks[1], toks[2])):
+        at = _first_parting([a], [b])[0]
+        if at is None:
+            continue
+        ids = np.concatenate([np.asarray(reqs[i].prompt, np.int32),
+                              np.asarray(a[:at], np.int32)])
+        n = int(ids.shape[0])
+        pad = np.zeros((1, 1 << (n - 1).bit_length()), np.int32)
+        pad[0, :n] = ids
+        logits = {}
+        for tp, eng in engines.items():
+            with _first_logits([]) as seen:
+                eng._prefill_fn()(eng._shards, pad, np.array([n], np.int32),
+                                  np.zeros((1, 2), np.int64),
+                                  np.zeros(1, np.float32),
+                                  np.zeros(1, np.int32))
+            logits[tp] = seen[0][0]
+        top = {tp: x.topk(2) for tp, x in logits.items()}
+        diff = float((logits[1] - logits[2]).abs().max())
+        gap1 = float(top[1].values[0] - top[1].values[1])
+        sampled = float(reqs[i].temperature) > 0
+        out.append({"stream": i, "parting": at, "sampled": sampled,
+                    "served": [a[at], b[at]],
+                    "picks": [int(top[1].indices[0]),
+                              int(top[2].indices[0])],
+                    "tp1_top2_gap": gap1,
+                    "tp2_top2_gap": float(top[2].values[0]
+                                          - top[2].values[1]),
+                    "logits_max_abs_diff": diff,
+                    "near_tie": None if sampled else gap1 <= diff})
+    for eng in engines.values():
+        eng.release()
+    return out
+
+
+def _tp_profile(model, reqs, want):
+    """The tp=2 serve run again under ``torch.profiler``, each reduction
+    inside a ``tp_reduce`` range: the device's busy share and the
+    reductions' share of the device time (the device time of the kernels
+    launched inside the ranges)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from paddle_tpu_torch.serving import engine as seng
+    make = seng.tp_allreduce
+
+    def annotated(*a, **kw):
+        fn = make(*a, **kw)
+
+        def reduce(parts):
+            with torch.profiler.record_function("tp_reduce"):
+                return fn(parts)
+        return reduce
+
+    seng.tp_allreduce = annotated
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            seqs, eng, step_ms, wall = _serve(model, reqs, tp=2)
+    finally:
+        seng.tp_allreduce = make
+    eng.release()
+    if [s.tokens for s in seqs] != want:
+        raise RuntimeError("the profiled tp=2 repeat sampled other tokens")
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    red = next((e for e in prof.key_averages() if e.key == "tp_reduce"),
+               None)
+    red_us = (getattr(red, "device_time_total",
+                      getattr(red, "cuda_time_total", 0)) if red else 0)
+    _profile_line("profile_tp2", rows, wall, steps=len(step_ms),
+                  reductions=red.count if red else 0,
+                  reductions_device_ms=red_us / 1e3,
+                  reductions_share_of_device=(red_us / busy_us
+                                              if busy_us else None))
+
+
+def phase_tp_serve(model, profile=False):
+    """``tp=2`` on the card at full width and depth: llama_7b, 32 layers,
+    bf16, the serve phase's 8 requests x 64 tokens, after a ``tp=1`` run
+    of the same requests in this call: tok/s, step ms, peak memory,
+    launches a shard (as the code implies), collective bytes a step, and
+    the first partings from tp=1 (a sum of two partial products rounds as
+    one full product does not). With ``profile``, a repeat under
+    ``torch.profiler``: the device's busy share and the reductions' share
+    of the device time."""
+    import torch
+    from paddle_tpu_torch.serving import GenerationRequest
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
+    runs = {}
+    for tp in (1, 2):
+        run = runs[tp] = _tp_serve_run(model, reqs, tp)
+        want = _tp_expected(run, L)
+        got = {n: run["launches"][n] for n in want}
+        decoded = sum(len(t) for t in run["toks"])
+        steps = len(run["step_ms"])
+        ledger = run["co"].collectives.get("fp", {"ops": 0, "bytes": 0})
+        emit({"phase": "tp_serve", "tp": tp, "layers": L,
+              "dtype": "bfloat16", "requests": len(reqs),
+              "decoded_tokens": decoded, "wall_s": run["wall"],
+              "decoded_tok_per_s": decoded / run["wall"], "steps": steps,
+              "mean_step_ms": 1e3 * run["wall"] / steps,
+              "peak_mem_gb": run["peak"], "launches": got,
+              "launches_expected": want,
+              "launches_per_shard": {n: got[n] / tp for n in got},
+              "ledger": ledger, "device_wire": run["wire"],
+              "collective_bytes_per_step": ledger["bytes"] / steps,
+              **({"partings_from_tp1": _first_parting(
+                  run["toks"], runs[1]["toks"])} if tp == 2 else {})})
+        if got != want:
+            raise RuntimeError(f"tp_serve tp={tp} launches (got, "
+                               f"expected): {got}, {want}")
+        if tp == 2 and (ledger["bytes"] != run["wire"]["tp_wire_bytes"]
+                        or not ledger["bytes"]):
+            raise RuntimeError(f"tp_serve ledger {ledger} != the device's "
+                               f"reductions {run['wire']}")
+        for s in run["toks"]:
+            if len(s) != 64 or not all(0 <= t < cfg.vocab_size for t in s):
+                raise RuntimeError(f"tp_serve tp={tp}: a stream of "
+                                   f"{len(s)} tokens or out of the "
+                                   f"vocabulary")
+        run["eng"].release()
+        _shared_at_rest(f"tp_serve tp={tp}")
+    gaps = _parting_gaps(model, reqs, {tp: r["toks"] for tp, r in
+                                       runs.items()})
+    emit({"phase": "tp_serve", "check": "partings", "partings": gaps,
+          "greedy_partings": sum(not g["sampled"] for g in gaps),
+          "greedy_near_ties": sum(bool(g["near_tie"]) for g in gaps)})
+    want = runs[2]["toks"]
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if profile:
+        _tp_profile(model, reqs, want)
+
+
 def phase_server(model):
     """``serve(model, port=0)`` at its defaults on the card (decode_chunk
     1, 8 slots, cost on, trace off) under 8 concurrent HTTP clients (4
@@ -4788,7 +5258,6 @@ def phase_profile_fused(model, cfg, reqs, want, scanned_ticks=5):
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-    from paddle_tpu_torch.serving.decode import _fused_decode_tick
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
         seqs, eng, step_ms, wall = _serve(model, reqs, fused_tick=True)
@@ -4799,16 +5268,16 @@ def phase_profile_fused(model, cfg, reqs, want, scanned_ticks=5):
     paged = sum(c for _, c, k in rows if "paged_decode_kernel" in k)
     n_fused = sum(c for _, c in fused)
     fused_us = sum(us for us, _ in fused)
-    t = tick_inputs(eng.cache.pool.k.dtype, eng.cache.pool.k.device, None,
-                    cfg.num_hidden_layers,
-                    pools=(eng.cache.pool.k, eng.cache.pool.v), heads=HEADS)
+    (pk,), (pv,) = eng.cache.pool.k, eng.cache.pool.v      # one shard
+    t = tick_inputs(pk.dtype, pk.device, None, cfg.num_hidden_layers,
+                    pools=(pk, pv), heads=HEADS)
     p, tied = eng._params, eng._tied
     nbytes, flops = tick_cost(p, t, cfg.num_hidden_layers, 2, heads=HEADS)
-    _tick(_fused_decode_tick, p, tied, t, heads=HEADS)          # warm
+    _tick(_scanned_tick, p, tied, t, heads=HEADS)          # warm
     torch.cuda.synchronize()
     with torch_profile(activities=acts) as prof2:
         for _ in range(scanned_ticks):
-            _tick(_fused_decode_tick, p, tied, t, heads=HEADS)
+            _tick(_scanned_tick, p, tied, t, heads=HEADS)
         torch.cuda.synchronize()
     srows = _device_rows(prof2)
     _profile_line("profile_fused", rows, wall, steps=steps,
@@ -5190,7 +5659,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,serve,generate,server,"
-                            "fleet,train_parity,train",
+                            "fleet,tp,train_parity,train",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
                     help="repeat the four serve runs and one train "
@@ -5228,13 +5697,21 @@ def main(argv=None):
 
     smi = phase_device()
     timed("build", phase_build)
+    # training first, on an empty allocator: its 15 layers are the deepest
+    # that fit the card, and the serving phases leave segments reserved
+    # around live blocks that empty_cache cannot return, where the same
+    # allocations can fail for fragmentation alone
+    train = (timed("train", phase_train, args.profile, args.train_layers)
+             if "train" in phases else {})
     rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
     launches = {}
     if "engine" in phases:
         launches.update(timed("engine", phase_engine))
     if "fleet" in phases:
         timed("fleet_fp32", phase_fleet_fp32)
-    if phases & {"serve", "generate", "server", "fleet"}:
+    if "tp" in phases:
+        timed("tp", phase_tp)
+    if phases & {"serve", "generate", "server", "fleet", "tp"}:
         # one llama_7b (32 layers, bf16, seed 0) for the three phases
         from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
         model = LlamaForCausalLM(llama_7b(dtype="bfloat16"), device="cuda",
@@ -5247,13 +5724,16 @@ def main(argv=None):
             timed("server", phase_server, model)
         if "fleet" in phases:
             timed("fleet", _fleet_serve, model)
+        if "tp" in phases:
+            timed("tp_serve", phase_tp_serve, model, args.profile)
         del model
     gc.collect()
-    torch.cuda.empty_cache()      # the serve model is gone before training
+    torch.cuda.empty_cache()
+    emit({"phase": "memory", "check": "after_serving",
+          "reserved_gb": torch.cuda.memory_reserved() / 2 ** 30,
+          "allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
     parity = (timed("train_parity", phase_train_parity)
               if "train_parity" in phases else {})
-    train = (timed("train", phase_train, args.profile, args.train_layers)
-             if "train" in phases else {})
     emit({"phase": "timing", "seconds": seconds})
     kernels = []
     for name in REPLACES:

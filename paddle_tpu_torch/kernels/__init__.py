@@ -11,7 +11,9 @@ so a run can show which kernels its path went through. A CUDA graph
 launches its kernels at each replay, not at capture: :func:`capture_counts`
 records the capturing thread's launches with the graph instead of
 counting them, and :func:`count_replay` adds them at every replay, so
-:data:`LAUNCHES` stays equal to what the device ran.
+:data:`LAUNCHES` stays equal to what the device ran. The same tallies
+count the tensor-parallel engine's cross-shard reductions
+(:data:`WIRE`), so captures and replays carry them too.
 """
 from __future__ import annotations
 
@@ -25,6 +27,10 @@ from collections.abc import Mapping
 KERNELS = ("flash", "paged_decode", "ragged_attention", "flash_bwd_dkv",
            "flash_bwd_dq", "decode", "fused_decode_tick", "flash[rope]",
            "flash_bwd_dkv[rope]", "flash_bwd_dq[rope]", "rope_qk")
+#: the tensor-parallel reductions (``serving/tp.py``), counted beside the
+#: launches: reductions, the wire operations they lower to, wire bytes
+WIRE = ("tp_reduce", "tp_wire_ops", "tp_wire_bytes")
+_COUNTED = KERNELS + WIRE
 # each thread's tally by its ident, written only by that thread (a thread
 # that takes a finished thread's ident carries on its tally)
 _BY_THREAD = {}
@@ -36,7 +42,7 @@ class _Launches(Mapping):
     over the threads' tallies at each read."""
 
     def __getitem__(self, name):
-        if name not in KERNELS:
+        if name not in _COUNTED:
             raise KeyError(name)
         return sum(t[name] for t in list(_BY_THREAD.values()))
 
@@ -55,7 +61,7 @@ LAUNCHES = _Launches()
 
 def reset_launches():
     for tally in list(_BY_THREAD.values()):
-        for name in KERNELS:
+        for name in _COUNTED:
             tally[name] = 0
 
 
@@ -63,24 +69,24 @@ def _tally():
     tally = getattr(_local, "tally", None)
     if tally is None:
         tally = _local.tally = _BY_THREAD.setdefault(
-            threading.get_ident(), dict.fromkeys(KERNELS, 0))
+            threading.get_ident(), dict.fromkeys(_COUNTED, 0))
     return tally
 
 
-def count_launch(name):
+def count_launch(name, n=1):
     record = getattr(_local, "capture", None)
     if record is not None:      # captured into a graph: nothing ran
-        record[name] += 1
+        record[name] += n
     else:
-        _tally()[name] += 1
+        _tally()[name] += n
 
 
 def thread_launches(ident=None):
-    """One thread's launches per kernel since the last reset: the calling
-    thread's, or thread ``ident``'s."""
+    """One thread's launches per kernel (and its :data:`WIRE` counts)
+    since the last reset: the calling thread's, or thread ``ident``'s."""
     tally = _BY_THREAD.get(threading.get_ident() if ident is None
                            else ident)
-    return dict(tally) if tally else dict.fromkeys(KERNELS, 0)
+    return dict(tally) if tally else dict.fromkeys(_COUNTED, 0)
 
 
 @contextlib.contextmanager
@@ -88,7 +94,7 @@ def capture_counts(record):
     """Around a CUDA-graph capture on this thread: the launches counted
     inside go to ``record`` (the graph's launches a replay), not to
     :data:`LAUNCHES` (nothing ran). Other threads count as usual."""
-    record.update(dict.fromkeys(KERNELS, 0))
+    record.update(dict.fromkeys(_COUNTED, 0))
     _local.capture = record
     try:
         yield record

@@ -195,10 +195,12 @@ def fused_decode_tick_reference(params, head, tables, tables_dev, sin, cos,
     :func:`fused_decode_tick`."""
     from ..serving.decode import _fused_decode_tick
     from .paged_decode import paged_decode_attention_reference
-    return _fused_decode_tick(
-        params, head, tables, tables_dev, sin, cos, tok, pool_k, pool_v,
-        lens, kys, app_mask, temps, top_ks, nh=nh, nkv=nkv, hd=hd, eps=eps,
-        attn=paged_decode_attention_reference, return_logits=return_logits)
+    out = _fused_decode_tick(
+        [params], head, tables, tables_dev, sin, cos, tok, [pool_k],
+        [pool_v], lens, kys, app_mask, temps, top_ks, nh=nh, nkv=nkv, hd=hd,
+        eps=eps, attn=paged_decode_attention_reference,
+        return_logits=return_logits)
+    return (out[0], out[1][0], out[2][0]) + tuple(out[3:])   # one shard
 
 
 def _w8_head(params, H, V):

@@ -26,7 +26,14 @@ facade (:class:`_CountedProgram`) and records, per program key:
   calling thread's, ``kernels.thread_launches()``: a fleet's replicas
   launch from their own threads) across the program's first dispatch:
   the kernels one call of that program launched. On the CPU no kernel
-  launches and the census reads zeros.
+  launches and the census reads zeros. Its ``collectives`` entry counts
+  the wire operations of the tensor-parallel reductions the call ran (the
+  same tally's ``tp_wire_ops``), where the JAX census counts the
+  collective primitives of the jaxpr;
+- **collectives** — the tensor-parallel engine's cross-shard reduction
+  traffic by wire dtype (:meth:`CostObservatory.record_collective`), a
+  ledger apart from h2d/d2h: it never crosses the host boundary, and a
+  ``tp=2`` run's h2d/d2h totals equal the ``tp=1`` run's.
 
 All sizes come from shapes — no device sync, no value reads. The engine
 guards every touch on ``_co()`` — one attribute check when disabled.
@@ -38,7 +45,7 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import thread_launches
+from ..kernels import KERNELS, thread_launches
 
 #: every program kind the JAX engine's jit cache can hand out — the fixed
 #: label set of ``serving_dispatches_total{program=...}`` (kinds the port
@@ -113,6 +120,10 @@ class CostObservatory:
         self._phase = None
         self.totals = {"dispatches": 0, "h2d_bytes": 0, "d2h_bytes": 0,
                        "compiles": 0, "wall_s": 0.0}
+        # the tensor-parallel reductions' wire traffic by wire dtype: a
+        # ledger apart from h2d/d2h (all-reduce bytes never cross the
+        # host boundary)
+        self.collectives = {}
         # KV-tier traffic by direction (the host-RAM spill tier): a
         # ledger apart from the per-program h2d/d2h records, whose
         # arguments and results it never touches. Directions: "d2h"
@@ -182,12 +193,33 @@ class CostObservatory:
         ph["d2h_bytes"] += d2h
         ph["wall_s"] += dt
 
-    def record_census(self, label, launches):
+    def record_census(self, label, launches, collectives=0):
         """Record one program's launch census (idempotent per label;
-        the counting facade passes the launch-counter delta of the
-        program's first dispatch)."""
+        the counting facade passes the launch-counter and wire-operation
+        deltas of the program's first dispatch)."""
         if label not in self.censuses:
-            self.censuses[label] = {"launches": dict(launches)}
+            self.censuses[label] = {"launches": dict(launches),
+                                    "collectives": int(collectives)}
+
+    def record_collective(self, dtype, ops, nbytes):
+        """Account one sharded launch's reduction traffic: ``ops``
+        reductions moving ``nbytes`` wire bytes a device, under wire dtype
+        ``dtype`` (``fp`` | ``int8``). Sized from shapes by the caller (the
+        engine's ``_record_collectives``). The
+        ``serving_collective_bytes_total{dtype}`` counter and the
+        ``/debug/profile`` collectives section read this."""
+        rec = self.collectives.get(dtype)
+        if rec is None:
+            rec = {"ops": 0, "bytes": 0}
+            self.collectives[dtype] = rec
+        rec["ops"] += int(ops)
+        rec["bytes"] += int(nbytes)
+
+    def collective_bytes(self, dtype) -> int:
+        """Total wire bytes recorded under one collective dtype (0 for one
+        that never ran: tp=1 engines scrape explicit zeros)."""
+        rec = self.collectives.get(dtype)
+        return int(rec["bytes"]) if rec else 0
 
     def record_tier(self, direction, blocks, nbytes):
         """Account KV-tier traffic: ``blocks`` pool blocks moving
@@ -241,6 +273,9 @@ class CostObservatory:
                 "phases": {k: dict(v)
                            for k, v in list(self.phases.items())},
                 "totals": dict(self.totals),
+                "collectives": {k: dict(v)
+                                for k, v in list(
+                                    self.collectives.items())},
                 "tiers": {k: dict(v)
                           for k, v in list(self.tiers.items())},
                 "censuses": {k: (dict(v) if v is not None else None)
@@ -307,10 +342,17 @@ class CostObservatory:
             if d_blocks <= 0 and d_bytes <= 0:
                 continue
             tiers[direction] = {"blocks": d_blocks, "bytes": d_bytes}
-        # the reference's tensor-parallel ledger: empty, as on its tp=1
-        # engines (Queue A step 10)
+        base_c = (base or {}).get("collectives", {})
+        collectives = {}
+        for dtype, rec in state.get("collectives", {}).items():
+            b = base_c.get(dtype, {})
+            d_ops = rec["ops"] - b.get("ops", 0)
+            d_bytes = rec["bytes"] - b.get("bytes", 0)
+            if d_ops <= 0 and d_bytes <= 0:
+                continue
+            collectives[dtype] = {"ops": d_ops, "bytes": d_bytes}
         return {"programs": programs, "phases": phases, "totals": totals,
-                "collectives": {}, "tiers": tiers}
+                "collectives": collectives, "tiers": tiers}
 
 
 class _CountedProgram:
@@ -349,6 +391,8 @@ class _CountedProgram:
             launches = thread_launches()
             co.record_census(self._label,
                              {k: launches[k] - launches0[k]
-                              for k in launches
-                              if launches[k] != launches0[k]})
+                              for k in KERNELS
+                              if launches[k] != launches0[k]},
+                             launches["tp_wire_ops"]
+                             - launches0["tp_wire_ops"])
         return out

@@ -1,8 +1,9 @@
 """Ref-counted physical block pool: the KV storage of the paged engine.
 
 The port of ``paddle_tpu/serving/block_manager.py``'s ``BlockManager`` on
-the default geometry: two device tensors ``[L, num_blocks, block_size,
-Hkv, D]`` at the model dtype, plus host bookkeeping — a free-block
+the default geometry: two device planes ``k``/``v`` ``[L, num_blocks,
+block_size, Hkv, D]`` at the model dtype, each a list of one tensor a
+shard (below), plus host bookkeeping — a free-block
 min-heap (lowest id first, deterministic) and a per-block reference
 count. Live sequences reference blocks through per-slot block tables
 (:class:`~.kv_cache.PagedKVCache`). The serving programs update the pool
@@ -19,7 +20,14 @@ stores int8 with per-row-per-head float32 scale planes ``k_scale`` /
 never written: e4m3's exponent is the per-value scale). The planes are
 indexed by the same physical block id as the data, so every lifecycle
 move (alloc, free, trie donation) carries a block's scales with it.
-Tensor-parallel placement is not ported yet (ROADMAP Queue A step 10).
+
+``tp`` (the tensor-parallel engine, ``serving/tp.py``) partitions the
+pool on its head axis: every plane is a list of ``tp`` tensors (one at
+``tp=1``), shard ``s`` holding heads ``[s * Hkv/tp, (s + 1) * Hkv/tp)``
+of every block on ``device`` — int8's per-row planes split on their
+axis 3, fp8's per-block planes on axis 2, as the reference's
+``_pool_pspec`` shards them. The host bookkeeping (free heap, refcounts)
+is one copy for all shards: every shard has the same block layout.
 
 The host spill tier (:class:`~.prefix_cache.HostTier`) moves whole blocks
 through :meth:`BlockManager.read_block` (device→host, into reusable
@@ -99,7 +107,7 @@ class BlockManager:
 
     def __init__(self, num_layers, num_blocks, block_size, num_kv_heads,
                  head_dim, dtype=torch.float32, kv_dtype=None,
-                 device="cuda"):
+                 device="cuda", tp=1):
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
         if block_size < 1:
@@ -113,34 +121,34 @@ class BlockManager:
         self.kv_dtype = kv_dtype
         self.quantized = kv_dtype is not None
         self.fp8 = kv_dtype == "fp8"
-        shape = (num_layers, self.num_blocks, self.block_size,
-                 num_kv_heads, head_dim)
-        store = (torch.float8_e4m3fn if self.fp8
-                 else torch.int8 if self.quantized else dtype)
-        self.k = torch.zeros(shape, dtype=store, device=device)
-        self.v = torch.zeros(shape, dtype=store, device=device)
-        if self.fp8:
-            sshape = (num_layers, self.num_blocks, num_kv_heads)
-            self.k_scale = torch.ones(sshape, dtype=torch.float32,
-                                      device=device)
-            self.v_scale = torch.ones(sshape, dtype=torch.float32,
-                                      device=device)
-        elif self.quantized:
-            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
-                                       device=device)
-            self.v_scale = torch.zeros(shape[:-1], dtype=torch.float32,
-                                       device=device)
-        else:
-            self.k_scale = self.v_scale = None
-        #: bytes one block's K/V data holds across all layers (the
-        #: /debug/requests KV-bytes unit), at the storage dtype; fixed at
-        #: construction so it stays readable after :meth:`release`
-        self.block_nbytes = 2 * self.k.numel() * self.k.element_size() \
-            // self.num_blocks
-        #: bytes one block's scale planes hold across all layers, K and V
-        #: (0 on an unquantized pool): the ``kind="scales"`` gauge's unit
+        self.tp = int(tp)
+        if num_kv_heads % self.tp:
+            raise ValueError(
+                f"tp={self.tp} must divide num_kv_heads ({num_kv_heads})")
+        #: the logical geometry, whatever the partition: layers, KV
+        #: heads, head dim and storage dtype
+        self.num_layers = int(num_layers)
+        self.num_kv_heads = int(num_kv_heads)
+        self.head_dim = int(head_dim)
+        self.store_dtype = (torch.float8_e4m3fn if self.fp8
+                            else torch.int8 if self.quantized else dtype)
+        shards = [self._alloc(num_kv_heads // self.tp, device)
+                  for _ in range(self.tp)]
+        #: the planes, one tensor a shard (the scale planes None on an
+        #: unquantized pool)
+        self.k, self.v, self.k_scale, self.v_scale = (
+            [sh[i] for sh in shards] if self.quantized or i < 2 else None
+            for i in range(4))
+        #: bytes one block's K/V data holds across all layers and shards
+        #: (the /debug/requests KV-bytes unit), at the storage dtype; fixed
+        #: at construction so it stays readable after :meth:`release`
+        self.block_nbytes = 2 * sum(
+            t.numel() * t.element_size() for t in self.k) // self.num_blocks
+        #: bytes one block's scale planes hold across all layers and
+        #: shards, K and V (0 on an unquantized pool): the
+        #: ``kind="scales"`` gauge's unit
         self.scale_block_nbytes = 0 if self.k_scale is None else \
-            2 * self.k_scale.numel() * 4 // self.num_blocks
+            2 * sum(t.numel() * 4 for t in self.k_scale) // self.num_blocks
         self._free_heap = list(range(self.num_blocks))
         self._free_set = set(self._free_heap)
         self._ref = np.zeros(self.num_blocks, np.int32)
@@ -148,9 +156,25 @@ class BlockManager:
         # spill staging: per-shape reusable host buffers for read_block,
         # recycled by the tier's drop/readmit paths (recycle_staging);
         # the event marks the last host->device copy out of them
-        self._cuda = self.k.is_cuda
+        self._cuda = self.k[0].is_cuda
         self.staging = StagingPool(pin=self._cuda)
         self._h2d_done = None
+
+    def _alloc(self, hkv, device):
+        """One shard's zeroed planes ``(k, v, k_scale, v_scale)`` over
+        ``hkv`` heads (the scale planes None on an unquantized pool)."""
+        shape = (self.num_layers, self.num_blocks, self.block_size, hkv,
+                 self.head_dim)
+        k = torch.zeros(shape, dtype=self.store_dtype, device=device)
+        v = torch.zeros(shape, dtype=self.store_dtype, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        if self.fp8:
+            sshape = (self.num_layers, self.num_blocks, hkv)
+            return k, v, torch.ones(sshape, **f32), torch.ones(sshape, **f32)
+        if self.quantized:
+            return (k, v, torch.zeros(shape[:-1], **f32),
+                    torch.zeros(shape[:-1], **f32))
+        return k, v, None, None
 
     # ---------------------------------------------------------- allocator
     @property
@@ -213,10 +237,13 @@ class BlockManager:
 
     # --------------------------------------------------- tier transfers
     def _planes(self):
-        planes = {"k": self.k, "v": self.v}
-        if self.quantized:
-            planes.update(k_scale=self.k_scale, v_scale=self.v_scale)
-        return planes
+        """Every shard's planes a block spans, by name: shard 0's ``k``,
+        ``v`` (and the scale planes), shard ``s``'s ``k.s``, ``v.s``,
+        ...."""
+        names = ("k", "v") + (("k_scale", "v_scale") if self.quantized
+                              else ())
+        return {f"{name}.{s}" if s else name: t for name in names
+                for s, t in enumerate(getattr(self, name))}
 
     def _note_transfer(self, direction, planes):
         _TIER_SIGNATURES.add((direction, self.kv_dtype) + tuple(
@@ -225,10 +252,12 @@ class BlockManager:
 
     def read_block(self, block: int) -> dict:
         """Copy one block device→host for the spill tier: staging buffers
-        keyed like the pool's planes (``k``/``v`` ``[L, 1, bs, Hkv, D]``
+        keyed like the pool's planes (``k``/``v`` ``[L, 1, bs, Hkv/tp, D]``
         and, on a quantized pool, ``k_scale``/``v_scale`` — the scale
-        planes ride the same block id). The copy is complete when this
-        returns: an event after the copies is waited on."""
+        planes ride the same block id; every shard's, whose bytes add up
+        to the block's once). The copy is
+        complete when this returns: an event after the copies is waited
+        on."""
         planes = self._planes()
         out = {}
         for name, t in planes.items():

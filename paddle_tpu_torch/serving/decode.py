@@ -67,6 +67,16 @@ Quantized serving rides every program, as in the reference:
   take the scale planes, and the suffix programs gather narrow rows and
   apply the scales after the dots.
 
+Every program's layers run through one stack, :func:`layer_stack`: per
+layer RMSNorm, QKV, the program's own ``core`` (RoPE, the K/V write and
+the attention), O-proj and SwiGLU. The programs take their parameters
+and pool sides as per-shard lists, a shard's head counts and
+``tp_reduce``: one shard and ``tp.one_shard`` without tensor
+parallelism, ``tp`` shards and the engine's reduction under the engine's
+``tp`` (``serving/tp.py``). The stack runs the shards in lockstep up to
+each half-layer's partial sum and reduces; what follows the last layer
+runs once, on shard 0's copy.
+
 ``FLAGS_use_cuda_kernels`` (``paddle_tpu_torch.flags``) selects the
 attention (and the fused tick) at every call: on, the kernel wrappers
 (the hand-written CUDA kernels for CUDA tensors, their plain versions
@@ -98,6 +108,7 @@ from ..quantization import quantize_collective_int8, quantize_weight_int8
 from . import graphs
 from .graphs import decode_layers, sample_rows_dev, sampling_args
 from .kv_cache import quantize_kv_rows, quantize_kv_rows_fp8, store_view
+from .tp import one_shard
 
 NEG_INF = -1e30
 
@@ -129,6 +140,45 @@ def _layer(params, l):
     return tuple(params[k][l] if not isinstance(params[k], tuple)
                  else (params[k][0][l], params[k][1][l])
                  for k in STACK_KEYS)
+
+
+# ------------------------------------------------ the shared layer stack
+def _embed(params, ids):
+    """Every shard's copy of the embedded tokens (the residual stream each
+    shard carries)."""
+    return [p["embed"][ids.to(p["embed"].device)] for p in params]
+
+
+def layer_stack(params, x, n_layers, core, *, nh, nkv, hd, eps, a8=False,
+                tp_reduce=one_shard):
+    """THE layer stack of every serving program: per layer RMSNorm → QKV
+    → ``core(l, q, k, v, s)`` (RoPE, the program's K/V write and its
+    attention on shard ``s``, returning ``[..., nh, hd]``) → O-proj →
+    SwiGLU, on the residual stream. int8 weight pairs dequantize a layer
+    at a time, or with ``a8`` run int8 x int8.
+
+    ``params`` is the list of shard dicts, ``x`` every shard's copy of the
+    stream ``[..., hidden]`` and ``nh``/``nkv`` a shard's head counts. Each
+    half of a layer runs shard by shard up to its partial sum — the
+    row-sharded ``wo`` and ``w_down`` products; under ``a8`` each shard
+    quantizes its own input rows, as ``shard_map`` does — then
+    ``tp_reduce`` hands every shard its reduced copy for the residual add
+    (one shard: its own). Returns shard 0's copy of the stream after the
+    last layer, where the math that follows is replicated."""
+    for l in range(n_layers):
+        lws = [_dq_layer(_layer(p, l), x[0].dtype, a8) for p in params]
+        parts = []
+        for s, (lwq, lwk, lwv, lwo, _g, _u, _d, lin, _p) in enumerate(lws):
+            q, k, v = _qkv_proj(_rms(x[s], lin, eps), lwq, lwk, lwv, nh,
+                                nkv, hd)
+            attn = core(l, q, k, v, s)
+            parts.append(_o_proj(attn.reshape(*x[s].shape[:-1], nh * hd),
+                                 lwo))
+        x = [xs + r for xs, r in zip(x, tp_reduce(parts))]
+        parts = [_swiglu_proj(_rms(x[s], lw[8], eps), *lw[4:7])
+                 for s, lw in enumerate(lws)]
+        x = [xs + r for xs, r in zip(x, tp_reduce(parts))]
+    return x[0]
 
 
 # ----------------------------------------------- int8 weight-only decode
@@ -274,11 +324,13 @@ def _head_logits(last_h, head):
 
 
 # --------------------------------------------------- the pool's two forms
-# A quantized pool side is one ``(data, scale)`` pair; these helpers are
-# the only places the programs see the difference.
+# A pool side is a list of shards; a quantized shard is one ``(data,
+# scale)`` pair. These helpers are the only places the programs see the
+# difference.
 def _kv_data(pool):
-    """The storage tensor of a pool side (shapes and dtype)."""
-    return pool[0] if isinstance(pool, tuple) else pool
+    """The storage tensor of a pool side's shard 0 (shapes and dtype)."""
+    side = pool[0]
+    return side[0] if isinstance(side, tuple) else side
 
 
 def _kv_layer(pool, l):
@@ -404,48 +456,49 @@ def _split_rows(keys):
 # ------------------------------------------------------------------ prefill
 @torch.inference_mode()
 def _prefill_impl(params, ids, lengths, keys, temps, top_ks, *, nh, nkv, hd,
-                  eps, theta, tied, decode_attn="pallas", a8=False):
+                  eps, theta, tied, decode_attn="pallas", a8=False,
+                  tp_reduce=one_shard):
     """Batched cold prefill: ids [G, S_pad] right-padded prompts, lengths
     [G] real token counts, per-row keys/temps/top_ks (host arrays).
 
-    Returns ``(pk, pv, tok0, keys')``: pk/pv ``[L, G, S_pad, Hkv, D]``
-    (padding positions hold garbage the cache write never installs),
-    tok0 ``[G]`` on the device, keys' ``[G, 2]`` on the host."""
+    Returns ``(pk, pv, tok0, keys')``: pk/pv one ``[L, G, S_pad, Hkv,
+    D]`` tensor a shard, its heads, as the pool it is written into
+    (padding positions hold garbage the cache write never installs), tok0
+    ``[G]`` on the device, keys' ``[G, 2]`` on the host."""
     attn_fn = _attn_fns(decode_attn)[0]
-    embed = params["embed"]
+    embed = params[0]["embed"]
     dev = embed.device
     ids = torch.as_tensor(_host(ids)).to(dev)
     G, S = ids.shape
-    L = params["input_ln"].shape[0]
+    L = params[0]["input_ln"].shape[0]
     sin, cos = _rope_tables(S, hd, theta, device=dev)
-    h = embed[ids]
-    pk, pv = [], []
-    for l in range(L):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _dq_layer(
-            _layer(params, l), embed.dtype, a8)
-        hn = _rms(h, lin, eps)
-        q, k, v = _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd)
+    kv = [([], []) for _ in params]
+
+    def core(l, q, k, v, s):
         q = _apply_rope(q, sin, cos)
         k = _apply_rope(k, sin, cos)
-        attn = attn_fn(q, k, v, causal=True)
-        h = h + _o_proj(attn.reshape(G, S, nh * hd), lwo)
-        h = h + _swiglu_proj(_rms(h, lpost, eps), lg, lu, ld)
-        pk.append(k)
-        pv.append(v)
+        kv[s][0].append(k)
+        kv[s][1].append(v)
+        return attn_fn(q, k, v, causal=True)
+
+    h = layer_stack(params, _embed(params, ids), L, core, nh=nh, nkv=nkv,
+                    hd=hd, eps=eps, a8=a8, tp_reduce=tp_reduce)
     last_idx = torch.as_tensor(_host(lengths) - 1).to(dev)
     last = h[torch.arange(G, device=dev), last_idx]           # [G, H]
-    last_h = _rms(last, params["final_norm"], eps)
-    logits = _head_logits(last_h, _dq_head(params, tied, embed.dtype, a8))
+    last_h = _rms(last, params[0]["final_norm"], eps)
+    logits = _head_logits(last_h, _dq_head(params[0], tied, embed.dtype, a8))
     carry, draw = _split_rows(keys)
     tok0 = sample_rows(logits, draw, temps, top_ks)
-    return torch.stack(pk), torch.stack(pv), tok0, carry
+    return ([torch.stack(k) for k, _ in kv], [torch.stack(v) for _, v in kv],
+            tok0, carry)
 
 
 # ------------------------------------------------------ unified ragged step
 def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
                        pool_k, pool_v, lens, kys, app_mask, temps, top_ks,
                        *, nh, nkv, hd, eps, fused=False, attn=None,
-                       return_logits=False, decode_attn="pallas", a8=False):
+                       return_logits=False, decode_attn="pallas", a8=False,
+                       tp_reduce=one_shard):
     """ONE decode tick over all rows: embed the last tokens, per layer
     RMSNorm → QKV → RoPE at each row's length → append K/V through the
     tables (rows with ``app_mask == 0`` or past capacity do not append) →
@@ -454,9 +507,9 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
 
     tok [R] on the device; tables [R, mb] numpy (and ``tables_dev``, the
     same as an int32 device tensor); lens/app_mask [R] numpy; kys [R, 2]
-    host keys. Returns ``(next_tok, pool_k, pool_v, keys')`` (and the
-    logits with ``return_logits``); the caller advances ``lens`` by
-    ``app_mask``.
+    host keys; ``params`` and the pool sides per-shard lists. Returns
+    ``(next_tok, pool_k, pool_v, keys')`` (and the logits with
+    ``return_logits``); the caller advances ``lens`` by ``app_mask``.
 
     ``fused=True`` (the engine's ``fused_tick`` knob) hands the whole
     tick to ``kernels/fused_decode_tick.py``: ONE kernel launch on CUDA
@@ -468,12 +521,16 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     Under ``a8`` the tick is always the scanned one: the fused kernel has
     no int8 x int8 projection, and the reference routes an a8 tick to its
     scanned oracle the same way (``pallas_fused_decode_tick.py``'s
-    dispatch), so this is the reference's routing, not a fallback."""
-    if fused and not a8:
-        return _attn_fns(decode_attn)[4](
-            params, head, tables, tables_dev, sin, cos, tok, pool_k, pool_v,
-            lens, kys, app_mask, temps, top_ks, nh=nh, nkv=nkv, hd=hd,
-            eps=eps, return_logits=return_logits)
+    dispatch), so this is the reference's routing, not a fallback. The
+    same holds under tensor parallelism: the reference takes its Pallas
+    tick only when ``tp_reduce is None``, so a sharded fused tick is the
+    scanned tick, shard by shard through paged decode."""
+    if fused and not a8 and len(params) == 1:
+        out = _attn_fns(decode_attn)[4](
+            params[0], head, tables, tables_dev, sin, cos, tok, pool_k[0],
+            pool_v[0], lens, kys, app_mask, temps, top_ks, nh=nh, nkv=nkv,
+            hd=hd, eps=eps, return_logits=return_logits)
+        return (out[0], [out[1]], [out[2]]) + tuple(out[3:])
     paged_fn = attn or _attn_fns(decode_attn)[1]
     dev = tok.device
     R = tok.shape[0]
@@ -494,18 +551,18 @@ def _fused_decode_tick(params, head, tables, tables_dev, sin, cos, tok,
     sin_r, cos_r = sin[pidx], cos[pidx]
     att_len = torch.from_numpy((lens + app_mask).astype(np.int32)).to(dev)
 
-    def write(l, k, v):
-        _kv_write(_kv_layer(pool_k, l), phys_w, prow_w, k[rows_w])
-        _kv_write(_kv_layer(pool_v, l), phys_w, prow_w, v[rows_w])
+    def write(l, k, v, s):
+        _kv_write(_kv_layer(pool_k[s], l), phys_w, prow_w, k[rows_w])
+        _kv_write(_kv_layer(pool_v[s], l), phys_w, prow_w, v[rows_w])
 
     h = decode_layers(
-        params, params["embed"][tok[:, None]], sin_r, cos_r,
+        params, _embed(params, tok[:, None]), sin_r, cos_r,
         _kv_data(pool_k).shape[0], write,
-        lambda l, q: _paged_attend(paged_fn, q, _kv_layer(pool_k, l),
-                                   _kv_layer(pool_v, l), tables_dev,
-                                   att_len),
-        nh=nh, nkv=nkv, hd=hd, eps=eps, a8=a8)
-    last_h = _rms(h[:, 0], params["final_norm"], eps)
+        lambda l, q, s: _paged_attend(paged_fn, q, _kv_layer(pool_k[s], l),
+                                      _kv_layer(pool_v[s], l), tables_dev,
+                                      att_len),
+        nh=nh, nkv=nkv, hd=hd, eps=eps, a8=a8, tp_reduce=tp_reduce)
+    last_h = _rms(h[:, 0], params[0]["final_norm"], eps)
     logits = _head_logits(last_h, head)
     carry, draw = _split_rows(kys)
     nxt = sample_rows(logits, draw, temps, top_ks)
@@ -522,7 +579,7 @@ def _span_last_sample(params, head, x, qstart, qlen, keys, temps, top_ks,
     T = x.shape[1]
     last_idx = np.clip(_host(qstart) + _host(qlen) - 1, 0, T - 1)
     last = x[0, torch.from_numpy(last_idx).to(x.device)]    # [R, H]
-    last_h = _rms(last, params["final_norm"], eps)
+    last_h = _rms(last, params[0]["final_norm"], eps)
     logits = _head_logits(last_h, head)
     carry, draw = _split_rows(keys)
     return sample_rows(logits, draw, temps, top_ks), carry
@@ -530,22 +587,23 @@ def _span_last_sample(params, head, x, qstart, qlen, keys, temps, top_ks,
 
 def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
                          seg, pos, qstart, qlen, kvlen, sin, cos, *, nh,
-                         nkv, hd, eps, decode_attn="pallas", a8=False):
+                         nkv, hd, eps, decode_attn="pallas", a8=False,
+                         tp_reduce=one_shard):
     """ONE forward pass over a packed buffer of variable-length query
     spans through the block tables (tick 0 of the unified step). K/V of
     every live packed token is written through its slot's table at its
     logical position — dead rows (``seg == R``), positions past the
     logical capacity and unmapped table entries do not write — then
-    attention runs through the ragged kernel (or its plain version).
-    Returns ``(x [1, T, H], pool_k, pool_v)``."""
+    attention runs through the ragged kernel (or its plain version), once
+    a shard on its heads and its pool. Returns ``(x [1, T, H], pool_k,
+    pool_v)``."""
     ragged_fn = _attn_fns(decode_attn)[2]
-    dev = params["embed"].device
+    dev = params[0]["embed"].device
     R, mb = tables.shape
     nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
     s_tot = mb * bs
     seg = _host(seg)
     pos = _host(pos)
-    T = seg.shape[0]
     live_tok = seg < R
     seg_c = np.minimum(seg, R - 1)
     bi = np.minimum(pos // bs, mb - 1)
@@ -558,23 +616,21 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
     sin_p, cos_p = sin[pidx][None], cos[pidx][None]         # [1, T, D]
     span = [torch.from_numpy(_host(a, np.int32)).to(dev)
             for a in (qstart, qlen, kvlen)]
-    x = params["embed"][torch.as_tensor(_host(ids)).to(dev)[None]]
-    dt = x.dtype
-    for l in range(_kv_data(pool_k).shape[0]):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _dq_layer(
-            _layer(params, l), dt, a8)
-        hn = _rms(x, lin, eps)
-        q, k, v = _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd)
+
+    def core(l, q, k, v, s):
         q = _apply_rope_grid(q, sin_p, cos_p)
         k = _apply_rope_grid(k, sin_p, cos_p)
-        pk_l, pv_l = _kv_layer(pool_k, l), _kv_layer(pool_v, l)
+        pk_l = _kv_layer(pool_k[s], l)
+        pv_l = _kv_layer(pool_v[s], l)
         _kv_write(pk_l, phys_w, prow_w, k[0, rows_w])
         _kv_write(pv_l, phys_w, prow_w, v[0, rows_w])
         kd, vd, ks, vs = _kv_attn_args(pk_l, pv_l)
-        attn = ragged_fn(q[0], kd, vd, tables_dev, *span, k_scale=ks,
+        return ragged_fn(q[0], kd, vd, tables_dev, *span, k_scale=ks,
                          v_scale=vs)
-        x = x + _o_proj(attn.reshape(1, T, nh * hd), lwo)
-        x = x + _swiglu_proj(_rms(x, lpost, eps), lg, lu, ld)
+
+    x = layer_stack(params, _embed(params, torch.as_tensor(
+        _host(ids)).to(dev)[None]), _kv_data(pool_k).shape[0], core, nh=nh,
+        nkv=nkv, hd=hd, eps=eps, a8=a8, tp_reduce=tp_reduce)
     return x, pool_k, pool_v
 
 
@@ -582,7 +638,8 @@ def _packed_span_forward(params, pool_k, pool_v, tables, tables_dev, ids,
 def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                       qstart, qlen, kvlen, dec_mask, keys, temps, top_ks,
                       *, n_steps, nh, nkv, hd, eps, theta, tied,
-                      fused=False, decode_attn="pallas", a8=False):
+                      fused=False, decode_attn="pallas", a8=False,
+                      tp_reduce=one_shard):
     """THE unified serving step: one call that advances every slot's span
     — decode rows (span 1) and prefill chunks (span n) — through the same
     block tables.
@@ -602,18 +659,23 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
     keys_fin)``: the pools are the given tensors, updated in place;
     ``toks[0]``/``keys_t0`` are tick 0's sample and advanced keys (what a
     final chunk row adopts), ``keys_fin`` the post-tail keys decode rows
-    adopt (host int64 ``[R, 2]`` each)."""
-    dev = params["embed"].device
+    adopt (host int64 ``[R, 2]`` each).
+
+    ``params`` and the pool sides are per-shard lists and ``nh``/``nkv`` a
+    shard's heads: every layer loop runs its shards in lockstep
+    (:func:`layer_stack`); the rest is replicated and runs once."""
+    rp = params[0]
+    dev = rp["embed"].device
     tables = _host(tables)
     s_tot = tables.shape[1] * _kv_data(pool_k).shape[2]
     sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
-    head = _dq_head(params, tied, params["embed"].dtype, a8)
+    head = _dq_head(rp, tied, rp["embed"].dtype, a8)
     tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
     # ----------------------------------- tick 0 (shared packed forward)
     x, pool_k, pool_v = _packed_span_forward(
         params, pool_k, pool_v, tables, tables_dev, ids, seg, pos, qstart,
         qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
-        decode_attn=decode_attn, a8=a8)
+        decode_attn=decode_attn, a8=a8, tp_reduce=tp_reduce)
     tok0, keys_t0 = _span_last_sample(params, head, x, qstart, qlen, keys,
                                       temps, top_ks, eps)
     # ------------------------------------------- fused tail (pure decode)
@@ -624,7 +686,8 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
         tok, pool_k, pool_v, kys = _fused_decode_tick(
             params, head, tables, tables_dev, sin, cos, tok, pool_k,
             pool_v, lens, kys, dec_mask, temps, top_ks, nh=nh, nkv=nkv,
-            hd=hd, eps=eps, fused=fused, decode_attn=decode_attn, a8=a8)
+            hd=hd, eps=eps, fused=fused, decode_attn=decode_attn, a8=a8,
+            tp_reduce=tp_reduce)
         lens = lens + dec_mask
         toks.append(tok)
     return pool_k, pool_v, torch.stack(toks), keys_t0, _keys_host(kys)
@@ -635,7 +698,7 @@ def _ragged_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
 def _spec_verify_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                       qstart, qlen, kvlen, sample_start, keys, temps,
                       top_ks, *, spec_len, nh, nkv, hd, eps, theta, tied,
-                      decode_attn="pallas", a8=False):
+                      decode_attn="pallas", a8=False, tp_reduce=one_shard):
     """THE speculative serving step: one call that scores every slot's
     draft-extended span — a verify row packs ``[last_token, d_1 .. d_k]``
     at positions ``len .. len+k``, a prefill chunk its prompt slice, both
@@ -661,17 +724,18 @@ def _spec_verify_impl(params, pool_k, pool_v, tables, ids, seg, pos,
     [spec_len, R, 2] (host))``: the pools updated in place; ``keys_walk[j]``
     each row's key after ``j + 1`` splits (a row that emits m tokens adopts
     ``keys_walk[m - 1]``)."""
-    dev = params["embed"].device
+    rp = params[0]
+    dev = rp["embed"].device
     tables = _host(tables)
     R = tables.shape[0]
     s_tot = tables.shape[1] * _kv_data(pool_k).shape[2]
     sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
-    head = _dq_head(params, tied, params["embed"].dtype, a8)
+    head = _dq_head(rp, tied, rp["embed"].dtype, a8)
     tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
     x, pool_k, pool_v = _packed_span_forward(
         params, pool_k, pool_v, tables, tables_dev, ids, seg, pos, qstart,
         qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
-        decode_attn=decode_attn, a8=a8)
+        decode_attn=decode_attn, a8=a8, tp_reduce=tp_reduce)
     # spec_len consecutive packed rows from sample_start, clamped inside
     # the row's span (idle rows clamp to row 0: never read)
     T = x.shape[1]
@@ -680,7 +744,7 @@ def _spec_verify_impl(params, pool_k, pool_v, tables, ids, seg, pos,
     idx = np.clip(_host(sample_start)[:, None] + np.arange(spec_len)[None],
                   qs[:, None], span_end[:, None])            # [R, S]
     hsel = x[0, torch.from_numpy(idx.reshape(-1)).to(dev)]   # [R*S, H]
-    logits = _head_logits(_rms(hsel, params["final_norm"], eps), head)
+    logits = _head_logits(_rms(hsel, rp["final_norm"], eps), head)
     logits = logits.reshape(R, spec_len, -1)
     toks, walk, kys = [], [], keys
     for j in range(spec_len):
@@ -710,11 +774,11 @@ def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
     Returns ``(toks [n_steps, B] (device), cache_k, cache_v, keys' [B, 2]
     (host))``."""
     dense_fn = _attn_fns(decode_attn)[3]
-    embed = params["embed"]
+    embed = params[0]["embed"]
     dev = embed.device
     s_max = cache_k.shape[2]
     sin, cos = _rope_tables(s_max, hd, theta, device=dev)
-    head = _dq_head(params, tied, embed.dtype)
+    head = _dq_head(params[0], tied, embed.dtype)
     tok = torch.as_tensor(_host(tokens)).to(dev)
     lens = _host(lengths)
     kys = keys
@@ -727,18 +791,18 @@ def _decode_steps_impl(params, cache_k, cache_v, tokens, lengths, keys,
         sin_r, cos_r = sin[pidx], cos[pidx]
         att_len = torch.from_numpy((lens + 1).astype(np.int32)).to(dev)
 
-        def write(l, k, v, rows=rows, rows_w=rows_w, pos_w=pos_w):
+        def write(l, k, v, s, rows=rows, rows_w=rows_w, pos_w=pos_w):
             if rows.size:
                 cache_k[l, rows_w, pos_w] = k[rows_w]
                 cache_v[l, rows_w, pos_w] = v[rows_w]
 
         h = decode_layers(
-            params, embed[tok[:, None]], sin_r, cos_r, cache_k.shape[0],
-            write,
-            lambda l, q, att_len=att_len: dense_fn(q, cache_k[l],
-                                                   cache_v[l], att_len),
+            params, _embed(params, tok[:, None]), sin_r, cos_r,
+            cache_k.shape[0], write,
+            lambda l, q, s, att_len=att_len: dense_fn(q, cache_k[l],
+                                                      cache_v[l], att_len),
             nh=nh, nkv=nkv, hd=hd, eps=eps)
-        last_h = _rms(h[:, 0], params["final_norm"], eps)
+        last_h = _rms(h[:, 0], params[0]["final_norm"], eps)
         logits = last_h @ head
         kys, draw = _split_rows(kys)
         tok = sample_rows(logits, draw, temps, top_ks)
@@ -803,33 +867,30 @@ def _visible_rows(prefix, S, live, cap, unit):
 
 def _suffix_forward(params, ids, sin_p, cos_p, n_layers, write, gather,
                     pos, valid_to, suffix_lens, keys, temps, top_ks, *, nh,
-                    nkv, hd, eps, tied, a8=False):
+                    nkv, hd, eps, tied, a8=False, tp_reduce=one_shard):
     """The suffix programs' shared forward: per layer RMSNorm → QKV →
-    RoPE at each column's position → ``write(l, k, v)`` (``[G, S, Hkv,
-    D]`` into the caller's cache) → ``gather(l)`` (each row's visible
-    cache after the writes, and its scales or None) →
-    :func:`_suffix_attention` → O-proj → SwiGLU; then each row's sample
-    from its last real suffix column, after one key split. Returns
-    ``(tok0 [G] device, keys' [G, 2] host)``."""
-    G, S = ids.shape
-    x = params["embed"][ids]
-    dt = x.dtype
-    for l in range(n_layers):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _dq_layer(
-            _layer(params, l), dt, a8)
-        hn = _rms(x, lin, eps)
-        q, k, v = _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd)
+    RoPE at each column's position → ``write(l, k, v, s)`` (``[G, S,
+    Hkv, D]`` into the caller's cache; ``s`` the shard) →
+    ``gather(l, s)`` (each row's visible cache after the writes, and its
+    scales or None) → :func:`_suffix_attention` → O-proj → SwiGLU; then
+    each row's sample from its last real suffix column, after one key
+    split. Returns ``(tok0 [G] device, keys' [G, 2] host)``."""
+    G = ids.shape[0]
+
+    def core(l, q, k, v, s):
         q = _apply_rope_grid(q, sin_p, cos_p)
         k = _apply_rope_grid(k, sin_p, cos_p)
-        write(l, k, v)
-        (kc, ksr), (vc, vsr) = gather(l)
-        attn = _suffix_attention(q, kc, vc, pos, valid_to, nkv, ksr, vsr)
-        x = x + _o_proj(attn.reshape(G, S, nh * hd), lwo)
-        x = x + _swiglu_proj(_rms(x, lpost, eps), lg, lu, ld)
+        write(l, k, v, s)
+        (kc, ksr), (vc, vsr) = gather(l, s)
+        return _suffix_attention(q, kc, vc, pos, valid_to, nkv, ksr, vsr)
+
+    x = layer_stack(params, _embed(params, ids), n_layers, core, nh=nh,
+                    nkv=nkv, hd=hd, eps=eps, a8=a8, tp_reduce=tp_reduce)
+    rp = params[0]
     last = x[torch.arange(G, device=x.device),
              torch.from_numpy(_host(suffix_lens) - 1).to(x.device)]
-    logits = _head_logits(_rms(last, params["final_norm"], eps),
-                          _dq_head(params, tied, dt, a8))
+    logits = _head_logits(_rms(last, rp["final_norm"], eps),
+                          _dq_head(rp, tied, x.dtype, a8))
     carry, draw = _split_rows(keys)
     return sample_rows(logits, draw, temps, top_ks), carry
 
@@ -850,7 +911,7 @@ def _suffix_prefill_impl(params, cache_k, cache_v, slots, prefix_lens, ids,
     does; rows past the length are masked until decode overwrites them)
     and its query attends rows ``0..pos``. Returns ``(cache_k, cache_v,
     tok0, keys')``, the caches written in place."""
-    dev = params["embed"].device
+    dev = params[0]["embed"].device
     ids = torch.as_tensor(_host(ids)).to(dev)
     G, S = ids.shape
     num_slots, s_max = cache_k.shape[1], cache_k.shape[2]
@@ -868,15 +929,15 @@ def _suffix_prefill_impl(params, cache_k, cache_v, slots, prefix_lens, ids,
     rd = torch.from_numpy(np.minimum(slots, num_slots - 1)).to(dev)
     vis = _visible_rows(prefix, S, slots < num_slots, s_max, 1)
 
-    def write(l, k, v):
+    def write(l, k, v, s):
         if gi.size:
             cache_k[l, w_slot, w_pos] = k[w_g, w_c]
             cache_v[l, w_slot, w_pos] = v[w_g, w_c]
 
     tok0, carry = _suffix_forward(
         params, ids, sin_p, cos_p, cache_k.shape[0], write,
-        lambda l: ((cache_k[l, rd, :vis], None),
-                   (cache_v[l, rd, :vis], None)),
+        lambda l, s: ((cache_k[l, rd, :vis], None),
+                      (cache_v[l, rd, :vis], None)),
         torch.from_numpy(pos).to(dev), torch.from_numpy(prefix + S).to(dev),
         suffix_lens, keys, temps, top_ks, nh=nh, nkv=nkv, hd=hd, eps=eps,
         tied=tied)
@@ -887,7 +948,8 @@ def _suffix_prefill_impl(params, cache_k, cache_v, slots, prefix_lens, ids,
 def _paged_suffix_prefill_impl(params, pool_k, pool_v, tables, prefix_lens,
                                ids, suffix_lens, keys, temps, top_ks, *,
                                nh, nkv, hd, eps, theta, tied,
-                               decode_attn="pallas", a8=False):
+                               decode_attn="pallas", a8=False,
+                               tp_reduce=one_shard):
     """The suffix prefill through per-row block tables (the paged engine's
     prefix hits, and the two-program engine's chunked-prefill program: a
     chunk is a "suffix" whose ``prefix_lens`` is the host resume offset).
@@ -901,8 +963,9 @@ def _paged_suffix_prefill_impl(params, pool_k, pool_v, tables, prefix_lens,
     same table and never written. Returns ``(pool_k, pool_v, tok0,
     keys')``, the pools written in place. On a quantized pool the suffix
     rows quantize on write and the attention reads the narrow rows, the
-    scales applied after the dots (:func:`_kv_gather_rows`)."""
-    dev = params["embed"].device
+    scales applied after the dots (:func:`_kv_gather_rows`). Every shard
+    writes and reads its own pool."""
+    dev = params[0]["embed"].device
     ids = torch.as_tensor(_host(ids)).to(dev)
     G, S = ids.shape
     nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
@@ -926,17 +989,18 @@ def _paged_suffix_prefill_impl(params, pool_k, pool_v, tables, prefix_lens,
     rd = torch.from_numpy(np.clip(tables[:, :vis // bs], 0, nb - 1)).to(dev)
     shape = (G, vis) + tuple(_kv_data(pool_k).shape[3:])
 
-    def write(l, k, v):
-        _kv_write(_kv_layer(pool_k, l), w_phys, w_row, k[w_g, w_c])
-        _kv_write(_kv_layer(pool_v, l), w_phys, w_row, v[w_g, w_c])
+    def write(l, k, v, s):
+        _kv_write(_kv_layer(pool_k[s], l), w_phys, w_row, k[w_g, w_c])
+        _kv_write(_kv_layer(pool_v[s], l), w_phys, w_row, v[w_g, w_c])
 
     tok0, carry = _suffix_forward(
         params, ids, sin_p, cos_p, _kv_data(pool_k).shape[0], write,
-        lambda l: (_kv_gather_rows(_kv_layer(pool_k, l), rd, shape),
-                   _kv_gather_rows(_kv_layer(pool_v, l), rd, shape)),
+        lambda l, s: (
+            _kv_gather_rows(_kv_layer(pool_k[s], l), rd, shape),
+            _kv_gather_rows(_kv_layer(pool_v[s], l), rd, shape)),
         torch.from_numpy(pos).to(dev), torch.from_numpy(prefix + S).to(dev),
         suffix_lens, keys, temps, top_ks, nh=nh, nkv=nkv, hd=hd, eps=eps,
-        tied=tied, a8=a8)
+        tied=tied, a8=a8, tp_reduce=tp_reduce)
     return pool_k, pool_v, tok0, carry
 
 
@@ -956,11 +1020,11 @@ def _paged_decode_steps_impl(params, pool_k, pool_v, tables, tokens,
     slot a length past the capacity, so its append drops. Each tick is
     :func:`_fused_decode_tick` with every row appending. Returns ``(toks
     [n_steps, B] (device), pool_k, pool_v, keys' [B, 2] (host))``."""
-    dev = params["embed"].device
+    dev = params[0]["embed"].device
     tables = _host(tables)
-    s_tot = tables.shape[1] * pool_k.shape[2]
+    s_tot = tables.shape[1] * _kv_data(pool_k).shape[2]
     sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
-    head = _dq_head(params, tied, params["embed"].dtype)
+    head = _dq_head(params[0], tied, params[0]["embed"].dtype)
     tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
     tok = torch.as_tensor(_host(tokens)).to(dev)
     lens = _host(lengths)
@@ -999,7 +1063,8 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                          qstart, qlen, kvlen, dec_mask, keys, temps, top_ks,
                          eos_ids, budgets, n_ticks, *, max_ticks, nh, nkv,
                          hd, eps, theta, tied, fused=False,
-                         decode_attn="pallas", a8=False, tail=None):
+                         decode_attn="pallas", a8=False, tp_reduce=one_shard,
+                         tail=None):
     """THE multi-tick serving step: the unified step with the host out of
     the per-token loop.
 
@@ -1023,14 +1088,20 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
 
     Returns ``(pool_k, pool_v, toks [max_ticks, R], keys_walk [max_ticks,
     R, 2], ticks_run)``: host tensors, row t the tokens and keys after
-    tick t, rows from ``ticks_run`` on zero (the reference's contract)."""
-    dev = params["embed"].device
+    tick t, rows from ``ticks_run`` on zero (the reference's contract).
+
+    Under tensor parallelism (more than one shard) the graph captures the
+    whole sharded tick: every shard's kernels and the reductions. A fused
+    engine's ticks are then the scanned tick (:func:`_fused_decode_tick`),
+    as in the reference."""
+    rp = params[0]
+    dev = rp["embed"].device
     tables = _host(tables)
     R, mb = tables.shape
     nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
     s_tot = mb * bs
     sin, cos = _rope_tables(s_tot, hd, theta, device=dev)
-    head = _dq_head(params, tied, params["embed"].dtype, a8)
+    head = _dq_head(rp, tied, rp["embed"].dtype, a8)
     tables_dev = torch.from_numpy(tables.astype(np.int32)).to(dev)
     dec, kv = _host(dec_mask), _host(kvlen)
     qs, ql = _host(qstart), _host(qlen)
@@ -1044,13 +1115,13 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
             params, head, tables, tables_dev, sin, cos, tok_in, pool_k,
             pool_v, np.where(dec > 0, kv - 1, 0), keys, dec, temps, top_ks,
             nh=nh, nkv=nkv, hd=hd, eps=eps, fused=True,
-            decode_attn=decode_attn, a8=a8)
+            decode_attn=decode_attn, a8=a8, tp_reduce=tp_reduce)
         keys_t0 = _keys_host(keys_t0)
     else:
         x, pool_k, pool_v = _packed_span_forward(
             params, pool_k, pool_v, tables, tables_dev, ids, seg, pos,
             qstart, qlen, kvlen, sin, cos, nh=nh, nkv=nkv, hd=hd, eps=eps,
-            decode_attn=decode_attn, a8=a8)
+            decode_attn=decode_attn, a8=a8, tp_reduce=tp_reduce)
         tok0, keys_t0 = _span_last_sample(params, head, x, qstart, qlen,
                                           keys, temps, top_ks, eps)
     # --------------------------------- tail (alive-masked, n_ticks - 1)
@@ -1064,7 +1135,8 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                   & torch.from_numpy(bud > 1).to(dev))
         kernels = get_flag("FLAGS_use_cuda_kernels") \
             and decode_attn == "pallas"
-        if fused and not a8 and kernels and dev.type == "cuda":
+        if fused and not a8 and len(params) == 1 and kernels \
+                and dev.type == "cuda":
             toks, hist, kw = _fused_tail(
                 params, head, tables, tables_dev, sin, cos, tok0, pool_k,
                 pool_v, lens0, keys_t0, alive0, eos, bud, temps, top_ks, n,
@@ -1077,7 +1149,8 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
                 params, head, pool_k, pool_v, tables, tables_dev, sin, cos,
                 tok0, lens0, dec, eos, bud, draws, alive0, temps, top_ks, n,
                 max_ticks, tail, nh=nh, nkv=nkv, hd=hd, eps=eps,
-                paged_fn=_attn_fns(decode_attn)[1], kernels=kernels, a8=a8)
+                paged_fn=_attn_fns(decode_attn)[1], kernels=kernels, a8=a8,
+                tp_reduce=tp_reduce)
     # ------------------------------------ the step's one device→host copy
     host = torch.cat([p.reshape(-1).long() for p in parts]).cpu().numpy()
     toks_h = np.zeros((max_ticks, R), np.int64)
@@ -1095,7 +1168,7 @@ def _multitick_step_impl(params, pool_k, pool_v, tables, ids, seg, pos,
 def _scanned_tail(params, head, pool_k, pool_v, tables, tables_dev, sin, cos,
                   tok0, lens0, dec, eos, bud, draws, alive0, temps, top_ks,
                   n, max_ticks, tail, *, nh, nkv, hd, eps, paged_fn,
-                  kernels, a8=False):
+                  kernels, a8=False, tp_reduce=one_shard):
     """``n - 1`` ticks of :func:`.graphs.tail_tick`: on the engine's
     captured graph (``tail`` on a card with ``FLAGS_cuda_graph_tail``),
     else eagerly. Returns device ``[toks [n-1, R], alive at each tick's
@@ -1115,13 +1188,14 @@ def _scanned_tail(params, head, pool_k, pool_v, tables, tables_dev, sin, cos,
     block, row = graphs.trash_coord(tables, nb, bs, lens0, dec, n)
     meta = np.concatenate([lens0, eos, bud, [block * bs + row],
                            draws.reshape(-1)]).astype(np.int64)
-    V = params["embed"].shape[0]
+    V = params[0]["embed"].shape[0]
     st.load(tok0, tables_dev, torch.from_numpy(meta).to(dev),
             sampling_args(temps, top_ks, V, dev), alive0)
 
     def tick():
         graphs.tail_tick(params, head, pool_k, pool_v, st, nh=nh, nkv=nkv,
-                         hd=hd, eps=eps, paged_fn=paged_fn, a8=a8)
+                         hd=hd, eps=eps, paged_fn=paged_fn, a8=a8,
+                         tp_reduce=tp_reduce)
 
     if tail is not None:
         tail.run(key, n - 1, tick, graph=graphs.use_graph(dev))
@@ -1146,11 +1220,12 @@ def _fused_tail(params, head, tables, tables_dev, sin, cos, tok0, pool_k,
     tk_d = torch.from_numpy(np.asarray(top_ks, np.int32)).to(dev)
     tp_d = torch.from_numpy(np.asarray(temps, np.float32)).to(dev)
     tok, alive, kys = tok0, alive0, keys_t0
+    (p,), (pk,), (pv,) = params, pool_k, pool_v      # one shard
     toks, hist, kw = [], [], []
     for t in range(1, n):
-        tok, pool_k, pool_v, kys = fused_decode_tick(
-            params, head, tables, tables_dev, sin, cos, tok, pool_k, pool_v,
-            lens, kys, alive, tp_d, tk_d, nh=nh, nkv=nkv, hd=hd, eps=eps)
+        tok, pk, pv, kys = fused_decode_tick(
+            p, head, tables, tables_dev, sin, cos, tok, pk, pv, lens, kys,
+            alive, tp_d, tk_d, nh=nh, nkv=nkv, hd=hd, eps=eps)
         hist.append(alive)
         toks.append(tok)
         kw.append(kys)

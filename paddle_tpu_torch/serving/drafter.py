@@ -102,7 +102,8 @@ class ModelDrafter(Drafter):
     def __init__(self, model, jit_cache=None):
         from ..models.llama import llama_decode_params
         c = model.config
-        self._params, tied = llama_decode_params(model)
+        params, tied = llama_decode_params(model)
+        self._params = [params]       # the programs' one-shard form
         self._consts = dict(
             nh=c.num_attention_heads, nkv=c.num_key_value_heads,
             hd=c.head_dim, eps=float(c.rms_norm_eps),

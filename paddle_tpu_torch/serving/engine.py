@@ -82,9 +82,15 @@ Offline use::
     engine = ContinuousBatchingEngine(model, num_slots=8)
     outs = engine.generate([GenerationRequest(prompt=ids, ...), ...])
 
-The constructor takes the JAX engine's arguments in its order. Every
-value off the ported path raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+``tp=N`` (with ``collective_dtype`` and ``collective_overlap``) is the
+reference's tensor-parallel serving (``serving/tp.py``): every program
+runs ``N`` head shards in lockstep with two reductions a layer, the paged
+pool partitioned per shard, the collective ledger
+(``_record_collectives``) the reference's to the byte. The shards share
+the engine's device (``tp_devices``). Every engine runs its programs over
+a list of shards: one at ``tp=1``.
+
+The constructor takes the JAX engine's arguments in its order.
 
 The surface the serving gateway (``serving/server``) and
 ``LlamaForCausalLM.generate`` read is the reference's: the streaming
@@ -120,6 +126,7 @@ from ..kernels import fused_decode_tick, paged_decode, ragged_attention
 from ..kernels._launch import check_head_dim
 from ..models.llama import llama_decode_params
 from ..profiler.tracing import NULL_SPAN
+from ..quantization import collective_wire_bytes
 from .block_manager import BlockManager
 from .decode import (_decode_steps_impl, _multitick_step_impl,
                      _paged_decode_steps_impl, _paged_suffix_prefill_impl,
@@ -132,12 +139,7 @@ from .policy import ClassTable, PolicyScheduler, select_victims
 from .prefix_cache import PrefixCache
 from .request import GenerationRequest, GenerationResult, Sequence
 from .scheduler import FIFOScheduler
-
-
-def _not_ported(knob, item):
-    raise NotImplementedError(
-        f"{knob} is not ported to paddle_tpu_torch yet (ROADMAP {item}); "
-        f"this engine serves the default geometry only")
+from .tp import _tp_validate, place_tp_params, tp_allreduce, tp_devices
 
 
 def _kernels_on(params, config):
@@ -236,13 +238,42 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prefill_bucketing must be 'pow2' or 'exact', got "
                 f"{prefill_bucketing!r}")
+        # tensor parallelism (serving/tp.py): tp=N shards every serving
+        # program over heads, the paged pool partitioned per shard
+        if int(tp) < 1:
+            raise ValueError(f"tp must be >= 1, got {int(tp)}")
         if collective_dtype not in ("fp", "int8"):
             raise ValueError(
                 f"collective_dtype must be 'fp' or 'int8', got "
                 f"{collective_dtype!r}")
-        if collective_dtype != "fp":
-            _not_ported(f"collective_dtype={collective_dtype!r}",
-                        "Queue A step 10 (tensor parallel)")
+        self._tp = int(tp)
+        # tp=1 has no shards and no wire: the effective dtype is fp
+        self._coll_dtype = collective_dtype if self._tp > 1 else "fp"
+        if self._tp > 1:
+            if not (bool(paged_attn) and bool(ragged_step)):
+                raise ValueError(
+                    "tp > 1 requires the unified ragged paged engine "
+                    "(paged_attn=True, ragged_step=True): tensor "
+                    "parallelism shards the packed-span programs and "
+                    "the block pool; the dense / two-program paths "
+                    "never grew shard plumbing")
+            _tp_validate(c.num_attention_heads, c.num_key_value_heads,
+                         c.intermediate_size, self._tp)
+            if self._coll_dtype == "int8" and c.hidden_size % self._tp:
+                raise ValueError(
+                    f"collective_dtype='int8' needs hidden_size "
+                    f"({c.hidden_size}) divisible by tp={self._tp}: the "
+                    f"quantized all-reduce chunks the activation per "
+                    f"shard")
+        self._coll_overlap = bool(collective_overlap)
+        if self._coll_overlap and self._tp <= 1:
+            raise ValueError(
+                "collective_overlap=True requires tp > 1: the overlap "
+                "schedule rewrites the per-layer tensor-parallel "
+                "all-reduce pair, and a tp=1 engine has no collectives "
+                "to overlap")
+        # where the shards live: all on the model's device
+        self._tp_devices = tp_devices(self._tp, model.device)
         if kv_dtype not in (None, "int8", "fp8"):
             raise ValueError(
                 f"kv_dtype must be None (store KV at the pool dtype), "
@@ -268,11 +299,6 @@ class ContinuousBatchingEngine:
                 "the packed-span programs grew the int8xint8 projection "
                 "path, and a dense-path decode would silently fall back "
                 "to weight-dequant matmuls")
-        if int(tp) != 1:
-            _not_ported("tp > 1", "Queue A step 10 (tensor parallel)")
-        if collective_overlap:
-            _not_ported("collective_overlap",
-                        "Queue A step 10 (tensor parallel)")
         self._paged = bool(paged_attn)
         # the unified ragged step is the paged engine's; the dense engine
         # ignores ragged_step, as the reference does
@@ -328,6 +354,7 @@ class ContinuousBatchingEngine:
         self.num_slots = int(num_slots)
         self.max_seq_len = int(max_seq_len or c.max_position_embeddings)
         self._params, self._tied = llama_decode_params(model)
+        self._dtype = self._params["embed"].dtype
         # quantized serving: the pool's storage mode (None / "int8" /
         # "fp8"), int8 weight-only projections, int8 x int8 projections
         self._kv_quant = kv_dtype
@@ -343,6 +370,9 @@ class ContinuousBatchingEngine:
                 qp = quantize_decode_params(self._params, self._tied)
                 model.__dict__["_decode_qparams"] = qp
             self._params = qp
+        # what the programs take: one parameter dict a shard (views of
+        # the model's tensors on a shared device)
+        self._shards = place_tp_params(self._params, self._tp_devices)
         bs = int(prefix_block_size)
         if bs < 1:
             raise ValueError(f"prefix_block_size must be >= 1, got {bs}")
@@ -353,19 +383,18 @@ class ContinuousBatchingEngine:
             self.cache = PagedKVCache(
                 c.num_hidden_layers, self.num_slots, self.max_seq_len,
                 c.num_key_value_heads, c.head_dim,
-                dtype=self._params["embed"].dtype, block_size=bs,
+                dtype=self._dtype, block_size=bs,
                 pool=pool, prefix_cache=self.prefix_cache,
                 device=model.device, kv_dtype=self._kv_quant)
         else:
             self.cache = SlotKVCache(
                 c.num_hidden_layers, self.num_slots, self.max_seq_len,
                 c.num_key_value_heads, c.head_dim,
-                dtype=self._params["embed"].dtype, device=model.device)
+                dtype=self._dtype, device=model.device)
             if prefix_cache:
                 self.prefix_cache = self._dense_trie(prefix_cache,
                                                      prefix_blocks, bs)
-        self._kv_dtype = kv_dtype or str(self._params["embed"].dtype).replace(
-            "torch.", "")
+        self._kv_dtype = kv_dtype or str(self._dtype).replace("torch.", "")
         # chunked prefill (paged only: the dense cache has no block tables
         # to resume through, so its prefill stays one-shot). The chunk
         # rounds UP to a block multiple so every non-final chunk boundary
@@ -428,6 +457,11 @@ class ContinuousBatchingEngine:
         self._wtag = ("w8",) if self._wq8 else ()
         self._atag = ("a8",) if self._a8 else ()
         self._fktag = ("fk",) if self._fused_tick else ()
+        # a sharded program is another program of the same function: the
+        # degree and wire dtype (and the overlap schedule) key it apart
+        self._tptag = ((f"tp{self._tp}", self._coll_dtype)
+                       + (("ov",) if self._coll_overlap else ())
+                       if self._tp > 1 else ())
         # the multi-tick tail's captured CUDA graphs and their buffers
         self._tail = TailGraphs() if self._mtick else None
         self.stats = {"steps": 0, "decode_calls": 0, "decode_steps": 0,
@@ -471,7 +505,7 @@ class ContinuousBatchingEngine:
         geometry checks."""
         c = self.config
         live = self.num_slots * -(-self.max_seq_len // bs)
-        dtype = self._params["embed"].dtype
+        dtype = self._dtype
         # the storage dtype follows kv_dtype: a shared pool must match the
         # engine's quantization mode exactly
         store = (torch.float8_e4m3fn if self._kv_quant == "fp8"
@@ -479,15 +513,21 @@ class ContinuousBatchingEngine:
         if isinstance(prefix_cache, PrefixCache):
             pool = prefix_cache.pool
             want = (c.num_hidden_layers, c.num_key_value_heads, c.head_dim)
-            have = (pool.k.shape[0],) + tuple(pool.k.shape[3:])
-            if have != want or pool.k.dtype != store \
+            have = (pool.num_layers, pool.num_kv_heads, pool.head_dim)
+            if have != want or pool.store_dtype != store \
                     or pool.block_size != bs \
                     or pool.kv_dtype != self._kv_quant:
                 raise ValueError(
                     f"shared PrefixCache pool geometry "
-                    f"{have}/bs={pool.block_size}/{pool.k.dtype} does not "
-                    f"match this paged engine {want}/bs={bs}/{store} "
+                    f"{have}/bs={pool.block_size}/{pool.store_dtype} does "
+                    f"not match this paged engine {want}/bs={bs}/{store} "
                     f"(kv_dtype={self._kv_quant!r})")
+            if pool.tp != self._tp:
+                raise ValueError(
+                    f"shared PrefixCache pool is partitioned for "
+                    f"tp={pool.tp} but this engine runs tp={self._tp}: a "
+                    f"pool's head-axis partition must match every engine "
+                    f"serving from it")
             if pool.num_blocks <= live:
                 raise ValueError(
                     f"shared pool of {pool.num_blocks} blocks cannot back "
@@ -511,7 +551,7 @@ class ContinuousBatchingEngine:
         pool = BlockManager(c.num_hidden_layers, live + budget, bs,
                             c.num_key_value_heads, c.head_dim, dtype=dtype,
                             kv_dtype=self._kv_quant,
-                            device=self.model.device)
+                            device=self.model.device, tp=self._tp)
         if prefix_cache:
             self.prefix_cache = PrefixCache(
                 pool, max_blocks=budget,
@@ -527,11 +567,11 @@ class ContinuousBatchingEngine:
         if isinstance(prefix_cache, PrefixCache):
             pool = prefix_cache.pool
             want = (self.cache.k.shape[0],) + tuple(self.cache.k.shape[3:])
-            have = (pool.k.shape[0],) + tuple(pool.k.shape[3:])
-            if have != want or pool.k.dtype != self.cache.k.dtype:
+            have = (pool.num_layers, pool.num_kv_heads, pool.head_dim)
+            if have != want or pool.store_dtype != self.cache.k.dtype:
                 raise ValueError(
                     f"shared PrefixCache pool geometry {have}/"
-                    f"{pool.k.dtype} does not match this engine's cache "
+                    f"{pool.store_dtype} does not match this engine's cache "
                     f"{want}/{self.cache.k.dtype}")
             return prefix_cache
         nb = (self.num_slots * max(self.max_seq_len // bs, 1)
@@ -539,7 +579,7 @@ class ContinuousBatchingEngine:
         # 0 or negative: BlockManager raises rather than defaulting
         return PrefixCache(BlockManager(
             c.num_hidden_layers, nb, bs, c.num_key_value_heads, c.head_dim,
-            dtype=self._params["embed"].dtype, device=self.model.device),
+            dtype=self._dtype, device=self.model.device),
             host_tier_bytes=self._host_tier_bytes)
 
     @property
@@ -593,10 +633,50 @@ class ContinuousBatchingEngine:
         off)."""
         return self._spec_k if self._spec else 0
 
-    # the ported path's fixed values of the reference's serving knobs
-    tp = 1
-    collective_dtype = "fp"
-    collective_overlap = False
+    @property
+    def tp(self) -> int:
+        """The tensor-parallel degree: the shards every serving program
+        runs over (1: no shards)."""
+        return self._tp
+
+    @property
+    def collective_dtype(self) -> str:
+        """The effective wire dtype of the per-layer reductions: ``"int8"``
+        the EQuARX all-reduce, ``"fp"`` the plain sum (and the value at
+        tp=1, where nothing reduces)."""
+        return self._coll_dtype
+
+    @property
+    def collective_overlap(self) -> bool:
+        """Whether the reductions run the row-chunked schedule (the fp
+        ring); False at tp=1."""
+        return self._coll_overlap
+
+    @property
+    def tp_devices(self) -> list:
+        """The device of each shard: the model's device, ``tp`` times."""
+        return list(self._tp_devices)
+
+    def _record_collectives(self, co, spans):
+        """The exact collective ledger of one sharded launch, at every
+        launch site behind the ``_co()`` guard: ``spans`` is ``[(rows,
+        repeats)]``, each repeat one pass over the layer stack paying the
+        per-layer reduction pair on a ``[rows, hidden]`` activation, its
+        bytes by ``quantization.collective_wire_bytes`` — the reference's
+        accounting, launch for launch."""
+        if self._tp <= 1:
+            return
+        L = self.config.num_hidden_layers
+        hidden = self.config.hidden_size
+        fp_b = self._dtype.itemsize
+        ops, nbytes = 0, 0
+        for rows, reps in spans:
+            if rows <= 0 or reps <= 0:
+                continue
+            ops += 2 * L * reps
+            nbytes += 2 * L * reps * collective_wire_bytes(
+                rows, hidden, self._tp, self._coll_dtype, fp_itemsize=fp_b)
+        co.record_collective(self._coll_dtype, ops, nbytes)
 
     @property
     def num_active(self) -> int:
@@ -624,10 +704,12 @@ class ContinuousBatchingEngine:
         fused tick (any ``num_slots``; under ``quantize_activations`` the
         scanned tick's paged decode instead), or paged decode alone (the
         two-program step), or dense decode. The int8 x int8 projections
-        want widths that are multiples of 8 on a card."""
+        want widths that are multiples of 8 on a card. Under tensor
+        parallelism the kernels run at a shard's head counts, and a fused
+        tick is the scanned one (paged decode)."""
         c = self.config
-        nh, nkv, hd = (c.num_attention_heads, c.num_key_value_heads,
-                       c.head_dim)
+        nh, nkv, hd = (c.num_attention_heads // self._tp,
+                       c.num_key_value_heads // self._tp, c.head_dim)
         check_head_dim("flash", hd)
         if self._a8 and any(w % 8 for w in (
                 c.hidden_size, c.intermediate_size, c.vocab_size,
@@ -641,7 +723,7 @@ class ContinuousBatchingEngine:
             return
         if self._ragged or self._spec:
             ragged_attention.check_limits(nh, nkv, hd)
-        if self._fused_tick and not self._a8:
+        if self._fused_tick and not self._a8 and self._tp == 1:
             fused_decode_tick.check_limits(nh, nkv, hd, c.hidden_size,
                                            c.intermediate_size,
                                            c.vocab_size)
@@ -701,25 +783,40 @@ class ContinuousBatchingEngine:
         two-program engines)."""
         return dict(a8=True) if self._a8 else {}
 
-    def _program(self, key, fn, host_out, **kw):
+    def _tp_consts(self, overlap=True):
+        """A sharded program's keywords ({} at tp=1): a shard's head counts
+        and the reduction. The cold and suffix prefills never take the
+        overlap schedule, as in the reference."""
+        if self._tp <= 1:
+            return {}
+        c = self.config
+        return dict(nh=c.num_attention_heads // self._tp,
+                    nkv=c.num_key_value_heads // self._tp,
+                    tp_reduce=tp_allreduce(
+                        self._coll_dtype, self._tp_devices,
+                        overlap=overlap and self._coll_overlap))
+
+    def _program(self, key, fn, host_out, overlap=True, **kw):
         if key not in self._jit:
-            self._jit[key] = _Program(functools.partial(
-                fn, **kw, **self._fn_consts()))
+            consts = self._fn_consts()
+            consts.update(self._tp_consts(overlap))
+            self._jit[key] = _Program(functools.partial(fn, **kw, **consts))
         return self._wrap_prog(key, self._jit[key], host_out)
 
     def _prefill_fn(self):
         # host reads tok0 (result 2)
         # the cold prefill never touches the pool: engines differing only
         # in kv_dtype share it
-        return self._program(("prefill",) + self._wtag + self._atag,
-                             _prefill_impl, (2,), **self._q_consts())
+        return self._program(("prefill",) + self._wtag + self._atag
+                             + self._tptag, _prefill_impl, (2,),
+                             overlap=False, **self._q_consts())
 
     def _ragged_fn(self, n_steps):
         # the full packed geometry (num_slots AND token budget) keys the
         # program, as in the reference; host reads tokens and tick-0 keys
         key = ("ragged", self.num_slots, self._token_budget, int(n_steps),
                self.config.decode_attention) + self._kvtag + self._wtag \
-            + self._atag + self._fktag
+            + self._atag + self._tptag + self._fktag
         return self._program(key, _ragged_step_impl, (2, 3),
                              n_steps=int(n_steps), fused=self._fused_tick,
                              **self._q_consts())
@@ -727,11 +824,11 @@ class ContinuousBatchingEngine:
     def _suffix_fn(self):
         # the paged and dense suffix programs key apart (table-indirect vs
         # slot-indexed); host reads tok0 (result 2)
-        tags = self._kvtag + self._wtag + self._atag
+        tags = self._kvtag + self._wtag + self._atag + self._tptag
         if self._paged:
             return self._program(("psuffix",) + tags,
                                  _paged_suffix_prefill_impl, (2,),
-                                 **self._q_consts())
+                                 overlap=False, **self._q_consts())
         return self._program(("suffix",) + tags, _suffix_prefill_impl, (2,))
 
     def _decode_fn(self, n_steps):
@@ -748,7 +845,8 @@ class ContinuousBatchingEngine:
         # the key walk and ticks_run
         key = ("mtick", self.num_slots, self._token_budget,
                self._decode_ticks, self.config.decode_attention) \
-            + self._kvtag + self._wtag + self._atag + self._fktag
+            + self._kvtag + self._wtag + self._atag + self._tptag \
+            + self._fktag
         return self._program(key, _multitick_step_impl, (2, 3, 4),
                              max_ticks=self._decode_ticks,
                              fused=self._fused_tick, **self._q_consts())
@@ -759,7 +857,7 @@ class ContinuousBatchingEngine:
         # and the key walk
         key = ("spec", self.num_slots, self._spec_budget, self._spec_len,
                self.config.decode_attention) + self._kvtag + self._wtag \
-            + self._atag
+            + self._atag + self._tptag
         return self._program(key, _spec_verify_impl, (2, 3),
                              spec_len=self._spec_len, **self._q_consts())
 
@@ -772,7 +870,8 @@ class ContinuousBatchingEngine:
         n_steps)`` on the unified engine, one per ``n_steps`` on the
         two-program and dense ones, however sampling knobs, budgets,
         tables and span mixes vary — the JAX engine's trace count."""
-        tags = self._kvtag + self._wtag + self._atag + self._fktag
+        tags = self._kvtag + self._wtag + self._atag + self._tptag \
+            + self._fktag
         if self._spec:
             # spec_len is configuration: two engines differing only in
             # spec_k may share a budget, so it is part of the identity
@@ -805,10 +904,11 @@ class ContinuousBatchingEngine:
         sfx = "psuffix" if self._paged else "suffix"
         return sum(fn._cache_size() for key, fn in self._jit.items()
                    if (key[0] == "prefill"
-                       and key[1:] == self._wtag + self._atag)
+                       and key[1:] == self._wtag + self._atag
+                       + self._tptag)
                    or (key[0] == sfx
                        and key[1:] == self._kvtag + self._wtag
-                       + self._atag))
+                       + self._atag + self._tptag))
 
     # ------------------------------------------------------------- intake
     def _key_for(self, request):
@@ -958,16 +1058,21 @@ class ContinuousBatchingEngine:
             with self._tspan("prefill_launch",
                              args={"bucket": s_pad, "group": G}):
                 pk, pv, tok0s, keys2 = self._prefill_fn()(
-                    self._params, ids, lens, keys, temps, topks)
+                    self._shards, ids, lens, keys, temps, topks)
                 tok0s = tok0s.cpu().numpy()
             keys2 = keys2.numpy()
+            co = self._co()
+            if co is not None:
+                # a sharded cold prefill: one pass over the padded group
+                self._record_collectives(co, [(Gp * s_pad, 1)])
             for i, seq in enumerate(group):
                 seq.launches += 1       # rode this bucket's prefill
                 slot = self.cache.alloc()
                 seq.slot = slot   # before the write: a PoolExhausted
                 # raised by the block growth must leave the claimed slot
                 # findable for _abort_admission
-                self.cache.write_prefill(slot, pk[:, i], pv[:, i],
+                self.cache.write_prefill(slot, [k[:, i] for k in pk],
+                                         [v[:, i] for v in pv],
                                          seq.work_len)
                 self._install_seq(seq, slot, tok0s[i], keys2[i],
                                   seq.work_len, finished)
@@ -1052,9 +1157,13 @@ class ContinuousBatchingEngine:
         with self._tspan("prefill_launch",
                          args={"bucket": s_pad, "group": len(rows)}):
             _, _, tok0s, keys2 = self._suffix_fn()(
-                self._params, *kv, addr, prefix_lens, ids, suf_lens, keys,
+                self._shards, *kv, addr, prefix_lens, ids, suf_lens, keys,
                 temps, topks)
             tok0s = tok0s.cpu().numpy()
+        co = self._co()
+        if co is not None:
+            # a sharded suffix prefill: one pass over the padded group
+            self._record_collectives(co, [(Gp * s_pad, 1)])
         return tok0s, keys2.numpy()
 
     def _run_prefill_chunks(self, plan, finished):
@@ -1563,13 +1672,17 @@ class ContinuousBatchingEngine:
         if co is not None:
             co.set_phase("launch")
         _, _, toks, keys_t0, keys_fin = self._ragged_fn(n)(
-            self._params, *self.cache.kv_args(), self.cache.tables, ids,
+            self._shards, *self.cache.kv_args(), self.cache.tables, ids,
             seg, pos,
             qstart, qlen, kvlen, dec_mask, keys, temps, topks)
         toks_np = toks.cpu().numpy()        # [n, R]
         keys_t0_np = keys_t0.numpy()
         self.stats["unified_steps"] += 1
         if co is not None:
+            # a sharded step: tick 0 reduces the padded packed buffer,
+            # each tail tick the slot rows
+            self._record_collectives(
+                co, [(self._token_budget, 1), (self.num_slots, n - 1)])
             co.set_phase("host-accept")
         if tr is not None:
             tr.complete("launch", tl0,
@@ -1646,11 +1759,11 @@ class ContinuousBatchingEngine:
                     lens[slot] = self.cache.max_blocks * \
                         self.cache.block_size
             toks, _, _, keys = self._decode_fn(n)(
-                self._params, *self.cache.kv_args(), self.cache.tables,
+                self._shards, *self.cache.kv_args(), self.cache.tables,
                 self._last_tok, lens, self._keys, self._temps, self._topks)
         else:
             toks, nk, nv, keys = self._decode_fn(n)(
-                self._params, self.cache.k, self.cache.v, self._last_tok,
+                self._shards, self.cache.k, self.cache.v, self._last_tok,
                 self.cache.lengths, self._keys, self._temps, self._topks)
             self.cache.update(nk, nv)
         self._keys = keys.numpy()
@@ -1728,7 +1841,7 @@ class ContinuousBatchingEngine:
         if co is not None:
             co.set_phase("launch")
         _, _, toks, kwalk, ticks = self._mtick_fn()(
-            self._params, *self.cache.kv_args(), self.cache.tables, ids,
+            self._shards, *self.cache.kv_args(), self.cache.tables, ids,
             seg, pos,
             qstart, qlen, kvlen, dec_mask, keys, temps, topks, eos_ids,
             budgets, np.int32(n), tail=self._tail)
@@ -1736,6 +1849,12 @@ class ContinuousBatchingEngine:
         kwalk_np = kwalk.numpy()            # [max_ticks, R, 2]
         self.stats["unified_steps"] += 1
         if co is not None:
+            # the reference's accounting: tick 0 on the padded packed
+            # buffer, then the tail ticks its while_loop ran (ticks_run;
+            # the port's tail runs all n - 1 on the device: the launch
+            # tally's tp_reduce counts those)
+            self._record_collectives(
+                co, [(self._token_budget, 1), (self.num_slots, ticks - 1)])
             co.set_phase("host-accept")
         if tr is not None:
             tr.complete("launch", tl0,
@@ -1865,12 +1984,14 @@ class ContinuousBatchingEngine:
         if co is not None:
             co.set_phase("launch")
         _, _, toks, kwalk = self._spec_fn()(
-            self._params, *self.cache.kv_args(), self.cache.tables, ids,
+            self._shards, *self.cache.kv_args(), self.cache.tables, ids,
             seg, pos, qstart, qlen, kvlen, sample_start, keys, temps, topks)
         toks_np = toks.cpu().numpy()        # [spec_len, R]
         kwalk_np = kwalk.numpy()            # [spec_len, R, 2]
         self.stats["spec_steps"] += 1
         if co is not None:
+            # one packed verify forward a step (no decode tail)
+            self._record_collectives(co, [(self._spec_budget, 1)])
             co.set_phase("host-accept")
         if tr is not None:
             tr.complete("launch", tl0, args={"packed_tokens": cursor})

@@ -49,7 +49,8 @@ stream on every thread: the kernels' shared per-device buffers
 
 Launch counts: the kernel wrappers count at capture, when nothing runs on
 the device, so the capture's counts are taken back and recorded with the
-graph, and every replay adds them (``kernels.count_replay``).
+graph, and every replay adds them (``kernels.count_replay``), a
+tensor-parallel tick's reductions with them.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ from ..flags import get_flag
 from ..kernels import capture_counts, count_replay
 from ..models.llama import _rms, _rotate_half
 from .kv_cache import quantize_kv_rows, quantize_kv_rows_fp8, store_view
+from .tp import one_shard
 
 # one graph capture at a time in the process (an engine fleet's replicas
 # drive their engines from threads of their own)
@@ -79,30 +81,25 @@ def apply_rope_rows(x, sin_p, cos_p):
 
 
 def decode_layers(params, h, sin_r, cos_r, n_layers, write, attend, *, nh,
-                  nkv, hd, eps, a8=False):
+                  nkv, hd, eps, a8=False, tp_reduce=one_shard):
     """The layer stack of one decode tick, shared by every single-token
     program (the unified and two-program ticks, dense decode, the
-    multi-tick tail): per layer RMSNorm → QKV → RoPE at each row's
-    position → ``write(l, k, v)`` (the rows' K/V ``[R, Hkv, D]`` into the
-    layer's cache) → ``attend(l, q)`` (``[R, H, D]`` → ``[R, H, D]``) →
-    O-proj → SwiGLU. ``h`` is the embedded tokens ``[R, 1, hidden]``;
-    returns the residual stream after the last layer. int8 weight pairs
-    dequantize a layer at a time, or with ``a8`` run int8 x int8
-    (``serving/decode.py``'s projection helpers)."""
-    from .decode import _dq_layer, _layer, _o_proj, _qkv_proj, _swiglu_proj
-    R = h.shape[0]
-    for l in range(n_layers):
-        lwq, lwk, lwv, lwo, lg, lu, ld, lin, lpost = _dq_layer(
-            _layer(params, l), h.dtype, a8)
-        hn = _rms(h, lin, eps)
-        q, k, v = _qkv_proj(hn, lwq, lwk, lwv, nh, nkv, hd)
+    multi-tick tail): ``serving/decode.py``'s ``layer_stack`` with RoPE
+    at each row's position, ``write(l, k, v, s)`` (the rows' K/V ``[R,
+    Hkv, D]`` into the layer's cache) and ``attend(l, q, s)`` (``[R, H,
+    D]`` → ``[R, H, D]``), ``s`` the shard. ``h`` is every shard's copy
+    of the embedded tokens ``[R, 1, hidden]``; returns the residual stream
+    after the last layer."""
+    from .decode import layer_stack
+
+    def core(l, q, k, v, s):
         q = apply_rope_rows(q, sin_r, cos_r)
         k = apply_rope_rows(k, sin_r, cos_r)
-        write(l, k[:, 0], v[:, 0])
-        attn = attend(l, q[:, 0])
-        h = h + _o_proj(attn.reshape(R, 1, nh * hd), lwo)
-        h = h + _swiglu_proj(_rms(h, lpost, eps), lg, lu, ld)
-    return h
+        write(l, k[:, 0], v[:, 0], s)
+        return attend(l, q[:, 0], s)
+
+    return layer_stack(params, h, n_layers, core, nh=nh, nkv=nkv, hd=hd,
+                       eps=eps, a8=a8, tp_reduce=tp_reduce)
 
 
 def sampling_args(temps, top_ks, V, dev):
@@ -231,7 +228,7 @@ def _masked_write(pool_l, flat, live, x, trash):
 
 
 def tail_tick(params, head, pool_k, pool_v, st, *, nh, nkv, hd, eps,
-              paged_fn, a8=False):
+              paged_fn, a8=False, tp_reduce=one_shard):
     """ONE scanned decode tick on device state ``st``: embed the last
     tokens; per layer RMSNorm → QKV → RoPE at each row's length → append
     K/V through the tables (alive rows) → paged attention over ``lens +
@@ -241,8 +238,11 @@ def tail_tick(params, head, pool_k, pool_v, st, *, nh, nkv, hd, eps,
     lengths of the alive rows, retires rows on EOS or budget and moves to
     tick t + 1, all in place: no host value is read. A quantized pool
     side is a ``(data, scale)`` pair (:func:`_masked_write`); ``a8`` runs
-    the projections int8 x int8."""
-    from .decode import _head_logits, _kv_data, _kv_layer, _paged_attend
+    the projections int8 x int8. ``params`` and the pool sides are
+    per-shard lists: every shard appends to and attends over its own pool
+    at the same coordinates."""
+    from .decode import _embed, _head_logits, _kv_data, _kv_layer, \
+        _paged_attend
     nb, bs = _kv_data(pool_k).shape[1], _kv_data(pool_k).shape[2]
     mb = st.tables.shape[1]
     s_tot = mb * bs
@@ -255,17 +255,18 @@ def tail_tick(params, head, pool_k, pool_v, st, *, nh, nkv, hd, eps,
     sin_r, cos_r = st.sin[pidx], st.cos[pidx]
     att_len = (lens + am).to(torch.int32)
 
-    def write(l, k, v):
-        _masked_write(_kv_layer(pool_k, l), flat, live, k, st.trash)
-        _masked_write(_kv_layer(pool_v, l), flat, live, v, st.trash)
+    def write(l, k, v, s):
+        _masked_write(_kv_layer(pool_k[s], l), flat, live, k, st.trash)
+        _masked_write(_kv_layer(pool_v[s], l), flat, live, v, st.trash)
 
     h = decode_layers(
-        params, params["embed"][st.tok[:, None]], sin_r, cos_r,
+        params, _embed(params, st.tok[:, None]), sin_r, cos_r,
         _kv_data(pool_k).shape[0], write,
-        lambda l, q: _paged_attend(paged_fn, q, _kv_layer(pool_k, l),
-                                   _kv_layer(pool_v, l), st.tables, att_len),
-        nh=nh, nkv=nkv, hd=hd, eps=eps, a8=a8)
-    logits = _head_logits(_rms(h[:, 0], params["final_norm"], eps), head)
+        lambda l, q, s: _paged_attend(paged_fn, q, _kv_layer(pool_k[s], l),
+                                      _kv_layer(pool_v[s], l), st.tables,
+                                      att_len),
+        nh=nh, nkv=nkv, hd=hd, eps=eps, a8=a8, tp_reduce=tp_reduce)
+    logits = _head_logits(_rms(h[:, 0], params[0]["final_norm"], eps), head)
     nxt = sample_rows_dev(logits, st.draws.index_select(0, st.t)[0],
                           st.sampling)
     st.toks.index_copy_(0, st.t, nxt[None])

@@ -188,10 +188,12 @@ class SlotKVCache:
 
     # ------------------------------------------------------------ writes
     def write_prefill(self, slot, pk, pv, prompt_len):
-        """Install a prefilled prompt's K/V ``[L, S_pad, Hkv, D]`` into the
-        leading rows of ``slot`` (in place). Rows past ``prompt_len`` hold
-        bucket padding, masked by the length until decode overwrites
-        them, as in the reference."""
+        """Install a prefilled prompt's K/V ``[L, S_pad, Hkv, D]`` (as the
+        cold prefill returns them: lists of one shard, the dense cache
+        having no partition) into the leading rows of ``slot`` (in place).
+        Rows past ``prompt_len`` hold bucket padding, masked by the length
+        until decode overwrites them, as in the reference."""
+        (pk,), (pv,) = pk, pv
         if pk.shape[1] > self.max_seq_len:
             raise ValueError(
                 f"prefill length {pk.shape[1]} exceeds max_seq_len "
@@ -217,15 +219,15 @@ class SlotKVCache:
         """Install pool block ``block_id`` into rows ``[row0, row0+bs)`` of
         ``slot`` (a prefix-cache hit), in place: one copy per K and V."""
         bs = pool.block_size
-        self.k[:, slot, row0:row0 + bs] = pool.k[:, block_id]
-        self.v[:, slot, row0:row0 + bs] = pool.v[:, block_id]
+        self.k[:, slot, row0:row0 + bs] = pool.k[0][:, block_id]
+        self.v[:, slot, row0:row0 + bs] = pool.v[0][:, block_id]
 
     def copy_block_out(self, slot, row0, pool, block_id):
         """Publish rows ``[row0, row0+bs)`` of ``slot`` into pool block
         ``block_id`` (sequence retirement), in place."""
         bs = pool.block_size
-        pool.k[:, block_id] = self.k[:, slot, row0:row0 + bs]
-        pool.v[:, block_id] = self.v[:, slot, row0:row0 + bs]
+        pool.k[0][:, block_id] = self.k[:, slot, row0:row0 + bs]
+        pool.v[0][:, block_id] = self.v[:, slot, row0:row0 + bs]
 
 
 class PagedKVCache:
@@ -452,29 +454,34 @@ class PagedKVCache:
     # ------------------------------------------------------------ writes
     def write_prefill(self, slot, pk, pv, prompt_len):
         """Install a prefilled prompt's K/V ``[L, S_pad, Hkv, D]`` into
-        ``slot`` through its block table (in place)."""
-        if pk.shape[1] > self.max_seq_len:
+        ``slot`` through its block table (in place). ``pk``/``pv`` are
+        lists, each shard's head slice, and each lands in its shard's
+        planes at the same coordinates."""
+        if pk[0].shape[1] > self.max_seq_len:
             raise ValueError(
-                f"prefill length {pk.shape[1]} exceeds max_seq_len "
+                f"prefill length {pk[0].shape[1]} exceeds max_seq_len "
                 f"{self.max_seq_len}")
         self.ensure_capacity(slot, int(prompt_len))
+        n = int(prompt_len)
         p = self.pool
-        row = torch.as_tensor(self.tables[slot]).to(p.k.device)
-        if self.fp8:
-            _paged_write_prefill_f8(p.k, p.v, pk, pv, row, int(prompt_len))
-        elif self.quantized:
-            _paged_write_prefill_q(p.k, p.v, p.k_scale, p.v_scale, pk, pv,
-                                   row, int(prompt_len))
-        else:
-            _paged_write_prefill(p.k, p.v, pk, pv, row, int(prompt_len))
-        self.lengths[slot] = int(prompt_len)
+        for s, (sk, sv) in enumerate(zip(pk, pv)):
+            k, v = p.k[s], p.v[s]
+            row = torch.as_tensor(self.tables[slot]).to(k.device)
+            if self.fp8:
+                _paged_write_prefill_f8(k, v, sk, sv, row, n)
+            elif self.quantized:
+                _paged_write_prefill_q(k, v, p.k_scale[s], p.v_scale[s], sk,
+                                       sv, row, n)
+            else:
+                _paged_write_prefill(k, v, sk, sv, row, n)
+        self.lengths[slot] = n
 
     def kv_args(self):
-        """The pool as the serving programs take it: ``(k, v)`` on a
-        full-precision pool, ``((k, k_scale), (v, v_scale))`` on a
-        quantized one — each side one argument, so the programs'
-        signatures do not change."""
+        """The pool as the serving programs take it: each side the list of
+        its shards', a tensor each on a full-precision pool, a ``(data,
+        scale)`` pair each on a quantized one — each side one argument, so
+        the programs' signatures do not change."""
         p = self.pool
         if self.quantized:
-            return (p.k, p.k_scale), (p.v, p.v_scale)
-        return p.k, p.v
+            return list(zip(p.k, p.k_scale)), list(zip(p.v, p.v_scale))
+        return list(p.k), list(p.v)

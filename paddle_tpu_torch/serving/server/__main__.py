@@ -16,6 +16,12 @@ too); ``350m`` is the bench-sized model for the card. ``--decode-attention``
 keeps the reference's default ``jnp`` (the plain versions); ``pallas``
 selects the hand-written kernels. Prompts are token-id arrays — see
 README "Serving over HTTP" for curl examples.
+
+``--tp N`` serves through N head shards, all on the ``--device`` (where
+the JAX CLI on a CPU needs
+``XLA_FLAGS=--xla_force_host_platform_device_count``). The banner reports
+the effective ``tp``, ``mesh_shape``, ``collective_dtype``,
+``collective_overlap`` and the shards' devices (``tp_devices``).
 """
 from __future__ import annotations
 
@@ -24,6 +30,15 @@ import json
 import signal
 import sys
 import threading
+
+
+def _with_devices(banner, engine):
+    """The banner, and under tensor parallelism where the shards run
+    (``tp_devices``: all on ``--device``). A tp=1 banner is the JAX CLI's,
+    key for key."""
+    if engine.tp > 1:
+        banner["tp_devices"] = [str(d) for d in engine.tp_devices]
+    return banner
 
 
 def build_model(preset, decode_attention, seed, device="cuda"):
@@ -181,10 +196,8 @@ def main(argv=None):
                          "sharded mesh with the paged KV pool "
                          "partitioned per shard (unified ragged paged "
                          "engine only; must divide the model's head "
-                         "counts). On CPU set XLA_FLAGS="
-                         "--xla_force_host_platform_device_count=N "
-                         "before launch. 1 = single-chip (the "
-                         "baseline)")
+                         "counts). Every shard sits on --device. "
+                         "1 = single-chip (the baseline)")
     ap.add_argument("--collective-dtype", choices=("fp", "int8"),
                     default="fp",
                     help="wire dtype of the per-layer tensor-parallel "
@@ -331,7 +344,7 @@ def main(argv=None):
             log_fn=None if args.quiet else
             (lambda m: print(m, file=sys.stderr)))
         fleet = server.fleet
-        print(json.dumps({
+        print(json.dumps(_with_devices({
             "listening": server.url, "preset": args.preset,
             "replicas": len(fleet.replicas),
             "router": fleet.router.name,
@@ -375,8 +388,8 @@ def main(argv=None):
                           "/debug/trace", "/debug/requests",
                           "/debug/profile", "/debug/fleet",
                           "/fleet/drain", "/fleet/rebalance",
-                          "/fleet/cacheplane"]}),
-            flush=True)
+                          "/fleet/cacheplane"]},
+            fleet.replicas[0].gateway.engine)), flush=True)
         stop = threading.Event()
         for sig in (signal.SIGINT, signal.SIGTERM):
             signal.signal(sig, lambda *_: stop.set())
@@ -410,7 +423,8 @@ def main(argv=None):
         max_restarts=args.max_restarts,
         log_fn=None if args.quiet else
         (lambda m: print(m, file=sys.stderr)))
-    print(json.dumps({"listening": server.url, "preset": args.preset,
+    print(json.dumps(_with_devices({"listening": server.url,
+                                    "preset": args.preset,
                       "num_slots": slots[0],
                       "prefix_cache": bool(args.prefix_cache),
                       "paged_attn": bool(args.paged_attn),
@@ -467,7 +481,8 @@ def main(argv=None):
                       "endpoints": ["/v1/completions", "/healthz",
                                     "/metrics", "/debug/trace",
                                     "/debug/requests",
-                                    "/debug/profile"]}), flush=True)
+                                    "/debug/profile"]},
+                                   server.gateway.engine)), flush=True)
 
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

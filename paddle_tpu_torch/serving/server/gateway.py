@@ -733,14 +733,16 @@ class ServingGateway:
             xfer.set_fn(lambda: co.totals["h2d_bytes"], direction="h2d")
             xfer.set_fn(lambda: co.totals["d2h_bytes"], direction="d2h")
             # the tensor-parallel and KV-tier byte series, registered up
-            # front so tp=1 and tierless engines scrape explicit zeros;
-            # the port has no tensor parallelism yet (Queue A step 10)
+            # front so tp=1 and tierless engines scrape explicit zeros
             coll = r.counter(
                 "serving_collective_bytes_total",
-                "Cross-chip tensor-parallel all-reduce wire bytes per "
-                "device by collective dtype. 0 on tp=1 engines.")
+                "Tensor-parallel all-reduce wire bytes per device by "
+                "collective dtype (exact, from shapes; the engine's "
+                "ledger). 0 on tp=1 engines. Monotonic across engine "
+                "rebuilds.")
             for cdt in ("fp", "int8"):
-                coll.set_fn(lambda: 0, dtype=cdt)
+                coll.set_fn((lambda d: lambda: co.collective_bytes(d))(cdt),
+                            dtype=cdt)
             tier = r.counter(
                 "serving_tier_bytes_total",
                 "KV prefix-tier bytes moved by direction (d2h: spill, "
@@ -1546,6 +1548,19 @@ class ServingGateway:
                 "used_scale_bytes": used * sc_b,
                 "capacity_bytes": eng.cache.pool.num_blocks * per_block,
                 "bytes_per_token": eng.cache.bytes_per_token(),
+            }
+        if eng.tp > 1:
+            # the window's reduction traffic per layer and per decoded
+            # token, beside the engine's degree
+            L = max(int(eng.config.num_hidden_layers), 1)
+            doc["collectives"] = {
+                "tp": eng.tp,
+                "per_dtype": {
+                    dtype: dict(rec,
+                                bytes_per_layer=round(rec["bytes"] / L, 3),
+                                bytes_per_decoded_token=round(
+                                    rec["bytes"] / max(tokens, 1), 3))
+                    for dtype, rec in doc.get("collectives", {}).items()},
             }
         pc = getattr(eng, "prefix_cache", None)
         if pc is not None and pc.tier is not None:

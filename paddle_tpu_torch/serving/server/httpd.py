@@ -551,6 +551,11 @@ def serve(model, host="127.0.0.1", port=8000, num_slots=8,
     startup (else ``GET /debug/trace?steps=N`` opens a window);
     ``cost=True`` (default) keeps the cost observatory behind
     ``/debug/profile`` and ``serving_dispatches_total``.
+
+    ``tp=N`` serves through ``N`` head shards on the model's device:
+    ``serving_collective_bytes_total{dtype}`` counts the reductions' wire bytes, ``/debug/profile`` gains
+    the ``collectives`` section, ``collective_dtype="int8"`` runs the
+    EQuARX all-reduce.
     """
     from ..engine import ContinuousBatchingEngine
     from ..policy import ClassTable

@@ -200,8 +200,8 @@ class TestPrefill:
             jnp.asarray(keys, jnp.uint32), jnp.asarray(temps),
             jnp.asarray(topks), **CONSTS)
         tp, _ = tllama.llama_decode_params(tm)
-        pk, pv, tok, tkeys = tdec._prefill_impl(tp, ids, lens, keys, temps,
-                                                topks, **CONSTS)
+        (pk,), (pv,), tok, tkeys = tdec._prefill_impl(
+            [tp], ids, lens, keys, temps, topks, **CONSTS)
         _close(pk, jpk)
         _close(pv, jpv)
         assert tok.tolist() == np.asarray(jtok).tolist()
@@ -254,9 +254,10 @@ class TestRaggedStep:
         tp, _ = tllama.llama_decode_params(tm)
         tpk, tpv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
         tout = tdec._ragged_step_impl(
-            tp, tpk, tpv, tables, ids, seg, pos, qstart, qlen, kvlen,
+            [tp], [tpk], [tpv], tables, ids, seg, pos, qstart, qlen, kvlen,
             dec_mask, keys, temps, topks, n_steps=n_steps, **CONSTS)
-        assert tout[0] is tpk and tout[1] is tpv        # updated in place
+        assert tout[0] == [tpk] and tout[1] == [tpv]    # updated in place
+        assert tout[0][0] is tpk and tout[1][0] is tpv
         _close(tpk, jout[0])
         _close(tpv, jout[1])
         assert tout[2].tolist() == np.asarray(jout[2]).tolist()
@@ -271,7 +272,7 @@ class TestRaggedStep:
         pk, pv = args[0], args[1]
         tpk, tpv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
         tp, _ = tllama.llama_decode_params(tm)
-        tdec._ragged_step_impl(tp, tpk, tpv, *args[2:], n_steps=3,
+        tdec._ragged_step_impl([tp], [tpk], [tpv], *args[2:], n_steps=3,
                                **CONSTS)
         changed = (tpk.numpy() != pk).any(axis=(0, 3, 4))   # [nb, bs]
         owned = np.zeros_like(changed)
@@ -308,12 +309,12 @@ class TestPagedCache:
         c = PagedKVCache(1, 2, 32, 2, 4, block_size=8, device="cpu")
         s = c.alloc()
         pk = torch.ones(1, 16, 2, 4)
-        c.write_prefill(s, pk, 2 * pk, 11)
+        c.write_prefill(s, [pk], [2 * pk], 11)
         assert c.lengths[s] == 11 and c.tables[s].tolist() == [0, 1, 8, 8]
-        k = c.pool.k[0]
+        k = c.pool.k[0][0]
         assert (k[0] == 1).all() and (k[1, :3] == 1).all()
         assert (k[1, 3:] == 0).all() and (k[2:] == 0).all()
-        assert (c.pool.v[0, 1, :3] == 2).all()
+        assert (c.pool.v[0][0, 1, :3] == 2).all()
 
     def test_failed_growth_leaks_no_block(self):
         """A PoolExhausted on the third block of a growth leaves the two

@@ -44,6 +44,12 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
+def _one_shard(x):
+    """K/V as the port's caches and pools take them: a list of shards,
+    one here."""
+    return [_t(x)]
+
+
 def _close(got, want, atol=ATOL):
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     assert float(np.max(np.abs(got - np.asarray(want, np.float32)))) <= atol
@@ -124,7 +130,7 @@ class TestSlotCache:
         pk = r.randn(2, 8, 2, 4).astype(np.float32)
         pv = r.randn(2, 8, 2, 4).astype(np.float32)
         j, t = JSlot(**self.KW), SlotKVCache(**self.KW, device="cpu")
-        for c, conv in ((j, jnp.asarray), (t, _t)):
+        for c, conv in ((j, jnp.asarray), (t, _one_shard)):
             s = c.alloc()
             s = c.alloc()
             c.write_prefill(s, conv(pk), conv(pv), 5)
@@ -134,8 +140,9 @@ class TestSlotCache:
         assert t.slot_kv_bytes(1) == j.slot_kv_bytes(1) == 5 * 2 * 2 * 2 * \
             4 * 4
         with pytest.raises(ValueError, match="exceeds max_seq_len"):
-            t.write_prefill(0, _t(np.zeros((2, 17, 2, 4), np.float32)),
-                            _t(np.zeros((2, 17, 2, 4), np.float32)), 3)
+            t.write_prefill(0, _one_shard(np.zeros((2, 17, 2, 4), np.float32)),
+                            _one_shard(np.zeros((2, 17, 2, 4), np.float32)),
+                            3)
 
     def test_prefix_copies_match_jax(self):
         """The prefix cache's block copies: pool block -> slot rows
@@ -146,18 +153,19 @@ class TestSlotCache:
         tpool = BlockManager(2, 3, 4, 2, 4, device="cpu")
         blocks = r.randn(2, 3, 4, 2, 4).astype(np.float32)
         jpool.k, jpool.v = jnp.asarray(blocks), jnp.asarray(blocks + 1)
-        tpool.k, tpool.v = _t(blocks.copy()), _t(blocks + 1)
+        tpool.k, tpool.v = _one_shard(blocks.copy()), _one_shard(blocks + 1)
         j, t = JSlot(**self.KW), SlotKVCache(**self.KW, device="cpu")
         pk = r.randn(2, 8, 2, 4).astype(np.float32)
-        for c, pool, conv in ((j, jpool, jnp.asarray), (t, tpool, _t)):
+        for c, pool, conv in ((j, jpool, jnp.asarray),
+                              (t, tpool, _one_shard)):
             s = c.alloc()
             c.write_prefill(s, conv(pk), conv(pk - 1), 8)
             c.copy_block_in(s, 4, pool, 2)
             c.copy_block_out(s, 0, pool, 1)
         _close(t.k, j.k, 0.0)
         _close(t.v, j.v, 0.0)
-        _close(tpool.k, jpool.k, 0.0)
-        _close(tpool.v, jpool.v, 0.0)
+        _close(tpool.k[0], jpool.k, 0.0)
+        _close(tpool.v[0], jpool.v, 0.0)
 
 
 # --------------------------------------------------- the decode program
@@ -198,7 +206,7 @@ class TestDecodeSteps:
         tp, _ = tllama.llama_decode_params(tm)
         tk, tv = _t(ck), _t(cv)
         toks, ok, ov, tkeys = tdec._decode_steps_impl(
-            tp, tk, tv, tokens, lens, keys, temps, topks, n_steps=n_steps,
+            [tp], tk, tv, tokens, lens, keys, temps, topks, n_steps=n_steps,
             **CONSTS)
         assert ok is tk and ov is tv                     # in place
         assert toks.tolist() == np.asarray(jt).tolist()

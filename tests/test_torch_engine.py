@@ -197,18 +197,6 @@ class TestEngineBehaviour:
             eng.submit("not a request")
 
 
-# what stays off the ported path: tensor parallel (the case id is the
-# first key)
-KNOBS = [dict(tp=2), dict(collective_overlap=True)]
-
-
-@pytest.mark.parametrize("knob", KNOBS, ids=lambda k: next(iter(k)))
-def test_off_default_knobs_raise(models, knob):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatchingEngine(tm, **knob)
-
-
 # refused until speculative decode, the host tier and the priority-class
 # policy were ported; each now serves the matrix without its cancelled
 # victims, streams equal the default engine's (the case id is the first

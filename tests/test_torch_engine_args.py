@@ -159,14 +159,6 @@ def test_once_unported_values_are_served(tiny, check):
     check(tiny)
 
 
-@pytest.mark.parametrize("knob,step", [
-    (dict(collective_dtype="int8"), "Queue A step 10"),
-], ids=lambda k: next(iter(k)) if isinstance(k, dict) else None)
-def test_unported_values_name_their_step(tiny, knob, step):
-    with pytest.raises(NotImplementedError, match=step):
-        ContinuousBatchingEngine(tiny, **GEOMETRY, **knob)
-
-
 @pytest.mark.parametrize("knob", [dict(prefill_bucketing="none"),
                                   dict(collective_dtype="bf16")])
 def test_invalid_values_raise_as_the_reference_does(tiny, knob):

@@ -154,14 +154,20 @@ class TestFusedTick:
         tp, _ = tllama.llama_decode_params(tm)
         ts, tc = tllama._rope_tables(32, HD, THETA)
         outs = []
-        for fn in (tft.fused_decode_tick_reference, tdec._fused_decode_tick):
+        # the serving program's tick takes per-shard lists (one shard)
+        for shards in (False, True):
+            fn = tdec._fused_decode_tick if shards \
+                else tft.fused_decode_tick_reference
+            wrap = (lambda x: [x]) if shards else (lambda x: x)
             tpk, tpv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
             with torch.inference_mode():
-                out = fn(tp, tdec._head(tp, tied), tables,
+                out = fn(wrap(tp), tdec._head(tp, tied), tables,
                          torch.from_numpy(tables), ts, tc,
-                         torch.from_numpy(tok), tpk, tpv, lens, keys, app,
-                         temps, topks, nh=NH, nkv=NKV, hd=HD, eps=EPS,
-                         return_logits=True)
+                         torch.from_numpy(tok), wrap(tpk), wrap(tpv), lens,
+                         keys, app, temps, topks, nh=NH, nkv=NKV, hd=HD,
+                         eps=EPS, return_logits=True)
+            if shards:
+                out = (out[0], out[1][0], out[2][0]) + out[3:]
             outs.append(out)
         for a, b in zip(*outs):
             assert torch.equal(a, b)

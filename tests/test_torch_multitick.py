@@ -155,15 +155,15 @@ def _both(p, tm, args, eos, budgets, n, max_ticks, fused=False):
     tpk = torch.from_numpy(args[0].copy())
     tpv = torch.from_numpy(args[1].copy())
     tout = tdec._multitick_step_impl(
-        tp, tpk, tpv, *args[2:], eos, budgets, n, max_ticks=max_ticks,
+        [tp], [tpk], [tpv], *args[2:], eos, budgets, n, max_ticks=max_ticks,
         fused=fused, **CONSTS)
     return jout, tout, tpk, tpv
 
 
 def _assert_same(jout, tout):
-    assert float(np.abs(tout[0].numpy() - np.asarray(jout[0])).max()) \
+    assert float(np.abs(tout[0][0].numpy() - np.asarray(jout[0])).max()) \
         <= ATOL
-    assert float(np.abs(tout[1].numpy() - np.asarray(jout[1])).max()) \
+    assert float(np.abs(tout[1][0].numpy() - np.asarray(jout[1])).max()) \
         <= ATOL
     assert tout[2].tolist() == np.asarray(jout[2]).tolist()
     assert (tout[3].numpy() == np.asarray(jout[3]).astype(np.int64)).all()
@@ -179,7 +179,7 @@ class TestProgram:
         budgets = np.array([9, 0, 9], np.int32)
         jout, tout, tpk, _ = _both(p, tm, args, eos, budgets, n, 6)
         _assert_same(jout, tout)
-        assert tout[0] is tpk                       # written in place
+        assert tout[0][0] is tpk                    # written in place
         assert tout[4] == n
 
     def test_device_retirement_by_eos_and_budget(self, models):

@@ -262,9 +262,9 @@ class TestSuffixPrograms:
         tp, _ = llama_decode_params(tm)
         tpk, tpv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
         tout = tdec._paged_suffix_prefill_impl(
-            tp, tpk, tpv, tables, prefix, ids, suffix, keys, temps, topks,
-            **CONSTS)
-        assert tout[0] is tpk and tout[1] is tpv
+            [tp], [tpk], [tpv], tables, prefix, ids, suffix, keys, temps,
+            topks, **CONSTS)
+        assert tout[0][0] is tpk and tout[1][0] is tpv
         self._check(tout, jout, (tpk, tpv))
         # the shared prefix blocks and the padding row were not written
         changed = (tpk.numpy() != pk).any(axis=(0, 3, 4))
@@ -287,7 +287,7 @@ class TestSuffixPrograms:
         tp, _ = llama_decode_params(tm)
         tck, tcv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
         tout = tdec._suffix_prefill_impl(
-            tp, tck, tcv, slots, prefix, ids, suffix, keys, temps, topks,
+            [tp], tck, tcv, slots, prefix, ids, suffix, keys, temps, topks,
             **CONSTS)
         self._check(tout, jout, (tck, tcv))
 

@@ -162,11 +162,12 @@ def test_a8_tick_is_the_scanned_tick(qmodels):
     for fused in (True, False):
         tk, tv, _ = _pools(pk, pv, "int8")
         with torch.inference_mode():
-            outs.append(tdec._fused_decode_tick(
-                tp, head, tables, torch.from_numpy(tables), ts, tc,
-                torch.from_numpy(tok), tk, tv, lens, keys, app, temps,
+            out = tdec._fused_decode_tick(
+                [tp], head, tables, torch.from_numpy(tables), ts, tc,
+                torch.from_numpy(tok), [tk], [tv], lens, keys, app, temps,
                 topks, nh=NH, nkv=NKV, hd=HD, eps=EPS, fused=fused, a8=True,
-                return_logits=True) + (tk, tv))
+                return_logits=True)
+            outs.append((out[0], out[1][0], out[2][0]) + out[3:] + (tk, tv))
     for a, b in zip(*outs):
         a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
         for x, y in zip(a, b):

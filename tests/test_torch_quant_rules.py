@@ -134,14 +134,15 @@ def test_block_manager_storage_equals_jax(kv):
                      device="cpu")
     assert (t.block_nbytes, t.scale_block_nbytes) \
         == (j.block_nbytes, j.scale_block_nbytes)
-    assert tuple(t.k.shape) == tuple(j.k.shape)
+    assert len(t.k) == 1                          # one shard
+    assert tuple(t.k[0].shape) == tuple(j.k.shape)
     assert (t.quantized, t.fp8) == (j.quantized, j.fp8)
     if kv is None:
         assert t.k_scale is None and j.k_scale is None
     else:
-        np.testing.assert_array_equal(t.k_scale.numpy(),
+        np.testing.assert_array_equal(t.k_scale[0].numpy(),
                                       np.asarray(j.k_scale))
-        assert str(t.k.dtype).split(".")[-1].startswith(
+        assert str(t.k[0].dtype).split(".")[-1].startswith(
             "int8" if kv == "int8" else "float8_e4m3fn")
     t.release()
     assert t.k is None and t.k_scale is None
@@ -160,27 +161,28 @@ def test_prefill_writers_bitwise(kv):
     plen = 13
     j = JBlockManager(L, nb, bs, Hkv, D, kv_dtype=kv)
     t = BlockManager(L, nb, bs, Hkv, D, kv_dtype=kv, device="cpu")
+    (tk,), (tv,), (tks,), (tvs,) = t.k, t.v, t.k_scale, t.v_scale  # 1 shard
     if kv == "int8":
         jk, jv, jks, jvs = jkv._paged_write_prefill_q(
             j.k, j.v, j.k_scale, j.v_scale, jnp.asarray(pk), jnp.asarray(pv),
             jnp.asarray(table), np.int32(plen))
-        tkv._paged_write_prefill_q(t.k, t.v, t.k_scale, t.v_scale,
+        tkv._paged_write_prefill_q(tk, tv, tks, tvs,
                                    torch.from_numpy(pk),
                                    torch.from_numpy(pv),
                                    torch.from_numpy(table), plen)
-        np.testing.assert_array_equal(t.k_scale.numpy(), np.asarray(jks))
-        np.testing.assert_array_equal(t.v_scale.numpy(), np.asarray(jvs))
+        np.testing.assert_array_equal(tks.numpy(), np.asarray(jks))
+        np.testing.assert_array_equal(tvs.numpy(), np.asarray(jvs))
     else:
         jk, jv = jkv._paged_write_prefill_f8(
             j.k, j.v, jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(table),
             np.int32(plen))
-        tkv._paged_write_prefill_f8(t.k, t.v, torch.from_numpy(pk),
+        tkv._paged_write_prefill_f8(tk, tv, torch.from_numpy(pk),
                                     torch.from_numpy(pv),
                                     torch.from_numpy(table), plen)
-        assert (t.k_scale == 1).all() and (t.v_scale == 1).all()
-    for got, want in ((t.k, jk), (t.v, jv)):
+        assert (tks == 1).all() and (tvs == 1).all()
+    for got, want in ((tk, jk), (tv, jv)):
         want = np.asarray(want)
         np.testing.assert_array_equal(
             _np(got), want.view(np.uint8) if kv == "fp8" else want)
     # padding rows past the prompt never land: block 1 rows 5.. untouched
-    assert (_np(t.k)[:, 1, plen - bs:] == 0).all()
+    assert (_np(tk)[:, 1, plen - bs:] == 0).all()

@@ -424,10 +424,10 @@ class TestVerifyProgram:
         tp, _ = llama_decode_params(tm)
         tpk, tpv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
         tout = tdec._spec_verify_impl(
-            tp, tpk, tpv, tables, ids, seg, pos, qstart, qlen, kvlen,
+            [tp], [tpk], [tpv], tables, ids, seg, pos, qstart, qlen, kvlen,
             sstart, keys.astype(np.int64), temps, topks, spec_len=S,
             **consts)
-        assert tout[0] is tpk and tout[1] is tpv       # in place
+        assert tout[0][0] is tpk and tout[1][0] is tpv   # in place
         assert np.array_equal(tout[2].numpy(), np.asarray(jout[2]))
         assert np.array_equal(tout[3].numpy(),
                               np.asarray(jout[3]).astype(np.int64))

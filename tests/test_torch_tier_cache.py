@@ -274,23 +274,23 @@ class TestStagingReuse:
             pool = BlockManager(2, 5, 4, 2, 8, kv_dtype=kv, device="cpu")
             g = torch.Generator().manual_seed(1)
             for name in ("k", "v", "k_scale", "v_scale"):
-                t = getattr(pool, name)
-                if t is None:
+                if getattr(pool, name) is None:
                     continue
+                t = getattr(pool, name)[0]              # the one shard
                 src = torch.randn(t.shape, generator=g) * 3
                 t.copy_(src.to(t.dtype) if t.dtype != torch.int8
                         else src.clamp(-127, 127).to(torch.int8))
-            ptrs = {n: getattr(pool, n).data_ptr() for n in ("k", "v")}
+            ptrs = {n: getattr(pool, n)[0].data_ptr() for n in ("k", "v")}
             bufs = pool.read_block(1)
             pool.write_block(3, bufs)
             pool.recycle_staging(bufs)
             for name in bufs:
-                t = getattr(pool, name)
+                t = getattr(pool, name)[0]
                 a, b = t[:, 1], t[:, 3]
                 if t.dtype == torch.float8_e4m3fn:
                     a, b = a.view(torch.uint8), b.view(torch.uint8)
                 assert torch.equal(a, b), (kv, name)
-            assert {n: getattr(pool, n).data_ptr()
+            assert {n: getattr(pool, n)[0].data_ptr()
                     for n in ("k", "v")} == ptrs
 
     def test_engine_thrash_allocates_once_per_shape(self, models):

@@ -511,12 +511,12 @@ class TestServingRecordsNoGraph:
         c = tm.config
         ids = _ids(2, 12, seed=3)
         pk, pv, tok, _ = tdec._prefill_impl(
-            params, ids, np.array([12, 9]), np.zeros((2, 2), np.int64),
+            [params], ids, np.array([12, 9]), np.zeros((2, 2), np.int64),
             np.zeros(2, np.float32), np.zeros(2, np.int32),
             nh=c.num_attention_heads, nkv=c.num_key_value_heads,
             hd=c.head_dim, eps=c.rms_norm_eps, theta=c.rope_theta,
             tied=tied)
-        for t in (pk, pv, tok):
+        for t in (*pk, *pv, tok):
             assert not t.requires_grad and t.grad_fn is None
         eng = ContinuousBatchingEngine(tm, num_slots=2, max_seq_len=64,
                                        prefix_block_size=8, prefill_chunk=16)
@@ -526,6 +526,6 @@ class TestServingRecordsNoGraph:
         while eng.has_work():
             eng.step()
         assert all(len(s.tokens) == 5 for s in seqs)
-        for pool in (eng.cache.pool.k, eng.cache.pool.v):
+        for pool in (*eng.cache.pool.k, *eng.cache.pool.v):
             assert not pool.requires_grad and pool.grad_fn is None
         assert all(p.grad is None for p in tm.parameters())

@@ -82,9 +82,9 @@ def test_paged_decode_steps_match_jax(models, n_steps):
     tp, _ = llama_decode_params(tm)
     tpk, tpv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
     toks, opk, opv, tkeys = tdec._paged_decode_steps_impl(
-        tp, tpk, tpv, tables, tokens, lens, keys, temps, topks,
+        [tp], [tpk], [tpv], tables, tokens, lens, keys, temps, topks,
         n_steps=n_steps, **CONSTS)
-    assert opk is tpk and opv is tpv
+    assert opk[0] is tpk and opv[0] is tpv
     for got, want in ((tpk, jout[1]), (tpv, jout[2])):
         assert float(np.abs(got.numpy() - np.asarray(want)).max()) <= ATOL
     assert toks[:, :2].tolist() == np.asarray(jout[0])[:, :2].tolist()

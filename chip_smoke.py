@@ -233,6 +233,36 @@ Phases, each printing one JSON line; any failure exits nonzero:
              the stream so far, the top-2 gaps beside the largest
              difference of the two degrees' logits.
 
+11. substrate — run right after ``train`` on an emptied allocator: the
+             Paddle-shaped substrate (``import paddle_tpu_torch as
+             paddle``). GPT-3 345M (``gpt3_345m``: vocabulary 50304,
+             hidden 1024, 24 layers, 16 heads, FFN 4096, dropout 0.1)
+             built from ``paddle.seed`` on ``gpu:0``, micro batch 8 x
+             1024 seeded tokens, AdamW (weight decay 0.01, global-norm
+             clip 1.0, ``apply_decay_param_fun``) on ``LinearWarmup(
+             CosineAnnealingDecay)``, eager ``loss.backward()``,
+             ``opt.step()``, ``opt.clear_grad()``: 10 steps in fp32,
+             under ``auto_cast(level="O1", dtype="bfloat16")`` and under
+             ``decorate``/``auto_cast`` O2 float16 with
+             ``GradScaler(init_loss_scaling=32768)``; losses finite and
+             falling, the scale and skipped steps reported, and after
+             step 5 the model, optimizer (scheduler inside), scaler and
+             RNG key saved with ``paddle.save``, loaded with
+             ``paddle.load`` into a fresh model and optimizer, whose
+             steps 6-10 give the same losses bit for bit; step ms,
+             tokens/s, peak memory; the dropout masks' time a step.
+             ``F.flash_attention`` at B=8, S=1024 and 1000, 16 heads of
+             64, bf16 and fp32, causal and not: O and dQ, dK, dV through
+             autograd against the plain versions (``TOL``, ``BWD_TOL``),
+             the same bits twice, one forward, one dK/dV and one dQ
+             launch a call; float16 raises before a launch. A two-block
+             user ``Layer`` at 345M widths whose attention is
+             ``F.flash_attention``, causal and then not: 3 AdamW steps in
+             fp32, kernels against plain (losses 1e-5 relative, gradients
+             1e-4 of their max). Then the non-causal kernels' rows
+             (``flash:full``, ``flash_bwd_dkv:full``,
+             ``flash_bwd_dq:full``) at GPT-345M's attention shape.
+
 ``--profile`` repeats the four serve runs, the ``tp=2`` serve run and
 one train step under ``torch.profiler`` and reports device time by
 kernel and the device's busy share (for the fused run: one device kernel
@@ -5298,6 +5328,443 @@ def phase_profile_fused(model, cfg, reqs, want, scanned_ticks=5):
         raise RuntimeError("the profiled fused repeat sampled other tokens")
 
 
+# ---------------------------------------------------------------- substrate
+#: GPT-3 345M's attention: B, S, heads, head dim (the repo's gpt3_345m,
+#: micro batch 8 x 1024); the tail length past the 64-row tiles
+SUB_B, SUB_S, SUB_H, SUB_D = 8, 1024, 16, 64
+SUB_TAIL_S = 1000
+SUB_VOCAB = 50304
+SUB_STEPS, SUB_SAVE_AT = 10, 5
+#: the GPT-3 345M legs: (label, auto_cast level or None, AMP dtype,
+#: GradScaler's init_loss_scaling or None); O2 also decorates the model
+SUB_LEGS = (("fp32", None, None, None),
+            ("o1_bf16", "O1", "bfloat16", None),
+            ("o2_fp16", "O2", "float16", 32768.0))
+#: the user Layer against plain versions, as train_parity holds LLaMA
+SUB_LAYER_LOSS_RTOL, SUB_LAYER_GRAD_TOL = 1e-5, 1e-4
+#: the flash kernels' non-causal mode, counted apart (``name:full``) and
+#: reported in the kernels line beside the causal rows
+FULL = tuple(f"{n}:full" for n in ("flash",) + BWD)
+
+
+def _gpt_trainer(level, dtype, init, seed):
+    """GPT-3 345M through the Paddle surface only: ``paddle.seed``, the
+    model on ``gpu:0``, AdamW(weight decay 0.01, global-norm clip 1.0,
+    biases and LayerNorms undecayed) on ``LinearWarmup(
+    CosineAnnealingDecay)`` (warm-up over 100 steps: the run stays in it,
+    so the scheduler's saved state is whole), ``decorate`` at O2 and the
+    GradScaler for fp16."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt3_345m
+    paddle.set_device("gpu:0")
+    paddle.seed(seed)
+    model = GPTForCausalLM(gpt3_345m())
+    if level == "O2":
+        paddle.amp.decorate(model, level="O2", dtype=dtype)
+    lr = paddle.optimizer.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=1000),
+                            warmup_steps=100, start_lr=1e-4, end_lr=1e-3)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched, parameters=model.named_parameters(),
+        weight_decay=0.01, grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0),
+        apply_decay_param_fun=lambda n: not (n.endswith(".bias")
+                                             or ".ln_" in n))
+    scaler = paddle.amp.GradScaler(init_loss_scaling=init) if init else None
+    return model, opt, sched, scaler
+
+
+def _gpt_step(model, opt, sched, scaler, ids, level, dtype):
+    import paddle_tpu_torch as paddle
+    with paddle.amp.auto_cast(enable=level is not None, level=level or "O1",
+                              dtype=dtype or "bfloat16"):
+        loss = model(ids, ids)
+    if scaler is not None:
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+    else:
+        loss.backward()
+        opt.step()
+    opt.clear_grad()
+    sched.step()
+    return float(loss.detach())
+
+
+def _mask_ms():
+    """One step's dropout masks: the attention probabilities' [8, 16,
+    1024, 1024] (24 a step) and the hidden states' [8, 1024, 1024] (two a
+    block and the embedding's: 49), each drawn by the threefry key walk
+    on the card; returns (attention ms, hidden ms, a step's mask ms)."""
+    import torch
+    from paddle_tpu_torch.core import random as prng
+    from paddle_tpu_torch.nn.functional import _mask
+    dev = torch.device("cuda")
+    key = prng.PRNGKey(3)
+    att = time_ms(lambda: _mask(key, 0.9, (SUB_B, SUB_H, SUB_S, SUB_S),
+                                dev), iters=5)
+    hid = time_ms(lambda: _mask(key, 0.9, (SUB_B, SUB_S, SUB_H * SUB_D),
+                                dev), iters=5)
+    return att, hid, 24 * att + 49 * hid
+
+
+def _gpt_leg(label, level, dtype, init):
+    """Ten steps on a repeated seeded batch; the model, the optimizer
+    (scheduler inside), the scaler and the RNG key saved after step 5 and
+    loaded into a fresh model and optimizer (built from another seed),
+    whose steps 6-10 must give the same losses bit for bit."""
+    import shutil
+    import torch
+    import paddle_tpu_torch as paddle
+    _free()
+    ids = _train_ids(SUB_VOCAB, SUB_B, SUB_S, seed=7)
+    ckpt = ROOT / "build" / "substrate_ckpt"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    model, opt, sched, scaler = _gpt_trainer(level, dtype, init, seed=19)
+    losses, step_s, io_s = [], [], 0.0
+    for i in range(SUB_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_gpt_step(model, opt, sched, scaler, ids, level,
+                                dtype))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == SUB_SAVE_AT - 1:
+            t0 = time.perf_counter()
+            paddle.save(model.state_dict(), str(ckpt / "gpt.pdparams"))
+            paddle.save(opt.state_dict(), str(ckpt / "gpt.pdopt"))
+            paddle.save({"rng": paddle.get_rng_state(),
+                         "scaler": scaler.state_dict() if scaler else None},
+                        str(ckpt / "extra.pd"))
+            io_s += time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    scale = scaler.state_dict()["scale"] if scaler else None
+    skipped = scaler.skipped_steps if scaler else None
+    n_params = model.num_params()
+    del model, opt, sched, scaler
+    _free()
+    model, opt, sched, scaler = _gpt_trainer(level, dtype, init, seed=20)
+    t0 = time.perf_counter()
+    model.set_state_dict(paddle.load(str(ckpt / "gpt.pdparams")))
+    opt.set_state_dict(paddle.load(str(ckpt / "gpt.pdopt")))
+    extra = paddle.load(str(ckpt / "extra.pd"))
+    paddle.set_rng_state(extra["rng"])
+    if scaler is not None:
+        scaler.load_state_dict(extra["scaler"])
+    io_s += time.perf_counter() - t0
+    resumed = [_gpt_step(model, opt, sched, scaler, ids, level, dtype)
+               for _ in range(SUB_STEPS - SUB_SAVE_AT)]
+    del model, opt, sched, scaler
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _free()
+    mean_s = sum(step_s[1:]) / len(step_s[1:])
+    row = {"phase": "substrate", "run": f"gpt3_345m_{label}",
+           "amp": {"level": level, "dtype": dtype}, "params": n_params,
+           "B": SUB_B, "S": SUB_S, "losses": losses,
+           "resumed_losses_6_10": resumed,
+           "resume_bit_for_bit": resumed == losses[SUB_SAVE_AT:],
+           "step_ms": [1e3 * t for t in step_s],
+           "mean_step_ms_2_10": 1e3 * mean_s,
+           "tokens_per_s": SUB_B * SUB_S / mean_s, "peak_mem_gb": peak,
+           "checkpoint_io_s": io_s, "loss_scale": scale,
+           "skipped_steps": skipped}
+    emit(row)
+    finite = all(map(math.isfinite, losses + resumed))
+    if not finite or not losses[-1] < losses[0]:
+        raise RuntimeError(f"substrate {label}: losses {losses} not finite "
+                           f"and falling")
+    if not row["resume_bit_for_bit"]:
+        raise RuntimeError(f"substrate {label}: resumed {resumed} != "
+                           f"{losses[SUB_SAVE_AT:]}")
+    return row
+
+
+def _fa_run(F, q, k, v, do, causal):
+    """Output and dQ, dK, dV of ``F.flash_attention`` through autograd."""
+    import torch
+    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out, _ = F.flash_attention(*qkv, causal=causal)
+    grads = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    return (out.detach(),) + tuple(grads)
+
+
+def _substrate_flash(dev, gen):
+    """``F.flash_attention`` at GPT-345M's attention shape and at the tail
+    length, bf16 and fp32, causal and not: O and the gradients against
+    the plain versions (``TOL``, ``BWD_TOL``), the same bits on a second
+    call, one forward, one dK/dV and one dQ launch a call; float16 raises
+    before any launch."""
+    import torch
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.nn import functional as F
+    out = []
+    for S in (SUB_S, SUB_TAIL_S):
+        for dtype_name in ("bfloat16", "float32"):
+            for causal in (True, False):
+                mk = lambda: torch.randn(  # noqa: E731
+                    SUB_B, S, SUB_H, SUB_D, generator=gen,
+                    device=dev).to(getattr(torch, dtype_name))
+                q, k, v, do = mk(), mk(), mk(), mk()
+                reset_launches()
+                got = _fa_run(F, q, k, v, do, causal)
+                launched = {n: c for n, c in LAUNCHES.items() if c}
+                again = _fa_run(F, q, k, v, do, causal)
+                set_flags({"FLAGS_use_cuda_kernels": False})
+                try:
+                    want = _fa_run(F, q, k, v, do, causal)
+                finally:
+                    set_flags({"FLAGS_use_cuda_kernels": True})
+                tag = f"F.flash_attention S={S} causal={causal}"
+                err_o = _compare(tag + " O", dtype_name, got[0], want[0])
+                errs = [_compare_scaled(f"{tag} {n}", dtype_name, g, w)
+                        for n, g, w in zip(("dq", "dk", "dv"), got[1:],
+                                           want[1:])]
+                sfx = "" if causal else ":full"
+                expect = {f"{n}{sfx}": 1 for n in ("flash",) + BWD}
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+                row = {"phase": "substrate", "check": "flash_attention",
+                       "S": S, "dtype": dtype_name, "causal": causal,
+                       "o_max_abs_err": err_o,
+                       "grad_max_err_over_max": max(e[1] for e in errs),
+                       "same_bits_twice": bitwise, "launches": launched}
+                emit(row)
+                out.append(row)
+                if launched != expect or not bitwise:
+                    raise RuntimeError(f"{tag} {dtype_name}: launches "
+                                       f"{launched} (want {expect}), "
+                                       f"bits twice {bitwise}")
+                del q, k, v, do, got, again, want
+                torch.cuda.empty_cache()
+    q = torch.randn(1, 128, 2, 64, device=dev, dtype=torch.float16)
+    reset_launches()
+    try:
+        F.flash_attention(q, q, q)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    emit({"phase": "substrate", "check": "flash_attention_fp16",
+          "raised": raised, "launches": sum(LAUNCHES.values())})
+    if not raised or sum(LAUNCHES.values()):
+        raise RuntimeError("F.flash_attention: float16 did not raise "
+                           "before a launch")
+    return out
+
+
+def _user_net(causal):
+    """Two pre-LN blocks at GPT-345M widths (hidden 1024, 16 heads of 64,
+    FFN 4096, vocabulary 50304, the head tied to an embedding drawn from
+    normal(0, 0.02)) written
+    as a user writes them on the substrate, attention by
+    ``F.flash_attention``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    hidden = SUB_H * SUB_D
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln1 = nn.LayerNorm(hidden)
+            self.qkv = nn.Linear(hidden, 3 * hidden)
+            self.proj = nn.Linear(hidden, hidden)
+            self.ln2 = nn.LayerNorm(hidden)
+            self.fc1 = nn.Linear(hidden, 4 * hidden)
+            self.fc2 = nn.Linear(4 * hidden, hidden)
+
+        def forward(self, x):
+            B, S = x.shape[0], x.shape[1]
+            qkv = paddle.reshape(self.qkv(self.ln1(x)),
+                                 [B, S, 3, SUB_H, SUB_D])
+            q, k, v = paddle.unbind(qkv, axis=2)
+            o, _ = F.flash_attention(q, k, v, causal=causal)
+            x = x + self.proj(paddle.reshape(o, [B, S, hidden]))
+            return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            # normal(0, 0.02), as GPT initializes its embedding: at
+            # Embedding's default normal(0, 1) the tied head's logits
+            # reach ~1e3 and the softmax's saturation turns summation-
+            # order differences into visible gradient differences
+            self.emb = nn.Embedding(SUB_VOCAB, hidden, weight_attr=(
+                paddle.framework.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, 0.02))))
+            self.blocks = nn.LayerList([Block(), Block()])
+            self.ln = nn.LayerNorm(hidden)
+
+        def forward(self, ids, labels):
+            x = self.emb(ids)
+            for b in self.blocks:
+                x = b(x)
+            logits = paddle.matmul(self.ln(x), self.emb.weight,
+                                   transpose_y=True)
+            return F.cross_entropy(logits[:, :-1], labels[:, 1:])
+
+    return Net()
+
+
+def _user_layer_leg(causal):
+    """Three AdamW steps in fp32 of the two-block Layer, through the
+    kernels and through the plain versions from the same seed: losses
+    within 1e-5 relative, every gradient within 1e-4 of its largest
+    entry, each step; the kernels launched once a block a step, in this
+    leg's mode. Returns the kernels' launches."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    ids = _train_ids(SUB_VOCAB, SUB_B, SUB_S, seed=8)
+    runs = {}
+    try:
+        for use in (True, False):
+            set_flags({"FLAGS_use_cuda_kernels": use})
+            paddle.set_device("gpu:0")
+            paddle.seed(31)
+            net = _user_net(causal)
+            opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                         parameters=net.parameters())
+            reset_launches()
+            losses, grads = [], []
+            for _ in range(3):
+                loss = net(ids, ids)
+                loss.backward()
+                grads.append({n: p.grad.detach().clone()
+                              for n, p in net.named_parameters()})
+                opt.step()
+                opt.clear_grad()
+                losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            runs[use] = (losses, grads, {n: c for n, c in LAUNCHES.items()
+                                         if c})
+            del net, opt
+            _free()
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    (lk, gk, nk), (lp, gp, npl) = runs[True], runs[False]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    grad_err = max(((a[n] - b[n]).abs().max() / b[n].abs().max().clamp(
+        min=1e-30)).item() for a, b in zip(gk, gp) for n in b)
+    sfx = "" if causal else ":full"
+    want = {f"{n}{sfx}": 6 for n in ("flash",) + BWD}
+    emit({"phase": "substrate", "run": "user_layer", "causal": causal,
+          "layers": 2, "losses_kernels": lk, "losses_plain": lp,
+          "loss_rel_err": loss_err, "grad_err_over_max": grad_err,
+          "launches_kernels": nk, "launches_plain": sum(npl.values())})
+    if loss_err > SUB_LAYER_LOSS_RTOL or grad_err > SUB_LAYER_GRAD_TOL:
+        raise RuntimeError(f"user layer causal={causal}: loss err "
+                           f"{loss_err}, grad err {grad_err}")
+    if nk != want or npl:
+        raise RuntimeError(f"user layer causal={causal}: launches {nk}, "
+                           f"expected {want}, plain {npl}")
+    return nk
+
+
+def full_rows(dev, gen):
+    """The non-causal kernels at GPT-345M's attention shape in bf16 against
+    their plain versions: error, kernel / plain / library ms (library:
+    non-causal SDPA, forward; forward + backward less forward for the
+    backward pair), the bound over every (query, key) pair."""
+    import torch
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.kernels import flash
+    dtype_name = "bfloat16"
+    dtype = torch.bfloat16
+    isz = 2
+    B, S, H, D = SUB_B, SUB_S, SUB_H, SUB_D
+    mk = lambda: torch.randn(B, S, H, D, generator=gen,  # noqa: E731
+                             device=dev).to(dtype)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    o, lse = flash.flash_attention_fwd(q, k, v, False)
+    delta = flash.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: TF.scaled_dot_product_attention(qt, kt, vt)  # noqa
+    with torch.no_grad():
+        lib_f = time_ms(sdpa)
+    lib_fb = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                     iters=5)
+    pairs = B * H * S * S
+    cases = {
+        "flash:full": (lambda: flash.flash_attention_fwd(q, k, v, False),
+                       lambda: flash.flash_attention_reference(q, k, v,
+                                                               False),
+                       4, 4 * q.numel() * isz + 4 * B * H * S, lib_f,
+                       "SDPA non-causal"),
+        "flash_bwd_dkv:full": (
+            lambda: flash.flash_bwd_dkv(*args, causal=False),
+            lambda: flash.flash_bwd_dkv_reference(*args, causal=False), 8,
+            (2 * q.numel() + 2 * k.numel()) * isz + 2 * 4 * B * H * S
+            + 2 * k.numel() * isz, lib_fb - lib_f,
+            "SDPA non-causal fwd+bwd minus fwd (the pair)"),
+        "flash_bwd_dq:full": (
+            lambda: (flash.flash_bwd_dq(*args, causal=False),),
+            lambda: (flash.flash_bwd_dq_reference(*args, causal=False),), 6,
+            (2 * q.numel() + 2 * k.numel()) * isz + 2 * 4 * B * H * S
+            + q.numel() * isz, lib_fb - lib_f,
+            "SDPA non-causal fwd+bwd minus fwd (the pair)")}
+    rows = {}
+    for name, (run, plain, per_pair, nbytes, lib, lib_what) in \
+            cases.items():
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if name == "flash:full":
+            err = _compare(name, dtype_name, got[0], want[0])
+        else:
+            err = max(_compare_scaled(name, dtype_name, g, w)[0]
+                      for g, w in zip(got, want))
+        del got, want
+        flops = per_pair * pairs * D
+        row = {"phase": "kernels", "name": name, "mode": "full",
+               "dtype": dtype_name,
+               "shape": {"B": B, "S": S, "H": H, "Hk": H, "D": D},
+               "max_abs_err": err, "ms": time_ms(run, iters=10),
+               "device_ms": device_ms(run, iters=10),
+               "plain_ms": time_ms(plain, iters=3), "library_ms": lib,
+               "library": lib_what, "bytes": nbytes, "flops": flops,
+               "bound_ms": bound_ms(nbytes, flops, dtype_name),
+               "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                            >= flops / PEAK_FLOPS[dtype_name]
+                            else "operations"),
+               "route": route(name.split(":")[0], dtype_name)}
+        row["tflops"] = flops / row["ms"] / 1e9
+        emit(row)
+        rows[name] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_substrate():
+    """The Paddle-shaped substrate on the card (run after ``train``, on an
+    emptied allocator): GPT-3 345M trained eagerly through the Paddle
+    surface in fp32, O1 bf16 and O2 fp16 with the GradScaler (10 steps,
+    resumed from a checkpoint bit for bit), the dropout masks' share of a
+    step, ``F.flash_attention`` on the flash kernels in both modes, the
+    two-block user Layer (causal, then non-causal: the ``:full``
+    kernels' main path) against plain, and the non-causal kernels'
+    rows. Returns (rows, launches) for the kernels line."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    legs = [_gpt_leg(*leg) for leg in SUB_LEGS]
+    att, hid, per_step = _mask_ms()
+    emit({"phase": "substrate", "check": "dropout_masks",
+          "attention_mask_ms": att, "hidden_mask_ms": hid,
+          "masks_ms_a_step": per_step,
+          "share_of_step": {r["run"]: per_step / r["mean_step_ms_2_10"]
+                            for r in legs}})
+    _substrate_flash(dev, gen)
+    _free()
+    _user_layer_leg(True)
+    launches = _user_layer_leg(False)
+    rows = full_rows(dev, gen)
+    _free()
+    return rows, launches
+
+
 # ---------------------------------------------------------------- training
 # the deepest llama_7b cut whose whole train phase fits one 80 GB H100:
 # at 16 layers the accumulated step's update runs out of memory
@@ -5659,7 +6126,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,serve,generate,server,"
-                            "fleet,tp,train_parity,train",
+                            "fleet,tp,train_parity,train,substrate",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
                     help="repeat the four serve runs and one train "
@@ -5703,6 +6170,10 @@ def main(argv=None):
     # allocations can fail for fragmentation alone
     train = (timed("train", phase_train, args.profile, args.train_layers)
              if "train" in phases else {})
+    # the substrate's GPT-3 345M legs next, on the emptied allocator
+    _free()
+    sub_rows, sub_launches = (timed("substrate", phase_substrate)
+                              if "substrate" in phases else ({}, {}))
     rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
     launches = {}
     if "engine" in phases:
@@ -5818,6 +6289,20 @@ def main(argv=None):
                                        "library_ms", "base_ms",
                                        "device_ms")},
             "math": route(name, "bfloat16")})
+    # the flash kernels' non-causal mode (the substrate's F.flash_attention
+    # with causal=False): launches on the non-causal user Layer's path
+    for name in FULL:
+        base = name.split(":")[0]
+        row = sub_rows.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[base],
+            "replaces": REPLACES[base], "mode": "full",
+            "launches": sub_launches.get(name, 0),
+            **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms", "tflops",
+                                       "device_ms")},
+            "math": route(base, "bfloat16")})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -99,18 +99,33 @@ def random_bits(keys, n):
     return bits1 ^ bits2
 
 
-def uniform(keys, n, minval=0.0, maxval=1.0):
-    """float32 uniforms in ``[minval, maxval)``, ``[..., n]``: the 23 high
-    random bits become the mantissa of a float in [1, 2), minus one."""
-    bits = random_bits(keys, n)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
-    # float32 bounds as scalars and a filled tensor, not tensors built
-    # from host values: no host-to-device copy, so a CUDA graph can
-    # capture the draw
+def _floats(bits, minval, maxval):
+    """float32 uniforms in ``[minval, maxval)`` from 32 random bits a
+    value (uint32 in int64, or their two's complement in int32; int32
+    ones are used up in place): the 23 high bits become the mantissa of a
+    float in [1, 2), minus one, then ``minval + u * (maxval - minval)``."""
+    if bits.dtype == torch.int32:
+        bits = bits.bitwise_right_shift_(9).bitwise_and_(0x7FFFFF)
+    else:
+        bits = (bits >> 9).to(torch.int32)
+    floats = bits.bitwise_or_(0x3F800000).view(torch.float32).sub_(1.0)
+    # float32 bounds as scalars, not tensors built from host values: no
+    # host-to-device copy, so a CUDA graph can capture the draw
     lo, hi = np.float32(minval), np.float32(maxval)
-    return torch.maximum(torch.full_like(floats, float(lo)),
-                         floats * float(hi - lo) + float(lo))
+    span = float(hi - lo)
+    if span != 1.0 or float(lo) != 0.0:
+        # XLA fuses ``floats * span + lo`` into one FMA (one rounding):
+        # the float32 product is exact in float64, so the sum rounds once
+        # there and once to float32 (a double rounding can differ from
+        # the FMA's single one about once in 2**29 draws)
+        floats = (floats.double() * span + float(lo)).float()
+    return floats.clamp_min_(float(lo))
+
+
+def uniform(keys, n, minval=0.0, maxval=1.0):
+    """float32 uniforms in ``[minval, maxval)``, ``[..., n]``, as
+    ``jax.random.uniform`` draws them."""
+    return _floats(random_bits(keys, n), minval, maxval)
 
 
 def gumbel(keys, n):
@@ -186,3 +201,113 @@ def get_rng_state():
 
 def set_rng_state(state):
     _GENERATOR.set_state(state)
+
+
+# ----------------------------------------------- shaped draws (jax.random)
+def _numel(shape):
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+def _s32(v):
+    """A uint32 value as the int32 with its bits."""
+    v &= _M32
+    return v - (1 << 32) if v & 0x80000000 else v
+
+
+def _bits32(key, n, device):
+    """``random_bits`` of one host key over the counts ``0..n-1`` (n <
+    2**31), computed on ``device`` in int32 — the uint32 bits as their
+    two's complement: adds wrap, a right shift is masked to its logical
+    bits — in place on three buffers, half the bytes of the int64 form
+    (the threefry's dozens of passes over the draw dominate a large
+    draw's time)."""
+    k1, k2 = (int(v) for v in key.tolist())
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    b = torch.arange(n, dtype=torch.int32, device=device).add_(_s32(ks[1]))
+    a = torch.full_like(b, _s32(ks[0]))
+    t = torch.empty_like(b)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a.add_(b)
+            torch.bitwise_right_shift(b, 32 - r, out=t)
+            t.bitwise_and_((1 << r) - 1)
+            b.bitwise_left_shift_(r).bitwise_or_(t).bitwise_xor_(a)
+        a.add_(_s32(ks[(i + 1) % 3]))
+        b.add_(_s32(ks[(i + 2) % 3] + i + 1))
+    return a.bitwise_xor_(b)
+
+
+def uniform_shaped(key, shape, minval=0.0, maxval=1.0, device=None):
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: one
+    key ``[2]`` to a float32 tensor of ``shape`` on ``device`` (default:
+    the key's); a shape's element ``i`` is count ``i`` of the hash, as the
+    partitionable threefry lays it out. A key on the host hashes on the
+    device in int32 (:func:`_bits32`, no device-to-host read)."""
+    shape = tuple(int(s) for s in shape)
+    n = _numel(shape)
+    dev = key.device if device is None else torch.device(device)
+    if key.device.type == "cpu" and n < 2 ** 31:
+        return _floats(_bits32(key, n, dev), minval, maxval).reshape(shape)
+    return uniform(key.to(dev), n, minval, maxval).reshape(shape)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key, shape, device=None):
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
+    erfinv(u)`` of a uniform ``u`` in ``(-1, 1)``. The uniforms are JAX's
+    bit for bit; ``torch.erfinv`` and XLA's may round differently in the
+    last place."""
+    return torch.erfinv(uniform_shaped(key, shape, _NORMAL_LO, 1.0,
+                                       device)) * _SQRT2
+
+
+def truncated_normal(key, lower, upper, shape, device=None):
+    """``jax.random.truncated_normal(key, lower, upper, shape, float32)``."""
+    lo32, hi32 = np.float32(lower), np.float32(upper)
+    a = float(np.float32(torch.erf(torch.tensor(lo32 / np.float32(_SQRT2)))))
+    b = float(np.float32(torch.erf(torch.tensor(hi32 / np.float32(_SQRT2)))))
+    out = torch.erfinv(uniform_shaped(key, shape, a, b, device)) * _SQRT2
+    return torch.clamp(out, float(np.nextafter(lo32, np.float32(np.inf))),
+                       float(np.nextafter(hi32, np.float32(-np.inf))))
+
+
+def bernoulli(key, p, shape, device=None):
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` (bool)."""
+    return uniform_shaped(key, shape, device=device) < float(np.float32(p))
+
+
+def randint(key, shape, minval, maxval):
+    """``jax.random.randint(key, shape, minval, maxval, int32)``: two
+    32-bit draws per value (from the two halves of a split), combined
+    modulo the span in uint32 arithmetic. Returns int64 values."""
+    n = _numel(shape)
+    k = split(key)
+    hi, lo = random_bits(k[0], n), random_bits(k[1], n)
+    imin, imax = -2 ** 31, 2 ** 31 - 1
+    minval = max(min(int(minval), imax), imin)
+    maxval = max(min(int(maxval), imax), imin)
+    span = 1 if maxval <= minval else (maxval - minval) & _M32
+    mult = (2 ** 16) % span
+    mult = (mult * mult) % span
+    off = (((hi % span) * mult) & _M32) + (lo % span)
+    off = (off & _M32) % span
+    out = (minval + off + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return out.reshape(tuple(int(s) for s in shape))
+
+
+def permutation(key, n):
+    """``jax.random.permutation(key, n)``: ``arange(n)`` sorted by fresh
+    32-bit keys, ``ceil(3 ln n / ln(2**32 - 1))`` rounds (stable sorts)."""
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_M32)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, n), stable=True).indices
+        x = x[order]
+    return x

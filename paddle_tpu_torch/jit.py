@@ -5,9 +5,12 @@ The JAX class compiles forward, loss, backward, clip and update into one
 XLA program with donated buffers. Here the same sequence runs eagerly:
 PyTorch's autograd takes the gradients (through the flash backward
 kernels), the optimizer updates the parameters in place, and there is no
-compile, mesh or donation. The options that place the step on a mesh,
-scale the loss or turn donation off raise ``NotImplementedError``
-(ROADMAP Queue A steps 12 and 13).
+compile, mesh or donation. The options that place the step on a mesh
+raise ``NotImplementedError`` (ROADMAP Queue A step 13). ``donate`` and
+``loss_scale`` are taken and change nothing, as in the reference (which
+stores ``loss_scale`` and never reads it; loss scaling is
+``amp.GradScaler``'s). The model is any ``nn.Module``: the LLaMA model
+or a ``nn.Layer``.
 
 ``FLAGS_check_nan_inf`` (read at construction) adds the reference's
 debug guard: every step counts the non-finite values of the loss and the
@@ -50,7 +53,6 @@ class TrainStep:
 
     ``inputs`` is the model's positional arguments (a tuple, or one
     value); ``labels`` go to ``loss_fn(model_output, *labels)``.
-    Eager PyTorch donates nothing, so ``donate`` takes its default only.
     The reference's ``grad_accum_steps`` is never read there
     (``accum_step`` takes the count), so the port does not take it.
     """
@@ -62,9 +64,7 @@ class TrainStep:
                 ("mesh", mesh, None, "Queue A step 13"),
                 ("batch_axes", batch_axes, None, "Queue A step 13"),
                 ("sharding_stage", sharding_stage, 0, "Queue A step 13"),
-                ("param_spec_fn", param_spec_fn, None, "Queue A step 13"),
-                ("donate", donate, True, "Queue A step 12"),
-                ("loss_scale", loss_scale, None, "Queue A step 12")):
+                ("param_spec_fn", param_spec_fn, None, "Queue A step 13")):
             if value != default:
                 raise NotImplementedError(
                     f"TrainStep({knob}=...) is not ported; see ROADMAP.md "
@@ -72,6 +72,8 @@ class TrainStep:
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.donate = donate
+        self.loss_scale = loss_scale
         self._step_count = 0
         self._check_nan = bool(get_flag("FLAGS_check_nan_inf"))
 

@@ -22,11 +22,14 @@ import threading
 from collections.abc import Mapping
 
 #: the counted kernels (the flash kernels' fused-RoPE mode counts apart,
-#: as ``name[rope]``; ``rope_qk`` is that mode's rotation pre-pass of the
-#: backward)
+#: as ``name[rope]``, and their non-causal mode as ``name:full``;
+#: ``rope_qk`` is the RoPE mode's rotation pre-pass)
 KERNELS = ("flash", "paged_decode", "ragged_attention", "flash_bwd_dkv",
            "flash_bwd_dq", "decode", "fused_decode_tick", "flash[rope]",
-           "flash_bwd_dkv[rope]", "flash_bwd_dq[rope]", "rope_qk")
+           "flash_bwd_dkv[rope]", "flash_bwd_dq[rope]", "rope_qk",
+           "flash:full", "flash_bwd_dkv:full", "flash_bwd_dq:full",
+           "flash[rope]:full", "flash_bwd_dkv[rope]:full",
+           "flash_bwd_dq[rope]:full")
 #: the tensor-parallel reductions (``serving/tp.py``), counted beside the
 #: launches: reductions, the wire operations they lower to, wire bytes
 WIRE = ("tp_reduce", "tp_wire_ops", "tp_wire_bytes")

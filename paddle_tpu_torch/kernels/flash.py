@@ -91,9 +91,11 @@ def _on_cuda(name, q):
     return True
 
 
-def _kernel_name(name, rope):
-    """The launch counter of kernel ``name`` in this mode."""
-    return f"{name}[rope]" if rope is not None else name
+def _kernel_name(name, rope, causal=True):
+    """The launch counter of kernel ``name`` in this mode: ``[rope]`` for
+    the fused-RoPE mode, ``:full`` for the non-causal one."""
+    return (f"{name}[rope]" if rope is not None else name) + \
+        ("" if causal else ":full")
 
 
 # --------------------------------------------------------------- the rope
@@ -251,7 +253,7 @@ def flash_attention_fwd(q, k, v, causal=True, rope=None):
         q, k = _launch_rope_qk(q, k, tables, code)
     launch("flash", q, k, v, out, lse, B, S, H, Hk, D, *_strides(q),
            *_strides(k), int(bool(causal)), code,
-           count_as=_kernel_name("flash", rope))
+           count_as=_kernel_name("flash", rope, causal))
     return out, lse
 
 
@@ -378,7 +380,7 @@ def _launch_dkv(dims, ops, tables, code, lse, delta, causal):
     launch("flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv,
            *_rope_args(tables), *dims, *_strides(q), *_strides(k),
            int(bool(causal)), code,
-           count_as=_kernel_name("flash_bwd_dkv", tables))
+           count_as=_kernel_name("flash_bwd_dkv", tables, causal))
     return dk, dv
 
 
@@ -387,7 +389,7 @@ def _launch_dq(dims, ops, tables, code, lse, delta, causal):
     dq = torch.empty_like(q)
     launch("flash_bwd_dq", q, k, v, do, lse, delta, dq, *_rope_args(tables),
            *dims, *_strides(q), *_strides(k), int(bool(causal)), code,
-           count_as=_kernel_name("flash_bwd_dq", tables))
+           count_as=_kernel_name("flash_bwd_dq", tables, causal))
     return dq
 
 

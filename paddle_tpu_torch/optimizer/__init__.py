@@ -1,5 +1,6 @@
-"""The optimizers of the LLaMA training path (``paddle_tpu.optimizer``'s
-``Optimizer``, ``Adam``, ``AdamW``)."""
-from .optimizer import Adam, AdamW, Optimizer
+"""``paddle.optimizer``: ``SGD``, ``Momentum``, ``Adam``, ``AdamW`` and the
+LR schedulers (``optimizer.lr``)."""
+from . import lr
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr"]

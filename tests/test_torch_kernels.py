@@ -215,7 +215,11 @@ class TestWrappers:
                             "flash_bwd_dq": 0, "decode": 0,
                             "fused_decode_tick": 0, "flash[rope]": 0,
                             "flash_bwd_dkv[rope]": 0,
-                            "flash_bwd_dq[rope]": 0, "rope_qk": 0}
+                            "flash_bwd_dq[rope]": 0, "rope_qk": 0,
+                            "flash:full": 0, "flash_bwd_dkv:full": 0,
+                            "flash_bwd_dq:full": 0, "flash[rope]:full": 0,
+                            "flash_bwd_dkv[rope]:full": 0,
+                            "flash_bwd_dq[rope]:full": 0}
 
     @pytest.mark.parametrize("which", ["paged", "ragged", "flash"])
     def test_other_devices_raise(self, which):

@@ -412,8 +412,18 @@ class TestAdamW:
         assert opt.get_lr() == 0.5
 
     def test_lr_scheduler_raises(self):
-        with pytest.raises(NotImplementedError, match="Queue A step 12"):
+        """A learning rate that is neither a float nor an ``LRScheduler``
+        raises; an ``LRScheduler`` is read each step (``get_lr``), and
+        ``set_lr`` then raises, as in the reference."""
+        from paddle_tpu_torch.optimizer.lr import StepDecay
+        with pytest.raises(TypeError, match="LRScheduler"):
             AdamW(learning_rate=object(), parameters=[])
+        sched = StepDecay(0.1, step_size=1, gamma=0.5)
+        opt = AdamW(learning_rate=sched, parameters=[])
+        sched.step()
+        assert opt.get_lr() == 0.05
+        with pytest.raises(RuntimeError, match="LRScheduler"):
+            opt.set_lr(0.1)
 
     def test_clip_matches_jax(self):
         """The clipped gradients themselves, bf16 and f32: the norm in
@@ -486,6 +496,13 @@ class TestTrainStep:
         ("mesh", object()), ("sharding_stage", 2), ("loss_scale", 1.0),
         ("donate", False)])
     def test_unported_options_raise(self, knob, value):
+        """The mesh options raise naming their ROADMAP step; ``loss_scale``
+        and ``donate=False`` are taken and change nothing, as in the
+        reference."""
+        if knob in ("loss_scale", "donate"):
+            step = TrainStep(None, None, None, **{knob: value})
+            assert getattr(step, knob) == value
+            return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainStep(None, None, None, **{knob: value})
 

@@ -73,7 +73,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
              kernel; a backward kernel then the torch adjoint), the
              library pair (torch rotation, then SDPA), the pre-pass
              apart and the backward pair's total (pre-pass + dK/dV +
-             dQ) beside the library pair.
+             dQ) beside the library pair. Last, float16 (Queue C 8):
+             the RoPE rows, the forward and the backward pair again in
+             fp16 on the tensor cores (the kernels line's ``:f16``
+             rows), within fp16's ``TOL``/``BWD_TOL`` (half of bf16's),
+             the same bits twice.
 4. engine  — llama_7b widths at 2 layers in fp32, for each of the
              engine's three decode programs (default, ``fused_tick=True``,
              ``paged_attn=False``), through the kernels against the plain
@@ -255,13 +259,47 @@ Phases, each printing one JSON line; any failure exits nonzero:
              64, bf16 and fp32, causal and not: O and dQ, dK, dV through
              autograd against the plain versions (``TOL``, ``BWD_TOL``),
              the same bits twice, one forward, one dK/dV and one dQ
-             launch a call; float16 raises before a launch. A two-block
-             user ``Layer`` at 345M widths whose attention is
-             ``F.flash_attention``, causal and then not: 3 AdamW steps in
-             fp32, kernels against plain (losses 1e-5 relative, gradients
-             1e-4 of their max). Then the non-causal kernels' rows
-             (``flash:full``, ``flash_bwd_dkv:full``,
-             ``flash_bwd_dq:full``) at GPT-345M's attention shape.
+             launch a call; then float16 (Queue C 8) the same way at
+             B=8, S=1024, 16 x 64 and B=4, S=2048, 32 x 128, causal and
+             not, and at both the RoPE mode (``rope=``, two ``rope_qk``
+             launches; the pre-pass alone bit for bit the plain
+             rotation). A two-block user ``Layer`` at 345M widths whose
+             attention is ``F.flash_attention``, causal and then not: 3
+             AdamW steps in fp32, kernels against plain (losses 1e-5
+             relative, gradients 1e-4 of their max); then the same Layer
+             under O1 float16 with the ``GradScaler`` and its rotary form
+             (the head-major entry with ``rope=``), losses within 1e-5
+             relative, every unscaled gradient within fp16's
+             ``BWD_TOL``, no step skipped: the ``:f16`` rows' main path.
+             Then the
+             non-causal kernels' rows (``flash:full``,
+             ``flash_bwd_dkv:full``, ``flash_bwd_dq:full``) at GPT-345M's
+             attention shape.
+
+12. vision — run after ``substrate``: ResNet-50 (``paddle.vision.models
+             .resnet50()``, 25.56 M parameters, 1000 classes, 224 x 224,
+             NCHW) trained on the card from a ``paddle.io.DataLoader``
+             over ``vision.datasets.FakeData`` (HWC images) through the
+             ImageNet training transforms (RandomResizedCrop, a flip,
+             HWC -> CHW, the ImageNet mean/std), batch 64, PaddleClas's
+             ResNet50 optimizer (Momentum 0.9, L2Decay 1e-4, Piecewise
+             from 0.1), cross entropy: fp32 eager, O1 bf16 and
+             ``jit.TrainStep``, 12 steps each on 8 thread workers; then
+             4 steps on 2 process workers, every batch through the
+             native shared-memory ring; the resume after ``paddle.save``/
+             ``paddle.load`` (BN buffers, Momentum velocity, the
+             scheduler) bit for bit under deterministic cuDNN; one step
+             at batch 4 (each residual branch's last BN scale 0.1, as the
+             CPU tests set it) on the card in float64 and in fp32 against
+             the float64 step on the CPU: loss 1e-5 relative, BN buffers
+             1e-5, every float64 gradient 1e-4 of its max, and each fp32
+             gradient 1e-4 of its max where the CPU's own fp32 step is
+             within a tenth of that (the rest reported). Each leg: step
+             ms, images/s,
+             the ms a step waited on the loader, peak memory, beside the
+             card's ``nvidia-smi`` name and power limit. Convolutions and
+             pools are cuDNN's: the path launches none of the port's
+             kernels.
 
 ``--profile`` repeats the four serve runs, the ``tp=2`` serve run and
 one train step under ``torch.profiler`` and reports device time by
@@ -292,10 +330,12 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # the math rates of the kernels' input types (fp32 off the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # kernel vs plain version: bf16 rounds the output (and P) to 8 mantissa
-# bits, fp32 differs only in summation order
-TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}   # (atol, rtol)
+# bits, fp32 differs only in summation order. fp16 (the flash kernels
+# only) rounds to 11 bits, 8x finer than bf16: half of bf16's bound
+TOL = {"bfloat16": (2e-2, 2e-2), "float16": (1e-2, 1e-2),
+       "float32": (1e-4, 1e-4)}   # (atol, rtol)
 # flash backward vs its plain version, per output tensor:
 # |err| <= atol * max|ref| + rtol * |ref|. Gradients are far smaller than
 # 1, so atol scales with the tensor's own size. bf16: P and dS are
@@ -304,7 +344,8 @@ TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}   # (atol, rtol)
 # neighbouring bf16 value; sums over up to 2048 rows keep that well under
 # 1% of the tensor's max, and the output rounds once more (2^-9 relative).
 # fp32: summation order only.
-BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
+BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float16": (1e-2, 1e-2),
+           "float32": (1e-4, 1e-4)}
 
 #: a head geometry: ``h`` query heads over ``hkv`` KV heads of ``d``
 Heads = collections.namedtuple("Heads", "h hkv d")
@@ -376,8 +417,8 @@ TENSOR_CORE = {"flash": "wgmma", "flash_bwd_dkv": "mma.sync",
 
 
 def route(name, dtype_name):
-    return (TENSOR_CORE.get(name, "cuda-core") if dtype_name == "bfloat16"
-            else "cuda-core")
+    return (TENSOR_CORE.get(name, "cuda-core")
+            if dtype_name in ("bfloat16", "float16") else "cuda-core")
 
 
 #: the backward's RoPE pre-pass: it takes the place of the _rope_block
@@ -794,7 +835,7 @@ def _rope_inputs(dtype_name, dev, gen, B, S, Hk, *, heads):
     tag = f"flash[rope] B={B} S={S} Hk={Hk}"
     err = (_compare(tag + " O", dtype_name, o, ro),
            _compare(tag + " LSE", "float32", lse, rl))
-    if dtype_name == "bfloat16" and not torch.equal(
+    if dtype_name != "float32" and not torch.equal(
             o, flash.flash_attention_fwd(q, k, v, True, rope)[0]):
         raise RuntimeError(f"{tag} {dtype_name}: two launches differ")
     del ro, rl
@@ -804,7 +845,7 @@ def _rope_inputs(dtype_name, dev, gen, B, S, Hk, *, heads):
 
 def _rope_bwd_errs(dtype_name, q, k, v, do, o, lse, rope, tag):
     """Both backward kernels (rope or not) against their plain versions;
-    bf16 the same bits twice. Returns the largest (abs, over max|ref|)."""
+    bf16 and fp16 the same bits twice. Returns the largest (abs, over max|ref|)."""
     import torch
     from paddle_tpu_torch.kernels import flash
     delta = flash.attention_delta(o, do)
@@ -822,7 +863,7 @@ def _rope_bwd_errs(dtype_name, q, k, v, do, o, lse, rope, tag):
     if not all(torch.equal(a, b) for a, b in zip(got, (dk, dv, dq))):
         raise RuntimeError(f"{tag} {dtype_name}: flash_attention_bwd differs "
                            f"from the standalone entries")
-    if dtype_name == "bfloat16":
+    if dtype_name != "float32":
         again = flash.flash_bwd_dkv(q, k, v, do, lse, delta, True, rope) + (
             flash.flash_bwd_dq(q, k, v, do, lse, delta, True, rope),)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -947,7 +988,7 @@ def rope_cases(dtype_name, dev, gen, *, heads):
                        if name == "flash[rope]" else
                        {"atol_x_max_ref": BWD_TOL[dtype_name][0],
                         "rtol": BWD_TOL[dtype_name][1]}),
-               "bitwise_repeatable": dtype_name == "bfloat16",
+               "bitwise_repeatable": dtype_name != "float32",
                "ms": time_ms(run, iters=5),
                "entry_ms": entry and time_ms(entry, iters=5),
                "ms_prerotated": time_ms(
@@ -2149,6 +2190,18 @@ def phase_kernels():
         d256_cases(dtype_name, dev, gen, rows)
         dims_cases(dtype_name, dev, gen, rows)
         bwd_dims_cases(dtype_name, dev, gen, rows)
+    # float16 in the flash kernels (Queue C 8): the RoPE mode with its
+    # pre-pass, the forward and the backward pair at the training shapes,
+    # on the tensor cores as bf16 runs
+    for name, row in rope_cases(F16, dev, gen, heads=HEADS).items():
+        emit({"phase": "kernels", **row})
+        rows[(name, F16)] = row
+    for name in ("flash",) + BWD:
+        case = bwd_case if name in BWD else kernel_case
+        row = case(name, F16, dev, gen, heads=HEADS)
+        emit({"phase": "kernels", **row})
+        rows[(name, F16)] = row
+        torch.cuda.empty_cache()
     reset_launches()
     # span-1 ragged rows against the paged decode kernel: decode row b with
     # length L and a span-1 row with kvlen L attend the same keys through
@@ -5342,9 +5395,19 @@ SUB_LEGS = (("fp32", None, None, None),
             ("o2_fp16", "O2", "float16", 32768.0))
 #: the user Layer against plain versions, as train_parity holds LLaMA
 SUB_LAYER_LOSS_RTOL, SUB_LAYER_GRAD_TOL = 1e-5, 1e-4
+#: the float16 Layer (O1 float16 under the GradScaler), kernels against
+#: plain: the losses within this relative bound (about 9x the largest of
+#: the first H100 readings, 1.1e-6), every unscaled gradient of every
+#: step within BWD_TOL["float16"]'s scaled form (read: at most 3.3e-3 of
+#: a tensor's max)
+SUB_LAYER_F16_LOSS_RTOL = 1e-5
 #: the flash kernels' non-causal mode, counted apart (``name:full``) and
 #: reported in the kernels line beside the causal rows
 FULL = tuple(f"{n}:full" for n in ("flash",) + BWD)
+#: float16 in the flash kernels (Queue C 8): the kernels line's ``:f16``
+#: rows, launched on the substrate's float16 user Layer legs
+F16 = "float16"
+F16_ROWS = ("flash",) + BWD + tuple(ROPE) + (PRE_PASS,)
 
 
 def _gpt_trainer(level, dtype, init, seed):
@@ -5478,89 +5541,135 @@ def _gpt_leg(label, level, dtype, init):
     return row
 
 
-def _fa_run(F, q, k, v, do, causal):
-    """Output and dQ, dK, dV of ``F.flash_attention`` through autograd."""
+def _fa_run(fn, q, k, v, do):
+    """Output and dQ, dK, dV of ``fn(q, k, v)`` through autograd."""
     import torch
     qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out, _ = F.flash_attention(*qkv, causal=causal)
+    out = fn(*qkv)
     grads = torch.autograd.grad(out, qkv, do)
     torch.cuda.synchronize()
     return (out.detach(),) + tuple(grads)
+
+
+def _fa_parity(fn, q, k, v, do, dtype_name, tag, expect):
+    """``fn`` through the kernels (twice) and through the plain versions:
+    O within ``TOL``, dQ/dK/dV within ``BWD_TOL``, the same bits twice,
+    and the first call's launches equal to ``expect``. Returns the row's
+    numbers."""
+    import torch
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    got = _fa_run(fn, q, k, v, do)
+    launched = {n: c for n, c in LAUNCHES.items() if c}
+    again = _fa_run(fn, q, k, v, do)
+    set_flags({"FLAGS_use_cuda_kernels": False})
+    try:
+        want = _fa_run(fn, q, k, v, do)
+    finally:
+        set_flags({"FLAGS_use_cuda_kernels": True})
+    err_o = _compare(tag + " O", dtype_name, got[0], want[0])
+    errs = [_compare_scaled(f"{tag} {n}", dtype_name, g, w)
+            for n, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:])]
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    if launched != expect or not bitwise:
+        raise RuntimeError(f"{tag} {dtype_name}: launches {launched} (want "
+                           f"{expect}), bits twice {bitwise}")
+    return {"o_max_abs_err": err_o,
+            "grad_max_err_over_max": max(e[1] for e in errs),
+            "same_bits_twice": bitwise, "launches": launched}
+
+
+#: float16 through ``F.flash_attention`` (Queue C 8): GPT-345M's attention
+#: and the 7B training shape, causal and not; then the RoPE mode
+SUB_F16_SHAPES = ((SUB_B, SUB_S, SUB_H, SUB_D), (TRAIN_B, TRAIN_S, 32, 128))
 
 
 def _substrate_flash(dev, gen):
     """``F.flash_attention`` at GPT-345M's attention shape and at the tail
     length, bf16 and fp32, causal and not: O and the gradients against
     the plain versions (``TOL``, ``BWD_TOL``), the same bits on a second
-    call, one forward, one dK/dV and one dQ launch a call; float16 raises
-    before any launch."""
+    call, one forward, one dK/dV and one dQ launch a call. Then float16
+    (Queue C 8) at ``SUB_F16_SHAPES``, causal and not, and at each of
+    them the RoPE mode (``flash_attention(..., rope=)``) with its two
+    pre-pass launches, held the same way to fp16's bounds, and the
+    pre-pass ``rope_qk`` on its own: bit for bit the plain rotation, in
+    the inputs' strides."""
     import torch
-    from paddle_tpu_torch.flags import set_flags
-    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.kernels import flash
+    from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.nn import functional as F
     out = []
-    for S in (SUB_S, SUB_TAIL_S):
-        for dtype_name in ("bfloat16", "float32"):
-            for causal in (True, False):
-                mk = lambda: torch.randn(  # noqa: E731
-                    SUB_B, S, SUB_H, SUB_D, generator=gen,
-                    device=dev).to(getattr(torch, dtype_name))
-                q, k, v, do = mk(), mk(), mk(), mk()
-                reset_launches()
-                got = _fa_run(F, q, k, v, do, causal)
-                launched = {n: c for n, c in LAUNCHES.items() if c}
-                again = _fa_run(F, q, k, v, do, causal)
-                set_flags({"FLAGS_use_cuda_kernels": False})
-                try:
-                    want = _fa_run(F, q, k, v, do, causal)
-                finally:
-                    set_flags({"FLAGS_use_cuda_kernels": True})
-                tag = f"F.flash_attention S={S} causal={causal}"
-                err_o = _compare(tag + " O", dtype_name, got[0], want[0])
-                errs = [_compare_scaled(f"{tag} {n}", dtype_name, g, w)
-                        for n, g, w in zip(("dq", "dk", "dv"), got[1:],
-                                           want[1:])]
-                sfx = "" if causal else ":full"
-                expect = {f"{n}{sfx}": 1 for n in ("flash",) + BWD}
-                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-                row = {"phase": "substrate", "check": "flash_attention",
-                       "S": S, "dtype": dtype_name, "causal": causal,
-                       "o_max_abs_err": err_o,
-                       "grad_max_err_over_max": max(e[1] for e in errs),
-                       "same_bits_twice": bitwise, "launches": launched}
-                emit(row)
-                out.append(row)
-                if launched != expect or not bitwise:
-                    raise RuntimeError(f"{tag} {dtype_name}: launches "
-                                       f"{launched} (want {expect}), "
-                                       f"bits twice {bitwise}")
-                del q, k, v, do, got, again, want
-                torch.cuda.empty_cache()
-    q = torch.randn(1, 128, 2, 64, device=dev, dtype=torch.float16)
-    reset_launches()
-    try:
-        F.flash_attention(q, q, q)
-        raised = False
-    except NotImplementedError:
-        raised = True
-    emit({"phase": "substrate", "check": "flash_attention_fp16",
-          "raised": raised, "launches": sum(LAUNCHES.values())})
-    if not raised or sum(LAUNCHES.values()):
-        raise RuntimeError("F.flash_attention: float16 did not raise "
-                           "before a launch")
+    cases = [(SUB_B, S, SUB_H, SUB_D, d, c)
+             for S in (SUB_S, SUB_TAIL_S) for d in ("bfloat16", "float32")
+             for c in (True, False)]
+    cases += [shape + ("float16", c) for shape in SUB_F16_SHAPES
+              for c in (True, False)]
+    for B, S, H, D, dtype_name, causal in cases:
+        mk = lambda: torch.randn(  # noqa: E731
+            B, S, H, D, generator=gen,
+            device=dev).to(getattr(torch, dtype_name))
+        q, k, v, do = mk(), mk(), mk(), mk()
+        sfx = "" if causal else ":full"
+        tag = f"F.flash_attention B={B} S={S} {H}x{D} causal={causal}"
+        row = {"phase": "substrate", "check": "flash_attention", "B": B,
+               "S": S, "H": H, "D": D, "dtype": dtype_name,
+               "causal": causal, **_fa_parity(
+                   lambda a, b, c: F.flash_attention(a, b, c,
+                                                     causal=causal)[0],
+                   q, k, v, do, dtype_name, tag,
+                   {f"{n}{sfx}": 1 for n in ("flash",) + BWD})}
+        emit(row)
+        out.append(row)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    for B, S, H, D in SUB_F16_SHAPES:
+        mk = lambda: torch.randn(B, S, H, D, generator=gen,  # noqa: E731
+                                 device=dev).to(torch.float16)
+        q, k, v, do = mk(), mk(), mk(), mk()
+        rope = _rope_tables(S, D, 10000.0, device=dev)
+        tag = f"flash[rope] B={B} S={S} {H}x{D}"
+        row = {"phase": "substrate", "check": "flash_attention_rope",
+               "B": B, "S": S, "H": H, "D": D, "dtype": "float16",
+               "causal": True, **_fa_parity(
+                   lambda a, b, c: flash.flash_attention(a, b, c,
+                                                         rope=rope),
+                   q, k, v, do, "float16", tag,
+                   {**{n: 1 for n in ROPE}, PRE_PASS: 2})}
+        gq, gk = flash.rope_qk(q, k, *rope)
+        wq, wk = flash.rope_rotate(q, *rope), flash.rope_rotate(k, *rope)
+        torch.cuda.synchronize()
+        row["rope_qk_max_abs_err"] = max(
+            (gq.float() - wq.float()).abs().max().item(),
+            (gk.float() - wk.float()).abs().max().item())
+        row["rope_qk_bit_for_bit"] = (
+            torch.equal(gq, wq) and torch.equal(gk, wk)
+            and gq.stride() == q.stride() and gk.stride() == k.stride())
+        emit(row)
+        if not row["rope_qk_bit_for_bit"]:
+            raise RuntimeError(f"{tag} rope_qk float16: not rope_rotate's "
+                               f"bits in the inputs' strides")
+        out.append(row)
+        del q, k, v, do, gq, gk, wq, wk
+        torch.cuda.empty_cache()
     return out
 
 
-def _user_net(causal):
+def _user_net(causal, rope=False):
     """Two pre-LN blocks at GPT-345M widths (hidden 1024, 16 heads of 64,
     FFN 4096, vocabulary 50304, the head tied to an embedding drawn from
     normal(0, 0.02)) written
     as a user writes them on the substrate, attention by
-    ``F.flash_attention``."""
+    ``F.flash_attention`` — or, with ``rope``, a rotary block's: the
+    head-major entry ``flash_attention_bhsd(..., rope=(sin, cos))``."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import nn
+    from paddle_tpu_torch.kernels.flash import flash_attention_bhsd
+    from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.nn import functional as F
     hidden = SUB_H * SUB_D
+    tables = _rope_tables(SUB_S, SUB_D, 10000.0, device="cuda") \
+        if rope else None
 
     class Block(nn.Layer):
         def __init__(self):
@@ -5577,7 +5686,12 @@ def _user_net(causal):
             qkv = paddle.reshape(self.qkv(self.ln1(x)),
                                  [B, S, 3, SUB_H, SUB_D])
             q, k, v = paddle.unbind(qkv, axis=2)
-            o, _ = F.flash_attention(q, k, v, causal=causal)
+            if tables is None:
+                o, _ = F.flash_attention(q, k, v, causal=causal)
+            else:
+                o = flash_attention_bhsd(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal, rope=tables).transpose(1, 2)
             x = x + self.proj(paddle.reshape(o, [B, S, hidden]))
             return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
 
@@ -5605,12 +5719,19 @@ def _user_net(causal):
     return Net()
 
 
-def _user_layer_leg(causal):
-    """Three AdamW steps in fp32 of the two-block Layer, through the
-    kernels and through the plain versions from the same seed: losses
-    within 1e-5 relative, every gradient within 1e-4 of its largest
-    entry, each step; the kernels launched once a block a step, in this
-    leg's mode. Returns the kernels' launches."""
+def _user_layer_leg(causal, amp=None, rope=False):
+    """Three AdamW steps of the two-block Layer, through the kernels and
+    through the plain versions from the same seed: in fp32 losses within
+    1e-5 relative and every gradient within 1e-4 of its largest entry;
+    under ``auto_cast(level="O1", dtype="float16")`` (the attention's
+    inputs in fp16) with ``GradScaler()`` at its default scale, as
+    Paddle's fp16 scripts train, the losses within
+    ``SUB_LAYER_F16_LOSS_RTOL`` and every unscaled gradient within
+    ``BWD_TOL["float16"]``'s scaled form, no step skipped (the worst
+    tensors' names reported beside them); the kernels launched once a
+    block a step, in this leg's mode (``rope``: the rotary block, two
+    ``rope_qk`` launches a block a step). Returns the kernels'
+    launches."""
     import torch
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.flags import set_flags
@@ -5622,42 +5743,76 @@ def _user_layer_leg(causal):
             set_flags({"FLAGS_use_cuda_kernels": use})
             paddle.set_device("gpu:0")
             paddle.seed(31)
-            net = _user_net(causal)
+            net = _user_net(causal, rope)
             opt = paddle.optimizer.AdamW(learning_rate=1e-4,
                                          parameters=net.parameters())
+            scaler = paddle.amp.GradScaler() if amp else None
             reset_launches()
             losses, grads = [], []
             for _ in range(3):
-                loss = net(ids, ids)
-                loss.backward()
-                grads.append({n: p.grad.detach().clone()
-                              for n, p in net.named_parameters()})
-                opt.step()
+                with paddle.amp.auto_cast(enable=amp is not None,
+                                          level="O1",
+                                          dtype=amp or "bfloat16"):
+                    loss = net(ids, ids)
+                if scaler is None:
+                    loss.backward()
+                    grads.append({n: p.grad.detach().clone()
+                                  for n, p in net.named_parameters()})
+                    opt.step()
+                else:
+                    inv = 1.0 / scaler.state_dict()["scale"]
+                    scaler.scale(loss).backward()
+                    grads.append({n: p.grad.detach().float() * inv
+                                  for n, p in net.named_parameters()})
+                    scaler.step(opt)
+                    scaler.update()
                 opt.clear_grad()
                 losses.append(float(loss.detach()))
             torch.cuda.synchronize()
             runs[use] = (losses, grads, {n: c for n, c in LAUNCHES.items()
-                                         if c})
-            del net, opt
+                                         if c},
+                         scaler.skipped_steps if scaler else 0)
+            del net, opt, scaler
             _free()
     finally:
         set_flags({"FLAGS_use_cuda_kernels": True})
-    (lk, gk, nk), (lp, gp, npl) = runs[True], runs[False]
+    (lk, gk, nk, sk), (lp, gp, npl, sp) = runs[True], runs[False]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
-    grad_err = max(((a[n] - b[n]).abs().max() / b[n].abs().max().clamp(
-        min=1e-30)).item() for a, b in zip(gk, gp) for n in b)
+    per = [{n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp(
+        min=1e-30)).item() for n in b} for a, b in zip(gk, gp)]
+    step_errs = [max(e.values()) for e in per]
+    grad_err = max(step_errs)
+    worst = [sorted(e.items(), key=lambda kv: -kv[1])[:3] for e in per]
+    if amp is None:
+        ok = loss_err <= SUB_LAYER_LOSS_RTOL and grad_err <= \
+            SUB_LAYER_GRAD_TOL
+    else:
+        atol, rtol = BWD_TOL[amp]
+        within = all(bool(((a[n] - b[n]).abs() <= atol * b[n].abs().max()
+                           + rtol * b[n].abs()).all())
+                     for a, b in zip(gk, gp) for n in b)
+        ok = (loss_err <= SUB_LAYER_F16_LOSS_RTOL and within
+              and sk == sp == 0)
     sfx = "" if causal else ":full"
-    want = {f"{n}{sfx}": 6 for n in ("flash",) + BWD}
+    want = {f"{n}{sfx}": 6 for n in (tuple(ROPE) if rope
+                                     else ("flash",) + BWD)}
+    if rope:
+        want[PRE_PASS] = 12
     emit({"phase": "substrate", "run": "user_layer", "causal": causal,
+          "amp": amp, "rope": rope,
           "layers": 2, "losses_kernels": lk, "losses_plain": lp,
           "loss_rel_err": loss_err, "grad_err_over_max": grad_err,
+          "grad_err_over_max_by_step": step_errs,
+          "worst_by_step": worst, "skipped_steps": [sk, sp],
           "launches_kernels": nk, "launches_plain": sum(npl.values())})
-    if loss_err > SUB_LAYER_LOSS_RTOL or grad_err > SUB_LAYER_GRAD_TOL:
-        raise RuntimeError(f"user layer causal={causal}: loss err "
-                           f"{loss_err}, grad err {grad_err}")
+    if not ok:
+        raise RuntimeError(f"user layer causal={causal} amp={amp} "
+                           f"rope={rope}: loss err {loss_err}, grad err "
+                           f"{grad_err}")
     if nk != want or npl:
-        raise RuntimeError(f"user layer causal={causal}: launches {nk}, "
-                           f"expected {want}, plain {npl}")
+        raise RuntimeError(f"user layer causal={causal} amp={amp} "
+                           f"rope={rope}: launches {nk}, expected {want}, "
+                           f"plain {npl}")
     return nk
 
 
@@ -5760,9 +5915,297 @@ def phase_substrate():
     _free()
     _user_layer_leg(True)
     launches = _user_layer_leg(False)
+    # float16 (Queue C 8): the same Layer under O1 float16, then its
+    # rotary form — the main path of the kernels line's ``:f16`` rows
+    f16 = {f"{n}:f16": c for n, c in _user_layer_leg(True, "float16")
+           .items()}
+    f16.update({f"{n}:f16": c for n, c in
+                _user_layer_leg(True, "float16", rope=True).items()})
     rows = full_rows(dev, gen)
     _free()
-    return rows, launches
+    return rows, {**launches, **f16}
+
+
+# ------------------------------------------------------------------ vision
+#: ResNet-50 on ImageNet as PaddleClas trains it
+#: (ppcls/configs/ImageNet/ResNet/ResNet50.yaml): batch 64 a card,
+#: Momentum(0.9), L2Decay(1e-4), Piecewise from 0.1 at epochs 30/60/90,
+#: CrossEntropyLoss, 224 x 224 crops; the data is FakeData at ImageNet's
+#: image shape (HWC, as a decoded JPEG) through the training transforms
+VIS_B, VIS_SIDE, VIS_CLASSES = 64, 224, 1000
+VIS_STEPS = 12
+VIS_WORKERS = 8
+#: steps an ImageNet epoch at batch 64 (1,281,167 images)
+VIS_EPOCH_STEPS = 1281167 // VIS_B
+#: the legs: (label, AMP level or None, through jit.TrainStep)
+VIS_LEGS = (("fp32_eager", None, False), ("o1_bf16", "O1", False),
+            ("fp32_trainstep", None, True))
+#: the process-worker leg: workers, steps (each batch through a ring)
+VIS_PROC_WORKERS, VIS_PROC_STEPS = 2, 4
+#: one training step at batch 4 on the card against the float64 step on
+#: the CPU: loss relative, each gradient over its largest entry (the
+#: train_parity bounds)
+VIS_CPU_B, VIS_CPU_LOSS_RTOL, VIS_CPU_GRAD_TOL = 4, 1e-5, 1e-4
+#: each residual branch's last BatchNorm scale (``bn3.weight``) in that
+#: step, as the CPU tests condition ResNet (``BRANCH_SCALE``)
+VIS_BRANCH_SCALE = 0.1
+
+
+def _vision_loader(batches, workers, mode, seed, **kw):
+    """``batches`` batches of 64 FakeData images (224 x 224 x 3, HWC)
+    through RandomResizedCrop(224), a random flip, HWC -> CHW and the
+    ImageNet mean/std, shuffled, from a DataLoader with ``workers``
+    workers of ``mode``."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    tf = T.Compose([T.RandomResizedCrop(VIS_SIDE), T.RandomHorizontalFlip(),
+                    T.Transpose((2, 0, 1)),
+                    T.Normalize([0.485, 0.456, 0.406],
+                                [0.229, 0.224, 0.225])])
+    ds = datasets.FakeData(batches * VIS_B, (VIS_SIDE, VIS_SIDE, 3),
+                           VIS_CLASSES, transform=tf)
+    np.random.seed(seed)
+    return paddle.io.DataLoader(ds, batch_size=VIS_B, shuffle=True,
+                                drop_last=True, num_workers=workers,
+                                worker_mode=mode, **kw)
+
+
+def _vision_trainer(seed, device="gpu:0"):
+    """ResNet-50 from ``seed`` on ``device`` and PaddleClas's optimizer."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device(device)
+    paddle.seed(seed)
+    model = paddle.vision.models.resnet50()
+    sched = paddle.optimizer.lr.PiecewiseDecay(
+        [e * VIS_EPOCH_STEPS for e in (30, 60, 90)],
+        [0.1, 0.01, 0.001, 0.0001])
+    opt = paddle.optimizer.Momentum(
+        learning_rate=sched, momentum=0.9, parameters=model.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(1e-4))
+    return model, opt, sched
+
+
+def _vision_step(model, opt, sched, x, y, amp=None, step=None):
+    """One training step (eager, or ``step`` a ``jit.TrainStep``)."""
+    import paddle_tpu_torch as paddle
+    if step is not None:
+        loss = step.step((x,), (y,))
+    else:
+        with paddle.amp.auto_cast(enable=amp is not None, level=amp or "O1",
+                                  dtype="bfloat16"):
+            loss = paddle.nn.CrossEntropyLoss()(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    sched.step()
+    return loss.detach()
+
+
+def _vision_leg(smi, label, amp, trainstep, workers=VIS_WORKERS,
+                mode="thread", steps=VIS_STEPS):
+    """``steps`` steps of ResNet-50 at batch 64 from the loader: step ms
+    (from asking the loader for a batch to the step's end, synchronized),
+    images/s, the ms a step waited on the loader, peak memory; losses
+    finite. Returns the row."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, sched = _vision_trainer(seed=3)
+    step = (TrainStep(model, paddle.nn.CrossEntropyLoss(), opt)
+            if trainstep else None)
+    loader = _vision_loader(steps, workers, mode, seed=5)
+    batches = iter(loader)
+    losses, step_s, wait_s = [], [], []
+    torch.cuda.synchronize()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        x, y = next(batches)
+        t1 = time.perf_counter()
+        loss = _vision_step(model, opt, sched, x, y, amp, step)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        wait_s.append(t1 - t0)
+    mean_s = sum(step_s[2:]) / len(step_s[2:])
+    row = {"phase": "vision", "run": f"resnet50_{label}", "card": smi,
+           "B": VIS_B, "side": VIS_SIDE, "amp": amp,
+           "trainstep": trainstep, "workers": workers, "worker_mode": mode,
+           "params": sum(p.numel() for p in model.parameters()),
+           "losses": losses, "step_ms": [1e3 * t for t in step_s],
+           "mean_step_ms_3_on": 1e3 * mean_s,
+           "images_per_s": VIS_B / mean_s,
+           "loader_wait_ms": [1e3 * t for t in wait_s],
+           "mean_loader_wait_ms_3_on": 1e3 * sum(wait_s[2:])
+           / len(wait_s[2:]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "transport": dict(loader.transport)}
+    emit(row)
+    del model, opt, sched, step, batches, loader
+    _free()
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"vision {label}: losses {losses} not finite")
+    return row
+
+
+def _vision_resume(smi):
+    """Two steps, ``paddle.save`` of the model (BatchNorm buffers
+    included) and the optimizer (Momentum velocity, the scheduler), two
+    more steps; a fresh model and optimizer from another seed, loaded,
+    must give those steps' losses and weights bit for bit. cuDNN is made
+    deterministic for this leg alone (its weight-gradient algorithms may
+    sum in another order on each run)."""
+    import shutil
+    import torch
+    import paddle_tpu_torch as paddle
+    ckpt = ROOT / "build" / "vision_ckpt"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        data = [(x.clone(), y.clone()) for x, y in
+                _vision_loader(4, VIS_WORKERS, "thread", seed=6)]
+        model, opt, sched = _vision_trainer(seed=3)
+        for x, y in data[:2]:
+            _vision_step(model, opt, sched, x, y)
+        paddle.save(model.state_dict(), str(ckpt / "r50.pdparams"))
+        paddle.save(opt.state_dict(), str(ckpt / "r50.pdopt"))
+        want = [float(_vision_step(model, opt, sched, x, y))
+                for x, y in data[2:]]
+        final = {k: v.clone() for k, v in model.state_dict().items()}
+        del model, opt, sched
+        _free()
+        model, opt, sched = _vision_trainer(seed=4)
+        model.set_state_dict(paddle.load(str(ckpt / "r50.pdparams")))
+        opt.set_state_dict(paddle.load(str(ckpt / "r50.pdopt")))
+        got = [float(_vision_step(model, opt, sched, x, y))
+               for x, y in data[2:]]
+        same = got == want and all(torch.equal(v, final[k]) for k, v in
+                                   model.state_dict().items())
+        del model, opt, sched, data, final
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        shutil.rmtree(ckpt, ignore_errors=True)
+        _free()
+    emit({"phase": "vision", "check": "resume", "card": smi,
+          "losses_3_4": want, "resumed_losses_3_4": got,
+          "bit_for_bit": same})
+    if not same:
+        raise RuntimeError(f"vision resume: {got} != {want}")
+
+
+def _vision_cpu_parity(smi):
+    """One training step of the seeded ResNet-50 at batch 4, 224 x 224,
+    its residual branches' last BatchNorm scales set to
+    ``VIS_BRANCH_SCALE``, on the card and on the CPU. In float64 the card
+    is held to the CPU: the loss within 1e-5 relative, the BatchNorm
+    buffers after the step within 1e-5, every gradient within 1e-4 of its
+    largest entry. In fp32 the card is held to the CPU's float64 step:
+    the loss and the buffers the same way, and each gradient within 1e-4
+    of its largest entry where fp32 can reach that (the CPU's own fp32
+    step within a tenth of it); the other gradients are reported beside
+    the CPU fp32 step's distance. (Training-mode BatchNorm under the
+    global average pool cancels most of a late block's gradient: fp32
+    gradients of those tensors part from float64 ones far past 1e-4 on
+    any device, the CPU's included.)"""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    r = np.random.RandomState(8)
+    x = r.randn(VIS_CPU_B, 3, VIS_SIDE, VIS_SIDE).astype(np.float32)
+    y = r.randint(0, VIS_CLASSES, VIS_CPU_B).astype(np.int64)
+    runs = {}
+    for dev, dtype in (("cpu", "float64"), ("cpu", "float32"),
+                       ("gpu:0", "float64"), ("gpu:0", "float32")):
+        paddle.set_device(dev)
+        paddle.seed(9)
+        model = paddle.vision.models.resnet50().to(dtype=dtype)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.startswith("layer") and n.endswith(".bn3.weight"):
+                    p.fill_(VIS_BRANCH_SCALE)
+        loss = paddle.nn.CrossEntropyLoss()(
+            model(paddle.to_tensor(x).to(getattr(torch, dtype))),
+            paddle.to_tensor(y))
+        loss.backward()
+        runs[(dev, dtype)] = (
+            float(loss), {n: p.grad.detach().double().cpu()
+                          for n, p in model.named_parameters()},
+            {n: b.detach().double().cpu() for n, b in model.named_buffers()
+             if b.is_floating_point()})
+        del model, loss
+    paddle.set_device("gpu:0")
+    lt, gt, bt = runs[("cpu", "float64")]
+
+    def errs(run):
+        loss, g, b = run
+        return (abs(loss - lt) / abs(lt),
+                {n: float((g[n] - w).abs().max() / w.abs().max().clamp(
+                    min=1e-30)) for n, w in gt.items()},
+                max(float((b[n] - w).abs().max() / w.abs().max().clamp(
+                    min=1.0)) for n, w in bt.items()))
+
+    l64, g64, b64 = errs(runs[("gpu:0", "float64")])
+    l32, g32, b32 = errs(runs[("gpu:0", "float32")])
+    _, g_cpu, _ = errs(runs[("cpu", "float32")])
+    held = [n for n, e in g_cpu.items() if e <= VIS_CPU_GRAD_TOL / 10]
+    over = {**{f"{n} float64": e for n, e in g64.items()
+               if e > VIS_CPU_GRAD_TOL},
+            **{f"{n} float32": e for n in held
+               if (e := g32[n]) > VIS_CPU_GRAD_TOL}}
+    worst = sorted(((n, e, g_cpu[n]) for n, e in g32.items()
+                    if n not in held), key=lambda t: -t[1])[:5]
+    emit({"phase": "vision", "check": "card_vs_cpu", "card": smi,
+          "B": VIS_CPU_B, "branch_scale": VIS_BRANCH_SCALE,
+          "loss_float64_cpu": lt,
+          "float64": {"loss_rel_err": l64,
+                      "grad_err_over_max": max(g64.values()),
+                      "bn_buffer_err": b64},
+          "float32": {"loss_rel_err": l32,
+                      "grad_err_over_max": max(g32.values()),
+                      "bn_buffer_err": b32, "tensors_held": len(held),
+                      "held_grad_err_over_max": max(
+                          (g32[n] for n in held), default=None),
+                      "tensors_within_1e-4": sum(
+                          e <= VIS_CPU_GRAD_TOL for e in g32.values()),
+                      "cpu_fp32_grad_err_over_max": max(g_cpu.values()),
+                      "worst_unheld_card_cpu_fp32": worst},
+          "tensors": len(g32), "over_bound": over})
+    if (max(l64, l32) > VIS_CPU_LOSS_RTOL or over
+            or max(b64, b32) > 1e-5):
+        raise RuntimeError(f"vision card vs CPU: loss {l64}, {l32}; "
+                           f"buffers {b64}, {b32}; gradients over the "
+                           f"bound {over}")
+
+
+def phase_vision(smi):
+    """ResNet-50 (25.56 M parameters, 1000 classes) trained on one card
+    from a DataLoader over FakeData through the ImageNet training
+    transforms, batch 64, PaddleClas's optimizer: fp32 eager, O1 bf16 and
+    ``jit.TrainStep``, 12 steps each on 8 thread workers; then a short leg
+    on process workers whose every batch came through the native ring;
+    the resume bit for bit; one step at batch 4 on the card in float64 and
+    in fp32 against float64 on the CPU."""
+    import os
+    rows = [_vision_leg(smi, *leg) for leg in VIS_LEGS]
+    shm = os.statvfs("/dev/shm")
+    proc = _vision_leg(smi, "fp32_process_workers", None, False,
+                       workers=VIS_PROC_WORKERS, mode="process",
+                       steps=VIS_PROC_STEPS)
+    if proc["transport"] != {"ring": VIS_PROC_STEPS, "queue": 0}:
+        raise RuntimeError(f"vision process workers: transport "
+                           f"{proc['transport']} (the native ring must "
+                           f"carry every batch; /dev/shm free "
+                           f"{shm.f_bavail * shm.f_frsize / 2 ** 30:.1f} "
+                           f"GiB)")
+    _vision_resume(smi)
+    _vision_cpu_parity(smi)
+    return rows + [proc]
 
 
 # ---------------------------------------------------------------- training
@@ -6126,7 +6569,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,serve,generate,server,"
-                            "fleet,tp,train_parity,train,substrate",
+                            "fleet,tp,train_parity,train,substrate,vision",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
                     help="repeat the four serve runs and one train "
@@ -6174,6 +6617,10 @@ def main(argv=None):
     _free()
     sub_rows, sub_launches = (timed("substrate", phase_substrate)
                               if "substrate" in phases else ({}, {}))
+    # the vision training path (no kernel of the port: conv and pooling
+    # are cuDNN's, as XLA's are the JAX package's)
+    if "vision" in phases:
+        timed("vision", phase_vision, smi)
     rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
     launches = {}
     if "engine" in phases:
@@ -6303,6 +6750,19 @@ def main(argv=None):
                                        "library_ms", "tflops",
                                        "device_ms")},
             "math": route(base, "bfloat16")})
+    # float16 in the flash kernels: launches on the substrate's float16
+    # user Layer legs (plain and rotary), times from the kernels phase
+    for name in F16_ROWS:
+        row = rows.get((name, F16), {})
+        kernels.append({
+            "name": f"{name}:f16", "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "dtype": F16,
+            "launches": sub_launches.get(f"{name}:f16", 0),
+            **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms", "tflops",
+                                       "device_ms")},
+            "math": route(name, F16)})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,9 @@ attention kernels written by hand in CUDA for Hopper
 Paddle-shaped substrate for eager training — dtypes and devices,
 ``to_tensor``, autograd, the ``paddle.*`` op surface, ``nn.Layer`` and its
 layers, optimizers with LR schedulers and regularizers, AMP and
-``save``/``load`` — so a Paddle-style script runs as
+``save``/``load``; ``io`` (datasets, samplers, the DataLoader), the
+conv, pooling and spatial-norm layers and ``vision`` (datasets,
+transforms, ResNet) — so a Paddle-style script runs as
 ``import paddle_tpu_torch as paddle``. The Tensor is ``torch.Tensor``. It
 imports neither JAX nor ``paddle_tpu``. New tensors go on ``"gpu:0"``
 unless the caller asks for the CPU (``set_device("cpu")``); importing
@@ -28,7 +30,7 @@ from .autograd.engine import (enable_grad, grad,  # noqa: F401
 from .ops import *  # noqa: F401,F403
 from . import ops  # noqa: F401
 from . import amp, autograd, framework, jit, nn, optimizer  # noqa: F401
-from . import regularizer  # noqa: F401
+from . import io, regularizer, vision  # noqa: F401
 from .framework.io import load, save  # noqa: F401
 
 bool = bool_  # paddle.bool

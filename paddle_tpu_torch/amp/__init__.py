@@ -263,8 +263,8 @@ def is_bfloat16_supported(device=None):
 
 
 def is_float16_supported(device=None):
-    """True on both (the flash kernels take float32 and bfloat16 only:
-    ``F.flash_attention`` refuses float16, ROADMAP.md Queue C 8)."""
+    """True on both: torch computes float16 on the CPU and the card, and
+    the flash kernels take it."""
     return True
 
 

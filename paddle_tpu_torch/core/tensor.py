@@ -84,8 +84,10 @@ class Parameter(torch.nn.Parameter):
 
 def from_numpy(arr):
     """A CPU tensor of numpy ``arr`` (bfloat16 arrays, which numpy has
-    only through ``ml_dtypes``, by their bits)."""
-    arr = np.ascontiguousarray(arr)
+    only through ``ml_dtypes``, by their bits); a 0-d array stays 0-d."""
+    arr = np.asarray(arr)
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":

@@ -7,9 +7,13 @@
 // operations — the causal product does ~2*S*D flops per query row against
 // 4*D bytes read, well above the H100's ~295 flops/byte at serving prompt
 // lengths (B=4, S=2048, 32 heads of 128: 137.5 GFLOP, 0.139 ms at the
-// 989 TFLOP/s bf16 peak). Two kernels, chosen by the input type alone:
+// 989 TFLOP/s bf16 peak, the same for fp16). Two kernels, chosen by the
+// input type alone:
 //
-// bfloat16 — on the tensor cores (flash_fwd_wgmma_kernel). One block is
+// bfloat16 and float16 — on the tensor cores (flash_fwd_wgmma_kernel,
+//   one template over the 16-bit type: the same tiles, swizzle and
+//   fragments, wgmma's .bf16 or .f16 suffix, P and O rounded to the input
+//   type; the float32 LSE and accumulators in both). One block is
 //   one warpgroup (four warps, 128 threads) per (batch*head, 64-row query
 //   tile). Q [64, D] is copied once; 64-key K/V tiles stream through a
 //   two-stage ring of bf16 shared tiles in the 128-byte swizzle layout,
@@ -115,39 +119,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// ------------------------------------ bf16, on the tensor cores (wgmma)
+// ----------------------- bf16 and fp16, on the tensor cores (wgmma)
 namespace tcf {
 
-using bf16 = __nv_bfloat16;
 constexpr int kBM = 64;    // query rows a block: one warpgroup
 constexpr int kBN = 64;    // keys a tile
 constexpr int kNT = 128;
 
-// the Q tile, two stages of K and of V, and 1 KB to align the atoms:
-// 82,944 bytes at D = 128 (two blocks an SM), 164,864 at D = 256 (one)
+// the Q tile, two stages of K and of V (2-byte elements), and 1 KB to
+// align the atoms: 82,944 bytes at D = 128 (two blocks an SM), 164,864 at
+// D = 256 (one)
 template <int D>
 constexpr size_t smem_bytes() {
-  return static_cast<size_t>(kBM + 4 * kBN) * D * sizeof(bf16) + 1024;
+  return static_cast<size_t>(kBM + 4 * kBN) * D * 2 + 1024;
 }
 template <int D>
 constexpr int blocks_per_sm() {
   return D == 256 ? 1 : 2;
 }
 
-// kPad: hd < D; without it hd is D, and the tiles' column checks fold
-// away (the unpadded kernel's code)
-template <int D, bool kPad>
+// E: __nv_bfloat16 or __half (the products' input type; P is rounded to
+// it). kPad: hd < D; without it hd is D, and the tiles' column checks
+// fold away (the unpadded kernel's code)
+template <typename E, int D, bool kPad>
 __global__ void __launch_bounds__(kNT, blocks_per_sm<D>())
-flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out,
+flash_fwd_wgmma_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, E* __restrict__ out,
                        float* __restrict__ lse, RowStrides qs, RowStrides ks,
                        int S, int H, int Hk, int hd, int causal, float scale) {
   if constexpr (!kPad) hd = D;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(
+  E* sQ = reinterpret_cast<E*>(
       smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023));
-  bf16* sK = sQ + kBM * D;
-  bf16* sV = sK + 2 * kBN * D;
+  E* sK = sQ + kBM * D;
+  E* sV = sK + 2 * kBN * D;
   constexpr int KS = D / 16;
   constexpr int NO = D / 8;
   constexpr int NS = kBN / 8;
@@ -160,9 +165,9 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kvh = h / (H / Hk);
   const long long q_row = qs.s;     // element strides of a sequence step
   const long long kv_row = ks.s;
-  const bf16* qb = q + qs.at(b, s0, h);
-  const bf16* kb = k + ks.at(b, 0, kvh);
-  const bf16* vb = v + ks.at(b, 0, kvh);
+  const E* qb = q + qs.at(b, s0, h);
+  const E* kb = k + ks.at(b, 0, kvh);
+  const E* vb = v + ks.at(b, 0, kvh);
   const int kv_end = causal ? min(s0 + kBM, S) : S;
   const int n_kt = (kv_end + kBN - 1) / kBN;
 
@@ -201,8 +206,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     tc::fence_proxy_async();
     __syncthreads();
-    const bf16* cK = sK + st * kBN * D;
-    const bf16* cV = sV + st * kBN * D;
+    const E* cK = sK + st * kBN * D;
+    const E* cV = sV + st * kBN * D;
 
     float s[NS][4];
 #pragma unroll
@@ -213,7 +218,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::wg_fence();
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
-      tc::wgmma_m64n64_ss(s, tc::desc_k_major<kBM>(sQ, ks),
+      tc::wgmma_m64n64_ss<E>(s, tc::desc_k_major<kBM>(sQ, ks),
                           tc::desc_k_major<kBN>(cK, ks));
     tc::wg_commit();
     tc::wg_wait<0>();
@@ -262,13 +267,13 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t pa[kBN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      tc::to_a_frag(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      tc::to_a_frag<E>(pa[kk], s[2 * kk], s[2 * kk + 1]);
     tc::pin(o);
     tc::pin(pa);
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      tc::wgmma_pv<D>(o, pa[kk], tc::desc_mn_major<kBN>(cV, kk));
+      tc::wgmma_pv<D, E>(o, pa[kk], tc::desc_mn_major<kBN>(cV, kk));
     tc::wg_commit();
     tc::wg_wait<0>();
     tc::pin(o);
@@ -280,60 +285,69 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const float lr = fmaxf(tc::quad_sum(l[r]), 1e-30f);
     if (row[r] >= S) continue;
-    bf16* orow = out + qs.at(b, row[r], h);
+    E* orow = out + qs.at(b, row[r], h);
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       if (n * 8 >= hd) break;
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          tc::pack_bf16(o[n][2 * r] / lr, o[n][2 * r + 1] / lr);
+          tc::pack2<E>(o[n][2 * r] / lr, o[n][2 * r + 1] / lr);
     }
     if (lse != nullptr && t == 0)
       lse[static_cast<long long>(bh) * S + row[r]] = m[r] + logf(lr);
   }
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, RowStrides qs, RowStrides ks, int B, int S,
                    int H, int Hk, int hd, int causal, cudaStream_t stream) {
-  auto kernel = hd == D ? flash_fwd_wgmma_kernel<D, false>
-                        : flash_fwd_wgmma_kernel<D, true>;
+  auto kernel = hd == D ? flash_fwd_wgmma_kernel<E, D, false>
+                        : flash_fwd_wgmma_kernel<E, D, true>;
   cudaError_t err = tc::use_smem(kernel, smem_bytes<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (S + kBM - 1) / kBM);
   kernel<<<grid, kNT, smem_bytes<D>(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, qs, ks, S,
-      H, Hk, hd, causal, scale_of(hd));
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(out), lse, qs, ks, S, H, Hk,
+      hd, causal, scale_of(hd));
   return cudaGetLastError();
 }
 
 }  // namespace tcf
 
-// The kernel at padded width D of head dim hd: bf16 on wgmma, float32 on
-// the CUDA cores.
+// The kernel at padded width D of head dim hd: bf16 and fp16 on wgmma,
+// float32 on the CUDA cores (dtype: 0 float32, 1 bfloat16, 2 float16).
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, RowStrides qs, RowStrides ks,
                        int B, int S, int H, int Hk, int hd, int causal,
-                       int is_bf16, cudaStream_t stream) {
-  return is_bf16 ? tcf::launch<D>(q, k, v, out, lse, qs, ks, B, S, H, Hk,
-                                  hd, causal, stream)
-                 : launch<float, D>(q, k, v, out, lse, qs, ks, B, S, H, Hk,
+                       int dtype, cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch<float, D>(q, k, v, out, lse, qs, ks, B, S, H, Hk, hd,
+                              causal, stream);
+    case 1:
+      return tcf::launch<__nv_bfloat16, D>(q, k, v, out, lse, qs, ks, B, S,
+                                           H, Hk, hd, causal, stream);
+    case 2:
+      return tcf::launch<__half, D>(q, k, v, out, lse, qs, ks, B, S, H, Hk,
                                     hd, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace pt
 
 // q/out [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/v [B,S,Hk,D]
 // through (k_sb, k_ss, k_sh), D contiguous; lse [B,H,S] float32 or null.
-// D % 8 == 0, 8 <= D <= 256. is_bf16: 0 = float32 (CUDA cores), 1 =
-// bfloat16 (tensor cores).
+// D % 8 == 0, 8 <= D <= 256. dtype: 0 = float32 (CUDA cores), 1 =
+// bfloat16, 2 = float16 (tensor cores).
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int S, int H,
                             int Hk, int D, long long q_sb, long long q_ss,
                             long long q_sh, long long k_sb, long long k_ss,
-                            long long k_sh, int causal, int is_bf16,
+                            long long k_sh, int causal, int dtype,
                             void* stream) {
   if (B == 0 || S == 0) return 0;
   if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
@@ -342,6 +356,6 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
   return static_cast<int>(pt::with_head_dim(D, [&](auto dp) {
     return pt::launch_fwd<decltype(dp)::value>(q, k, v, out, l, qs, ks, B, S,
-                                               H, Hk, D, causal, is_bf16, s);
+                                               H, Hk, D, causal, dtype, s);
   }));
 }

@@ -30,10 +30,12 @@
 // nothing (as _row_valid, :38, and :214-235); output rows past S are not
 // written.
 //
-// bfloat16 — on the tensor cores, mma.sync.m16n8k16 (bf16 in, fp32
-// accumulate), from swizzled bf16 shared tiles filled by a two-stage
-// cp.async ring (csrc/tensor_core.cuh). Four warps a block.
-//   dkv (flash_bwd_dkv_bf16_kernel): one block per (batch, KV head, 64-key
+// bfloat16 and float16 — on the tensor cores, mma.sync.m16n8k16 (bf16 or
+// fp16 in, fp32 accumulate), from swizzled 16-bit shared tiles filled by a
+// two-stage cp.async ring (csrc/tensor_core.cuh); one template over the
+// 16-bit type E, P and dS rounded to E, lse, delta and the accumulators
+// float32 in both. Four warps a block. Written for bf16 below.
+//   dkv (flash_bwd_dkv_tc_kernel): one block per (batch, KV head, 64-key
 //   tile); each warp owns 16 of the keys. K and V stay in shared memory
 //   while 64-row Q/dO tiles (and their lse, delta) stream past, from the
 //   diagonal tile to S (causal pruning, as :201). Per tile each warp
@@ -47,7 +49,7 @@
 //   heads, so dK/dV are summed over the group in registers. ~97 KB of
 //   shared memory at D=128, two blocks an SM; key tiles first to last, so
 //   the causally longest walks start first.
-//   dq (flash_bwd_dq_bf16_kernel): the same design transposed. One block
+//   dq (flash_bwd_dq_tc_kernel): the same design transposed. One block
 //   per (batch*head, 64-row query tile); each warp owns 16 query rows. Q
 //   and dO stay resident, each row's lse and delta in registers, and
 //   64-key K/V tiles stream past from key tile 0 up to the diagonal. Per
@@ -473,18 +475,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 
 }  // namespace bwd
 
-// ------------------------------------- dK/dV and dQ in bf16, tensor cores
+// ---------------------------- dK/dV and dQ in bf16 and fp16, tensor cores
 namespace tcb {
 
-using bf16 = __nv_bfloat16;
 constexpr int kBK = 64;    // keys a tile (dkv: resident, 4 warps x 16)
 constexpr int kBQ = 64;    // query rows a tile (dq: resident, 4 warps x 16)
 constexpr int kNT = 128;   // threads a block
 
-// shared bytes: K and V, two stages of Q and of dO, two of lse and delta
+// shared bytes: K and V, two stages of Q and of dO (2-byte elements), two
+// of lse and delta
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return static_cast<size_t>(2 * kBK + 4 * kBQ) * D * sizeof(bf16) +
+  return static_cast<size_t>(2 * kBK + 4 * kBQ) * D * 2 +
          4 * kBQ * sizeof(float);
 }
 // dK and dV in blocks of their own (grid z: 0 dV, 1 dK) at D = 256
@@ -493,27 +495,27 @@ __host__ __device__ constexpr bool split_dkv() {
   return D > 128;
 }
 
-// kPad: hd < D (the halves layout); without it hd is D and the tile code
-// is the unpadded one, with no run-time column arithmetic in its loops
-template <int D, bool kRope, bool kPad>
+// E: __nv_bfloat16 or __half (the products' input type; P^T and dS^T are
+// rounded to it). kPad: hd < D (the halves layout); without it hd is D
+// and the tile code is the unpadded one, with no run-time column
+// arithmetic in its loops
+template <typename E, int D, bool kRope, bool kPad>
 __global__ void __launch_bounds__(kNT, 2)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          const float* __restrict__ sin,
-                          const float* __restrict__ cos, RowStrides qs,
-                          RowStrides ks, int S, int H, int Hk, int hd,
-                          int causal, float scale) {
+flash_bwd_dkv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                        const E* __restrict__ v, const E* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        E* __restrict__ dk, E* __restrict__ dv,
+                        const float* __restrict__ sin,
+                        const float* __restrict__ cos, RowStrides qs,
+                        RowStrides ks, int S, int H, int Hk, int hd,
+                        int causal, float scale) {
   if constexpr (!kPad) hd = D;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kBK * D;
-  bf16* sQ = sV + kBK * D;           // two stages
-  bf16* sdO = sQ + 2 * kBQ * D;      // two stages
+  E* sK = reinterpret_cast<E*>(smem_raw);
+  E* sV = sK + kBK * D;
+  E* sQ = sV + kBK * D;              // two stages
+  E* sdO = sQ + 2 * kBQ * D;         // two stages
   float* s_lse = reinterpret_cast<float*>(sdO + 2 * kBQ * D);
   float* s_delta = s_lse + 2 * kBQ;
   constexpr int KS = D / 16;    // k-steps of K Q^T and V dO^T
@@ -587,8 +589,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     const int q0 = (qt0 + it % per) * kBQ;
-    const bf16* cQ = sQ + st * kBQ * D;
-    const bf16* cdO = sdO + st * kBQ * D;
+    const E* cQ = sQ + st * kBQ * D;
+    const E* cdO = sdO + st * kBQ * D;
     const float* c_lse = s_lse + st * kBQ;
     const float* c_delta = s_delta + st * kBQ;
 
@@ -615,8 +617,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t bb[4];
           tc::load_b<kBQ>(bb, cQ, c0 + np * 16, ks);
-          tc::mma(p[2 * np], a, bb[0], bb[1]);
-          tc::mma(p[2 * np + 1], a, bb[2], bb[3]);
+          tc::mma<E>(p[2 * np], a, bb[0], bb[1]);
+          tc::mma<E>(p[2 * np + 1], a, bb[2], bb[3]);
         }
         if (want_k) {
           tc::load_a<kBK>(a, sV, kr0, ks);
@@ -624,8 +626,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           for (int np = 0; np < NS / 2; ++np) {
             uint32_t bb[4];
             tc::load_b<kBQ>(bb, cdO, c0 + np * 16, ks);
-            tc::mma(dp[2 * np], a, bb[0], bb[1]);
-            tc::mma(dp[2 * np + 1], a, bb[2], bb[3]);
+            tc::mma<E>(dp[2 * np], a, bb[0], bb[1]);
+            tc::mma<E>(dp[2 * np + 1], a, bb[2], bb[3]);
           }
         }
       }
@@ -646,16 +648,16 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           dp[n][i] = x * (dp[n][i] - c_delta[qc]) * scale;
         }
       // ---- dV += P^T dO, dK += dS^T Q over these 32 queries; P^T and dS^T
-      // rounded to bf16 in registers as the A operands
+      // rounded to E in registers as the A operands
 #pragma unroll
       for (int kk = 0; kk < NS / 2; ++kk) {
         uint32_t pa[4], da[4];
-        tc::to_a_frag(pa, p[2 * kk], p[2 * kk + 1]);
-        tc::to_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
+        tc::to_a_frag<E>(pa, p[2 * kk], p[2 * kk + 1]);
+        tc::to_a_frag<E>(da, dp[2 * kk], dp[2 * kk + 1]);
         const int ks = c0 / 16 + kk;
         if constexpr (kSplit) {
           // one product: dK += dS^T Q, or dV += P^T dO
-          const bf16* cB = want_k ? cQ : cdO;
+          const E* cB = want_k ? cQ : cdO;
           uint32_t aa[4];
 #pragma unroll
           for (int x = 0; x < 4; ++x) aa[x] = want_k ? da[x] : pa[x];
@@ -663,19 +665,19 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           for (int dc = 0; dc < D / 16; ++dc) {
             uint32_t bb[4];
             tc::load_b_t<kBQ>(bb, cB, ks, 2 * dc);
-            tc::mma(acc_k[2 * dc], aa, bb[0], bb[1]);
-            tc::mma(acc_k[2 * dc + 1], aa, bb[2], bb[3]);
+            tc::mma<E>(acc_k[2 * dc], aa, bb[0], bb[1]);
+            tc::mma<E>(acc_k[2 * dc + 1], aa, bb[2], bb[3]);
           }
         } else {
 #pragma unroll
           for (int dc = 0; dc < D / 16; ++dc) {
             uint32_t bb[4];
             tc::load_b_t<kBQ>(bb, cdO, ks, 2 * dc);
-            tc::mma(acc_v[2 * dc], pa, bb[0], bb[1]);
-            tc::mma(acc_v[2 * dc + 1], pa, bb[2], bb[3]);
+            tc::mma<E>(acc_v[2 * dc], pa, bb[0], bb[1]);
+            tc::mma<E>(acc_v[2 * dc + 1], pa, bb[2], bb[3]);
             tc::load_b_t<kBQ>(bb, cQ, ks, 2 * dc);
-            tc::mma(acc_k[2 * dc], da, bb[0], bb[1]);
-            tc::mma(acc_k[2 * dc + 1], da, bb[2], bb[3]);
+            tc::mma<E>(acc_k[2 * dc], da, bb[0], bb[1]);
+            tc::mma<E>(acc_k[2 * dc + 1], da, bb[2], bb[3]);
           }
         }
       }
@@ -686,7 +688,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   // gradient w.r.t. the un-rotated K: the adjoint of the group's sum
   if constexpr (kRope)
     if (want_k) tc::rope_adjoint_acc<D>(acc_k, sin, cos, key, S, hd);
-  bf16* out_a = want_k ? dk : dv;          // acc_k's output
+  E* out_a = want_k ? dk : dv;             // acc_k's output
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= S) continue;
@@ -696,58 +698,58 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
       const int col = tc::half_col(n * 8 + 2 * t, D, hd);
       if (col < 0) continue;
       *reinterpret_cast<uint32_t*>(out_a + off + col) =
-          tc::pack_bf16(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
+          tc::pack2<E>(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
       if constexpr (!kSplit)
         *reinterpret_cast<uint32_t*>(dv + off + col) =
-            tc::pack_bf16(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+            tc::pack2<E>(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
     }
   }
 }
 
-template <int D, bool kRope>
+template <typename E, int D, bool kRope>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv,
                        const float* sin, const float* cos, RowStrides qs,
                        RowStrides ks, int B, int S, int H, int Hk, int hd,
                        int causal, cudaStream_t stream) {
-  auto kernel = hd == D ? flash_bwd_dkv_bf16_kernel<D, kRope, false>
-                        : flash_bwd_dkv_bf16_kernel<D, kRope, true>;
+  auto kernel = hd == D ? flash_bwd_dkv_tc_kernel<E, D, kRope, false>
+                        : flash_bwd_dkv_tc_kernel<E, D, kRope, true>;
   cudaError_t err = tc::use_smem(kernel, dkv_smem_bytes<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(B * Hk, (S + kBK - 1) / kBK, split_dkv<D>() ? 2 : 1);
   kernel<<<grid, kNT, dkv_smem_bytes<D>(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sin, cos, qs,
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const E*>(dout), lse, delta,
+      static_cast<E*>(dk), static_cast<E*>(dv), sin, cos, qs,
       ks, S, H, Hk, hd, causal, bwd::scale_of(hd));
   return cudaGetLastError();
 }
 
-// shared bytes: Q and dO (resident), two stages of K and of V
+// shared bytes: Q and dO (resident), two stages of K and of V (2-byte
+// elements)
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return static_cast<size_t>(2 * kBQ + 4 * kBK) * D * sizeof(bf16);
+  return static_cast<size_t>(2 * kBQ + 4 * kBK) * D * 2;
 }
 
-template <int D, bool kRope, bool kPad>
+// E: __nv_bfloat16 or __half (dS is rounded to it)
+template <typename E, int D, bool kRope, bool kPad>
 __global__ void __launch_bounds__(kNT, 2)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dq, const float* __restrict__ sin,
-                         const float* __restrict__ cos, RowStrides qs,
-                         RowStrides ks, int S, int H, int Hk, int hd,
-                         int causal, float scale) {
+flash_bwd_dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, const E* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       E* __restrict__ dq, const float* __restrict__ sin,
+                       const float* __restrict__ cos, RowStrides qs,
+                       RowStrides ks, int S, int H, int Hk, int hd,
+                       int causal, float scale) {
   if constexpr (!kPad) hd = D;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + kBQ * D;
-  bf16* sK = sdO + kBQ * D;          // two stages
-  bf16* sV = sK + 2 * kBK * D;       // two stages
+  E* sQ = reinterpret_cast<E*>(smem_raw);
+  E* sdO = sQ + kBQ * D;
+  E* sK = sdO + kBQ * D;             // two stages
+  E* sV = sK + 2 * kBK * D;          // two stages
   constexpr int KS = D / 16;    // k-steps of Q K^T and dO V^T
   constexpr int ND = D / 8;     // 8-column tiles of dQ
   // keys a pass over a tile: all 64, or 32 at D = 256 (S and dP fp32 at
@@ -813,8 +815,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     const int k0 = it * kBK;
-    const bf16* cK = sK + st * kBK * D;
-    const bf16* cV = sV + st * kBK * D;
+    const E* cK = sK + st * kBK * D;
+    const E* cV = sV + st * kBK * D;
     const bool edge = (causal && k0 + kBK - 1 > q0 + qr0) || k0 + kBK > S;
 
 #pragma unroll
@@ -837,16 +839,16 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t bb[4];
           tc::load_b<kBK>(bb, cK, c0 + np * 16, ks);
-          tc::mma(p[2 * np], a, bb[0], bb[1]);
-          tc::mma(p[2 * np + 1], a, bb[2], bb[3]);
+          tc::mma<E>(p[2 * np], a, bb[0], bb[1]);
+          tc::mma<E>(p[2 * np + 1], a, bb[2], bb[3]);
         }
         tc::load_a<kBQ>(a, sdO, qr0, ks);
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t bb[4];
           tc::load_b<kBK>(bb, cV, c0 + np * 16, ks);
-          tc::mma(dp[2 * np], a, bb[0], bb[1]);
-          tc::mma(dp[2 * np + 1], a, bb[2], bb[3]);
+          tc::mma<E>(dp[2 * np], a, bb[0], bb[1]);
+          tc::mma<E>(dp[2 * np + 1], a, bb[2], bb[3]);
         }
       }
       // ---- P = exp(S * scale - lse), masked and tail entries exactly 0;
@@ -864,18 +866,18 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
           }
           dp[n][i] = x * (dp[n][i] - r_delta[r]) * scale;
         }
-      // ---- dQ += dS K over these keys; dS rounded to bf16 in registers
+      // ---- dQ += dS K over these keys; dS rounded to E in registers
       // as the A operand, K through ldmatrix.trans
 #pragma unroll
       for (int kk = 0; kk < NS / 2; ++kk) {
         uint32_t da[4];
-        tc::to_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
+        tc::to_a_frag<E>(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int dc = 0; dc < D / 16; ++dc) {
           uint32_t bb[4];
           tc::load_b_t<kBK>(bb, cK, c0 / 16 + kk, 2 * dc);
-          tc::mma(acc[2 * dc], da, bb[0], bb[1]);
-          tc::mma(acc[2 * dc + 1], da, bb[2], bb[3]);
+          tc::mma<E>(acc[2 * dc], da, bb[0], bb[1]);
+          tc::mma<E>(acc[2 * dc + 1], da, bb[2], bb[3]);
         }
       }
     }
@@ -893,8 +895,57 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
       const int col = tc::half_col(n * 8 + 2 * t, D, hd);
       if (col >= 0)
         *reinterpret_cast<uint32_t*>(dq + off + col) =
-            tc::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+            tc::pack2<E>(acc[n][2 * r], acc[n][2 * r + 1]);
     }
+  }
+}
+
+template <typename E, int D, bool kRope>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, const float* sin, const float* cos,
+                      RowStrides qs, RowStrides ks, int B, int S, int H,
+                      int Hk, int hd, int causal, cudaStream_t stream) {
+  auto kernel = hd == D ? flash_bwd_dq_tc_kernel<E, D, kRope, false>
+                        : flash_bwd_dq_tc_kernel<E, D, kRope, true>;
+  cudaError_t err = tc::use_smem(kernel, dq_smem_bytes<D>());
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kNT, dq_smem_bytes<D>(), stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<const E*>(dout), lse, delta,
+      static_cast<E*>(dq), sin, cos, qs, ks, S, H, Hk, hd, causal,
+      bwd::scale_of(hd));
+  return cudaGetLastError();
+}
+
+}  // namespace tcb
+
+// The two kernels at padded width D of head dim hd and the rope mode: bf16
+// and fp16 on mma.sync, float32 on the CUDA cores (dtype: 0 float32, 1
+// bfloat16, 2 float16).
+template <int D, bool kRope>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv,
+                       const float* sin, const float* cos, RowStrides qs,
+                       RowStrides ks, int B, int S, int H, int Hk, int hd,
+                       int causal, int dtype, cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return bwd::launch_dkv<float, D, kRope>(q, k, v, dout, lse, delta, dk,
+                                              dv, sin, cos, qs, ks, B, S, H,
+                                              Hk, hd, causal, stream);
+    case 1:
+      return tcb::launch_dkv<__nv_bfloat16, D, kRope>(
+          q, k, v, dout, lse, delta, dk, dv, sin, cos, qs, ks, B, S, H, Hk,
+          hd, causal, stream);
+    case 2:
+      return tcb::launch_dkv<__half, D, kRope>(q, k, v, dout, lse, delta, dk,
+                                               dv, sin, cos, qs, ks, B, S, H,
+                                               Hk, hd, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -903,53 +954,24 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, const float* sin, const float* cos,
                       RowStrides qs, RowStrides ks, int B, int S, int H,
-                      int Hk, int hd, int causal, cudaStream_t stream) {
-  auto kernel = hd == D ? flash_bwd_dq_bf16_kernel<D, kRope, false>
-                        : flash_bwd_dq_bf16_kernel<D, kRope, true>;
-  cudaError_t err = tc::use_smem(kernel, dq_smem_bytes<D>());
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  kernel<<<grid, kNT, dq_smem_bytes<D>(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dq), sin, cos, qs, ks, S, H, Hk, hd, causal,
-      bwd::scale_of(hd));
-  return cudaGetLastError();
-}
-
-}  // namespace tcb
-
-// The two kernels at padded width D of head dim hd and the rope mode: bf16
-// on mma.sync, float32 on the CUDA cores.
-template <int D, bool kRope>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv,
-                       const float* sin, const float* cos, RowStrides qs,
-                       RowStrides ks, int B, int S, int H, int Hk, int hd,
-                       int causal, int is_bf16, cudaStream_t stream) {
-  return is_bf16
-      ? tcb::launch_dkv<D, kRope>(q, k, v, dout, lse, delta, dk, dv, sin,
-                                  cos, qs, ks, B, S, H, Hk, hd, causal,
-                                  stream)
-      : bwd::launch_dkv<float, D, kRope>(q, k, v, dout, lse, delta, dk, dv,
-                                         sin, cos, qs, ks, B, S, H, Hk, hd,
-                                         causal, stream);
-}
-
-template <int D, bool kRope>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq, const float* sin, const float* cos,
-                      RowStrides qs, RowStrides ks, int B, int S, int H,
-                      int Hk, int hd, int causal, int is_bf16,
+                      int Hk, int hd, int causal, int dtype,
                       cudaStream_t stream) {
-  return is_bf16
-      ? tcb::launch_dq<D, kRope>(q, k, v, dout, lse, delta, dq, sin, cos, qs,
-                                 ks, B, S, H, Hk, hd, causal, stream)
-      : bwd::launch_dq<float, D, kRope>(q, k, v, dout, lse, delta, dq, sin,
-                                        cos, qs, ks, B, S, H, Hk, hd, causal,
-                                        stream);
+  switch (dtype) {
+    case 0:
+      return bwd::launch_dq<float, D, kRope>(q, k, v, dout, lse, delta, dq,
+                                             sin, cos, qs, ks, B, S, H, Hk,
+                                             hd, causal, stream);
+    case 1:
+      return tcb::launch_dq<__nv_bfloat16, D, kRope>(
+          q, k, v, dout, lse, delta, dq, sin, cos, qs, ks, B, S, H, Hk, hd,
+          causal, stream);
+    case 2:
+      return tcb::launch_dq<__half, D, kRope>(q, k, v, dout, lse, delta, dq,
+                                              sin, cos, qs, ks, B, S, H, Hk,
+                                              hd, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace pt
@@ -967,8 +989,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 // [B,S,Hk,D] through (k_sb, k_ss, k_sh), D contiguous, D % 8 == 0 and
 // 8 <= D <= 256; lse/delta [B,H,S] float32; sin/cos [S,D] float32 (fused
 // RoPE: q and k already rotated by pt_rope_qk, dK gets the adjoint) or
-// both null. is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores).
+// both null. dtype: 0 = float32 (CUDA cores), 1 = bfloat16, 2 = float16
+// (tensor cores).
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv,
@@ -976,7 +998,7 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 int S, int H, int Hk, int D, long long q_sb,
                                 long long q_ss, long long q_sh,
                                 long long k_sb, long long k_ss,
-                                long long k_sh, int causal, int is_bf16,
+                                long long k_sh, int causal, int dtype,
                                 void* stream) {
   if (B == 0 || S == 0) return 0;
   if (Hk <= 0 || H % Hk || (sin == nullptr) != (cos == nullptr))
@@ -991,9 +1013,9 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     constexpr int DP = decltype(dp)::value;
     return sn != nullptr
         ? pt::launch_dkv<DP, true>(q, k, v, dout, l, dl, dk, dv, sn, cs, qs,
-                                   ks, B, S, H, Hk, D, causal, is_bf16, s)
+                                   ks, B, S, H, Hk, D, causal, dtype, s)
         : pt::launch_dkv<DP, false>(q, k, v, dout, l, dl, dk, dv, sn, cs, qs,
-                                    ks, B, S, H, Hk, D, causal, is_bf16, s);
+                                    ks, B, S, H, Hk, D, causal, dtype, s);
   }));
 }
 
@@ -1004,14 +1026,15 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // through (k_sb, k_ss, k_sh), D contiguous, D % 8 == 0 and 8 <= D <= 256;
 // lse/delta [B,H,S] float32; sin/cos [S,D] float32 (fused RoPE: q and k
 // already rotated by pt_rope_qk, dQ gets the adjoint) or both null.
-// is_bf16: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16, 2 = float16 (tensor
+// cores).
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, const void* sin,
                                const void* cos, int B, int S, int H, int Hk,
                                int D, long long q_sb, long long q_ss,
                                long long q_sh, long long k_sb, long long k_ss,
-                               long long k_sh, int causal, int is_bf16,
+                               long long k_sh, int causal, int dtype,
                                void* stream) {
   if (B == 0 || S == 0) return 0;
   if (Hk <= 0 || H % Hk || (sin == nullptr) != (cos == nullptr))
@@ -1026,9 +1049,9 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
     constexpr int DP = decltype(dp)::value;
     return sn != nullptr
         ? pt::launch_dq<DP, true>(q, k, v, dout, l, dl, dq, sn, cs, qs, ks, B,
-                                  S, H, Hk, D, causal, is_bf16, s)
+                                  S, H, Hk, D, causal, dtype, s)
         : pt::launch_dq<DP, false>(q, k, v, dout, l, dl, dq, sn, cs, qs, ks,
-                                   B, S, H, Hk, D, causal, is_bf16, s);
+                                   B, S, H, Hk, D, causal, dtype, s);
   }));
 }
 #endif

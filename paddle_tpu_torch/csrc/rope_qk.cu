@@ -34,6 +34,8 @@
 // Layouts: Q and its output through one set of element strides (batch,
 // sequence, head; D contiguous), K and its output through another, as the
 // flash kernels read them.
+#include <cuda_fp16.h>
+
 #include "attention_common.cuh"
 
 namespace pt {
@@ -42,8 +44,8 @@ namespace rope {
 constexpr int kNT = 256;   // threads a block
 constexpr int kRun = 4;    // positions a block
 
-// VEC values of T <-> floats: 16 bytes of float32 or bf16, or 8 of bf16;
-// stores round to nearest even (as from_f rounds)
+// VEC values of T <-> floats: 16 bytes of float32, bf16 or fp16, or 8 of
+// a 16-bit type; stores round to nearest even (as from_f rounds)
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float* o) {
   static_assert(VEC == 4, "16 bytes of float32");
@@ -66,6 +68,21 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* o) {
   }
 }
 template <int VEC>
+__device__ __forceinline__ void load_vec(const __half* p, float* o) {
+  static_assert(VEC == 4 || VEC == 8, "8 or 16 bytes of fp16");
+  __half2 h[VEC / 2];
+  if constexpr (VEC == 8)
+    *reinterpret_cast<uint4*>(h) = *reinterpret_cast<const uint4*>(p);
+  else
+    *reinterpret_cast<uint2*>(h) = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < VEC / 2; ++i) {
+    const float2 f = __half22float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -75,6 +92,17 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
 #pragma unroll
   for (int i = 0; i < VEC / 2; ++i)
     h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  if constexpr (VEC == 8)
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+  else
+    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+}
+template <int VEC>
+__device__ __forceinline__ void store_vec(__half* p, const float* v) {
+  alignas(16) __half2 h[VEC / 2];
+#pragma unroll
+  for (int i = 0; i < VEC / 2; ++i)
+    h[i] = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
   if constexpr (VEC == 8)
     *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
   else
@@ -128,7 +156,8 @@ rope_qk_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// chunks of VEC values of T: 16 bytes, or 8 of bf16 where D / 2 % 8 != 0
+// chunks of VEC values of T: 16 bytes, or 8 of a 16-bit type where
+// D / 2 % 8 != 0
 template <typename T, int VEC>
 cudaError_t launch(const void* q, const void* k, void* qr, void* kr,
                    const float* sin, const float* cos, RowStrides qs,
@@ -147,12 +176,12 @@ cudaError_t launch(const void* q, const void* k, void* qr, void* kr,
 // q/qr [B,S,H,D] through strides (q_sb, q_ss, q_sh), k/kr [B,S,Hk,D]
 // through (k_sb, k_ss, k_sh), D contiguous, D % 8 == 0 and 8 <= D <= 256;
 // sin/cos [S,D] float32.
-// is_bf16: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 extern "C" int pt_rope_qk(const void* q, const void* k, void* qr, void* kr,
                           const void* sin, const void* cos, int B, int S,
                           int H, int Hk, int D, long long q_sb,
                           long long q_ss, long long q_sh, long long k_sb,
-                          long long k_ss, long long k_sh, int is_bf16,
+                          long long k_ss, long long k_sh, int dtype,
                           void* stream) {
   if (B == 0 || S == 0) return 0;
   if (H <= 0 || Hk <= 0 || sin == nullptr || cos == nullptr ||
@@ -162,13 +191,28 @@ extern "C" int pt_rope_qk(const void* q, const void* k, void* qr, void* kr,
   const float* sn = static_cast<const float*>(sin);
   const float* cs = static_cast<const float*>(cos);
   const pt::RowStrides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
-  using bf16 = __nv_bfloat16;
-  cudaError_t err =
-      !is_bf16 ? pt::rope::launch<float, 4>(q, k, qr, kr, sn, cs, qs, ks, B,
-                                            S, H, Hk, D, s)
-      : D / 2 % 8 ? pt::rope::launch<bf16, 4>(q, k, qr, kr, sn, cs, qs, ks,
+  // a 16-bit type in 8-byte chunks where a half row is not whole 16
+  auto narrow = [&](auto e) {
+    using E = decltype(e);
+    return D / 2 % 8 ? pt::rope::launch<E, 4>(q, k, qr, kr, sn, cs, qs, ks,
                                               B, S, H, Hk, D, s)
-                  : pt::rope::launch<bf16, 8>(q, k, qr, kr, sn, cs, qs, ks,
+                     : pt::rope::launch<E, 8>(q, k, qr, kr, sn, cs, qs, ks,
                                               B, S, H, Hk, D, s);
+  };
+  cudaError_t err;
+  switch (dtype) {
+    case 0:
+      err = pt::rope::launch<float, 4>(q, k, qr, kr, sn, cs, qs, ks, B, S, H,
+                                       Hk, D, s);
+      break;
+    case 1:
+      err = narrow(__nv_bfloat16{});
+      break;
+    case 2:
+      err = narrow(__half{});
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

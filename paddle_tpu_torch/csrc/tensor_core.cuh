@@ -1,4 +1,5 @@
-// Tensor-core building blocks of the bf16 flash kernels: the forward
+// Tensor-core building blocks of the bf16 and fp16 flash kernels (and of
+// the bf16 serving tiles): the forward
 // (csrc/flash.cu) on warpgroup wgmma, dK/dV and dQ (csrc/flash_bwd.cu) on
 // mma.sync.m16n8k16 — asynchronous 16-byte copies into swizzled shared
 // tiles, ldmatrix fragment loads, the two products with fp32
@@ -7,7 +8,7 @@
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4), which the kernels rely on:
-//   A [16 x 16] (4 regs of bf16x2): a0 (row g,   cols 2t, 2t+1)
+//   A [16 x 16] (4 regs of 16-bit x2): a0 (row g,   cols 2t, 2t+1)
 //                                   a1 (row g+8, cols 2t, 2t+1)
 //                                   a2 (row g,   cols 2t+8, 2t+9)
 //                                   a3 (row g+8, cols 2t+8, 2t+9)
@@ -22,6 +23,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,6 +42,24 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The 16-bit element types of the tiles: __nv_bfloat16 and __half share
+// every copy, swizzle and fragment layout (2 bytes an element); only the
+// products' type suffix (.bf16 / .f16) and the rounding of a float pair
+// differ. E defaults to bf16 wherever a kernel names no type.
+template <typename E>
+constexpr bool kHalf = std::is_same<E, __half>::value;
+
+// two floats -> E x2 (round to nearest even, lo in the low half)
+template <typename E = __nv_bfloat16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<E>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
 }
 
 // ---------------------------------------------------------------- copies
@@ -112,9 +132,8 @@ __device__ __forceinline__ int swz(int r, int c) {
 // which the first hd are the rows' own (hd % 8 == 0: whole chunks); rows at
 // or past `valid` and columns past hd become zeros (src must point at a
 // readable row: row 0 of the tile always is).
-template <int R, int D, int NT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
+template <int R, int D, int NT, typename E>
+__device__ __forceinline__ void load_tile(E* dst, const E* src,
                                           long long stride, int valid,
                                           int hd) {
   constexpr int CH = D / 8;
@@ -143,9 +162,8 @@ __device__ __forceinline__ int half_col(int j, int D, int hd) {
 // load_tile in that layout: whole 16-byte chunks where hd % 16 == 0 (a
 // half is whole chunks), else 8-byte pieces (a half of hd % 16 == 8
 // columns ends mid-chunk, and the upper half starts 8-byte aligned)
-template <int R, int D, int NT>
-__device__ __forceinline__ void load_tile_halves(__nv_bfloat16* dst,
-                                                 const __nv_bfloat16* src,
+template <int R, int D, int NT, typename E>
+__device__ __forceinline__ void load_tile_halves(E* dst, const E* src,
                                                  long long stride, int valid,
                                                  int hd) {
   if (hd >= D) {   // unpadded: the plain tile
@@ -160,7 +178,7 @@ __device__ __forceinline__ void load_tile_halves(__nv_bfloat16* dst,
     const int e = threadIdx.x + i * NT;
     const int r = e / CH;
     const int c = e % CH;
-    const __nv_bfloat16* row = src + (r < valid ? r * stride : 0);
+    const E* row = src + (r < valid ? r * stride : 0);
     if (whole) {
       const int col = half_col(8 * c, D, hd);
       const bool ok = r < valid && col >= 0;
@@ -314,9 +332,9 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
 
 // A fragment: rows [r0, r0+16) x k-step ks (columns 16ks .. 16ks+15) of
 // a swizzled [R][D] tile.
-template <int R>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int r0,
+template <int R, typename E>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const E* tile,
+                                       int r0,
                                        int ks) {
   const int l = threadIdx.x & 31;
   ldsm_x4(a, tile + swz<R>(r0 + (l & 15), 2 * ks + (l >> 4)));
@@ -326,9 +344,9 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4],
 // [n][k], k-step ks): b[0], b[1] for columns n0..n0+7, b[2], b[3] for
 // n0+8..n0+15. For products against a transposed operand (S = Q K^T:
 // K is stored [key][d]).
-template <int R>
-__device__ __forceinline__ void load_b(uint32_t (&b)[4],
-                                       const __nv_bfloat16* tile, int n0,
+template <int R, typename E>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const E* tile,
+                                       int n0,
                                        int ks) {
   const int l = threadIdx.x & 31;
   const int m = l >> 3;
@@ -338,9 +356,9 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[4],
 // B fragments from a tile stored [k][n] (P V: V is stored [key][d]):
 // k rows 16ks .. 16ks+15, columns (chunks) nc and nc+1 -> b[0], b[1] for
 // columns 8nc.., b[2], b[3] for 8(nc+1)..
-template <int R>
-__device__ __forceinline__ void load_b_t(uint32_t (&b)[4],
-                                         const __nv_bfloat16* tile, int ks,
+template <int R, typename E>
+__device__ __forceinline__ void load_b_t(uint32_t (&b)[4], const E* tile,
+                                         int ks,
                                          int nc) {
   const int l = threadIdx.x & 31;
   const int m = l >> 3;
@@ -348,26 +366,35 @@ __device__ __forceinline__ void load_b_t(uint32_t (&b)[4],
 }
 
 // ------------------------------------------------------------ products
-// c += a . b  (bf16 in, fp32 accumulate)
+// c += a . b  (E = bf16 or fp16 in, fp32 accumulate)
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (kHalf<E>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The accumulators of 8-column tiles 2kk and 2kk+1 (rows of this warp's
-// 16, columns 16kk .. 16kk+15), rounded to bf16, as the A fragment of the
+// 16, columns 16kk .. 16kk+15), rounded to E, as the A fragment of the
 // next product's k-step kk.
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void to_a_frag(uint32_t (&a)[4],
                                           const float (&lo)[4],
                                           const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+  a[0] = pack2<E>(lo[0], lo[1]);
+  a[1] = pack2<E>(lo[2], lo[3]);
+  a[2] = pack2<E>(hi[0], hi[1]);
+  a[3] = pack2<E>(hi[2], hi[3]);
 }
 
 // ------------------------------------------------------ row reductions
@@ -390,7 +417,7 @@ __device__ __forceinline__ float exp2_fast(float x) {
 
 // ----------------------------------------------------------------- wgmma
 // Warpgroup products (sm_90a): four warps issue one asynchronous 64-row
-// product; the accumulator layout is mma.sync's C layout, warp w holding
+// product, in E = bf16 or fp16 (a macro of the type suffix each); the accumulator layout is mma.sync's C layout, warp w holding
 // rows 16w .. 16w+15, so the same softmax code reads it. Operands in
 // shared memory are swz tiles, named by descriptors.
 
@@ -405,17 +432,15 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
 // K-major operand (rows = M or N, K along the row): k-step ks of a [R][D]
 // atom tile. 8-row groups are 1024 bytes apart; a k-step moves 32 bytes
 // inside a 128-byte row, every fourth into the next column block.
-template <int R>
-__device__ __forceinline__ uint64_t desc_k_major(const __nv_bfloat16* tile,
-                                                 int ks) {
+template <int R, typename E>
+__device__ __forceinline__ uint64_t desc_k_major(const E* tile, int ks) {
   return make_desc(tile + (ks >> 2) * R * 64 + (ks & 3) * 16, 16, 1024);
 }
 // MN-major operand (rows = K, N along the row): k-step ks (rows 16ks ..)
 // of a [R][D] atom tile; column blocks (64 N columns) are R * 128 bytes
 // apart, 8-row K groups 1024.
-template <int R>
-__device__ __forceinline__ uint64_t desc_mn_major(const __nv_bfloat16* tile,
-                                                  int ks) {
+template <int R, typename E>
+__device__ __forceinline__ uint64_t desc_mn_major(const E* tile, int ks) {
   return make_desc(tile + ks * 16 * 64, R * 128, 1024);
 }
 
@@ -454,89 +479,104 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // d[64 x 64] += A[64 x 16] B[16 x 64], A and B from shared memory
 // (descriptors), both K-major (trans-b 0)
+#define PT_WGMMA_M64N64_SS(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n" \
+      "}\n" \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]) \
+      : "l"(da), "l"(db), "r"(1))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[8][4],
                                                 uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (kHalf<E>)
+    PT_WGMMA_M64N64_SS("f16");
+  else
+    PT_WGMMA_M64N64_SS("bf16");
 }
 
 // d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (each warp its
 // 16 rows, mma.sync's A fragment), B from shared memory MN-major (trans-b 1)
+#define PT_WGMMA_M64N64_RS(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n" \
+      "}\n" \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[8][4],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kHalf<E>)
+    PT_WGMMA_M64N64_RS("f16");
+  else
+    PT_WGMMA_M64N64_RS("bf16");
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128], A from registers (each warp its
 // 16 rows, mma.sync's A fragment), B from shared memory MN-major (trans-b 1)
+#define PT_WGMMA_M64N128_RS(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n" \
+      "}\n" \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[16][4],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kHalf<E>)
+    PT_WGMMA_M64N128_RS("f16");
+  else
+    PT_WGMMA_M64N128_RS("bf16");
 }
 
 // d[64 x 256] += A[64 x 16] B[16 x 256], A from registers (each warp its
 // 16 rows, mma.sync's A fragment), B from shared memory MN-major (trans-b 1)
+#define PT_WGMMA_M64N256_RS(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n" \
+      "}\n" \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]), "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]), "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]), "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]), "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]), "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]), "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]), "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]), "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n256_rs(float (&d)[32][4],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]), "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]), "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]), "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]), "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]), "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]), "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]), "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]), "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kHalf<E>)
+    PT_WGMMA_M64N256_RS("f16");
+  else
+    PT_WGMMA_M64N256_RS("bf16");
 }
 
 // The P V product of the flash-style tiles at head dim D: o[64 x D] +=
 // P[64 x 16] V[16 x D], P from registers, V MN-major in shared memory
-template <int D>
+template <int D, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[8][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_m64n64_rs(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[16][4],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_m64n128_rs(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<256>(float (&o)[32][4],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_m64n256_rs(o, a, db);
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(D == 64 || D == 128 || D == 256, "padded head widths");
+  if constexpr (D == 64)
+    wgmma_m64n64_rs<E>(o, a, db);
+  else if constexpr (D == 128)
+    wgmma_m64n128_rs<E>(o, a, db);
+  else
+    wgmma_m64n256_rs<E>(o, a, db);
 }
 
 // Opt a kernel into `bytes` of dynamic shared memory and ask for the

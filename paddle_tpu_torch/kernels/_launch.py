@@ -5,13 +5,18 @@ import torch
 
 from . import _build, count_launch
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the types the serving kernels' C entries take (codes 0 and 1); the
+#: flash forward, its backward and the RoPE pre-pass take all three
+SERVING_TYPES = (torch.float32, torch.bfloat16)
 
 
-def dtype_code(t):
-    if t.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the CUDA attention kernels take float32 or "
-                        f"bfloat16, got {t.dtype}")
+def dtype_code(t, types=tuple(_DTYPE_CODE)):
+    """The C entries' code of ``t``'s type: 0 float32, 1 bfloat16, 2
+    float16; raises unless it is one of ``types``."""
+    if t.dtype not in types:
+        raise TypeError(f"the CUDA attention kernels take "
+                        f"{', '.join(str(d) for d in types)}, got {t.dtype}")
     return _DTYPE_CODE[t.dtype]
 
 
@@ -57,7 +62,7 @@ def check_cuda(name, data, index=(), pools=()):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index tensors must be int32, got "
                             f"{t.dtype}")
-    return dtype_code(data[0])
+    return dtype_code(data[0], SERVING_TYPES)
 
 
 #: the head dims every kernel takes: multiples of HEAD_DIM_STEP from

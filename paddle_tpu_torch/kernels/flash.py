@@ -6,7 +6,8 @@ Replaces ``paddle_tpu/kernels/pallas_flash.py``:
 - the forward ``_fwd_kernel`` (``pallas_call`` at ``:159`` in
   ``_flash_fwd``) — ``paddle_tpu_torch/csrc/flash.cu``. Bound on the
   H100: operations (the causal product; 0.139 ms at B=4, S=2048, 32 heads
-  of 128). bf16 runs on the tensor cores: one warpgroup per (batch*head,
+  of 128). bf16 and fp16 run on the tensor cores (one template over the
+  16-bit type: P rounded to it): one warpgroup per (batch*head,
   64-row query tile), 64-key K/V tiles through a two-stage ``cp.async``
   ring of swizzled shared tiles, ``S = Q K^T`` and ``P V`` as ``wgmma``
   with P taken from registers, the online softmax on the accumulators.
@@ -21,12 +22,12 @@ Replaces ``paddle_tpu/kernels/pallas_flash.py``:
   head, 64-key tile) and walks the query tiles from the diagonal to S,
   looping over the KV head's group of query heads inside the block, so
   GQA's dK/dV sum over the group without atomics and is the same bits on
-  every run; in bf16 its four products are ``mma.sync.m16n8k16`` on the
+  every run; in bf16 and fp16 its four products are ``mma.sync.m16n8k16`` on the
   tensor cores over the transposed scores, P^T and dS^T feeding dV and dK
   from registers, in float32 fp32 FMAs on the CUDA cores.
   ``flash_bwd_dq`` runs one block per (batch*head, 64-row query tile),
   with Q and dO resident, and walks the key tiles up to the diagonal; in
-  bf16 its three products are ``mma.sync.m16n8k16`` (S = Q K^T and
+  bf16 and fp16 its three products are ``mma.sync.m16n8k16`` (S = Q K^T and
   dP = dO V^T, then dS from registers as the A operand of dQ += dS K), in
   float32 fp32 FMAs on the CUDA cores;
 - the ``jax.custom_vjp`` ops that tie them together, ``_flash`` and the

@@ -1,6 +1,7 @@
-"""Common layers — the counterpart of ``paddle_tpu/nn/layers/common.py``'s
-``Linear``, ``Embedding``, ``Dropout``, ``Identity`` and ``Flatten`` (the
-file's other classes wait for ROADMAP.md Queue A step 12b)."""
+"""Common layers — the counterpart of ``paddle_tpu/nn/layers/common.py``,
+class for class: ``Linear``, ``Embedding``, the dropouts, ``Flatten``,
+``Identity``, the resampling, shuffling, padding, patch and distance
+layers."""
 from __future__ import annotations
 
 import torch
@@ -72,6 +73,26 @@ class Dropout(Layer):
         return f"p={self.p}"
 
 
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
+
+
 class Flatten(Layer):
     def __init__(self, start_axis=1, stop_axis=-1):
         super().__init__()
@@ -89,3 +110,221 @@ class Identity(Layer):
 
     def forward(self, x):
         return x
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, data_format=self.data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Pad2D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            shape=[out_features, in1_features, in2_features], attr=weight_attr)
+        if bias_attr is not False:
+            self.bias = self.create_parameter(shape=[1, out_features],
+                                              attr=bias_attr, is_bias=True)
+        else:
+            self.bias = None
+
+    def forward(self, x1, x2):
+        out = F._bilinear_impl(x1, x2, self.weight)
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+class Pad1D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL",
+                 name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad3D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class ZeroPad2D(Layer):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__()
+        self.padding = padding
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode="constant", value=0.0,
+                     data_format=self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, self.kernel_sizes, self.strides,
+                      self.paddings, self.dilations)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1, name=None):
+        super().__init__()
+        self.groups = groups
+        self.axis = axis
+
+    def forward(self, x):
+        return F.maxout(x, self.groups, self.axis)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class Softmax2D(Layer):
+    """Softmax over the channel dim of NCHW inputs (reference Softmax2D)."""
+
+    def forward(self, x):
+        return F.softmax(x, axis=-3)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class FeatureAlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.feature_alpha_dropout(x, p=self.p, training=self.training)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest",
+                         data_format=data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear",
+                         align_corners=True, data_format=data_format)

@@ -1,10 +1,11 @@
 """The substrate's ``F.flash_attention`` on the flash kernels, on a GPU:
-causal and not, bf16 and fp32, at a length that is and one that is not a
-multiple of the kernels' 64-row tiles, against the plain versions
+causal and not, bf16, fp16 and fp32, at a length that is and one that is
+not a multiple of the kernels' 64-row tiles, against the plain versions
 (``FLAGS_use_cuda_kernels`` off) within ``chip_smoke.py``'s ``TOL`` (O)
 and ``BWD_TOL`` (dQ, dK, dV); each call launches one forward, one dK/dV
 and one dQ kernel of its mode (``name`` causal, ``name:full`` not); a
-float16 input raises before any launch. Every test is ``cuda``-marked
+float16 input reaches the kernels (ROADMAP.md Queue C 8, done: it used to
+raise before any launch). Every test is ``cuda``-marked
 and skips without a CUDA device and ``nvcc``. The file imports neither
 JAX nor ``paddle_tpu``; on the card::
 
@@ -47,7 +48,7 @@ def _run(q, k, v, do, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("S,Hk", [(256, 4), (200, 2)])
 def test_flash_attention_kernels_against_plain(cuda_dev, S, Hk, dtype,
                                                causal):
@@ -67,7 +68,7 @@ def test_flash_attention_kernels_against_plain(cuda_dev, S, Hk, dtype,
         want = _run(q, k, v, do, causal)
     finally:
         set_flags({"FLAGS_use_cuda_kernels": True})
-    if dtype == "bfloat16":
+    if dtype != "float32":
         assert all(torch.equal(a, b) for a, b in zip(got, again))
     atol, rtol = TOL[dtype]
     o, w = got[0].float(), want[0].float()
@@ -79,9 +80,12 @@ def test_flash_attention_kernels_against_plain(cuda_dev, S, Hk, dtype,
                      + rtol * w.abs()).all())
 
 
-def test_flash_attention_refuses_float16_before_a_launch(cuda_dev):
+def test_flash_attention_float16_launches_the_kernel(cuda_dev):
+    """Queue C 8 is done: float16 no longer raises; a forward launches the
+    flash forward kernel, as the other types do."""
     q = torch.randn(1, 64, 2, 64, device=cuda_dev, dtype=torch.float16)
     reset_launches()
-    with pytest.raises(NotImplementedError, match="Queue C 8"):
-        F.flash_attention(q, q, q)
-    assert sum(LAUNCHES.values()) == 0
+    out, _ = F.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16 and bool(torch.isfinite(out).all())
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"flash:full": 1}

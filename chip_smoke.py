@@ -6,7 +6,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
 1. device  — the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build   — compile the CUDA sources of ``paddle_tpu_torch/csrc`` (eight
              kernels in thirteen libraries, one ``nvcc`` each, in
-             parallel).
+             parallel), in a thread, while the card runs the
+             substrate's GPT-3 345M legs (no kernel of the port).
 3. kernels — each kernel against its plain PyTorch version, bf16 and fp32:
              the three serving kernels of the default engine and the
              dense-cache decode kernel (B=8, S_max=4096, lengths 1 to
@@ -193,7 +194,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
              plain versions (``FLAGS_use_cuda_kernels`` off); the losses
              and every parameter's gradient must agree, and each leg
              launches the kernels of its own mode.
-9. train   — run first, right after the build, on an empty allocator
+9. train   — run right after the build, on an emptied allocator
              (after the serving phases the accumulated step's update can
              fail for fragmentation alone): llama_7b widths
              at 15 layers in bf16 (the deepest whose
@@ -237,10 +238,12 @@ Phases, each printing one JSON line; any failure exits nonzero:
              the stream so far, the top-2 gaps beside the largest
              difference of the two degrees' logits.
 
-11. substrate — run right after ``train`` on an emptied allocator: the
+11. substrate — its GPT legs' checks during the build, their timed
+             steps and the rest right after ``train`` on an emptied
+             allocator: the
              Paddle-shaped substrate (``import paddle_tpu_torch as
              paddle``). GPT-3 345M (``gpt3_345m``: vocabulary 50304,
-             hidden 1024, 24 layers, 16 heads, FFN 4096, dropout 0.1)
+             hidden 1024, 16 heads, FFN 4096, dropout 0.1, 24 layers)
              built from ``paddle.seed`` on ``gpu:0``, micro batch 8 x
              1024 seeded tokens, AdamW (weight decay 0.01, global-norm
              clip 1.0, ``apply_decay_param_fun``) on ``LinearWarmup(
@@ -253,8 +256,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
              step 5 the model, optimizer (scheduler inside), scaler and
              RNG key saved with ``paddle.save``, loaded with
              ``paddle.load`` into a fresh model and optimizer, whose
-             steps 6-10 give the same losses bit for bit; step ms,
-             tokens/s, peak memory; the dropout masks' time a step.
+             steps 6-10 give the same losses bit for bit; then, with
+             the build done (an uncontended host), each leg's step ms
+             (a fresh model, mean of steps 2-4), tokens/s, peak memory,
+             and the dropout masks' time a step.
              ``F.flash_attention`` at B=8, S=1024 and 1000, 16 heads of
              64, bf16 and fp32, causal and not: O and dQ, dK, dV through
              autograd against the plain versions (``TOL``, ``BWD_TOL``),
@@ -301,6 +306,35 @@ Phases, each printing one JSON line; any failure exits nonzero:
              pools are cuDNN's: the path launches none of the port's
              kernels.
 
+13. seq    — run after ``vision``: Transformer base (PaddleNLP's WMT14
+             en-de recipe: ``nn.Transformer`` d_model 512, 8 heads, 6 + 6
+             post-norm layers, FFN 2048, dropout 0.1; one shared
+             embedding of 33,712 rows scaled by sqrt(512) plus sinusoid
+             positions; 64 random pairs padded to 64 tokens, lengths
+             33-64, the source pad mask additive, the target causal;
+             label-smoothed soft-label cross entropy; Adam(0.9, 0.997,
+             1e-9) on NoamDecay(512, 4000, 2.0) from the warm-up's end)
+             and the PTB "medium" LSTM LM (vocabulary 10,000, ``nn.LSTM``
+             650 x 2, dropout 0.5, uniform +-0.05, 20 x 35 tokens, the
+             state carried detached, SGD 1.0 with a global-norm clip of
+             5): fp32 eager and O1 bf16, 10 steps each on a repeated
+             seeded batch, losses finite and falling; step ms (mean of
+             steps 3-10), tokens/s, peak memory, the dropout masks' ms a
+             step, the port's kernel launches a step (none) and one
+             profiled step's device kernels and busy share. Then the card
+             against the CPU in float64: both models at 2 layers and
+             narrow widths with dropout on (loss 1e-5 relative, every
+             gradient 1e-4 of its max), GRU, SimpleRNN (tanh, relu) and a
+             time-major bidirectional LSTM the same; every new op of
+             ``extra``, ``tail`` and ``inplace`` (1e-6 of its max,
+             integers equal, outputs on the card; the refills' uniform
+             bits equal); every new functional, loss layer and
+             ``flash_attn_unpadded`` in float64 and the losses in
+             float32 (1e-5, gradients 1e-4); Adagrad, RMSProp, Adadelta,
+             Adamax, Lamb and LBFGS (3 steps, 1e-6); ``jacobian``,
+             ``hessian``, ``jvp``, ``vjp`` (1e-10). The path launches
+             none of the port's kernels.
+
 ``--profile`` repeats the four serve runs, the ``tp=2`` serve run and
 one train step under ``torch.profiler`` and reports device time by
 kernel and the device's busy share (for the fused run: one device kernel
@@ -322,6 +356,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -441,7 +476,9 @@ for _rope, _base in ROPE.items():
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    # one write a line: the kernel build's thread emits beside the phases
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def time_ms(fn, iters=10, warmup=2):
@@ -5388,6 +5425,9 @@ SUB_B, SUB_S, SUB_H, SUB_D = 8, 1024, 16, 64
 SUB_TAIL_S = 1000
 SUB_VOCAB = 50304
 SUB_STEPS, SUB_SAVE_AT = 10, 5
+#: the GPT legs' timed run, after the build: a fresh model, the mean of
+#: steps 2-SUB_TIME_STEPS
+SUB_TIME_STEPS = 4
 #: the GPT-3 345M legs: (label, auto_cast level or None, AMP dtype,
 #: GradScaler's init_loss_scaling or None); O2 also decorates the model
 SUB_LEGS = (("fp32", None, None, None),
@@ -5455,8 +5495,8 @@ def _gpt_step(model, opt, sched, scaler, ids, level, dtype):
 
 def _mask_ms():
     """One step's dropout masks: the attention probabilities' [8, 16,
-    1024, 1024] (24 a step) and the hidden states' [8, 1024, 1024] (two a
-    block and the embedding's: 49), each drawn by the threefry key walk
+    1024, 1024] (one a block) and the hidden states' [8, 1024, 1024] (two
+    a block and the embedding's), each drawn by the threefry key walk
     on the card; returns (attention ms, hidden ms, a step's mask ms)."""
     import torch
     from paddle_tpu_torch.core import random as prng
@@ -5474,7 +5514,8 @@ def _gpt_leg(label, level, dtype, init):
     """Ten steps on a repeated seeded batch; the model, the optimizer
     (scheduler inside), the scaler and the RNG key saved after step 5 and
     loaded into a fresh model and optimizer (built from another seed),
-    whose steps 6-10 must give the same losses bit for bit."""
+    whose steps 6-10 must give the same losses bit for bit. It runs beside
+    the kernel build, so its steps are not timed (``_gpt_steps`` is)."""
     import shutil
     import torch
     import paddle_tpu_torch as paddle
@@ -5483,14 +5524,10 @@ def _gpt_leg(label, level, dtype, init):
     ckpt = ROOT / "build" / "substrate_ckpt"
     ckpt.mkdir(parents=True, exist_ok=True)
     model, opt, sched, scaler = _gpt_trainer(level, dtype, init, seed=19)
-    losses, step_s, io_s = [], [], 0.0
+    losses, io_s = [], 0.0
     for i in range(SUB_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         losses.append(_gpt_step(model, opt, sched, scaler, ids, level,
                                 dtype))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
         if i == SUB_SAVE_AT - 1:
             t0 = time.perf_counter()
             paddle.save(model.state_dict(), str(ckpt / "gpt.pdparams"))
@@ -5519,17 +5556,15 @@ def _gpt_leg(label, level, dtype, init):
     del model, opt, sched, scaler
     shutil.rmtree(ckpt, ignore_errors=True)
     _free()
-    mean_s = sum(step_s[1:]) / len(step_s[1:])
     row = {"phase": "substrate", "run": f"gpt3_345m_{label}",
            "amp": {"level": level, "dtype": dtype}, "params": n_params,
-           "B": SUB_B, "S": SUB_S, "losses": losses,
+           "layers": 24, "B": SUB_B, "S": SUB_S, "losses": losses,
            "resumed_losses_6_10": resumed,
            "resume_bit_for_bit": resumed == losses[SUB_SAVE_AT:],
-           "step_ms": [1e3 * t for t in step_s],
-           "mean_step_ms_2_10": 1e3 * mean_s,
-           "tokens_per_s": SUB_B * SUB_S / mean_s, "peak_mem_gb": peak,
-           "checkpoint_io_s": io_s, "loss_scale": scale,
-           "skipped_steps": skipped}
+           "peak_mem_gb": peak, "loss_scale": scale,
+           "skipped_steps": skipped,
+           # beside the build: the host is contended
+           "checkpoint_io_s_beside_build": io_s}
     emit(row)
     finite = all(map(math.isfinite, losses + resumed))
     if not finite or not losses[-1] < losses[0]:
@@ -5538,6 +5573,32 @@ def _gpt_leg(label, level, dtype, init):
     if not row["resume_bit_for_bit"]:
         raise RuntimeError(f"substrate {label}: resumed {resumed} != "
                            f"{losses[SUB_SAVE_AT:]}")
+    return row
+
+
+def _gpt_steps(label, level, dtype, init):
+    """A leg's step time on an uncontended host: a fresh model from the
+    same seed, SUB_TIME_STEPS steps, the mean of steps 2 onward."""
+    import torch
+    _free()
+    ids = _train_ids(SUB_VOCAB, SUB_B, SUB_S, seed=7)
+    model, opt, sched, scaler = _gpt_trainer(level, dtype, init, seed=19)
+    step_s = []
+    for _ in range(SUB_TIME_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _gpt_step(model, opt, sched, scaler, ids, level, dtype)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, opt, sched, scaler
+    _free()
+    mean_s = sum(step_s[1:]) / len(step_s[1:])
+    row = {"phase": "substrate", "check": "step_time",
+           "run": f"gpt3_345m_{label}", "step_ms": [1e3 * t for t in step_s],
+           f"mean_step_ms_2_{SUB_TIME_STEPS}": 1e3 * mean_s,
+           "tokens_per_s": SUB_B * SUB_S / mean_s, "peak_mem_gb": peak}
+    emit(row)
     return row
 
 
@@ -5892,25 +5953,37 @@ def full_rows(dev, gen):
     return rows
 
 
-def phase_substrate():
-    """The Paddle-shaped substrate on the card (run after ``train``, on an
-    emptied allocator): GPT-3 345M trained eagerly through the Paddle
-    surface in fp32, O1 bf16 and O2 fp16 with the GradScaler (10 steps,
-    resumed from a checkpoint bit for bit), the dropout masks' share of a
-    step, ``F.flash_attention`` on the flash kernels in both modes, the
-    two-block user Layer (causal, then non-causal: the ``:full``
-    kernels' main path) against plain, and the non-causal kernels'
-    rows. Returns (rows, launches) for the kernels line."""
-    import torch
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(19)
-    legs = [_gpt_leg(*leg) for leg in SUB_LEGS]
+def phase_substrate_gpt():
+    """GPT-3 345M trained eagerly through the Paddle surface in fp32, O1
+    bf16 and O2 fp16 with the GradScaler: 10 steps, resumed from a
+    checkpoint bit for bit. Its attention is the plain SDPA: no kernel of
+    the port, so these checks run while the kernels build; nothing here
+    is timed (nvcc holds every core)."""
+    for leg in SUB_LEGS:
+        _gpt_leg(*leg)
+
+
+def phase_substrate_steps():
+    """The GPT legs' step times and the dropout masks' share of a step,
+    after the build, on an uncontended host."""
+    legs = [_gpt_steps(*leg) for leg in SUB_LEGS]
     att, hid, per_step = _mask_ms()
+    mean = f"mean_step_ms_2_{SUB_TIME_STEPS}"
     emit({"phase": "substrate", "check": "dropout_masks",
           "attention_mask_ms": att, "hidden_mask_ms": hid,
           "masks_ms_a_step": per_step,
-          "share_of_step": {r["run"]: per_step / r["mean_step_ms_2_10"]
-                            for r in legs}})
+          "share_of_step": {r["run"]: per_step / r[mean] for r in legs}})
+
+
+def phase_substrate():
+    """The rest of the Paddle-shaped substrate on the card (after
+    ``train``): ``F.flash_attention`` on the flash kernels in both modes,
+    the two-block user Layer (causal, then non-causal: the ``:full``
+    kernels' main path) against plain, and the non-causal kernels' rows.
+    Returns (rows, launches) for the kernels line."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
     _substrate_flash(dev, gen)
     _free()
     _user_layer_leg(True)
@@ -6206,6 +6279,956 @@ def phase_vision(smi):
     _vision_resume(smi)
     _vision_cpu_parity(smi)
     return rows + [proc]
+
+
+# ------------------------------------------------------------ sequences
+#: Transformer base, the WMT14 en-de recipe of PaddleNLP
+#: (examples/machine_translation/transformer/configs/transformer.base.yaml,
+#: after Vaswani et al. 2017): d_model 512, 8 heads, 6 + 6 post-norm
+#: layers, FFN 2048, dropout 0.1 (attention and activation too), one
+#: embedding shared by source, target and output, 33,712 rows (the
+#: recipe's 33,708-entry joint BPE padded to a multiple of 8)
+SEQ_TF = dict(vocab=33712, d=512, heads=8, layers=6, ffn=2048, dropout=0.1)
+#: 64 pairs padded to 64 tokens (4096 a side, the recipe's token budget),
+#: each side's lengths drawn from 33..64; token 0 pads (and begins the
+#: target), as the recipe's bos/pad id
+SEQ_TF_B, SEQ_TF_S, SEQ_TF_MIN, SEQ_PAD = 64, 64, 33, 0
+#: Adam(0.9, 0.997, 1e-9) on NoamDecay(512, 4000, learning_rate=2.0),
+#: started at the warm-up's end (step 4000: the rate's peak, 1.4e-3): at
+#: the schedule's first steps the rate is ~3.5e-7 a step and ten steps do
+#: not move the loss past the dropout noise
+SEQ_TF_WARMUP, SEQ_TF_START = 4000, 3999
+#: the PTB "medium" LSTM LM of Zaremba et al. 2014 (PaddleNLP's
+#: examples/language_model/rnnlm defaults): vocabulary 10,000, embedding
+#: and 2 LSTM layers of 650, dropout 0.5, uniform init +-0.05; batch 20 x
+#: 35 steps, the hidden state carried (detached); SGD at 1.0 with
+#: ClipGradByGlobalNorm(5.0)
+SEQ_LM = dict(vocab=10000, hidden=650, layers=2, dropout=0.5, init=0.05)
+SEQ_LM_B, SEQ_LM_T = 20, 35
+#: each leg: 10 steps, the mean of steps 3-10
+SEQ_STEPS = 10
+#: card against CPU in float64, the models at 2 layers and narrow widths
+#: with dropout on: loss relative, each gradient over its largest entry
+SEQ_CPU_LOSS_RTOL, SEQ_CPU_GRAD_TOL = 1e-5, 1e-4
+#: the ops' and functionals' bounds (the substrate's): ops 1e-6 of their max,
+#: functionals and losses 1e-5 (gradients 1e-4); optimizers 1e-6 after 3
+#: steps; autograd.functional 1e-10 of the max (float64)
+SEQ_OP_TOL, SEQ_FN_TOL, SEQ_FN_GRAD_TOL = 1e-6, 1e-5, 1e-4
+SEQ_OPT_TOL, SEQ_AD_TOL = 1e-6, 1e-10
+
+
+def _sinusoid(n, d):
+    """PaddleNLP's ``position_encoding_init``: sin of the first half of the
+    channels, cos of the second, timescales from 1 to 1e4."""
+    import numpy as np
+    half = d // 2
+    inc = math.log(1e4) / (half - 1)
+    inv = np.exp(np.arange(half) * -inc)
+    t = np.arange(n)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
+def _seq_models():
+    """The two models as user code over the port's layers."""
+    import torch
+    import paddle_tpu_torch as paddle
+    nn = paddle.nn
+
+    class TransformerBase(nn.Layer):
+        def __init__(self, vocab, d, heads, layers, ffn, dropout):
+            super().__init__()
+            self.d = d
+            self.emb = nn.Embedding(vocab, d, weight_attr=nn.ParamAttr(
+                initializer=nn.initializer.Normal(0.0, d ** -0.5)))
+            self.drop = nn.Dropout(dropout)
+            self.net = nn.Transformer(d, heads, layers, layers, ffn,
+                                      dropout, attn_dropout=dropout,
+                                      act_dropout=dropout)
+            self.pos = _sinusoid(256, d)
+
+        def _embed(self, ids):
+            pos = torch.as_tensor(self.pos[:ids.shape[1]],
+                                  device=ids.device,
+                                  dtype=self.emb.weight.dtype)
+            return self.drop(self.emb(ids) * self.d ** 0.5 + pos)
+
+        def forward(self, src, tgt, src_mask, tgt_mask):
+            out = self.net(self._embed(src), self._embed(tgt), src_mask,
+                           tgt_mask, src_mask)
+            return paddle.matmul(out, self.emb.weight, transpose_y=True)
+
+    class PTBLM(nn.Layer):
+        def __init__(self, vocab, hidden, layers, dropout, init,
+                     mode="LSTM", **kw):
+            super().__init__()
+            u = nn.initializer.Uniform(-init, init)
+
+            def attr():
+                return nn.ParamAttr(initializer=u)
+
+            self.emb = nn.Embedding(vocab, hidden, weight_attr=attr())
+            self.rnn = getattr(nn, mode)(
+                hidden, hidden, layers, dropout=dropout,
+                weight_ih_attr=attr(), weight_hh_attr=attr(),
+                bias_ih_attr=attr(), bias_hh_attr=attr(), **kw)
+            self.drop = nn.Dropout(dropout)
+            self.fc = nn.Linear(hidden, vocab, weight_attr=attr(),
+                                bias_attr=attr())
+
+        def forward(self, ids, states=None):
+            y, states = self.rnn(self.drop(self.emb(ids)), states)
+            return self.fc(self.drop(y)), states
+
+    return TransformerBase, PTBLM
+
+
+def _seq_tf_batch(B, S, vocab, seed, device):
+    """Seeded random pairs: lengths from SEQ_TF_MIN..S a side, tokens from
+    3..vocab, pads 0; the target input starts with 0 (bos); the source's
+    additive pad mask ``[B, 1, 1, S]`` (-1e9), the causal target mask."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    r = np.random.RandomState(seed)
+    lo = min(SEQ_TF_MIN, S)
+    src = r.randint(3, vocab, (B, S))
+    lab = r.randint(3, vocab, (B, S))
+    sl = r.randint(lo, S + 1, B)
+    tl = r.randint(lo, S + 1, B)
+    ar = np.arange(S)[None, :]
+    src = np.where(ar < sl[:, None], src, SEQ_PAD)
+    lab = np.where(ar < tl[:, None], lab, SEQ_PAD)
+    tgt = np.concatenate([np.full((B, 1), SEQ_PAD), lab[:, :-1]], axis=1)
+    mask = np.where(src == SEQ_PAD, -1e9, 0.0).astype(np.float32)
+    t = {k: paddle.to_tensor(v, place=device) for k, v in (
+        ("src", src), ("tgt", tgt), ("lab", lab),
+        ("src_mask", mask[:, None, None, :]))}
+    t["tgt_mask"] = paddle.nn.Transformer.generate_square_subsequent_mask(
+        S).to(t["src"].device)
+    t["tokens"] = int((lab != SEQ_PAD).sum())
+    return t
+
+
+def _seq_tf_loss(model, batch, vocab):
+    """Label-smoothed (0.1) soft-label cross entropy over the non-pad
+    target tokens (PaddleNLP's ``CrossEntropyCriterion``)."""
+    import paddle_tpu_torch as paddle
+    F = paddle.nn.functional
+    logits = model(batch["src"], batch["tgt"], batch["src_mask"],
+                   batch["tgt_mask"])
+    soft = F.label_smooth(F.one_hot(batch["lab"], vocab), epsilon=0.1)
+    tok = F.cross_entropy(logits, soft, soft_label=True, reduction="none")
+    w = paddle.cast(batch["lab"] != SEQ_PAD, tok.dtype)
+    return paddle.sum(tok.reshape(w.shape) * w) / paddle.sum(w)
+
+
+def _seq_lm_loss(model, ids, states):
+    """PaddleNLP's ``CrossEntropyLossForLm``: each step's mean over the
+    batch, summed over the steps."""
+    import paddle_tpu_torch as paddle
+    logits, states = model(ids[:, :-1], states)
+    tok = paddle.nn.functional.cross_entropy(logits, ids[:, 1:],
+                                             reduction="none")
+    return paddle.sum(paddle.mean(tok.reshape(ids.shape[0], -1), axis=0)), \
+        states
+
+
+def _seq_masks_ms(shapes):
+    """The ms of one step's dropout masks, each drawn by the threefry key
+    walk on the card as ``F.dropout`` draws it: ``shapes`` is ``[(shape,
+    count a step), ...]``."""
+    import torch
+    from paddle_tpu_torch.core import random as prng
+    from paddle_tpu_torch.nn.functional import _mask
+    dev = torch.device("cuda")
+    key = prng.PRNGKey(3)
+    return sum(n * time_ms(lambda s=s: _mask(key, 0.9, s, dev), iters=5)
+               for s, n in shapes)
+
+
+def _seq_profile(step):
+    """One step under ``torch.profiler``: the device kernels it ran and
+    their summed device time (None where the profiler saw no device
+    time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.events()
+           if getattr(e, "device_type", None) is not None
+           and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.device_time if hasattr(e, "device_time")
+                 else e.cuda_time for e in evs)
+    return {"device_kernels": len(evs),
+            "device_ms": dev_us / 1e3 if evs else None,
+            "wall_ms": 1e3 * wall,
+            "busy_share": dev_us / 1e3 / (1e3 * wall) if evs else None}
+
+
+def _seq_leg(smi, model_name, amp):
+    """SEQ_STEPS steps of one model on a repeated seeded batch, fp32 eager
+    or O1 bf16: step ms, tokens/s, peak memory, the masks' ms a step, the
+    port's kernel launches a step (none: no kernel on this path) and one
+    profiled step's device kernels. Losses finite and falling."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import kernels
+    TransformerBase, PTBLM = _seq_models()
+    _free()
+    paddle.set_device("gpu:0")
+    paddle.seed(11)
+    if model_name == "transformer_base":
+        model = TransformerBase(**SEQ_TF)
+        sched = paddle.optimizer.lr.NoamDecay(
+            SEQ_TF["d"], SEQ_TF_WARMUP, learning_rate=2.0,
+            last_epoch=SEQ_TF_START)
+        opt = paddle.optimizer.Adam(learning_rate=sched, beta1=0.9,
+                                    beta2=0.997, epsilon=1e-9,
+                                    parameters=model.parameters())
+        batch = _seq_tf_batch(SEQ_TF_B, SEQ_TF_S, SEQ_TF["vocab"], 5,
+                              "gpu:0")
+        tokens = batch["tokens"]
+        L, B, S, D, H = (SEQ_TF["layers"], SEQ_TF_B, SEQ_TF_S, SEQ_TF["d"],
+                         SEQ_TF["heads"])
+        # per step: attention probabilities (L + 2L), the residual and
+        # embedding dropouts (2L + 3L + 2), the FFN activations (2L)
+        masks = [((B, H, S, S), 3 * L), ((B, S, D), 5 * L + 2),
+                 ((B, S, SEQ_TF["ffn"]), 2 * L)]
+        state = {}
+
+        def step_loss():
+            return _seq_tf_loss(model, batch, SEQ_TF["vocab"])
+    else:
+        model = PTBLM(**SEQ_LM)
+        sched = None
+        opt = paddle.optimizer.SGD(
+            learning_rate=1.0, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(5.0))
+        import numpy as np
+        r = np.random.RandomState(5)
+        ids = paddle.to_tensor(r.randint(0, SEQ_LM["vocab"],
+                                         (SEQ_LM_B, SEQ_LM_T + 1)))
+        tokens = SEQ_LM_B * SEQ_LM_T
+        masks = [((SEQ_LM_B, SEQ_LM_T, SEQ_LM["hidden"]),
+                  3 if SEQ_LM["layers"] > 1 else 2)]
+        state = {"h": None}
+
+        def step_loss():
+            loss, st = _seq_lm_loss(model, ids, state["h"])
+            state["h"] = tuple(s.detach() for s in st)
+            return loss
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def step():
+        with paddle.amp.auto_cast(enable=amp is not None, level="O1",
+                                  dtype="bfloat16"):
+            loss = step_loss()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if sched is not None:
+            sched.step()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    kernels.reset_launches()
+    for _ in range(SEQ_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = sum(kernels.LAUNCHES[n] for n in kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = _seq_profile(step)
+    mean_s = sum(step_s[2:]) / len(step_s[2:])
+    mask_ms = _seq_masks_ms(masks)
+    leg = "o1_bf16" if amp else "fp32"
+    row = {"phase": "seq", "run": f"{model_name}_{leg}",
+           "card": smi, "params": n_params, "amp": amp,
+           "tokens_per_step": tokens, "losses": losses,
+           "step_ms": [1e3 * t for t in step_s],
+           "mean_step_ms_3_10": 1e3 * mean_s,
+           "tokens_per_s": tokens / mean_s, "peak_mem_gb": peak,
+           "mask_ms_per_step": mask_ms,
+           "mask_share": mask_ms / (1e3 * mean_s),
+           "port_kernel_launches_per_step": launches / SEQ_STEPS,
+           "profiled_step": prof}
+    emit(row)
+    del model, opt, sched, state
+    _free()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"seq {row['run']}: losses {losses} not finite "
+                           f"and falling")
+    if launches:
+        raise RuntimeError(f"seq {row['run']}: {launches} kernel launches "
+                           f"on a path that has no kernel of the port")
+    return row
+
+
+def _seq_grad_errs(a, b):
+    """Each gradient's largest difference over its largest entry, from two
+    ``{name: grad}`` maps (CPU float64 tensors). ``k_proj.bias``'s
+    gradient is zero in exact arithmetic (it shifts all of a query's
+    scores alike, which the softmax cancels): both sides are rounding
+    noise there, held to the model's largest gradient instead."""
+    top = max(float(w.abs().max()) for w in b.values())
+    return {n: float((a[n] - w).abs().max()) / (
+        top if n.endswith("k_proj.bias")
+        else max(float(w.abs().max()), 1e-30)) for n, w in b.items()}
+
+
+def _seq_step_on(dev, make, run, seed, state=None):
+    """One forward + backward of ``make()`` in float64 on ``dev`` with
+    ``state`` (a CPU state dict) loaded and ``seed`` set before the run (the
+    dropout masks): the loss and every gradient, on the host."""
+    import torch
+    import paddle_tpu_torch as paddle
+    paddle.set_device(dev)
+    paddle.seed(seed)
+    model = make().to(dtype=torch.float64)
+    if state is not None:
+        model.set_state_dict(state)
+    model.train()
+    paddle.seed(seed + 1)
+    loss = run(model, dev)
+    loss.backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return float(loss.detach()), grads, sd
+
+
+def _seq_cpu_parity(smi):
+    """Card against CPU in float64 at 2 layers and narrow widths, dropout
+    on (the same masks: one seed): Transformer base's and the LSTM LM's
+    training step; then GRU, SimpleRNN (tanh and relu) and a bidirectional
+    LSTM with ``time_major=True``: loss within SEQ_CPU_LOSS_RTOL, every
+    gradient within SEQ_CPU_GRAD_TOL of its largest entry."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    TransformerBase, PTBLM = _seq_models()
+    tf_kw = dict(vocab=97, d=32, heads=4, layers=2, ffn=64, dropout=0.1)
+    lm_kw = dict(vocab=53, hidden=24, layers=2, dropout=0.5, init=0.05)
+    r = np.random.RandomState(12)
+    lm_ids = r.randint(0, lm_kw["vocab"], (4, 9))
+    x_tm = r.randn(7, 3, 16)
+
+    def tf_run(model, dev):
+        batch = _seq_tf_batch(4, 12, tf_kw["vocab"], 6, dev)
+        return _seq_tf_loss(model, batch, tf_kw["vocab"])
+
+    def lm_run(model, dev):
+        ids = paddle.to_tensor(lm_ids, place=dev)
+        return _seq_lm_loss(model, ids, None)[0]
+
+    def rnn_run(model, dev):
+        x = paddle.to_tensor(x_tm, dtype="float64", place=dev)
+        y, _ = model(x)
+        return (y * y).mean()
+
+    cases = [
+        ("transformer", lambda: TransformerBase(**tf_kw), tf_run),
+        ("lstm_lm", lambda: PTBLM(**lm_kw), lm_run),
+        ("gru_lm", lambda: PTBLM(**lm_kw, mode="GRU"), lm_run),
+        ("simple_rnn_tanh", lambda: paddle.nn.SimpleRNN(
+            16, 12, 2, dropout=0.3), lambda m, d: rnn_run(m, d)),
+        ("simple_rnn_relu", lambda: paddle.nn.SimpleRNN(
+            16, 12, 2, dropout=0.3, activation="relu"), rnn_run),
+        ("bilstm_time_major", lambda: paddle.nn.LSTM(
+            16, 12, 2, direction="bidirect", time_major=True, dropout=0.3),
+         rnn_run),
+    ]
+    out, bad = {}, {}
+    for name, make, run in cases:
+        lc, gc_, sd = _seq_step_on("cpu", make, run, 31)
+        lg, gg, _ = _seq_step_on("gpu:0", make, run, 31, sd)
+        if gc_.keys() != gg.keys():
+            raise RuntimeError(f"seq card vs CPU {name}: gradients of "
+                               f"{sorted(gc_.keys() ^ gg.keys())} missing")
+        errs = _seq_grad_errs(gg, gc_)
+        le = abs(lg - lc) / abs(lc)
+        out[name] = {"loss_cpu": lc, "loss_rel_err": le,
+                     "grad_err_over_max": max(errs.values()),
+                     "worst_tensor": max(errs, key=errs.get),
+                     "tensors": len(errs)}
+        if le > SEQ_CPU_LOSS_RTOL or max(errs.values()) > SEQ_CPU_GRAD_TOL:
+            bad[name] = out[name]
+    paddle.set_device("gpu:0")
+    emit({"phase": "seq", "check": "card_vs_cpu_float64", "card": smi,
+          "models": out})
+    if bad:
+        raise RuntimeError(f"seq card vs CPU: {bad}")
+    return out
+
+
+# the new ops on the card against the CPU: (args, kwargs) from seeded
+# numpy; a float array becomes float64 (and float32 for the losses)
+def _seq_op_cases():
+    import numpy as np
+    r = np.random.RandomState(0)
+    X = r.randn(3, 4)
+    Y = r.randn(3, 4)
+    X3 = r.randn(2, 3, 4)
+    POS = r.rand(3, 4) + 0.5
+    PROB = r.rand(3, 4) * 0.9 + 0.05
+    M = r.randn(4, 4)
+    SPD = M @ M.T + 4 * np.eye(4)
+    V = r.randn(5)
+    I1 = r.randint(-5, 6, (3, 4))
+    I2 = r.randint(-5, 6, (3, 4))
+    NANS = np.array([[1.0, np.nan, 3.0, -2.0], [np.nan, 0.5, 0.5, 4.0]])
+    MASK = r.rand(3, 4) > 0.5
+    CONSEC = np.array([1, 1, 2, 2, 3, 1, 1])
+    q, tau = np.linalg.qr(r.randn(5, 3), mode="raw")
+    extra = {
+        "bucketize": ((V, np.sort(r.randn(8))), {}),
+        "mode": ((np.array([[1., 3, 3, 2, 1, 3], [4, 4, 2, 2, 5, 5]]),),
+                 {}),
+        "logaddexp": ((X, Y), {}), "copysign": ((X, Y), {}),
+        "heaviside": ((X, Y), {}), "hypot": ((X, Y), {}),
+        "angle": ((X,), {}), "sinc": ((X,), {}),
+        "logcumsumexp": ((X,), {"axis": 1}), "renorm": ((X, 2.0, 0, 1.0),
+                                                          {}),
+        "diagonal": ((X3,), {"axis1": 1, "axis2": 2}),
+        "diag_embed": ((X,), {"offset": 1}),
+        "nanmean": ((NANS,), {"axis": 1}), "nansum": ((NANS,), {}),
+        "quantile": ((X,), {"q": [0.25, 0.5], "axis": 1}),
+        "nanquantile": ((NANS,), {"q": 0.3, "axis": 1}),
+        "polar": ((POS, X), {}), "deg2rad": ((X,), {}),
+        "rad2deg": ((X,), {}), "gcd": ((I1, I2), {}), "lcm": ((I1, I2), {}),
+        "vander": ((V,), {"n": 4}), "trapezoid": ((X,), {"dx": 0.5}),
+        "cdist": ((X, Y), {}), "pdist": ((X,), {}),
+        "cholesky_solve": ((X[:, :3].T.copy(),
+                            np.linalg.cholesky(SPD[:3, :3])), {}),
+        "multi_dot": (([X, M, M.T.copy()],), {}),
+        "lu": ((M + 0.5 * np.eye(4),), {"get_infos": True}),
+        "eigvals": ((M + 4 * np.eye(4),), {}),
+        "householder_product": ((np.ascontiguousarray(q.T), tau), {}),
+        "ldexp": ((X, I1), {}), "frexp": ((X,), {}),
+        "nextafter": ((X, Y), {}),
+        "isneginf": ((np.array([1.0, -np.inf, np.inf]),), {}),
+        "isposinf": ((np.array([1.0, -np.inf, np.inf]),), {}),
+        "signbit": ((np.array([1.0, -0.0, -3.0]),), {}),
+        "combinations": ((V,), {"r": 3}),
+        "complex": ((X, Y), {}), "mv": ((X, r.randn(4)), {}),
+        "sgn": ((X,), {}), "i0": ((X,), {}), "i0e": ((X,), {}),
+        "i1": ((X,), {}), "i1e": ((X,), {}), "polygamma": ((POS, 1), {}),
+        "nanmedian": ((NANS,), {"axis": 1}),
+        "unflatten": ((X3, 2, [2, 2]), {}),
+        "view_as": ((X, np.zeros((4, 3))), {}),
+        "take": ((X, np.array([[0, -1], [13, 5]])), {"mode": "wrap"}),
+        "index_sample": ((X, np.array([[0, 3], [1, 1], [2, 0]])), {}),
+        "index_fill": ((X, np.array([0, 2]), 1, 9.5), {}),
+        "select_scatter": ((X, r.randn(4), 0, 1), {}),
+        "masked_scatter": ((X, MASK, r.randn(12)), {}),
+        "multiplex": (([X, Y], np.array([[1], [0], [1]])), {}),
+        "shard_index": ((np.array([[1], [6], [12], [19]]), 20, 2, 1), {}),
+        "strided_slice": ((X3, [1, 2], [0, 3], [3, 0], [2, -2]), {}),
+        "tensor_split": ((X3, 3), {"axis": 2}),
+        "hsplit": ((X, [1, 3]), {}), "vsplit": ((X, 3), {}),
+        "dsplit": ((X3, 2), {}),
+        "unique_consecutive": ((CONSEC,), {"return_inverse": True,
+                                           "return_counts": True}),
+        "rank": ((X3,), {}), "is_empty": ((X,), {}),
+    }
+    tail = {
+        "hstack": (([X, Y],), {}), "vstack": (([X, Y],), {}),
+        "dstack": (([X, Y],), {}), "row_stack": (([X, Y],), {}),
+        "column_stack": (([V, V],), {}), "atleast_1d": ((X, V), {}),
+        "atleast_2d": ((V,), {}), "atleast_3d": ((X,), {}),
+        "block_diag": (([X, M[:2, :3].copy()],), {}),
+        "fill_diagonal": ((X, 7.0), {"offset": 1, "wrap": True}),
+        "fill_diagonal_tensor": ((X, np.arange(3.0)), {}),
+        "diagonal_scatter": ((M, V[:3].copy()), {"offset": 1}),
+        "slice_scatter": ((X, np.zeros((2, 4)), [0], [0], [3], [2]), {}),
+        "as_strided": ((X, [3, 2], [1, 4]), {"offset": 1}),
+        "unfold": ((X3, 2, 2, 1), {}), "view": ((X3, [6, 4]), {}),
+        "cummax": ((np.array([[1., 3, 3, 2, 5, 5]]),), {"axis": 1}),
+        "cummin": ((np.array([[4., 3, 3, 5, 1, 1]]),), {"axis": 1}),
+        "bitwise_left_shift": ((np.abs(I1), np.abs(I2) % 4), {}),
+        "bitwise_right_shift": ((np.array([-64, -3, 17, 255],
+                                          np.int32),
+                                 np.array([1, 2, 3, 0], np.int32)),
+                                {"is_arithmetic": False}),
+        "gammaln": ((POS,), {}), "gammainc": ((POS, PROB), {}),
+        "gammaincc": ((POS, PROB), {}), "multigammaln": ((POS + 1, 2), {}),
+        "isreal": ((X,), {}), "positive": ((X,), {}),
+        "negative": ((X,), {}), "logaddexp2": ((X, Y), {}),
+        "erfc": ((X,), {}), "xlogy": ((X, POS), {}),
+        "cumulative_trapezoid": ((X,), {"dx": 0.5, "axis": 1}),
+        "histogramdd": ((r.rand(40, 2),), {"bins": [3, 4],
+                                           "density": True}),
+        "histogram_bin_edges": ((X,), {"bins": 6}),
+        "increment": ((X, 2.5), {}), "clip_by_norm": ((X, 1.0), {}),
+        "crop": ((X3, [1, -1, 2], [1, 0, 1]), {}),
+        "isin": ((I1, np.array([0, 2, -3])), {}),
+        "vecdot": ((X, Y), {}), "matrix_exp": ((0.3 * M,), {}),
+        "exp2": ((X,), {}), "cartesian_prod": (([V[:2].copy(),
+                                                 V[:3].copy()],), {}),
+        "nanmin": ((NANS,), {"axis": 1}), "nanmax": ((NANS,), {"axis": 0}),
+        "logdet": ((SPD,), {}), "vdot": ((X, Y), {}), "ravel": ((X3,), {}),
+        "chain_matmul": (([X, M, M],), {}),
+        "unique_with_counts": ((CONSEC,), {}),
+    }
+    inplace = {n: (X, (Y,)) for n in ("add_", "subtract_", "multiply_",
+                                      "copysign_", "hypot_")}
+    inplace.update({n: (POS, ()) for n in (
+        "exp_", "sqrt_", "rsqrt_", "reciprocal_", "round_", "floor_",
+        "ceil_", "abs_", "neg_", "trunc_", "frac_", "tanh_", "sigmoid_",
+        "sin_", "cos_", "tan_", "atan_", "sinh_", "cosh_", "asinh_",
+        "expm1_", "log_", "log2_", "log10_", "log1p_", "digamma_",
+        "lgamma_", "i0_", "gammaln_", "nan_to_num_", "tril_", "triu_",
+        "t_", "flatten_")})
+    inplace.update({
+        "divide_": (X, (POS,)), "remainder_": (X, (POS,)),
+        "mod_": (X, (POS,)), "floor_divide_": (X, (POS,)),
+        "pow_": (POS, (2.0,)), "clip_": (X, (-0.5, 0.5)),
+        "scale_": (X, (2.0, 1.0)), "lerp_": (X, (Y, 0.3)),
+        "erfinv_": (PROB - 0.5, ()), "logit_": (PROB, ()),
+        "asin_": (PROB - 0.5, ()), "acos_": (PROB - 0.5, ()),
+        "atanh_": (PROB - 0.5, ()), "acosh_": (POS + 1, ()),
+        "gammainc_": (POS, (PROB,)), "gammaincc_": (POS, (PROB,)),
+        "ldexp_": (X, (I1,)), "gcd_": (I1, (I2,)), "lcm_": (I1, (I2,)),
+        "squeeze_": (X[None], ()), "unsqueeze_": (X, (1,)),
+        "reshape_": (X, ([2, 6],)), "transpose_": (X, ([1, 0],)),
+        "scatter_": (X, (np.array([2, 0]), np.ones((2, 4)))),
+        "masked_fill_": (X, (MASK, -1.0)),
+        "index_add_": (X, (np.array([0, 2]), 0, np.ones((2, 4)))),
+        "index_put_": (X, ((np.array([0, 2]), np.array([1, 3])),
+                           np.array([5.0, 6.0]))),
+        "index_fill_": (X, (np.array([1]), 1, 4.0)),
+        "masked_scatter_": (X, (MASK, r.randn(12))),
+        "put_along_axis_": (X, (np.array([[0], [1], [3]]),
+                                np.array([[1.0], [2.0], [3.0]]), 1)),
+        "renorm_": (X, (2.0, 0, 1.0)), "cumsum_": (X, (1,)),
+        "cumprod_": (X, (1,)), "fill_diagonal_": (X, (3.0,)),
+        "fill_diagonal_tensor_": (X, (np.arange(3.0),)),
+        "logical_and_": (MASK, (~MASK,)), "logical_or_": (MASK, (~MASK,)),
+        "logical_xor_": (MASK, (~MASK,)), "logical_not_": (MASK, ()),
+        "bitwise_and_": (I1, (I2,)), "bitwise_or_": (I1, (I2,)),
+        "bitwise_xor_": (I1, (I2,)), "bitwise_not_": (I1, ()),
+        "less_than_": (X, (Y,)), "less_equal_": (X, (Y,)),
+        "greater_than_": (X, (Y,)), "greater_equal_": (X, (Y,)),
+        "not_equal_": (X, (Y,)), "equal_": (X, (Y,)),
+    })
+    return extra, tail, inplace
+
+
+def _seq_to(dev, v, dtype):
+    import numpy as np
+    import torch
+    if isinstance(v, np.ndarray):
+        t = torch.from_numpy(np.array(v, copy=True))
+        if t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(dev)
+    if isinstance(v, (list, tuple)):
+        return type(v)(_seq_to(dev, e, dtype) for e in v)
+    return v
+
+
+def _seq_leaves(x):
+    import torch
+    if isinstance(x, (list, tuple)):
+        return [v for e in x for v in _seq_leaves(e)]
+    return [x] if isinstance(x, torch.Tensor) else []
+
+
+def _seq_same(label, got, want, tol, bad):
+    """Every tensor of ``got`` (the card) on the card and within ``tol``
+    of the largest magnitude of ``want`` (the CPU); integers and bools
+    equal. Returns the largest relative error."""
+    import torch
+    gl, wl = _seq_leaves(got), _seq_leaves(want)
+    worst = 0.0
+    if len(gl) != len(wl):
+        bad[label] = f"{len(gl)} outputs, the CPU {len(wl)}"
+        return worst
+    for g, w in zip(gl, wl):
+        if g.device.type != "cuda":
+            bad[label] = f"an output on {g.device}"
+            return worst
+        g = g.detach().cpu()
+        w = w.detach()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            bad[label] = f"{tuple(g.shape)} {g.dtype} != {tuple(w.shape)} " \
+                         f"{w.dtype}"
+            return worst
+        if w.is_floating_point() or w.is_complex():
+            scale = float(w.abs().nan_to_num(0.0).max()) if w.numel() else 0
+            diff = (g - w).abs()
+            both_nan = torch.isnan(g) & torch.isnan(w)
+            diff = torch.where(both_nan, torch.zeros_like(diff), diff)
+            err = float(diff.max()) / max(scale, 1e-30) if w.numel() else 0
+            if not math.isfinite(err) or err > tol:
+                bad[label] = err
+            worst = max(worst, err if math.isfinite(err) else float("inf"))
+        elif not torch.equal(g, w):
+            bad[label] = "integers differ"
+    return worst
+
+
+def _lex_sorted(t):
+    """Complex values ordered by real part, then imaginary part (the
+    eigenvalues' order is LAPACK's), on ``t``'s device."""
+    import torch
+    c = t.cpu()
+    c = c[torch.sort(c.imag, stable=True).indices]
+    return c[torch.sort(c.real, stable=True).indices].to(t.device)
+
+
+def _seq_ops_parity(smi):
+    """Every new op (``extra``, ``tail``, the in-place variants) in
+    float64 on the card against the CPU: outputs on the card, within
+    SEQ_OP_TOL of their max, integers equal; each in-place op returns its
+    receiver, written. The random refills after one seed draw the CPU's
+    values: the uniform bits equal."""
+    import torch
+    import paddle_tpu_torch as paddle
+    extra, tail, inplace = _seq_op_cases()
+    bad, worst = {}, {}
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for name, (args, kw) in {**extra, **tail}.items():
+        fn = getattr(paddle, name)
+        want = fn(*_seq_to(cpu, list(args), torch.float64), **kw)
+        got = fn(*_seq_to(cuda, list(args), torch.float64), **kw)
+        if name == "eigvals":
+            got, want = (_lex_sorted(t) for t in (got, want))
+        worst[name] = _seq_same(name, got, want, SEQ_OP_TOL, bad)
+    for name, (recv, args) in inplace.items():
+        outs = []
+        for dev in (cpu, cuda):
+            x = _seq_to(dev, recv, torch.float64)
+            y = getattr(paddle, name)(x, *_seq_to(dev, list(args),
+                                                   torch.float64))
+            if y is not x:
+                bad[name] = "did not return its receiver"
+            outs.append(x)
+        worst[name] = _seq_same(name, outs[1], outs[0], SEQ_OP_TOL, bad)
+    # (kwargs, bound): the uniform bits exactly; after log/tan the ops'
+    # bound; after erfinv the functionals' (torch's two erfinv part in
+    # the last place, which the tails magnify). geometric_'s ceil of a
+    # log can step by one where the log parts in its last place: its bits
+    # are uniform_'s, its values on the card only checked finite there
+    refills = {"uniform_": ({"min": -2.0, "max": 3.0}, 0.0),
+               "bernoulli_": ({"p": 0.3}, 0.0),
+               "exponential_": ({"lam": 1.5}, SEQ_OP_TOL),
+               "cauchy_": ({"loc": 0.5, "scale": 2.0}, SEQ_OP_TOL),
+               "normal_": ({"mean": 0.5, "std": 2.0}, SEQ_FN_TOL),
+               "log_normal_": ({"mean": 0.2, "std": 0.5}, SEQ_FN_TOL),
+               "geometric_": ({"probs": 0.3}, None)}
+    for name, (kw, tol) in refills.items():
+        outs = []
+        for dev in (cpu, cuda):
+            paddle.seed(17)
+            x = torch.zeros(256, 129, device=dev)
+            getattr(paddle, name)(x, **kw)
+            outs.append(x)
+        if tol is None:
+            if outs[1].device.type != "cuda" or not bool(
+                    torch.isfinite(outs[1]).all()):
+                bad[name] = "not finite on the card"
+            continue
+        worst[name] = _seq_same(name, outs[1], outs[0], tol, bad)
+    emit({"phase": "seq", "check": "ops_card_vs_cpu_float64", "card": smi,
+          "ops": len(worst), "worst": max(worst.values()),
+          "worst_op": max(worst, key=worst.get)})
+    if bad:
+        raise RuntimeError(f"seq ops card vs CPU: {bad}")
+
+
+def _seq_fn_cases():
+    """(functional, [inputs: arrays or ("g", array) for a gradient], kw)
+    from seeded numpy, for the card-vs-CPU check."""
+    import numpy as np
+    r = np.random.RandomState(1)
+    N, C = 6, 5
+    X, Y, Z = (r.randn(N, C) for _ in range(3))
+    PROB = r.rand(N, C) * 0.9 + 0.05
+    BIN = (r.rand(N, C) > 0.5).astype(np.float64)
+    SIGN = np.where(r.rand(N) > 0.5, 1.0, -1.0)
+    SIGN2 = np.where(r.rand(N, C) > 0.5, 1.0, -1.0)
+    CLS = r.randint(0, C, (N,))
+
+    def g(a):
+        return ("g", a)
+
+    red = ("mean", "sum", "none")
+    cases = []
+    for rd in red:
+        cases += [
+            ("soft_margin_loss", [g(X), SIGN2], {"reduction": rd}),
+            ("poisson_nll_loss", [g(X), r.poisson(2.0, (N, C)) * 1.0],
+             {"reduction": rd}),
+            ("gaussian_nll_loss", [g(X), Y, g(PROB)],
+             {"reduction": rd, "full": True}),
+            ("cosine_embedding_loss", [g(X), g(Y), SIGN],
+             {"reduction": rd, "margin": 0.2}),
+            ("triplet_margin_loss", [g(X), g(Y), g(Z)],
+             {"reduction": rd, "swap": True}),
+            ("triplet_margin_with_distance_loss", [g(X), g(Y), g(Z)],
+             {"reduction": rd}),
+            ("multi_label_soft_margin_loss", [g(X), BIN], {"reduction": rd}),
+            ("multi_margin_loss", [g(X), CLS], {"reduction": rd}),
+            ("sigmoid_focal_loss", [g(X), BIN], {"reduction": rd}),
+            ("margin_ranking_loss", [g(X), g(Y), SIGN2], {"reduction": rd}),
+            ("hinge_embedding_loss", [g(X), SIGN2], {"reduction": rd}),
+            ("margin_cross_entropy", [g(np.tanh(X)), CLS],
+             {"reduction": rd}),
+            ("ctc_loss", [g(r.randn(9, 3, 6)), r.randint(1, 5, (3, 4)),
+                          np.array([9, 7, 8]), np.array([4, 2, 0])],
+             {"reduction": rd}),
+            ("rnnt_loss", [g(r.randn(2, 5, 4, 4)), r.randint(1, 4, (2, 3)),
+                           np.array([5, 3]), np.array([3, 2])],
+             {"reduction": rd}),
+        ]
+    cases += [
+        ("square_error_cost", [g(X), Y], {}),
+        ("log_loss", [g(PROB), BIN], {}),
+        ("dice_loss", [g(r.rand(N, 4, C)), r.randint(0, C, (N, 4, 1))], {}),
+        ("npair_loss", [g(X), g(Y), np.array([0, 1, 2, 0, 1, 3])], {}),
+        ("label_smooth", [g(np.eye(C)[CLS])], {"epsilon": 0.2}),
+        ("temporal_shift", [g(r.randn(6, 8, 2, 3)), 3], {}),
+        ("affine_grid", [g(r.randn(2, 2, 3)), [2, 3, 4, 5]], {}),
+        ("grid_sample", [g(r.randn(2, 3, 4, 5)),
+                         g(r.rand(2, 3, 6, 2) * 2.4 - 1.2)], {}),
+        ("grid_sample", [g(r.randn(2, 3, 4, 5)),
+                         r.rand(2, 3, 6, 2) * 2.4 - 1.2],
+         {"mode": "nearest", "padding_mode": "border"}),
+        ("sparse_attention", [g(r.randn(1, 2, 5, 4)) for _ in range(3)] + [
+            np.array([[[0, 2, 3, 3, 5, 7], [0, 1, 2, 4, 6, 8]]], np.int32),
+            np.array([[[0, 2, 1, 1, 4, 0, 3, 0], [0, 1, 0, 2, 3, 4, 1, 4]]],
+                     np.int32)], {}),
+        ("sequence_mask", [np.array([3, 0, 5])], {"maxlen": 6}),
+        ("gather_tree", [r.randint(0, 9, (5, 2, 3)),
+                         r.randint(0, 3, (5, 2, 3))], {}),
+    ]
+    return cases
+
+
+def _seq_fn_run(dev, name, spec, kw, dtype, seed=None):
+    import torch
+    import paddle_tpu_torch as paddle
+    F = paddle.nn.functional
+    ins = []
+    for a in spec:
+        if isinstance(a, tuple) and a[0] == "g":
+            ins.append(_seq_to(dev, a[1], dtype).requires_grad_(True))
+        else:
+            ins.append(_seq_to(dev, a, dtype))
+    if seed is not None:
+        paddle.seed(seed)
+    out = getattr(F, name)(*ins, **kw) if isinstance(name, str) \
+        else name(*ins, **kw)
+    outs = [o for o in _seq_leaves(out)]
+    floats = [o for o in outs if o.is_floating_point() and o.requires_grad]
+    grads = []
+    if floats:
+        gen = torch.Generator().manual_seed(7)
+        total = sum((o * torch.randn(o.shape, generator=gen,
+                                     dtype=o.dtype).to(dev)).sum()
+                    for o in floats)
+        total.backward()
+        grads = [t.grad for t in ins if isinstance(t, torch.Tensor)
+                 and t.requires_grad]
+    return outs, grads
+
+
+def _seq_functional_parity(smi):
+    """Every new functional and loss layer on the card against the CPU, in
+    float64 and (the losses) float32: outputs on the card within
+    SEQ_FN_TOL of their max, gradients within SEQ_FN_GRAD_TOL;
+    ``gumbel_softmax``, the loss layers and ``flash_attn_unpadded`` (three
+    packings, causal or not) too."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cases = _seq_fn_cases()
+    r = np.random.RandomState(2)
+    for cu in ([0, 5, 12, 16], [0, 16], [0, 1, 2, 9, 10, 16]):
+        for causal in (False, True):
+            qkv = [("g", r.randn(16, 2, 8)) for _ in range(3)]
+            m = int(np.max(np.diff(cu)))
+            cases.append((
+                lambda q, k, v, c, causal=causal, m=m:
+                paddle.nn.functional.flash_attn_unpadded(
+                    q, k, v, c, c, m, m, causal=causal)[0],
+                qkv + [np.array(cu, np.int32)], {}))
+    X, Y = r.randn(6, 5), r.randn(6, 5)
+    sign = np.where(r.rand(6, 5) > 0.5, 1.0, -1.0)
+    nn = paddle.nn
+    layers = [
+        (lambda a, b, c: nn.MarginRankingLoss(0.2)(a, b, c),
+         [("g", X), ("g", Y), sign]),
+        (lambda a, b: nn.SoftMarginLoss()(a, b), [("g", X), sign]),
+        (lambda a, b: nn.HingeEmbeddingLoss(0.3)(a, b), [("g", X), sign]),
+        (lambda a, b: nn.PoissonNLLLoss(full=True)(a, b),
+         [("g", X), np.abs(Y)]),
+        (lambda a, b, c: nn.GaussianNLLLoss()(a, b, c),
+         [("g", X), Y, ("g", np.abs(Y) + 0.1)]),
+        (lambda a, b, c: nn.CosineEmbeddingLoss(0.1)(a, b, c),
+         [("g", X), ("g", Y), sign[:, 0]]),
+        (lambda a, b, c: nn.TripletMarginLoss()(a, b, c),
+         [("g", X), ("g", Y), ("g", r.randn(6, 5))]),
+        (lambda a, b, c: nn.TripletMarginWithDistanceLoss()(a, b, c),
+         [("g", X), ("g", Y), ("g", r.randn(6, 5))]),
+        (lambda a, b: nn.MultiLabelSoftMarginLoss()(a, b),
+         [("g", X), (sign > 0) * 1.0]),
+        (lambda a, b: nn.MultiMarginLoss(p=2)(a, b),
+         [("g", X), r.randint(0, 5, 6)]),
+        (lambda a, b, c, d: nn.CTCLoss()(a, b, c, d),
+         [("g", r.randn(9, 3, 6)), r.randint(1, 5, (3, 4)),
+          np.array([9, 7, 8]), np.array([4, 2, 1])]),
+    ]
+    cases += [(f, s, {}) for f, s in layers]
+    bad, worst, n = {}, 0.0, 0
+    for i, (name, spec, kw) in enumerate(cases):
+        label = name if isinstance(name, str) else f"case{i}"
+        for dtype in (torch.float64, torch.float32):
+            if dtype == torch.float32 and isinstance(name, str) and \
+                    not name.endswith("loss"):
+                continue
+            want, wg = _seq_fn_run(cpu, name, spec, kw, dtype)
+            got, gg = _seq_fn_run(cuda, name, spec, kw, dtype)
+            tag = f"{label}:{str(dtype)[6:]}"
+            worst = max(worst, _seq_same(tag, got, want, SEQ_FN_TOL, bad))
+            _seq_same(tag + ":grad", gg, wg, SEQ_FN_GRAD_TOL, bad)
+            n += 1
+    for hard in (False, True):
+        outs = [_seq_fn_run(dev, "gumbel_softmax", [("g", X)],
+                            {"hard": hard}, torch.float64, seed=5)
+                for dev in (cpu, cuda)]
+        _seq_same(f"gumbel_softmax:{hard}", outs[1][0], outs[0][0],
+                  SEQ_FN_TOL, bad)
+        n += 1
+    emit({"phase": "seq", "check": "functionals_card_vs_cpu", "card": smi,
+          "cases": n, "worst": worst})
+    if bad:
+        raise RuntimeError(f"seq functionals card vs CPU: {bad}")
+
+
+def _seq_optim_parity(smi):
+    """Adagrad, RMSProp (centered, momentum), Adadelta, Adamax, Lamb: 3
+    steps each on a small Layer in float64, card against CPU, parameters
+    within SEQ_OPT_TOL of their max; LBFGS with its closure (3 steps, the
+    strong-Wolfe line search)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    r = np.random.RandomState(3)
+    xs, ys = r.randn(16, 6), r.randn(16, 2)
+    opts = [("Adagrad", {"learning_rate": 0.1}),
+            ("RMSProp", {"learning_rate": 0.01, "momentum": 0.9,
+                         "centered": True}),
+            ("Adadelta", {"learning_rate": 1.0}),
+            ("Adamax", {"learning_rate": 0.02}),
+            ("Lamb", {"learning_rate": 0.01}),
+            ("LBFGS", {"learning_rate": 1.0, "max_iter": 5,
+                       "line_search_fn": "strong_wolfe"})]
+    bad, worst = {}, {}
+    for name, kw in opts:
+        finals = []
+        for dev in ("cpu", "gpu:0"):
+            paddle.set_device(dev)
+            paddle.seed(4)
+            # LBFGS on least squares: its float32 curvature history
+            # magnifies summation-order differences on a non-convex net
+            net = paddle.nn.Linear(6, 2) if name == "LBFGS" else \
+                paddle.nn.Sequential(paddle.nn.Linear(6, 8),
+                                     paddle.nn.Tanh(),
+                                     paddle.nn.Linear(8, 2))
+            net = net.to(dtype=torch.float64)
+            opt = getattr(paddle.optimizer, name)(
+                parameters=net.parameters(), **kw)
+            x = paddle.to_tensor(xs, dtype="float64")
+            y = paddle.to_tensor(ys, dtype="float64")
+
+            def closure():
+                opt.clear_grad()
+                loss = ((net(x) - y) ** 2).mean()
+                loss.backward()
+                return loss
+
+            for _ in range(3):
+                if name == "LBFGS":
+                    opt.step(closure)
+                else:
+                    closure()
+                    opt.step()
+                    opt.clear_grad()
+            finals.append([p.detach().cpu() for p in net.parameters()])
+        worst[name] = max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(finals[1], finals[0]))
+        if worst[name] > SEQ_OPT_TOL:
+            bad[name] = worst[name]
+    paddle.set_device("gpu:0")
+    emit({"phase": "seq", "check": "optimizers_card_vs_cpu_float64",
+          "card": smi, "param_err_over_max": worst})
+    if bad:
+        raise RuntimeError(f"seq optimizers card vs CPU: {bad}")
+
+
+def _seq_autograd_parity(smi):
+    """``jacobian``, ``hessian``, ``jvp``, ``vjp`` (and ``batch_axis=0``)
+    in float64 on the card against the CPU: within SEQ_AD_TOL of their
+    max, on the card."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import autograd as A
+    r = np.random.RandomState(4)
+    x, y, w = r.randn(3), r.randn(3, 2), r.randn(3, 4)
+    xb, yb, v4 = r.randn(5, 3), r.randn(5, 3), r.randn(4)
+
+    def calls(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        W = t(w)
+        f1 = lambda a: paddle.tanh(paddle.matmul(a, W)) * 2.0 + a.sum()  # noqa
+        f2 = lambda a, b: paddle.matmul(paddle.sin(a), b)  # noqa: E731
+        s1 = lambda a: (paddle.tanh(paddle.matmul(a, W)) ** 2).sum()  # noqa
+        fb = lambda a, b: paddle.tanh(a * b) + a  # noqa: E731
+        sb = lambda a: (paddle.sin(a) * a).sum()  # noqa: E731
+        return [A.jacobian(f1, t(x)), A.jacobian(f2, (t(x), t(y))),
+                A.jacobian(fb, (t(xb), t(yb)), batch_axis=0),
+                A.hessian(s1, t(x)), A.hessian(sb, t(xb), batch_axis=0),
+                A.jvp(f1, t(x), t(x)), A.vjp(f1, t(x), t(v4)),
+                A.Hessian(s1, t(x))[:], A.Jacobian(f2, (t(x), t(y)))[:]]
+
+    bad = {}
+    want, got = calls("cpu"), calls("cuda")
+    errs = [_seq_same(f"autograd{i}", g, w_, SEQ_AD_TOL, bad)
+            for i, (g, w_) in enumerate(zip(got, want))]
+    emit({"phase": "seq", "check": "autograd_functional_card_vs_cpu",
+          "card": smi, "calls": len(errs), "worst": max(errs)})
+    if bad:
+        raise RuntimeError(f"seq autograd.functional card vs CPU: {bad}")
+
+
+def phase_seq(smi):
+    """Transformer base (WMT14 en-de, PaddleNLP's recipe) and the PTB
+    "medium" LSTM LM trained on the card through the port's layers, fp32
+    eager and O1 bf16, SEQ_STEPS steps each; the card against the CPU in
+    float64 for both models at 2 layers (and GRU, SimpleRNN tanh/relu, a
+    time-major bidirectional LSTM), every new op, functional and loss
+    layer, the six optimizers and ``autograd.functional``. No kernel of
+    the port is on this path."""
+    rows = [_seq_leg(smi, m, amp) for m in ("transformer_base", "ptb_lstm")
+            for amp in (None, "O1")]
+    _seq_cpu_parity(smi)
+    _seq_ops_parity(smi)
+    _seq_functional_parity(smi)
+    _seq_optim_parity(smi)
+    _seq_autograd_parity(smi)
+    return rows
 
 
 # ---------------------------------------------------------------- training
@@ -6565,11 +7588,16 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
     return launches
 
 
+#: the phases that launch no kernel of the port
+NO_KERNEL_PHASES = {"vision", "seq"}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,serve,generate,server,"
-                            "fleet,tp,train_parity,train,substrate,vision",
+                            "fleet,tp,train_parity,train,substrate,vision,"
+                            "seq",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
                     help="repeat the four serve runs and one train "
@@ -6606,21 +7634,51 @@ def main(argv=None):
         return out
 
     smi = phase_device()
-    timed("build", phase_build)
-    # training first, on an empty allocator: its 15 layers are the deepest
-    # that fit the card, and the serving phases leave segments reserved
-    # around live blocks that empty_cache cannot return, where the same
-    # allocations can fail for fragmentation alone
+    # the kernels build (nvcc on every core) while the card runs the checks
+    # of the substrate's GPT-3 345M legs: no kernel of the port, and the
+    # ops the train phase runs next anyway (other phases there load
+    # libraries whose device memory the 15-layer train step cannot spare:
+    # it ran out of memory after the seq checks); their steps are timed
+    # after the build. Phases that launch no kernel of the port alone
+    # (``--phases seq``) skip the build.
+    built = {}
+
+    def build():
+        if not phases - NO_KERNEL_PHASES:
+            return
+        try:
+            timed("build", phase_build)
+        except BaseException as e:  # re-raised in the main thread
+            built["error"] = e
+
+    build_thread = threading.Thread(target=build, name="kernel-build")
+    build_thread.start()
+    try:
+        if "substrate" in phases:
+            timed("substrate_gpt", phase_substrate_gpt)
+    finally:
+        build_thread.join()
+    if "error" in built:
+        raise built["error"]
+    # training next, on an emptied allocator: its 15 layers are the
+    # deepest that fit the card, and the serving phases leave segments
+    # reserved around live blocks that empty_cache cannot return, where
+    # the same allocations can fail for fragmentation alone
+    _free()
     train = (timed("train", phase_train, args.profile, args.train_layers)
              if "train" in phases else {})
-    # the substrate's GPT-3 345M legs next, on the emptied allocator
     _free()
-    sub_rows, sub_launches = (timed("substrate", phase_substrate)
-                              if "substrate" in phases else ({}, {}))
+    sub_rows, sub_launches = {}, {}
+    if "substrate" in phases:
+        timed("substrate_steps", phase_substrate_steps)
+        sub_rows, sub_launches = timed("substrate", phase_substrate)
     # the vision training path (no kernel of the port: conv and pooling
     # are cuDNN's, as XLA's are the JAX package's)
     if "vision" in phases:
         timed("vision", phase_vision, smi)
+    # the sequence models and the long tail (no kernel of the port either)
+    if "seq" in phases:
+        timed("seq", phase_seq, smi)
     rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
     launches = {}
     if "engine" in phases:

@@ -35,8 +35,7 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=False,
     if create_graph:
         raise NotImplementedError(
             "create_graph=True (higher-order eager grad) is not supported, "
-            "as in the reference; see ROADMAP.md Queue A step 12b "
-            "(autograd/functional)")
+            "as in the reference")
     outputs, inputs = _as_list(outputs), _as_list(inputs)
     grads = None if grad_outputs is None else _as_list(grad_outputs)
     got = torch.autograd.grad(outputs, inputs, grads,

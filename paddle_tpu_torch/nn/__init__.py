@@ -1,7 +1,7 @@
 """``paddle.nn`` — the layer library (``paddle_tpu/nn``): ``Layer`` and
 its containers, ``functional``, ``initializer``, ``utils``, the common,
-activation, conv, pooling, norm and loss layers and the gradient clips.
-The rnn and transformer layers wait for ROADMAP.md Queue A step 12b."""
+activation, conv, pooling, norm, loss, recurrent and transformer layers
+and the gradient clips."""
 from ..core.tensor import Parameter
 from ..framework.param_attr import ParamAttr
 from . import functional
@@ -24,8 +24,15 @@ from .layers.common import (AlphaDropout, Bilinear, ChannelShuffle,
                             UpsamplingNearest2D, ZeroPad2D)
 from .layers.conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
                           Conv3D, Conv3DTranspose)
-from .layers.loss import (BCELoss, BCEWithLogitsLoss, CrossEntropyLoss,
-                          KLDivLoss, L1Loss, MSELoss, NLLLoss, SmoothL1Loss)
+from .layers.rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, SimpleRNN,
+                         SimpleRNNCell)
+from .layers.loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
+                          CrossEntropyLoss, CTCLoss, GaussianNLLLoss,
+                          HingeEmbeddingLoss, KLDivLoss, L1Loss,
+                          MarginRankingLoss, MSELoss, MultiLabelSoftMarginLoss,
+                          MultiMarginLoss, NLLLoss, PoissonNLLLoss,
+                          SmoothL1Loss, SoftMarginLoss, TripletMarginLoss,
+                          TripletMarginWithDistanceLoss)
 from .layers.norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                           GroupNorm, InstanceNorm1D, InstanceNorm2D,
                           InstanceNorm3D, LayerNorm, LocalResponseNorm,
@@ -37,4 +44,7 @@ from .layers.pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                              FractionalMaxPool3D, MaxPool1D, MaxPool2D,
                              MaxPool3D, MaxUnPool1D, MaxUnPool2D,
                              MaxUnPool3D)
+from .layers.transformer import (MultiHeadAttention, Transformer,
+                                 TransformerDecoder, TransformerDecoderLayer,
+                                 TransformerEncoder, TransformerEncoderLayer)
 from . import utils  # noqa: E402

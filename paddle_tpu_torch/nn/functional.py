@@ -1,8 +1,10 @@
 """``nn.functional`` — the part of ``paddle_tpu/nn/functional.py`` that the
 port's layers and GPT use, and the attention entries: activations,
 ``linear`` (Paddle's ``[in, out]`` weight), ``embedding``, dropout, the
-norms, the losses, ``scaled_dot_product_attention`` (plain, as the JAX
-``_sdpa``) and ``flash_attention`` on the port's flash kernels.
+norms, the losses (with ``ctc_loss`` and ``rnnt_loss`` on the JAX
+package's recursions), ``scaled_dot_product_attention`` (plain, as the
+JAX ``_sdpa``), ``flash_attention`` on the port's flash kernels and the
+plain segment-masked ``flash_attn_unpadded``.
 
 Every function is registered under the JAX package's dispatch name
 (``_cross_entropy_impl``, ``_batch_norm_train``, ``_dropout_impl``,
@@ -12,9 +14,7 @@ on the tensor's device: the same seed and order of draws give JAX's
 masks bit for bit. The spatial part — convolutions, pools, the spatial
 norms, resampling and the common layers' functions — runs on torch's
 products (cuDNN's on a card), as the JAX package's run on XLA's, with the
-reference's padding, ceil-mode and resize arithmetic. The rest of the JAX
-module (rnn, the remaining losses …) waits for ROADMAP.md Queue A step
-12b.
+reference's padding, ceil-mode and resize arithmetic.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from ..kernels.flash import flash_attention as _flash
 from ..kernels.flash_attention import _ref_attention
 from ..ops._op import op
 from ..ops.creation import zeros_like
+from ..ops.inplace import _inplace_of
 from ..ops.manipulation import pad, unsqueeze  # noqa: F401
 from ..ops.math import scale
 
@@ -569,12 +570,6 @@ def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False,
     return flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                            dropout=dropout, causal=causal,
                            return_softmax=return_softmax, training=training)
-
-
-def flash_attn_unpadded(*args, **kwargs):
-    raise NotImplementedError(
-        "flash_attn_unpadded (segment masks) is not ported; see ROADMAP.md "
-        "Queue A step 12b")
 
 
 # ------------------------------------------------------------ conv / pool
@@ -1524,3 +1519,647 @@ def _alpha_dropout(x, key, p, mask_shape=None):
     kept = torch.where(mask, x, torch.full((), alpha_p, dtype=x.dtype,
                                            device=x.device))
     return (a * kept + b).to(x.dtype)
+
+
+# ------------------------------------------------------------- the loss zoo
+# The rest of ``paddle_tpu/nn/functional.py``'s losses and the sequence,
+# sampling and geometry functions, op for op; the recursions of
+# ``ctc_loss`` and ``rnnt_loss`` are the JAX package's, a loop over time.
+@op
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
+    return _reduce(torch.clamp(-label * (input - other) + margin, min=0.0),
+                   reduction)
+
+
+@op
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
+    loss = torch.where(label == 1, input, torch.clamp(margin - input,
+                                                      min=0.0))
+    return _reduce(loss, reduction)
+
+
+@op
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * prior_dist
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+@op
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1):
+    key = random_mod.next_key()
+    u = random_mod.uniform_shaped(key, tuple(x.shape), random_mod._TINY,
+                                  1.0, x.device).to(x.dtype)
+    y = torch.softmax((x - torch.log(-torch.log(u))) / temperature, dim=axis)
+    if hard:
+        idx = torch.argmax(y, dim=axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter_(axis, idx, 1.0)
+        y = (y_hard - y).detach() + y
+    return y
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64"):
+    m = int(maxlen) if maxlen is not None else int(lengths.max())
+    out = torch.arange(m, device=lengths.device)[None, :] \
+        < lengths.reshape(-1, 1)
+    return out.to(dtype_mod.to_torch_dtype(dtype))
+
+
+@op
+def square_error_cost(input, label):
+    d = input - label
+    return d * d
+
+
+@op
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return (-label * torch.log(input + epsilon)
+            - (1.0 - label) * torch.log(1.0 - input + epsilon))
+
+
+@op
+def soft_margin_loss(input, label, reduction="mean", name=None):
+    return _reduce(-TF.logsigmoid(label * input), reduction)
+
+
+@op
+def poisson_nll_loss(input, label, log_input=True, full=False, epsilon=1e-8,
+                     reduction="mean", name=None):
+    if log_input:
+        loss = torch.exp(input) - label * input
+    else:
+        loss = input - label * torch.log(input + epsilon)
+    if full:
+        # Stirling's approximation of log(label!) where label > 1
+        safe = label + (label <= 1).to(label.dtype)
+        stirling = (label * torch.log(safe) - label
+                    + 0.5 * torch.log(2.0 * math.pi * safe))
+        loss = loss + _where0(label > 1, stirling)
+    return _reduce(loss, reduction)
+
+
+@op
+def gaussian_nll_loss(input, label, variance, full=False, epsilon=1e-6,
+                      reduction="mean", name=None):
+    var = torch.clamp(variance, min=epsilon)
+    loss = 0.5 * (torch.log(var) + (input - label) ** 2 / var)
+    if full:
+        loss = loss + 0.5 * math.log(2.0 * math.pi)
+    return _reduce(loss, reduction)
+
+
+@op
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean", name=None):
+    num = torch.sum(input1 * input2, dim=-1)
+    den = torch.linalg.vector_norm(input1, dim=-1) \
+        * torch.linalg.vector_norm(input2, dim=-1)
+    cos = num / torch.clamp(den, min=1e-12)
+    loss = torch.where(label > 0, 1.0 - cos, torch.clamp(cos - margin,
+                                                         min=0.0))
+    return _reduce(loss, reduction)
+
+
+@op
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean",
+                        name=None):
+    def dist(a, b):
+        return torch.sum(torch.abs(a - b + epsilon) ** p, dim=-1) ** (1.0 / p)
+    dp, dn = dist(input, positive), dist(input, negative)
+    if swap:
+        dn = torch.minimum(dn, dist(positive, negative))
+    return _reduce(torch.clamp(dp - dn + margin, min=0.0), reduction)
+
+
+def triplet_margin_with_distance_loss(input, positive, negative,
+                                      distance_function=None, margin=1.0,
+                                      swap=False, reduction="mean", name=None):
+    if distance_function is None:
+        return triplet_margin_loss(input, positive, negative, margin=margin,
+                                   swap=swap, reduction=reduction)
+    dp = distance_function(input, positive)
+    dn = distance_function(input, negative)
+    if swap:
+        dn = torch.minimum(dn, distance_function(positive, negative))
+    loss = torch.maximum(dp - dn + margin,
+                         torch.zeros((), dtype=torch.float32,
+                                     device=dp.device))
+    return _reduce(loss, reduction)
+
+
+@op
+def multi_label_soft_margin_loss(input, label, weight=None,
+                                 reduction="mean", name=None):
+    loss = -(label * TF.logsigmoid(input)
+             + (1.0 - label) * TF.logsigmoid(-input))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(torch.mean(loss, dim=-1), reduction)
+
+
+@op
+def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,
+                      reduction="mean", name=None):
+    N, C = input.shape
+    lab = label.long()
+    picked = torch.gather(input, 1, lab[:, None])
+    m = torch.clamp(margin - picked + input, min=0.0) ** p
+    if weight is not None:
+        m = m * weight[lab][:, None]
+    onehot = TF.one_hot(lab, C).to(m.dtype)
+    return _reduce(torch.sum(m * (1.0 - onehot), dim=1) / C, reduction)
+
+
+@op
+def dice_loss(input, label, epsilon=1e-5, name=None):
+    # input [N, ..., C] probabilities; label [N, ..., 1] class ids
+    lab = TF.one_hot(label[..., 0].long(), input.shape[-1]).to(input.dtype)
+    red = tuple(range(1, input.dim()))
+    inter = torch.sum(input * lab, dim=red)
+    union = torch.sum(input, dim=red) + torch.sum(lab, dim=red)
+    return torch.mean(1.0 - (2.0 * inter + epsilon) / (union + epsilon))
+
+
+@op
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25,
+                       gamma=2.0, reduction="sum", name=None):
+    p = torch.sigmoid(logit)
+    ce = -(label * TF.logsigmoid(logit)
+           + (1.0 - label) * TF.logsigmoid(-logit))
+    p_t = p * label + (1.0 - p) * (1.0 - label)
+    a_t = alpha * label + (1.0 - alpha) * (1.0 - label)
+    loss = a_t * ((1.0 - p_t) ** gamma) * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce(loss, reduction)
+
+
+def adaptive_log_softmax_with_loss(input, label, head_weight, tail_weights,
+                                   cutoffs, head_bias=None, name=None):
+    """Adaptive softmax: the shortlist scored in the head, each rarer class
+    through its cluster's head logit and its tail's low-rank projection;
+    every example computes every cluster (masked where it does not apply),
+    as the JAX package does. Returns (each example's log-probability of its
+    label, the mean NLL)."""
+    flat = [w for pair in tail_weights for w in pair]
+    return _adaptive_lsm_impl(input, label, head_weight, head_bias,
+                              tuple(int(c) for c in cutoffs), *flat)
+
+
+@op
+def _adaptive_lsm_impl(input, label, head_weight, head_bias, cutoffs,
+                       *tail_weights):
+    n_clusters = len(cutoffs)
+    shortlist = cutoffs[0]
+    head = input @ head_weight
+    if head_bias is not None:
+        head = head + head_bias
+    head_lp = torch.log_softmax(head, dim=-1)
+    lab = label.long()
+    out = torch.gather(head_lp, 1,
+                       torch.clamp(lab, 0, shortlist - 1)[:, None])[:, 0]
+    lo = shortlist
+    for i, (w1, w2) in enumerate(zip(tail_weights[::2], tail_weights[1::2])):
+        hi = cutoffs[i + 1] if i + 1 < n_clusters else lo + w2.shape[1]
+        in_tail = (lab >= lo) & (lab < hi)
+        tail_lp = torch.log_softmax((input @ w1) @ w2, dim=-1)
+        rel = torch.clamp(lab - lo, 0, w2.shape[1] - 1)
+        cluster_lp = head_lp[:, shortlist + i] + torch.gather(
+            tail_lp, 1, rel[:, None])[:, 0]
+        out = torch.where(in_tail, cluster_lp, out)
+        lo = hi
+    return out, -torch.mean(out)
+
+
+@op
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    sim = anchor @ positive.T
+    lab = labels.reshape(-1)
+    tgt = (lab[:, None] == lab[None, :]).to(sim.dtype)
+    tgt = tgt / torch.sum(tgt, dim=1, keepdim=True)
+    lse = torch.logsumexp(sim, dim=1, keepdim=True)
+    ce = torch.mean(torch.sum(-tgt * (sim - lse), dim=1))
+    reg = 0.25 * l2_reg * (torch.mean(torch.sum(anchor * anchor, dim=1))
+                           + torch.mean(torch.sum(positive * positive,
+                                                  dim=1)))
+    return ce + reg
+
+
+_NEG = -1e30
+
+
+def _neg_full(shape, ref):
+    return torch.full(shape, _NEG, dtype=ref.dtype, device=ref.device)
+
+
+@op
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC over UNNORMALIZED logits ``[Tmax, B, C]`` (softmax inside, as
+    the reference), labels ``[B, Lmax]``, per-sample lengths: the forward
+    algorithm in the log semiring over the blank-interleaved labels
+    (S = 2 Lmax + 1), one step a time index, float32 as the JAX package."""
+    lp = torch.log_softmax(log_probs.float(), dim=-1)
+    Tmax, B, C = lp.shape
+    L = labels.shape[1]
+    S = 2 * L + 1
+    dev = lp.device
+    lab = torch.clamp(labels.long(), 0, C - 1)
+    z = torch.full((B, S), blank, dtype=torch.long, device=dev)
+    z[:, 1::2] = lab
+    lab_len = label_lengths.long()
+    in_len = input_lengths.long()
+    s_idx = torch.arange(S, device=dev)
+    valid_s = s_idx[None, :] < (2 * lab_len[:, None] + 1)
+    z_prev2 = torch.cat([torch.full((B, 2), -1, dtype=torch.long,
+                                    device=dev), z[:, :-2]], dim=1)
+    can_skip = (z != blank) & (z != z_prev2) & (s_idx[None, :] >= 2)
+
+    def lse3(a, b, c):
+        m = torch.maximum(torch.maximum(a, b), c)
+        return m + torch.log(torch.exp(a - m) + torch.exp(b - m)
+                             + torch.exp(c - m))
+
+    emit0 = torch.gather(lp[0], 1, z)
+    alpha = _neg_full((B, S), lp)
+    alpha = torch.cat([emit0[:, :1],
+                       torch.where(lab_len[:, None] > 0, emit0[:, 1:2],
+                                   _neg_full((B, 1), lp)),
+                       alpha[:, 2:]], dim=1)
+    alphas = [alpha]
+    for t in range(1, Tmax):
+        a1 = torch.cat([_neg_full((B, 1), lp), alpha[:, :-1]], dim=1)
+        a2 = torch.where(can_skip,
+                         torch.cat([_neg_full((B, 2), lp), alpha[:, :-2]], dim=1),
+                         _neg_full((1, 1), lp))
+        emit = torch.gather(lp[t], 1, z)
+        alpha = torch.where(valid_s, lse3(alpha, a1, a2) + emit,
+                            _neg_full((1, 1), lp))
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)                          # [T, B, S]
+    aT = alphas[torch.clamp(in_len - 1, 0, Tmax - 1),
+                torch.arange(B, device=dev)]              # [B, S]
+    e1 = torch.gather(aT, 1, (2 * lab_len)[:, None])[:, 0]
+    e2 = torch.where(lab_len > 0, torch.gather(
+        aT, 1, torch.clamp(2 * lab_len - 1, min=0)[:, None])[:, 0],
+        _neg_full((), lp))
+    m = torch.maximum(e1, e2)
+    loss = -(m + torch.log(torch.exp(e1 - m) + torch.exp(e2 - m)))
+    if norm_by_times:
+        loss = loss / torch.clamp(in_len.float(), min=1.0)
+    if reduction == "mean":
+        # each sample's loss over its label length first
+        return torch.mean(loss / torch.clamp(lab_len.float(), min=1.0))
+    return _reduce(loss, reduction)
+
+
+def _rnnt_alpha(lp_blank, lp_emit, in_len, lab_len):
+    """The forward lattice: ``alpha[t, u] = logadd(alpha[t-1, u] +
+    blank(t-1, u), alpha[t, u-1] + emit(t, u-1))``. Returns (nll [B],
+    alphas [T, B, U+1])."""
+    B, T, U1 = lp_blank.shape
+    dev = lp_blank.device
+    ar_u = torch.arange(U1, device=dev)[None, :]
+    u_valid = ar_u <= lab_len[:, None]
+    emit_valid = ar_u < lab_len[:, None]
+    neg = _neg_full((), lp_blank)
+    start = torch.where(ar_u == 0, torch.zeros((), dtype=lp_blank.dtype,
+                                               device=dev), neg)
+    alpha_prev, alphas = None, []
+    for t in range(T):
+        if t == 0:
+            from_top = start.expand(B, U1)
+        else:
+            from_top = alpha_prev + lp_blank[:, t - 1]
+        from_top = torch.where(u_valid, from_top, neg)
+        e_row = torch.where(emit_valid, lp_emit[:, t], neg)
+        cols = [from_top[:, 0]]
+        for u in range(1, U1):
+            cols.append(torch.logaddexp(from_top[:, u],
+                                        cols[-1] + e_row[:, u - 1]))
+        alpha_prev = torch.stack(cols, dim=1)
+        alphas.append(alpha_prev)
+    alphas = torch.stack(alphas)                          # [T, B, U+1]
+    b = torch.arange(B, device=dev)
+    tb = torch.clamp(in_len - 1, 0, T - 1)
+    a_final = alphas[tb, b, lab_len]
+    return -(a_final + lp_blank[b, tb, lab_len]), alphas
+
+
+def _rnnt_beta(lp_blank, lp_emit, in_len, lab_len):
+    """The backward lattice ``beta(t, u) = logadd(blank(t, u) + beta(t+1,
+    u), emit(t, u) + beta(t, u+1))`` with the terminal ``beta(T_b - 1,
+    U_b) = blank(T_b - 1, U_b)``; also each row's blank successor
+    ``beta(t+1, u)`` with the terminal 0 put in. Both ``[T, B, U+1]``."""
+    B, T, U1 = lp_blank.shape
+    dev = lp_blank.device
+    ar_u = torch.arange(U1, device=dev)[None, :]
+    emit_valid = ar_u < lab_len[:, None]
+    term_u = ar_u == lab_len[:, None]
+    neg = _neg_full((), lp_blank)
+    zero = torch.zeros((), dtype=lp_blank.dtype, device=dev)
+    beta_next = _neg_full((B, U1), lp_blank)
+    betas, tops = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        is_term_row = (t == in_len - 1)[:, None]
+        beta_top = torch.where(is_term_row & term_u, zero, beta_next)
+        b = lp_blank[:, t] + beta_top
+        e_row = torch.where(emit_valid, lp_emit[:, t], neg)
+        cols = [None] * U1
+        cols[U1 - 1] = b[:, U1 - 1]
+        for u in range(U1 - 2, -1, -1):
+            cols[u] = torch.logaddexp(b[:, u], e_row[:, u] + cols[u + 1])
+        beta_next = torch.stack(cols, dim=1)
+        betas[t], tops[t] = beta_next, beta_top
+    return torch.stack(betas), torch.stack(tops)
+
+
+class _RnntNll(torch.autograd.Function):
+    """The transducer NLL with FastEmit's gradient: the emission branch's
+    occupancy scaled by ``1 + lambda``, the blank branch's not (the value
+    is the plain NLL), as the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, lp_blank, lp_emit, in_len, lab_len, lam):
+        nll, alphas = _rnnt_alpha(lp_blank, lp_emit, in_len, lab_len)
+        ctx.save_for_backward(lp_blank, lp_emit, in_len, lab_len, nll,
+                              alphas)
+        ctx.lam = lam
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        lp_blank, lp_emit, in_len, lab_len, nll, alphas = ctx.saved_tensors
+        B, T, U1 = lp_blank.shape
+        betas, tops = _rnnt_beta(lp_blank, lp_emit, in_len, lab_len)
+        al = alphas.permute(1, 0, 2)
+        btop = tops.permute(1, 0, 2)
+        bt = betas.permute(1, 0, 2)
+        beta_right = torch.cat([bt[..., 1:], _neg_full((B, T, 1), bt)], dim=-1)
+        logz = -nll[:, None, None]
+        emit_valid = (torch.arange(U1, device=al.device)[None, :]
+                      < lab_len[:, None])[:, None, :]
+        occ_blank = torch.exp(al + lp_blank + btop - logz)
+        occ_emit = _where0(emit_valid,
+                           torch.exp(al + lp_emit + beta_right - logz))
+        gc = g[:, None, None]
+        return (-occ_blank * gc, -(1.0 + ctx.lam) * occ_emit * gc, None,
+                None, None)
+
+
+def rnnt_loss(input, label, input_lengths, label_lengths, blank=0,
+              fastemit_lambda=0.001, reduction="mean", name=None):
+    """RNN-Transducer loss over UN-normalized logits ``[B, T, U+1, V]``
+    (log-softmax inside), labels ``[B, U]`` and lengths ``[B]``: the JAX
+    package's lattice recursions, a loop over ``t`` and ``u``; the
+    gradient's emission branch is scaled by ``1 + fastemit_lambda``."""
+    return _rnnt_impl(input, label, input_lengths, label_lengths,
+                      int(blank), float(fastemit_lambda), reduction)
+
+
+@op
+def _rnnt_impl(logits, label, in_len, lab_len, blank, fastemit_lambda,
+               reduction="mean"):
+    B = logits.shape[0]
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    lp_blank = lp[..., blank]
+    lab_idx = torch.cat([label.long(), torch.zeros(
+        (B, 1), dtype=torch.long, device=lp.device)], dim=1)
+    lp_emit = torch.gather(
+        lp, -1, lab_idx[:, None, :, None].expand(
+            lp.shape[:-1] + (1,)))[..., 0]
+    nll = _RnntNll.apply(lp_blank, lp_emit, in_len.long(), lab_len.long(),
+                         float(fastemit_lambda))
+    return _reduce(nll, reduction)
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean", name=None):
+    """ArcFace-family margin softmax, one group: ``cos(m1 theta + m2) -
+    m3`` on the target logit, all scaled by ``scale``."""
+    return _margin_ce_impl(logits, label, float(margin1), float(margin2),
+                           float(margin3), float(scale), reduction,
+                           bool(return_softmax))
+
+
+@op
+def _margin_ce_impl(logits, label, m1, m2, m3, s, reduction, return_softmax):
+    if label.dim() == 2 and label.shape[-1] == 1:
+        label = label[:, 0]
+    lf = torch.clamp(logits.float(), -1.0, 1.0)
+    # strictly inside (-1, 1): arccos's slope is infinite at the ends
+    theta = torch.arccos(torch.clamp(lf, -1.0 + 1e-6, 1.0 - 1e-6))
+    target = torch.cos(m1 * theta + m2) - m3
+    onehot = TF.one_hot(label.long(), logits.shape[-1]).float()
+    adj = (onehot * target + (1.0 - onehot) * lf) * s
+    loss = torch.logsumexp(adj, dim=-1) - torch.sum(adj * onehot, dim=-1)
+    if reduction == "mean":
+        loss = torch.mean(loss)
+    elif reduction == "sum":
+        loss = torch.sum(loss)
+    if return_softmax:
+        return loss, torch.softmax(adj, dim=-1)
+    return loss
+
+
+# ------------------------------------------------- sequence, geometry
+@op
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """CSR-pattern attention ``[B, H, S, D]``: each query row attends to
+    the key columns its CSR row lists, as a dense boolean mask over a
+    masked softmax (the JAX package's formulation); a mask value of 0
+    masks; a row with no column gives zeros."""
+    B, H, S, D = query.shape
+    nnz = sparse_csr_columns.shape[-1]
+    dev = query.device
+    off = sparse_csr_offset.reshape(B, H, S + 1).long()
+    cols = sparse_csr_columns.reshape(B, H, nnz).long()
+    slots = torch.arange(nnz, device=dev).expand(B, H, nnz).contiguous()
+    row_of = torch.searchsorted(off[..., 1:].contiguous(), slots,
+                                right=True)
+    valid = slots < off[..., -1:]
+    row_of = torch.clamp(row_of, 0, S - 1)
+    hits = torch.zeros((B, H, S, S), dtype=torch.int32, device=dev)
+    bidx = torch.arange(B, device=dev)[:, None, None].expand(B, H, nnz)
+    hidx = torch.arange(H, device=dev)[None, :, None].expand(B, H, nnz)
+    hits.index_put_((bidx, hidx, row_of, cols), valid.int(),
+                    accumulate=True)
+    mask = hits > 0
+    logits = torch.matmul(query.float(), key.float().transpose(-1, -2)) \
+        / math.sqrt(D)
+    neg = torch.full((), _NEG, dtype=logits.dtype, device=dev)
+    logits = torch.where(mask, logits, neg)
+    if key_padding_mask is not None:
+        logits = torch.where(key_padding_mask.reshape(B, 1, 1, S) != 0,
+                             logits, neg)
+    if attn_mask is not None:
+        logits = torch.where(attn_mask.reshape(1, 1, S, S) != 0, logits,
+                             neg)
+    p = torch.softmax(logits, dim=-1)
+    p = _where0(torch.any(mask, dim=-1, keepdim=True), p).to(value.dtype)
+    return torch.matmul(p, value)
+
+
+def class_center_sample(label, num_classes, num_samples, group=None,
+                        name=None):
+    """``num_samples`` class centers holding every positive class of
+    ``label``, the negatives from the key walk's permutation, sorted; the
+    label remapped onto them. On the host, as the JAX package (the sample
+    depends on the label's values)."""
+    if group is not None:
+        raise NotImplementedError(
+            "class_center_sample(group=...) (the model-parallel sampling) "
+            "is not implemented, as in the reference package; sample on "
+            "the full class dim and shard the centers afterwards")
+    if num_samples > num_classes:
+        raise ValueError(f"num_samples ({num_samples}) must be <= "
+                         f"num_classes ({num_classes})")
+    lab = label.detach().cpu().numpy()
+    if lab.size and (lab.min() < 0 or lab.max() >= num_classes):
+        raise ValueError(f"label values must be in [0, {num_classes}), got "
+                         f"range [{lab.min()}, {lab.max()}]")
+    pos = np.unique(lab)
+    if len(pos) > num_samples:
+        raise ValueError(f"num_samples {num_samples} < number of positive "
+                         f"classes {len(pos)}")
+    perm = random_mod.permutation(random_mod.next_key(), num_classes).numpy()
+    neg = perm[~np.isin(perm, pos)][:num_samples - len(pos)]
+    sampled = np.sort(np.concatenate([pos, neg]))
+    remap = np.full((num_classes,), -1, np.int64)
+    remap[sampled] = np.arange(num_samples)
+    return (torch.as_tensor(remap[lab], device=label.device).to(label.dtype),
+            torch.as_tensor(sampled, device=label.device).to(label.dtype))
+
+
+@op
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
+                   name=None):
+    """TSM: within each group of ``seg_num`` frames, a ``shift_ratio`` of
+    the channels shifted one step back and as many one step forward in
+    time (zeros at the edges)."""
+    if data_format != "NCHW":
+        raise NotImplementedError("temporal_shift supports NCHW")
+    NT, C, H, W = x.shape
+    v = x.reshape(NT // seg_num, seg_num, C, H, W)
+    fold = int(C * shift_ratio)
+    back = torch.cat([v[:, 1:, :fold], torch.zeros_like(v[:, :1, :fold])],
+                     dim=1)
+    fwd = torch.cat([torch.zeros_like(v[:, :1, fold:2 * fold]),
+                     v[:, :-1, fold:2 * fold]], dim=1)
+    return torch.cat([back, fwd, v[:, :, 2 * fold:]], dim=2) \
+        .reshape(NT, C, H, W)
+
+
+@op
+def gather_tree(ids, parents, name=None):
+    """Beam-search ancestry: ``ids``/``parents`` ``[T, B, W]``, walked back
+    from the last step so each beam holds its whole token path."""
+    T = ids.shape[0]
+    beam = torch.arange(ids.shape[-1], device=ids.device) \
+        .expand(ids.shape[1:]).to(parents.dtype)
+    toks = [None] * T
+    for t in range(T - 1, -1, -1):
+        idx = beam.long()
+        toks[t] = torch.gather(ids[t], -1, idx)
+        beam = torch.gather(parents[t], -1, idx)
+    return torch.stack(toks)
+
+
+@op
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """``theta [B, 2, 3]`` to the sampling grid ``[B, H, W, 2]``."""
+    H, W = int(out_shape[-2]), int(out_shape[-1])
+    dev, dt = theta.device, theta.dtype
+
+    def lin(n):
+        if align_corners:
+            return torch.linspace(-1.0, 1.0, n, dtype=dt, device=dev)
+        return (torch.arange(n, dtype=dt, device=dev) * 2.0 + 1.0) / n - 1.0
+
+    ys, xs = torch.meshgrid(lin(H), lin(W), indexing="ij")
+    base = torch.stack([xs, ys, torch.ones_like(xs)], dim=-1)
+    return torch.einsum("hwk,bik->bhwi", base, theta)
+
+
+@op
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    """``x [B, C, H, W]`` sampled at ``grid [B, Hg, Wg, 2]`` (normalized
+    xy) to ``[B, C, Hg, Wg]``, bilinear or nearest, zeros or border
+    padding (the reference package's modes)."""
+    if padding_mode not in ("zeros", "border"):
+        raise NotImplementedError(
+            f"grid_sample padding_mode={padding_mode!r} (zeros and border "
+            f"only, as in the reference package)")
+    B, C, H, W = x.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+
+    def unnorm(g, n):
+        if align_corners:
+            return (g + 1.0) * (n - 1) / 2.0
+        return ((g + 1.0) * n - 1.0) / 2.0
+
+    fx, fy = unnorm(gx, W), unnorm(gy, H)
+    bidx = torch.arange(B, device=x.device)[:, None, None]
+
+    def fetch(ix, iy):
+        inside = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
+        if padding_mode == "border":
+            inside = torch.ones_like(inside)
+        ixc, iyc = torch.clamp(ix, 0, W - 1), torch.clamp(iy, 0, H - 1)
+        v = x[bidx, :, iyc, ixc]                          # [B, Hg, Wg, C]
+        return _where0(inside[..., None], v)
+
+    if mode == "nearest":
+        out = fetch(torch.round(fx).long(), torch.round(fy).long())
+        return torch.movedim(out, -1, 1).to(x.dtype)
+    x0, y0 = torch.floor(fx).long(), torch.floor(fy).long()
+    wx, wy = (fx - x0)[..., None], (fy - y0)[..., None]
+    v00, v01 = fetch(x0, y0), fetch(x0 + 1, y0)
+    v10, v11 = fetch(x0, y0 + 1), fetch(x0 + 1, y0 + 1)
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return torch.movedim(top * (1 - wy) + bot * wy, -1, 1).to(x.dtype)
+
+
+relu_ = _inplace_of(relu, "relu_")
+
+
+# ------------------------------------------------------------ varlen flash
+@op
+def _flash_varlen_impl(q, k, v, seg, causal):
+    """Packed attention ``[total, H, D]``: queries see the keys of their
+    own segment (and, causal, not after them) — the JAX package's
+    ``_ref_attention`` with segment ids: float32 scores, masked to -1e30,
+    probabilities in the query's type."""
+    D = q.shape[-1]
+    logits = torch.einsum("qhd,khd->hqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(D))
+    mask = seg[:, None] == seg[None, :]
+    if causal:
+        n = q.shape[0]
+        mask = mask & torch.ones(n, n, dtype=torch.bool,
+                                 device=q.device).tril()
+    logits = torch.where(mask, logits, torch.full(
+        (), _NEG, dtype=logits.dtype, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("hqk,khd->qhd", probs, v)
+
+
+def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                        max_seqlen_k, scale=None, dropout=0.0, causal=False,
+                        return_softmax=False, training=True, name=None):
+    """Attention over sequences packed along dim 0 (``[total, heads,
+    head_dim]``, boundaries ``cu_seqlens_q``): plain segment-masked
+    attention in torch, as the JAX package's ``flash_attn_varlen`` (it
+    launches no kernel). Like the JAX package it reads the segments of
+    ``cu_seqlens_q`` for queries and keys alike and takes neither
+    ``scale`` nor ``dropout``. Returns ``(out, None)``."""
+    cu = cu_seqlens_q.to(q.device).long()
+    rows = torch.arange(q.shape[0], device=q.device)
+    seg = torch.searchsorted(cu[1:].contiguous(), rows, right=True)
+    return _flash_varlen_impl(q, k, v, seg, bool(causal)), None

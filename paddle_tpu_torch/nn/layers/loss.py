@@ -1,6 +1,5 @@
 """Loss layers — the counterpart of ``paddle_tpu/nn/layers/loss.py``'s
-layer form of each loss in ``nn.functional`` (the file's other classes
-wait for ROADMAP.md Queue A step 12b)."""
+layer form of each loss in ``nn.functional``."""
 from __future__ import annotations
 
 from .. import functional as F
@@ -101,3 +100,147 @@ class KLDivLoss(Layer):
 
     def forward(self, input, label):
         return F.kl_div(input, label, self.reduction)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, logits, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(logits, labels, input_lengths, label_lengths,
+                          blank=self.blank, reduction=self.reduction,
+                          norm_by_times=norm_by_times)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label,
+                                       margin=self.margin,
+                                       reduction=self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.p = p
+        self.epsilon = epsilon
+        self.swap = swap
+        self.reduction = reduction
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative,
+                                     margin=self.margin, p=self.p,
+                                     epsilon=self.epsilon, swap=self.swap,
+                                     reduction=self.reduction)
+
+
+class TripletMarginWithDistanceLoss(Layer):
+    def __init__(self, distance_function=None, margin=1.0, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.distance_function = distance_function
+        self.margin = margin
+        self.swap = swap
+        self.reduction = reduction
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_with_distance_loss(
+            input, positive, negative,
+            distance_function=self.distance_function, margin=self.margin,
+            swap=self.swap, reduction=self.reduction)
+
+
+class SoftMarginLoss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.soft_margin_loss(input, label, reduction=self.reduction)
+
+
+class PoissonNLLLoss(Layer):
+    def __init__(self, log_input=True, full=False, epsilon=1e-8,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.log_input = log_input
+        self.full = full
+        self.epsilon = epsilon
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.poisson_nll_loss(input, label, log_input=self.log_input,
+                                  full=self.full, epsilon=self.epsilon,
+                                  reduction=self.reduction)
+
+
+class GaussianNLLLoss(Layer):
+    def __init__(self, full=False, epsilon=1e-6, reduction="mean", name=None):
+        super().__init__()
+        self.full = full
+        self.epsilon = epsilon
+        self.reduction = reduction
+
+    def forward(self, input, label, variance):
+        return F.gaussian_nll_loss(input, label, variance, full=self.full,
+                                   epsilon=self.epsilon,
+                                   reduction=self.reduction)
+
+
+class MultiLabelSoftMarginLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.multi_label_soft_margin_loss(input, label,
+                                              weight=self.weight,
+                                              reduction=self.reduction)
+
+
+class MultiMarginLoss(Layer):
+    def __init__(self, p=1, margin=1.0, weight=None, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.p = p
+        self.margin = margin
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.multi_margin_loss(input, label, p=self.p,
+                                   margin=self.margin, weight=self.weight,
+                                   reduction=self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, margin=self.margin,
+                                      reduction=self.reduction)

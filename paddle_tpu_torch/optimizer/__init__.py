@@ -1,6 +1,10 @@
-"""``paddle.optimizer``: ``SGD``, ``Momentum``, ``Adam``, ``AdamW`` and the
-LR schedulers (``optimizer.lr``)."""
+"""``paddle.optimizer``: ``SGD``, ``Momentum``, ``Adam``, ``AdamW``,
+``Adagrad``, ``RMSProp``, ``Adadelta``, ``Adamax``, ``Lamb``, ``LBFGS`` and
+the LR schedulers (``optimizer.lr``)."""
 from . import lr
-from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
+from .lbfgs import LBFGS
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                        Momentum, Optimizer, RMSProp)
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "RMSProp", "Adadelta", "Adamax", "Lamb", "LBFGS", "lr"]

@@ -1,5 +1,7 @@
-"""Optimizers — the counterpart of ``paddle_tpu/optimizer/optimizer.py``'s
-``Optimizer``, ``SGD``, ``Momentum``, ``Adam`` and ``AdamW``, with the
+"""Optimizers — the counterpart of ``paddle_tpu/optimizer/optimizer.py``:
+``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``Adagrad``,
+``RMSProp`` (centered or not), ``Adadelta``, ``Adamax`` and ``Lamb``
+(``LBFGS`` is ``optimizer/lbfgs.py``), with the
 Paddle surface: ``step()``, ``clear_grad()``, ``minimize``,
 ``get_lr``/``set_lr``, ``state_dict``/``set_state_dict``.
 
@@ -24,8 +26,9 @@ reference does — ``apply_decay_param_fun`` gets ``p.name or ""`` and the
 state keys are ``p.name`` or ``param_<i>``. The reference's arguments that
 change nothing there (``multi_precision``, ``lazy_mode``, ``name``,
 AdamW's ``lr_ratio``, ``clear_grad``'s ``set_to_zero``) are accepted and
-unused, as there. ``Adagrad``, ``RMSProp``, ``Adadelta``, ``Adamax``,
-``Lamb`` and ``LBFGS`` wait for ROADMAP.md Queue A step 12b.
+unused, as there. Each optimizer's slots carry the JAX package's names
+(``moment``, ``mean_square``, ``avg_squared_grad``, ``inf_norm`` …), so a
+``state_dict`` crosses with the same keys.
 """
 from __future__ import annotations
 
@@ -266,3 +269,142 @@ class AdamW(Adam):
     def _decays(self, p):
         fun = self._apply_decay_param_fun
         return True if fun is None else bool(fun(self._decay_name[id(p)]))
+
+
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_slots(self, param):
+        return {"moment": torch.full_like(param, self._init_acc,
+                                          dtype=torch.float32)}
+
+    def _update(self, param, grad, slots, lr, step, decay=True):
+        g = grad.float()
+        acc = slots["moment"].add_(torch.square(g))
+        param.sub_((lr * g / (torch.sqrt(acc) + self._epsilon))
+                   .to(param.dtype))
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _init_slots(self, param):
+        s = {"mean_square": torch.zeros_like(param, dtype=torch.float32),
+             "momentum": torch.zeros_like(param, dtype=torch.float32)}
+        if self._centered:
+            s["mean_grad"] = torch.zeros_like(param, dtype=torch.float32)
+        return s
+
+    def _update(self, param, grad, slots, lr, step, decay=True):
+        g = grad.float()
+        rho = self._rho
+        ms = slots["mean_square"]
+        ms.copy_(rho * ms + (1 - rho) * torch.square(g))
+        denom = ms
+        if self._centered:
+            mg = slots["mean_grad"]
+            mg.copy_(rho * mg + (1 - rho) * g)
+            denom = ms - torch.square(mg)
+        mom = slots["momentum"]
+        mom.copy_(self._momentum * mom
+                  + lr * g / torch.sqrt(denom + self._epsilon))
+        param.sub_(mom.to(param.dtype))
+
+
+class Adadelta(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _init_slots(self, param):
+        return {"avg_squared_grad": torch.zeros_like(param,
+                                                     dtype=torch.float32),
+                "avg_squared_update": torch.zeros_like(param,
+                                                       dtype=torch.float32)}
+
+    def _update(self, param, grad, slots, lr, step, decay=True):
+        g = grad.float()
+        rho, eps = self._rho, self._epsilon
+        asg, asu = slots["avg_squared_grad"], slots["avg_squared_update"]
+        asg.copy_(rho * asg + (1 - rho) * torch.square(g))
+        upd = g * torch.sqrt(asu + eps) / torch.sqrt(asg + eps)
+        asu.copy_(rho * asu + (1 - rho) * torch.square(upd))
+        param.sub_(lr * upd.to(param.dtype))
+
+
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_slots(self, param):
+        return {"moment": torch.zeros_like(param, dtype=torch.float32),
+                "inf_norm": torch.zeros_like(param, dtype=torch.float32)}
+
+    def _update(self, param, grad, slots, lr, step, decay=True):
+        g = grad.float()
+        b1 = self._beta1
+        m, u = slots["moment"], slots["inf_norm"]
+        m.copy_(b1 * m + (1 - b1) * g)
+        u.copy_(torch.maximum(self._beta2 * u, torch.abs(g)))
+        param.sub_((lr / (1 - b1 ** float(step)))
+                   * (m / (u + self._epsilon)).to(param.dtype))
+
+
+class Lamb(Optimizer):
+    """LAMB: the Adam direction plus ``lamb_weight_decay * param``, scaled
+    by the trust ratio ``|param| / |direction|``;
+    ``exclude_from_weight_decay_fn(param) -> bool`` drops the decay term
+    for the parameters it names."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._wd = lamb_weight_decay
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _decays(self, p):
+        return self._exclude_fn is None or not self._exclude_fn(p)
+
+    def _init_slots(self, param):
+        return {"moment1": torch.zeros_like(param, dtype=torch.float32),
+                "moment2": torch.zeros_like(param, dtype=torch.float32)}
+
+    def _update(self, param, grad, slots, lr, step, decay=True):
+        g = grad.float()
+        p32 = param.float()
+        b1, b2 = self._beta1, self._beta2
+        m, v = slots["moment1"], slots["moment2"]
+        m.copy_(b1 * m + (1 - b1) * g)
+        v.copy_(b2 * v + (1 - b2) * torch.square(g))
+        t = float(step)
+        mhat = m / (1 - b1 ** t)
+        vhat = v / (1 - b2 ** t)
+        wd = self._wd if decay else 0.0
+        r = mhat / (torch.sqrt(vhat) + self._epsilon) + wd * p32
+        w_norm = torch.sqrt(torch.sum(torch.square(p32)))
+        r_norm = torch.sqrt(torch.sum(torch.square(r)))
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones((), dtype=w_norm.dtype,
+                                       device=w_norm.device))
+        param.copy_((p32 - lr * trust * r).to(param.dtype))

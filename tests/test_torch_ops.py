@@ -390,7 +390,7 @@ def test_registry_names_match_the_reference():
     port's registry under the same name. (Names the JAX registry takes
     from ``ops/inplace.py`` and ``ops/tail.py`` — the in-place ``name_``
     variants, ``bitwise_invert`` — are not attributes of these modules;
-    they wait for ROADMAP.md Queue A step 12b.)"""
+    ``test_torch_ops_tail.py`` holds those modules.)"""
     from paddle_tpu.ops._op import OP_REGISTRY as JREG
     from paddle_tpu_torch.ops import OP_REGISTRY as TREG
     mods = [importlib.import_module(f"paddle_tpu.ops.{m}") for m in

@@ -335,6 +335,44 @@ Phases, each printing one JSON line; any failure exits nonzero:
              ``hessian``, ``jvp``, ``vjp`` (1e-10). The path launches
              none of the port's kernels.
 
+14. incubate — run after ``seq``: ``incubate.nn.FusedMultiTransformer``
+             at GPT-3 345M's widths (E 1024, 16 heads of 64, FF 4096, 24
+             pre-LN layers, gelu) under a seeded 50,304-row embedding,
+             1,024 positions, a final LayerNorm and the tied head: 8
+             distinct 128-token prompts prefilled into a 1,024-row cache
+             at ``time_step`` 0, then 64 greedy tokens one ``time_step``
+             at a time, through the dense decode kernel
+             (``decode_attention="pallas"``) and through the stack's
+             plain path (``"jnp"``), in fp32 (streams equal) and bf16
+             (the first decode step's logits within ``BWD_TOL``'s scaled
+             form, partings reported), and a GQA leg (4 KV heads, 2
+             layers, fp32, streams equal); ``decode`` launches exactly
+             layers x 63 a kernel leg, none plain; decode ms a step and
+             tok/s. The kernel alone at the path's shapes (B=8, S_max
+             1024, 16 x 64, lengths 129-192, bf16): ``TOL``, the same
+             bits twice, events and device ms, plain and SDPA ms, its
+             byte bound (the ``decode:fmt`` row). ``flash_attn_qkvpacked``
+             at B=4, S=2048, 16 x 64, bf16, causal and not (``TOL``, one
+             launch). ``masked_multihead_attention``, the varlen attention
+             and the fused bias-dropout-residual LayerNorm in float64,
+             card against CPU (1e-5 of their max), the dropout's uniform
+             bits equal.
+
+15. ernie  — run after ``incubate``: ERNIE-ViL base (ViT-B/16 at 224², a
+             12 x 768 text tower of 64 tokens, embedding 512; 64 FakeData
+             pairs through the vision training transforms; AdamW 0.9 /
+             0.98 / 1e-6, weight decay 0.2) and ERNIE 1.0 base
+             (``ErnieForSequenceClassification``, 32 x 128 tokens, dropout
+             0.1, AdamW 5e-5), fp32 and O1 bf16, 2 warm-up and 3 timed
+             steps on a fresh model: step ms, pairs/s or tokens/s, peak
+             memory, the masks' ms, one profiled step's busy share. Then
+             the card against the CPU in float64: ERNIE-ViL at 2 + 2
+             layers and ERNIE at 2 layers (both heads) at the float32
+             floor their LayerNorms, scores and cross entropy set (the
+             larger of 7.2e-7 and twice the CPU step's own distance from
+             its all-float64 twin), the CLIP loss and the patch embedding
+             at 1e-10 (gradients 1e-8). No kernel of the port.
+
 ``--profile`` repeats the four serve runs, the ``tp=2`` serve run and
 one train step under ``torch.profiler`` and reports device time by
 kernel and the device's busy share (for the fused run: one device kernel
@@ -7231,6 +7269,585 @@ def phase_seq(smi):
     return rows
 
 
+# ------------------------------------------------------------- incubate
+#: FusedMultiTransformer at GPT-3 345M's widths (BASELINE.json config 2,
+#: PaddleFleetX's gpt 345M: E 1024, 16 heads of 64, FF 4096, 24 pre-LN
+#: layers, gelu) under a 50,304-row word embedding, 1,024 learned
+#: positions, a final LayerNorm and the tied output projection: the user
+#: code of a Paddle generation script around the fused stack
+FMT = dict(E=1024, heads=16, ffn=4096, layers=24, vocab=50304, pos=1024)
+#: 8 rows of distinct seeded 128-token prompts in a 1,024-row cache, then
+#: 64 greedy tokens: the prefill's and 63 one-token decode steps
+FMT_B, FMT_PROMPT, FMT_NEW, FMT_SMAX = 8, 128, 64, 1024
+#: the GQA leg: 2 layers over 4 KV heads
+FMT_GQA_LAYERS, FMT_GQA_KV = 2, 4
+#: the functionals' card-against-CPU checks in float64 (the seq phase's
+#: functional bound: their scores or norms are float32, as the
+#: reference's)
+FMT_FN_TOL = SEQ_FN_TOL
+
+
+def _fmt_model(layers, kv, dtype):
+    """The generation model around ``incubate.nn.FusedMultiTransformer``
+    on the card, from a seed (embeddings Normal(0, 0.02))."""
+    import paddle_tpu_torch as paddle
+    nn = paddle.nn
+    init = nn.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
+
+    class FusedLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.wte = nn.Embedding(FMT["vocab"], FMT["E"], weight_attr=init)
+            self.wpe = nn.Embedding(FMT["pos"], FMT["E"], weight_attr=init)
+            self.stack = paddle.incubate.nn.FusedMultiTransformer(
+                FMT["E"], FMT["heads"], FMT["ffn"], num_layers=layers,
+                kv_num_heads=kv)
+            self.ln_f = nn.LayerNorm(FMT["E"])
+
+        def embed(self, ids, start):
+            pos = paddle.arange(start, start + ids.shape[1])
+            return self.wte(ids) + self.wpe(pos)[None]
+
+        def logits(self, h):
+            return paddle.matmul(self.ln_f(h), self.wte.weight,
+                                 transpose_y=True)
+
+    paddle.set_device("gpu:0")
+    paddle.seed(23)
+    return FusedLM().to(dtype=dtype).eval()
+
+
+def _fmt_prompts():
+    import torch
+    gen = torch.Generator().manual_seed(29)
+    return torch.randint(0, FMT["vocab"], (FMT_B, FMT_PROMPT),
+                         generator=gen).cuda()
+
+
+def _fmt_generate(model, prompts, decode_attention):
+    """Greedy generation: the prompts' prefill at ``time_step`` 0, then
+    FMT_NEW - 1 one-token steps, each writing the cache in place. Returns
+    the tokens ``[B, FMT_NEW]``, the first decode step's logits (float32),
+    the decode steps' seconds and their ``decode`` launches."""
+    import torch
+    from paddle_tpu_torch import kernels
+    st = model.stack
+    st.decode_attention = decode_attention
+    B, P = prompts.shape
+    cache = torch.zeros(st.num_layers, 2, B, FMT_SMAX, st.kv_num_heads,
+                        st.head_dim, dtype=st.qkv_weight.dtype,
+                        device="cuda")
+    with torch.no_grad():
+        h, cache = st(model.embed(prompts, 0), caches=cache, time_step=0)
+        tok = model.logits(h[:, -1]).argmax(-1)
+        toks, first = [tok], None
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for t in range(P, P + FMT_NEW - 1):
+            h, cache = st(model.embed(tok[:, None], t), caches=cache,
+                          time_step=t)
+            logits = model.logits(h[:, -1])
+            if first is None:
+                first = logits.float()
+            tok = logits.argmax(-1)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernels.LAUNCHES["decode"]
+    return torch.stack(toks, 1).cpu(), first, secs, launches
+
+
+def _fmt_leg(smi, label, model, dtype_name):
+    """One model through the kernels, then its plain path: launches
+    exactly layers x decode steps (0 plain), fp32 streams equal, bf16
+    first decode step's logits within the scaled bound (partings
+    reported); decode ms a step and tok/s of each."""
+    import torch
+    prompts = _fmt_prompts()
+    layers = model.stack.num_layers
+    runs = {mode: _fmt_generate(model, prompts, mode)
+            for mode in ("pallas", "jnp")}
+    (tk, fk, sk, lk), (tp, fp, sp, lp) = runs["pallas"], runs["jnp"]
+    steps = FMT_NEW - 1
+    want = layers * steps
+    row = {"phase": "incubate", "run": label, "card": smi,
+           "dtype": dtype_name, "layers": layers,
+           "kv_heads": model.stack.kv_num_heads, "rows": FMT_B,
+           "prompt": FMT_PROMPT, "new_tokens": FMT_NEW, "s_max": FMT_SMAX,
+           "decode_launches": lk, "decode_launches_plain": lp,
+           "decode_launches_expected": want,
+           "streams_equal": bool(torch.equal(tk, tp)),
+           "first_parting": _first_parting(tk.tolist(), tp.tolist()),
+           "decode_ms_per_step": 1e3 * sk / steps,
+           "decode_ms_per_step_plain": 1e3 * sp / steps,
+           "tok_s": FMT_B * steps / sk, "tok_s_plain": FMT_B * steps / sp}
+    if dtype_name == "bfloat16":
+        err, rel = _compare_scaled("fmt first decode logits", dtype_name,
+                                   fk, fp)
+        row.update(first_logits_err=err, first_logits_err_over_max=rel)
+    else:
+        row["first_logits_err"] = _compare(
+            "fmt first decode logits", dtype_name, fk, fp)
+    emit(row)
+    if lk != want or lp:
+        raise RuntimeError(f"incubate {label}: decode launches {lk} "
+                           f"(plain {lp}), want {want} (plain 0)")
+    if dtype_name == "float32" and not row["streams_equal"]:
+        raise RuntimeError(f"incubate {label}: greedy streams part, "
+                           f"kernels vs plain, at {row['first_parting']}")
+    return row
+
+
+def _fmt_decode_row(dev, gen):
+    """The dense decode kernel alone at the stack's decode shapes (bf16):
+    8 rows over a 1,024-row cache, 16 heads of 64 over 16 KV heads,
+    lengths 129..192, NaN past each length; against its plain version
+    (``TOL``, the same bits twice), its events and profiler times, the
+    plain version's and SDPA's on the same cache, and its byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import decode
+    H, D = FMT["heads"], FMT["E"] // FMT["heads"]
+    dtype = torch.bfloat16
+    lo, hi = FMT_PROMPT + 1, FMT_PROMPT + FMT_NEW
+    lengths = [lo + (hi - lo) * i // (FMT_B - 1) for i in range(FMT_B)]
+    k = torch.randn(FMT_B, FMT_SMAX, H, D, generator=gen, device=dev) \
+        .to(dtype)
+    v = torch.randn(FMT_B, FMT_SMAX, H, D, generator=gen, device=dev) \
+        .to(dtype)
+    for b, n in enumerate(lengths):
+        k[b, n:] = v[b, n:] = float("nan")
+    q = torch.randn(FMT_B, H, D, generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    run = lambda: decode.decode_attention(q, k, v, lens)  # noqa: E731
+    plain = lambda: decode.decode_attention_reference(  # noqa: E731
+        q, k, v, lens)
+    got = run()
+    err = _compare("decode:fmt", "bfloat16", got, plain())
+    if not torch.equal(got, run()):
+        raise RuntimeError("decode:fmt: two launches differ")
+    kd = torch.nan_to_num(k).transpose(1, 2).contiguous()
+    vd = torch.nan_to_num(v).transpose(1, 2).contiguous()
+    mask = (torch.arange(FMT_SMAX, device=dev)[None, :]
+            < lens.long()[:, None])[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None, :], kd, vd, attn_mask=mask)
+    isz = 2
+    kv_rows = sum(lengths)
+    nbytes = 2 * kv_rows * H * D * isz + 2 * q.numel() * isz \
+        + 4 * len(lengths)
+    flops = 4 * kv_rows * H * D
+    g = dict(decode.LAST_GRID)
+    row = {"name": "decode:fmt", "dtype": "bfloat16", "max_abs_err": err,
+           "tol": dict(zip(("atol", "rtol"), TOL["bfloat16"])),
+           "lengths": lengths, "s_max": FMT_SMAX, "heads": [H, H, D],
+           "split_len": g["split_len"], "n_split": g["n_split"],
+           "grid_blocks": g["blocks"], "bitwise_repeatable": True,
+           "ms": time_ms(run), "device_ms": device_ms(run),
+           "plain_ms": time_ms(plain, iters=3),
+           "library_ms": time_ms(lib), "bytes": nbytes, "flops": flops,
+           "bound_ms": bound_ms(nbytes, flops, "bfloat16"),
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / PEAK_FLOPS["bfloat16"] else "operations"),
+           "route": route("decode", "bfloat16")}
+    row["x_bound_device"] = row["device_ms"] / row["bound_ms"]
+    emit({"phase": "incubate", "check": "decode_row", **row})
+    return row
+
+
+def _fmt_qkvpacked(smi, dev, gen):
+    """``incubate.nn.functional.flash_attn_qkvpacked`` (the port's one
+    flash entry) at B=4, S=2048, 16 heads of 64, bf16, causal and not,
+    against the plain version (``TOL``): one forward launch a call, in
+    its mode's count."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels.flash_attention import _ref_attention
+    IF = paddle.incubate.nn.functional
+    qkv = torch.randn(4, 2048, 3, FMT["heads"], FMT["E"] // FMT["heads"],
+                      generator=gen, device=dev).to(torch.bfloat16)
+    out = {}
+    for causal in (False, True):
+        kernels.reset_launches()
+        got, _ = IF.flash_attn_qkvpacked(qkv, causal=causal,
+                                         training=False)
+        torch.cuda.synchronize()
+        name = "flash" if causal else "flash:full"
+        n = kernels.LAUNCHES[name]
+        want = _ref_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                              causal)
+        out[name] = {"max_abs_err": _compare(f"qkvpacked {name}",
+                                             "bfloat16", got, want),
+                     "launches": n}
+        if n != 1:
+            raise RuntimeError(f"flash_attn_qkvpacked causal={causal}: "
+                               f"{n} {name} launches, want 1")
+    emit({"phase": "incubate", "check": "flash_attn_qkvpacked",
+          "card": smi, "shape": [4, 2048, 3, FMT["heads"],
+                                 FMT["E"] // FMT["heads"]], **out})
+    return out
+
+
+def _fmt_functionals(smi):
+    """``masked_multihead_attention`` (8 rows, 16 heads of 64, a 1,024-row
+    cache, rows at their own lengths), ``variable_length_memory_efficient_
+    attention`` (8 x 16 heads x 128 x 64, causal, lengths apart) and
+    ``fused_bias_dropout_residual_layer_norm`` (8 x 128 x 1024, p 0.1) in
+    float64, the card against the CPU: outputs and gradients within
+    FMT_FN_TOL of their max, the written caches too, and the dropout's
+    uniform bits equal."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import random as prng
+    IF = paddle.incubate.nn.functional
+    H, D, E = FMT["heads"], FMT["E"] // FMT["heads"], FMT["E"]
+    r = np.random.RandomState(31)
+    x_mm = r.randn(FMT_B, 3 * H * D)
+    cache = r.randn(2, FMT_B, H, FMT_SMAX, D)
+    seq = FMT_PROMPT + 1 + 8 * np.arange(FMT_B)
+    qkv_vl = r.randn(3, FMT_B, H, FMT_PROMPT, D)
+    lens_vl = np.linspace(FMT_PROMPT // 2, FMT_PROMPT, FMT_B).astype(int)
+    x_ln, res_ln, b_ln = (r.randn(FMT_B, FMT_PROMPT, E), r.randn(
+        FMT_B, FMT_PROMPT, E), r.randn(E))
+    s_ln, c_ln = 1 + 0.1 * r.randn(E), 0.1 * r.randn(E)
+
+    def run(dev):
+        paddle.set_device(dev)
+        t = lambda a, g=True: paddle.to_tensor(  # noqa: E731
+            np.array(a), dtype="float64", stop_gradient=not g)
+        xm, c = t(x_mm), t(cache, False)
+        om, c = IF.masked_multihead_attention(
+            xm, c, sequence_lengths=paddle.to_tensor(seq))
+        q, k, v = (t(a) for a in qkv_vl)
+        ov = IF.variable_length_memory_efficient_attention(
+            q, k, v, paddle.to_tensor(lens_vl), paddle.to_tensor(lens_vl),
+            causal=True)
+        xl, rl, bl, sl, cl = (t(a) for a in (x_ln, res_ln, b_ln, s_ln,
+                                             c_ln))
+        paddle.seed(37)
+        ol = IF.fused_bias_dropout_residual_layer_norm(
+            xl, rl, bl, sl, cl, dropout_rate=0.1, training=True)
+        loss = sum((o * o).sum() for o in (om, ov, ol))
+        loss.backward()
+        outs = {"mmha": om, "mmha_cache": c, "varlen": ov, "fbdrln": ol}
+        grads = {"mmha_x": xm.grad, "varlen_q": q.grad, "varlen_k": k.grad,
+                 "varlen_v": v.grad, "fbdrln_x": xl.grad,
+                 "fbdrln_res": rl.grad, "fbdrln_scale": sl.grad}
+        return {n: a.detach().cpu() for n, a in {**outs, **grads}.items()}
+
+    got, want = run("gpu:0"), run("cpu")
+    paddle.set_device("gpu:0")
+    errs = {n: float((got[n] - w).abs().max()) / max(
+        float(w.abs().max()), 1e-30) for n, w in want.items()}
+    key = prng.PRNGKey(37)
+    shape = (FMT_B, FMT_PROMPT, E)
+    bits_equal = bool(torch.equal(
+        prng.uniform_shaped(key, shape, device="cuda").cpu().view(
+            torch.int32),
+        prng.uniform_shaped(key, shape, device="cpu").view(torch.int32)))
+    emit({"phase": "incubate", "check": "functionals_card_vs_cpu_float64",
+          "card": smi, "tol": FMT_FN_TOL, "err_over_max": errs,
+          "dropout_uniform_bits_equal": bits_equal})
+    bad = {n: e for n, e in errs.items() if not e <= FMT_FN_TOL}
+    if bad or not bits_equal:
+        raise RuntimeError(f"incubate functionals card vs CPU: {bad}, "
+                           f"uniform bits equal: {bits_equal}")
+    return errs
+
+
+def phase_incubate(smi):
+    """``incubate``: FusedMultiTransformer generation at GPT-3 345M's
+    widths, 24 layers, every decode step's attention on the dense decode
+    kernel (``csrc/decode.cu``), in fp32 and bf16, kernels against the
+    stack's plain path (``decode_attention="jnp"``), and the GQA leg at 2
+    layers; the kernel alone at the path's shapes; the packed-QKV flash
+    entry; the functionals in float64 against the CPU. Returns the
+    ``decode:fmt`` row with its main path's launches (the bf16 leg's)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    _free()
+    model = _fmt_model(FMT["layers"], None, torch.float32)
+    legs = {"fp32": _fmt_leg(smi, "fp32", model, "float32")}
+    model.to(dtype=torch.bfloat16)
+    legs["bf16"] = _fmt_leg(smi, "bf16", model, "bfloat16")
+    del model
+    _free()
+    legs["gqa_fp32"] = _fmt_leg(
+        smi, "gqa_fp32", _fmt_model(FMT_GQA_LAYERS, FMT_GQA_KV,
+                                    torch.float32), "float32")
+    _free()
+    row = _fmt_decode_row(dev, gen)
+    row["launches"] = legs["bf16"]["decode_launches"]
+    row["launches_fp32"] = legs["fp32"]["decode_launches"]
+    row["launches_gqa"] = legs["gqa_fp32"]["decode_launches"]
+    _fmt_qkvpacked(smi, dev, gen)
+    _fmt_functionals(smi)
+    return row
+
+
+# ---------------------------------------------------------------- ernie
+#: ERNIE-ViL base (BASELINE.json config 4: ViT-B/16 at 224², a 12 x 768
+#: text tower of 64 tokens, embedding 512), 64 image-text pairs (one
+#: card's share of a data-parallel job), AdamW(0.9, 0.98, 1e-6, weight
+#: decay 0.2) at 5e-4, the CLIP recipe (Radford et al. 2021) that
+#: ERNIE-ViL 2.0's contrastive training follows
+VIL_B, VIL_LR = 64, 5e-4
+#: ERNIE 1.0 base (``ErnieConfig()``: 18,000 words, 12 x 768, 12 heads,
+#: FFN 3072) fine-tuned by ``ErnieForSequenceClassification`` with
+#: PaddleNLP's text-classification defaults: 32 x 128 tokens, dropout
+#: 0.1, AdamW at 5e-5
+ERNIE_B, ERNIE_S, ERNIE_LR = 32, 128, 5e-5
+#: each leg: 2 warm-up steps, then 3 timed steps, on a fresh model
+ERNIE_WARM, ERNIE_STEPS = 2, 3
+#: card against CPU in float64: float64 end to end (the CLIP loss, the
+#: patch embedding) to 1e-10 relative, gradients 1e-8 of their max. The
+#: models compute in float32 inside (``_sdpa``'s scores, every LayerNorm,
+#: the cross entropy, as the reference does), which sets a floor: at
+#: least 7.2e-7 (the seq phase's Transformer reads up to that), and
+#: otherwise twice the CPU's own distance from the same step with those
+#: casts kept in float64 (card and CPU each round that far from the
+#: all-float64 step, so they may differ by the sum)
+ERNIE_F64_LOSS_RTOL, ERNIE_F64_GRAD_TOL = 1e-10, 1e-8
+ERNIE_F32_FLOOR = 7.2e-7
+
+
+def _ernie_batch(name, dev):
+    """One seeded batch on ``dev``: 64 FakeData images through the
+    vision training transforms and 64-token ids for ERNIE-ViL; 32 x 128
+    ids, lengths 64..128 (the rest padded), and labels for ERNIE."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    r = np.random.RandomState(43)
+    if name == "ernie_vil":
+        (x, _), = list(_vision_loader(1, VIS_WORKERS, "thread", 43))
+        ids = r.randint(0, 30522, (VIL_B, 64))
+        return {"pixel_values": paddle.to_tensor(x, place=dev),
+                "input_ids": paddle.to_tensor(ids, place=dev)}
+    lens = r.randint(ERNIE_S // 2, ERNIE_S + 1, ERNIE_B)
+    mask = (np.arange(ERNIE_S)[None, :] < lens[:, None]).astype(np.int64)
+    ids = np.where(mask, r.randint(1, 18000, (ERNIE_B, ERNIE_S)), 0)
+    return {"input_ids": paddle.to_tensor(ids, place=dev),
+            "attention_mask": paddle.to_tensor(mask, place=dev),
+            "labels": paddle.to_tensor(r.randint(0, 2, ERNIE_B),
+                                       place=dev)}
+
+
+def _ernie_trainer(name, dev, **cfg):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import ernie, ernie_vil
+    paddle.set_device(dev)
+    paddle.seed(47)
+    if name == "ernie_vil":
+        model = ernie_vil.ErnieViLModel(ernie_vil.ernie_vil_base(**cfg))
+        opt = paddle.optimizer.AdamW(
+            learning_rate=VIL_LR, beta1=0.9, beta2=0.98, epsilon=1e-6,
+            weight_decay=0.2, parameters=model.parameters())
+    else:
+        model = ernie.ErnieForSequenceClassification(
+            ernie.ErnieConfig(**cfg), num_classes=2)
+        opt = paddle.optimizer.AdamW(learning_rate=ERNIE_LR,
+                                     parameters=model.parameters())
+    return model, opt
+
+
+def _ernie_leg(smi, name, amp):
+    """One model's training steps on the card, fp32 or O1 bf16: step ms
+    (ERNIE_STEPS after ERNIE_WARM), pairs/s or tokens/s, peak memory, one
+    profiled step's busy share; losses finite, no port kernel."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import kernels
+    _free()
+    model, opt = _ernie_trainer(name, "gpu:0")
+    batch = _ernie_batch(name, "gpu:0")
+    model.train()
+
+    def step():
+        with paddle.amp.auto_cast(enable=amp is not None, level="O1",
+                                  dtype="bfloat16"):
+            loss = model(**batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, step_s = [], []
+    for _ in range(ERNIE_WARM + ERNIE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = sum(kernels.LAUNCHES[n] for n in kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = _seq_profile(step)
+    mean_s = sum(step_s[ERNIE_WARM:]) / ERNIE_STEPS
+    c = getattr(model, "ernie", model).config
+    # ERNIE's dropout masks a step (ERNIE-ViL's towers have none): the
+    # attention probabilities, the residual and FFN activations of each
+    # layer, the embeddings and the pooled output
+    masks = [] if name == "ernie_vil" else [
+        ((ERNIE_B, c.num_attention_heads, ERNIE_S, ERNIE_S),
+         c.num_hidden_layers),
+        ((ERNIE_B, ERNIE_S, c.hidden_size), 2 * c.num_hidden_layers + 1),
+        ((ERNIE_B, ERNIE_S, c.intermediate_size), c.num_hidden_layers),
+        ((ERNIE_B, c.hidden_size), 1)]
+    mask_ms = _seq_masks_ms(masks)
+    work = ({"pairs_per_s": VIL_B / mean_s} if name == "ernie_vil" else
+            {"tokens_per_s": ERNIE_B * ERNIE_S / mean_s,
+             "sequences_per_s": ERNIE_B / mean_s})
+    row = {"phase": "ernie", "run": f"{name}_{'o1_bf16' if amp else 'fp32'}",
+           "card": smi, "params": sum(p.numel() for p in model.parameters()),
+           "losses": losses, "step_ms": [1e3 * t for t in step_s],
+           "mean_step_ms": 1e3 * mean_s, **work, "peak_mem_gb": peak,
+           "mask_ms_per_step": mask_ms,
+           "mask_share": mask_ms / (1e3 * mean_s),
+           "port_kernel_launches": launches, "profiled_step": prof}
+    emit(row)
+    del model, opt, batch
+    _free()
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"ernie {row['run']}: losses {losses}")
+    if launches:
+        raise RuntimeError(f"ernie {row['run']}: {launches} kernel launches "
+                           f"on a path that has no kernel of the port")
+    return row
+
+
+def _ernie_cpu_parity(smi):
+    """The card against the CPU in float64: ERNIE-ViL base at 2 + 2
+    layers (2 pairs at 224²) and ERNIE 1.0 base at 2 layers, both heads
+    (2 x 128 tokens, a padding mask, dropout 0.1 on: the same masks), at
+    the float32 floor (ERNIE_F32_FLOOR, or twice the CPU step's own
+    distance from its all-float64 twin); the CLIP loss and the patch
+    embedding alone, float64 end to end, at ERNIE_F64_LOSS_RTOL /
+    ERNIE_F64_GRAD_TOL."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import ernie, ernie_vil
+    r = np.random.RandomState(53)
+    px = r.randn(2, 3, 224, 224)
+    txt = r.randint(0, 30522, (2, 64))
+    lens = np.array([128, 77])
+    mask = (np.arange(128)[None, :] < lens[:, None]).astype(np.int64)
+    ids = np.where(mask, r.randint(1, 18000, (2, 128)), 0)
+    labels = np.where(r.rand(2, 128) < 0.15, r.randint(0, 18000, (2, 128)),
+                      -100)
+    feats = r.randn(2, 16, 512)
+    small = dict(num_hidden_layers=2)
+
+    def t(a, dev, **kw):
+        return paddle.to_tensor(a, place=dev, **kw)
+
+    # (name, model, loss, whether float32 inside sets a floor)
+    cases = [
+        ("ernie_vil_2_2", lambda: ernie_vil.ErnieViLModel(
+            ernie_vil.ernie_vil_base(vision_layers=2, text_layers=2)),
+         lambda m, d: m(t(px, d, dtype="float64"), t(txt, d)), True),
+        ("ernie_classify_2", lambda: ernie.ErnieForSequenceClassification(
+            ernie.ErnieConfig(**small)),
+         lambda m, d: m(t(ids, d), attention_mask=t(mask, d),
+                        labels=t(np.array([1, 0]), d)), True),
+        ("ernie_masked_lm_2", lambda: ernie.ErnieForMaskedLM(
+            ernie.ErnieConfig(**small)),
+         lambda m, d: m(t(ids, d), attention_mask=t(mask, d),
+                        labels=t(labels, d)), True),
+        ("clip_loss", _clip_head,
+         lambda m, d: m(t(feats[0], d, dtype="float64"),
+                        t(feats[1], d, dtype="float64")), False),
+        ("patch_embed", lambda: paddle.nn.Conv2D(3, 768, 16, stride=16,
+                                                 bias_attr=False),
+         lambda m, d: (m(t(px, d, dtype="float64")) ** 2).mean(), False),
+    ]
+    out, bad = {}, {}
+    for name, make, run, floored in cases:
+        lc, gc_, sd = _seq_step_on("cpu", make, run, 59)
+        lg, gg, _ = _seq_step_on("gpu:0", make, run, 59, sd)
+        if gc_.keys() != gg.keys():
+            raise RuntimeError(f"ernie card vs CPU {name}: gradients of "
+                               f"{sorted(gc_.keys() ^ gg.keys())} missing")
+        loss_tol, grad_tol = ERNIE_F64_LOSS_RTOL, ERNIE_F64_GRAD_TOL
+        floor = {}
+        if floored:
+            with _float64_inside():
+                le64, ge64, _ = _seq_step_on("cpu", make, run, 59, sd)
+            own = _seq_grad_errs(gc_, ge64)
+            floor = {"cpu_loss_vs_float64": abs(lc - le64) / abs(le64),
+                     "cpu_grad_vs_float64": max(own.values()),
+                     "cpu_worst_tensor": max(own, key=own.get)}
+            loss_tol = max(ERNIE_F32_FLOOR, 2 * floor["cpu_loss_vs_float64"])
+            grad_tol = max(ERNIE_F32_FLOOR, 2 * floor["cpu_grad_vs_float64"])
+        errs = _seq_grad_errs(gg, gc_)
+        le = abs(lg - lc) / abs(lc)
+        out[name] = {"loss_cpu": lc, "loss_rel_err": le,
+                     "grad_err_over_max": max(errs.values()),
+                     "worst_tensor": max(errs, key=errs.get),
+                     "tensors": len(errs), "loss_tol": loss_tol,
+                     "grad_tol": grad_tol, **floor}
+        if le > loss_tol or max(errs.values()) > grad_tol:
+            bad[name] = out[name]
+    paddle.set_device("gpu:0")
+    emit({"phase": "ernie", "check": "card_vs_cpu_float64", "card": smi,
+          "models": out})
+    if bad:
+        raise RuntimeError(f"ernie card vs CPU: {bad}")
+    return out
+
+
+@contextlib.contextmanager
+def _float64_inside():
+    """``.float()`` of a float64 tensor keeps it float64 inside: the
+    port's float32 casts (LayerNorm, ``_sdpa``'s scores, the cross
+    entropy) become no-ops, for the all-float64 step that measures the
+    floor those casts set."""
+    import torch
+    cast = torch.Tensor.float
+
+    def keep64(self, *a, **kw):
+        return self if self.dtype == torch.float64 else cast(self, *a, **kw)
+    torch.Tensor.float = keep64
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
+
+
+def _clip_head():
+    """A Layer whose forward is ERNIE-ViL's CLIP loss on given features,
+    with its own 0-d ``logit_scale``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.ernie_vil import _clip_loss
+
+    class ClipHead(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.logit_scale = self.create_parameter(
+                [], default_initializer=paddle.nn.initializer.Constant(
+                    2.659))
+            self.proj = paddle.nn.Linear(512, 512, bias_attr=False)
+
+        def forward(self, img, txt):
+            return _clip_loss(self.proj(img), self.proj(txt),
+                              self.logit_scale)
+    return ClipHead()
+
+
+def phase_ernie(smi):
+    """``ernie``: ERNIE-ViL base and ERNIE 1.0 base training steps on the
+    card, fp32 and O1 bf16; the card against the CPU in float64. No
+    kernel of the port is on this path."""
+    rows = [_ernie_leg(smi, m, amp) for m in ("ernie_vil", "ernie")
+            for amp in (None, "O1")]
+    _ernie_cpu_parity(smi)
+    return rows
+
+
 # ---------------------------------------------------------------- training
 # the deepest llama_7b cut whose whole train phase fits one 80 GB H100:
 # at 16 layers the accumulated step's update runs out of memory
@@ -7589,7 +8206,7 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
 
 
 #: the phases that launch no kernel of the port
-NO_KERNEL_PHASES = {"vision", "seq"}
+NO_KERNEL_PHASES = {"vision", "seq", "ernie"}
 
 
 def main(argv=None):
@@ -7597,7 +8214,7 @@ def main(argv=None):
     ap.add_argument("--phases",
                     default="kernels,engine,serve,generate,server,"
                             "fleet,tp,train_parity,train,substrate,vision,"
-                            "seq",
+                            "seq,incubate,ernie",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
                     help="repeat the four serve runs and one train "
@@ -7679,6 +8296,13 @@ def main(argv=None):
     # the sequence models and the long tail (no kernel of the port either)
     if "seq" in phases:
         timed("seq", phase_seq, smi)
+    # the incubate package: FusedMultiTransformer generating through the
+    # dense decode kernel (its second user path); then ERNIE and ERNIE-ViL
+    # training (no kernel of the port)
+    fmt_row = (timed("incubate", phase_incubate, smi)
+               if "incubate" in phases else {})
+    if "ernie" in phases:
+        timed("ernie", phase_ernie, smi)
     rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
     launches = {}
     if "engine" in phases:
@@ -7821,6 +8445,17 @@ def main(argv=None):
                                        "library_ms", "tflops",
                                        "device_ms")},
             "math": route(name, F16)})
+    # dense decode's second user path: FusedMultiTransformer's decode
+    # steps (launches: its bf16 24-layer kernel leg), timed at its shapes
+    kernels.append({
+        "name": "decode:fmt", "route": "cuda", "source": SOURCES["decode"],
+        "replaces": REPLACES["decode"], "dtype": "bfloat16",
+        "launches": fmt_row.get("launches", 0),
+        **{k: fmt_row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms", "device_ms",
+                                       "launches_fp32", "launches_gqa")},
+        "math": route("decode", "bfloat16")})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

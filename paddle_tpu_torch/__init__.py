@@ -9,7 +9,9 @@ Paddle-shaped substrate for eager training — dtypes and devices,
 layers, optimizers with LR schedulers and regularizers, AMP and
 ``save``/``load``; ``io`` (datasets, samplers, the DataLoader), the
 conv, pooling and spatial-norm layers and ``vision`` (datasets,
-transforms, ResNet) — so a Paddle-style script runs as
+transforms, ResNet), ``geometric``, ``incubate`` (the fused layers,
+``FusedMultiTransformer`` decoding through the dense decode kernel) and
+the ERNIE models — so a Paddle-style script runs as
 ``import paddle_tpu_torch as paddle``. The Tensor is ``torch.Tensor``. It
 imports neither JAX nor ``paddle_tpu``. New tensors go on ``"gpu:0"``
 unless the caller asks for the CPU (``set_device("cpu")``); importing
@@ -31,6 +33,7 @@ from .ops import *  # noqa: F401,F403
 from . import ops  # noqa: F401
 from . import amp, autograd, framework, jit, nn, optimizer  # noqa: F401
 from . import io, regularizer, vision  # noqa: F401
+from . import geometric, incubate  # noqa: F401
 from .framework.io import load, save  # noqa: F401
 
 bool = bool_  # paddle.bool

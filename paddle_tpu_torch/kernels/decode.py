@@ -16,8 +16,9 @@ is paged decode's with the capacity ``S_max``. Nothing past a row's length
 is fetched. Full-precision caches only (float32, bfloat16).
 
 :func:`decode_attention` is the wrapper: plain version for CPU tensors,
-the kernel for CUDA tensors. :func:`decode_attention_reference` is the
-plain version, and the paged decode's plain version builds on it.
+the kernel for CUDA tensors; like the reference's entry it is
+inference-only (a backward raises). :func:`decode_attention_reference`
+is the plain version, and the paged decode's plain version builds on it.
 :data:`LAST_GRID` records the last launch's split and grid.
 """
 from __future__ import annotations
@@ -72,10 +73,35 @@ def decode_attention_reference(q, k_cache, v_cache, lengths):
                         v).to(q.dtype)
 
 
+class _InferenceOnly(torch.autograd.Function):
+    """Decode attention that refuses a backward, as the reference's
+    ``custom_vjp`` rule does (``pallas_decode.py:154``): a one-token
+    decode never backpropagates, and the kernel has no backward."""
+
+    @staticmethod
+    def forward(ctx, q, k_cache, v_cache, lengths):
+        return _decode_attention(q, k_cache, v_cache, lengths)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "decode_attention is inference-only (single-token decode "
+            "never backpropagates); use the flash-attention kernel for "
+            "training attention")
+
+
 def decode_attention(q, k_cache, v_cache, lengths):
     """Single-token attention over a dense per-slot cache: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors. Same
-    arguments as :func:`decode_attention_reference`."""
+    arguments as :func:`decode_attention_reference`. Inference-only: a
+    backward through it raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_cache, v_cache)):
+        return _InferenceOnly.apply(q, k_cache, v_cache, lengths)
+    return _decode_attention(q, k_cache, v_cache, lengths)
+
+
+def _decode_attention(q, k_cache, v_cache, lengths):
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":

@@ -1220,3 +1220,51 @@ def test_quantized_engines_kernels_vs_plain(cuda_dev, knob):
     fused = knob.get("fused_tick") and not knob.get("quantize_activations")
     assert launches[True]["fused_decode_tick" if fused
                           else "paged_decode"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kv", [None, 4], ids=["mha", "gqa"])
+def test_fused_multi_transformer_decode_vs_plain(cuda_dev, dtype, kv):
+    """``incubate.nn.FusedMultiTransformer`` at GPT-3 345M's widths (E
+    1024, 16 heads of 64, FF 4096), 2 layers, MHA and GQA over 4 KV heads:
+    after a 16-row prefill, each one-token step through the dense decode
+    kernel (``decode_attention="pallas"``, 2 launches a step) against the
+    same step on its masked-softmax path (``"jnp"``) from the same cache:
+    hidden states and the appended cache rows within ``TOL``, and the
+    same bits on a second launch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    prev = paddle.get_device()
+    paddle.set_device("gpu:0")
+    paddle.seed(7)
+    try:
+        layer = FusedMultiTransformer(1024, 16, 4096, num_layers=2,
+                                      kv_num_heads=kv).to(dtype=dtype)
+    finally:
+        paddle.set_device(prev)
+    B, P, steps, s_max = 4, 16, 6, 64
+    gen = torch.Generator(device=cuda_dev).manual_seed(3)
+    x = torch.randn(B, P + steps, 1024, generator=gen,
+                    device=cuda_dev).to(dtype)
+    cache = torch.zeros(2, 2, B, s_max, kv or 16, 64, dtype=dtype,
+                        device=cuda_dev)
+    atol, rtol = TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
+    with torch.no_grad():
+        layer(x[:, :P], caches=cache, time_step=0)
+        for t in range(P, P + steps):
+            outs = {}
+            for mode in ("pallas", "pallas", "jnp"):
+                layer.decode_attention = mode
+                c = cache.clone()
+                reset_launches()
+                h, c = layer(x[:, t:t + 1], caches=c, time_step=t)
+                assert LAUNCHES["decode"] == (2 if mode == "pallas" else 0)
+                outs.setdefault(mode, []).append((h, c))
+            (h1, c1), (h2, c2) = outs["pallas"]
+            hp, cp = outs["jnp"][0]
+            assert torch.equal(h1, h2) and torch.equal(c1, c2)
+            for got, want in ((h1, hp), (c1[:, :, :, t], cp[:, :, :, t])):
+                g, w = got.float(), want.float()
+                assert bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+            cache = cp

@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
 2. build   — compile the CUDA sources of ``paddle_tpu_torch/csrc`` (eight
              kernels in thirteen libraries, one ``nvcc`` each, in
              parallel), in a thread, while the card runs the
-             substrate's GPT-3 345M legs (no kernel of the port).
+             substrate's GPT-3 345M legs and then ``hapi``'s checks (no
+             kernel of the port).
 3. kernels — each kernel against its plain PyTorch version, bf16 and fp32:
              the three serving kernels of the default engine and the
              dense-cache decode kernel (B=8, S_max=4096, lengths 1 to
@@ -373,6 +374,55 @@ Phases, each printing one JSON line; any failure exits nonzero:
              its all-float64 twin), the CLIP loss and the patch embedding
              at 1e-10 (gradients 1e-8). No kernel of the port.
 
+16. llama13b — run after the 7B model is freed (the two never live
+             together): LLaMA-13B (``llama_13b``: 40 query heads over 40
+             KV heads of 128, hidden 5120, FFN 13824, 40 layers). Each
+             serving kernel against its plain version at that geometry
+             in bf16, at the ``kernels`` phase's shapes: ragged attention
+             (the packed tick-0 buffer, both grids, the edge spans),
+             paged and dense decode (B=8, S_max 4096, lengths 1-4096),
+             the flash forward (B=4, S=512 and 2048) and the fused tick
+             at 13B widths, 2 layers, 8 and 37 rows; the same bits on two
+             launches (the ``@13b`` rows). Then 13B widths at 2 layers in
+             fp32 through the default, fused-tick and dense engines,
+             kernels against plain (streams equal, each engine's own
+             kernel only with the kernels on, the fused streams the
+             default's). Then the whole model in bf16 (26.0 GB of seeded
+             weights) on the serve phase's 8 requests through the three
+             engines, one freed before the next (launches the code's
+             count at 40 layers, the fused run's tick timed against the
+             scanned tick), and ``model.generate`` (B=4 x 128, 64 greedy
+             tokens) against a direct engine run.
+
+17. hapi   — its checks beside the kernel build, after the GPT legs
+             (the card idles there; the 15-layer train step still fits
+             after them), its timed legs after ``ernie``: the Paddle
+             quick start through
+             ``paddle.Model``: LeNet on MNIST-shaped FakeData, Adam on a
+             StepDecay rate, ``Accuracy``, ``fit`` one epoch of 20
+             batches of 64 with ``eval_data`` under ``EarlyStopping``,
+             ``ModelCheckpoint``, ``LRScheduler``, ``ReduceLROnPlateau``
+             and ``VisualDL`` (losses finite and falling, the rate stepped
+             twice a batch as the reference steps it, the checkpoint
+             files and ``scalars.jsonl`` written), ``evaluate``,
+             ``predict``, ``save``/``load`` resuming bit for bit. Then
+             ``mobilenet_v2`` at 224², batch 64, from FakeData through
+             the vision training transforms through ``Model.fit`` (the
+             vision phase's optimizer; 2 warm-up and 5 timed steps in
+             fp32: step ms, images/s, peak memory, ``paddle.flops``
+             beside the published 300 M multiply-adds); one fp32 step of
+             each other new family at batch 16 (AlexNet, VGG-16,
+             SqueezeNet 1.1, MobileNet V1 and V3 large, ShuffleNetV2 1.0,
+             DenseNet-121, GoogLeNet, InceptionV3 at 299²); the card
+             against the CPU in float64 (LeNet, MobileNetV3 small,
+             ShuffleNetV2 0.25, DenseNet-121 at batch 2, float64 end to
+             end, the cross entropy's float32 cast made a no-op: loss
+             1e-10, gradients 1e-8 of their max; the step with the cast
+             reported beside each device's distance from float64) and
+             every ``vision.ops`` function (values
+             1e-10, gradients 1e-8 of their max, indices equal). No
+             kernel of the port.
+
 ``--profile`` repeats the four serve runs, the ``tp=2`` serve run and
 one train step under ``torch.profiler`` and reports device time by
 kernel and the device's busy share (for the fused run: one device kernel
@@ -389,6 +439,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -453,12 +504,18 @@ DIMS_KERNELS = ("paged_decode", "decode", "ragged_attention", "flash",
 #: (which they refused before Queue C 7)
 BWD_DIMS = {"d16": DIMS["d16"], "d40": DIMS["d40"], "d80": DIMS["d80"],
             "d96": DIMS["d96"], "d256": D256}
+#: LLaMA-13B (``llama_13b``, Queue A step 12c): 40 query heads over 40 KV
+#: heads of 128 (the first head count neither 32 nor a power of two),
+#: hidden 5120, FFN 13824, 40 layers
+H13 = Heads(40, 40, 128)
+#: the serving kernels held at 13B's geometry (the ``@13b`` rows)
+L13_KERNELS = ("ragged_attention", "paged_decode", "flash", "decode",
+               "fused_decode_tick")
 
 
 def _heads_kw(heads):
     """The llama_7b overrides of head geometry ``heads`` (hidden h * d)."""
-    return {"num_attention_heads": heads.h,
-            "num_key_value_heads": heads.hkv,
+    return {"num_attention_heads": heads.h, "num_key_value_heads": heads.hkv,
             "hidden_size": heads.h * heads.d}
 
 
@@ -534,21 +591,77 @@ def time_ms(fn, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters=20):
-    """The device time of one call of ``fn``: its kernels' time by the
-    profiler over ``iters`` calls. ``time_ms``'s events time calls back
-    to back, which a wrapper's host work can hold up when the kernel is
-    shorter than it."""
+_SPIN_CYCLES_PER_MS = []
+
+
+def _spin_cycles_per_ms():
+    """Clock cycles of ``torch.cuda._sleep`` a millisecond on this card,
+    measured once."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    if not _SPIN_CYCLES_PER_MS:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10 ** 6)
+        a.record()
+        torch.cuda._sleep(10 ** 7)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(10 ** 7 / a.elapsed_time(b))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def device_ms(fn, iters=20):
+    """The device time of one call of ``fn`` by CUDA events, with a spin
+    kernel (``torch.cuda._sleep``) holding the stream while the host
+    enqueues, so that a wrapper's host work, which ``time_ms``'s events
+    time when it is longer than the kernel, does not show: ``iters``
+    calls back to back behind one spin (the fused tick's rows pass their
+    row metadata on the card, ``_meta_on_card``, as its wrapper's copy
+    from the host waits on the card). A call that waits on the device
+    cannot be run ahead of: then each call is timed behind a spin of its
+    own, which counts the host work after its wait, and a line says so.
+    Raises on a time that is not positive. Not ``torch.profiler``: late
+    in a long process it drops kernel records (a full smoke run read 0.0
+    for kernels that launched)."""
+    import torch
+
+    def spin(ms):
+        torch.cuda._sleep(int(ms * _spin_cycles_per_ms()))
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    held, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    held.record()
+    spin(2 * host_ms + 2)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    b.record()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    if enqueue_ms < held.elapsed_time(a):
+        ms = a.elapsed_time(b) / iters
+    else:
+        emit({"check": "device_ms", "a_call_at_a_time": repr(fn),
+              "enqueue_ms": enqueue_ms, "spin_ms": held.elapsed_time(a)})
+        total = 0.0
         for _ in range(iters):
+            spin(2 * host_ms / iters + 0.5)
+            a.record()
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.self_device_time_total > 0) / 1e3 / iters
+            b.record()
+            torch.cuda.synchronize()
+            total += a.elapsed_time(b)
+        ms = total / iters
+    if not ms > 0:
+        raise RuntimeError(f"device_ms: {ms} ms a call")
+    return ms
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -1400,6 +1513,25 @@ def tick_inputs(dtype, dev, gen, layers, pools=None, rows=SLOTS,
                 temps=temps, top_ks=topks)
 
 
+def _meta_on_card(t):
+    """Tick inputs ``t`` with the rows' lengths, append mask, top-k,
+    temperatures and keys on the card, as the multi-tick tail keeps them:
+    the fused tick's wrapper then copies nothing from the host and waits
+    on nothing, so ``device_ms`` can keep the host ahead of the card."""
+    import numpy as np
+    import torch
+    dev = t["tok"].device
+
+    def card(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(x).astype(dtype))).to(dev)
+    keys = np.asarray(t["kys"], np.int64).astype(np.uint32).view(np.int32)
+    return dict(t, lens=card(t["lens"], np.int32),
+                app_mask=card(t["app_mask"], np.int32),
+                top_ks=card(t["top_ks"], np.int32),
+                temps=card(t["temps"], np.float32), kys=card(keys, np.int32))
+
+
 def _weight_bytes(w, isz):
     """Bytes of a weight: dense at the model type, or an int8 pair (int8
     data and float32 scales)."""
@@ -1690,10 +1822,10 @@ def _layer0_attention_bits(p, tied, t, *, heads):
     return same
 
 
-def fused_case(name, dtype_name, dev, gen, *, heads):
+def fused_case(name, dtype_name, dev, gen, *, heads, config=None):
     """The fused tick kernel against its plain version (the scanned tick
-    with the plain paged attention) at llama_7b widths, 2 layers, at 8 and
-    at 37 rows (``_fused_vs_plain``); the layer-0 attention bit for bit
+    with the plain paged attention) at the widths of ``config`` (else
+    llama_7b's at ``heads``), 2 layers, at 8 and at 37 rows (``_fused_vs_plain``); the layer-0 attention bit for bit
     against paged decode at both; kernel, plain and scanned-tick (the
     kernels' tick without fusion) milliseconds, the grid and the byte
     bound."""
@@ -1703,9 +1835,10 @@ def fused_case(name, dtype_name, dev, gen, *, heads):
                                                llama_decode_params)
     dtype = getattr(torch, dtype_name)
     isz = torch.tensor([], dtype=dtype).element_size()
-    model = LlamaForCausalLM(llama_7b(num_hidden_layers=FUSED_LAYERS,
-                                      dtype=dtype_name, **_heads_kw(heads)),
-                             device=dev, seed=6)
+    cfg = dataclasses.replace(
+        config or llama_7b(**_heads_kw(heads)),
+        num_hidden_layers=FUSED_LAYERS, dtype=dtype_name)
+    model = LlamaForCausalLM(cfg, device=dev, seed=6)
     p, tied = llama_decode_params(model)
     t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, heads=heads)
     logits_err, rows_err, tokens_equal, want_logits = _fused_vs_plain(
@@ -1729,6 +1862,7 @@ def fused_case(name, dtype_name, dev, gen, *, heads):
     del twice
     torch.cuda.empty_cache()
     run_t = dict(t, pool_k=t["pool_k"].clone(), pool_v=t["pool_v"].clone())
+    card_t = _meta_on_card(run_t)
     nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz, heads=heads)
     row = {"name": name, "dtype": dtype_name,
            "layers": FUSED_LAYERS, "rows": SLOTS,
@@ -1741,7 +1875,7 @@ def fused_case(name, dtype_name, dev, gen, *, heads):
            "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied,
                                        run_t, heads=heads)),
            "device_ms": device_ms(lambda: _tick(fdt.fused_decode_tick, p,
-                                                tied, run_t, heads=heads)),
+                                                tied, card_t, heads=heads)),
            **{k: fdt.LAST_GRID[k] for k in ("blocks_per_sm", "split_len",
                                              "n_split")},
            "grid_blocks": fdt.LAST_GRID["blocks"],
@@ -1756,7 +1890,7 @@ def fused_case(name, dtype_name, dev, gen, *, heads):
            "bound_ms": bound_ms(nbytes, flops, dtype_name),
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         >= flops / PEAK_FLOPS[dtype_name] else "operations")}
-    del run_t, t
+    del run_t, card_t, t
     torch.cuda.empty_cache()
     # past the old row cap: 37 rows, lengths 0..800
     t = tick_inputs(dtype, dev, gen, FUSED_LAYERS, rows=FUSED_WIDE_ROWS,
@@ -2150,6 +2284,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads,
                                    f"the paged decode kernel")
             run_t = dict(t, pool_k=_clone_pool(t["pool_k"]),
                          pool_v=_clone_pool(t["pool_v"]))
+            card_t = _meta_on_card(run_t)
             nbytes, flops = tick_cost(p, t, FUSED_LAYERS, isz, heads=heads)
             part = {"rows": rows, "logits_err": logits_err,
                     "logits_err_of_max_ref": rel,
@@ -2160,7 +2295,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads,
                     "ms": time_ms(lambda: _tick(fdt.fused_decode_tick, p,
                                                 tied, run_t, heads=heads)),
                     "device_ms": device_ms(lambda: _tick(
-                        fdt.fused_decode_tick, p, tied, run_t, heads=heads)),
+                        fdt.fused_decode_tick, p, tied, card_t, heads=heads)),
                     "grid_blocks": fdt.LAST_GRID["blocks"],
                     "blocks_per_sm": fdt.LAST_GRID["blocks_per_sm"],
                     "scanned_tick_ms": time_ms(lambda: _tick(
@@ -2215,7 +2350,7 @@ def fused_quant_cases(dtype_name, dev, gen, base_ms, *, heads,
             else:
                 row["wide"] = part
                 row["max_abs_err"] = max(row["max_abs_err"], logits_err)
-            del t, run_t, want
+            del t, run_t, card_t, want
             torch.cuda.empty_cache()
         emit({"phase": "kernels", **row})
         out[mode] = row
@@ -2506,19 +2641,17 @@ ENGINES = (("default", {}, None),
            ("dense", {"paged_attn": False}, "decode"))
 
 
-def phase_engine():
-    """fp32, 2 layers, for the default, the fused-tick and the dense
-    engine: kernels vs plain versions, greedy streams equal; the engine's
-    own kernel launches with the kernels on and never with them off; the
-    fused engine's streams equal the default engine's."""
+def _three_engines(model, cfg, phase):
+    """``model`` (2 layers, fp32) through the default, the fused-tick and
+    the dense engine: kernels vs plain versions, greedy streams equal; the
+    engine's own kernel launches with the kernels on and never with them
+    off; the fused engine's streams equal the default engine's. Returns
+    each engine's streams with the kernels on."""
     import torch
     from paddle_tpu_torch.flags import set_flags
     from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                           GenerationRequest)
-    cfg = llama_7b(num_hidden_layers=2, dtype="float32")
-    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
     on_streams = {}
     for label, knob, own in ENGINES:
         streams, launches, own_launches = {}, {}, {}
@@ -2540,8 +2673,9 @@ def phase_engine():
             set_flags({"FLAGS_use_cuda_kernels": True})
         same = streams[True] == streams[False]
         on_streams[label] = streams[True]
-        emit({"phase": "engine", "engine": label, "layers": 2,
-              "dtype": "float32", "greedy_streams_equal": same,
+        emit({"phase": phase, "engine": label,
+              "layers": cfg.num_hidden_layers, "dtype": cfg.dtype,
+              "greedy_streams_equal": same,
               "tokens": sum(len(s) for s in streams[True]),
               "launches_kernels": launches[True],
               "launches_plain": launches[False],
@@ -2557,11 +2691,22 @@ def phase_engine():
             raise RuntimeError(f"engine {label}: greedy streams differ: "
                                f"{streams}")
     fused_same = on_streams["fused_tick"] == on_streams["default"]
-    emit({"phase": "engine", "check": "fused_tick_vs_default",
+    emit({"phase": phase, "check": "fused_tick_vs_default",
           "greedy_streams_equal": fused_same})
     if not fused_same:
         raise RuntimeError(f"fused-tick streams differ from the default "
                            f"engine's: {on_streams}")
+    return on_streams
+
+
+def phase_engine():
+    """fp32, 2 layers, the three engines kernels vs plain
+    (``_three_engines``), then the knobs and geometries below."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    cfg = llama_7b(num_hidden_layers=2, dtype="float32")
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    on_streams = _three_engines(model, cfg, "engine")
     _engine_wide(model, cfg)
     # the kernels line's D = 256 rows are the bf16 routes: their launches
     # come from the bf16 leg
@@ -3628,7 +3773,12 @@ def _expected_serve_launches(label, eng, layers):
     st = eng.stats
     label = QUANT_SERVE_BASE.get(label, label)
     if label == "default":
-        return {"flash": "+", "ragged_attention": "+", "paged_decode": "+",
+        # tick 0 of every unified step through ragged attention, every
+        # tail tick (decode ticks past tick 0 of a step) through paged
+        # decode, each once a layer
+        return {"flash": "+", "ragged_attention": layers
+                * st["unified_steps"], "paged_decode": layers
+                * (st["decode_steps"] - st["decode_calls"]),
                 "fused_decode_tick": 0, "decode": 0}
     if label == "fused_tick":
         # one launch per tail tick (decode ticks past tick 0 of a step),
@@ -3652,7 +3802,7 @@ def _expected_serve_launches(label, eng, layers):
             "fused_decode_tick": 0, "decode": layers * st["decode_steps"]}
 
 
-def fused_tick_timing(eng, layers):
+def fused_tick_timing(eng, layers, heads=HEADS):
     """One tail tick at the serve geometry and depth on the engine's pool:
     the fused kernel and the scanned tick through the kernels (CUDA
     events), beside the tick's byte bound; and the fused tick again with
@@ -3663,28 +3813,29 @@ def fused_tick_timing(eng, layers):
     pools = [side[0] for side in eng.cache.kv_args()]     # the one shard
     dt = eng._params["embed"].dtype
     dev = eng.cache.pool.k[0].device
-    t = tick_inputs(dt, dev, None, layers, pools=pools, heads=HEADS)
+    t = tick_inputs(dt, dev, None, layers, pools=pools, heads=heads)
     t1 = tick_inputs(dt, dev, None, layers, pools=pools, lens=[1] * SLOTS,
-                     heads=HEADS)
+                     heads=heads)
     p, tied = eng._params, eng._tied
     nbytes, flops = tick_cost(p, t, layers,
                               torch.tensor([], dtype=dt).element_size(),
-                              heads=HEADS)
+                              heads=heads)
     tick = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t,
-                                 heads=HEADS))
+                                 heads=heads))
     grid = dict(fdt.LAST_GRID)
     tick1 = time_ms(lambda: _tick(fdt.fused_decode_tick, p, tied, t1,
-                                  heads=HEADS))
+                                  heads=heads))
     return {"tick_ms": tick, "grid_blocks": grid["blocks"],
             "blocks_per_sm": grid["blocks_per_sm"],
             "tick_len1_ms": tick1, "attention_ms": tick - tick1,
             "scanned_tick_ms": time_ms(lambda: _tick(_scanned_tick, p,
-                                                     tied, t, heads=HEADS)),
+                                                     tied, t, heads=heads)),
             "tick_bytes": nbytes,
             "tick_bound_ms": bound_ms(nbytes, flops, "bfloat16")}, t
 
 
-def _serve_run(model, cfg, reqs, label, knob, profile):
+def _serve_run(model, cfg, reqs, label, knob, profile, heads=HEADS,
+               phase="serve"):
     """One measured serve run of one engine: a warm-up run first, counts
     set to 0 just before the measured run and read just after it."""
     import torch
@@ -3714,7 +3865,7 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
             raise RuntimeError("token id out of the vocabulary")
     decoded = sum(len(t) for t in toks)
     want = _expected_serve_launches(label, eng, cfg.num_hidden_layers)
-    line = {"phase": "serve", "engine": label, "knobs": knob,
+    line = {"phase": phase, "engine": label, "knobs": knob,
             "layers": cfg.num_hidden_layers, "dtype": "bfloat16",
             "requests": len(reqs), "decoded_tokens": decoded,
             "wall_s": wall, "decoded_tok_per_s": decoded / wall,
@@ -3730,7 +3881,7 @@ def _serve_run(model, cfg, reqs, label, knob, profile):
             "first_tokens": [t[:4] for t in toks]}
     tick = None
     if knob.get("fused_tick"):
-        timing, tick = fused_tick_timing(eng, cfg.num_hidden_layers)
+        timing, tick = fused_tick_timing(eng, cfg.num_hidden_layers, heads)
         line.update(timing)
     if label in QUANT_SERVE_BASE:
         line.update(kv_dtype=eng.kv_dtype,
@@ -4104,18 +4255,19 @@ def _launch_check(label, got, want):
         raise RuntimeError(f"{label} launches (got, expected): {bad}")
 
 
-def phase_generate(model):
-    """``model.generate`` at llama_7b width (32 layers, bf16): B=4 prompts
-    of 128 tokens, 64 new tokens, greedy and then seeded top-k twice (the
-    two equal); both equal a direct engine run with the same keys; flash,
-    ragged and paged decode launches equal what the code implies. Then
-    the fp32 check at 7B widths, 2 layers: kernels vs plain versions."""
+def _generate_vs_direct(model, phase, legs):
+    """``model.generate`` at the model's width and depth: B=4 prompts of
+    128 tokens, 64 new tokens, one run a leg (``legs``: label -> its
+    sampling keywords), each equal to a direct
+    ``ContinuousBatchingEngine(num_slots=4, prefill_bucketing="exact",
+    decode_chunk=16)`` run with generate's fold_in keys; flash, ragged and
+    paged decode launches equal what the code implies. Emits the
+    ``phase`` line; returns the prompts, the launches the code implies
+    and each leg's (ids, seconds, launches)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.core import random as prng
-    from paddle_tpu_torch.flags import set_flags
     from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                           GenerationRequest)
     cfg = model.config
@@ -4123,10 +4275,8 @@ def phase_generate(model):
     ids = np.random.RandomState(17).randint(
         0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
     model.generate(ids[:, :32], max_new_tokens=4)          # warm-up
-    sampled = dict(temperature=0.8, top_k=40, seed=5)
     runs = {}
-    for label, kw in (("greedy", {}), ("top_k", sampled),
-                      ("top_k_again", sampled)):
+    for label, kw in legs.items():
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -4137,10 +4287,9 @@ def phase_generate(model):
     steps, tail = _generate_ticks(GEN_NEW, GEN_CHUNK)
     want = {"flash": L, "ragged_attention": L * steps,
             "paged_decode": L * tail, "fused_decode_tick": 0, "decode": 0}
-    # the direct engine with generate's own geometry and fold_in keys
-    direct = {}
-    for label, kw in (("greedy", dict(seed=0)), ("top_k", sampled)):
-        base = prng.PRNGKey(kw["seed"])
+    same = {}
+    for label, kw in legs.items():
+        base = prng.PRNGKey(kw.get("seed", 0))
         eng = ContinuousBatchingEngine(
             model, num_slots=GEN_BATCH, max_seq_len=GEN_PROMPT + GEN_NEW,
             prefill_bucketing="exact", decode_chunk=GEN_CHUNK)
@@ -4150,10 +4299,11 @@ def phase_generate(model):
             top_k=kw.get("top_k", 0),
             prng_key=prng.fold_in(base, i).numpy())
             for i in range(GEN_BATCH)])
-        direct[label] = np.stack([np.asarray(o) for o in outs])
+        same[label] = bool(np.array_equal(
+            runs[label][0], np.stack([np.asarray(o) for o in outs])))
         del eng
     tokens = GEN_BATCH * GEN_NEW
-    emit({"phase": "generate", "layers": L, "dtype": cfg.dtype,
+    emit({"phase": phase, "layers": L, "dtype": cfg.dtype,
           "batch": GEN_BATCH, "prompt": GEN_PROMPT,
           "new_tokens": GEN_NEW, "decode_chunk": GEN_CHUNK,
           "wall_s": {k: v[1] for k, v in runs.items()},
@@ -4161,25 +4311,42 @@ def phase_generate(model):
           "launches": {n: runs["greedy"][2][n] for n in want},
           "launches_expected": want,
           "unified_steps": steps, "tail_ticks": tail,
-          "seeded_repeat_equal": bool(np.array_equal(
-              runs["top_k"][0], runs["top_k_again"][0])),
-          "greedy_equals_direct": bool(np.array_equal(
-              runs["greedy"][0], direct["greedy"])),
-          "top_k_equals_direct": bool(np.array_equal(
-              runs["top_k"][0], direct["top_k"])),
+          **{f"{label}_equals_direct": v for label, v in same.items()},
           "first_tokens": runs["greedy"][0][:, :4].tolist()})
     for label, (out, _, launches) in runs.items():
-        _launch_check(f"generate {label}", launches, want)
+        _launch_check(f"{phase} {label}", launches, want)
         if out.shape != (GEN_BATCH, GEN_NEW) or out.min() < 0 \
                 or out.max() >= cfg.vocab_size:
-            raise RuntimeError(f"generate {label}: ids {out.shape} out of "
+            raise RuntimeError(f"{phase} {label}: ids {out.shape} out of "
                                f"range")
-    if not np.array_equal(runs["top_k"][0], runs["top_k_again"][0]):
-        raise RuntimeError("two seeded generate calls gave other ids")
-    for label in ("greedy", "top_k"):
-        if not np.array_equal(runs[label][0], direct[label]):
-            raise RuntimeError(f"generate {label} differs from the direct "
+    for label, equal in same.items():
+        if not equal:
+            raise RuntimeError(f"{phase} {label} differs from the direct "
                                f"engine run")
+    return ids, want, runs
+
+
+def phase_generate(model):
+    """``model.generate`` at llama_7b's width and depth (32 layers, bf16):
+    greedy and seeded top-k, each against a direct engine run
+    (``_generate_vs_direct``), and the seeded call again (the two equal).
+    Then the fp32 check at 7B widths, 2 layers: kernels vs plain
+    versions."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launches
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    sampled = dict(temperature=0.8, top_k=40, seed=5)
+    ids, want, runs = _generate_vs_direct(
+        model, "generate", {"greedy": {}, "top_k": sampled})
+    reset_launches()
+    again = model.generate(ids, max_new_tokens=GEN_NEW, **sampled)
+    _launch_check("generate top_k_again", dict(LAUNCHES), want)
+    repeat = bool(np.array_equal(runs["top_k"][0], again.cpu().numpy()))
+    emit({"phase": "generate", "check": "seeded_repeat", "equal": repeat})
+    if not repeat:
+        raise RuntimeError("two seeded generate calls gave other ids")
     # fp32, 7B widths, 2 layers: kernels vs plain versions
     small = LlamaForCausalLM(llama_7b(num_hidden_layers=2,
                                       dtype="float32"), device="cuda",
@@ -4205,6 +4372,70 @@ def phase_generate(model):
         raise RuntimeError("fp32 generate: kernels and plain versions "
                            "differ, or the launches are wrong")
     return runs["greedy"][2]
+
+
+def phase_llama13b():
+    """LLaMA-13B served (Queue A step 12c's ``llama_13b``: 40 heads of
+    128 over 40 KV heads, hidden 5120, FFN 13824, 40 layers). First each
+    serving kernel against its plain version at ``H13`` in bf16, at the
+    ``kernels`` phase's shapes (``L13_KERNELS``: ragged's packed tick-0
+    buffer, both grids, and its edge spans; paged and dense decode at
+    B=8, ``S_max`` 4096; flash at B=4, S=512 and 2048; the fused tick at
+    13B widths, 2 layers, 8 and 37 rows), the same bits twice. Then 13B
+    widths at 2 layers in fp32 through the three engines, kernels against
+    plain (``_three_engines``). Then the whole model, 40 layers in bf16
+    (26.0 GB of seeded weights), on the serve phase's 8 requests through
+    the default, the fused-tick and the dense engine, one freed before
+    the next, each run's launches the code's count at 40 layers; and
+    ``model.generate`` against a direct engine run. Returns the ``@13b``
+    rows and their launches on this path."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_13b
+    from paddle_tpu_torch.serving import GenerationRequest
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    info = {"geometry": "llama_13b", "heads": H13.h, "kv_heads": H13.hkv,
+            "head_dim": H13.d}
+    rows = {}
+    for name in L13_KERNELS:
+        row = (fused_case(name, "bfloat16", dev, gen, heads=H13,
+                          config=llama_13b())
+               if name == "fused_decode_tick"
+               else kernel_case(name, "bfloat16", dev, gen, heads=H13))
+        rows[name] = dict(row, **info)
+        emit({"phase": "llama13b", **rows[name]})
+        torch.cuda.empty_cache()
+    # llama_13b fixes the depth (its overrides pass no layer count on)
+    small = dataclasses.replace(llama_13b(dtype="float32"),
+                                num_hidden_layers=2)
+    model = LlamaForCausalLM(small, device="cuda", seed=1)
+    _three_engines(model, small, "llama13b")
+    del model
+    _free()
+    cfg = llama_13b(dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    emit({"phase": "llama13b", "check": "model",
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "weights_gb": sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9,
+          "allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
+    reqs = _serve_requests(GenerationRequest, cfg.vocab_size)
+    runs = {label: _serve_run(model, cfg, reqs, label, knob, False,
+                              heads=H13, phase="llama13b")
+            for label, knob, _ in ENGINES}
+    streams = {label: toks for label, (_, toks) in runs.items()}
+    emit({"phase": "llama13b", "check": "streams_vs_default",
+          "equal": {label: streams[label] == streams["default"]
+                    for label in streams}})
+    launches = {n: runs["default"][0][n]
+                for n in ("flash", "ragged_attention", "paged_decode")}
+    for label, _, own in ENGINES[1:]:
+        launches[own] = runs[label][0][own]
+    _free()
+    _generate_vs_direct(model, "llama13b_generate", {"greedy": {}})
+    del model, runs
+    _free()
+    return rows, launches
 
 
 def parse_prometheus(text):
@@ -7848,6 +8079,496 @@ def phase_ernie(smi):
     return rows
 
 
+# ------------------------------------------------- hapi and the vision zoo
+#: the Paddle quick start through paddle.Model: LeNet on MNIST-shaped
+#: FakeData (1 x 28 x 28, 10 classes), batch 64, one epoch of 20 batches
+HAPI_B, HAPI_BATCHES, HAPI_EVAL_BATCHES = 64, 20, 4
+#: mobilenet_v2 through Model.fit at ImageNet's shape: warm-up and timed
+#: steps (batch VIS_B = 64, 224 x 224, the vision phase's optimizer)
+HAPI_ZOO_WARM, HAPI_ZOO_STEPS = 2, 5
+#: MobileNetV2's published multiply-adds at 224 x 224, width 1.0
+#: (Sandler et al. 2018, Table 3: 300 M)
+MOBILENET_V2_MACS = 300e6
+#: the other new families, one constructor each, one fp32 step at batch
+#: 16 at its own input side
+HAPI_FAMILIES = (("alexnet", 224), ("vgg16", 224), ("squeezenet1_1", 224),
+                 ("mobilenet_v1", 224), ("mobilenet_v3_large", 224),
+                 ("shufflenet_v2_x1_0", 224), ("densenet121", 224),
+                 ("googlenet", 224), ("inception_v3", 299))
+HAPI_FAMILY_B = 16
+#: card against CPU in float64: (model, input side); batch 2
+HAPI_F64_MODELS = (("LeNet", 28), ("mobilenet_v3_small", 64),
+                   ("shufflenet_v2_x0_25", 64), ("densenet121", 64))
+HAPI_F64_LOSS_RTOL, HAPI_F64_GRAD_TOL = 1e-10, 1e-8
+#: the step the port runs, its cross entropy cast to float32: loss and
+#: gradients card against CPU within 4 float32 ulps (2^-23 relative) of
+#: the loss and of each gradient's largest entry
+HAPI_F32_CAST_TOL = 4 * 2 ** -23
+#: a gradient under this share of the model's largest is zero in exact
+#: arithmetic (a BatchNorm's bias that feeds a convolution and another
+#: BatchNorm, whose mean subtraction cancels it): rounding noise on both
+#: sides, held to the model's largest gradient
+HAPI_ZERO_GRAD = 1e-6
+#: vision.ops card against CPU in float64: values and gradients of their
+#: largest magnitude
+VOPS_TOL, VOPS_GRAD_TOL = 1e-10, 1e-8
+
+
+def _hapi_losses(pkg_loss, outs, label):
+    """Cross entropy of a model's output, GoogLeNet's three heads summed
+    with its aux weight 0.3."""
+    if isinstance(outs, tuple):
+        main, *aux = outs
+        return pkg_loss(main, label) + 0.3 * sum(pkg_loss(a, label)
+                                                 for a in aux)
+    return pkg_loss(outs, label)
+
+
+def _hapi_quick_start(smi, tmp):
+    """LeNet through ``Model.prepare``/``fit``/``evaluate``/``predict``
+    with every callback; the callbacks' effects; ``save``/``load``
+    resuming bit for bit (deterministic cuDNN for that leg)."""
+    import json
+    import os
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import datasets
+
+    class Recorder(paddle.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.evals, self.ms = [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - self._t0))
+            self.losses.append(logs["loss"])
+
+        def on_eval_end(self, logs=None):
+            self.evals.append(dict(logs))
+
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    train = datasets.FakeData(HAPI_BATCHES * HAPI_B, (1, 28, 28), 10)
+    evald = datasets.FakeData(HAPI_EVAL_BATCHES * HAPI_B, (1, 28, 28), 10)
+    model = paddle.Model(paddle.vision.models.LeNet())
+    sched = paddle.optimizer.lr.StepDecay(0.001, step_size=10, gamma=0.5)
+    model.prepare(paddle.optimizer.Adam(learning_rate=sched,
+                                        parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    rec = Recorder()
+    stop = paddle.callbacks.EarlyStopping(monitor="acc", patience=1)
+    plateau = paddle.callbacks.ReduceLROnPlateau(monitor="loss", patience=0,
+                                                 verbose=0)
+    ckpt, vdl = os.path.join(tmp, "ckpt"), os.path.join(tmp, "vdl")
+    _free()
+    t0 = time.perf_counter()
+    import warnings
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        model.fit(train, evald, batch_size=HAPI_B, epochs=1, verbose=0,
+                  callbacks=[rec, stop,
+                             paddle.callbacks.ModelCheckpoint(save_dir=ckpt),
+                             paddle.callbacks.LRScheduler(by_step=True),
+                             plateau, paddle.callbacks.VisualDL(vdl)])
+    fit_s = time.perf_counter() - t0
+    logs = model.evaluate(evald, batch_size=HAPI_B, verbose=0)
+    # predict feeds every field of an item to the network: images alone
+    images = paddle.io.TensorDataset([np.stack(
+        [evald[i][0] for i in range(len(evald))])])
+    pred = model.predict(images, batch_size=HAPI_B, stack_outputs=True)
+    files = sorted(os.listdir(ckpt))
+    scalars = [json.loads(ln) for ln in open(os.path.join(vdl,
+                                                          "scalars.jsonl"))]
+    losses = rec.losses
+    falling = float(np.mean(losses[-5:])) < float(np.mean(losses[:5]))
+    checks = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "losses_falling": falling,
+        # train_batch and the LRScheduler callback each step the rate
+        "rate_steps": sched.last_epoch,
+        "rate_double_stepped": sched.last_epoch == 2 * HAPI_BATCHES,
+        "checkpoint_files": files,
+        "checkpoints_written": files == ["0.pdopt", "0.pdparams",
+                                         "final.pdopt", "final.pdparams"],
+        "scalars_written": [r["step"] for r in scalars]
+        == list(range(HAPI_BATCHES)) and np.allclose(
+            [r["loss"] for r in scalars], losses),
+        "early_stopping_best": stop.best,
+        "plateau_best": plateau.best,
+        "eval_logged": len(rec.evals) == 1
+        and set(rec.evals[0]) == {"loss", "acc"},
+        "evaluate_logs": logs,
+        "predict_shape": list(pred[0].shape),
+        "predict_ok": pred[0].shape == (HAPI_EVAL_BATCHES * HAPI_B, 10)
+        and bool(np.isfinite(pred[0]).all())}
+    # save, two more batches; a fresh Model loaded gives them bit for bit
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        xs = [paddle.to_tensor(np.random.RandomState(s).randn(
+            HAPI_B, 1, 28, 28).astype(np.float32)) for s in (1, 2)]
+        ys = [paddle.to_tensor(np.random.RandomState(s).randint(
+            0, 10, (HAPI_B, 1))) for s in (3, 4)]
+        model.save(os.path.join(tmp, "resume"))
+        want = [model.train_batch(x, y)[0] for x, y in zip(xs, ys)]
+        paddle.seed(77)
+        again = paddle.Model(paddle.vision.models.LeNet())
+        sched2 = paddle.optimizer.lr.StepDecay(0.001, step_size=10,
+                                               gamma=0.5)
+        again.prepare(paddle.optimizer.Adam(learning_rate=sched2,
+                                            parameters=again.parameters()),
+                      paddle.nn.CrossEntropyLoss())
+        again.load(os.path.join(tmp, "resume"))
+        got = [again.train_batch(x, y)[0] for x, y in zip(xs, ys)]
+        same_w = all(torch.equal(a, b) for a, b in zip(
+            model.state_dict().values(), again.state_dict().values()))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    checks["resume_bit_for_bit"] = got == want and same_w
+    try:
+        model.save(os.path.join(tmp, "inference"), training=False)
+    except ValueError as e:               # no input spec was given
+        checks["save_inference_refused"] = str(e)[:60]
+    line = {"phase": "hapi", "check": "quick_start", "card": smi,
+            "model": "LeNet", "batch": HAPI_B, "batches": HAPI_BATCHES,
+            "fit_s": fit_s, "step_ms": float(np.mean(rec.ms[2:])),
+            "losses": [round(v, 4) for v in losses], **checks}
+    emit(line)
+    bad = [k for k in ("losses_finite", "losses_falling",
+                       "rate_double_stepped", "checkpoints_written",
+                       "scalars_written", "eval_logged", "predict_ok",
+                       "resume_bit_for_bit") if not checks[k]]
+    if bad:
+        raise RuntimeError(f"hapi quick start: {bad} failed: {line}")
+
+
+def _hapi_zoo_fit(smi):
+    """``mobilenet_v2()`` at 224², batch 64, from FakeData through the
+    vision training transforms, through ``Model.fit``: the vision phase's
+    optimizer, 2 warm-up and 5 timed steps in fp32; ``paddle.flops``
+    beside the published multiply-adds."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    net = paddle.vision.models.mobilenet_v2()
+    sched = paddle.optimizer.lr.PiecewiseDecay(
+        [e * VIS_EPOCH_STEPS for e in (30, 60, 90)],
+        [0.1, 0.01, 0.001, 0.0001])
+    opt = paddle.optimizer.Momentum(
+        learning_rate=sched, momentum=0.9, parameters=net.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(1e-4))
+    model = paddle.Model(net)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss())
+    macs = paddle.flops(net, [1, 3, VIS_SIDE, VIS_SIDE])
+    with contextlib.redirect_stdout(None):      # its table: 158 rows
+        params = paddle.summary(net)
+    ms, losses = [], []
+
+    class Timer(paddle.callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - self._t0))
+            losses.append(logs["loss"])
+
+    _free()
+    steps = HAPI_ZOO_WARM + HAPI_ZOO_STEPS
+    loader = _vision_loader(steps, VIS_WORKERS, "thread", 5)
+    model.fit(loader, epochs=1, verbose=0, callbacks=[Timer()],
+              num_iters=steps)
+    timed_ms = float(np.mean(ms[HAPI_ZOO_WARM:]))
+    row = {"phase": "hapi", "check": "zoo_fit", "card": smi,
+           "model": "mobilenet_v2", "batch": VIS_B, "side": VIS_SIDE,
+           "dtype": "float32", "steps": len(ms),
+           "step_ms": [round(t, 3) for t in ms],
+           "mean_step_ms": timed_ms, "images_per_s": VIS_B / timed_ms * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": [round(v, 4) for v in losses],
+           "flops_macs": macs, "published_macs": MOBILENET_V2_MACS,
+           "flops_over_published": macs / MOBILENET_V2_MACS,
+           "parameters": params["total_params"],
+           "train_tflops": 6 * macs * VIS_B / timed_ms / 1e9}
+    emit(row)
+    if len(ms) != steps or not np.isfinite(losses).all():
+        raise RuntimeError(f"hapi zoo fit: {row}")
+    return row
+
+
+def _hapi_families(smi):
+    """One fp32 training step of each new family (batch 16 at its own
+    input side) through ``Model.train_batch``, after one warm-up step:
+    a finite loss, step ms, peak memory."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    out = {}
+    for name, side in HAPI_FAMILIES:
+        _free()
+        paddle.set_device("gpu:0")
+        paddle.seed(1)
+        net = getattr(paddle.vision.models, name)()
+        ce = paddle.nn.CrossEntropyLoss()
+        model = paddle.Model(net).prepare(
+            paddle.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                      parameters=net.parameters()),
+            lambda outs, y: _hapi_losses(ce, outs, y))
+        r = np.random.RandomState(2)
+        x = paddle.to_tensor(r.randn(HAPI_FAMILY_B, 3, side, side).astype(
+            np.float32))
+        y = paddle.to_tensor(r.randint(0, 1000, (HAPI_FAMILY_B, 1)))
+        model.train_batch(x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.train_batch(x, y)[0]
+        torch.cuda.synchronize()
+        out[name] = {"side": side, "loss": loss,
+                     "step_ms": 1e3 * (time.perf_counter() - t0),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated()
+                     / 2 ** 30}
+        del model, net, x, y
+    emit({"phase": "hapi", "check": "families", "card": smi,
+          "batch": HAPI_FAMILY_B, "dtype": "float32", "models": out})
+    bad = {n: r for n, r in out.items() if not math.isfinite(r["loss"])}
+    if bad:
+        raise RuntimeError(f"hapi families: non-finite losses {bad}")
+
+
+def _zoo_grad_errs(a, b):
+    """Each gradient's largest difference over its largest entry (a
+    gradient that is zero in exact arithmetic over the model's largest
+    times ``HAPI_ZERO_GRAD``)."""
+    top = max(float(w.abs().max()) for w in b.values())
+    return {n: float((a[n] - w).abs().max()) / max(
+        float(w.abs().max()), HAPI_ZERO_GRAD * top) for n, w in b.items()}
+
+
+def zoo_card_vs_cpu(name, side, dev="gpu:0"):
+    """One training step of ``name`` (batch 2, ``side``², 10 classes) in
+    float64 on the card and on the CPU from the same state, held at
+    ``HAPI_F64_LOSS_RTOL`` / ``HAPI_F64_GRAD_TOL`` with the cross
+    entropy's float32 cast made a no-op (``_float64_inside``: float64
+    end to end). The step with the cast, the one the port runs, is held
+    at ``HAPI_F32_CAST_TOL``, float32 ulps: the cast rounds the two
+    devices' logits apart by up to an ulp (LeNet's loss: 9.1e-8 on an
+    H100, 1.4e-10 on the CPU), which no float64 bound can hold; each
+    device's own distance from its all-float64 step is reported beside
+    it. Returns the row; raises past a bound."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import models
+    r = np.random.RandomState(61)
+    x = r.randn(2, 1 if name == "LeNet" else 3, side, side)
+    y = r.randint(0, 10, (2, 1))
+
+    def make():
+        return getattr(models, name)(num_classes=10)
+
+    def run(m, d):
+        ce = paddle.nn.CrossEntropyLoss()
+        return _hapi_losses(ce, m(paddle.to_tensor(x, dtype="float64",
+                                                  place=d)),
+                            paddle.to_tensor(y, place=d))
+
+    lc, gc_, sd = _seq_step_on("cpu", make, run, 67)
+    lg, gg, _ = _seq_step_on(dev, make, run, 67, sd)
+    with _float64_inside():
+        lc64, gc64, _ = _seq_step_on("cpu", make, run, 67, sd)
+        lg64, gg64, _ = _seq_step_on(dev, make, run, 67, sd)
+    paddle.set_device("gpu:0")
+    if not (gg.keys() == gc_.keys() == gg64.keys() == gc64.keys()):
+        raise RuntimeError(f"{name} card vs CPU: gradients missing")
+    f64 = _zoo_grad_errs(gg64, gc64)
+    cast = _zoo_grad_errs(gg, gc_)
+    row = {"model": name, "side": side, "loss_cpu": lc64,
+           "loss_rel_err": abs(lg64 - lc64) / abs(lc64),
+           "grad_err_over_max": max(f64.values()),
+           "worst_tensor": max(f64, key=f64.get), "tensors": len(f64),
+           "float32_cast": {
+               "loss_rel_err": abs(lg - lc) / abs(lc),
+               "grad_err_over_max": max(cast.values()),
+               "cpu_loss_vs_float64": abs(lc - lc64) / abs(lc64),
+               "card_loss_vs_float64": abs(lg - lg64) / abs(lg64),
+               "cpu_grad_vs_float64": max(
+                   _zoo_grad_errs(gc_, gc64).values()),
+               "card_grad_vs_float64": max(
+                   _zoo_grad_errs(gg, gg64).values()),
+               "tol": HAPI_F32_CAST_TOL}}
+    c32 = row["float32_cast"]
+    if row["loss_rel_err"] > HAPI_F64_LOSS_RTOL \
+            or row["grad_err_over_max"] > HAPI_F64_GRAD_TOL \
+            or c32["loss_rel_err"] > HAPI_F32_CAST_TOL \
+            or c32["grad_err_over_max"] > HAPI_F32_CAST_TOL:
+        raise RuntimeError(f"{name} card vs CPU float64: {row}")
+    return row
+
+
+def _vops_cases():
+    """``vision.ops`` calls on seeded numpy inputs: name -> (inputs, the
+    inputs that take gradients, the call on a dict of tensors)."""
+    import numpy as np
+    from paddle_tpu_torch.vision import ops as V
+    r = np.random.RandomState(71)
+
+    def boxes(n, side=40.0, lo=2.0, hi=20.0):
+        xy = r.rand(n, 2) * side
+        return np.concatenate([xy, xy + r.rand(n, 2) * (hi - lo) + lo], -1)
+
+    rois = np.concatenate([boxes(4, 6, 1, 5), [[0, 0, 20, 20],
+                                               [9, 9, 12, 12]]])
+    num = np.array([3, 3])
+    scores = np.round(r.rand(40), 1)
+    off = r.randn(2, 2 * 2 * 9, 4, 3) * 1.5
+    return {
+        "box_iou": ({"a": boxes(7), "b": boxes(5)}, (),
+                    lambda t: V.box_iou(t["a"], t["b"])),
+        "box_area": ({"b": boxes(5)}, ("b",), lambda t: V.box_area(t["b"])),
+        "nms": ({"b": boxes(40), "s": scores}, (),
+                lambda t: V.nms(t["b"], 0.3, t["s"], top_k=45)),
+        "nms_multiclass": (
+            {"b": boxes(40), "s": scores, "c": r.randint(0, 3, 40)}, (),
+            lambda t: V.nms(t["b"], 0.3, t["s"], category_idxs=t["c"])),
+        "roi_align": (
+            {"x": r.randn(2, 3, 12, 10), "b": rois, "n": num}, ("x", "b"),
+            lambda t: V.roi_align(t["x"], t["b"], t["n"], (3, 2), 0.5, 2,
+                                  False)),
+        "box_coder": (
+            {"p": boxes(6), "v": r.rand(6, 4) + 0.1, "t": boxes(6)}, ("t",),
+            lambda t: (V.box_coder(t["p"], t["v"], t["t"]),
+                       V.box_coder(t["p"], t["v"], t["t"] * 0.01,
+                                   "decode_center_size", False))),
+        "distribute_fpn_proposals": (
+            {"b": boxes(30, 400, 4, 600)}, (),
+            lambda t: V.distribute_fpn_proposals(t["b"], 2, 5, 4, 224)),
+        "roi_pool": ({"x": r.randn(2, 3, 8, 8), "b": rois, "n": num},
+                     ("x",),
+                     lambda t: V.roi_pool(t["x"], t["b"], t["n"], (3, 2))),
+        "psroi_pool": ({"x": r.randn(2, 18, 8, 8), "b": rois, "n": num},
+                       ("x",),
+                       lambda t: V.psroi_pool(t["x"], t["b"], t["n"], 3,
+                                              0.75)),
+        "prior_box": ({"f": np.zeros((1, 3, 4, 5)),
+                       "i": np.zeros((1, 3, 32, 40))}, (),
+                      lambda t: V.prior_box(t["f"], t["i"], [6.0, 12.0],
+                                            [10.0, 20.0], [2.0], flip=True,
+                                            clip=True)),
+        "yolo_box": ({"x": r.randn(2, 27, 5, 6),
+                      "s": np.array([[320, 400], [256, 300]])}, ("x",),
+                     lambda t: V.yolo_box(t["x"], t["s"],
+                                          [10, 13, 16, 30, 33, 23], 4, 0.3)),
+        "deform_conv2d": (
+            {"x": r.randn(2, 4, 7, 6), "o": off, "w": r.randn(6, 2, 3, 3),
+             "bias": r.randn(6), "m": r.rand(2, 2 * 9, 4, 3)},
+            ("x", "o", "w", "bias", "m"),
+            lambda t: V.deform_conv2d(t["x"], t["o"], t["w"], t["bias"],
+                                      stride=2, padding=1,
+                                      deformable_groups=2, groups=2,
+                                      mask=t["m"])),
+        "matrix_nms": (
+            {"b": np.stack([boxes(12, 30, 4, 16) for _ in range(2)]),
+             "s": r.rand(2, 4, 12)}, (),
+            lambda t: V.matrix_nms(t["b"], t["s"], 0.05, nms_top_k=8,
+                                   keep_top_k=20, use_gaussian=True,
+                                   return_index=True)),
+        "generate_proposals": (
+            {"s": r.rand(2, 3, 4, 5), "d": r.randn(2, 12, 4, 5) * 0.5,
+             "i": np.array([[60.0, 70.0], [55.0, 65.0]]),
+             "a": boxes(60, 50, 4, 30).reshape(4, 5, 3, 4),
+             "v": np.full((4, 5, 3, 4), 0.5)}, (),
+            lambda t: V.generate_proposals(t["s"], t["d"], t["i"], t["a"],
+                                           t["v"], 30, 10, 0.5,
+                                           return_rois_num=True)),
+    }
+
+
+def vision_ops_card_vs_cpu(dev="cuda"):
+    """Every ``vision.ops`` function in float64 on ``dev`` and on the CPU
+    from the same inputs: values within ``VOPS_TOL`` of their largest
+    magnitude, integer outputs (``nms``, ``matrix_nms`` indices, levels,
+    counts) equal, and a seeded cotangent's gradients within
+    ``VOPS_GRAD_TOL`` of their largest where the op is differentiable.
+    Returns each function's errors; raises past a bound."""
+    import numpy as np
+    import torch
+    out, bad = {}, {}
+    for name, (inputs, diff, call) in _vops_cases().items():
+        res = {}
+        for d in ("cpu", dev):
+            t = {k: torch.from_numpy(np.array(v)).to(d)
+                 for k, v in inputs.items()}
+            for k in diff:
+                t[k].requires_grad_(True)
+            outs = call(t)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            if diff:
+                g = torch.Generator().manual_seed(5)
+                loss = sum((o * torch.randn(o.shape, generator=g,
+                                            dtype=o.dtype).to(d)).sum()
+                           for o in outs if o.requires_grad)
+                loss.backward()
+            res[d] = ([o.detach().cpu() for o in outs],
+                      [t[k].grad.detach().cpu() for k in diff],
+                      outs[0].device.type)
+        errs, grads, equal = [], [], True
+        for a, b in zip(res[dev][0], res["cpu"][0]):
+            if a.is_floating_point():
+                errs.append(float((a - b).abs().max()
+                                  / b.abs().max().clamp(min=1e-30))
+                            if b.numel() else 0.0)
+            else:
+                equal = equal and torch.equal(a, b)
+        for a, b in zip(res[dev][1], res["cpu"][1]):
+            grads.append(float((a - b).abs().max()
+                               / b.abs().max().clamp(min=1e-30)))
+        out[name] = {"err": max(errs, default=0.0), "integers_equal": equal,
+                     "grad_err": max(grads, default=None),
+                     "device": res[dev][2]}
+        if not equal or out[name]["err"] > VOPS_TOL or (
+                grads and max(grads) > VOPS_GRAD_TOL):
+            bad[name] = out[name]
+    if bad:
+        raise RuntimeError(f"vision.ops card vs CPU: {bad}")
+    return out
+
+
+def phase_hapi_checks(smi):
+    """``hapi``'s checks, run beside the kernel build (no kernel of the
+    port, nothing timed that a report compares): the Paddle quick start
+    through ``paddle.Model`` (LeNet, every callback; its fit's seconds
+    contended by nvcc), and the card against the CPU in float64 (four
+    models, every ``vision.ops`` function)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        _hapi_quick_start(smi, tmp)
+    f64 = {name: zoo_card_vs_cpu(name, side)
+           for name, side in HAPI_F64_MODELS}
+    emit({"phase": "hapi", "check": "card_vs_cpu_float64", "card": smi,
+          "models": f64})
+    ops = vision_ops_card_vs_cpu()
+    emit({"phase": "hapi", "check": "vision_ops_card_vs_cpu_float64",
+          "card": smi, "tol": VOPS_TOL, "grad_tol": VOPS_GRAD_TOL,
+          "ops": ops})
+
+
+def phase_hapi(smi):
+    """``hapi``'s timed legs, after ``ernie`` on an uncontended host:
+    ``mobilenet_v2`` at full size through ``Model.fit`` and one step of
+    each other new family. No kernel of the port is on this path."""
+    zoo = _hapi_zoo_fit(smi)
+    _hapi_families(smi)
+    return zoo
+
+
 # ---------------------------------------------------------------- training
 # the deepest llama_7b cut whose whole train phase fits one 80 GB H100:
 # at 16 layers the accumulated step's update runs out of memory
@@ -8206,15 +8927,15 @@ def phase_train(profile=False, layers=TRAIN_LAYERS):
 
 
 #: the phases that launch no kernel of the port
-NO_KERNEL_PHASES = {"vision", "seq", "ernie"}
+NO_KERNEL_PHASES = {"vision", "seq", "ernie", "hapi"}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,engine,serve,generate,server,"
-                            "fleet,tp,train_parity,train,substrate,vision,"
-                            "seq,incubate,ernie",
+                            "fleet,tp,llama13b,train_parity,train,"
+                            "substrate,vision,seq,incubate,ernie,hapi",
                     help="comma list of phases after device+build")
     ap.add_argument("--profile", action="store_true",
                     help="repeat the four serve runs and one train "
@@ -8256,7 +8977,7 @@ def main(argv=None):
     # ops the train phase runs next anyway (other phases there load
     # libraries whose device memory the 15-layer train step cannot spare:
     # it ran out of memory after the seq checks); their steps are timed
-    # after the build. Phases that launch no kernel of the port alone
+    # after the build. hapi's checks follow them there. Phases that launch no kernel of the port alone
     # (``--phases seq``) skip the build.
     built = {}
 
@@ -8270,11 +8991,22 @@ def main(argv=None):
 
     build_thread = threading.Thread(target=build, name="kernel-build")
     build_thread.start()
+    # one intra-op thread beside nvcc: the build alone takes ~200 s on
+    # the card's 8 host cores, and every core the phases beside it hold
+    # lengthens it (270-374 s with the GPT legs and hapi's float64 CPU
+    # steps on the default pool)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     try:
         if "substrate" in phases:
             timed("substrate_gpt", phase_substrate_gpt)
+        # hapi's checks too (no port kernel, nothing timed): the card
+        # idles for the rest of the build after the GPT legs
+        if "hapi" in phases:
+            timed("hapi_checks", phase_hapi_checks, smi)
     finally:
         build_thread.join()
+        torch.set_num_threads(threads)
     if "error" in built:
         raise built["error"]
     # training next, on an emptied allocator: its 15 layers are the
@@ -8303,6 +9035,10 @@ def main(argv=None):
                if "incubate" in phases else {})
     if "ernie" in phases:
         timed("ernie", phase_ernie, smi)
+    # the high-level API (paddle.Model, metric, callbacks) training the
+    # vision zoo, and vision.ops (no kernel of the port either)
+    if "hapi" in phases:
+        timed("hapi", phase_hapi, smi)
     rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
     launches = {}
     if "engine" in phases:
@@ -8327,6 +9063,11 @@ def main(argv=None):
         if "tp" in phases:
             timed("tp_serve", phase_tp_serve, model, args.profile)
         del model
+    # LLaMA-13B (26.0 GB of bf16 weights) once the 7B model is freed: the
+    # two never live together
+    _free()
+    l13_rows, l13_launches = (timed("llama13b", phase_llama13b)
+                              if "llama13b" in phases else ({}, {}))
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "memory", "check": "after_serving",
@@ -8456,6 +9197,19 @@ def main(argv=None):
                                        "library_ms", "device_ms",
                                        "launches_fp32", "launches_gqa")},
         "math": route("decode", "bfloat16")})
+    # LLaMA-13B's geometry (40 heads over 40 KV heads of 128, 13B widths):
+    # launches on its 40-layer bf16 serve runs, times from its own rows
+    for name in L13_KERNELS:
+        row = l13_rows.get(name, {})
+        kernels.append({
+            "name": f"{name}@13b", "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "dtype": "bfloat16",
+            "heads": H13.h, "kv_heads": H13.hkv, "head_dim": H13.d,
+            "launches": l13_launches.get(name, 0),
+            **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms", "device_ms")},
+            "math": route(name, "bfloat16")})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,9 +9,11 @@ Paddle-shaped substrate for eager training — dtypes and devices,
 layers, optimizers with LR schedulers and regularizers, AMP and
 ``save``/``load``; ``io`` (datasets, samplers, the DataLoader), the
 conv, pooling and spatial-norm layers and ``vision`` (datasets,
-transforms, ResNet), ``geometric``, ``incubate`` (the fused layers,
-``FusedMultiTransformer`` decoding through the dense decode kernel) and
-the ERNIE models — so a Paddle-style script runs as
+transforms, the model zoo, the detection ops), ``geometric``,
+``incubate`` (the fused layers, ``FusedMultiTransformer`` decoding
+through the dense decode kernel), the ERNIE models, and the high-level
+API (``Model``, ``metric``, ``callbacks``, ``summary``, ``flops``) — so
+a Paddle-style script runs as
 ``import paddle_tpu_torch as paddle``. The Tensor is ``torch.Tensor``. It
 imports neither JAX nor ``paddle_tpu``. New tensors go on ``"gpu:0"``
 unless the caller asks for the CPU (``set_device("cpu")``); importing
@@ -34,7 +36,9 @@ from . import ops  # noqa: F401
 from . import amp, autograd, framework, jit, nn, optimizer  # noqa: F401
 from . import io, regularizer, vision  # noqa: F401
 from . import geometric, incubate  # noqa: F401
+from . import callbacks, metric  # noqa: F401
 from .framework.io import load, save  # noqa: F401
+from .hapi.model import Model  # noqa: F401
 
 bool = bool_  # paddle.bool
 
@@ -46,3 +50,14 @@ def disable_static(place=None):
 
 def in_dynamic_mode():
     return True
+
+
+def summary(net, input_size=None, dtypes=None):
+    from .hapi.summary import summary as _summary
+    return _summary(net, input_size, dtypes)
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    from .hapi.dynamic_flops import flops as _flops
+    return _flops(net, input_size, custom_ops=custom_ops,
+                  print_detail=print_detail)

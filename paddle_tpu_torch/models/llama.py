@@ -89,6 +89,12 @@ def llama_7b(**kw):
     return LlamaConfig(**kw)
 
 
+def llama_13b(**kw):
+    return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                       num_hidden_layers=40, num_attention_heads=40,
+                       num_key_value_heads=40, **kw)
+
+
 def llama_tiny(**kw):
     """Test/dryrun config."""
     defaults = dict(vocab_size=256, hidden_size=64, intermediate_size=128,

@@ -1,4 +1,3 @@
-"""``paddle.vision`` — datasets, transforms and the ResNet models (the
-counterpart of ``paddle_tpu/vision``; ``vision.ops`` and the other models
-wait for ROADMAP.md Queue A step 12c)."""
-from . import datasets, models, transforms  # noqa: F401
+"""``paddle.vision`` — datasets, transforms, the model zoo and the
+detection ops (the counterpart of ``paddle_tpu/vision``)."""
+from . import datasets, models, ops, transforms  # noqa: F401

@@ -1,8 +1,12 @@
 """The vision training path on a GPU: the spatial functionals on the card
 against the same calls on the CPU (cuDNN's convolutions and pools with
 the reference's padding and ceil-mode rules; TF32 off), DataLoader
-batches landing on the card from pinned memory, and a ResNet-18
-``jit.TrainStep`` whose loss falls. Every test is ``cuda``-marked and
+batches landing on the card from pinned memory, a ResNet-18
+``jit.TrainStep`` whose loss falls, and in float64 every ``vision.ops``
+function (values 1e-10, gradients 1e-8 of their max, indices equal) and
+a ShuffleNetV2 training step (float64 end to end, the cross entropy's
+float32 cast made a no-op: loss 1e-10, gradients 1e-8 of their max),
+card against CPU through ``chip_smoke.py``'s checks. Every test is ``cuda``-marked and
 skips without a CUDA device. The file imports neither JAX nor
 ``paddle_tpu``; on the card::
 
@@ -111,3 +115,16 @@ def test_resnet18_train_step_on_the_card(cuda_dev):
     y = paddle.to_tensor(r.randint(0, 10, 8).astype(np.int64))
     losses = [float(step.step((x,), (y,))) for _ in range(5)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_vision_ops_card_vs_cpu_float64(cuda_dev):
+    from chip_smoke import vision_ops_card_vs_cpu
+    out = vision_ops_card_vs_cpu("cuda")
+    assert len(out) == 14
+    assert all(r["device"] == "cuda" for r in out.values())
+
+
+def test_zoo_step_card_vs_cpu_float64(cuda_dev):
+    from chip_smoke import zoo_card_vs_cpu
+    row = zoo_card_vs_cpu("shufflenet_v2_x0_25", 64)
+    assert row["tensors"] > 100
